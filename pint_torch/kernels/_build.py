@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -21,7 +22,7 @@ from typing import Dict, Iterable
 
 __all__ = ["KernelBuildError", "KernelLaunchError", "NVCC_FLAGS",
            "build", "load", "library_path", "check", "ptr", "stream_of",
-           "traced"]
+           "traced", "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -101,6 +102,23 @@ def build(names: Iterable[str]) -> Dict[str, float]:
     if failures:
         raise KernelBuildError("nvcc failed:\n" + "\n".join(failures))
     return times
+
+
+def ptxas_report(log: str, marker: str):
+    """``(registers, stack frame bytes, spill store bytes, spill load
+    bytes)`` of the kernel whose mangled name contains ``marker``, read
+    from an nvcc ``-Xptxas -v`` log (the ``<name>-<hash>.log`` that
+    :func:`build` keeps); None when the log has no such kernel."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines[:-2]):
+        if "Function properties for" in line and marker in line:
+            frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                              r"stores, (\d+) bytes spill loads", lines[i + 1])
+            regs = re.search(r"Used (\d+) registers", lines[i + 2])
+            if frame and regs:
+                return (int(regs.group(1)),
+                        *(int(v) for v in frame.groups()))
+    return None
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,4 +1,5 @@
-// K2 dd_binary: the Damour-Deruelle binary delay per (point, TOA).
+// K2 dd_binary: the Damour-Deruelle binary delay per (point, TOA), with
+// its 17 local partials on request.
 //
 // Replaces pint_tpu/models/binary/engines.py:orbits_pb, solve_kepler,
 // dd_state and dd_delay_core (engines.py:38-226) as called by
@@ -13,19 +14,40 @@
 // days, OM in degrees, OMDOT in deg/yr, M2 in solar masses).  Partials are
 // with respect to tt0 (index 0) and the 16 parameters (1..16).
 //
-// Bound on this card: operations.  Per element it reads tt0 (8 B) and
-// writes the delay (8 B), or 17 more partials, against ~1144 f64
-// operations for the primal (735 of them in the 15 Newton steps; a sine,
-// cosine, arctangent, logarithm or square root counted as 20) and ~446 more
-// per lane with partials, ~8700 in all; at the H100's 34 TFLOP/s f64 that
-// is the binding limit.
-// The design keeps the whole chain in registers (the dual instantiation
-// spills to L1-cached local memory) and reads the parameter row once.
+// Two instantiations.  dd_binary_primal runs dd_forward and writes the
+// delay.  dd_binary_dual (the partials) runs the same dd_forward -- so its
+// delay is bitwise the primal's -- and then a hand-derived reverse sweep:
+// the delay is one scalar of 17 inputs, so its gradient costs one adjoint
+// pass over the ~40 intermediates dd_forward keeps, instead of a 17-wide
+// dual number carried through every operation.  Kepler's equation is not
+// differentiated through its iterations: at the root E - e sin E = M the
+// implicit function theorem gives dE = (dM + sin E de) / (1 - e cos E),
+// which equals the derivative through 15 converged Newton steps to
+// rounding (solve_kepler: below 1e-15 for e <= 0.95).  The plain twin
+// (kernels/dd_binary.py, models/binary/engines.py) repeats both passes
+// operation for operation.
 //
 // NaN propagates: the Newton clamp is written as comparisons that keep NaN,
 // so a point outside the physical domain (SINI > 1 making the Shapiro log
-// negative) poisons its delay instead of returning a number.
-#include "dual.cuh"
+// negative) poisons its delay instead of returning a number; the reverse
+// sweep is seeded with NaN where the delay is not finite, so such a point
+// poisons every partial as well.
+//
+// Bound on this card.  Per element it reads tt0 (8 B) and writes the
+// delay (8 B) and, in the dual, 17 partials (136 B), against the
+// operations counted in chip_smoke.py (K2_PRIMAL_OPS, K2_REVERSE_OPS; a
+// sine, cosine, arctangent, logarithm or square root counted as 20): the
+// 15 Newton steps are most of the primal, which is bound by operations,
+// and the reverse sweep adds about a fifth, which leaves the dual just on
+// the bytes side of the two bounds.  Everything stays in registers (0
+// spill bytes); the parameter row is read once per thread, and the dual's
+// partials are staged in shared memory so that each block writes its rows
+// of the output contiguously.  What holds both instantiations above their
+// bounds is latency: the Newton steps are a chain of dependent sines,
+// cosines and divisions, and the dual's registers (~140 a thread) leave
+// fewer warps to hide it.
+#include <cuda_runtime.h>
+#include <math.h>
 
 namespace {
 
@@ -35,61 +57,195 @@ constexpr double SEC_PER_YEAR = 31557600.0;         // 365.25 * 86400.0
 constexpr double TSUN = 4.925490947000518e-06;      // G Msun / c^3 [s]
 constexpr int NPAR = 16;
 constexpr int NPARTIAL = NPAR + 1;
+constexpr int THREADS = 128;
 
-template <typename T>
-__device__ T dd_delay_math(const T& tt0, const T* p) {
-  // orbits_pb
-  const T pb_s = p[0] * 86400.0;
-  const T pbdot = p[1] + p[2];
-  const T frac = tt0 / pb_s;
-  const T orbits = frac - 0.5 * pbdot * frac * frac;
-  const T pbprime = pb_s + p[1] * tt0;
-  // mean_anomaly
-  const double fl = floor(val(orbits));
-  const T M = (orbits - fl) * TWO_PI;
-  // ecc_at
-  const T e = p[5] + tt0 * p[6];
+// The primal's intermediates that the reverse sweep reads.
+struct Fwd {
+  double pb_s, pbdot, frac, pbprime, e, sinE, cosE, sE2, cE2, sq1p, sq1m,
+      yv, xv, nu, k, nu_cont, omega, a1, m2_tsun, er, eth, so, co, alpha, q,
+      beta, bg, Dre, Drep, Drepp, den, nhat, nD, nhat2, T, brI, r1, inner,
+      brace, sopn, copn, delay;
+};
+
+__device__ __forceinline__ double clip1(double x) {
+  return x < -1.0 ? -1.0 : (x > 1.0 ? 1.0 : x);  // keeps NaN
+}
+
+__device__ __forceinline__ void dd_forward(double t, const double* p,
+                                           Fwd& f) {
+  // orbits_pb, mean_anomaly, ecc_at
+  f.pb_s = p[0] * 86400.0;
+  f.pbdot = p[1] + p[2];
+  f.frac = t / f.pb_s;
+  const double orbits = f.frac - 0.5 * f.pbdot * f.frac * f.frac;
+  f.pbprime = f.pb_s + p[1] * t;
+  const double fl = floor(orbits);
+  const double M = (orbits - fl) * TWO_PI;
+  const double e = p[5] + t * p[6];
+  f.e = e;
   // solve_kepler: 15 clamped Newton steps
-  T E = M + e * dsin(M);
+  double E = M + e * sin(M);
   for (int it = 0; it < 15; ++it) {
-    const T dE = (E - e * dsin(E) - M) / (1.0 - e * dcos(E));
-    E = E - dclip(dE, -1.0, 1.0);
+    const double dE = (E - e * sin(E) - M) / (1.0 - e * cos(E));
+    E = E - clip1(dE);
   }
-  const T sinE = dsin(E);
-  const T cosE = dcos(E);
+  f.sinE = sin(E);
+  f.cosE = cos(E);
   // dd_state: true anomaly and periastron advance
-  const T nu = 2.0 * datan2(dsqrt(1.0 + e) * dsin(E / 2.0),
-                            dsqrt(1.0 - e) * dcos(E / 2.0));
-  const T k = p[8] * DEG / SEC_PER_YEAR / (TWO_PI / pbprime);
-  const T nu_cont = nu + TWO_PI * fl + (val(nu) < 0.0 ? TWO_PI : 0.0);
-  const T omega = p[7] * DEG + k * nu_cont;
-  // a1_at
-  const T a1 = p[3] + tt0 * p[4];
-  // dd_delay_core
-  const T m2_tsun = p[9] * TSUN;
-  const T er = e * (1.0 + p[12]);
-  const T eth = e * (1.0 + p[13]);
-  const T sin_om = dsin(omega);
-  const T cos_om = dcos(omega);
-  const T alpha = a1 * sin_om;
-  const T beta = a1 * dsqrt(1.0 - eth * eth) * cos_om;
-  const T Dre = alpha * (cosE - er) + beta * sinE + p[11] * sinE;
-  const T Drep = -alpha * sinE + (beta + p[11]) * cosE;
-  const T Drepp = -alpha * cosE - (beta + p[11]) * sinE;
-  const T nhat = TWO_PI / pbprime / (1.0 - e * cosE);
-  const T nD = nhat * Drep;
-  const T nhat2 = nhat * nhat;
-  const T delayI =
-      Dre * (1.0 - nhat * Drep + nD * nD + 0.5 * nhat2 * Dre * Drepp -
-             0.5 * e * sinE / (1.0 - e * cosE) * nhat2 * Dre * Drep);
-  const T brace =
-      1.0 - e * cosE -
-      p[10] * (sin_om * (cosE - e) + dsqrt(1.0 - e * e) * cos_om * sinE);
-  const T delayS = -2.0 * m2_tsun * dlog(brace);
-  const T om_plus_nu = omega + nu;
-  const T delayA = p[14] * (dsin(om_plus_nu) + e * sin_om) +
-                   p[15] * (dcos(om_plus_nu) + e * cos_om);
-  return delayI + delayS + delayA;
+  f.sE2 = sin(E / 2.0);
+  f.cE2 = cos(E / 2.0);
+  f.sq1p = sqrt(1.0 + e);
+  f.sq1m = sqrt(1.0 - e);
+  f.yv = f.sq1p * f.sE2;
+  f.xv = f.sq1m * f.cE2;
+  f.nu = 2.0 * atan2(f.yv, f.xv);
+  f.k = p[8] * DEG / SEC_PER_YEAR / (TWO_PI / f.pbprime);
+  f.nu_cont = f.nu + TWO_PI * fl + (f.nu < 0.0 ? TWO_PI : 0.0);
+  f.omega = p[7] * DEG + f.k * f.nu_cont;
+  // a1_at, dd_delay_core
+  f.a1 = p[3] + t * p[4];
+  f.m2_tsun = p[9] * TSUN;
+  f.er = e * (1.0 + p[12]);
+  f.eth = e * (1.0 + p[13]);
+  f.so = sin(f.omega);
+  f.co = cos(f.omega);
+  f.alpha = f.a1 * f.so;
+  f.q = sqrt(1.0 - f.eth * f.eth);
+  f.beta = f.a1 * f.q * f.co;
+  f.bg = f.beta + p[11];
+  f.Dre = f.alpha * (f.cosE - f.er) + f.beta * f.sinE + p[11] * f.sinE;
+  f.Drep = -f.alpha * f.sinE + f.bg * f.cosE;
+  f.Drepp = -f.alpha * f.cosE - f.bg * f.sinE;
+  f.den = 1.0 - e * f.cosE;
+  f.nhat = TWO_PI / f.pbprime / f.den;
+  f.nD = f.nhat * f.Drep;
+  f.nhat2 = f.nhat * f.nhat;
+  f.T = 0.5 * e * f.sinE / f.den;
+  f.brI = 1.0 - f.nhat * f.Drep + f.nD * f.nD +
+          0.5 * f.nhat2 * f.Dre * f.Drepp - f.T * f.nhat2 * f.Dre * f.Drep;
+  const double delayI = f.Dre * f.brI;
+  f.r1 = sqrt(1.0 - e * e);
+  f.inner = f.so * (f.cosE - e) + f.r1 * f.co * f.sinE;
+  f.brace = f.den - p[10] * f.inner;
+  const double delayS = -2.0 * f.m2_tsun * log(f.brace);
+  const double opn = f.omega + f.nu;
+  f.sopn = sin(opn);
+  f.copn = cos(opn);
+  const double delayA =
+      p[14] * (f.sopn + e * f.so) + p[15] * (f.copn + e * f.co);
+  f.delay = delayI + delayS + delayA;
+}
+
+// Reverse sweep: the 17 partials of f.delay into P (tt0, then the row).
+__device__ __forceinline__ void dd_reverse(double t, const double* p,
+                                           const Fwd& f, double* P) {
+  const double e = f.e;
+  const double gd = isfinite(f.delay) ? 1.0 : nan("");
+  // delayA = A0 (sin(omega+nu) + e so) + B0 (cos(omega+nu) + e co)
+  P[15] = gd * (f.sopn + e * f.so);
+  P[16] = gd * (f.copn + e * f.co);
+  const double g_opn = gd * (p[14] * f.copn - p[15] * f.sopn);
+  double g_e = gd * (p[14] * f.so + p[15] * f.co);
+  double g_so = gd * (p[14] * e);
+  double g_co = gd * (p[15] * e);
+  double g_omega = g_opn;
+  double g_nu = g_opn;
+  // delayS = -2 m2_tsun log(brace); brace = den - SINI inner
+  P[10] = gd * (-2.0 * log(f.brace)) * TSUN;
+  const double g_brace = gd * (-2.0 * f.m2_tsun / f.brace);
+  double g_den = g_brace;
+  P[11] = -g_brace * f.inner;
+  const double g_inner = -g_brace * p[10];
+  // inner = so (cosE - e) + r1 co sinE; r1 = sqrt(1 - e^2)
+  g_so = g_so + g_inner * (f.cosE - e);
+  double g_c = g_inner * f.so;
+  g_e = g_e - g_inner * f.so;
+  const double g_r1 = g_inner * f.co * f.sinE;
+  g_co = g_co + g_inner * f.r1 * f.sinE;
+  double g_s = g_inner * f.r1 * f.co;
+  g_e = g_e - g_r1 * e / f.r1;
+  // delayI = Dre brI
+  double g_Dre = gd * f.brI;
+  const double g_brI = gd * f.Dre;
+  double g_nhat = -g_brI * f.Drep;
+  double g_Drep = -g_brI * f.nhat;
+  const double g_nD = g_brI * 2.0 * f.nD;
+  const double g_nhat2 =
+      g_brI * (0.5 * f.Dre * f.Drepp - f.T * f.Dre * f.Drep);
+  g_Dre = g_Dre + g_brI * (0.5 * f.nhat2 * f.Drepp - f.T * f.nhat2 * f.Drep);
+  const double g_Drepp = g_brI * 0.5 * f.nhat2 * f.Dre;
+  const double g_T = -g_brI * f.nhat2 * f.Dre * f.Drep;
+  g_Drep = g_Drep - g_brI * f.T * f.nhat2 * f.Dre;
+  // T = 0.5 e sinE / den; nhat2 = nhat^2; nD = nhat Drep
+  g_e = g_e + g_T * 0.5 * f.sinE / f.den;
+  g_s = g_s + g_T * 0.5 * e / f.den;
+  g_den = g_den - g_T * f.T / f.den;
+  g_nhat = g_nhat + g_nhat2 * 2.0 * f.nhat + g_nD * f.Drep;
+  g_Drep = g_Drep + g_nD * f.nhat;
+  // nhat = 2 pi / pbprime / den; den = 1 - e cosE
+  double g_pbprime = -g_nhat * f.nhat / f.pbprime;
+  g_den = g_den - g_nhat * f.nhat / f.den;
+  g_e = g_e - g_den * f.cosE;
+  g_c = g_c - g_den * e;
+  // Drepp = -alpha cosE - bg sinE; Drep = -alpha sinE + bg cosE
+  double g_alpha = -g_Drepp * f.cosE;
+  g_c = g_c - g_Drepp * f.alpha;
+  double g_bg = -g_Drepp * f.sinE;
+  g_s = g_s - g_Drepp * f.bg;
+  g_alpha = g_alpha - g_Drep * f.sinE;
+  g_s = g_s - g_Drep * f.alpha;
+  g_bg = g_bg + g_Drep * f.cosE;
+  g_c = g_c + g_Drep * f.bg;
+  // Dre = alpha (cosE - er) + beta sinE + GAMMA sinE; bg = beta + GAMMA
+  g_alpha = g_alpha + g_Dre * (f.cosE - f.er);
+  g_c = g_c + g_Dre * f.alpha;
+  const double g_er = -g_Dre * f.alpha;
+  const double g_beta = g_Dre * f.sinE + g_bg;
+  P[12] = g_beta;
+  g_s = g_s + g_Dre * f.bg;
+  // beta = a1 q co; q = sqrt(1 - eth^2); alpha = a1 so
+  double g_a1 = g_beta * f.q * f.co;
+  const double g_q = g_beta * f.a1 * f.co;
+  g_co = g_co + g_beta * f.a1 * f.q;
+  const double g_eth = -g_q * f.eth / f.q;
+  g_a1 = g_a1 + g_alpha * f.so;
+  g_so = g_so + g_alpha * f.a1;
+  g_omega = g_omega + g_so * f.co - g_co * f.so;
+  // eth = e (1 + DTH); er = e (1 + DR)
+  g_e = g_e + g_eth * (1.0 + p[13]) + g_er * (1.0 + p[12]);
+  P[14] = g_eth * e;
+  P[13] = g_er * e;
+  // omega = OM DEG + k nu_cont; k = OMDOT DEG / SEC_PER_YEAR / (2 pi / pbprime)
+  P[8] = g_omega * DEG;
+  const double g_k = g_omega * f.nu_cont;
+  g_nu = g_nu + g_omega * f.k;
+  P[9] = g_k * (DEG / SEC_PER_YEAR / (TWO_PI / f.pbprime));
+  g_pbprime = g_pbprime + g_k * f.k / f.pbprime;
+  // nu = 2 atan2(yv, xv); yv = sq1p sin(E/2); xv = sq1m cos(E/2)
+  const double rr = f.xv * f.xv + f.yv * f.yv;
+  const double g_yv = g_nu * 2.0 * f.xv / rr;
+  const double g_xv = -g_nu * 2.0 * f.yv / rr;
+  const double g_E = g_s * f.cosE - g_c * f.sinE +
+                     0.5 * (g_yv * f.sq1p * f.cE2 - g_xv * f.sq1m * f.sE2);
+  g_e = g_e + 0.5 * (g_yv * f.sE2 / f.sq1p - g_xv * f.cE2 / f.sq1m);
+  // Kepler at its root: dE = (dM + sinE de) / den
+  const double g_M = g_E / f.den;
+  g_e = g_e + g_M * f.sinE;
+  // e = ECC + t EDOT; a1 = A1 + t A1DOT
+  P[6] = g_e;
+  P[7] = g_e * t;
+  P[4] = g_a1;
+  P[5] = g_a1 * t;
+  // M = (orbits - floor) 2 pi; orbits = frac - 0.5 pbdot frac^2;
+  // frac = t / pb_s; pbprime = pb_s + PBDOT t; pb_s = PB 86400
+  const double g_orb = g_M * TWO_PI;
+  const double g_frac = g_orb * (1.0 - f.pbdot * f.frac);
+  const double g_pbdot = -g_orb * 0.5 * f.frac * f.frac;
+  const double g_pbs = g_pbprime - g_frac * f.frac / f.pb_s;
+  P[1] = g_pbs * 86400.0;
+  P[2] = g_pbdot + g_pbprime * t;
+  P[3] = g_pbdot;
+  P[0] = g_frac / f.pb_s + g_pbprime * p[1] + g_e * p[6] + g_a1 * p[4];
 }
 
 __global__ void dd_binary_primal(const double* __restrict__ tt0,
@@ -101,25 +257,40 @@ __global__ void dd_binary_primal(const double* __restrict__ tt0,
   double p[NPAR];
 #pragma unroll
   for (int i = 0; i < NPAR; ++i) p[i] = params[b * NPAR + i];
-  delay[idx] = dd_delay_math<double>(tt0[idx], p);
+  Fwd f;
+  dd_forward(tt0[idx], p, f);
+  delay[idx] = f.delay;
 }
 
+// The block's partials go through shared memory so that its rows of the
+// (B, N, 17) output are written contiguously (one thread's 17 values are
+// 136 B apart from the next thread's).
 __global__ void dd_binary_dual(const double* __restrict__ tt0,
                                const double* __restrict__ params, int B, int N,
                                double* __restrict__ delay,
                                double* __restrict__ partials) {
-  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long)B * N) return;
-  const int b = (int)(idx / N);
-  Dual<NPARTIAL> p[NPAR];
+  __shared__ double rows[THREADS * NPARTIAL];
+  const long first = (long)blockIdx.x * THREADS;
+  const long idx = first + threadIdx.x;
+  const long total = (long)B * N;
+  if (idx < total) {
+    const int b = (int)(idx / N);
+    double p[NPAR];
 #pragma unroll
-  for (int i = 0; i < NPAR; ++i)
-    p[i] = dvar<NPARTIAL>(params[b * NPAR + i], i + 1);
-  const Dual<NPARTIAL> t = dvar<NPARTIAL>(tt0[idx], 0);
-  const Dual<NPARTIAL> r = dd_delay_math<Dual<NPARTIAL>>(t, p);
-  delay[idx] = r.v;
+    for (int i = 0; i < NPAR; ++i) p[i] = params[b * NPAR + i];
+    const double t = tt0[idx];
+    Fwd f;
+    dd_forward(t, p, f);
+    double P[NPARTIAL];
+    dd_reverse(t, p, f, P);
+    delay[idx] = f.delay;
 #pragma unroll
-  for (int i = 0; i < NPARTIAL; ++i) partials[idx * NPARTIAL + i] = r.d[i];
+    for (int i = 0; i < NPARTIAL; ++i) rows[threadIdx.x * NPARTIAL + i] = P[i];
+  }
+  __syncthreads();
+  const long n = (total - first < THREADS ? total - first : THREADS) * NPARTIAL;
+  double* out = partials + first * NPARTIAL;
+  for (long e = threadIdx.x; e < n; e += THREADS) out[e] = rows[e];
 }
 
 }  // namespace
@@ -130,13 +301,12 @@ extern "C" int dd_binary_launch(const double* tt0, const double* params, int B,
   cudaStream_t st = (cudaStream_t)stream;
   const long total = (long)B * N;
   if (total == 0) return 0;
-  const int threads = 128;
-  const long blocks = (total + threads - 1) / threads;
+  const long blocks = (total + THREADS - 1) / THREADS;
   if (partials == nullptr) {
-    dd_binary_primal<<<(unsigned)blocks, threads, 0, st>>>(tt0, params, B, N,
+    dd_binary_primal<<<(unsigned)blocks, THREADS, 0, st>>>(tt0, params, B, N,
                                                            delay);
   } else {
-    dd_binary_dual<<<(unsigned)blocks, threads, 0, st>>>(tt0, params, B, N,
+    dd_binary_dual<<<(unsigned)blocks, THREADS, 0, st>>>(tt0, params, B, N,
                                                          delay, partials);
   }
   return (int)cudaGetLastError();

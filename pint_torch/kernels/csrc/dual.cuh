@@ -158,70 +158,6 @@ __device__ __forceinline__ Dual<K> operator/(double a, const Dual<K>& b) {
   return r;
 }
 
-// ---- elementary functions (double and Dual overloads) --------------------
-__device__ __forceinline__ double dsin(double x) { return sin(x); }
-__device__ __forceinline__ double dcos(double x) { return cos(x); }
-__device__ __forceinline__ double dsqrt(double x) { return sqrt(x); }
-__device__ __forceinline__ double dlog(double x) { return log(x); }
-__device__ __forceinline__ double datan2(double y, double x) { return atan2(y, x); }
-
-template <int K>
-__device__ __forceinline__ Dual<K> dsin(const Dual<K>& a) {
-  Dual<K> r;
-  r.v = sin(a.v);
-  const double c = cos(a.v);
-#pragma unroll
-  for (int i = 0; i < K; ++i) r.d[i] = a.d[i] * c;
-  return r;
-}
-template <int K>
-__device__ __forceinline__ Dual<K> dcos(const Dual<K>& a) {
-  Dual<K> r;
-  r.v = cos(a.v);
-  const double s = -sin(a.v);
-#pragma unroll
-  for (int i = 0; i < K; ++i) r.d[i] = a.d[i] * s;
-  return r;
-}
-template <int K>
-__device__ __forceinline__ Dual<K> dsqrt(const Dual<K>& a) {
-  Dual<K> r;
-  r.v = sqrt(a.v);
-  const double h = 0.5 / r.v;
-#pragma unroll
-  for (int i = 0; i < K; ++i) r.d[i] = a.d[i] * h;
-  return r;
-}
-template <int K>
-__device__ __forceinline__ Dual<K> dlog(const Dual<K>& a) {
-  Dual<K> r;
-  r.v = log(a.v);
-#pragma unroll
-  for (int i = 0; i < K; ++i) r.d[i] = a.d[i] / a.v;
-  return r;
-}
-template <int K>
-__device__ __forceinline__ Dual<K> datan2(const Dual<K>& y, const Dual<K>& x) {
-  Dual<K> r;
-  r.v = atan2(y.v, x.v);
-  const double den = x.v * x.v + y.v * y.v;
-#pragma unroll
-  for (int i = 0; i < K; ++i) r.d[i] = (x.v * y.d[i] - y.v * x.d[i]) / den;
-  return r;
-}
-
-// clip to [lo, hi] that keeps NaN (fmin/fmax would drop it): a NaN input
-// fails both comparisons and passes through with its tangent
-__device__ __forceinline__ double dclip(double x, double lo, double hi) {
-  return x < lo ? lo : (x > hi ? hi : x);
-}
-template <int K>
-__device__ __forceinline__ Dual<K> dclip(const Dual<K>& a, double lo, double hi) {
-  if (a.v < lo) return dconst<K>(lo);
-  if (a.v > hi) return dconst<K>(hi);
-  return a;
-}
-
 // round half to even, like jnp.round / torch.round (CUDA round() rounds
 // half away from zero)
 __device__ __forceinline__ double rne(double x) { return rint(x); }

@@ -6,8 +6,8 @@ as called by ``BinaryDD.delay_func`` (``components.py:195-205``).  Inputs
 with a leading batch axis B: ``tt0`` (B, N) seconds since T0 (barycentric,
 delay-corrected) and ``params`` (B, 16) in the order :data:`DD_PARAMS`.
 Returns the delay (B, N) in seconds; the local partials (B, N, 17) with
-respect to tt0 and the 16 parameters feed the ``jvp`` of the
-:class:`torch.autograd.Function`.
+respect to tt0 and the 16 parameters, from the kernel's reverse sweep,
+feed the ``jvp`` of the :class:`torch.autograd.Function`.
 
 On a CUDA tensor this launches ``csrc/dd_binary.cu`` (or raises); on a CPU
 tensor it runs :func:`dd_binary_reference`, the plain PyTorch twin.
@@ -21,8 +21,7 @@ import torch
 
 from pint_torch import F64
 from pint_torch.kernels import _build
-from pint_torch.kernels.dual import seed
-from pint_torch.models.binary.engines import DD_PARAMS, dd_delay
+from pint_torch.models.binary.engines import DD_PARAMS, dd_forward, dd_partials
 
 __all__ = ["dd_binary", "dd_binary_reference", "DD_PARAMS", "launch_counts",
            "REPLACES"]
@@ -36,18 +35,19 @@ launch_counts = dict.fromkeys(KERNELS.values(), 0)
 
 NPARTIAL = len(DD_PARAMS) + 1
 
+
 def dd_binary_reference(tt0, params, partials: bool = True):
     """Plain PyTorch version of K2: ``(delay, P)`` with ``P`` (B, N, 17)
     the local partials (None when ``partials`` is False); the arithmetic is
-    :func:`pint_torch.models.binary.engines.dd_delay`."""
+    :func:`~pint_torch.models.binary.engines.dd_forward` and, for the
+    partials, :func:`~pint_torch.models.binary.engines.dd_partials`."""
     B, N = tt0.shape
-    if partials:
-        p = {k: seed(params[:, i:i + 1], i + 1, NPARTIAL)
-             for i, k in enumerate(DD_PARAMS)}
-        r = dd_delay(p, seed(tt0, 0, NPARTIAL))
-        return r.v.expand(B, N), r.d.expand(B, N, NPARTIAL)
     p = {k: params[:, i:i + 1] for i, k in enumerate(DD_PARAMS)}
-    return dd_delay(p, tt0).expand(B, N), None
+    f = dd_forward(p, tt0)
+    delay = f["delay"].expand(B, N)
+    if not partials:
+        return delay, None
+    return delay, dd_partials(p, tt0, f).expand(B, N, NPARTIAL)
 
 
 def _lib():

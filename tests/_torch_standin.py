@@ -28,11 +28,22 @@ FULL_SETTINGS = dict(
     n_dmx=72, dmx_days=45.0, rn_modes=45, grid_points=16, grid_niter=1,
     fit_maxiter=2, err_scale=1.0)
 
+#: the full-width stand-in with dense DMX: 216 windows of 15 d (about one
+#: per two observing epochs, as NANOGrav narrowband releases fit them), so
+#: nt = 232 at the M2 x SINI grid
+DMX15_SETTINGS = dict(FULL_SETTINGS, n_dmx=216, dmx_days=15.0)
+
 #: generator settings of the small CPU-test stand-in
 SMALL_SETTINGS = dict(
     seed=7, n_epochs=20, n_subbands=4, mjd_start=54000.0, mjd_end=56000.0,
     subband_dt_s=0.1, backend_switch_mjd=60000.0, n_dmx=3, dmx_days=700.0,
     rn_modes=5, grid_points=4, grid_niter=1, fit_maxiter=2, err_scale=2.5)
+
+#: the small stand-in with 130 DMX windows of 7 d, three epochs (both
+#: receivers) in each: nt = 140 at the grid, past K3's former 128-row limit
+SMALL_DMX_SETTINGS = dict(
+    SMALL_SETTINGS, n_epochs=390, mjd_end=54000.0 + 130 * 7.0 - 1.0,
+    n_dmx=130, dmx_days=7.0, grid_points=3)
 
 _GROUP = {  # (receiver, backend) -> (-f flag, sub-band MHz, error us)
     ("430", "ASP"): ("ASP_430", (422.0, 3.0), 0.7),

@@ -2,8 +2,9 @@
 
 * ``import pint_torch`` and loading a snapshot leave ``jax`` and
   ``pint_tpu`` out of ``sys.modules`` (checked in a fresh interpreter);
-* no module of ``pint_torch``, nor ``chip_smoke.py`` or
-  ``tools/torch_grid_profile.py``, imports either;
+* no module of ``pint_torch``, nor ``chip_smoke.py`` or the port's tools
+  (``tools/torch_grid_profile.py``, ``tools/torch_kernel_variants.py``),
+  imports either;
 * the slice's outputs are float64 and the global default dtype is
   untouched;
 * entry points run on the card unless the caller asks for the CPU.
@@ -28,7 +29,8 @@ FORBIDDEN = ("jax", "jaxlib", "pint_tpu")
 def _port_sources():
     files = sorted((REPO / "pint_torch").rglob("*.py"))
     return files + [REPO / "chip_smoke.py",
-                    REPO / "tools" / "torch_grid_profile.py"]
+                    REPO / "tools" / "torch_grid_profile.py",
+                    REPO / "tools" / "torch_kernel_variants.py"]
 
 
 def test_import_and_load_pull_in_no_jax():
@@ -106,7 +108,8 @@ def test_cpu_tensors_never_reach_a_kernel():
     assert d.shape == (2, 5) and bool(torch.isfinite(d).all())
     assert kernels.launch_counts() == dict.fromkeys(
         ("spin_phase_primal", "spin_phase_dual", "dd_binary_primal",
-         "dd_binary_dual", "schur_cholesky_solve"), 0)
+         "dd_binary_dual", "schur_cholesky_solve_smem",
+         "schur_cholesky_solve_global"), 0)
 
 
 def test_kernel_sources_ship_with_the_package():
@@ -114,5 +117,6 @@ def test_kernel_sources_ship_with_the_package():
     for name in ("spin_phase", "dd_binary", "schur_cholesky_solve"):
         src = (csrc / f"{name}.cu").read_text()
         assert "extern \"C\"" in src and f"{name}_launch" in src
-    assert np.load(REPO / "pint_torch" / "data" / "b1855_standin.npz",
-                   allow_pickle=False)["tdb_hi"].shape == (4005,)
+    for snap in ("b1855_standin.npz", "b1855_dmx15_standin.npz"):
+        assert np.load(REPO / "pint_torch" / "data" / snap,
+                       allow_pickle=False)["tdb_hi"].shape == (4005,)

@@ -187,11 +187,65 @@ def test_dd_binary_twin_matches_reference_engine(k2_inputs):
 
 
 def test_dd_binary_nan_propagates_through_the_shapiro_log(k2_inputs):
+    """SINI > 1 turns the Shapiro brace negative somewhere: the delay is NaN
+    there and so is every one of its 17 partials; elsewhere all stay
+    finite."""
     tt0, params = k2_inputs
     p = params.clone()
-    p[:, 10] = 1.5  # SINI > 1: the Shapiro brace goes negative somewhere
-    d, _ = K2.dd_binary_reference(tt0, p)
-    assert bool(torch.isnan(d).any())
+    p[:, 10] = 1.5
+    d, P = K2.dd_binary_reference(tt0, p)
+    bad = torch.isnan(d)
+    assert bool(bad.any()) and not bool(bad.all())
+    assert bool(torch.isnan(P[bad]).all())
+    assert bool(torch.isfinite(P[~bad]).all())
+
+
+def _k2_orbit(ecc: float, tspan: float, seed: int):
+    rng = np.random.default_rng(seed)
+    B, N = 2, 60
+    base = dict(PB=5.741, PBDOT=-3e-12, XPBDOT=1e-13, A1=3.37, A1DOT=2e-14,
+                ECC=ecc, EDOT=1e-17, OM=87.0, OMDOT=0.02, M2=0.3, SINI=0.97,
+                GAMMA=2e-5, DR=3e-6, DTH=-1e-6, A0=2e-7, B0=-1e-7)
+    params = np.array([[base[k] * (1 + 1e-4 * rng.standard_normal())
+                        for k in K2.DD_PARAMS] for _ in range(B)])
+    tt0 = rng.uniform(-tspan, tspan, (B, N))
+    return _t(tt0), _t(params)
+
+
+@pytest.mark.parametrize("tspan", [3e5, 4e7, 3e8])
+@pytest.mark.parametrize("ecc", [1e-5, 0.3, 0.9])
+def test_dd_binary_reverse_sweep_matches_reference_jacfwd(ecc, tspan):
+    """The twin's reverse sweep (Kepler differentiated at its root) against
+    jacfwd of the reference engine through its 15 Newton steps, at
+    near-circular to eccentric orbits and tt0 from days to a decade: each
+    partial within 1e-12 of its column's max.  The delay is the reference's
+    eager arithmetic, bitwise at e <= 0.3; at e = 0.9 torch's and XLA's CPU
+    sines differ in the last bit on a few TOAs and 1/(1 - e cos E) ~ 10
+    carries that into the delay (measured up to 8.9e-16 s on ~6 s; the
+    forward-mode twin this one replaced differed there too), hence 2e-15 s
+    there."""
+    from pint_tpu.models.binary import engines as eng
+
+    tt0, params = _k2_orbit(ecc, tspan, seed=int(ecc * 1e5) + int(tspan))
+    d, P = K2.dd_binary_reference(tt0, params)
+
+    def fj(t, pr):
+        return eng.dd_delay({k: pr[i] for i, k in enumerate(K2.DD_PARAMS)}, t)
+
+    jac_p = jax.jit(jax.jacfwd(fj, argnums=1))
+    jac_t = jax.jit(lambda t, pr: jax.jvp(
+        fj, (t, pr), (jnp.ones_like(t), jnp.zeros_like(pr)))[1])
+    for b in range(tt0.shape[0]):
+        t = jnp.asarray(tt0[b].numpy())
+        pr = jnp.asarray(params[b].numpy())
+        dj = np.asarray(fj(t, pr))
+        if ecc <= 0.3:
+            np.testing.assert_array_equal(d[b].numpy(), dj)
+        assert np.abs(d[b].numpy() - dj).max() <= 2e-15
+        J = np.concatenate([np.asarray(jac_t(t, pr))[:, None],
+                            np.asarray(jac_p(t, pr))], axis=1)
+        err = np.abs(P[b].numpy() - J).max(axis=0)
+        assert (err <= 1e-12 * np.abs(J).max(axis=0)).all(), err
 
 
 def _jax_schur_solve(Ar, rhs, ridge):
@@ -218,15 +272,51 @@ def test_schur_solve_twin_matches_reference_cholesky():
     Ar[4] = -np.eye(nt)                    # not positive definite
     Ar[5, 2, 3] = Ar[5, 3, 2] = np.nan     # poisoned
     x, ok, cond = K3.schur_cholesky_solve(_t(Ar), _t(rhs), 1e-12)
-    assert K3.launch_counts == {"schur_cholesky_solve": 0}  # CPU: no kernel
-    for b in range(B):
+    assert set(K3.launch_counts.values()) == {0}  # CPU: no kernel
+    _check_schur(Ar, rhs, x, ok, cond)
+
+
+def _check_schur(Ar, rhs, x, ok, cond, ill=()):
+    """Each point against the reference solve: ok flags equal; x within
+    1e-10 of its max and cond within 1e-10, or for the ``ill`` points both
+    within the forward-error bound 1e-15 cond(Arn) (the two factorizations
+    sum in different orders); a failed point all NaN with NaN cond."""
+    for b in range(Ar.shape[0]):
         xj, okj, cj = _jax_schur_solve(jnp.asarray(Ar[b]),
                                        jnp.asarray(rhs[b]), 1e-12)
         assert bool(ok[b]) == bool(okj)
         if bool(okj):
+            tol = 1e-10
+            if b in ill:
+                an = np.sqrt(np.diag(Ar[b]))
+                arn = Ar[b] / np.outer(an, an) + 1e-12 * np.eye(len(an))
+                tol = 1e-15 * np.linalg.cond(arn)
             assert np.abs(x[b].numpy() - np.asarray(xj)).max() \
-                <= 1e-10 * np.abs(np.asarray(xj)).max()
-            assert abs(float(cond[b]) / float(cj) - 1) <= 1e-10
+                <= tol * np.abs(np.asarray(xj)).max()
+            assert abs(float(cond[b]) / float(cj) - 1) <= tol
         else:
             assert bool(torch.isnan(x[b]).all())
             assert math.isnan(float(cond[b])) == math.isnan(float(cj))
+
+
+@pytest.mark.parametrize("nt", [129, 232])
+def test_schur_solve_twin_beyond_128_rows(nt):
+    """K3 takes any nt (the 128-row limit of the first kernel is gone): the
+    twin against the reference Cholesky at nt past both the old limit and
+    the kernel's shared-memory regime, with an ill-conditioned point
+    (eigenvalues 1 to 1e-13), a non-positive-definite point and a NaN
+    point."""
+    rng = np.random.default_rng(nt)
+    B = 5
+    X = rng.standard_normal((B, nt, 2 * nt))
+    scale = 10.0 ** rng.uniform(-4, 4, (B, nt))
+    Ar = (X @ X.transpose(0, 2, 1)) * scale[:, :, None] * scale[:, None, :]
+    q, _ = np.linalg.qr(rng.standard_normal((nt, nt)))
+    Ar[1] = (q * np.logspace(0, -13, nt)) @ q.T
+    Ar[3] = -np.eye(nt)
+    Ar[4, 7, 2] = Ar[4, 2, 7] = np.nan
+    rhs = rng.standard_normal((B, nt)) * scale
+    x, ok, cond = K3.schur_cholesky_solve(_t(Ar), _t(rhs), 1e-12)
+    assert x.shape == (B, nt)
+    assert [bool(v) for v in ok] == [True, True, True, False, False]
+    _check_schur(Ar, rhs, x, ok, cond, ill=(1,))

@@ -108,6 +108,43 @@ def test_grid_poisons_an_unphysical_point(port):
     assert f.last_grid_diagnostics["ladder_rung"].tolist() == [[0, -1]]
 
 
+@pytest.fixture(scope="module")
+def dense_dmx():
+    """The small stand-in with 130 DMX windows (nt = 140 at the grid) in
+    the reference package, exported with its fit and 3x3 grid."""
+    model, toas = standin.make_standin(standin.SMALL_DMX_SETTINGS, full=False)
+    return standin.export_snapshot(model, toas, standin.SMALL_DMX_SETTINGS,
+                                   chunk=16)
+
+
+def test_grid_past_128_fit_parameters_matches_reference(dense_dmx):
+    """K3 takes any nt: the port's GLS grid on a model with 139 fit
+    parameters besides M2 and SINI (nt = 140; the first K3 refused nt >
+    128) against the reference's grid at the slice's bars, chi2 1e-6 rel
+    and the same argmin (measured 1.4e-9), every point at rung 0."""
+    from pint_torch.bridge import load_snapshot, read_snapshot
+    from pint_torch.gls_fitter import GLSFitter
+    from pint_torch.grid import grid_chisq
+
+    meta, ref = read_snapshot(dense_dmx)
+    m, b = load_snapshot(dense_dmx, device="cpu")
+    nfit = len([p for p in m.free_params if p not in ("M2", "SINI")])
+    assert 1 + nfit == 140
+    f = GLSFitter(b, m)
+    chi2 = f.fit_toas(maxiter=2)
+    assert abs(chi2 / meta["reference"]["postfit_chi2"] - 1) <= 1e-6
+    s, _ = grid_chisq(f, ("M2", "SINI"), (ref["ref/grid_m2"],
+                                          ref["ref/grid_sini"]),
+                      niter=1, chunk=16)
+    assert s.shape == (3, 3)
+    assert np.abs(s / ref["ref/grid_chi2"] - 1).max() <= 1e-6
+    argmin = [int(i) for i in np.unravel_index(int(np.nanargmin(s)), s.shape)]
+    assert argmin == meta["reference"]["grid_argmin"]
+    np.testing.assert_array_equal(f.last_grid_diagnostics["ladder_rung"],
+                                  ref["ref/grid_rungs"])
+    assert (ref["ref/grid_rungs"] == 0).all()
+
+
 def test_full_width_fit_matches_committed_reference():
     """The committed B1855-shaped stand-in through the port's fit on the
     CPU (4005 TOAs, 89 free parameters), against the reference outputs in

@@ -2,9 +2,11 @@
 
 The exporter (:func:`_torch_standin.export_snapshot`) needs ``pint_tpu``, so
 it runs here; the port only reads.  Running this file as a script writes
-the committed full-width B1855+09-shaped stand-in::
+the committed full-width B1855+09-shaped stand-ins::
 
     python tests/test_torch_snapshot.py --write pint_torch/data/b1855_standin.npz
+    python tests/test_torch_snapshot.py --settings dmx15 \
+        --write pint_torch/data/b1855_dmx15_standin.npz
 
 The tests check that a small export round-trips through
 :func:`pint_torch.bridge.load_snapshot` bitwise, and that the committed
@@ -112,12 +114,56 @@ def test_committed_file_records_the_exporters_settings():
     assert meta["reference"]["settings"]["seed"] == 20260729
 
 
-def _write(path: str, chunk: int) -> None:
-    """Simulate the full-width stand-in with the reference package, run its
+def test_committed_dense_dmx_file_loads_with_stated_shapes():
+    """The dense-DMX stand-in: 4005 TOAs, 216 DMX windows of 15 d that each
+    hold TOAs at both receivers, 233 free parameters (nt = 232 at the
+    grid), the same noise basis, and a reference grid at rung 0."""
+    from pint_torch.bridge import DMX15_PATH, load_snapshot, read_snapshot
+
+    assert os.path.getsize(DMX15_PATH) < 8 * 1024 * 1024
+    meta, arrays = read_snapshot(DMX15_PATH)
+    m, b = load_snapshot(DMX15_PATH, device="cpu")
+    assert b.ntoas == 4005
+    assert len(m.free_params) == 233
+    assert 1 + len([p for p in m.free_params
+                    if p not in ("M2", "SINI")]) == 232
+    masks = arrays["ctx/DispersionDMX/masks"]
+    assert masks.shape == (216, 4005) and masks.dtype == bool
+    freq = arrays["freq"]
+    for w in masks:
+        assert w.sum() > 0 and freq[w].min() < 500.0 < freq[w].max()
+    Us, _, dims = m.noise_basis_by_component(b)
+    assert dims["PLRedNoise"][1] == 90
+    assert 520 <= sum(U.shape[1] for U in Us) <= 545
+    assert arrays["ref/designmatrix"].shape == (4005, 234)
+    assert arrays["ref/grid_chi2"].shape == (16, 16)
+    assert np.isfinite(arrays["ref/postfit_uncertainties"]).all()
+    assert (arrays["ref/grid_rungs"] == 0).all()
+
+
+def test_committed_dense_dmx_file_records_its_settings():
+    from pint_torch.bridge import DMX15_PATH, read_snapshot
+
+    meta, _ = read_snapshot(DMX15_PATH)
+    settings = meta["reference"]["settings"]
+    assert settings == standin.DMX15_SETTINGS
+    assert (settings["n_dmx"], settings["dmx_days"]) == (216, 15.0)
+    assert {k: v for k, v in settings.items()
+            if k not in ("n_dmx", "dmx_days")} == {
+        k: v for k, v in standin.FULL_SETTINGS.items()
+        if k not in ("n_dmx", "dmx_days")}
+
+
+#: the committed full-width stand-ins, by the exporter's ``--settings``
+SETTINGS = {"b1855": standin.FULL_SETTINGS,
+            "dmx15": standin.DMX15_SETTINGS}
+
+
+def _write(path: str, chunk: int, settings: dict) -> None:
+    """Simulate a full-width stand-in with the reference package, run its
     fit and grid, and write the snapshot (compressed)."""
-    model, toas = standin.make_standin(standin.FULL_SETTINGS, full=True)
-    arrays = standin.export_snapshot(model, toas, standin.FULL_SETTINGS,
-                                     chunk=chunk)
+    model, toas = standin.make_standin(settings, full=True)
+    arrays = standin.export_snapshot(model, toas, settings, chunk=chunk)
     np.savez_compressed(path, **arrays)
 
 
@@ -133,5 +179,8 @@ if __name__ == "__main__":
     ap.add_argument("--chunk", type=int, default=16,
                     help="grid points per reference executable (memory only;"
                          " each point's chi2 is independent of it)")
+    ap.add_argument("--settings", choices=sorted(SETTINGS), default="b1855",
+                    help="b1855: FULL_SETTINGS (72 DMX windows of 45 d); "
+                         "dmx15: DMX15_SETTINGS (216 windows of 15 d)")
     args = ap.parse_args()
-    _write(args.write, args.chunk)
+    _write(args.write, args.chunk, SETTINGS[args.settings])

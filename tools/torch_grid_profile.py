@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
-"""Where the port's time goes on the GPU, for the B1855-shaped stand-in.
+"""Where the port's time goes on the GPU, for the B1855-shaped stand-ins.
 
-Loads ``pint_torch/data/b1855_standin.npz`` onto the card, runs the GLS fit
-and one warm-up 16x16 M2 x SINI grid (``niter=1``, ``chunk=256``), then
-traces one more warm grid and one warm design matrix with
-``torch.profiler`` and prints, per traced region: the wall time, the summed
-device time of all CUDA kernels, the device's busy share (device time over
-wall time), and the ten kernels with the most device time.  Run on a
-machine with a CUDA GPU, from the repository root::
+Loads a committed stand-in onto the card (``b1855``:
+``pint_torch/data/b1855_standin.npz``; ``dmx15``: its dense-DMX sibling
+``b1855_dmx15_standin.npz``), runs the GLS fit and one warm-up 16x16
+M2 x SINI grid (``niter=1``, ``chunk=256``), then traces one more warm grid
+and one warm design matrix with ``torch.profiler`` and prints, per traced
+region: the wall time, the summed device time of all CUDA kernels, the
+device's busy share (device time over wall time), and the ten kernels with
+the most device time.  Run on a machine with a CUDA GPU, from the
+repository root::
 
-    python3 tools/torch_grid_profile.py
+    python3 tools/torch_grid_profile.py [b1855|dmx15 ...]
+
+(all stand-ins when none is named).
 """
 
 from __future__ import annotations
@@ -58,33 +62,38 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from torch.profiler import ProfilerActivity, profile
 
-    from pint_torch.bridge import STANDIN_PATH, load_snapshot, read_snapshot
+    from pint_torch.bridge import (DMX15_PATH, STANDIN_PATH, load_snapshot,
+                                   read_snapshot)
     from pint_torch.gls_fitter import GLSFitter
     from pint_torch.grid import grid_chisq
 
+    snapshots = {"b1855": STANDIN_PATH, "dmx15": DMX15_PATH}
+    names = sys.argv[1:] or list(snapshots)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}; torch {torch.__version__}")
-    _, ref = read_snapshot(STANDIN_PATH)
-    model, batch = load_snapshot(STANDIN_PATH, device="cuda")
-    fitter = GLSFitter(batch, model)
-    fitter.fit_toas(maxiter=2)
-    axes = (ref["ref/grid_m2"], ref["ref/grid_sini"])
-    grid_chisq(fitter, ("M2", "SINI"), axes, niter=1, chunk=256)
-    fitter.model.designmatrix(batch)
-    for label, fn in (
-            ("grid 16x16 warm", lambda: grid_chisq(
-                fitter, ("M2", "SINI"), axes, niter=1, chunk=256)),
-            ("design matrix warm", lambda: fitter.model.designmatrix(batch))):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
+    for name in names:
+        _, ref = read_snapshot(snapshots[name])
+        model, batch = load_snapshot(snapshots[name], device="cuda")
+        fitter = GLSFitter(batch, model)
+        fitter.fit_toas(maxiter=2)
+        axes = (ref["ref/grid_m2"], ref["ref/grid_sini"])
+        grid_chisq(fitter, ("M2", "SINI"), axes, niter=1, chunk=256)
+        fitter.model.designmatrix(batch)
+        for label, fn in (
+                ("grid 16x16 warm", lambda: grid_chisq(
+                    fitter, ("M2", "SINI"), axes, niter=1, chunk=256)),
+                ("design matrix warm",
+                 lambda: fitter.model.designmatrix(batch))):
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        _report(label, prof, wall)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            _report(f"{name} {label}", prof, wall)
     return 0
 
 
