@@ -33,19 +33,33 @@
 // sweep is seeded with NaN where the delay is not finite, so such a point
 // poisons every partial as well.
 //
+// Kepler's equation stops early without changing a bit.  The reference
+// runs a fixed 15 clamped Newton steps, but the step is a function of its
+// iterate's bits alone, so once an iterate repeats the rest of the 15 is
+// known: an iterate equal to the one before is a fixed point (the result),
+// and one equal to the one two steps back is a 2-cycle, whose step 15 lands
+// on one of the pair by the parity of the steps left.  The kernel stops
+// there, so E is bitwise the 15-step result (kernels/dd_binary.py
+// kepler_exit emulates the rule in plain PyTorch).  Near-circular orbits
+// repeat after 2-3 steps; at e >= 0.6 a few elements still run all 15.
+//
 // Bound on this card.  Per element it reads tt0 (8 B) and writes the
 // delay (8 B) and, in the dual, 17 partials (136 B), against the
-// operations counted in chip_smoke.py (K2_PRIMAL_OPS, K2_REVERSE_OPS; a
-// sine, cosine, arctangent, logarithm or square root counted as 20): the
-// 15 Newton steps are most of the primal, which is bound by operations,
-// and the reverse sweep adds about a fifth, which leaves the dual just on
-// the bytes side of the two bounds.  Everything stays in registers (0
-// spill bytes); the parameter row is read once per thread, and the dual's
-// partials are staged in shared memory so that each block writes its rows
-// of the output contiguously.  What holds both instantiations above their
-// bounds is latency: the Newton steps are a chain of dependent sines,
-// cosines and divisions, and the dual's registers (~140 a thread) leave
-// fewer warps to hide it.
+// operations counted in chip_smoke.py (K2_FORWARD_OPS, K2_NEWTON_OPS per
+// step, K2_REVERSE_OPS; a sine, cosine, arctangent, logarithm or square
+// root counted as 20): the primal is bound by operations and the dual by
+// bytes.  What holds both above their bounds is latency: the Newton steps
+// are a chain of dependent sine/cosine pairs and divisions, and the dual's
+// registers (~140 a thread) leave fewer warps to hide it.  The design
+// shortens that chain -- the exit above, and each same-argument sine and
+// cosine from one sincos(), which shares the range reduction and gives the
+// bits of sin() and cos() that the twin calls apart (chip_smoke.py holds
+// the delay bitwise against it) -- and keeps everything in registers (0
+// spill bytes).  The primal runs on a 2-D grid (blockIdx.y = row), so each
+// block loads its parameter row once, behind its threads' tt0 loads, and
+// no thread divides by N; the dual keeps one thread per element on a 1-D
+// grid and stages its partials in shared memory so that each block writes
+// its rows of the output contiguously.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -58,6 +72,7 @@ constexpr double TSUN = 4.925490947000518e-06;      // G Msun / c^3 [s]
 constexpr int NPAR = 16;
 constexpr int NPARTIAL = NPAR + 1;
 constexpr int THREADS = 128;
+constexpr int MAX_GRID_Y = 65535;
 
 // The primal's intermediates that the reverse sweep reads.
 struct Fwd {
@@ -83,17 +98,31 @@ __device__ __forceinline__ void dd_forward(double t, const double* p,
   const double M = (orbits - fl) * TWO_PI;
   const double e = p[5] + t * p[6];
   f.e = e;
-  // solve_kepler: 15 clamped Newton steps
+  // solve_kepler: 15 clamped Newton steps, left once the iterate repeats
+  // (see the head of this file): E_{n+1} equal to E_n is a fixed point,
+  // equal to E_{n-1} a 2-cycle whose step 15 is E_{n+1} or E_n by the
+  // parity of the steps left.  Bits, not ==, are compared, so -0 and +0
+  // (and NaN) stay apart.
   double E = M + e * sin(M);
+  long long before = 0;  // bits of E_{n-1}, from the second step on
   for (int it = 0; it < 15; ++it) {
-    const double dE = (E - e * sin(E) - M) / (1.0 - e * cos(E));
-    E = E - clip1(dE);
+    double sE, cE;
+    sincos(E, &sE, &cE);
+    const double dE = (E - e * sE - M) / (1.0 - e * cE);
+    const double En = E - clip1(dE);
+    const long long bn = __double_as_longlong(En);
+    const long long bE = __double_as_longlong(E);
+    if (bn == bE) break;
+    if (it > 0 && bn == before) {
+      if (((14 - it) & 1) == 0) E = En;
+      break;
+    }
+    before = bE;
+    E = En;
   }
-  f.sinE = sin(E);
-  f.cosE = cos(E);
+  sincos(E, &f.sinE, &f.cosE);
   // dd_state: true anomaly and periastron advance
-  f.sE2 = sin(E / 2.0);
-  f.cE2 = cos(E / 2.0);
+  sincos(E / 2.0, &f.sE2, &f.cE2);
   f.sq1p = sqrt(1.0 + e);
   f.sq1m = sqrt(1.0 - e);
   f.yv = f.sq1p * f.sE2;
@@ -107,8 +136,7 @@ __device__ __forceinline__ void dd_forward(double t, const double* p,
   f.m2_tsun = p[9] * TSUN;
   f.er = e * (1.0 + p[12]);
   f.eth = e * (1.0 + p[13]);
-  f.so = sin(f.omega);
-  f.co = cos(f.omega);
+  sincos(f.omega, &f.so, &f.co);
   f.alpha = f.a1 * f.so;
   f.q = sqrt(1.0 - f.eth * f.eth);
   f.beta = f.a1 * f.q * f.co;
@@ -129,8 +157,7 @@ __device__ __forceinline__ void dd_forward(double t, const double* p,
   f.brace = f.den - p[10] * f.inner;
   const double delayS = -2.0 * f.m2_tsun * log(f.brace);
   const double opn = f.omega + f.nu;
-  f.sopn = sin(opn);
-  f.copn = cos(opn);
+  sincos(opn, &f.sopn, &f.copn);
   const double delayA =
       p[14] * (f.sopn + e * f.so) + p[15] * (f.copn + e * f.co);
   f.delay = delayI + delayS + delayA;
@@ -248,17 +275,26 @@ __device__ __forceinline__ void dd_reverse(double t, const double* p,
   P[0] = g_frac / f.pb_s + g_pbprime * p[1] + g_e * p[6] + g_a1 * p[4];
 }
 
+// One block covers THREADS TOAs of one row b = b0 + blockIdx.y, so the
+// parameter row is loaded once per block and no thread divides by N.  Each
+// thread's tt0 is loaded before the barrier, so that its latency overlaps
+// the row's.
 __global__ void dd_binary_primal(const double* __restrict__ tt0,
-                                 const double* __restrict__ params, int B,
+                                 const double* __restrict__ params, int b0,
                                  int N, double* __restrict__ delay) {
-  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long)B * N) return;
-  const int b = (int)(idx / N);
+  __shared__ double row[NPAR];
+  const long b = (long)b0 + blockIdx.y;
+  const int n = blockIdx.x * THREADS + threadIdx.x;
+  const long idx = b * N + n;
+  const double t = n < N ? tt0[idx] : 0.0;
+  if (threadIdx.x < NPAR) row[threadIdx.x] = params[b * NPAR + threadIdx.x];
+  __syncthreads();
+  if (n >= N) return;
   double p[NPAR];
 #pragma unroll
-  for (int i = 0; i < NPAR; ++i) p[i] = params[b * NPAR + i];
+  for (int i = 0; i < NPAR; ++i) p[i] = row[i];
   Fwd f;
-  dd_forward(tt0[idx], p, f);
+  dd_forward(t, p, f);
   delay[idx] = f.delay;
 }
 
@@ -301,13 +337,17 @@ extern "C" int dd_binary_launch(const double* tt0, const double* params, int B,
   cudaStream_t st = (cudaStream_t)stream;
   const long total = (long)B * N;
   if (total == 0) return 0;
-  const long blocks = (total + THREADS - 1) / THREADS;
   if (partials == nullptr) {
-    dd_binary_primal<<<(unsigned)blocks, THREADS, 0, st>>>(tt0, params, B, N,
-                                                           delay);
+    const unsigned nx = (unsigned)((N + THREADS - 1) / THREADS);
+    for (int b0 = 0; b0 < B; b0 += MAX_GRID_Y) {
+      const unsigned ny = (unsigned)(B - b0 < MAX_GRID_Y ? B - b0 : MAX_GRID_Y);
+      dd_binary_primal<<<dim3(nx, ny), THREADS, 0, st>>>(tt0, params, b0, N,
+                                                         delay);
+    }
   } else {
-    dd_binary_dual<<<(unsigned)blocks, THREADS, 0, st>>>(tt0, params, B, N,
-                                                         delay, partials);
+    const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
+    dd_binary_dual<<<blocks, THREADS, 0, st>>>(tt0, params, B, N, delay,
+                                               partials);
   }
   return (int)cudaGetLastError();
 }

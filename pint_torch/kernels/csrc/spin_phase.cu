@@ -15,8 +15,17 @@
 // per lane, ~261 in all, against 56 B (the delay, k, f and 4 partials).
 // Both lie below the H100's balance of ~10 f64 operations per byte, so
 // both are bound by bytes.
-// The design keeps everything per element in registers and the parameter
-// rows in L1; a later PR can fuse the partials into their consumer.
+//
+// Design.  Both instantiations are templates on S (1..6), so the row and
+// the Horner loop live in registers (no stack frame).  A 2-D grid gives
+// each block THREADS TOAs of one row b (blockIdx.y): the block's first
+// threads load its row into shared memory -- F0, the Horner coefficients
+// F[i] / (i+1)! (the divisions the per-element code made, once per block)
+// and PEPOCH -- while every thread's own inputs are already in flight, and
+// no thread divides by N.  The folds and the tail stay per element.  The
+// dual stages its S + 2 partials in shared memory (rows padded to an odd
+// stride) so that each block writes its rows of the (B, N, S + 2) output
+// contiguously.
 //
 // Partials: with respect to F0..F_{S-1}, the delay and PEPOCH's high word
 // (index S+1).  The mul_mod1 rule mirrors the reference's custom JVP: the
@@ -92,12 +101,21 @@ __device__ __forceinline__ void day2sec(const Dual<K>& d, Dual<K>& e1,
   }
 }
 
-// the spindown phase of one (point, TOA); F holds S spin terms
-template <typename T>
-__device__ void spin_phase_math(double t_hi, double t_lo, double tdb0,
-                                const T& pe_hi, double pe_lo, const T& delay,
-                                const T* F, int S, int has_pe, double& k_out,
-                                T& f_out) {
+// (i)!, exact in float64 for the orders the kernel takes
+__device__ __forceinline__ double factorial(int i) {
+  double r = 1.0;
+  for (int j = 2; j <= i; ++j) r *= (double)j;
+  return r;
+}
+
+// The spindown phase of one (point, TOA).  F0 is the first spin term and
+// C[i] (i = 1..S-1) the Horner coefficient F[i] / (i+1)!, which the block
+// computes once for its row.
+template <typename T, int S>
+__device__ __forceinline__ void spin_phase_math(
+    double t_hi, double t_lo, double tdb0, const T& pe_hi, double pe_lo,
+    const T& delay, const T& F0, const T* C, int has_pe, double& k_out,
+    T& f_out) {
   T folds[3];
   int nf = 0;
   folds[nf++] = Lift<T>::of(t_hi);
@@ -109,7 +127,6 @@ __device__ void spin_phase_math(double t_hi, double t_lo, double tdb0,
     folds[nf++] = -e2;
     tail = tail - pe_lo * DAY_S;
   }
-  const T F0 = F[0];
   double k = 0.0;
   T f = Lift<T>::of(0.0);
   T dt64 = Lift<T>::of(0.0);
@@ -125,13 +142,8 @@ __device__ void spin_phase_math(double t_hi, double t_lo, double tdb0,
   f = f + F0 * tail;
   if (S > 1) {
     T acc = Lift<T>::of(0.0);
-    double fact = 1.0;
-    for (int i = 2; i <= S; ++i) fact *= (double)i;
-    for (int i = S - 1; i >= 1; --i) {
-      const T c = F[i] / fact;
-      acc = acc * dt64 + c;
-      fact /= (double)(i + 1);
-    }
+#pragma unroll
+    for (int i = S - 1; i >= 1; --i) acc = acc * dt64 + C[i];
     f = f + acc * dt64 * dt64;
   }
   const double kk = rne(val(f));
@@ -140,66 +152,125 @@ __device__ void spin_phase_math(double t_hi, double t_lo, double tdb0,
 }
 
 constexpr int SMAX = 6;
+constexpr int THREADS = 128;
+constexpr int MAX_GRID_Y = 65535;
 
+// The block's row b into shared memory: F0, the Horner coefficients
+// F[i] / (i+1)! (i = 1..S-1), PEPOCH's (hi, lo) and, for the partials
+// (DUAL), the coefficients' derivatives 1 / (i+1)! at S + 1 + i.  The
+// first threads compute them with the divisions the per-element code made.
+template <int S, bool DUAL>
+__device__ __forceinline__ void load_row(const double* __restrict__ F,
+                                         const double* __restrict__ pe,
+                                         long b, double* row) {
+  const int t = threadIdx.x;
+  if (t == 0) {
+    row[0] = F[b * S];
+  } else if (t < S) {
+    row[t] = F[b * S + t] / factorial(t + 1);
+  } else if (t < S + 2) {
+    row[t] = pe[2 * b + (t - S)];
+  } else if (DUAL && t < 2 * S + 1) {
+    row[t] = 1.0 / factorial(t - S);
+  }
+  __syncthreads();
+}
+
+// One block covers THREADS TOAs of one row b = b0 + blockIdx.y.  Each
+// thread's inputs are loaded before the row's barrier, so that their
+// latency overlaps the row's.
+template <int S>
 __global__ void spin_phase_primal(const double* __restrict__ t_hi,
                                   const double* __restrict__ t_lo, double tdb0,
                                   const double* __restrict__ pe,
                                   const double* __restrict__ delay,
-                                  const double* __restrict__ F, int B, int N,
-                                  int S, int has_pe, double* __restrict__ k_out,
+                                  const double* __restrict__ F, int b0, int N,
+                                  int has_pe, double* __restrict__ k_out,
                                   double* __restrict__ f_out) {
-  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long)B * N) return;
-  const int b = (int)(idx / N);
-  const int n = (int)(idx - (long)b * N);
-  double Fb[SMAX];
-  for (int i = 0; i < S; ++i) Fb[i] = F[b * S + i];
+  __shared__ double row[S + 2];
+  const long b = (long)b0 + blockIdx.y;
+  const int n = blockIdx.x * THREADS + threadIdx.x;
+  const long idx = b * N + n;
+  const bool in = n < N;
+  const double th = in ? t_hi[n] : 0.0, tl = in ? t_lo[n] : 0.0,
+               dl = in ? delay[idx] : 0.0;
+  load_row<S, false>(F, pe, b, row);
+  if (!in) return;
+  double C[S];
+#pragma unroll
+  for (int i = 1; i < S; ++i) C[i] = row[i];
   double k, f;
-  spin_phase_math<double>(t_hi[n], t_lo[n], tdb0, pe[2 * b], pe[2 * b + 1],
-                          delay[idx], Fb, S, has_pe, k, f);
+  spin_phase_math<double, S>(th, tl, tdb0, row[S], row[S + 1], dl, row[0], C,
+                             has_pe, k, f);
   k_out[idx] = k;
   f_out[idx] = f;
 }
 
+// As the primal, with the S + 2 partials of f staged in shared memory
+// (rows padded to an odd stride) so that the block writes its rows of the
+// (B, N, S + 2) output contiguously.
 template <int S>
 __global__ void spin_phase_dual(const double* __restrict__ t_hi,
                                 const double* __restrict__ t_lo, double tdb0,
                                 const double* __restrict__ pe,
                                 const double* __restrict__ delay,
-                                const double* __restrict__ F, int B, int N,
+                                const double* __restrict__ F, int b0, int N,
                                 int has_pe, double* __restrict__ k_out,
                                 double* __restrict__ f_out,
                                 double* __restrict__ partials) {
   constexpr int K = S + 2;
-  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long)B * N) return;
-  const int b = (int)(idx / N);
-  const int n = (int)(idx - (long)b * N);
-  Dual<K> Fb[S];
+  constexpr int KP = K | 1;
+  __shared__ double row[2 * S + 1];
+  __shared__ double stage[THREADS * KP];
+  const long b = (long)b0 + blockIdx.y;
+  const int n0 = blockIdx.x * THREADS;
+  const int n = n0 + threadIdx.x;
+  const long idx = b * N + n;
+  const bool in = n < N;
+  const double th = in ? t_hi[n] : 0.0, tl = in ? t_lo[n] : 0.0,
+               d = in ? delay[idx] : 0.0;
+  load_row<S, true>(F, pe, b, row);
+  if (in) {
+    Dual<K> C[S];
 #pragma unroll
-  for (int i = 0; i < S; ++i) Fb[i] = dvar<K>(F[b * S + i], i);
-  const Dual<K> dl = dvar<K>(delay[idx], S);
-  const Dual<K> ph = dvar<K>(pe[2 * b], S + 1);
-  double k;
-  Dual<K> f;
-  spin_phase_math<Dual<K>>(t_hi[n], t_lo[n], tdb0, ph, pe[2 * b + 1], dl, Fb,
-                           S, has_pe, k, f);
-  k_out[idx] = k;
-  f_out[idx] = f.v;
+    for (int i = 1; i < S; ++i) {
+      C[i] = dconst<K>(row[i]);
+      C[i].d[i] = row[S + 1 + i];
+    }
+    const Dual<K> F0 = dvar<K>(row[0], 0);
+    const Dual<K> dl = dvar<K>(d, S);
+    const Dual<K> ph = dvar<K>(row[S], S + 1);
+    double k;
+    Dual<K> f;
+    spin_phase_math<Dual<K>, S>(th, tl, tdb0, ph, row[S + 1], dl, F0, C,
+                                has_pe, k, f);
+    k_out[idx] = k;
+    f_out[idx] = f.v;
 #pragma unroll
-  for (int i = 0; i < K; ++i) partials[idx * K + i] = f.d[i];
+    for (int i = 0; i < K; ++i) stage[threadIdx.x * KP + i] = f.d[i];
+  }
+  __syncthreads();
+  const int m = (N - n0 < THREADS ? N - n0 : THREADS) * K;
+  double* out = partials + ((long)b * N + n0) * K;
+  for (int e = threadIdx.x; e < m; e += THREADS)
+    out[e] = stage[(e / K) * KP + e % K];
 }
 
 template <int S>
-cudaError_t launch_dual(const double* t_hi, const double* t_lo, double tdb0,
-                        const double* pe, const double* delay, const double* F,
-                        int B, int N, int has_pe, double* k, double* f,
-                        double* P, cudaStream_t stream) {
-  const long total = (long)B * N;
-  const int threads = 128;
-  const long blocks = (total + threads - 1) / threads;
-  spin_phase_dual<S><<<(unsigned)blocks, threads, 0, stream>>>(
-      t_hi, t_lo, tdb0, pe, delay, F, B, N, has_pe, k, f, P);
+cudaError_t launch(const double* t_hi, const double* t_lo, double tdb0,
+                   const double* pe, const double* delay, const double* F,
+                   int B, int N, int has_pe, double* k, double* f, double* P,
+                   cudaStream_t stream) {
+  const unsigned nx = (unsigned)((N + THREADS - 1) / THREADS);
+  for (int b0 = 0; b0 < B; b0 += MAX_GRID_Y) {
+    const dim3 grid(nx, (unsigned)(B - b0 < MAX_GRID_Y ? B - b0 : MAX_GRID_Y));
+    if (P == nullptr)
+      spin_phase_primal<S><<<grid, THREADS, 0, stream>>>(
+          t_hi, t_lo, tdb0, pe, delay, F, b0, N, has_pe, k, f);
+    else
+      spin_phase_dual<S><<<grid, THREADS, 0, stream>>>(
+          t_hi, t_lo, tdb0, pe, delay, F, b0, N, has_pe, k, f, P);
+  }
   return cudaGetLastError();
 }
 
@@ -213,21 +284,13 @@ extern "C" int spin_phase_launch(const double* t_hi, const double* t_lo,
   cudaStream_t st = (cudaStream_t)stream;
   if (S < 1 || S > SMAX) return (int)cudaErrorInvalidValue;
   if ((long)B * N == 0) return 0;
-  if (partials == nullptr) {
-    const long total = (long)B * N;
-    const int threads = 128;
-    const long blocks = (total + threads - 1) / threads;
-    spin_phase_primal<<<(unsigned)blocks, threads, 0, st>>>(
-        t_hi, t_lo, tdb0, pe, delay, F, B, N, S, has_pe, k, f);
-    return (int)cudaGetLastError();
-  }
   switch (S) {
-    case 1: return (int)launch_dual<1>(t_hi, t_lo, tdb0, pe, delay, F, B, N, has_pe, k, f, partials, st);
-    case 2: return (int)launch_dual<2>(t_hi, t_lo, tdb0, pe, delay, F, B, N, has_pe, k, f, partials, st);
-    case 3: return (int)launch_dual<3>(t_hi, t_lo, tdb0, pe, delay, F, B, N, has_pe, k, f, partials, st);
-    case 4: return (int)launch_dual<4>(t_hi, t_lo, tdb0, pe, delay, F, B, N, has_pe, k, f, partials, st);
-    case 5: return (int)launch_dual<5>(t_hi, t_lo, tdb0, pe, delay, F, B, N, has_pe, k, f, partials, st);
-    default: return (int)launch_dual<6>(t_hi, t_lo, tdb0, pe, delay, F, B, N, has_pe, k, f, partials, st);
+    case 1: return (int)launch<1>(t_hi, t_lo, tdb0, pe, delay, F, B, N, has_pe, k, f, partials, st);
+    case 2: return (int)launch<2>(t_hi, t_lo, tdb0, pe, delay, F, B, N, has_pe, k, f, partials, st);
+    case 3: return (int)launch<3>(t_hi, t_lo, tdb0, pe, delay, F, B, N, has_pe, k, f, partials, st);
+    case 4: return (int)launch<4>(t_hi, t_lo, tdb0, pe, delay, F, B, N, has_pe, k, f, partials, st);
+    case 5: return (int)launch<5>(t_hi, t_lo, tdb0, pe, delay, F, B, N, has_pe, k, f, partials, st);
+    default: return (int)launch<6>(t_hi, t_lo, tdb0, pe, delay, F, B, N, has_pe, k, f, partials, st);
   }
 }
 

@@ -21,10 +21,11 @@ import torch
 
 from pint_torch import F64
 from pint_torch.kernels import _build
-from pint_torch.models.binary.engines import DD_PARAMS, dd_forward, dd_partials
+from pint_torch.models.binary.engines import (DD_PARAMS, dd_forward,
+                                              dd_partials, kepler_inputs)
 
 __all__ = ["dd_binary", "dd_binary_reference", "DD_PARAMS", "launch_counts",
-           "REPLACES"]
+           "REPLACES", "KEPLER_EXITS", "kepler_exit", "kepler_steps"]
 
 NAME = "dd_binary"
 REPLACES = "pint_tpu/models/binary/engines.py:185"
@@ -48,6 +49,54 @@ def dd_binary_reference(tt0, params, partials: bool = True):
     if not partials:
         return delay, None
     return delay, dd_partials(p, tt0, f).expand(B, N, NPARTIAL)
+
+
+#: how the kernel's Kepler solve stops, by the codes of :func:`kepler_steps`
+KEPLER_EXITS = ("15 steps", "fixed point", "2-cycle")
+
+
+def kepler_exit(M, e, niter: int = 15):
+    """The kernel's Kepler exit rule in plain PyTorch: ``(E, steps, kind)``
+    for mean anomalies ``M`` and eccentricities ``e`` of one shape.
+
+    The clamped Newton map is a function of its iterate's bits, so once an
+    iterate repeats the rest of the ``niter`` steps is known: an iterate
+    bitwise equal to the one before is fixed, and one equal to the one two
+    steps back is a 2-cycle, whose step ``niter`` lands on the iterate of
+    its parity.  ``E`` is therefore bitwise the ``niter``-step
+    :func:`~pint_torch.models.binary.engines.solve_kepler`; ``steps`` counts
+    the Newton steps each element runs before it stops, and ``kind`` is the
+    index in :data:`KEPLER_EXITS` of how it stopped."""
+    E = prev = M + e * torch.sin(M)
+    out = E.clone()
+    steps = torch.zeros(E.shape, dtype=torch.int64, device=E.device)
+    kind = torch.zeros_like(steps)
+    done = torch.zeros(E.shape, dtype=torch.bool, device=E.device)
+    for it in range(niter):
+        dE = (E - e * torch.sin(E) - M) / (1.0 - e * torch.cos(E))
+        En = E - torch.where(dE < -1.0, -1.0, torch.where(dE > 1.0, 1.0, dE))
+        bits = En.view(torch.int64)
+        running = ~done
+        steps += running
+        fixed = running & (bits == E.view(torch.int64))
+        cycle = running & ~fixed & (it > 0) & (bits == prev.view(torch.int64))
+        last = En if (niter - 1 - it) % 2 == 0 else E
+        out = torch.where(fixed, En, torch.where(cycle, last, out))
+        kind = torch.where(fixed, 1, torch.where(cycle, 2, kind))
+        done = done | fixed | cycle
+        prev, E = E, En
+    return torch.where(done, out, E), steps, kind
+
+
+def kepler_steps(tt0, params):
+    """:func:`kepler_exit` on K2's inputs ``tt0`` (B, N) and ``params``
+    (B, 16), through the twin's own mean anomaly and eccentricity; used by
+    the tests and by ``chip_smoke.py`` to count the Newton steps the
+    kernel runs on a path's inputs."""
+    B, N = tt0.shape
+    p = {k: params[:, i:i + 1] for i, k in enumerate(DD_PARAMS)}
+    _, M, e = kepler_inputs(p, tt0, {})
+    return kepler_exit(M.expand(B, N), e.expand(B, N))
 
 
 def _lib():

@@ -93,7 +93,10 @@ def _spin_phase_math(t_hi, t_lo, tdb0, pe_hi, pe_lo, delay, F, has_pe):
     if S > 1:
         acc = 0.0
         for i in range(S - 1, 0, -1):
-            c = F[i] / float(math.factorial(i + 1))
+            # tensor by tensor: on CUDA torch divides by a Python float as
+            # a product with its reciprocal, the kernel divides
+            fact = torch.full_like(val(F[i]), float(math.factorial(i + 1)))
+            c = F[i] / fact
             acc = acc * dt64 + c
         f = f + acc * dt64 * dt64
     kk = torch.round(val(f))

@@ -19,8 +19,8 @@ import math
 
 import torch
 
-__all__ = ["DD_PARAMS", "TSUN", "solve_kepler", "dd_forward", "dd_delay",
-           "dd_partials"]
+__all__ = ["DD_PARAMS", "TSUN", "solve_kepler", "kepler_inputs",
+           "dd_forward", "dd_delay", "dd_partials"]
 
 #: the DD parameter row, in the reference's units (PB days, OM deg,
 #: OMDOT deg/yr, M2 Msun)
@@ -56,19 +56,27 @@ def solve_kepler(M, e, niter: int = 15):
     return E
 
 
-def dd_forward(p, tt0) -> dict:
-    """The DD delay (SINI/M2 Shapiro, DR/DTH deformations) under ``delay``,
-    with the intermediates :func:`dd_partials` reads."""
-    f = {}
-    # orbits_pb, mean_anomaly, ecc_at
+def kepler_inputs(p, tt0, f: dict):
+    """orbits_pb, mean_anomaly and ecc_at: ``(fl, M, e)``, the whole orbits
+    since T0, the mean anomaly and the eccentricity at ``tt0``; the
+    intermediates :func:`dd_partials` reads go into ``f``."""
     f["pb_s"] = pb_s = p["PB"] * 86400.0
     f["pbdot"] = pbdot = p["PBDOT"] + p["XPBDOT"]
     f["frac"] = frac = tt0 / pb_s
     orbits = frac - 0.5 * pbdot * frac * frac
-    f["pbprime"] = pbprime = pb_s + p["PBDOT"] * tt0
+    f["pbprime"] = pb_s + p["PBDOT"] * tt0
     fl = torch.floor(orbits)
     M = (orbits - fl) * TWO_PI
     f["e"] = e = p["ECC"] + tt0 * p["EDOT"]
+    return fl, M, e
+
+
+def dd_forward(p, tt0) -> dict:
+    """The DD delay (SINI/M2 Shapiro, DR/DTH deformations) under ``delay``,
+    with the intermediates :func:`dd_partials` reads."""
+    f = {}
+    fl, M, e = kepler_inputs(p, tt0, f)
+    pbprime = f["pbprime"]
     E = solve_kepler(M, e)
     f["sinE"] = sinE = torch.sin(E)
     f["cosE"] = cosE = torch.cos(E)

@@ -112,12 +112,19 @@ def test_spin_phase_vmap_folds_into_the_batch(k1_inputs):
     assert torch.equal(got, want)
 
 
-def test_spin_phase_twin_matches_reference_spindown(k1_inputs):
+@pytest.mark.parametrize("S", [1, 2, 3, 6])
+def test_spin_phase_twin_matches_reference_spindown(k1_inputs, S):
     """The twin against the reference composition of mul_mod1 and
-    day2sec_exact (spindown.py:70-123), bitwise (measured gap 0)."""
+    day2sec_exact (spindown.py:70-123), bitwise (measured gap 0), with
+    S = 1 to 6 spin terms: the orders of the kernel's templates that the
+    card check runs."""
     from pint_tpu import dd as jdd
 
     th, tl, tdb0, pe, dl, F = k1_inputs
+    rng = np.random.default_rng(100 + S)
+    F = torch.cat([F[:, :1], _t(rng.uniform(-1.0, 1.0, (F.shape[0], S - 1))
+                               * 10.0 ** (-3.0 - 11.0 * np.arange(1, S)))],
+                  dim=1)
     k, f, _ = K1.spin_phase_reference(th, tl, tdb0, pe, dl, F)
     for b in range(dl.shape[0]):
         F0 = jnp.float64(float(F[b, 0]))
@@ -246,6 +253,54 @@ def test_dd_binary_reverse_sweep_matches_reference_jacfwd(ecc, tspan):
                             np.asarray(jac_p(t, pr))], axis=1)
         err = np.abs(P[b].numpy() - J).max(axis=0)
         assert (err <= 1e-12 * np.abs(J).max(axis=0)).all(), err
+
+
+@pytest.mark.parametrize("ecc", [2.17e-5, 1e-3, 0.1, 0.3, 0.6, 0.9, 0.95])
+def test_kepler_exit_rule_is_bitwise_the_fixed_count_solve(ecc):
+    """The kernel's exit rule (stop once the Newton iterate repeats) ends on
+    the bits of the twin's 15-step solve_kepler at every eccentricity, and
+    near the reference's solve_kepler through JAX: torch's and XLA's CPU
+    sines may differ in the last bit, which the root carries over as
+    e / (1 - e cos E) <= 1 / (1 - e) of it, so within 1e-15 up to e = 0.3
+    and 1e-15 / (1 - e) beyond (measured: 0 to e = 1e-3, one ulp of E to
+    0.3, up to 8.9e-15 at 0.95).  Both exits occur: fixed points at every
+    e, 2-cycles from e = 1e-3 on; from e = 0.6 some elements run all 15
+    steps."""
+    from pint_tpu.models.binary import engines as eng
+    from pint_torch.models.binary.engines import solve_kepler
+
+    rng = np.random.default_rng(int(ecc * 1e6) + 5)
+    M = _t(rng.uniform(0.0, 2.0 * np.pi, 1 << 16))
+    e = torch.full_like(M, ecc)
+    E, steps, kind = K2.kepler_exit(M, e)
+    assert torch.equal(E.view(torch.int64),
+                       solve_kepler(M, e).view(torch.int64))
+    Ej = np.asarray(eng.solve_kepler(jnp.asarray(M.numpy()),
+                                     jnp.asarray(e.numpy())))
+    tol = 1e-15 if ecc <= 0.3 else 1e-15 / (1.0 - ecc)
+    assert np.abs(E.numpy() - Ej).max() <= tol
+    counts = torch.bincount(kind, minlength=3).tolist()
+    assert counts[1] > 0
+    assert counts[2] > 0 or ecc < 1e-3
+    assert (counts[0] > 0) == (ecc >= 0.6)
+    assert bool((steps[kind == 0] == 15).all())
+    assert 1 <= int(steps.min()) and int(steps.max()) <= 15
+
+
+def test_kepler_steps_follows_the_twins_mean_anomaly(k2_inputs):
+    """kepler_steps runs the exit rule on the twin's own mean anomaly and
+    eccentricity: its E is bitwise the twin's 15-step solve on K2's
+    inputs."""
+    from pint_torch.models.binary.engines import kepler_inputs, solve_kepler
+
+    tt0, params = k2_inputs
+    E, steps, kind = K2.kepler_steps(tt0, params)
+    p = {k: params[:, i:i + 1] for i, k in enumerate(K2.DD_PARAMS)}
+    _, M, e = kepler_inputs(p, tt0, {})
+    assert E.shape == steps.shape == kind.shape == tt0.shape
+    assert torch.equal(E.view(torch.int64),
+                       solve_kepler(M, e).view(torch.int64))
+    assert bool((kind > 0).any())
 
 
 def _jax_schur_solve(Ar, rhs, ridge):

@@ -1,19 +1,36 @@
 #!/usr/bin/env python3
-"""Time design variants of the port's K2 and K3 kernels on the GPU.
+"""Time design variants of the port's K1, K2 and K3 kernels on the GPU.
 
 Each variant is the committed kernel source with one textual change: it is
 built with the kernels' own nvcc flags into ``pint_torch/_build/variants/``,
-its ptxas report (registers, spill bytes) is printed, and it is timed with
-CUDA events against the committed source on the same inputs, in
-alternating rounds, with its outputs checked bitwise against the committed
-kernel's.
-The variants record the design choices of the two kernels:
+its ptxas report (registers, stack frame, spill bytes) is printed, and it
+is timed with CUDA events against the committed source on the same inputs,
+in two rounds (the second in reverse order), with its outputs checked
+bitwise against the committed kernel's.  With ``--parent DIR`` (an unpacked
+earlier tree of the repository) that tree's K1 and K2 sources run beside
+them as the variant ``parent``.  The variants record the design choices of
+the kernels:
 
-* K2 ``dd_binary_dual`` at the main path's shape (B=256, N=4005):
-  ``strided-stores`` writes each thread's 17 partials straight to the
-  output instead of through shared memory; ``bounds-128x4`` and
-  ``bounds-128x5`` cap the registers with ``__launch_bounds__`` (more
-  resident warps, at the price of spills);
+* K2 ``dd_binary_primal`` on the B1855 stand-in's main-path inputs
+  (captured from its GLS fit and M2 x SINI grid, B=256, N=4005) and on the
+  same TOAs with ECC drawn from 0.55-0.65: ``fixed-15`` runs the reference's
+  15 Newton steps with no exit; ``exit-period1`` stops on a fixed point
+  only, not on a 2-cycle; ``1d-grid`` launches one thread per (point, TOA)
+  on a 1-D grid, each thread dividing by N and loading its parameter row;
+  ``sin-and-cos`` calls ``sin()`` and ``cos()`` apart where the kernel
+  takes each same-argument pair from one ``sincos()``; ``row-first`` loads
+  each thread's tt0 after the barrier that publishes the block's parameter
+  row instead of before it;
+* K2 ``dd_binary_dual`` on the same main-path inputs: ``fixed-15``,
+  ``sin-and-cos``, and ``strided-stores``, which writes each thread's 17
+  partials straight to the output instead of through shared memory;
+* K1 ``spin_phase_primal`` and ``spin_phase_dual`` on the main-path inputs
+  (S = 2) and on seeded random inputs with S = 6 at the same shape:
+  ``runtime-S`` is a primal compiled once for any S, its row in a
+  runtime-indexed array and its Horner coefficients divided per element;
+  ``strided-partials`` writes each thread's S + 2 partials straight to the
+  output instead of through shared memory; ``row-first`` (both) loads each
+  thread's inputs after the barrier that publishes the block's row;
 * K3 at nt = 88, 140 and 232 (B=256): ``fused-scale`` scales column j+1
   inside column j's update step (one barrier per column instead of two,
   but the divisions fall to one lane per warp); ``warp-solve`` runs the
@@ -21,11 +38,12 @@ The variants record the design choices of the two kernels:
 
 Run on a machine with a CUDA GPU and nvcc, from the repository root::
 
-    python3 tools/torch_kernel_variants.py
+    python3 tools/torch_kernel_variants.py [--parent DIR] [--only K1,K2,K3]
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
 import sys
@@ -34,16 +52,209 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 CSRC = REPO / "pint_torch" / "kernels" / "csrc"
 
-K2_STRIDED = ("""    for (int i = 0; i < NPARTIAL; ++i) rows[threadIdx.x * NPARTIAL + i] = P[i];
+# ---- K2 ---------------------------------------------------------------------
+K2_EXIT = """  double E = M + e * sin(M);
+  long long before = 0;  // bits of E_{n-1}, from the second step on
+  for (int it = 0; it < 15; ++it) {
+    double sE, cE;
+    sincos(E, &sE, &cE);
+    const double dE = (E - e * sE - M) / (1.0 - e * cE);
+    const double En = E - clip1(dE);
+    const long long bn = __double_as_longlong(En);
+    const long long bE = __double_as_longlong(E);
+    if (bn == bE) break;
+    if (it > 0 && bn == before) {
+      if (((14 - it) & 1) == 0) E = En;
+      break;
+    }
+    before = bE;
+    E = En;
+  }"""
+K2_FIXED15 = """  double E = M + e * sin(M);
+  for (int it = 0; it < 15; ++it) {
+    double sE, cE;
+    sincos(E, &sE, &cE);
+    const double dE = (E - e * sE - M) / (1.0 - e * cE);
+    E = E - clip1(dE);
+  }"""
+K2_CYCLE = """    if (it > 0 && bn == before) {
+      if (((14 - it) & 1) == 0) E = En;
+      break;
+    }
+"""
+#: (sine and cosine apart, as in the twin; one sincos() in the kernel)
+K2_SINCOS = (
+    ("    const double dE = (E - e * sin(E) - M) / (1.0 - e * cos(E));\n"
+     "    const double En",
+     "    double sE, cE;\n    sincos(E, &sE, &cE);\n"
+     "    const double dE = (E - e * sE - M) / (1.0 - e * cE);\n"
+     "    const double En"),
+    ("  f.sinE = sin(E);\n  f.cosE = cos(E);",
+     "  sincos(E, &f.sinE, &f.cosE);"),
+    ("  f.sE2 = sin(E / 2.0);\n  f.cE2 = cos(E / 2.0);",
+     "  sincos(E / 2.0, &f.sE2, &f.cE2);"),
+    ("  f.so = sin(f.omega);\n  f.co = cos(f.omega);",
+     "  sincos(f.omega, &f.so, &f.co);"),
+    ("  f.sopn = sin(opn);\n  f.copn = cos(opn);",
+     "  sincos(opn, &f.sopn, &f.copn);"),
+)
+K2_PRIMAL_2D = """__global__ void dd_binary_primal(const double* __restrict__ tt0,
+                                 const double* __restrict__ params, int b0,
+                                 int N, double* __restrict__ delay) {
+  __shared__ double row[NPAR];
+  const long b = (long)b0 + blockIdx.y;
+  const int n = blockIdx.x * THREADS + threadIdx.x;
+  const long idx = b * N + n;
+  const double t = n < N ? tt0[idx] : 0.0;
+  if (threadIdx.x < NPAR) row[threadIdx.x] = params[b * NPAR + threadIdx.x];
+  __syncthreads();
+  if (n >= N) return;
+  double p[NPAR];
+#pragma unroll
+  for (int i = 0; i < NPAR; ++i) p[i] = row[i];"""
+K2_PRIMAL_1D = """__global__ void dd_binary_primal(const double* __restrict__ tt0,
+                                 const double* __restrict__ params, int B,
+                                 int N, double* __restrict__ delay) {
+  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long)B * N) return;
+  const int b = (int)(idx / N);
+  double p[NPAR];
+#pragma unroll
+  for (int i = 0; i < NPAR; ++i) p[i] = params[b * NPAR + i];
+  const double t = tt0[idx];"""
+K2_PREFETCH = """  const double t = n < N ? tt0[idx] : 0.0;
+  if (threadIdx.x < NPAR) row[threadIdx.x] = params[b * NPAR + threadIdx.x];
+  __syncthreads();
+  if (n >= N) return;
+"""
+K2_ROW_FIRST = """  if (threadIdx.x < NPAR) row[threadIdx.x] = params[b * NPAR + threadIdx.x];
+  __syncthreads();
+  if (n >= N) return;
+  const double t = tt0[idx];
+"""
+K2_LAUNCH_2D = """    const unsigned nx = (unsigned)((N + THREADS - 1) / THREADS);
+    for (int b0 = 0; b0 < B; b0 += MAX_GRID_Y) {
+      const unsigned ny = (unsigned)(B - b0 < MAX_GRID_Y ? B - b0 : MAX_GRID_Y);
+      dd_binary_primal<<<dim3(nx, ny), THREADS, 0, st>>>(tt0, params, b0, N,
+                                                         delay);
+    }"""
+K2_LAUNCH_1D = """    dd_binary_primal<<<(unsigned)((total + THREADS - 1) / THREADS), THREADS,
+                       0, st>>>(tt0, params, B, N, delay);"""
+K2_STAGED = """    for (int i = 0; i < NPARTIAL; ++i) rows[threadIdx.x * NPARTIAL + i] = P[i];
   }
   __syncthreads();
   const long n = (total - first < THREADS ? total - first : THREADS) * NPARTIAL;
   double* out = partials + first * NPARTIAL;
-  for (long e = threadIdx.x; e < n; e += THREADS) out[e] = rows[e];""",
-              """    for (int i = 0; i < NPARTIAL; ++i) partials[idx * NPARTIAL + i] = P[i];
-  }""")
-K2_DUAL = "__global__ void dd_binary_dual("
+  for (long e = threadIdx.x; e < n; e += THREADS) out[e] = rows[e];"""
+K2_STRIDED = """    for (int i = 0; i < NPARTIAL; ++i) partials[idx * NPARTIAL + i] = P[i];
+  }"""
 
+# ---- K1 ---------------------------------------------------------------------
+K1_STAGED = """    for (int i = 0; i < K; ++i) stage[threadIdx.x * KP + i] = f.d[i];
+  }
+  __syncthreads();
+  const int m = (N - n0 < THREADS ? N - n0 : THREADS) * K;
+  double* out = partials + ((long)b * N + n0) * K;
+  for (int e = threadIdx.x; e < m; e += THREADS)
+    out[e] = stage[(e / K) * KP + e % K];"""
+K1_STRIDED = """    for (int i = 0; i < K; ++i) partials[idx * K + i] = f.d[i];
+  }"""
+K1_PREFETCH_PRIMAL = """  const double th = in ? t_hi[n] : 0.0, tl = in ? t_lo[n] : 0.0,
+               dl = in ? delay[idx] : 0.0;
+  load_row<S, false>(F, pe, b, row);
+  if (!in) return;
+"""
+K1_ROW_FIRST_PRIMAL = """  load_row<S, false>(F, pe, b, row);
+  if (!in) return;
+  const double th = t_hi[n], tl = t_lo[n], dl = delay[idx];
+"""
+K1_PREFETCH_DUAL = """  const double th = in ? t_hi[n] : 0.0, tl = in ? t_lo[n] : 0.0,
+               d = in ? delay[idx] : 0.0;
+  load_row<S, true>(F, pe, b, row);
+  if (in) {
+"""
+K1_ROW_FIRST_DUAL = """  load_row<S, true>(F, pe, b, row);
+  if (in) {
+    const double th = t_hi[n], tl = t_lo[n], d = delay[idx];
+"""
+K1_LAUNCH_PRIMAL = """      spin_phase_primal<S><<<grid, THREADS, 0, stream>>>(
+          t_hi, t_lo, tdb0, pe, delay, F, b0, N, has_pe, k, f);"""
+K1_LAUNCH_RUNTIME_S = """      spin_phase_primal_rt<<<grid, THREADS, 0, stream>>>(
+          t_hi, t_lo, tdb0, pe, delay, F, b0, N, S, has_pe, k, f);"""
+K1_LAUNCH_TEMPLATE = "template <int S>\ncudaError_t launch("
+K1_RUNTIME_S = """// runtime-S primal: one kernel for any S, its row in a runtime-indexed
+// array and the Horner coefficients divided per element
+__device__ __forceinline__ void spin_phase_math_rt(
+    double t_hi, double t_lo, double tdb0, double pe_hi, double pe_lo,
+    double delay, const double* F, int S, int has_pe, double& k_out,
+    double& f_out) {
+  double folds[3];
+  int nf = 0;
+  folds[nf++] = t_hi;
+  double tail = t_lo - delay;
+  if (has_pe) {
+    double e1, e2;
+    day2sec(pe_hi - tdb0, e1, e2);
+    folds[nf++] = -e1;
+    folds[nf++] = -e2;
+    tail = tail - pe_lo * DAY_S;
+  }
+  const double F0 = F[0];
+  double k = 0.0, f = 0.0, dt64 = 0.0;
+  for (int i = 0; i < nf; ++i) {
+    double ki, fi;
+    mul_mod1(F0, folds[i], ki, fi);
+    k = k + ki;
+    f = f + fi;
+    dt64 = dt64 + folds[i];
+  }
+  dt64 = dt64 + tail;
+  f = f + F0 * tail;
+  if (S > 1) {
+    double acc = 0.0;
+    double fact = 1.0;
+    for (int i = 2; i <= S; ++i) fact *= (double)i;
+    for (int i = S - 1; i >= 1; --i) {
+      const double c = F[i] / fact;
+      acc = acc * dt64 + c;
+      fact /= (double)(i + 1);
+    }
+    f = f + acc * dt64 * dt64;
+  }
+  const double kk = rne(f);
+  k_out = k + kk;
+  f_out = f - kk;
+}
+
+__global__ void spin_phase_primal_rt(const double* __restrict__ t_hi,
+                                     const double* __restrict__ t_lo,
+                                     double tdb0,
+                                     const double* __restrict__ pe,
+                                     const double* __restrict__ delay,
+                                     const double* __restrict__ F, int b0,
+                                     int N, int S, int has_pe,
+                                     double* __restrict__ k_out,
+                                     double* __restrict__ f_out) {
+  __shared__ double row[SMAX + 2];
+  const long b = (long)b0 + blockIdx.y;
+  if (threadIdx.x < S) row[threadIdx.x] = F[b * S + threadIdx.x];
+  else if (threadIdx.x < S + 2) row[threadIdx.x] = pe[2 * b + threadIdx.x - S];
+  __syncthreads();
+  const int n = blockIdx.x * THREADS + threadIdx.x;
+  if (n >= N) return;
+  const long idx = b * N + n;
+  double Fb[SMAX];
+  for (int i = 0; i < S; ++i) Fb[i] = row[i];
+  double k, f;
+  spin_phase_math_rt(t_hi[n], t_lo[n], tdb0, row[S], row[S + 1], delay[idx],
+                     Fb, S, has_pe, k, f);
+  k_out[idx] = k;
+  f_out[idx] = f;
+}
+
+"""
+
+# ---- K3 ---------------------------------------------------------------------
 K3_COLUMN = """    for (int j = p0; j < p1; ++j) {
       const int jj = j - p0;
       const double s = pv(j, jj);
@@ -128,6 +339,15 @@ K3_WARP_SOLVES = """  if (warp == 0) {
   }
   __syncthreads();"""
 
+#: ptxas markers printed per kernel source
+MARKERS = {
+    "dd_binary": ["dd_binary_primal", "dd_binary_dual"],
+    "spin_phase": ["17spin_phase_primalILi2E", "17spin_phase_primalILi6E",
+                   "17spin_phase_primalE", "20spin_phase_primal_rt",
+                   "15spin_phase_dualILi2E", "15spin_phase_dualILi6E"],
+    "schur_cholesky_solve": ["kernelILb1E", "kernelILb0E"],
+}
+
 
 def _patch(src: str, *pairs) -> str:
     for old, new in pairs:
@@ -138,17 +358,29 @@ def _patch(src: str, *pairs) -> str:
     return src
 
 
-def _variants():
+def _variants(parent):
+    k1 = (CSRC / "spin_phase.cu").read_text()
     k2 = (CSRC / "dd_binary.cu").read_text()
     k3 = (CSRC / "schur_cholesky_solve.cu").read_text()
-    bounds = [(K2_DUAL, f"__global__ void __launch_bounds__(128, {n}) "
-               "dd_binary_dual(") for n in (4, 5)]
-    return {
+    out = {
         "dd_binary": {
             "committed": k2,
-            "strided-stores": _patch(k2, K2_STRIDED),
-            "bounds-128x4": _patch(k2, bounds[0]),
-            "bounds-128x5": _patch(k2, bounds[1]),
+            "fixed-15": _patch(k2, (K2_EXIT, K2_FIXED15)),
+            "exit-period1": _patch(k2, (K2_CYCLE, "")),
+            "1d-grid": _patch(k2, (K2_PRIMAL_2D, K2_PRIMAL_1D),
+                              (K2_LAUNCH_2D, K2_LAUNCH_1D)),
+            "sin-and-cos": _patch(k2, *((b, a) for a, b in K2_SINCOS)),
+            "row-first": _patch(k2, (K2_PREFETCH, K2_ROW_FIRST)),
+            "strided-stores": _patch(k2, (K2_STAGED, K2_STRIDED)),
+        },
+        "spin_phase": {
+            "committed": k1,
+            "runtime-S": _patch(k1, (K1_LAUNCH_TEMPLATE,
+                                     K1_RUNTIME_S + K1_LAUNCH_TEMPLATE),
+                                (K1_LAUNCH_PRIMAL, K1_LAUNCH_RUNTIME_S)),
+            "strided-partials": _patch(k1, (K1_STAGED, K1_STRIDED)),
+            "row-first": _patch(k1, (K1_PREFETCH_PRIMAL, K1_ROW_FIRST_PRIMAL),
+                                (K1_PREFETCH_DUAL, K1_ROW_FIRST_DUAL)),
         },
         "schur_cholesky_solve": {
             "committed": k3,
@@ -156,16 +388,32 @@ def _variants():
             "warp-solve": _patch(k3, (K3_SOLVES, K3_WARP_SOLVES)),
         },
     }
+    if parent is not None:
+        pc = Path(parent) / "pint_torch" / "kernels" / "csrc"
+        for kernel in ("dd_binary", "spin_phase"):
+            out[kernel]["parent"] = (pc / f"{kernel}.cu").read_text()
+    return out
 
 
 def _time_ms(fn, iters: int = 20) -> float:
+    import time
+
     import torch
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    enqueue_s = time.perf_counter() - t
+    torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    # a spin kernel holds the stream while the host queues the timed
+    # launches, so that the events see them back to back (the device's
+    # time, not the host's launch rate)
+    torch.cuda._sleep(int(2 * enqueue_s * 2e9) + 1000)
     a.record()
     for _ in range(iters):
         fn()
@@ -174,9 +422,47 @@ def _time_ms(fn, iters: int = 20) -> float:
     return a.elapsed_time(b) / iters
 
 
+def _main_path_inputs():
+    """K1's and K2's largest calls on the B1855 stand-in's main path (GLS
+    fit, then the M2 x SINI grid), captured as ``chip_smoke.py`` does."""
+    sys.path.insert(0, str(REPO))
+    from chip_smoke import Capture
+    from pint_torch import kernels
+    from pint_torch.bridge import STANDIN_PATH, load_snapshot, read_snapshot
+    from pint_torch.gls_fitter import GLSFitter
+    from pint_torch.grid import grid_chisq
+
+    _, ref = read_snapshot(STANDIN_PATH)
+    cap = Capture({n: m for n, m in kernels.modules().items()
+                   if n != "schur_cholesky_solve"})
+    cap.install()
+    try:
+        model, batch = load_snapshot(STANDIN_PATH, device="cuda")
+        fitter = GLSFitter(batch, model)
+        fitter.fit_toas(maxiter=2)
+        grid_chisq(fitter, ("M2", "SINI"),
+                   (ref["ref/grid_m2"], ref["ref/grid_sini"]), niter=1,
+                   chunk=256)
+    finally:
+        cap.remove()
+    return cap
+
+
+def _rounds(names):
+    """Two rounds, the second in reverse order."""
+    return [(0, n) for n in names] + [(1, n) for n in reversed(names)]
+
+
 def main() -> int:
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", help="an unpacked earlier tree whose K1 and "
+                    "K2 sources run as the variant 'parent'")
+    ap.add_argument("--only", default="K1,K2,K3",
+                    help="comma-separated subset of K1,K2,K3")
+    args = ap.parse_args()
+    only = set(args.only.split(","))
     if not torch.cuda.is_available():
         print("torch_kernel_variants: needs a CUDA GPU", file=sys.stderr)
         return 2
@@ -189,13 +475,17 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__}", flush=True)
     work = _build.BUILD_DIR / "variants"
     work.mkdir(parents=True, exist_ok=True)
+    wanted = {"K1": "spin_phase", "K2": "dd_binary",
+              "K3": "schur_cholesky_solve"}
     procs, libs = {}, {}
-    for kernel, variants in _variants().items():
+    for kernel, variants in _variants(args.parent).items():
+        if kernel not in {wanted[k] for k in only}:
+            continue
         for name, src in variants.items():
             cu = work / f"{kernel}-{name}.cu"
             cu.write_text(src)
             procs[(kernel, name)] = subprocess.Popen(
-                [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(CSRC), "-o",
                  str(cu.with_suffix(".so")), str(cu)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     for (kernel, name), proc in procs.items():
@@ -204,14 +494,13 @@ def main() -> int:
             raise SystemExit(f"nvcc failed for {kernel} {name}:\n{log}")
         libs[(kernel, name)] = ctypes.CDLL(
             str(work / f"{kernel}-{name}.so"))
-        markers = {"dd_binary": ["dd_binary_dual"],
-                   "schur_cholesky_solve": ["kernelILb1E", "kernelILb0E"]}
-        for marker in markers[kernel]:
+        for marker in MARKERS[kernel]:
             r = _build.ptxas_report(log, marker)
-            print(f"ptxas {kernel} {name} {marker}: " + (
-                f"{r[0]} registers, {r[1]} bytes stack frame, {r[2]} bytes "
-                f"spill stores, {r[3]} bytes spill loads" if r
-                else "no report"), flush=True)
+            if r is not None:
+                print(f"ptxas {kernel} {name} {marker.lstrip('0123456789')}: "
+                      f"{r[0]} registers, {r[1]} bytes stack frame, {r[2]} "
+                      f"bytes spill stores, {r[3]} bytes spill loads",
+                      flush=True)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -226,52 +515,107 @@ def main() -> int:
     def ptr(t):
         return None if t is None else ctypes.c_void_p(t.data_ptr())
 
-    # K2 dual on B1855-like orbits at the main path's shape
-    row = torch.tensor([12.327, 1e-12, 2e-13, 9.23, 1e-14, 2e-5, 1e-16, 276.5,
-                        0.0, 0.27, 0.9991, 0.0, 0.0, 0.0, 0.0, 0.0],
-                       dtype=torch.float64, device=dev)
-    params = row.expand(256, -1).clone()
-    params[:, 9] = rt(256, lo=0.2, hi=0.35)
-    params[:, 10] = rt(256, lo=0.998, hi=0.9999)
-    tt0 = rt(1, 4005, lo=-3e8, hi=3e8).expand(256, -1).contiguous()
-    ref = None
-    names = [n for k, n in libs if k == "dd_binary"]
-    for rnd in range(2):
-        for name in names:
-            fn = libs[("dd_binary", name)].dd_binary_launch
-            fn.argtypes = [vp, vp, ci, ci, vp, vp, vp]
-            fn.restype = ci
-            delay = torch.empty(256, 4005, dtype=torch.float64, device=dev)
-            P = torch.empty(256, 4005, 17, dtype=torch.float64, device=dev)
-
-            def run():
-                return fn(ptr(tt0), ptr(params), 256, 4005, ptr(delay),
-                          ptr(P), stream)
-
-            if run() != 0:
-                raise SystemExit(f"dd_binary {name}: launch failed")
-            torch.cuda.synchronize()
-            if ref is None:
-                ref = (delay.clone(), P.clone())
-            same = torch.equal(delay, ref[0]) and torch.equal(P, ref[1])
-            print(f"round {rnd} dd_binary_dual {name}: {_time_ms(run):.4f} "
-                  f"ms, bitwise as committed {same} [{card}]", flush=True)
-
-    # K3 on random SPD systems with an ill-conditioned and a NaN point
-    names = [n for k, n in libs if k == "schur_cholesky_solve"]
-    for nt in (88, 140, 232):
-        B = 256
-        X = rt(B, nt, 2 * nt)
-        Ar = X @ X.transpose(1, 2)
-        q, _ = torch.linalg.qr(rt(nt, nt))
-        Ar[1] = (q * torch.logspace(0, -13, nt, dtype=torch.float64,
-                                    device=dev)) @ q.T
-        Ar[3, 4, 2] = Ar[3, 2, 4] = float("nan")
-        rhs = rt(B, nt)
+    def compare(label, kernel, names, make_run, outputs):
+        """Time each variant in two rounds; outputs bitwise against the
+        first one run (the committed source)."""
         ref = None
-        for rnd in range(2):
-            for name in names:
-                lib = libs[("schur_cholesky_solve", name)]
+        for rnd, name in _rounds(names):
+            run = make_run(libs[(kernel, name)])
+            if run() != 0:
+                raise SystemExit(f"{kernel} {name}: launch failed")
+            torch.cuda.synchronize()
+            out = [torch.nan_to_num(o, nan=7.0) if o.is_floating_point()
+                   else o.clone() for o in outputs]
+            if ref is None:
+                ref = out
+            same = all(torch.equal(a, b) for a, b in zip(out, ref))
+            print(f"round {rnd} {label} {name}: {_time_ms(run):.4f} ms, "
+                  f"bitwise as committed {same} [{card}]", flush=True)
+
+    if only & {"K1", "K2"}:
+        cap = _main_path_inputs()
+
+    if "K2" in only:
+        tt0, params, _ = cap.args("dd_binary", False)
+        tt0d, paramsd, _ = cap.args("dd_binary", True)
+        hi_e = params.clone()
+        hi_e[:, 5] = rt(len(hi_e), lo=0.55, hi=0.65)
+        hi_e[:, 7] = rt(len(hi_e), lo=0.0, hi=360.0)
+        names = [n for k, n in libs if k == "dd_binary"]
+        primal = [n for n in names if n != "strided-stores"]
+        dual = [n for n in names
+                if n not in ("exit-period1", "1d-grid", "row-first")]
+        for label, t, p, part, vs in (
+                ("dd_binary_primal b1855", tt0, params, False, primal),
+                ("dd_binary_primal ecc0.6", tt0, hi_e, False, primal),
+                ("dd_binary_dual b1855", tt0d, paramsd, True, dual)):
+            B, N = t.shape
+            delay = torch.empty(B, N, dtype=torch.float64, device=dev)
+            P = torch.empty(B, N, 17, dtype=torch.float64, device=dev) \
+                if part else None
+
+            def make_run(lib, t=t, p=p, B=B, N=N, delay=delay, P=P):
+                fn = lib.dd_binary_launch
+                fn.argtypes = [vp, vp, ci, ci, vp, vp, vp]
+                fn.restype = ci
+                return lambda: fn(ptr(t), ptr(p), B, N, ptr(delay), ptr(P),
+                                  stream)
+
+            compare(f"{label} B={B} N={N}", "dd_binary",
+                    ["committed"] + [v for v in vs if v != "committed"],
+                    make_run, [delay] + ([P] if part else []))
+
+    if "K1" in only:
+        names = [n for k, n in libs if k == "spin_phase"]
+        for part in (False, True):
+            th, tl, tdb0, pe, dl, F, has_pe, _ = cap.args("spin_phase", part)
+            B, N = dl.shape
+            F6 = torch.stack([rt(B, lo=1.0, hi=4000.0),
+                              rt(B, lo=-1e-13, hi=0.0)]
+                             + [rt(B) * 10.0 ** (-3 - 11 * i)
+                                for i in range(2, 6)], dim=1)
+            vs = [n for n in names
+                  if n != ("runtime-S" if part else "strided-partials")]
+            for S, FS in ((F.shape[1], F), (6, F6)):
+                k = torch.empty(B, N, dtype=torch.float64, device=dev)
+                f = torch.empty_like(k)
+                P = torch.empty(B, N, S + 2, dtype=torch.float64,
+                                device=dev) if part else None
+
+                def make_run(lib, FS=FS, S=S, k=k, f=f, P=P):
+                    fn = lib.spin_phase_launch
+                    fn.argtypes = [vp, vp, ctypes.c_double, vp, vp, vp, ci,
+                                   ci, ci, ci, vp, vp, vp, vp]
+                    fn.restype = ci
+                    return lambda: fn(ptr(th), ptr(tl), float(tdb0), ptr(pe),
+                                      ptr(dl), ptr(FS), B, N, S,
+                                      int(bool(has_pe)), ptr(k), ptr(f),
+                                      ptr(P), stream)
+
+                label = (f"spin_phase_{'dual' if part else 'primal'} "
+                         f"{'b1855' if FS is F else 'random'} S={S} B={B} "
+                         f"N={N}")
+                compare(label, "spin_phase",
+                        ["committed"] + [v for v in vs if v != "committed"],
+                        make_run, [k, f] + ([P] if part else []))
+
+    if "K3" in only:
+        names = [n for k, n in libs if k == "schur_cholesky_solve"]
+        for nt in (88, 140, 232):
+            B = 256
+            X = rt(B, nt, 2 * nt)
+            Ar = X @ X.transpose(1, 2)
+            q, _ = torch.linalg.qr(rt(nt, nt))
+            Ar[1] = (q * torch.logspace(0, -13, nt, dtype=torch.float64,
+                                        device=dev)) @ q.T
+            Ar[3, 4, 2] = Ar[3, 2, 4] = float("nan")
+            rhs = rt(B, nt)
+            x = torch.empty(B, nt, dtype=torch.float64, device=dev)
+            ok = torch.empty(B, dtype=torch.bool, device=dev)
+            cond = torch.empty(B, dtype=torch.float64, device=dev)
+
+            def make_run(lib, nt=nt, B=B, Ar=Ar, rhs=rhs, x=x, ok=ok,
+                         cond=cond):
                 lib.schur_cholesky_solve_workspace.argtypes = [ci]
                 lib.schur_cholesky_solve_workspace.restype = ctypes.c_longlong
                 fn = lib.schur_cholesky_solve_launch
@@ -281,26 +625,11 @@ def main() -> int:
                 per = lib.schur_cholesky_solve_workspace(nt)
                 ws = torch.empty(B * per, dtype=torch.float64, device=dev) \
                     if per else None
-                x = torch.empty(B, nt, dtype=torch.float64, device=dev)
-                ok = torch.empty(B, dtype=torch.bool, device=dev)
-                cond = torch.empty(B, dtype=torch.float64, device=dev)
+                return lambda: fn(ptr(Ar), ptr(rhs), 1e-12, B, nt, ptr(ws),
+                                  ptr(x), ptr(ok), ptr(cond), stream)
 
-                def run():
-                    return fn(ptr(Ar), ptr(rhs), 1e-12, B, nt, ptr(ws),
-                              ptr(x), ptr(ok), ptr(cond), stream)
-
-                if run() != 0:
-                    raise SystemExit(f"schur_cholesky_solve {name}: launch "
-                                     "failed")
-                torch.cuda.synchronize()
-                out = (torch.nan_to_num(x, nan=7.0), ok.clone(),
-                       torch.nan_to_num(cond, nan=7.0))
-                if ref is None:
-                    ref = out
-                same = all(torch.equal(a, b) for a, b in zip(out, ref))
-                print(f"round {rnd} schur_cholesky_solve nt={nt} {name}: "
-                      f"{_time_ms(run):.4f} ms, bitwise as committed {same} "
-                      f"[{card}]", flush=True)
+            compare(f"schur_cholesky_solve nt={nt}", "schur_cholesky_solve",
+                    names, make_run, [x, ok, cond])
     return 0
 
 
