@@ -10,10 +10,11 @@ Phases, one line each:
 
 1. device -- the card's name and power limit (nvidia-smi) and its
    properties;
-2. build -- the three hand kernels, one nvcc per source, started together;
+2. build -- the five hand kernels, one nvcc per source, started together;
    the ptxas report of each ``__global__`` (registers, stack frame, spill
-   bytes; K1's per S = 1..6), read from the build logs: K1's primal
-   templates must hold no stack frame and neither primal may spill;
+   bytes; K1's per S = 1..6, K4's per ELL1K), read from the build logs:
+   K1's primal templates must hold no stack frame and no primal (K1, K2,
+   K4) may spill;
 3. main path b1855 -- the full-width B1855+09-shaped stand-in
    (``pint_torch/data/b1855_standin.npz``, nt = 88 at the grid): load onto
    the card, residuals, design matrix, ``GLSFitter.fit_toas(maxiter=2)``,
@@ -27,23 +28,39 @@ Phases, one line each:
    (``pint_torch/data/b1855_dmx15_standin.npz``: 216 DMX windows, nt = 232,
    K3 in its global-memory instantiation), counts zeroed and read around
    it alone;
-6. kernels -- each CUDA kernel (the primal and dual instantiations of K1
-   and K2, K3's shared-memory instantiation at nt = 88 and its global one
-   at nt = 232) against its plain PyTorch twin on the card, on the inputs
-   its path gave it (captured there) plus seeded random inputs: K1 at
-   S = 1, 2, 3 and 6 spin terms, k and f bitwise; K2 on random orbits with
-   ECC 0-0.9 and in bands at ~2e-5, 0.1, 0.6 and 0.95 (the Kepler solve's
-   exits -- fixed point, 2-cycle, all 15 steps -- counted per band by the
-   twin's ``kepler_steps``, each must occur), delay bitwise, and two
-   SINI > 1 rows whose NaN delays poison every partial; K3 with an
-   ill-conditioned and a NaN point.  K2's Newton steps on the path's
-   inputs (per element, and the most in each warp) set its operation
-   count, and its bound is printed at those counts and at 15 steps.
-   CUDA-event times of kernel, twin and, for K3, the library Cholesky,
-   with the launches queued behind a spin kernel so that the events time
-   the device and not the host's launch rate.  Launch counts, times and
-   errors in the ``kernels`` line are per instantiation, launches from the
-   path whose shapes the record was measured at.
+6. main path ell1 and bars ell1 -- the J1909-3744-shaped WLS stand-in
+   (``pint_torch/data/j1909_ell1_standin.npz``: ELL1 binary, ecliptic
+   astrometry, no correlated noise, k = 88 at the grid), counts zeroed and
+   read around it alone: load, residuals, design matrix cold and warm,
+   ``WLSFitter.fit_toas(maxiter=2)``, ``DownhillWLSFitter.fit_toas()``,
+   the 16x16 WLS grid (``niter=4``, ``chunk=256``) cold and warm; K1, K4's
+   ELL1 primal and dual and K5 must have launched.  Bars: residuals, both
+   fits' chi2, values and uncertainties, the downhill converged flag, the
+   grid surface, argmin and rungs;
+7. kernels -- each CUDA kernel (the primal and dual instantiations of K1,
+   K2 and K4 -- K4's for ELL1 and ELL1k --, K3's shared-memory
+   instantiation at nt = 88 and its global one at nt = 232, K5) against
+   its plain PyTorch twin on the card, on the inputs its path gave it
+   (captured there) plus seeded random inputs: K1 at S = 1, 2, 3 and 6
+   spin terms, k and f bitwise; K2 on random orbits with ECC 0-0.9 and in
+   bands at ~2e-5, 0.1, 0.6 and 0.95 (the Kepler solve's exits -- fixed
+   point, 2-cycle, all 15 steps -- counted per band by the twin's
+   ``kepler_steps``, each must occur), delay bitwise, and two SINI > 1
+   rows whose NaN delays poison every partial; K3 with an ill-conditioned
+   and a NaN point; K4 on random orbits with |EPS| to 1e-2 and TOAs across
+   the orbital phase's wrap, delay bitwise, partials 1e-10 rel, NaN rows
+   poisoning all 14 partials; K5 on random systems (raw condition to 1e10,
+   with an all-zero column and a NaN point) and at k = 130 (R and V in the
+   global workspace), x to 1e-9 of max|x|, singular values to 1e-12 of the
+   largest, the same rank and NaN flags.  K2's Newton steps on the path's
+   inputs set its operation count; K5's counts what its function needs
+   (QR at the float64 tensor-core rate, the k x k SVD at the CUDA cores').
+   CUDA-event times of kernel, twin and, for K3 and K5, the library call
+   (Cholesky; the batched SVD), with the launches queued behind a spin
+   kernel so that the events time the device and not the host's launch
+   rate.  Launch counts, times and errors in the ``kernels`` line are per
+   instantiation, launches from the path whose shapes the record was
+   measured at.
 
 The whole run's wall time is printed before the JSON lines.  The line
 before the last is one JSON object with every kernel's record, then the
@@ -56,6 +73,7 @@ machine without a GPU, or a directory that holds this script without the
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -63,10 +81,11 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the float64 rate
-#: of the CUDA cores (the kernels use no tensor cores)
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the float64 rate of
+#: the CUDA cores and that of the tensor cores (float64 matrix products)
 HBM_BYTES_PER_S = 3.35e12
 F64_FLOP_PER_S = 34e12
+F64_TC_FLOP_PER_S = 67e12
 
 #: float64 operations per element of ``dd_binary.cu``, counted from the
 #: source with a sine, cosine, arctangent, logarithm or square root counted
@@ -79,6 +98,26 @@ F64_FLOP_PER_S = 34e12
 K2_FORWARD_OPS = 403
 K2_NEWTON_OPS = 49
 K2_REVERSE_OPS = 242
+
+
+#: float64 operations per element of ``ell1_binary.cu``, counted from the
+#: source as K2's are, by ELL1K: ``ell1_forward`` 391 (ELL1) and 392
+#: (ELL1k; five sincos pairs and a log, 200 of them), ``ell1_reverse`` 278
+#: and 321 more in the dual.
+K4_FORWARD_OPS = {False: 391, True: 392}
+K4_REVERSE_OPS = {False: 278, True: 321}
+
+
+def _k5_ops(N: int, k: int):
+    """float64 operations per point that ``wls_lstsq``'s function needs,
+    whatever algorithm computes it: ``(tensor, other)``, the first those a
+    blocked Householder QR of the (N, k) matrix runs as matrix products
+    (2 N k^2 - 2 k^3 / 3), the second the rest -- the column norms and
+    scaling (3 N k), applying the k reflectors to rw (4 N k - 2 k^2), an
+    SVD of the k x k triangle with V (12 k^3, Golub-Kahan-Reinsch with the
+    left rotations applied to one vector) and x (4 k^2)."""
+    return (2 * N * k * k - 2 * k**3 / 3,
+            3 * N * k + 4 * N * k - 2 * k * k + 12 * k**3 + 4 * k * k)
 
 
 def _k2_ops(steps: float, partials: bool) -> float:
@@ -149,7 +188,8 @@ class Capture:
     def _record(self, name, args):
         import torch
 
-        partials = args[-1] if name != "schur_cholesky_solve" else None
+        partials = args[-1] if name in ("spin_phase", "dd_binary",
+                                        "ell1_binary") else None
         size = sum(a.numel() for a in args if torch.is_tensor(a))
         key = (name, partials)
         if key not in self.calls or self.calls[key][0] < size:
@@ -186,23 +226,32 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound(nbytes: float, ops: float):
+def _bound(nbytes: float, ops: float, tensor_ops: float = 0.0):
+    """Least ms for the work: bytes over HBM bandwidth or ``ops`` over the
+    CUDA cores' float64 rate plus ``tensor_ops`` (matrix products) over
+    the tensor cores', whichever is longer, and which it is."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = ops / F64_FLOP_PER_S * 1e3
+    t_o = (ops / F64_FLOP_PER_S + tensor_ops / F64_TC_FLOP_PER_S) * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
 def _drive(label, path, kernels, tag):
-    """One main path on one snapshot: counts zeroed just before, read just
-    after; returns (counts, capture, outputs)."""
+    """One main path on one snapshot, counts zeroed just before and read
+    just after: load, residuals, design matrix cold and warm, the fit the
+    model calls for (``GLSFitter`` with correlated noise; else
+    ``WLSFitter`` and then ``DownhillWLSFitter``, each from the snapshot's
+    values), then the 16x16 grid after the first fit, cold and warm, at the
+    snapshot's ``niter``; returns (counts, capture, outputs)."""
     import torch
 
     from pint_torch.bridge import load_snapshot, read_snapshot
+    from pint_torch.fitter import DownhillWLSFitter, WLSFitter
     from pint_torch.gls_fitter import GLSFitter
     from pint_torch.grid import grid_chisq
     from pint_torch.residuals import Residuals
 
     meta, ref = read_snapshot(path)
+    niter = meta["reference"]["settings"]["grid_niter"]
     cap = Capture(kernels.modules())
     cap.install()
     kernels.reset_counts()
@@ -220,60 +269,84 @@ def _drive(label, path, kernels, tag):
     resid = stage("residuals", lambda: Residuals(batch, model).time_resids)
     M, _ = stage("designmatrix", lambda: model.designmatrix(batch))
     stage("designmatrix_warm", lambda: model.designmatrix(batch))
-    fitter = GLSFitter(batch, model)
-    chi2_fit = stage("fit", lambda: fitter.fit_toas(maxiter=2))
+    gls = model.has_correlated_errors
+    fitter = (GLSFitter if gls else WLSFitter)(batch, model)
+    fits = {"postfit": (fitter, stage("fit", lambda: fitter.fit_toas(
+        maxiter=2)))}
+    if not gls:
+        downhill = DownhillWLSFitter(batch, model)
+        fits["downhill"] = (downhill, stage("fit_downhill",
+                                            downhill.fit_toas))
     axes = (ref["ref/grid_m2"], ref["ref/grid_sini"])
     stage("grid_cold", lambda: grid_chisq(fitter, ("M2", "SINI"), axes,
-                                          niter=1, chunk=256))
+                                          niter=niter, chunk=256))
     surface, _ = stage("grid_warm", lambda: grid_chisq(
-        fitter, ("M2", "SINI"), axes, niter=1, chunk=256))
+        fitter, ("M2", "SINI"), axes, niter=niter, chunk=256))
     counts = kernels.launch_counts()
     cap.remove()
-    nt = 1 + len(fitter.model.free_params) - 2
+    k = 1 + len(fitter.model.free_params) - 2
     print(f"phase main path {label}: N={batch.ntoas} TOAs, "
-          f"{len(model.free_params)} free, nt={nt}; "
-          + ", ".join(f"{k} {v:.4f} s" for k, v in stages.items())
+          f"{len(model.free_params)} free, {'GLS nt' if gls else 'WLS k'}"
+          f"={k}, niter={niter}; "
+          + ", ".join(f"{n} {v:.4f} s" for n, v in stages.items())
           + f"; warm grid {surface.size / stages['grid_warm']:.2f} fits/s; "
           f"launches {counts} {tag}", flush=True)
     return counts, cap, dict(meta=meta, ref=ref, resid=resid, M=M,
-                             fitter=fitter, chi2=chi2_fit, surface=surface)
+                             fitter=fitter, fits=fits, surface=surface)
 
 
 def _bars(label, out):
-    """The path's outputs against the reference outputs in its snapshot;
-    raises on a failed bar."""
+    """The path's outputs against the reference outputs in its snapshot:
+    residuals, each fit's chi2, values and uncertainties (and the downhill
+    fit's converged flag), the grid's surface, argmin and rungs; raises on
+    a failed bar."""
     import numpy as np
 
-    meta, ref, fitter = out["meta"], out["ref"], out["fitter"]
+    meta, ref = out["meta"], out["ref"]
     rref = meta["reference"]
     d_res = float(np.abs(out["resid"].cpu().numpy()
                          - ref["ref/time_resids"]).max())
     Mr = ref["ref/designmatrix"]
     d_M = float((np.abs(out["M"].cpu().numpy() - Mr).max(0)
                  / np.maximum(np.abs(Mr).max(0), 1e-300)).max())
-    vals = np.array([fitter.model.value(p) for p in rref["postfit_params"]])
-    uncs = np.array([fitter.model[p].uncertainty
-                     for p in rref["postfit_params"]])
-    d_val = float(np.abs((vals - ref["ref/postfit_values"])
-                         / ref["ref/postfit_uncertainties"]).max())
-    d_unc = float(np.abs(uncs / ref["ref/postfit_uncertainties"] - 1).max())
-    d_chi2 = abs(out["chi2"] / rref["postfit_chi2"] - 1)
+    fits = {}
+    for key, (f, chi2) in out["fits"].items():
+        vals = np.array([f.model.value(p) for p in rref["postfit_params"]])
+        uncs = np.array([f.model[p].uncertainty
+                         for p in rref["postfit_params"]])
+        sig = ref[f"ref/{key}_uncertainties"]
+        fits[key] = (abs(chi2 / rref[f"{key}_chi2"] - 1),
+                     float(np.abs((vals - ref[f"ref/{key}_values"])
+                                  / sig).max()),
+                     float(np.abs(uncs / sig - 1).max()))
     surface = out["surface"]
     d_grid = float(np.abs(surface / ref["ref/grid_chi2"] - 1).max())
     argmin = [int(i) for i in np.unravel_index(int(np.nanargmin(surface)),
                                                surface.shape)]
-    rungs = fitter.last_grid_diagnostics["ladder_rung"]
+    rungs = out["fitter"].last_grid_diagnostics["ladder_rung"]
+    same_rungs = bool(np.array_equal(rungs, ref["ref/grid_rungs"]))
+    checks = [(d_res <= 1e-10, "residuals"), (d_grid <= 1e-6, "grid surface"),
+              (argmin == rref["grid_argmin"], "grid argmin"),
+              (same_rungs, "grid rungs")]
+    for key, (c, v, u) in fits.items():
+        checks += [(c <= 1e-6, f"{key} chi2"), (v <= 1e-2, f"{key} values"),
+                   (u <= 1e-6, f"{key} uncertainties")]
+    conv = ""
+    if "downhill" in out["fits"]:
+        pair = (bool(out["fits"]["downhill"][0].converged),
+                rref["downhill_converged"])
+        checks.append((pair[0] == pair[1], "downhill converged flag"))
+        conv = f"; downhill converged {pair[0]} vs {pair[1]}"
     print(f"phase bars {label}: residuals max|d| {d_res:.3e} s (<= 1e-10); "
-          f"design matrix max col-rel {d_M:.3e}; post-fit chi2 "
-          f"{out['chi2']:.6f} rel {d_chi2:.3e} (<= 1e-6); values max "
-          f"{d_val:.3e} sigma (<= 1e-2); uncertainties rel {d_unc:.3e}; grid "
-          f"max rel {d_grid:.3e} (<= 1e-6); argmin {argmin} vs "
-          f"{rref['grid_argmin']}; rungs "
-          f"{sorted(set(rungs.ravel().tolist()))}", flush=True)
-    for ok, what in ((d_res <= 1e-10, "residuals"), (d_chi2 <= 1e-6, "chi2"),
-                     (d_val <= 1e-2, "post-fit values"),
-                     (d_grid <= 1e-6, "grid surface"),
-                     (argmin == rref["grid_argmin"], "grid argmin")):
+          f"design matrix max col-rel {d_M:.3e}; "
+          + "; ".join(f"{key} chi2 rel {c:.3e} (<= 1e-6), values max "
+                      f"{v:.3e} sigma (<= 1e-2), uncertainties rel {u:.3e} "
+                      f"(<= 1e-6)" for key, (c, v, u) in fits.items())
+          + f"{conv}; grid max rel {d_grid:.3e} (<= 1e-6); argmin {argmin} "
+          f"vs {rref['grid_argmin']}; rungs "
+          f"{sorted(set(rungs.ravel().tolist()))} equal {same_rungs}",
+          flush=True)
+    for ok, what in checks:
         if not ok:
             raise RuntimeError(f"bar failed ({label}): {what}")
 
@@ -291,11 +364,13 @@ def main() -> int:
     sys.path.insert(0, str(HERE))
 
     from pint_torch import kernels
-    from pint_torch.bridge import DMX15_PATH, STANDIN_PATH
+    from pint_torch.bridge import DMX15_PATH, ELL1_PATH, STANDIN_PATH
     from pint_torch.kernels import _build
     from pint_torch.kernels import dd_binary as K2
+    from pint_torch.kernels import ell1_binary as K4
     from pint_torch.kernels import schur_cholesky_solve as K3
     from pint_torch.kernels import spin_phase as K1
+    from pint_torch.kernels import wls_lstsq as K5
 
     dev = torch.device("cuda")
     card = _card()
@@ -322,6 +397,11 @@ def main() -> int:
                "schur_cholesky_kernelILb1E"),
               ("schur_cholesky_solve", K3.KERNELS[True],
                "schur_cholesky_kernelILb0E")]
+    ptxas += [("ell1_binary", K4.KERNELS[(k, p)],
+               f"ell1_binary_{'dual' if p else 'primal'}ILb{int(k)}E")
+              for k in (False, True) for p in (False, True)]
+    ptxas += [("wls_lstsq", K5.KERNELS[None], "wls_lstsq_kernel")]
+    k4_primals = (K4.KERNELS[(False, False)], K4.KERNELS[(True, False)])
     for src, kernel, marker in ptxas:
         log = _build.library_path(src).with_suffix(".log")
         r = _build.ptxas_report(log.read_text() if log.exists() else "",
@@ -330,9 +410,10 @@ def main() -> int:
             f"{r[0]} registers, {r[1]} bytes stack frame, {r[2]} bytes spill "
             f"stores, {r[3]} bytes spill loads" if r else "not in the build "
             "log"), flush=True)
-        # K1's primal templates keep no stack frame; neither primal spills
+        # K1's primal templates keep no stack frame; no primal spills
         k1_primal = kernel.startswith(K1.KERNELS[False])
-        primal = k1_primal or kernel == K2.KERNELS[False]
+        primal = k1_primal or kernel == K2.KERNELS[False] \
+            or kernel in k4_primals
         if r is None or (k1_primal and r[1]) or (primal and (r[2] or r[3])):
             raise RuntimeError(f"ptxas: no report for {kernel}, or a stack "
                                "frame or spills that it must not have")
@@ -343,8 +424,11 @@ def main() -> int:
         "b1855": (*K1.KERNELS.values(), *K2.KERNELS.values(),
                   K3.KERNELS[False]),
         "dmx15": (*K1.KERNELS.values(), *K2.KERNELS.values(),
-                  K3.KERNELS[True])}
-    for label, path in (("b1855", STANDIN_PATH), ("dmx15", DMX15_PATH)):
+                  K3.KERNELS[True]),
+        "ell1": (*K1.KERNELS.values(), K4.KERNELS[(False, False)],
+                 K4.KERNELS[(False, True)], K5.KERNELS[None])}
+    for label, path in (("b1855", STANDIN_PATH), ("dmx15", DMX15_PATH),
+                        ("ell1", ELL1_PATH)):
         counts, cap, out = _drive(label, path, kernels, tag)
         missing = [k for k in path_kernels[label] if counts[k] == 0]
         if missing:
@@ -575,6 +659,179 @@ def main() -> int:
             raise RuntimeError(f"{kernel} disagrees with its plain version")
         record(kernel, "schur_cholesky_solve.cu", K3.REPLACES, err3, ms3,
                plain3, bnd3, lib3, path=path)
+
+    # K4: the ell1 path's inputs (ELL1), the same TOAs under ELL1k (OMDOT
+    # 1.7 deg/yr, LNEDOT 2e-4 /yr), and seeded random orbits -- |EPS1|,
+    # |EPS2| to 1e-2, EPS1DOT/EPS2DOT, OMDOT, LNEDOT, PBDOT and A1DOT
+    # random, SINI 0.5-0.999, half the TOAs within 5 s of a whole orbit so
+    # that the orbital phase crosses its 0/2 pi wrap -- plus two rows with
+    # SINI = 1.5 whose NaN delays must poison all 14 partials; the delay
+    # bitwise everywhere
+    from pint_torch.models.binary.engines import ell1_forward
+
+    tt4, p4 = paths["ell1"][1].args("ell1_binary", True)[:2]
+    p4k = p4.clone()
+    p4k[:, 9], p4k[:, 10] = 1.7, 2e-4
+    nr4 = 64
+    rp4 = p4[:1].expand(nr4, -1).clone()
+    rp4[:, 0] = rp4[:, 0] * (1.0 + rt(nr4, lo=-1e-3, hi=1e-3))
+    for col, (lo, hi) in {1: (-1e-12, 1e-12), 4: (-1e-14, 1e-14),
+                          5: (-1e-2, 1e-2), 6: (-1e-2, 1e-2),
+                          7: (-1e-16, 1e-16), 8: (-1e-16, 1e-16),
+                          9: (0.0, 5.0), 10: (-1e-3, 1e-3),
+                          12: (0.5, 0.999)}.items():
+        rp4[:, col] = rt(nr4, lo=lo, hi=hi)
+    rp4[-2:, 12] = 1.5
+    N4 = tt4.shape[1]
+    half = N4 // 2
+    rtt4 = torch.cat([rt(nr4, half, lo=-3e8, hi=3e8),
+                      torch.round(rt(nr4, N4 - half, lo=-2e3, hi=2e3))
+                      * (rp4[:, :1] * 86400.0)
+                      + rt(nr4, N4 - half, lo=-5.0, hi=5.0)], dim=1)
+    phi = ell1_forward({n: rp4[:, i:i + 1]
+                        for i, n in enumerate(K4.ELL1_PARAMS)}, rtt4)["phi"]
+    wrap = (int((phi < 1e-4).sum()), int((phi > 2 * 3.141592653589793
+                                           - 1e-4).sum()))
+    print(f"phase ell1 random orbits: {nr4} rows x {N4} TOAs, orbital "
+          f"phases within 1e-4 rad below / above the wrap {wrap[1]} / "
+          f"{wrap[0]}", flush=True)
+    if not min(wrap):
+        raise RuntimeError("the random ELL1 TOAs miss the phase wrap")
+    for ell1k in (False, True):
+        pp = p4k if ell1k else p4
+        for partials in (False, True):
+            kernel = K4.KERNELS[(ell1k, partials)]
+
+            def twin4():
+                return K4.ell1_binary_reference(tt4, pp, ell1k, partials)
+
+            dk, Pk = K4._launch(tt4, pp, ell1k, partials)
+            dr, Pr = twin4()
+            err = float((dk - dr).abs().max())
+            same = bool(torch.equal(dk, dr))
+            prel = p_rel(Pk, Pr) if partials else 0.0
+            dk, Pk = K4._launch(rtt4, rp4, ell1k, partials)
+            dr, Pr = K4.ell1_binary_reference(rtt4, rp4, ell1k, partials)
+            nan_k, nan_r = torch.isnan(dk), torch.isnan(dr)
+            nan_ok = bool(torch.equal(nan_k, nan_r)) and bool(nan_k.any())
+            fin = ~nan_r
+            err_r = float((dk[fin] - dr[fin]).abs().max())
+            same = same and bool(torch.equal(dk[fin], dr[fin]))
+            if partials:
+                nan_ok = nan_ok and bool(torch.isnan(Pk[nan_k]).all())
+                prel = max(prel, p_rel(Pk[:-2], Pr[:-2]))
+            B4 = tt4.shape[0]
+            ms = _time_ms(lambda: K4._launch(tt4, pp, ell1k, partials), 50)
+            plain = _time_ms(twin4, 3)
+            ops = K4_FORWARD_OPS[ell1k] \
+                + (K4_REVERSE_OPS[ell1k] if partials else 0)
+            bound = _bound(8 * B4 * N4 + 8 * B4 * len(K4.ELL1_PARAMS)
+                           + 8 * B4 * N4 * (1 + (K4.NPARTIAL if partials
+                                                 else 0)), B4 * N4 * ops)
+            print(f"phase kernel {kernel}: B={B4} N={N4} "
+                  f"({'ELL1k, OMDOT and LNEDOT set' if ell1k else 'ELL1'}, "
+                  f"the path's TOAs); delay bitwise {same}, max|d delay| "
+                  f"{err:.3e} (random {err_r:.3e}) s (= 0); NaN rows "
+                  f"(SINI = 1.5) equal and poisoning {nan_ok}; "
+                  + (f"partials max rel {prel:.3e} (<= 1e-10); " if partials
+                     else "")
+                  + f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+                  f"{bound[0]:.4f} ms ({bound[1]}, {ops} ops/element) "
+                  f"{tag}", flush=True)
+            if not (same and prel <= 1e-10 and nan_ok):
+                raise RuntimeError(f"{kernel} disagrees with its plain "
+                                   "version")
+            record(kernel, "ell1_binary.cu", K4.REPLACES, max(err, err_r),
+                   ms, plain, bound, path="ell1")
+
+    # K5: the ell1 path's largest call (its 256 points, N = 4005, k = 88),
+    # then seeded random systems: raw condition numbers to 1e10, made of a
+    # normalized matrix's (1e2 to 1e6) and column scales (to 1e8), one point
+    # with an all-zero column (rank k - 1: that direction's x must be 0)
+    # and one with a NaN; and the same at k = 130, where R and V live in
+    # the global workspace
+    Aw5, rw5 = paths["ell1"][1].args("wls_lstsq")
+    P5, N5, k5 = Aw5.shape
+
+    def system(n, k, cond_n, colscale):
+        q1, _ = torch.linalg.qr(rt(n, k))
+        q2, _ = torch.linalg.qr(rt(k, k))
+        s = torch.logspace(0, -math.log10(cond_n), k,
+                           dtype=torch.float64, device=dev)
+        scale = torch.logspace(0, float(colscale), k, dtype=torch.float64,
+                               device=dev)
+        perm = torch.randperm(k, generator=gen, device=dev)
+        return ((q1 * s) @ q2.T) * scale[perm]
+
+    def random_systems(n, k):
+        A = torch.stack([system(n, k, 1e6, 4), system(n, k, 1e4, 6),
+                         system(n, k, 1e2, 8), system(n, k, 10.0, 0),
+                         rt(n, k), rt(n, k)])
+        A[4, :, 3] = 0.0
+        A[5, 7, 2] = float("nan")
+        return A, rt(len(A), n)
+
+    def k5_compare(Aw, rw):
+        xk, sk, nk, swk = K5._launch(Aw, rw)
+        xr, sr, nr = K5.wls_lstsq_reference(Aw, rw)
+        nan_same = bool(torch.equal(torch.isnan(xk), torch.isnan(xr))) \
+            and bool(torch.equal(torch.isnan(sk), torch.isnan(sr)))
+        fin = ~torch.isnan(xr).any(dim=1)
+        xk, sk, nk, xr, sr, nr = (t[fin] for t in (xk, sk, nk, xr, sr, nr))
+        x_rel = float(((xk - xr).abs().amax(dim=1)
+                       / xr.abs().amax(dim=1)).max())
+        s_rel = float(((sk - sr).abs().amax(dim=1) / sr[:, 0]).max())
+        cut = torch.finfo(torch.float64).eps * max(Aw.shape[1:])
+        rank_k = ((sk > 0) & (sk >= cut * sk[:, :1])).sum(dim=1)
+        rank_r = ((sr > 0) & (sr >= cut * sr[:, :1])).sum(dim=1)
+        return dict(x_rel=x_rel, s_rel=s_rel, err=float((xk - xr).abs().max()),
+                    rank=bool(torch.equal(rank_k, rank_r)), nan=nan_same,
+                    ranks=rank_k, norms=float((nk / nr - 1).abs().max()),
+                    xk=xk, sweeps=swk, cond=(sr[:, 0] / sr[:, -1]))
+
+    c_path = k5_compare(Aw5, rw5)
+    Ar5, rr5 = random_systems(N5, k5)
+    c_rand = k5_compare(Ar5, rr5)
+    zero_x = float(c_rand["xk"][4, 3].abs())
+    Ag5, rg5 = random_systems(600, 130)
+    c_glob = k5_compare(Ag5, rg5)
+    sweeps = c_path["sweeps"].double()
+    ms5 = _time_ms(lambda: K5._launch(Aw5, rw5), 3, warmup=1)
+    plain5 = _time_ms(lambda: K5.wls_lstsq_reference(Aw5, rw5), 1, warmup=1)
+    norms5 = torch.sqrt(torch.sum(Aw5 * Aw5, dim=1))
+    An5 = Aw5 / torch.where(norms5 == 0, 1.0, norms5)[:, None, :]
+    lib5 = _time_ms(lambda: torch.linalg.svd(An5, full_matrices=False), 1,
+                    warmup=1)
+    del An5
+    ops5 = _k5_ops(N5, k5)
+    bound5 = _bound(8 * P5 * (N5 * k5 + N5) + 24 * P5 * k5 + 4 * P5,
+                    P5 * ops5[1], P5 * ops5[0])
+    ok5 = True
+    for what, c in (("path", c_path), ("random", c_rand),
+                    ("random k=130", c_glob)):
+        print(f"phase kernel wls_lstsq {what}: P={len(c['ranks'])} finite "
+              f"points; x max rel to max|x| {c['x_rel']:.3e} (<= 1e-9), sv "
+              f"max rel to s_max {c['s_rel']:.3e} (<= 1e-12), ranks equal "
+              f"{c['rank']} ({sorted(set(c['ranks'].tolist()))}), NaN flags "
+              f"equal {c['nan']}, norms rel {c['norms']:.1e}; normalized "
+              f"condition {float(c['cond'].min()):.3g}-"
+              f"{float(c['cond'].max()):.3g}; Jacobi sweeps "
+              f"{sorted(set(c['sweeps'].tolist()))} {tag}", flush=True)
+        ok5 = ok5 and c["x_rel"] <= 1e-9 and c["s_rel"] <= 1e-12 \
+            and c["rank"] and c["nan"]
+    print(f"phase kernel wls_lstsq: P={P5} N={N5} k={k5}; zero column's x "
+          f"{zero_x:.1e} (= 0); Jacobi sweeps on the path's inputs min "
+          f"{int(sweeps.min())} mean {float(sweeps.mean()):.4f} max "
+          f"{int(sweeps.max())} (cap {K5.MAX_SWEEPS}); kernel {ms5:.4f} ms, "
+          f"plain {plain5:.4f} ms, library torch.linalg.svd {lib5:.4f} ms, "
+          f"bound {bound5[0]:.4f} ms ({bound5[1]}; per point {ops5[0]:.4g} "
+          f"ops of QR at the tensor cores' rate, {ops5[1]:.4g} other) {tag}",
+          flush=True)
+    if not (ok5 and zero_x == 0.0):
+        raise RuntimeError("wls_lstsq disagrees with its plain version")
+    record(K5.KERNELS[None], "wls_lstsq.cu", K5.REPLACES,
+           max(c_path["err"], c_rand["err"], c_glob["err"]), ms5, plain5,
+           bound5, lib5, path="ell1")
 
     print(f"phase wall: {time.perf_counter() - t_start:.2f} s for the whole "
           f"run {tag}", flush=True)

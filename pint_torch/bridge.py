@@ -27,7 +27,7 @@ from pint_torch.models import Component, Param, TimingModel
 from pint_torch.toa import TOABatch
 
 __all__ = ["load_snapshot", "read_snapshot", "SNAPSHOT_FORMAT",
-           "STANDIN_PATH", "DMX15_PATH"]
+           "STANDIN_PATH", "DMX15_PATH", "ELL1_PATH"]
 
 SNAPSHOT_FORMAT = "pint_torch-snapshot-1"
 #: the committed full-width B1855+09-shaped stand-in
@@ -35,6 +35,10 @@ STANDIN_PATH = Path(__file__).resolve().parent / "data" / "b1855_standin.npz"
 #: the same stand-in with dense DMX (216 windows of 15 d): nt = 232 at the
 #: M2 x SINI grid
 DMX15_PATH = STANDIN_PATH.with_name("b1855_dmx15_standin.npz")
+#: the committed full-width J1909-3744-shaped stand-in: ELL1 binary,
+#: ecliptic astrometry, white noise only (the WLS fitters and grid), k = 88
+#: at the M2 x SINI grid
+ELL1_PATH = STANDIN_PATH.with_name("j1909_ell1_standin.npz")
 
 _BATCH_KEYS = ("tdb_hi", "tdb_lo", "tdb0", "tdb_s_hi", "tdb_s_lo", "freq",
                "error_us", "ssb_obs_pos", "ssb_obs_vel", "obs_sun_pos",

@@ -1,15 +1,68 @@
-"""Fitter base (port of the pieces of ``pint_tpu/fitter.py:42-120,495-518``
-that the GLS fitter calls)."""
+"""Fitters without correlated noise (port of ``pint_tpu/fitter.py``:
+``Fitter`` helpers :113-120,283-297; ``_wls_step`` :506-518, ``WLSFitter``
+:520-585, the ``DownhillFitter`` timing path :588-749, ``DownhillWLSFitter``
+:752-759; ``apply_Sdiag_threshold`` and ``fit_wls_svd`` :895-939; the
+exceptions of ``pint_tpu/exceptions.py`` they raise).
+
+The WLS solve whitens the design matrix and residuals by the scaled TOA
+uncertainties, normalizes the columns and takes ``torch.linalg.svd`` of
+the (N, 1 + nfree) matrix on the model's device; singular values at or
+below ``threshold * max`` are dropped with a :class:`DegeneracyWarning`
+that names the degenerate parameter combination.  The iteration (the
+downhill line search, parameter updates) stays on the host, as in the
+reference.
+"""
 
 from __future__ import annotations
 
+import warnings
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
+from pint_torch import F64
 from pint_torch.residuals import Residuals
+from pint_torch.runtime.solve import NonFiniteSystemError
+from pint_torch.utils import normalize_designmatrix
 
-__all__ = ["Fitter"]
+__all__ = ["Fitter", "WLSFitter", "DownhillFitter", "DownhillWLSFitter",
+           "fit_wls_svd", "apply_Sdiag_threshold", "DegeneracyWarning",
+           "CorrelatedErrors", "ConvergenceFailure", "StepProblem",
+           "MaxiterReached", "NonFiniteSystemError"]
+
+#: where the fits this slice does not port wait (ROADMAP.md, queue A)
+_ROBUST_QUEUE = "robust (IRLS) fits are not ported yet (ROADMAP.md A, " \
+    "after DownhillGLSFitter)"
+_NOISE_QUEUE = "fits with free noise parameters need the noise-likelihood " \
+    "fit, not ported yet (ROADMAP.md A: noise, wideband and Bayesian)"
+
+
+class DegeneracyWarning(UserWarning):
+    """The design matrix has (near-)degenerate directions."""
+
+
+class CorrelatedErrors(ValueError):
+    """A fitter that assumes uncorrelated errors was given correlated
+    noise."""
+
+    def __init__(self, model):
+        trouble = [type(c).__name__ for c in model.noise_components
+                   if getattr(c, "introduces_correlated_errors", False)]
+        super().__init__(f"Model has correlated errors ({trouble}); use a "
+                         "GLS-family fitter")
+
+
+class ConvergenceFailure(ValueError):
+    """A fitter failed to converge."""
+
+
+class StepProblem(ConvergenceFailure):
+    """A fitter step failed to decrease chi2 even after lambda-halving."""
+
+
+class MaxiterReached(ConvergenceFailure):
+    """Fitter hit the iteration limit before meeting tolerance."""
 
 
 class Fitter:
@@ -35,3 +88,199 @@ class Fitter:
 
     def fit_toas(self, maxiter: int = 1, **kw) -> float:
         raise NotImplementedError
+
+    def get_designmatrix(self):
+        """``(M, names)``; constant (linear) columns come from the model's
+        cache, as the reference's iterative fits take them."""
+        return self.model.designmatrix(self.batch, reuse_linear=True)
+
+    def _data_sigma(self) -> torch.Tensor:
+        """The scaled TOA uncertainties the linear solves consume [s]."""
+        return self.resids.get_data_error()
+
+    def _set_covariance(self, cov, params) -> None:
+        """Keep the post-fit parameter covariance (host float64, in the
+        order of ``params``) and each parameter's uncertainty, the square
+        root of its diagonal."""
+        self.covariance = cov.cpu().numpy()
+        self.fitted_params = list(params)
+        for i, p in enumerate(params):
+            if p == "Offset":
+                continue
+            err = float(np.sqrt(self.covariance[i, i]))
+            self.errors[p] = err
+            self.model[p].uncertainty = err
+
+    def _free_noise_params(self) -> List[str]:
+        return [p for p in self.model.free_params
+                if getattr(self.model.components.get(self.model[p].component),
+                           "kind", "") == "noise"]
+
+
+def apply_Sdiag_threshold(Sdiag, VT, threshold, params):
+    """Replace singular values <= ``threshold * Sdiag.max()`` with inf and
+    warn, naming the degenerate parameter combination (reference
+    ``fitter.py:895``); dividing by inf then drops those directions.  Host
+    numpy in and out: the vector and ``VT`` are small."""
+    Sdiag = np.asarray(Sdiag, dtype=np.float64).copy()
+    VT = np.asarray(VT)
+    smax = Sdiag.max() if Sdiag.size else 1.0
+    for c in np.nonzero(Sdiag <= threshold * smax)[0]:
+        v = VT[c]
+        v = v / max(np.abs(v).max(), 1e-300)
+        combo = " + ".join(f"{co:.3g}*{p}" for co, p in
+                           sorted(zip(v, params), key=lambda t: -abs(t[0]))
+                           if abs(co) > threshold)
+        warnings.warn("Parameter degeneracy; the following linear "
+                      f"combination yields almost no change: {combo}",
+                      DegeneracyWarning)
+        Sdiag[c] = np.inf
+    return Sdiag
+
+
+def fit_wls_svd(r, sigma, M, params, threshold):
+    """One whitened, column-normalized SVD WLS solve (reference
+    ``fitter.py:917``): ``(dpars, Sigma, Adiag, (U, S, VT))`` with
+    ``Sigma`` the parameter covariance and ``Adiag`` the column norms;
+    tensors on ``M``'s device.  Degenerate directions are dropped by
+    :func:`apply_Sdiag_threshold`."""
+    if not (bool(torch.isfinite(r).all()) and bool(torch.isfinite(M).all())
+            and bool(torch.isfinite(sigma).all())):
+        raise NonFiniteSystemError(
+            "WLS residuals/design matrix/uncertainties contain NaN/inf; "
+            "refusing the solve (the SVD would emit silent garbage or "
+            "fail untyped)")
+    Mw = M / sigma[:, None]
+    rw = r / sigma
+    Mn, Adiag = normalize_designmatrix(Mw)
+    U, S, VT = torch.linalg.svd(Mn, full_matrices=False)
+    S = torch.as_tensor(apply_Sdiag_threshold(S.cpu().numpy(),
+                                              VT.cpu().numpy(), threshold,
+                                              list(params)),
+                        dtype=F64, device=M.device)
+    dpars = (VT.T @ ((U.T @ rw) / S)) / Adiag
+    Sigma = ((VT.T / S**2) @ VT) / torch.outer(Adiag, Adiag)
+    return dpars, Sigma, Adiag, (U, S, VT)
+
+
+def _wls_step(M, params, r, sigma, threshold: Optional[float] = None):
+    """``(dpars, cov)`` of :func:`fit_wls_svd` at the default threshold
+    ``eps * max(M.shape)`` (reference ``fitter.py:506``)."""
+    if threshold is None:
+        threshold = np.finfo(np.float64).eps * max(M.shape)
+    dpars, cov, _, _ = fit_wls_svd(r, sigma, M, list(params), threshold)
+    return dpars, cov
+
+
+def _apply(model, dpars, params, base=None, lam: float = 1.0):
+    dp = dpars.cpu().numpy()
+    for i, p in enumerate(params):
+        if p == "Offset":
+            continue
+        par = model[p]
+        start = base[p] if base is not None else float(par.value or 0.0)
+        par.value = start + lam * float(dp[i])
+
+
+class WLSFitter(Fitter):
+    """One-shot weighted-least-squares fitter (reference
+    ``fitter.py:520``)."""
+
+    def __init__(self, batch, model):
+        super().__init__(batch, model)
+        if model.has_correlated_errors:
+            raise CorrelatedErrors(model)
+        self.method = "weighted_least_square"
+
+    def fit_toas(self, maxiter: int = 1, threshold: Optional[float] = None,
+                 robust=None) -> float:
+        """``maxiter`` linearized WLS steps; returns the post-fit chi2."""
+        if robust:
+            raise NotImplementedError(_ROBUST_QUEUE)
+        for _ in range(max(1, maxiter)):
+            M, params = self.get_designmatrix()
+            dpars, cov = _wls_step(M, params, self.resids.time_resids,
+                                   self._data_sigma(), threshold)
+            _apply(self.model, dpars, params)
+            self.update_resids()
+            chi2 = self.resids.chi2
+            self._set_covariance(cov, params)
+        self.converged = True
+        self.chi2 = chi2
+        return chi2
+
+
+class DownhillFitter(Fitter):
+    """Iterative fitter with a lambda-halving line search (reference
+    ``fitter.py:588``); the timing path only."""
+
+    def __init__(self, batch, model):
+        super().__init__(batch, model)
+        self.method = "downhill"
+
+    def _solve_step(self):
+        M, params = self.get_designmatrix()
+        dpars, cov = _wls_step(M, params, self.resids.time_resids,
+                               self._data_sigma())
+        return dpars, params, cov
+
+    def fit_toas(self, maxiter: int = 20,
+                 required_chi2_decrease: float = 1e-2,
+                 max_chi2_increase: float = 1e-2, min_lambda: float = 1e-3,
+                 raise_on_maxiter: bool = False, robust=None) -> float:
+        """Downhill timing fit: each step's SVD solution is taken whole or
+        halved until chi2 stops rising by more than ``max_chi2_increase``;
+        converged once a whole step lowers chi2 by less than
+        ``required_chi2_decrease``."""
+        if robust:
+            raise NotImplementedError(_ROBUST_QUEUE)
+        if self._free_noise_params():
+            raise NotImplementedError(_NOISE_QUEUE)
+        best_chi2 = self.resids.chi2
+        self.converged = False
+        for it in range(maxiter):
+            dpars, params, cov = self._solve_step()
+            base = {p: float(self.model[p].value or 0.0)
+                    for p in params if p != "Offset"}
+            lam = 1.0
+            improved = False
+            while lam >= min_lambda:
+                _apply(self.model, dpars, params, base, lam)
+                self.update_resids()
+                chi2 = self.resids.chi2
+                if chi2 < best_chi2 + max_chi2_increase:
+                    improved = True
+                    break
+                lam *= 0.5
+            if not improved:
+                for p, v in base.items():
+                    self.model[p].value = v
+                self.update_resids()
+                if it == 0:
+                    raise StepProblem(
+                        f"chi2 would not decrease from {best_chi2:.3f}")
+                break
+            decrease = best_chi2 - chi2
+            best_chi2 = chi2
+            self._set_covariance(cov, params)
+            if decrease < required_chi2_decrease and lam == 1.0:
+                self.converged = True
+                break
+        else:
+            if raise_on_maxiter:
+                raise MaxiterReached(
+                    f"Downhill fit hit maxiter={maxiter} without meeting "
+                    f"tolerance (chi2 {best_chi2:.3f})")
+            warnings.warn(f"Downhill fit hit maxiter={maxiter}")
+        self.chi2 = best_chi2
+        return best_chi2
+
+
+class DownhillWLSFitter(DownhillFitter):
+    """Reference ``fitter.py:752``."""
+
+    def __init__(self, batch, model):
+        if model.has_correlated_errors:
+            raise CorrelatedErrors(model)
+        super().__init__(batch, model)
+        self.method = "downhill_wls"

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from pint_torch import F64
-from pint_torch.fitter import Fitter
+from pint_torch.fitter import DegeneracyWarning, Fitter
 from pint_torch.runtime.solve import (NonFiniteSystemError, SingularMatrixError,
                                       SolveDiagnostics, hardened_cholesky,
                                       solve_normal_cholesky)
@@ -27,10 +27,6 @@ from pint_torch.utils import normalize_designmatrix
 
 __all__ = ["GLSFitter", "build_augmented_system", "gls_normal_equations",
            "DegeneracyWarning"]
-
-
-class DegeneracyWarning(UserWarning):
-    """Degenerate parameter directions were removed from an SVD solve."""
 
 
 def _solve_cholesky(mtcm, mtcy):

@@ -1,22 +1,31 @@
-"""Chi2 over a parameter grid with a GLS refit per point (port of
+"""Chi2 over a parameter grid with a refit per point (port of
 ``pint_tpu/grid.py``: ``_classify_linear_columns`` and
-``_classified_columns_cached`` :109-216, ``build_grid_gls_chi2_fn``
-:427-1051 and ``grid_chisq`` :1183-1366, GLS path).
+``_classified_columns_cached`` :109-216, the WLS ``build_grid_chi2_fn``
+:219-376, ``build_grid_gls_chi2_fn`` :427-1051 and ``grid_chisq``
+:1183-1366).
 
 Grid parameters are frozen per point and the remaining free parameters are
 refit by ``niter`` Gauss-Newton steps.  Points go through in fixed-size
 chunks on an explicit leading batch axis: every kernel sees the chunk as
 its batch B.  Per step, only the design columns that are nonlinear in the
 parameters are re-derived (``torch.func.jvp`` over one-hot tangents); the
-Gram blocks of the constant columns and the noise block's factor are
-hoisted per grid.  The marginalized timing system of each point is solved
-by kernel K3 (:mod:`pint_torch.kernels.schur_cholesky_solve`); the final
-chi2 is the Woodbury form with the overall offset marginalized, exactly as
-:class:`~pint_torch.residuals.Residuals` computes it.
+constant columns are hoisted per grid.  ``grid_chisq`` dispatches on the
+noise model, as the reference does (``grid.py:1251``):
 
-A point whose solve fails is poisoned (NaN chi2, never a fabricated one);
-chunks holding such points re-run at escalated ridges, and only the failed
-points take the escalated values.
+* correlated noise (GLS): the Gram blocks of the constant columns and the
+  noise block's factor are hoisted per grid, the marginalized timing
+  system of each point is solved by kernel K3
+  (:mod:`pint_torch.kernels.schur_cholesky_solve`), and the final chi2 is
+  the Woodbury form with the overall offset marginalized, exactly as
+  :class:`~pint_torch.residuals.Residuals` computes it.  A point whose
+  solve fails is poisoned (NaN chi2, never a fabricated one); chunks
+  holding such points re-run at escalated ridges, and only the failed
+  points take the escalated values;
+* white noise only (WLS): each step solves the whitened system with an
+  explicit offset column by the normalized SVD least squares of kernel K5
+  (:mod:`pint_torch.kernels.wls_lstsq`), the reference's ``lstsq``, and the
+  chi2 is the weighted sum of squares.  A point whose singular values are
+  not finite is poisoned (rung -1).
 """
 
 from __future__ import annotations
@@ -30,11 +39,12 @@ from torch.func import jvp, vmap
 
 from pint_torch import F64
 from pint_torch.kernels.schur_cholesky_solve import schur_cholesky_solve
-from pint_torch.runtime.solve import hardened_cholesky
+from pint_torch.kernels.wls_lstsq import wls_lstsq
+from pint_torch.runtime.solve import SVD_RUNG, hardened_cholesky
 from pint_torch.utils import classify_linear_columns, linearity_probe_steps
 
-__all__ = ["build_grid_gls_chi2_fn", "grid_chisq", "point_spans",
-           "RIDGE", "ESCALATION"]
+__all__ = ["build_grid_chi2_fn", "build_grid_gls_chi2_fn", "grid_chisq",
+           "point_spans", "RIDGE", "ESCALATION"]
 
 #: base ridge of the normalized Schur solve (the reference's CPU branch:
 #: normalize by diag(A - Y^T Y), ridge 1e-12; H100 float64 is IEEE)
@@ -126,8 +136,8 @@ def _grid_bundle(model, batch, evaluate, jac_fn, all_names, nfit, ngrid,
     w = torch.as_tensor(1.0 / sigma**2, dtype=F64, device=dev)
     Us, ws, _ = model.noise_basis_by_component(batch)
     if not Us:
-        raise NotImplementedError(
-            "the WLS grid (no correlated noise) is not ported yet")
+        raise ValueError("the model has no correlated noise: its grid is "
+                         "the WLS one (build_grid_chi2_fn)")
     U = torch.as_tensor(np.hstack(Us), dtype=F64, device=dev)
     phi = torch.as_tensor(np.concatenate(ws), dtype=F64, device=dev)
     free_init = torch.tensor([[model.value(p) for p in all_names]],
@@ -159,27 +169,18 @@ def _grid_bundle(model, batch, evaluate, jac_fn, all_names, nfit, ngrid,
             s_col, U_chi, cf_chi)
 
 
-def build_grid_gls_chi2_fn(model, batch, grid_params: Sequence[str],
-                           fit_params: Optional[Sequence[str]] = None,
-                           niter: int = 4, chunk: int = 256,
-                           grid_spans: Optional[Sequence[float]] = None):
-    """Return ``(fn, free_init, fit_params)`` where ``fn(points (P, G))``
-    gives ``(chi2 (P,), vfit (P, nfit), diag (P, 3))``; diag columns are
-    (ladder rung, ridge applied, condition estimate) per point."""
+def _setup(model, batch, grid_params, fit_params, chunk):
+    """What both grid builders share: the validated chunk, the fit/grid
+    split and the model's evaluation and Jacobian at (B, n) values."""
     if isinstance(chunk, bool) or not isinstance(chunk, (int, np.integer)) \
             or int(chunk) <= 0:
         raise ValueError(f"chunk must be a positive integer, got {chunk!r}")
-    chunk = int(chunk)
-    dev = batch.device
     grid_params = tuple(grid_params)
     if fit_params is None:
         fit_params = tuple(p for p in model.free_params
                            if p not in grid_params)
     all_names = tuple(fit_params) + grid_params
-    nfit = len(fit_params)
-    nt = 1 + nfit
     const_pv = model.const_pv()
-    F0 = model.value("F0")
 
     def evaluate(v):
         return model.evaluate(v, all_names, batch, const_pv)
@@ -187,43 +188,183 @@ def build_grid_gls_chi2_fn(model, batch, grid_params: Sequence[str],
     def jac_fn(v):
         return model.jac_frac(v, all_names, batch, const_pv)
 
-    # the hoisted per-grid constants are a pure function of the parameter
-    # values (mask selectors included), the batch and the fit/grid split;
-    # one cached slot serves repeated grids at unchanged values
+    return int(chunk), grid_params, tuple(fit_params), all_names, evaluate, \
+        jac_fn
+
+
+def _cached_bundle(model, batch, slot_name, all_names, nfit, grid_spans,
+                   build):
+    """The hoisted per-grid constants: a pure function of the parameter
+    values (mask selectors included), the batch and the fit/grid split,
+    so one cached slot serves repeated grids at unchanged values."""
     vkey = (tuple((n, str(p.value), p.key, tuple(p.key_value))
                   for n, p in model.params_table.items()),
             all_names, nfit, None if grid_spans is None
             else tuple(float(s) for s in grid_spans))
-    slot = model._cache.get("grid_gls_bundle")
+    slot = model._cache.get(slot_name)
     if slot is not None and slot[0] == vkey and slot[1]() is batch:
-        (free_init, int0, w, nl_fit, B_base, A_base, Y_base, Uw, L_D, s_col,
-         U_chi, cf_chi) = slot[2]
-    else:
-        bundle = _grid_bundle(model, batch, evaluate, jac_fn, all_names, nfit,
-                              len(grid_params), grid_spans, F0)
-        model._cache["grid_gls_bundle"] = (vkey, weakref.ref(batch), bundle)
-        (free_init, int0, w, nl_fit, B_base, A_base, Y_base, Uw, L_D, s_col,
-         U_chi, cf_chi) = bundle
+        return slot[2]
+    bundle = build()
+    model._cache[slot_name] = (vkey, weakref.ref(batch), bundle)
+    return bundle
 
-    nl_idx = torch.as_tensor(nl_fit, dtype=torch.long, device=dev)
-    nlp_idx = nl_idx + 1
-    k = len(nl_fit)
 
+def _resid_seconds_fn(evaluate, int0, w, F0):
+    """Residuals [s] at (B, n) values, pulse numbers tracked from ``int0``
+    and the weighted mean subtracted (the Offset)."""
     def resid_seconds(v):
         ph, _ = evaluate(v)
         r = (ph.int_ - int0) + ph.frac
         r = r - (r * w).sum(dim=-1, keepdim=True) / w.sum()
         return r / F0
 
+    return resid_seconds
+
+
+def _nonlinear_columns_fn(evaluate, nl_idx):
+    """d frac / d v[:, nl] per point: (B, N, k), by ``jvp`` over one-hot
+    tangents."""
+    k = len(nl_idx)
+
     def nonlinear_columns(v):
-        """d frac / d v[:, nl] per point: (B, N, k)."""
-        basis = torch.zeros((k,) + tuple(v.shape), dtype=F64, device=dev)
-        basis[torch.arange(k, device=dev), :, nl_idx] = 1.0
+        basis = torch.zeros((k,) + tuple(v.shape), dtype=F64, device=v.device)
+        basis[torch.arange(k, device=v.device), :, nl_idx] = 1.0
 
         def one(t):
             return jvp(lambda x: evaluate(x)[0].frac, (v,), (t,))[1]
 
         return vmap(one)(basis).permute(1, 2, 0)
+
+    return nonlinear_columns
+
+
+def _blocks(points, chunk, dev):
+    """``[(block, kept rows)]``: ``points`` in chunks of ``chunk`` rows,
+    the last padded with copies of its last point."""
+    points = torch.as_tensor(np.asarray(points), dtype=F64, device=dev)
+    blocks = []
+    for i in range(0, points.shape[0], chunk):
+        blk = points[i:i + chunk]
+        keep = blk.shape[0]
+        if keep < chunk:
+            blk = torch.cat([blk, blk[-1:].expand(chunk - keep,
+                                                  blk.shape[1])])
+        blocks.append((blk, keep))
+    return blocks
+
+
+def _wls_bundle(model, batch, evaluate, jac_fn, all_names, nfit, ngrid,
+                grid_spans, F0):
+    """The per-grid constants of the WLS grid (reference
+    ``grid.py:245-270``): expansion point, reference pulse numbers,
+    sqrt(w), the classified constant columns, whitened ((B, N, 1 + nfit)
+    with the offset column first)."""
+    dev = batch.device
+    sigma = model.scaled_toa_uncertainty(batch)
+    w = torch.as_tensor(1.0 / sigma**2, dtype=F64, device=dev)
+    sw = torch.sqrt(w)
+    free_init = torch.tensor([[model.value(p) for p in all_names]],
+                             dtype=F64, device=dev)
+    int0 = evaluate(free_init)[0].int_
+    J0, nl_fit = _classified_columns_cached(
+        model, batch, jac_fn, free_init, nfit, ngrid, grid_spans, all_names)
+    Aw_base = torch.cat([sw[:, None], (-J0 / F0) * sw[:, None]], dim=1)
+    return free_init, int0, w, sw, nl_fit, Aw_base
+
+
+def build_grid_chi2_fn(model, batch, grid_params: Sequence[str],
+                       fit_params: Optional[Sequence[str]] = None,
+                       niter: int = 4, chunk: int = 256,
+                       grid_spans: Optional[Sequence[float]] = None):
+    """Return ``(fn, free_init, fit_params)`` where ``fn(points (P, G))``
+    gives ``(chi2 (P,), vfit (P, nfit), diag (P, 3))``; diag columns are
+    (ladder rung, ridge applied, condition estimate) per point.
+
+    A model with correlated noise takes the GLS grid
+    (:func:`build_grid_gls_chi2_fn`), as the reference dispatches.  Without
+    it each point runs ``niter`` whitened Gauss-Newton steps with an
+    explicit offset column, each solved by kernel K5's normalized SVD
+    least squares (reference ``grid.py:219-376``); its rung is
+    ``SVD_RUNG``, or -1 where a step's singular values were not finite,
+    its ridge 0 and its condition estimate the largest s_max / s_min of
+    its steps."""
+    if model.noise_basis_by_component(batch)[0]:
+        return build_grid_gls_chi2_fn(model, batch, grid_params,
+                                      fit_params=fit_params, niter=niter,
+                                      chunk=chunk, grid_spans=grid_spans)
+    chunk, grid_params, fit_params, all_names, evaluate, jac_fn = _setup(
+        model, batch, grid_params, fit_params, chunk)
+    dev = batch.device
+    nfit = len(fit_params)
+    F0 = model.value("F0")
+    free_init, int0, w, sw, nl_fit, Aw_base = _cached_bundle(
+        model, batch, "grid_wls_bundle", all_names, nfit, grid_spans,
+        lambda: _wls_bundle(model, batch, evaluate, jac_fn, all_names, nfit,
+                            len(grid_params), grid_spans, F0))
+    nl_idx = torch.as_tensor(nl_fit, dtype=torch.long, device=dev)
+    resid_seconds = _resid_seconds_fn(evaluate, int0, w, F0)
+    nonlinear_columns = _nonlinear_columns_fn(evaluate, nl_idx)
+
+    def chunk_fn(gvals):
+        Bp = gvals.shape[0]
+        v = torch.cat([free_init[:, :nfit].expand(Bp, nfit), gvals], dim=1)
+        failed = torch.zeros(Bp, dtype=torch.bool, device=dev)
+        cond = torch.full((Bp,), -torch.inf, dtype=F64, device=dev)
+        for _ in range(niter):
+            rw = resid_seconds(v) * sw
+            Aw = Aw_base.expand(Bp, *Aw_base.shape)
+            if len(nl_fit):
+                Aw = Aw.clone()
+                Aw[:, :, nl_idx + 1] = (-nonlinear_columns(v) / F0) \
+                    * sw[:, None]
+            x, sv, norms = wls_lstsq(Aw, rw)
+            ok = torch.isfinite(sv).all(dim=1)
+            cnd = sv.amax(dim=1) / torch.clamp(sv.amin(dim=1), min=1e-300)
+            v = torch.cat([v[:, :nfit] + x[:, 1:] / norms[:, 1:],
+                           v[:, nfit:]], dim=1)
+            failed = failed | ~ok
+            cond = torch.maximum(cond, torch.where(ok, cnd, torch.nan))
+        r = resid_seconds(v)
+        chi2 = (w * r * r).sum(dim=-1)
+        rung = torch.where(failed, -1.0, float(SVD_RUNG))
+        return torch.stack([chi2, rung, torch.zeros_like(chi2), cond],
+                           dim=1), v[:, :nfit]
+
+    def fn(points):
+        outs = []
+        for blk, keep in _blocks(points, chunk, dev):
+            d, vf = chunk_fn(blk)
+            outs.append((d[:keep].cpu().numpy(), vf[:keep].cpu().numpy()))
+        d = np.concatenate([o[0] for o in outs])
+        return d[:, 0], np.concatenate([o[1] for o in outs]), d[:, 1:]
+
+    fn.nonlinear_columns = tuple(nl_fit)
+    return fn, free_init, fit_params
+
+
+def build_grid_gls_chi2_fn(model, batch, grid_params: Sequence[str],
+                           fit_params: Optional[Sequence[str]] = None,
+                           niter: int = 4, chunk: int = 256,
+                           grid_spans: Optional[Sequence[float]] = None):
+    """Return ``(fn, free_init, fit_params)`` where ``fn(points (P, G))``
+    gives ``(chi2 (P,), vfit (P, nfit), diag (P, 3))``; diag columns are
+    (ladder rung, ridge applied, condition estimate) per point."""
+    chunk, grid_params, fit_params, all_names, evaluate, jac_fn = _setup(
+        model, batch, grid_params, fit_params, chunk)
+    dev = batch.device
+    nfit = len(fit_params)
+    nt = 1 + nfit
+    F0 = model.value("F0")
+    (free_init, int0, w, nl_fit, B_base, A_base, Y_base, Uw, L_D, s_col,
+     U_chi, cf_chi) = _cached_bundle(
+        model, batch, "grid_gls_bundle", all_names, nfit, grid_spans,
+        lambda: _grid_bundle(model, batch, evaluate, jac_fn, all_names, nfit,
+                             len(grid_params), grid_spans, F0))
+    nl_idx = torch.as_tensor(nl_fit, dtype=torch.long, device=dev)
+    nlp_idx = nl_idx + 1
+    k = len(nl_fit)
+    resid_seconds = _resid_seconds_fn(evaluate, int0, w, F0)
+    nonlinear_columns = _nonlinear_columns_fn(evaluate, nl_idx)
 
     def chunk_fn(gvals, ridge_scale: float):
         Bp = gvals.shape[0]
@@ -266,16 +407,7 @@ def build_grid_gls_chi2_fn(model, batch, grid_params: Sequence[str],
         return chi2, v[:, :nfit], solved, cond
 
     def fn(points):
-        points = torch.as_tensor(np.asarray(points), dtype=F64, device=dev)
-        npts = points.shape[0]
-        blocks = []
-        for i in range(0, npts, chunk):
-            blk = points[i:i + chunk]
-            keep = blk.shape[0]
-            if keep < chunk:
-                blk = torch.cat([blk, blk[-1:].expand(chunk - keep,
-                                                      blk.shape[1])])
-            blocks.append((blk, keep))
+        blocks = _blocks(points, chunk, dev)
         first = [chunk_fn(blk, 1.0) for blk, _ in blocks]
         out_c, out_v, out_d = [], [], []
         for (blk, keep), res in zip(blocks, first):
@@ -327,17 +459,18 @@ def point_spans(model, parnames, pts) -> list:
 def grid_chisq(ftr, parnames: Sequence[str], parvalues: Sequence,
                extraparnames: Sequence[str] = (), niter: int = 4,
                chunk: int = 256) -> Tuple[np.ndarray, dict]:
-    """Chi2 over the outer-product grid of ``parvalues``; returns the chi2
-    array (grid-shaped) and ``{name: grid-shaped values}`` for
-    ``extraparnames``.  Per-point solve diagnostics land on
-    ``ftr.last_grid_diagnostics``."""
+    """Chi2 over the outer-product grid of ``parvalues``, by the GLS grid
+    where the model has correlated noise and the WLS grid otherwise
+    (:func:`build_grid_chi2_fn`); returns the chi2 array (grid-shaped) and
+    ``{name: grid-shaped values}`` for ``extraparnames``.  Per-point solve
+    diagnostics land on ``ftr.last_grid_diagnostics``."""
     model, batch = ftr.model, ftr.batch
     parnames = tuple(parnames)
     grids = [np.asarray(v, dtype=np.float64) for v in parvalues]
     shape = tuple(len(g) for g in grids)
     pts = np.stack([g.ravel() for g in np.meshgrid(*grids, indexing="ij")],
                    axis=-1)
-    fn, _, fit_params = build_grid_gls_chi2_fn(
+    fn, _, fit_params = build_grid_chi2_fn(
         model, batch, parnames, niter=niter, chunk=chunk,
         grid_spans=point_spans(model, parnames, pts))
     chi2, vfit, diag = fn(pts)

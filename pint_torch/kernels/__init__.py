@@ -1,13 +1,13 @@
 """Hand-written Hopper kernels of the port, with their plain twins.
 
-Each kernel module holds the wrapper (``spin_phase``, ``dd_binary``,
-``schur_cholesky_solve``), its plain PyTorch version (``*_reference``, same
-signature and semantics) and ``launch_counts``, one count per CUDA kernel
-of its source, that the wrapper raises by one where it launches that
-kernel.  Dispatch is by device: a CUDA tensor
-launches the kernel, built from ``csrc/`` with nvcc at first use (a failed
-build or launch raises; nothing falls back), and a CPU tensor runs the
-plain version.
+Each kernel module holds the wrapper (K1 ``spin_phase``, K2 ``dd_binary``,
+K3 ``schur_cholesky_solve``, K4 ``ell1_binary``, K5 ``wls_lstsq``), its
+plain PyTorch version (``*_reference``, same signature and semantics) and
+``launch_counts``, one count per CUDA kernel instantiation of its source,
+that the wrapper raises by one where it launches that kernel.  Dispatch
+is by device: a CUDA tensor launches the kernel, built from ``csrc/`` with
+nvcc at first use (a failed build or launch raises; nothing falls back),
+and a CPU tensor runs the plain version.
 """
 
 from __future__ import annotations
@@ -23,7 +23,8 @@ __all__ = ["NAMES", "modules", "build_all", "launch_counts", "reset_counts",
            "KernelBuildError", "KernelLaunchError"]
 
 #: the kernels, by wrapper-module name
-NAMES = ("spin_phase", "dd_binary", "schur_cholesky_solve")
+NAMES = ("spin_phase", "dd_binary", "schur_cholesky_solve", "ell1_binary",
+         "wls_lstsq")
 
 
 def modules() -> Dict[str, ModuleType]:
@@ -41,7 +42,7 @@ def build_all() -> Dict[str, float]:
 
 def launch_counts() -> Dict[str, int]:
     """Launches since the last reset, by CUDA kernel: the primal and dual
-    instantiations of K1 and K2 count apart."""
+    instantiations of K1, K2 and K4 (and K4's ELL1k ones) count apart."""
     out: Dict[str, int] = {}
     for mod in modules().values():
         out.update(mod.launch_counts)

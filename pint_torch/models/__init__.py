@@ -1,6 +1,7 @@
-"""Timing-model components of the port (the stand-in's set: equatorial
-astrometry, solar-system Shapiro, DM/DMX dispersion, DD binary, FD,
-spindown, jumps, EFAC/EQUAD/ECORR and power-law red noise)."""
+"""Timing-model components of the port (the stand-ins' set: equatorial
+and ecliptic astrometry, solar-system Shapiro, DM/DMX dispersion, DD, ELL1
+and ELL1k binaries, FD, spindown, jumps, EFAC/EQUAD/ECORR and power-law
+red noise)."""
 
 from pint_torch.models import (astrometry, dispersion_model,  # noqa: F401
                                frequency_dependent, jump, noise_model,

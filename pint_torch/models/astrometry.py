@@ -1,5 +1,6 @@
 """Astrometry: sky position, proper motion and parallax (port of
-``pint_tpu/models/astrometry.py:30-67,147-226``, equatorial frame).
+``pint_tpu/models/astrometry.py:30-67,147-278``, equatorial and ecliptic
+frames).
 
 delay = -r_obs . n_psr + the parallax term [s], positions in light-seconds.
 Free parameters are (B, 1) tensors, so the unit vector is (B, N, 3) on a
@@ -10,11 +11,13 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from pint_torch.models.timing_model import DelayComponent
+from pint_torch.pulsar_ecliptic import OBL_IERS2010_RAD
 
-__all__ = ["AstrometryEquatorial"]
+__all__ = ["AstrometryEquatorial", "AstrometryEcliptic"]
 
 #: mas/yr -> rad/day
 _MASYR_TO_RADDAY = (math.pi / 180.0 / 3600.0 / 1000.0) / 365.25
@@ -24,6 +27,11 @@ _KPC_LS = 3.0856775814913673e19 / 299792458.0
 
 def _cos(x):
     return torch.cos(x) if torch.is_tensor(x) else math.cos(x)
+
+
+#: rotation ecliptic (IERS2010) -> equatorial, about x
+_COS_OBL = float(np.cos(OBL_IERS2010_RAD))
+_SIN_OBL = float(np.sin(OBL_IERS2010_RAD))
 
 
 def _rowsum(x):
@@ -36,6 +44,13 @@ class Astrometry(DelayComponent):
 
     def ssb_to_psb_xyz(self, pv, epoch_mjd):
         raise NotImplementedError
+
+    def _dt_day(self, pv, epoch_mjd):
+        """Days from POSEPOCH (zero without one)."""
+        if self.config.get("has_posepoch", False) and "POSEPOCH" in pv:
+            pe = pv["POSEPOCH"]
+            return epoch_mjd - (pe.hi + pe.lo)
+        return torch.zeros_like(epoch_mjd)
 
     def barycentric_radio_freq(self, pv, batch):
         """Observed frequency corrected for observatory motion (MHz)."""
@@ -66,13 +81,31 @@ class AstrometryEquatorial(Astrometry):
     def ssb_to_psb_xyz(self, pv, epoch_mjd):
         ra0 = pv["RAJ"]
         dec0 = pv["DECJ"]
-        if self.config.get("has_posepoch", False) and "POSEPOCH" in pv:
-            pe = pv["POSEPOCH"]
-            dt_day = epoch_mjd - (pe.hi + pe.lo)
-        else:
-            dt_day = torch.zeros_like(epoch_mjd)
+        dt_day = self._dt_day(pv, epoch_mjd)
         dec = dec0 + pv.get("PMDEC", 0.0) * _MASYR_TO_RADDAY * dt_day
         ra = ra0 + pv.get("PMRA", 0.0) * _MASYR_TO_RADDAY * dt_day / _cos(dec0)
         cd = torch.cos(dec)
         return torch.stack([cd * torch.cos(ra), cd * torch.sin(ra),
                             torch.sin(dec)], dim=-1)
+
+
+class AstrometryEcliptic(Astrometry):
+    """ELONG/ELAT with PMELONG/PMELAT in the IERS2010 ecliptic, rotated to
+    equatorial (reference ``astrometry.py:227-278``, ``ssb_to_psb_xyz``
+    :262).  Config:
+    ``has_posepoch``."""
+
+    register = True
+
+    def ssb_to_psb_xyz(self, pv, epoch_mjd):
+        dt_day = self._dt_day(pv, epoch_mjd)
+        lat = pv["ELAT"] + pv.get("PMELAT", 0.0) * _MASYR_TO_RADDAY * dt_day
+        lon = pv["ELONG"] + pv.get("PMELONG", 0.0) * _MASYR_TO_RADDAY \
+            * dt_day / _cos(pv["ELAT"])
+        cb = torch.cos(lat)
+        x_e = cb * torch.cos(lon)
+        y_e = cb * torch.sin(lon)
+        z_e = torch.sin(lat)
+        y = _COS_OBL * y_e - _SIN_OBL * z_e
+        z = _SIN_OBL * y_e + _COS_OBL * z_e
+        return torch.stack([x_e, y, z], dim=-1)

@@ -1,16 +1,19 @@
 """Par-facing binary components (port of
-``pint_tpu/models/binary/components.py:76-205,458-475``): the barycentric
-time tt0 = (TDB - T0) * 86400 - acc_delay in double-double, handed as
-float64 to the DD engine -- kernel K2 (:mod:`pint_torch.kernels.dd_binary`),
-whose arithmetic is :mod:`pint_torch.models.binary.engines`."""
+``pint_tpu/models/binary/components.py:76-205,458-475,589-627,705-719``):
+the barycentric time since the epoch, (TDB - T0|TASC) * 86400 - acc_delay
+in double-double, handed as float64 to an engine kernel -- K2
+(:mod:`pint_torch.kernels.dd_binary`) for DD, K4
+(:mod:`pint_torch.kernels.ell1_binary`) for ELL1 and ELL1k -- whose
+arithmetic is :mod:`pint_torch.models.binary.engines`."""
 
 from __future__ import annotations
 
 from pint_torch.dd import dd_mul, dd_sub
 from pint_torch.kernels import dd_binary as K2
+from pint_torch.kernels import ell1_binary as K4
 from pint_torch.models.timing_model import DelayComponent, stack_params
 
-__all__ = ["PulsarBinary", "BinaryDD"]
+__all__ = ["PulsarBinary", "BinaryDD", "BinaryELL1", "BinaryELL1k"]
 
 DAY_S = 86400.0
 
@@ -51,3 +54,25 @@ class BinaryDD(PulsarBinary):
     def binary_delay(self, pv, tt0):
         self._check_orbits()
         return K2.dd_binary(tt0, stack_params(pv, K2.DD_PARAMS, tt0.device))
+
+
+class BinaryELL1(PulsarBinary):
+    """Low-eccentricity Lange et al. (2001) model, epoch TASC (reference
+    ``components.py:589``)."""
+
+    register = True
+    epoch_param = "TASC"
+    ell1k = False
+
+    def binary_delay(self, pv, tt0):
+        self._check_orbits()
+        return K4.ell1_binary(tt0, stack_params(pv, K4.ELL1_PARAMS,
+                                                tt0.device), self.ell1k)
+
+
+class BinaryELL1k(BinaryELL1):
+    """ELL1 with exponential eccentricity evolution and periastron advance
+    (Susobhanan+ 2018; reference ``components.py:705``)."""
+
+    register = True
+    ell1k = True

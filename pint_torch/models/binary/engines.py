@@ -1,16 +1,19 @@
 """Binary-orbit delay engines (port of
-``pint_tpu/models/binary/engines.py:29-226``, the DD path).
+``pint_tpu/models/binary/engines.py:29-226,355-453``: the DD and ELL1
+paths).
 
 Plain PyTorch functions of a parameter mapping ``p`` (PB, PBDOT, ... as in
-:data:`DD_PARAMS`) and ``tt0`` (seconds since T0).  They are the arithmetic
-of kernel K2 (``pint_torch/kernels/csrc/dd_binary.cu``), operation for
-operation: :func:`dd_forward` is its ``dd_forward`` and :func:`dd_partials`
-its ``dd_reverse``, so kernel and plain twin
-(:func:`pint_torch.kernels.dd_binary.dd_binary_reference`) round alike.
-The forward pass is the reference's own eager arithmetic; the partials
-come from a hand-derived reverse sweep, with Kepler's equation
-differentiated at its root.  On the main path the binary component calls
-the kernel wrapper instead.
+:data:`DD_PARAMS` or :data:`ELL1_PARAMS`) and the time since T0 or TASC in
+seconds.  They are the arithmetic of kernels K2
+(``pint_torch/kernels/csrc/dd_binary.cu``) and K4
+(``csrc/ell1_binary.cu``), operation for operation: :func:`dd_forward` is
+K2's ``dd_forward`` and :func:`dd_partials` its ``dd_reverse``;
+:func:`ell1_forward` and :func:`ell1_partials` are K4's ``ell1_forward``
+and ``ell1_reverse``.  So kernel and plain twin round alike.  The forward
+passes are the reference's own eager arithmetic; the partials come from
+hand-derived reverse sweeps (Kepler's equation differentiated at its root
+in DD).  On the main path the binary components call the kernel wrappers
+instead.
 """
 
 from __future__ import annotations
@@ -19,13 +22,21 @@ import math
 
 import torch
 
-__all__ = ["DD_PARAMS", "TSUN", "solve_kepler", "kepler_inputs",
-           "dd_forward", "dd_delay", "dd_partials"]
+__all__ = ["DD_PARAMS", "ELL1_PARAMS", "TSUN", "solve_kepler",
+           "kepler_inputs", "dd_forward", "dd_delay", "dd_partials",
+           "ell1_eps", "ell1_roemer_terms", "ell1_inverse_delay",
+           "ell1_forward", "ell1_delay", "ell1k_delay", "ell1_partials"]
 
 #: the DD parameter row, in the reference's units (PB days, OM deg,
 #: OMDOT deg/yr, M2 Msun)
 DD_PARAMS = ("PB", "PBDOT", "XPBDOT", "A1", "A1DOT", "ECC", "EDOT", "OM",
              "OMDOT", "M2", "SINI", "GAMMA", "DR", "DTH", "A0", "B0")
+
+#: the ELL1/ELL1k parameter row (PB days, EPS1DOT/EPS2DOT 1/s, OMDOT
+#: deg/yr, LNEDOT 1/yr, M2 Msun); ELL1 reads EPS1DOT/EPS2DOT and ELL1k
+#: OMDOT/LNEDOT in their place
+ELL1_PARAMS = ("PB", "PBDOT", "XPBDOT", "A1", "A1DOT", "EPS1", "EPS2",
+               "EPS1DOT", "EPS2DOT", "OMDOT", "LNEDOT", "M2", "SINI")
 
 #: G * Msun / c^3 [s]
 TSUN = 4.925490947000518e-6
@@ -256,5 +267,233 @@ def dd_partials(p, tt0, f):
     P[3] = g_pbdot
     P[0] = g_frac / pb_s + g_pbprime * p["PBDOT"] + g_e * p["EDOT"] \
         + g_a1 * p["A1DOT"]
+    shape = torch.broadcast_shapes(*(x.shape for x in P))
+    return torch.stack([x.expand(shape) for x in P], dim=-1)
+
+
+# ----------------------------------------------------------------------
+# ELL1 family (Lange et al. 2001; reference engines.py:355-453)
+# ----------------------------------------------------------------------
+def ell1_eps(p, ttasc, ell1k: bool = False, f: dict = None):
+    """(eps1, eps2) at each epoch: linear EPS1DOT/EPS2DOT evolution, or
+    ELL1k's exponential/rotating form (OMDOT, LNEDOT).  The intermediates
+    :func:`ell1_partials` reads go into ``f``."""
+    f = {} if f is None else f
+    if ell1k:
+        f["omdot"] = omdot = _div(p["OMDOT"] * DEG, SEC_PER_YEAR)
+        f["lnedot"] = lnedot = _div(p["LNEDOT"], SEC_PER_YEAR)
+        f["scale"] = scale = 1.0 + lnedot * ttasc
+        th = omdot * ttasc
+        f["cw"] = c = torch.cos(th)
+        f["sw"] = s = torch.sin(th)
+        eps1 = scale * (p["EPS1"] * c + p["EPS2"] * s)
+        eps2 = scale * (p["EPS2"] * c - p["EPS1"] * s)
+        return eps1, eps2
+    return (p["EPS1"] + ttasc * p["EPS1DOT"],
+            p["EPS2"] + ttasc * p["EPS2DOT"])
+
+
+def _harmonics(phi):
+    """sin and cos of phi, 2 phi, 3 phi and 4 phi, each taken of its own
+    rounded argument as the reference takes them."""
+    return [(torch.sin(k * phi), torch.cos(k * phi)) if k > 1
+            else (torch.sin(phi), torch.cos(phi)) for k in (1, 2, 3, 4)]
+
+
+def ell1_roemer_terms(phi, eps1, eps2, first_order_dre: bool = False,
+                      sc=None):
+    """(Dre, Drep, Drepp)/a1: the third-order-in-e ELL1 Roemer delay and
+    its Phi-derivatives (reference ``engines.py:372``), in the reference's
+    order of operations; ``first_order_dre`` takes ELL1k's first-order Dre
+    with its -3/2 eps1 term.  ``sc`` is :func:`_harmonics` of ``phi``."""
+    (s1, c1), (s2, c2), (s3, c3), (s4, c4) = _harmonics(phi) if sc is None \
+        else sc
+    e1, e2 = eps1, eps2
+    e1sq, e2sq = e1 * e1, e2 * e2
+    e1cu, e2cu = e1 * e1sq, e2 * e2sq
+    if first_order_dre:
+        dre = s1 + 0.5 * (e2 * s2 - e1 * (c2 + 3.0))
+    else:
+        dre = (s1 + 0.5 * (e2 * s2 - e1 * c2)
+               - (1.0 / 8.0) * (5 * e2sq * s1 - 3 * e2sq * s3
+                                - 2 * e2 * e1 * c1 + 6 * e2 * e1 * c3
+                                + 3 * e1sq * s1 + 3 * e1sq * s3)
+               - (1.0 / 12.0) * (5 * e2cu * s2 + 3 * e1sq * e2 * s2
+                                 - 6 * e1 * e2sq * c2 - 4 * e1cu * c2
+                                 - 4 * e2cu * s4 + 12 * e1sq * e2 * s4
+                                 + 12 * e1 * e2sq * c4 - 4 * e1cu * c4))
+    drep = (c1 + e1 * s2 + e2 * c2
+            - (1.0 / 8.0) * (5 * e2sq * c1 - 9 * e2sq * c3
+                             + 2 * e1 * e2 * s1 - 18 * e1 * e2 * s3
+                             + 3 * e1sq * c1 + 9 * e1sq * c3)
+            - (1.0 / 12.0) * (10 * e2cu * c2 + 6 * e1sq * e2 * c2
+                              + 12 * e1 * e2sq * s2 + 8 * e1cu * s2
+                              - 16 * e2cu * c4 + 48 * e1sq * e2 * c4
+                              - 48 * e1 * e2sq * s4 + 16 * e1cu * s4))
+    drepp = (-s1 + 2 * e1 * c2 - 2 * e2 * s2
+             - (1.0 / 8.0) * (-5 * e2sq * s1 + 27 * e2sq * s3
+                              + 2 * e1 * e2 * c1 - 54 * e1 * e2 * c3
+                              - 3 * e1sq * s1 - 27 * e1sq * s3)
+             - (1.0 / 12.0) * (-20 * e2cu * s2 - 12 * e1sq * e2 * s2
+                               + 24 * e1 * e2sq * c2 + 16 * e1cu * c2
+                               + 64 * e2cu * s4 - 192 * e1sq * e2 * s4
+                               - 192 * e1 * e2sq * c4 + 64 * e1cu * c4))
+    return dre, drep, drepp
+
+
+def ell1_forward(p, ttasc, ell1k: bool = False) -> dict:
+    """The ELL1 (or ELL1k) delay under ``delay``: the inverse-timing
+    Roemer part and the M2/SINI Shapiro delay (reference
+    ``ell1_inverse_delay`` and ``ell1_delay``, ``engines.py:416-453``),
+    with the intermediates :func:`ell1_partials` reads."""
+    f = {}
+    f["pb_s"] = pb_s = p["PB"] * 86400.0
+    f["pbdot"] = pbdot = p["PBDOT"] + p["XPBDOT"]
+    f["frac"] = frac = _div(ttasc, pb_s)
+    orbits = frac - 0.5 * pbdot * frac * frac
+    f["pbprime"] = pbprime = pb_s + p["PBDOT"] * ttasc
+    f["phi"] = phi = (orbits - torch.floor(orbits)) * TWO_PI
+    f["eps1"], f["eps2"] = eps1, eps2 = ell1_eps(p, ttasc, ell1k, f)
+    f["a1"] = a1 = p["A1"] + ttasc * p["A1DOT"]
+    f["sc"] = sc = _harmonics(phi)
+    f["dre"], f["drep"], f["drepp"] = dre, drep, drepp = ell1_roemer_terms(
+        phi, eps1, eps2, first_order_dre=ell1k, sc=sc)
+    f["Dre"] = Dre = a1 * dre
+    f["Drep"] = Drep = a1 * drep
+    f["Drepp"] = Drepp = a1 * drepp
+    f["nhat"] = nhat = _div(TWO_PI, pbprime)
+    f["nD"] = nD = nhat * Drep
+    f["nhat2"] = nhat2 = nhat * nhat
+    f["brI"] = brI = 1.0 - nD + nD * nD + 0.5 * nhat2 * Dre * Drepp
+    delayI = Dre * brI
+    f["m2"] = m2 = p["M2"] * TSUN
+    f["brace"] = brace = 1.0 - p["SINI"] * sc[0][0]
+    delayS = -2.0 * m2 * torch.log(brace)
+    f["delay"] = delayI + delayS
+    return f
+
+
+def ell1_inverse_delay(p, ttasc, ell1k: bool = False):
+    """``(delayI, phi, pbprime)`` (reference ``engines.py:416``)."""
+    f = ell1_forward(p, ttasc, ell1k)
+    return f["Dre"] * f["brI"], f["phi"], f["pbprime"]
+
+
+def ell1_delay(p, ttasc, ell1k: bool = False):
+    """Plain ELL1 delay (reference ``engines.py:439``)."""
+    return ell1_forward(p, ttasc, ell1k)["delay"]
+
+
+def ell1k_delay(p, ttasc):
+    """Plain ELL1k delay (reference ``engines.py:448``)."""
+    return ell1_forward(p, ttasc, True)["delay"]
+
+
+def _ell1_coefficients(e1, e2):
+    """The third-order Dre/a1 as sum_k S_k sin(k phi) + C_k cos(k phi):
+    ``[(S_k, C_k, dS_k/de1, dC_k/de1, dS_k/de2, dC_k/de2)]`` for k = 1..4.
+    Drep and Drepp are its Phi-derivatives (k S_k cos - k C_k sin, and
+    -k^2 times Dre's terms), which :func:`ell1_partials` uses."""
+    e1sq, e2sq, e1e2 = e1 * e1, e2 * e2, e1 * e2
+    return [
+        (1.0 - 0.125 * (5.0 * e2sq + 3.0 * e1sq), 0.25 * e1e2,
+         -0.75 * e1, 0.25 * e2, -1.25 * e2, 0.25 * e1),
+        (0.5 * e2 - _div((5.0 * e2sq + 3.0 * e1sq) * e2, 12.0),
+         -0.5 * e1 + _div((6.0 * e2sq + 4.0 * e1sq) * e1, 12.0),
+         -0.5 * e1e2, -0.5 + 0.5 * e2sq + e1sq,
+         0.5 - _div(15.0 * e2sq + 3.0 * e1sq, 12.0), e1e2),
+        (0.375 * (e2sq - e1sq), -0.75 * e1e2,
+         -0.75 * e1, -0.75 * e2, 0.75 * e2, -0.75 * e1),
+        ((_div(e2sq, 3.0) - e1sq) * e2, (_div(e1sq, 3.0) - e2sq) * e1,
+         -2.0 * e1e2, e1sq - e2sq, e2sq - e1sq, -2.0 * e1e2),
+    ]
+
+
+def ell1_partials(p, ttasc, f, ell1k: bool = False):
+    """The reverse sweep of :func:`ell1_forward`: partials (..., 14) of the
+    delay with respect to ttasc and the 13 parameters of
+    :data:`ELL1_PARAMS`, all NaN where the delay is not finite.  The
+    parameters the variant does not read (ELL1: OMDOT, LNEDOT; ELL1k:
+    EPS1DOT, EPS2DOT) get zeros."""
+    P = [None] * (len(ELL1_PARAMS) + 1)
+    gd = torch.where(torch.isfinite(f["delay"]), 1.0, math.nan).to(
+        f["delay"].dtype)
+    sc = f["sc"]
+    s1, c1 = sc[0]
+    # delayS = -2 m2 log(brace); brace = 1 - SINI sin(phi)
+    P[12] = gd * (-2.0 * torch.log(f["brace"])) * TSUN
+    g_brace = gd * (-2.0 * f["m2"] / f["brace"])
+    P[13] = -g_brace * s1
+    g_phi = -g_brace * p["SINI"] * c1
+    # delayI = Dre brI; brI = 1 - nD + nD^2 + 0.5 nhat2 Dre Drepp
+    Dre, Drep, Drepp = f["Dre"], f["Drep"], f["Drepp"]
+    nhat, nhat2, nD = f["nhat"], f["nhat2"], f["nD"]
+    g_brI = gd * Dre
+    g_Dre = gd * f["brI"] + g_brI * 0.5 * nhat2 * Drepp
+    g_Drepp = g_brI * 0.5 * nhat2 * Dre
+    g_nD = g_brI * (2.0 * nD - 1.0)
+    g_nhat = g_nD * Drep + g_brI * 0.5 * Dre * Drepp * 2.0 * nhat
+    g_Drep = g_nD * nhat
+    # nhat = 2 pi / pbprime; D* = a1 d*
+    g_pbprime = -g_nhat * nhat / f["pbprime"]
+    a1 = f["a1"]
+    g_a1 = g_Dre * f["dre"] + g_Drep * f["drep"] + g_Drepp * f["drepp"]
+    g_re, g_rep, g_repp = g_Dre * a1, g_Drep * a1, g_Drepp * a1
+    # the Roemer terms: G = g_re dre + g_rep drep + g_repp drepp as a sum
+    # of harmonics, differentiated in phi, eps1 and eps2
+    e1, e2 = f["eps1"], f["eps2"]
+    g_e1 = g_e2 = 0.0
+    for k, (coef, (sk, ck)) in enumerate(zip(_ell1_coefficients(e1, e2), sc),
+                                         start=1):
+        S, C, dS1, dC1, dS2, dC2 = coef
+        al = (-(k * k) * g_repp) if ell1k else g_re - (k * k) * g_repp
+        be = k * g_rep
+        a = al * S - be * C
+        b = al * C + be * S
+        g_phi = g_phi + k * (a * ck - b * sk)
+        g_e1 = g_e1 + sk * (al * dS1 - be * dC1) + ck * (al * dC1 + be * dS1)
+        g_e2 = g_e2 + sk * (al * dS2 - be * dC2) + ck * (al * dC2 + be * dS2)
+    if ell1k:
+        # first-order Dre = s1 + 0.5 (e2 s2 - e1 (c2 + 3))
+        s2, c2 = sc[1]
+        g_phi = g_phi + g_re * (c1 + e2 * c2 + e1 * s2)
+        g_e1 = g_e1 + g_re * (-0.5 * c2 - 1.5)
+        g_e2 = g_e2 + g_re * (0.5 * s2)
+    # eps1, eps2; a1 = A1 + t A1DOT
+    zero = gd * 0.0
+    g_t = g_a1 * p["A1DOT"]
+    if ell1k:
+        cw, sw, scale = f["cw"], f["sw"], f["scale"]
+        E1, E2 = p["EPS1"], p["EPS2"]
+        g_scale = g_e1 * (E1 * cw + E2 * sw) + g_e2 * (E2 * cw - E1 * sw)
+        P[6] = scale * (g_e1 * cw - g_e2 * sw)
+        P[7] = scale * (g_e1 * sw + g_e2 * cw)
+        g_c = scale * (g_e1 * E1 + g_e2 * E2)
+        g_s = scale * (g_e1 * E2 - g_e2 * E1)
+        g_th = g_s * cw - g_c * sw
+        P[8] = P[9] = zero
+        P[10] = g_th * ttasc * (DEG / SEC_PER_YEAR)
+        P[11] = _div(g_scale * ttasc, SEC_PER_YEAR)
+        g_t = g_t + g_th * f["omdot"] + g_scale * f["lnedot"]
+    else:
+        P[6] = g_e1
+        P[7] = g_e2
+        P[8] = g_e1 * ttasc
+        P[9] = g_e2 * ttasc
+        P[10] = P[11] = zero
+        g_t = g_t + g_e1 * p["EPS1DOT"] + g_e2 * p["EPS2DOT"]
+    P[4] = g_a1
+    P[5] = g_a1 * ttasc
+    # phi = (orbits - floor) 2 pi; orbits = frac - 0.5 pbdot frac^2;
+    # frac = t / pb_s; pbprime = pb_s + PBDOT t; pb_s = PB 86400
+    frac, pb_s = f["frac"], f["pb_s"]
+    g_orb = g_phi * TWO_PI
+    g_frac = g_orb * (1.0 - f["pbdot"] * frac)
+    g_pbdot = -g_orb * 0.5 * frac * frac
+    g_pbs = g_pbprime - g_frac * frac / pb_s
+    P[1] = g_pbs * 86400.0
+    P[2] = g_pbdot + g_pbprime * ttasc
+    P[3] = g_pbdot
+    P[0] = g_frac / pb_s + g_pbprime * p["PBDOT"] + g_t
     shape = torch.broadcast_shapes(*(x.shape for x in P))
     return torch.stack([x.expand(shape) for x in P], dim=-1)

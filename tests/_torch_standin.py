@@ -1,11 +1,16 @@
-"""B1855+09-shaped stand-ins and the snapshot exporter for the port's tests.
+"""B1855+09- and J1909-3744-shaped stand-ins and the snapshot exporter for
+the port's tests.
 
-The real NANOGrav B1855+09 par/tim files are not in the repository, so the
-port is checked on synthetic stand-ins with the same structure: a DD binary
-with M2/SINI, equatorial astrometry, DMX windows, FD terms, a receiver JUMP
-and EFAC/EQUAD/ECORR per ``-f`` group plus power-law red noise.  TOAs are
-simulated by the reference package (``make_fake_toas_fromtim`` with white
-noise from a seeded generator), so both packages see identical inputs.
+The real NANOGrav par/tim files are not in the repository, so the port is
+checked on synthetic stand-ins with the same structure.  The B1855+09 ones
+carry a DD binary with M2/SINI, equatorial astrometry, DMX windows, FD
+terms, a receiver JUMP and EFAC/EQUAD/ECORR per ``-f`` group plus power-law
+red noise (a GLS model).  The J1909-3744 one carries an ELL1 binary with
+M2/SINI, ecliptic astrometry, DMX, FD, a receiver JUMP and EFAC/EQUAD per
+``-f`` group with no correlated noise (a WLS model: the reference's
+``Fitter.auto`` picks ``DownhillWLSFitter`` for it).  TOAs are simulated by
+the reference package (``make_fake_toas_fromtim`` with white noise from a
+seeded generator), so both packages see identical inputs.
 
 :func:`export_snapshot` turns the reference package's state into the
 numpy-only snapshot that :func:`pint_torch.bridge.load_snapshot` reads,
@@ -45,11 +50,39 @@ SMALL_DMX_SETTINGS = dict(
     SMALL_SETTINGS, n_epochs=390, mjd_end=54000.0 + 130 * 7.0 - 1.0,
     n_dmx=130, dmx_days=7.0, grid_points=3)
 
+#: the J1909-3744-shaped WLS stand-in: the epoch structure of
+#: ``FULL_SETTINGS`` (445 epochs x 9 sub-bands = 4005 TOAs, 72 DMX windows
+#: of 45 d), an ELL1 binary and no correlated noise; its M2 x SINI grid
+#: refits with ``niter=4`` Gauss-Newton steps, the reference's default
+ELL1_SETTINGS = dict(FULL_SETTINGS, pulsar="J1909-3744", grid_niter=4)
+
+#: the small CPU-test version of the ELL1 stand-in (20 epochs x 4, 3 DMX
+#: windows, a 4 x 4 grid)
+SMALL_ELL1_SETTINGS = dict(SMALL_SETTINGS, pulsar="J1909-3744",
+                           grid_niter=4)
+
+#: the small ELL1 stand-in with one more JUMP that selects no TOA: its
+#: design column is zero, so the WLS system is rank-deficient
+SMALL_ELL1_EMPTY_JUMP_SETTINGS = dict(SMALL_ELL1_SETTINGS, empty_jump=True)
+
 _GROUP = {  # (receiver, backend) -> (-f flag, sub-band MHz, error us)
     ("430", "ASP"): ("ASP_430", (422.0, 3.0), 0.7),
     ("L-wide", "ASP"): ("ASP_L-wide", (1150.0, 75.0), 1.0),
     ("430", "PUPPI"): ("PUPPI_430", (422.0, 3.0), 0.5),
     ("L-wide", "PUPPI"): ("PUPPI_L-wide", (1150.0, 75.0), 0.8),
+}
+#: J1909-3744's receivers and backends at the GBT
+_GROUP_J1909 = {
+    ("Rcvr_800", "GASP"): ("Rcvr_800_GASP", (730.0, 20.0), 0.35),
+    ("Rcvr1_2", "GASP"): ("Rcvr1_2_GASP", (1150.0, 75.0), 0.45),
+    ("Rcvr_800", "GUPPI"): ("Rcvr_800_GUPPI", (730.0, 20.0), 0.15),
+    ("Rcvr1_2", "GUPPI"): ("Rcvr1_2_GUPPI", (1150.0, 75.0), 0.2),
+}
+_NOISE_J1909 = {  # -f group -> (EFAC, EQUAD us); no ECORR, no red noise
+    "Rcvr_800_GASP": (1.06, 0.12),
+    "Rcvr1_2_GASP": (1.04, 0.15),
+    "Rcvr_800_GUPPI": (1.09, 0.05),
+    "Rcvr1_2_GUPPI": (1.02, 0.07),
 }
 _NOISE = {  # -f group -> (EFAC, EQUAD us, ECORR us)
     "ASP_430": (1.08, 0.21, 0.62),
@@ -59,12 +92,22 @@ _NOISE = {  # -f group -> (EFAC, EQUAD us, ECORR us)
 }
 
 
+def _j1909(s) -> bool:
+    return s.get("pulsar") == "J1909-3744"
+
+
+def _group_table(s):
+    return _GROUP_J1909 if _j1909(s) else _GROUP
+
+
 def _epochs(s):
     mjds = np.linspace(s["mjd_start"], s["mjd_end"], s["n_epochs"])
+    rcvrs, bes = (("Rcvr_800", "Rcvr1_2"), ("GASP", "GUPPI")) if _j1909(s) \
+        else (("430", "L-wide"), ("ASP", "PUPPI"))
     out = []
     for i, m in enumerate(mjds):
-        rcvr = "430" if i % 2 == 0 else "L-wide"
-        be = "ASP" if m < s["backend_switch_mjd"] else "PUPPI"
+        rcvr = rcvrs[i % 2]
+        be = bes[0] if m < s["backend_switch_mjd"] else bes[1]
         out.append((m, rcvr, be))
     return out
 
@@ -74,19 +117,59 @@ def standin_tim(s) -> str:
     apart (all within 1 s, so ECORR groups each epoch)."""
     lines = ["FORMAT 1\n"]
     spread = 9 // s["n_subbands"]
+    site = "gbt" if _j1909(s) else "ao"
     for i, (m, rcvr, be) in enumerate(_epochs(s)):
-        flag, (f0, df), err = _GROUP[(rcvr, be)]
+        flag, (f0, df), err = _group_table(s)[(rcvr, be)]
         for j in range(s["n_subbands"]):
             freq = f0 + df * j * spread
             mjd = m + j * s["subband_dt_s"] / 86400.0
             e = (err + 0.1 * (j % 3)) * s["err_scale"]
-            lines.append(f"t{i:04d}_{j} {freq:.3f} {mjd:.15f} {e:.3f} ao "
+            lines.append(f"t{i:04d}_{j} {freq:.3f} {mjd:.15f} {e:.3f} {site} "
                          f"-f {flag} -fe {rcvr} -be {be}\n")
     return "".join(lines)
 
 
 def _groups(s):
-    return sorted({_GROUP[(r, b)][0] for _, r, b in _epochs(s)})
+    return sorted({_group_table(s)[(r, b)][0] for _, r, b in _epochs(s)})
+
+
+def _dmx_lines(s, rng):
+    lines = [f"DMX {s['dmx_days']:.1f}"]
+    lo = s["mjd_start"] - 0.5
+    for k in range(s["n_dmx"]):
+        r1 = lo + k * s["dmx_days"]
+        r2 = r1 + s["dmx_days"] if k < s["n_dmx"] - 1 \
+            else max(r1 + s["dmx_days"], s["mjd_end"] + 1.0)
+        lines += [f"DMX_{k + 1:04d} {rng.normal(0.0, 5e-4):.8e} 1",
+                  f"DMXR1_{k + 1:04d} {r1:.4f}", f"DMXR2_{k + 1:04d} {r2:.4f}"]
+    return lines
+
+
+def j1909_par(s) -> str:
+    """Par text shaped like NANOGrav's J1909-3744 in its first years of
+    timing, before a noise model is fitted: an ELL1 binary with M2/SINI,
+    ecliptic astrometry, DMX windows over the span, FD1-3, a receiver JUMP
+    and EFAC/EQUAD per ``-f`` group, no ECORR and no red noise.  With
+    ``empty_jump`` one more JUMP selects no TOA."""
+    head = [
+        "PSR J1909-3744", "ELONG 284.2091 1", "ELAT -15.1557 1",
+        "PMELONG -13.86 1", "PMELAT -34.38 1", "PX 0.88 1", "ECL IERS2010",
+        "POSEPOCH 55000", "F0 339.31568732 1", "F1 -1.6148e-15 1",
+        "PEPOCH 55000", "DM 10.3912", "FD1 1.2e-5 1", "FD2 -4.0e-6 1",
+        "FD3 2.0e-6 1", "JUMP -fe Rcvr_800 0.0 1", "BINARY ELL1",
+        "PB 1.533449474 1", "A1 1.8979911 1", "TASC 53113.95",
+        "EPS1 2.6e-8 1", "EPS2 -1.0e-7 1", "M2 0.2067 1", "SINI 0.99807 1",
+    ]
+    if s.get("empty_jump"):
+        head.append("JUMP -fe Rcvr_342 0.0 1")
+    rng = np.random.default_rng(s["seed"] + 1)
+    lines = head + _dmx_lines(s, rng)
+    for g in _groups(s):
+        efac, equad = _NOISE_J1909[g]
+        lines += [f"EFAC -f {g} {efac}",
+                  f"EQUAD -f {g} {equad * s['err_scale']:.6g}"]
+    lines += ["UNITS TDB"]
+    return "\n".join(lines) + "\n"
 
 
 def standin_par(s, full: bool) -> str:
@@ -112,14 +195,7 @@ def standin_par(s, full: bool) -> str:
             "OM 1.35", "ECC 1.9e-5", "M2 0.3", "SINI 0.95",
         ]
     rng = np.random.default_rng(s["seed"] + 1)
-    lines = head + [f"DMX {s['dmx_days']:.1f}"]
-    lo = s["mjd_start"] - 0.5
-    for k in range(s["n_dmx"]):
-        r1 = lo + k * s["dmx_days"]
-        r2 = r1 + s["dmx_days"] if k < s["n_dmx"] - 1 \
-            else max(r1 + s["dmx_days"], s["mjd_end"] + 1.0)
-        lines += [f"DMX_{k + 1:04d} {rng.normal(0.0, 5e-4):.8e} 1",
-                  f"DMXR1_{k + 1:04d} {r1:.4f}", f"DMXR2_{k + 1:04d} {r2:.4f}"]
+    lines = head + _dmx_lines(s, rng)
     for g in _groups(s):
         efac, equad, ecorr = _NOISE[g]
         lines += [f"EFAC -f {g} {efac}",
@@ -131,11 +207,14 @@ def standin_par(s, full: bool) -> str:
 
 
 def make_standin(s, full: bool):
-    """(model, toas) of a stand-in, TOAs simulated with seeded white noise."""
+    """(model, toas) of a stand-in, TOAs simulated with seeded white noise
+    (``full`` picks the B1855+09 stand-in's full-width par; the
+    J1909-3744 settings carry their own)."""
     from pint_tpu.models import get_model
     from pint_tpu.simulation import make_fake_toas_fromtim
 
-    model = get_model(standin_par(s, full).splitlines(keepends=True))
+    par = j1909_par(s) if _j1909(s) else standin_par(s, full)
+    model = get_model(par.splitlines(keepends=True))
     with tempfile.TemporaryDirectory() as d:
         tim = os.path.join(d, "standin.tim")
         with open(tim, "w") as fh:
@@ -159,7 +238,7 @@ def grid_axes(model, npts: int):
 # exporter
 # ---------------------------------------------------------------------------
 def _component_config(name, comp, model) -> dict:
-    if name == "AstrometryEquatorial":
+    if name in ("AstrometryEquatorial", "AstrometryEcliptic"):
         return {"has_posepoch": comp.POSEPOCH.value is not None}
     if name == "Spindown":
         return {"num_spin_terms": comp.num_spin_terms,
@@ -310,6 +389,83 @@ def export_snapshot(model, toas, settings: dict, chunk: int = 256,
         arrays["ref/grid_chi2"] = np.asarray(c2)
         arrays["ref/grid_rungs"] = np.asarray(
             f.last_grid_diagnostics["ladder_rung"])
+        ref["grid_argmin"] = [int(i) for i in np.unravel_index(
+            int(np.nanargmin(c2)), c2.shape)]
+        ref["grid_chunk"] = int(chunk)
+    meta["reference"] = ref
+    arrays["meta"] = np.asarray(json.dumps(meta))
+    return arrays
+
+
+def _fit_outputs(fitter, design, prefix, arrays):
+    """Store a fit's post-fit values and uncertainties of ``design``."""
+    arrays[f"ref/{prefix}_values"] = np.array(
+        [float(getattr(fitter.model, p).value) for p in design])
+    arrays[f"ref/{prefix}_uncertainties"] = np.array(
+        [float(getattr(fitter.model, p).uncertainty) for p in design])
+
+
+def reference_wls_grid(fitter, axes, niter: int, chunk: int):
+    """The reference's WLS chi2 grid over the outer product of ``axes``
+    after ``fitter``'s fit: ``(chi2, rungs)``, grid-shaped.  Its
+    ``build_grid_chi2_fn`` runs ``chunk`` points per call (memory only:
+    each point's refit is independent of the others)."""
+    from pint_tpu.grid import _point_spans, build_grid_chi2_fn
+
+    model, toas = fitter.model, fitter.toas
+    shape = tuple(len(a) for a in axes)
+    pts = np.stack([g.ravel() for g in np.meshgrid(*axes, indexing="ij")],
+                   axis=-1)
+    fn, _, _ = build_grid_chi2_fn(
+        model, toas, ("M2", "SINI"), niter=niter,
+        grid_spans=_point_spans(model, ("M2", "SINI"), pts))
+    c2, dg = [], []
+    for i in range(0, len(pts), chunk):
+        out = fn(pts[i:i + chunk])
+        c2.append(np.asarray(out[0]))
+        dg.append(np.asarray(out[2]))
+    c2, dg = np.concatenate(c2), np.concatenate(dg)
+    return c2.reshape(shape), dg[:, 0].astype(int).reshape(shape)
+
+
+def export_wls_snapshot(model, toas, settings: dict, chunk: int = 16,
+                        grid: bool = True) -> dict:
+    """:func:`export_state` plus the reference's WLS outputs: phase,
+    delay, residuals and design matrix at the snapshot's values; chi2,
+    values and uncertainties of ``WLSFitter.fit_toas(maxiter)`` and of
+    ``DownhillWLSFitter.fit_toas()`` (with its converged flag), each from
+    the snapshot's values; and the M2 x SINI WLS chi2 grid (``niter``)
+    after the WLS fit, with each point's ladder rung."""
+    from pint_tpu.fitter import DownhillWLSFitter, WLSFitter
+    from pint_tpu.residuals import Residuals
+
+    arrays = export_state(model, toas)
+    meta = json.loads(str(arrays["meta"]))
+    ph = model.phase(toas)
+    arrays["ref/phase_int"] = np.asarray(ph.int_)
+    arrays["ref/phase_frac"] = np.asarray(ph.frac)
+    arrays["ref/delay"] = np.asarray(model.delay(toas))
+    arrays["ref/time_resids"] = np.asarray(Residuals(toas, model).time_resids)
+    M, names, _ = model.designmatrix(toas)
+    arrays["ref/designmatrix"] = np.asarray(M)
+    design = list(model.design_param_names())
+    f = WLSFitter(toas, model)
+    chi2 = float(f.fit_toas(maxiter=settings["fit_maxiter"]))
+    _fit_outputs(f, design, "postfit", arrays)
+    d = DownhillWLSFitter(toas, model)
+    chi2_d = float(d.fit_toas())
+    _fit_outputs(d, design, "downhill", arrays)
+    ref = {"designmatrix_names": list(names), "postfit_params": design,
+           "postfit_chi2": chi2, "downhill_chi2": chi2_d,
+           "downhill_converged": bool(d.converged), "fitter": "WLSFitter",
+           "settings": dict(settings)}
+    if grid:
+        axes = grid_axes(model, settings["grid_points"])
+        c2, rungs = reference_wls_grid(f, axes, settings["grid_niter"],
+                                       chunk)
+        arrays["ref/grid_m2"], arrays["ref/grid_sini"] = axes
+        arrays["ref/grid_chi2"] = c2
+        arrays["ref/grid_rungs"] = rungs
         ref["grid_argmin"] = [int(i) for i in np.unravel_index(
             int(np.nanargmin(c2)), c2.shape)]
         ref["grid_chunk"] = int(chunk)

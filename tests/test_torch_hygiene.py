@@ -37,9 +37,12 @@ def test_import_and_load_pull_in_no_jax():
     code = (
         "import sys\n"
         "import pint_torch, pint_torch.bridge, pint_torch.gls_fitter, "
-        "pint_torch.grid, pint_torch.kernels\n"
-        "from pint_torch.bridge import load_snapshot, STANDIN_PATH\n"
+        "pint_torch.fitter, pint_torch.grid, pint_torch.kernels, "
+        "pint_torch.pulsar_ecliptic\n"
+        "from pint_torch.bridge import load_snapshot, STANDIN_PATH, "
+        "ELL1_PATH\n"
         "load_snapshot(STANDIN_PATH, device='cpu')\n"
+        "load_snapshot(ELL1_PATH, device='cpu')\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n")
@@ -99,6 +102,8 @@ def test_entry_points_default_to_the_gpu():
 def test_cpu_tensors_never_reach_a_kernel():
     from pint_torch import kernels
     from pint_torch.kernels.dd_binary import dd_binary
+    from pint_torch.kernels.ell1_binary import ell1_binary
+    from pint_torch.kernels.wls_lstsq import wls_lstsq
 
     kernels.reset_counts()
     tt0 = torch.zeros((2, 5), dtype=torch.float64)
@@ -106,17 +111,32 @@ def test_cpu_tensors_never_reach_a_kernel():
                             0.99, 0, 0, 0, 0, 0]] * 2, dtype=torch.float64)
     d = dd_binary(tt0, params)
     assert d.shape == (2, 5) and bool(torch.isfinite(d).all())
+    p4 = torch.tensor([[1.53, 0, 0, 1.9, 0, 1e-7, -1e-7, 0, 0, 0, 0, 0.2,
+                        0.99]] * 2, dtype=torch.float64)
+    for ell1k in (False, True):
+        d = ell1_binary(tt0, p4, ell1k)
+        assert d.shape == (2, 5) and bool(torch.isfinite(d).all())
+    x, sv, _ = wls_lstsq(torch.eye(5, 3, dtype=torch.float64)[None],
+                         torch.ones((1, 5), dtype=torch.float64))
+    assert bool(torch.isfinite(x).all()) and bool(torch.isfinite(sv).all())
     assert kernels.launch_counts() == dict.fromkeys(
         ("spin_phase_primal", "spin_phase_dual", "dd_binary_primal",
          "dd_binary_dual", "schur_cholesky_solve_smem",
-         "schur_cholesky_solve_global"), 0)
+         "schur_cholesky_solve_global", "ell1_binary_primal",
+         "ell1_binary_dual", "ell1k_binary_primal", "ell1k_binary_dual",
+         "wls_lstsq"), 0)
 
 
 def test_kernel_sources_ship_with_the_package():
     csrc = REPO / "pint_torch" / "kernels" / "csrc"
-    for name in ("spin_phase", "dd_binary", "schur_cholesky_solve"):
+    for name in ("spin_phase", "dd_binary", "schur_cholesky_solve",
+                 "ell1_binary", "wls_lstsq"):
         src = (csrc / f"{name}.cu").read_text()
         assert "extern \"C\"" in src and f"{name}_launch" in src
-    for snap in ("b1855_standin.npz", "b1855_dmx15_standin.npz"):
+    from pint_torch import kernels
+
+    assert set(kernels.NAMES) == {p.stem for p in csrc.glob("*.cu")}
+    for snap in ("b1855_standin.npz", "b1855_dmx15_standin.npz",
+                 "j1909_ell1_standin.npz"):
         assert np.load(REPO / "pint_torch" / "data" / snap,
                        allow_pickle=False)["tdb_hi"].shape == (4005,)

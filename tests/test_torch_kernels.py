@@ -1,4 +1,4 @@
-"""The three hand kernels' autodiff wiring and plain twins, on the CPU.
+"""The hand kernels' autodiff wiring and plain twins, on the CPU.
 
 A CUDA kernel has no interpret mode, so here each kernel's
 :class:`torch.autograd.Function` runs with its plain PyTorch twin behind it
@@ -23,6 +23,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from pint_torch.kernels import dd_binary as K2
+from pint_torch.kernels import ell1_binary as K4
 from pint_torch.kernels import schur_cholesky_solve as K3
 from pint_torch.kernels import spin_phase as K1
 
@@ -375,3 +376,48 @@ def test_schur_solve_twin_beyond_128_rows(nt):
     assert x.shape == (B, nt)
     assert [bool(v) for v in ok] == [True, True, True, False, False]
     _check_schur(Ar, rhs, x, ok, cond, ill=(1,))
+
+
+@pytest.fixture(scope="module")
+def k4_inputs():
+    rng = np.random.default_rng(14)
+    B, N = 3, 40
+    base = dict(PB=1.5334, PBDOT=1e-12, XPBDOT=2e-13, A1=1.898, A1DOT=1e-14,
+                EPS1=3e-3, EPS2=-5e-3, EPS1DOT=1e-16, EPS2DOT=-2e-16,
+                OMDOT=1.7, LNEDOT=2e-4, M2=0.21, SINI=0.998)
+    params = np.array([[base[k] * (1 + 1e-3 * rng.standard_normal())
+                        for k in K4.ELL1_PARAMS] for _ in range(B)])
+    ttasc = rng.uniform(-2e8, 2e8, (B, N))
+    return _t(ttasc), _t(params)
+
+
+@pytest.mark.parametrize("ell1k", [False, True], ids=["ELL1", "ELL1k"])
+@pytest.mark.parametrize("argnum", [0, 1])
+def test_ell1_binary_function_under_jacfwd(k4_inputs, argnum, ell1k):
+    """K4's autograd Function (local partials into ``jvp``) under
+    ``jacfwd`` with B > 1 against ``jacfwd`` of the plain primal."""
+    tt, params = k4_inputs
+    got = jacfwd(lambda t, p: K4.ell1_binary(t, p, ell1k),
+                 argnums=argnum)(tt, params)
+    want = jacfwd(lambda t, p: K4.ell1_binary_reference(t, p, ell1k,
+                                                        False)[0],
+                  argnums=argnum)(tt, params)
+    assert _rel(got, want) <= 1e-12
+
+
+def test_ell1_binary_vmap_folds_into_the_batch(k4_inputs):
+    tt, params = k4_inputs
+    tts = torch.stack([tt + 1e4 * i for i in range(3)])
+    got = vmap(lambda t: K4.ELL1BinaryFn.apply(t, params, False)[0])(tts)
+    want = torch.stack([K4.ell1_binary_reference(tts[i], params)[0]
+                        for i in range(3)])
+    assert torch.equal(got, want)
+
+
+def test_ell1_binary_primal_matches_partials_path(k4_inputs):
+    tt, params = k4_inputs
+    for ell1k in (False, True):
+        d0, none = K4.ell1_binary_reference(tt, params, ell1k, False)
+        d1, P = K4.ell1_binary_reference(tt, params, ell1k, True)
+        assert none is None and torch.equal(d0, d1)
+        assert P.shape == (3, 40, 14)

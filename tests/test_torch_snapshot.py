@@ -2,11 +2,14 @@
 
 The exporter (:func:`_torch_standin.export_snapshot`) needs ``pint_tpu``, so
 it runs here; the port only reads.  Running this file as a script writes
-the committed full-width B1855+09-shaped stand-ins::
+the committed full-width stand-ins (B1855+09-shaped GLS ones and the
+J1909-3744-shaped WLS one)::
 
     python tests/test_torch_snapshot.py --write pint_torch/data/b1855_standin.npz
     python tests/test_torch_snapshot.py --settings dmx15 \
         --write pint_torch/data/b1855_dmx15_standin.npz
+    python tests/test_torch_snapshot.py --settings ell1 \
+        --write pint_torch/data/j1909_ell1_standin.npz
 
 The tests check that a small export round-trips through
 :func:`pint_torch.bridge.load_snapshot` bitwise, and that the committed
@@ -154,16 +157,54 @@ def test_committed_dense_dmx_file_records_its_settings():
         if k not in ("n_dmx", "dmx_days")}
 
 
+def test_committed_ell1_file_loads_with_stated_shapes():
+    """The J1909-3744-shaped WLS stand-in: 4005 TOAs, an ELL1 binary and
+    ecliptic astrometry, no noise basis (a WLS model), 89 free parameters
+    and k = 1 + 87 = 88 at the M2 x SINI grid, the reference's two fits
+    and a 16x16 grid at SVD rung 3 everywhere."""
+    from pint_torch.bridge import ELL1_PATH, load_snapshot, read_snapshot
+
+    assert os.path.getsize(ELL1_PATH) < 8 * 1024 * 1024
+    meta, arrays = read_snapshot(ELL1_PATH)
+    m, b = load_snapshot(ELL1_PATH, device="cpu")
+    assert b.ntoas == 4005
+    assert {"BinaryELL1", "AstrometryEcliptic"} <= set(m.components)
+    assert not m.has_correlated_errors
+    assert m.noise_basis_by_component(b)[0] == []
+    assert len(m.free_params) == 89
+    assert 1 + len([p for p in m.free_params
+                    if p not in ("M2", "SINI")]) == 88
+    assert arrays["ref/designmatrix"].shape == (4005, 90)
+    assert arrays["ref/grid_chi2"].shape == (16, 16)
+    assert (arrays["ref/grid_rungs"] == 3).all()
+    for key in ("postfit", "downhill"):
+        assert np.isfinite(arrays[f"ref/{key}_uncertainties"]).all()
+    assert meta["reference"]["downhill_converged"] in (True, False)
+
+
+def test_committed_ell1_file_records_its_settings():
+    from pint_torch.bridge import ELL1_PATH, read_snapshot
+
+    meta, _ = read_snapshot(ELL1_PATH)
+    settings = meta["reference"]["settings"]
+    assert settings == standin.ELL1_SETTINGS
+    assert settings["pulsar"] == "J1909-3744"
+    assert settings["grid_niter"] == 4
+
+
 #: the committed full-width stand-ins, by the exporter's ``--settings``
 SETTINGS = {"b1855": standin.FULL_SETTINGS,
-            "dmx15": standin.DMX15_SETTINGS}
+            "dmx15": standin.DMX15_SETTINGS,
+            "ell1": standin.ELL1_SETTINGS}
 
 
 def _write(path: str, chunk: int, settings: dict) -> None:
     """Simulate a full-width stand-in with the reference package, run its
-    fit and grid, and write the snapshot (compressed)."""
+    fits and grid, and write the snapshot (compressed)."""
     model, toas = standin.make_standin(settings, full=True)
-    arrays = standin.export_snapshot(model, toas, settings, chunk=chunk)
+    export = standin.export_snapshot if model.has_correlated_errors \
+        else standin.export_wls_snapshot
+    arrays = export(model, toas, settings, chunk=chunk)
     np.savez_compressed(path, **arrays)
 
 
@@ -181,6 +222,8 @@ if __name__ == "__main__":
                          " each point's chi2 is independent of it)")
     ap.add_argument("--settings", choices=sorted(SETTINGS), default="b1855",
                     help="b1855: FULL_SETTINGS (72 DMX windows of 45 d); "
-                         "dmx15: DMX15_SETTINGS (216 windows of 15 d)")
+                         "dmx15: DMX15_SETTINGS (216 windows of 15 d); "
+                         "ell1: ELL1_SETTINGS (the J1909-3744-shaped WLS "
+                         "stand-in)")
     args = ap.parse_args()
     _write(args.write, args.chunk, SETTINGS[args.settings])

@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Where the port's time goes on the GPU, for the B1855-shaped stand-ins.
+"""Where the port's time goes on the GPU, for the committed stand-ins.
 
 Loads a committed stand-in onto the card (``b1855``:
 ``pint_torch/data/b1855_standin.npz``; ``dmx15``: its dense-DMX sibling
-``b1855_dmx15_standin.npz``), runs the GLS fit and one warm-up 16x16
-M2 x SINI grid (``niter=1``, ``chunk=256``), then traces one more warm grid
-and one warm design matrix with ``torch.profiler`` and prints, per traced
-region: the wall time, the summed device time of all CUDA kernels, the
-device's busy share (device time over wall time), and the ten kernels with
-the most device time.  Run on a machine with a CUDA GPU, from the
-repository root::
+``b1855_dmx15_standin.npz``; ``ell1``: the J1909-3744-shaped WLS stand-in
+``j1909_ell1_standin.npz``), runs the fit its model calls for
+(``GLSFitter`` with correlated noise, else ``WLSFitter``; ``maxiter=2``)
+and one warm-up 16x16 M2 x SINI grid (``chunk=256``, ``niter`` as the
+snapshot's reference ran it: 1 for the GLS stand-ins, 4 for ell1), then
+traces one more warm grid and one warm design matrix with
+``torch.profiler`` and prints, per traced region:
+the wall time, the summed device time of all CUDA kernels, the device's
+busy share (device time over wall time), and the ten kernels with the
+most device time.  Run on a machine with a CUDA GPU, from the repository
+root::
 
-    python3 tools/torch_grid_profile.py [b1855|dmx15 ...]
+    python3 tools/torch_grid_profile.py [b1855|dmx15|ell1 ...]
 
 (all stand-ins when none is named).
 """
@@ -62,28 +66,32 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from torch.profiler import ProfilerActivity, profile
 
-    from pint_torch.bridge import (DMX15_PATH, STANDIN_PATH, load_snapshot,
-                                   read_snapshot)
+    from pint_torch.bridge import (DMX15_PATH, ELL1_PATH, STANDIN_PATH,
+                                   load_snapshot, read_snapshot)
+    from pint_torch.fitter import WLSFitter
     from pint_torch.gls_fitter import GLSFitter
     from pint_torch.grid import grid_chisq
 
-    snapshots = {"b1855": STANDIN_PATH, "dmx15": DMX15_PATH}
+    snapshots = {"b1855": STANDIN_PATH, "dmx15": DMX15_PATH,
+                 "ell1": ELL1_PATH}
     names = sys.argv[1:] or list(snapshots)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}; torch {torch.__version__}")
     for name in names:
-        _, ref = read_snapshot(snapshots[name])
+        meta, ref = read_snapshot(snapshots[name])
+        niter = meta["reference"]["settings"]["grid_niter"]
         model, batch = load_snapshot(snapshots[name], device="cuda")
-        fitter = GLSFitter(batch, model)
+        fitter = (GLSFitter if model.has_correlated_errors
+                  else WLSFitter)(batch, model)
         fitter.fit_toas(maxiter=2)
         axes = (ref["ref/grid_m2"], ref["ref/grid_sini"])
-        grid_chisq(fitter, ("M2", "SINI"), axes, niter=1, chunk=256)
+        grid_chisq(fitter, ("M2", "SINI"), axes, niter=niter, chunk=256)
         fitter.model.designmatrix(batch)
         for label, fn in (
-                ("grid 16x16 warm", lambda: grid_chisq(
-                    fitter, ("M2", "SINI"), axes, niter=1, chunk=256)),
+                (f"grid 16x16 warm (niter={niter})", lambda: grid_chisq(
+                    fitter, ("M2", "SINI"), axes, niter=niter, chunk=256)),
                 ("design matrix warm",
                  lambda: fitter.model.designmatrix(batch))):
             torch.cuda.synchronize()
