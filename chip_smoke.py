@@ -14,7 +14,7 @@ Phases, one line each:
    the ptxas report of each ``__global__`` (registers, stack frame, spill
    bytes; K1's per S = 1..6, K4's per ELL1K), read from the build logs:
    K1's primal templates must hold no stack frame and no primal (K1, K2,
-   K4) may spill;
+   K4) and no tiled K5 kernel may spill;
 3. main path b1855 -- the full-width B1855+09-shaped stand-in
    (``pint_torch/data/b1855_standin.npz``, nt = 88 at the grid): load onto
    the card, residuals, design matrix, ``GLSFitter.fit_toas(maxiter=2)``,
@@ -34,12 +34,14 @@ Phases, one line each:
    read around it alone: load, residuals, design matrix cold and warm,
    ``WLSFitter.fit_toas(maxiter=2)``, ``DownhillWLSFitter.fit_toas()``,
    the 16x16 WLS grid (``niter=4``, ``chunk=256``) cold and warm; K1, K4's
-   ELL1 primal and dual and K5 must have launched.  Bars: residuals, both
+   ELL1 primal and dual and K5's tiled fold and SVD must have launched.
+   Bars: residuals, both
    fits' chi2, values and uncertainties, the downhill converged flag, the
    grid surface, argmin and rungs;
 7. kernels -- each CUDA kernel (the primal and dual instantiations of K1,
    K2 and K4 -- K4's for ELL1 and ELL1k --, K3's shared-memory
-   instantiation at nt = 88 and its global one at nt = 232, K5) against
+   instantiation at nt = 88 and its global one at nt = 232, K5's tiled
+   fold and SVD and its untiled global kernel) against
    its plain PyTorch twin on the card, on the inputs its path gave it
    (captured there) plus seeded random inputs: K1 at S = 1, 2, 3 and 6
    spin terms, k and f bitwise; K2 on random orbits with ECC 0-0.9 and in
@@ -49,15 +51,24 @@ Phases, one line each:
    rows whose NaN delays poison every partial; K3 with an ill-conditioned
    and a NaN point; K4 on random orbits with |EPS| to 1e-2 and TOAs across
    the orbital phase's wrap, delay bitwise, partials 1e-10 rel, NaN rows
-   poisoning all 14 partials; K5 on random systems (raw condition to 1e10,
-   with an all-zero column and a NaN point) and at k = 130 (R and V in the
-   global workspace), x to 1e-9 of max|x|, singular values to 1e-12 of the
-   largest, the same rank and NaN flags.  K2's Newton steps on the path's
-   inputs set its operation count; K5's counts what its function needs
-   (QR at the float64 tensor-core rate, the k x k SVD at the CUDA cores').
+   poisoning all 14 partials; K5's tiled kernels each against its own
+   plain version (the fold's triangles, rows up to sign, and the SVD
+   kernel on the fold's workspace, on the path's call and on random
+   systems at k = 88), then the wrapper against the twin on the path's
+   call and on random systems (raw condition to 1e10, with an all-zero
+   column and a NaN in the ragged last tile) at k = 88 and 111 (tiled)
+   and at k = 130 and 233 (the untiled global kernel): x to 1e-9 of
+   max|x|, singular values to 1e-12 of the largest, the same rank and NaN
+   flags, the zero column's x exactly 0, no point of the path at the sweep
+   cap; the tiled design (tile rows, WY block, the Jacobi's lanes, read
+   from the built library) and, on the path's points, the kernel's gap to
+   the twin beside the first-order least-squares sensitivity are printed.
+   K2's Newton steps on the path's inputs set
+   its operation count; K5's counts what its function needs (QR at the
+   float64 tensor-core rate, the k x k SVD at the CUDA cores').
    CUDA-event times of kernel, twin and, for K3 and K5, the library call
-   (Cholesky; the batched SVD), with the launches queued behind a spin
-   kernel so that the events time the device and not the host's launch
+   (Cholesky; a QR or the batched SVD), with the launches queued behind a
+   spin kernel so that the events time the device and not the host's launch
    rate.  Launch counts, times and errors in the ``kernels`` line are per
    instantiation, launches from the path whose shapes the record was
    measured at.
@@ -110,14 +121,16 @@ K4_REVERSE_OPS = {False: 278, True: 321}
 
 def _k5_ops(N: int, k: int):
     """float64 operations per point that ``wls_lstsq``'s function needs,
-    whatever algorithm computes it: ``(tensor, other)``, the first those a
-    blocked Householder QR of the (N, k) matrix runs as matrix products
-    (2 N k^2 - 2 k^3 / 3), the second the rest -- the column norms and
-    scaling (3 N k), applying the k reflectors to rw (4 N k - 2 k^2), an
-    SVD of the k x k triangle with V (12 k^3, Golub-Kahan-Reinsch with the
-    left rotations applied to one vector) and x (4 k^2)."""
-    return (2 * N * k * k - 2 * k**3 / 3,
-            3 * N * k + 4 * N * k - 2 * k * k + 12 * k**3 + 4 * k * k)
+    whatever algorithm computes it: ``qr``, those a blocked Householder QR
+    of the (N, k) matrix runs as matrix products (2 N k^2 - 2 k^3 / 3);
+    ``fold``, the rest of the tiled fold's share -- the column norms and
+    scaling (3 N k), applying the k reflectors to rw (4 N k - 2 k^2); and
+    ``svd``, the SVD kernel's: an SVD of the k x k triangle with
+    V (12 k^3, Golub-Kahan-Reinsch with the left rotations applied to one
+    vector) and x (4 k^2)."""
+    return dict(qr=2 * N * k * k - 2 * k**3 / 3,
+                fold=3 * N * k + 4 * N * k - 2 * k * k,
+                svd=12 * k**3 + 4 * k * k)
 
 
 def _k2_ops(steps: float, partials: bool) -> float:
@@ -400,7 +413,8 @@ def main() -> int:
     ptxas += [("ell1_binary", K4.KERNELS[(k, p)],
                f"ell1_binary_{'dual' if p else 'primal'}ILb{int(k)}E")
               for k in (False, True) for p in (False, True)]
-    ptxas += [("wls_lstsq", K5.KERNELS[None], "wls_lstsq_kernel")]
+    ptxas += [("wls_lstsq", K5.KERNELS[n], K5.KERNELS[n])
+              for n in ("fold", "svd", "global")]
     k4_primals = (K4.KERNELS[(False, False)], K4.KERNELS[(True, False)])
     for src, kernel, marker in ptxas:
         log = _build.library_path(src).with_suffix(".log")
@@ -410,10 +424,12 @@ def main() -> int:
             f"{r[0]} registers, {r[1]} bytes stack frame, {r[2]} bytes spill "
             f"stores, {r[3]} bytes spill loads" if r else "not in the build "
             "log"), flush=True)
-        # K1's primal templates keep no stack frame; no primal spills
+        # K1's primal templates keep no stack frame; no primal spills, nor
+        # K5's tiled kernels
         k1_primal = kernel.startswith(K1.KERNELS[False])
         primal = k1_primal or kernel == K2.KERNELS[False] \
-            or kernel in k4_primals
+            or kernel in k4_primals \
+            or kernel in (K5.KERNELS["fold"], K5.KERNELS["svd"])
         if r is None or (k1_primal and r[1]) or (primal and (r[2] or r[3])):
             raise RuntimeError(f"ptxas: no report for {kernel}, or a stack "
                                "frame or spills that it must not have")
@@ -426,7 +442,8 @@ def main() -> int:
         "dmx15": (*K1.KERNELS.values(), *K2.KERNELS.values(),
                   K3.KERNELS[True]),
         "ell1": (*K1.KERNELS.values(), K4.KERNELS[(False, False)],
-                 K4.KERNELS[(False, True)], K5.KERNELS[None])}
+                 K4.KERNELS[(False, True)], K5.KERNELS["fold"],
+                 K5.KERNELS["svd"])}
     for label, path in (("b1855", STANDIN_PATH), ("dmx15", DMX15_PATH),
                         ("ell1", ELL1_PATH)):
         counts, cap, out = _drive(label, path, kernels, tag)
@@ -744,14 +761,29 @@ def main() -> int:
             record(kernel, "ell1_binary.cu", K4.REPLACES, max(err, err_r),
                    ms, plain, bound, path="ell1")
 
-    # K5: the ell1 path's largest call (its 256 points, N = 4005, k = 88),
-    # then seeded random systems: raw condition numbers to 1e10, made of a
-    # normalized matrix's (1e2 to 1e6) and column scales (to 1e8), one point
-    # with an all-zero column (rank k - 1: that direction's x must be 0)
-    # and one with a NaN; and the same at k = 130, where R and V live in
-    # the global workspace
-    Aw5, rw5 = paths["ell1"][1].args("wls_lstsq")
+    # K5: the ell1 path's largest call (its 256 points, N = 4005, k = 88)
+    # runs the tiled kernels.  Each is held against its own plain version on
+    # the same inputs -- the fold's triangles against fold_reference's, row
+    # by row up to sign, its sums of squares and NaN flags; the SVD kernel
+    # against svd_reference on the fold's workspace -- and the wrapper
+    # against the twin on the path's call and on seeded random systems: raw
+    # condition numbers to 1e10, made of a normalized matrix's (1e2 to 1e6)
+    # and column scales (to 1e8), one point with an all-zero column (rank
+    # k - 1: that direction's x must be 0) and one with a NaN in the ragged
+    # last tile; at k = 88 and k = 111 (odd, the tiled path's largest), and
+    # through the global kernel at k = 130 and at N = 4005, k = 233, the
+    # width of a dense-DMX WLS model
+    Aw5, rw5 = paths["ell1"][1].args("wls_lstsq")[:2]
     P5, N5, k5 = Aw5.shape
+    d5 = K5.design()
+    print(f"phase kernel wls_lstsq design: P={P5} N={N5} k={k5}: S=1 (one "
+          f"block a point), m={d5['TILE']}-row tiles in one buffer, "
+          f"nb={d5['NB']} reflectors per WY block ({d5['ACC']} sum(s) per "
+          f"slice), {d5['FOLD_THREADS']} threads a fold block; Jacobi on "
+          f"R^T, {d5['JG']} lanes a pair, {d5['SVD_BLOCKS']} blocks of "
+          f"{d5['SVD_THREADS']} threads an SM, cap {d5['MAX_SWEEPS']} sweeps;"
+          f" tiled up to k={d5['TILED_MAX_K']}, the global kernel's R and V "
+          f"in shared memory up to k={d5['SMEM_MAX_K']}", flush=True)
 
     def system(n, k, cond_n, colscale):
         q1, _ = torch.linalg.qr(rt(n, k))
@@ -768,47 +800,112 @@ def main() -> int:
                          system(n, k, 1e2, 8), system(n, k, 10.0, 0),
                          rt(n, k), rt(n, k)])
         A[4, :, 3] = 0.0
-        A[5, 7, 2] = float("nan")
+        A[5, n - 3, 2] = float("nan")
         return A, rt(len(A), n)
 
     def k5_compare(Aw, rw):
         xk, sk, nk, swk = K5._launch(Aw, rw)
         xr, sr, nr = K5.wls_lstsq_reference(Aw, rw)
+        return k5_bars(xk, sk, nk, xr, sr, nr, Aw.shape[1:]) | dict(
+            sweeps=swk)
+
+    def k5_bars(xk, sk, nk, xr, sr, nr, shape):
         nan_same = bool(torch.equal(torch.isnan(xk), torch.isnan(xr))) \
             and bool(torch.equal(torch.isnan(sk), torch.isnan(sr)))
         fin = ~torch.isnan(xr).any(dim=1)
+        xk0 = xk
         xk, sk, nk, xr, sr, nr = (t[fin] for t in (xk, sk, nk, xr, sr, nr))
         x_rel = float(((xk - xr).abs().amax(dim=1)
                        / xr.abs().amax(dim=1)).max())
         s_rel = float(((sk - sr).abs().amax(dim=1) / sr[:, 0]).max())
-        cut = torch.finfo(torch.float64).eps * max(Aw.shape[1:])
+        cut = torch.finfo(torch.float64).eps * max(shape)
         rank_k = ((sk > 0) & (sk >= cut * sk[:, :1])).sum(dim=1)
         rank_r = ((sr > 0) & (sr >= cut * sr[:, :1])).sum(dim=1)
         return dict(x_rel=x_rel, s_rel=s_rel, err=float((xk - xr).abs().max()),
                     rank=bool(torch.equal(rank_k, rank_r)), nan=nan_same,
                     ranks=rank_k, norms=float((nk / nr - 1).abs().max()),
-                    xk=xk, sweeps=swk, cond=(sr[:, 0] / sr[:, -1]))
+                    xk=xk0, cond=(sr[:, 0] / sr[:, -1]))
 
+    # each tiled kernel against its plain version, on the path's inputs and
+    # on the random systems at k = 88 (a zero column, a NaN point)
+    nt5 = k5 * (k5 + 1)
+
+    def rows_up_to_sign(ws):
+        tri = ws[:, :nt5].reshape(ws.shape[0], k5, k5 + 1)
+        d = torch.diagonal(tri[..., :k5], dim1=-2, dim2=-1)
+        return tri * torch.where(d < 0, -1.0, 1.0)[..., None]
+
+    def fold_compare(Aw, rw):
+        """The fold's triangles against fold_reference's: rows up to sign,
+        relative to the column norms, where R has full rank (only there is
+        it unique up to its rows' signs: a zero column leaves the kernel a
+        zero row where LAPACK keeps Q^T A's); at every finite point the
+        Gram R^T R of Aw's columns, which is A^T A whatever the rank,
+        relative to the column norms' products; the sums of squares and
+        NaN flags; the workspace."""
+        wk, wr = K5._launch_fold(Aw, rw), K5.fold_reference(Aw, rw)
+        ok = wr[:, -1] == 0
+        norms = torch.sqrt(wr[:, nt5:-1])
+        colscale = torch.cat([norms, rw.norm(dim=1, keepdim=True)], dim=1)
+        Rr = wr[:, :nt5].reshape(-1, k5, k5 + 1)[..., :k5]
+        Rk = wk[:, :nt5].reshape(-1, k5, k5 + 1)[..., :k5]
+        full = ok & (torch.diagonal(Rr, dim1=-2, dim2=-1).abs()
+                     > 1e-8 * norms).all(dim=1)
+        d = (rows_up_to_sign(wk) - rows_up_to_sign(wr))[full]
+        rel = float((d.abs() / colscale[full][:, None, :].clamp(
+            min=1e-300)).max())
+        n1 = torch.where(norms == 0, 1.0, norms)
+        gram = float(((Rk.transpose(1, 2) @ Rk - Rr.transpose(1, 2) @ Rr)
+                      .abs() / (n1[:, :, None] * n1[:, None, :]))[ok].max())
+        sums = float(((wk[ok, nt5:-1] - wr[ok, nt5:-1]).abs()
+                      / wr[ok, nt5:-1].clamp(min=1e-300)).max())
+        return dict(rel=rel, err=float(d.abs().max()), gram=gram, sums=sums,
+                    flags=bool(torch.equal(wk[:, -1], wr[:, -1])),
+                    full=int(full.sum()), ok=int(ok.sum())), wk
+
+    def fold_ok(f):
+        return f["rel"] <= 1e-9 and f["gram"] <= 1e-9 \
+            and f["sums"] <= 1e-12 and f["flags"]
+
+    f_path, ws_k = fold_compare(Aw5, rw5)
+    Am, rm = random_systems(N5, k5)
+    f_rand, wm = fold_compare(Am, rm)
+    xs, ss, ns, _ = K5._launch_svd(ws_k, N5, k5)
+    c_svd = k5_bars(xs, ss, ns, *K5.svd_reference(ws_k, N5, k5), (N5, k5))
+    xs, ss, ns, _ = K5._launch_svd(wm, N5, k5)
+    c_msvd = k5_bars(xs, ss, ns, *K5.svd_reference(wm, N5, k5), (N5, k5))
+    for what, f in (("path", f_path), ("random", f_rand)):
+        print(f"phase kernel wls_tsqr_fold {what}: P={f['ok']} finite "
+              f"points, {f['full']} of full rank; triangles against "
+              f"fold_reference (rows up to sign, full rank) max "
+              f"{f['rel']:.3e} of the column norms (<= 1e-9), max|d| "
+              f"{f['err']:.3e}; Gram R^T R max {f['gram']:.3e} of the norms' "
+              f"products (<= 1e-9); sums of squares rel {f['sums']:.3e} (<= "
+              f"1e-12); NaN flags equal {f['flags']} {tag}", flush=True)
+    print(f"phase kernel wls_tsqr_svd: on the fold's workspace against "
+          f"svd_reference: x max rel to max|x| {c_svd['x_rel']:.3e} "
+          f"(random {c_msvd['x_rel']:.3e}; <= 1e-9), sv max rel to s_max "
+          f"{c_svd['s_rel']:.3e} (random {c_msvd['s_rel']:.3e}; <= 1e-12), "
+          f"ranks equal {c_svd['rank'] and c_msvd['rank']}, NaN flags equal "
+          f"{c_svd['nan'] and c_msvd['nan']} {tag}", flush=True)
+    ok5 = fold_ok(f_path) and fold_ok(f_rand) and all(
+        c["x_rel"] <= 1e-9 and c["s_rel"] <= 1e-12 and c["rank"] and c["nan"]
+        for c in (c_svd, c_msvd))
+    del Am, rm, wm
+
+    # the wrapper against the twin
     c_path = k5_compare(Aw5, rw5)
-    Ar5, rr5 = random_systems(N5, k5)
-    c_rand = k5_compare(Ar5, rr5)
-    zero_x = float(c_rand["xk"][4, 3].abs())
-    Ag5, rg5 = random_systems(600, 130)
-    c_glob = k5_compare(Ag5, rg5)
-    sweeps = c_path["sweeps"].double()
-    ms5 = _time_ms(lambda: K5._launch(Aw5, rw5), 3, warmup=1)
-    plain5 = _time_ms(lambda: K5.wls_lstsq_reference(Aw5, rw5), 1, warmup=1)
-    norms5 = torch.sqrt(torch.sum(Aw5 * Aw5, dim=1))
-    An5 = Aw5 / torch.where(norms5 == 0, 1.0, norms5)[:, None, :]
-    lib5 = _time_ms(lambda: torch.linalg.svd(An5, full_matrices=False), 1,
-                    warmup=1)
-    del An5
-    ops5 = _k5_ops(N5, k5)
-    bound5 = _bound(8 * P5 * (N5 * k5 + N5) + 24 * P5 * k5 + 4 * P5,
-                    P5 * ops5[1], P5 * ops5[0])
-    ok5 = True
-    for what, c in (("path", c_path), ("random", c_rand),
-                    ("random k=130", c_glob)):
+    cases = {"path": c_path}
+    zero_x = []
+    for what, (n, k) in (("random k=88", (N5, k5)),
+                         ("random k=111", (N5, 111)),
+                         ("random k=130 (global)", (600, 130)),
+                         ("random k=233 (global)", (N5, 233))):
+        A_, r_ = random_systems(n, k)
+        cases[what] = k5_compare(A_, r_)
+        zero_x.append(float(cases[what]["xk"][4, 3].abs()))
+        del A_, r_
+    for what, c in cases.items():
         print(f"phase kernel wls_lstsq {what}: P={len(c['ranks'])} finite "
               f"points; x max rel to max|x| {c['x_rel']:.3e} (<= 1e-9), sv "
               f"max rel to s_max {c['s_rel']:.3e} (<= 1e-12), ranks equal "
@@ -819,19 +916,113 @@ def main() -> int:
               f"{sorted(set(c['sweeps'].tolist()))} {tag}", flush=True)
         ok5 = ok5 and c["x_rel"] <= 1e-9 and c["s_rel"] <= 1e-12 \
             and c["rank"] and c["nan"]
+    sweeps = c_path["sweeps"].double()
+
+    # how far two backward-stable solvers may differ on the path's points:
+    # the first-order sensitivity of least squares to a relative
+    # perturbation u of the normalized matrix and rw (Golub and Van Loan,
+    # Matrix Computations, 5.3.7), u (2 kappa / cos(theta) + kappa^2
+    # tan(theta)) of ||x||, with kappa the kept singular values' ratio and
+    # sin(theta) = ||r|| / ||rw||; the kernel's gap to the twin in 2-norms
+    # against it (informational: no bar)
+    xr5, sr5, nr5 = K5.wls_lstsq_reference(Aw5, rw5)
+    fin5 = ~torch.isnan(xr5).any(dim=1)
+    cut5 = torch.finfo(torch.float64).eps * max(N5, k5)
+    kept5 = (sr5 > 0) & (sr5 >= cut5 * sr5[:, :1])
+    kappa5 = sr5[:, 0] / torch.where(kept5, sr5, math.inf).amin(dim=1)
+    fit5 = ((Aw5 / nr5[:, None, :]) @ xr5[:, :, None])[..., 0]
+    sin5 = ((rw5 - fit5).norm(dim=1) / rw5.norm(dim=1)).clamp(max=1.0)
+    cos5 = torch.sqrt(1.0 - sin5 * sin5)
+    u5 = torch.finfo(torch.float64).eps / 2
+    sens5 = u5 * (2 * kappa5 / cos5 + kappa5**2 * sin5 / cos5)
+    gap5 = (c_path["xk"] - xr5).norm(dim=1) / xr5.norm(dim=1)
+    ratio5 = (gap5 / sens5)[fin5]
+    print(f"phase kernel wls_lstsq path sensitivity: kappa "
+          f"{float(kappa5[fin5].min()):.4g}-{float(kappa5[fin5].max()):.4g}, "
+          f"tan(theta) {float((sin5 / cos5)[fin5].min()):.4g}-"
+          f"{float((sin5 / cos5)[fin5].max()):.4g}; first-order bound at "
+          f"u = eps/2 {float(sens5[fin5].min()):.3e}-"
+          f"{float(sens5[fin5].max()):.3e} of ||x||; kernel against twin "
+          f"||dx||/||x|| max {float(gap5[fin5].max()):.3e}; gap / bound "
+          f"median {float(ratio5.median()):.3g}, max {float(ratio5.max()):.3g}"
+          f" {tag}", flush=True)
+    del xr5, sr5, nr5, fit5
+
+    # times: each tiled kernel, its plain version and the library call for
+    # its function (the fold's: the R of [Aw | rw]; the SVD kernel's: the
+    # SVD of the scaled triangles); then the whole of K5 on the path's call
+    # against the twin and torch.linalg.svd of the normalized matrices; the
+    # global kernel on 32 random systems at k = 233
+    aug5 = torch.cat([Aw5, rw5[:, :, None]], dim=2)
+    Rn5 = ws_k[:, :nt5].reshape(P5, k5, k5 + 1)[:, :, :k5] \
+        / torch.sqrt(ws_k[:, nt5:-1]).clamp(min=1e-300)[:, None]
+    ms_fold = _time_ms(lambda: K5._launch_fold(Aw5, rw5), 10)
+    ms_svd = _time_ms(lambda: K5._launch_svd(ws_k, N5, k5), 10)
+    plain_fold = _time_ms(lambda: K5.fold_reference(Aw5, rw5), 2, warmup=1)
+    plain_svd = _time_ms(lambda: K5.svd_reference(ws_k, N5, k5), 2, warmup=1)
+    lib_fold = _time_ms(lambda: torch.linalg.qr(aug5, mode="r"), 2, warmup=1)
+    lib_svd = _time_ms(lambda: torch.linalg.svd(Rn5), 2, warmup=1)
+    del aug5, Rn5
+    ms5 = _time_ms(lambda: K5._launch(Aw5, rw5), 5)
+    plain5 = _time_ms(lambda: K5.wls_lstsq_reference(Aw5, rw5), 1, warmup=1)
+    norms5 = torch.sqrt(torch.sum(Aw5 * Aw5, dim=1))
+    An5 = Aw5 / torch.where(norms5 == 0, 1.0, norms5)[:, None, :]
+    lib5 = _time_ms(lambda: torch.linalg.svd(An5, full_matrices=False), 1,
+                    warmup=1)
+    del An5
+    Pg, kg = 32, 233
+    Ag = rt(Pg, N5, kg) * torch.logspace(0, 6, kg, dtype=torch.float64,
+                                         device=dev)
+    rg = rt(Pg, N5)
+    ms_glob = _time_ms(lambda: K5._launch(Ag, rg), 2, warmup=1)
+    plain_glob = _time_ms(lambda: K5.wls_lstsq_reference(Ag, rg), 1,
+                          warmup=1)
+    ng = torch.sqrt(torch.sum(Ag * Ag, dim=1))
+    lib_glob = _time_ms(lambda: torch.linalg.svd(
+        Ag / ng[:, None, :], full_matrices=False), 1, warmup=1)
+    del Ag, rg, ng
+    ops5 = _k5_ops(N5, k5)
+    ws5 = ws_k.shape[-1]
+    bound_fold = _bound(8 * P5 * N5 * (k5 + 1) + 8 * P5 * ws5,
+                        P5 * ops5["fold"], P5 * ops5["qr"])
+    bound_svd = _bound(8 * P5 * ws5 + 24 * P5 * k5 + 4 * P5,
+                       P5 * ops5["svd"])
+    bound5 = _bound(8 * P5 * (N5 * k5 + N5) + 24 * P5 * k5 + 4 * P5,
+                    P5 * (ops5["fold"] + ops5["svd"]), P5 * ops5["qr"])
+    opsg = _k5_ops(N5, kg)
+    bound_glob = _bound(8 * Pg * (N5 * kg + N5) + 24 * Pg * kg + 4 * Pg,
+                        Pg * (opsg["fold"] + opsg["svd"]), Pg * opsg["qr"])
     print(f"phase kernel wls_lstsq: P={P5} N={N5} k={k5}; zero column's x "
-          f"{zero_x:.1e} (= 0); Jacobi sweeps on the path's inputs min "
-          f"{int(sweeps.min())} mean {float(sweeps.mean()):.4f} max "
-          f"{int(sweeps.max())} (cap {K5.MAX_SWEEPS}); kernel {ms5:.4f} ms, "
-          f"plain {plain5:.4f} ms, library torch.linalg.svd {lib5:.4f} ms, "
-          f"bound {bound5[0]:.4f} ms ({bound5[1]}; per point {ops5[0]:.4g} "
-          f"ops of QR at the tensor cores' rate, {ops5[1]:.4g} other) {tag}",
-          flush=True)
-    if not (ok5 and zero_x == 0.0):
-        raise RuntimeError("wls_lstsq disagrees with its plain version")
-    record(K5.KERNELS[None], "wls_lstsq.cu", K5.REPLACES,
-           max(c_path["err"], c_rand["err"], c_glob["err"]), ms5, plain5,
-           bound5, lib5, path="ell1")
+          f"at k=88, 111, 130, 233: "
+          f"{', '.join(f'{v:.1e}' for v in zero_x)} (= 0); Jacobi sweeps on "
+          f"the path's inputs min {int(sweeps.min())} mean "
+          f"{float(sweeps.mean()):.4f} max {int(sweeps.max())} (cap "
+          f"{d5['MAX_SWEEPS']}); wls_tsqr_fold {ms_fold:.4f} ms (plain "
+          f"{plain_fold:.4f}, library torch.linalg.qr {lib_fold:.4f}, bound "
+          f"{bound_fold[0]:.4f} ({bound_fold[1]})); wls_tsqr_svd "
+          f"{ms_svd:.4f} ms (plain {plain_svd:.4f}, library torch.linalg.svd "
+          f"of the triangles {lib_svd:.4f}, bound {bound_svd[0]:.4f} "
+          f"({bound_svd[1]})); K5 whole {ms5:.4f} ms, plain {plain5:.4f} ms, "
+          f"library torch.linalg.svd {lib5:.4f} ms, bound {bound5[0]:.4f} ms "
+          f"({bound5[1]}; per point {ops5['qr']:.4g} ops of QR at the tensor "
+          f"cores' rate, {ops5['fold'] + ops5['svd']:.4g} other); "
+          f"wls_lstsq_global P={Pg} k={kg} {ms_glob:.4f} ms (plain "
+          f"{plain_glob:.4f}, library torch.linalg.svd {lib_glob:.4f}, bound "
+          f"{bound_glob[0]:.4f} ({bound_glob[1]})) {tag}", flush=True)
+    if not (ok5 and not any(zero_x)
+            and int(sweeps.max()) < d5["MAX_SWEEPS"]):
+        raise RuntimeError("wls_lstsq disagrees with its plain versions")
+    err5 = max(c["err"] for c in cases.values())
+    record(K5.KERNELS["fold"], "wls_lstsq.cu", K5.REPLACES,
+           max(f_path["err"], f_rand["err"]), ms_fold, plain_fold,
+           bound_fold, lib_fold, path="ell1")
+    record(K5.KERNELS["svd"], "wls_lstsq.cu", K5.REPLACES,
+           max(err5, c_svd["err"], c_msvd["err"]), ms_svd, plain_svd,
+           bound_svd, lib_svd, path="ell1")
+    record(K5.KERNELS["global"], "wls_lstsq.cu", K5.REPLACES,
+           max(cases["random k=130 (global)"]["err"],
+               cases["random k=233 (global)"]["err"]), ms_glob, plain_glob,
+           bound_glob, lib_glob, path="ell1")
 
     print(f"phase wall: {time.perf_counter() - t_start:.2f} s for the whole "
           f"run {tag}", flush=True)

@@ -124,7 +124,8 @@ def test_cpu_tensors_never_reach_a_kernel():
          "dd_binary_dual", "schur_cholesky_solve_smem",
          "schur_cholesky_solve_global", "ell1_binary_primal",
          "ell1_binary_dual", "ell1k_binary_primal", "ell1k_binary_dual",
-         "wls_lstsq"), 0)
+         "wls_tsqr_fold", "wls_tsqr_svd",
+         "wls_lstsq_global"), 0)
 
 
 def test_kernel_sources_ship_with_the_package():

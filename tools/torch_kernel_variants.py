@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Time design variants of the port's K1, K2 and K3 kernels on the GPU.
+"""Time design variants of the port's K1, K2, K3 and K5 kernels on the GPU.
 
 Each variant is the committed kernel source with one textual change: it is
 built with the kernels' own nvcc flags into ``pint_torch/_build/variants/``,
 its ptxas report (registers, stack frame, spill bytes) is printed, and it
 is timed with CUDA events against the committed source on the same inputs,
 in two rounds (the second in reverse order), with its outputs checked
-bitwise against the committed kernel's.  With ``--parent DIR`` (an unpacked
-earlier tree of the repository) that tree's K1 and K2 sources run beside
-them as the variant ``parent``.  The variants record the design choices of
-the kernels:
+bitwise against the committed kernel's (K5's, which round differently, to
+its twin's bars).  With ``--parent DIR`` (an unpacked earlier tree of the
+repository) that tree's K1, K2 and K5 sources run beside them as the
+variant ``parent``.  The variants record the design choices of the
+kernels:
 
 * K2 ``dd_binary_primal`` on the B1855 stand-in's main-path inputs
   (captured from its GLS fit and M2 x SINI grid, B=256, N=4005) and on the
@@ -34,11 +35,25 @@ the kernels:
 * K3 at nt = 88, 140 and 232 (B=256): ``fused-scale`` scales column j+1
   inside column j's update step (one barrier per column instead of two,
   but the divisions fall to one lane per warp); ``warp-solve`` runs the
-  forward and back substitutions in one warp with ``__syncwarp``.
+  forward and back substitutions in one warp with ``__syncwarp``;
+* K5 on the ELL1 stand-in's main-path inputs (captured from its WLS fit
+  and ``niter=4`` grid, P=256, N=4005, k=88): ``qr-only`` stops the Jacobi
+  before its first sweep (the kernels' time less the Jacobi's: the QR,
+  scaling and x; ``parent-qr-only`` the same for the parent kernel),
+  ``nb=1`` folds one reflector at a time on the CUDA cores, one warp a
+  trailing column (what the tensor-core WY blocking buys), ``m=64x1``
+  folds 64-row tiles where the kernel folds 128-row ones (twice the
+  panels' chains per point), ``jg=4``, ``jg=16`` give each Jacobi pair 4
+  or 16 lanes instead of 8, ``svd-512`` runs the SVD kernel as one block
+  of 512 threads an SM instead of two of 256, ``panel-only`` and
+  ``trail-only`` skip the fold's trailing updates or its panels (timings
+  of the two halves of the fold, outputs not checked), and ``acc=1`` sums
+  a slice's U^T T in one chain of dependent mma's instead of four
+  independent ones.
 
 Run on a machine with a CUDA GPU and nvcc, from the repository root::
 
-    python3 tools/torch_kernel_variants.py [--parent DIR] [--only K1,K2,K3]
+    python3 tools/torch_kernel_variants.py [--parent DIR] [--only K1,K2,K3,K5]
 """
 
 from __future__ import annotations
@@ -339,6 +354,55 @@ K3_WARP_SOLVES = """  if (warp == 0) {
   }
   __syncthreads();"""
 
+# ---- K5 ---------------------------------------------------------------------
+K5_TILE = "constexpr int TILE = 128; "
+K5_JG = "constexpr int JG = 8; "
+K5_ACC = "constexpr int ACC = 4; "
+K5_SVD = ("constexpr int SVD_THREADS = 256;\n"
+          "constexpr int SVD_BLOCKS = 2; ")
+K5_TRAIL = "int lane) {\n  const int g = lane >> 2, q = lane & 3;"
+K5_PANEL = "const Shape& sh, int lane) {\n  constexpr int RPL = M / 32;"
+K5_SWEEPS = "constexpr int MAX_SWEEPS = 30;"
+K5_FOLD_TILE = "// Fold the tile T (M rows, columns 0..k, zero beyond) into R."
+#: the unblocked fold: NB = 1, a warp reduction a reflector, and one warp
+#: a trailing column (columns j + 1..k) in place of the 8-column mma slices
+K5_NB1 = (
+    ("constexpr int NB = 8; ", "constexpr int NB = 1; "),
+    ('static_assert(NB == 8, "a WY block is one 8-column mma slice");\n', ""),
+    ("    warp_sum8(e, lane);\n",
+     "    for (int c = 0; c < B; ++c) e[c] = warp_sum(e[c]);\n"),
+    ("    const int nq = (sh.kp - j0 - NB) / 8;  // 8-column slices right of it",
+     "    const int nq = sh.k - j0;  // columns right of it, c the last"),
+    ("      trail_slice<M>(T, R, tw, tw + NB * NB, Wb, j0, j0 + NB, sh, lane);",
+     "      trail_column<M>(T, R, tw, tw + NB * NB, j0, j0 + 1, sh, lane);"),
+    ("        trail_slice<M>(T, R, tw, tw + NB * NB, Wb, j0, j0 + NB + 8 * u, sh,\n"
+     "                       lane);",
+     "        trail_column<M>(T, R, tw, tw + NB * NB, j0, j0 + 1 + u, sh, lane);"),
+    (K5_FOLD_TILE, """// One warp applies reflector j to column l.
+template <int M>
+__device__ __forceinline__ void trail_column(double* T, double* R,
+                                             const double* Tw,
+                                             const double* Al, int j, int l,
+                                             const Shape& sh, int lane) {
+  const double alpha = Al[0];
+  double d = lane == 0 ? alpha * R[j * sh.ldr + l] : 0.0;
+#pragma unroll
+  for (int r = 0; r < M / 32; ++r) {
+    const double* row = T + (lane + 32 * r) * sh.ldt;
+    d += row[j] * row[l];
+  }
+  const double f = Tw[0] * warp_sum(d);
+#pragma unroll
+  for (int r = 0; r < M / 32; ++r) {
+    double* row = T + (lane + 32 * r) * sh.ldt;
+    row[l] -= f * row[j];
+  }
+  if (lane == 0) R[j * sh.ldr + l] -= f * alpha;
+}
+
+""" + K5_FOLD_TILE),
+)
+
 #: ptxas markers printed per kernel source
 MARKERS = {
     "dd_binary": ["dd_binary_primal", "dd_binary_dual"],
@@ -346,6 +410,8 @@ MARKERS = {
                    "17spin_phase_primalE", "20spin_phase_primal_rt",
                    "15spin_phase_dualILi2E", "15spin_phase_dualILi6E"],
     "schur_cholesky_solve": ["kernelILb1E", "kernelILb0E"],
+    "wls_lstsq": ["wls_tsqr_fold", "wls_tsqr_svd", "wls_lstsq_global",
+                  "wls_lstsq_kernel"],
 }
 
 
@@ -362,6 +428,7 @@ def _variants(parent):
     k1 = (CSRC / "spin_phase.cu").read_text()
     k2 = (CSRC / "dd_binary.cu").read_text()
     k3 = (CSRC / "schur_cholesky_solve.cu").read_text()
+    k5 = (CSRC / "wls_lstsq.cu").read_text()
     out = {
         "dd_binary": {
             "committed": k2,
@@ -387,11 +454,31 @@ def _variants(parent):
             "fused-scale": _patch(k3, (K3_COLUMN, K3_FUSED)),
             "warp-solve": _patch(k3, (K3_SOLVES, K3_WARP_SOLVES)),
         },
+        "wls_lstsq": {
+            "committed": k5,
+            "qr-only": _patch(k5, (K5_SWEEPS,
+                                   "constexpr int MAX_SWEEPS = 0;")),
+            "nb=1": _patch(k5, *K5_NB1),
+            "m=64x1": _patch(k5, (K5_TILE, "constexpr int TILE = 64; ")),
+            "jg=4": _patch(k5, (K5_JG, "constexpr int JG = 4; ")),
+            "jg=16": _patch(k5, (K5_JG, "constexpr int JG = 16; ")),
+            "svd-512": _patch(k5, (K5_SVD,
+                                   "constexpr int SVD_THREADS = 512;\n"
+                                   "constexpr int SVD_BLOCKS = 1; ")),
+            "panel-only": _patch(k5, (K5_TRAIL, K5_TRAIL.replace(
+                "{\n", "{\n  return;\n"))),
+            "trail-only": _patch(k5, (K5_PANEL, K5_PANEL.replace(
+                "{\n", "{\n  return;\n"))),
+            "acc=1": _patch(k5, (K5_ACC, "constexpr int ACC = 1; ")),
+        },
     }
     if parent is not None:
         pc = Path(parent) / "pint_torch" / "kernels" / "csrc"
-        for kernel in ("dd_binary", "spin_phase"):
+        for kernel in ("dd_binary", "spin_phase", "wls_lstsq"):
             out[kernel]["parent"] = (pc / f"{kernel}.cu").read_text()
+        out["wls_lstsq"]["parent-qr-only"] = _patch(
+            out["wls_lstsq"]["parent"],
+            (K5_SWEEPS, "constexpr int MAX_SWEEPS = 0;"))
     return out
 
 
@@ -448,6 +535,31 @@ def _main_path_inputs():
     return cap
 
 
+def _ell1_inputs():
+    """K5's largest call on the ELL1 stand-in's main path (WLS fit, then
+    the ``niter=4`` M2 x SINI grid), captured as ``chip_smoke.py`` does."""
+    sys.path.insert(0, str(REPO))
+    from chip_smoke import Capture
+    from pint_torch.bridge import ELL1_PATH, load_snapshot, read_snapshot
+    from pint_torch.fitter import WLSFitter
+    from pint_torch.grid import grid_chisq
+    from pint_torch.kernels import wls_lstsq
+
+    _, ref = read_snapshot(ELL1_PATH)
+    cap = Capture({"wls_lstsq": wls_lstsq})
+    cap.install()
+    try:
+        model, batch = load_snapshot(ELL1_PATH, device="cuda")
+        fitter = WLSFitter(batch, model)
+        fitter.fit_toas(maxiter=2)
+        grid_chisq(fitter, ("M2", "SINI"),
+                   (ref["ref/grid_m2"], ref["ref/grid_sini"]), niter=4,
+                   chunk=256)
+    finally:
+        cap.remove()
+    return cap.args("wls_lstsq")[:2]
+
+
 def _rounds(names):
     """Two rounds, the second in reverse order."""
     return [(0, n) for n in names] + [(1, n) for n in reversed(names)]
@@ -457,10 +569,10 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", help="an unpacked earlier tree whose K1 and "
-                    "K2 sources run as the variant 'parent'")
-    ap.add_argument("--only", default="K1,K2,K3",
-                    help="comma-separated subset of K1,K2,K3")
+    ap.add_argument("--parent", help="an unpacked earlier tree whose K1, K2 "
+                    "and K5 sources run as the variant 'parent'")
+    ap.add_argument("--only", default="K1,K2,K3,K5",
+                    help="comma-separated subset of K1,K2,K3,K5")
     args = ap.parse_args()
     only = set(args.only.split(","))
     if not torch.cuda.is_available():
@@ -476,7 +588,7 @@ def main() -> int:
     work = _build.BUILD_DIR / "variants"
     work.mkdir(parents=True, exist_ok=True)
     wanted = {"K1": "spin_phase", "K2": "dd_binary",
-              "K3": "schur_cholesky_solve"}
+              "K3": "schur_cholesky_solve", "K5": "wls_lstsq"}
     procs, libs = {}, {}
     for kernel, variants in _variants(args.parent).items():
         if kernel not in {wanted[k] for k in only}:
@@ -630,7 +742,68 @@ def main() -> int:
 
             compare(f"schur_cholesky_solve nt={nt}", "schur_cholesky_solve",
                     names, make_run, [x, ok, cond])
+
+    if "K5" in only:
+        k5_variants(libs, card, dev, vp, ci, stream, ptr)
     return 0
+
+
+def k5_variants(libs, card, dev, vp, ci, stream, ptr):
+    """K5's variants on the ELL1 path's call, each checked against the twin
+    (x within 1e-9 of max|x| per point, singular values within 1e-12 of
+    s_max, the same NaN flags) except the ``qr-only`` ones, and timed."""
+    import torch
+
+    from pint_torch.kernels import wls_lstsq as K5
+
+    Aw, rw = _ell1_inputs()
+    P, N, k = Aw.shape
+    xr, sr, _ = K5.wls_lstsq_reference(Aw, rw)
+    x = torch.empty(P, k, dtype=torch.float64, device=dev)
+    sv, norms = torch.empty_like(x), torch.empty_like(x)
+    sweeps = torch.empty(P, dtype=torch.int32, device=dev)
+    runs = []
+    for name in [n for kk, n in libs if kk == "wls_lstsq"]:
+        lib = libs[("wls_lstsq", name)]
+        fn = lib.wls_lstsq_launch
+        if name.startswith("parent"):
+            fn.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp]
+            work = torch.empty(P, k, N, dtype=torch.float64, device=dev)
+            rwork = torch.empty(P, N, dtype=torch.float64, device=dev)
+            runs.append((name, lambda fn=fn, work=work, rwork=rwork: fn(
+                ptr(Aw), ptr(rw), P, N, k, ptr(work), ptr(rwork), None,
+                ptr(x), ptr(sv), ptr(norms), ptr(sweeps), stream)))
+            continue
+        fn.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, vp, vp, ci, vp]
+        lib.wls_lstsq_ws_doubles.argtypes = [ci]
+        ws = torch.empty(P * lib.wls_lstsq_ws_doubles(k), dtype=torch.float64,
+                         device=dev)
+        runs.append((name, lambda fn=fn, ws=ws: fn(
+            ptr(Aw), ptr(rw), P, N, k, ptr(ws), ptr(x), ptr(sv), ptr(norms),
+            ptr(sweeps), 3, stream)))
+    fin = ~torch.isnan(xr).any(dim=1)
+    for rnd, (label, run) in _rounds(runs):
+        if run() != 0:
+            raise SystemExit(f"wls_lstsq {label}: launch failed")
+        torch.cuda.synchronize()
+        if "only" in label:
+            check = "not checked (a part of the work skipped)"
+        else:
+            nan = bool(torch.equal(torch.isnan(x), torch.isnan(xr))) and \
+                bool(torch.equal(torch.isnan(sv), torch.isnan(sr)))
+            x_rel = float(((x[fin] - xr[fin]).abs().amax(dim=1)
+                           / xr[fin].abs().amax(dim=1)).max())
+            s_rel = float(((sv[fin] - sr[fin]).abs().amax(dim=1)
+                           / sr[fin, 0]).max())
+            ok = nan and x_rel <= 1e-9 and s_rel <= 1e-12
+            check = (f"x rel {x_rel:.3e}, sv rel {s_rel:.3e}, NaN flags "
+                     f"equal {nan}: {'holds' if ok else 'FAILS'} the bars")
+            if not ok:
+                raise SystemExit(f"wls_lstsq {label} disagrees with the twin")
+        swp = sweeps.double()
+        print(f"round {rnd} wls_lstsq P={P} N={N} k={k} {label}: "
+              f"{_time_ms(run, 5):.4f} ms; sweeps mean {float(swp.mean()):.4f}"
+              f"; {check} [{card}]", flush=True)
 
 
 if __name__ == "__main__":
