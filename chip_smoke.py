@@ -12,36 +12,50 @@ Phases, one line each:
    properties;
 2. build -- the five hand kernels, one nvcc per source, started together;
    the ptxas report of each ``__global__`` (registers, stack frame, spill
-   bytes; K1's per S = 1..6, K4's per ELL1K), read from the build logs:
-   K1's primal templates must hold no stack frame and no primal (K1, K2,
-   K4) and no tiled K5 kernel may spill;
-3. main path b1855 -- the full-width B1855+09-shaped stand-in
-   (``pint_torch/data/b1855_standin.npz``, nt = 88 at the grid): load onto
-   the card, residuals, design matrix, ``GLSFitter.fit_toas(maxiter=2)``,
-   then the 16x16 M2 x SINI GLS chi2 grid (``niter=1``, ``chunk=256``)
-   twice, cold and warm.  Kernel launch counts are zeroed just before and
-   read just after; every kernel of the path must have launched (K3 in its
-   shared-memory instantiation);
-4. bars b1855 -- that path's outputs against the reference package's
-   outputs stored in the snapshot;
-5. main path dmx15 and bars dmx15 -- the same for the dense-DMX stand-in
-   (``pint_torch/data/b1855_dmx15_standin.npz``: 216 DMX windows, nt = 232,
-   K3 in its global-memory instantiation), counts zeroed and read around
-   it alone;
-6. main path ell1 and bars ell1 -- the J1909-3744-shaped WLS stand-in
-   (``pint_torch/data/j1909_ell1_standin.npz``: ELL1 binary, ecliptic
-   astrometry, no correlated noise, k = 88 at the grid), counts zeroed and
-   read around it alone: load, residuals, design matrix cold and warm,
-   ``WLSFitter.fit_toas(maxiter=2)``, ``DownhillWLSFitter.fit_toas()``,
-   the 16x16 WLS grid (``niter=4``, ``chunk=256``) cold and warm; K1, K4's
-   ELL1 primal and dual and K5's tiled fold and SVD must have launched.
-   Bars: residuals, both
-   fits' chi2, values and uncertainties, the downhill converged flag, the
-   grid surface, argmin and rungs;
-7. kernels -- each CUDA kernel (the primal and dual instantiations of K1,
-   K2 and K4 -- K4's for ELL1 and ELL1k --, K3's shared-memory
-   instantiation at nt = 88 and its global one at nt = 232, K5's tiled
-   fold and SVD and its untiled global kernel) against
+   bytes; K1's per S = 1..6, K4's per mode), read from the build logs:
+   K1's primal templates must hold no stack frame, and no primal (K1, K2,
+   K4), no ELL1H dual and no tiled K5 kernel may spill;
+3. main paths, each with the kernel launch counts zeroed just before it
+   and read just after, and every kernel of the path required to have
+   launched; then its bars against the reference package's outputs stored
+   in its snapshot.  Each path: load onto the card, residuals (the
+   absolute phase where the model has AbsPhase), design matrix cold and
+   warm, the fits the reference ran -- ``GLSFitter.fit_toas(maxiter=2)``
+   with correlated noise, else ``WLSFitter.fit_toas(maxiter)`` and
+   ``DownhillWLSFitter.fit_toas()`` --, ``Fitter.auto``'s fitter
+   (``DownhillGLSFitter`` or ``DownhillWLSFitter``), both WLS fitters'
+   Huber fits where the snapshot holds them, then the 16x16 grid of the
+   snapshot's parameters after the first fit, cold and warm
+   (``chunk=256``):
+
+   * b1855 -- the B1855+09-shaped GLS stand-in
+     (``pint_torch/data/b1855_standin.npz``, nt = 88 at the M2 x SINI
+     grid, ``niter=1``; K1, K2, K3 in shared memory);
+   * dmx15 -- its 216-DMX sibling (``b1855_dmx15_standin.npz``, nt = 232;
+     K3 in global memory);
+   * ell1 -- the J1909-3744-shaped WLS stand-in
+     (``j1909_ell1_standin.npz``, ELL1, k = 88, M2 x SINI at ``niter=4``;
+     K1, K4's ELL1 primal and dual, K5's tiled fold and SVD);
+   * ell1h -- the same with BinaryELL1H, H3/STIGMA in the exact form
+     (``j1909_ell1h_standin.npz``, the H3 x STIGMA grid; K4's ELL1H-exact
+     primal and dual in place of ELL1's);
+   * ngc, ngc_phoff -- the NGC6440E-shaped stand-ins of the reference
+     benchmark's secondary cell (``ngc6440e_standin.npz``,
+     ``ngc6440e_phoff_standin.npz``: 62 TOAs, AbsPhase with its TZR row,
+     the second with a fitted PHOFF; the F0 x F1 grid at ``niter=4``; K1,
+     K5 at N = 62).
+
+   Bars: residuals 1e-10 s, the absolute phase's integers exactly, each
+   fit's chi2 1e-6 rel, values 1e-2 sigma and uncertainties 1e-6 rel (or
+   the reference's own ``StepProblem``, message and all), the downhill and
+   ``Fitter.auto`` converged flags and steps, ``Fitter.auto``'s class, its
+   noise amplitudes 1e-6 of their largest, the Huber weights 1e-6 with the
+   same down-weighted TOAs and IRLS rounds, the grid's surface 1e-6 rel,
+   argmin and rungs;
+4. kernels -- each CUDA kernel (the primal and dual instantiations of K1,
+   K2 and K4 -- K4's for ELL1, ELL1k, ELL1H exact and ELL1H harmonic --,
+   K3's shared-memory instantiation at nt = 88 and its global one at nt =
+   232, K5's tiled fold and SVD and its untiled global kernel) against
    its plain PyTorch twin on the card, on the inputs its path gave it
    (captured there) plus seeded random inputs: K1 at S = 1, 2, 3 and 6
    spin terms, k and f bitwise; K2 on random orbits with ECC 0-0.9 and in
@@ -51,11 +65,14 @@ Phases, one line each:
    rows whose NaN delays poison every partial; K3 with an ill-conditioned
    and a NaN point; K4 on random orbits with |EPS| to 1e-2 and TOAs across
    the orbital phase's wrap, delay bitwise, partials 1e-10 rel, NaN rows
-   poisoning all 14 partials; K5's tiled kernels each against its own
+   poisoning all partials -- ELL1H's in both forms, the harmonic one at
+   NHARMS = 3, 7 and 12 with stigma from STIGMA and from H4/H3, rows at
+   H3 = 0; K5's tiled kernels each against its own
    plain version (the fold's triangles, rows up to sign, and the SVD
    kernel on the fold's workspace, on the path's call and on random
-   systems at k = 88), then the wrapper against the twin on the path's
-   call and on random systems (raw condition to 1e10, with an all-zero
+   systems at k = 88), then the wrapper against the twin on the ell1
+   path's call, on ngc_phoff's (N = 62, rank k - 1 at every point), and
+   on random systems (raw condition to 1e10, with an all-zero
    column and a NaN in the ragged last tile) at k = 88 and 111 (tiled)
    and at k = 130 and 233 (the untiled global kernel): x to 1e-9 of
    max|x|, singular values to 1e-12 of the largest, the same rank and NaN
@@ -63,9 +80,11 @@ Phases, one line each:
    cap; the tiled design (tile rows, WY block, the Jacobi's lanes, read
    from the built library) and, on the path's points, the kernel's gap to
    the twin beside the first-order least-squares sensitivity are printed.
-   K2's Newton steps on the path's inputs set
-   its operation count; K5's counts what its function needs (QR at the
-   float64 tensor-core rate, the k x k SVD at the CUDA cores').
+   K2's Newton steps on the path's inputs set its operation count; the
+   per-element operation counts of K1, K2 and K4 are bounded at the
+   float64 instruction rate (-fmad=false); K5's counts what its function
+   needs (QR at the float64 tensor-core rate, the k x k SVD at the CUDA
+   cores' flop rate).
    CUDA-event times of kernel, twin and, for K3 and K5, the library call
    (Cholesky; a QR or the batched SVD), with the launches queued behind a
    spin kernel so that the events time the device and not the host's launch
@@ -97,6 +116,13 @@ HERE = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 F64_FLOP_PER_S = 34e12
 F64_TC_FLOP_PER_S = 67e12
+#: float64 instructions per second of the CUDA cores: 132 SMs x 64 FP64
+#: lanes x 1.98 GHz.  The 34 TFLOP/s above counts a fused multiply-add as
+#: two operations; the kernels are built with -fmad=false (their
+#: double-double and folded products must round alone), so each add and
+#: multiply is an instruction of its own, and the per-element operation
+#: counts of K1, K2 and K4 are bounded at this rate
+F64_INSTR_PER_S = 132 * 64 * 1.98e9
 
 #: float64 operations per element of ``dd_binary.cu``, counted from the
 #: source with a sine, cosine, arctangent, logarithm or square root counted
@@ -112,11 +138,47 @@ K2_REVERSE_OPS = 242
 
 
 #: float64 operations per element of ``ell1_binary.cu``, counted from the
-#: source as K2's are, by ELL1K: ``ell1_forward`` 391 (ELL1) and 392
-#: (ELL1k; five sincos pairs and a log, 200 of them), ``ell1_reverse`` 278
-#: and 321 more in the dual.
-K4_FORWARD_OPS = {False: 391, True: 392}
-K4_REVERSE_OPS = {False: 278, True: 321}
+#: source as K2's are, by mode (0 ELL1, 1 ELL1k): ``ell1_forward`` 391 and
+#: 392 (five sincos pairs and a log, 200 of them), ``ell1_reverse`` 278 and
+#: 321 more in the dual.  Of these the M2/SINI Shapiro delay takes 25 of
+#: the forward pass and 31 of the reverse sweep; ELL1H's orthometric forms
+#: replace them (:func:`_k4_ops`).
+K4_FORWARD_OPS = {0: 391, 1: 392}
+K4_REVERSE_OPS = {0: 278, 1: 321}
+K4_SHAPIRO_OPS = (25, 31)
+
+
+def _k4_ops(mode: int, partials: bool, nharms: int = 7) -> int:
+    """float64 operations per element of ``ell1_binary.cu`` in ``mode``
+    (0 ELL1, 1 ELL1k, 2 ELL1H exact, 3 ELL1H harmonic to ``nharms``),
+    counted from the source: ELL1H shares ELL1's inverse delay and reverse
+    sweep less their M2/SINI Shapiro terms; its exact form adds 34 (a log
+    among them) to the forward pass and 31 to the reverse sweep; each
+    harmonic k adds its coefficient (2), the products of stigma^(k-3) by
+    binary powering, 3 more and, past k = 4, k phi and a sine or cosine
+    (21) to the forward pass, and to the reverse sweep both of sin and cos
+    (41 past k = 4) and 8 plus the powering of stigma^(k-3) and
+    stigma^(k-4)."""
+    if mode in (0, 1):
+        return K4_FORWARD_OPS[mode] + (K4_REVERSE_OPS[mode] if partials
+                                       else 0)
+
+    def powering(y):
+        return 0 if y < 1 else bin(y).count("1") - 1 + y.bit_length() - 1
+
+    fwd = K4_FORWARD_OPS[0] - K4_SHAPIRO_OPS[0]
+    rev = K4_REVERSE_OPS[0] - K4_SHAPIRO_OPS[1]
+    if mode == 2:
+        fwd, rev = fwd + 34, rev + 31
+    else:
+        fwd += 2
+        rev += 7
+        for k in range(3, nharms + 1):
+            fwd += 2 + powering(k - 3) + 3 + (21 if k > 4 else 0)
+            rev += 2 + (41 if k > 4 else 0) + 4 + powering(k - 3)
+            if k > 3:
+                rev += 4 + powering(k - 4)
+    return fwd + (rev if partials else 0)
 
 
 def _k5_ops(N: int, k: int):
@@ -175,8 +237,9 @@ def _card() -> str:
 
 class Capture:
     """Spy on each kernel module's ``_launch``: keeps a copy of the largest
-    call's inputs per (kernel, partials) so the comparisons run at the main
-    path's shapes.  Counting stays in the original ``_launch``."""
+    call's inputs per (kernel, partials) -- per (kernel, (mode, partials))
+    for K4 -- so the comparisons run at the main path's shapes.  Counting
+    stays in the original ``_launch``."""
 
     def __init__(self, kernels):
         self.kernels = kernels
@@ -201,8 +264,9 @@ class Capture:
     def _record(self, name, args):
         import torch
 
-        partials = args[-1] if name in ("spin_phase", "dd_binary",
-                                        "ell1_binary") else None
+        partials = args[-1] if name in ("spin_phase", "dd_binary") \
+            else (int(args[2]), bool(args[3])) if name == "ell1_binary" \
+            else None
         size = sum(a.numel() for a in args if torch.is_tensor(a))
         key = (name, partials)
         if key not in self.calls or self.calls[key][0] < size:
@@ -239,32 +303,48 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound(nbytes: float, ops: float, tensor_ops: float = 0.0):
-    """Least ms for the work: bytes over HBM bandwidth or ``ops`` over the
-    CUDA cores' float64 rate plus ``tensor_ops`` (matrix products) over
-    the tensor cores', whichever is longer, and which it is."""
+def _bound(nbytes: float, ops: float, tensor_ops: float = 0.0,
+           rate: float = F64_FLOP_PER_S):
+    """Least ms for the work: bytes over HBM bandwidth or ``ops`` over
+    ``rate`` (the CUDA cores' float64 flop rate, or for the per-element
+    instruction counts of K1, K2 and K4 their instruction rate) plus
+    ``tensor_ops`` (matrix products) over the tensor cores', whichever is
+    longer, and which it is."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = (ops / F64_FLOP_PER_S + tensor_ops / F64_TC_FLOP_PER_S) * 1e3
+    t_o = (ops / rate + tensor_ops / F64_TC_FLOP_PER_S) * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def _grid_of(meta, ref):
+    """The snapshot's grid: (parameter names, axes); M2 x SINI unless its
+    reference names others."""
+    names = tuple(meta["reference"].get("grid_params", ("M2", "SINI")))
+    return names, tuple(ref[f"ref/grid_{n.lower()}"] for n in names)
 
 
 def _drive(label, path, kernels, tag):
     """One main path on one snapshot, counts zeroed just before and read
-    just after: load, residuals, design matrix cold and warm, the fit the
-    model calls for (``GLSFitter`` with correlated noise; else
-    ``WLSFitter`` and then ``DownhillWLSFitter``, each from the snapshot's
-    values), then the 16x16 grid after the first fit, cold and warm, at the
-    snapshot's ``niter``; returns (counts, capture, outputs)."""
+    just after: load, residuals, design matrix cold and warm, the fits the
+    reference ran on it, each from the snapshot's values -- ``GLSFitter``
+    with correlated noise, else ``WLSFitter`` and ``DownhillWLSFitter``;
+    then ``Fitter.auto``'s fitter and, where the snapshot holds them, both
+    WLS fitters' Huber fits (a fit whose reference raised ``StepProblem``
+    must raise it too) -- then the 16x16 grid after the first fit, cold and
+    warm, at the snapshot's ``niter``; returns (counts, capture,
+    outputs)."""
     import torch
 
     from pint_torch.bridge import load_snapshot, read_snapshot
-    from pint_torch.fitter import DownhillWLSFitter, WLSFitter
+    from pint_torch.fitter import (DownhillWLSFitter, Fitter, StepProblem,
+                                   WLSFitter)
     from pint_torch.gls_fitter import GLSFitter
     from pint_torch.grid import grid_chisq
     from pint_torch.residuals import Residuals
 
     meta, ref = read_snapshot(path)
-    niter = meta["reference"]["settings"]["grid_niter"]
+    rr = meta["reference"]
+    niter = rr["settings"]["grid_niter"]
+    gnames, axes = _grid_of(meta, ref)
     cap = Capture(kernels.modules())
     cap.install()
     kernels.reset_counts()
@@ -278,41 +358,61 @@ def _drive(label, path, kernels, tag):
         stages[name] = time.perf_counter() - t
         return out
 
+    def fit(key, fitter, **kw):
+        """``fitter.fit_toas(**kw)`` as stage ``fit_<key>``: (fitter,
+        chi2), or (fitter, the StepProblem's text) where it raises one."""
+        try:
+            return fitter, stage(f"fit_{key}", lambda: fitter.fit_toas(**kw))
+        except StepProblem as e:
+            return fitter, f"StepProblem: {e}"
+
     model, batch = stage("load", lambda: load_snapshot(path, device="cuda"))
+    abs_phase = "AbsPhase" in model.components
     resid = stage("residuals", lambda: Residuals(batch, model).time_resids)
+    phase_int = model.phase(batch, abs_phase=abs_phase).int_ \
+        if abs_phase else None
     M, _ = stage("designmatrix", lambda: model.designmatrix(batch))
     stage("designmatrix_warm", lambda: model.designmatrix(batch))
     gls = model.has_correlated_errors
+    maxiter = rr["settings"]["fit_maxiter"]
     fitter = (GLSFitter if gls else WLSFitter)(batch, model)
-    fits = {"postfit": (fitter, stage("fit", lambda: fitter.fit_toas(
-        maxiter=2)))}
+    fits = {"postfit": fit("postfit", fitter, maxiter=maxiter)}
     if not gls:
-        downhill = DownhillWLSFitter(batch, model)
-        fits["downhill"] = (downhill, stage("fit_downhill",
-                                            downhill.fit_toas))
-    axes = (ref["ref/grid_m2"], ref["ref/grid_sini"])
-    stage("grid_cold", lambda: grid_chisq(fitter, ("M2", "SINI"), axes,
+        fits["downhill"] = fit("downhill", DownhillWLSFitter(batch, model))
+    fits["auto"] = fit("auto", Fitter.auto(batch, model))
+    if "huber_iterations" in rr or "huber_error" in rr:
+        fits["huber"] = fit("huber", WLSFitter(batch, model),
+                            robust="huber", maxiter=maxiter)
+        fits["huber_downhill"] = fit("huber_downhill",
+                                     DownhillWLSFitter(batch, model),
+                                     robust="huber")
+    stage("grid_cold", lambda: grid_chisq(fitter, gnames, axes,
                                           niter=niter, chunk=256))
     surface, _ = stage("grid_warm", lambda: grid_chisq(
-        fitter, ("M2", "SINI"), axes, niter=niter, chunk=256))
+        fitter, gnames, axes, niter=niter, chunk=256))
     counts = kernels.launch_counts()
     cap.remove()
-    k = 1 + len(fitter.model.free_params) - 2
+    k = 1 + len(fitter.model.free_params) - len(gnames)
     print(f"phase main path {label}: N={batch.ntoas} TOAs, "
           f"{len(model.free_params)} free, {'GLS nt' if gls else 'WLS k'}"
-          f"={k}, niter={niter}; "
+          f"={k}, {gnames[0]} x {gnames[1]} grid niter={niter}; "
           + ", ".join(f"{n} {v:.4f} s" for n, v in stages.items())
           + f"; warm grid {surface.size / stages['grid_warm']:.2f} fits/s; "
           f"launches {counts} {tag}", flush=True)
     return counts, cap, dict(meta=meta, ref=ref, resid=resid, M=M,
-                             fitter=fitter, fits=fits, surface=surface)
+                             phase_int=phase_int, fitter=fitter, fits=fits,
+                             surface=surface)
 
 
 def _bars(label, out):
     """The path's outputs against the reference outputs in its snapshot:
-    residuals, each fit's chi2, values and uncertainties (and the downhill
-    fit's converged flag), the grid's surface, argmin and rungs; raises on
-    a failed bar."""
+    residuals (and the absolute phase's integer part, exactly); each fit's
+    chi2, values and uncertainties, or the reference's own StepProblem;
+    ``Fitter.auto``'s class, converged flag and downhill steps and its
+    noise amplitudes (1e-6 of their largest); the downhill fit's converged
+    flag; the Huber fits' weights (1e-6), down-weighted set and IRLS
+    rounds; the grid's surface, argmin and rungs; raises on a failed
+    bar."""
     import numpy as np
 
     meta, ref = out["meta"], out["ref"]
@@ -322,40 +422,86 @@ def _bars(label, out):
     Mr = ref["ref/designmatrix"]
     d_M = float((np.abs(out["M"].cpu().numpy() - Mr).max(0)
                  / np.maximum(np.abs(Mr).max(0), 1e-300)).max())
-    fits = {}
+    checks = [(d_res <= 1e-10, "residuals")]
+    notes = []
+    if out["phase_int"] is not None:
+        same_int = bool(np.array_equal(out["phase_int"].cpu().numpy(),
+                                       ref["ref/abs_phase_int"]))
+        checks.append((same_int, "absolute phase's integer part"))
+        notes.append(f"absolute phase integers equal {same_int}")
     for key, (f, chi2) in out["fits"].items():
+        want_err = rref.get(f"{key}_error")
+        if want_err is not None or isinstance(chi2, str):
+            checks.append((chi2 == want_err, f"{key} outcome"))
+            notes.append(f"{key} raised {chi2!r} vs {want_err!r}")
+            continue
         vals = np.array([f.model.value(p) for p in rref["postfit_params"]])
         uncs = np.array([f.model[p].uncertainty
                          for p in rref["postfit_params"]])
         sig = ref[f"ref/{key}_uncertainties"]
-        fits[key] = (abs(chi2 / rref[f"{key}_chi2"] - 1),
-                     float(np.abs((vals - ref[f"ref/{key}_values"])
-                                  / sig).max()),
-                     float(np.abs(uncs / sig - 1).max()))
+        c = abs(chi2 / rref[f"{key}_chi2"] - 1)
+        v = float(np.abs((vals - ref[f"ref/{key}_values"]) / sig).max())
+        u = float(np.abs(uncs / sig - 1).max())
+        if key.startswith("huber"):
+            # Huber's bars: weights, the down-weighted set, IRLS rounds;
+            # its chi2 is printed (on a PHOFF model it moves at first order
+            # with the near-degenerate DM-PHOFF direction's rounding)
+            w = f.robust_weights.cpu().numpy()
+            wr = ref[f"ref/{key}_weights"]
+            dw = float(np.abs(w - wr).max())
+            same_set = bool(np.array_equal(w < 1.0, wr < 1.0))
+            rounds = (f.robust_iterations, rref[f"{key}_iterations"])
+            checks += [(dw <= 1e-6, f"{key} weights"),
+                       (same_set, f"{key} down-weighted set"),
+                       (rounds[0] == rounds[1], f"{key} IRLS rounds"),
+                       (v <= 1e-2, f"{key} values"),
+                       (u <= 1e-6, f"{key} uncertainties")]
+            notes.append(f"{key} weights max|d| {dw:.3e} (<= 1e-6), "
+                         f"{int((wr < 1).sum())} down-weighted, same set "
+                         f"{same_set}, rounds {rounds[0]} vs {rounds[1]}, "
+                         f"values max {v:.3e} sigma (<= 1e-2), "
+                         f"uncertainties rel {u:.3e} (<= 1e-6), chi2 rel "
+                         f"{c:.3e}")
+            continue
+        checks += [(c <= 1e-6, f"{key} chi2"), (v <= 1e-2, f"{key} values"),
+                   (u <= 1e-6, f"{key} uncertainties")]
+        notes.append(f"{key} chi2 rel {c:.3e} (<= 1e-6), values max "
+                     f"{v:.3e} sigma (<= 1e-2), uncertainties rel {u:.3e} "
+                     f"(<= 1e-6)")
+        if key == "downhill":
+            pair = (bool(f.converged), rref["downhill_converged"])
+            checks.append((pair[0] == pair[1], "downhill converged flag"))
+            notes.append(f"downhill converged {pair[0]} vs {pair[1]}")
+        if key == "auto":
+            pair = ((bool(f.converged), f.iterations),
+                    (rref["auto_converged"], rref["auto_iterations"]))
+            checks.append((pair[0] == pair[1],
+                           "auto converged flag and steps"))
+            want = {k.rsplit("/", 1)[1]: a for k, a in ref.items()
+                    if k.startswith("ref/auto_noise_ampls/")}
+            d_n = max((float(np.abs(f.noise_ampls[c_].cpu().numpy() - a)
+                             .max() / np.abs(a).max())
+                       for c_, a in want.items()), default=0.0)
+            checks.append((set(getattr(f, "noise_ampls", {})) == set(want)
+                           and d_n <= 1e-6, "auto noise amplitudes"))
+            notes.append(f"auto converged, steps {pair[0]} vs {pair[1]}"
+                         + (f", noise amplitudes max {d_n:.3e} of their "
+                            "largest (<= 1e-6)" if want else ""))
+    auto_cls = type(out["fits"]["auto"][0]).__name__
+    checks.append((auto_cls == rref["auto_fitter"], "Fitter.auto class"))
     surface = out["surface"]
     d_grid = float(np.abs(surface / ref["ref/grid_chi2"] - 1).max())
     argmin = [int(i) for i in np.unravel_index(int(np.nanargmin(surface)),
                                                surface.shape)]
     rungs = out["fitter"].last_grid_diagnostics["ladder_rung"]
     same_rungs = bool(np.array_equal(rungs, ref["ref/grid_rungs"]))
-    checks = [(d_res <= 1e-10, "residuals"), (d_grid <= 1e-6, "grid surface"),
-              (argmin == rref["grid_argmin"], "grid argmin"),
-              (same_rungs, "grid rungs")]
-    for key, (c, v, u) in fits.items():
-        checks += [(c <= 1e-6, f"{key} chi2"), (v <= 1e-2, f"{key} values"),
-                   (u <= 1e-6, f"{key} uncertainties")]
-    conv = ""
-    if "downhill" in out["fits"]:
-        pair = (bool(out["fits"]["downhill"][0].converged),
-                rref["downhill_converged"])
-        checks.append((pair[0] == pair[1], "downhill converged flag"))
-        conv = f"; downhill converged {pair[0]} vs {pair[1]}"
+    checks += [(d_grid <= 1e-6, "grid surface"),
+               (argmin == rref["grid_argmin"], "grid argmin"),
+               (same_rungs, "grid rungs")]
     print(f"phase bars {label}: residuals max|d| {d_res:.3e} s (<= 1e-10); "
-          f"design matrix max col-rel {d_M:.3e}; "
-          + "; ".join(f"{key} chi2 rel {c:.3e} (<= 1e-6), values max "
-                      f"{v:.3e} sigma (<= 1e-2), uncertainties rel {u:.3e} "
-                      f"(<= 1e-6)" for key, (c, v, u) in fits.items())
-          + f"{conv}; grid max rel {d_grid:.3e} (<= 1e-6); argmin {argmin} "
+          f"design matrix max col-rel {d_M:.3e}; Fitter.auto {auto_cls} vs "
+          f"{rref['auto_fitter']}; " + "; ".join(notes)
+          + f"; grid max rel {d_grid:.3e} (<= 1e-6); argmin {argmin} "
           f"vs {rref['grid_argmin']}; rungs "
           f"{sorted(set(rungs.ravel().tolist()))} equal {same_rungs}",
           flush=True)
@@ -377,7 +523,8 @@ def main() -> int:
     sys.path.insert(0, str(HERE))
 
     from pint_torch import kernels
-    from pint_torch.bridge import DMX15_PATH, ELL1_PATH, STANDIN_PATH
+    from pint_torch.bridge import (DMX15_PATH, ELL1_PATH, ELL1H_PATH,
+                                   NGC_PATH, NGC_PHOFF_PATH, STANDIN_PATH)
     from pint_torch.kernels import _build
     from pint_torch.kernels import dd_binary as K2
     from pint_torch.kernels import ell1_binary as K4
@@ -410,12 +557,15 @@ def main() -> int:
                "schur_cholesky_kernelILb1E"),
               ("schur_cholesky_solve", K3.KERNELS[True],
                "schur_cholesky_kernelILb0E")]
-    ptxas += [("ell1_binary", K4.KERNELS[(k, p)],
-               f"ell1_binary_{'dual' if p else 'primal'}ILb{int(k)}E")
-              for k in (False, True) for p in (False, True)]
+    ptxas += [("ell1_binary", K4.KERNELS[(m, p)],
+               f"ell1_binary_{'dual' if p else 'primal'}ILi{m}E")
+              for m in range(4) for p in (False, True)]
     ptxas += [("wls_lstsq", K5.KERNELS[n], K5.KERNELS[n])
               for n in ("fold", "svd", "global")]
-    k4_primals = (K4.KERNELS[(False, False)], K4.KERNELS[(True, False)])
+    # no K4 primal may spill, nor ELL1H's duals
+    k4_primals = [K4.KERNELS[(m, False)] for m in range(4)] \
+        + [K4.KERNELS[(m, True)] for m in (K4.ELL1H_EXACT,
+                                           K4.ELL1H_HARMONIC)]
     for src, kernel, marker in ptxas:
         log = _build.library_path(src).with_suffix(".log")
         r = _build.ptxas_report(log.read_text() if log.exists() else "",
@@ -425,7 +575,7 @@ def main() -> int:
             f"stores, {r[3]} bytes spill loads" if r else "not in the build "
             "log"), flush=True)
         # K1's primal templates keep no stack frame; no primal spills, nor
-        # K5's tiled kernels
+        # ELL1H's duals, nor K5's tiled kernels
         k1_primal = kernel.startswith(K1.KERNELS[False])
         primal = k1_primal or kernel == K2.KERNELS[False] \
             or kernel in k4_primals \
@@ -436,16 +586,21 @@ def main() -> int:
 
     # ---- main paths: each with its counts zeroed just before it ------------
     paths = {}
+    k5_tiled = (K5.KERNELS["fold"], K5.KERNELS["svd"])
     path_kernels = {
         "b1855": (*K1.KERNELS.values(), *K2.KERNELS.values(),
                   K3.KERNELS[False]),
         "dmx15": (*K1.KERNELS.values(), *K2.KERNELS.values(),
                   K3.KERNELS[True]),
-        "ell1": (*K1.KERNELS.values(), K4.KERNELS[(False, False)],
-                 K4.KERNELS[(False, True)], K5.KERNELS["fold"],
-                 K5.KERNELS["svd"])}
+        "ell1": (*K1.KERNELS.values(), K4.KERNELS[(K4.ELL1, False)],
+                 K4.KERNELS[(K4.ELL1, True)], *k5_tiled),
+        "ell1h": (*K1.KERNELS.values(), K4.KERNELS[(K4.ELL1H_EXACT, False)],
+                  K4.KERNELS[(K4.ELL1H_EXACT, True)], *k5_tiled),
+        "ngc": (*K1.KERNELS.values(), *k5_tiled),
+        "ngc_phoff": (*K1.KERNELS.values(), *k5_tiled)}
     for label, path in (("b1855", STANDIN_PATH), ("dmx15", DMX15_PATH),
-                        ("ell1", ELL1_PATH)):
+                        ("ell1", ELL1_PATH), ("ell1h", ELL1H_PATH),
+                        ("ngc", NGC_PATH), ("ngc_phoff", NGC_PHOFF_PATH)):
         counts, cap, out = _drive(label, path, kernels, tag)
         missing = [k for k in path_kernels[label] if counts[k] == 0]
         if missing:
@@ -526,7 +681,8 @@ def main() -> int:
         lanes = S1 + 2 if partials else 0
         bound = _bound(16 * N1 + 8 * B1 * (2 + S1)
                        + 8 * B1 * N1 * (1 + 2 + lanes),
-                       B1 * N1 * _k1_ops(S1, has_pe, partials))
+                       B1 * N1 * _k1_ops(S1, has_pe, partials),
+                       rate=F64_INSTR_PER_S)
         print(f"phase kernel {kernel}: B={B1} N={N1} S={S1} k equal {k_eq}; "
               f"max|df| {err:.3e}, random S=1,2,3,6 "
               f"{', '.join(f'{v:.3e}' for v in err_r.values())} cycles "
@@ -608,9 +764,12 @@ def main() -> int:
         plain = _time_ms(twin2, 3)
         nbytes = 8 * B2 * N2 + 8 * B2 * 16 \
             + 8 * B2 * N2 * (1 + (K2.NPARTIAL if partials else 0))
-        bound = _bound(nbytes, B2 * N2 * _k2_ops(st_elem, partials))
-        b_warp = _bound(nbytes, B2 * N2 * _k2_ops(st_warp, partials))
-        b_15 = _bound(nbytes, B2 * N2 * _k2_ops(15, partials))
+        bound = _bound(nbytes, B2 * N2 * _k2_ops(st_elem, partials),
+                       rate=F64_INSTR_PER_S)
+        b_warp = _bound(nbytes, B2 * N2 * _k2_ops(st_warp, partials),
+                        rate=F64_INSTR_PER_S)
+        b_15 = _bound(nbytes, B2 * N2 * _k2_ops(15, partials),
+                      rate=F64_INSTR_PER_S)
         print(f"phase kernel {kernel}: B={B2} N={N2}; delay bitwise {same}, "
               f"max|d delay| {err:.3e} (random {err_r:.3e}) s (= 0); "
               f"NaN rows (SINI > 1) equal and poisoning {nan_ok}; "
@@ -677,16 +836,24 @@ def main() -> int:
         record(kernel, "schur_cholesky_solve.cu", K3.REPLACES, err3, ms3,
                plain3, bnd3, lib3, path=path)
 
-    # K4: the ell1 path's inputs (ELL1), the same TOAs under ELL1k (OMDOT
-    # 1.7 deg/yr, LNEDOT 2e-4 /yr), and seeded random orbits -- |EPS1|,
-    # |EPS2| to 1e-2, EPS1DOT/EPS2DOT, OMDOT, LNEDOT, PBDOT and A1DOT
-    # random, SINI 0.5-0.999, half the TOAs within 5 s of a whole orbit so
-    # that the orbital phase crosses its 0/2 pi wrap -- plus two rows with
-    # SINI = 1.5 whose NaN delays must poison all 14 partials; the delay
-    # bitwise everywhere
-    from pint_torch.models.binary.engines import ell1_forward
+    # K4, in its four modes.  ELL1 on the ell1 path's inputs, ELL1k on the
+    # same TOAs (OMDOT 1.7 deg/yr, LNEDOT 2e-4 /yr), and seeded random
+    # orbits -- |EPS1|, |EPS2| to 1e-2, EPS1DOT/EPS2DOT, OMDOT, LNEDOT,
+    # PBDOT and A1DOT random, SINI 0.5-0.999, half the TOAs within 5 s of a
+    # whole orbit so that the orbital phase crosses its 0/2 pi wrap -- plus
+    # two rows with SINI = 1.5 whose NaN delays must poison all 14
+    # partials.  ELL1H exact on the ell1h path's inputs, its harmonic form
+    # (NHARMS 7) on the same, and both on the random orbits with
+    # H3/STIGMA (stigma 0.3-0.97, H3 = Tsun M2 stigma^3) -- the harmonic one
+    # at NHARMS 3, 7 and 12, with stigma from STIGMA and from H4/H3, a row
+    # at H3 = 0 -- their last two rows with NaN TOAs that must poison all
+    # 15 partials.  The delay bitwise everywhere, the partials to 1e-10 of
+    # each column's largest.
+    from pint_torch.models.binary.engines import TSUN, ell1_forward
 
-    tt4, p4 = paths["ell1"][1].args("ell1_binary", True)[:2]
+    tt4, p4 = paths["ell1"][1].args("ell1_binary", (K4.ELL1, True))[:2]
+    tt4h, p4h = paths["ell1h"][1].args("ell1_binary",
+                                       (K4.ELL1H_EXACT, True))[:2]
     p4k = p4.clone()
     p4k[:, 9], p4k[:, 10] = 1.7, 2e-4
     nr4 = 64
@@ -714,42 +881,71 @@ def main() -> int:
           f"{wrap[0]}", flush=True)
     if not min(wrap):
         raise RuntimeError("the random ELL1 TOAs miss the phase wrap")
-    for ell1k in (False, True):
-        pp = p4k if ell1k else p4
+    sig = rt(nr4, lo=0.3, hi=0.97)
+    h3 = TSUN * 0.2067 * (1.0 + rt(nr4, lo=-0.1, hi=0.1)) * sig ** 3
+    zero = torch.zeros_like(sig)
+    rp4s = torch.cat([rp4[:, :11], torch.stack([h3, zero, sig], 1)], 1)
+    rp4s[-3, 11] = 0.0
+    rp4h4 = torch.cat([rp4[:, :11], torch.stack([h3, h3 * sig, zero], 1)],
+                      1)
+    rp4h4[-3, 11] = 0.0
+    rtt4h = rtt4.clone()
+    rtt4h[-2:, ::97] = float("nan")
+    p4harm = p4h.clone()
+    modes = (
+        (K4.ELL1, "ELL1, the path's TOAs", "ell1", tt4, p4,
+         [(rtt4, rp4, 7, False)]),
+        (K4.ELL1K, "ELL1k, ell1's TOAs, OMDOT and LNEDOT set", "ell1", tt4,
+         p4k, [(rtt4, rp4, 7, False)]),
+        (K4.ELL1H_EXACT, "ELL1H exact, the path's TOAs", "ell1h", tt4h, p4h,
+         [(rtt4h, rp4s, 7, False)]),
+        (K4.ELL1H_HARMONIC, "ELL1H harmonic NHARMS=7, ell1h's TOAs",
+         "ell1h", tt4h, p4harm,
+         [(rtt4h, rp, n, h4) for rp, h4 in ((rp4s, False), (rp4h4, True))
+          for n in (3, 7, 12)]))
+    for mode, what, path, ttp, pp, randoms in modes:
         for partials in (False, True):
-            kernel = K4.KERNELS[(ell1k, partials)]
+            kernel = K4.KERNELS[(mode, partials)]
 
             def twin4():
-                return K4.ell1_binary_reference(tt4, pp, ell1k, partials)
+                return K4.ell1_binary_reference(ttp, pp, mode, partials)
 
-            dk, Pk = K4._launch(tt4, pp, ell1k, partials)
+            dk, Pk = K4._launch(ttp, pp, mode, partials)
             dr, Pr = twin4()
             err = float((dk - dr).abs().max())
             same = bool(torch.equal(dk, dr))
+            # one TOA a row, as a TZR row runs it
+            t1 = ttp[:, :1].contiguous()
+            same = same and bool(torch.equal(
+                K4._launch(t1, pp, mode, partials)[0],
+                K4.ell1_binary_reference(t1, pp, mode, partials)[0]))
             prel = p_rel(Pk, Pr) if partials else 0.0
-            dk, Pk = K4._launch(rtt4, rp4, ell1k, partials)
-            dr, Pr = K4.ell1_binary_reference(rtt4, rp4, ell1k, partials)
-            nan_k, nan_r = torch.isnan(dk), torch.isnan(dr)
-            nan_ok = bool(torch.equal(nan_k, nan_r)) and bool(nan_k.any())
-            fin = ~nan_r
-            err_r = float((dk[fin] - dr[fin]).abs().max())
-            same = same and bool(torch.equal(dk[fin], dr[fin]))
-            if partials:
-                nan_ok = nan_ok and bool(torch.isnan(Pk[nan_k]).all())
-                prel = max(prel, p_rel(Pk[:-2], Pr[:-2]))
-            B4 = tt4.shape[0]
-            ms = _time_ms(lambda: K4._launch(tt4, pp, ell1k, partials), 50)
+            err_r, nan_ok = 0.0, True
+            for rtt, rp, nharms, use_h4 in randoms:
+                dk, Pk = K4._launch(rtt, rp, mode, partials, nharms, use_h4)
+                dr, Pr = K4.ell1_binary_reference(rtt, rp, mode, partials,
+                                                  nharms, use_h4)
+                nan_k, nan_r = torch.isnan(dk), torch.isnan(dr)
+                nan_ok = nan_ok and bool(torch.equal(nan_k, nan_r)) \
+                    and bool(nan_k.any())
+                fin = ~nan_r
+                err_r = max(err_r, float((dk[fin] - dr[fin]).abs().max()))
+                same = same and bool(torch.equal(dk[fin], dr[fin]))
+                if partials:
+                    nan_ok = nan_ok and bool(torch.isnan(Pk[nan_k]).all())
+                    prel = max(prel, p_rel(Pk[:-2], Pr[:-2]))
+            B4 = ttp.shape[0]
+            ms = _time_ms(lambda: K4._launch(ttp, pp, mode, partials), 50)
             plain = _time_ms(twin4, 3)
-            ops = K4_FORWARD_OPS[ell1k] \
-                + (K4_REVERSE_OPS[ell1k] if partials else 0)
-            bound = _bound(8 * B4 * N4 + 8 * B4 * len(K4.ELL1_PARAMS)
-                           + 8 * B4 * N4 * (1 + (K4.NPARTIAL if partials
-                                                 else 0)), B4 * N4 * ops)
-            print(f"phase kernel {kernel}: B={B4} N={N4} "
-                  f"({'ELL1k, OMDOT and LNEDOT set' if ell1k else 'ELL1'}, "
-                  f"the path's TOAs); delay bitwise {same}, max|d delay| "
-                  f"{err:.3e} (random {err_r:.3e}) s (= 0); NaN rows "
-                  f"(SINI = 1.5) equal and poisoning {nan_ok}; "
+            ops = _k4_ops(mode, partials)
+            bound = _bound(8 * B4 * N4 + 8 * B4 * pp.shape[1]
+                           + 8 * B4 * N4 * (1 + (K4.npartial(mode)
+                                                 if partials else 0)),
+                           B4 * N4 * ops, rate=F64_INSTR_PER_S)
+            print(f"phase kernel {kernel}: B={B4} N={N4} ({what}; random "
+                  f"orbits {len(randoms)} set(s); N=1); delay bitwise {same}, "
+                  f"max|d delay| {err:.3e} (random {err_r:.3e}) s (= 0); "
+                  f"NaN rows equal and poisoning {nan_ok}; "
                   + (f"partials max rel {prel:.3e} (<= 1e-10); " if partials
                      else "")
                   + f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
@@ -758,8 +954,8 @@ def main() -> int:
             if not (same and prel <= 1e-10 and nan_ok):
                 raise RuntimeError(f"{kernel} disagrees with its plain "
                                    "version")
-            record(kernel, "ell1_binary.cu", K4.REPLACES, max(err, err_r),
-                   ms, plain, bound, path="ell1")
+            record(kernel, "ell1_binary.cu", K4.REPLACES_OF[mode],
+                   max(err, err_r), ms, plain, bound, path=path)
 
     # K5: the ell1 path's largest call (its 256 points, N = 4005, k = 88)
     # runs the tiled kernels.  Each is held against its own plain version on
@@ -893,9 +1089,15 @@ def main() -> int:
         for c in (c_svd, c_msvd))
     del Am, rm, wm
 
-    # the wrapper against the twin
+    # the wrapper against the twin, on the ell1 path's call and on ngc_phoff's
+    # (N = 62, one ragged tile; PHOFF and the grid's offset column are one
+    # direction, so every point has rank k - 1)
     c_path = k5_compare(Aw5, rw5)
     cases = {"path": c_path}
+    Aw6, rw6 = paths["ngc_phoff"][1].args("wls_lstsq")[:2]
+    cases["ngc_phoff path (N=62, k=5)"] = c6 = k5_compare(Aw6, rw6)
+    if not bool((c6["ranks"] == Aw6.shape[2] - 1).all()):
+        raise RuntimeError("wls_lstsq: ngc_phoff's points are not rank k - 1")
     zero_x = []
     for what, (n, k) in (("random k=88", (N5, k5)),
                          ("random k=111", (N5, 111)),
@@ -918,35 +1120,39 @@ def main() -> int:
             and c["rank"] and c["nan"]
     sweeps = c_path["sweeps"].double()
 
-    # how far two backward-stable solvers may differ on the path's points:
-    # the first-order sensitivity of least squares to a relative
-    # perturbation u of the normalized matrix and rw (Golub and Van Loan,
-    # Matrix Computations, 5.3.7), u (2 kappa / cos(theta) + kappa^2
-    # tan(theta)) of ||x||, with kappa the kept singular values' ratio and
-    # sin(theta) = ||r|| / ||rw||; the kernel's gap to the twin in 2-norms
-    # against it (informational: no bar)
-    xr5, sr5, nr5 = K5.wls_lstsq_reference(Aw5, rw5)
-    fin5 = ~torch.isnan(xr5).any(dim=1)
-    cut5 = torch.finfo(torch.float64).eps * max(N5, k5)
-    kept5 = (sr5 > 0) & (sr5 >= cut5 * sr5[:, :1])
-    kappa5 = sr5[:, 0] / torch.where(kept5, sr5, math.inf).amin(dim=1)
-    fit5 = ((Aw5 / nr5[:, None, :]) @ xr5[:, :, None])[..., 0]
-    sin5 = ((rw5 - fit5).norm(dim=1) / rw5.norm(dim=1)).clamp(max=1.0)
-    cos5 = torch.sqrt(1.0 - sin5 * sin5)
-    u5 = torch.finfo(torch.float64).eps / 2
-    sens5 = u5 * (2 * kappa5 / cos5 + kappa5**2 * sin5 / cos5)
-    gap5 = (c_path["xk"] - xr5).norm(dim=1) / xr5.norm(dim=1)
-    ratio5 = (gap5 / sens5)[fin5]
-    print(f"phase kernel wls_lstsq path sensitivity: kappa "
-          f"{float(kappa5[fin5].min()):.4g}-{float(kappa5[fin5].max()):.4g}, "
-          f"tan(theta) {float((sin5 / cos5)[fin5].min()):.4g}-"
-          f"{float((sin5 / cos5)[fin5].max()):.4g}; first-order bound at "
-          f"u = eps/2 {float(sens5[fin5].min()):.3e}-"
-          f"{float(sens5[fin5].max()):.3e} of ||x||; kernel against twin "
-          f"||dx||/||x|| max {float(gap5[fin5].max()):.3e}; gap / bound "
-          f"median {float(ratio5.median()):.3g}, max {float(ratio5.max()):.3g}"
-          f" {tag}", flush=True)
-    del xr5, sr5, nr5, fit5
+    # how far two backward-stable solvers may differ on the paths' points
+    # (ell1's, and ngc_phoff's, whose kept singular values span ~1e6): the
+    # first-order sensitivity of least squares to a relative perturbation
+    # u of the normalized matrix and rw (Golub and Van Loan, Matrix
+    # Computations, 5.3.7), u (2 kappa / cos(theta) + kappa^2 tan(theta))
+    # of ||x||, with kappa the kept singular values' ratio and sin(theta) =
+    # ||r|| / ||rw||; the kernel's gap to the twin in 2-norms against it
+    # (informational: no bar)
+    def sensitivity(what, Aw, rw, xk):
+        xr, sr, nr = K5.wls_lstsq_reference(Aw, rw)
+        fin = ~torch.isnan(xr).any(dim=1)
+        cut = torch.finfo(torch.float64).eps * max(Aw.shape[1:])
+        kept = (sr > 0) & (sr >= cut * sr[:, :1])
+        kappa = sr[:, 0] / torch.where(kept, sr, math.inf).amin(dim=1)
+        fit = ((Aw / nr[:, None, :]) @ xr[:, :, None])[..., 0]
+        sin = ((rw - fit).norm(dim=1) / rw.norm(dim=1)).clamp(max=1.0)
+        cos = torch.sqrt(1.0 - sin * sin)
+        u = torch.finfo(torch.float64).eps / 2
+        sens = u * (2 * kappa / cos + kappa**2 * sin / cos)
+        gap = (xk - xr).norm(dim=1) / xr.norm(dim=1)
+        ratio = (gap / sens)[fin]
+        print(f"phase kernel wls_lstsq {what} sensitivity: kappa "
+              f"{float(kappa[fin].min()):.4g}-{float(kappa[fin].max()):.4g},"
+              f" tan(theta) {float((sin / cos)[fin].min()):.4g}-"
+              f"{float((sin / cos)[fin].max()):.4g}; first-order bound at "
+              f"u = eps/2 {float(sens[fin].min()):.3e}-"
+              f"{float(sens[fin].max()):.3e} of ||x||; kernel against twin "
+              f"||dx||/||x|| max {float(gap[fin].max()):.3e}; gap / bound "
+              f"median {float(ratio.median()):.3g}, max "
+              f"{float(ratio.max()):.3g} {tag}", flush=True)
+
+    sensitivity("path", Aw5, rw5, c_path["xk"])
+    sensitivity("ngc_phoff path", Aw6, rw6, c6["xk"])
 
     # times: each tiled kernel, its plain version and the library call for
     # its function (the fold's: the R of [Aw | rw]; the SVD kernel's: the

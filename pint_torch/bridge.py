@@ -5,9 +5,11 @@ arrays plus one JSON ``meta`` string.  It carries everything the port's
 evaluation needs and nothing it has to compute on the host: the TOA batch
 fields, the TOAs' MJDs, the ordered component list with each component's
 static configuration, the parameter table (epochs as exact (hi, lo)
-pairs), each component's per-TOA context (DMX windows, mask selections)
-and, under ``ref/``, the reference package's own outputs on the same
-inputs, so a run can be checked where the reference does not run.
+pairs), each component's per-TOA context (DMX windows, mask selections),
+for a model with an absolute phase the TZR TOA's batch row and contexts
+under ``tzr/`` and, under ``ref/``, the reference package's own outputs
+on the same inputs, so a run can be checked where the reference does not
+run.
 
 This module reads snapshots only; the exporter needs the reference package
 and lives with the tests (``tests/test_torch_snapshot.py``).
@@ -27,7 +29,8 @@ from pint_torch.models import Component, Param, TimingModel
 from pint_torch.toa import TOABatch
 
 __all__ = ["load_snapshot", "read_snapshot", "SNAPSHOT_FORMAT",
-           "STANDIN_PATH", "DMX15_PATH", "ELL1_PATH"]
+           "STANDIN_PATH", "DMX15_PATH", "ELL1_PATH", "ELL1H_PATH",
+           "NGC_PATH", "NGC_PHOFF_PATH"]
 
 SNAPSHOT_FORMAT = "pint_torch-snapshot-1"
 #: the committed full-width B1855+09-shaped stand-in
@@ -39,6 +42,15 @@ DMX15_PATH = STANDIN_PATH.with_name("b1855_dmx15_standin.npz")
 #: ecliptic astrometry, white noise only (the WLS fitters and grid), k = 88
 #: at the M2 x SINI grid
 ELL1_PATH = STANDIN_PATH.with_name("j1909_ell1_standin.npz")
+#: the same J1909-3744-shaped stand-in with the orthometric Shapiro delay
+#: (BinaryELL1H, H3/STIGMA in place of M2/SINI; exact form)
+ELL1H_PATH = STANDIN_PATH.with_name("j1909_ell1h_standin.npz")
+#: the NGC6440E-shaped model of the reference benchmark's secondary cell
+#: (62 simulated TOAs, AbsPhase from TZRMJD; the F0 x F1 WLS grid)
+NGC_PATH = STANDIN_PATH.with_name("ngc6440e_standin.npz")
+#: the same with an explicit fitted PhaseOffset (PHOFF) in place of the
+#: implicit offset
+NGC_PHOFF_PATH = STANDIN_PATH.with_name("ngc6440e_phoff_standin.npz")
 
 _BATCH_KEYS = ("tdb_hi", "tdb_lo", "tdb0", "tdb_s_hi", "tdb_s_lo", "freq",
                "error_us", "ssb_obs_pos", "ssb_obs_vel", "obs_sun_pos",
@@ -59,11 +71,11 @@ def read_snapshot(path_or_dict: Union[str, Path, dict]) -> Tuple[dict, dict]:
     return meta, arrays
 
 
-def _context(name: str, arrays: dict, device) -> dict:
-    """The component's context: ``ctx/<component>/<key>[/<sub>]`` arrays;
-    masks of noise components stay host booleans, the rest become float64
-    tensors on ``device``."""
-    prefix = f"ctx/{name}/"
+def _context(name: str, arrays: dict, device, root: str = "ctx") -> dict:
+    """The component's context: ``<root>/<component>/<key>[/<sub>]``
+    arrays; masks of noise components stay host booleans, the rest become
+    float64 tensors on ``device``."""
+    prefix = f"{root}/{name}/"
     out: dict = {}
     for key, arr in arrays.items():
         if not key.startswith(prefix):
@@ -81,6 +93,15 @@ def _context(name: str, arrays: dict, device) -> dict:
     return out
 
 
+def _batch_arrays(arrays: dict, prefix: str) -> dict:
+    """The batch fields stored under ``prefix`` (the model's TOAs under
+    "", the TZR row under "tzr/"), keys without the prefix."""
+    out = {k: arrays[prefix + k] for k in _BATCH_KEYS}
+    out.update({k[len(prefix):]: v for k, v in arrays.items()
+                if k.startswith(prefix + "planet_pos/")})
+    return out
+
+
 def load_snapshot(path_or_dict: Union[str, Path, dict] = STANDIN_PATH,
                   device=None) -> Tuple[TimingModel, TOABatch]:
     """``(model, batch)`` on ``device`` (default ``"cuda"``; pass
@@ -88,18 +109,21 @@ def load_snapshot(path_or_dict: Union[str, Path, dict] = STANDIN_PATH,
     created on the device directly, in float64."""
     dev = resolve_device(device)
     meta, arrays = read_snapshot(path_or_dict)
-    batch_arrays = {k: arrays[k] for k in _BATCH_KEYS}
-    batch_arrays.update({k: v for k, v in arrays.items()
-                         if k.startswith("planet_pos/")})
-    batch = TOABatch.from_numpy(batch_arrays, dev)
+    batch = TOABatch.from_numpy(_batch_arrays(arrays, ""), dev)
     comps = []
     for c in meta["components"]:
         cls = Component.component_types.get(c["class"])
         if cls is None:
             raise NotImplementedError(
                 f"component {c['class']} is not ported yet")
-        comps.append(cls(c.get("config", {}), _context(c["class"], arrays,
-                                                          dev)))
+        ctx = _context(c["class"], arrays, dev)
+        if c["class"] == "AbsPhase" and "tzr/tdb_hi" in arrays:
+            ctx["tzr_batch"] = TOABatch.from_numpy(
+                _batch_arrays(arrays, "tzr/"), dev, tzr=True,
+                contexts={d["class"]: _context(d["class"], arrays, dev,
+                                               "tzr/ctx")
+                          for d in meta["components"]})
+        comps.append(cls(c.get("config", {}), ctx))
     params = {}
     for p in meta["params"]:
         value = p["value"]
@@ -112,4 +136,5 @@ def load_snapshot(path_or_dict: Union[str, Path, dict] = STANDIN_PATH,
             continuous=bool(p.get("continuous", True)), key=p.get("key"),
             key_value=list(p.get("key_value") or []))
     model = TimingModel(meta.get("name", ""), comps, params, dev)
+    model.validate()
     return model, batch

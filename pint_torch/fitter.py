@@ -1,6 +1,8 @@
-"""Fitters without correlated noise (port of ``pint_tpu/fitter.py``:
-``Fitter`` helpers :113-120,283-297; ``_wls_step`` :506-518, ``WLSFitter``
-:520-585, the ``DownhillFitter`` timing path :588-749, ``DownhillWLSFitter``
+"""Fitters without correlated noise, and the dispatch to the fitter a
+model needs (port of ``pint_tpu/fitter.py``: ``Fitter.auto`` :78-92, the
+``Fitter`` helpers with the Huber IRLS harness :113-180,283-297;
+``_wls_step`` :506-518, ``WLSFitter`` :520-585, the ``DownhillFitter``
+timing path with its robust entry :588-749, ``DownhillWLSFitter``
 :752-759; ``apply_Sdiag_threshold`` and ``fit_wls_svd`` :895-939; the
 exceptions of ``pint_tpu/exceptions.py`` they raise).
 
@@ -9,8 +11,8 @@ uncertainties, normalizes the columns and takes ``torch.linalg.svd`` of
 the (N, 1 + nfree) matrix on the model's device; singular values at or
 below ``threshold * max`` are dropped with a :class:`DegeneracyWarning`
 that names the degenerate parameter combination.  The iteration (the
-downhill line search, parameter updates) stays on the host, as in the
-reference.
+downhill line search, parameter updates, the IRLS reweighting of
+``robust="huber"``) stays on the host, as in the reference.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import numpy as np
 import torch
 
 from pint_torch import F64
+from pint_torch.integrity.robust import (HUBER_K, huber_weights,
+                                         irls_converged, median)
 from pint_torch.residuals import Residuals
 from pint_torch.runtime.solve import NonFiniteSystemError
 from pint_torch.utils import normalize_designmatrix
@@ -29,13 +33,17 @@ from pint_torch.utils import normalize_designmatrix
 __all__ = ["Fitter", "WLSFitter", "DownhillFitter", "DownhillWLSFitter",
            "fit_wls_svd", "apply_Sdiag_threshold", "DegeneracyWarning",
            "CorrelatedErrors", "ConvergenceFailure", "StepProblem",
-           "MaxiterReached", "NonFiniteSystemError"]
+           "MaxiterReached", "NonFiniteSystemError", "UsageError"]
 
-#: where the fits this slice does not port wait (ROADMAP.md, queue A)
-_ROBUST_QUEUE = "robust (IRLS) fits are not ported yet (ROADMAP.md A, " \
-    "after DownhillGLSFitter)"
+#: where the fits the port does not have yet wait (ROADMAP.md, queue A)
+_WIDEBAND_QUEUE = "wideband TOAs need the wideband fitters, not ported " \
+    "yet (ROADMAP.md A6: noise, wideband and Bayesian)"
 _NOISE_QUEUE = "fits with free noise parameters need the noise-likelihood " \
     "fit, not ported yet (ROADMAP.md A: noise, wideband and Bayesian)"
+
+
+class UsageError(ValueError):
+    """Invalid argument or argument combination passed to a public API."""
 
 
 class DegeneracyWarning(UserWarning):
@@ -69,6 +77,26 @@ class Fitter:
     """Holds a copy of the model, the TOA batch, residuals and fit
     products."""
 
+    #: per-TOA Huber weights (float64 tensor on the batch's device) during
+    #: and after a ``fit_toas(robust="huber")``; None for a plain fit
+    robust_weights = None
+    robust_iterations = 0
+
+    @staticmethod
+    def auto(batch, model, downhill: bool = True) -> "Fitter":
+        """The fitter the model and TOAs call for (reference
+        ``fitter.py:78-92``): with correlated noise ``DownhillGLSFitter``
+        (``GLSFitter`` when ``downhill`` is False), otherwise
+        ``DownhillWLSFitter`` (``WLSFitter``)."""
+        if batch.wideband:
+            raise NotImplementedError(_WIDEBAND_QUEUE)
+        if model.has_correlated_errors:
+            from pint_torch.gls_fitter import DownhillGLSFitter, GLSFitter
+
+            return (DownhillGLSFitter if downhill else GLSFitter)(batch,
+                                                                   model)
+        return (DownhillWLSFitter if downhill else WLSFitter)(batch, model)
+
     def __init__(self, batch, model):
         self.batch = batch
         self.model_init = model
@@ -95,8 +123,61 @@ class Fitter:
         return self.model.designmatrix(self.batch, reuse_linear=True)
 
     def _data_sigma(self) -> torch.Tensor:
-        """The scaled TOA uncertainties the linear solves consume [s]."""
-        return self.resids.get_data_error()
+        """The scaled TOA uncertainties the linear solves consume [s];
+        under a robust fit the Huber weights enter as sigma / sqrt(w)."""
+        sigma = self.resids.get_data_error()
+        if self.robust_weights is not None:
+            sigma = sigma / torch.sqrt(torch.clamp(self.robust_weights,
+                                                   min=1e-12))
+        return sigma
+
+    def _robust_update_weights(self, huber_k: float) -> torch.Tensor:
+        """Huber weights of the current whitened residuals, centered on
+        their median (reference ``fitter.py:123-137``): the mean the
+        residuals subtract is itself pulled by outliers."""
+        z = self.resids.time_resids / self.resids.get_data_error()
+        finite = torch.isfinite(z)
+        if bool(finite.any()):
+            z = z - median(z[finite])
+        return huber_weights(z, k=huber_k)
+
+    @staticmethod
+    def _check_robust_arg(robust) -> bool:
+        if robust not in (None, False, "huber"):
+            raise UsageError(
+                f"robust must be None or 'huber', got {robust!r}")
+        return bool(robust)
+
+    def _run_irls(self, inner_fit, huber_k: Optional[float],
+                  robust_maxiter: int, robust_tol: float,
+                  tolerate_step_problem: bool = False) -> float:
+        """The IRLS loop both robust entry points share (reference
+        ``fitter.py:146-180``): weights from the current residuals,
+        ``inner_fit()`` with them held, reweight, until the weights move by
+        less than ``robust_tol``.  With ``tolerate_step_problem`` a later
+        round whose inner fit cannot lower its objective goes on to the
+        convergence check.  Returns the plain (unweighted) chi2."""
+        k = huber_k if huber_k is not None else HUBER_K
+        self.update_resids()
+        self.robust_weights = self._robust_update_weights(k)
+        for it in range(max(1, robust_maxiter)):
+            self.robust_iterations = it + 1
+            try:
+                inner_fit()
+            except StepProblem:
+                if not tolerate_step_problem or it == 0:
+                    raise
+            w_new = self._robust_update_weights(k)
+            done = irls_converged(self.robust_weights, w_new, robust_tol)
+            self.robust_weights = w_new
+            if done:
+                break
+        else:
+            warnings.warn(f"Huber IRLS hit robust_maxiter={robust_maxiter} "
+                          "without the weights settling")
+        chi2 = self.resids.chi2
+        self.chi2 = chi2
+        return chi2
 
     def _set_covariance(self, cov, params) -> None:
         """Keep the post-fit parameter covariance (host float64, in the
@@ -193,10 +274,20 @@ class WLSFitter(Fitter):
         self.method = "weighted_least_square"
 
     def fit_toas(self, maxiter: int = 1, threshold: Optional[float] = None,
-                 robust=None) -> float:
-        """``maxiter`` linearized WLS steps; returns the post-fit chi2."""
-        if robust:
-            raise NotImplementedError(_ROBUST_QUEUE)
+                 robust=None, huber_k: Optional[float] = None,
+                 robust_maxiter: int = 30, robust_tol: float = 1e-3) -> float:
+        """``maxiter`` linearized WLS steps; returns the post-fit chi2.
+        ``robust="huber"`` wraps them in the IRLS loop that Huber-weights
+        outlying TOAs (``robust_weights``)."""
+        if self._check_robust_arg(robust):
+            return self._run_irls(
+                lambda: self._fit_wls(maxiter, threshold), huber_k,
+                robust_maxiter, robust_tol)
+        self.robust_weights = None
+        self.robust_iterations = 0
+        return self._fit_wls(maxiter, threshold)
+
+    def _fit_wls(self, maxiter: int, threshold: Optional[float]) -> float:
         for _ in range(max(1, maxiter)):
             M, params = self.get_designmatrix()
             dpars, cov = _wls_step(M, params, self.resids.time_resids,
@@ -212,7 +303,8 @@ class WLSFitter(Fitter):
 
 class DownhillFitter(Fitter):
     """Iterative fitter with a lambda-halving line search (reference
-    ``fitter.py:588``); the timing path only."""
+    ``fitter.py:588``); the timing path only.  ``iterations`` counts the
+    steps solved in the last timing fit."""
 
     def __init__(self, batch, model):
         super().__init__(batch, model)
@@ -224,21 +316,58 @@ class DownhillFitter(Fitter):
                                self._data_sigma())
         return dpars, params, cov
 
+    def _fit_metric(self) -> float:
+        """What the line search minimizes: chi2, or the Huber-weighted
+        chi2 while an IRLS round holds its weights (reference
+        ``fitter.py:606-615``)."""
+        if self.robust_weights is None:
+            return self.resids.chi2
+        z = self.resids.time_resids / self.resids.get_data_error()
+        return float(torch.sum(self.robust_weights * z * z))
+
     def fit_toas(self, maxiter: int = 20,
                  required_chi2_decrease: float = 1e-2,
                  max_chi2_increase: float = 1e-2, min_lambda: float = 1e-3,
-                 raise_on_maxiter: bool = False, robust=None) -> float:
-        """Downhill timing fit: each step's SVD solution is taken whole or
+                 raise_on_maxiter: bool = False, robust=None,
+                 huber_k: Optional[float] = None, robust_maxiter: int = 30,
+                 robust_tol: float = 1e-3) -> float:
+        """Downhill timing fit: each step's solution is taken whole or
         halved until chi2 stops rising by more than ``max_chi2_increase``;
         converged once a whole step lowers chi2 by less than
-        ``required_chi2_decrease``."""
-        if robust:
-            raise NotImplementedError(_ROBUST_QUEUE)
+        ``required_chi2_decrease``.  ``robust="huber"`` (WLS family only)
+        wraps it in the IRLS loop."""
+        timing_kw = dict(maxiter=maxiter,
+                         required_chi2_decrease=required_chi2_decrease,
+                         max_chi2_increase=max_chi2_increase,
+                         min_lambda=min_lambda,
+                         raise_on_maxiter=raise_on_maxiter)
+        if self._check_robust_arg(robust):
+            if not isinstance(self, DownhillWLSFitter) \
+                    and type(self) is not DownhillFitter:
+                raise UsageError(
+                    "robust fitting is available on the WLS-family fitters "
+                    "only (Huber IRLS assumes uncorrelated errors)")
+            if self._free_noise_params():
+                raise UsageError(
+                    "robust fitting cannot be combined with free noise "
+                    "parameters; freeze them or fit noise separately")
+            return self._run_irls(lambda: self._fit_toas_timing(**timing_kw),
+                                  huber_k, robust_maxiter, robust_tol,
+                                  tolerate_step_problem=True)
+        self.robust_weights = None
+        self.robust_iterations = 0
         if self._free_noise_params():
             raise NotImplementedError(_NOISE_QUEUE)
-        best_chi2 = self.resids.chi2
+        return self._fit_toas_timing(**timing_kw)
+
+    def _fit_toas_timing(self, maxiter, required_chi2_decrease,
+                         max_chi2_increase, min_lambda,
+                         raise_on_maxiter) -> float:
+        best_chi2 = self._fit_metric()
         self.converged = False
+        self.iterations = 0
         for it in range(maxiter):
+            self.iterations = it + 1
             dpars, params, cov = self._solve_step()
             base = {p: float(self.model[p].value or 0.0)
                     for p in params if p != "Offset"}
@@ -247,7 +376,7 @@ class DownhillFitter(Fitter):
             while lam >= min_lambda:
                 _apply(self.model, dpars, params, base, lam)
                 self.update_resids()
-                chi2 = self.resids.chi2
+                chi2 = self._fit_metric()
                 if chi2 < best_chi2 + max_chi2_increase:
                     improved = True
                     break

@@ -1,7 +1,8 @@
 """Generalized-least-squares fitter (port of ``pint_tpu/gls_fitter.py``:
 ``_solve_cholesky``/``_solve_svd`` :50-88, ``build_augmented_system``
 :91-129, ``gls_normal_equations`` :162-185, ``_schur_gls_solve`` and
-``_try_schur_path`` :188-287, ``GLSFitter`` :408-730).
+``_try_schur_path`` :188-287, ``GLSFitter`` :408-730,
+``DownhillGLSFitter`` :733-763).
 
 The augmented system is ``[M_timing | U_noise]``, unit-norm columns, with
 the enterprise 1e40 prior on timing columns and the noise weights on the
@@ -19,14 +20,15 @@ import numpy as np
 import torch
 
 from pint_torch import F64
-from pint_torch.fitter import DegeneracyWarning, Fitter
+from pint_torch.fitter import (DegeneracyWarning, DownhillFitter, Fitter,
+                               UsageError)
 from pint_torch.runtime.solve import (NonFiniteSystemError, SingularMatrixError,
                                       SolveDiagnostics, hardened_cholesky,
                                       solve_normal_cholesky)
 from pint_torch.utils import normalize_designmatrix
 
-__all__ = ["GLSFitter", "build_augmented_system", "gls_normal_equations",
-           "DegeneracyWarning"]
+__all__ = ["GLSFitter", "DownhillGLSFitter", "build_augmented_system",
+           "gls_normal_equations", "DegeneracyWarning"]
 
 
 def _solve_cholesky(mtcm, mtcy):
@@ -202,8 +204,13 @@ class GLSFitter(Fitter):
         self.noise_ampls = {comp: dpars[ntm + off:ntm + off + size]
                             for comp, (off, size) in self._noise_dims.items()}
 
-    def fit_toas(self, maxiter: int = 1, threshold: float = 0.0) -> float:
+    def fit_toas(self, maxiter: int = 1, threshold: float = 0.0,
+                 robust=None) -> float:
         """``maxiter`` linearized GLS steps; returns the post-fit chi2."""
+        if self._check_robust_arg(robust):
+            raise UsageError(
+                "robust fitting is available on the WLS-family fitters "
+                "only (Huber IRLS assumes uncorrelated errors)")
         self.update_resids()
         for _ in range(max(1, maxiter)):
             dpars, errs, covmat, params = self._gls_step(threshold=threshold)
@@ -217,4 +224,35 @@ class GLSFitter(Fitter):
                 "poisoned solve)")
         self.converged = True
         self.chi2 = chi2
+        return chi2
+
+
+class DownhillGLSFitter(DownhillFitter):
+    """Iterative GLS with the downhill line search (reference
+    ``gls_fitter.py:733-763``): each step is :meth:`GLSFitter._gls_step`'s
+    solution, taken whole or halved by :class:`DownhillFitter`; the noise
+    amplitudes come from one more solve at the accepted point."""
+
+    def __init__(self, batch, model):
+        super().__init__(batch, model)
+        self.method = "downhill_gls"
+        self.threshold = 0.0
+        self._gls_cache: dict = {}
+        self._noise_dims = None
+        self.noise_ampls = {}
+
+    def _solve_step(self):
+        dpars, _, covmat, params = GLSFitter._gls_step(
+            self, threshold=self.threshold)
+        ntm = len(params)
+        return dpars[:ntm], params, covmat[:ntm, :ntm]
+
+    def fit_toas(self, maxiter: int = 20, threshold: float = 0.0,
+                 **kw) -> float:
+        self.threshold = threshold
+        chi2 = super().fit_toas(maxiter=maxiter, **kw)
+        # the noise amplitudes of the accepted parameters, not of a step
+        # that was halved or rejected
+        dpars, _, _, params = GLSFitter._gls_step(self, threshold=threshold)
+        GLSFitter._store_noise_ampls(self, dpars, len(params))
         return chi2

@@ -1,10 +1,10 @@
 """Binary-orbit delay engines (port of
-``pint_tpu/models/binary/engines.py:29-226,355-453``: the DD and ELL1
-paths).
+``pint_tpu/models/binary/engines.py:29-226,355-495``: the DD and ELL1
+paths, ELL1H's orthometric Shapiro delay with them).
 
 Plain PyTorch functions of a parameter mapping ``p`` (PB, PBDOT, ... as in
-:data:`DD_PARAMS` or :data:`ELL1_PARAMS`) and the time since T0 or TASC in
-seconds.  They are the arithmetic of kernels K2
+:data:`DD_PARAMS`, :data:`ELL1_PARAMS` or :data:`ELL1H_PARAMS`) and the
+time since T0 or TASC in seconds.  They are the arithmetic of kernels K2
 (``pint_torch/kernels/csrc/dd_binary.cu``) and K4
 (``csrc/ell1_binary.cu``), operation for operation: :func:`dd_forward` is
 K2's ``dd_forward`` and :func:`dd_partials` its ``dd_reverse``;
@@ -22,10 +22,12 @@ import math
 
 import torch
 
-__all__ = ["DD_PARAMS", "ELL1_PARAMS", "TSUN", "solve_kepler",
+__all__ = ["DD_PARAMS", "ELL1_PARAMS", "ELL1H_PARAMS", "ELL1", "ELL1K",
+           "ELL1H_EXACT", "ELL1H_HARMONIC", "TSUN", "solve_kepler",
            "kepler_inputs", "dd_forward", "dd_delay", "dd_partials",
            "ell1_eps", "ell1_roemer_terms", "ell1_inverse_delay",
-           "ell1_forward", "ell1_delay", "ell1k_delay", "ell1_partials"]
+           "ell1_forward", "ell1_delay", "ell1k_delay", "ell1h_delay",
+           "ell1_partials", "ell1_params"]
 
 #: the DD parameter row, in the reference's units (PB days, OM deg,
 #: OMDOT deg/yr, M2 Msun)
@@ -37,6 +39,15 @@ DD_PARAMS = ("PB", "PBDOT", "XPBDOT", "A1", "A1DOT", "ECC", "EDOT", "OM",
 #: OMDOT/LNEDOT in their place
 ELL1_PARAMS = ("PB", "PBDOT", "XPBDOT", "A1", "A1DOT", "EPS1", "EPS2",
                "EPS1DOT", "EPS2DOT", "OMDOT", "LNEDOT", "M2", "SINI")
+
+#: the ELL1H parameter row: ELL1's with the orthometric H3 [s], H4 [s]
+#: and STIGMA in place of M2/SINI
+ELL1H_PARAMS = ELL1_PARAMS[:11] + ("H3", "H4", "STIGMA")
+
+#: the ELL1 family's forms, as K4 takes them: ELL1 and ELL1k (M2/SINI
+#: Shapiro delay), ELL1H with the exact orthometric form and with its
+#: harmonic sum (False and True stand for ELL1 and ELL1k)
+ELL1, ELL1K, ELL1H_EXACT, ELL1H_HARMONIC = range(4)
 
 #: G * Msun / c^3 [s]
 TSUN = 4.925490947000518e-6
@@ -341,11 +352,16 @@ def ell1_roemer_terms(phi, eps1, eps2, first_order_dre: bool = False,
     return dre, drep, drepp
 
 
-def ell1_forward(p, ttasc, ell1k: bool = False) -> dict:
-    """The ELL1 (or ELL1k) delay under ``delay``: the inverse-timing
-    Roemer part and the M2/SINI Shapiro delay (reference
-    ``ell1_inverse_delay`` and ``ell1_delay``, ``engines.py:416-453``),
-    with the intermediates :func:`ell1_partials` reads."""
+def ell1_forward(p, ttasc, mode=ELL1, nharms: int = 7,
+                 use_h4: bool = False) -> dict:
+    """The delay of the ELL1 family's ``mode`` under ``delay``: the
+    inverse-timing Roemer part (ELL1k's eccentricity and first-order Dre
+    for ``ELL1K``) and the M2/SINI Shapiro delay, or ELL1H's orthometric
+    one -- exact, or harmonics 3..``nharms`` of stigma = STIGMA or H4/H3
+    (``use_h4``) -- (reference ``ell1_inverse_delay``, ``ell1_delay`` and
+    ``ell1h_delay``, ``engines.py:416-495``), with the intermediates
+    :func:`ell1_partials` reads."""
+    ell1k = mode == ELL1K
     f = {}
     f["pb_s"] = pb_s = p["PB"] * 86400.0
     f["pbdot"] = pbdot = p["PBDOT"] + p["XPBDOT"]
@@ -366,27 +382,113 @@ def ell1_forward(p, ttasc, ell1k: bool = False) -> dict:
     f["nhat2"] = nhat2 = nhat * nhat
     f["brI"] = brI = 1.0 - nD + nD * nD + 0.5 * nhat2 * Dre * Drepp
     delayI = Dre * brI
-    f["m2"] = m2 = p["M2"] * TSUN
-    f["brace"] = brace = 1.0 - p["SINI"] * sc[0][0]
-    delayS = -2.0 * m2 * torch.log(brace)
+    if mode == ELL1H_EXACT:
+        delayS = _ell1h_exact(p, sc, f)
+    elif mode == ELL1H_HARMONIC:
+        delayS = _ell1h_harmonic(p, phi, sc, f, nharms, use_h4)
+    else:
+        f["m2"] = m2 = p["M2"] * TSUN
+        f["brace"] = brace = 1.0 - p["SINI"] * sc[0][0]
+        delayS = -2.0 * m2 * torch.log(brace)
     f["delay"] = delayI + delayS
     return f
 
 
+def _ipow(x, y: int):
+    """``x ** y`` for an integer ``y`` >= 0 by the reference's products
+    (``lax.integer_pow``: binary powering, x^3 = x x^2, x^4 = (x^2)^2)."""
+    if y == 0:
+        return torch.ones_like(x)
+    acc = None
+    while y > 0:
+        if y & 1:
+            acc = x if acc is None else acc * x
+        y >>= 1
+        if y > 0:
+            x = x * x
+    return acc
+
+
+def _harmonic_coefficient(k: int) -> float:
+    """(-1)^pwr 2 / k of harmonic ``k`` (reference
+    ``_h3_fourier_harms``), folded in doubles as the reference folds it."""
+    pwr = (k + 1) // 2 if k % 2 == 1 else (k + 2) // 2
+    return ((-1.0) ** pwr) * 2.0 / k
+
+
+def _ell1h_exact(p, sc, f):
+    """The exact orthometric Shapiro delay (Freire & Wex 2010 eq 28;
+    reference ``ell1h_delay`` with ``exact``)."""
+    s1, c2 = sc[0][0], sc[1][1]
+    f["h3"] = h3 = p["H3"]
+    f["sig"] = sig = p["STIGMA"]
+    f["sig2"] = sig2 = sig * sig
+    f["sig3"] = sig3 = sig2 * sig
+    f["lognum"] = lognum = 1.0 + sig2 - 2.0 * sig * s1
+    f["Q"] = Q = torch.log(lognum) + 2.0 * sig * s1 - sig2 * c2
+    f["A"] = A = _div(-2.0 * h3, sig3)
+    return A * Q
+
+
+def _ell1h_harmonic(p, phi, sc, f, nharms: int, use_h4: bool):
+    """-2 H3 times the Shapiro harmonics 3..``nharms`` with stigma^3
+    factored out (Freire & Wex 2010 eq 10, 13; reference
+    ``_h3_fourier_harms``); stigma is STIGMA or, with ``use_h4``, H4/H3
+    (0 where H3 is 0)."""
+    f["h3"] = h3 = p["H3"]
+    if use_h4:
+        sig = torch.where(h3 == 0.0, 0.0,
+                          p["H4"] / torch.where(h3 == 0.0, 1.0, h3))
+    else:
+        sig = p["STIGMA"]
+    f["sig"] = sig
+    total = 0.0
+    for k in range(3, int(nharms) + 1):
+        basis = _harmonic_basis(phi, sc, k)[0]
+        total = total + _harmonic_coefficient(k) * _ipow(sig, k - 3) * basis
+    f["T"] = total
+    return -2.0 * h3 * total
+
+
+def _harmonic_basis(phi, sc, k: int):
+    """(trig(k phi), its phase derivative / k) of harmonic ``k``: (sin,
+    cos) for odd k, (cos, -sin) for even; sin 3 phi and cos 4 phi are the
+    Roemer terms' own."""
+    if k == 3:
+        return sc[2][0], sc[2][1]
+    if k == 4:
+        return sc[3][1], -sc[3][0]
+    if k % 2 == 1:
+        return torch.sin(k * phi), torch.cos(k * phi)
+    return torch.cos(k * phi), -torch.sin(k * phi)
+
+
 def ell1_inverse_delay(p, ttasc, ell1k: bool = False):
     """``(delayI, phi, pbprime)`` (reference ``engines.py:416``)."""
-    f = ell1_forward(p, ttasc, ell1k)
+    f = ell1_forward(p, ttasc, int(ell1k))
     return f["Dre"] * f["brI"], f["phi"], f["pbprime"]
 
 
 def ell1_delay(p, ttasc, ell1k: bool = False):
     """Plain ELL1 delay (reference ``engines.py:439``)."""
-    return ell1_forward(p, ttasc, ell1k)["delay"]
+    return ell1_forward(p, ttasc, int(ell1k))["delay"]
 
 
 def ell1k_delay(p, ttasc):
     """Plain ELL1k delay (reference ``engines.py:448``)."""
-    return ell1_forward(p, ttasc, True)["delay"]
+    return ell1_forward(p, ttasc, ELL1K)["delay"]
+
+
+def ell1h_delay(p, ttasc, nharms: int = 7, exact: bool = False,
+                use_h4: bool = False):
+    """Plain ELL1H delay (reference ``engines.py:474``)."""
+    return ell1_forward(p, ttasc, ELL1H_EXACT if exact else ELL1H_HARMONIC,
+                        nharms, use_h4)["delay"]
+
+
+def ell1_params(mode):
+    """The parameter row of ``mode``."""
+    return ELL1H_PARAMS if mode >= ELL1H_EXACT else ELL1_PARAMS
 
 
 def _ell1_coefficients(e1, e2):
@@ -409,22 +511,30 @@ def _ell1_coefficients(e1, e2):
     ]
 
 
-def ell1_partials(p, ttasc, f, ell1k: bool = False):
-    """The reverse sweep of :func:`ell1_forward`: partials (..., 14) of the
-    delay with respect to ttasc and the 13 parameters of
-    :data:`ELL1_PARAMS`, all NaN where the delay is not finite.  The
-    parameters the variant does not read (ELL1: OMDOT, LNEDOT; ELL1k:
-    EPS1DOT, EPS2DOT) get zeros."""
-    P = [None] * (len(ELL1_PARAMS) + 1)
+def ell1_partials(p, ttasc, f, mode=ELL1, nharms: int = 7,
+                  use_h4: bool = False):
+    """The reverse sweep of :func:`ell1_forward`: partials (..., 1 + n) of
+    the delay with respect to ttasc and the n parameters of the mode's
+    row (:data:`ELL1_PARAMS`, :data:`ELL1H_PARAMS`), all NaN where the
+    delay is not finite.  The parameters the form does not read (ELL1 and
+    ELL1H: OMDOT, LNEDOT; ELL1k: EPS1DOT, EPS2DOT; ELL1H: H4 or STIGMA)
+    get zeros."""
+    ell1k = mode == ELL1K
+    P = [None] * (len(ell1_params(mode)) + 1)
     gd = torch.where(torch.isfinite(f["delay"]), 1.0, math.nan).to(
         f["delay"].dtype)
     sc = f["sc"]
     s1, c1 = sc[0]
-    # delayS = -2 m2 log(brace); brace = 1 - SINI sin(phi)
-    P[12] = gd * (-2.0 * torch.log(f["brace"])) * TSUN
-    g_brace = gd * (-2.0 * f["m2"] / f["brace"])
-    P[13] = -g_brace * s1
-    g_phi = -g_brace * p["SINI"] * c1
+    if mode == ELL1H_EXACT:
+        g_phi = _ell1h_exact_reverse(p, f, gd, P)
+    elif mode == ELL1H_HARMONIC:
+        g_phi = _ell1h_harmonic_reverse(p, f, gd, P, nharms, use_h4)
+    else:
+        # delayS = -2 m2 log(brace); brace = 1 - SINI sin(phi)
+        P[12] = gd * (-2.0 * torch.log(f["brace"])) * TSUN
+        g_brace = gd * (-2.0 * f["m2"] / f["brace"])
+        P[13] = -g_brace * s1
+        g_phi = -g_brace * p["SINI"] * c1
     # delayI = Dre brI; brI = 1 - nD + nD^2 + 0.5 nhat2 Dre Drepp
     Dre, Drep, Drepp = f["Dre"], f["Drep"], f["Drepp"]
     nhat, nhat2, nD = f["nhat"], f["nhat2"], f["nD"]
@@ -497,3 +607,51 @@ def ell1_partials(p, ttasc, f, ell1k: bool = False):
     P[0] = g_frac / pb_s + g_pbprime * p["PBDOT"] + g_t
     shape = torch.broadcast_shapes(*(x.shape for x in P))
     return torch.stack([x.expand(shape) for x in P], dim=-1)
+
+
+def _ell1h_exact_reverse(p, f, gd, P):
+    """Partials of the exact form A Q, A = -2 H3 / stigma^3, Q = log(L) +
+    2 stigma sin(phi) - stigma^2 cos(2 phi), L = 1 + stigma^2 - 2 stigma
+    sin(phi), into P[12] (H3), P[13] (H4: 0) and P[14] (STIGMA); returns
+    the adjoint of phi."""
+    sc = f["sc"]
+    s1, c1 = sc[0]
+    s2, c2 = sc[1]
+    sig, sig3, L, Q, A = f["sig"], f["sig3"], f["lognum"], f["Q"], f["A"]
+    P[12] = gd * Q * _div(-2.0, sig3)
+    P[13] = gd * 0.0
+    g_Q = gd * A
+    dQ_dsig = (2.0 * sig - 2.0 * s1) / L + 2.0 * s1 - 2.0 * sig * c2
+    P[14] = gd * Q * (-3.0 * A / sig) + g_Q * dQ_dsig
+    return g_Q * (-2.0 * sig * c1 / L + 2.0 * sig * c1
+                  + 2.0 * f["sig2"] * s2)
+
+
+def _ell1h_harmonic_reverse(p, f, gd, P, nharms: int, use_h4: bool):
+    """Partials of -2 H3 T, T = sum_k c_k stigma^(k-3) trig(k phi), into
+    P[12] (H3), P[13] (H4) and P[14] (STIGMA), stigma = STIGMA or H4/H3
+    (``use_h4``; partials 0 in H4 and from stigma where H3 is 0); returns
+    the adjoint of phi."""
+    phi, sc, sig, h3 = f["phi"], f["sc"], f["sig"], f["h3"]
+    g_T = gd * (-2.0 * h3)
+    g_phi = 0.0
+    dT_dsig = 0.0
+    for k in range(3, int(nharms) + 1):
+        ck = _harmonic_coefficient(k)
+        basis, dbasis = _harmonic_basis(phi, sc, k)
+        g_phi = g_phi + (ck * k) * _ipow(sig, k - 3) * dbasis
+        if k > 3:
+            dT_dsig = dT_dsig + (ck * (k - 3)) * _ipow(sig, k - 4) * basis
+    g_sig = g_T * dT_dsig
+    P[12] = gd * f["T"] * -2.0
+    zero = gd * 0.0
+    if use_h4:
+        nz = h3 != 0.0
+        h3s = torch.where(nz, h3, 1.0)
+        P[12] = P[12] + torch.where(nz, -g_sig * sig / h3s, zero)
+        P[13] = torch.where(nz, g_sig / h3s, zero)
+        P[14] = zero
+    else:
+        P[13] = zero
+        P[14] = g_sig + zero
+    return g_T * g_phi

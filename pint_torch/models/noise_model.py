@@ -120,6 +120,7 @@ class EcorrNoise(NoiseComponent):
     register = True
     category = "ecorr_noise"
     introduces_correlated_errors = True
+    is_ecorr = True
 
     def basis_weight_pair(self, model, batch) -> Tuple[np.ndarray, np.ndarray]:
         t = _tdb_seconds(batch)

@@ -88,6 +88,11 @@ class Component:
         self._parent: Optional["TimingModel"] = None
 
     def build_context(self, batch) -> dict:
+        """The component's per-TOA context for ``batch``: its own, built
+        for the model's TOAs, unless the batch carries its own (the TZR
+        row)."""
+        if batch.contexts is not None:
+            return batch.contexts.get(type(self).__name__, {})
         return self.context
 
 
@@ -157,6 +162,13 @@ class TimingModel:
         params = {n: dataclasses.replace(p, key_value=list(p.key_value))
                   for n, p in self.params_table.items()}
         return TimingModel(self.name, comps, params, self.device)
+
+    def validate(self) -> None:
+        """Each component's own checks of its parameters, where it has
+        some (reference ``TimingModel.validate``)."""
+        for c in self.components.values():
+            if hasattr(c, "validate"):
+                c.validate()
 
     # -- structure -----------------------------------------------------------
     def sorted_components(self, kind: str) -> List[Component]:
@@ -253,10 +265,19 @@ class TimingModel:
         J = jacfwd(frac)(values)  # (1, N, 1, n)
         return J[0, :, 0, :]
 
-    def phase(self, batch) -> Phase:
+    def phase(self, batch, abs_phase: bool = False) -> Phase:
+        """Model phase at each TOA; with ``abs_phase`` and an AbsPhase
+        component, minus the TZR TOA's phase (reference
+        ``timing_model.py:730-739``)."""
         free = tuple(self.free_params)
-        ph, _ = self.evaluate(self.free_values(free), free, batch)
-        return Phase(ph.int_[0], ph.frac[0])
+        values = self.free_values(free)
+        ph, _ = self.evaluate(values, free, batch)
+        ph = Phase(ph.int_[0], ph.frac[0])
+        if abs_phase and "AbsPhase" in self.components:
+            tz, _ = self.evaluate(values, free,
+                                  self.components["AbsPhase"].tzr_batch)
+            ph = ph - Phase(tz.int_[0], tz.frac[0])
+        return ph
 
     def delay(self, batch) -> torch.Tensor:
         free = tuple(self.free_params)
@@ -328,7 +349,9 @@ class TimingModel:
     def designmatrix(self, batch, incoffset: bool = True,
                      reuse_linear: bool = False):
         """(M, names): columns -d phase / d param / F0, after an offset
-        column 1/F0 (reference ``timing_model.py:859-888``)."""
+        column 1/F0 unless a PhaseOffset fits PHOFF (reference
+        ``timing_model.py:859-888``)."""
+        incoffset = incoffset and "PhaseOffset" not in self.components
         free = self.design_param_names()
         if reuse_linear:
             J = self._jac_frac_linear_cached(batch, free)
@@ -383,8 +406,10 @@ class TimingModel:
 
     def augment_basis_for_offset(self, U, w, n: Optional[int] = None):
         """Marginalize the overall phase offset: a ones column with the
-        :data:`OFFSET_PRIOR_WEIGHT` prior (reference
-        ``timing_model.py:1223``)."""
+        :data:`OFFSET_PRIOR_WEIGHT` prior, unless a PhaseOffset fits it
+        (reference ``timing_model.py:1223-1242``)."""
+        if "PhaseOffset" in self.components:
+            return np.asarray(U), np.asarray(w)
         n = len(U) if n is None else n
         return (np.hstack([np.asarray(U), np.ones((n, 1))]),
                 np.concatenate([np.asarray(w), [OFFSET_PRIOR_WEIGHT]]))

@@ -2,9 +2,12 @@
 of ``pint_tpu/residuals.py:22-148``).
 
 Phase residuals are the model phase's fractional part ('nearest' pulse
-tracking), minus their weighted mean; time residuals divide by F0.  The
-chi2 is diagonal without correlated noise and the scaled-basis Woodbury
-form with the overall offset marginalized otherwise.
+tracking) -- the absolute phase, TZR TOA subtracted, where the model has
+an AbsPhase -- minus their weighted mean unless a PhaseOffset fits the
+offset; time residuals divide by F0.  The chi2 is diagonal without
+correlated noise; otherwise the Sherman-Morrison form for ECORR alone
+with an explicit PhaseOffset, else the scaled-basis Woodbury form with the
+overall offset marginalized.
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from pint_torch import F64
-from pint_torch.utils import weighted_mean, woodbury_dot
+from pint_torch.utils import sherman_morrison_dot, weighted_mean, woodbury_dot
 
 __all__ = ["Residuals"]
 
@@ -23,19 +26,19 @@ class Residuals:
 
     def __init__(self, batch, model, subtract_mean: bool = True,
                  use_weighted_mean: bool = True):
-        if "AbsPhase" in model.components or "PhaseOffset" in model.components:
-            raise NotImplementedError(
-                "AbsPhase/PhaseOffset are not ported yet")
         self.batch = batch
         self.model = model
-        self.subtract_mean = subtract_mean
+        self.subtract_mean = subtract_mean \
+            and "PhaseOffset" not in model.components
         self.use_weighted_mean = use_weighted_mean
         self._phase_resids = None
         self._time_resids = None
 
     def calc_phase_resids(self) -> torch.Tensor:
         """Residual phase in cycles."""
-        resids = self.model.phase(self.batch).frac.clone()
+        abs_phase = "AbsPhase" in self.model.components
+        resids = self.model.phase(self.batch, abs_phase=abs_phase).frac \
+            .clone()
         if self.subtract_mean:
             err = self.batch.error_us
             if self.use_weighted_mean and not bool((err == 0).any()):
@@ -81,10 +84,18 @@ class Residuals:
         if not self.model.has_correlated_errors:
             return float(torch.sum((r / sigma) ** 2))
         dev = r.device
-        U, w = self._corr_basis_weight()
-        dot, _ = woodbury_dot(sigma * sigma,
-                              torch.as_tensor(U, dtype=F64, device=dev),
-                              torch.as_tensor(w, dtype=F64, device=dev), r, r)
+        ecorr_only = all(getattr(c, "is_ecorr", False)
+                         for c in self.model.noise_components
+                         if c.introduces_correlated_errors)
+        if ecorr_only and "PhaseOffset" in self.model.components:
+            U, w = self.model.noise_model_basis_weight(self.batch)
+            dot_fn = sherman_morrison_dot
+        else:
+            U, w = self._corr_basis_weight()
+            dot_fn = woodbury_dot
+        dot, _ = dot_fn(sigma * sigma,
+                        torch.as_tensor(U, dtype=F64, device=dev),
+                        torch.as_tensor(w, dtype=F64, device=dev), r, r)
         return float(dot)
 
     @property

@@ -38,6 +38,14 @@ class TOABatch:
     #: (N,) MJDs as float64 (the reference's ``toas.get_mjds()``), which the
     #: DMX masks and noise bases read on the host
     mjds: Optional[np.ndarray] = None
+    #: the one-row batch of an absolute phase's TZR TOA
+    tzr: bool = False
+    #: wideband TOAs (with DM measurements), which the port cannot fit yet
+    wideband: bool = False
+    #: each component's context for these TOAs, by component name, where
+    #: they are not the model's own TOAs (the TZR row); None: the
+    #: components' own contexts apply
+    contexts: Optional[dict] = None
 
     @property
     def ntoas(self) -> int:
@@ -62,14 +70,19 @@ class TOABatch:
             ssb_obs_pos=mv(self.ssb_obs_pos), ssb_obs_vel=mv(self.ssb_obs_vel),
             obs_sun_pos=mv(self.obs_sun_pos),
             planet_pos={k: mv(v) for k, v in self.planet_pos.items()},
-            mjds=self.mjds)
+            mjds=self.mjds, tzr=self.tzr, wideband=self.wideband,
+            contexts=None if self.contexts is None else {
+                n: {k: v.to(device) if torch.is_tensor(v) else v
+                    for k, v in c.items()}
+                for n, c in self.contexts.items()})
 
     @classmethod
-    def from_numpy(cls, arrays: dict, device) -> "TOABatch":
+    def from_numpy(cls, arrays: dict, device, **kw) -> "TOABatch":
         """Build on ``device`` from host arrays keyed like the snapshot
         (``tdb_hi``, ``tdb_lo``, ``tdb0``, ``tdb_s_hi``, ``tdb_s_lo``,
         ``freq``, ``error_us``, ``ssb_obs_pos``, ``ssb_obs_vel``,
-        ``obs_sun_pos``, ``planet_pos/<name>``, ``mjds``)."""
+        ``obs_sun_pos``, ``planet_pos/<name>``, ``mjds``); ``kw`` sets
+        ``tzr``, ``wideband`` and ``contexts``."""
         def t(name):
             return torch.tensor(np.asarray(arrays[name], dtype=np.float64),
                                 dtype=F64, device=device)
@@ -82,4 +95,4 @@ class TOABatch:
                    freq=t("freq"), error_us=t("error_us"),
                    ssb_obs_pos=t("ssb_obs_pos"), ssb_obs_vel=t("ssb_obs_vel"),
                    obs_sun_pos=t("obs_sun_pos"), planet_pos=planets,
-                   mjds=np.asarray(arrays["mjds"], dtype=np.float64))
+                   mjds=np.asarray(arrays["mjds"], dtype=np.float64), **kw)

@@ -1,5 +1,5 @@
-"""B1855+09- and J1909-3744-shaped stand-ins and the snapshot exporter for
-the port's tests.
+"""B1855+09-, J1909-3744- and NGC6440E-shaped stand-ins and the snapshot
+exporter for the port's tests.
 
 The real NANOGrav par/tim files are not in the repository, so the port is
 checked on synthetic stand-ins with the same structure.  The B1855+09 ones
@@ -8,9 +8,15 @@ terms, a receiver JUMP and EFAC/EQUAD/ECORR per ``-f`` group plus power-law
 red noise (a GLS model).  The J1909-3744 one carries an ELL1 binary with
 M2/SINI, ecliptic astrometry, DMX, FD, a receiver JUMP and EFAC/EQUAD per
 ``-f`` group with no correlated noise (a WLS model: the reference's
-``Fitter.auto`` picks ``DownhillWLSFitter`` for it).  TOAs are simulated by
-the reference package (``make_fake_toas_fromtim`` with white noise from a
-seeded generator), so both packages see identical inputs.
+``Fitter.auto`` picks ``DownhillWLSFitter`` for it); its ELL1H variant has
+the orthometric H3/STIGMA in place of M2/SINI.  The NGC6440E one is the
+reference benchmark's own fallback model (``bench.py:43`` ``FALLBACK_PAR``,
+an isolated pulsar with an absolute phase from TZRMJD) with 62 TOAs from
+``make_fake_toas_uniform`` as ``bench.py:1409-1421`` makes them, and a
+variant with an explicit fitted PHOFF.  TOAs are simulated by the
+reference package (``make_fake_toas_fromtim`` or
+``make_fake_toas_uniform``, white noise from a seeded generator), so both
+packages see identical inputs.
 
 :func:`export_snapshot` turns the reference package's state into the
 numpy-only snapshot that :func:`pint_torch.bridge.load_snapshot` reads,
@@ -65,6 +71,32 @@ SMALL_ELL1_SETTINGS = dict(SMALL_SETTINGS, pulsar="J1909-3744",
 #: design column is zero, so the WLS system is rank-deficient
 SMALL_ELL1_EMPTY_JUMP_SETTINGS = dict(SMALL_ELL1_SETTINGS, empty_jump=True)
 
+#: the J1909-3744-shaped stand-in with BinaryELL1H: STIGMA = SINI / (1 +
+#: sqrt(1 - SINI^2)) and H3 = Tsun M2 STIGMA^3 in place of M2/SINI (the
+#: exact form); its 16 x 16 grid sweeps H3 x STIGMA, 3 sigma about the WLS
+#: fit, at ``niter=4``
+ELL1H_SETTINGS = dict(ELL1_SETTINGS, binary="ELL1H", grid="h3stigma")
+
+#: the small CPU-test version of the ELL1H stand-in
+SMALL_ELL1H_SETTINGS = dict(SMALL_ELL1_SETTINGS, binary="ELL1H",
+                            grid="h3stigma")
+
+#: the NGC6440E-shaped WLS stand-in of the reference benchmark's secondary
+#: cell (``bench.py:1409-1421,1610-1630``): ``FALLBACK_PAR`` with 62 TOAs
+#: from ``make_fake_toas_uniform(53400, 54800, 62, model, error_us=20.0,
+#: add_noise=True, rng=np.random.default_rng(12345))``; the 16 x 16 F0 x F1
+#: grid about ``WLSFitter.fit_toas(maxiter=3)`` at ``grid_chisq``'s default
+#: ``niter=4``; also both WLS fitters' Huber fits
+NGC_SETTINGS = dict(pulsar="NGC6440E", seed=12345, ntoas=62,
+                    mjd_start=53400.0, mjd_end=54800.0, error_us=20.0,
+                    grid_points=16, grid_niter=4, fit_maxiter=3,
+                    grid="f0f1", huber=True)
+
+#: the same with an explicit fitted phase offset (``PHOFF 0 1``): no
+#: implicit Offset column, so the grid's explicit offset and PHOFF make
+#: every point's system rank-deficient
+NGC_PHOFF_SETTINGS = dict(NGC_SETTINGS, phoff=True)
+
 _GROUP = {  # (receiver, backend) -> (-f flag, sub-band MHz, error us)
     ("430", "ASP"): ("ASP_430", (422.0, 3.0), 0.7),
     ("L-wide", "ASP"): ("ASP_L-wide", (1150.0, 75.0), 1.0),
@@ -94,6 +126,26 @@ _NOISE = {  # -f group -> (EFAC, EQUAD us, ECORR us)
 
 def _j1909(s) -> bool:
     return s.get("pulsar") == "J1909-3744"
+
+
+def _ngc(s) -> bool:
+    return s.get("pulsar") == "NGC6440E"
+
+
+def ngc_par(s) -> str:
+    """``bench.py``'s ``FALLBACK_PAR`` (read from the file, so the two
+    stay one text), with ``PHOFF 0 1`` where the settings ask for it."""
+    import ast
+
+    bench = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "bench.py")
+    tree = ast.parse(open(bench).read())
+    par = next(node.value.value for node in tree.body
+               if isinstance(node, ast.Assign)
+               and getattr(node.targets[0], "id", "") == "FALLBACK_PAR")
+    if s.get("phoff"):
+        par += "PHOFF 0 1\n"
+    return par
 
 
 def _group_table(s):
@@ -147,7 +199,8 @@ def _dmx_lines(s, rng):
 
 def j1909_par(s) -> str:
     """Par text shaped like NANOGrav's J1909-3744 in its first years of
-    timing, before a noise model is fitted: an ELL1 binary with M2/SINI,
+    timing, before a noise model is fitted: an ELL1 binary with M2/SINI
+    (ELL1H with H3/STIGMA where the settings ask for it),
     ecliptic astrometry, DMX windows over the span, FD1-3, a receiver JUMP
     and EFAC/EQUAD per ``-f`` group, no ECORR and no red noise.  With
     ``empty_jump`` one more JUMP selects no TOA."""
@@ -158,8 +211,8 @@ def j1909_par(s) -> str:
         "PEPOCH 55000", "DM 10.3912", "FD1 1.2e-5 1", "FD2 -4.0e-6 1",
         "FD3 2.0e-6 1", "JUMP -fe Rcvr_800 0.0 1", "BINARY ELL1",
         "PB 1.533449474 1", "A1 1.8979911 1", "TASC 53113.95",
-        "EPS1 2.6e-8 1", "EPS2 -1.0e-7 1", "M2 0.2067 1", "SINI 0.99807 1",
-    ]
+        "EPS1 2.6e-8 1", "EPS2 -1.0e-7 1",
+    ] + _shapiro_lines(s, 0.2067, 0.99807)
     if s.get("empty_jump"):
         head.append("JUMP -fe Rcvr_342 0.0 1")
     rng = np.random.default_rng(s["seed"] + 1)
@@ -169,12 +222,27 @@ def j1909_par(s) -> str:
         lines += [f"EFAC -f {g} {efac}",
                   f"EQUAD -f {g} {equad * s['err_scale']:.6g}"]
     lines += ["UNITS TDB"]
+    if s.get("binary") == "ELL1H":
+        lines = ["BINARY ELL1H" if ln == "BINARY ELL1" else ln
+                 for ln in lines]
     return "\n".join(lines) + "\n"
+
+
+def _shapiro_lines(s, m2: float, sini: float):
+    """M2/SINI, or for ``binary="ELL1H"`` the orthometric STIGMA = SINI /
+    (1 + sqrt(1 - SINI^2)) and H3 = Tsun M2 STIGMA^3 (Freire & Wex 2010)
+    with the binary line changed to match."""
+    if s.get("binary") != "ELL1H":
+        return [f"M2 {m2} 1", f"SINI {sini} 1"]
+    stigma = sini / (1.0 + np.sqrt(1.0 - sini * sini))
+    h3 = 4.925490947000518e-6 * m2 * stigma**3
+    return [f"H3 {h3:.10e} 1", f"STIGMA {stigma:.12f} 1"]
 
 
 def standin_par(s, full: bool) -> str:
     """Par text: B1855+09-like timing (full width) or the small test
-    stand-in, with DMX windows covering the span."""
+    stand-in, with DMX windows covering the span; no red noise where
+    ``rn_modes`` is 0, and a fitted PHOFF where the settings ask for it."""
     if full:
         head = [
             "PSR J1855+0945", "RAJ 18:57:36.3932884 1",
@@ -201,8 +269,12 @@ def standin_par(s, full: bool) -> str:
         lines += [f"EFAC -f {g} {efac}",
                   f"EQUAD -f {g} {equad * s['err_scale']:.6g}",
                   f"ECORR -f {g} {ecorr * s['err_scale']:.6g}"]
-    lines += ["TNRedAmp -13.8", "TNRedGam 3.2", f"TNRedC {s['rn_modes']}",
-              "UNITS TDB"]
+    if s["rn_modes"]:
+        lines += ["TNRedAmp -13.8", "TNRedGam 3.2",
+                  f"TNRedC {s['rn_modes']}"]
+    if s.get("phoff"):
+        lines.append("PHOFF 0 1")
+    lines += ["UNITS TDB"]
     return "\n".join(lines) + "\n"
 
 
@@ -211,8 +283,16 @@ def make_standin(s, full: bool):
     (``full`` picks the B1855+09 stand-in's full-width par; the
     J1909-3744 settings carry their own)."""
     from pint_tpu.models import get_model
-    from pint_tpu.simulation import make_fake_toas_fromtim
+    from pint_tpu.simulation import (make_fake_toas_fromtim,
+                                     make_fake_toas_uniform)
 
+    if _ngc(s):
+        model = get_model(ngc_par(s).splitlines(keepends=True))
+        toas = make_fake_toas_uniform(
+            s["mjd_start"], s["mjd_end"], s["ntoas"], model,
+            error_us=s["error_us"], add_noise=True,
+            rng=np.random.default_rng(s["seed"]))
+        return model, toas
     par = j1909_par(s) if _j1909(s) else standin_par(s, full)
     model = get_model(par.splitlines(keepends=True))
     with tempfile.TemporaryDirectory() as d:
@@ -312,6 +392,30 @@ def _flatten(prefix, obj, out):
     out[prefix] = a
 
 
+def _export_tzr(model, arrays) -> None:
+    """The TZR TOA of an absolute phase as a one-row batch under ``tzr/``,
+    with each component's context for it under ``tzr/ctx/``: the
+    reference builds the row on the host (``get_TZR_toas``), the port
+    reads it."""
+    tzr = model.components["AbsPhase"].get_TZR_toas(model)
+    b = tzr.to_batch()
+    arrays.update({
+        "tzr/tdb_hi": np.asarray(b.tdb.hi), "tzr/tdb_lo": np.asarray(b.tdb.lo),
+        "tzr/tdb0": np.asarray(float(b.tdb0)),
+        "tzr/tdb_s_hi": np.asarray(b.tdb_s.hi),
+        "tzr/tdb_s_lo": np.asarray(b.tdb_s.lo),
+        "tzr/freq": np.asarray(b.freq), "tzr/error_us": np.asarray(b.error_us),
+        "tzr/ssb_obs_pos": np.asarray(b.ssb_obs_pos),
+        "tzr/ssb_obs_vel": np.asarray(b.ssb_obs_vel),
+        "tzr/obs_sun_pos": np.asarray(b.obs_sun_pos),
+        "tzr/mjds": np.asarray(tzr.get_mjds(), dtype=np.float64)})
+    for k, v in b.planet_pos.items():
+        arrays[f"tzr/planet_pos/{k}"] = np.asarray(v)
+    for name, comp in model.components.items():
+        if getattr(comp, "kind", "") != "noise":
+            _flatten(f"tzr/ctx/{name}", comp.build_context(tzr), arrays)
+
+
 def export_state(model, toas) -> dict:
     """The snapshot arrays (with ``meta`` JSON) of a model and its TOAs,
     without reference outputs."""
@@ -330,6 +434,8 @@ def export_state(model, toas) -> dict:
     }
     for k, v in b.planet_pos.items():
         arrays[f"planet_pos/{k}"] = np.asarray(v)
+    if "AbsPhase" in model.components:
+        _export_tzr(model, arrays)
     comps, params = [], []
     for name, comp in model.components.items():
         comps.append({"class": name,
@@ -380,6 +486,7 @@ def export_snapshot(model, toas, settings: dict, chunk: int = 256,
         [float(getattr(f.model, p).uncertainty) for p in design])
     ref = {"designmatrix_names": list(names), "postfit_params": design,
            "postfit_chi2": float(chi2), "settings": dict(settings)}
+    _auto_outputs(model, toas, design, arrays, ref)
     if grid:
         g_m2, g_sini = grid_axes(model, settings["grid_points"])
         c2, _ = grid_chisq(f, ("M2", "SINI"), (g_m2, g_sini),
@@ -405,11 +512,98 @@ def _fit_outputs(fitter, design, prefix, arrays):
         [float(getattr(fitter.model, p).uncertainty) for p in design])
 
 
-def reference_wls_grid(fitter, axes, niter: int, chunk: int):
-    """The reference's WLS chi2 grid over the outer product of ``axes``
-    after ``fitter``'s fit: ``(chi2, rungs)``, grid-shaped.  Its
-    ``build_grid_chi2_fn`` runs ``chunk`` points per call (memory only:
-    each point's refit is independent of the others)."""
+def _counted_steps(fitter):
+    """Count the fitter's downhill steps (its ``_solve_step`` calls) on
+    ``fitter.steps``: the reference keeps no such count."""
+    fitter.steps = 0
+    solve = fitter._solve_step
+
+    def counted():
+        fitter.steps += 1
+        return solve()
+
+    fitter._solve_step = counted
+    return fitter
+
+
+def _auto_outputs(model, toas, design, arrays, ref):
+    """``Fitter.auto(toas, model).fit_toas()`` from the snapshot's values:
+    the class chosen, chi2, values, uncertainties, converged flag, downhill
+    steps and, for a GLS fitter, the noise amplitudes by component."""
+    from pint_tpu.fitter import Fitter
+
+    f = _counted_steps(Fitter.auto(toas, model))
+    ref["auto_fitter"] = type(f).__name__
+    if not _downhill_fit(f, {}, design, "auto", arrays, ref):
+        return
+    ref["auto_converged"] = bool(f.converged)
+    ref["auto_iterations"] = int(f.steps)
+    for comp, a in (getattr(f.resids, "noise_ampls", None) or {}).items():
+        arrays[f"ref/auto_noise_ampls/{comp}"] = np.asarray(a)
+
+
+def _downhill_fit(f, kw, design, key, arrays, ref) -> bool:
+    """``f.fit_toas(**kw)`` into ``ref[key + "_chi2"]`` and the arrays;
+    a downhill fit that cannot lower chi2 from where it starts raises
+    :class:`StepProblem` in the reference, and that is its output:
+    ``ref[key + "_error"]`` holds the class and message (False
+    returned)."""
+    from pint_tpu.exceptions import StepProblem
+
+    try:
+        ref[f"{key}_chi2"] = float(f.fit_toas(**kw))
+    except StepProblem as e:
+        ref[f"{key}_error"] = f"StepProblem: {e}"
+        return False
+    _fit_outputs(f, design, key, arrays)
+    return True
+
+
+def _huber_outputs(model, toas, design, arrays, ref):
+    """Both WLS fitters' ``fit_toas(robust="huber")`` from the snapshot's
+    values (``WLSFitter`` at the settings' ``maxiter``): chi2, values,
+    uncertainties, the Huber weights and the IRLS rounds."""
+    from pint_tpu.fitter import DownhillWLSFitter, WLSFitter
+
+    for key, cls, kw in (("huber", WLSFitter,
+                          {"maxiter": ref["settings"]["fit_maxiter"]}),
+                         ("huber_downhill", DownhillWLSFitter, {})):
+        f = cls(toas, model)
+        if _downhill_fit(f, dict(robust="huber", **kw), design, key, arrays,
+                         ref):
+            ref[f"{key}_iterations"] = int(f.robust_iterations)
+            arrays[f"ref/{key}_weights"] = np.asarray(f.robust_weights)
+
+
+def wls_grid_axes(fitter, settings):
+    """The grid of a WLS stand-in after ``fitter``'s fit, as (names,
+    axes): ``grid_axes``' M2 x SINI about the snapshot's values; F0 x F1
+    as ``bench.py:1617-1623`` sets it, 3 sigma scaled by sqrt(reduced
+    chi2) about the fit; H3 x STIGMA, 3 sigma about the fit."""
+    n = settings["grid_points"]
+    kind = settings.get("grid", "m2sini")
+    if kind == "m2sini":
+        return ("M2", "SINI"), grid_axes(fitter.model_init, n)
+    m = fitter.model
+    if kind == "f0f1":
+        escale = max(1.0, np.sqrt(fitter.resids.reduced_chi2))
+        names = ("F0", "F1")
+        spans = (3 * escale * fitter.errors.get("F0", 1e-10),
+                 3 * escale * fitter.errors.get("F1", 1e-18))
+    else:
+        names = ("H3", "STIGMA")
+        spans = tuple(3 * fitter.errors[p] for p in names)
+    return names, tuple(np.linspace(getattr(m, p).value - d,
+                                    getattr(m, p).value + d, n)
+                        for p, d in zip(names, spans))
+
+
+def reference_wls_grid(fitter, axes, niter: int, chunk: int,
+                       names=("M2", "SINI")):
+    """The reference's WLS chi2 grid of ``names`` over the outer product
+    of ``axes`` after ``fitter``'s fit: ``(chi2, rungs)``, grid-shaped.
+    Its ``build_grid_chi2_fn`` runs ``chunk`` points per call (memory
+    only: each point's refit is independent of the others)."""
     from pint_tpu.grid import _point_spans, build_grid_chi2_fn
 
     model, toas = fitter.model, fitter.toas
@@ -417,8 +611,8 @@ def reference_wls_grid(fitter, axes, niter: int, chunk: int):
     pts = np.stack([g.ravel() for g in np.meshgrid(*axes, indexing="ij")],
                    axis=-1)
     fn, _, _ = build_grid_chi2_fn(
-        model, toas, ("M2", "SINI"), niter=niter,
-        grid_spans=_point_spans(model, ("M2", "SINI"), pts))
+        model, toas, tuple(names), niter=niter,
+        grid_spans=_point_spans(model, tuple(names), pts))
     c2, dg = [], []
     for i in range(0, len(pts), chunk):
         out = fn(pts[i:i + chunk])
@@ -432,10 +626,14 @@ def export_wls_snapshot(model, toas, settings: dict, chunk: int = 16,
                         grid: bool = True) -> dict:
     """:func:`export_state` plus the reference's WLS outputs: phase,
     delay, residuals and design matrix at the snapshot's values; chi2,
-    values and uncertainties of ``WLSFitter.fit_toas(maxiter)`` and of
-    ``DownhillWLSFitter.fit_toas()`` (with its converged flag), each from
-    the snapshot's values; and the M2 x SINI WLS chi2 grid (``niter``)
-    after the WLS fit, with each point's ladder rung."""
+    values and uncertainties of ``WLSFitter.fit_toas(maxiter)``, of
+    ``DownhillWLSFitter.fit_toas()`` (with its converged flag) and of
+    ``Fitter.auto``'s fit, each from the snapshot's values (and both
+    fitters' Huber fits where the settings ask for them); and the WLS chi2
+    grid of :func:`wls_grid_axes` (``niter``) after the WLS fit, with each
+    point's ladder rung.  Grids other than M2 x SINI name their
+    parameters in ``meta["reference"]["grid_params"]`` and store their
+    axes as ``ref/grid_<name>``."""
     from pint_tpu.fitter import DownhillWLSFitter, WLSFitter
     from pint_tpu.residuals import Residuals
 
@@ -444,6 +642,10 @@ def export_wls_snapshot(model, toas, settings: dict, chunk: int = 16,
     ph = model.phase(toas)
     arrays["ref/phase_int"] = np.asarray(ph.int_)
     arrays["ref/phase_frac"] = np.asarray(ph.frac)
+    if "AbsPhase" in model.components:
+        ph = model.phase(toas, abs_phase=True)
+        arrays["ref/abs_phase_int"] = np.asarray(ph.int_)
+        arrays["ref/abs_phase_frac"] = np.asarray(ph.frac)
     arrays["ref/delay"] = np.asarray(model.delay(toas))
     arrays["ref/time_resids"] = np.asarray(Residuals(toas, model).time_resids)
     M, names, _ = model.designmatrix(toas)
@@ -452,18 +654,23 @@ def export_wls_snapshot(model, toas, settings: dict, chunk: int = 16,
     f = WLSFitter(toas, model)
     chi2 = float(f.fit_toas(maxiter=settings["fit_maxiter"]))
     _fit_outputs(f, design, "postfit", arrays)
-    d = DownhillWLSFitter(toas, model)
-    chi2_d = float(d.fit_toas())
-    _fit_outputs(d, design, "downhill", arrays)
     ref = {"designmatrix_names": list(names), "postfit_params": design,
-           "postfit_chi2": chi2, "downhill_chi2": chi2_d,
-           "downhill_converged": bool(d.converged), "fitter": "WLSFitter",
+           "postfit_chi2": chi2, "fitter": "WLSFitter",
            "settings": dict(settings)}
+    d = DownhillWLSFitter(toas, model)
+    if _downhill_fit(d, {}, design, "downhill", arrays, ref):
+        ref["downhill_converged"] = bool(d.converged)
+    _auto_outputs(model, toas, design, arrays, ref)
+    if settings.get("huber"):
+        _huber_outputs(model, toas, design, arrays, ref)
     if grid:
-        axes = grid_axes(model, settings["grid_points"])
+        gnames, axes = wls_grid_axes(f, settings)
         c2, rungs = reference_wls_grid(f, axes, settings["grid_niter"],
-                                       chunk)
-        arrays["ref/grid_m2"], arrays["ref/grid_sini"] = axes
+                                       chunk, gnames)
+        if gnames != ("M2", "SINI"):
+            ref["grid_params"] = list(gnames)
+        for g, a in zip(gnames, axes):
+            arrays[f"ref/grid_{g.lower()}"] = a
         arrays["ref/grid_chi2"] = c2
         arrays["ref/grid_rungs"] = rungs
         ref["grid_argmin"] = [int(i) for i in np.unravel_index(

@@ -39,10 +39,11 @@ def test_import_and_load_pull_in_no_jax():
         "import pint_torch, pint_torch.bridge, pint_torch.gls_fitter, "
         "pint_torch.fitter, pint_torch.grid, pint_torch.kernels, "
         "pint_torch.pulsar_ecliptic\n"
+        "import pint_torch.integrity.robust\n"
         "from pint_torch.bridge import load_snapshot, STANDIN_PATH, "
-        "ELL1_PATH\n"
-        "load_snapshot(STANDIN_PATH, device='cpu')\n"
-        "load_snapshot(ELL1_PATH, device='cpu')\n"
+        "ELL1_PATH, ELL1H_PATH, NGC_PHOFF_PATH\n"
+        "for p in (STANDIN_PATH, ELL1_PATH, ELL1H_PATH, NGC_PHOFF_PATH):\n"
+        "    load_snapshot(p, device='cpu')\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n")
@@ -95,8 +96,11 @@ def test_entry_points_default_to_the_gpu():
         return
     with pytest.raises(NoGPUError):
         resolve_device(None)
-    with pytest.raises(NoGPUError):
-        load_snapshot(STANDIN_PATH)
+    from pint_torch.bridge import ELL1H_PATH, NGC_PATH, NGC_PHOFF_PATH
+
+    for path in (STANDIN_PATH, ELL1H_PATH, NGC_PATH, NGC_PHOFF_PATH):
+        with pytest.raises(NoGPUError):
+            load_snapshot(path)
 
 
 def test_cpu_tensors_never_reach_a_kernel():
@@ -116,6 +120,11 @@ def test_cpu_tensors_never_reach_a_kernel():
     for ell1k in (False, True):
         d = ell1_binary(tt0, p4, ell1k)
         assert d.shape == (2, 5) and bool(torch.isfinite(d).all())
+    p4h = torch.cat([p4[:, :11], torch.tensor(
+        [[8.4e-7, 0.0, 0.94]] * 2, dtype=torch.float64)], dim=1)
+    for mode in (2, 3):
+        d = ell1_binary(tt0, p4h, mode)
+        assert d.shape == (2, 5) and bool(torch.isfinite(d).all())
     x, sv, _ = wls_lstsq(torch.eye(5, 3, dtype=torch.float64)[None],
                          torch.ones((1, 5), dtype=torch.float64))
     assert bool(torch.isfinite(x).all()) and bool(torch.isfinite(sv).all())
@@ -124,6 +133,8 @@ def test_cpu_tensors_never_reach_a_kernel():
          "dd_binary_dual", "schur_cholesky_solve_smem",
          "schur_cholesky_solve_global", "ell1_binary_primal",
          "ell1_binary_dual", "ell1k_binary_primal", "ell1k_binary_dual",
+         "ell1h_exact_binary_primal", "ell1h_exact_binary_dual",
+         "ell1h_harmonic_binary_primal", "ell1h_harmonic_binary_dual",
          "wls_tsqr_fold", "wls_tsqr_svd",
          "wls_lstsq_global"), 0)
 
@@ -137,7 +148,11 @@ def test_kernel_sources_ship_with_the_package():
     from pint_torch import kernels
 
     assert set(kernels.NAMES) == {p.stem for p in csrc.glob("*.cu")}
-    for snap in ("b1855_standin.npz", "b1855_dmx15_standin.npz",
-                 "j1909_ell1_standin.npz"):
+    for snap, n in (("b1855_standin.npz", 4005),
+                    ("b1855_dmx15_standin.npz", 4005),
+                    ("j1909_ell1_standin.npz", 4005),
+                    ("j1909_ell1h_standin.npz", 4005),
+                    ("ngc6440e_standin.npz", 62),
+                    ("ngc6440e_phoff_standin.npz", 62)):
         assert np.load(REPO / "pint_torch" / "data" / snap,
-                       allow_pickle=False)["tdb_hi"].shape == (4005,)
+                       allow_pickle=False)["tdb_hi"].shape == (n,)

@@ -2,14 +2,21 @@
 
 The exporter (:func:`_torch_standin.export_snapshot`) needs ``pint_tpu``, so
 it runs here; the port only reads.  Running this file as a script writes
-the committed full-width stand-ins (B1855+09-shaped GLS ones and the
-J1909-3744-shaped WLS one)::
+the committed full-width stand-ins (B1855+09-shaped GLS ones, the
+J1909-3744-shaped WLS ones with ELL1 and ELL1H, and the NGC6440E-shaped
+ones of the reference benchmark's secondary cell)::
 
     python tests/test_torch_snapshot.py --write pint_torch/data/b1855_standin.npz
     python tests/test_torch_snapshot.py --settings dmx15 \
         --write pint_torch/data/b1855_dmx15_standin.npz
     python tests/test_torch_snapshot.py --settings ell1 \
         --write pint_torch/data/j1909_ell1_standin.npz
+    python tests/test_torch_snapshot.py --settings ell1h \
+        --write pint_torch/data/j1909_ell1h_standin.npz
+    python tests/test_torch_snapshot.py --settings ngc \
+        --write pint_torch/data/ngc6440e_standin.npz
+    python tests/test_torch_snapshot.py --settings ngc_phoff \
+        --write pint_torch/data/ngc6440e_phoff_standin.npz
 
 The tests check that a small export round-trips through
 :func:`pint_torch.bridge.load_snapshot` bitwise, and that the committed
@@ -192,10 +199,86 @@ def test_committed_ell1_file_records_its_settings():
     assert settings["grid_niter"] == 4
 
 
+def test_committed_ell1h_file_loads_with_stated_shapes():
+    """The J1909-3744-shaped stand-in with BinaryELL1H: 4005 TOAs, H3 and
+    STIGMA in place of M2/SINI (STIGMA set, so the exact form), 89 free
+    parameters, k = 88 at its H3 x STIGMA grid, the reference's fits and a
+    16x16 grid at SVD rung 3; written with ``ELL1H_SETTINGS``."""
+    from pint_torch.bridge import ELL1H_PATH, load_snapshot, read_snapshot
+
+    assert os.path.getsize(ELL1H_PATH) < 8 * 1024 * 1024
+    meta, arrays = read_snapshot(ELL1H_PATH)
+    rr = meta["reference"]
+    assert rr["settings"] == standin.ELL1H_SETTINGS
+    m, b = load_snapshot(ELL1H_PATH, device="cpu")
+    assert b.ntoas == 4005 and "BinaryELL1H" in m.components
+    assert m["STIGMA"].value not in (None, 0.0) and m["H4"].value is None
+    assert 7e-7 < m["H3"].value < 9e-7
+    assert len(m.free_params) == 89
+    assert rr["grid_params"] == ["H3", "STIGMA"]
+    assert 1 + len([p for p in m.free_params
+                    if p not in rr["grid_params"]]) == 88
+    assert arrays["ref/grid_chi2"].shape == (16, 16)
+    assert (arrays["ref/grid_rungs"] == 3).all()
+    assert rr["auto_fitter"] == "DownhillWLSFitter"
+
+
+@pytest.mark.parametrize("which", ["ngc", "ngc_phoff"])
+def test_committed_ngc_files_load_with_stated_shapes(which):
+    """The NGC6440E-shaped stand-ins: 62 TOAs, AbsPhase with its TZR row
+    (one TOA, GBT, 1949.609 MHz), PhaseOffset in the variant; the F0 x F1
+    grid's axes and chi2, both Huber fits; written with their settings."""
+    from pint_torch.bridge import (NGC_PATH, NGC_PHOFF_PATH, load_snapshot,
+                                   read_snapshot)
+
+    path = NGC_PATH if which == "ngc" else NGC_PHOFF_PATH
+    meta, arrays = read_snapshot(path)
+    rr = meta["reference"]
+    assert rr["settings"] == (standin.NGC_SETTINGS if which == "ngc"
+                              else standin.NGC_PHOFF_SETTINGS)
+    m, b = load_snapshot(path, device="cpu")
+    assert b.ntoas == 62
+    tzr = m.components["AbsPhase"].tzr_batch
+    assert tzr.ntoas == 1 and float(tzr.freq[0]) == 1949.609
+    assert ("PhaseOffset" in m.components) is (which == "ngc_phoff")
+    assert rr["grid_params"] == ["F0", "F1"]
+    for k in ("ref/grid_f0", "ref/grid_f1"):
+        assert arrays[k].shape == (16,)
+    assert arrays["ref/grid_chi2"].shape == (16, 16)
+    assert arrays["ref/huber_weights"].shape == (62,)
+    assert rr["huber_iterations"] >= 1
+
+
+def test_tzr_row_round_trips_bitwise():
+    """The TZR TOA the reference builds on the host travels as a one-row
+    batch: every field bitwise, and each component's context for it (the
+    PhaseOffset's ``apply`` 0)."""
+    from pint_torch.bridge import load_snapshot
+
+    model, toas = standin.make_standin(standin.NGC_PHOFF_SETTINGS,
+                                       full=False)
+    m, b = load_snapshot(standin.export_state(model, toas), device="cpu")
+    jb = model.components["AbsPhase"].get_TZR_toas(model).to_batch()
+    t = m.components["AbsPhase"].tzr_batch
+    assert t.tzr and not b.tzr
+    for got, want in ((t.tdb.hi, jb.tdb.hi), (t.tdb.lo, jb.tdb.lo),
+                      (t.tdb_s.hi, jb.tdb_s.hi), (t.tdb_s.lo, jb.tdb_s.lo),
+                      (t.freq, jb.freq), (t.ssb_obs_pos, jb.ssb_obs_pos),
+                      (t.ssb_obs_vel, jb.ssb_obs_vel),
+                      (t.obs_sun_pos, jb.obs_sun_pos)):
+        assert np.array_equal(got.numpy(), np.asarray(want))
+    assert t.tdb0 == float(jb.tdb0)
+    assert t.contexts["PhaseOffset"]["apply"].tolist() == [0.0]
+    assert m.components["PhaseOffset"].context["apply"].numpy().all()
+
+
 #: the committed full-width stand-ins, by the exporter's ``--settings``
 SETTINGS = {"b1855": standin.FULL_SETTINGS,
             "dmx15": standin.DMX15_SETTINGS,
-            "ell1": standin.ELL1_SETTINGS}
+            "ell1": standin.ELL1_SETTINGS,
+            "ell1h": standin.ELL1H_SETTINGS,
+            "ngc": standin.NGC_SETTINGS,
+            "ngc_phoff": standin.NGC_PHOFF_SETTINGS}
 
 
 def _write(path: str, chunk: int, settings: dict) -> None:
@@ -224,6 +307,9 @@ if __name__ == "__main__":
                     help="b1855: FULL_SETTINGS (72 DMX windows of 45 d); "
                          "dmx15: DMX15_SETTINGS (216 windows of 15 d); "
                          "ell1: ELL1_SETTINGS (the J1909-3744-shaped WLS "
-                         "stand-in)")
+                         "stand-in); ell1h: ELL1H_SETTINGS (the same with "
+                         "H3/STIGMA); ngc, ngc_phoff: NGC_SETTINGS, "
+                         "NGC_PHOFF_SETTINGS (bench.py's FALLBACK_PAR, 62 "
+                         "TOAs; with PHOFF)")
     args = ap.parse_args()
     _write(args.write, args.chunk, SETTINGS[args.settings])

@@ -124,16 +124,22 @@ def test_wls_grid_poisons_an_unphysical_point(port):
 
 
 def test_wls_fitters_refuse_correlated_noise_and_unported_modes(port):
+    """The refusals that remain: correlated noise in a WLS fitter, free
+    noise parameters in a downhill fit and wideband TOAs in
+    ``Fitter.auto`` (both wait for ``ROADMAP.md`` A6)."""
+    import dataclasses
+
     from pint_torch.bridge import STANDIN_PATH, load_snapshot
     from pint_torch.fitter import (CorrelatedErrors, DownhillWLSFitter,
-                                   WLSFitter)
+                                   Fitter, WLSFitter)
 
     m, b = load_snapshot(STANDIN_PATH, device="cpu")
     for cls in (WLSFitter, DownhillWLSFitter):
         with pytest.raises(CorrelatedErrors, match="EcorrNoise"):
             cls(b, m)
-    with pytest.raises(NotImplementedError, match="robust"):
-        WLSFitter(port["batch"], port["model"]).fit_toas(robust="huber")
+    with pytest.raises(NotImplementedError, match="wideband"):
+        Fitter.auto(dataclasses.replace(port["batch"], wideband=True),
+                    port["model"])
     m2 = port["model"].copy()
     m2[next(p for p in m2.params_table if p.startswith("EFAC"))].frozen = \
         False

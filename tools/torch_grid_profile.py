@@ -4,10 +4,14 @@
 Loads a committed stand-in onto the card (``b1855``:
 ``pint_torch/data/b1855_standin.npz``; ``dmx15``: its dense-DMX sibling
 ``b1855_dmx15_standin.npz``; ``ell1``: the J1909-3744-shaped WLS stand-in
-``j1909_ell1_standin.npz``), runs the fit its model calls for
-(``GLSFitter`` with correlated noise, else ``WLSFitter``; ``maxiter=2``)
-and one warm-up 16x16 M2 x SINI grid (``chunk=256``, ``niter`` as the
-snapshot's reference ran it: 1 for the GLS stand-ins, 4 for ell1), then
+``j1909_ell1_standin.npz``; ``ell1h``: its BinaryELL1H sibling
+``j1909_ell1h_standin.npz``; ``ngc``, ``ngc_phoff``: the NGC6440E-shaped
+ones ``ngc6440e_standin.npz``, ``ngc6440e_phoff_standin.npz``), runs the
+fit its model calls for (``GLSFitter`` with correlated noise, else
+``WLSFitter``; ``maxiter`` as the snapshot's reference ran it) and one
+warm-up 16x16 grid of the snapshot's parameters (M2 x SINI, H3 x STIGMA or
+F0 x F1; ``chunk=256``, ``niter`` as the reference ran it: 1 for the GLS
+stand-ins, 4 for the WLS ones), then
 traces one more warm grid and one warm design matrix with
 ``torch.profiler`` and prints, per traced region:
 the wall time, the summed device time of all CUDA kernels, the device's
@@ -15,9 +19,9 @@ busy share (device time over wall time), and the ten kernels with the
 most device time.  Run on a machine with a CUDA GPU, from the repository
 root::
 
-    python3 tools/torch_grid_profile.py [b1855|dmx15|ell1 ...]
+    python3 tools/torch_grid_profile.py [b1855|dmx15|ell1|ell1h|ngc ...]
 
-(all stand-ins when none is named).
+(``ngc_phoff`` too; all stand-ins when none is named).
 """
 
 from __future__ import annotations
@@ -66,14 +70,16 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from torch.profiler import ProfilerActivity, profile
 
-    from pint_torch.bridge import (DMX15_PATH, ELL1_PATH, STANDIN_PATH,
+    from pint_torch.bridge import (DMX15_PATH, ELL1_PATH, ELL1H_PATH,
+                                   NGC_PATH, NGC_PHOFF_PATH, STANDIN_PATH,
                                    load_snapshot, read_snapshot)
     from pint_torch.fitter import WLSFitter
     from pint_torch.gls_fitter import GLSFitter
     from pint_torch.grid import grid_chisq
 
     snapshots = {"b1855": STANDIN_PATH, "dmx15": DMX15_PATH,
-                 "ell1": ELL1_PATH}
+                 "ell1": ELL1_PATH, "ell1h": ELL1H_PATH, "ngc": NGC_PATH,
+                 "ngc_phoff": NGC_PHOFF_PATH}
     names = sys.argv[1:] or list(snapshots)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -81,17 +87,20 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__}")
     for name in names:
         meta, ref = read_snapshot(snapshots[name])
-        niter = meta["reference"]["settings"]["grid_niter"]
+        settings = meta["reference"]["settings"]
+        niter = settings["grid_niter"]
+        gnames = tuple(meta["reference"].get("grid_params", ("M2", "SINI")))
         model, batch = load_snapshot(snapshots[name], device="cuda")
         fitter = (GLSFitter if model.has_correlated_errors
                   else WLSFitter)(batch, model)
-        fitter.fit_toas(maxiter=2)
-        axes = (ref["ref/grid_m2"], ref["ref/grid_sini"])
-        grid_chisq(fitter, ("M2", "SINI"), axes, niter=niter, chunk=256)
+        fitter.fit_toas(maxiter=settings["fit_maxiter"])
+        axes = tuple(ref[f"ref/grid_{g.lower()}"] for g in gnames)
+        grid_chisq(fitter, gnames, axes, niter=niter, chunk=256)
         fitter.model.designmatrix(batch)
         for label, fn in (
-                (f"grid 16x16 warm (niter={niter})", lambda: grid_chisq(
-                    fitter, ("M2", "SINI"), axes, niter=niter, chunk=256)),
+                (f"grid 16x16 {gnames[0]} x {gnames[1]} warm "
+                 f"(niter={niter})", lambda: grid_chisq(
+                    fitter, gnames, axes, niter=niter, chunk=256)),
                 ("design matrix warm",
                  lambda: fitter.model.designmatrix(batch))):
             torch.cuda.synchronize()
