@@ -12,9 +12,10 @@ Phases, one line each:
    properties;
 2. build -- the five hand kernels, one nvcc per source, started together;
    the ptxas report of each ``__global__`` (registers, stack frame, spill
-   bytes; K1's per S = 1..6, K4's per mode), read from the build logs:
-   K1's primal templates must hold no stack frame, and no primal (K1, K2,
-   K4), no ELL1H dual and no tiled K5 kernel may spill;
+   bytes; K1's per S = 1..6, K2's and K4's per mode), read from the build
+   logs: K1's primal templates must hold no stack frame, and no primal
+   (K1, K2 in its four modes, K4), no ELL1H dual and no tiled K5 kernel
+   may spill;
 3. main paths, each with the kernel launch counts zeroed just before it
    and read just after, and every kernel of the path required to have
    launched; then its bars against the reference package's outputs stored
@@ -43,7 +44,18 @@ Phases, one line each:
      benchmark's secondary cell (``ngc6440e_standin.npz``,
      ``ngc6440e_phoff_standin.npz``: 62 TOAs, AbsPhase with its TZR row,
      the second with a fitted PHOFF; the F0 x F1 grid at ``niter=4``; K1,
-     K5 at N = 62).
+     K5 at N = 62);
+   * ddk -- the J1713+0747-shaped GLS stand-in (``j1713_ddk_standin.npz``:
+     ecliptic astrometry with PX, a DDK binary with K96 on, nt = 89 at the
+     KIN x KOM grid, ``niter=1``; K1, K2's DDK primal and dual, K3 in
+     shared memory);
+   * ddgr -- the B1913+16-shaped WLS stand-in (``b1913_ddgr_standin.npz``:
+     a DDGR binary at ECC 0.617, k = 85 at the MTOT x M2 grid,
+     ``niter=4``; K1, K2's DDGR primal and dual, K5 tiled);
+   * bt, dds, ddh -- the small GLS stand-in (80 TOAs) with its binary as
+     BT, DDS and DDH (``small_bt_standin.npz``, ``small_dds_standin.npz``,
+     ``small_ddh_standin.npz``; the fits, no grid; K1, K2's BT primal and
+     dual, or its DD ones on DDS's and DDH's reparameterized rows).
 
    Bars: residuals 1e-10 s, the absolute phase's integers exactly, each
    fit's chi2 1e-6 rel, values 1e-2 sigma and uncertainties 1e-6 rel (or
@@ -58,11 +70,14 @@ Phases, one line each:
    232, K5's tiled fold and SVD and its untiled global kernel) against
    its plain PyTorch twin on the card, on the inputs its path gave it
    (captured there) plus seeded random inputs: K1 at S = 1, 2, 3 and 6
-   spin terms, k and f bitwise; K2 on random orbits with ECC 0-0.9 and in
-   bands at ~2e-5, 0.1, 0.6 and 0.95 (the Kepler solve's exits -- fixed
-   point, 2-cycle, all 15 steps -- counted per band by the twin's
-   ``kepler_steps``, each must occur), delay bitwise, and two SINI > 1
-   rows whose NaN delays poison every partial; K3 with an ill-conditioned
+   spin terms, k and f bitwise; K2 in each mode (DD on b1855's call, BT on
+   bt's, DDGR on ddgr's, DDK on ddk's) and on random orbits with ECC 0-0.9
+   and in bands at ~2e-5, 0.1, 0.6 and 0.95 (the Kepler solve's exits --
+   fixed point, 2-cycle, all 15 steps -- counted per band by the twin's
+   ``kepler_steps``, each must occur), delay bitwise, partials 1e-10 rel,
+   and two rows whose NaN delays poison every partial (sini > 1: SINI, a1
+   / ar, DDK's per-TOA sini; BT: NaN TOAs); the Newton steps' histogram
+   and exits on the ddgr path's TOAs; K3 with an ill-conditioned
    and a NaN point; K4 on random orbits with |EPS| to 1e-2 and TOAs across
    the orbital phase's wrap, delay bitwise, partials 1e-10 rel, NaN rows
    poisoning all partials -- ELL1H's in both forms, the harmonic one at
@@ -80,7 +95,7 @@ Phases, one line each:
    cap; the tiled design (tile rows, WY block, the Jacobi's lanes, read
    from the built library) and, on the path's points, the kernel's gap to
    the twin beside the first-order least-squares sensitivity are printed.
-   K2's Newton steps on the path's inputs set its operation count; the
+   K2's Newton steps on each path's inputs set its operation count; the
    per-element operation counts of K1, K2 and K4 are bounded at the
    float64 instruction rate (-fmad=false); K5's counts what its function
    needs (QR at the float64 tensor-core rate, the k x k SVD at the CUDA
@@ -135,6 +150,15 @@ F64_INSTR_PER_S = 132 * 64 * 1.98e9
 K2_FORWARD_OPS = 403
 K2_NEWTON_OPS = 49
 K2_REVERSE_OPS = 242
+#: the same per mode (0 DD, 1 BT, 2 DDGR, 3 DDK), (forward outside
+#: Kepler's equation, reverse sweep): BT's own passes, counted alike (the
+#: orbits, a1, omega_bt and two sincos pairs, 161; its reverse sweep 77);
+#: DDGR reads k and m2 from its row (5 fewer) and divides a1 by ar (1
+#: more), and its sweep drops k's chain and the TSUN product (7) for
+#: ar's partial and a1's share (5); DDK adds its two offsets (2)
+K2_MODE_OPS = {0: (K2_FORWARD_OPS, K2_REVERSE_OPS), 1: (161, 77),
+               2: (K2_FORWARD_OPS - 4, K2_REVERSE_OPS - 2),
+               3: (K2_FORWARD_OPS + 2, K2_REVERSE_OPS)}
 
 
 #: float64 operations per element of ``ell1_binary.cu``, counted from the
@@ -195,11 +219,11 @@ def _k5_ops(N: int, k: int):
                 svd=12 * k**3 + 4 * k * k)
 
 
-def _k2_ops(steps: float, partials: bool) -> float:
-    """float64 operations per element of ``dd_binary.cu`` at a mean of
-    ``steps`` Newton steps per element."""
-    return (K2_FORWARD_OPS + K2_NEWTON_OPS * steps
-            + (K2_REVERSE_OPS if partials else 0))
+def _k2_ops(steps: float, partials: bool, mode: int = 0) -> float:
+    """float64 operations per element of ``dd_binary.cu`` in ``mode`` at a
+    mean of ``steps`` Newton steps per element."""
+    fwd, rev = K2_MODE_OPS[mode]
+    return fwd + K2_NEWTON_OPS * steps + (rev if partials else 0)
 
 
 def _k1_ops(S: int, has_pe: bool, partials: bool) -> int:
@@ -238,8 +262,8 @@ def _card() -> str:
 class Capture:
     """Spy on each kernel module's ``_launch``: keeps a copy of the largest
     call's inputs per (kernel, partials) -- per (kernel, (mode, partials))
-    for K4 -- so the comparisons run at the main path's shapes.  Counting
-    stays in the original ``_launch``."""
+    for K2 and K4 -- so the comparisons run at the main path's shapes.
+    Counting stays in the original ``_launch``."""
 
     def __init__(self, kernels):
         self.kernels = kernels
@@ -264,14 +288,17 @@ class Capture:
     def _record(self, name, args):
         import torch
 
-        partials = args[-1] if name in ("spin_phase", "dd_binary") \
+        partials = args[-1] if name == "spin_phase" \
+            else (int(args[2]), bool(args[4])) if name == "dd_binary" \
             else (int(args[2]), bool(args[3])) if name == "ell1_binary" \
             else None
         size = sum(a.numel() for a in args if torch.is_tensor(a))
         key = (name, partials)
         if key not in self.calls or self.calls[key][0] < size:
-            self.calls[key] = (size, tuple(a.clone() if torch.is_tensor(a)
-                                           else a for a in args))
+            self.calls[key] = (size, tuple(
+                a.clone() if torch.is_tensor(a) else
+                tuple(v.clone() for v in a) if isinstance(a, tuple) else a
+                for a in args))
 
     def args(self, name, partials=None):
         return self.calls[(name, partials)][1]
@@ -317,7 +344,9 @@ def _bound(nbytes: float, ops: float, tensor_ops: float = 0.0,
 
 def _grid_of(meta, ref):
     """The snapshot's grid: (parameter names, axes); M2 x SINI unless its
-    reference names others."""
+    reference names others; None for a snapshot without a grid."""
+    if "ref/grid_chi2" not in ref:
+        return None
     names = tuple(meta["reference"].get("grid_params", ("M2", "SINI")))
     return names, tuple(ref[f"ref/grid_{n.lower()}"] for n in names)
 
@@ -330,8 +359,8 @@ def _drive(label, path, kernels, tag):
     then ``Fitter.auto``'s fitter and, where the snapshot holds them, both
     WLS fitters' Huber fits (a fit whose reference raised ``StepProblem``
     must raise it too) -- then the 16x16 grid after the first fit, cold and
-    warm, at the snapshot's ``niter``; returns (counts, capture,
-    outputs)."""
+    warm, at the snapshot's ``niter`` (where the snapshot has one); returns
+    (counts, capture, outputs)."""
     import torch
 
     from pint_torch.bridge import load_snapshot, read_snapshot
@@ -344,7 +373,7 @@ def _drive(label, path, kernels, tag):
     meta, ref = read_snapshot(path)
     rr = meta["reference"]
     niter = rr["settings"]["grid_niter"]
-    gnames, axes = _grid_of(meta, ref)
+    grid = _grid_of(meta, ref)
     cap = Capture(kernels.modules())
     cap.install()
     kernels.reset_counts()
@@ -386,19 +415,24 @@ def _drive(label, path, kernels, tag):
         fits["huber_downhill"] = fit("huber_downhill",
                                      DownhillWLSFitter(batch, model),
                                      robust="huber")
-    stage("grid_cold", lambda: grid_chisq(fitter, gnames, axes,
-                                          niter=niter, chunk=256))
-    surface, _ = stage("grid_warm", lambda: grid_chisq(
-        fitter, gnames, axes, niter=niter, chunk=256))
+    surface = None
+    if grid is not None:
+        gnames, axes = grid
+        stage("grid_cold", lambda: grid_chisq(fitter, gnames, axes,
+                                              niter=niter, chunk=256))
+        surface, _ = stage("grid_warm", lambda: grid_chisq(
+            fitter, gnames, axes, niter=niter, chunk=256))
     counts = kernels.launch_counts()
     cap.remove()
-    k = 1 + len(fitter.model.free_params) - len(gnames)
+    k = 1 + len(fitter.model.free_params) - (len(grid[0]) if grid else 0)
     print(f"phase main path {label}: N={batch.ntoas} TOAs, "
           f"{len(model.free_params)} free, {'GLS nt' if gls else 'WLS k'}"
-          f"={k}, {gnames[0]} x {gnames[1]} grid niter={niter}; "
+          f"={k}, " + (f"{gnames[0]} x {gnames[1]} grid niter={niter}; "
+                       if grid else "no grid; ")
           + ", ".join(f"{n} {v:.4f} s" for n, v in stages.items())
-          + f"; warm grid {surface.size / stages['grid_warm']:.2f} fits/s; "
-          f"launches {counts} {tag}", flush=True)
+          + (f"; warm grid {surface.size / stages['grid_warm']:.2f} fits/s"
+             if grid else "")
+          + f"; launches {counts} {tag}", flush=True)
     return counts, cap, dict(meta=meta, ref=ref, resid=resid, M=M,
                              phase_int=phase_int, fitter=fitter, fits=fits,
                              surface=surface)
@@ -411,8 +445,8 @@ def _bars(label, out):
     ``Fitter.auto``'s class, converged flag and downhill steps and its
     noise amplitudes (1e-6 of their largest); the downhill fit's converged
     flag; the Huber fits' weights (1e-6), down-weighted set and IRLS
-    rounds; the grid's surface, argmin and rungs; raises on a failed
-    bar."""
+    rounds; the grid's surface, argmin and rungs (where there is one);
+    raises on a failed bar."""
     import numpy as np
 
     meta, ref = out["meta"], out["ref"]
@@ -490,20 +524,23 @@ def _bars(label, out):
     auto_cls = type(out["fits"]["auto"][0]).__name__
     checks.append((auto_cls == rref["auto_fitter"], "Fitter.auto class"))
     surface = out["surface"]
-    d_grid = float(np.abs(surface / ref["ref/grid_chi2"] - 1).max())
-    argmin = [int(i) for i in np.unravel_index(int(np.nanargmin(surface)),
-                                               surface.shape)]
-    rungs = out["fitter"].last_grid_diagnostics["ladder_rung"]
-    same_rungs = bool(np.array_equal(rungs, ref["ref/grid_rungs"]))
-    checks += [(d_grid <= 1e-6, "grid surface"),
-               (argmin == rref["grid_argmin"], "grid argmin"),
-               (same_rungs, "grid rungs")]
+    grid_note = "no grid"
+    if surface is not None:
+        d_grid = float(np.abs(surface / ref["ref/grid_chi2"] - 1).max())
+        argmin = [int(i) for i in np.unravel_index(
+            int(np.nanargmin(surface)), surface.shape)]
+        rungs = out["fitter"].last_grid_diagnostics["ladder_rung"]
+        same_rungs = bool(np.array_equal(rungs, ref["ref/grid_rungs"]))
+        checks += [(d_grid <= 1e-6, "grid surface"),
+                   (argmin == rref["grid_argmin"], "grid argmin"),
+                   (same_rungs, "grid rungs")]
+        grid_note = (f"grid max rel {d_grid:.3e} (<= 1e-6); argmin {argmin} "
+                     f"vs {rref['grid_argmin']}; rungs "
+                     f"{sorted(set(rungs.ravel().tolist()))} equal "
+                     f"{same_rungs}")
     print(f"phase bars {label}: residuals max|d| {d_res:.3e} s (<= 1e-10); "
           f"design matrix max col-rel {d_M:.3e}; Fitter.auto {auto_cls} vs "
-          f"{rref['auto_fitter']}; " + "; ".join(notes)
-          + f"; grid max rel {d_grid:.3e} (<= 1e-6); argmin {argmin} "
-          f"vs {rref['grid_argmin']}; rungs "
-          f"{sorted(set(rungs.ravel().tolist()))} equal {same_rungs}",
+          f"{rref['auto_fitter']}; " + "; ".join(notes) + f"; {grid_note}",
           flush=True)
     for ok, what in checks:
         if not ok:
@@ -523,8 +560,10 @@ def main() -> int:
     sys.path.insert(0, str(HERE))
 
     from pint_torch import kernels
-    from pint_torch.bridge import (DMX15_PATH, ELL1_PATH, ELL1H_PATH,
-                                   NGC_PATH, NGC_PHOFF_PATH, STANDIN_PATH)
+    from pint_torch.bridge import (BT_SMALL_PATH, DDGR_PATH, DDH_SMALL_PATH,
+                                   DDK_PATH, DDS_SMALL_PATH, DMX15_PATH,
+                                   ELL1_PATH, ELL1H_PATH, NGC_PATH,
+                                   NGC_PHOFF_PATH, STANDIN_PATH)
     from pint_torch.kernels import _build
     from pint_torch.kernels import dd_binary as K2
     from pint_torch.kernels import ell1_binary as K4
@@ -551,9 +590,10 @@ def main() -> int:
     ptxas = [("spin_phase", f"{K1.KERNELS[p]}<{S}>",
               f"{K1.KERNELS[p]}ILi{S}E")
              for p in (False, True) for S in range(1, 7)]
-    ptxas += [("dd_binary", K2.KERNELS[False], K2.KERNELS[False]),
-              ("dd_binary", K2.KERNELS[True], K2.KERNELS[True]),
-              ("schur_cholesky_solve", K3.KERNELS[False],
+    ptxas += [("dd_binary", K2.KERNELS[(m, p)],
+               f"dd_binary_{'dual' if p else 'primal'}ILi{m}E")
+              for m in range(4) for p in (False, True)]
+    ptxas += [("schur_cholesky_solve", K3.KERNELS[False],
                "schur_cholesky_kernelILb1E"),
               ("schur_cholesky_solve", K3.KERNELS[True],
                "schur_cholesky_kernelILb0E")]
@@ -577,7 +617,8 @@ def main() -> int:
         # K1's primal templates keep no stack frame; no primal spills, nor
         # ELL1H's duals, nor K5's tiled kernels
         k1_primal = kernel.startswith(K1.KERNELS[False])
-        primal = k1_primal or kernel == K2.KERNELS[False] \
+        primal = k1_primal \
+            or kernel in [K2.KERNELS[(m, False)] for m in range(4)] \
             or kernel in k4_primals \
             or kernel in (K5.KERNELS["fold"], K5.KERNELS["svd"])
         if r is None or (k1_primal and r[1]) or (primal and (r[2] or r[3])):
@@ -587,20 +628,28 @@ def main() -> int:
     # ---- main paths: each with its counts zeroed just before it ------------
     paths = {}
     k5_tiled = (K5.KERNELS["fold"], K5.KERNELS["svd"])
+    k2 = {m: (K2.KERNELS[(m, False)], K2.KERNELS[(m, True)])
+          for m in range(4)}
     path_kernels = {
-        "b1855": (*K1.KERNELS.values(), *K2.KERNELS.values(),
-                  K3.KERNELS[False]),
-        "dmx15": (*K1.KERNELS.values(), *K2.KERNELS.values(),
-                  K3.KERNELS[True]),
+        "b1855": (*K1.KERNELS.values(), *k2[K2.DD], K3.KERNELS[False]),
+        "dmx15": (*K1.KERNELS.values(), *k2[K2.DD], K3.KERNELS[True]),
         "ell1": (*K1.KERNELS.values(), K4.KERNELS[(K4.ELL1, False)],
                  K4.KERNELS[(K4.ELL1, True)], *k5_tiled),
         "ell1h": (*K1.KERNELS.values(), K4.KERNELS[(K4.ELL1H_EXACT, False)],
                   K4.KERNELS[(K4.ELL1H_EXACT, True)], *k5_tiled),
         "ngc": (*K1.KERNELS.values(), *k5_tiled),
-        "ngc_phoff": (*K1.KERNELS.values(), *k5_tiled)}
+        "ngc_phoff": (*K1.KERNELS.values(), *k5_tiled),
+        "ddk": (*K1.KERNELS.values(), *k2[K2.DDK], K3.KERNELS[False]),
+        "ddgr": (*K1.KERNELS.values(), *k2[K2.DDGR], *k5_tiled),
+        "bt": (*K1.KERNELS.values(), *k2[K2.BT]),
+        "dds": (*K1.KERNELS.values(), *k2[K2.DD]),
+        "ddh": (*K1.KERNELS.values(), *k2[K2.DD])}
     for label, path in (("b1855", STANDIN_PATH), ("dmx15", DMX15_PATH),
                         ("ell1", ELL1_PATH), ("ell1h", ELL1H_PATH),
-                        ("ngc", NGC_PATH), ("ngc_phoff", NGC_PHOFF_PATH)):
+                        ("ngc", NGC_PATH), ("ngc_phoff", NGC_PHOFF_PATH),
+                        ("ddk", DDK_PATH), ("ddgr", DDGR_PATH),
+                        ("bt", BT_SMALL_PATH), ("dds", DDS_SMALL_PATH),
+                        ("ddh", DDH_SMALL_PATH)):
         counts, cap, out = _drive(label, path, kernels, tag)
         missing = [k for k in path_kernels[label] if counts[k] == 0]
         if missing:
@@ -611,9 +660,10 @@ def main() -> int:
         del out
 
     # ---- kernels against their plain twins ----------------------------------
-    # Every CUDA kernel -- the primal and dual instantiations of K1 and K2,
-    # K3's two -- runs on its path's largest call of it (captured there)
-    # and on seeded random inputs, against its twin on the same tensors.
+    # Every CUDA kernel -- the primal and dual instantiations of K1, of K2
+    # in its four modes and of K4, K3's two, K5's three -- runs on its
+    # path's largest call of it (captured there) and on seeded random
+    # inputs, against its twin on the same tensors.
     gen = torch.Generator(device=dev).manual_seed(20260729)
     records = []
     counts, cap = paths["b1855"]
@@ -696,33 +746,62 @@ def main() -> int:
             raise RuntimeError(f"{kernel} disagrees with its plain version")
         record(kernel, "spin_phase.cu", K1.REPLACES, err, ms, plain, bound)
 
-    # K2: random orbits -- ECC 0 to 0.9 and bands at ~2e-5, 0.1, 0.6 and
-    # 0.95, any OM, SINI 0.5-0.999, so that both exits of the Kepler solve
-    # (fixed point, 2-cycle) and the full 15 steps run on the card -- plus
-    # two rows with SINI > 1 whose NaN delays must poison every partial;
-    # the delay bitwise everywhere
-    tt0_main = cap.args("dd_binary", True)[0]
+    # K2 in its four modes, each on its path's largest call (DD b1855's, BT
+    # bt's, DDGR ddgr's, DDK ddk's) and on random orbits -- ECC 0 to 0.9 and
+    # bands at ~2e-5, 0.1, 0.6 and 0.95, any OM, so that both exits of the
+    # Kepler solve (fixed point, 2-cycle) and the full 15 steps run on the
+    # card -- with two rows whose NaN delays must poison every partial: SINI
+    # = 1.5 (DD), ar = a1 / 1.5 (DDGR), the per-TOA sini 1.5 (DDK), NaN
+    # TOAs (BT, which has no logarithm); the delay bitwise everywhere, the
+    # partials to 1e-10 of each column's largest
+    k2_paths = {K2.DD: "b1855", K2.BT: "bt", K2.DDGR: "ddgr", K2.DDK: "ddk"}
+    tt0_main = paths["b1855"][1].args("dd_binary", (K2.DD, True))[0]
     bands = ((0.0, 0.9), (1.5e-5, 2.5e-5), (0.09, 0.11), (0.59, 0.61),
              (0.94, 0.96))
     nb = 32
-    rparams = cap.args("dd_binary", True)[1][:1].expand(
-        nb * len(bands), -1).clone()
-    for i, (lo, hi) in enumerate(bands):
-        rparams[i * nb:(i + 1) * nb, 5] = rt(nb, lo=lo, hi=hi)
-    rparams[:, 7] = rt(len(rparams), lo=0.0, hi=360.0)
-    rparams[:, 8] = rt(len(rparams), lo=0.0, hi=0.05)
-    rparams[:, 10] = rt(len(rparams), lo=0.5, hi=0.999)
-    rparams[-2:, 10] = 1.5
-    rtt = rt(len(rparams), tt0_main.shape[1], lo=-3e8, hi=3e8)
-    _, _, kind = K2.kepler_steps(rtt, rparams)
-    exits = [torch.bincount(kind[i * nb:(i + 1) * nb].flatten(),
-                            minlength=3).tolist() for i in range(len(bands))]
-    print("phase kepler exits on the random orbits, per ECC band "
-          + ", ".join(f"{lo:g}-{hi:g} {dict(zip(K2.KEPLER_EXITS, n))}"
-                      for (lo, hi), n in zip(bands, exits)), flush=True)
-    if not all(sum(n[k] for n in exits) for k in range(3)):
-        raise RuntimeError("the random orbits miss an exit of the Kepler "
-                           "solve")
+    nr = nb * len(bands)
+    rtt = rt(nr, tt0_main.shape[1], lo=-3e8, hi=3e8)
+
+    def random_k2(mode):
+        """(tt0, row, per-TOA inputs) of the random orbits in ``mode``, the
+        row from the mode's path."""
+        base = paths[k2_paths[mode]][1].args("dd_binary", (mode, True))[1]
+        rp = base[:1].expand(nr, -1).clone()
+        for i, (lo, hi) in enumerate(bands):
+            rp[i * nb:(i + 1) * nb, 5] = rt(nb, lo=lo, hi=hi)
+        rp[:, 7] = rt(nr, lo=0.0, hi=360.0)
+        t, toa = rtt, None
+        if mode in (K2.DD, K2.BT, K2.DDK):
+            rp[:, 8] = rt(nr, lo=0.0, hi=0.05)
+        if mode == K2.DD:
+            rp[:, 10] = rt(nr, lo=0.5, hi=0.999)
+            rp[-2:, 10] = 1.5
+        elif mode == K2.BT:
+            t = rtt.clone()
+            t[-2:, ::97] = float("nan")
+        elif mode == K2.DDGR:
+            rp[-2:, 10] = rp[-2:, 3] / 1.5
+        else:
+            toa = (rt(nr, rtt.shape[1], lo=-1e-6, hi=1e-6),
+                   rt(nr, rtt.shape[1], lo=-1e-5, hi=1e-5),
+                   rt(nr, rtt.shape[1], lo=0.5, hi=0.999))
+            toa[2][-2:] = 1.5
+        return t, rp, toa
+
+    randoms = {mode: random_k2(mode) for mode in k2_paths}
+    for mode, (t, rp, _) in randoms.items():
+        _, _, kind = K2.kepler_steps(torch.nan_to_num(t), rp)
+        exits = [torch.bincount(kind[i * nb:(i + 1) * nb].flatten(),
+                                minlength=3).tolist()
+                 for i in range(len(bands))]
+        what = K2.KERNELS[(mode, False)].split("_")[0]
+        print(f"phase kepler exits on the random orbits ({what}), per ECC "
+              "band "
+              + ", ".join(f"{lo:g}-{hi:g} {dict(zip(K2.KEPLER_EXITS, n))}"
+                          for (lo, hi), n in zip(bands, exits)), flush=True)
+        if not all(sum(n[k] for n in exits) for k in range(3)):
+            raise RuntimeError("the random orbits miss an exit of the Kepler "
+                               "solve")
 
     def warp_max_mean(steps, rows: bool) -> float:
         """Mean over warps of the most Newton steps in a warp: 32
@@ -733,60 +812,88 @@ def main() -> int:
         x = torch.nn.functional.pad(x, (0, pad))
         return float(x.reshape(x.shape[0], -1, 32).amax(-1).double().mean())
 
-    for partials in (False, True):
-        kernel = K2.KERNELS[partials]
-        a2 = cap.args("dd_binary", partials)
-        tt0, params, _ = a2
+    # the Newton steps on the ddgr path's TOAs (ECC 0.617), its largest
+    # call: how many elements stop after each count, and how
+    tg, pg = paths["ddgr"][1].args("dd_binary", (K2.DDGR, True))[:2]
+    _, steps, kind = K2.kepler_steps(tg, pg)
+    hist = torch.bincount(steps.flatten(), minlength=16).tolist()
+    ex = torch.bincount(kind.flatten(), minlength=3).tolist()
+    print(f"phase kepler steps on the ddgr path (B={tg.shape[0]} N="
+          f"{tg.shape[1]}, ECC {float(pg[0, 5]):.7f}): mean "
+          f"{float(steps.double().mean()):.4f}, histogram "
+          f"{dict((i, n) for i, n in enumerate(hist) if n)}, exits "
+          f"{dict(zip(K2.KEPLER_EXITS, ex))} {tag}", flush=True)
 
-        def twin2():
-            return K2.dd_binary_reference(tt0, params, partials)
+    # each mode on its path's largest call; BT once more at a full width,
+    # on b1855's call with its DD row read as BT's (bt's calls are 80
+    # TOAs, launch-sized), not recorded: no path launches BT at that width
+    k2_calls = [(mode, path, mode) for mode, path in k2_paths.items()] \
+        + [(K2.BT, "b1855", K2.DD)]
+    for mode, path, captured in k2_calls:
+        rtt_m, rp, rtoa = randoms[mode]
+        on_path = path == k2_paths[mode]
+        for partials in (False, True):
+            kernel = K2.KERNELS[(mode, partials)]
+            tt0, params, _, toa, _ = paths[path][1].args(
+                "dd_binary", (captured, partials))
+            a2 = (tt0, params, mode, toa, partials)
 
-        dk, Pk = K2._launch(*a2)
-        dr, Pr = twin2()
-        err = float((dk - dr).abs().max())
-        same = bool(torch.equal(dk, dr))
-        prel = p_rel(Pk, Pr) if partials else 0.0
-        dk, Pk = K2._launch(rtt, rparams, partials)
-        dr, Pr = K2.dd_binary_reference(rtt, rparams, partials)
-        nan_k, nan_r = torch.isnan(dk), torch.isnan(dr)
-        nan_ok = bool(torch.equal(nan_k, nan_r)) and bool(nan_k.any())
-        fin = ~nan_r
-        err_r = float((dk[fin] - dr[fin]).abs().max())
-        same = same and bool(torch.equal(dk[fin], dr[fin]))
-        if partials:
-            nan_ok = nan_ok and bool(torch.isnan(Pk[nan_k]).all())
-            prel = max(prel, p_rel(Pk[:-2], Pr[:-2]))
-        B2, N2 = tt0.shape
-        _, steps, _ = K2.kepler_steps(tt0, params)
-        st_elem = float(steps.double().mean())
-        st_warp = warp_max_mean(steps, rows=not partials)
-        ms = _time_ms(lambda: K2._launch(*a2), 20)
-        plain = _time_ms(twin2, 3)
-        nbytes = 8 * B2 * N2 + 8 * B2 * 16 \
-            + 8 * B2 * N2 * (1 + (K2.NPARTIAL if partials else 0))
-        bound = _bound(nbytes, B2 * N2 * _k2_ops(st_elem, partials),
-                       rate=F64_INSTR_PER_S)
-        b_warp = _bound(nbytes, B2 * N2 * _k2_ops(st_warp, partials),
-                        rate=F64_INSTR_PER_S)
-        b_15 = _bound(nbytes, B2 * N2 * _k2_ops(15, partials),
-                      rate=F64_INSTR_PER_S)
-        print(f"phase kernel {kernel}: B={B2} N={N2}; delay bitwise {same}, "
-              f"max|d delay| {err:.3e} (random {err_r:.3e}) s (= 0); "
-              f"NaN rows (SINI > 1) equal and poisoning {nan_ok}; "
-              + (f"partials max rel {prel:.3e} (<= 1e-10); " if partials
-                 else "")
-              + f"Newton steps per element {st_elem:.4f}, per warp (most "
-              f"in the warp) {st_warp:.4f}, of 15; kernel {ms:.4f} ms, "
-              f"plain {plain:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}, "
-              f"{_k2_ops(st_elem, partials):.1f} ops/element at the steps "
-              f"each element needs); at the warps' steps {b_warp[0]:.4f} ms "
-              f"({b_warp[1]}, {_k2_ops(st_warp, partials):.1f}); at 15 "
-              f"steps {b_15[0]:.4f} ms ({b_15[1]}, "
-              f"{_k2_ops(15, partials):.0f}) {tag}", flush=True)
-        if not (same and prel <= 1e-10 and nan_ok):
-            raise RuntimeError(f"{kernel} disagrees with its plain version")
-        record(kernel, "dd_binary.cu", K2.REPLACES, max(err, err_r), ms,
-               plain, bound)
+            def twin2():
+                return K2.dd_binary_reference(tt0, params, partials, mode,
+                                              toa)
+
+            dk, Pk = K2._launch(*a2)
+            dr, Pr = twin2()
+            err = float((dk - dr).abs().max())
+            same = bool(torch.equal(dk, dr))
+            prel = p_rel(Pk, Pr) if partials else 0.0
+            dk, Pk = K2._launch(rtt_m, rp, mode, rtoa, partials)
+            dr, Pr = K2.dd_binary_reference(rtt_m, rp, partials, mode, rtoa)
+            nan_k, nan_r = torch.isnan(dk), torch.isnan(dr)
+            nan_ok = bool(torch.equal(nan_k, nan_r)) and bool(nan_k.any())
+            fin = ~nan_r
+            err_r = float((dk[fin] - dr[fin]).abs().max())
+            same = same and bool(torch.equal(dk[fin], dr[fin]))
+            if partials:
+                nan_ok = nan_ok and bool(torch.isnan(Pk[nan_k]).all())
+                prel = max(prel, p_rel(Pk[:-2], Pr[:-2]))
+            B2, N2 = tt0.shape
+            _, steps, _ = K2.kepler_steps(tt0, params)
+            st_elem = float(steps.double().mean())
+            st_warp = warp_max_mean(steps, rows=not partials)
+            ms = _time_ms(lambda: K2._launch(*a2), 20)
+            plain = _time_ms(twin2, 3)
+            # tt0 and the row entries the mode reads in, the delay and the
+            # partials the mode writes out; DDK's three per-TOA inputs in
+            nbytes = 8 * B2 * N2 + 8 * B2 * len(K2.ROW_COLUMNS[mode]) \
+                + 8 * B2 * N2 * (1 + (K2.npartial(mode) if partials else 0)) \
+                + (24 * B2 * N2 if mode == K2.DDK else 0)
+            ops = _k2_ops(st_elem, partials, mode)
+            bound = _bound(nbytes, B2 * N2 * ops, rate=F64_INSTR_PER_S)
+            b_warp = _bound(nbytes, B2 * N2 * _k2_ops(st_warp, partials, mode),
+                            rate=F64_INSTR_PER_S)
+            b_15 = _bound(nbytes, B2 * N2 * _k2_ops(15, partials, mode),
+                          rate=F64_INSTR_PER_S)
+            on = path if on_path else f"{path}'s call read in this mode"
+            print(f"phase kernel {kernel}: {on} B={B2} N={N2}; delay bitwise "
+                  f"{same}, max|d delay| {err:.3e} (random {err_r:.3e}) s (= "
+                  f"0); NaN rows equal and poisoning {nan_ok}; "
+                  + (f"partials ({K2.npartial(mode)}) max rel {prel:.3e} "
+                     "(<= 1e-10); " if partials else "")
+                  + f"Newton steps per element {st_elem:.4f}, per warp (most "
+                  f"in the warp) {st_warp:.4f}, of 15; kernel {ms:.4f} ms, "
+                  f"plain {plain:.4f} ms, bound {bound[0]:.4f} ms "
+                  f"({bound[1]}, {nbytes / (B2 * N2):.1f} B and {ops:.1f} "
+                  f"ops/element at the steps each element needs; share "
+                  f"{bound[0] / ms:.2f}); at the warps' steps {b_warp[0]:.4f} "
+                  f"ms ({b_warp[1]}); at 15 steps {b_15[0]:.4f} ms "
+                  f"({b_15[1]}) {tag}", flush=True)
+            if not (same and prel <= 1e-10 and nan_ok):
+                raise RuntimeError(f"{kernel} disagrees with its plain "
+                                   f"version on {on}")
+            if on_path:
+                record(kernel, "dd_binary.cu", K2.REPLACES_OF[mode],
+                       max(err, err_r), ms, plain, bound, path=path)
 
     # K3 at each path's Schur systems plus an ill-conditioned and a NaN point
     for path, regime in (("b1855", False), ("dmx15", True)):

@@ -30,7 +30,8 @@ from pint_torch.toa import TOABatch
 
 __all__ = ["load_snapshot", "read_snapshot", "SNAPSHOT_FORMAT",
            "STANDIN_PATH", "DMX15_PATH", "ELL1_PATH", "ELL1H_PATH",
-           "NGC_PATH", "NGC_PHOFF_PATH"]
+           "NGC_PATH", "NGC_PHOFF_PATH", "DDK_PATH", "DDGR_PATH",
+           "BT_SMALL_PATH", "DDS_SMALL_PATH", "DDH_SMALL_PATH"]
 
 SNAPSHOT_FORMAT = "pint_torch-snapshot-1"
 #: the committed full-width B1855+09-shaped stand-in
@@ -51,6 +52,16 @@ NGC_PATH = STANDIN_PATH.with_name("ngc6440e_standin.npz")
 #: the same with an explicit fitted PhaseOffset (PHOFF) in place of the
 #: implicit offset
 NGC_PHOFF_PATH = STANDIN_PATH.with_name("ngc6440e_phoff_standin.npz")
+#: the J1713+0747-shaped GLS stand-in: a DDK binary (Kopeikin's
+#: corrections; KIN x KOM grid), ecliptic astrometry with parallax
+DDK_PATH = STANDIN_PATH.with_name("j1713_ddk_standin.npz")
+#: the B1913+16-shaped WLS stand-in: a DDGR binary at ECC 0.617 (MTOT x M2
+#: grid)
+DDGR_PATH = STANDIN_PATH.with_name("b1913_ddgr_standin.npz")
+#: the small GLS stand-in (80 TOAs) with its binary as BT, DDS and DDH
+BT_SMALL_PATH = STANDIN_PATH.with_name("small_bt_standin.npz")
+DDS_SMALL_PATH = STANDIN_PATH.with_name("small_dds_standin.npz")
+DDH_SMALL_PATH = STANDIN_PATH.with_name("small_ddh_standin.npz")
 
 _BATCH_KEYS = ("tdb_hi", "tdb_lo", "tdb0", "tdb_s_hi", "tdb_s_lo", "freq",
                "error_us", "ssb_obs_pos", "ssb_obs_vel", "obs_sun_pos",

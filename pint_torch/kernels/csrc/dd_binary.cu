@@ -1,5 +1,5 @@
-// K2 dd_binary: the Damour-Deruelle binary delay per (point, TOA), with
-// its 17 local partials on request.
+// K2 dd_binary: the DD family's binary delay per (point, TOA), with its
+// local partials on request.
 //
 // Replaces pint_tpu/models/binary/engines.py:orbits_pb, solve_kepler,
 // dd_state and dd_delay_core (engines.py:38-226) as called by
@@ -14,18 +14,42 @@
 // days, OM in degrees, OMDOT in deg/yr, M2 in solar masses).  Partials are
 // with respect to tt0 (index 0) and the 16 parameters (1..16).
 //
-// Two instantiations.  dd_binary_primal runs dd_forward and writes the
-// delay.  dd_binary_dual (the partials) runs the same dd_forward -- so its
-// delay is bitwise the primal's -- and then a hand-derived reverse sweep:
-// the delay is one scalar of 17 inputs, so its gradient costs one adjoint
-// pass over the ~40 intermediates dd_forward keeps, instead of a 17-wide
-// dual number carried through every operation.  Kepler's equation is not
-// differentiated through its iterations: at the root E - e sin E = M the
-// implicit function theorem gives dE = (dM + sin E de) / (1 - e cos E),
-// which equals the derivative through 15 converged Newton steps to
-// rounding (solve_kepler: below 1e-15 for e <= 0.95).  The plain twin
-// (kernels/dd_binary.py, models/binary/engines.py) repeats both passes
-// operation for operation.
+// MODE, a template parameter, picks the family member (the forms differ
+// in which inputs they read, so each gets its own instantiation and no
+// runtime branch; DDS and DDH are DD on a reparameterized row):
+//   DD   -- as above (engines.py:185 dd_delay_core via :216 dd_delay);
+//   BT   -- engines.py:135 bt_delay: (L1 + L2) R on Kepler's E with
+//           omega = OM + OMDOT t and R from the constant PB; it reads PB,
+//           PBDOT, XPBDOT, A1, A1DOT, ECC, EDOT, OM, OMDOT and GAMMA and
+//           has its own forward pass and reverse sweep (bt_forward,
+//           bt_reverse); its dual writes 11 partials, tt0's and those of
+//           the 10 entries it reads;
+//   DDGR -- engines.py:266 ddgr_delay: the row holds the GR-derived k,
+//           the companion mass in seconds and the semi-major axis ar in
+//           place of OMDOT, M2 and SINI (PBDOT already holds the GR orbital
+//           decay); sini = a1 / ar per TOA, one division as the reference
+//           divides;
+//   DDK  -- engines.py:338 ddk_delay: three (B, N) inputs more, Kopeikin's
+//           d_a1 and d_om and sin(kin), added to a1 and to omega after
+//           k nu and used as sini; its dual writes 19 partials: tt0's,
+//           the row's but the unread SINI's, then d_a1's, d_om's and
+//           sini's.
+// A partial of a row entry the mode does not read would be a column of
+// zeros, so it is not written (Mode<MODE>::column maps the output's
+// columns onto the reverse sweep's).
+//
+// Two instantiations a mode.  dd_binary_primal<MODE> runs the forward pass
+// and writes the delay.  dd_binary_dual<MODE> (the partials) runs the same
+// forward pass -- so its delay is bitwise the primal's -- and then a
+// hand-derived reverse sweep: the delay is one scalar of 17 inputs, so its
+// gradient costs one adjoint pass over the ~40 intermediates dd_forward
+// keeps, instead of a 17-wide dual number carried through every operation.
+// Kepler's equation is not differentiated through its iterations: at the
+// root E - e sin E = M the implicit function theorem gives
+// dE = (dM + sin E de) / (1 - e cos E), which equals the derivative
+// through 15 converged Newton steps to rounding (solve_kepler: below 1e-15
+// for e <= 0.95).  The plain twin (kernels/dd_binary.py,
+// models/binary/engines.py) repeats both passes operation for operation.
 //
 // NaN propagates: the Newton clamp is written as comparisons that keep NaN,
 // so a point outside the physical domain (SINI > 1 making the Shapiro log
@@ -43,23 +67,25 @@
 // kepler_exit emulates the rule in plain PyTorch).  Near-circular orbits
 // repeat after 2-3 steps; at e >= 0.6 a few elements still run all 15.
 //
-// Bound on this card.  Per element it reads tt0 (8 B) and writes the
-// delay (8 B) and, in the dual, 17 partials (136 B), against the
-// operations counted in chip_smoke.py (K2_FORWARD_OPS, K2_NEWTON_OPS per
-// step, K2_REVERSE_OPS; a sine, cosine, arctangent, logarithm or square
-// root counted as 20): the primal is bound by operations and the dual by
-// bytes.  What holds both above their bounds is latency: the Newton steps
-// are a chain of dependent sine/cosine pairs and divisions, and the dual's
-// registers (~140 a thread) leave fewer warps to hide it.  The design
-// shortens that chain -- the exit above, and each same-argument sine and
-// cosine from one sincos(), which shares the range reduction and gives the
-// bits of sin() and cos() that the twin calls apart (chip_smoke.py holds
-// the delay bitwise against it) -- and keeps everything in registers (0
-// spill bytes).  The primal runs on a 2-D grid (blockIdx.y = row), so each
-// block loads its parameter row once, behind its threads' tt0 loads, and
-// no thread divides by N; the dual keeps one thread per element on a 1-D
-// grid and stages its partials in shared memory so that each block writes
-// its rows of the output contiguously.
+// Bound on this card.  Per element it reads tt0 (8 B; DDK 32 B) and writes
+// the delay (8 B) and, in the dual, 17 partials (136 B; BT 11, 88 B; DDK
+// 19, 152 B),
+// against the operations counted in chip_smoke.py (K2_FORWARD_OPS,
+// K2_NEWTON_OPS per step, K2_REVERSE_OPS, and per mode; a sine, cosine,
+// arctangent, logarithm or square root counted as 20): the primal is bound
+// by operations and the dual by bytes.  What holds both above their bounds
+// is latency: the Newton steps are a chain of dependent sine/cosine pairs
+// and divisions, and the dual's registers (~140 a thread) leave fewer warps
+// to hide it.  The design shortens that chain -- the exit above, and each
+// same-argument sine and cosine from one sincos(), which shares the range
+// reduction and gives the bits of sin() and cos() that the twin calls
+// apart (chip_smoke.py holds the delay bitwise against it) -- and keeps
+// everything in registers (0 spill bytes in the primals).  The primal runs
+// on a 2-D grid (blockIdx.y = row), so each block loads its parameter row
+// once, behind its threads' tt0 loads, and no thread divides by N; the
+// dual keeps one thread per element on a 1-D grid and stages its partials
+// in shared memory so that each block writes its rows of the output
+// contiguously.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -70,39 +96,57 @@ constexpr double DEG = 0.017453292519943295;        // math.pi / 180.0
 constexpr double SEC_PER_YEAR = 31557600.0;         // 365.25 * 86400.0
 constexpr double TSUN = 4.925490947000518e-06;      // G Msun / c^3 [s]
 constexpr int NPAR = 16;
-constexpr int NPARTIAL = NPAR + 1;
 constexpr int THREADS = 128;
 constexpr int MAX_GRID_Y = 65535;
 
-// The primal's intermediates that the reverse sweep reads.
+// The family's forms (engines.py DD, BT, DDGR, DDK).
+enum : int { DD = 0, BT = 1, DDGR = 2, DDK = 3 };
+
+template <int MODE>
+struct Mode {
+  // the reverse sweep's partials: tt0 (0), the row (1..16) and DDK's three
+  // per-TOA inputs (17..19)
+  static constexpr int NSWEEP = NPAR + 1 + (MODE == DDK ? 3 : 0);
+  // the partials written: all of the sweep's but those of the row entries
+  // the mode does not read (BT: M2, SINI, DR, DTH, A0, B0; DDK: SINI)
+  static constexpr int NPARTIAL =
+      MODE == BT ? 11 : (MODE == DDK ? NSWEEP - 1 : NSWEEP);
+  // the sweep's index of written column j
+  __host__ __device__ static constexpr int column(int j) {
+    return MODE == BT ? (j < 10 ? j : 12)
+                      : (MODE == DDK ? (j < 11 ? j : j + 1) : j);
+  }
+};
+
+// DDK's per-TOA inputs (zeros in the other modes, which do not read them).
+struct Toa {
+  double d_a1, d_om, sini;
+};
+
+// The DD forward pass's intermediates that the reverse sweep reads.
 struct Fwd {
   double pb_s, pbdot, frac, pbprime, e, sinE, cosE, sE2, cE2, sq1p, sq1m,
-      yv, xv, nu, k, nu_cont, omega, a1, m2_tsun, er, eth, so, co, alpha, q,
-      beta, bg, Dre, Drep, Drepp, den, nhat, nD, nhat2, T, brI, r1, inner,
-      brace, sopn, copn, delay;
+      yv, xv, nu, k, nu_cont, omega, a1, m2_tsun, sini, er, eth, so, co,
+      alpha, q, beta, bg, Dre, Drep, Drepp, den, nhat, nD, nhat2, T, brI, r1,
+      inner, brace, sopn, copn, delay;
+};
+
+// BT's.
+struct BtFwd {
+  double pb_s, pbdot, frac, e, sinE, cosE, a1, omdot, so, co, alpha, sq,
+      beta, bg, L, num, den, w, q, R, delay;
 };
 
 __device__ __forceinline__ double clip1(double x) {
   return x < -1.0 ? -1.0 : (x > 1.0 ? 1.0 : x);  // keeps NaN
 }
 
-__device__ __forceinline__ void dd_forward(double t, const double* p,
-                                           Fwd& f) {
-  // orbits_pb, mean_anomaly, ecc_at
-  f.pb_s = p[0] * 86400.0;
-  f.pbdot = p[1] + p[2];
-  f.frac = t / f.pb_s;
-  const double orbits = f.frac - 0.5 * f.pbdot * f.frac * f.frac;
-  f.pbprime = f.pb_s + p[1] * t;
-  const double fl = floor(orbits);
-  const double M = (orbits - fl) * TWO_PI;
-  const double e = p[5] + t * p[6];
-  f.e = e;
-  // solve_kepler: 15 clamped Newton steps, left once the iterate repeats
-  // (see the head of this file): E_{n+1} equal to E_n is a fixed point,
-  // equal to E_{n-1} a 2-cycle whose step 15 is E_{n+1} or E_n by the
-  // parity of the steps left.  Bits, not ==, are compared, so -0 and +0
-  // (and NaN) stay apart.
+// solve_kepler: 15 clamped Newton steps, left once the iterate repeats
+// (see the head of this file): E_{n+1} equal to E_n is a fixed point,
+// equal to E_{n-1} a 2-cycle whose step 15 is E_{n+1} or E_n by the parity
+// of the steps left.  Bits, not ==, are compared, so -0 and +0 (and NaN)
+// stay apart.
+__device__ __forceinline__ double kepler(double M, double e) {
   double E = M + e * sin(M);
   long long before = 0;  // bits of E_{n-1}, from the second step on
   for (int it = 0; it < 15; ++it) {
@@ -120,20 +164,53 @@ __device__ __forceinline__ void dd_forward(double t, const double* p,
     before = bE;
     E = En;
   }
+  return E;
+}
+
+template <int MODE>
+__device__ __forceinline__ void dd_forward(double t, const double* p,
+                                           const Toa& x, Fwd& f) {
+  // orbits_pb, mean_anomaly, ecc_at
+  f.pb_s = p[0] * 86400.0;
+  f.pbdot = p[1] + p[2];
+  f.frac = t / f.pb_s;
+  const double orbits = f.frac - 0.5 * f.pbdot * f.frac * f.frac;
+  f.pbprime = f.pb_s + p[1] * t;
+  const double fl = floor(orbits);
+  const double M = (orbits - fl) * TWO_PI;
+  const double e = p[5] + t * p[6];
+  f.e = e;
+  const double E = kepler(M, e);
   sincos(E, &f.sinE, &f.cosE);
-  // dd_state: true anomaly and periastron advance
+  // dd_state: true anomaly and periastron advance (DDGR: the row's k)
   sincos(E / 2.0, &f.sE2, &f.cE2);
   f.sq1p = sqrt(1.0 + e);
   f.sq1m = sqrt(1.0 - e);
   f.yv = f.sq1p * f.sE2;
   f.xv = f.sq1m * f.cE2;
   f.nu = 2.0 * atan2(f.yv, f.xv);
-  f.k = p[8] * DEG / SEC_PER_YEAR / (TWO_PI / f.pbprime);
+  if constexpr (MODE == DDGR)
+    f.k = p[8];
+  else
+    f.k = p[8] * DEG / SEC_PER_YEAR / (TWO_PI / f.pbprime);
   f.nu_cont = f.nu + TWO_PI * fl + (f.nu < 0.0 ? TWO_PI : 0.0);
   f.omega = p[7] * DEG + f.k * f.nu_cont;
-  // a1_at, dd_delay_core
+  // a1_at, dd_delay_core; DDK's corrections on top, sini by the mode
   f.a1 = p[3] + t * p[4];
-  f.m2_tsun = p[9] * TSUN;
+  if constexpr (MODE == DDK) {
+    f.omega = f.omega + x.d_om;
+    f.a1 = f.a1 + x.d_a1;
+  }
+  if constexpr (MODE == DDGR)
+    f.m2_tsun = p[9];
+  else
+    f.m2_tsun = p[9] * TSUN;
+  if constexpr (MODE == DDGR)
+    f.sini = f.a1 / p[10];
+  else if constexpr (MODE == DDK)
+    f.sini = x.sini;
+  else
+    f.sini = p[10];
   f.er = e * (1.0 + p[12]);
   f.eth = e * (1.0 + p[13]);
   sincos(f.omega, &f.so, &f.co);
@@ -154,7 +231,7 @@ __device__ __forceinline__ void dd_forward(double t, const double* p,
   const double delayI = f.Dre * f.brI;
   f.r1 = sqrt(1.0 - e * e);
   f.inner = f.so * (f.cosE - e) + f.r1 * f.co * f.sinE;
-  f.brace = f.den - p[10] * f.inner;
+  f.brace = f.den - f.sini * f.inner;
   const double delayS = -2.0 * f.m2_tsun * log(f.brace);
   const double opn = f.omega + f.nu;
   sincos(opn, &f.sopn, &f.copn);
@@ -163,7 +240,9 @@ __device__ __forceinline__ void dd_forward(double t, const double* p,
   f.delay = delayI + delayS + delayA;
 }
 
-// Reverse sweep: the 17 partials of f.delay into P (tt0, then the row).
+// Reverse sweep: the partials of f.delay into P (tt0, then the row, then
+// DDK's per-TOA inputs; DDK leaves the unread SINI's P[11] unset).
+template <int MODE>
 __device__ __forceinline__ void dd_reverse(double t, const double* p,
                                            const Fwd& f, double* P) {
   const double e = f.e;
@@ -177,12 +256,13 @@ __device__ __forceinline__ void dd_reverse(double t, const double* p,
   double g_co = gd * (p[15] * e);
   double g_omega = g_opn;
   double g_nu = g_opn;
-  // delayS = -2 m2_tsun log(brace); brace = den - SINI inner
-  P[10] = gd * (-2.0 * log(f.brace)) * TSUN;
+  // delayS = -2 m2_tsun log(brace); brace = den - sini inner
+  P[10] = gd * (-2.0 * log(f.brace));
+  if constexpr (MODE != DDGR) P[10] = P[10] * TSUN;
   const double g_brace = gd * (-2.0 * f.m2_tsun / f.brace);
   double g_den = g_brace;
-  P[11] = -g_brace * f.inner;
-  const double g_inner = -g_brace * p[10];
+  const double g_sini = -g_brace * f.inner;
+  const double g_inner = -g_brace * f.sini;
   // inner = so (cosE - e) + r1 co sinE; r1 = sqrt(1 - e^2)
   g_so = g_so + g_inner * (f.cosE - e);
   double g_c = g_inner * f.so;
@@ -238,16 +318,32 @@ __device__ __forceinline__ void dd_reverse(double t, const double* p,
   g_a1 = g_a1 + g_alpha * f.so;
   g_so = g_so + g_alpha * f.a1;
   g_omega = g_omega + g_so * f.co - g_co * f.so;
+  // sini: SINI (DD), a1 / ar (DDGR), per TOA (DDK)
+  if constexpr (MODE == DDGR) {
+    g_a1 = g_a1 + g_sini / p[10];
+    P[11] = -g_sini * f.sini / p[10];
+  } else if constexpr (MODE == DDK) {
+    P[17] = g_a1;
+    P[18] = g_omega;
+    P[19] = g_sini;
+  } else {
+    P[11] = g_sini;
+  }
   // eth = e (1 + DTH); er = e (1 + DR)
   g_e = g_e + g_eth * (1.0 + p[13]) + g_er * (1.0 + p[12]);
   P[14] = g_eth * e;
   P[13] = g_er * e;
   // omega = OM DEG + k nu_cont; k = OMDOT DEG / SEC_PER_YEAR / (2 pi / pbprime)
+  // or, in DDGR, the row's k
   P[8] = g_omega * DEG;
   const double g_k = g_omega * f.nu_cont;
   g_nu = g_nu + g_omega * f.k;
-  P[9] = g_k * (DEG / SEC_PER_YEAR / (TWO_PI / f.pbprime));
-  g_pbprime = g_pbprime + g_k * f.k / f.pbprime;
+  if constexpr (MODE == DDGR) {
+    P[9] = g_k;
+  } else {
+    P[9] = g_k * (DEG / SEC_PER_YEAR / (TWO_PI / f.pbprime));
+    g_pbprime = g_pbprime + g_k * f.k / f.pbprime;
+  }
   // nu = 2 atan2(yv, xv); yv = sq1p sin(E/2); xv = sq1m cos(E/2)
   const double rr = f.xv * f.xv + f.yv * f.yv;
   const double g_yv = g_nu * 2.0 * f.xv / rr;
@@ -275,36 +371,143 @@ __device__ __forceinline__ void dd_reverse(double t, const double* p,
   P[0] = g_frac / f.pb_s + g_pbprime * p[1] + g_e * p[6] + g_a1 * p[4];
 }
 
+// BT (engines.py:135 bt_delay with use_pb): the same orbits and Kepler
+// solve, omega_bt = OM DEG + ((OMDOT DEG) / SEC_PER_YEAR) t, and
+// (alpha (cosE - e) + (beta + GAMMA) sinE) (1 - 2 pi num / (den PB 86400)).
+__device__ __forceinline__ void bt_forward(double t, const double* p,
+                                           BtFwd& f) {
+  f.pb_s = p[0] * 86400.0;
+  f.pbdot = p[1] + p[2];
+  f.frac = t / f.pb_s;
+  const double orbits = f.frac - 0.5 * f.pbdot * f.frac * f.frac;
+  const double M = (orbits - floor(orbits)) * TWO_PI;
+  const double e = p[5] + t * p[6];
+  f.e = e;
+  const double E = kepler(M, e);
+  f.a1 = p[3] + t * p[4];
+  f.omdot = p[8] * DEG / SEC_PER_YEAR;
+  sincos(p[7] * DEG + f.omdot * t, &f.so, &f.co);
+  sincos(E, &f.sinE, &f.cosE);
+  f.alpha = f.a1 * f.so;
+  f.sq = sqrt(1.0 - e * e);
+  f.beta = f.a1 * f.co * f.sq;
+  f.bg = f.beta + p[11];
+  f.L = f.alpha * (f.cosE - e) + f.bg * f.sinE;
+  f.num = f.beta * f.cosE - f.alpha * f.sinE;
+  f.den = 1.0 - e * f.cosE;
+  f.w = f.den * f.pb_s;
+  f.q = TWO_PI * f.num / f.w;
+  f.R = 1.0 - f.q;
+  f.delay = f.L * f.R;
+}
+
+__device__ __forceinline__ void bt_reverse(double t, const double* p,
+                                           const BtFwd& f, double* P) {
+  const double e = f.e;
+  const double gd = isfinite(f.delay) ? 1.0 : nan("");
+  // delay = L R; R = 1 - q; q = 2 pi num / w; w = den pb_s
+  const double g_L = gd * f.R;
+  const double g_q = -(gd * f.L);
+  const double g_num = g_q * TWO_PI / f.w;
+  const double g_w = -g_q * f.q / f.w;
+  const double g_den = g_w * f.pb_s;
+  double g_pbs = g_w * f.den;
+  // den = 1 - e cosE
+  double g_e = -g_den * f.cosE;
+  double g_c = -g_den * e;
+  // num = beta cosE - alpha sinE
+  double g_beta = g_num * f.cosE;
+  g_c = g_c + g_num * f.beta;
+  double g_alpha = -g_num * f.sinE;
+  double g_s = -g_num * f.alpha;
+  // L = alpha (cosE - e) + bg sinE; bg = beta + GAMMA
+  g_alpha = g_alpha + g_L * (f.cosE - e);
+  g_c = g_c + g_L * f.alpha;
+  g_e = g_e - g_L * f.alpha;
+  const double g_bg = g_L * f.sinE;
+  g_s = g_s + g_L * f.bg;
+  g_beta = g_beta + g_bg;
+  P[12] = g_bg;
+  // beta = a1 co sq; sq = sqrt(1 - e^2); alpha = a1 so
+  double g_a1 = g_beta * f.co * f.sq;
+  const double g_co = g_beta * f.a1 * f.sq;
+  const double g_sq = g_beta * f.a1 * f.co;
+  g_e = g_e - g_sq * e / f.sq;
+  g_a1 = g_a1 + g_alpha * f.so;
+  const double g_so = g_alpha * f.a1;
+  // om = OM DEG + omdot t
+  const double g_om = g_so * f.co - g_co * f.so;
+  P[8] = g_om * DEG;
+  P[9] = g_om * (DEG / SEC_PER_YEAR) * t;
+  // Kepler at its root: dE = (dM + sinE de) / den
+  const double g_E = g_s * f.cosE - g_c * f.sinE;
+  const double g_M = g_E / f.den;
+  g_e = g_e + g_M * f.sinE;
+  P[6] = g_e;
+  P[7] = g_e * t;
+  P[4] = g_a1;
+  P[5] = g_a1 * t;
+  // M = (orbits - floor) 2 pi; orbits = frac - 0.5 pbdot frac^2;
+  // frac = t / pb_s; pb_s = PB 86400 (R's constant PB too)
+  const double g_orb = g_M * TWO_PI;
+  const double g_frac = g_orb * (1.0 - f.pbdot * f.frac);
+  const double g_pbdot = -g_orb * 0.5 * f.frac * f.frac;
+  g_pbs = g_pbs - g_frac * f.frac / f.pb_s;
+  P[1] = g_pbs * 86400.0;
+  P[2] = g_pbdot;
+  P[3] = g_pbdot;
+  P[0] = g_frac / f.pb_s + g_e * p[6] + g_a1 * p[4] + g_om * f.omdot;
+}
+
 // One block covers THREADS TOAs of one row b = b0 + blockIdx.y, so the
 // parameter row is loaded once per block and no thread divides by N.  Each
-// thread's tt0 is loaded before the barrier, so that its latency overlaps
-// the row's.
+// thread's tt0 (and DDK's per-TOA inputs) is loaded before the barrier, so
+// that its latency overlaps the row's.
+template <int MODE>
 __global__ void dd_binary_primal(const double* __restrict__ tt0,
-                                 const double* __restrict__ params, int b0,
+                                 const double* __restrict__ params,
+                                 const double* __restrict__ d_a1,
+                                 const double* __restrict__ d_om,
+                                 const double* __restrict__ sini, int b0,
                                  int N, double* __restrict__ delay) {
   __shared__ double row[NPAR];
   const long b = (long)b0 + blockIdx.y;
   const int n = blockIdx.x * THREADS + threadIdx.x;
   const long idx = b * N + n;
   const double t = n < N ? tt0[idx] : 0.0;
+  Toa x{0.0, 0.0, 0.0};
+  if constexpr (MODE == DDK) {
+    if (n < N) x = Toa{d_a1[idx], d_om[idx], sini[idx]};
+  }
   if (threadIdx.x < NPAR) row[threadIdx.x] = params[b * NPAR + threadIdx.x];
   __syncthreads();
   if (n >= N) return;
   double p[NPAR];
 #pragma unroll
   for (int i = 0; i < NPAR; ++i) p[i] = row[i];
-  Fwd f;
-  dd_forward(t, p, f);
-  delay[idx] = f.delay;
+  if constexpr (MODE == BT) {
+    BtFwd f;
+    bt_forward(t, p, f);
+    delay[idx] = f.delay;
+  } else {
+    Fwd f;
+    dd_forward<MODE>(t, p, x, f);
+    delay[idx] = f.delay;
+  }
 }
 
 // The block's partials go through shared memory so that its rows of the
-// (B, N, 17) output are written contiguously (one thread's 17 values are
-// 136 B apart from the next thread's).
+// (B, N, NPARTIAL) output are written contiguously (one thread's values are
+// 8 NPARTIAL B apart from the next thread's).
+template <int MODE>
 __global__ void dd_binary_dual(const double* __restrict__ tt0,
-                               const double* __restrict__ params, int B, int N,
+                               const double* __restrict__ params,
+                               const double* __restrict__ d_a1,
+                               const double* __restrict__ d_om,
+                               const double* __restrict__ sini, int B, int N,
                                double* __restrict__ delay,
                                double* __restrict__ partials) {
+  constexpr int NPARTIAL = Mode<MODE>::NPARTIAL;
   __shared__ double rows[THREADS * NPARTIAL];
   const long first = (long)blockIdx.x * THREADS;
   const long idx = first + threadIdx.x;
@@ -315,13 +518,23 @@ __global__ void dd_binary_dual(const double* __restrict__ tt0,
 #pragma unroll
     for (int i = 0; i < NPAR; ++i) p[i] = params[b * NPAR + i];
     const double t = tt0[idx];
-    Fwd f;
-    dd_forward(t, p, f);
-    double P[NPARTIAL];
-    dd_reverse(t, p, f, P);
-    delay[idx] = f.delay;
+    double P[Mode<MODE>::NSWEEP];
+    if constexpr (MODE == BT) {
+      BtFwd f;
+      bt_forward(t, p, f);
+      bt_reverse(t, p, f, P);
+      delay[idx] = f.delay;
+    } else {
+      Toa x{0.0, 0.0, 0.0};
+      if constexpr (MODE == DDK) x = Toa{d_a1[idx], d_om[idx], sini[idx]};
+      Fwd f;
+      dd_forward<MODE>(t, p, x, f);
+      dd_reverse<MODE>(t, p, f, P);
+      delay[idx] = f.delay;
+    }
 #pragma unroll
-    for (int i = 0; i < NPARTIAL; ++i) rows[threadIdx.x * NPARTIAL + i] = P[i];
+    for (int i = 0; i < NPARTIAL; ++i)
+      rows[threadIdx.x * NPARTIAL + i] = P[Mode<MODE>::column(i)];
   }
   __syncthreads();
   const long n = (total - first < THREADS ? total - first : THREADS) * NPARTIAL;
@@ -329,25 +542,51 @@ __global__ void dd_binary_dual(const double* __restrict__ tt0,
   for (long e = threadIdx.x; e < n; e += THREADS) out[e] = rows[e];
 }
 
-}  // namespace
-
-extern "C" int dd_binary_launch(const double* tt0, const double* params, int B,
-                                int N, double* delay, double* partials,
-                                void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const long total = (long)B * N;
-  if (total == 0) return 0;
+template <int MODE>
+void launch(const double* tt0, const double* params, int B, int N,
+            const double* d_a1, const double* d_om, const double* sini,
+            double* delay, double* partials, cudaStream_t st) {
   if (partials == nullptr) {
     const unsigned nx = (unsigned)((N + THREADS - 1) / THREADS);
     for (int b0 = 0; b0 < B; b0 += MAX_GRID_Y) {
       const unsigned ny = (unsigned)(B - b0 < MAX_GRID_Y ? B - b0 : MAX_GRID_Y);
-      dd_binary_primal<<<dim3(nx, ny), THREADS, 0, st>>>(tt0, params, b0, N,
-                                                         delay);
+      dd_binary_primal<MODE><<<dim3(nx, ny), THREADS, 0, st>>>(
+          tt0, params, d_a1, d_om, sini, b0, N, delay);
     }
   } else {
+    const long total = (long)B * N;
     const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
-    dd_binary_dual<<<blocks, THREADS, 0, st>>>(tt0, params, B, N, delay,
-                                               partials);
+    dd_binary_dual<MODE><<<blocks, THREADS, 0, st>>>(
+        tt0, params, d_a1, d_om, sini, B, N, delay, partials);
+  }
+}
+
+}  // namespace
+
+extern "C" int dd_binary_launch(const double* tt0, const double* params, int B,
+                                int N, int mode, const double* d_a1,
+                                const double* d_om, const double* sini,
+                                double* delay, double* partials,
+                                void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if ((long)B * N == 0) return 0;
+  switch (mode) {
+    case DD:
+      launch<DD>(tt0, params, B, N, d_a1, d_om, sini, delay, partials, st);
+      break;
+    case BT:
+      launch<BT>(tt0, params, B, N, d_a1, d_om, sini, delay, partials, st);
+      break;
+    case DDGR:
+      launch<DDGR>(tt0, params, B, N, d_a1, d_om, sini, delay, partials, st);
+      break;
+    case DDK:
+      if (d_a1 == nullptr || d_om == nullptr || sini == nullptr)
+        return (int)cudaErrorInvalidValue;
+      launch<DDK>(tt0, params, B, N, d_a1, d_om, sini, delay, partials, st);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

@@ -1,16 +1,28 @@
-"""K2 ``dd_binary``: the Damour-Deruelle binary delay with local partials.
+"""K2 ``dd_binary``: the DD family's binary delay with local partials.
 
 Replaces ``pint_tpu/models/binary/engines.py``'s ``orbits_pb``,
 ``solve_kepler``, ``dd_state`` and ``dd_delay_core`` (``engines.py:38-226``)
-as called by ``BinaryDD.delay_func`` (``components.py:195-205``).  Inputs
-with a leading batch axis B: ``tt0`` (B, N) seconds since T0 (barycentric,
-delay-corrected) and ``params`` (B, 16) in the order :data:`DD_PARAMS`.
-Returns the delay (B, N) in seconds; the local partials (B, N, 17) with
-respect to tt0 and the 16 parameters, from the kernel's reverse sweep,
-feed the ``jvp`` of the :class:`torch.autograd.Function`.
+as called by ``BinaryDD.delay_func`` (``components.py:195-205``), and with
+them, by ``mode``: ``bt_delay`` (``engines.py:135``, BT), ``dds_delay`` and
+``ddh_delay`` (``:227,239``: DD on a reparameterized row, see
+:func:`~pint_torch.models.binary.engines.dds_sini` and
+:func:`~pint_torch.models.binary.engines.ddh_sini_m2`), ``ddgr_delay``
+(``:266``, DDGR, its row from
+:func:`~pint_torch.models.binary.engines.ddgr_row`) and ``ddk_delay``
+(``:338``, DDK, with the per-TOA corrections of
+:func:`~pint_torch.models.binary.engines.ddk_corrections`).  Inputs with
+a leading batch axis B: ``tt0`` (B, N) seconds since T0 (barycentric,
+delay-corrected), ``params`` (B, 16) in the order of the mode's row
+(:data:`DD_PARAMS`, or :data:`DDGR_PARAMS` for DDGR) and, for DDK only,
+``toa``: the per-TOA d_a1, d_om and sini, (B, N) each.  Returns the
+delay (B, N) in seconds; the local partials (B, N, :func:`npartial`)
+with respect to tt0, the row entries the mode reads and DDK's per-TOA
+inputs (:func:`~pint_torch.models.binary.engines.partial_columns`: 17 in
+DD and DDGR, 11 in BT, 19 in DDK), from the kernel's reverse sweep, feed
+the ``jvp`` of the :class:`torch.autograd.Function`.
 
-On a CUDA tensor this launches ``csrc/dd_binary.cu`` (or raises); on a CPU
-tensor it runs :func:`dd_binary_reference`, the plain PyTorch twin.
+On a CUDA tensor this launches ``csrc/dd_binary.cu`` (or raises); on a
+CPU tensor it runs :func:`dd_binary_reference`, the plain PyTorch twin.
 """
 
 from __future__ import annotations
@@ -21,34 +33,64 @@ import torch
 
 from pint_torch import F64
 from pint_torch.kernels import _build
-from pint_torch.models.binary.engines import (DD_PARAMS, dd_forward,
-                                              dd_partials, kepler_inputs)
+from pint_torch.models.binary.engines import (BT, DD, DD_PARAMS, DDGR,
+                                              DDGR_PARAMS, DDK,
+                                              DDK_TOA_INPUTS, bt_forward,
+                                              bt_partials, dd_forward,
+                                              dd_partials, kepler_inputs,
+                                              npartial, partial_columns,
+                                              row_params)
 
-__all__ = ["dd_binary", "dd_binary_reference", "DD_PARAMS", "launch_counts",
-           "REPLACES", "KEPLER_EXITS", "kepler_exit", "kepler_steps"]
+__all__ = ["dd_binary", "dd_binary_reference", "DD_PARAMS", "DDGR_PARAMS",
+           "DD", "BT", "DDGR", "DDK", "launch_counts", "REPLACES",
+           "REPLACES_OF", "KERNELS", "KEPLER_EXITS", "kepler_exit",
+           "kepler_steps", "npartial", "ROW_COLUMNS"]
 
 NAME = "dd_binary"
 REPLACES = "pint_tpu/models/binary/engines.py:185"
-#: the two ``__global__`` instantiations of ``csrc/dd_binary.cu``, by
-#: whether the partials are asked for
-KERNELS = {False: "dd_binary_primal", True: "dd_binary_dual"}
+#: the reference function each mode replaces
+REPLACES_OF = {DD: REPLACES, BT: "pint_tpu/models/binary/engines.py:135",
+               DDGR: "pint_tpu/models/binary/engines.py:266",
+               DDK: "pint_tpu/models/binary/engines.py:338"}
+#: the eight ``__global__`` instantiations of ``csrc/dd_binary.cu``, by
+#: (mode, partials asked for): ``dd_binary_primal<DD>`` and so on
+KERNELS = {(DD, False): "dd_binary_primal", (DD, True): "dd_binary_dual",
+           (BT, False): "bt_binary_primal", (BT, True): "bt_binary_dual",
+           (DDGR, False): "ddgr_binary_primal",
+           (DDGR, True): "ddgr_binary_dual",
+           (DDK, False): "ddk_binary_primal", (DDK, True): "ddk_binary_dual"}
 launch_counts = dict.fromkeys(KERNELS.values(), 0)
 
-NPARTIAL = len(DD_PARAMS) + 1
+#: the row entries each mode's partials cover, by their index in the row
+ROW_COLUMNS = {m: [c - 1 for c in partial_columns(m) if 1 <= c <= 16]
+               for m in (DD, BT, DDGR, DDK)}
 
 
-def dd_binary_reference(tt0, params, partials: bool = True):
-    """Plain PyTorch version of K2: ``(delay, P)`` with ``P`` (B, N, 17)
-    the local partials (None when ``partials`` is False); the arithmetic is
-    :func:`~pint_torch.models.binary.engines.dd_forward` and, for the
-    partials, :func:`~pint_torch.models.binary.engines.dd_partials`."""
+def _row(params, mode):
+    return {k: params[:, i:i + 1] for i, k in enumerate(row_params(mode))}
+
+
+def dd_binary_reference(tt0, params, partials: bool = True, mode=DD,
+                        toa=None):
+    """Plain PyTorch version of K2: ``(delay, P)`` with ``P`` (B, N,
+    :func:`npartial`) the local partials (None when ``partials`` is
+    False); the arithmetic is
+    :func:`~pint_torch.models.binary.engines.dd_forward` (BT:
+    :func:`~pint_torch.models.binary.engines.bt_forward`) and, for the
+    partials, :func:`~pint_torch.models.binary.engines.dd_partials`
+    (:func:`~pint_torch.models.binary.engines.bt_partials`)."""
     B, N = tt0.shape
-    p = {k: params[:, i:i + 1] for i, k in enumerate(DD_PARAMS)}
-    f = dd_forward(p, tt0)
+    p = _row(params, mode)
+    if mode == BT:
+        f = bt_forward(p, tt0)
+    else:
+        f = dd_forward(p, tt0, mode,
+                       None if toa is None else dict(zip(DDK_TOA_INPUTS, toa)))
     delay = f["delay"].expand(B, N)
     if not partials:
         return delay, None
-    return delay, dd_partials(p, tt0, f).expand(B, N, NPARTIAL)
+    P = bt_partials(p, tt0, f) if mode == BT else dd_partials(p, tt0, f, mode)
+    return delay, P.expand(B, N, npartial(mode))
 
 
 #: how the kernel's Kepler solve stops, by the codes of :func:`kepler_steps`
@@ -94,8 +136,7 @@ def kepler_steps(tt0, params):
     the tests and by ``chip_smoke.py`` to count the Newton steps the
     kernel runs on a path's inputs."""
     B, N = tt0.shape
-    p = {k: params[:, i:i + 1] for i, k in enumerate(DD_PARAMS)}
-    _, M, e = kepler_inputs(p, tt0, {})
+    _, M, e = kepler_inputs(_row(params, DD), tt0, {})
     return kepler_exit(M.expand(B, N), e.expand(B, N))
 
 
@@ -104,81 +145,123 @@ def _lib():
     fn = lib.dd_binary_launch
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, ci, ci, vp, vp, vp]
+        fn.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, vp, vp, vp]
         fn.restype = ci
     return lib
 
 
-def _launch(tt0, params, partials):
+def _launch(tt0, params, mode, toa, partials):
     B, N = tt0.shape
     delay = torch.empty((B, N), dtype=F64, device=tt0.device)
-    P = torch.empty((B, N, NPARTIAL), dtype=F64, device=tt0.device) \
+    P = torch.empty((B, N, npartial(mode)), dtype=F64, device=tt0.device) \
         if partials else None
+    x = [None] * 3 if toa is None else [_build.ptr(v) for v in toa]
     rc = _lib().dd_binary_launch(
-        _build.ptr(tt0), _build.ptr(params), B, N, _build.ptr(delay),
-        _build.ptr(P) if partials else None, _build.stream_of(tt0))
-    launch_counts[KERNELS[bool(partials)]] += 1
+        _build.ptr(tt0), _build.ptr(params), B, N, int(mode), *x,
+        _build.ptr(delay), _build.ptr(P) if partials else None,
+        _build.stream_of(tt0))
+    launch_counts[KERNELS[(int(mode), bool(partials))]] += 1
     _build.check(NAME, rc)
     return delay, P
 
 
-def _run(tt0, params, partials):
-    if tt0.dtype != F64 or params.dtype != F64 or tt0.device != params.device \
-            or tt0.ndim != 2 or params.ndim != 2 \
-            or params.shape[1] != len(DD_PARAMS):
+def _run(tt0, params, mode, toa, partials):
+    ts = [tt0, params] + list(toa or ())
+    if any(t.dtype != F64 or t.device != tt0.device or t.ndim != 2
+           for t in ts) or params.shape[1] != len(DD_PARAMS) \
+            or (int(mode), False) not in KERNELS \
+            or (toa is None) != (int(mode) != DDK) \
+            or (toa is not None and len(toa) != len(DDK_TOA_INPUTS)):
         raise ValueError(
             f"dd_binary: tt0 {tuple(tt0.shape)} {tt0.dtype} on {tt0.device}, "
-            f"params {tuple(params.shape)} {params.dtype} on {params.device}; "
-            f"want float64 (B,N) and (B,{len(DD_PARAMS)}) on one device")
-    B = max(tt0.shape[0], params.shape[0])
-    tt0 = tt0.expand(B, tt0.shape[1]).contiguous()
+            f"params {tuple(params.shape)} {params.dtype} on {params.device}, "
+            f"mode {mode!r}, {0 if toa is None else len(toa)} per-TOA "
+            f"inputs; want float64 (B,N) and (B,{len(DD_PARAMS)}) on one "
+            "device, a mode of 0-3, and (B,N) d_a1, d_om and sini for DDK "
+            "only")
+    B = max(t.shape[0] for t in ts)
+    N = tt0.shape[1]
+    tt0 = tt0.expand(B, N).contiguous()
     params = params.expand(B, params.shape[1]).contiguous()
+    if toa is not None:
+        toa = tuple(v.expand(B, N).contiguous() for v in toa)
     if tt0.is_cuda:
-        return _launch(tt0, params, partials)
+        return _launch(tt0, params, int(mode), toa, partials)
     if tt0.device.type != "cpu":
         raise ValueError(f"dd_binary: no kernel for device {tt0.device}")
-    return dd_binary_reference(tt0, params, partials)
+    return dd_binary_reference(tt0, params, partials, int(mode), toa)
 
 
 class DDBinaryFn(torch.autograd.Function):
     """K2 under autodiff: forward returns ``(delay, P)``; ``jvp`` contracts
-    tangents with ``P``; ``vmap`` folds a vmapped axis into B."""
+    tangents with ``P`` (the row's through the columns of the entries the
+    mode reads, DDK's per-TOA inputs' through the last three; an entry
+    the mode does not read has no column and contributes nothing);
+    ``vmap`` folds a vmapped axis into B.
+    ``mode`` is a plain Python value; ``d_a1``, ``d_om`` and ``sini`` are
+    DDK's (B, N) inputs, None in the other modes."""
 
     @staticmethod
-    def forward(tt0, params):
-        return _run(tt0, params, True)
+    def forward(tt0, params, mode=DD, d_a1=None, d_om=None, sini=None):
+        toa = None if d_a1 is None else (d_a1, d_om, sini)
+        return _run(tt0, params, mode, toa, True)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         ctx.mark_non_differentiable(output[1])
         ctx.save_for_forward(output[1])
+        ctx.mode = inputs[2] if len(inputs) > 2 else DD
 
     @staticmethod
-    def jvp(ctx, d_tt0, d_params):
+    def jvp(ctx, d_tt0, d_params, _mode=None, d_da1=None, d_dom=None,
+            d_sini=None):
         (P,) = ctx.saved_tensors
         out = torch.zeros(P.shape[:-1], dtype=F64, device=P.device)
         if d_tt0 is not None:
             out = out + d_tt0 * P[..., 0]
+        rows = ROW_COLUMNS[ctx.mode]
+        nr = len(rows)
         if d_params is not None:
-            out = out + (P[..., 1:] @ d_params.unsqueeze(-1)).squeeze(-1)
+            dp = d_params if nr == d_params.shape[-1] \
+                else d_params[..., rows]
+            out = out + (P[..., 1:1 + nr] @ dp.unsqueeze(-1)).squeeze(-1)
+        for i, d in enumerate((d_da1, d_dom, d_sini)):
+            if d is not None:
+                out = out + d * P[..., 1 + nr + i]
         return out, None
 
     @staticmethod
-    def vmap(info, in_dims, tt0, params):
+    def vmap(info, in_dims, tt0, params, mode=DD, d_a1=None, d_om=None,
+             sini=None):
         V = info.batch_size
-        t = tt0.movedim(in_dims[0], 0) if in_dims[0] is not None \
-            else tt0.expand(V, *tt0.shape)
-        p = params.movedim(in_dims[1], 0) if in_dims[1] is not None \
-            else params.expand(V, *params.shape)
-        B = max(t.shape[1], p.shape[1])
+        dims = list(in_dims) + [None] * (6 - len(in_dims))
+
+        def lead(t, dim):
+            if t is None:
+                return None
+            return t.movedim(dim, 0) if dim is not None \
+                else t.expand(V, *t.shape)
+
+        t = lead(tt0, dims[0])
+        p = lead(params, dims[1])
+        toa = [lead(v, d) for v, d in zip((d_a1, d_om, sini), dims[3:])]
+        B = max([t.shape[1], p.shape[1]]
+                + [v.shape[1] for v in toa if v is not None])
         N = t.shape[2]
-        d, P = DDBinaryFn.apply(t.expand(V, B, N).reshape(V * B, N),
-                                p.expand(V, B, p.shape[2]).reshape(V * B, -1))
-        return (d.reshape(V, B, N), P.reshape(V, B, N, NPARTIAL)), (0, 0)
+
+        def fold(v):
+            return None if v is None else v.expand(V, B, N).reshape(V * B, N)
+
+        d, P = DDBinaryFn.apply(fold(t),
+                                p.expand(V, B, p.shape[2]).reshape(V * B, -1),
+                                mode, *(fold(v) for v in toa))
+        return (d.reshape(V, B, N), P.reshape(V, B, N, P.shape[-1])), (0, 0)
 
 
-def dd_binary(tt0, params):
-    """K2: the DD delay (B, N) (see the module docstring)."""
-    if _build.traced(tt0, params):
-        return DDBinaryFn.apply(tt0, params)[0]
-    return _run(tt0, params, False)[0]
+def dd_binary(tt0, params, mode=DD, toa=None):
+    """K2: the delay (B, N) of the DD family's ``mode`` (see the module
+    docstring); ``toa`` holds DDK's per-TOA (d_a1, d_om, sini)."""
+    mode = int(mode)
+    if _build.traced(tt0, params, *(toa or ())):
+        return DDBinaryFn.apply(tt0, params, mode, *(toa or ()))[0]
+    return _run(tt0, params, mode, toa, False)[0]

@@ -1,6 +1,7 @@
 """Timing-model components of the port (the stand-ins' set: equatorial
-and ecliptic astrometry, solar-system Shapiro, DM/DMX dispersion, DD,
-ELL1, ELL1k and ELL1H binaries, FD, spindown, jumps, the absolute phase
+and ecliptic astrometry, solar-system Shapiro, DM/DMX dispersion, the DD
+family's BT, DD, DDS, DDH, DDGR and DDK binaries, ELL1, ELL1k and ELL1H
+binaries, FD, spindown, jumps, the absolute phase
 and an explicit phase offset, EFAC/EQUAD/ECORR and power-law red
 noise)."""
 

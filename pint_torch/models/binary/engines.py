@@ -1,6 +1,7 @@
 """Binary-orbit delay engines (port of
-``pint_tpu/models/binary/engines.py:29-226,355-495``: the DD and ELL1
-paths, ELL1H's orthometric Shapiro delay with them).
+``pint_tpu/models/binary/engines.py:29-352,355-495``: the DD family --
+BT, DD, DDS, DDH, DDGR and DDK -- and the ELL1 family with ELL1H's
+orthometric Shapiro delay).
 
 Plain PyTorch functions of a parameter mapping ``p`` (PB, PBDOT, ... as in
 :data:`DD_PARAMS`, :data:`ELL1_PARAMS` or :data:`ELL1H_PARAMS`) and the
@@ -12,8 +13,12 @@ K2's ``dd_forward`` and :func:`dd_partials` its ``dd_reverse``;
 and ``ell1_reverse``.  So kernel and plain twin round alike.  The forward
 passes are the reference's own eager arithmetic; the partials come from
 hand-derived reverse sweeps (Kepler's equation differentiated at its root
-in DD).  On the main path the binary components call the kernel wrappers
-instead.
+in DD and BT).  :func:`bt_forward` and :func:`bt_partials` are K2's
+``bt_forward`` and ``bt_reverse``; K2's DDGR and DDK modes are
+:func:`dd_forward`'s, their rows and per-TOA inputs made here in torch
+(:func:`ddgr_row`, :func:`ddk_corrections`; DDS's and DDH's rows by
+:func:`dds_sini`, :func:`ddh_sini_m2`).  On the main path the binary
+components call the kernel wrappers instead.
 """
 
 from __future__ import annotations
@@ -22,9 +27,14 @@ import math
 
 import torch
 
-__all__ = ["DD_PARAMS", "ELL1_PARAMS", "ELL1H_PARAMS", "ELL1", "ELL1K",
-           "ELL1H_EXACT", "ELL1H_HARMONIC", "TSUN", "solve_kepler",
+__all__ = ["DD_PARAMS", "DDGR_PARAMS", "DDK_TOA_INPUTS", "DD", "BT", "DDGR",
+           "DDK", "ELL1_PARAMS", "ELL1H_PARAMS", "ELL1", "ELL1K",
+           "ELL1H_EXACT", "ELL1H_HARMONIC", "TSUN", "KPC_LS", "solve_kepler",
            "kepler_inputs", "dd_forward", "dd_delay", "dd_partials",
+           "bt_forward", "bt_delay", "bt_partials", "row_params",
+           "partial_columns", "npartial", "dds_sini",
+           "ddh_sini_m2", "ddgr_arr", "ddgr_row", "ddk_corrections",
+           "ecliptic_pm_to_equatorial",
            "ell1_eps", "ell1_roemer_terms", "ell1_inverse_delay",
            "ell1_forward", "ell1_delay", "ell1k_delay", "ell1h_delay",
            "ell1_partials", "ell1_params"]
@@ -33,6 +43,20 @@ __all__ = ["DD_PARAMS", "ELL1_PARAMS", "ELL1H_PARAMS", "ELL1", "ELL1K",
 #: OMDOT deg/yr, M2 Msun)
 DD_PARAMS = ("PB", "PBDOT", "XPBDOT", "A1", "A1DOT", "ECC", "EDOT", "OM",
              "OMDOT", "M2", "SINI", "GAMMA", "DR", "DTH", "A0", "B0")
+
+#: DDGR's row: DD's with the GR-derived periastron advance k (in place of
+#: OMDOT), the companion mass in seconds (M2S, G M2 / c^3, in place of M2)
+#: and the relativistic semi-major axis ar [s] (in place of SINI: sini =
+#: a1 / ar per TOA); PBDOT holds PBDOT plus the GR orbital decay
+DDGR_PARAMS = DD_PARAMS[:8] + ("K", "M2S", "AR") + DD_PARAMS[11:]
+
+#: DDK's per-TOA inputs, (B, N) each: Kopeikin's corrections to a1 [ls]
+#: and omega [rad], and sin(kin)
+DDK_TOA_INPUTS = ("d_a1", "d_om", "sini")
+
+#: the DD family's forms, as K2 takes them: DD (also DDS and DDH, whose
+#: rows are reparameterized), BT, DDGR and DDK
+DD, BT, DDGR, DDK = range(4)
 
 #: the ELL1/ELL1k parameter row (PB days, EPS1DOT/EPS2DOT 1/s, OMDOT
 #: deg/yr, LNEDOT 1/yr, M2 Msun); ELL1 reads EPS1DOT/EPS2DOT and ELL1k
@@ -93,9 +117,14 @@ def kepler_inputs(p, tt0, f: dict):
     return fl, M, e
 
 
-def dd_forward(p, tt0) -> dict:
+def dd_forward(p, tt0, mode=DD, x=None) -> dict:
     """The DD delay (SINI/M2 Shapiro, DR/DTH deformations) under ``delay``,
-    with the intermediates :func:`dd_partials` reads."""
+    with the intermediates :func:`dd_partials` reads.  ``mode`` DDGR reads
+    the row of :data:`DDGR_PARAMS` (k, m2 in seconds and the semi-major
+    axis ar in place of OMDOT, M2, SINI; sini = a1 / ar per TOA, as
+    ``ddgr_delay`` divides); DDK adds the per-TOA ``x["d_a1"]`` to a1 and
+    ``x["d_om"]`` to omega (after k nu, as ``ddk_delay`` adds it to the
+    state's omega) and takes sini from ``x["sini"]``."""
     f = {}
     fl, M, e = kepler_inputs(p, tt0, f)
     pbprime = f["pbprime"]
@@ -110,14 +139,25 @@ def dd_forward(p, tt0) -> dict:
     f["yv"] = f["sq1p"] * f["sE2"]
     f["xv"] = f["sq1m"] * f["cE2"]
     f["nu"] = nu = 2.0 * torch.atan2(f["yv"], f["xv"])
-    f["k"] = k = _div(_div(p["OMDOT"] * DEG, SEC_PER_YEAR),
-                      _div(TWO_PI, pbprime))
+    if mode == DDGR:
+        f["k"] = k = p["K"]
+    else:
+        f["k"] = k = _div(_div(p["OMDOT"] * DEG, SEC_PER_YEAR),
+                          _div(TWO_PI, pbprime))
     f["nu_cont"] = nu_cont = nu + TWO_PI * fl + (nu < 0.0).to(nu.dtype) \
         * TWO_PI
     f["omega"] = omega = p["OM"] * DEG + k * nu_cont
     # a1_at, dd_delay_core
     f["a1"] = a1 = p["A1"] + tt0 * p["A1DOT"]
-    f["m2_tsun"] = p["M2"] * TSUN
+    if mode == DDK:
+        f["omega"] = omega = omega + x["d_om"]
+        f["a1"] = a1 = a1 + x["d_a1"]
+    if mode == DDGR:
+        f["m2_tsun"] = p["M2S"]
+        f["sini"] = a1 / p["AR"]
+    else:
+        f["m2_tsun"] = p["M2"] * TSUN
+        f["sini"] = x["sini"] if mode == DDK else p["SINI"]
     f["er"] = e * (1.0 + p["DR"])
     f["eth"] = eth = e * (1.0 + p["DTH"])
     f["so"] = so = torch.sin(omega)
@@ -140,7 +180,7 @@ def dd_forward(p, tt0) -> dict:
     delayI = Dre * brI
     f["r1"] = torch.sqrt(1.0 - e * e)
     f["inner"] = so * (cosE - e) + f["r1"] * co * sinE
-    f["brace"] = den - p["SINI"] * f["inner"]
+    f["brace"] = den - f["sini"] * f["inner"]
     delayS = -2.0 * f["m2_tsun"] * torch.log(f["brace"])
     opn = omega + nu
     f["sopn"] = torch.sin(opn)
@@ -155,14 +195,16 @@ def dd_delay(p, tt0):
     return dd_forward(p, tt0)["delay"]
 
 
-def dd_partials(p, tt0, f):
-    """The reverse sweep of :func:`dd_forward`: partials (..., 17) of the
-    delay with respect to tt0 and the 16 parameters of :data:`DD_PARAMS`,
-    all NaN where the delay is not finite."""
+def dd_partials(p, tt0, f, mode=DD):
+    """The reverse sweep of :func:`dd_forward`: partials (...,
+    :func:`npartial`) of the delay with respect to tt0 and the row's
+    entries that the mode reads (:func:`partial_columns`: DD and DDGR all
+    16; DDK all but SINI, then d_a1, d_om and sini), all NaN where the
+    delay is not finite."""
     e = f["e"]
-    P = [None] * (len(DD_PARAMS) + 1)
+    P = [None] * (len(DD_PARAMS) + 1 + len(DDK_TOA_INPUTS))
     gd = torch.where(torch.isfinite(f["delay"]), 1.0, math.nan).to(e.dtype)
-    A0, B0, SINI = p["A0"], p["B0"], p["SINI"]
+    A0, B0 = p["A0"], p["B0"]
     sinE, cosE, so, co = f["sinE"], f["cosE"], f["so"], f["co"]
     # delayA = A0 (sin(omega+nu) + e so) + B0 (cos(omega+nu) + e co)
     P[15] = gd * (f["sopn"] + e * so)
@@ -173,12 +215,14 @@ def dd_partials(p, tt0, f):
     g_co = gd * (B0 * e)
     g_omega = g_opn
     g_nu = g_opn
-    # delayS = -2 m2_tsun log(brace); brace = den - SINI inner
-    P[10] = gd * (-2.0 * torch.log(f["brace"])) * TSUN
+    # delayS = -2 m2_tsun log(brace); brace = den - sini inner
+    P[10] = gd * (-2.0 * torch.log(f["brace"]))
+    if mode != DDGR:
+        P[10] = P[10] * TSUN
     g_brace = gd * (-2.0 * f["m2_tsun"] / f["brace"])
     g_den = g_brace
-    P[11] = -g_brace * f["inner"]
-    g_inner = -g_brace * SINI
+    g_sini = -g_brace * f["inner"]
+    g_inner = -g_brace * f["sini"]
     # inner = so (cosE - e) + r1 co sinE; r1 = sqrt(1 - e^2)
     g_so = g_so + g_inner * (cosE - e)
     g_c = g_inner * so
@@ -239,16 +283,30 @@ def dd_partials(p, tt0, f):
     g_a1 = g_a1 + g_alpha * so
     g_so = g_so + g_alpha * a1
     g_omega = g_omega + g_so * co - g_co * so
+    # sini: SINI (DD), a1 / ar (DDGR), per TOA (DDK)
+    if mode == DDGR:
+        g_a1 = g_a1 + g_sini / p["AR"]
+        P[11] = -g_sini * f["sini"] / p["AR"]
+    elif mode == DDK:
+        P[17] = g_a1
+        P[18] = g_omega
+        P[19] = g_sini
+    else:
+        P[11] = g_sini
     # eth = e (1 + DTH); er = e (1 + DR)
     g_e = g_e + g_eth * (1.0 + p["DTH"]) + g_er * (1.0 + p["DR"])
     P[14] = g_eth * e
     P[13] = g_er * e
     # omega = OM DEG + k nu_cont; k = OMDOT DEG / SEC_PER_YEAR / (2 pi / pb')
+    # or, in DDGR, the row's k
     P[8] = g_omega * DEG
     g_k = g_omega * f["nu_cont"]
     g_nu = g_nu + g_omega * f["k"]
-    P[9] = g_k * _div(DEG / SEC_PER_YEAR, _div(TWO_PI, pbprime))
-    g_pbprime = g_pbprime + g_k * f["k"] / pbprime
+    if mode == DDGR:
+        P[9] = g_k
+    else:
+        P[9] = g_k * _div(DEG / SEC_PER_YEAR, _div(TWO_PI, pbprime))
+        g_pbprime = g_pbprime + g_k * f["k"] / pbprime
     # nu = 2 atan2(yv, xv); yv = sq1p sin(E/2); xv = sq1m cos(E/2)
     xv, yv = f["xv"], f["yv"]
     rr = xv * xv + yv * yv
@@ -278,8 +336,301 @@ def dd_partials(p, tt0, f):
     P[3] = g_pbdot
     P[0] = g_frac / pb_s + g_pbprime * p["PBDOT"] + g_e * p["EDOT"] \
         + g_a1 * p["A1DOT"]
+    return _stack([P[i] for i in partial_columns(mode)])
+
+
+def _stack(P):
     shape = torch.broadcast_shapes(*(x.shape for x in P))
     return torch.stack([x.expand(shape) for x in P], dim=-1)
+
+
+# ----------------------------------------------------------------------
+# BT (Blandford & Teukolsky 1976; reference engines.py:127-159)
+# ----------------------------------------------------------------------
+def bt_forward(p, tt0) -> dict:
+    """The BT delay (L1 + L2) R on Kepler's E, R with the constant PB
+    (reference ``bt_delay`` with ``use_pb``), under ``delay``, with the
+    intermediates :func:`bt_partials` reads.  ``p`` is a
+    :data:`DD_PARAMS` row, of which BT reads PB, PBDOT, XPBDOT, A1,
+    A1DOT, ECC, EDOT, OM, OMDOT and GAMMA."""
+    f = {}
+    _, M, e = kepler_inputs(p, tt0, f)
+    E = solve_kepler(M, e)
+    f["a1"] = a1 = p["A1"] + tt0 * p["A1DOT"]
+    # omega_bt = OM DEG + ((OMDOT DEG) / SEC_PER_YEAR) tt0
+    f["omdot"] = omdot = _div(p["OMDOT"] * DEG, SEC_PER_YEAR)
+    om = p["OM"] * DEG + omdot * tt0
+    f["so"] = so = torch.sin(om)
+    f["co"] = co = torch.cos(om)
+    f["sinE"] = sinE = torch.sin(E)
+    f["cosE"] = cosE = torch.cos(E)
+    f["alpha"] = alpha = a1 * so
+    f["sq"] = sq = torch.sqrt(1.0 - e * e)
+    f["beta"] = beta = a1 * co * sq
+    f["bg"] = bg = beta + p["GAMMA"]
+    f["L"] = L = alpha * (cosE - e) + bg * sinE
+    f["num"] = num = beta * cosE - alpha * sinE
+    f["den"] = den = 1.0 - e * cosE
+    f["w"] = w = den * f["pb_s"]
+    f["q"] = q = TWO_PI * num / w
+    f["R"] = R = 1.0 - q
+    f["delay"] = L * R
+    return f
+
+
+def bt_delay(p, tt0):
+    """Plain BT delay."""
+    return bt_forward(p, tt0)["delay"]
+
+
+def bt_partials(p, tt0, f):
+    """The reverse sweep of :func:`bt_forward`: partials (..., 11) with
+    respect to tt0 and the 10 entries of :data:`DD_PARAMS` that BT reads
+    (:func:`partial_columns`), all NaN where the delay is not finite."""
+    e = f["e"]
+    gd = torch.where(torch.isfinite(f["delay"]), 1.0, math.nan).to(e.dtype)
+    P = [None] * (len(DD_PARAMS) + 1)
+    sinE, cosE, so, co = f["sinE"], f["cosE"], f["so"], f["co"]
+    alpha, beta, bg, den = f["alpha"], f["beta"], f["bg"], f["den"]
+    # delay = L R; R = 1 - q; q = 2 pi num / w; w = den pb_s
+    g_L = gd * f["R"]
+    g_q = -(gd * f["L"])
+    w = f["w"]
+    g_num = g_q * TWO_PI / w
+    g_w = -g_q * f["q"] / w
+    g_den = g_w * f["pb_s"]
+    g_pbs = g_w * den
+    # den = 1 - e cosE
+    g_e = -g_den * cosE
+    g_c = -g_den * e
+    # num = beta cosE - alpha sinE
+    g_beta = g_num * cosE
+    g_c = g_c + g_num * beta
+    g_alpha = -g_num * sinE
+    g_s = -g_num * alpha
+    # L = alpha (cosE - e) + bg sinE; bg = beta + GAMMA
+    g_alpha = g_alpha + g_L * (cosE - e)
+    g_c = g_c + g_L * alpha
+    g_e = g_e - g_L * alpha
+    g_bg = g_L * sinE
+    g_s = g_s + g_L * bg
+    g_beta = g_beta + g_bg
+    P[12] = g_bg
+    # beta = a1 co sq; sq = sqrt(1 - e^2); alpha = a1 so
+    a1, sq = f["a1"], f["sq"]
+    g_a1 = g_beta * co * sq
+    g_co = g_beta * a1 * sq
+    g_sq = g_beta * a1 * co
+    g_e = g_e - g_sq * e / sq
+    g_a1 = g_a1 + g_alpha * so
+    g_so = g_alpha * a1
+    # om = OM DEG + omdot t
+    g_om = g_so * co - g_co * so
+    P[8] = g_om * DEG
+    P[9] = g_om * (DEG / SEC_PER_YEAR) * tt0
+    # Kepler at its root: dE = (dM + sinE de) / den
+    g_E = g_s * cosE - g_c * sinE
+    g_M = g_E / den
+    g_e = g_e + g_M * sinE
+    P[6] = g_e
+    P[7] = g_e * tt0
+    P[4] = g_a1
+    P[5] = g_a1 * tt0
+    # M = (orbits - floor) 2 pi; orbits = frac - 0.5 pbdot frac^2;
+    # frac = t / pb_s; pb_s = PB 86400 (R's constant PB too)
+    frac, pb_s = f["frac"], f["pb_s"]
+    g_orb = g_M * TWO_PI
+    g_frac = g_orb * (1.0 - f["pbdot"] * frac)
+    g_pbdot = -g_orb * 0.5 * frac * frac
+    g_pbs = g_pbs - g_frac * frac / pb_s
+    P[1] = g_pbs * 86400.0
+    P[2] = g_pbdot
+    P[3] = g_pbdot
+    P[0] = g_frac / pb_s + g_e * p["EDOT"] + g_a1 * p["A1DOT"] \
+        + g_om * f["omdot"]
+    return _stack([P[i] for i in partial_columns(BT)])
+
+
+def row_params(mode):
+    """The parameter row of a K2 ``mode``."""
+    return DDGR_PARAMS if mode == DDGR else DD_PARAMS
+
+
+#: the row entries each K2 mode reads, by their index in the row: BT
+#: has no Shapiro delay, DR, DTH or aberration, and DDK reads its sini
+#: per TOA in place of the row's SINI
+_ROW_READ = {DD: tuple(range(16)), DDGR: tuple(range(16)),
+             BT: tuple(range(9)) + (11,),
+             DDK: tuple(i for i in range(16) if i != 10)}
+
+
+def partial_columns(mode) -> tuple:
+    """The partials a K2 ``mode`` writes, by their index among tt0 (0),
+    the 16 row entries (1-16) and DDK's per-TOA d_a1, d_om and sini
+    (17-19): tt0, the row entries the mode reads and, in DDK, the per-TOA
+    inputs.  An entry the mode does not read has no column."""
+    extra = tuple(range(17, 17 + len(DDK_TOA_INPUTS))) if mode == DDK \
+        else ()
+    return (0,) + tuple(1 + i for i in _ROW_READ[mode]) + extra
+
+
+def npartial(mode) -> int:
+    """Partials per element of a K2 ``mode``: 17 in DD and DDGR, 11 in BT,
+    19 in DDK (:func:`partial_columns`)."""
+    return len(partial_columns(mode))
+
+
+# ----------------------------------------------------------------------
+# DDS, DDH, DDGR, DDK: per-row (and for DDK per-TOA) inputs of K2
+# (reference engines.py:227-352)
+# ----------------------------------------------------------------------
+def _tensor(v, like):
+    """``v`` as a float64 tensor on ``like``'s device (a (B, 1) tensor
+    stays as it is)."""
+    return v if torch.is_tensor(v) else torch.tensor(
+        [[float(v)]], dtype=like.dtype, device=like.device)
+
+
+def dds_sini(pv, like):
+    """DDS: sini = 1 - exp(-SHAPMAX) (reference ``dds_delay``), (B, 1) or
+    (1, 1) on ``like``'s device."""
+    return 1.0 - torch.exp(-_tensor(pv.get("SHAPMAX", 0.0), like))
+
+
+def ddh_sini_m2(pv, like):
+    """DDH: (sini, M2 [Msun]) from the orthometric H3 [s] and STIGMA
+    (Freire & Wex 2010 eq 20, 22; reference ``ddh_delay``): sini =
+    2 stig / (1 + stig^2), m2 = H3 / max(stig, 1e-30)^3 in seconds, handed
+    to K2's DD row as m2 / TSUN (K2 multiplies by TSUN again: at most an
+    ulp of the Shapiro amplitude from the reference's m2)."""
+    h3 = _tensor(pv.get("H3", 0.0), like)
+    stig = _tensor(pv.get("STIGMA", 0.0), like)
+    sini = 2.0 * stig / (1.0 + stig * stig)
+    m2_tsun = h3 / _ipow(torch.clamp(stig, min=1e-30), 3)
+    return sini, _div(m2_tsun, TSUN)
+
+
+def ddgr_arr(mtot, m1, m2, n, niter: int = 20):
+    """The relativistic semi-major axis (Taylor & Weisberg 1989; reference
+    ``_ddgr_arr``), fixed-point iterated, masses in seconds: (arr0, arr)."""
+    arr0 = torch.pow(mtot / (n * n), 1.0 / 3.0)
+    arr = arr0
+    for _ in range(niter):
+        arr = arr0 * torch.pow(
+            1.0 + (m1 * m2 / (mtot * mtot) - 9.0) * (mtot / (2.0 * arr)),
+            2.0 / 3.0)
+    return arr0, arr
+
+
+def ddgr_row(pv, like) -> dict:
+    """DDGR's K2 row (:data:`DDGR_PARAMS`) from MTOT and M2 (Taylor &
+    Weisberg 1989 eq 15-25; reference ``ddgr_delay``): PBDOT plus the GR
+    orbital decay, k with XOMDOT, m2 in seconds, ar, gamma, dr and dth,
+    each (B, 1) or (1, 1), in the reference's order of operations."""
+    def g(name):
+        return _tensor(pv.get(name, 0.0), like)
+
+    mtot = g("MTOT") * TSUN
+    m2 = g("M2") * TSUN
+    m1 = mtot - m2
+    pb_s = g("PB") * 86400.0
+    n = _div(TWO_PI, pb_s)
+    e0 = g("ECC")
+    e2 = e0 * e0
+    arr0, arr = ddgr_arr(mtot, m1, m2, n)
+    fe = (1.0 + (73.0 / 24.0) * e2 + (37.0 / 96.0) * (e2 * e2)) \
+        * torch.pow(1.0 - e2, -3.5)
+    pbdot_gr = (-192.0 * math.pi / 5.0) * torch.pow(n, 5.0 / 3.0) \
+        * m1 * m2 * torch.pow(mtot, -1.0 / 3.0) * fe
+    k = 3.0 * mtot / (arr0 * (1.0 - e2)) \
+        + _div(g("XOMDOT") * DEG, SEC_PER_YEAR) / n
+    row = {name: g(name) for name in DD_PARAMS}
+    row.update(
+        PBDOT=g("PBDOT") + pbdot_gr, K=k, M2S=m2, AR=arr * (m2 / mtot),
+        GAMMA=e0 * m2 * (m1 + 2.0 * m2) / (n * arr0 * mtot),
+        DR=(m1 * (3.0 * m1 + 6.0 * m2) + 2.0 * (m2 * m2)) / (mtot * arr),
+        DTH=(3.5 * (m1 * m1) + 6.0 * m1 * m2 + 2.0 * (m2 * m2))
+        / (mtot * arr))
+    return row
+
+
+#: mas/yr -> rad/s
+_MAS_YR = DEG / 3600.0e3 / SEC_PER_YEAR
+#: 1 kpc in light-seconds
+KPC_LS = 3.0856775814913673e19 / 299792458.0
+
+
+def ddk_corrections(pv, tt0, psr_pos, obs_pos_ls, k96: float):
+    """Kopeikin's annual-parallax and secular proper-motion corrections
+    (Kopeikin 1995 eq 15-19, 1996 eq 8-10; reference ``ddk_corrections``),
+    elementwise: ``(d_a1, d_om [rad], kin [rad])`` at ``tt0`` (B, N) from
+    the unit vector to the pulsar ``psr_pos`` (..., N, 3) and the
+    observatory's position ``obs_pos_ls`` (N, 3) [ls], both equatorial;
+    PMRA/PMDEC [mas/yr] are the proper motion in that frame."""
+    def g(name, default=0.0):
+        return pv.get(name, default)
+
+    kom = g("KOM") * DEG
+    kin0 = g("KIN") * DEG
+    sin_kom, cos_kom = torch.sin(_tensor(kom, tt0)), torch.cos(
+        _tensor(kom, tt0))
+    sin_lat = psr_pos[..., 2]
+    cos_lat = torch.sqrt(torch.clamp(1.0 - sin_lat * sin_lat, min=1e-30))
+    sin_long = psr_pos[..., 1] / cos_lat
+    cos_long = psr_pos[..., 0] / cos_lat
+    ox, oy, oz = obs_pos_ls[..., 0], obs_pos_ls[..., 1], obs_pos_ls[..., 2]
+    delta_I0 = -ox * sin_long + oy * cos_long
+    delta_J0 = -ox * sin_lat * cos_long - oy * sin_lat * sin_long \
+        + oz * cos_lat
+    pm_long = g("PMRA") * _MAS_YR
+    pm_lat = g("PMDEC") * _MAS_YR
+    d_kin_pm = (-pm_long * sin_kom + pm_lat * cos_kom) * tt0 * k96
+    kin = kin0 + d_kin_pm
+    tan_kin = torch.tan(kin)
+    sin_kin = torch.sin(kin)
+    a1_0 = g("A1") + tt0 * g("A1DOT")
+    d_a1_pm = a1_0 * d_kin_pm / tan_kin
+    d_om_pm = (pm_long * cos_kom + pm_lat * sin_kom) / sin_kin * tt0 * k96
+    px = g("PX", 1e-30)
+    d_ls = _div(KPC_LS, torch.clamp(px, min=1e-30) if torch.is_tensor(px)
+                else _tensor(max(px, 1e-30), tt0))
+    kom_proj = delta_I0 * sin_kom - delta_J0 * cos_kom
+    d_a1_px = (a1_0 + d_a1_pm * k96) / tan_kin / d_ls * kom_proj
+    d_om_px = -(delta_I0 * cos_kom + delta_J0 * sin_kom) / sin_kin / d_ls
+    return d_a1_pm * k96 + d_a1_px, d_om_pm * k96 + d_om_px, kin
+
+
+def ecliptic_pm_to_equatorial(elong, elat, pm_elong, pm_elat, obliquity,
+                              like):
+    """Proper motion (PMELONG, PMELAT) at ecliptic (ELONG, ELAT) [rad]
+    rotated to equatorial (alpha*, delta) components, both in the
+    cos(lat)-scaled longitude convention (reference
+    ``components.py:46 _ecliptic_pm_to_equatorial``).  Each argument a
+    float or a (B, 1) tensor (floats become tensors on ``like``'s
+    device); 3-vectors are tuples, their dot products summed in index
+    order."""
+    ce, se = math.cos(obliquity), math.sin(obliquity)
+    elong, elat = _tensor(elong, like), _tensor(elat, like)
+    cb, sb = torch.cos(elat), torch.sin(elat)
+    cl, sl = torch.cos(elong), torch.sin(elong)
+
+    def to_eq(v):
+        return (v[0], ce * v[1] - se * v[2], se * v[1] + ce * v[2])
+
+    n = to_eq((cb * cl, cb * sl, sb))
+    e_lon = to_eq((-sl, cl, 0.0))
+    e_lat = to_eq((-sb * cl, -sb * sl, cb))
+    pm = tuple(pm_elong * a + pm_elat * b for a, b in zip(e_lon, e_lat))
+    ra = torch.atan2(n[1], n[0])
+    dec = torch.asin(torch.clamp(n[2], -1.0, 1.0))
+    e_ra = (-torch.sin(ra), torch.cos(ra), 0.0)
+    e_dec = (-torch.sin(dec) * torch.cos(ra), -torch.sin(dec) * torch.sin(ra),
+             torch.cos(dec))
+
+    def dot(a, b):
+        return (a[0] * b[0] + a[1] * b[1]) + a[2] * b[2]
+
+    return dot(pm, e_ra), dot(pm, e_dec)
 
 
 # ----------------------------------------------------------------------

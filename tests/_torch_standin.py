@@ -97,6 +97,45 @@ NGC_SETTINGS = dict(pulsar="NGC6440E", seed=12345, ntoas=62,
 #: every point's system rank-deficient
 NGC_PHOFF_SETTINGS = dict(NGC_SETTINGS, phoff=True)
 
+#: the J1713+0747-shaped GLS stand-in: ``FULL_SETTINGS``' epochs (445 x 9
+#: = 4005 TOAs at Arecibo, 72 DMX windows of 45 d, EFAC/EQUAD/ECORR for
+#: the four -f groups, 45 red-noise modes) with ecliptic astrometry (PX,
+#: PMELONG/PMELAT) and a DDK binary (KIN, KOM, K96 on); its 16 x 16 GLS
+#: grid sweeps KIN x KOM, 3 sigma about the GLS fit, at ``niter=1``
+DDK_SETTINGS = dict(FULL_SETTINGS, pulsar="J1713+0747", grid="kinkom")
+
+#: the small CPU-test version of the DDK stand-in: 80 epochs x 4
+#: sub-bands at a tenth of the small stand-in's errors (~0.2 us; with 20
+#: epochs and its errors the ~20 timing parameters and the Kopeikin terms
+#: are not constrained and the reference's GLS fit diverges), a 4 x 4 KIN
+#: x KOM grid.  At 2 sub-bands the timing block's condition number is
+#: ~4e10 and its uncertainties move by ~1e-6 under a mere reordering of
+#: the Gram sums, the size of the bar (``tests/_torch_conditioning.py``)
+SMALL_DDK_SETTINGS = dict(SMALL_SETTINGS, pulsar="J1713+0747",
+                          grid="kinkom", n_epochs=80, err_scale=0.25)
+
+#: the B1913+16-shaped WLS stand-in: ``FULL_SETTINGS``' epochs at Arecibo
+#: (72 DMX windows, FD1-3, a JUMP) with EFAC/EQUAD only and TOA errors 8x
+#: the B1855 stand-in's (4-9 us, a 17 Hz pulsar's), no red noise; a DDGR
+#: binary (ECC 0.617, MTOT, M2); ``WLSFitter.fit_toas(maxiter=3)`` and the
+#: 16 x 16 MTOT x M2 WLS grid, 3 sigma about that fit, at ``niter=4``
+DDGR_SETTINGS = dict(FULL_SETTINGS, pulsar="B1913+16", rn_modes=0,
+                     err_scale=8.0, fit_maxiter=3, grid_niter=4,
+                     grid="mtotm2")
+
+#: the small CPU-test version of the DDGR stand-in (a 4 x 4 MTOT x M2 grid)
+SMALL_DDGR_SETTINGS = dict(SMALL_SETTINGS, pulsar="B1913+16", rn_modes=0,
+                           fit_maxiter=3, grid_niter=4, grid="mtotm2")
+
+#: the small GLS stand-in with its DD binary as BT (ECC 0.17, OM fitted),
+#: as DDS (SHAPMAX in place of SINI) and as DDH (H3/STIGMA in place of
+#: M2/SINI), the last two at a tenth of its errors (~0.2 us, so that the
+#: fitted Shapiro parameters are constrained): ``Fitter.auto``'s fit, no
+#: grid
+SMALL_BT_SETTINGS = dict(SMALL_SETTINGS, binary="BT")
+SMALL_DDS_SETTINGS = dict(SMALL_SETTINGS, binary="DDS", err_scale=0.25)
+SMALL_DDH_SETTINGS = dict(SMALL_SETTINGS, binary="DDH", err_scale=0.25)
+
 _GROUP = {  # (receiver, backend) -> (-f flag, sub-band MHz, error us)
     ("430", "ASP"): ("ASP_430", (422.0, 3.0), 0.7),
     ("L-wide", "ASP"): ("ASP_L-wide", (1150.0, 75.0), 1.0),
@@ -130,6 +169,50 @@ def _j1909(s) -> bool:
 
 def _ngc(s) -> bool:
     return s.get("pulsar") == "NGC6440E"
+
+
+#: the DD family's small-stand-in binary lines, by ``binary`` setting:
+#: BT (no Shapiro delay; ECC 0.17 and OM fitted), DDS (SHAPMAX =
+#: -log(1 - 0.95)) and DDH (STIGMA = SINI / (1 + sqrt(1 - SINI^2)) and H3
+#: = Tsun M2 STIGMA^3 of M2 0.3, SINI 0.95), the latter two fitted
+_STIGMA = 0.95 / (1.0 + np.sqrt(1.0 - 0.95**2))
+_SMALL_BINARY = {
+    "BT": ["BINARY BT", "PB 5.7410 1", "A1 3.3667 1", "T0 55000.0",
+           "OM 1.35 1", "ECC 0.17 1"],
+    "DDS": ["BINARY DDS", "PB 5.7410 1", "A1 3.3667 1", "T0 55000.0",
+            "OM 1.35", "ECC 1.9e-5", "M2 0.3 1",
+            f"SHAPMAX {-np.log(1.0 - 0.95):.12f} 1"],
+    "DDH": ["BINARY DDH", "PB 5.7410 1", "A1 3.3667 1", "T0 55000.0",
+            "OM 1.35", "ECC 1.9e-5",
+            f"H3 {4.925490947000518e-6 * 0.3 * _STIGMA**3:.10e} 1",
+            f"STIGMA {_STIGMA:.12f} 1"],
+}
+
+
+def j1713_head(s):
+    """J1713+0747-shaped timing (NANOGrav's DDK fits): ecliptic astrometry
+    with parallax and proper motion, a DDK binary with KIN/KOM fitted and
+    K96 on."""
+    return [
+        "PSR J1713+0747", "ELONG 256.668695 1", "ELAT 30.700360 1",
+        "PMELONG 5.2671 1", "PMELAT -3.442 1", "PX 0.85 1", "ECL IERS2010",
+        "POSEPOCH 54978", "F0 218.81184378 1", "F1 -4.0835e-16 1",
+        "PEPOCH 54978", "DM 15.917", "FD1 1.2e-5 1", "FD2 -4.0e-6 1",
+        "FD3 2.0e-6 1", "JUMP -fe 430 0.0 1", "BINARY DDK",
+        "PB 67.8251 1", "A1 32.34242 1", "T0 54303.6", "ECC 7.494e-5 1",
+        "OM 176.20 1", "M2 0.286 1", "KIN 71.69 1", "KOM 88.3 1", "K96 Y"]
+
+
+def b1913_head(s):
+    """B1913+16-shaped timing (the Hulse-Taylor pulsar's GR test):
+    equatorial astrometry and a DDGR binary with MTOT and M2 fitted."""
+    return [
+        "PSR B1913+16", "RAJ 19:15:27.99942 1", "DECJ +16:06:27.3868 1",
+        "POSEPOCH 54978", "F0 16.940537785677 1", "F1 -2.4733e-15 1",
+        "PEPOCH 54978", "DM 168.77", "FD1 1.0e-5 1", "FD2 -4.0e-6 1",
+        "FD3 2.0e-6 1", "JUMP -fe 430 0.0 1", "BINARY DDGR",
+        "PB 0.322997448918 1", "A1 2.341776 1", "T0 52144.90097844",
+        "ECC 0.6171340 1", "OM 292.5445 1", "MTOT 2.828378 1", "M2 1.389 1"]
 
 
 def ngc_par(s) -> str:
@@ -241,9 +324,16 @@ def _shapiro_lines(s, m2: float, sini: float):
 
 def standin_par(s, full: bool) -> str:
     """Par text: B1855+09-like timing (full width) or the small test
-    stand-in, with DMX windows covering the span; no red noise where
-    ``rn_modes`` is 0, and a fitted PHOFF where the settings ask for it."""
-    if full:
+    stand-in (its binary as BT, DDS or DDH where the settings ask), or the
+    J1713+0747- or B1913+16-shaped heads (at either width), with DMX
+    windows covering the span, EFAC/EQUAD and (but for B1913+16) ECORR per
+    group; no red noise where ``rn_modes`` is 0, and a fitted PHOFF where
+    the settings ask for it."""
+    if s.get("pulsar") == "J1713+0747":
+        head = j1713_head(s)
+    elif s.get("pulsar") == "B1913+16":
+        head = b1913_head(s)
+    elif full:
         head = [
             "PSR J1855+0945", "RAJ 18:57:36.3932884 1",
             "DECJ +09:43:17.20714 1", "PMRA -2.652 1", "PMDEC -5.423 1",
@@ -262,13 +352,16 @@ def standin_par(s, full: bool) -> str:
             "BINARY DD", "PB 5.7410 1", "A1 3.3667 1", "T0 55000.0",
             "OM 1.35", "ECC 1.9e-5", "M2 0.3", "SINI 0.95",
         ]
+        if s.get("binary") in _SMALL_BINARY:
+            head = head[:10] + _SMALL_BINARY[s["binary"]]
     rng = np.random.default_rng(s["seed"] + 1)
     lines = head + _dmx_lines(s, rng)
     for g in _groups(s):
         efac, equad, ecorr = _NOISE[g]
         lines += [f"EFAC -f {g} {efac}",
-                  f"EQUAD -f {g} {equad * s['err_scale']:.6g}",
-                  f"ECORR -f {g} {ecorr * s['err_scale']:.6g}"]
+                  f"EQUAD -f {g} {equad * s['err_scale']:.6g}"]
+        if s.get("pulsar") != "B1913+16":
+            lines.append(f"ECORR -f {g} {ecorr * s['err_scale']:.6g}")
     if s["rn_modes"]:
         lines += ["TNRedAmp -13.8", "TNRedGam 3.2",
                   f"TNRedC {s['rn_modes']}"]
@@ -463,7 +556,9 @@ def export_snapshot(model, toas, settings: dict, chunk: int = 256,
     """:func:`export_state` plus the reference's outputs: phase, delay,
     residuals and design matrix at the snapshot's values; the post-fit
     values, uncertainties and chi2 of ``GLSFitter.fit_toas(maxiter)``; and
-    the M2 x SINI GLS chi2 grid (``niter``, ``chunk``) after that fit."""
+    the GLS chi2 grid (``niter``, ``chunk``) after that fit: M2 x SINI, or
+    the settings' ``grid`` of :data:`GRIDS` 3 sigma about the fit (its
+    parameters named in ``meta["reference"]["grid_params"]``)."""
     from pint_tpu.gls_fitter import GLSFitter
     from pint_tpu.grid import grid_chisq
     from pint_tpu.residuals import Residuals
@@ -488,11 +583,16 @@ def export_snapshot(model, toas, settings: dict, chunk: int = 256,
            "postfit_chi2": float(chi2), "settings": dict(settings)}
     _auto_outputs(model, toas, design, arrays, ref)
     if grid:
-        g_m2, g_sini = grid_axes(model, settings["grid_points"])
-        c2, _ = grid_chisq(f, ("M2", "SINI"), (g_m2, g_sini),
-                           niter=settings["grid_niter"], chunk=chunk)
-        arrays["ref/grid_m2"] = g_m2
-        arrays["ref/grid_sini"] = g_sini
+        if settings.get("grid", "m2sini") == "m2sini":
+            gnames = ("M2", "SINI")
+            axes = grid_axes(model, settings["grid_points"])
+        else:
+            gnames, axes = wls_grid_axes(f, settings)
+            ref["grid_params"] = list(gnames)
+        c2, _ = grid_chisq(f, gnames, axes, niter=settings["grid_niter"],
+                           chunk=chunk)
+        for g, a in zip(gnames, axes):
+            arrays[f"ref/grid_{g.lower()}"] = a
         arrays["ref/grid_chi2"] = np.asarray(c2)
         arrays["ref/grid_rungs"] = np.asarray(
             f.last_grid_diagnostics["ladder_rung"])
@@ -575,11 +675,18 @@ def _huber_outputs(model, toas, design, arrays, ref):
             arrays[f"ref/{key}_weights"] = np.asarray(f.robust_weights)
 
 
+#: the grids that sweep two parameters 3 sigma about the fit, by the
+#: settings' ``grid``
+GRIDS = {"h3stigma": ("H3", "STIGMA"), "kinkom": ("KIN", "KOM"),
+         "mtotm2": ("MTOT", "M2")}
+
+
 def wls_grid_axes(fitter, settings):
-    """The grid of a WLS stand-in after ``fitter``'s fit, as (names,
-    axes): ``grid_axes``' M2 x SINI about the snapshot's values; F0 x F1
-    as ``bench.py:1617-1623`` sets it, 3 sigma scaled by sqrt(reduced
-    chi2) about the fit; H3 x STIGMA, 3 sigma about the fit."""
+    """The grid of a stand-in after ``fitter``'s fit, as (names, axes):
+    ``grid_axes``' M2 x SINI about the snapshot's values; F0 x F1 as
+    ``bench.py:1617-1623`` sets it, 3 sigma scaled by sqrt(reduced chi2)
+    about the fit; H3 x STIGMA, KIN x KOM and MTOT x M2 (:data:`GRIDS`),
+    3 sigma about the fit."""
     n = settings["grid_points"]
     kind = settings.get("grid", "m2sini")
     if kind == "m2sini":
@@ -591,7 +698,7 @@ def wls_grid_axes(fitter, settings):
         spans = (3 * escale * fitter.errors.get("F0", 1e-10),
                  3 * escale * fitter.errors.get("F1", 1e-18))
     else:
-        names = ("H3", "STIGMA")
+        names = GRIDS[kind]
         spans = tuple(3 * fitter.errors[p] for p in names)
     return names, tuple(np.linspace(getattr(m, p).value - d,
                                     getattr(m, p).value + d, n)

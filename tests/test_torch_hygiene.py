@@ -41,8 +41,11 @@ def test_import_and_load_pull_in_no_jax():
         "pint_torch.pulsar_ecliptic\n"
         "import pint_torch.integrity.robust\n"
         "from pint_torch.bridge import load_snapshot, STANDIN_PATH, "
-        "ELL1_PATH, ELL1H_PATH, NGC_PHOFF_PATH\n"
-        "for p in (STANDIN_PATH, ELL1_PATH, ELL1H_PATH, NGC_PHOFF_PATH):\n"
+        "ELL1_PATH, ELL1H_PATH, NGC_PHOFF_PATH, DDK_PATH, DDGR_PATH, "
+        "BT_SMALL_PATH, DDS_SMALL_PATH, DDH_SMALL_PATH\n"
+        "for p in (STANDIN_PATH, ELL1_PATH, ELL1H_PATH, NGC_PHOFF_PATH, "
+        "DDK_PATH, DDGR_PATH, BT_SMALL_PATH, DDS_SMALL_PATH, "
+        "DDH_SMALL_PATH):\n"
         "    load_snapshot(p, device='cpu')\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print('BAD', bad)\n"
@@ -96,9 +99,11 @@ def test_entry_points_default_to_the_gpu():
         return
     with pytest.raises(NoGPUError):
         resolve_device(None)
-    from pint_torch.bridge import ELL1H_PATH, NGC_PATH, NGC_PHOFF_PATH
+    from pint_torch.bridge import (BT_SMALL_PATH, DDGR_PATH, DDK_PATH,
+                                   ELL1H_PATH, NGC_PATH, NGC_PHOFF_PATH)
 
-    for path in (STANDIN_PATH, ELL1H_PATH, NGC_PATH, NGC_PHOFF_PATH):
+    for path in (STANDIN_PATH, ELL1H_PATH, NGC_PATH, NGC_PHOFF_PATH,
+                 DDK_PATH, DDGR_PATH, BT_SMALL_PATH):
         with pytest.raises(NoGPUError):
             load_snapshot(path)
 
@@ -115,6 +120,16 @@ def test_cpu_tensors_never_reach_a_kernel():
                             0.99, 0, 0, 0, 0, 0]] * 2, dtype=torch.float64)
     d = dd_binary(tt0, params)
     assert d.shape == (2, 5) and bool(torch.isfinite(d).all())
+    from pint_torch.kernels.dd_binary import BT, DDGR, DDK
+
+    pgr = params.clone()
+    pgr[:, 8:11] = torch.tensor([1e-9, 1.3e-6, 20.0], dtype=torch.float64)
+    toa = (torch.zeros_like(tt0), torch.zeros_like(tt0),
+           torch.full_like(tt0, 0.9))
+    for mode, p, x in ((BT, params, None), (DDGR, pgr, None),
+                       (DDK, params, toa)):
+        d = dd_binary(tt0, p, mode, x)
+        assert d.shape == (2, 5) and bool(torch.isfinite(d).all())
     p4 = torch.tensor([[1.53, 0, 0, 1.9, 0, 1e-7, -1e-7, 0, 0, 0, 0, 0.2,
                         0.99]] * 2, dtype=torch.float64)
     for ell1k in (False, True):
@@ -130,7 +145,9 @@ def test_cpu_tensors_never_reach_a_kernel():
     assert bool(torch.isfinite(x).all()) and bool(torch.isfinite(sv).all())
     assert kernels.launch_counts() == dict.fromkeys(
         ("spin_phase_primal", "spin_phase_dual", "dd_binary_primal",
-         "dd_binary_dual", "schur_cholesky_solve_smem",
+         "dd_binary_dual", "bt_binary_primal", "bt_binary_dual",
+         "ddgr_binary_primal", "ddgr_binary_dual", "ddk_binary_primal",
+         "ddk_binary_dual", "schur_cholesky_solve_smem",
          "schur_cholesky_solve_global", "ell1_binary_primal",
          "ell1_binary_dual", "ell1k_binary_primal", "ell1k_binary_dual",
          "ell1h_exact_binary_primal", "ell1h_exact_binary_dual",
@@ -153,6 +170,11 @@ def test_kernel_sources_ship_with_the_package():
                     ("j1909_ell1_standin.npz", 4005),
                     ("j1909_ell1h_standin.npz", 4005),
                     ("ngc6440e_standin.npz", 62),
-                    ("ngc6440e_phoff_standin.npz", 62)):
+                    ("ngc6440e_phoff_standin.npz", 62),
+                    ("j1713_ddk_standin.npz", 4005),
+                    ("b1913_ddgr_standin.npz", 4005),
+                    ("small_bt_standin.npz", 80),
+                    ("small_dds_standin.npz", 80),
+                    ("small_ddh_standin.npz", 80)):
         assert np.load(REPO / "pint_torch" / "data" / snap,
                        allow_pickle=False)["tdb_hi"].shape == (n,)

@@ -17,6 +17,16 @@ ones of the reference benchmark's secondary cell)::
         --write pint_torch/data/ngc6440e_standin.npz
     python tests/test_torch_snapshot.py --settings ngc_phoff \
         --write pint_torch/data/ngc6440e_phoff_standin.npz
+    python tests/test_torch_snapshot.py --settings ddk \
+        --write pint_torch/data/j1713_ddk_standin.npz
+    python tests/test_torch_snapshot.py --settings ddgr \
+        --write pint_torch/data/b1913_ddgr_standin.npz
+    python tests/test_torch_snapshot.py --settings bt \
+        --write pint_torch/data/small_bt_standin.npz
+
+and ``--settings dds`` / ``ddh`` for ``small_dds_standin.npz`` /
+``small_ddh_standin.npz`` (the small stand-ins of the DD family's BT, DDS
+and DDH, which ``chip_smoke.py`` drives at small depth).
 
 The tests check that a small export round-trips through
 :func:`pint_torch.bridge.load_snapshot` bitwise, and that the committed
@@ -272,22 +282,74 @@ def test_tzr_row_round_trips_bitwise():
     assert m.components["PhaseOffset"].context["apply"].numpy().all()
 
 
+@pytest.mark.parametrize("which", ["bt", "dds", "ddh"])
+def test_committed_small_dd_family_files_load_with_stated_shapes(which):
+    """The small stand-ins of BT, DDS and DDH: 80 TOAs, the binary of
+    that name (DDS with SHAPMAX, DDH with H3/STIGMA fitted), the GLS and
+    ``Fitter.auto`` fits and no grid; written with their settings."""
+    from pint_torch import bridge
+
+    path = getattr(bridge, f"{which.upper()}_SMALL_PATH")
+    meta, arrays = bridge.read_snapshot(path)
+    rr = meta["reference"]
+    assert rr["settings"] == SETTINGS[which]
+    m, b = bridge.load_snapshot(path, device="cpu")
+    assert b.ntoas == 80 and f"Binary{which.upper()}" in m.components
+    fitted = {"bt": {"ECC", "OM"}, "dds": {"SHAPMAX", "M2"},
+              "ddh": {"H3", "STIGMA"}}[which]
+    assert fitted <= set(m.free_params)
+    assert "ref/grid_chi2" not in arrays
+    assert rr["auto_fitter"] == "DownhillGLSFitter"
+    assert np.isfinite(arrays["ref/auto_uncertainties"]).all()
+
+
+@pytest.mark.parametrize("which", ["ddk", "ddgr"])
+def test_dd_family_export_round_trips_bitwise(which):
+    """A small DDK or DDGR export loads into the port with every parameter
+    bitwise (K96 as a bool) and the binary's TOA inputs unchanged."""
+    from pint_torch.bridge import load_snapshot
+
+    s = standin.SMALL_DDK_SETTINGS if which == "ddk" \
+        else standin.SMALL_DDGR_SETTINGS
+    model, toas = standin.make_standin(s, full=False)
+    m, b = load_snapshot(standin.export_state(model, toas), device="cpu")
+    jpv, pv = model._const_pv(), m.const_pv()
+    for name, v in jpv.items():
+        if hasattr(v, "hi"):
+            assert (pv[name].hi, pv[name].lo) == (float(v.hi), float(v.lo))
+        elif name != "K96":
+            assert pv[name] == float(v), name
+    if which == "ddk":
+        assert m["K96"].value is True and m["K96"].kind == "bool"
+    jb = toas.to_batch()
+    assert np.array_equal(b.ssb_obs_pos.numpy(), np.asarray(jb.ssb_obs_pos))
+    assert np.array_equal(b.tdb.hi.numpy(), np.asarray(jb.tdb.hi))
+
+
 #: the committed full-width stand-ins, by the exporter's ``--settings``
 SETTINGS = {"b1855": standin.FULL_SETTINGS,
             "dmx15": standin.DMX15_SETTINGS,
             "ell1": standin.ELL1_SETTINGS,
             "ell1h": standin.ELL1H_SETTINGS,
             "ngc": standin.NGC_SETTINGS,
-            "ngc_phoff": standin.NGC_PHOFF_SETTINGS}
+            "ngc_phoff": standin.NGC_PHOFF_SETTINGS,
+            "ddk": standin.DDK_SETTINGS,
+            "ddgr": standin.DDGR_SETTINGS,
+            "bt": standin.SMALL_BT_SETTINGS,
+            "dds": standin.SMALL_DDS_SETTINGS,
+            "ddh": standin.SMALL_DDH_SETTINGS}
+#: the committed stand-ins of small depth: no grid
+SMALL_DEPTH = ("bt", "dds", "ddh")
 
 
-def _write(path: str, chunk: int, settings: dict) -> None:
-    """Simulate a full-width stand-in with the reference package, run its
-    fits and grid, and write the snapshot (compressed)."""
-    model, toas = standin.make_standin(settings, full=True)
+def _write(path: str, chunk: int, settings: dict, small: bool = False) -> None:
+    """Simulate a stand-in with the reference package, run its fits and
+    (but at ``small`` depth) its grid, and write the snapshot
+    (compressed)."""
+    model, toas = standin.make_standin(settings, full=not small)
     export = standin.export_snapshot if model.has_correlated_errors \
         else standin.export_wls_snapshot
-    arrays = export(model, toas, settings, chunk=chunk)
+    arrays = export(model, toas, settings, chunk=chunk, grid=not small)
     np.savez_compressed(path, **arrays)
 
 
@@ -310,6 +372,11 @@ if __name__ == "__main__":
                          "stand-in); ell1h: ELL1H_SETTINGS (the same with "
                          "H3/STIGMA); ngc, ngc_phoff: NGC_SETTINGS, "
                          "NGC_PHOFF_SETTINGS (bench.py's FALLBACK_PAR, 62 "
-                         "TOAs; with PHOFF)")
+                         "TOAs; with PHOFF); ddk: DDK_SETTINGS (the "
+                         "J1713+0747-shaped GLS stand-in, KIN x KOM grid); "
+                         "ddgr: DDGR_SETTINGS (the B1913+16-shaped WLS "
+                         "stand-in, MTOT x M2 grid); bt, dds, ddh: the "
+                         "small stand-in as BT, DDS, DDH (no grid)")
     args = ap.parse_args()
-    _write(args.write, args.chunk, SETTINGS[args.settings])
+    _write(args.write, args.chunk, SETTINGS[args.settings],
+           args.settings in SMALL_DEPTH)

@@ -6,11 +6,13 @@ Loads a committed stand-in onto the card (``b1855``:
 ``b1855_dmx15_standin.npz``; ``ell1``: the J1909-3744-shaped WLS stand-in
 ``j1909_ell1_standin.npz``; ``ell1h``: its BinaryELL1H sibling
 ``j1909_ell1h_standin.npz``; ``ngc``, ``ngc_phoff``: the NGC6440E-shaped
-ones ``ngc6440e_standin.npz``, ``ngc6440e_phoff_standin.npz``), runs the
+ones ``ngc6440e_standin.npz``, ``ngc6440e_phoff_standin.npz``; ``ddk``: the
+J1713+0747-shaped DDK GLS stand-in ``j1713_ddk_standin.npz``; ``ddgr``:
+the B1913+16-shaped DDGR WLS stand-in ``b1913_ddgr_standin.npz``), runs the
 fit its model calls for (``GLSFitter`` with correlated noise, else
 ``WLSFitter``; ``maxiter`` as the snapshot's reference ran it) and one
-warm-up 16x16 grid of the snapshot's parameters (M2 x SINI, H3 x STIGMA or
-F0 x F1; ``chunk=256``, ``niter`` as the reference ran it: 1 for the GLS
+warm-up 16x16 grid of the snapshot's parameters (M2 x SINI, H3 x STIGMA,
+F0 x F1, KIN x KOM or MTOT x M2; ``chunk=256``, ``niter`` as the reference ran it: 1 for the GLS
 stand-ins, 4 for the WLS ones), then
 traces one more warm grid and one warm design matrix with
 ``torch.profiler`` and prints, per traced region:
@@ -21,7 +23,8 @@ root::
 
     python3 tools/torch_grid_profile.py [b1855|dmx15|ell1|ell1h|ngc ...]
 
-(``ngc_phoff`` too; all stand-ins when none is named).
+(``ngc_phoff``, ``ddk``, ``ddgr`` too; all stand-ins when none is
+named).
 """
 
 from __future__ import annotations
@@ -70,8 +73,9 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from torch.profiler import ProfilerActivity, profile
 
-    from pint_torch.bridge import (DMX15_PATH, ELL1_PATH, ELL1H_PATH,
-                                   NGC_PATH, NGC_PHOFF_PATH, STANDIN_PATH,
+    from pint_torch.bridge import (DDGR_PATH, DDK_PATH, DMX15_PATH,
+                                   ELL1_PATH, ELL1H_PATH, NGC_PATH,
+                                   NGC_PHOFF_PATH, STANDIN_PATH,
                                    load_snapshot, read_snapshot)
     from pint_torch.fitter import WLSFitter
     from pint_torch.gls_fitter import GLSFitter
@@ -79,7 +83,8 @@ def main() -> int:
 
     snapshots = {"b1855": STANDIN_PATH, "dmx15": DMX15_PATH,
                  "ell1": ELL1_PATH, "ell1h": ELL1H_PATH, "ngc": NGC_PATH,
-                 "ngc_phoff": NGC_PHOFF_PATH}
+                 "ngc_phoff": NGC_PHOFF_PATH, "ddk": DDK_PATH,
+                 "ddgr": DDGR_PATH}
     names = sys.argv[1:] or list(snapshots)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,

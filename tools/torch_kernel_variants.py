@@ -24,7 +24,10 @@ kernels:
   row instead of before it;
 * K2 ``dd_binary_dual`` on the same main-path inputs: ``fixed-15``,
   ``sin-and-cos``, and ``strided-stores``, which writes each thread's 17
-  partials straight to the output instead of through shared memory;
+  partials straight to the output instead of through shared memory; and,
+  with a ``--parent`` that has K2's modes, ``bt_binary_dual`` and
+  ``ddk_binary_dual`` on the same call beside the parent's (which writes
+  a column for every row entry, read or not);
 * K1 ``spin_phase_primal`` and ``spin_phase_dual`` on the main-path inputs
   (S = 2) and on seeded random inputs with S = 6 at the same shape:
   ``runtime-S`` is a primal compiled once for any S, its row in a
@@ -113,22 +116,34 @@ K2_SINCOS = (
     ("  f.sopn = sin(opn);\n  f.copn = cos(opn);",
      "  sincos(opn, &f.sopn, &f.copn);"),
 )
-K2_PRIMAL_2D = """__global__ void dd_binary_primal(const double* __restrict__ tt0,
-                                 const double* __restrict__ params, int b0,
+K2_PRIMAL_2D = """template <int MODE>
+__global__ void dd_binary_primal(const double* __restrict__ tt0,
+                                 const double* __restrict__ params,
+                                 const double* __restrict__ d_a1,
+                                 const double* __restrict__ d_om,
+                                 const double* __restrict__ sini, int b0,
                                  int N, double* __restrict__ delay) {
   __shared__ double row[NPAR];
   const long b = (long)b0 + blockIdx.y;
   const int n = blockIdx.x * THREADS + threadIdx.x;
   const long idx = b * N + n;
   const double t = n < N ? tt0[idx] : 0.0;
+  Toa x{0.0, 0.0, 0.0};
+  if constexpr (MODE == DDK) {
+    if (n < N) x = Toa{d_a1[idx], d_om[idx], sini[idx]};
+  }
   if (threadIdx.x < NPAR) row[threadIdx.x] = params[b * NPAR + threadIdx.x];
   __syncthreads();
   if (n >= N) return;
   double p[NPAR];
 #pragma unroll
   for (int i = 0; i < NPAR; ++i) p[i] = row[i];"""
-K2_PRIMAL_1D = """__global__ void dd_binary_primal(const double* __restrict__ tt0,
-                                 const double* __restrict__ params, int B,
+K2_PRIMAL_1D = """template <int MODE>
+__global__ void dd_binary_primal(const double* __restrict__ tt0,
+                                 const double* __restrict__ params,
+                                 const double* __restrict__ d_a1,
+                                 const double* __restrict__ d_om,
+                                 const double* __restrict__ sini, int B,
                                  int N, double* __restrict__ delay) {
   const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long)B * N) return;
@@ -136,8 +151,14 @@ K2_PRIMAL_1D = """__global__ void dd_binary_primal(const double* __restrict__ tt
   double p[NPAR];
 #pragma unroll
   for (int i = 0; i < NPAR; ++i) p[i] = params[b * NPAR + i];
-  const double t = tt0[idx];"""
+  const double t = tt0[idx];
+  Toa x{0.0, 0.0, 0.0};
+  if constexpr (MODE == DDK) x = Toa{d_a1[idx], d_om[idx], sini[idx]};"""
 K2_PREFETCH = """  const double t = n < N ? tt0[idx] : 0.0;
+  Toa x{0.0, 0.0, 0.0};
+  if constexpr (MODE == DDK) {
+    if (n < N) x = Toa{d_a1[idx], d_om[idx], sini[idx]};
+  }
   if (threadIdx.x < NPAR) row[threadIdx.x] = params[b * NPAR + threadIdx.x];
   __syncthreads();
   if (n >= N) return;
@@ -146,22 +167,28 @@ K2_ROW_FIRST = """  if (threadIdx.x < NPAR) row[threadIdx.x] = params[b * NPAR +
   __syncthreads();
   if (n >= N) return;
   const double t = tt0[idx];
+  Toa x{0.0, 0.0, 0.0};
+  if constexpr (MODE == DDK) x = Toa{d_a1[idx], d_om[idx], sini[idx]};
 """
 K2_LAUNCH_2D = """    const unsigned nx = (unsigned)((N + THREADS - 1) / THREADS);
     for (int b0 = 0; b0 < B; b0 += MAX_GRID_Y) {
       const unsigned ny = (unsigned)(B - b0 < MAX_GRID_Y ? B - b0 : MAX_GRID_Y);
-      dd_binary_primal<<<dim3(nx, ny), THREADS, 0, st>>>(tt0, params, b0, N,
-                                                         delay);
+      dd_binary_primal<MODE><<<dim3(nx, ny), THREADS, 0, st>>>(
+          tt0, params, d_a1, d_om, sini, b0, N, delay);
     }"""
-K2_LAUNCH_1D = """    dd_binary_primal<<<(unsigned)((total + THREADS - 1) / THREADS), THREADS,
-                       0, st>>>(tt0, params, B, N, delay);"""
-K2_STAGED = """    for (int i = 0; i < NPARTIAL; ++i) rows[threadIdx.x * NPARTIAL + i] = P[i];
+K2_LAUNCH_1D = """    const long total = (long)B * N;
+    dd_binary_primal<MODE><<<(unsigned)((total + THREADS - 1) / THREADS),
+                             THREADS, 0, st>>>(tt0, params, d_a1, d_om, sini,
+                                               B, N, delay);"""
+K2_STAGED = """    for (int i = 0; i < NPARTIAL; ++i)
+      rows[threadIdx.x * NPARTIAL + i] = P[Mode<MODE>::column(i)];
   }
   __syncthreads();
   const long n = (total - first < THREADS ? total - first : THREADS) * NPARTIAL;
   double* out = partials + first * NPARTIAL;
   for (long e = threadIdx.x; e < n; e += THREADS) out[e] = rows[e];"""
-K2_STRIDED = """    for (int i = 0; i < NPARTIAL; ++i) partials[idx * NPARTIAL + i] = P[i];
+K2_STRIDED = """    for (int i = 0; i < NPARTIAL; ++i)
+      partials[idx * NPARTIAL + i] = P[Mode<MODE>::column(i)];
   }"""
 
 # ---- K1 ---------------------------------------------------------------------
@@ -405,7 +432,7 @@ __device__ __forceinline__ void trail_column(double* T, double* R,
 
 #: ptxas markers printed per kernel source
 MARKERS = {
-    "dd_binary": ["dd_binary_primal", "dd_binary_dual"],
+    "dd_binary": ["dd_binary_primalILi0E", "dd_binary_dualILi0E"],
     "spin_phase": ["17spin_phase_primalILi2E", "17spin_phase_primalILi6E",
                    "17spin_phase_primalE", "20spin_phase_primal_rt",
                    "15spin_phase_dualILi2E", "15spin_phase_dualILi6E"],
@@ -590,10 +617,15 @@ def main() -> int:
     wanted = {"K1": "spin_phase", "K2": "dd_binary",
               "K3": "schur_cholesky_solve", "K5": "wls_lstsq"}
     procs, libs = {}, {}
+    #: K2 sources from before its modes (a parent tree): the launch takes
+    #: no mode and no per-TOA inputs
+    k2_untemplated = set()
     for kernel, variants in _variants(args.parent).items():
         if kernel not in {wanted[k] for k in only}:
             continue
         for name, src in variants.items():
+            if kernel == "dd_binary" and "int mode" not in src:
+                k2_untemplated.add(name)
             cu = work / f"{kernel}-{name}.cu"
             cu.write_text(src)
             procs[(kernel, name)] = subprocess.Popen(
@@ -648,8 +680,8 @@ def main() -> int:
         cap = _main_path_inputs()
 
     if "K2" in only:
-        tt0, params, _ = cap.args("dd_binary", False)
-        tt0d, paramsd, _ = cap.args("dd_binary", True)
+        tt0, params = cap.args("dd_binary", (0, False))[:2]
+        tt0d, paramsd = cap.args("dd_binary", (0, True))[:2]
         hi_e = params.clone()
         hi_e[:, 5] = rt(len(hi_e), lo=0.55, hi=0.65)
         hi_e[:, 7] = rt(len(hi_e), lo=0.0, hi=360.0)
@@ -668,14 +700,64 @@ def main() -> int:
 
             def make_run(lib, t=t, p=p, B=B, N=N, delay=delay, P=P):
                 fn = lib.dd_binary_launch
-                fn.argtypes = [vp, vp, ci, ci, vp, vp, vp]
                 fn.restype = ci
-                return lambda: fn(ptr(t), ptr(p), B, N, ptr(delay), ptr(P),
-                                  stream)
+                if any(lib is libs[("dd_binary", n)]
+                       for n in k2_untemplated):
+                    fn.argtypes = [vp, vp, ci, ci, vp, vp, vp]
+                    return lambda: fn(ptr(t), ptr(p), B, N, ptr(delay),
+                                      ptr(P), stream)
+                fn.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, vp, vp, vp]
+                return lambda: fn(ptr(t), ptr(p), B, N, 0, None, None, None,
+                                  ptr(delay), ptr(P), stream)
 
             compare(f"{label} B={B} N={N}", "dd_binary",
                     ["committed"] + [v for v in vs if v != "committed"],
                     make_run, [delay] + ([P] if part else []))
+
+        # BT's and DDK's duals on the same call (BT reading the DD row, DDK
+        # with seeded per-TOA inputs and the row's SINI as its sini),
+        # against a parent that has the modes but writes a column for
+        # every row entry: the delay bitwise, the parent's partials at the
+        # committed columns bitwise
+        if ("dd_binary", "parent") in libs and "parent" not in k2_untemplated:
+            from pint_torch.kernels import dd_binary as K2
+
+            B, N = tt0d.shape
+            toa = (rt(B, N, lo=-1e-7, hi=1e-7), rt(B, N, lo=-1e-6, hi=1e-6),
+                   paramsd[:, 10:11].expand(B, N).contiguous())
+            for mode in (K2.BT, K2.DDK):
+                cols = list(K2.partial_columns(mode))
+                x = toa if mode == K2.DDK else (None, None, None)
+                runs, outs = {}, {}
+                for name in ("committed", "parent"):
+                    width = len(cols) if name == "committed" \
+                        else len(K2.DD_PARAMS) + 1 + (3 if mode == K2.DDK
+                                                      else 0)
+                    d = torch.empty(B, N, dtype=torch.float64, device=dev)
+                    P = torch.empty(B, N, width, dtype=torch.float64,
+                                    device=dev)
+                    fn = libs[("dd_binary", name)].dd_binary_launch
+                    fn.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, vp, vp,
+                                   vp]
+                    fn.restype = ci
+                    runs[name] = (lambda fn=fn, d=d, P=P: fn(
+                        ptr(tt0d), ptr(paramsd), B, N, mode,
+                        *(ptr(v) for v in x), ptr(d), ptr(P), stream))
+                    if runs[name]() != 0:
+                        raise SystemExit(f"dd_binary {name}: launch failed")
+                    torch.cuda.synchronize()
+                    outs[name] = [torch.nan_to_num(d, nan=7.0),
+                                  torch.nan_to_num(P if name == "committed"
+                                                   else P[..., cols], nan=7.0)]
+                same = all(torch.equal(a, b) for a, b in
+                           zip(outs["parent"], outs["committed"]))
+                for rnd, name in _rounds(["committed", "parent"]):
+                    print(f"round {rnd} {K2.KERNELS[(mode, True)]} b1855 "
+                          f"B={B} N={N} {name}: {_time_ms(runs[name]):.4f} "
+                          "ms, "
+                          f"bitwise as committed "
+                          f"{name == 'committed' or same} [{card}]",
+                          flush=True)
 
     if "K1" in only:
         names = [n for k, n in libs if k == "spin_phase"]
