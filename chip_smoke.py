@@ -10,12 +10,13 @@ Phases, one line each:
 
 1. device -- the card's name and power limit (nvidia-smi) and its
    properties;
-2. build -- the five hand kernels, one nvcc per source, started together;
-   the ptxas report of each ``__global__`` (registers, stack frame, spill
-   bytes; K1's per S = 1..6, K2's and K4's per mode), read from the build
-   logs: K1's primal templates must hold no stack frame, and no primal
-   (K1, K2 in its four modes, K4), no ELL1H dual and no tiled K5 kernel
-   may spill;
+2. build -- the seven hand kernels, one nvcc per source, started
+   together; the ptxas report of each ``__global__`` (registers, stack
+   frame, spill bytes; K1's per S = 1..6, K2's and K4's per mode and orbit
+   source, K6's per form), read from the build logs: K1's primal templates
+   must hold no stack frame, and no primal (K1, K2 in its five modes and
+   both orbit sources, K4 likewise, K6, K7), no ELL1H dual and no tiled K5
+   kernel may spill;
 3. main paths, each with the kernel launch counts zeroed just before it
    and read just after, and every kernel of the path required to have
    launched; then its bars against the reference package's outputs stored
@@ -55,7 +56,23 @@ Phases, one line each:
    * bt, dds, ddh -- the small GLS stand-in (80 TOAs) with its binary as
      BT, DDS and DDH (``small_bt_standin.npz``, ``small_dds_standin.npz``,
      ``small_ddh_standin.npz``; the fits, no grid; K1, K2's BT primal and
-     dual, or its DD ones on DDS's and DDH's reparameterized rows).
+     dual, or its DD ones on DDS's and DDH's reparameterized rows);
+   * bw -- the J0023+0923-shaped black widow (``j0023_bw_standin.npz``:
+     ELL1 on FB0..FB3 orbits, WLS, the FB0 x FB1 grid at ``niter=4``; K1,
+     K6 FBX, K4's ELL1 with orbit inputs, K5 tiled); bw_waves -- the same
+     on ORBWAVES with an FBX base (``j0023_bw_waves_standin.npz``, no
+     grid; K6's waves on FBX);
+   * pta -- J1713+0747 with PLDMNoise, PLChromNoise, CM/CM1, SWX windows,
+     FDJUMP and FDJUMPDM (``j1713_pta_standin.npz``; the KIN x KOM GLS
+     grid at ``niter=1``; K1, K2 DDK, K3 smem, K7);
+   * young -- the Vela-shaped young pulsar (``vela_young_standin.npz``:
+     two glitches, WAVE pairs, the troposphere; the GLF0D_1 x GLTD_1 WLS
+     grid at ``niter=4``; K1, K5 tiled);
+   * small_dd_fbx, small_bt_piecewise, small_pta, small_young -- the small
+     stand-ins (80 TOAs, the fits, no grid) of DD on ORBWAVES with a PB
+     base (K6's waves on PB, K2's DD with orbit inputs), BT_piecewise (K2
+     BTX), the solar-wind and Fourier-basis PTA terms (K7 for NE_SW's
+     SWM 1) and piecewise spindown with IFUNC (K1).
 
    Bars: residuals 1e-10 s, the absolute phase's integers exactly, each
    fit's chi2 1e-6 rel, values 1e-2 sigma and uncertainties 1e-6 rel (or
@@ -95,6 +112,16 @@ Phases, one line each:
    cap; the tiled design (tile rows, WY block, the Jacobi's lanes, read
    from the built library) and, on the path's points, the kernel's gap to
    the twin beside the first-order least-squares sensitivity are printed.
+   Then each K2 and K4 orbit-input instantiation on its mode's
+   random orbits fed ``orbits_pb``'s orbits and pbprime, the delay
+   bitwise against its twin and against the PB instantiation, partials
+   1e-10 rel, NaN rows poisoning every partial (K2's DD also on
+   small_dd_fbx's call, K4's ELL1 on bw's: timed, recorded); K6 in each
+   form on its path's call (FBX bw, waves on FBX bw_waves, waves on PB
+   small_dd_fbx) and on random coefficients and TOAs, orbits and pbprime
+   bitwise, partials 1e-10 rel; K7 on pta's SWX call, on small_pta's and
+   on random elongations 1-179 deg with indices 1.5-4.4 and windows, the
+   geometry bitwise, partials 1e-10 rel.
    K2's Newton steps on each path's inputs set its operation count; the
    per-element operation counts of K1, K2 and K4 are bounded at the
    float64 instruction rate (-fmad=false); K5's counts what its function
@@ -155,10 +182,13 @@ K2_REVERSE_OPS = 242
 #: orbits, a1, omega_bt and two sincos pairs, 161; its reverse sweep 77);
 #: DDGR reads k and m2 from its row (5 fewer) and divides a1 by ar (1
 #: more), and its sweep drops k's chain and the TSUN product (7) for
-#: ar's partial and a1's share (5); DDK adds its two offsets (2)
+#: ar's partial and a1's share (5); DDK adds its two offsets (2); BTX (4)
+#: is BT with a per-TOA a1 in place of the row's.  The orbit-input forms
+#: read orbits and pbprime in place of forming them (7 and 6 fewer in the
+#: forward pass, BT 5, and 9 fewer in the sweep)
 K2_MODE_OPS = {0: (K2_FORWARD_OPS, K2_REVERSE_OPS), 1: (161, 77),
                2: (K2_FORWARD_OPS - 4, K2_REVERSE_OPS - 2),
-               3: (K2_FORWARD_OPS + 2, K2_REVERSE_OPS)}
+               3: (K2_FORWARD_OPS + 2, K2_REVERSE_OPS), 4: (161, 77)}
 
 
 #: float64 operations per element of ``ell1_binary.cu``, counted from the
@@ -247,6 +277,29 @@ def _k1_ops(S: int, has_pe: bool, partials: bool) -> int:
     return primal + (S + 2) * lanes if partials else primal
 
 
+def _k6_ops(form: int, nfb: int, nw: int, partials: bool) -> int:
+    """float64 operations per element of ``binary_orbits.cu``, counted
+    from the source as K2's are (a sine-cosine pair as 40, a division as
+    1): the Horner ladder 6 a term and its tail and reciprocal 2; each
+    wave term its frequency, phase, sincos, sum and rate (51) and the
+    base's and the tail's 5; the dual the FB columns' powers (3 a term)
+    and rate (3), each wave term's sincos and 14 more, and the pbprime
+    row's scaling (1 a column and 2)."""
+    nc = nfb if form == 0 else (1 if form == 1 else nfb) + 2 * nw + 1
+    fwd = (6 * nfb + 2 if form != 1 else 3) + (51 * nw + 5 if form else 0)
+    rev = 6 * nfb + (54 * nw + 4 if form else 0) + (1 + nc) + 2
+    return fwd + (rev if partials else 0)
+
+
+#: float64 operations per element of ``solar_wind_pl.cu``, counted from the
+#: source (a sine, cosine, arctangent or logarithm as 20, a power as 41: a
+#: logarithm, an exponential and a product): the primal's elongation
+#: geometry 49 and its tail 47, and a node each 64 (1 + 20 + 41 + 2); the
+#: dual's node 114 (a sincos pair, the power, three sums and their terms,
+#: a logarithm) and its partials' 61 more
+K7_OPS = {False: 49 + 47 + 64 * 64, True: 49 + 47 + 114 * 64 + 61}
+
+
 def _fail(msg: str) -> None:
     print(f"chip_smoke: {msg}", file=sys.stderr)
     sys.exit(2)
@@ -262,8 +315,10 @@ def _card() -> str:
 class Capture:
     """Spy on each kernel module's ``_launch``: keeps a copy of the largest
     call's inputs per (kernel, partials) -- per (kernel, (mode, partials))
-    for K2 and K4 -- so the comparisons run at the main path's shapes.
-    Counting stays in the original ``_launch``."""
+    for K2 and K4 on PB orbits, (kernel, (mode, partials, True)) with
+    orbit inputs, (kernel, (form, partials)) for K6 -- so the comparisons
+    run at the main path's shapes.  Counting stays in the original
+    ``_launch``."""
 
     def __init__(self, kernels):
         self.kernels = kernels
@@ -288,10 +343,17 @@ class Capture:
     def _record(self, name, args):
         import torch
 
-        partials = args[-1] if name == "spin_phase" \
-            else (int(args[2]), bool(args[4])) if name == "dd_binary" \
-            else (int(args[2]), bool(args[3])) if name == "ell1_binary" \
-            else None
+        if name == "dd_binary":
+            partials = (int(args[2]), bool(args[5])) + (
+                (True,) if args[4] is not None else ())
+        elif name == "ell1_binary":
+            partials = (int(args[2]), bool(args[3])) + (
+                (True,) if len(args) > 6 and args[6] is not None else ())
+        elif name == "binary_orbits":
+            partials = (int(args[2]), bool(args[6]))
+        else:
+            partials = args[-1] if name in ("spin_phase", "solar_wind_pl") \
+                else None
         size = sum(a.numel() for a in args if torch.is_tensor(a))
         key = (name, partials)
         if key not in self.calls or self.calls[key][0] < size:
@@ -432,7 +494,8 @@ def _drive(label, path, kernels, tag):
           + ", ".join(f"{n} {v:.4f} s" for n, v in stages.items())
           + (f"; warm grid {surface.size / stages['grid_warm']:.2f} fits/s"
              if grid else "")
-          + f"; launches {counts} {tag}", flush=True)
+          + f"; launches (nonzero) {dict((k, v) for k, v in counts.items() if v)}"
+          f" {tag}", flush=True)
     return counts, cap, dict(meta=meta, ref=ref, resid=resid, M=M,
                              phase_int=phase_int, fitter=fitter, fits=fits,
                              surface=surface)
@@ -560,11 +623,16 @@ def main() -> int:
     sys.path.insert(0, str(HERE))
 
     from pint_torch import kernels
-    from pint_torch.bridge import (BT_SMALL_PATH, DDGR_PATH, DDH_SMALL_PATH,
-                                   DDK_PATH, DDS_SMALL_PATH, DMX15_PATH,
-                                   ELL1_PATH, ELL1H_PATH, NGC_PATH,
-                                   NGC_PHOFF_PATH, STANDIN_PATH)
+    from pint_torch.bridge import (BT_PIECEWISE_SMALL_PATH, BT_SMALL_PATH,
+                                   BW_PATH, BW_WAVES_PATH, DD_FBX_SMALL_PATH,
+                                   DDGR_PATH, DDH_SMALL_PATH, DDK_PATH,
+                                   DDS_SMALL_PATH, DMX15_PATH, ELL1_PATH,
+                                   ELL1H_PATH, NGC_PATH, NGC_PHOFF_PATH,
+                                   PTA_PATH, PTA_SMALL_PATH, STANDIN_PATH,
+                                   YOUNG_PATH, YOUNG_SMALL_PATH)
     from pint_torch.kernels import _build
+    from pint_torch.kernels import binary_orbits as K6
+    from pint_torch.kernels import solar_wind_pl as K7
     from pint_torch.kernels import dd_binary as K2
     from pint_torch.kernels import ell1_binary as K4
     from pint_torch.kernels import schur_cholesky_solve as K3
@@ -590,22 +658,34 @@ def main() -> int:
     ptxas = [("spin_phase", f"{K1.KERNELS[p]}<{S}>",
               f"{K1.KERNELS[p]}ILi{S}E")
              for p in (False, True) for S in range(1, 7)]
-    ptxas += [("dd_binary", K2.KERNELS[(m, p)],
-               f"dd_binary_{'dual' if p else 'primal'}ILi{m}E")
-              for m in range(4) for p in (False, True)]
+    ptxas += [("dd_binary", K2.KERNELS[(m, p, True) if o else (m, p)],
+               f"dd_binary_{'dual' if p else 'primal'}ILi{m}ELb{int(o)}EE")
+              for m in K2.MODES for o in (False, True) for p in (False, True)]
     ptxas += [("schur_cholesky_solve", K3.KERNELS[False],
                "schur_cholesky_kernelILb1E"),
               ("schur_cholesky_solve", K3.KERNELS[True],
                "schur_cholesky_kernelILb0E")]
-    ptxas += [("ell1_binary", K4.KERNELS[(m, p)],
-               f"ell1_binary_{'dual' if p else 'primal'}ILi{m}E")
-              for m in range(4) for p in (False, True)]
+    ptxas += [("ell1_binary", K4.KERNELS[(m, p, True) if o else (m, p)],
+               f"ell1_binary_{'dual' if p else 'primal'}ILi{m}ELb{int(o)}EE")
+              for m in range(4) for o in (False, True) for p in (False, True)]
+    ptxas += [("binary_orbits", K6.KERNELS[(f, p)],
+               f"binary_orbits_kernelILi{f}ELb{int(p)}EE")
+              for f in (K6.FBX, K6.WAVES_PB, K6.WAVES_FBX)
+              for p in (False, True)]
+    ptxas += [("solar_wind_pl", K7.KERNELS[p],
+               f"solar_wind_pl_kernelILb{int(p)}EE") for p in (False, True)]
     ptxas += [("wls_lstsq", K5.KERNELS[n], K5.KERNELS[n])
               for n in ("fold", "svd", "global")]
-    # no K4 primal may spill, nor ELL1H's duals
+    # no primal may spill (K1, K2 and K4 in each mode and orbit source,
+    # K6, K7), nor ELL1H's duals, nor K5's tiled kernels
     k4_primals = [K4.KERNELS[(m, False)] for m in range(4)] \
+        + [K4.KERNELS[(m, False, True)] for m in range(4)] \
         + [K4.KERNELS[(m, True)] for m in (K4.ELL1H_EXACT,
                                            K4.ELL1H_HARMONIC)]
+    new_primals = [K2.KERNELS[(m, False, True)] for m in K2.MODES] \
+        + [K2.KERNELS[(K2.BTX, False)], K7.KERNELS[False]] \
+        + [K6.KERNELS[(f, False)] for f in (K6.FBX, K6.WAVES_PB,
+                                            K6.WAVES_FBX)]
     for src, kernel, marker in ptxas:
         log = _build.library_path(src).with_suffix(".log")
         r = _build.ptxas_report(log.read_text() if log.exists() else "",
@@ -619,7 +699,7 @@ def main() -> int:
         k1_primal = kernel.startswith(K1.KERNELS[False])
         primal = k1_primal \
             or kernel in [K2.KERNELS[(m, False)] for m in range(4)] \
-            or kernel in k4_primals \
+            or kernel in k4_primals or kernel in new_primals \
             or kernel in (K5.KERNELS["fold"], K5.KERNELS["svd"])
         if r is None or (k1_primal and r[1]) or (primal and (r[2] or r[3])):
             raise RuntimeError(f"ptxas: no report for {kernel}, or a stack "
@@ -629,7 +709,13 @@ def main() -> int:
     paths = {}
     k5_tiled = (K5.KERNELS["fold"], K5.KERNELS["svd"])
     k2 = {m: (K2.KERNELS[(m, False)], K2.KERNELS[(m, True)])
-          for m in range(4)}
+          for m in K2.MODES}
+    k2_orbit = {m: (K2.KERNELS[(m, False, True)], K2.KERNELS[(m, True, True)])
+                for m in K2.MODES}
+    k4_orbit = {m: (K4.KERNELS[(m, False, True)], K4.KERNELS[(m, True, True)])
+                for m in range(4)}
+    k6 = {f: (K6.KERNELS[(f, False)], K6.KERNELS[(f, True)])
+          for f in (K6.FBX, K6.WAVES_PB, K6.WAVES_FBX)}
     path_kernels = {
         "b1855": (*K1.KERNELS.values(), *k2[K2.DD], K3.KERNELS[False]),
         "dmx15": (*K1.KERNELS.values(), *k2[K2.DD], K3.KERNELS[True]),
@@ -643,13 +729,32 @@ def main() -> int:
         "ddgr": (*K1.KERNELS.values(), *k2[K2.DDGR], *k5_tiled),
         "bt": (*K1.KERNELS.values(), *k2[K2.BT]),
         "dds": (*K1.KERNELS.values(), *k2[K2.DD]),
-        "ddh": (*K1.KERNELS.values(), *k2[K2.DD])}
+        "ddh": (*K1.KERNELS.values(), *k2[K2.DD]),
+        "bw": (*K1.KERNELS.values(), *k6[K6.FBX], *k4_orbit[K4.ELL1],
+               *k5_tiled),
+        "bw_waves": (*K1.KERNELS.values(), *k6[K6.WAVES_FBX],
+                     *k4_orbit[K4.ELL1]),
+        "pta": (*K1.KERNELS.values(), *k2[K2.DDK], K3.KERNELS[False],
+                *K7.KERNELS.values()),
+        "young": (*K1.KERNELS.values(), *k5_tiled),
+        "small_dd_fbx": (*K1.KERNELS.values(), *k2_orbit[K2.DD],
+                         *k6[K6.WAVES_PB]),
+        "small_bt_piecewise": (*K1.KERNELS.values(), *k2[K2.BTX]),
+        "small_pta": (*K1.KERNELS.values(), *k2[K2.DD],
+                      *K7.KERNELS.values()),
+        "small_young": tuple(K1.KERNELS.values())}
     for label, path in (("b1855", STANDIN_PATH), ("dmx15", DMX15_PATH),
                         ("ell1", ELL1_PATH), ("ell1h", ELL1H_PATH),
                         ("ngc", NGC_PATH), ("ngc_phoff", NGC_PHOFF_PATH),
                         ("ddk", DDK_PATH), ("ddgr", DDGR_PATH),
                         ("bt", BT_SMALL_PATH), ("dds", DDS_SMALL_PATH),
-                        ("ddh", DDH_SMALL_PATH)):
+                        ("ddh", DDH_SMALL_PATH), ("bw", BW_PATH),
+                        ("bw_waves", BW_WAVES_PATH), ("pta", PTA_PATH),
+                        ("young", YOUNG_PATH),
+                        ("small_dd_fbx", DD_FBX_SMALL_PATH),
+                        ("small_bt_piecewise", BT_PIECEWISE_SMALL_PATH),
+                        ("small_pta", PTA_SMALL_PATH),
+                        ("small_young", YOUNG_SMALL_PATH)):
         counts, cap, out = _drive(label, path, kernels, tag)
         missing = [k for k in path_kernels[label] if counts[k] == 0]
         if missing:
@@ -754,7 +859,8 @@ def main() -> int:
     # = 1.5 (DD), ar = a1 / 1.5 (DDGR), the per-TOA sini 1.5 (DDK), NaN
     # TOAs (BT, which has no logarithm); the delay bitwise everywhere, the
     # partials to 1e-10 of each column's largest
-    k2_paths = {K2.DD: "b1855", K2.BT: "bt", K2.DDGR: "ddgr", K2.DDK: "ddk"}
+    k2_paths = {K2.DD: "b1855", K2.BT: "bt", K2.DDGR: "ddgr", K2.DDK: "ddk",
+                K2.BTX: "small_bt_piecewise"}
     tt0_main = paths["b1855"][1].args("dd_binary", (K2.DD, True))[0]
     bands = ((0.0, 0.9), (1.5e-5, 2.5e-5), (0.09, 0.11), (0.59, 0.61),
              (0.94, 0.96))
@@ -771,14 +877,17 @@ def main() -> int:
             rp[i * nb:(i + 1) * nb, 5] = rt(nb, lo=lo, hi=hi)
         rp[:, 7] = rt(nr, lo=0.0, hi=360.0)
         t, toa = rtt, None
-        if mode in (K2.DD, K2.BT, K2.DDK):
+        if mode in (K2.DD, K2.BT, K2.DDK, K2.BTX):
             rp[:, 8] = rt(nr, lo=0.0, hi=0.05)
         if mode == K2.DD:
             rp[:, 10] = rt(nr, lo=0.5, hi=0.999)
             rp[-2:, 10] = 1.5
-        elif mode == K2.BT:
+        elif mode in (K2.BT, K2.BTX):
             t = rtt.clone()
             t[-2:, ::97] = float("nan")
+            if mode == K2.BTX:
+                toa = (rp[:, 3:4] * (1.0 + rt(nr, rtt.shape[1], lo=-1e-5,
+                                              hi=1e-5)),)
         elif mode == K2.DDGR:
             rp[-2:, 10] = rp[-2:, 3] / 1.5
         else:
@@ -789,6 +898,7 @@ def main() -> int:
         return t, rp, toa
 
     randoms = {mode: random_k2(mode) for mode in k2_paths}
+    k2_randoms = randoms
     for mode, (t, rp, _) in randoms.items():
         _, _, kind = K2.kepler_steps(torch.nan_to_num(t), rp)
         exits = [torch.bincount(kind[i * nb:(i + 1) * nb].flatten(),
@@ -834,9 +944,11 @@ def main() -> int:
         on_path = path == k2_paths[mode]
         for partials in (False, True):
             kernel = K2.KERNELS[(mode, partials)]
-            tt0, params, _, toa, _ = paths[path][1].args(
+            tt0, params, _, toa, _, _ = paths[path][1].args(
                 "dd_binary", (captured, partials))
-            a2 = (tt0, params, mode, toa, partials)
+            if mode == K2.BTX and toa is None:
+                toa = (params[:, 3:4].expand_as(tt0).contiguous(),)
+            a2 = (tt0, params, mode, toa, None, partials)
 
             def twin2():
                 return K2.dd_binary_reference(tt0, params, partials, mode,
@@ -847,7 +959,7 @@ def main() -> int:
             err = float((dk - dr).abs().max())
             same = bool(torch.equal(dk, dr))
             prel = p_rel(Pk, Pr) if partials else 0.0
-            dk, Pk = K2._launch(rtt_m, rp, mode, rtoa, partials)
+            dk, Pk = K2._launch(rtt_m, rp, mode, rtoa, None, partials)
             dr, Pr = K2.dd_binary_reference(rtt_m, rp, partials, mode, rtoa)
             nan_k, nan_r = torch.isnan(dk), torch.isnan(dr)
             nan_ok = bool(torch.equal(nan_k, nan_r)) and bool(nan_k.any())
@@ -867,7 +979,8 @@ def main() -> int:
             # partials the mode writes out; DDK's three per-TOA inputs in
             nbytes = 8 * B2 * N2 + 8 * B2 * len(K2.ROW_COLUMNS[mode]) \
                 + 8 * B2 * N2 * (1 + (K2.npartial(mode) if partials else 0)) \
-                + (24 * B2 * N2 if mode == K2.DDK else 0)
+                + (24 * B2 * N2 if mode == K2.DDK else 0) \
+                + (8 * B2 * N2 if mode == K2.BTX else 0)
             ops = _k2_ops(st_elem, partials, mode)
             bound = _bound(nbytes, B2 * N2 * ops, rate=F64_INSTR_PER_S)
             b_warp = _bound(nbytes, B2 * N2 * _k2_ops(st_warp, partials, mode),
@@ -1063,6 +1176,312 @@ def main() -> int:
                                    "version")
             record(kernel, "ell1_binary.cu", K4.REPLACES_OF[mode],
                    max(err, err_r), ms, plain, bound, path=path)
+
+    # K2 and K4 with orbit inputs.  Each orbit-input instantiation on the
+    # random orbits of its mode (NaN rows and all), fed the orbits and
+    # pbprime that orbits_pb forms from the row (BT and BTX: PB 86400 as
+    # R's period, as the components hand it on a PB base): the delay
+    # bitwise against its twin and against the PB instantiation on the
+    # same orbits, the partials to 1e-10 of each column's largest, NaN
+    # rows poisoning every partial.  K2's DD and K4's ELL1 also on the
+    # path that launches them (small_dd_fbx: ORBWAVES on a PB base; bw: FB0
+    # to FB3), from K6, where they are timed and recorded.
+    from pint_torch.models.binary.engines import kepler_inputs
+
+    def orbits_pb_of(tt, rp, pb_period=False):
+        f = {}
+        kepler_inputs({n: rp[:, i:i + 1]
+                       for i, n in enumerate(K2.DD_PARAMS)}, tt, f)
+        frac = f["frac"]
+        orbits = (frac - 0.5 * f["pbdot"] * frac * frac).expand_as(tt)
+        pbp = (rp[:, :1] * 86400.0) if pb_period else f["pbprime"]
+        return orbits.contiguous(), pbp.expand_as(tt).contiguous()
+
+    def orbit_check(launch, twin, pb_launch, nan_rows=True):
+        """(same, err, prel, nan_ok) of one orbit-input call."""
+        dk, Pk = launch()
+        dr, Pr = twin()
+        dp, _ = pb_launch()
+        nan_k, nan_r = torch.isnan(dk), torch.isnan(dr)
+        nan_ok = bool(torch.equal(nan_k, nan_r)) and (bool(nan_k.any())
+                                                      or not nan_rows)
+        fin = ~nan_r
+        same = bool(torch.equal(dk[fin], dr[fin])) \
+            and bool(torch.equal(dk[fin], dp[fin]))
+        err = float((dk[fin] - dr[fin]).abs().max())
+        prel = 0.0
+        if Pk is not None:
+            nan_ok = nan_ok and bool(torch.isnan(Pk[nan_k]).all())
+            good = ~nan_r.any(dim=1)
+            prel = p_rel(Pk[good], Pr[good])
+        return same, err, prel, nan_ok
+
+    for mode in K2.MODES:
+        t, rp, rtoa = k2_randoms[mode]
+        orb = orbits_pb_of(t, rp, mode in (K2.BT, K2.BTX))
+        for partials in (False, True):
+            kernel = K2.KERNELS[(mode, partials, True)]
+            same, err, prel, nan_ok = orbit_check(
+                lambda: K2._launch(t, rp, mode, rtoa, orb, partials),
+                lambda: K2.dd_binary_reference(t, rp, partials, mode, rtoa,
+                                               orb),
+                lambda: K2._launch(t, rp, mode, rtoa, None, partials))
+            note = ""
+            if mode == K2.DD:
+                a2 = paths["small_dd_fbx"][1].args("dd_binary",
+                                                    (mode, partials, True))
+                tt0, params, _, toa, porb, _ = a2
+
+                def twin2o():
+                    return K2.dd_binary_reference(tt0, params, partials,
+                                                  mode, toa, porb)
+
+                dk, Pk = K2._launch(*a2)
+                dr, Pr = twin2o()
+                same = same and bool(torch.equal(dk, dr))
+                err = max(err, float((dk - dr).abs().max()))
+                if partials:
+                    prel = max(prel, p_rel(Pk, Pr))
+                B2, N2 = tt0.shape
+                ms = _time_ms(lambda: K2._launch(*a2), 50)
+                plain = _time_ms(twin2o, 3)
+                _, steps, _ = K2.kepler_steps(tt0, params)
+                st_elem = float(steps.double().mean())
+                nbytes = 8 * B2 * N2 * 3 + 8 * B2 * 13 \
+                    + 8 * B2 * N2 * (1 + (K2.npartial(mode, True)
+                                          if partials else 0))
+                ops = _k2_ops(st_elem, partials, mode) - (9 if partials
+                                                          else 0) - 7
+                bound = _bound(nbytes, B2 * N2 * ops, rate=F64_INSTR_PER_S)
+                note = (f"; small_dd_fbx's call B={B2} N={N2}: kernel "
+                        f"{ms:.4f} ms, plain {plain:.4f} ms, bound "
+                        f"{bound[0]:.4f} ms ({bound[1]}; share "
+                        f"{bound[0] / ms:.2f})")
+                record(kernel, "dd_binary.cu", K2.REPLACES_OF[mode], err, ms,
+                       plain, bound, path="small_dd_fbx")
+            else:
+                # no path launches it: timed on the random orbits, the
+                # launches those of its mode's path (0)
+                B2, N2 = t.shape
+                ms = _time_ms(lambda: K2._launch(t, rp, mode, rtoa, orb,
+                                                 partials), 20)
+                plain = _time_ms(lambda: K2.dd_binary_reference(
+                    t, rp, partials, mode, rtoa, orb), 3)
+                _, steps, _ = K2.kepler_steps(torch.nan_to_num(t), rp)
+                nbytes = 8 * B2 * N2 * (3 + len(rtoa or ())) + 8 * B2 * 13 \
+                    + 8 * B2 * N2 * (1 + (K2.npartial(mode, True)
+                                          if partials else 0))
+                ops = _k2_ops(float(steps.double().mean()), partials,
+                              mode) - (9 if partials else 0) - 7
+                bound = _bound(nbytes, B2 * N2 * ops, rate=F64_INSTR_PER_S)
+                note = (f"; timed on them: kernel {ms:.4f} ms, plain "
+                        f"{plain:.4f} ms, bound {bound[0]:.4f} ms "
+                        f"({bound[1]}; share {bound[0] / ms:.2f})")
+                record(kernel, "dd_binary.cu", K2.REPLACES_OF[mode], err, ms,
+                       plain, bound, path=k2_paths[mode])
+            print(f"phase kernel {kernel}: random orbits B={t.shape[0]} "
+                  f"N={t.shape[1]}, orbits_pb's orbits as inputs; delay "
+                  f"bitwise against the twin and the PB form {same}, max|d "
+                  f"delay| {err:.3e} s (= 0); NaN rows equal and poisoning "
+                  f"{nan_ok}; " + (f"partials ({K2.npartial(mode, True)}) "
+                                   f"max rel {prel:.3e} (<= 1e-10)"
+                                   if partials else "primal") + note
+                  + f" {tag}", flush=True)
+            if not (same and prel <= 1e-10 and nan_ok):
+                raise RuntimeError(f"{kernel} disagrees with its plain "
+                                   "version or with the PB form")
+
+    # ELL1 and ELL1k on the random orbits with their SINI = 1.5 rows, ELL1H
+    # on them with H3/STIGMA and NaN TOAs in their last two rows
+    rp4_modes = {K4.ELL1: (rp4, rtt4), K4.ELL1K: (rp4, rtt4),
+                 K4.ELL1H_EXACT: (rp4s, rtt4h),
+                 K4.ELL1H_HARMONIC: (rp4s, rtt4h)}
+    for mode, (rq, tq) in rp4_modes.items():
+        pb_s = rq[:, :1] * 86400.0
+        frac = tq / pb_s
+        orb = ((frac - 0.5 * (rq[:, 1:2] + rq[:, 2:3]) * frac * frac)
+               .contiguous(), (pb_s + rq[:, 1:2] * tq).contiguous())
+        for partials in (False, True):
+            kernel = K4.KERNELS[(mode, partials, True)]
+            same, err, prel, nan_ok = orbit_check(
+                lambda: K4._launch(tq, rq, mode, partials, 7, False, orb),
+                lambda: K4.ell1_binary_reference(tq, rq, mode, partials,
+                                                 7, False, orb),
+                lambda: K4._launch(tq, rq, mode, partials, 7, False))
+            note = ""
+            if mode == K4.ELL1:
+                a4 = paths["bw"][1].args("ell1_binary",
+                                         (mode, partials, True))
+
+                def twin4o():
+                    return K4.ell1_binary_reference(a4[0], a4[1], mode,
+                                                    partials, 7, False,
+                                                    a4[6])
+
+                dk, Pk = K4._launch(*a4)
+                dr, Pr = twin4o()
+                same = same and bool(torch.equal(dk, dr))
+                err = max(err, float((dk - dr).abs().max()))
+                if partials:
+                    prel = max(prel, p_rel(Pk, Pr))
+                B4, N4o = a4[0].shape
+                ms = _time_ms(lambda: K4._launch(*a4), 50)
+                plain = _time_ms(twin4o, 3)
+                ops = _k4_ops(mode, partials) - 6 - (7 if partials else 0)
+                bound = _bound(8 * B4 * N4o * 3 + 8 * B4 * a4[1].shape[1]
+                               + 8 * B4 * N4o * (1 + (K4.npartial(mode, True)
+                                                      if partials else 0)),
+                               B4 * N4o * ops, rate=F64_INSTR_PER_S)
+                note = (f"; bw's call B={B4} N={N4o}: kernel {ms:.4f} ms, "
+                        f"plain {plain:.4f} ms, bound {bound[0]:.4f} ms "
+                        f"({bound[1]}; share {bound[0] / ms:.2f})")
+                record(kernel, "ell1_binary.cu", K4.REPLACES_OF[mode], err,
+                       ms, plain, bound, path="bw")
+            else:
+                # no path launches it: timed on the random orbits
+                B4, N4o = tq.shape
+                ms = _time_ms(lambda: K4._launch(tq, rq, mode, partials, 7,
+                                                 False, orb), 20)
+                plain = _time_ms(lambda: K4.ell1_binary_reference(
+                    tq, rq, mode, partials, 7, False, orb), 3)
+                ops = _k4_ops(mode, partials) - 6 - (7 if partials else 0)
+                bound = _bound(8 * B4 * N4o * 3 + 8 * B4 * rq.shape[1]
+                               + 8 * B4 * N4o * (1 + (K4.npartial(mode, True)
+                                                      if partials else 0)),
+                               B4 * N4o * ops, rate=F64_INSTR_PER_S)
+                note = (f"; timed on them: kernel {ms:.4f} ms, plain "
+                        f"{plain:.4f} ms, bound {bound[0]:.4f} ms "
+                        f"({bound[1]}; share {bound[0] / ms:.2f})")
+                record(kernel, "ell1_binary.cu", K4.REPLACES_OF[mode], err,
+                       ms, plain, bound,
+                       path="ell1" if mode < K4.ELL1H_EXACT else "ell1h")
+            print(f"phase kernel {kernel}: random orbits B={tq.shape[0]} "
+                  f"N={tq.shape[1]}, orbits_pb's orbits as inputs; delay "
+                  f"bitwise against the twin and the PB form {same}, max|d "
+                  f"delay| {err:.3e} s (= 0); NaN rows equal and poisoning "
+                  f"{nan_ok}; " + (f"partials max rel {prel:.3e} (<= 1e-10)"
+                                   if partials else "primal") + note
+                  + f" {tag}", flush=True)
+            if not (same and prel <= 1e-10 and nan_ok):
+                raise RuntimeError(f"{kernel} disagrees with its plain "
+                                   "version or with the PB form")
+
+    # K6 in its three forms, each on its path's largest call (FBX: bw;
+    # ORBWAVES on an FBX base: bw_waves; on a PB base: small_dd_fbx) and
+    # on seeded random coefficients within 1e-3 of the path's and TOAs
+    # over +-3e8 s: orbits and pbprime bitwise, the partials to 1e-10 of
+    # each column's largest
+    k6_paths = {K6.FBX: "bw", K6.WAVES_FBX: "bw_waves",
+                K6.WAVES_PB: "small_dd_fbx"}
+    for form, path in k6_paths.items():
+        for partials in (False, True):
+            kernel = K6.KERNELS[(form, partials)]
+            a6 = paths[path][1].args("binary_orbits", (form, partials))
+            tt6, c6, _, nfb, nw, off, _ = a6
+
+            def twin6():
+                return K6.binary_orbits_reference(tt6, c6, form, nfb, nw,
+                                                  off, partials)
+
+            ok_, pk_, Pk = K6._launch(*a6)
+            or_, pr_, Pr = twin6()
+            same = bool(torch.equal(ok_, or_)) and bool(torch.equal(pk_, pr_))
+            err = float((ok_ - or_).abs().max())
+            prel = 0.0
+            if partials:
+                prel = max(p_rel(Pk[..., 0, :], Pr[..., 0, :]),
+                           p_rel(Pk[..., 1, :], Pr[..., 1, :]))
+            Br = 64
+            tr = rt(Br, tt6.shape[1], lo=-3e8, hi=3e8)
+            cr = c6[:1].expand(Br, -1) * (1.0 + rt(Br, c6.shape[1], lo=-1e-3,
+                                                   hi=1e-3))
+            ok_, pk_, Pk = K6._launch(tr, cr.contiguous(), form, nfb, nw,
+                                      off, partials)
+            or_, pr_, Pr = K6.binary_orbits_reference(tr, cr, form, nfb, nw,
+                                                      off, partials)
+            same = same and bool(torch.equal(ok_, or_)) \
+                and bool(torch.equal(pk_, pr_))
+            err = max(err, float((ok_ - or_).abs().max()))
+            if partials:
+                prel = max(prel, p_rel(Pk[..., 0, :], Pr[..., 0, :]),
+                           p_rel(Pk[..., 1, :], Pr[..., 1, :]))
+            B6, N6 = tt6.shape
+            nc = c6.shape[1]
+            ms = _time_ms(lambda: K6._launch(*a6), 50)
+            plain = _time_ms(twin6, 3)
+            ops = _k6_ops(form, nfb, nw, partials)
+            bound = _bound(8 * B6 * N6 + 8 * B6 * nc + 16 * B6 * N6
+                           + (16 * (1 + nc) * B6 * N6 if partials else 0),
+                           B6 * N6 * ops, rate=F64_INSTR_PER_S)
+            print(f"phase kernel {kernel}: {path} B={B6} N={N6} nfb={nfb} "
+                  f"nwaves={nw} (+ {Br} random rows); orbits and pbprime "
+                  f"bitwise {same}, max|d orbits| {err:.3e} (= 0); "
+                  + (f"partials ({2 * (1 + nc)}) max rel {prel:.3e} "
+                     "(<= 1e-10); " if partials else "")
+                  + f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+                  f"{bound[0]:.4f} ms ({bound[1]}, {ops} ops/element; share "
+                  f"{bound[0] / ms:.2f}) {tag}", flush=True)
+            if not (same and prel <= 1e-10):
+                raise RuntimeError(f"{kernel} disagrees with its plain "
+                                   "version")
+            record(kernel, "binary_orbits.cu", K6.REPLACES_OF[form], err, ms,
+                   plain, bound, path=path)
+
+    # K7 on the pta path's largest calls (SWX: one window a conjunction
+    # year, each TOA's geometry at its window's SWXP_), on small_pta's
+    # (NE_SW's SWP, every TOA) and on seeded random elongations from 1 to
+    # 179 deg with indices 1.5-4.4, three windows and TOAs outside them:
+    # the geometry bitwise, the partials to 1e-10 of each column's largest
+    for partials in (False, True):
+        kernel = K7.KERNELS[partials]
+        a7 = paths["pta"][1].args("solar_wind_pl", partials)
+        r7, th7, p7, i7, w7, _ = a7
+
+        def twin7():
+            return K7._twin(r7, th7, p7, i7, w7, partials)
+
+        gk, Pk = K7._launch(*a7)
+        gr, Pr = twin7()
+        same = bool(torch.equal(gk, gr))
+        err = float((gk - gr).abs().max())
+        prel = p_rel(Pk, Pr) if partials else 0.0
+        a7s = paths["small_pta"][1].args("solar_wind_pl", partials)
+        gk, Pk = K7._launch(*a7s)
+        gr, Pr = K7._twin(*a7s)
+        same = same and bool(torch.equal(gk, gr))
+        if partials:
+            prel = max(prel, p_rel(Pk, Pr))
+        Nr = 4096
+        rr7 = rt(Nr, lo=490.0, hi=510.0)
+        thr = rt(32, Nr, lo=math.radians(1.0), hi=math.radians(179.0))
+        pr7 = rt(32, 3, lo=1.5, hi=4.4)
+        wr = torch.randint(-1, 3, (Nr,), generator=gen, device=dev)
+        gk, Pk = K7._launch(rr7, thr, pr7, K7.sw_i_inf(pr7), wr, partials)
+        gr, Pr = K7._twin(rr7, thr, pr7, K7.sw_i_inf(pr7), wr, partials)
+        same = same and bool(torch.equal(gk, gr))
+        if partials:
+            prel = max(prel, p_rel(Pk, Pr))
+        B7, N7 = th7.shape
+        W7 = p7.shape[1]
+        inside = int((w7 >= 0).sum()) if w7 is not None else N7
+        ms = _time_ms(lambda: K7._launch(*a7), 20)
+        plain = _time_ms(twin7, 2)
+        bound = _bound(8 * N7 + 8 * B7 * N7 + 16 * B7 * W7 + 4 * N7
+                       + 8 * B7 * N7 * (1 + (3 if partials else 0)),
+                       B7 * inside * K7_OPS[partials], rate=F64_INSTR_PER_S)
+        print(f"phase kernel {kernel}: pta B={B7} N={N7} ({W7} windows, "
+              f"{inside} TOAs inside one; + small_pta's call, + 32 x {Nr} "
+              f"random); geometry bitwise {same}, max|d g| {err:.3e} pc (= "
+              f"0); " + (f"partials max rel {prel:.3e} (<= 1e-10); "
+                         if partials else "")
+              + f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+              f"{bound[0]:.4f} ms ({bound[1]}, {K7_OPS[partials]} ops per "
+              f"TOA in a window; share {bound[0] / ms:.2f}) {tag}",
+              flush=True)
+        if not (same and prel <= 1e-10):
+            raise RuntimeError(f"{kernel} disagrees with its plain version")
+        record(kernel, "solar_wind_pl.cu", K7.REPLACES, err, ms, plain,
+               bound, path="pta")
 
     # K5: the ell1 path's largest call (its 256 points, N = 4005, k = 88)
     # runs the tiled kernels.  Each is held against its own plain version on

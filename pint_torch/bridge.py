@@ -31,7 +31,10 @@ from pint_torch.toa import TOABatch
 __all__ = ["load_snapshot", "read_snapshot", "SNAPSHOT_FORMAT",
            "STANDIN_PATH", "DMX15_PATH", "ELL1_PATH", "ELL1H_PATH",
            "NGC_PATH", "NGC_PHOFF_PATH", "DDK_PATH", "DDGR_PATH",
-           "BT_SMALL_PATH", "DDS_SMALL_PATH", "DDH_SMALL_PATH"]
+           "BT_SMALL_PATH", "DDS_SMALL_PATH", "DDH_SMALL_PATH", "BW_PATH",
+           "BW_WAVES_PATH", "PTA_PATH", "YOUNG_PATH", "DD_FBX_SMALL_PATH",
+           "BT_PIECEWISE_SMALL_PATH", "PTA_SMALL_PATH", "YOUNG_SMALL_PATH",
+           "QUEUED"]
 
 SNAPSHOT_FORMAT = "pint_torch-snapshot-1"
 #: the committed full-width B1855+09-shaped stand-in
@@ -62,6 +65,29 @@ DDGR_PATH = STANDIN_PATH.with_name("b1913_ddgr_standin.npz")
 BT_SMALL_PATH = STANDIN_PATH.with_name("small_bt_standin.npz")
 DDS_SMALL_PATH = STANDIN_PATH.with_name("small_dds_standin.npz")
 DDH_SMALL_PATH = STANDIN_PATH.with_name("small_ddh_standin.npz")
+#: the J0023+0923-shaped black widow: ELL1 on FB0..FB3 orbits (WLS; FB0 x
+#: FB1 grid), and the same with ORBWAVES on an FBX base (no grid)
+BW_PATH = STANDIN_PATH.with_name("j0023_bw_standin.npz")
+BW_WAVES_PATH = STANDIN_PATH.with_name("j0023_bw_waves_standin.npz")
+#: J1713+0747 with EPTA-DR2-style DM, chromatic and solar-wind terms (GLS;
+#: KIN x KOM grid)
+PTA_PATH = STANDIN_PATH.with_name("j1713_pta_standin.npz")
+#: the Vela-shaped young pulsar: glitches, WAVE, troposphere (WLS;
+#: GLF0D_1 x GLTD_1 grid)
+YOUNG_PATH = STANDIN_PATH.with_name("vela_young_standin.npz")
+#: the small stand-ins (80 TOAs, fits only): DD on ORBWAVES with a PB
+#: base, BT_piecewise, the solar-wind and Fourier-basis PTA terms,
+#: piecewise spindown with IFUNC
+DD_FBX_SMALL_PATH = STANDIN_PATH.with_name("small_dd_fbx_standin.npz")
+BT_PIECEWISE_SMALL_PATH = STANDIN_PATH.with_name(
+    "small_bt_piecewise_standin.npz")
+PTA_SMALL_PATH = STANDIN_PATH.with_name("small_pta_standin.npz")
+YOUNG_SMALL_PATH = STANDIN_PATH.with_name("small_young_standin.npz")
+
+#: registered reference components the port does not run yet, with the
+#: ROADMAP item that ports them
+QUEUED = {"ScaleDmError": "ROADMAP.md queue A item 6 (the wideband fitters,"
+                          " whose DM uncertainties it scales)"}
 
 _BATCH_KEYS = ("tdb_hi", "tdb_lo", "tdb0", "tdb_s_hi", "tdb_s_lo", "freq",
                "error_us", "ssb_obs_pos", "ssb_obs_vel", "obs_sun_pos",
@@ -82,9 +108,11 @@ def read_snapshot(path_or_dict: Union[str, Path, dict]) -> Tuple[dict, dict]:
     return meta, arrays
 
 
-def _context(name: str, arrays: dict, device, root: str = "ctx") -> dict:
+def _context(name: str, arrays: dict, device, noise: bool = False,
+             root: str = "ctx") -> dict:
     """The component's context: ``<root>/<component>/<key>[/<sub>]``
-    arrays; masks of noise components stay host booleans, the rest become
+    arrays; a noise component's stay on the host (masks as booleans, the
+    chromatic and solar-wind basis scales as float64), the rest become
     float64 tensors on ``device``."""
     prefix = f"{root}/{name}/"
     out: dict = {}
@@ -92,8 +120,9 @@ def _context(name: str, arrays: dict, device, root: str = "ctx") -> dict:
         if not key.startswith(prefix):
             continue
         parts = key[len(prefix):].split("/")
-        if name in ("ScaleToaError", "EcorrNoise", "PLRedNoise"):
-            val = np.asarray(arr, dtype=bool)
+        if noise:
+            val = np.asarray(arr, dtype=bool if parts[0] == "masks"
+                             else np.float64)
         else:
             val = torch.tensor(np.asarray(arr, dtype=np.float64), dtype=F64,
                                device=device)
@@ -125,20 +154,22 @@ def load_snapshot(path_or_dict: Union[str, Path, dict] = STANDIN_PATH,
     for c in meta["components"]:
         cls = Component.component_types.get(c["class"])
         if cls is None:
+            where = QUEUED.get(c["class"])
             raise NotImplementedError(
-                f"component {c['class']} is not ported yet")
-        ctx = _context(c["class"], arrays, dev)
+                f"component {c['class']} is not ported yet"
+                + (f" ({where})" if where else ""))
+        ctx = _context(c["class"], arrays, dev, cls.kind == "noise")
         if c["class"] == "AbsPhase" and "tzr/tdb_hi" in arrays:
             ctx["tzr_batch"] = TOABatch.from_numpy(
                 _batch_arrays(arrays, "tzr/"), dev, tzr=True,
                 contexts={d["class"]: _context(d["class"], arrays, dev,
-                                               "tzr/ctx")
+                                               root="tzr/ctx")
                           for d in meta["components"]})
         comps.append(cls(c.get("config", {}), ctx))
     params = {}
     for p in meta["params"]:
         value = p["value"]
-        if p["kind"] == "mjd" and value is not None:
+        if p["kind"] in ("mjd", "pair") and value is not None:
             value = (float(value[0]), float(value[1]))
         params[p["name"]] = Param(
             name=p["name"], component=p["component"], kind=p["kind"],

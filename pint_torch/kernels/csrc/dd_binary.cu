@@ -33,7 +33,20 @@
 //           d_a1 and d_om and sin(kin), added to a1 and to omega after
 //           k nu and used as sini; its dual writes 19 partials: tt0's,
 //           the row's but the unread SINI's, then d_a1's, d_om's and
-//           sini's.
+//           sini's;
+//   BTX  -- BT with a (B, N) a1 in place of the row's A1: the piecewise
+//           BT (components.py:721-790), its a1 formed per TOA as the
+//           reference forms it and handed in through d_a1; its dual writes
+//           BT's 11 partials with the per-TOA a1's last, in A1's place.
+//
+// ORB, a second template parameter, picks the orbits' source: false, PB,
+// PBDOT and XPBDOT as above (orbits_pb); true, two (B, N) inputs more,
+// orbits and pbprime, from K6 (binary_orbits.cu: FBX or ORBWAVES orbits,
+// components.py:168-193), of which the mean anomaly is (orbits -
+// floor(orbits)) 2 pi as engines.py:111 forms it.  The orbit-input duals
+// write the partials with respect to orbits and pbprime in PB's and
+// PBDOT's places and none for XPBDOT; the PB instantiations are the code
+// they were.
 // A partial of a row entry the mode does not read would be a column of
 // zeros, so it is not written (Mode<MODE>::column maps the output's
 // columns onto the reverse sweep's).
@@ -100,27 +113,36 @@ constexpr int THREADS = 128;
 constexpr int MAX_GRID_Y = 65535;
 
 // The family's forms (engines.py DD, BT, DDGR, DDK).
-enum : int { DD = 0, BT = 1, DDGR = 2, DDK = 3 };
+enum : int { DD = 0, BT = 1, DDGR = 2, DDK = 3, BTX = 4 };
 
-template <int MODE>
+template <int MODE, bool ORB>
 struct Mode {
   // the reverse sweep's partials: tt0 (0), the row (1..16) and DDK's three
-  // per-TOA inputs (17..19)
+  // per-TOA inputs (17..19); with ORB, 1 and 2 are orbits' and pbprime's
   static constexpr int NSWEEP = NPAR + 1 + (MODE == DDK ? 3 : 0);
   // the partials written: all of the sweep's but those of the row entries
-  // the mode does not read (BT: M2, SINI, DR, DTH, A0, B0; DDK: SINI)
+  // the mode does not read (BT, BTX: M2, SINI, DR, DTH, A0, B0; DDK: SINI;
+  // with ORB: XPBDOT)
   static constexpr int NPARTIAL =
-      MODE == BT ? 11 : (MODE == DDK ? NSWEEP - 1 : NSWEEP);
+      (MODE == BT || MODE == BTX ? 11 : (MODE == DDK ? NSWEEP - 1 : NSWEEP)) -
+      (ORB ? 1 : 0);
+  // the sweep's index of written column j on PB orbits
+  __host__ __device__ static constexpr int pb_column(int j) {
+    return MODE == BT    ? (j < 10 ? j : 12)
+           : MODE == BTX ? (j < 4 ? j : (j < 9 ? j + 1 : (j == 9 ? 12 : 4)))
+           : MODE == DDK ? (j < 11 ? j : j + 1)
+                         : j;
+  }
   // the sweep's index of written column j
   __host__ __device__ static constexpr int column(int j) {
-    return MODE == BT ? (j < 10 ? j : 12)
-                      : (MODE == DDK ? (j < 11 ? j : j + 1) : j);
+    return ORB ? (j < 3 ? j : pb_column(j + 1)) : pb_column(j);
   }
 };
 
-// DDK's per-TOA inputs (zeros in the other modes, which do not read them).
+// Per-TOA inputs: DDK's three (BTX's a1 in d_a1) and the orbit inputs
+// (zeros where the instantiation does not read them).
 struct Toa {
-  double d_a1, d_om, sini;
+  double d_a1, d_om, sini, orb, pbp;
 };
 
 // The DD forward pass's intermediates that the reverse sweep reads.
@@ -167,15 +189,21 @@ __device__ __forceinline__ double kepler(double M, double e) {
   return E;
 }
 
-template <int MODE>
+template <int MODE, bool ORB>
 __device__ __forceinline__ void dd_forward(double t, const double* p,
                                            const Toa& x, Fwd& f) {
-  // orbits_pb, mean_anomaly, ecc_at
-  f.pb_s = p[0] * 86400.0;
-  f.pbdot = p[1] + p[2];
-  f.frac = t / f.pb_s;
-  const double orbits = f.frac - 0.5 * f.pbdot * f.frac * f.frac;
-  f.pbprime = f.pb_s + p[1] * t;
+  // orbits_pb (or the orbit inputs), mean_anomaly, ecc_at
+  double orbits;
+  if constexpr (ORB) {
+    orbits = x.orb;
+    f.pbprime = x.pbp;
+  } else {
+    f.pb_s = p[0] * 86400.0;
+    f.pbdot = p[1] + p[2];
+    f.frac = t / f.pb_s;
+    orbits = f.frac - 0.5 * f.pbdot * f.frac * f.frac;
+    f.pbprime = f.pb_s + p[1] * t;
+  }
   const double fl = floor(orbits);
   const double M = (orbits - fl) * TWO_PI;
   const double e = p[5] + t * p[6];
@@ -242,7 +270,7 @@ __device__ __forceinline__ void dd_forward(double t, const double* p,
 
 // Reverse sweep: the partials of f.delay into P (tt0, then the row, then
 // DDK's per-TOA inputs; DDK leaves the unread SINI's P[11] unset).
-template <int MODE>
+template <int MODE, bool ORB>
 __device__ __forceinline__ void dd_reverse(double t, const double* p,
                                            const Fwd& f, double* P) {
   const double e = f.e;
@@ -362,29 +390,48 @@ __device__ __forceinline__ void dd_reverse(double t, const double* p,
   // M = (orbits - floor) 2 pi; orbits = frac - 0.5 pbdot frac^2;
   // frac = t / pb_s; pbprime = pb_s + PBDOT t; pb_s = PB 86400
   const double g_orb = g_M * TWO_PI;
-  const double g_frac = g_orb * (1.0 - f.pbdot * f.frac);
-  const double g_pbdot = -g_orb * 0.5 * f.frac * f.frac;
-  const double g_pbs = g_pbprime - g_frac * f.frac / f.pb_s;
-  P[1] = g_pbs * 86400.0;
-  P[2] = g_pbdot + g_pbprime * t;
-  P[3] = g_pbdot;
-  P[0] = g_frac / f.pb_s + g_pbprime * p[1] + g_e * p[6] + g_a1 * p[4];
+  if constexpr (ORB) {
+    P[1] = g_orb;
+    P[2] = g_pbprime;
+    P[0] = g_e * p[6] + g_a1 * p[4];
+  } else {
+    const double g_frac = g_orb * (1.0 - f.pbdot * f.frac);
+    const double g_pbdot = -g_orb * 0.5 * f.frac * f.frac;
+    const double g_pbs = g_pbprime - g_frac * f.frac / f.pb_s;
+    P[1] = g_pbs * 86400.0;
+    P[2] = g_pbdot + g_pbprime * t;
+    P[3] = g_pbdot;
+    P[0] = g_frac / f.pb_s + g_pbprime * p[1] + g_e * p[6] + g_a1 * p[4];
+  }
 }
 
 // BT (engines.py:135 bt_delay with use_pb): the same orbits and Kepler
 // solve, omega_bt = OM DEG + ((OMDOT DEG) / SEC_PER_YEAR) t, and
-// (alpha (cosE - e) + (beta + GAMMA) sinE) (1 - 2 pi num / (den PB 86400)).
+// (alpha (cosE - e) + (beta + GAMMA) sinE) (1 - 2 pi num / (den PB 86400));
+// with ORB, R reads the orbit input pbprime in place of PB 86400 (the
+// caller hands it PB 86400 where the reference keeps use_pb), and BTX's a1
+// is the per-TOA one.
+template <int MODE, bool ORB>
 __device__ __forceinline__ void bt_forward(double t, const double* p,
-                                           BtFwd& f) {
-  f.pb_s = p[0] * 86400.0;
-  f.pbdot = p[1] + p[2];
-  f.frac = t / f.pb_s;
-  const double orbits = f.frac - 0.5 * f.pbdot * f.frac * f.frac;
+                                           const Toa& x, BtFwd& f) {
+  double orbits;
+  if constexpr (ORB) {
+    orbits = x.orb;
+    f.pb_s = x.pbp;
+  } else {
+    f.pb_s = p[0] * 86400.0;
+    f.pbdot = p[1] + p[2];
+    f.frac = t / f.pb_s;
+    orbits = f.frac - 0.5 * f.pbdot * f.frac * f.frac;
+  }
   const double M = (orbits - floor(orbits)) * TWO_PI;
   const double e = p[5] + t * p[6];
   f.e = e;
   const double E = kepler(M, e);
-  f.a1 = p[3] + t * p[4];
+  if constexpr (MODE == BTX)
+    f.a1 = x.d_a1 + t * p[4];
+  else
+    f.a1 = p[3] + t * p[4];
   f.omdot = p[8] * DEG / SEC_PER_YEAR;
   sincos(p[7] * DEG + f.omdot * t, &f.so, &f.co);
   sincos(E, &f.sinE, &f.cosE);
@@ -401,6 +448,7 @@ __device__ __forceinline__ void bt_forward(double t, const double* p,
   f.delay = f.L * f.R;
 }
 
+template <bool ORB>
 __device__ __forceinline__ void bt_reverse(double t, const double* p,
                                            const BtFwd& f, double* P) {
   const double e = f.e;
@@ -450,34 +498,63 @@ __device__ __forceinline__ void bt_reverse(double t, const double* p,
   // M = (orbits - floor) 2 pi; orbits = frac - 0.5 pbdot frac^2;
   // frac = t / pb_s; pb_s = PB 86400 (R's constant PB too)
   const double g_orb = g_M * TWO_PI;
-  const double g_frac = g_orb * (1.0 - f.pbdot * f.frac);
-  const double g_pbdot = -g_orb * 0.5 * f.frac * f.frac;
-  g_pbs = g_pbs - g_frac * f.frac / f.pb_s;
-  P[1] = g_pbs * 86400.0;
-  P[2] = g_pbdot;
-  P[3] = g_pbdot;
-  P[0] = g_frac / f.pb_s + g_e * p[6] + g_a1 * p[4] + g_om * f.omdot;
+  if constexpr (ORB) {
+    P[1] = g_orb;
+    P[2] = g_pbs;
+    P[0] = g_e * p[6] + g_a1 * p[4] + g_om * f.omdot;
+  } else {
+    const double g_frac = g_orb * (1.0 - f.pbdot * f.frac);
+    const double g_pbdot = -g_orb * 0.5 * f.frac * f.frac;
+    g_pbs = g_pbs - g_frac * f.frac / f.pb_s;
+    P[1] = g_pbs * 86400.0;
+    P[2] = g_pbdot;
+    P[3] = g_pbdot;
+    P[0] = g_frac / f.pb_s + g_e * p[6] + g_a1 * p[4] + g_om * f.omdot;
+  }
 }
 
 // One block covers THREADS TOAs of one row b = b0 + blockIdx.y, so the
 // parameter row is loaded once per block and no thread divides by N.  Each
-// thread's tt0 (and DDK's per-TOA inputs) is loaded before the barrier, so
+// thread's tt0 (and its per-TOA inputs) is loaded before the barrier, so
 // that its latency overlaps the row's.
-template <int MODE>
+template <int MODE, bool ORB>
+__device__ __forceinline__ Toa load_toa(const double* __restrict__ d_a1,
+                                        const double* __restrict__ d_om,
+                                        const double* __restrict__ sini,
+                                        const double* __restrict__ orb,
+                                        const double* __restrict__ pbp,
+                                        long idx) {
+  Toa x{0.0, 0.0, 0.0, 0.0, 0.0};
+  if constexpr (MODE == DDK) {
+    x.d_a1 = d_a1[idx];
+    x.d_om = d_om[idx];
+    x.sini = sini[idx];
+  }
+  if constexpr (MODE == BTX) x.d_a1 = d_a1[idx];
+  if constexpr (ORB) {
+    x.orb = orb[idx];
+    x.pbp = pbp[idx];
+  }
+  return x;
+}
+
+template <int MODE, bool ORB>
 __global__ void dd_binary_primal(const double* __restrict__ tt0,
                                  const double* __restrict__ params,
                                  const double* __restrict__ d_a1,
                                  const double* __restrict__ d_om,
-                                 const double* __restrict__ sini, int b0,
+                                 const double* __restrict__ sini,
+                                 const double* __restrict__ orb,
+                                 const double* __restrict__ pbp, int b0,
                                  int N, double* __restrict__ delay) {
   __shared__ double row[NPAR];
   const long b = (long)b0 + blockIdx.y;
   const int n = blockIdx.x * THREADS + threadIdx.x;
   const long idx = b * N + n;
   const double t = n < N ? tt0[idx] : 0.0;
-  Toa x{0.0, 0.0, 0.0};
-  if constexpr (MODE == DDK) {
-    if (n < N) x = Toa{d_a1[idx], d_om[idx], sini[idx]};
+  Toa x{0.0, 0.0, 0.0, 0.0, 0.0};
+  if constexpr (MODE == DDK || MODE == BTX || ORB) {
+    if (n < N) x = load_toa<MODE, ORB>(d_a1, d_om, sini, orb, pbp, idx);
   }
   if (threadIdx.x < NPAR) row[threadIdx.x] = params[b * NPAR + threadIdx.x];
   __syncthreads();
@@ -485,13 +562,13 @@ __global__ void dd_binary_primal(const double* __restrict__ tt0,
   double p[NPAR];
 #pragma unroll
   for (int i = 0; i < NPAR; ++i) p[i] = row[i];
-  if constexpr (MODE == BT) {
+  if constexpr (MODE == BT || MODE == BTX) {
     BtFwd f;
-    bt_forward(t, p, f);
+    bt_forward<MODE, ORB>(t, p, x, f);
     delay[idx] = f.delay;
   } else {
     Fwd f;
-    dd_forward<MODE>(t, p, x, f);
+    dd_forward<MODE, ORB>(t, p, x, f);
     delay[idx] = f.delay;
   }
 }
@@ -499,15 +576,17 @@ __global__ void dd_binary_primal(const double* __restrict__ tt0,
 // The block's partials go through shared memory so that its rows of the
 // (B, N, NPARTIAL) output are written contiguously (one thread's values are
 // 8 NPARTIAL B apart from the next thread's).
-template <int MODE>
+template <int MODE, bool ORB>
 __global__ void dd_binary_dual(const double* __restrict__ tt0,
                                const double* __restrict__ params,
                                const double* __restrict__ d_a1,
                                const double* __restrict__ d_om,
-                               const double* __restrict__ sini, int B, int N,
+                               const double* __restrict__ sini,
+                               const double* __restrict__ orb,
+                               const double* __restrict__ pbp, int B, int N,
                                double* __restrict__ delay,
                                double* __restrict__ partials) {
-  constexpr int NPARTIAL = Mode<MODE>::NPARTIAL;
+  constexpr int NPARTIAL = Mode<MODE, ORB>::NPARTIAL;
   __shared__ double rows[THREADS * NPARTIAL];
   const long first = (long)blockIdx.x * THREADS;
   const long idx = first + threadIdx.x;
@@ -518,23 +597,22 @@ __global__ void dd_binary_dual(const double* __restrict__ tt0,
 #pragma unroll
     for (int i = 0; i < NPAR; ++i) p[i] = params[b * NPAR + i];
     const double t = tt0[idx];
-    double P[Mode<MODE>::NSWEEP];
-    if constexpr (MODE == BT) {
+    double P[Mode<MODE, ORB>::NSWEEP];
+    const Toa x = load_toa<MODE, ORB>(d_a1, d_om, sini, orb, pbp, idx);
+    if constexpr (MODE == BT || MODE == BTX) {
       BtFwd f;
-      bt_forward(t, p, f);
-      bt_reverse(t, p, f, P);
+      bt_forward<MODE, ORB>(t, p, x, f);
+      bt_reverse<ORB>(t, p, f, P);
       delay[idx] = f.delay;
     } else {
-      Toa x{0.0, 0.0, 0.0};
-      if constexpr (MODE == DDK) x = Toa{d_a1[idx], d_om[idx], sini[idx]};
       Fwd f;
-      dd_forward<MODE>(t, p, x, f);
-      dd_reverse<MODE>(t, p, f, P);
+      dd_forward<MODE, ORB>(t, p, x, f);
+      dd_reverse<MODE, ORB>(t, p, f, P);
       delay[idx] = f.delay;
     }
 #pragma unroll
     for (int i = 0; i < NPARTIAL; ++i)
-      rows[threadIdx.x * NPARTIAL + i] = P[Mode<MODE>::column(i)];
+      rows[threadIdx.x * NPARTIAL + i] = P[Mode<MODE, ORB>::column(i)];
   }
   __syncthreads();
   const long n = (total - first < THREADS ? total - first : THREADS) * NPARTIAL;
@@ -542,23 +620,37 @@ __global__ void dd_binary_dual(const double* __restrict__ tt0,
   for (long e = threadIdx.x; e < n; e += THREADS) out[e] = rows[e];
 }
 
-template <int MODE>
-void launch(const double* tt0, const double* params, int B, int N,
-            const double* d_a1, const double* d_om, const double* sini,
-            double* delay, double* partials, cudaStream_t st) {
+template <int MODE, bool ORB>
+void launch_orb(const double* tt0, const double* params, int B, int N,
+                const double* d_a1, const double* d_om, const double* sini,
+                const double* orb, const double* pbp, double* delay,
+                double* partials, cudaStream_t st) {
   if (partials == nullptr) {
     const unsigned nx = (unsigned)((N + THREADS - 1) / THREADS);
     for (int b0 = 0; b0 < B; b0 += MAX_GRID_Y) {
       const unsigned ny = (unsigned)(B - b0 < MAX_GRID_Y ? B - b0 : MAX_GRID_Y);
-      dd_binary_primal<MODE><<<dim3(nx, ny), THREADS, 0, st>>>(
-          tt0, params, d_a1, d_om, sini, b0, N, delay);
+      dd_binary_primal<MODE, ORB><<<dim3(nx, ny), THREADS, 0, st>>>(
+          tt0, params, d_a1, d_om, sini, orb, pbp, b0, N, delay);
     }
   } else {
     const long total = (long)B * N;
     const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
-    dd_binary_dual<MODE><<<blocks, THREADS, 0, st>>>(
-        tt0, params, d_a1, d_om, sini, B, N, delay, partials);
+    dd_binary_dual<MODE, ORB><<<blocks, THREADS, 0, st>>>(
+        tt0, params, d_a1, d_om, sini, orb, pbp, B, N, delay, partials);
   }
+}
+
+template <int MODE>
+void launch(const double* tt0, const double* params, int B, int N,
+            const double* d_a1, const double* d_om, const double* sini,
+            const double* orb, const double* pbp, double* delay,
+            double* partials, cudaStream_t st) {
+  if (orb == nullptr)
+    launch_orb<MODE, false>(tt0, params, B, N, d_a1, d_om, sini, orb, pbp,
+                            delay, partials, st);
+  else
+    launch_orb<MODE, true>(tt0, params, B, N, d_a1, d_om, sini, orb, pbp,
+                           delay, partials, st);
 }
 
 }  // namespace
@@ -566,24 +658,35 @@ void launch(const double* tt0, const double* params, int B, int N,
 extern "C" int dd_binary_launch(const double* tt0, const double* params, int B,
                                 int N, int mode, const double* d_a1,
                                 const double* d_om, const double* sini,
+                                const double* orb, const double* pbp,
                                 double* delay, double* partials,
                                 void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if ((long)B * N == 0) return 0;
+  if ((orb == nullptr) != (pbp == nullptr)) return (int)cudaErrorInvalidValue;
   switch (mode) {
     case DD:
-      launch<DD>(tt0, params, B, N, d_a1, d_om, sini, delay, partials, st);
+      launch<DD>(tt0, params, B, N, d_a1, d_om, sini, orb, pbp, delay,
+                 partials, st);
       break;
     case BT:
-      launch<BT>(tt0, params, B, N, d_a1, d_om, sini, delay, partials, st);
+      launch<BT>(tt0, params, B, N, d_a1, d_om, sini, orb, pbp, delay,
+                 partials, st);
       break;
     case DDGR:
-      launch<DDGR>(tt0, params, B, N, d_a1, d_om, sini, delay, partials, st);
+      launch<DDGR>(tt0, params, B, N, d_a1, d_om, sini, orb, pbp, delay,
+                   partials, st);
       break;
     case DDK:
       if (d_a1 == nullptr || d_om == nullptr || sini == nullptr)
         return (int)cudaErrorInvalidValue;
-      launch<DDK>(tt0, params, B, N, d_a1, d_om, sini, delay, partials, st);
+      launch<DDK>(tt0, params, B, N, d_a1, d_om, sini, orb, pbp, delay,
+                  partials, st);
+      break;
+    case BTX:
+      if (d_a1 == nullptr) return (int)cudaErrorInvalidValue;
+      launch<BTX>(tt0, params, B, N, d_a1, d_om, sini, orb, pbp, delay,
+                  partials, st);
       break;
     default:
       return (int)cudaErrorInvalidValue;

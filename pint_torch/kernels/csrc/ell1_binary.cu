@@ -22,7 +22,15 @@
 // a form does not read are 0.  Partials are with respect to ttasc (index
 // 0) and the row (1..13 or 1..14).
 //
-// Eight instantiations: primal and dual of each MODE -- ELL1, ELL1K,
+// ORB, a second template parameter, picks the orbits' source: false, PB,
+// PBDOT and XPBDOT (orbits_pb); true, two (B, N) inputs more, orbits and
+// pbprime, from K6 (binary_orbits.cu: FBX or ORBWAVES orbits,
+// components.py:168-193), the orbital phase (orbits - floor(orbits)) 2 pi
+// as engines.py:111 forms it.  The orbit-input duals write the partials
+// with respect to orbits and pbprime in PB's and PBDOT's places and none
+// for XPBDOT; the PB instantiations are the code they were.
+//
+// Eight instantiations a source: primal and dual of each MODE -- ELL1, ELL1K,
 // ELL1H_EXACT, ELL1H_HARMONIC.  ELL1K selects ell1_eps's
 // rotating/exponential eccentricity and the first-order Dre; ELL1H_EXACT
 // the orthometric Shapiro delay's exact log form, -2 H3 / stigma^3 (log(1
@@ -84,11 +92,17 @@ constexpr int MAX_GRID_Y = 65535;
 // The forms (engines.py ELL1, ELL1K, ELL1H_EXACT, ELL1H_HARMONIC).
 enum Mode : int { ELL1 = 0, ELL1K = 1, ELL1H_EXACT = 2, ELL1H_HARMONIC = 3 };
 
-template <int MODE>
+template <int MODE, bool ORB = false>
 struct Row {
   static constexpr bool ELL1H = MODE == ELL1H_EXACT || MODE == ELL1H_HARMONIC;
   static constexpr int NPAR = ELL1H ? 14 : 13;
-  static constexpr int NPARTIAL = NPAR + 1;
+  // the reverse sweep's partials: ttasc (0) and the row (1..NPAR); with
+  // ORB, 1 and 2 are orbits' and pbprime's and XPBDOT's (3) is not written
+  static constexpr int NSWEEP = NPAR + 1;
+  static constexpr int NPARTIAL = NSWEEP - (ORB ? 1 : 0);
+  __host__ __device__ static constexpr int column(int j) {
+    return ORB && j >= 3 ? j + 1 : j;
+  }
 };
 
 // The forward pass's intermediates that the reverse sweep reads.
@@ -143,17 +157,24 @@ __device__ __forceinline__ void harmonic_basis(const Fwd& f, int k,
   }
 }
 
-template <int MODE>
+template <int MODE, bool ORB>
 __device__ __forceinline__ void ell1_forward(double t, const double* p,
+                                             double orb, double pbp,
                                              int nharms, bool use_h4,
                                              Fwd& f) {
   constexpr bool ELL1K_ = MODE == ELL1K;
-  // orbits_pb, mean_anomaly
-  f.pb_s = p[0] * 86400.0;
-  f.pbdot = p[1] + p[2];
-  f.frac = t / f.pb_s;
-  const double orbits = f.frac - 0.5 * f.pbdot * f.frac * f.frac;
-  f.pbprime = f.pb_s + p[1] * t;
+  // orbits_pb (or the orbit inputs), mean_anomaly
+  double orbits;
+  if constexpr (ORB) {
+    orbits = orb;
+    f.pbprime = pbp;
+  } else {
+    f.pb_s = p[0] * 86400.0;
+    f.pbdot = p[1] + p[2];
+    f.frac = t / f.pb_s;
+    orbits = f.frac - 0.5 * f.pbdot * f.frac * f.frac;
+    f.pbprime = f.pb_s + p[1] * t;
+  }
   const double phi = (orbits - floor(orbits)) * TWO_PI;
   f.phi = phi;
   // ell1_eps
@@ -291,8 +312,9 @@ __device__ __forceinline__ double ell1h_reverse(const Fwd& f, double gd,
   return g_T * g_phi;
 }
 
-// Reverse sweep: the partials of f.delay into P (ttasc, then the row).
-template <int MODE>
+// Reverse sweep: the partials of f.delay into P (ttasc, then the row; with
+// ORB, orbits' and pbprime's in 1 and 2 and 3 unset).
+template <int MODE, bool ORB>
 __device__ __forceinline__ void ell1_reverse(double t, const double* p,
                                              int nharms, bool use_h4,
                                              const Fwd& f, double* P) {
@@ -389,22 +411,30 @@ __device__ __forceinline__ void ell1_reverse(double t, const double* p,
   // phi = (orbits - floor) 2 pi; orbits = frac - 0.5 pbdot frac^2;
   // frac = t / pb_s; pbprime = pb_s + PBDOT t; pb_s = PB 86400
   const double g_orb = g_phi * TWO_PI;
-  const double g_frac = g_orb * (1.0 - f.pbdot * f.frac);
-  const double g_pbdot = -g_orb * 0.5 * f.frac * f.frac;
-  const double g_pbs = g_pbprime - g_frac * f.frac / f.pb_s;
-  P[1] = g_pbs * 86400.0;
-  P[2] = g_pbdot + g_pbprime * t;
-  P[3] = g_pbdot;
-  P[0] = g_frac / f.pb_s + g_pbprime * p[1] + g_t;
+  if constexpr (ORB) {
+    P[1] = g_orb;
+    P[2] = g_pbprime;
+    P[0] = g_t;
+  } else {
+    const double g_frac = g_orb * (1.0 - f.pbdot * f.frac);
+    const double g_pbdot = -g_orb * 0.5 * f.frac * f.frac;
+    const double g_pbs = g_pbprime - g_frac * f.frac / f.pb_s;
+    P[1] = g_pbs * 86400.0;
+    P[2] = g_pbdot + g_pbprime * t;
+    P[3] = g_pbdot;
+    P[0] = g_frac / f.pb_s + g_pbprime * p[1] + g_t;
+  }
 }
 
 // One block covers THREADS TOAs of one row b = b0 + blockIdx.y, so the
 // parameter row is loaded once per block and no thread divides by N.  Each
 // thread's ttasc is loaded before the barrier, so that its latency overlaps
 // the row's.
-template <int MODE>
+template <int MODE, bool ORB>
 __global__ void ell1_binary_primal(const double* __restrict__ ttasc,
-                                   const double* __restrict__ params, int b0,
+                                   const double* __restrict__ params,
+                                   const double* __restrict__ orb,
+                                   const double* __restrict__ pbp, int b0,
                                    int N, int nharms, int use_h4,
                                    double* __restrict__ delay) {
   constexpr int NPAR = Row<MODE>::NPAR;
@@ -413,6 +443,13 @@ __global__ void ell1_binary_primal(const double* __restrict__ ttasc,
   const int n = blockIdx.x * THREADS + threadIdx.x;
   const long idx = b * N + n;
   const double t = n < N ? ttasc[idx] : 0.0;
+  double o = 0.0, pb = 0.0;
+  if constexpr (ORB) {
+    if (n < N) {
+      o = orb[idx];
+      pb = pbp[idx];
+    }
+  }
   if (threadIdx.x < NPAR) row[threadIdx.x] = params[b * NPAR + threadIdx.x];
   __syncthreads();
   if (n >= N) return;
@@ -420,21 +457,23 @@ __global__ void ell1_binary_primal(const double* __restrict__ ttasc,
 #pragma unroll
   for (int i = 0; i < NPAR; ++i) p[i] = row[i];
   Fwd f;
-  ell1_forward<MODE>(t, p, nharms, use_h4 != 0, f);
+  ell1_forward<MODE, ORB>(t, p, o, pb, nharms, use_h4 != 0, f);
   delay[idx] = f.delay;
 }
 
 // The same 2-D grid; the block's partials go through shared memory so that
 // its run of the (B, N, NPARTIAL) output is written contiguously (one
 // thread's values are 8 NPARTIAL B apart from the next thread's).
-template <int MODE>
+template <int MODE, bool ORB>
 __global__ void ell1_binary_dual(const double* __restrict__ ttasc,
-                                 const double* __restrict__ params, int b0,
+                                 const double* __restrict__ params,
+                                 const double* __restrict__ orb,
+                                 const double* __restrict__ pbp, int b0,
                                  int N, int nharms, int use_h4,
                                  double* __restrict__ delay,
                                  double* __restrict__ partials) {
   constexpr int NPAR = Row<MODE>::NPAR;
-  constexpr int NPARTIAL = Row<MODE>::NPARTIAL;
+  constexpr int NPARTIAL = Row<MODE, ORB>::NPARTIAL;
   __shared__ double row[NPAR];
   __shared__ double rows[THREADS * NPARTIAL];
   const long b = (long)b0 + blockIdx.y;
@@ -442,6 +481,13 @@ __global__ void ell1_binary_dual(const double* __restrict__ ttasc,
   const int n = n0 + threadIdx.x;
   const long idx = b * N + n;
   const double t = n < N ? ttasc[idx] : 0.0;
+  double o = 0.0, pb = 0.0;
+  if constexpr (ORB) {
+    if (n < N) {
+      o = orb[idx];
+      pb = pbp[idx];
+    }
+  }
   if (threadIdx.x < NPAR) row[threadIdx.x] = params[b * NPAR + threadIdx.x];
   __syncthreads();
   if (n < N) {
@@ -449,12 +495,13 @@ __global__ void ell1_binary_dual(const double* __restrict__ ttasc,
 #pragma unroll
     for (int i = 0; i < NPAR; ++i) p[i] = row[i];
     Fwd f;
-    ell1_forward<MODE>(t, p, nharms, use_h4 != 0, f);
-    double P[NPARTIAL];
-    ell1_reverse<MODE>(t, p, nharms, use_h4 != 0, f, P);
+    ell1_forward<MODE, ORB>(t, p, o, pb, nharms, use_h4 != 0, f);
+    double P[Row<MODE, ORB>::NSWEEP];
+    ell1_reverse<MODE, ORB>(t, p, nharms, use_h4 != 0, f, P);
     delay[idx] = f.delay;
 #pragma unroll
-    for (int i = 0; i < NPARTIAL; ++i) rows[threadIdx.x * NPARTIAL + i] = P[i];
+    for (int i = 0; i < NPARTIAL; ++i)
+      rows[threadIdx.x * NPARTIAL + i] = P[Row<MODE, ORB>::column(i)];
   }
   __syncthreads();
   const int cnt = (N - n0 < THREADS ? N - n0 : THREADS) * NPARTIAL;
@@ -462,45 +509,60 @@ __global__ void ell1_binary_dual(const double* __restrict__ ttasc,
   for (int e = threadIdx.x; e < cnt; e += THREADS) out[e] = rows[e];
 }
 
-template <int MODE>
-void launch(const double* ttasc, const double* params, int B, int N,
-            int nharms, int use_h4, double* delay, double* partials,
-            cudaStream_t st) {
+template <int MODE, bool ORB>
+void launch_orb(const double* ttasc, const double* params, const double* orb,
+                const double* pbp, int B, int N, int nharms, int use_h4,
+                double* delay, double* partials, cudaStream_t st) {
   const unsigned nx = (unsigned)((N + THREADS - 1) / THREADS);
   for (int b0 = 0; b0 < B; b0 += MAX_GRID_Y) {
     const unsigned ny = (unsigned)(B - b0 < MAX_GRID_Y ? B - b0 : MAX_GRID_Y);
     if (partials == nullptr)
-      ell1_binary_primal<MODE><<<dim3(nx, ny), THREADS, 0, st>>>(
-          ttasc, params, b0, N, nharms, use_h4, delay);
+      ell1_binary_primal<MODE, ORB><<<dim3(nx, ny), THREADS, 0, st>>>(
+          ttasc, params, orb, pbp, b0, N, nharms, use_h4, delay);
     else
-      ell1_binary_dual<MODE><<<dim3(nx, ny), THREADS, 0, st>>>(
-          ttasc, params, b0, N, nharms, use_h4, delay, partials);
+      ell1_binary_dual<MODE, ORB><<<dim3(nx, ny), THREADS, 0, st>>>(
+          ttasc, params, orb, pbp, b0, N, nharms, use_h4, delay, partials);
   }
+}
+
+template <int MODE>
+void launch(const double* ttasc, const double* params, const double* orb,
+            const double* pbp, int B, int N, int nharms, int use_h4,
+            double* delay, double* partials, cudaStream_t st) {
+  if (orb == nullptr)
+    launch_orb<MODE, false>(ttasc, params, orb, pbp, B, N, nharms, use_h4,
+                            delay, partials, st);
+  else
+    launch_orb<MODE, true>(ttasc, params, orb, pbp, B, N, nharms, use_h4,
+                           delay, partials, st);
 }
 
 }  // namespace
 
 extern "C" int ell1_binary_launch(const double* ttasc, const double* params,
+                                  const double* orb, const double* pbp,
                                   int B, int N, int mode, int nharms,
                                   int use_h4, double* delay,
                                   double* partials, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if ((long)B * N == 0) return 0;
+  if ((orb == nullptr) != (pbp == nullptr)) return (int)cudaErrorInvalidValue;
   switch (mode) {
     case ELL1:
-      launch<ELL1>(ttasc, params, B, N, nharms, use_h4, delay, partials, st);
+      launch<ELL1>(ttasc, params, orb, pbp, B, N, nharms, use_h4, delay,
+                   partials, st);
       break;
     case ELL1K:
-      launch<ELL1K>(ttasc, params, B, N, nharms, use_h4, delay, partials,
-                    st);
+      launch<ELL1K>(ttasc, params, orb, pbp, B, N, nharms, use_h4, delay,
+                    partials, st);
       break;
     case ELL1H_EXACT:
-      launch<ELL1H_EXACT>(ttasc, params, B, N, nharms, use_h4, delay,
-                          partials, st);
+      launch<ELL1H_EXACT>(ttasc, params, orb, pbp, B, N, nharms, use_h4,
+                          delay, partials, st);
       break;
     case ELL1H_HARMONIC:
-      launch<ELL1H_HARMONIC>(ttasc, params, B, N, nharms, use_h4, delay,
-                             partials, st);
+      launch<ELL1H_HARMONIC>(ttasc, params, orb, pbp, B, N, nharms, use_h4,
+                             delay, partials, st);
       break;
     default:
       return (int)cudaErrorInvalidValue;

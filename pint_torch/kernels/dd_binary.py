@@ -10,16 +10,22 @@ them, by ``mode``: ``bt_delay`` (``engines.py:135``, BT), ``dds_delay`` and
 (``:266``, DDGR, its row from
 :func:`~pint_torch.models.binary.engines.ddgr_row`) and ``ddk_delay``
 (``:338``, DDK, with the per-TOA corrections of
-:func:`~pint_torch.models.binary.engines.ddk_corrections`).  Inputs with
-a leading batch axis B: ``tt0`` (B, N) seconds since T0 (barycentric,
-delay-corrected), ``params`` (B, 16) in the order of the mode's row
-(:data:`DD_PARAMS`, or :data:`DDGR_PARAMS` for DDGR) and, for DDK only,
-``toa``: the per-TOA d_a1, d_om and sini, (B, N) each.  Returns the
-delay (B, N) in seconds; the local partials (B, N, :func:`npartial`)
-with respect to tt0, the row entries the mode reads and DDK's per-TOA
+:func:`~pint_torch.models.binary.engines.ddk_corrections`) and
+``BinaryBT_piecewise.delay_func`` (``components.py:721-790``, BTX: BT
+with a per-TOA a1).  Inputs with a leading batch axis B: ``tt0`` (B, N)
+seconds since T0 (barycentric, delay-corrected), ``params`` (B, 16) in
+the order of the mode's row (:data:`DD_PARAMS`, or :data:`DDGR_PARAMS`
+for DDGR), for DDK ``toa``: the per-TOA d_a1, d_om and sini, for BTX
+``toa``: the per-TOA a1, (B, N) each, and, for FBX or ORBWAVES orbits,
+``orb``: the orbits and pbprime of K6
+(:mod:`pint_torch.kernels.binary_orbits`), (B, N) each, in place of
+PB/PBDOT/XPBDOT's (``engines.py:111``).  Returns the delay (B, N) in
+seconds; the local partials (B, N, :func:`npartial`) with respect to
+tt0, the orbit inputs, the row entries the mode reads and the per-TOA
 inputs (:func:`~pint_torch.models.binary.engines.partial_columns`: 17 in
-DD and DDGR, 11 in BT, 19 in DDK), from the kernel's reverse sweep, feed
-the ``jvp`` of the :class:`torch.autograd.Function`.
+DD and DDGR, 11 in BT and BTX, 19 in DDK; one fewer with orbit inputs),
+from the kernel's reverse sweep, feed the ``jvp`` of the
+:class:`torch.autograd.Function`.
 
 On a CUDA tensor this launches ``csrc/dd_binary.cu`` (or raises); on a
 CPU tensor it runs :func:`dd_binary_reference`, the plain PyTorch twin.
@@ -33,37 +39,52 @@ import torch
 
 from pint_torch import F64
 from pint_torch.kernels import _build
-from pint_torch.models.binary.engines import (BT, DD, DD_PARAMS, DDGR,
-                                              DDGR_PARAMS, DDK,
+from pint_torch.models.binary.engines import (BT, BTX, DD, DD_PARAMS,
+                                              DDGR, DDGR_PARAMS, DDK,
                                               DDK_TOA_INPUTS, bt_forward,
                                               bt_partials, dd_forward,
                                               dd_partials, kepler_inputs,
                                               npartial, partial_columns,
-                                              row_params)
+                                              row_params, toa_inputs)
 
 __all__ = ["dd_binary", "dd_binary_reference", "DD_PARAMS", "DDGR_PARAMS",
-           "DD", "BT", "DDGR", "DDK", "launch_counts", "REPLACES",
-           "REPLACES_OF", "KERNELS", "KEPLER_EXITS", "kepler_exit",
-           "kepler_steps", "npartial", "ROW_COLUMNS"]
+           "DD", "BT", "DDGR", "DDK", "BTX", "MODES", "launch_counts",
+           "REPLACES", "REPLACES_OF", "KERNELS", "KEPLER_EXITS",
+           "kepler_exit", "kepler_steps", "npartial", "ROW_COLUMNS"]
 
 NAME = "dd_binary"
 REPLACES = "pint_tpu/models/binary/engines.py:185"
 #: the reference function each mode replaces
 REPLACES_OF = {DD: REPLACES, BT: "pint_tpu/models/binary/engines.py:135",
                DDGR: "pint_tpu/models/binary/engines.py:266",
-               DDK: "pint_tpu/models/binary/engines.py:338"}
-#: the eight ``__global__`` instantiations of ``csrc/dd_binary.cu``, by
-#: (mode, partials asked for): ``dd_binary_primal<DD>`` and so on
-KERNELS = {(DD, False): "dd_binary_primal", (DD, True): "dd_binary_dual",
-           (BT, False): "bt_binary_primal", (BT, True): "bt_binary_dual",
-           (DDGR, False): "ddgr_binary_primal",
-           (DDGR, True): "ddgr_binary_dual",
-           (DDK, False): "ddk_binary_primal", (DDK, True): "ddk_binary_dual"}
+               DDK: "pint_tpu/models/binary/engines.py:338",
+               BTX: "pint_tpu/models/binary/components.py:769"}
+#: the modes, in the kernel's numbering
+MODES = (DD, BT, DDGR, DDK, BTX)
+_MODE_NAME = {DD: "dd", BT: "bt", DDGR: "ddgr", DDK: "ddk", BTX: "btx"}
+#: the twenty ``__global__`` instantiations of ``csrc/dd_binary.cu``, by
+#: (mode, partials asked for) on PB orbits -- ``dd_binary_primal<DD,
+#: false>`` and so on -- and by (mode, partials, True) with orbit inputs
+KERNELS = {(m, p): f"{_MODE_NAME[m]}_binary_{'dual' if p else 'primal'}"
+           for m in MODES for p in (False, True)}
+KERNELS.update({(m, p, True): f"{_MODE_NAME[m]}_binary_orbit_"
+                f"{'dual' if p else 'primal'}"
+                for m in MODES for p in (False, True)})
 launch_counts = dict.fromkeys(KERNELS.values(), 0)
 
-#: the row entries each mode's partials cover, by their index in the row
-ROW_COLUMNS = {m: [c - 1 for c in partial_columns(m) if 1 <= c <= 16]
-               for m in (DD, BT, DDGR, DDK)}
+def _row_columns(mode, orbit: bool = False):
+    """The row entries the partials of ``mode`` cover, by their index in
+    the row, in column order: those between tt0's (and the orbit inputs')
+    columns and the per-TOA inputs'."""
+    cols = partial_columns(mode, orbit)
+    lead = 3 if orbit else 1
+    return [c - 1 for c in cols[lead:len(cols) - len(toa_inputs(mode))]]
+
+
+#: the row entries each mode's partials cover, by their index in the row,
+#: on PB orbits (key mode) and with orbit inputs (key (mode, True))
+ROW_COLUMNS = {m: _row_columns(m) for m in MODES}
+ROW_COLUMNS.update({(m, True): _row_columns(m, True) for m in MODES})
 
 
 def _row(params, mode):
@@ -71,26 +92,29 @@ def _row(params, mode):
 
 
 def dd_binary_reference(tt0, params, partials: bool = True, mode=DD,
-                        toa=None):
+                        toa=None, orb=None):
     """Plain PyTorch version of K2: ``(delay, P)`` with ``P`` (B, N,
     :func:`npartial`) the local partials (None when ``partials`` is
     False); the arithmetic is
-    :func:`~pint_torch.models.binary.engines.dd_forward` (BT:
+    :func:`~pint_torch.models.binary.engines.dd_forward` (BT and BTX:
     :func:`~pint_torch.models.binary.engines.bt_forward`) and, for the
     partials, :func:`~pint_torch.models.binary.engines.dd_partials`
     (:func:`~pint_torch.models.binary.engines.bt_partials`)."""
     B, N = tt0.shape
     p = _row(params, mode)
-    if mode == BT:
-        f = bt_forward(p, tt0)
+    orbit = orb is not None
+    if mode in (BT, BTX):
+        f = bt_forward(p, tt0, toa[0] if mode == BTX else None, orb)
     else:
         f = dd_forward(p, tt0, mode,
-                       None if toa is None else dict(zip(DDK_TOA_INPUTS, toa)))
+                       None if toa is None else dict(zip(DDK_TOA_INPUTS, toa)),
+                       orb)
     delay = f["delay"].expand(B, N)
     if not partials:
         return delay, None
-    P = bt_partials(p, tt0, f) if mode == BT else dd_partials(p, tt0, f, mode)
-    return delay, P.expand(B, N, npartial(mode))
+    P = bt_partials(p, tt0, f, mode, orbit) if mode in (BT, BTX) \
+        else dd_partials(p, tt0, f, mode, orbit)
+    return delay, P.expand(B, N, npartial(mode, orbit))
 
 
 #: how the kernel's Kepler solve stops, by the codes of :func:`kepler_steps`
@@ -145,96 +169,119 @@ def _lib():
     fn = lib.dd_binary_launch
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, vp, vp, vp]
+        fn.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp]
         fn.restype = ci
     return lib
 
 
-def _launch(tt0, params, mode, toa, partials):
+def _kernel(mode, partials, orbit):
+    return KERNELS[(int(mode), bool(partials), True) if orbit
+                   else (int(mode), bool(partials))]
+
+
+def _launch(tt0, params, mode, toa, orb, partials):
     B, N = tt0.shape
+    orbit = orb is not None
     delay = torch.empty((B, N), dtype=F64, device=tt0.device)
-    P = torch.empty((B, N, npartial(mode)), dtype=F64, device=tt0.device) \
-        if partials else None
-    x = [None] * 3 if toa is None else [_build.ptr(v) for v in toa]
+    P = torch.empty((B, N, npartial(mode, orbit)), dtype=F64,
+                    device=tt0.device) if partials else None
+    x = [None] * 3
+    for i, v in enumerate(toa or ()):
+        x[i] = _build.ptr(v)
+    o = [None, None] if orb is None else [_build.ptr(v) for v in orb]
     rc = _lib().dd_binary_launch(
-        _build.ptr(tt0), _build.ptr(params), B, N, int(mode), *x,
+        _build.ptr(tt0), _build.ptr(params), B, N, int(mode), *x, *o,
         _build.ptr(delay), _build.ptr(P) if partials else None,
         _build.stream_of(tt0))
-    launch_counts[KERNELS[(int(mode), bool(partials))]] += 1
+    launch_counts[_kernel(mode, partials, orbit)] += 1
     _build.check(NAME, rc)
     return delay, P
 
 
-def _run(tt0, params, mode, toa, partials):
-    ts = [tt0, params] + list(toa or ())
+def _run(tt0, params, mode, toa, orb, partials):
+    ts = [tt0, params] + list(toa or ()) + list(orb or ())
     if any(t.dtype != F64 or t.device != tt0.device or t.ndim != 2
            for t in ts) or params.shape[1] != len(DD_PARAMS) \
-            or (int(mode), False) not in KERNELS \
-            or (toa is None) != (int(mode) != DDK) \
-            or (toa is not None and len(toa) != len(DDK_TOA_INPUTS)):
+            or int(mode) not in MODES \
+            or len(toa or ()) != len(toa_inputs(int(mode))) \
+            or (orb is not None and len(orb) != 2):
         raise ValueError(
             f"dd_binary: tt0 {tuple(tt0.shape)} {tt0.dtype} on {tt0.device}, "
             f"params {tuple(params.shape)} {params.dtype} on {params.device}, "
-            f"mode {mode!r}, {0 if toa is None else len(toa)} per-TOA "
-            f"inputs; want float64 (B,N) and (B,{len(DD_PARAMS)}) on one "
-            "device, a mode of 0-3, and (B,N) d_a1, d_om and sini for DDK "
-            "only")
+            f"mode {mode!r}, {len(toa or ())} per-TOA inputs, "
+            f"{len(orb or ())} orbit inputs; want float64 (B,N) and "
+            f"(B,{len(DD_PARAMS)}) on one device, a mode of 0-4, (B,N) "
+            "d_a1, d_om and sini for DDK only, a1 for BTX only, and none or "
+            "both of orbits and pbprime")
     B = max(t.shape[0] for t in ts)
     N = tt0.shape[1]
     tt0 = tt0.expand(B, N).contiguous()
     params = params.expand(B, params.shape[1]).contiguous()
     if toa is not None:
         toa = tuple(v.expand(B, N).contiguous() for v in toa)
+    if orb is not None:
+        orb = tuple(v.expand(B, N).contiguous() for v in orb)
     if tt0.is_cuda:
-        return _launch(tt0, params, int(mode), toa, partials)
+        return _launch(tt0, params, int(mode), toa, orb, partials)
     if tt0.device.type != "cpu":
         raise ValueError(f"dd_binary: no kernel for device {tt0.device}")
-    return dd_binary_reference(tt0, params, partials, int(mode), toa)
+    return dd_binary_reference(tt0, params, partials, int(mode), toa, orb)
 
 
 class DDBinaryFn(torch.autograd.Function):
     """K2 under autodiff: forward returns ``(delay, P)``; ``jvp`` contracts
-    tangents with ``P`` (the row's through the columns of the entries the
-    mode reads, DDK's per-TOA inputs' through the last three; an entry
-    the mode does not read has no column and contributes nothing);
-    ``vmap`` folds a vmapped axis into B.
-    ``mode`` is a plain Python value; ``d_a1``, ``d_om`` and ``sini`` are
-    DDK's (B, N) inputs, None in the other modes."""
+    tangents with ``P`` (the orbit inputs' through their two columns, the
+    row's through the columns of the entries the mode reads, the per-TOA
+    inputs' through the last ones; an entry the mode does not read has no
+    column and contributes nothing); ``vmap`` folds a vmapped axis into
+    B.  ``mode`` is a plain Python value; ``x0``, ``x1`` and ``x2`` are
+    the per-TOA inputs (DDK's d_a1, d_om and sini; BTX's a1; None where
+    the mode has none), ``orbits`` and ``pbprime`` the orbit inputs (None
+    on PB orbits), (B, N) each."""
 
     @staticmethod
-    def forward(tt0, params, mode=DD, d_a1=None, d_om=None, sini=None):
-        toa = None if d_a1 is None else (d_a1, d_om, sini)
-        return _run(tt0, params, mode, toa, True)
+    def forward(tt0, params, mode=DD, x0=None, x1=None, x2=None,
+                orbits=None, pbprime=None):
+        toa = tuple(v for v in (x0, x1, x2) if v is not None) or None
+        orb = None if orbits is None else (orbits, pbprime)
+        return _run(tt0, params, mode, toa, orb, True)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         ctx.mark_non_differentiable(output[1])
         ctx.save_for_forward(output[1])
         ctx.mode = inputs[2] if len(inputs) > 2 else DD
+        ctx.orbit = len(inputs) > 6 and inputs[6] is not None
 
     @staticmethod
-    def jvp(ctx, d_tt0, d_params, _mode=None, d_da1=None, d_dom=None,
-            d_sini=None):
+    def jvp(ctx, d_tt0, d_params, _mode=None, d_x0=None, d_x1=None,
+            d_x2=None, d_orb=None, d_pbp=None):
         (P,) = ctx.saved_tensors
         out = torch.zeros(P.shape[:-1], dtype=F64, device=P.device)
         if d_tt0 is not None:
             out = out + d_tt0 * P[..., 0]
-        rows = ROW_COLUMNS[ctx.mode]
+        lead = 1
+        if ctx.orbit:
+            for i, d in enumerate((d_orb, d_pbp)):
+                if d is not None:
+                    out = out + d * P[..., 1 + i]
+            lead = 3
+        rows = ROW_COLUMNS[(ctx.mode, True) if ctx.orbit else ctx.mode]
         nr = len(rows)
         if d_params is not None:
             dp = d_params if nr == d_params.shape[-1] \
                 else d_params[..., rows]
-            out = out + (P[..., 1:1 + nr] @ dp.unsqueeze(-1)).squeeze(-1)
-        for i, d in enumerate((d_da1, d_dom, d_sini)):
+            out = out + (P[..., lead:lead + nr] @ dp.unsqueeze(-1)).squeeze(-1)
+        for i, d in enumerate((d_x0, d_x1, d_x2)):
             if d is not None:
-                out = out + d * P[..., 1 + nr + i]
+                out = out + d * P[..., lead + nr + i]
         return out, None
 
     @staticmethod
-    def vmap(info, in_dims, tt0, params, mode=DD, d_a1=None, d_om=None,
-             sini=None):
+    def vmap(info, in_dims, tt0, params, mode=DD, x0=None, x1=None,
+             x2=None, orbits=None, pbprime=None):
         V = info.batch_size
-        dims = list(in_dims) + [None] * (6 - len(in_dims))
+        dims = list(in_dims) + [None] * (8 - len(in_dims))
 
         def lead(t, dim):
             if t is None:
@@ -244,9 +291,10 @@ class DDBinaryFn(torch.autograd.Function):
 
         t = lead(tt0, dims[0])
         p = lead(params, dims[1])
-        toa = [lead(v, d) for v, d in zip((d_a1, d_om, sini), dims[3:])]
+        rest = [lead(v, d) for v, d in zip((x0, x1, x2, orbits, pbprime),
+                                           dims[3:])]
         B = max([t.shape[1], p.shape[1]]
-                + [v.shape[1] for v in toa if v is not None])
+                + [v.shape[1] for v in rest if v is not None])
         N = t.shape[2]
 
         def fold(v):
@@ -254,14 +302,17 @@ class DDBinaryFn(torch.autograd.Function):
 
         d, P = DDBinaryFn.apply(fold(t),
                                 p.expand(V, B, p.shape[2]).reshape(V * B, -1),
-                                mode, *(fold(v) for v in toa))
+                                mode, *(fold(v) for v in rest))
         return (d.reshape(V, B, N), P.reshape(V, B, N, P.shape[-1])), (0, 0)
 
 
-def dd_binary(tt0, params, mode=DD, toa=None):
+def dd_binary(tt0, params, mode=DD, toa=None, orb=None):
     """K2: the delay (B, N) of the DD family's ``mode`` (see the module
-    docstring); ``toa`` holds DDK's per-TOA (d_a1, d_om, sini)."""
+    docstring); ``toa`` holds DDK's per-TOA (d_a1, d_om, sini) or BTX's
+    (a1,), ``orb`` the orbit inputs (orbits, pbprime)."""
     mode = int(mode)
-    if _build.traced(tt0, params, *(toa or ())):
-        return DDBinaryFn.apply(tt0, params, mode, *(toa or ()))[0]
-    return _run(tt0, params, mode, toa, False)[0]
+    if _build.traced(tt0, params, *(toa or ()), *(orb or ())):
+        x = list(toa or ()) + [None] * (3 - len(toa or ()))
+        return DDBinaryFn.apply(tt0, params, mode, *x,
+                                *(orb or (None, None)))[0]
+    return _run(tt0, params, mode, toa, orb, False)[0]

@@ -1,6 +1,7 @@
 """Astrometry: sky position, proper motion and parallax (port of
 ``pint_tpu/models/astrometry.py:30-67,147-278``, equatorial and ecliptic
-frames).
+frames), and the pulsar's elongation from the Sun that the solar-wind
+components read.
 
 delay = -r_obs . n_psr + the parallax term [s], positions in light-seconds.
 Free parameters are (B, 1) tensors, so the unit vector is (B, N, 3) on a
@@ -51,6 +52,14 @@ class Astrometry(DelayComponent):
             pe = pv["POSEPOCH"]
             return epoch_mjd - (pe.hi + pe.lo)
         return torch.zeros_like(epoch_mjd)
+
+    def sun_angle(self, pv, batch):
+        """The pulsar-Sun elongation [rad] at each TOA, (N,) or (B, N)
+        (reference ``sun_angle_traced``, ``astrometry.py:37-45``)."""
+        L_hat = self.ssb_to_psb_xyz(pv, batch.tdb.hi)
+        sun = batch.obs_sun_pos
+        sun_hat = sun / torch.sqrt(_rowsum(sun * sun))[:, None]
+        return torch.arccos(torch.clamp(_rowsum(sun_hat * L_hat), -1.0, 1.0))
 
     def barycentric_radio_freq(self, pv, batch):
         """Observed frequency corrected for observatory motion (MHz)."""

@@ -1,13 +1,17 @@
 """Par-facing binary components (port of
-``pint_tpu/models/binary/components.py:46-205,447-627,672-719``): the
+``pint_tpu/models/binary/components.py:46-205,447-627,672-790``): the
 barycentric time since the epoch, (TDB - T0|TASC) * 86400 - acc_delay in
 double-double, handed as float64 to an engine kernel -- K2
 (:mod:`pint_torch.kernels.dd_binary`) for the DD family (BT, DD, DDS,
-DDH, DDGR, DDK), K4 (:mod:`pint_torch.kernels.ell1_binary`) for ELL1,
-ELL1k and ELL1H -- whose arithmetic is
-:mod:`pint_torch.models.binary.engines`.  DDS, DDH and DDGR hand K2 a
-row reparameterized in torch (differentiable through ``torch.func`` like
-the reference's jacfwd), DDK its per-TOA Kopeikin corrections."""
+DDH, DDGR, DDK and the piecewise BT), K4
+(:mod:`pint_torch.kernels.ell1_binary`) for ELL1, ELL1k and ELL1H --
+whose arithmetic is :mod:`pint_torch.models.binary.engines`.  DDS, DDH and
+DDGR hand K2 a row reparameterized in torch (differentiable through
+``torch.func`` like the reference's jacfwd), DDK its per-TOA Kopeikin
+corrections, the piecewise BT its per-TOA a1.  FBX and ORBWAVES orbits
+come from K6 (:mod:`pint_torch.kernels.binary_orbits`) and enter K2 or K4
+as their orbit inputs, under any binary, as the reference's generic
+``_orbits_fn``."""
 
 from __future__ import annotations
 
@@ -16,27 +20,26 @@ import math
 import torch
 
 from pint_torch.dd import dd_mul, dd_sub
+from pint_torch.kernels import binary_orbits as K6
 from pint_torch.kernels import dd_binary as K2
 from pint_torch.kernels import ell1_binary as K4
-from pint_torch.models.binary.engines import (BT, DD_PARAMS, DDGR,
+from pint_torch.models.binary.engines import (BT, BTX, DD_PARAMS, DDGR,
                                               DDGR_PARAMS, DDK, ELL1,
                                               ELL1_PARAMS, ELL1H_EXACT,
                                               ELL1H_HARMONIC, ELL1H_PARAMS,
-                                              ELL1K, dds_sini, ddgr_row,
+                                              ELL1K, FBX, WAVES_FBX, WAVES_PB,
+                                              dds_sini, ddgr_row,
                                               ddh_sini_m2, ddk_corrections,
-                                              ecliptic_pm_to_equatorial)
+                                              ecliptic_pm_to_equatorial,
+                                              orbit_coefficients)
 from pint_torch.models.timing_model import DelayComponent, stack_params
 from pint_torch.pulsar_ecliptic import OBL_IERS2010_RAD
 
 __all__ = ["PulsarBinary", "BinaryBT", "BinaryBT_piecewise", "BinaryDD",
            "BinaryDDS", "BinaryDDH", "BinaryDDGR", "BinaryDDK", "BinaryELL1",
-           "BinaryELL1k", "BinaryELL1H", "QUEUED"]
+           "BinaryELL1k", "BinaryELL1H"]
 
 DAY_S = 86400.0
-
-#: where ROADMAP.md queues what the port refuses in this package's binaries
-QUEUED = ("ROADMAP.md queue A item 5 (FBX/ORBWAVES orbits and "
-          "BinaryBT_piecewise, with orbital/kepler.py)")
 
 
 class MissingParameter(ValueError):
@@ -50,30 +53,27 @@ class TimingModelError(ValueError):
 
 
 class PulsarBinary(DelayComponent):
-    """Config: ``nfb`` and ``nwaves`` (FBX / ORBWAVES orbits; this slice
-    runs the PB parameterization only)."""
+    """Config: ``nfb`` and ``nwaves``, the FBX and ORBWAVES orbits'
+    counts (0 and 0: PB/PBDOT orbits)."""
 
     category = "pulsar_system"
     epoch_param = "T0"
-
-    def _check_orbits(self):
-        if self.config.get("nfb", 0) or self.config.get("nwaves", 0):
-            raise NotImplementedError(
-                f"{type(self).__name__}: FBX/ORBWAVES orbits are not ported "
-                f"yet ({QUEUED}); the port evaluates PB/PBDOT orbits")
 
     def _value(self, name):
         p = self._parent.params_table.get(name)
         return None if p is None else p.value
 
     def validate(self):
-        """The reference's ``PulsarBinary.validate`` checks of PB, the
-        epoch, A1, SINI and ECC, with PB/PBDOT orbits (FBX and ORBWAVES
-        are refused)."""
-        self._check_orbits()
+        """The reference's ``PulsarBinary.validate`` (``components.py:
+        146-166``): PB (or FB0), ORBWAVE_OM and ORBWAVE_EPOCH with waves,
+        the epoch, A1, SINI and ECC."""
         name = type(self).__name__
-        if self._value("PB") is None:
+        if not self.config.get("nfb", 0) and self._value("PB") is None:
             raise MissingParameter(f"{name}: PB (or FB0) is required")
+        if self.config.get("nwaves", 0):
+            for p in ("ORBWAVE_OM", "ORBWAVE_EPOCH"):
+                if self._value(p) is None:
+                    raise MissingParameter(f"{name}: {p} is required")
         if self._value(self.epoch_param) is None:
             raise MissingParameter(f"{name}: {self.epoch_param} is required")
         if self._value("A1") is None:
@@ -90,6 +90,27 @@ class PulsarBinary(DelayComponent):
         d = dd_mul(dd_sub(batch.tdb, epoch), DAY_S)
         return (d.hi + d.lo) - acc_delay
 
+    def _orbits(self, pv, tt0):
+        """The orbit inputs (orbits, pbprime), (B, N) each, of FBX or
+        ORBWAVES orbits from K6 -- ORBWAVES (on a PB or FBX base) when wave
+        amplitudes are set, else FBX when any FBn is set -- or None for
+        PB/PBDOT orbits (reference ``_orbits_fn``, ``components.py:
+        168-193``); the waves' tw = tt0 + (epoch - ORBWAVE_EPOCH) 86400 in
+        double-double."""
+        nfb = int(self.config.get("nfb", 0))
+        nw = int(self.config.get("nwaves", 0))
+        if not nfb and not nw:
+            return None
+        form = FBX if not nw else WAVES_FBX if nfb else WAVES_PB
+        off = 0.0
+        if nw:
+            d = dd_mul(dd_sub(pv[self.epoch_param], pv["ORBWAVE_EPOCH"]),
+                       DAY_S)
+            off = d.hi + d.lo
+        coef = stack_params(pv, orbit_coefficients(form, nfb, nw),
+                            tt0.device)
+        return K6.binary_orbits(tt0, coef, form, nfb, nw, off)
+
     def binary_delay(self, pv, tt0):
         raise NotImplementedError
 
@@ -103,25 +124,63 @@ class PulsarBinary(DelayComponent):
 class BinaryBT(PulsarBinary):
     """Blandford & Teukolsky model (reference ``components.py:447``), on
     K2's BT instantiation: R with the constant PB, as the reference's
-    ``use_pb`` on PB orbits."""
+    ``use_pb`` without FBn (on FBX orbits R reads pbprime)."""
 
     register = True
 
-    def binary_delay(self, pv, tt0):
-        self._check_orbits()
-        return K2.dd_binary(tt0, stack_params(pv, DD_PARAMS, tt0.device), BT)
+    def _orbits_bt(self, pv, tt0):
+        """K2's BT orbit inputs: K6's orbits, and as pbprime what R reads
+        -- K6's on FBX orbits, PB 86400 on a PB base (``use_pb``)."""
+        orb = self._orbits(pv, tt0)
+        if orb is None or self.config.get("nfb", 0):
+            return orb
+        pb_s = pv["PB"] * 86400.0
+        pb_s = pb_s.expand_as(orb[0]) if torch.is_tensor(pb_s) \
+            else torch.full_like(orb[0], pb_s)
+        return orb[0], pb_s
+
+    def binary_delay(self, pv, tt0, a1=None):
+        row = stack_params(pv, DD_PARAMS, tt0.device)
+        if a1 is None:
+            return K2.dd_binary(tt0, row, BT, orb=self._orbits_bt(pv, tt0))
+        return K2.dd_binary(tt0, row, BTX, (a1,), self._orbits_bt(pv, tt0))
 
 
 class BinaryBT_piecewise(BinaryBT):
-    """Piecewise BT (reference ``components.py:721``): queued, not ported;
-    a snapshot that holds it is refused with the ROADMAP item that ports
-    it."""
+    """BT with piecewise T0X_xxxx/A1X_xxxx overrides in [XR1_xxxx,
+    XR2_xxxx) MJD windows (reference ``components.py:721-790``): per
+    piece, tt0 shifted by m (T0 - T0X) 86400 and a per-TOA a1 = A1 + m
+    (A1X - A1), formed as the reference forms them, on K2's BTX
+    instantiation.  Config: ``piece_indices``; context: ``masks`` (n, N)
+    of 0/1."""
 
     register = True
 
-    def __init__(self, config=None, context=None):
-        raise NotImplementedError(
-            f"component {type(self).__name__} is not ported yet ({QUEUED})")
+    def validate(self):
+        super().validate()
+        for i in self.config.get("piece_indices", []):
+            for pre in ("XR1_", "XR2_"):
+                if self._value(f"{pre}{i:04d}") is None:
+                    raise MissingParameter(
+                        f"BinaryBT_piecewise: {pre}{i:04d} is required")
+
+    def delay_func(self, pv, batch, ctx, acc_delay):
+        tt0 = self._tt0(pv, batch, acc_delay)
+        if tt0.ndim == 1:
+            tt0 = tt0.unsqueeze(0)
+        masks = ctx.get("masks")
+        if masks is None or not self.config.get("piece_indices"):
+            return self.binary_delay(pv, tt0)
+        t0 = pv["T0"]
+        A1 = pv.get("A1", 0.0)
+        a1 = A1 * torch.ones_like(tt0)
+        for k, i in enumerate(self.config["piece_indices"]):
+            m = masks[k]
+            dt_days = (t0.hi - pv.get(f"T0X_{i:04d}", 0.0)) + t0.lo
+            tt0 = tt0 + m * dt_days * DAY_S
+            a1 = a1 + m * (pv.get(f"A1X_{i:04d}", 0.0) - A1)
+        B = max(tt0.shape[0], a1.shape[0])
+        return self.binary_delay(pv, tt0.expand(B, -1), a1.expand(B, -1))
 
 
 class BinaryDD(PulsarBinary):
@@ -134,9 +193,9 @@ class BinaryDD(PulsarBinary):
         return pv
 
     def binary_delay(self, pv, tt0):
-        self._check_orbits()
         return K2.dd_binary(tt0, stack_params(self._row(pv, tt0), DD_PARAMS,
-                                              tt0.device))
+                                              tt0.device),
+                            orb=self._orbits(pv, tt0))
 
 
 class BinaryDDS(BinaryDD):
@@ -186,9 +245,9 @@ class BinaryDDGR(BinaryDD):
             raise MissingParameter("BinaryDDGR: MTOT/M2 are required")
 
     def binary_delay(self, pv, tt0):
-        self._check_orbits()
         return K2.dd_binary(tt0, stack_params(ddgr_row(pv, tt0), DDGR_PARAMS,
-                                              tt0.device), DDGR)
+                                              tt0.device), DDGR,
+                            orb=self._orbits(pv, tt0))
 
 
 class BinaryDDK(BinaryDD):
@@ -216,7 +275,6 @@ class BinaryDDK(BinaryDD):
                 "DDK uses KIN; remove SINI from the par file")
 
     def delay_func(self, pv, batch, ctx, acc_delay):
-        self._check_orbits()
         tt0 = self._tt0(pv, batch, acc_delay)
         if tt0.ndim == 1:
             tt0 = tt0.unsqueeze(0)
@@ -236,7 +294,8 @@ class BinaryDDK(BinaryDD):
         d_a1, d_om, kin = ddk_corrections(pv2, tt0, psr_pos,
                                           batch.ssb_obs_pos, k96)
         return K2.dd_binary(tt0, stack_params(pv2, DD_PARAMS, tt0.device),
-                            DDK, (d_a1, d_om, torch.sin(kin)))
+                            DDK, (d_a1, d_om, torch.sin(kin)),
+                            self._orbits(pv, tt0))
 
 
 class BinaryELL1(PulsarBinary):
@@ -248,9 +307,9 @@ class BinaryELL1(PulsarBinary):
     mode = ELL1
 
     def binary_delay(self, pv, tt0):
-        self._check_orbits()
         return K4.ell1_binary(tt0, stack_params(pv, ELL1_PARAMS,
-                                                tt0.device), self.mode)
+                                                tt0.device), self.mode,
+                              orb=self._orbits(pv, tt0))
 
 
 class BinaryELL1k(BinaryELL1):
@@ -278,11 +337,11 @@ class BinaryELL1H(BinaryELL1):
             raise ValueError("BinaryELL1H: provide H4 or STIGMA, not both")
 
     def binary_delay(self, pv, tt0):
-        self._check_orbits()
         stigma, h4 = self._value("STIGMA"), self._value("H4")
         exact = stigma is not None and stigma != 0.0
         mode = ELL1H_EXACT if exact else ELL1H_HARMONIC
         return K4.ell1_binary(
             tt0, stack_params(pv, ELL1H_PARAMS, tt0.device), mode,
             nharms=int(self._value("NHARMS") or 7),
-            use_h4=h4 is not None and stigma is None)
+            use_h4=h4 is not None and stigma is None,
+            orb=self._orbits(pv, tt0))

@@ -1,7 +1,10 @@
 """Binary-orbit delay engines (port of
 ``pint_tpu/models/binary/engines.py:29-352,355-495``: the DD family --
 BT, DD, DDS, DDH, DDGR and DDK -- and the ELL1 family with ELL1H's
-orthometric Shapiro delay).
+orthometric Shapiro delay; ``:68-108``: the FBX and ORBWAVES orbits,
+kernel K6's arithmetic, :func:`binary_orbits_forward` and
+:func:`binary_orbits_partials`, whose orbits and pbprime K2 and K4 take
+in place of PB/PBDOT/XPBDOT's in every mode).
 
 Plain PyTorch functions of a parameter mapping ``p`` (PB, PBDOT, ... as in
 :data:`DD_PARAMS`, :data:`ELL1_PARAMS` or :data:`ELL1H_PARAMS`) and the
@@ -28,7 +31,9 @@ import math
 import torch
 
 __all__ = ["DD_PARAMS", "DDGR_PARAMS", "DDK_TOA_INPUTS", "DD", "BT", "DDGR",
-           "DDK", "ELL1_PARAMS", "ELL1H_PARAMS", "ELL1", "ELL1K",
+           "DDK", "BTX", "toa_inputs", "FBX", "WAVES_PB", "WAVES_FBX",
+           "orbit_coefficients",
+           "binary_orbits_forward", "binary_orbits_partials", "ELL1_PARAMS", "ELL1H_PARAMS", "ELL1", "ELL1K",
            "ELL1H_EXACT", "ELL1H_HARMONIC", "TSUN", "KPC_LS", "solve_kepler",
            "kepler_inputs", "dd_forward", "dd_delay", "dd_partials",
            "bt_forward", "bt_delay", "bt_partials", "row_params",
@@ -37,7 +42,7 @@ __all__ = ["DD_PARAMS", "DDGR_PARAMS", "DDK_TOA_INPUTS", "DD", "BT", "DDGR",
            "ecliptic_pm_to_equatorial",
            "ell1_eps", "ell1_roemer_terms", "ell1_inverse_delay",
            "ell1_forward", "ell1_delay", "ell1k_delay", "ell1h_delay",
-           "ell1_partials", "ell1_params"]
+           "ell1_partials", "ell1_params", "ell1_columns"]
 
 #: the DD parameter row, in the reference's units (PB days, OM deg,
 #: OMDOT deg/yr, M2 Msun)
@@ -55,8 +60,9 @@ DDGR_PARAMS = DD_PARAMS[:8] + ("K", "M2S", "AR") + DD_PARAMS[11:]
 DDK_TOA_INPUTS = ("d_a1", "d_om", "sini")
 
 #: the DD family's forms, as K2 takes them: DD (also DDS and DDH, whose
-#: rows are reparameterized), BT, DDGR and DDK
-DD, BT, DDGR, DDK = range(4)
+#: rows are reparameterized), BT, DDGR, DDK and BTX (BT with a per-TOA
+#: a1: the piecewise BT)
+DD, BT, DDGR, DDK, BTX = range(5)
 
 #: the ELL1/ELL1k parameter row (PB days, EPS1DOT/EPS2DOT 1/s, OMDOT
 #: deg/yr, LNEDOT 1/yr, M2 Msun); ELL1 reads EPS1DOT/EPS2DOT and ELL1k
@@ -102,31 +108,37 @@ def solve_kepler(M, e, niter: int = 15):
     return E
 
 
-def kepler_inputs(p, tt0, f: dict):
+def kepler_inputs(p, tt0, f: dict, orb=None):
     """orbits_pb, mean_anomaly and ecc_at: ``(fl, M, e)``, the whole orbits
     since T0, the mean anomaly and the eccentricity at ``tt0``; the
-    intermediates :func:`dd_partials` reads go into ``f``."""
-    f["pb_s"] = pb_s = p["PB"] * 86400.0
-    f["pbdot"] = pbdot = p["PBDOT"] + p["XPBDOT"]
-    f["frac"] = frac = tt0 / pb_s
-    orbits = frac - 0.5 * pbdot * frac * frac
-    f["pbprime"] = pb_s + p["PBDOT"] * tt0
+    intermediates :func:`dd_partials` reads go into ``f``.  ``orb``, where
+    given, is the orbit input ``(orbits, pbprime)`` (K6's FBX or ORBWAVES
+    orbits) in place of PB/PBDOT/XPBDOT's."""
+    if orb is not None:
+        orbits, f["pbprime"] = orb
+    else:
+        f["pb_s"] = pb_s = p["PB"] * 86400.0
+        f["pbdot"] = pbdot = p["PBDOT"] + p["XPBDOT"]
+        f["frac"] = frac = tt0 / pb_s
+        orbits = frac - 0.5 * pbdot * frac * frac
+        f["pbprime"] = pb_s + p["PBDOT"] * tt0
     fl = torch.floor(orbits)
     M = (orbits - fl) * TWO_PI
     f["e"] = e = p["ECC"] + tt0 * p["EDOT"]
     return fl, M, e
 
 
-def dd_forward(p, tt0, mode=DD, x=None) -> dict:
+def dd_forward(p, tt0, mode=DD, x=None, orb=None) -> dict:
     """The DD delay (SINI/M2 Shapiro, DR/DTH deformations) under ``delay``,
     with the intermediates :func:`dd_partials` reads.  ``mode`` DDGR reads
     the row of :data:`DDGR_PARAMS` (k, m2 in seconds and the semi-major
     axis ar in place of OMDOT, M2, SINI; sini = a1 / ar per TOA, as
     ``ddgr_delay`` divides); DDK adds the per-TOA ``x["d_a1"]`` to a1 and
     ``x["d_om"]`` to omega (after k nu, as ``ddk_delay`` adds it to the
-    state's omega) and takes sini from ``x["sini"]``."""
+    state's omega) and takes sini from ``x["sini"]``.  ``orb`` is the
+    orbit input of :func:`kepler_inputs`."""
     f = {}
-    fl, M, e = kepler_inputs(p, tt0, f)
+    fl, M, e = kepler_inputs(p, tt0, f, orb)
     pbprime = f["pbprime"]
     E = solve_kepler(M, e)
     f["sinE"] = sinE = torch.sin(E)
@@ -195,12 +207,14 @@ def dd_delay(p, tt0):
     return dd_forward(p, tt0)["delay"]
 
 
-def dd_partials(p, tt0, f, mode=DD):
+def dd_partials(p, tt0, f, mode=DD, orbit: bool = False):
     """The reverse sweep of :func:`dd_forward`: partials (...,
     :func:`npartial`) of the delay with respect to tt0 and the row's
     entries that the mode reads (:func:`partial_columns`: DD and DDGR all
     16; DDK all but SINI, then d_a1, d_om and sini), all NaN where the
-    delay is not finite."""
+    delay is not finite.  With an ``orbit`` input the partials with
+    respect to orbits and pbprime take PB's and PBDOT's places and
+    XPBDOT's is not written."""
     e = f["e"]
     P = [None] * (len(DD_PARAMS) + 1 + len(DDK_TOA_INPUTS))
     gd = torch.where(torch.isfinite(f["delay"]), 1.0, math.nan).to(e.dtype)
@@ -326,8 +340,13 @@ def dd_partials(p, tt0, f, mode=DD):
     P[5] = g_a1 * tt0
     # M = (orbits - floor) 2 pi; orbits = frac - 0.5 pbdot frac^2;
     # frac = t / pb_s; pbprime = pb_s + PBDOT t; pb_s = PB 86400
-    frac, pb_s = f["frac"], f["pb_s"]
     g_orb = g_M * TWO_PI
+    if orbit:
+        P[1] = g_orb
+        P[2] = g_pbprime
+        P[0] = g_e * p["EDOT"] + g_a1 * p["A1DOT"]
+        return _stack([P[i] for i in partial_columns(mode, True)])
+    frac, pb_s = f["frac"], f["pb_s"]
     g_frac = g_orb * (1.0 - f["pbdot"] * frac)
     g_pbdot = -g_orb * 0.5 * frac * frac
     g_pbs = g_pbprime - g_frac * frac / pb_s
@@ -347,16 +366,22 @@ def _stack(P):
 # ----------------------------------------------------------------------
 # BT (Blandford & Teukolsky 1976; reference engines.py:127-159)
 # ----------------------------------------------------------------------
-def bt_forward(p, tt0) -> dict:
+def bt_forward(p, tt0, a1_toa=None, orb=None) -> dict:
     """The BT delay (L1 + L2) R on Kepler's E, R with the constant PB
     (reference ``bt_delay`` with ``use_pb``), under ``delay``, with the
     intermediates :func:`bt_partials` reads.  ``p`` is a
     :data:`DD_PARAMS` row, of which BT reads PB, PBDOT, XPBDOT, A1,
-    A1DOT, ECC, EDOT, OM, OMDOT and GAMMA."""
+    A1DOT, ECC, EDOT, OM, OMDOT and GAMMA.  ``a1_toa`` (BTX, the
+    piecewise BT) is a per-TOA A1 in place of the row's; with an orbit
+    input ``orb`` = (orbits, pbprime) R reads that pbprime (the caller
+    hands it PB 86400 where the reference keeps ``use_pb``)."""
     f = {}
-    _, M, e = kepler_inputs(p, tt0, f)
+    _, M, e = kepler_inputs(p, tt0, f, orb)
+    if orb is not None:
+        f["pb_s"] = orb[1]
     E = solve_kepler(M, e)
-    f["a1"] = a1 = p["A1"] + tt0 * p["A1DOT"]
+    f["a1"] = a1 = (p["A1"] if a1_toa is None else a1_toa) \
+        + tt0 * p["A1DOT"]
     # omega_bt = OM DEG + ((OMDOT DEG) / SEC_PER_YEAR) tt0
     f["omdot"] = omdot = _div(p["OMDOT"] * DEG, SEC_PER_YEAR)
     om = p["OM"] * DEG + omdot * tt0
@@ -383,10 +408,12 @@ def bt_delay(p, tt0):
     return bt_forward(p, tt0)["delay"]
 
 
-def bt_partials(p, tt0, f):
+def bt_partials(p, tt0, f, mode=BT, orbit: bool = False):
     """The reverse sweep of :func:`bt_forward`: partials (..., 11) with
     respect to tt0 and the 10 entries of :data:`DD_PARAMS` that BT reads
-    (:func:`partial_columns`), all NaN where the delay is not finite."""
+    (:func:`partial_columns`; BTX's per-TOA a1 last, in A1's place), all
+    NaN where the delay is not finite; with an ``orbit`` input, those of
+    orbits and of R's pbprime in PB's and PBDOT's places."""
     e = f["e"]
     gd = torch.where(torch.isfinite(f["delay"]), 1.0, math.nan).to(e.dtype)
     P = [None] * (len(DD_PARAMS) + 1)
@@ -438,8 +465,13 @@ def bt_partials(p, tt0, f):
     P[5] = g_a1 * tt0
     # M = (orbits - floor) 2 pi; orbits = frac - 0.5 pbdot frac^2;
     # frac = t / pb_s; pb_s = PB 86400 (R's constant PB too)
-    frac, pb_s = f["frac"], f["pb_s"]
     g_orb = g_M * TWO_PI
+    if orbit:
+        P[1] = g_orb
+        P[2] = g_pbs
+        P[0] = g_e * p["EDOT"] + g_a1 * p["A1DOT"] + g_om * f["omdot"]
+        return _stack([P[i] for i in partial_columns(mode, True)])
+    frac, pb_s = f["frac"], f["pb_s"]
     g_frac = g_orb * (1.0 - f["pbdot"] * frac)
     g_pbdot = -g_orb * 0.5 * frac * frac
     g_pbs = g_pbs - g_frac * frac / pb_s
@@ -448,7 +480,7 @@ def bt_partials(p, tt0, f):
     P[3] = g_pbdot
     P[0] = g_frac / pb_s + g_e * p["EDOT"] + g_a1 * p["A1DOT"] \
         + g_om * f["omdot"]
-    return _stack([P[i] for i in partial_columns(BT)])
+    return _stack([P[i] for i in partial_columns(mode)])
 
 
 def row_params(mode):
@@ -457,27 +489,40 @@ def row_params(mode):
 
 
 #: the row entries each K2 mode reads, by their index in the row: BT
-#: has no Shapiro delay, DR, DTH or aberration, and DDK reads its sini
-#: per TOA in place of the row's SINI
+#: has no Shapiro delay, DR, DTH or aberration, DDK reads its sini per
+#: TOA in place of the row's SINI, and BTX its a1 per TOA in place of A1
 _ROW_READ = {DD: tuple(range(16)), DDGR: tuple(range(16)),
              BT: tuple(range(9)) + (11,),
-             DDK: tuple(i for i in range(16) if i != 10)}
+             DDK: tuple(i for i in range(16) if i != 10),
+             BTX: tuple(i for i in range(9) if i != 3) + (11,)}
 
 
-def partial_columns(mode) -> tuple:
+def partial_columns(mode, orbit: bool = False) -> tuple:
     """The partials a K2 ``mode`` writes, by their index among tt0 (0),
     the 16 row entries (1-16) and DDK's per-TOA d_a1, d_om and sini
     (17-19): tt0, the row entries the mode reads and, in DDK, the per-TOA
-    inputs.  An entry the mode does not read has no column."""
+    inputs; BTX's per-TOA a1 is A1's sweep index (4), last.  An entry the
+    mode does not read has no column.  With an ``orbit`` input, indices 1
+    and 2 are the partials with respect to orbits and pbprime and PB,
+    PBDOT and XPBDOT (row entries 0-2) are not read."""
     extra = tuple(range(17, 17 + len(DDK_TOA_INPUTS))) if mode == DDK \
+        else (4,) if mode == BTX else ()
+    rows = tuple(1 + i for i in _ROW_READ[mode] if not orbit or i > 2)
+    return (0,) + ((1, 2) if orbit else ()) + rows + extra
+
+
+def npartial(mode, orbit: bool = False) -> int:
+    """Partials per element of a K2 ``mode``: 17 in DD and DDGR, 11 in BT
+    and BTX, 19 in DDK (:func:`partial_columns`); one fewer with an
+    orbit input."""
+    return len(partial_columns(mode, orbit))
+
+
+def toa_inputs(mode) -> tuple:
+    """The per-TOA inputs of a K2 ``mode``: DDK's d_a1, d_om and sini,
+    BTX's a1."""
+    return DDK_TOA_INPUTS if mode == DDK else ("a1",) if mode == BTX \
         else ()
-    return (0,) + tuple(1 + i for i in _ROW_READ[mode]) + extra
-
-
-def npartial(mode) -> int:
-    """Partials per element of a K2 ``mode``: 17 in DD and DDGR, 11 in BT,
-    19 in DDK (:func:`partial_columns`)."""
-    return len(partial_columns(mode))
 
 
 # ----------------------------------------------------------------------
@@ -704,21 +749,27 @@ def ell1_roemer_terms(phi, eps1, eps2, first_order_dre: bool = False,
 
 
 def ell1_forward(p, ttasc, mode=ELL1, nharms: int = 7,
-                 use_h4: bool = False) -> dict:
+                 use_h4: bool = False, orb=None) -> dict:
     """The delay of the ELL1 family's ``mode`` under ``delay``: the
     inverse-timing Roemer part (ELL1k's eccentricity and first-order Dre
     for ``ELL1K``) and the M2/SINI Shapiro delay, or ELL1H's orthometric
     one -- exact, or harmonics 3..``nharms`` of stigma = STIGMA or H4/H3
     (``use_h4``) -- (reference ``ell1_inverse_delay``, ``ell1_delay`` and
     ``ell1h_delay``, ``engines.py:416-495``), with the intermediates
-    :func:`ell1_partials` reads."""
+    :func:`ell1_partials` reads.  ``orb``, where given, is the orbit
+    input ``(orbits, pbprime)`` (K6's FBX or ORBWAVES orbits) in place of
+    PB/PBDOT/XPBDOT's."""
     ell1k = mode == ELL1K
     f = {}
-    f["pb_s"] = pb_s = p["PB"] * 86400.0
-    f["pbdot"] = pbdot = p["PBDOT"] + p["XPBDOT"]
-    f["frac"] = frac = _div(ttasc, pb_s)
-    orbits = frac - 0.5 * pbdot * frac * frac
-    f["pbprime"] = pbprime = pb_s + p["PBDOT"] * ttasc
+    if orb is not None:
+        orbits, pbprime = orb
+        f["pbprime"] = pbprime
+    else:
+        f["pb_s"] = pb_s = p["PB"] * 86400.0
+        f["pbdot"] = pbdot = p["PBDOT"] + p["XPBDOT"]
+        f["frac"] = frac = _div(ttasc, pb_s)
+        orbits = frac - 0.5 * pbdot * frac * frac
+        f["pbprime"] = pbprime = pb_s + p["PBDOT"] * ttasc
     f["phi"] = phi = (orbits - torch.floor(orbits)) * TWO_PI
     f["eps1"], f["eps2"] = eps1, eps2 = ell1_eps(p, ttasc, ell1k, f)
     f["a1"] = a1 = p["A1"] + ttasc * p["A1DOT"]
@@ -842,6 +893,15 @@ def ell1_params(mode):
     return ELL1H_PARAMS if mode >= ELL1H_EXACT else ELL1_PARAMS
 
 
+def ell1_columns(mode, orbit: bool = False) -> tuple:
+    """The partials K4 writes, by their index among ttasc (0) and the
+    mode's row (1-n): all of them, or with an ``orbit`` input 0, the
+    partials with respect to orbits (1) and pbprime (2), and the row past
+    XPBDOT (4-n)."""
+    n = len(ell1_params(mode)) + 1
+    return tuple(range(n)) if not orbit else (0, 1, 2) + tuple(range(4, n))
+
+
 def _ell1_coefficients(e1, e2):
     """The third-order Dre/a1 as sum_k S_k sin(k phi) + C_k cos(k phi):
     ``[(S_k, C_k, dS_k/de1, dC_k/de1, dS_k/de2, dC_k/de2)]`` for k = 1..4.
@@ -863,13 +923,15 @@ def _ell1_coefficients(e1, e2):
 
 
 def ell1_partials(p, ttasc, f, mode=ELL1, nharms: int = 7,
-                  use_h4: bool = False):
+                  use_h4: bool = False, orbit: bool = False):
     """The reverse sweep of :func:`ell1_forward`: partials (..., 1 + n) of
     the delay with respect to ttasc and the n parameters of the mode's
     row (:data:`ELL1_PARAMS`, :data:`ELL1H_PARAMS`), all NaN where the
     delay is not finite.  The parameters the form does not read (ELL1 and
     ELL1H: OMDOT, LNEDOT; ELL1k: EPS1DOT, EPS2DOT; ELL1H: H4 or STIGMA)
-    get zeros."""
+    get zeros.  With an ``orbit`` input (:func:`ell1_columns`) the partials
+    with respect to orbits and pbprime take PB's and PBDOT's places and
+    XPBDOT's is not written."""
     ell1k = mode == ELL1K
     P = [None] * (len(ell1_params(mode)) + 1)
     gd = torch.where(torch.isfinite(f["delay"]), 1.0, math.nan).to(
@@ -947,17 +1009,21 @@ def ell1_partials(p, ttasc, f, mode=ELL1, nharms: int = 7,
     P[5] = g_a1 * ttasc
     # phi = (orbits - floor) 2 pi; orbits = frac - 0.5 pbdot frac^2;
     # frac = t / pb_s; pbprime = pb_s + PBDOT t; pb_s = PB 86400
-    frac, pb_s = f["frac"], f["pb_s"]
     g_orb = g_phi * TWO_PI
-    g_frac = g_orb * (1.0 - f["pbdot"] * frac)
-    g_pbdot = -g_orb * 0.5 * frac * frac
-    g_pbs = g_pbprime - g_frac * frac / pb_s
-    P[1] = g_pbs * 86400.0
-    P[2] = g_pbdot + g_pbprime * ttasc
-    P[3] = g_pbdot
-    P[0] = g_frac / pb_s + g_pbprime * p["PBDOT"] + g_t
-    shape = torch.broadcast_shapes(*(x.shape for x in P))
-    return torch.stack([x.expand(shape) for x in P], dim=-1)
+    if orbit:
+        P[1] = g_orb
+        P[2] = g_pbprime
+        P[0] = g_t
+    else:
+        frac, pb_s = f["frac"], f["pb_s"]
+        g_frac = g_orb * (1.0 - f["pbdot"] * frac)
+        g_pbdot = -g_orb * 0.5 * frac * frac
+        g_pbs = g_pbprime - g_frac * frac / pb_s
+        P[1] = g_pbs * 86400.0
+        P[2] = g_pbdot + g_pbprime * ttasc
+        P[3] = g_pbdot
+        P[0] = g_frac / pb_s + g_pbprime * p["PBDOT"] + g_t
+    return _stack([P[i] for i in ell1_columns(mode, orbit)])
 
 
 def _ell1h_exact_reverse(p, f, gd, P):
@@ -1006,3 +1072,145 @@ def _ell1h_harmonic_reverse(p, f, gd, P, nharms: int, use_h4: bool):
         P[13] = zero
         P[14] = g_sig + zero
     return g_T * g_phi
+
+
+# ----------------------------------------------------------------------
+# FBX and ORBWAVES orbits (reference engines.py:68-108): kernel K6's
+# arithmetic, operation for operation (csrc/binary_orbits.cu)
+# ----------------------------------------------------------------------
+#: K6's forms: the FB0..FBn Taylor series (reference ``orbits_fbx``),
+#: ORBWAVES on a PB base (which ignores PBDOT/XPBDOT) and ORBWAVES on an
+#: FBX base (reference ``orbits_waves``)
+FBX, WAVES_PB, WAVES_FBX = range(3)
+
+
+def orbit_coefficients(form, nfb: int, nwaves: int) -> tuple:
+    """The names of K6's coefficient row in ``form``: FB0..FB(nfb-1), or
+    PB for the ORBWAVES PB base; then, with waves, ORBWAVEC_k and
+    ORBWAVES_k interleaved and ORBWAVE_OM last."""
+    base = ("PB",) if form == WAVES_PB else tuple(
+        f"FB{i}" for i in range(nfb))
+    if form == FBX:
+        return base
+    waves = tuple(n for k in range(nwaves)
+                  for n in (f"ORBWAVEC{k}", f"ORBWAVES{k}"))
+    return base + waves + ("ORBWAVE_OM",)
+
+
+def _horner_fbx(fb, tt0):
+    """orbits = sum FBn t^(n+1)/(n+1)! and freq = sum FBn t^n/n! by the
+    reference's Horner ladder, multiplying by the rounded reciprocals
+    1/(n+2) and 1/(n+1)."""
+    orbits = torch.zeros_like(tt0)
+    freq = torch.zeros_like(tt0)
+    for n in range(len(fb) - 1, -1, -1):
+        f = fb[n]
+        orbits = (orbits * tt0) * (1.0 / (n + 2)) + f
+        freq = (freq * tt0) * (1.0 / (n + 1)) + f
+    return orbits * tt0, freq
+
+
+def _waves(c_s, om, tw):
+    """The wave sum dphi and its rate, term by term in the reference's
+    order."""
+    dphi = torch.zeros_like(tw)
+    dphi_dot = torch.zeros_like(tw)
+    for k, (c, s) in enumerate(c_s):
+        w = (k + 1) * om
+        ph = w * tw
+        cp, sp = torch.cos(ph), torch.sin(ph)
+        dphi = dphi + c * cp + s * sp
+        dphi_dot = dphi_dot + w * (s * cp - c * sp)
+    return dphi, dphi_dot
+
+
+def binary_orbits_forward(tt0, coef, form, nfb: int, nwaves: int,
+                          tw_off: float = 0.0) -> dict:
+    """K6's forward pass: ``orbits`` and ``pbprime`` (B, N) from ``tt0``
+    and the coefficient row ``coef`` (B, :func:`orbit_coefficients`), with
+    ``tw = tt0 + tw_off`` for the waves; the intermediates
+    :func:`binary_orbits_partials` reads."""
+    cols = [coef[:, i:i + 1] for i in range(coef.shape[1])]
+    f = {}
+    if form == WAVES_PB:
+        f["pb_s"] = pb_s = cols[0] * 86400.0
+        orbits = _div(tt0, pb_s)
+        inv = _div(1.0, pb_s)
+        first = 1
+    else:
+        orbits, f["freq"] = _horner_fbx(cols[:nfb], tt0)
+        pbp0 = _div(1.0, f["freq"])
+        if form == FBX:
+            f["orbits"], f["pbprime"] = orbits, pbp0
+            return f
+        inv = _div(1.0, pbp0)
+        first = nfb
+    tw = tt0 + tw_off
+    c_s = [(cols[first + 2 * k], cols[first + 2 * k + 1])
+           for k in range(nwaves)]
+    dphi, dphi_dot = _waves(c_s, cols[-1], tw)
+    f["orbits"] = orbits + dphi
+    f["pbprime"] = _div(1.0, inv + dphi_dot)
+    return f
+
+
+def binary_orbits_partials(tt0, coef, form, nfb: int, nwaves: int,
+                           tw_off: float, f: dict):
+    """K6's partials (B, N, 2, 1 + ncoef): of orbits ([..., 0, :]) and of
+    pbprime ([..., 1, :]) with respect to tt0 (column 0) and the
+    coefficients, in closed form (pbprime = 1 / g, dpbprime = -pbprime^2
+    dg, g the orbital frequency)."""
+    B = max(tt0.shape[0], coef.shape[0])
+    cols = [coef[:, i:i + 1] for i in range(coef.shape[1])]
+    nc = len(cols)
+    zero = torch.zeros_like(f["orbits"])
+    Po = [zero] * (1 + nc)
+    Pg = [zero] * (1 + nc)
+    if form == WAVES_PB:
+        pb_s = f["pb_s"]
+        Po[0] = zero + _div(1.0, pb_s)
+        Po[1] = -(_div(tt0, pb_s) / pb_s) * 86400.0
+        Pg[1] = zero - _div(86400.0, pb_s * pb_s)
+        first = 1
+    else:
+        fb = cols[:nfb]
+        c = torch.ones_like(tt0)
+        for n in range(nfb):
+            nxt = (c * tt0) * (1.0 / (n + 1))
+            Po[1 + n] = zero + nxt
+            Pg[1 + n] = zero + c
+            c = nxt
+        dfreq = torch.zeros_like(tt0)
+        for n in range(nfb - 1, 0, -1):
+            dfreq = (dfreq * tt0) * (1.0 / n) + fb[n]
+        Po[0] = zero + f["freq"]
+        Pg[0] = zero + dfreq
+        first = nfb
+    if form != FBX:
+        om = cols[-1]
+        tw = tt0 + tw_off
+        g_om_o = zero
+        g_om_g = zero
+        for k in range(nwaves):
+            cc, ss = cols[first + 2 * k], cols[first + 2 * k + 1]
+            w = (k + 1) * om
+            ph = w * tw
+            cp, sp = torch.cos(ph), torch.sin(ph)
+            rate = ss * cp - cc * sp
+            curv = ss * sp + cc * cp
+            Po[1 + first + 2 * k] = zero + cp
+            Po[1 + first + 2 * k + 1] = zero + sp
+            Pg[1 + first + 2 * k] = -(w * sp)
+            Pg[1 + first + 2 * k + 1] = w * cp
+            Po[0] = Po[0] + w * rate
+            Pg[0] = Pg[0] - (w * w) * curv
+            g_om_o = g_om_o + ((k + 1) * tw) * rate
+            g_om_g = g_om_g + (k + 1) * rate - (w * ((k + 1) * tw)) * curv
+        Po[nc] = g_om_o
+        Pg[nc] = g_om_g
+    m = -(f["pbprime"] * f["pbprime"])
+    Pp = [m * g for g in Pg]
+    N = f["orbits"].shape[-1]
+    return torch.stack([torch.stack([x.expand(B, N) for x in Po], dim=-1),
+                        torch.stack([x.expand(B, N) for x in Pp], dim=-1)],
+                       dim=-2)

@@ -1,5 +1,5 @@
-"""Dispersion delays: the DM Taylor series and DMX windows (port of
-``pint_tpu/models/dispersion_model.py:28-313``).
+"""Dispersion delays: the DM Taylor series, DMX windows, DMJUMP and
+FDJUMPDM (port of ``pint_tpu/models/dispersion_model.py:28-400``).
 
 delay = K * DM(t) / f^2 with K = 1/2.41e-4 s MHz^2 cm^3/pc and f the
 barycentric frequency.  DMX windows are per-window 0/1 masks built on the
@@ -15,7 +15,8 @@ import torch
 
 from pint_torch.models.timing_model import DelayComponent, stack_params
 
-__all__ = ["DispersionDM", "DispersionDMX", "DMconst"]
+__all__ = ["DispersionDM", "DispersionDMX", "DispersionJump", "FDJumpDM",
+           "DMconst"]
 
 #: dispersion constant [s MHz^2 cm^3 / pc]
 DMconst = 1.0 / 2.41e-4
@@ -72,3 +73,41 @@ class DispersionDMX(Dispersion):
     def delay_func(self, pv, batch, ctx, acc_delay):
         freq = self.barycentric_freq(pv, batch)
         return self.dispersion_time_delay(self.dmx_dm(pv, batch, ctx), freq)
+
+
+class DispersionJump(Dispersion):
+    """DMJUMP (reference ``dispersion_model.py:316-355``): offsets of the
+    wideband DM measurements only, so no delay.  Config: ``dm_jumps``;
+    context: ``masks`` {name: (N,)}."""
+
+    register = True
+    category = "dispersion_jump"
+
+    def jump_dm(self, pv, batch, ctx):
+        out = torch.zeros_like(batch.freq)
+        for j in self.config.get("dm_jumps", []):
+            out = out - pv.get(j, 0.0) * ctx["masks"][j]
+        return out
+
+    def delay_func(self, pv, batch, ctx, acc_delay):
+        return torch.zeros_like(batch.freq)
+
+
+class FDJumpDM(Dispersion):
+    """FDJUMPDM (reference ``dispersion_model.py:358-400``): system DM
+    offsets that disperse the TOAs, dm = -FDJUMPDM on the selected ones.
+    Config: ``fdjump_dms``; context: ``masks`` {name: (N,)}."""
+
+    register = True
+    category = "fdjumpdm"
+
+    def fdjump_dm(self, pv, batch, ctx):
+        out = torch.zeros_like(batch.freq)
+        for j in self.config.get("fdjump_dms", []):
+            out = out - pv.get(j, 0.0) * ctx["masks"][j]
+        return out
+
+    def delay_func(self, pv, batch, ctx, acc_delay):
+        freq = self.barycentric_freq(pv, batch)
+        return self.dispersion_time_delay(self.fdjump_dm(pv, batch, ctx),
+                                          freq)

@@ -1,0 +1,43 @@
+"""FDJUMP: system-dependent frequency-dependent profile delays (port of
+``pint_tpu/models/fdjump.py:26-76``): delay += FDpJUMPq y^p on the
+selected TOAs, y = ln(f / 1 GHz) (FDJUMPLOG Y) or f / 1 GHz, f the
+topocentric frequency; y^p by the reference's integer-power products."""
+
+from __future__ import annotations
+
+import re
+
+import torch
+
+from pint_torch.models.binary.engines import _ipow
+from pint_torch.models.timing_model import DelayComponent
+
+__all__ = ["FDJump"]
+
+_FDJ_RE = re.compile(r"^FD(\d+)JUMP(\d+)")
+
+
+class FDJump(DelayComponent):
+    """Config: ``fdjumps`` (the names with a mask, in the reference's
+    order); context: ``masks`` {name: (N,)}; FDJUMPLOG a bool
+    parameter."""
+
+    register = True
+    category = "fdjump"
+
+    def delay_func(self, pv, batch, ctx, acc_delay):
+        f_ghz = batch.freq / torch.full_like(batch.freq, 1000.0)
+        p = self._parent.params_table.get("FDJUMPLOG")
+        if p is None or p.value is None or bool(p.value):
+            y = torch.log(f_ghz)
+            y = torch.where(torch.isfinite(y), y, 0.0)
+        else:
+            y = f_ghz
+        d = torch.zeros_like(batch.freq)
+        masks = ctx.get("masks") or {}
+        for name in self.config.get("fdjumps", []):
+            if name not in masks:
+                continue
+            k = int(_FDJ_RE.match(name).group(1))
+            d = d + pv.get(name, 0.0) * _ipow(y, k) * masks[name]
+        return d

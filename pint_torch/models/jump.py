@@ -1,15 +1,15 @@
-"""Phase jumps between receiver/backend groups (port of
-``pint_tpu/models/jump.py:19-47``): JUMPs are mask parameters whose 0/1
-masks are built on the host."""
+"""Phase jumps between receiver/backend groups and tempo-style delay
+jumps (port of ``pint_tpu/models/jump.py:19-47,118-147``): JUMPs are mask
+parameters whose 0/1 masks are built on the host."""
 
 from __future__ import annotations
 
 import torch
 
-from pint_torch.models.timing_model import PhaseComponent
+from pint_torch.models.timing_model import DelayComponent, PhaseComponent
 from pint_torch.phase import Phase
 
-__all__ = ["PhaseJump"]
+__all__ = ["PhaseJump", "DelayJump"]
 
 
 class PhaseJump(PhaseComponent):
@@ -25,3 +25,18 @@ class PhaseJump(PhaseComponent):
             jphase = jphase + pv.get(j, 0.0) * F0 * ctx["masks"][j]
         return Phase.from_float(jphase)
 
+
+
+class DelayJump(DelayComponent):
+    """Tempo-style delay jumps (reference ``jump.py:118-147``): delay
+    -JUMP [s] on the selected TOAs.  Config: ``jumps``; context:
+    ``masks`` {name: (N,)}."""
+
+    register = True
+    category = "jump_delay"
+
+    def delay_func(self, pv, batch, ctx, acc_delay):
+        d = torch.zeros_like(batch.freq)
+        for j in self.config.get("jumps", []):
+            d = d - pv.get(j, 0.0) * ctx["masks"][j]
+        return d

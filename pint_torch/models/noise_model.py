@@ -1,5 +1,7 @@
-"""Noise components: EFAC/EQUAD scaling, ECORR and power-law red noise
-(port of ``pint_tpu/models/noise_model.py:55-122,161-250,289-368,370-494``).
+"""Noise components: EFAC/EQUAD scaling, ECORR and the power-law Fourier
+processes -- achromatic red noise, DM noise, chromatic noise and
+solar-wind noise (port of ``pint_tpu/models/noise_model.py:55-122,
+161-250,289-368,370-569``).
 
 The (basis, weight) pairs depend only on TOA epochs and integer mode
 counts, never on fitted timing parameters, so they are built once on the
@@ -17,7 +19,8 @@ import numpy as np
 
 from pint_torch.models.timing_model import NoiseComponent
 
-__all__ = ["ScaleToaError", "EcorrNoise", "PLRedNoise", "ecorr_epochs",
+__all__ = ["ScaleToaError", "EcorrNoise", "PLRedNoise", "PLDMNoise",
+           "PLChromNoise", "PLSWNoise", "ecorr_epochs",
            "ecorr_quantization_matrix", "rednoise_freqs",
            "fourier_design_matrix", "powerlaw"]
 
@@ -141,14 +144,14 @@ class EcorrNoise(NoiseComponent):
         return U, w
 
 
-class PLRedNoise(NoiseComponent):
-    """Achromatic power-law red noise (TNREDAMP/TNREDGAM/TNREDC).
-    Config: ``amp``, ``gam``, ``n_lin``, ``n_log``, ``f_min_ratio``,
-    ``tspan_s`` (None: the data span) -- the reference's ``get_plc_vals``
-    resolved on the host."""
+class _PLNoise(NoiseComponent):
+    """A power-law Fourier process: sin/cos basis over the data span (or
+    ``tspan_s``), power-law weights.  Config: ``amp``, ``gam``,
+    ``n_lin``, ``n_log``, ``f_min_ratio``, ``tspan_s`` (None: the data
+    span) -- the reference's ``get_plc_vals`` resolved on the host; a
+    chromatic process's per-TOA basis scale is its context's ``scale``,
+    built on the host with the snapshot."""
 
-    register = True
-    category = "pl_red_noise"
     introduces_correlated_errors = True
 
     def get_time_frequencies(self, batch):
@@ -164,7 +167,42 @@ class PLRedNoise(NoiseComponent):
     def basis_weight_pair(self, model, batch) -> Tuple[np.ndarray, np.ndarray]:
         t, f = self.get_time_frequencies(batch)
         F = fourier_design_matrix(t, f)
+        scale = self.context.get("scale")
+        if scale is not None:
+            F = F * np.asarray(scale, dtype=np.float64)[:, None]
         df = np.diff(np.concatenate([[0.0], f]))
         w = powerlaw(np.repeat(f, 2), self.config["amp"],
                      self.config["gam"]) * np.repeat(df, 2)
         return F, w
+
+
+class PLRedNoise(_PLNoise):
+    """Achromatic power-law red noise (TNREDAMP/TNREDGAM/TNREDC)."""
+
+    register = True
+    category = "pl_red_noise"
+
+
+class PLDMNoise(_PLNoise):
+    """Power-law DM noise (reference ``noise_model.py:495``): the basis
+    scaled by (1400 MHz / f_bary)^2 (context ``scale``)."""
+
+    register = True
+    category = "pl_DM_noise"
+
+
+class PLChromNoise(_PLNoise):
+    """Power-law chromatic noise (reference ``noise_model.py:519``): the
+    basis scaled by (1400 MHz / f_bary)^TNCHROMIDX (context ``scale``)."""
+
+    register = True
+    category = "pl_chrom_noise"
+
+
+class PLSWNoise(_PLNoise):
+    """Power-law solar-wind density noise (reference
+    ``noise_model.py:545-569``): the basis scaled by the solar-wind DM
+    geometry at 1 cm^-3 times DMconst / f_bary^2 (context ``scale``)."""
+
+    register = True
+    category = "pl_sw_noise"

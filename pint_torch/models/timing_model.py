@@ -52,11 +52,13 @@ DEFAULT_ORDER = [
 @dataclass
 class Param:
     """One model parameter.  ``value`` is a float, an (hi, lo) float pair
-    for an epoch (``kind == "mjd"``), or None when unset."""
+    for an epoch (``kind == "mjd"``), a pair of floats (``kind ==
+    "pair"``: WAVEk's sine and cosine amplitudes, IFUNCk's MJD and
+    offset), or None when unset."""
 
     name: str
     component: str
-    kind: str = "float"          # float | mjd | mask | int | str | bool
+    kind: str = "float"    # float | mjd | pair | mask | int | str | bool
     value: object = None
     frozen: bool = True
     units: str = ""
@@ -227,6 +229,8 @@ class TimingModel:
                 if p.kind == "mjd":
                     hi, lo = p.value if p.value is not None else (0.0, 0.0)
                     out[n] = DD(float(hi), float(lo))
+                elif p.kind == "pair":
+                    out[n] = tuple(p.value) if p.value is not None else 0.0
                 else:
                     out[n] = float(p.value) if p.value is not None else 0.0
         return out

@@ -1,0 +1,79 @@
+"""Fourier-basis delays: WaveX, DMWaveX and CMWaveX (port of
+``pint_tpu/models/wavex.py:25-264``): sum_i SIN_i sin(2 pi f_i dt) +
+COS_i cos(2 pi f_i dt), f_i [1/d], dt the barycentric days from the
+epoch, term by term in the reference's order (``series``, :125-136); a
+delay [s], a DM (delay DMconst DM / f^2) or a chromatic measure (delay
+DMconst CM f^-TNCHROMIDX)."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from pint_torch.models.chromatic import chromatic_scale
+from pint_torch.models.dispersion_model import DMconst
+from pint_torch.models.timing_model import DelayComponent
+
+__all__ = ["WaveX", "DMWaveX", "CMWaveX"]
+
+DAY_S = 86400.0
+_TWO_PI = 2.0 * math.pi
+
+
+class _WaveXBase(DelayComponent):
+    """Config: ``indices``."""
+
+    prefixes = ("WXFREQ_", "WXSIN_", "WXCOS_")
+    epoch_name = "WXEPOCH"
+
+    def series(self, pv, batch, acc_delay):
+        ep = pv[self.epoch_name]
+        dt_day = (batch.tdb.hi - (ep.hi + ep.lo)) + batch.tdb.lo \
+            - acc_delay / DAY_S
+        fpre, spre, cpre = self.prefixes
+        out = torch.zeros_like(dt_day)
+        for i in self.config.get("indices", []):
+            arg = _TWO_PI * pv.get(f"{fpre}{i:04d}", 0.0) * dt_day
+            out = out + pv.get(f"{spre}{i:04d}", 0.0) * torch.sin(arg) \
+                + pv.get(f"{cpre}{i:04d}", 0.0) * torch.cos(arg)
+        return out
+
+
+class WaveX(_WaveXBase):
+    """Achromatic Fourier delay (reference ``wavex.py:139``)."""
+
+    register = True
+    category = "wavex"
+
+    def delay_func(self, pv, batch, ctx, acc_delay):
+        return self.series(pv, batch, acc_delay)
+
+
+class DMWaveX(_WaveXBase):
+    """Fourier DM (reference ``wavex.py:180``)."""
+
+    register = True
+    category = "dmwavex"
+    prefixes = ("DMWXFREQ_", "DMWXSIN_", "DMWXCOS_")
+    epoch_name = "DMWXEPOCH"
+
+    def delay_func(self, pv, batch, ctx, acc_delay):
+        dm = self.series(pv, batch, acc_delay)
+        freq = self.barycentric_freq(pv, batch)
+        return dm * DMconst / (freq * freq)
+
+
+class CMWaveX(_WaveXBase):
+    """Fourier chromatic measure (reference ``wavex.py:225``)."""
+
+    register = True
+    category = "cmwavex"
+    prefixes = ("CMWXFREQ_", "CMWXSIN_", "CMWXCOS_")
+    epoch_name = "CMWXEPOCH"
+
+    def delay_func(self, pv, batch, ctx, acc_delay):
+        cm = self.series(pv, batch, acc_delay)
+        freq = self.barycentric_freq(pv, batch)
+        return cm * DMconst * chromatic_scale(freq,
+                                              pv.get("TNCHROMIDX", 4.0))

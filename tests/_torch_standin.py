@@ -136,6 +136,45 @@ SMALL_BT_SETTINGS = dict(SMALL_SETTINGS, binary="BT")
 SMALL_DDS_SETTINGS = dict(SMALL_SETTINGS, binary="DDS", err_scale=0.25)
 SMALL_DDH_SETTINGS = dict(SMALL_SETTINGS, binary="DDH", err_scale=0.25)
 
+#: the J0023+0923-shaped black-widow stand-in: ``FULL_SETTINGS``' epochs
+#: at the GBT (J1909's receivers), an ELL1 binary with the orbital
+#: frequency ladder FB0..FB3 in place of PB (A1 0.035 lt-s), EFAC/EQUAD
+#: only (a WLS model); its 16 x 16 FB0 x FB1 WLS grid, 3 sigma about the
+#: WLS fit, at ``niter=4``
+BW_SETTINGS = dict(ELL1_SETTINGS, pulsar="J0023+0923", grid="fb0fb1",
+                   err_scale=2.0)
+#: the same with ORBWAVES on the FBX base (FB0, FB1, ORBWAVE_OM, five
+#: fitted C/S pairs, ORBWAVE_EPOCH): the fits, no grid
+BW_WAVES_SETTINGS = dict(BW_SETTINGS, orbwaves=5, grid=None)
+#: the J1713+0747-shaped GLS stand-in of an EPTA-DR2-style noise model:
+#: ``DDK_SETTINGS``' epochs and DDK binary with DMX replaced by PLDMNoise
+#: (30 modes), PLChromNoise (30 modes, TNCHROMIDX 4), CM/CM1, SWX windows
+#: one per conjunction year (SWXDM fitted, SWXP frozen), FDJUMP and
+#: FDJUMPDM on one -f group; ``Fitter.auto`` and the 16 x 16 KIN x KOM GLS
+#: grid at ``niter=1``
+PTA_SETTINGS = dict(DDK_SETTINGS, pta=True, n_dmx=0)
+#: the Vela-shaped young-pulsar WLS stand-in: ``FULL_SETTINGS``' epochs at
+#: Parkes, an isolated pulsar (F0 11.19 Hz) with two glitches, the first
+#: with a GLF0D/GLTD recovery, WAVE_OM with 10 WAVE pairs and the
+#: troposphere on; its 16 x 16 GLF0D_1 x GLTD_1 WLS grid at ``niter=4``
+YOUNG_SETTINGS = dict(FULL_SETTINGS, pulsar="J0835-4510", rn_modes=0,
+                      n_dmx=0, err_scale=20.0, fit_maxiter=3, grid_niter=4,
+                      grid="glitch")
+#: the small stand-ins of this slice's forms (80 TOAs, the fits, no grid):
+#: DD on ORBWAVES with a PB base; BT_piecewise with two pieces; the
+#: solar-wind and Fourier-basis PTA terms (SWM 1 NE_SW with NE_SW1, SWP
+#: and SWEPOCH, PLSWNoise, CMX, WaveX, DMWaveX, CMWaveX, a delay JUMP and
+#: DMJUMP; its 20 epochs a quarter year apart, every fourth 10 d before a
+#: conjunction, so that the solar wind is sampled); PiecewiseSpindown with
+#: IFUNC (SIFUNC 2)
+SMALL_DD_FBX_SETTINGS = dict(SMALL_SETTINGS, binary="DD", orbwaves=3)
+SMALL_BT_PIECEWISE_SETTINGS = dict(SMALL_SETTINGS, binary="BT_piecewise")
+SMALL_PTA_SETTINGS = dict(SMALL_SETTINGS, small_pta=True, err_scale=0.5,
+                          mjd_start=54180.0, mjd_end=55914.9375)
+SMALL_YOUNG_SETTINGS = dict(SMALL_SETTINGS, pulsar="J0835-4510",
+                            rn_modes=0, n_dmx=0, err_scale=20.0,
+                            fit_maxiter=3, grid_niter=4, sifunc=2)
+
 _GROUP = {  # (receiver, backend) -> (-f flag, sub-band MHz, error us)
     ("430", "ASP"): ("ASP_430", (422.0, 3.0), 0.7),
     ("L-wide", "ASP"): ("ASP_L-wide", (1150.0, 75.0), 1.0),
@@ -167,6 +206,16 @@ def _j1909(s) -> bool:
     return s.get("pulsar") == "J1909-3744"
 
 
+def _gbt(s) -> bool:
+    """Timed at the GBT with J1909-3744's receivers and backends."""
+    return s.get("pulsar") in ("J1909-3744", "J0023+0923")
+
+
+def _site(s) -> str:
+    return "gbt" if _gbt(s) else "pks" if s.get("pulsar") == "J0835-4510" \
+        else "ao"
+
+
 def _ngc(s) -> bool:
     return s.get("pulsar") == "NGC6440E"
 
@@ -177,6 +226,12 @@ def _ngc(s) -> bool:
 #: = Tsun M2 STIGMA^3 of M2 0.3, SINI 0.95), the latter two fitted
 _STIGMA = 0.95 / (1.0 + np.sqrt(1.0 - 0.95**2))
 _SMALL_BINARY = {
+    "BT_piecewise": ["BINARY BT_piecewise", "PB 5.7410", "A1 3.3667",
+                     "T0 55000.0", "OM 1.35 1", "ECC 0.17 1",
+                     "T0X_0001 55000.0002 1", "A1X_0001 3.36672 1",
+                     "XR1_0001 53990.0", "XR2_0001 55000.0",
+                     "T0X_0002 54999.9999 1", "A1X_0002 3.36668 1",
+                     "XR1_0002 55000.0", "XR2_0002 56010.0"],
     "BT": ["BINARY BT", "PB 5.7410 1", "A1 3.3667 1", "T0 55000.0",
            "OM 1.35 1", "ECC 0.17 1"],
     "DDS": ["BINARY DDS", "PB 5.7410 1", "A1 3.3667 1", "T0 55000.0",
@@ -232,12 +287,12 @@ def ngc_par(s) -> str:
 
 
 def _group_table(s):
-    return _GROUP_J1909 if _j1909(s) else _GROUP
+    return _GROUP_J1909 if _gbt(s) else _GROUP
 
 
 def _epochs(s):
     mjds = np.linspace(s["mjd_start"], s["mjd_end"], s["n_epochs"])
-    rcvrs, bes = (("Rcvr_800", "Rcvr1_2"), ("GASP", "GUPPI")) if _j1909(s) \
+    rcvrs, bes = (("Rcvr_800", "Rcvr1_2"), ("GASP", "GUPPI")) if _gbt(s) \
         else (("430", "L-wide"), ("ASP", "PUPPI"))
     out = []
     for i, m in enumerate(mjds):
@@ -252,7 +307,7 @@ def standin_tim(s) -> str:
     apart (all within 1 s, so ECORR groups each epoch)."""
     lines = ["FORMAT 1\n"]
     spread = 9 // s["n_subbands"]
-    site = "gbt" if _j1909(s) else "ao"
+    site = _site(s)
     for i, (m, rcvr, be) in enumerate(_epochs(s)):
         flag, (f0, df), err = _group_table(s)[(rcvr, be)]
         for j in range(s["n_subbands"]):
@@ -269,6 +324,8 @@ def _groups(s):
 
 
 def _dmx_lines(s, rng):
+    if not s["n_dmx"]:
+        return []
     lines = [f"DMX {s['dmx_days']:.1f}"]
     lo = s["mjd_start"] - 0.5
     for k in range(s["n_dmx"]):
@@ -322,6 +379,139 @@ def _shapiro_lines(s, m2: float, sini: float):
     return [f"H3 {h3:.10e} 1", f"STIGMA {stigma:.12f} 1"]
 
 
+def bw_par(s) -> str:
+    """Par text shaped like J0023+0923, a black widow timed with an
+    orbital-frequency ladder: ecliptic astrometry, an ELL1 binary with
+    FB0..FB3 in place of PB (or, with ``orbwaves``, FB0, FB1 and that many
+    fitted ORBWAVES C/S pairs), DMX windows, FD1-3, a receiver JUMP and
+    EFAC/EQUAD per ``-f`` group."""
+    head = [
+        "PSR J0023+0923", "ELONG 9.2063 1", "ELAT 6.3090 1",
+        "PMELONG -12.5 1", "PMELAT -5.6 1", "PX 0.8 1", "ECL IERS2010",
+        "POSEPOCH 55000", "F0 327.84701549 1", "F1 -1.2283e-15 1",
+        "PEPOCH 55000", "DM 14.328", "FD1 1.2e-5 1", "FD2 -4.0e-6 1",
+        "FD3 2.0e-6 1", "JUMP -fe Rcvr_800 0.0 1", "BINARY ELL1",
+        "FB0 8.338951e-05 1", "FB1 -4.0e-20 1", "A1 0.034841 1",
+        "TASC 55000.1", "EPS1 1.5e-5 1", "EPS2 -2.0e-5 1"]
+    nw = s.get("orbwaves", 0)
+    if nw:
+        head += _orbwave_lines(nw, 2.0 * np.pi / (1620.0 * 86400.0), 2e-4)
+    else:
+        head += ["FB2 1.0e-28 1", "FB3 -2.0e-36 1"]
+    rng = np.random.default_rng(s["seed"] + 1)
+    lines = head + _dmx_lines(s, rng)
+    for g in _groups(s):
+        efac, equad = _NOISE_J1909[g]
+        lines += [f"EFAC -f {g} {efac}",
+                  f"EQUAD -f {g} {equad * s['err_scale']:.6g}"]
+    return "\n".join(lines + ["UNITS TDB"]) + "\n"
+
+
+def _orbwave_lines(nw: int, om: float, amp: float):
+    """ORBWAVES: ``nw`` fitted C/S pairs of decreasing amplitude about
+    MJD 55000."""
+    lines = [f"ORBWAVE_OM {om:.10e}", "ORBWAVE_EPOCH 55000"]
+    for k in range(nw):
+        a = amp / (k + 1)
+        lines += [f"ORBWAVEC{k} {a * 0.8:.6e} 1",
+                  f"ORBWAVES{k} {-a * 0.6:.6e} 1"]
+    return lines
+
+
+def _swx_lines(s):
+    """One SWX window a conjunction year (the Sun at J1713+0747's
+    ecliptic longitude about MJD 53345 + 365.25 k), 120 d wide, over the
+    span: SWXDM fitted, SWXP 2 frozen (at J1713+0747's elongations, 30
+    deg and more, SWXP's design column is ~1e-6 s per unit index against
+    ~1 us errors, and the reference's GLS fit steps it below 1, where
+    I_inf has no value)."""
+    lines = []
+    k = 0
+    for c in 53345.0 + 365.25 * np.arange(12):
+        r1, r2 = c - 60.0, c + 60.0
+        if r2 < s["mjd_start"] or r1 > s["mjd_end"]:
+            continue
+        k += 1
+        lines += [f"SWXDM_{k:04d} {2e-4 * (1 + 0.1 * k):.6e} 1",
+                  f"SWXP_{k:04d} 2.0", f"SWXR1_{k:04d} {r1:.4f}",
+                  f"SWXR2_{k:04d} {r2:.4f}"]
+    return lines
+
+
+def pta_lines(s):
+    """The EPTA-DR2-style chromatic and solar-wind terms of the pta
+    stand-in: CM/CM1 about CMEPOCH with TNCHROMIDX 4, PLDMNoise and
+    PLChromNoise (30 modes each), SWX windows, FDJUMP and FDJUMPDM on
+    PUPPI_L-wide."""
+    return ["CM 0.0 1", "CM1 0.0 1", "CMEPOCH 54978", "TNCHROMIDX 4",
+            "TNDMAMP -13.6", "TNDMGAM 2.5", "TNDMC 30",
+            "TNCHROMAMP -14.2", "TNCHROMGAM 2.8", "TNCHROMC 30",
+            "FD1JUMP -f PUPPI_L-wide 2.0e-7 1",
+            "FDJUMPDM -f PUPPI_L-wide 1.0e-4 1"] + _swx_lines(s)
+
+
+def small_pta_lines():
+    """The small stand-in's solar-wind and Fourier-basis terms: SWM 1
+    NE_SW with NE_SW1 fitted about SWEPOCH and SWP 2.2, PLSWNoise, three CMX
+    windows, two WaveX, DMWaveX and CMWaveX terms each (the CM ones
+    frozen: with DMX they would leave the chromatic directions barely
+    constrained at two observing bands) and a DMJUMP (the delay JUMP is
+    added to the model as a component)."""
+    lines = ["NE_SW 8.0 1", "NE_SW1 0.4 1", "SWM 1", "SWP 2.2",
+             "SWEPOCH 55000", "TNSWAMP -7.0", "TNSWGAM 1.5", "TNSWC 10",
+             "TNCHROMIDX 4", "DMJUMP -fe 430 0.0"]
+    for k, (r1, r2) in enumerate(((53999.0, 54600.0), (54600.5, 55300.0),
+                                  (55300.5, 56001.0)), start=1):
+        lines += [f"CMX_{k:04d} {1e-4 * k:.6e}", f"CMXR1_{k:04d} {r1}",
+                  f"CMXR2_{k:04d} {r2}"]
+    for pre, amp, fit in (("WX", 2e-7, " 1"), ("DMWX", 2e-4, " 1"),
+                          ("CMWX", 1e-4, "")):
+        lines.append(f"{pre}EPOCH 55000")
+        for k, f in enumerate((1.0 / 900.0, 1.0 / 450.0), start=1):
+            lines += [f"{pre}FREQ_{k:04d} {f:.10f}",
+                      f"{pre}SIN_{k:04d} {amp / k:.6e}{fit}",
+                      f"{pre}COS_{k:04d} {-amp / (2 * k):.6e}{fit}"]
+    return lines
+
+
+def vela_par(s, full: bool) -> str:
+    """Par text shaped like the Vela pulsar (J0835-4510, F0 11.19 Hz) at
+    Parkes: equatorial astrometry, a spin-down with F2; at full width two
+    glitches (the first with a GLF0D/GLTD recovery), WAVE_OM with 10 WAVE
+    pairs and the troposphere on; at small depth a piecewise spin-down
+    with IFUNC (SIFUNC from the settings); EFAC/EQUAD per ``-f`` group,
+    no correlated noise."""
+    lines = ["PSR J0835-4510", "RAJ 08:35:20.61149 1",
+             "DECJ -45:10:34.8751 1", "POSEPOCH 55000",
+             "F0 11.1893414 1", "F1 -1.5566e-11 1", "F2 1.0e-21 1",
+             "PEPOCH 55000", "DM 67.97", "FD1 1.0e-5 1",
+             "JUMP -fe L-wide 0.0 1"]
+    if full:
+        lines += ["GLEP_1 54600.0", "GLPH_1 0.0 1", "GLF0_1 2.5e-5 1",
+                  "GLF1_1 -1.0e-13 1", "GLF0D_1 1.0e-7 1", "GLTD_1 12.0 1",
+                  "GLEP_2 55900.0", "GLPH_2 0.0 1", "GLF0_2 3.0e-5 1",
+                  "GLF1_2 -1.2e-13 1", "WAVEEPOCH 55000",
+                  f"WAVE_OM {2.0 * np.pi / 3240.0:.10f}",
+                  "CORRECT_TROPOSPHERE Y"]
+        rng = np.random.default_rng(s["seed"] + 2)
+        for k in range(1, 11):
+            a, b = rng.normal(0.0, 2e-3 / k, 2)
+            lines.append(f"WAVE{k} {a:.6e} {b:.6e}")
+    else:
+        lines += ["PWEP_1 55000.0", "PWSTART_1 54600.0", "PWSTOP_1 55400.0",
+                  "PWPH_1 0.0 1", "PWF0_1 1.0e-9 1", "PWF1_1 -1.0e-18 1",
+                  f"SIFUNC {s.get('sifunc', 2)}"]
+        for k, (m, v) in enumerate(((53900.0, 0.0), (54500.0, 2e-4),
+                                    (55100.0, -1e-4), (55700.0, 3e-4),
+                                    (56100.0, 0.0)), start=1):
+            lines.append(f"IFUNC{k} {m} {v:.6e}")
+    for g in _groups(s):
+        efac, equad, _ = _NOISE[g]
+        lines += [f"EFAC -f {g} {efac}",
+                  f"EQUAD -f {g} {equad * s['err_scale']:.6g}"]
+    return "\n".join(lines + ["UNITS TDB"]) + "\n"
+
+
 def standin_par(s, full: bool) -> str:
     """Par text: B1855+09-like timing (full width) or the small test
     stand-in (its binary as BT, DDS or DDH where the settings ask), or the
@@ -354,6 +544,14 @@ def standin_par(s, full: bool) -> str:
         ]
         if s.get("binary") in _SMALL_BINARY:
             head = head[:10] + _SMALL_BINARY[s["binary"]]
+        if s.get("orbwaves"):
+            head += _orbwave_lines(s["orbwaves"],
+                                   2.0 * np.pi / (1000.0 * 86400.0), 1e-4)
+        if s.get("small_pta"):
+            head = ["PSR TSTSW", "RAJ 00:23:16.88 1", "DECJ +09:23:23.86 1"] \
+                + head[3:] + small_pta_lines()
+    if s.get("pta"):
+        head = head + pta_lines(s)
     rng = np.random.default_rng(s["seed"] + 1)
     lines = head + _dmx_lines(s, rng)
     for g in _groups(s):
@@ -386,8 +584,19 @@ def make_standin(s, full: bool):
             error_us=s["error_us"], add_noise=True,
             rng=np.random.default_rng(s["seed"]))
         return model, toas
-    par = j1909_par(s) if _j1909(s) else standin_par(s, full)
+    if _j1909(s):
+        par = j1909_par(s)
+    elif s.get("pulsar") == "J0023+0923":
+        par = bw_par(s)
+    elif s.get("pulsar") == "J0835-4510":
+        par = vela_par(s, full)
+    else:
+        par = standin_par(s, full)
     model = get_model(par.splitlines(keepends=True))
+    if s.get("small_pta"):
+        _add_delay_jump(model)
+    if "PLSWNoise" in model.components:
+        _patch_sw_geometry(model)
     with tempfile.TemporaryDirectory() as d:
         tim = os.path.join(d, "standin.tim")
         with open(tim, "w") as fh:
@@ -395,6 +604,43 @@ def make_standin(s, full: bool):
         toas = make_fake_toas_fromtim(tim, model, add_noise=True,
                                       rng=np.random.default_rng(s["seed"]))
     return model, toas
+
+
+def _add_delay_jump(model):
+    """A tempo-style delay JUMP2 on the TOAs after MJD 55000 (the reference's
+    model builder maps JUMP lines to phase jumps, so the DelayJump
+    component is added as a component; JUMP1 is the phase jump's)."""
+    from pint_tpu.models.jump import DelayJump
+
+    from pint_tpu.models.parameter import maskParameter
+
+    dj = DelayJump()
+    dj.remove_param("JUMP1")  # the phase JUMP holds that name
+    dj.add_param(maskParameter("JUMP", index=2, key="mjd",
+                               key_value=["55000", "56100"], value=3.0e-6,
+                               frozen=False, units="s"))
+    model.add_component(dj)
+    dj.setup()
+    model.setup()
+
+
+def _patch_sw_geometry(model):
+    """PLSWNoise's basis reads ``SolarWindDispersion.solar_wind_geometry``
+    (``noise_model.py:569``), which the reference package does not define;
+    this gives the reference model's component that method -- the geometry
+    of its own SWM at n_earth = 1 cm^-3, from its own functions -- so that
+    the reference can build the basis (ROADMAP.md queue C)."""
+    from pint_tpu.models import solar_wind as sw_mod
+
+    sw = model.components["SolarWindDispersion"]
+
+    def solar_wind_geometry(pv, batch):
+        theta, r = sw._theta_r(pv, batch)
+        if int(sw.SWM.value or 0) == 0:
+            return sw_mod.solar_wind_geometry_spherical(r, theta)
+        return sw_mod.solar_wind_geometry_pl(r, theta, pv.get("SWP", 2.0))
+
+    sw.solar_wind_geometry = solar_wind_geometry
 
 
 def grid_axes(model, npts: int):
@@ -428,13 +674,45 @@ def _component_config(name, comp, model) -> dict:
     if name == "FD":
         return {"num_FD_terms": comp.num_FD_terms}
     if name.startswith("Binary"):
-        return {"nfb": comp._nfb, "nwaves": comp._nwaves}
-    if name == "PLRedNoise":
+        out = {"nfb": comp._nfb, "nwaves": comp._nwaves}
+        if name == "BinaryBT_piecewise":
+            out["piece_indices"] = list(comp.piece_indices)
+        return out
+    if name in ("PLRedNoise", "PLDMNoise", "PLChromNoise", "PLSWNoise"):
         amp, gam, n_lin, n_log, fmr = comp.get_plc_vals()
-        ts = comp.TNREDTSPAN.value
+        tsp = comp._plc[5]
+        ts = None if tsp is None else comp._params_dict[tsp].value
         return {"amp": float(amp), "gam": float(gam), "n_lin": int(n_lin),
                 "n_log": n_log, "f_min_ratio": float(fmr),
                 "tspan_s": None if ts is None else float(ts) * 365.25 * 86400}
+    if name == "SolarWindDispersion":
+        return {"num_ne_sw_terms": comp.num_ne_sw_terms,
+                "swm": int(comp.SWM.value or 0),
+                "has_swepoch": comp.SWEPOCH.value is not None}
+    if name == "SolarWindDispersionX":
+        return {"swx_indices": list(comp.swx_indices)}
+    if name == "ChromaticCM":
+        return {"num_cm_terms": comp.num_cm_terms,
+                "has_cmepoch": comp.CMEPOCH.value is not None}
+    if name == "ChromaticCMX":
+        return {"cmx_indices": list(comp.cmx_indices)}
+    if name == "DispersionJump":
+        return {"dm_jumps": list(comp.dm_jumps)}
+    if name == "FDJumpDM":
+        return {"fdjump_dms": list(comp.fdjump_dms)}
+    if name in ("FDJump", "DelayJump"):
+        return {("fdjumps" if name == "FDJump" else "jumps"):
+                list(comp.fdjumps if name == "FDJump" else comp.jumps)}
+    if name in ("WaveX", "DMWaveX", "CMWaveX"):
+        return {"indices": list(comp.indices)}
+    if name == "Glitch":
+        return {"glitch_indices": list(comp.glitch_indices)}
+    if name == "Wave":
+        return {"num_wave_terms": comp.num_wave_terms}
+    if name == "PiecewiseSpindown":
+        return {"pw_indices": list(comp.pw_indices)}
+    if name == "IFunc":
+        return {"sifunc": int(comp.SIFUNC.value)}
     return {}
 
 
@@ -442,10 +720,14 @@ def _param_entry(name, comp_name, par):
     from pint_tpu.dd import dd_from_longdouble
     from pint_tpu.models.parameter import (MJDParameter, boolParameter,
                                            intParameter, maskParameter,
-                                           strParameter)
+                                           pairParameter, strParameter)
 
     v = par.value
-    if isinstance(par, MJDParameter):
+    if isinstance(par, pairParameter):
+        kind = "pair"
+        if v is not None:
+            v = [float(v[0]), float(v[1])]
+    elif isinstance(par, MJDParameter):
         kind = "mjd"
         if v is not None:
             d = dd_from_longdouble(np.longdouble(v))
@@ -543,6 +825,10 @@ def export_state(model, toas) -> dict:
                 m = np.zeros(len(toas), dtype=bool)
                 m[par.select_toa_mask(toas)] = True
                 arrays[f"ctx/{name}/masks/{p}"] = m
+        if name in ("PLDMNoise", "PLChromNoise", "PLSWNoise"):
+            # the chromatic and solar-wind basis scales, built on the host
+            arrays[f"ctx/{name}/scale"] = np.asarray(
+                comp._chromatic_scale(model, toas), dtype=np.float64)
     meta = {"format": "pint_torch-snapshot-1", "name": model.PSR.value,
             "components": comps, "params": params,
             "free_params": list(model.free_params),
@@ -678,7 +964,11 @@ def _huber_outputs(model, toas, design, arrays, ref):
 #: the grids that sweep two parameters 3 sigma about the fit, by the
 #: settings' ``grid``
 GRIDS = {"h3stigma": ("H3", "STIGMA"), "kinkom": ("KIN", "KOM"),
-         "mtotm2": ("MTOT", "M2")}
+         "mtotm2": ("MTOT", "M2"), "fb0fb1": ("FB0", "FB1"),
+         "glitch": ("GLF0D_1", "GLTD_1")}
+#: grid parameters whose axis stays positive: its lower end at least a
+#: tenth of the fitted value (a glitch's recovery time)
+POSITIVE = ("GLTD_1",)
 
 
 def wls_grid_axes(fitter, settings):
@@ -700,9 +990,10 @@ def wls_grid_axes(fitter, settings):
     else:
         names = GRIDS[kind]
         spans = tuple(3 * fitter.errors[p] for p in names)
-    return names, tuple(np.linspace(getattr(m, p).value - d,
-                                    getattr(m, p).value + d, n)
-                        for p, d in zip(names, spans))
+    return names, tuple(np.linspace(
+        max(getattr(m, p).value - d, 0.1 * getattr(m, p).value)
+        if p in POSITIVE else getattr(m, p).value - d,
+        getattr(m, p).value + d, n) for p, d in zip(names, spans))
 
 
 def reference_wls_grid(fitter, axes, niter: int, chunk: int,
@@ -786,3 +1077,42 @@ def export_wls_snapshot(model, toas, settings: dict, chunk: int = 16,
     meta["reference"] = ref
     arrays["meta"] = np.asarray(json.dumps(meta))
     return arrays
+
+
+# ---------------------------------------------------------------------------
+# component parity helpers of the CPU tests
+# ---------------------------------------------------------------------------
+def port_and_reference(settings, full: bool = False):
+    """(reference model, reference TOAs, port model, port batch) of a
+    stand-in, the port's loaded on the CPU from the reference's exported
+    state."""
+    from pint_torch.bridge import load_snapshot
+
+    model, toas = make_standin(settings, full=full)
+    m, b = load_snapshot(export_state(model, toas), device="cpu")
+    return model, toas, m, b
+
+
+def component_outputs(model, toas, m, b, name):
+    """One component's output in both packages, numpy (N,) each: a delay
+    component's delay with no delay accumulated before it, or a phase
+    component's phase (integer plus fraction) at the model's total
+    delay."""
+    import torch
+
+    comp, tcomp = model.components[name], m.components[name]
+    pv, batch = model._const_pv(), toas.to_batch()
+    n = len(toas)
+    if tcomp.kind == "delay":
+        ref = comp.delay_func(pv, batch, comp.build_context(toas),
+                              np.zeros(n))
+        got = tcomp.delay_func(m.const_pv(), b, tcomp.build_context(b),
+                               torch.zeros((1, n), dtype=torch.float64))
+        return (np.broadcast_to(np.asarray(got.detach()), (1, n))[0],
+                np.broadcast_to(np.asarray(ref), (n,)))
+    delay = model.delay(toas)
+    ref = comp.phase_func(pv, batch, comp.build_context(toas), delay)
+    got = tcomp.phase_func(m.const_pv(), b, tcomp.build_context(b),
+                           torch.tensor(np.array(delay))[None])
+    return (np.broadcast_to(np.asarray(got.int_ + got.frac), (1, n))[0],
+            np.broadcast_to(np.asarray(ref.int_ + ref.frac), (n,)))

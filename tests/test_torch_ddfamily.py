@@ -20,8 +20,7 @@ Stand-ins: ``SMALL_BT_SETTINGS``, ``SMALL_DDS_SETTINGS``,
 exported by the reference and loaded into the port: residuals 1e-10 s,
 the GLS fit's and ``Fitter.auto``'s chi2 1e-6 rel, values 1e-2 sigma,
 uncertainties 1e-6 rel, ``Fitter.auto``'s class, converged flag and steps.
-The refusals (``validate``, FBX/ORBWAVES orbits, ``BinaryBT_piecewise``)
-raise the reference's exception types.
+The ``validate`` refusals raise the reference's exception types.
 """
 
 import math
@@ -472,29 +471,3 @@ def test_validate_refusals_match_the_references_types(settings, values):
         load_snapshot(_with(arrays, **values), device="cpu")
     assert type(e.value).__name__ == want
     assert isinstance(e.value, ValueError)
-
-
-@pytest.mark.parametrize("what", ["fbx", "orbwaves", "bt_piecewise"])
-def test_unported_orbits_name_the_roadmap_item(what):
-    """FBX and ORBWAVES orbits and ``BinaryBT_piecewise`` are refused with
-    ``NotImplementedError`` naming the ROADMAP item that ports them."""
-    import json
-
-    from pint_torch.bridge import load_snapshot
-
-    _, arrays = _state(standin.SMALL_BT_SETTINGS)
-    meta = json.loads(str(arrays["meta"]))
-    for c in meta["components"]:
-        if c["class"] == "BinaryBT":
-            if what == "bt_piecewise":
-                c["class"] = "BinaryBT_piecewise"
-            else:
-                c["config"] = {"nfb": 2 if what == "fbx" else 0,
-                               "nwaves": 1 if what == "orbwaves" else 0}
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue A item 5") as e:
-        load_snapshot(dict(arrays, meta=np.asarray(json.dumps(meta))),
-                      device="cpu")
-    assert str(e.value).startswith(
-        "component BinaryBT_piecewise is not ported yet"
-        if what == "bt_piecewise" else "BinaryBT: FBX/ORBWAVES orbits")

@@ -184,9 +184,9 @@ def test_ell1h_component_validates_and_picks_the_references_form(
     calls = []
     orig = K4.ell1_binary
 
-    def spy(tt, params, mode, nharms=7, use_h4=False):
+    def spy(tt, params, mode, nharms=7, use_h4=False, orb=None):
         calls.append((mode, nharms, use_h4))
-        return orig(tt, params, mode, nharms, use_h4)
+        return orig(tt, params, mode, nharms, use_h4, orb)
 
     monkeypatch.setattr(K4, "ell1_binary", spy)
     for h3, h4, stig, want in ((8e-7, None, 0.94, (T.ELL1H_EXACT, 7, False)),

@@ -42,10 +42,14 @@ def test_import_and_load_pull_in_no_jax():
         "import pint_torch.integrity.robust\n"
         "from pint_torch.bridge import load_snapshot, STANDIN_PATH, "
         "ELL1_PATH, ELL1H_PATH, NGC_PHOFF_PATH, DDK_PATH, DDGR_PATH, "
-        "BT_SMALL_PATH, DDS_SMALL_PATH, DDH_SMALL_PATH\n"
+        "BT_SMALL_PATH, DDS_SMALL_PATH, DDH_SMALL_PATH, BW_PATH, "
+        "BW_WAVES_PATH, PTA_PATH, YOUNG_PATH, DD_FBX_SMALL_PATH, "
+        "BT_PIECEWISE_SMALL_PATH, PTA_SMALL_PATH, YOUNG_SMALL_PATH\n"
         "for p in (STANDIN_PATH, ELL1_PATH, ELL1H_PATH, NGC_PHOFF_PATH, "
         "DDK_PATH, DDGR_PATH, BT_SMALL_PATH, DDS_SMALL_PATH, "
-        "DDH_SMALL_PATH):\n"
+        "DDH_SMALL_PATH, BW_PATH, BW_WAVES_PATH, PTA_PATH, YOUNG_PATH, "
+        "DD_FBX_SMALL_PATH, BT_PIECEWISE_SMALL_PATH, PTA_SMALL_PATH, "
+        "YOUNG_SMALL_PATH):\n"
         "    load_snapshot(p, device='cpu')\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print('BAD', bad)\n"
@@ -99,11 +103,14 @@ def test_entry_points_default_to_the_gpu():
         return
     with pytest.raises(NoGPUError):
         resolve_device(None)
-    from pint_torch.bridge import (BT_SMALL_PATH, DDGR_PATH, DDK_PATH,
-                                   ELL1H_PATH, NGC_PATH, NGC_PHOFF_PATH)
+    from pint_torch.bridge import (BT_SMALL_PATH, BW_PATH, DDGR_PATH,
+                                   DDK_PATH, ELL1H_PATH, NGC_PATH,
+                                   NGC_PHOFF_PATH, PTA_SMALL_PATH,
+                                   YOUNG_PATH)
 
     for path in (STANDIN_PATH, ELL1H_PATH, NGC_PATH, NGC_PHOFF_PATH,
-                 DDK_PATH, DDGR_PATH, BT_SMALL_PATH):
+                 DDK_PATH, DDGR_PATH, BT_SMALL_PATH, BW_PATH,
+                 PTA_SMALL_PATH, YOUNG_PATH):
         with pytest.raises(NoGPUError):
             load_snapshot(path)
 
@@ -143,23 +150,41 @@ def test_cpu_tensors_never_reach_a_kernel():
     x, sv, _ = wls_lstsq(torch.eye(5, 3, dtype=torch.float64)[None],
                          torch.ones((1, 5), dtype=torch.float64))
     assert bool(torch.isfinite(x).all()) and bool(torch.isfinite(sv).all())
-    assert kernels.launch_counts() == dict.fromkeys(
-        ("spin_phase_primal", "spin_phase_dual", "dd_binary_primal",
-         "dd_binary_dual", "bt_binary_primal", "bt_binary_dual",
-         "ddgr_binary_primal", "ddgr_binary_dual", "ddk_binary_primal",
-         "ddk_binary_dual", "schur_cholesky_solve_smem",
-         "schur_cholesky_solve_global", "ell1_binary_primal",
-         "ell1_binary_dual", "ell1k_binary_primal", "ell1k_binary_dual",
-         "ell1h_exact_binary_primal", "ell1h_exact_binary_dual",
-         "ell1h_harmonic_binary_primal", "ell1h_harmonic_binary_dual",
-         "wls_tsqr_fold", "wls_tsqr_svd",
-         "wls_lstsq_global"), 0)
+    # K6 in its three forms, feeding K2 and K4 their orbit inputs; K2's
+    # BTX; K7 with and without windows
+    from pint_torch.kernels.binary_orbits import binary_orbits
+    from pint_torch.kernels.dd_binary import BTX
+    from pint_torch.kernels.solar_wind_pl import solar_wind_pl, sw_i_inf
+
+    t = torch.linspace(-1e7, 1e7, 5, dtype=torch.float64)[None]
+    for form, nfb, nw, c in ((0, 2, 0, [8.3e-5, -4e-20]),
+                             (1, 0, 1, [0.14, 1e-4, -1e-4, 4e-8]),
+                             (2, 1, 1, [8.3e-5, 1e-4, -1e-4, 4e-8])):
+        orb = binary_orbits(t, torch.tensor([c], dtype=torch.float64), form,
+                            nfb, nw, 10.0)
+        assert all(bool(torch.isfinite(o).all()) for o in orb)
+        assert bool(torch.isfinite(dd_binary(t, params[:1], orb=orb)).all())
+        assert bool(torch.isfinite(ell1_binary(t, p4[:1], orb=orb)).all())
+    d = dd_binary(tt0, params, BTX, (torch.full_like(tt0, 9.2),))
+    assert d.shape == (2, 5) and bool(torch.isfinite(d).all())
+    p = torch.tensor([[2.0, 2.5]], dtype=torch.float64)
+    for win in (None, torch.tensor([0, 1, -1, 1, 0])):
+        g = solar_wind_pl(torch.full((5,), 499.0, dtype=torch.float64),
+                          torch.full((1, 5), 0.5, dtype=torch.float64), p,
+                          sw_i_inf(p), win)
+        assert bool(torch.isfinite(g).all())
+    counts = kernels.launch_counts()
+    assert set(counts) == {n for mod in kernels.modules().values()
+                           for n in mod.KERNELS.values()}
+    assert len(counts) == 2 + 20 + 2 + 16 + 3 + 6 + 2
+    assert not any(counts.values())
 
 
 def test_kernel_sources_ship_with_the_package():
     csrc = REPO / "pint_torch" / "kernels" / "csrc"
     for name in ("spin_phase", "dd_binary", "schur_cholesky_solve",
-                 "ell1_binary", "wls_lstsq"):
+                 "ell1_binary", "wls_lstsq", "binary_orbits",
+                 "solar_wind_pl"):
         src = (csrc / f"{name}.cu").read_text()
         assert "extern \"C\"" in src and f"{name}_launch" in src
     from pint_torch import kernels
@@ -175,6 +200,14 @@ def test_kernel_sources_ship_with_the_package():
                     ("b1913_ddgr_standin.npz", 4005),
                     ("small_bt_standin.npz", 80),
                     ("small_dds_standin.npz", 80),
-                    ("small_ddh_standin.npz", 80)):
+                    ("small_ddh_standin.npz", 80),
+                    ("j0023_bw_standin.npz", 4005),
+                    ("j0023_bw_waves_standin.npz", 4005),
+                    ("j1713_pta_standin.npz", 4005),
+                    ("vela_young_standin.npz", 4005),
+                    ("small_dd_fbx_standin.npz", 80),
+                    ("small_bt_piecewise_standin.npz", 80),
+                    ("small_pta_standin.npz", 80),
+                    ("small_young_standin.npz", 80)):
         assert np.load(REPO / "pint_torch" / "data" / snap,
                        allow_pickle=False)["tdb_hi"].shape == (n,)

@@ -26,7 +26,11 @@ ones of the reference benchmark's secondary cell)::
 
 and ``--settings dds`` / ``ddh`` for ``small_dds_standin.npz`` /
 ``small_ddh_standin.npz`` (the small stand-ins of the DD family's BT, DDS
-and DDH, which ``chip_smoke.py`` drives at small depth).
+and DDH, which ``chip_smoke.py`` drives at small depth); ``--settings bw``,
+``bw_waves``, ``pta`` and ``young`` for ``j0023_bw_standin.npz``,
+``j0023_bw_waves_standin.npz``, ``j1713_pta_standin.npz`` and
+``vela_young_standin.npz``, and ``small_dd_fbx``, ``small_bt_piecewise``,
+``small_pta``, ``small_young`` for ``small_<name>_standin.npz``.
 
 The tests check that a small export round-trips through
 :func:`pint_torch.bridge.load_snapshot` bitwise, and that the committed
@@ -303,6 +307,82 @@ def test_committed_small_dd_family_files_load_with_stated_shapes(which):
     assert np.isfinite(arrays["ref/auto_uncertainties"]).all()
 
 
+#: this slice's committed stand-ins: (bridge path, TOAs, components it
+#: must hold, grid parameters or None, Fitter.auto's class)
+SLICE8 = {
+    "bw": ("BW_PATH", 4005, {"BinaryELL1", "AstrometryEcliptic"},
+           ["FB0", "FB1"], "DownhillWLSFitter"),
+    "bw_waves": ("BW_WAVES_PATH", 4005, {"BinaryELL1"}, None,
+                 "DownhillWLSFitter"),
+    "pta": ("PTA_PATH", 4005, {"BinaryDDK", "PLDMNoise", "PLChromNoise",
+                               "ChromaticCM", "SolarWindDispersionX",
+                               "FDJump", "FDJumpDM"}, ["KIN", "KOM"],
+            "DownhillGLSFitter"),
+    "young": ("YOUNG_PATH", 4005, {"Glitch", "Wave", "TroposphereDelay"},
+              ["GLF0D_1", "GLTD_1"], "DownhillWLSFitter"),
+    "small_dd_fbx": ("DD_FBX_SMALL_PATH", 80, {"BinaryDD"}, None,
+                     "DownhillGLSFitter"),
+    "small_bt_piecewise": ("BT_PIECEWISE_SMALL_PATH", 80,
+                           {"BinaryBT_piecewise"}, None,
+                           "DownhillGLSFitter"),
+    "small_pta": ("PTA_SMALL_PATH", 80, {"SolarWindDispersion", "PLSWNoise",
+                                         "ChromaticCMX", "WaveX", "DMWaveX",
+                                         "CMWaveX", "DelayJump",
+                                         "DispersionJump"}, None,
+                  "DownhillGLSFitter"),
+    "small_young": ("YOUNG_SMALL_PATH", 80, {"PiecewiseSpindown", "IFunc"},
+                    None, "DownhillWLSFitter"),
+}
+
+
+@pytest.mark.parametrize("which", list(SLICE8))
+def test_committed_slice8_files_load_with_stated_shapes(which):
+    """The FBX/ORBWAVES, PTA-noise and young-pulsar stand-ins: written with
+    their settings, their TOAs and components, the reference's grid (its
+    parameters, 16 x 16, one rung) where they have one, ``Fitter.auto``'s
+    class, and under 2 MB each."""
+    from pint_torch import bridge
+
+    attr, n, comps, grid, auto = SLICE8[which]
+    path = getattr(bridge, attr)
+    assert os.path.getsize(path) < 2 * 1024 * 1024
+    meta, arrays = bridge.read_snapshot(path)
+    rr = meta["reference"]
+    assert rr["settings"] == SETTINGS[which]
+    m, b = bridge.load_snapshot(path, device="cpu")
+    assert b.ntoas == n and comps <= set(m.components)
+    assert rr["auto_fitter"] == auto
+    if grid is None:
+        assert "ref/grid_chi2" not in arrays
+    else:
+        assert rr["grid_params"] == grid
+        assert arrays["ref/grid_chi2"].shape == (16, 16)
+        assert len(set(arrays["ref/grid_rungs"].ravel().tolist())) == 1
+    binary = next((c for c in m.components.values()
+                   if c.category == "pulsar_system"), None)
+    if which.startswith("bw"):
+        assert binary.config["nfb"] == (4 if which == "bw" else 2)
+        assert binary.config["nwaves"] == (0 if which == "bw" else 5)
+        assert m["PB"].value is None
+    if which == "small_dd_fbx":
+        assert (binary.config["nfb"], binary.config["nwaves"]) == (0, 3)
+
+
+def test_pair_parameters_round_trip():
+    """WAVEk and IFUNCk are pairs of floats in both packages."""
+    from pint_torch.bridge import load_snapshot
+
+    model, toas = standin.make_standin(dict(
+        standin.YOUNG_SETTINGS, n_epochs=20, n_subbands=4), full=True)
+    m, _ = load_snapshot(standin.export_state(model, toas), device="cpu")
+    for k in range(1, 11):
+        assert m[f"WAVE{k}"].kind == "pair"
+        assert list(m[f"WAVE{k}"].value) == [float(v) for v in
+                                             model.components["Wave"]
+                                             ._params_dict[f"WAVE{k}"].value]
+    assert m.const_pv()["WAVE3"] == tuple(m["WAVE3"].value)
+
+
 @pytest.mark.parametrize("which", ["ddk", "ddgr"])
 def test_dd_family_export_round_trips_bitwise(which):
     """A small DDK or DDGR export loads into the port with every parameter
@@ -337,9 +417,20 @@ SETTINGS = {"b1855": standin.FULL_SETTINGS,
             "ddgr": standin.DDGR_SETTINGS,
             "bt": standin.SMALL_BT_SETTINGS,
             "dds": standin.SMALL_DDS_SETTINGS,
-            "ddh": standin.SMALL_DDH_SETTINGS}
+            "ddh": standin.SMALL_DDH_SETTINGS,
+            "bw": standin.BW_SETTINGS,
+            "bw_waves": standin.BW_WAVES_SETTINGS,
+            "pta": standin.PTA_SETTINGS,
+            "young": standin.YOUNG_SETTINGS,
+            "small_dd_fbx": standin.SMALL_DD_FBX_SETTINGS,
+            "small_bt_piecewise": standin.SMALL_BT_PIECEWISE_SETTINGS,
+            "small_pta": standin.SMALL_PTA_SETTINGS,
+            "small_young": standin.SMALL_YOUNG_SETTINGS}
 #: the committed stand-ins of small depth: no grid
-SMALL_DEPTH = ("bt", "dds", "ddh")
+SMALL_DEPTH = ("bt", "dds", "ddh", "small_dd_fbx", "small_bt_piecewise",
+               "small_pta", "small_young")
+#: full-width stand-ins without a grid
+NO_GRID = ("bw_waves",)
 
 
 def _write(path: str, chunk: int, settings: dict, small: bool = False) -> None:
@@ -349,7 +440,8 @@ def _write(path: str, chunk: int, settings: dict, small: bool = False) -> None:
     model, toas = standin.make_standin(settings, full=not small)
     export = standin.export_snapshot if model.has_correlated_errors \
         else standin.export_wls_snapshot
-    arrays = export(model, toas, settings, chunk=chunk, grid=not small)
+    arrays = export(model, toas, settings, chunk=chunk,
+                    grid=not small and bool(settings.get("grid", True)))
     np.savez_compressed(path, **arrays)
 
 
@@ -376,7 +468,16 @@ if __name__ == "__main__":
                          "J1713+0747-shaped GLS stand-in, KIN x KOM grid); "
                          "ddgr: DDGR_SETTINGS (the B1913+16-shaped WLS "
                          "stand-in, MTOT x M2 grid); bt, dds, ddh: the "
-                         "small stand-in as BT, DDS, DDH (no grid)")
+                         "small stand-in as BT, DDS, DDH (no grid); bw, "
+                         "bw_waves: BW_SETTINGS, BW_WAVES_SETTINGS (the "
+                         "J0023+0923-shaped black widow on FBX orbits, FB0 "
+                         "x FB1 grid; with ORBWAVES, no grid); pta: "
+                         "PTA_SETTINGS (J1713+0747 with chromatic and "
+                         "solar-wind terms, KIN x KOM grid); young: "
+                         "YOUNG_SETTINGS (Vela-shaped, GLF0D_1 x GLTD_1 "
+                         "grid); small_dd_fbx, small_bt_piecewise, "
+                         "small_pta, small_young: their small stand-ins "
+                         "(no grid)")
     args = ap.parse_args()
     _write(args.write, args.chunk, SETTINGS[args.settings],
            args.settings in SMALL_DEPTH)

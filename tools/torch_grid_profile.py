@@ -8,14 +8,22 @@ Loads a committed stand-in onto the card (``b1855``:
 ``j1909_ell1h_standin.npz``; ``ngc``, ``ngc_phoff``: the NGC6440E-shaped
 ones ``ngc6440e_standin.npz``, ``ngc6440e_phoff_standin.npz``; ``ddk``: the
 J1713+0747-shaped DDK GLS stand-in ``j1713_ddk_standin.npz``; ``ddgr``:
-the B1913+16-shaped DDGR WLS stand-in ``b1913_ddgr_standin.npz``), runs the
-fit its model calls for (``GLSFitter`` with correlated noise, else
-``WLSFitter``; ``maxiter`` as the snapshot's reference ran it) and one
-warm-up 16x16 grid of the snapshot's parameters (M2 x SINI, H3 x STIGMA,
-F0 x F1, KIN x KOM or MTOT x M2; ``chunk=256``, ``niter`` as the reference ran it: 1 for the GLS
-stand-ins, 4 for the WLS ones), then
-traces one more warm grid and one warm design matrix with
-``torch.profiler`` and prints, per traced region:
+the B1913+16-shaped DDGR WLS stand-in ``b1913_ddgr_standin.npz``;
+``bw``, ``bw_waves``: the J0023+0923-shaped black widow on FBX orbits
+``j0023_bw_standin.npz`` and with ORBWAVES ``j0023_bw_waves_standin.npz``;
+``pta``: J1713+0747 with chromatic and solar-wind terms
+``j1713_pta_standin.npz``; ``young``: the Vela-shaped
+``vela_young_standin.npz``; ``bt``, ``dds``, ``ddh``, ``small_dd_fbx``,
+``small_bt_piecewise``, ``small_pta``, ``small_young``: the small ones),
+runs the fit its model calls for (``GLSFitter`` with correlated noise,
+else ``WLSFitter``; ``maxiter`` as the snapshot's reference ran it) and,
+where the snapshot has a grid, one warm-up 16x16 grid of its parameters
+(M2 x SINI, H3 x STIGMA, F0 x F1, KIN x KOM, MTOT x M2, FB0 x FB1 or
+GLF0D_1 x GLTD_1; ``chunk=256``, ``niter`` as the reference ran it: 1
+for the GLS stand-ins, 4 for the WLS ones), then traces one more warm
+grid (where there is one; a path without a grid says so and goes on),
+one warm design matrix and one more fit with ``torch.profiler`` and
+prints, per traced region:
 the wall time, the summed device time of all CUDA kernels, the device's
 busy share (device time over wall time), and the ten kernels with the
 most device time.  Run on a machine with a CUDA GPU, from the repository
@@ -23,8 +31,8 @@ root::
 
     python3 tools/torch_grid_profile.py [b1855|dmx15|ell1|ell1h|ngc ...]
 
-(``ngc_phoff``, ``ddk``, ``ddgr`` too; all stand-ins when none is
-named).
+(``ngc_phoff``, ``ddk``, ``ddgr``, ``bw``, ``pta``, ``young`` and the
+others above too; every stand-in with a grid when none is named).
 """
 
 from __future__ import annotations
@@ -73,19 +81,26 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from torch.profiler import ProfilerActivity, profile
 
-    from pint_torch.bridge import (DDGR_PATH, DDK_PATH, DMX15_PATH,
-                                   ELL1_PATH, ELL1H_PATH, NGC_PATH,
-                                   NGC_PHOFF_PATH, STANDIN_PATH,
-                                   load_snapshot, read_snapshot)
+    from pint_torch import bridge
+    from pint_torch.bridge import load_snapshot, read_snapshot
     from pint_torch.fitter import WLSFitter
     from pint_torch.gls_fitter import GLSFitter
     from pint_torch.grid import grid_chisq
 
-    snapshots = {"b1855": STANDIN_PATH, "dmx15": DMX15_PATH,
-                 "ell1": ELL1_PATH, "ell1h": ELL1H_PATH, "ngc": NGC_PATH,
-                 "ngc_phoff": NGC_PHOFF_PATH, "ddk": DDK_PATH,
-                 "ddgr": DDGR_PATH}
+    snapshots = {"b1855": bridge.STANDIN_PATH, "dmx15": bridge.DMX15_PATH,
+                 "ell1": bridge.ELL1_PATH, "ell1h": bridge.ELL1H_PATH,
+                 "ngc": bridge.NGC_PATH, "ngc_phoff": bridge.NGC_PHOFF_PATH,
+                 "ddk": bridge.DDK_PATH, "ddgr": bridge.DDGR_PATH,
+                 "bw": bridge.BW_PATH, "pta": bridge.PTA_PATH,
+                 "young": bridge.YOUNG_PATH}
+    others = {"bw_waves": bridge.BW_WAVES_PATH, "bt": bridge.BT_SMALL_PATH,
+              "dds": bridge.DDS_SMALL_PATH, "ddh": bridge.DDH_SMALL_PATH,
+              "small_dd_fbx": bridge.DD_FBX_SMALL_PATH,
+              "small_bt_piecewise": bridge.BT_PIECEWISE_SMALL_PATH,
+              "small_pta": bridge.PTA_SMALL_PATH,
+              "small_young": bridge.YOUNG_SMALL_PATH}
     names = sys.argv[1:] or list(snapshots)
+    snapshots.update(others)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
@@ -96,18 +111,26 @@ def main() -> int:
         niter = settings["grid_niter"]
         gnames = tuple(meta["reference"].get("grid_params", ("M2", "SINI")))
         model, batch = load_snapshot(snapshots[name], device="cuda")
-        fitter = (GLSFitter if model.has_correlated_errors
-                  else WLSFitter)(batch, model)
+        gls = model.has_correlated_errors
+        fitter = (GLSFitter if gls else WLSFitter)(batch, model)
         fitter.fit_toas(maxiter=settings["fit_maxiter"])
-        axes = tuple(ref[f"ref/grid_{g.lower()}"] for g in gnames)
-        grid_chisq(fitter, gnames, axes, niter=niter, chunk=256)
         fitter.model.designmatrix(batch)
-        for label, fn in (
-                (f"grid 16x16 {gnames[0]} x {gnames[1]} warm "
-                 f"(niter={niter})", lambda: grid_chisq(
-                    fitter, gnames, axes, niter=niter, chunk=256)),
-                ("design matrix warm",
-                 lambda: fitter.model.designmatrix(batch))):
+        regions = [("design matrix warm",
+                    lambda: fitter.model.designmatrix(batch)),
+                   ("fit warm", lambda: (GLSFitter if gls else WLSFitter)(
+                       batch, model).fit_toas(
+                           maxiter=settings["fit_maxiter"]))]
+        if "ref/grid_chi2" in ref:
+            axes = tuple(ref[f"ref/grid_{g.lower()}"] for g in gnames)
+            grid_chisq(fitter, gnames, axes, niter=niter, chunk=256)
+            regions.insert(0, (
+                f"grid 16x16 {gnames[0]} x {gnames[1]} warm (niter={niter})",
+                lambda: grid_chisq(fitter, gnames, axes, niter=niter,
+                                   chunk=256)))
+        else:
+            print(f"{name}: no grid in the snapshot; the design matrix and "
+                  "the fit only")
+        for label, fn in regions:
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:

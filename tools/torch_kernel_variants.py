@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time design variants of the port's K1, K2, K3 and K5 kernels on the GPU.
+"""Time design variants of the port's K1-K5 kernels on the GPU.
 
 Each variant is the committed kernel source with one textual change: it is
 built with the kernels' own nvcc flags into ``pint_torch/_build/variants/``,
@@ -24,7 +24,8 @@ kernels:
   row instead of before it;
 * K2 ``dd_binary_dual`` on the same main-path inputs: ``fixed-15``,
   ``sin-and-cos``, and ``strided-stores``, which writes each thread's 17
-  partials straight to the output instead of through shared memory; and,
+  partials straight to the output instead of through shared memory (each
+  on the PB-orbit instantiations); and,
   with a ``--parent`` that has K2's modes, ``bt_binary_dual`` and
   ``ddk_binary_dual`` on the same call beside the parent's (which writes
   a column for every row entry, read or not);
@@ -39,6 +40,10 @@ kernels:
   inside column j's update step (one barrier per column instead of two,
   but the divisions fall to one lane per warp); ``warp-solve`` runs the
   forward and back substitutions in one warp with ``__syncwarp``;
+* K4 (``--only K4``) ``ell1_binary_primal`` and ``ell1_binary_dual`` on
+  the ELL1 stand-in's main-path inputs, the committed source beside the
+  parent's only (a parent from before the orbit inputs takes the older
+  launch arguments);
 * K5 on the ELL1 stand-in's main-path inputs (captured from its WLS fit
   and ``niter=4`` grid, P=256, N=4005, k=88): ``qr-only`` stops the Jacobi
   before its first sweep (the kernels' time less the Jacobi's: the QR,
@@ -56,7 +61,7 @@ kernels:
 
 Run on a machine with a CUDA GPU and nvcc, from the repository root::
 
-    python3 tools/torch_kernel_variants.py [--parent DIR] [--only K1,K2,K3,K5]
+    python3 tools/torch_kernel_variants.py [--parent DIR] [--only K1,K2,K3,K4,K5]
 """
 
 from __future__ import annotations
@@ -116,21 +121,23 @@ K2_SINCOS = (
     ("  f.sopn = sin(opn);\n  f.copn = cos(opn);",
      "  sincos(opn, &f.sopn, &f.copn);"),
 )
-K2_PRIMAL_2D = """template <int MODE>
+K2_PRIMAL_2D = """template <int MODE, bool ORB>
 __global__ void dd_binary_primal(const double* __restrict__ tt0,
                                  const double* __restrict__ params,
                                  const double* __restrict__ d_a1,
                                  const double* __restrict__ d_om,
-                                 const double* __restrict__ sini, int b0,
+                                 const double* __restrict__ sini,
+                                 const double* __restrict__ orb,
+                                 const double* __restrict__ pbp, int b0,
                                  int N, double* __restrict__ delay) {
   __shared__ double row[NPAR];
   const long b = (long)b0 + blockIdx.y;
   const int n = blockIdx.x * THREADS + threadIdx.x;
   const long idx = b * N + n;
   const double t = n < N ? tt0[idx] : 0.0;
-  Toa x{0.0, 0.0, 0.0};
-  if constexpr (MODE == DDK) {
-    if (n < N) x = Toa{d_a1[idx], d_om[idx], sini[idx]};
+  Toa x{0.0, 0.0, 0.0, 0.0, 0.0};
+  if constexpr (MODE == DDK || MODE == BTX || ORB) {
+    if (n < N) x = load_toa<MODE, ORB>(d_a1, d_om, sini, orb, pbp, idx);
   }
   if (threadIdx.x < NPAR) row[threadIdx.x] = params[b * NPAR + threadIdx.x];
   __syncthreads();
@@ -138,12 +145,14 @@ __global__ void dd_binary_primal(const double* __restrict__ tt0,
   double p[NPAR];
 #pragma unroll
   for (int i = 0; i < NPAR; ++i) p[i] = row[i];"""
-K2_PRIMAL_1D = """template <int MODE>
+K2_PRIMAL_1D = """template <int MODE, bool ORB>
 __global__ void dd_binary_primal(const double* __restrict__ tt0,
                                  const double* __restrict__ params,
                                  const double* __restrict__ d_a1,
                                  const double* __restrict__ d_om,
-                                 const double* __restrict__ sini, int B,
+                                 const double* __restrict__ sini,
+                                 const double* __restrict__ orb,
+                                 const double* __restrict__ pbp, int B,
                                  int N, double* __restrict__ delay) {
   const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long)B * N) return;
@@ -152,12 +161,11 @@ __global__ void dd_binary_primal(const double* __restrict__ tt0,
 #pragma unroll
   for (int i = 0; i < NPAR; ++i) p[i] = params[b * NPAR + i];
   const double t = tt0[idx];
-  Toa x{0.0, 0.0, 0.0};
-  if constexpr (MODE == DDK) x = Toa{d_a1[idx], d_om[idx], sini[idx]};"""
+  const Toa x = load_toa<MODE, ORB>(d_a1, d_om, sini, orb, pbp, idx);"""
 K2_PREFETCH = """  const double t = n < N ? tt0[idx] : 0.0;
-  Toa x{0.0, 0.0, 0.0};
-  if constexpr (MODE == DDK) {
-    if (n < N) x = Toa{d_a1[idx], d_om[idx], sini[idx]};
+  Toa x{0.0, 0.0, 0.0, 0.0, 0.0};
+  if constexpr (MODE == DDK || MODE == BTX || ORB) {
+    if (n < N) x = load_toa<MODE, ORB>(d_a1, d_om, sini, orb, pbp, idx);
   }
   if (threadIdx.x < NPAR) row[threadIdx.x] = params[b * NPAR + threadIdx.x];
   __syncthreads();
@@ -167,28 +175,28 @@ K2_ROW_FIRST = """  if (threadIdx.x < NPAR) row[threadIdx.x] = params[b * NPAR +
   __syncthreads();
   if (n >= N) return;
   const double t = tt0[idx];
-  Toa x{0.0, 0.0, 0.0};
-  if constexpr (MODE == DDK) x = Toa{d_a1[idx], d_om[idx], sini[idx]};
+  const Toa x = load_toa<MODE, ORB>(d_a1, d_om, sini, orb, pbp, idx);
 """
 K2_LAUNCH_2D = """    const unsigned nx = (unsigned)((N + THREADS - 1) / THREADS);
     for (int b0 = 0; b0 < B; b0 += MAX_GRID_Y) {
       const unsigned ny = (unsigned)(B - b0 < MAX_GRID_Y ? B - b0 : MAX_GRID_Y);
-      dd_binary_primal<MODE><<<dim3(nx, ny), THREADS, 0, st>>>(
-          tt0, params, d_a1, d_om, sini, b0, N, delay);
+      dd_binary_primal<MODE, ORB><<<dim3(nx, ny), THREADS, 0, st>>>(
+          tt0, params, d_a1, d_om, sini, orb, pbp, b0, N, delay);
     }"""
 K2_LAUNCH_1D = """    const long total = (long)B * N;
-    dd_binary_primal<MODE><<<(unsigned)((total + THREADS - 1) / THREADS),
-                             THREADS, 0, st>>>(tt0, params, d_a1, d_om, sini,
-                                               B, N, delay);"""
+    dd_binary_primal<MODE, ORB><<<(unsigned)((total + THREADS - 1) / THREADS),
+                                  THREADS, 0, st>>>(tt0, params, d_a1, d_om,
+                                                    sini, orb, pbp, B, N,
+                                                    delay);"""
 K2_STAGED = """    for (int i = 0; i < NPARTIAL; ++i)
-      rows[threadIdx.x * NPARTIAL + i] = P[Mode<MODE>::column(i)];
+      rows[threadIdx.x * NPARTIAL + i] = P[Mode<MODE, ORB>::column(i)];
   }
   __syncthreads();
   const long n = (total - first < THREADS ? total - first : THREADS) * NPARTIAL;
   double* out = partials + first * NPARTIAL;
   for (long e = threadIdx.x; e < n; e += THREADS) out[e] = rows[e];"""
 K2_STRIDED = """    for (int i = 0; i < NPARTIAL; ++i)
-      partials[idx * NPARTIAL + i] = P[Mode<MODE>::column(i)];
+      partials[idx * NPARTIAL + i] = P[Mode<MODE, ORB>::column(i)];
   }"""
 
 # ---- K1 ---------------------------------------------------------------------
@@ -433,6 +441,7 @@ __device__ __forceinline__ void trail_column(double* T, double* R,
 #: ptxas markers printed per kernel source
 MARKERS = {
     "dd_binary": ["dd_binary_primalILi0E", "dd_binary_dualILi0E"],
+    "ell1_binary": ["ell1_binary_primalILi0E", "ell1_binary_dualILi0E"],
     "spin_phase": ["17spin_phase_primalILi2E", "17spin_phase_primalILi6E",
                    "17spin_phase_primalE", "20spin_phase_primal_rt",
                    "15spin_phase_dualILi2E", "15spin_phase_dualILi6E"],
@@ -457,6 +466,7 @@ def _variants(parent):
     k3 = (CSRC / "schur_cholesky_solve.cu").read_text()
     k5 = (CSRC / "wls_lstsq.cu").read_text()
     out = {
+        "ell1_binary": {"committed": (CSRC / "ell1_binary.cu").read_text()},
         "dd_binary": {
             "committed": k2,
             "fixed-15": _patch(k2, (K2_EXIT, K2_FIXED15)),
@@ -501,7 +511,8 @@ def _variants(parent):
     }
     if parent is not None:
         pc = Path(parent) / "pint_torch" / "kernels" / "csrc"
-        for kernel in ("dd_binary", "spin_phase", "wls_lstsq"):
+        for kernel in ("dd_binary", "spin_phase", "wls_lstsq",
+                       "ell1_binary"):
             out[kernel]["parent"] = (pc / f"{kernel}.cu").read_text()
         out["wls_lstsq"]["parent-qr-only"] = _patch(
             out["wls_lstsq"]["parent"],
@@ -562,9 +573,10 @@ def _main_path_inputs():
     return cap
 
 
-def _ell1_inputs():
+def _ell1_inputs(full: bool = False):
     """K5's largest call on the ELL1 stand-in's main path (WLS fit, then
-    the ``niter=4`` M2 x SINI grid), captured as ``chip_smoke.py`` does."""
+    the ``niter=4`` M2 x SINI grid), captured as ``chip_smoke.py`` does;
+    with ``full``, the capture of K4's calls as well."""
     sys.path.insert(0, str(REPO))
     from chip_smoke import Capture
     from pint_torch.bridge import ELL1_PATH, load_snapshot, read_snapshot
@@ -573,7 +585,9 @@ def _ell1_inputs():
     from pint_torch.kernels import wls_lstsq
 
     _, ref = read_snapshot(ELL1_PATH)
-    cap = Capture({"wls_lstsq": wls_lstsq})
+    from pint_torch.kernels import ell1_binary
+
+    cap = Capture({"wls_lstsq": wls_lstsq, "ell1_binary": ell1_binary})
     cap.install()
     try:
         model, batch = load_snapshot(ELL1_PATH, device="cuda")
@@ -584,7 +598,7 @@ def _ell1_inputs():
                    chunk=256)
     finally:
         cap.remove()
-    return cap.args("wls_lstsq")[:2]
+    return cap if full else cap.args("wls_lstsq")[:2]
 
 
 def _rounds(names):
@@ -599,7 +613,8 @@ def main() -> int:
     ap.add_argument("--parent", help="an unpacked earlier tree whose K1, K2 "
                     "and K5 sources run as the variant 'parent'")
     ap.add_argument("--only", default="K1,K2,K3,K5",
-                    help="comma-separated subset of K1,K2,K3,K5")
+                    help="comma-separated subset of K1,K2,K3,K4,K5 (K4: "
+                    "its ELL1 primal and dual against --parent's)")
     args = ap.parse_args()
     only = set(args.only.split(","))
     if not torch.cuda.is_available():
@@ -615,17 +630,24 @@ def main() -> int:
     work = _build.BUILD_DIR / "variants"
     work.mkdir(parents=True, exist_ok=True)
     wanted = {"K1": "spin_phase", "K2": "dd_binary",
-              "K3": "schur_cholesky_solve", "K5": "wls_lstsq"}
+              "K3": "schur_cholesky_solve", "K4": "ell1_binary",
+              "K5": "wls_lstsq"}
     procs, libs = {}, {}
     #: K2 sources from before its modes (a parent tree): the launch takes
-    #: no mode and no per-TOA inputs
+    #: no mode and no per-TOA inputs; K2 and K4 sources from before their
+    #: orbit inputs take no orbits and pbprime
     k2_untemplated = set()
-    for kernel, variants in _variants(args.parent).items():
+    no_orbits = set()
+    all_variants = _variants(args.parent)
+    variants_src = all_variants.get("dd_binary", {})
+    for kernel, variants in all_variants.items():
         if kernel not in {wanted[k] for k in only}:
             continue
         for name, src in variants.items():
             if kernel == "dd_binary" and "int mode" not in src:
                 k2_untemplated.add(name)
+            if "const double* orb" not in src:
+                no_orbits.add((kernel, name))
             cu = work / f"{kernel}-{name}.cu"
             cu.write_text(src)
             procs[(kernel, name)] = subprocess.Popen(
@@ -706,9 +728,15 @@ def main() -> int:
                     fn.argtypes = [vp, vp, ci, ci, vp, vp, vp]
                     return lambda: fn(ptr(t), ptr(p), B, N, ptr(delay),
                                       ptr(P), stream)
-                fn.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, vp, vp, vp]
+                if any(lib is libs[k] for k in no_orbits):
+                    fn.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, vp, vp,
+                                   vp]
+                    return lambda: fn(ptr(t), ptr(p), B, N, 0, None, None,
+                                      None, ptr(delay), ptr(P), stream)
+                fn.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, vp, vp, vp,
+                               vp, vp]
                 return lambda: fn(ptr(t), ptr(p), B, N, 0, None, None, None,
-                                  ptr(delay), ptr(P), stream)
+                                  None, None, ptr(delay), ptr(P), stream)
 
             compare(f"{label} B={B} N={N}", "dd_binary",
                     ["committed"] + [v for v in vs if v != "committed"],
@@ -716,9 +744,9 @@ def main() -> int:
 
         # BT's and DDK's duals on the same call (BT reading the DD row, DDK
         # with seeded per-TOA inputs and the row's SINI as its sini),
-        # against a parent that has the modes but writes a column for
-        # every row entry: the delay bitwise, the parent's partials at the
-        # committed columns bitwise
+        # against a parent that has the modes: the delay bitwise, the
+        # partials bitwise (a parent that writes a column for every row
+        # entry, at the committed columns)
         if ("dd_binary", "parent") in libs and "parent" not in k2_untemplated:
             from pint_torch.kernels import dd_binary as K2
 
@@ -729,26 +757,30 @@ def main() -> int:
                 cols = list(K2.partial_columns(mode))
                 x = toa if mode == K2.DDK else (None, None, None)
                 runs, outs = {}, {}
+                every = "::column(" not in variants_src["parent"]
                 for name in ("committed", "parent"):
-                    width = len(cols) if name == "committed" \
+                    width = len(cols) if name == "committed" or not every \
                         else len(K2.DD_PARAMS) + 1 + (3 if mode == K2.DDK
                                                       else 0)
                     d = torch.empty(B, N, dtype=torch.float64, device=dev)
                     P = torch.empty(B, N, width, dtype=torch.float64,
                                     device=dev)
                     fn = libs[("dd_binary", name)].dd_binary_launch
-                    fn.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, vp, vp,
-                                   vp]
+                    orbs = () if ("dd_binary", name) in no_orbits \
+                        else (None, None)
+                    fn.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp] \
+                        + [vp] * len(orbs) + [vp, vp, vp]
                     fn.restype = ci
-                    runs[name] = (lambda fn=fn, d=d, P=P: fn(
+                    runs[name] = (lambda fn=fn, d=d, P=P, orbs=orbs: fn(
                         ptr(tt0d), ptr(paramsd), B, N, mode,
-                        *(ptr(v) for v in x), ptr(d), ptr(P), stream))
+                        *(ptr(v) for v in x), *orbs, ptr(d), ptr(P), stream))
                     if runs[name]() != 0:
                         raise SystemExit(f"dd_binary {name}: launch failed")
                     torch.cuda.synchronize()
                     outs[name] = [torch.nan_to_num(d, nan=7.0),
-                                  torch.nan_to_num(P if name == "committed"
-                                                   else P[..., cols], nan=7.0)]
+                                  torch.nan_to_num(
+                                      P[..., cols] if name == "parent"
+                                      and every else P, nan=7.0)]
                 same = all(torch.equal(a, b) for a, b in
                            zip(outs["parent"], outs["committed"]))
                 for rnd, name in _rounds(["committed", "parent"]):
@@ -825,9 +857,44 @@ def main() -> int:
             compare(f"schur_cholesky_solve nt={nt}", "schur_cholesky_solve",
                     names, make_run, [x, ok, cond])
 
+    if "K4" in only:
+        k4_variants(libs, no_orbits, card, dev, vp, ci, stream, ptr, compare)
+
     if "K5" in only:
         k5_variants(libs, card, dev, vp, ci, stream, ptr)
     return 0
+
+
+def k4_variants(libs, no_orbits, card, dev, vp, ci, stream, ptr, compare):
+    """K4's ELL1 primal and dual on the ELL1 stand-in's main-path call,
+    the committed source beside a parent's (from before the orbit inputs,
+    whose launch takes no orbits), outputs bitwise."""
+    import torch
+
+    cap = _ell1_inputs(full=True)
+    names = [n for k, n in libs if k == "ell1_binary"]
+    for partials in (False, True):
+        t, p = cap.args("ell1_binary", (0, partials))[:2]
+        B, N = t.shape
+        delay = torch.empty(B, N, dtype=torch.float64, device=dev)
+        P = torch.empty(B, N, 14, dtype=torch.float64, device=dev) \
+            if partials else None
+
+        def make_run(lib, t=t, p=p, B=B, N=N, delay=delay, P=P):
+            fn = lib.ell1_binary_launch
+            fn.restype = ci
+            if any(lib is libs[k] for k in no_orbits):
+                fn.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp, vp, vp]
+                return lambda: fn(ptr(t), ptr(p), B, N, 0, 7, 0, ptr(delay),
+                                  ptr(P), stream)
+            fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp]
+            return lambda: fn(ptr(t), ptr(p), None, None, B, N, 0, 7, 0,
+                              ptr(delay), ptr(P), stream)
+
+        compare(f"ell1_binary_{'dual' if partials else 'primal'} ell1 B={B} "
+                f"N={N}", "ell1_binary",
+                ["committed"] + [n for n in names if n != "committed"],
+                make_run, [delay] + ([P] if partials else []))
 
 
 def k5_variants(libs, card, dev, vp, ci, stream, ptr):
