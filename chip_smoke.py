@@ -72,7 +72,25 @@ Phases, one line each:
      stand-ins (80 TOAs, the fits, no grid) of DD on ORBWAVES with a PB
      base (K6's waves on PB, K2's DD with orbit inputs), BT_piecewise (K2
      BTX), the solar-wind and Fourier-basis PTA terms (K7 for NE_SW's
-     SWM 1) and piecewise spindown with IFUNC (K1).
+     SWM 1) and piecewise spindown with IFUNC (K1);
+   * b1855_wb -- the NANOGrav-12.5-yr-wideband-shaped B1855+09
+     (``b1855_wb_standin.npz``: 890 wideband TOAs, one per epoch and
+     Arecibo receiver, each with a DM measurement; DMJUMP, EFAC/EQUAD and
+     DMEFAC/DMEQUAD per receiver, red noise; K1, K2 DD): the TOA and DM
+     residuals, both design matrices, then ``WidebandTOAFitter`` (Schur
+     path) and with ``full_cov=True``, ``WidebandDownhillFitter``,
+     ``WidebandLMFitter`` and ``Fitter.auto``'s with DMEFAC, DMEQUAD and
+     EFAC free -- the joint TOA+DM noise fit;
+   * b1855_noise -- b1855's 4005 TOAs simulated with their correlated
+     noise (``b1855_noise_standin.npz``; K1, K2 DD): ``GLSFitter``, then
+     ``Fitter.auto``'s ``DownhillGLSFitter`` with every EFAC, EQUAD and
+     ECORR and TNREDAMP/TNREDGAM free: two rounds of (timing fit,
+     L-BFGS-B noise fit), the Hessian's uncertainties, a last timing fit;
+     each round's iterations, evaluations and ms per evaluation printed;
+   * small_wb -- the small stand-in made wideband, near the ecliptic
+     (``small_wb_standin.npz``: SWM 1 NE_SW, SWX, DMWaveX, FDJUMPDM,
+     DMJUMP; K1, K2 DD, K7 through the DM Jacobian too): the wideband
+     fits.
 
    Bars: residuals 1e-10 s, the absolute phase's integers exactly, each
    fit's chi2 1e-6 rel, values 1e-2 sigma and uncertainties 1e-6 rel (or
@@ -80,7 +98,16 @@ Phases, one line each:
    ``Fitter.auto`` converged flags and steps, ``Fitter.auto``'s class, its
    noise amplitudes 1e-6 of their largest, the Huber weights 1e-6 with the
    same down-weighted TOAs and IRLS rounds, the grid's surface 1e-6 rel,
-   argmin and rungs;
+   argmin and rungs; for wideband TOAs the DM residuals 1e-12 pc/cm^3 and
+   the joint chi2 1e-6 rel; for a fit with free noise parameters each
+   round's L-BFGS-B iterations and converged flag, its lnlike 1e-9 rel,
+   the noise values within 1e-2 of their uncertainties and the timing
+   uncertainties 1e-4 rel.  Then the Kepler phase: ``kepler_2d``,
+   ``kepler_3d`` and ``kepler_two_body`` with their ``jacfwd`` Jacobians
+   on the card, on the orbits of ``kepler_reference.npz`` (e 0-0.95, one
+   exactly circular) against the reference's values (1e-13 of each
+   state's largest) and Jacobians (1e-10 of each output's largest
+   partial);
 4. kernels -- each CUDA kernel (the primal and dual instantiations of K1,
    K2 and K4 -- K4's for ELL1, ELL1k, ELL1H exact and ELL1H harmonic --,
    K3's shared-memory instantiation at nt = 88 and its global one at nt =
@@ -431,6 +458,9 @@ def _drive(label, path, kernels, tag):
     from pint_torch.gls_fitter import GLSFitter
     from pint_torch.grid import grid_chisq
     from pint_torch.residuals import Residuals
+    from pint_torch.wideband import (WidebandDownhillFitter,
+                                     WidebandLMFitter, WidebandTOAFitter,
+                                     WidebandTOAResiduals)
 
     meta, ref = read_snapshot(path)
     rr = meta["reference"]
@@ -459,18 +489,58 @@ def _drive(label, path, kernels, tag):
 
     model, batch = stage("load", lambda: load_snapshot(path, device="cuda"))
     abs_phase = "AbsPhase" in model.components
-    resid = stage("residuals", lambda: Residuals(batch, model).time_resids)
+    wide = None
+    if batch.wideband:
+        def wideband_resids():
+            wr = WidebandTOAResiduals(batch, model)
+            return wr, wr.time_resids, wr.dm.resids
+
+        wr, resid, dm_resid = stage("residuals", wideband_resids)
+        wide = dict(dm_resid=dm_resid, chi2=wr.calc_chi2())
+        wide["M_dm"] = stage("dm_designmatrix",
+                             lambda: model.dm_designmatrix(batch))[0]
+    else:
+        resid = stage("residuals",
+                      lambda: Residuals(batch, model).time_resids)
     phase_int = model.phase(batch, abs_phase=abs_phase).int_ \
         if abs_phase else None
     M, _ = stage("designmatrix", lambda: model.designmatrix(batch))
     stage("designmatrix_warm", lambda: model.designmatrix(batch))
     gls = model.has_correlated_errors
     maxiter = rr["settings"]["fit_maxiter"]
-    fitter = (GLSFitter if gls else WLSFitter)(batch, model)
-    fits = {"postfit": fit("postfit", fitter, maxiter=maxiter)}
-    if not gls:
+    if batch.wideband:
+        fitter = WidebandTOAFitter(batch, model)
+        fits = {"postfit": fit("postfit", fitter, maxiter=maxiter),
+                "full_cov": fit("full_cov", WidebandTOAFitter(batch, model),
+                                maxiter=maxiter, full_cov=True),
+                "downhill": fit("downhill",
+                                WidebandDownhillFitter(batch, model)),
+                "lm": fit("lm", WidebandLMFitter(batch, model))}
+    else:
+        fitter = (GLSFitter if gls else WLSFitter)(batch, model)
+        fits = {"postfit": fit("postfit", fitter, maxiter=maxiter)}
+    if not gls and not batch.wideband:
         fits["downhill"] = fit("downhill", DownhillWLSFitter(batch, model))
-    fits["auto"] = fit("auto", Fitter.auto(batch, model))
+    # Fitter.auto's fit with the noise parameters the reference freed for
+    # it: the alternation of timing and noise fits, each noise fit timed
+    auto_model = model
+    if rr.get("auto_noise_params"):
+        auto_model = model.copy()
+        for p in rr["auto_noise_params"]:
+            auto_model[p].frozen = False
+    auto = Fitter.auto(batch, auto_model)
+    noise_rounds = _timed_noise_fits(auto)
+    fits["auto"] = fit("auto", auto)
+    if noise_rounds:
+        # the likelihood's Hessian alone, warm, at the fit's noise values
+        vg, hess, names = next(v for k, v in auto.model._cache.items()
+                               if isinstance(k, tuple)
+                               and k[0] == "noisefit_fns")
+        x = torch.tensor([auto.model.value(p) for p in names],
+                         dtype=torch.float64, device=batch.device)
+        rs = [auto.resids.time_resids] + (
+            [auto.resids.dm.resids] if batch.wideband else [])
+        stage("noise_hessian_warm", lambda: hess(x, *rs))
     if "huber_iterations" in rr or "huber_error" in rr:
         fits["huber"] = fit("huber", WLSFitter(batch, model),
                             robust="huber", maxiter=maxiter)
@@ -487,10 +557,12 @@ def _drive(label, path, kernels, tag):
     counts = kernels.launch_counts()
     cap.remove()
     k = 1 + len(fitter.model.free_params) - (len(grid[0]) if grid else 0)
+    system = "wideband (TOA+DM) k" if batch.wideband \
+        else "GLS nt" if gls else "WLS k"
     print(f"phase main path {label}: N={batch.ntoas} TOAs, "
-          f"{len(model.free_params)} free, {'GLS nt' if gls else 'WLS k'}"
-          f"={k}, " + (f"{gnames[0]} x {gnames[1]} grid niter={niter}; "
-                       if grid else "no grid; ")
+          f"{len(model.free_params)} free, {system}={k}, "
+          + (f"{gnames[0]} x {gnames[1]} grid niter={niter}; "
+             if grid else "no grid; ")
           + ", ".join(f"{n} {v:.4f} s" for n, v in stages.items())
           + (f"; warm grid {surface.size / stages['grid_warm']:.2f} fits/s"
              if grid else "")
@@ -498,7 +570,28 @@ def _drive(label, path, kernels, tag):
           f" {tag}", flush=True)
     return counts, cap, dict(meta=meta, ref=ref, resid=resid, M=M,
                              phase_int=phase_int, fitter=fitter, fits=fits,
-                             surface=surface)
+                             surface=surface, wide=wide,
+                             noise_rounds=noise_rounds)
+
+
+def _timed_noise_fits(fitter) -> list:
+    """Time each noise fit of the fitter's alternation: a list that fills
+    with (result, wall seconds) as ``fit_noise`` returns."""
+    import torch
+
+    rounds = []
+    fit_noise = fitter.fit_noise
+
+    def timed(**kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fit_noise(**kw)
+        torch.cuda.synchronize()
+        rounds.append((res, time.perf_counter() - t))
+        return res
+
+    fitter.fit_noise = timed
+    return rounds
 
 
 def _bars(label, out):
@@ -508,8 +601,13 @@ def _bars(label, out):
     ``Fitter.auto``'s class, converged flag and downhill steps and its
     noise amplitudes (1e-6 of their largest); the downhill fit's converged
     flag; the Huber fits' weights (1e-6), down-weighted set and IRLS
-    rounds; the grid's surface, argmin and rungs (where there is one);
-    raises on a failed bar."""
+    rounds; the grid's surface, argmin and rungs (where there is one).
+    Wideband TOAs: the DM residuals (1e-12 pc/cm^3) and the joint chi2
+    (1e-6 rel), and the LM fit's converged flag.  A fit with free noise
+    parameters: each noise round's L-BFGS-B iterations and converged flag
+    equal, its lnlike 1e-9 rel, the noise values within 1e-2 of their
+    uncertainties and the timing uncertainties 1e-4 rel.  Raises on a
+    failed bar."""
     import numpy as np
 
     meta, ref = out["meta"], out["ref"]
@@ -521,6 +619,19 @@ def _bars(label, out):
                  / np.maximum(np.abs(Mr).max(0), 1e-300)).max())
     checks = [(d_res <= 1e-10, "residuals")]
     notes = []
+    wide = out["wide"]
+    if wide is not None:
+        d_dm = float(np.abs(wide["dm_resid"].cpu().numpy()
+                            - ref["ref/dm_resids"]).max())
+        c_wb = abs(wide["chi2"] / rref["combined_chi2"] - 1)
+        Md = ref["ref/dm_designmatrix"]
+        d_Md = float((np.abs(wide["M_dm"].cpu().numpy() - Md).max(0)
+                      / np.maximum(np.abs(Md).max(0), 1e-300)).max())
+        checks += [(d_dm <= 1e-12, "DM residuals"),
+                   (c_wb <= 1e-6, "joint TOA+DM chi2")]
+        notes.append(f"DM residuals max|d| {d_dm:.3e} pc/cm3 (<= 1e-12), "
+                     f"joint chi2 rel {c_wb:.3e} (<= 1e-6), DM design matrix "
+                     f"max col-rel {d_Md:.3e}")
     if out["phase_int"] is not None:
         same_int = bool(np.array_equal(out["phase_int"].cpu().numpy(),
                                        ref["ref/abs_phase_int"]))
@@ -560,15 +671,21 @@ def _bars(label, out):
                          f"uncertainties rel {u:.3e} (<= 1e-6), chi2 rel "
                          f"{c:.3e}")
             continue
+        # after an alternation with noise fits, the timing uncertainties
+        # carry the noise values' optimizer tolerance: 1e-4
+        u_bar = 1e-4 if key == "auto" and "auto_noise_names" in rref \
+            else 1e-6
         checks += [(c <= 1e-6, f"{key} chi2"), (v <= 1e-2, f"{key} values"),
-                   (u <= 1e-6, f"{key} uncertainties")]
+                   (u <= u_bar, f"{key} uncertainties")]
         notes.append(f"{key} chi2 rel {c:.3e} (<= 1e-6), values max "
                      f"{v:.3e} sigma (<= 1e-2), uncertainties rel {u:.3e} "
-                     f"(<= 1e-6)")
-        if key == "downhill":
-            pair = (bool(f.converged), rref["downhill_converged"])
-            checks.append((pair[0] == pair[1], "downhill converged flag"))
-            notes.append(f"downhill converged {pair[0]} vs {pair[1]}")
+                     f"(<= {u_bar:g})")
+        if f"{key}_converged" in rref and key != "auto":
+            pair = (bool(f.converged), rref[f"{key}_converged"])
+            checks.append((pair[0] == pair[1], f"{key} converged flag"))
+            notes.append(f"{key} converged {pair[0]} vs {pair[1]}")
+        if key == "auto" and "auto_noise_names" in rref:
+            checks += _noise_bars(f, out["noise_rounds"], ref, rref, notes)
         if key == "auto":
             pair = ((bool(f.converged), f.iterations),
                     (rref["auto_converged"], rref["auto_iterations"]))
@@ -610,6 +727,104 @@ def _bars(label, out):
             raise RuntimeError(f"bar failed ({label}): {what}")
 
 
+def _kepler_phase(path, tag) -> None:
+    """The Kepler cores with their ``jacfwd`` Jacobians on the card, each
+    on the snapshot's orbits in one batch, against the reference's values
+    (1e-13 of each state's largest component) and Jacobians (1e-10 of each
+    output's largest partial; on the exactly circular orbit all but the
+    eps2 column, where the 1e-30 nudge leaves rounding times 1e30 in
+    either package); times the warm batched call."""
+    import numpy as np
+    import torch
+
+    from pint_torch.orbital import kepler as K
+
+    z = np.load(path, allow_pickle=False)
+    cores = {"2d": (K.kepler_2d, K.Kepler2DParameters),
+             "3d": (K.kepler_3d, K.Kepler3DParameters),
+             "two_body": (K.kepler_two_body, K.KeplerTwoBodyParameters)}
+    notes, ok = [], True
+    for core, (fn, params) in cores.items():
+        x = z[f"{core}/inputs"]
+
+        def call():
+            return fn(params(*x[:, :-1].T), x[:, -1])
+
+        v, j = call()
+        if v.device.type != "cuda":
+            raise RuntimeError("the Kepler cores did not run on the card")
+        v, j = v.cpu().numpy(), j.cpu().numpy()
+        vr, jr = z[f"{core}/values"], z[f"{core}/jacobian"]
+        keep = np.ones(j.shape, dtype=bool)
+        keep[(x[:, 2] == 0) & (x[:, 3] == 0), :, 3] = False
+        dv = float((np.abs(v - vr).max(1) / np.abs(vr).max(1)).max())
+        dj = float((np.where(keep, np.abs(j - jr), 0.0).max(2)
+                    / np.maximum(np.where(keep, np.abs(jr), 0.0).max(2),
+                                 1e-300)).max())
+        ok = ok and dv <= 1e-13 and dj <= 1e-10 and np.isfinite(j).all()
+        call()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(5):
+            call()
+        torch.cuda.synchronize()
+        notes.append(f"{core} ({len(x)} orbits, e 0-0.95, one circular): "
+                     f"values max {dv:.3e} of each state's largest (<= "
+                     f"1e-13), Jacobian max {dj:.3e} of each output's "
+                     f"largest partial (<= 1e-10), "
+                     f"{(time.perf_counter() - t) / 5 * 1e3:.3f} ms a call")
+    print("phase kepler: " + "; ".join(notes) + f" {tag}", flush=True)
+    if not ok:
+        raise RuntimeError("the Kepler cores disagree with the reference")
+
+
+def _noise_bars(f, rounds, ref, rref, notes) -> list:
+    """The alternation's noise fits against the reference's: per round the
+    L-BFGS-B iterations and converged flag, the lnlike at the optimum (1e-9
+    rel), with the evaluations and the ms per evaluation on the card; the
+    final noise values within 1e-2 of their Hessian uncertainties, and
+    those to 1e-4 rel.  Returns the (ok, what) checks."""
+    import numpy as np
+
+    checks = [(len(rounds) == len(rref["auto_noise_rounds"]),
+               "auto noise rounds")]
+    for i, ((res, wall), want) in enumerate(zip(rounds,
+                                                rref["auto_noise_rounds"])):
+        d_l = abs(res.lnlike / want["lnlike"] - 1)
+        checks += [((res.nit, res.converged) == (want["nit"],
+                                                 want["converged"]),
+                    f"noise round {i} iterations and converged flag"),
+                   (d_l <= 1e-9, f"noise round {i} lnlike")]
+        notes.append(
+            f"noise round {i}: L-BFGS-B {res.nit} iterations vs "
+            f"{want['nit']}, {res.nfev} evaluations vs {want['nfev']}, "
+            f"converged {res.converged} vs {want['converged']}, lnlike rel "
+            f"{d_l:.3e} (<= 1e-9), {wall:.4f} s"
+            f"{' with the Hessian' if res.errors is not None else ''}, "
+            f"{wall / max(res.nfev, 1) * 1e3:.3f} ms per evaluation")
+    # the least time of one evaluation: the value's Gram V^T N^-1 V and
+    # the gradient's product of the same size, 2 N m^2 flops each, at the
+    # float64 tensor cores' rate (N TOAs, m basis columns with the offset)
+    n = f.batch.ntoas
+    m = 1 + sum(U.shape[1] for U in
+                f.model.noise_basis_by_component(f.batch)[0])
+    bound = 4 * n * m * m / F64_TC_FLOP_PER_S * 1e3
+    notes.append(f"bound per evaluation {bound:.4f} ms (2 x 2 N m^2 flops, "
+                 f"N={n}, m={m}, at the float64 tensor cores' rate)")
+    names = rref["auto_noise_names"]
+    err = ref["ref/auto_noise_uncertainties"]
+    vals = np.array([f.model.value(p) for p in names])
+    uncs = np.array([f.model[p].uncertainty for p in names])
+    d_v = float(np.abs((vals - ref["ref/auto_noise_values"]) / err).max())
+    d_u = float(np.abs(uncs / err - 1).max())
+    checks += [(d_v <= 1e-2, "noise values"),
+               (d_u <= 1e-4, "noise uncertainties")]
+    notes.append(f"{len(names)} noise values max {d_v:.3e} of their "
+                 f"uncertainties (<= 1e-2), uncertainties rel {d_u:.3e} "
+                 "(<= 1e-4)")
+    return checks
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -628,8 +843,10 @@ def main() -> int:
                                    DDGR_PATH, DDH_SMALL_PATH, DDK_PATH,
                                    DDS_SMALL_PATH, DMX15_PATH, ELL1_PATH,
                                    ELL1H_PATH, NGC_PATH, NGC_PHOFF_PATH,
-                                   PTA_PATH, PTA_SMALL_PATH, STANDIN_PATH,
-                                   YOUNG_PATH, YOUNG_SMALL_PATH)
+                                   KEPLER_PATH, NOISE_PATH, PTA_PATH,
+                                   PTA_SMALL_PATH, STANDIN_PATH,
+                                   WB_PATH, WB_SMALL_PATH, YOUNG_PATH,
+                                   YOUNG_SMALL_PATH)
     from pint_torch.kernels import _build
     from pint_torch.kernels import binary_orbits as K6
     from pint_torch.kernels import solar_wind_pl as K7
@@ -742,7 +959,11 @@ def main() -> int:
         "small_bt_piecewise": (*K1.KERNELS.values(), *k2[K2.BTX]),
         "small_pta": (*K1.KERNELS.values(), *k2[K2.DD],
                       *K7.KERNELS.values()),
-        "small_young": tuple(K1.KERNELS.values())}
+        "small_young": tuple(K1.KERNELS.values()),
+        "b1855_wb": (*K1.KERNELS.values(), *k2[K2.DD]),
+        "b1855_noise": (*K1.KERNELS.values(), *k2[K2.DD]),
+        "small_wb": (*K1.KERNELS.values(), *k2[K2.DD],
+                     *K7.KERNELS.values())}
     for label, path in (("b1855", STANDIN_PATH), ("dmx15", DMX15_PATH),
                         ("ell1", ELL1_PATH), ("ell1h", ELL1H_PATH),
                         ("ngc", NGC_PATH), ("ngc_phoff", NGC_PHOFF_PATH),
@@ -754,7 +975,9 @@ def main() -> int:
                         ("small_dd_fbx", DD_FBX_SMALL_PATH),
                         ("small_bt_piecewise", BT_PIECEWISE_SMALL_PATH),
                         ("small_pta", PTA_SMALL_PATH),
-                        ("small_young", YOUNG_SMALL_PATH)):
+                        ("small_young", YOUNG_SMALL_PATH),
+                        ("b1855_wb", WB_PATH), ("b1855_noise", NOISE_PATH),
+                        ("small_wb", WB_SMALL_PATH)):
         counts, cap, out = _drive(label, path, kernels, tag)
         missing = [k for k in path_kernels[label] if counts[k] == 0]
         if missing:
@@ -763,6 +986,8 @@ def main() -> int:
         _bars(label, out)
         paths[label] = (counts, cap)
         del out
+
+    _kepler_phase(KEPLER_PATH, tag)
 
     # ---- kernels against their plain twins ----------------------------------
     # Every CUDA kernel -- the primal and dual instantiations of K1, of K2

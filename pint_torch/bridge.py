@@ -34,7 +34,7 @@ __all__ = ["load_snapshot", "read_snapshot", "SNAPSHOT_FORMAT",
            "BT_SMALL_PATH", "DDS_SMALL_PATH", "DDH_SMALL_PATH", "BW_PATH",
            "BW_WAVES_PATH", "PTA_PATH", "YOUNG_PATH", "DD_FBX_SMALL_PATH",
            "BT_PIECEWISE_SMALL_PATH", "PTA_SMALL_PATH", "YOUNG_SMALL_PATH",
-           "QUEUED"]
+           "WB_PATH", "WB_SMALL_PATH", "NOISE_PATH", "KEPLER_PATH"]
 
 SNAPSHOT_FORMAT = "pint_torch-snapshot-1"
 #: the committed full-width B1855+09-shaped stand-in
@@ -84,10 +84,19 @@ BT_PIECEWISE_SMALL_PATH = STANDIN_PATH.with_name(
 PTA_SMALL_PATH = STANDIN_PATH.with_name("small_pta_standin.npz")
 YOUNG_SMALL_PATH = STANDIN_PATH.with_name("small_young_standin.npz")
 
-#: registered reference components the port does not run yet, with the
-#: ROADMAP item that ports them
-QUEUED = {"ScaleDmError": "ROADMAP.md queue A item 6 (the wideband fitters,"
-                          " whose DM uncertainties it scales)"}
+#: the NANOGrav-12.5-yr-wideband-shaped B1855+09: two wideband TOAs an
+#: epoch (one per Arecibo receiver) with DM measurements, DMJUMP,
+#: EFAC/EQUAD and DMEFAC/DMEQUAD per receiver, red noise (the wideband
+#: fitters and the joint TOA+DM noise fit)
+WB_PATH = STANDIN_PATH.with_name("b1855_wb_standin.npz")
+#: the small stand-in made wideband, with NE_SW (SWM 1), SWX windows,
+#: DMWaveX, FDJUMPDM and a DMJUMP (the wideband fitters)
+WB_SMALL_PATH = STANDIN_PATH.with_name("small_wb_standin.npz")
+#: the B1855+09 stand-in with every EFAC, EQUAD and ECORR and the red
+#: noise's TNREDAMP/TNREDGAM free (the maximum-likelihood noise fit)
+NOISE_PATH = STANDIN_PATH.with_name("b1855_noise_standin.npz")
+#: the Kepler cores' inputs and the reference's values and Jacobians
+KEPLER_PATH = STANDIN_PATH.with_name("kepler_reference.npz")
 
 _BATCH_KEYS = ("tdb_hi", "tdb_lo", "tdb0", "tdb_s_hi", "tdb_s_lo", "freq",
                "error_us", "ssb_obs_pos", "ssb_obs_vel", "obs_sun_pos",
@@ -137,6 +146,8 @@ def _batch_arrays(arrays: dict, prefix: str) -> dict:
     """The batch fields stored under ``prefix`` (the model's TOAs under
     "", the TZR row under "tzr/"), keys without the prefix."""
     out = {k: arrays[prefix + k] for k in _BATCH_KEYS}
+    out.update({k: arrays[prefix + k] for k in ("dm", "dm_error")
+                if prefix + k in arrays})
     out.update({k[len(prefix):]: v for k, v in arrays.items()
                 if k.startswith(prefix + "planet_pos/")})
     return out
@@ -154,10 +165,8 @@ def load_snapshot(path_or_dict: Union[str, Path, dict] = STANDIN_PATH,
     for c in meta["components"]:
         cls = Component.component_types.get(c["class"])
         if cls is None:
-            where = QUEUED.get(c["class"])
             raise NotImplementedError(
-                f"component {c['class']} is not ported yet"
-                + (f" ({where})" if where else ""))
+                f"component {c['class']} is not ported yet")
         ctx = _context(c["class"], arrays, dev, cls.kind == "noise")
         if c["class"] == "AbsPhase" and "tzr/tdb_hi" in arrays:
             ctx["tzr_batch"] = TOABatch.from_numpy(

@@ -1,9 +1,11 @@
-"""Fitters without correlated noise, and the dispatch to the fitter a
-model needs (port of ``pint_tpu/fitter.py``: ``Fitter.auto`` :78-92, the
-``Fitter`` helpers with the Huber IRLS harness :113-180,283-297;
-``_wls_step`` :506-518, ``WLSFitter`` :520-585, the ``DownhillFitter``
-timing path with its robust entry :588-749, ``DownhillWLSFitter``
-:752-759; ``apply_Sdiag_threshold`` and ``fit_wls_svd`` :895-939; the
+"""Fitters without correlated noise, the Levenberg-Marquardt fitter, and
+the dispatch to the fitter a model and its TOAs need (port of
+``pint_tpu/fitter.py``: ``Fitter.auto`` :78-92, the ``Fitter`` helpers
+with the Huber IRLS harness :113-180,283-297 and the maximum-likelihood
+noise fit :235-280; ``_wls_step`` :506-518, ``WLSFitter`` :520-585, the
+``DownhillFitter`` with its robust entry and its alternation of timing
+and noise fits :588-749, ``DownhillWLSFitter`` :752-759, ``LMFitter``
+:762-857; ``apply_Sdiag_threshold`` and ``fit_wls_svd`` :895-939; the
 exceptions of ``pint_tpu/exceptions.py`` they raise).
 
 The WLS solve whitens the design matrix and residuals by the scaled TOA
@@ -12,7 +14,8 @@ the (N, 1 + nfree) matrix on the model's device; singular values at or
 below ``threshold * max`` are dropped with a :class:`DegeneracyWarning`
 that names the degenerate parameter combination.  The iteration (the
 downhill line search, parameter updates, the IRLS reweighting of
-``robust="huber"``) stays on the host, as in the reference.
+``robust="huber"``, the noise fit's L-BFGS-B) stays on the host, as in
+the reference.
 """
 
 from __future__ import annotations
@@ -33,13 +36,8 @@ from pint_torch.utils import normalize_designmatrix
 __all__ = ["Fitter", "WLSFitter", "DownhillFitter", "DownhillWLSFitter",
            "fit_wls_svd", "apply_Sdiag_threshold", "DegeneracyWarning",
            "CorrelatedErrors", "ConvergenceFailure", "StepProblem",
-           "MaxiterReached", "NonFiniteSystemError", "UsageError"]
-
-#: where the fits the port does not have yet wait (ROADMAP.md, queue A)
-_WIDEBAND_QUEUE = "wideband TOAs need the wideband fitters, not ported " \
-    "yet (ROADMAP.md A6: noise, wideband and Bayesian)"
-_NOISE_QUEUE = "fits with free noise parameters need the noise-likelihood " \
-    "fit, not ported yet (ROADMAP.md A: noise, wideband and Bayesian)"
+           "MaxiterReached", "NonFiniteSystemError", "UsageError",
+           "LMFitter"]
 
 
 class UsageError(ValueError):
@@ -85,11 +83,16 @@ class Fitter:
     @staticmethod
     def auto(batch, model, downhill: bool = True) -> "Fitter":
         """The fitter the model and TOAs call for (reference
-        ``fitter.py:78-92``): with correlated noise ``DownhillGLSFitter``
-        (``GLSFitter`` when ``downhill`` is False), otherwise
+        ``fitter.py:78-92``): for wideband TOAs ``WidebandDownhillFitter``
+        (``WidebandTOAFitter`` when ``downhill`` is False), with correlated
+        noise ``DownhillGLSFitter`` (``GLSFitter``), otherwise
         ``DownhillWLSFitter`` (``WLSFitter``)."""
         if batch.wideband:
-            raise NotImplementedError(_WIDEBAND_QUEUE)
+            from pint_torch.wideband import (WidebandDownhillFitter,
+                                             WidebandTOAFitter)
+
+            return (WidebandDownhillFitter if downhill
+                    else WidebandTOAFitter)(batch, model)
         if model.has_correlated_errors:
             from pint_torch.gls_fitter import DownhillGLSFitter, GLSFitter
 
@@ -101,7 +104,7 @@ class Fitter:
         self.batch = batch
         self.model_init = model
         self.model = model.copy()
-        self.resids = Residuals(batch, self.model)
+        self.update_resids()
         self.method = "base"
         self.converged = False
         self.errors: Dict[str, float] = {}
@@ -192,10 +195,43 @@ class Fitter:
             self.errors[p] = err
             self.model[p].uncertainty = err
 
-    def _free_noise_params(self) -> List[str]:
-        return [p for p in self.model.free_params
-                if getattr(self.model.components.get(self.model[p].component),
-                           "kind", "") == "noise"]
+    # -- maximum-likelihood noise fitting -----------------------------------
+    def _get_free_noise_params(self) -> List[str]:
+        """The free noise parameters the likelihood can fit (reference
+        ``fitter.py:235``)."""
+        from pint_torch.noisefit import free_noise_params
+
+        return free_noise_params(self.model,
+                                 wideband=getattr(self, "is_wideband", False))
+
+    def _update_noise_params(self, names, values, errors=None) -> None:
+        """Write a noise fit's values (and uncertainties) to the model;
+        parameters that enter the likelihood squared take their
+        non-negative branch (reference ``fitter.py:241``)."""
+        for i, p in enumerate(names):
+            v = float(values[i])
+            if p.startswith(("EFAC", "EQUAD", "ECORR", "DMEFAC", "DMEQUAD")):
+                v = abs(v)
+            self.model[p].value = v
+            if errors is not None:
+                err = float(errors[i])
+                self.model[p].uncertainty = err
+                self.errors[p] = err
+
+    def fit_noise(self, uncertainty: bool = False,
+                  noisefit_method: str = "L-BFGS-B"):
+        """One maximum-likelihood noise fit at the current timing solution
+        (:func:`pint_torch.noisefit.fit_noise_ml`; reference
+        ``fitter.py:256``): a ``NoiseFitResult``, None when no noise
+        parameter is free; the model is not changed.  Wideband fitters fit
+        the joint TOA+DM likelihood."""
+        from pint_torch.noisefit import fit_noise_ml
+
+        dm_resids = self.resids.dm.resids \
+            if getattr(self, "is_wideband", False) else None
+        return fit_noise_ml(self.model, self.batch, self.resids.time_resids,
+                            dm_resids=dm_resids, method=noisefit_method,
+                            uncertainty=uncertainty)
 
 
 def apply_Sdiag_threshold(Sdiag, VT, threshold, params):
@@ -303,8 +339,8 @@ class WLSFitter(Fitter):
 
 class DownhillFitter(Fitter):
     """Iterative fitter with a lambda-halving line search (reference
-    ``fitter.py:588``); the timing path only.  ``iterations`` counts the
-    steps solved in the last timing fit."""
+    ``fitter.py:588``).  ``iterations`` counts the steps solved in the last
+    ``fit_toas``, over all its timing fits."""
 
     def __init__(self, batch, model):
         super().__init__(batch, model)
@@ -328,14 +364,22 @@ class DownhillFitter(Fitter):
     def fit_toas(self, maxiter: int = 20,
                  required_chi2_decrease: float = 1e-2,
                  max_chi2_increase: float = 1e-2, min_lambda: float = 1e-3,
+                 noise_fit_niter: int = 2, noisefit_method: str = "L-BFGS-B",
+                 compute_noise_uncertainties: bool = True,
                  raise_on_maxiter: bool = False, robust=None,
                  huber_k: Optional[float] = None, robust_maxiter: int = 30,
                  robust_tol: float = 1e-3) -> float:
         """Downhill timing fit: each step's solution is taken whole or
         halved until chi2 stops rising by more than ``max_chi2_increase``;
         converged once a whole step lowers chi2 by less than
-        ``required_chi2_decrease``.  ``robust="huber"`` (WLS family only)
-        wraps it in the IRLS loop."""
+        ``required_chi2_decrease``.  With free noise parameters it
+        alternates with maximum-likelihood noise fits (reference
+        ``fitter.py:652-667``): ``noise_fit_niter`` rounds of (timing fit,
+        noise fit), the Hessian's uncertainties on the last round, then a
+        final timing fit; ``noise_fit_results`` keeps each round's
+        result.  ``robust="huber"`` (WLS family only) wraps the timing fit
+        in the IRLS loop."""
+        self.iterations = 0
         timing_kw = dict(maxiter=maxiter,
                          required_chi2_decrease=required_chi2_decrease,
                          max_chi2_increase=max_chi2_increase,
@@ -347,7 +391,7 @@ class DownhillFitter(Fitter):
                 raise UsageError(
                     "robust fitting is available on the WLS-family fitters "
                     "only (Huber IRLS assumes uncorrelated errors)")
-            if self._free_noise_params():
+            if self._get_free_noise_params():
                 raise UsageError(
                     "robust fitting cannot be combined with free noise "
                     "parameters; freeze them or fit noise separately")
@@ -356,8 +400,17 @@ class DownhillFitter(Fitter):
                                   tolerate_step_problem=True)
         self.robust_weights = None
         self.robust_iterations = 0
-        if self._free_noise_params():
-            raise NotImplementedError(_NOISE_QUEUE)
+        self.noise_fit_results = []
+        if self._get_free_noise_params():
+            for ii in range(noise_fit_niter):
+                self._fit_toas_timing(**timing_kw)
+                last = ii == noise_fit_niter - 1
+                res = self.fit_noise(
+                    uncertainty=last and compute_noise_uncertainties,
+                    noisefit_method=noisefit_method)
+                self._update_noise_params(res.names, res.values, res.errors)
+                self.update_resids()
+                self.noise_fit_results.append(res)
         return self._fit_toas_timing(**timing_kw)
 
     def _fit_toas_timing(self, maxiter, required_chi2_decrease,
@@ -365,9 +418,8 @@ class DownhillFitter(Fitter):
                          raise_on_maxiter) -> float:
         best_chi2 = self._fit_metric()
         self.converged = False
-        self.iterations = 0
         for it in range(maxiter):
-            self.iterations = it + 1
+            self.iterations += 1
             dpars, params, cov = self._solve_step()
             base = {p: float(self.model[p].value or 0.0)
                     for p in params if p != "Offset"}
@@ -413,3 +465,84 @@ class DownhillWLSFitter(DownhillFitter):
             raise CorrelatedErrors(model)
         super().__init__(batch, model)
         self.method = "downhill_wls"
+
+
+class LMFitter(Fitter):
+    """Levenberg-Marquardt fitter (reference ``fitter.py:762``): damped
+    normal equations ``M^T C^-1 M + phiinv + lambda diag(M^T C^-1 M)`` of
+    the augmented GLS system, solved by SVD, with the reference's lambda
+    schedule -- halved (to ``min_lambda``, where the step is plain
+    Gauss-Newton) after a step that lowers chi2, tripled after one that
+    raises it.  The uncertainties come from the undamped curvature at the
+    final parameters."""
+
+    #: the wideband fitter stacks the DM rows
+    wideband_system = False
+
+    def __init__(self, batch, model):
+        super().__init__(batch, model)
+        self.method = "levenberg_marquardt"
+        self._noise_dims = None
+
+    def _residual_vector(self) -> torch.Tensor:
+        return self.resids.time_resids
+
+    def _normal_system(self):
+        """(mtcm_plain, phiinv, mtcy, norm, params) at the current
+        model."""
+        from pint_torch.gls_fitter import build_augmented_system
+
+        r = self._residual_vector()
+        M, params, norm, phiinv, Nvec, dims = build_augmented_system(
+            self.model, self.batch, wideband=self.wideband_system)
+        self._noise_dims = dims
+        cinv = 1.0 / Nvec
+        return (M.T @ (cinv[:, None] * M), phiinv, M.T @ (cinv * r), norm,
+                params)
+
+    def fit_toas(self, maxiter: int = 50, min_chi2_decrease: float = 1e-3,
+                 lambda_factor_decrease: float = 2.0,
+                 lambda_factor_increase: float = 3.0,
+                 min_lambda: float = 0.5, threshold: float = 1e-14) -> float:
+        from pint_torch.gls_fitter import _solve_svd
+
+        self.update_resids()
+        chi2 = self.resids.calc_chi2()
+        lam = min_lambda
+        self.converged = False
+        for _ in range(maxiter):
+            mtcm_plain, phiinv, mtcy, norm, params = self._normal_system()
+            lf = lam if lam > min_lambda else 0.0
+            A = mtcm_plain + torch.diag(phiinv) \
+                + lf * torch.diag(torch.diagonal(mtcm_plain))
+            _, xhat, self.solve_diagnostics = _solve_svd(A, mtcy, threshold,
+                                                         params)
+            base = {p: self.model.value(p) for p in params if p != "Offset"}
+            _apply(self.model, xhat / norm, params)
+            self.update_resids()
+            new_chi2 = self.resids.calc_chi2()
+            decrease = chi2 - new_chi2
+            if not np.isfinite(new_chi2) or decrease < -min_chi2_decrease:
+                # refuse the step: restore and raise the damping
+                for p, v in base.items():
+                    self.model[p].value = v
+                self.update_resids()
+                lam *= lambda_factor_increase
+                if lam > 1e9:
+                    raise ConvergenceFailure("LM damping diverged")
+                continue
+            # take it; a small change of either sign is convergence
+            chi2 = new_chi2
+            if decrease < min_chi2_decrease:
+                self.converged = True
+                break
+            lam = max(lam / lambda_factor_decrease, min_lambda)
+        else:
+            warnings.warn(f"LM fit hit maxiter={maxiter}")
+        mtcm_plain, phiinv, mtcy, norm, params = self._normal_system()
+        xvar, _, _ = _solve_svd(mtcm_plain + torch.diag(phiinv), mtcy,
+                                threshold, params)
+        ntm = len(params)
+        self._set_covariance(((xvar / norm).T / norm)[:ntm, :ntm], params)
+        self.chi2 = chi2
+        return chi2

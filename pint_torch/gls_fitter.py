@@ -6,7 +6,9 @@
 
 The augmented system is ``[M_timing | U_noise]``, unit-norm columns, with
 the enterprise 1e40 prior on timing columns and the noise weights on the
-basis columns.  The noise block is identical on every iteration, so the
+basis columns; with wideband TOAs the timing rows stack ``[M_toa;
+M_dm]`` and the basis gets zero DM rows.  The noise block is identical on
+every iteration, so the
 Schur-complement path factors it once per fit and solves only the timing
 system per step.  The Gram products are float64 ``torch.matmul`` on the
 model's device; the solves go through the hardened ladder.
@@ -28,7 +30,7 @@ from pint_torch.runtime.solve import (NonFiniteSystemError, SingularMatrixError,
 from pint_torch.utils import normalize_designmatrix
 
 __all__ = ["GLSFitter", "DownhillGLSFitter", "build_augmented_system",
-           "gls_normal_equations", "DegeneracyWarning"]
+           "gls_normal_equations", "solve_system", "DegeneracyWarning"]
 
 
 def _solve_cholesky(mtcm, mtcy):
@@ -57,29 +59,43 @@ def _solve_svd(mtcm, mtcy, threshold: float, params):
                                         attempts=1, condition=cond)
 
 
-def build_augmented_system(model, batch):
+def build_augmented_system(model, batch, wideband: bool = False):
     """Normalized ``[M_timing | noise basis]`` with (params, norm, phiinv,
     Nvec, noise_dims): the 1e40 timing prior (enterprise convention, enters
-    only as phiinv = 1e-40 / norm^2) and the noise weights."""
+    only as phiinv = 1e-40 / norm^2) and the noise weights.  With
+    ``wideband`` the timing rows are the stacked ``[M_toa; M_dm]``, the
+    noise basis is padded with zero DM rows and Nvec is ``[sigma_toa^2;
+    sigma_dm^2]``."""
     dev = batch.device
-    M_tm, params = model.designmatrix(batch, reuse_linear=True)
+    M_q, params = model.designmatrix(batch, reuse_linear=True)
+    if wideband:
+        M_q = torch.cat([M_q, model.dm_designmatrix(batch)[0]], dim=0)
     Us, ws, dims = model.noise_basis_by_component(batch)
     weights = np.full(len(params), 1e40)
     if Us:
-        U = torch.as_tensor(np.hstack(Us), dtype=F64, device=dev)
-        M = torch.cat([M_tm, U], dim=1)
+        U = np.hstack(Us)
+        U = np.vstack([U, np.zeros((M_q.shape[0] - U.shape[0], U.shape[1]))])
+        M = torch.cat([M_q, torch.as_tensor(U, dtype=F64, device=dev)], dim=1)
         weights = np.concatenate([weights] + ws)
     else:
-        M = M_tm
+        M = M_q
     M, norm = normalize_designmatrix(M)
     phiinv = 1.0 / torch.as_tensor(weights, dtype=F64, device=dev) / norm**2
-    Nvec = torch.as_tensor(model.scaled_toa_uncertainty(batch) ** 2,
-                           dtype=F64, device=dev)
+    sigma = model.scaled_toa_uncertainty(batch)
+    if wideband:
+        sigma = np.concatenate([sigma, model.scaled_dm_uncertainty(batch)])
+    Nvec = torch.as_tensor(sigma**2, dtype=F64, device=dev)
     return M, params, norm, phiinv, Nvec, dims
 
 
-def gls_normal_equations(M, r, Nvec, phiinv):
-    """``M^T C^-1 M + diag(phiinv)`` and ``M^T C^-1 r`` (Woodbury form)."""
+def gls_normal_equations(M, r, Nvec=None, phiinv=None, cov=None):
+    """``M^T C^-1 M + diag(phiinv)`` and ``M^T C^-1 r``: C diagonal
+    (``Nvec``, the Woodbury form) or the dense ``cov``, through its
+    Cholesky factor (no prior)."""
+    if cov is not None:
+        cf, _, _ = hardened_cholesky(cov, name="TOA covariance")
+        cm = torch.cholesky_solve(M, cf)
+        return M.T @ cm, cm.T @ r
     cinv = 1.0 / Nvec
     mtcm = M.T @ (cinv[:, None] * M) + torch.diag(phiinv)
     mtcy = M.T @ (cinv * r)
@@ -149,6 +165,31 @@ def _try_schur_path(fitter, M, r, Nvec, phiinv, ntm, norm):
     return dpars, errs, covmat
 
 
+def solve_system(fitter, M, r, params, norm, phiinv=None, Nvec=None,
+                 threshold: float = 0.0, cov=None):
+    """(dpars, errs, covmat) of one normalized GLS system: the Schur path
+    where the system has noise columns (and no dense ``cov``), else the
+    Cholesky ladder, else the SVD -- at once with ``threshold > 0``."""
+    ntm = len(params)
+    if cov is None and threshold <= 0 and M.shape[1] > ntm:
+        out = _try_schur_path(fitter, M, r, Nvec, phiinv, ntm, norm)
+        if out is not None:
+            return out
+    mtcm, mtcy = gls_normal_equations(M, r, Nvec, phiinv, cov)
+    if threshold <= 0:
+        try:
+            xvar, xhat, diag = _solve_cholesky(mtcm, mtcy)
+        except SingularMatrixError:
+            xvar, xhat, diag = _solve_svd(mtcm, mtcy, threshold, params)
+    else:
+        xvar, xhat, diag = _solve_svd(mtcm, mtcy, threshold, params)
+    fitter.solve_diagnostics = diag
+    dpars = xhat / norm
+    errs = torch.sqrt(torch.diagonal(xvar)) / norm
+    covmat = (xvar / norm).T / norm
+    return dpars, errs, covmat
+
+
 class GLSFitter(Fitter):
     """One-shot GLS fitter (reference ``gls_fitter.py:408``)."""
 
@@ -161,28 +202,11 @@ class GLSFitter(Fitter):
 
     def _gls_step(self, threshold: float = 0.0):
         """One linearized GLS solve: (dpars, errs, covmat, params)."""
-        r = self.resids.time_resids
         M, params, norm, phiinv, Nvec, dims = build_augmented_system(
             self.model, self.batch)
         self._noise_dims = dims
-        ntm = len(params)
-        if threshold <= 0 and M.shape[1] > ntm:
-            out = _try_schur_path(self, M, r, Nvec, phiinv, ntm, norm)
-            if out is not None:
-                return (*out, params)
-        mtcm, mtcy = gls_normal_equations(M, r, Nvec, phiinv)
-        if threshold <= 0:
-            try:
-                xvar, xhat, diag = _solve_cholesky(mtcm, mtcy)
-            except SingularMatrixError:
-                xvar, xhat, diag = _solve_svd(mtcm, mtcy, threshold, params)
-        else:
-            xvar, xhat, diag = _solve_svd(mtcm, mtcy, threshold, params)
-        self.solve_diagnostics = diag
-        dpars = xhat / norm
-        errs = torch.sqrt(torch.diagonal(xvar)) / norm
-        covmat = (xvar / norm).T / norm
-        return dpars, errs, covmat, params
+        return (*solve_system(self, M, self.resids.time_resids, params,
+                              norm, phiinv, Nvec, threshold), params)
 
     def _apply_step(self, dpars, errs, covmat, params):
         dp = dpars.cpu().numpy()

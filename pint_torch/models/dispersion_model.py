@@ -1,5 +1,7 @@
 """Dispersion delays: the DM Taylor series, DMX windows, DMJUMP and
-FDJUMPDM (port of ``pint_tpu/models/dispersion_model.py:28-400``).
+FDJUMPDM (port of ``pint_tpu/models/dispersion_model.py:28-400``), each
+with its ``dm_func``, the DM it adds [pc/cm^3] that
+``TimingModel.total_dm`` sums for wideband DM measurements.
 
 delay = K * DM(t) / f^2 with K = 1/2.41e-4 s MHz^2 cm^3/pc and f the
 barycentric frequency.  DMX windows are per-window 0/1 masks built on the
@@ -51,6 +53,9 @@ class DispersionDM(Dispersion):
             acc = acc * dt_yr + terms[i] / math.factorial(i)
         return acc
 
+    def dm_func(self, pv, batch, ctx):
+        return self.base_dm(pv, batch)
+
     def delay_func(self, pv, batch, ctx, acc_delay):
         freq = self.barycentric_freq(pv, batch)
         return self.dispersion_time_delay(self.base_dm(pv, batch), freq)
@@ -69,6 +74,9 @@ class DispersionDMX(Dispersion):
         names = [f"DMX_{i:04d}" for i in self.config["dmx_indices"]]
         vals = stack_params(pv, names, batch.device)  # (B, n_dmx)
         return vals @ masks
+
+    def dm_func(self, pv, batch, ctx):
+        return self.dmx_dm(pv, batch, ctx)
 
     def delay_func(self, pv, batch, ctx, acc_delay):
         freq = self.barycentric_freq(pv, batch)
@@ -89,6 +97,9 @@ class DispersionJump(Dispersion):
             out = out - pv.get(j, 0.0) * ctx["masks"][j]
         return out
 
+    def dm_func(self, pv, batch, ctx):
+        return self.jump_dm(pv, batch, ctx)
+
     def delay_func(self, pv, batch, ctx, acc_delay):
         return torch.zeros_like(batch.freq)
 
@@ -106,6 +117,9 @@ class FDJumpDM(Dispersion):
         for j in self.config.get("fdjump_dms", []):
             out = out - pv.get(j, 0.0) * ctx["masks"][j]
         return out
+
+    def dm_func(self, pv, batch, ctx):
+        return self.fdjump_dm(pv, batch, ctx)
 
     def delay_func(self, pv, batch, ctx, acc_delay):
         freq = self.barycentric_freq(pv, batch)

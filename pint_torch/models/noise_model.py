@@ -1,7 +1,8 @@
-"""Noise components: EFAC/EQUAD scaling, ECORR and the power-law Fourier
-processes -- achromatic red noise, DM noise, chromatic noise and
-solar-wind noise (port of ``pint_tpu/models/noise_model.py:55-122,
-161-250,289-368,370-569``).
+"""Noise components: EFAC/EQUAD scaling, DMEFAC/DMEQUAD scaling of
+wideband DM uncertainties, ECORR and the power-law Fourier processes --
+achromatic red noise, DM noise, chromatic noise and solar-wind noise (port
+of ``pint_tpu/models/noise_model.py:55-122,161-250,252-288,289-368,
+370-569``).
 
 The (basis, weight) pairs depend only on TOA epochs and integer mode
 counts, never on fitted timing parameters, so they are built once on the
@@ -19,7 +20,7 @@ import numpy as np
 
 from pint_torch.models.timing_model import NoiseComponent
 
-__all__ = ["ScaleToaError", "EcorrNoise", "PLRedNoise", "PLDMNoise",
+__all__ = ["ScaleToaError", "ScaleDmError", "EcorrNoise", "PLRedNoise", "PLDMNoise",
            "PLChromNoise", "PLSWNoise", "ecorr_epochs",
            "ecorr_quantization_matrix", "rednoise_freqs",
            "fourier_design_matrix", "powerlaw"]
@@ -79,10 +80,17 @@ def fourier_design_matrix(t_s: np.ndarray, f: np.ndarray) -> np.ndarray:
     return F
 
 
-def powerlaw(f, A: float, gamma: float) -> np.ndarray:
-    """P(f) = A^2/(12 pi^2) fyr^-3 (f/fyr)^-gamma."""
-    x = np.asarray(f, float) / FYR
+def _powerlaw_psd(f, A, gamma):
+    """P(f) = A^2/(12 pi^2) fyr^-3 (f/fyr)^-gamma, the factored form with no
+    ~1e44 ``f**-gamma`` intermediate; ``f``, ``A`` and ``gamma`` may be
+    numpy values or tensors (the noise likelihood's weights)."""
+    x = f / FYR
     return A**2 / 12.0 / np.pi**2 * FYR ** (-3.0) * x ** (-gamma)
+
+
+def powerlaw(f, A: float, gamma: float) -> np.ndarray:
+    """:func:`_powerlaw_psd` on host numpy."""
+    return _powerlaw_psd(np.asarray(f, float), A, gamma)
 
 
 def _tdb_seconds(batch) -> np.ndarray:
@@ -112,6 +120,24 @@ class ScaleToaError(NoiseComponent):
         for _, v, m in _masked(self, "EQUAD"):
             out[m] = np.hypot(out[m], v * 1e-6)
         for _, v, m in _masked(self, "EFAC"):
+            out[m] *= v
+        return out
+
+
+class ScaleDmError(NoiseComponent):
+    """sigma_dm' = DMEFAC * sqrt(sigma_dm^2 + DMEQUAD^2) per mask
+    selection, all quadrature adds first (DMEQUAD in pc/cm^3): the wideband
+    DM uncertainties.  Context: ``masks`` {parameter name: (N,) bool
+    numpy}."""
+
+    register = True
+    category = "scale_dm_error"
+
+    def scale_dm_sigma(self, model, batch, sigma_dm: np.ndarray) -> np.ndarray:
+        out = np.array(sigma_dm, dtype=np.float64, copy=True)
+        for _, v, m in _masked(self, "DMEQUAD"):
+            out[m] = np.hypot(out[m], v)
+        for _, v, m in _masked(self, "DMEFAC"):
             out[m] *= v
         return out
 
@@ -150,9 +176,22 @@ class _PLNoise(NoiseComponent):
     ``n_lin``, ``n_log``, ``f_min_ratio``, ``tspan_s`` (None: the data
     span) -- the reference's ``get_plc_vals`` resolved on the host; a
     chromatic process's per-TOA basis scale is its context's ``scale``,
-    built on the host with the snapshot."""
+    built on the host with the snapshot.  The amplitude and index follow
+    the parameters ``_plc`` names (log10 amplitude, index) where the table
+    sets them, so a noise fit's new values reach the weights."""
 
     introduces_correlated_errors = True
+    #: (log10 amplitude, spectral index) parameters
+    _plc = ("", "")
+
+    def amp_gam(self):
+        """(amplitude, spectral index) at the table's current values
+        (reference ``get_plc_vals``), else the snapshot's."""
+        table = self._parent.params_table
+        amp_p, gam_p = (table.get(p) for p in self._plc)
+        if amp_p is None or amp_p.value is None:
+            return self.config["amp"], self.config["gam"]
+        return 10.0 ** amp_p.value, gam_p.value
 
     def get_time_frequencies(self, batch):
         t = _tdb_seconds(batch)
@@ -171,16 +210,27 @@ class _PLNoise(NoiseComponent):
         if scale is not None:
             F = F * np.asarray(scale, dtype=np.float64)[:, None]
         df = np.diff(np.concatenate([[0.0], f]))
-        w = powerlaw(np.repeat(f, 2), self.config["amp"],
-                     self.config["gam"]) * np.repeat(df, 2)
+        w = powerlaw(np.repeat(f, 2), *self.amp_gam()) * np.repeat(df, 2)
         return F, w
 
 
 class PLRedNoise(_PLNoise):
-    """Achromatic power-law red noise (TNREDAMP/TNREDGAM/TNREDC)."""
+    """Achromatic power-law red noise (TNREDAMP/TNREDGAM/TNREDC, or the
+    tempo1 RNAMP/RNIDX where TNREDAMP is unset)."""
 
     register = True
     category = "pl_red_noise"
+    _plc = ("TNREDAMP", "TNREDGAM")
+    #: tempo1 RNAMP -> GW-convention amplitude divisor
+    RN_FAC = (86400.0 * 365.24 * 1e6) / (2.0 * np.pi * np.sqrt(3.0))
+
+    def amp_gam(self):
+        table = self._parent.params_table
+        tn, rn = table.get("TNREDAMP"), table.get("RNAMP")
+        if (tn is None or tn.value is None) and rn is not None \
+                and rn.value is not None:
+            return rn.value / self.RN_FAC, -1.0 * table["RNIDX"].value
+        return super().amp_gam()
 
 
 class PLDMNoise(_PLNoise):
@@ -189,6 +239,7 @@ class PLDMNoise(_PLNoise):
 
     register = True
     category = "pl_DM_noise"
+    _plc = ("TNDMAMP", "TNDMGAM")
 
 
 class PLChromNoise(_PLNoise):
@@ -197,6 +248,7 @@ class PLChromNoise(_PLNoise):
 
     register = True
     category = "pl_chrom_noise"
+    _plc = ("TNCHROMAMP", "TNCHROMGAM")
 
 
 class PLSWNoise(_PLNoise):
@@ -206,3 +258,4 @@ class PLSWNoise(_PLNoise):
 
     register = True
     category = "pl_sw_noise"
+    _plc = ("TNSWAMP", "TNSWGAM")

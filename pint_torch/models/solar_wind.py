@@ -1,7 +1,8 @@
 """Solar-wind dispersion (port of ``pint_tpu/models/solar_wind.py``):
 the NE_SW spherical model (SWM 0, Edwards et al. 2006 eq. 29-30), the
 power-law model (SWM 1, Hazboun et al. 2022 eq. 11) and the piecewise SWX
-windows.
+windows; each with its ``dm_func``, the DM it adds for wideband DM
+measurements.
 
 The power-law geometry -- a 64-node Gauss-Legendre path integral per TOA
 and per point -- is kernel K7 (:mod:`pint_torch.kernels.solar_wind_pl`):
@@ -82,10 +83,12 @@ class SolarWindDispersion(_SolarWind):
                             device=theta.device)
         return solar_wind_pl(r, theta, p, sw_i_inf(p))
 
+    def dm_func(self, pv, batch, ctx):
+        return self.ne_sw(pv, batch) * self.geometry(pv, batch)
+
     def delay_func(self, pv, batch, ctx, acc_delay):
         freq = self.barycentric_freq(pv, batch)
-        dm = self.ne_sw(pv, batch) * self.geometry(pv, batch)
-        return dm * DMconst / (freq * freq)
+        return self.dm_func(pv, batch, ctx) * DMconst / (freq * freq)
 
 
 class SolarWindDispersionX(_SolarWind):
@@ -145,6 +148,11 @@ class SolarWindDispersionX(_SolarWind):
             scale = (g - go) / (g_conj[:, w] - go)
             dm = dm + torch.where(win >= 0, vals[:, w] * scale, 0.0)
         return dm
+
+    def dm_func(self, pv, batch, ctx):
+        if ctx.get("masks") is None or not self.config.get("swx_indices"):
+            return torch.zeros_like(batch.freq)
+        return self.swx_dm(pv, batch, ctx)
 
     def delay_func(self, pv, batch, ctx, acc_delay):
         if ctx.get("masks") is None or not self.config.get("swx_indices"):

@@ -11,7 +11,10 @@ fit and the batched grid.  Design matrices come from ``torch.func.jacfwd``
 of the fractional phase, through the hand kernels' ``jvp`` rules.
 
 Components see the accumulated delay of the components before them, in the
-reference's fixed category order (:data:`DEFAULT_ORDER`).
+reference's fixed category order (:data:`DEFAULT_ORDER`).  The wideband DM
+the model predicts is the sum of the DM-bearing delay components'
+``dm_func`` (:meth:`TimingModel.total_dm`), its design matrix
+``torch.func.jacfwd`` of that sum, column-aligned with the timing one.
 """
 
 from __future__ import annotations
@@ -370,6 +373,64 @@ class TimingModel:
             names.insert(0, "Offset")
         return torch.cat(cols, dim=1), names
 
+    # -- wideband DM (reference ``timing_model.py:909-975``) -----------------
+    def dm_components(self) -> List[Component]:
+        """The delay components that add DM, in evaluation order."""
+        return [c for c in self.delay_components if hasattr(c, "dm_func")]
+
+    def evaluate_dm(self, values: torch.Tensor, free_names: Sequence[str],
+                    batch) -> torch.Tensor:
+        """Model DM [pc/cm^3], (B, N), at ``values`` (B, len(free_names))."""
+        pv = self.const_pv()
+        for i, nm in enumerate(free_names):
+            pv[nm] = values[:, i:i + 1]
+        dm = torch.zeros((1, batch.ntoas), dtype=F64, device=batch.device)
+        for comp in self.dm_components():
+            dm = dm + comp.dm_func(pv, batch, comp.build_context(batch))
+        return dm.expand(values.shape[0], batch.ntoas)
+
+    def total_dm(self, batch) -> torch.Tensor:
+        """Model DM at each TOA [pc/cm^3] (reference
+        ``timing_model.py:941``)."""
+        free = tuple(self.free_params)
+        return self.evaluate_dm(self.free_values(free), free, batch)[0]
+
+    def jac_dm(self, values, free_names, batch) -> torch.Tensor:
+        """d DM / d values: (N, n) for one point (``values`` (1, n))."""
+        J = jacfwd(lambda v: self.evaluate_dm(v, free_names, batch))(values)
+        return J[0, :, 0, :]
+
+    def d_dm_d_param(self, batch, param: str) -> torch.Tensor:
+        """d(total DM)/d(param), (N,) (reference ``timing_model.py:946``)."""
+        return self.jac_dm(self.free_values((param,)), (param,), batch)[:, 0]
+
+    def dm_designmatrix(self, batch):
+        """(Md, names): the DM rows of the wideband design matrix,
+        column-aligned with :meth:`designmatrix` -- a zero Offset column
+        (unless a PhaseOffset fits PHOFF) and zero columns for parameters
+        that do not move DM (reference ``timing_model.py:951``)."""
+        free = self.design_param_names()
+        J = self.jac_dm(self.free_values(free), free, batch)
+        names = list(free)
+        if "PhaseOffset" not in self.components:
+            J = torch.cat([torch.zeros((J.shape[0], 1), dtype=F64,
+                                       device=J.device), J], dim=1)
+            names.insert(0, "Offset")
+        return J, names
+
+    def scaled_dm_uncertainty(self, batch) -> np.ndarray:
+        """DMEFAC/DMEQUAD-scaled wideband DM uncertainties [pc/cm^3], host
+        float64 (reference ``timing_model.py:966``)."""
+        err = batch.dm_error
+        if err is None:
+            raise ValueError("TOAs have no wideband DM errors (-pp_dme "
+                             "flags)")
+        err = err.cpu().numpy()
+        for c in self.noise_components:
+            if hasattr(c, "scale_dm_sigma"):
+                err = c.scale_dm_sigma(self, batch, err)
+        return err
+
     # -- noise ---------------------------------------------------------------
     def scaled_toa_uncertainty(self, batch) -> np.ndarray:
         """EFAC/EQUAD-scaled TOA uncertainties in seconds (host float64)."""
@@ -401,6 +462,20 @@ class TimingModel:
             off += U.shape[1]
         cache[batch] = (pkey, (Us, ws, dims))
         return Us, ws, dims
+
+    def toa_covariance_matrix(self, batch) -> torch.Tensor:
+        """The dense N x N TOA covariance, diag(sigma^2) plus the
+        correlated terms, on the batch's device (reference
+        ``timing_model.py:1204``)."""
+        dev = batch.device
+        sigma = torch.as_tensor(self.scaled_toa_uncertainty(batch),
+                                dtype=F64, device=dev)
+        cov = torch.diag(sigma**2)
+        U, w = self.noise_model_basis_weight(batch)
+        if U is not None:
+            U = torch.as_tensor(U, dtype=F64, device=dev)
+            cov = cov + (U * torch.as_tensor(w, dtype=F64, device=dev)) @ U.T
+        return cov
 
     def noise_model_basis_weight(self, batch):
         Us, ws, _ = self.noise_basis_by_component(batch)

@@ -58,6 +58,9 @@ class DMWaveX(_WaveXBase):
     prefixes = ("DMWXFREQ_", "DMWXSIN_", "DMWXCOS_")
     epoch_name = "DMWXEPOCH"
 
+    def dm_func(self, pv, batch, ctx):
+        return self.series(pv, batch, torch.zeros_like(batch.freq))
+
     def delay_func(self, pv, batch, ctx, acc_delay):
         dm = self.series(pv, batch, acc_delay)
         freq = self.barycentric_freq(pv, batch)

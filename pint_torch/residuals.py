@@ -1,5 +1,6 @@
-"""Residuals: observed-minus-model phase and time, with the GLS chi2 (port
-of ``pint_tpu/residuals.py:22-148``).
+"""Residuals: observed-minus-model phase and time, with the GLS chi2 and
+the Gaussian log-likelihood (port of ``pint_tpu/residuals.py:22-148,
+266-277``).
 
 Phase residuals are the model phase's fractional part ('nearest' pulse
 tracking) -- the absolute phase, TZR TOA subtracted, where the model has
@@ -11,6 +12,8 @@ overall offset marginalized.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -101,6 +104,23 @@ class Residuals:
     @property
     def chi2(self) -> float:
         return self.calc_chi2()
+
+    def lnlikelihood(self) -> float:
+        """Gaussian log-likelihood with the noise log-determinant,
+        -(chi2 + logdet C + n log 2 pi) / 2, C through the scaled-basis
+        Woodbury form with the overall offset marginalized."""
+        r = self.time_resids
+        sigma = self.get_data_error()
+        n = r.shape[0]
+        if not self.model.has_correlated_errors:
+            chi2 = torch.sum((r / sigma) ** 2)
+            logdet = torch.sum(torch.log(sigma**2))
+        else:
+            U, w = self._corr_basis_weight()
+            chi2, logdet = woodbury_dot(
+                sigma**2, torch.as_tensor(U, dtype=F64, device=r.device),
+                torch.as_tensor(w, dtype=F64, device=r.device), r, r)
+        return float(-0.5 * (chi2 + logdet + n * math.log(2 * math.pi)))
 
     @property
     def dof(self) -> int:

@@ -1,4 +1,5 @@
-"""The device-side TOA batch (port of ``pint_tpu/toa.py:120-149``).
+"""The device-side TOA batch (port of ``pint_tpu/toa.py:120-149``, with
+the wideband DM data of ``:520-545``).
 
 Positions are in light-seconds and velocities in ls/s; ``tdb`` is the
 double-double TDB MJD and ``tdb_s`` the seconds since ``tdb0`` (an integer
@@ -40,8 +41,10 @@ class TOABatch:
     mjds: Optional[np.ndarray] = None
     #: the one-row batch of an absolute phase's TZR TOA
     tzr: bool = False
-    #: wideband TOAs (with DM measurements), which the port cannot fit yet
-    wideband: bool = False
+    #: (N,) wideband DM measurements and their uncertainties [pc/cm^3]
+    #: (the reference's ``-pp_dm``/``-pp_dme`` flags), or None
+    dm: Optional[torch.Tensor] = None
+    dm_error: Optional[torch.Tensor] = None
     #: each component's context for these TOAs, by component name, where
     #: they are not the model's own TOAs (the TZR row); None: the
     #: components' own contexts apply
@@ -54,6 +57,11 @@ class TOABatch:
     @property
     def device(self) -> torch.device:
         return self.freq.device
+
+    @property
+    def wideband(self) -> bool:
+        """Every TOA carries a wideband DM measurement."""
+        return self.ntoas > 0 and self.dm is not None
 
     def tdb_seconds(self) -> DD:
         return self.tdb_s
@@ -70,7 +78,9 @@ class TOABatch:
             ssb_obs_pos=mv(self.ssb_obs_pos), ssb_obs_vel=mv(self.ssb_obs_vel),
             obs_sun_pos=mv(self.obs_sun_pos),
             planet_pos={k: mv(v) for k, v in self.planet_pos.items()},
-            mjds=self.mjds, tzr=self.tzr, wideband=self.wideband,
+            mjds=self.mjds, tzr=self.tzr,
+            dm=None if self.dm is None else mv(self.dm),
+            dm_error=None if self.dm_error is None else mv(self.dm_error),
             contexts=None if self.contexts is None else {
                 n: {k: v.to(device) if torch.is_tensor(v) else v
                     for k, v in c.items()}
@@ -81,8 +91,9 @@ class TOABatch:
         """Build on ``device`` from host arrays keyed like the snapshot
         (``tdb_hi``, ``tdb_lo``, ``tdb0``, ``tdb_s_hi``, ``tdb_s_lo``,
         ``freq``, ``error_us``, ``ssb_obs_pos``, ``ssb_obs_vel``,
-        ``obs_sun_pos``, ``planet_pos/<name>``, ``mjds``); ``kw`` sets
-        ``tzr``, ``wideband`` and ``contexts``."""
+        ``obs_sun_pos``, ``planet_pos/<name>``, ``mjds`` and, for wideband
+        TOAs, ``dm`` and ``dm_error``); ``kw`` sets ``tzr`` and
+        ``contexts``."""
         def t(name):
             return torch.tensor(np.asarray(arrays[name], dtype=np.float64),
                                 dtype=F64, device=device)
@@ -95,4 +106,7 @@ class TOABatch:
                    freq=t("freq"), error_us=t("error_us"),
                    ssb_obs_pos=t("ssb_obs_pos"), ssb_obs_vel=t("ssb_obs_vel"),
                    obs_sun_pos=t("obs_sun_pos"), planet_pos=planets,
-                   mjds=np.asarray(arrays["mjds"], dtype=np.float64), **kw)
+                   mjds=np.asarray(arrays["mjds"], dtype=np.float64),
+                   dm=t("dm") if "dm" in arrays else None,
+                   dm_error=t("dm_error") if "dm_error" in arrays else None,
+                   **kw)

@@ -175,6 +175,42 @@ SMALL_YOUNG_SETTINGS = dict(SMALL_SETTINGS, pulsar="J0835-4510",
                             rn_modes=0, n_dmx=0, err_scale=20.0,
                             fit_maxiter=3, grid_niter=4, sifunc=2)
 
+#: the B1855+09 stand-in for the maximum-likelihood noise fit, the
+#: reference's ``TestB1855JointNoiseFit`` case: ``FULL_SETTINGS``' model
+#: and 4005 TOAs, simulated with their correlated noise too (ECORR epochs
+#: and red noise at 20 times the amplitude, TNREDAMP -12.499 = -13.8 +
+#: log10 20), EQUAD and ECORR at twice the B1855 stand-in's and each TOA
+#: error times a seeded factor 10^U(-0.5, 0.5), as scintillation spreads
+#: them (at the stand-in's own narrow errors EFAC and EQUAD trade off and
+#: EQUADs and ECORRs fit to ~0, where the likelihood is flat and where an
+#: optimizer stops depends on rounding); ``Fitter.auto``'s fit frees
+#: every EFAC, EQUAD and ECORR and TNREDAMP/TNREDGAM (14 parameters), no
+#: grid
+NOISE_SETTINGS = dict(FULL_SETTINGS, rn_amp=-12.499, noise_scale=2.0,
+                      err_spread=0.5, correlated=True,
+                      noise_free=["EFAC", "EQUAD", "ECORR", "TNREDAMP",
+                                  "TNREDGAM"], grid=None)
+
+#: the NANOGrav-12.5-yr-wideband-shaped B1855+09 (Alam et al. 2021, ApJS
+#: 252, 5; the reference's ``tests/test_wideband_12y.py`` target):
+#: ``FULL_SETTINGS``' model (DD, 72 DMX, FD, red noise) with one wideband
+#: TOA per epoch and Arecibo receiver (445 x 2 = 890), each with a DM
+#: measurement (errors 1e-4 to 5e-4 pc/cm^3), EFAC/EQUAD and
+#: DMEFAC/DMEQUAD per receiver, no ECORR, a fitted DMJUMP on the 430 MHz
+#: receiver, FD1-3 frozen (at two frequencies they are the JUMP's
+#: direction); the wideband fits, then ``Fitter.auto``'s with DMEFAC,
+#: DMEQUAD and EFAC free (the joint TOA+DM noise fit), no grid
+WB_SETTINGS = dict(FULL_SETTINGS, wideband=True, n_subbands=1,
+                   noise_free=["DMEFAC", "DMEQUAD", "EFAC"], grid=None)
+
+#: the small stand-in made wideband (20 epochs x 4 sub-bands, each TOA
+#: with a DM measurement), near the ecliptic with SWM 1 NE_SW, two SWX
+#: windows, DMWaveX, FDJUMPDM and a DMJUMP fitted: the wideband fits, no
+#: grid (the epochs of ``SMALL_PTA_SETTINGS``)
+SMALL_WB_SETTINGS = dict(SMALL_SETTINGS, wideband=True, small_wb=True,
+                         err_scale=0.5, mjd_start=54180.0,
+                         mjd_end=55914.9375)
+
 _GROUP = {  # (receiver, backend) -> (-f flag, sub-band MHz, error us)
     ("430", "ASP"): ("ASP_430", (422.0, 3.0), 0.7),
     ("L-wide", "ASP"): ("ASP_L-wide", (1150.0, 75.0), 1.0),
@@ -302,18 +338,42 @@ def _epochs(s):
     return out
 
 
+def wideband_tim(s) -> str:
+    """FORMAT 1 tim text of the full-width wideband stand-in: at each
+    epoch one TOA per receiver, the L-wide one 0.05 d after the 430 MHz
+    one, at the band's centre, its error the group's times a seeded factor
+    0.5-1.5 (so that EFAC and EQUAD are told apart)."""
+    rng = np.random.default_rng(s["seed"] + 4)
+    lines = ["FORMAT 1\n"]
+    mjds = np.linspace(s["mjd_start"], s["mjd_end"], s["n_epochs"])
+    for i, m in enumerate(mjds):
+        be = "ASP" if m < s["backend_switch_mjd"] else "PUPPI"
+        for k, rcvr in enumerate(("430", "L-wide")):
+            flag, (f0, df), err = _GROUP[(rcvr, be)]
+            e = err * rng.uniform(0.5, 1.5) * s["err_scale"]
+            lines.append(f"w{i:04d}_{k} {f0 + 4 * df:.3f} {m + 0.05 * k:.15f} "
+                         f"{e:.3f} ao -f {flag} -fe {rcvr} -be {be}\n")
+    return "".join(lines)
+
+
 def standin_tim(s) -> str:
     """FORMAT 1 tim text: ``n_subbands`` TOAs per epoch, ``subband_dt_s``
-    apart (all within 1 s, so ECORR groups each epoch)."""
+    apart (all within 1 s, so ECORR groups each epoch); the full-width
+    wideband stand-in's is :func:`wideband_tim`."""
+    if s.get("wideband") and s.get("n_subbands") == 1:
+        return wideband_tim(s)
     lines = ["FORMAT 1\n"]
     spread = 9 // s["n_subbands"]
     site = _site(s)
+    rng = np.random.default_rng(s["seed"] + 5)
     for i, (m, rcvr, be) in enumerate(_epochs(s)):
         flag, (f0, df), err = _group_table(s)[(rcvr, be)]
         for j in range(s["n_subbands"]):
             freq = f0 + df * j * spread
             mjd = m + j * s["subband_dt_s"] / 86400.0
             e = (err + 0.1 * (j % 3)) * s["err_scale"]
+            if s.get("err_spread"):
+                e *= 10.0 ** rng.uniform(-s["err_spread"], s["err_spread"])
             lines.append(f"t{i:04d}_{j} {freq:.3f} {mjd:.15f} {e:.3f} {site} "
                          f"-f {flag} -fe {rcvr} -be {be}\n")
     return "".join(lines)
@@ -474,6 +534,37 @@ def small_pta_lines():
     return lines
 
 
+def small_wb_lines():
+    """The small wideband stand-in's DM terms: SWM 1 NE_SW and SWP 2.2,
+    SWX windows about the two conjunctions of the span's middle (SWXDM
+    fitted), two DMWaveX terms, FDJUMPDM on ASP_L-wide and a DMJUMP on the
+    430 MHz receiver, all fitted."""
+    lines = ["NE_SW 8.0 1", "SWM 1", "SWP 2.2", "DMJUMP -fe 430 0.0 1",
+             "FDJUMPDM -f ASP_L-wide 1.0e-4 1", "DMWXEPOCH 55000"]
+    for k, c in enumerate((54555.25, 54920.5), start=1):
+        lines += [f"SWXDM_{k:04d} {2e-4 * k:.6e} 1", f"SWXP_{k:04d} 2.0",
+                  f"SWXR1_{k:04d} {c - 60.0:.4f}",
+                  f"SWXR2_{k:04d} {c + 60.0:.4f}"]
+    for k, f in enumerate((1.0 / 900.0, 1.0 / 450.0), start=1):
+        lines += [f"DMWXFREQ_{k:04d} {f:.10f}",
+                  f"DMWXSIN_{k:04d} {2e-4 / k:.6e} 1",
+                  f"DMWXCOS_{k:04d} {-1e-4 / k:.6e} 1"]
+    return lines
+
+
+def _wideband_noise_lines(s):
+    """DMEFAC/DMEQUAD per receiver; at full width EFAC/EQUAD per
+    receiver too (in place of the per-group white noise and ECORR) and a
+    fitted DMJUMP."""
+    lines = ["DMEFAC -fe 430 1.12", "DMEQUAD -fe 430 1.5e-4",
+             "DMEFAC -fe L-wide 0.94", "DMEQUAD -fe L-wide 2.5e-4"]
+    if s.get("n_subbands") == 1:
+        lines += ["EFAC -fe 430 1.09", "EQUAD -fe 430 0.25",
+                  "EFAC -fe L-wide 1.04", "EQUAD -fe L-wide 0.3",
+                  "DMJUMP -fe 430 0.0 1"]
+    return lines
+
+
 def vela_par(s, full: bool) -> str:
     """Par text shaped like the Vela pulsar (J0835-4510, F0 11.19 Hz) at
     Parkes: equatorial astrometry, a spin-down with F2; at full width two
@@ -550,18 +641,28 @@ def standin_par(s, full: bool) -> str:
         if s.get("small_pta"):
             head = ["PSR TSTSW", "RAJ 00:23:16.88 1", "DECJ +09:23:23.86 1"] \
                 + head[3:] + small_pta_lines()
+        if s.get("small_wb"):
+            head = ["PSR TSTWB", "RAJ 00:23:16.88 1", "DECJ +09:23:23.86 1"] \
+                + head[3:] + small_wb_lines()
     if s.get("pta"):
         head = head + pta_lines(s)
+    if s.get("wideband") and s.get("n_subbands") == 1:
+        # two observing frequencies: the FD terms would be the receiver
+        # JUMP's direction, so they stay as they are
+        head = [ln[:-2] if ln.startswith("FD") else ln for ln in head]
     rng = np.random.default_rng(s["seed"] + 1)
     lines = head + _dmx_lines(s, rng)
-    for g in _groups(s):
+    scale = s["err_scale"] * s.get("noise_scale", 1.0)
+    for g in _groups(s) if s.get("n_subbands") != 1 else ():
         efac, equad, ecorr = _NOISE[g]
         lines += [f"EFAC -f {g} {efac}",
-                  f"EQUAD -f {g} {equad * s['err_scale']:.6g}"]
+                  f"EQUAD -f {g} {equad * scale:.6g}"]
         if s.get("pulsar") != "B1913+16":
-            lines.append(f"ECORR -f {g} {ecorr * s['err_scale']:.6g}")
+            lines.append(f"ECORR -f {g} {ecorr * scale:.6g}")
+    if s.get("wideband"):
+        lines += _wideband_noise_lines(s)
     if s["rn_modes"]:
-        lines += ["TNRedAmp -13.8", "TNRedGam 3.2",
+        lines += [f"TNRedAmp {s.get('rn_amp', -13.8)}", "TNRedGam 3.2",
                   f"TNRedC {s['rn_modes']}"]
     if s.get("phoff"):
         lines.append("PHOFF 0 1")
@@ -601,9 +702,46 @@ def make_standin(s, full: bool):
         tim = os.path.join(d, "standin.tim")
         with open(tim, "w") as fh:
             fh.write(standin_tim(s))
-        toas = make_fake_toas_fromtim(tim, model, add_noise=True,
-                                      rng=np.random.default_rng(s["seed"]))
+        toas = make_fake_toas_fromtim(
+            tim, model, add_noise=True,
+            add_correlated_noise=bool(s.get("correlated")),
+            rng=np.random.default_rng(s["seed"]))
+    if s.get("wideband"):
+        _add_wideband_dms(model, toas, s)
     return model, toas
+
+
+def _add_wideband_dms(model, toas, s) -> None:
+    """Each TOA's wideband DM measurement: the model's DM plus seeded noise
+    at the DMEFAC/DMEQUAD-scaled error, errors drawn from 1e-4 to 5e-4
+    pc/cm^3 (the unit normal draws are the reference's ``update_fake_dms``
+    at ``dm_error=1``)."""
+    from pint_tpu.simulation import update_fake_dms
+
+    rng = np.random.default_rng(s["seed"] + 3)
+    dme = rng.uniform(1e-4, 5e-4, len(toas))
+    dm0 = np.asarray(model.total_dm(toas))
+    update_fake_dms(model, toas, dm_error=1.0, add_noise=True, rng=rng)
+    z = np.asarray(toas.get_dms()) - dm0
+    toas.update_dms(dm0, dme)
+    toas.update_dms(dm0 + z * model.scaled_dm_uncertainty(toas), dme)
+
+
+def free_noise(model, prefixes) -> list:
+    """Unfreeze the set noise parameters whose names start with one of
+    ``prefixes`` (a whole-name match for the unindexed ones); returns
+    their names."""
+    out = []
+    for c in model.noise_components:
+        for p in c.params:
+            par = c._params_dict[p]
+            if par.value is None:
+                continue
+            if any(p == q or (p.startswith(q) and p[len(q):].isdigit())
+                   for q in prefixes):
+                par.frozen = False
+                out.append(p)
+    return out
 
 
 def _add_delay_jump(model):
@@ -807,6 +945,10 @@ def export_state(model, toas) -> dict:
         "obs_sun_pos": np.asarray(b.obs_sun_pos),
         "mjds": np.asarray(toas.get_mjds(), dtype=np.float64),
     }
+    if toas.wideband:
+        arrays["dm"] = np.asarray(toas.get_dms(), dtype=np.float64)
+        arrays["dm_error"] = np.asarray(toas.get_dm_errors(),
+                                        dtype=np.float64)
     for k, v in b.planet_pos.items():
         arrays[f"planet_pos/{k}"] = np.asarray(v)
     if "AbsPhase" in model.components:
@@ -915,10 +1057,21 @@ def _counted_steps(fitter):
 def _auto_outputs(model, toas, design, arrays, ref):
     """``Fitter.auto(toas, model).fit_toas()`` from the snapshot's values:
     the class chosen, chi2, values, uncertainties, converged flag, downhill
-    steps and, for a GLS fitter, the noise amplitudes by component."""
+    steps and, for a GLS fitter, the noise amplitudes by component.  Where
+    the settings' ``noise_free`` frees noise parameters for this fit (its
+    alternation of timing and noise fits), also each noise fit's values,
+    L-BFGS-B iterations and evaluations, converged flag and lnlike, and
+    the noise parameters' final values and uncertainties."""
+    import copy
+
     from pint_tpu.fitter import Fitter
 
+    prefixes = ref["settings"].get("noise_free")
+    if prefixes:
+        model = copy.deepcopy(model)
+        ref["auto_noise_params"] = free_noise(model, prefixes)
     f = _counted_steps(Fitter.auto(toas, model))
+    rounds = _recorded_noise_fits(f) if prefixes else []
     ref["auto_fitter"] = type(f).__name__
     if not _downhill_fit(f, {}, design, "auto", arrays, ref):
         return
@@ -926,6 +1079,140 @@ def _auto_outputs(model, toas, design, arrays, ref):
     ref["auto_iterations"] = int(f.steps)
     for comp, a in (getattr(f.resids, "noise_ampls", None) or {}).items():
         arrays[f"ref/auto_noise_ampls/{comp}"] = np.asarray(a)
+    if not prefixes:
+        return
+    res = rounds[-1][0]
+    ref["auto_noise_names"] = list(res.names)
+    ref["auto_noise_rounds"] = [
+        {"nit": int(nit), "nfev": int(nfev), "converged": bool(r.converged),
+         "lnlike": float(r.lnlike), "message": str(r.message)}
+        for r, nit, nfev in rounds]
+    for i, (r, _, _) in enumerate(rounds):
+        arrays[f"ref/auto_noise_round{i}_values"] = np.asarray(r.values)
+    arrays["ref/auto_noise_values"] = np.array(
+        [float(getattr(f.model, p).value) for p in res.names])
+    arrays["ref/auto_noise_uncertainties"] = np.asarray(res.errors)
+
+
+def _recorded_noise_fits(fitter) -> list:
+    """Record each of the fitter's noise fits as (result, L-BFGS-B
+    iterations, likelihood evaluations): the reference's result keeps
+    neither count, so scipy's is read around the call."""
+    import scipy.optimize as opt
+
+    rounds = []
+    fit_noise = fitter.fit_noise
+
+    def recorded(**kw):
+        minimize, seen = opt.minimize, []
+
+        def spy(*a, **k):
+            seen.append(minimize(*a, **k))
+            return seen[-1]
+
+        opt.minimize = spy
+        try:
+            res = fit_noise(**kw)
+        finally:
+            opt.minimize = minimize
+        rounds.append((res, seen[-1].nit, seen[-1].nfev))
+        return res
+
+    fitter.fit_noise = recorded
+    return rounds
+
+
+def export_wideband_snapshot(model, toas, settings: dict) -> dict:
+    """:func:`export_state` plus the reference's wideband outputs: TOA and
+    DM residuals, the model's DM, the scaled DM errors, both design
+    matrices and the joint chi2 at the snapshot's values; chi2, values and
+    uncertainties of ``WidebandTOAFitter.fit_toas(maxiter)`` (``postfit``),
+    the same with ``full_cov=True`` (``full_cov``),
+    ``WidebandDownhillFitter.fit_toas()`` (``downhill``) and
+    ``WidebandLMFitter.fit_toas()`` (``lm``), the last two with their
+    converged flags, each from the snapshot's values; and
+    ``Fitter.auto``'s fit (:func:`_auto_outputs`)."""
+    from pint_tpu.wideband import (WidebandDownhillFitter, WidebandLMFitter,
+                                   WidebandTOAFitter, WidebandTOAResiduals)
+
+    arrays = export_state(model, toas)
+    meta = json.loads(str(arrays["meta"]))
+    wr = WidebandTOAResiduals(toas, model)
+    arrays["ref/time_resids"] = np.asarray(wr.toa.time_resids)
+    arrays["ref/dm_resids"] = np.asarray(wr.dm.resids)
+    arrays["ref/total_dm"] = np.asarray(model.total_dm(toas))
+    arrays["ref/scaled_dm_uncertainty"] = np.asarray(
+        model.scaled_dm_uncertainty(toas))
+    M, names, _ = model.designmatrix(toas)
+    arrays["ref/designmatrix"] = np.asarray(M)
+    arrays["ref/dm_designmatrix"] = np.asarray(model.dm_designmatrix(toas)[0])
+    design = list(model.design_param_names())
+    ref = {"designmatrix_names": list(names), "postfit_params": design,
+           "combined_chi2": float(wr.calc_chi2()), "settings": dict(settings)}
+    maxiter = settings["fit_maxiter"]
+    for key, cls, kw in (
+            ("postfit", WidebandTOAFitter, {"maxiter": maxiter}),
+            ("full_cov", WidebandTOAFitter, {"maxiter": maxiter,
+                                             "full_cov": True}),
+            ("downhill", WidebandDownhillFitter, {}),
+            ("lm", WidebandLMFitter, {})):
+        f = cls(toas, model)
+        if _downhill_fit(f, kw, design, key, arrays, ref) \
+                and key in ("downhill", "lm"):
+            ref[f"{key}_converged"] = bool(f.converged)
+    _auto_outputs(model, toas, design, arrays, ref)
+    meta["reference"] = ref
+    arrays["meta"] = np.asarray(json.dumps(meta))
+    return arrays
+
+
+#: the Kepler snapshot's settings: per core ``n`` seeded orbits, e from 0
+#: to 0.95, the first exactly circular
+KEPLER_SETTINGS = dict(seed=20261017, n=48)
+#: each Kepler core's elements after its orbit's (a, pb, eps1, eps2)
+KEPLER_CORES = {"2d": ("t0",), "3d": ("i", "lan", "t0"),
+                "two_body": ("i", "lan", "q", "x_cm", "y_cm", "z_cm",
+                             "vx_cm", "vy_cm", "vz_cm", "tasc")}
+
+
+def kepler_inputs(s) -> dict:
+    """{core: (n, len(elements) + 1) inputs}: a, pb, eps1, eps2, the
+    core's other elements, then t; seeded, e uniform in [0, 0.95] and the
+    first orbit exactly circular."""
+    rng = np.random.default_rng(s["seed"])
+    n = s["n"]
+    out = {}
+    for core, extra in KEPLER_CORES.items():
+        e = rng.uniform(0.0, 0.95, n)
+        e[0] = 0.0
+        om = rng.uniform(0.0, 2 * np.pi, n)
+        cols = [rng.uniform(1.0, 30.0, n), rng.uniform(0.1, 60.0, n),
+                e * np.sin(om), e * np.cos(om)]
+        lo_hi = {"i": (0.0, np.pi), "lan": (0.0, 2 * np.pi), "q": (0.05, 1.5),
+                 "t0": (-20.0, 20.0), "tasc": (-20.0, 20.0)}
+        cols += [rng.uniform(*lo_hi.get(x, (-5.0, 5.0)), n) for x in extra]
+        cols.append(rng.uniform(-500.0, 500.0, n))
+        out[core] = np.stack(cols, axis=1)
+    return out
+
+
+def export_kepler(s) -> dict:
+    """The reference's Kepler cores on :func:`kepler_inputs`: per core
+    ``<core>/inputs``, ``<core>/values`` and ``<core>/jacobian``, with the
+    settings as JSON under ``settings``."""
+    from pint_tpu.orbital import kepler as K
+
+    fns = {"2d": (K.kepler_2d, K.Kepler2DParameters),
+           "3d": (K.kepler_3d, K.Kepler3DParameters),
+           "two_body": (K.kepler_two_body, K.KeplerTwoBodyParameters)}
+    arrays = {"settings": np.asarray(json.dumps(s))}
+    for core, x in kepler_inputs(s).items():
+        fn, params = fns[core]
+        vals, jacs = zip(*(fn(params(*row[:-1]), row[-1]) for row in x))
+        arrays[f"{core}/inputs"] = x
+        arrays[f"{core}/values"] = np.stack(vals)
+        arrays[f"{core}/jacobian"] = np.stack(jacs)
+    return arrays
 
 
 def _downhill_fit(f, kw, design, key, arrays, ref) -> bool:

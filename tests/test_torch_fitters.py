@@ -4,8 +4,8 @@ fitters, each against the reference package on the same inputs.
 
 * ``Fitter.auto`` picks the reference's class on every committed stand-in
   (``DownhillGLSFitter`` with correlated noise, ``DownhillWLSFitter``
-  without; ``GLSFitter`` / ``WLSFitter`` with ``downhill=False``) and
-  refuses wideband TOAs, which wait for ``ROADMAP.md`` A6;
+  without; ``GLSFitter`` / ``WLSFitter`` with ``downhill=False``) and, on
+  wideband TOAs, ``WidebandDownhillFitter`` (``WidebandTOAFitter``);
 * ``DownhillGLSFitter`` on the small GLS stand-in (both packages in this
   process) and on the committed full-width B1855+09-shaped one (against
   the reference outputs stored in it): chi2 1e-6 rel, values 1e-2 sigma,
@@ -68,12 +68,24 @@ def test_auto_picks_the_references_fitter(path):
 
 
 def test_auto_refuses_wideband_toas():
-    from pint_torch.bridge import NGC_PATH, load_snapshot
-    from pint_torch.fitter import Fitter
+    """Wideband TOAs (a DM measurement on every TOA) no longer wait:
+    ``Fitter.auto`` picks ``WidebandDownhillFitter``, or
+    ``WidebandTOAFitter`` with ``downhill=False``, as the reference's
+    ``fitter.py:81-86`` does, whatever the noise model."""
+    import torch
 
-    m, b = load_snapshot(NGC_PATH, device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        Fitter.auto(dataclasses.replace(b, wideband=True), m)
+    from pint_torch.bridge import NGC_PATH, STANDIN_PATH, load_snapshot
+    from pint_torch.fitter import Fitter
+    from pint_torch.wideband import WidebandDownhillFitter, WidebandTOAFitter
+
+    for path in (NGC_PATH, STANDIN_PATH):
+        m, b = load_snapshot(path, device="cpu")
+        assert not b.wideband
+        dm = m.total_dm(b)
+        wb = dataclasses.replace(b, dm=dm, dm_error=torch.full_like(dm, 1e-4))
+        assert wb.wideband
+        assert type(Fitter.auto(wb, m)) is WidebandDownhillFitter
+        assert type(Fitter.auto(wb, m, downhill=False)) is WidebandTOAFitter
 
 
 @pytest.fixture(scope="module")

@@ -7,7 +7,9 @@
   imports either;
 * the slice's outputs are float64 and the global default dtype is
   untouched;
-* entry points run on the card unless the caller asks for the CPU.
+* entry points run on the card unless the caller asks for the CPU: the
+  snapshots (the wideband and noise fits run on the batch's device) and
+  the Kepler cores.
 """
 
 import ast
@@ -38,18 +40,20 @@ def test_import_and_load_pull_in_no_jax():
         "import sys\n"
         "import pint_torch, pint_torch.bridge, pint_torch.gls_fitter, "
         "pint_torch.fitter, pint_torch.grid, pint_torch.kernels, "
-        "pint_torch.pulsar_ecliptic\n"
+        "pint_torch.pulsar_ecliptic, pint_torch.wideband, "
+        "pint_torch.noisefit, pint_torch.orbital.kepler\n"
         "import pint_torch.integrity.robust\n"
         "from pint_torch.bridge import load_snapshot, STANDIN_PATH, "
         "ELL1_PATH, ELL1H_PATH, NGC_PHOFF_PATH, DDK_PATH, DDGR_PATH, "
         "BT_SMALL_PATH, DDS_SMALL_PATH, DDH_SMALL_PATH, BW_PATH, "
         "BW_WAVES_PATH, PTA_PATH, YOUNG_PATH, DD_FBX_SMALL_PATH, "
-        "BT_PIECEWISE_SMALL_PATH, PTA_SMALL_PATH, YOUNG_SMALL_PATH\n"
+        "BT_PIECEWISE_SMALL_PATH, PTA_SMALL_PATH, YOUNG_SMALL_PATH, "
+        "WB_PATH, WB_SMALL_PATH, NOISE_PATH\n"
         "for p in (STANDIN_PATH, ELL1_PATH, ELL1H_PATH, NGC_PHOFF_PATH, "
         "DDK_PATH, DDGR_PATH, BT_SMALL_PATH, DDS_SMALL_PATH, "
         "DDH_SMALL_PATH, BW_PATH, BW_WAVES_PATH, PTA_PATH, YOUNG_PATH, "
         "DD_FBX_SMALL_PATH, BT_PIECEWISE_SMALL_PATH, PTA_SMALL_PATH, "
-        "YOUNG_SMALL_PATH):\n"
+        "YOUNG_SMALL_PATH, WB_PATH, WB_SMALL_PATH, NOISE_PATH):\n"
         "    load_snapshot(p, device='cpu')\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print('BAD', bad)\n"
@@ -105,14 +109,24 @@ def test_entry_points_default_to_the_gpu():
         resolve_device(None)
     from pint_torch.bridge import (BT_SMALL_PATH, BW_PATH, DDGR_PATH,
                                    DDK_PATH, ELL1H_PATH, NGC_PATH,
-                                   NGC_PHOFF_PATH, PTA_SMALL_PATH,
+                                   NGC_PHOFF_PATH, NOISE_PATH,
+                                   PTA_SMALL_PATH, WB_PATH, WB_SMALL_PATH,
                                    YOUNG_PATH)
 
     for path in (STANDIN_PATH, ELL1H_PATH, NGC_PATH, NGC_PHOFF_PATH,
                  DDK_PATH, DDGR_PATH, BT_SMALL_PATH, BW_PATH,
-                 PTA_SMALL_PATH, YOUNG_PATH):
+                 PTA_SMALL_PATH, YOUNG_PATH, WB_PATH, WB_SMALL_PATH,
+                 NOISE_PATH):
         with pytest.raises(NoGPUError):
             load_snapshot(path)
+    # the Kepler cores take their elements on the host and run on the card
+    from pint_torch.orbital import kepler as K
+
+    for fn, params in ((K.kepler_2d, K.Kepler2DParameters),
+                       (K.kepler_3d, K.Kepler3DParameters),
+                       (K.kepler_two_body, K.KeplerTwoBodyParameters)):
+        with pytest.raises(NoGPUError):
+            fn(params(*[0.5] * len(params._fields)), 1.0)
 
 
 def test_cpu_tensors_never_reach_a_kernel():
@@ -208,6 +222,9 @@ def test_kernel_sources_ship_with_the_package():
                     ("small_dd_fbx_standin.npz", 80),
                     ("small_bt_piecewise_standin.npz", 80),
                     ("small_pta_standin.npz", 80),
-                    ("small_young_standin.npz", 80)):
+                    ("small_young_standin.npz", 80),
+                    ("b1855_wb_standin.npz", 890),
+                    ("small_wb_standin.npz", 80),
+                    ("b1855_noise_standin.npz", 4005)):
         assert np.load(REPO / "pint_torch" / "data" / snap,
                        allow_pickle=False)["tdb_hi"].shape == (n,)

@@ -115,19 +115,23 @@ def test_small_pta_end_to_end(key):
 
 
 def test_scale_dm_error_is_refused_naming_the_roadmap_item():
-    """ScaleDmError scales wideband DM uncertainties only: it is refused
-    with the ROADMAP item of the wideband fitters (queue A item 6)."""
-    import json
-
+    """ScaleDmError, once refused until the wideband fitters came, now
+    loads and scales the wideband DM uncertainties as the reference's
+    ``scale_dm_sigma``: all DMEQUADs in quadrature, then all DMEFACs,
+    bitwise; narrowband TOAs have no DM errors to scale."""
     from pint_torch.bridge import load_snapshot
 
-    model, toas = standin.make_standin(standin.SMALL_BT_SETTINGS,
-                                       full=False)
-    arrays = standin.export_state(model, toas)
-    meta = json.loads(str(arrays["meta"]))
-    meta["components"].append({"class": "ScaleDmError", "config": {}})
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue A item 6") as e:
-        load_snapshot(dict(arrays, meta=np.asarray(json.dumps(meta))),
-                      device="cpu")
-    assert str(e.value).startswith("component ScaleDmError is not ported yet")
+    model, toas = standin.make_standin(dict(standin.SMALL_BT_SETTINGS,
+                                            wideband=True), full=False)
+    m, b = load_snapshot(standin.export_state(model, toas), device="cpu")
+    assert "ScaleDmError" in m.components and b.wideband
+    got = m.scaled_dm_uncertainty(b)
+    assert np.array_equal(got, np.asarray(model.scaled_dm_uncertainty(toas)))
+    sel = m.components["ScaleDmError"].context["masks"]["DMEFAC1"]
+    raw = b.dm_error.numpy()[sel]
+    assert np.array_equal(got[sel], np.hypot(raw, m.value("DMEQUAD1"))
+                          * m.value("DMEFAC1"))
+    narrow, nb = load_snapshot(standin.export_state(*standin.make_standin(
+        standin.SMALL_BT_SETTINGS, full=False)), device="cpu")
+    with pytest.raises(ValueError, match="no wideband DM errors"):
+        m.scaled_dm_uncertainty(nb)

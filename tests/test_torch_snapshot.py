@@ -30,7 +30,11 @@ and DDH, which ``chip_smoke.py`` drives at small depth); ``--settings bw``,
 ``bw_waves``, ``pta`` and ``young`` for ``j0023_bw_standin.npz``,
 ``j0023_bw_waves_standin.npz``, ``j1713_pta_standin.npz`` and
 ``vela_young_standin.npz``, and ``small_dd_fbx``, ``small_bt_piecewise``,
-``small_pta``, ``small_young`` for ``small_<name>_standin.npz``.
+``small_pta``, ``small_young`` for ``small_<name>_standin.npz``;
+``--settings b1855_wb``, ``small_wb`` and ``b1855_noise`` for
+``b1855_wb_standin.npz``, ``small_wb_standin.npz`` and
+``b1855_noise_standin.npz`` (the wideband fits and the noise fit), and
+``kepler`` for ``kepler_reference.npz`` (the Kepler cores' outputs).
 
 The tests check that a small export round-trips through
 :func:`pint_torch.bridge.load_snapshot` bitwise, and that the committed
@@ -368,6 +372,72 @@ def test_committed_slice8_files_load_with_stated_shapes(which):
         assert (binary.config["nfb"], binary.config["nwaves"]) == (0, 3)
 
 
+#: this slice's committed stand-ins: (bridge path, TOAs, components it
+#: must hold, wideband, Fitter.auto's class, the noise parameters its fit
+#: frees)
+SLICE9 = {
+    "b1855_wb": ("WB_PATH", 890, {"BinaryDD", "DispersionDMX",
+                                  "DispersionJump", "ScaleDmError",
+                                  "PLRedNoise"}, True,
+                 "WidebandDownhillFitter", 6),
+    "small_wb": ("WB_SMALL_PATH", 80, {"SolarWindDispersion",
+                                       "SolarWindDispersionX", "DMWaveX",
+                                       "FDJumpDM", "DispersionJump",
+                                       "ScaleDmError"}, True,
+                 "WidebandDownhillFitter", 0),
+    "b1855_noise": ("NOISE_PATH", 4005, {"BinaryDD", "EcorrNoise",
+                                         "PLRedNoise"}, False,
+                    "DownhillGLSFitter", 14),
+}
+
+
+@pytest.mark.parametrize("which", list(SLICE9))
+def test_committed_slice9_files_load_with_stated_shapes(which):
+    """The wideband and noise stand-ins: written with their settings, their
+    TOAs, components and DM data, ``Fitter.auto``'s class, the noise fit's
+    rounds where its fit frees noise parameters, no grid, and under 2 MB
+    each."""
+    from pint_torch import bridge
+
+    attr, n, comps, wideband, auto, nfree = SLICE9[which]
+    path = getattr(bridge, attr)
+    assert os.path.getsize(path) < 2 * 1024 * 1024
+    meta, arrays = bridge.read_snapshot(path)
+    rr = meta["reference"]
+    assert rr["settings"] == SETTINGS[which]
+    m, b = bridge.load_snapshot(path, device="cpu")
+    assert b.ntoas == n and comps <= set(m.components)
+    assert b.wideband == wideband and "ref/grid_chi2" not in arrays
+    assert rr["auto_fitter"] == auto
+    assert len(rr.get("auto_noise_params", [])) == nfree
+    if nfree:
+        assert len(rr["auto_noise_rounds"]) == 2
+        assert all(r["converged"] for r in rr["auto_noise_rounds"])
+    if wideband:
+        err = b.dm_error.numpy()
+        assert 1e-4 <= err.min() and err.max() <= 5e-4
+        for key in ("postfit", "full_cov", "downhill", "lm", "auto"):
+            assert np.isfinite(arrays[f"ref/{key}_uncertainties"]).all()
+
+
+def test_wideband_export_round_trips_bitwise():
+    """The DM measurements and errors travel bitwise; narrowband TOAs carry
+    none."""
+    from pint_torch.bridge import load_snapshot
+
+    model, toas = standin.make_standin(standin.SMALL_WB_SETTINGS,
+                                       full=False)
+    _, b = load_snapshot(standin.export_state(model, toas), device="cpu")
+    assert np.array_equal(b.dm.numpy(), np.asarray(toas.get_dms()))
+    assert np.array_equal(b.dm_error.numpy(),
+                          np.asarray(toas.get_dm_errors()))
+    assert b.to("cpu").wideband
+    narrow = standin.export_state(*standin.make_standin(
+        standin.SMALL_SETTINGS, full=False))
+    assert "dm" not in narrow
+    assert not load_snapshot(narrow, device="cpu")[1].wideband
+
+
 def test_pair_parameters_round_trip():
     """WAVEk and IFUNCk are pairs of floats in both packages."""
     from pint_torch.bridge import load_snapshot
@@ -425,23 +495,34 @@ SETTINGS = {"b1855": standin.FULL_SETTINGS,
             "small_dd_fbx": standin.SMALL_DD_FBX_SETTINGS,
             "small_bt_piecewise": standin.SMALL_BT_PIECEWISE_SETTINGS,
             "small_pta": standin.SMALL_PTA_SETTINGS,
-            "small_young": standin.SMALL_YOUNG_SETTINGS}
+            "small_young": standin.SMALL_YOUNG_SETTINGS,
+            "b1855_wb": standin.WB_SETTINGS,
+            "small_wb": standin.SMALL_WB_SETTINGS,
+            "b1855_noise": standin.NOISE_SETTINGS,
+            "kepler": standin.KEPLER_SETTINGS}
 #: the committed stand-ins of small depth: no grid
 SMALL_DEPTH = ("bt", "dds", "ddh", "small_dd_fbx", "small_bt_piecewise",
-               "small_pta", "small_young")
+               "small_pta", "small_young", "small_wb")
 #: full-width stand-ins without a grid
 NO_GRID = ("bw_waves",)
 
 
 def _write(path: str, chunk: int, settings: dict, small: bool = False) -> None:
     """Simulate a stand-in with the reference package, run its fits and
-    (but at ``small`` depth) its grid, and write the snapshot
-    (compressed)."""
+    (but at ``small`` depth or where its settings have none) its grid, and
+    write the snapshot (compressed); the Kepler settings write the Kepler
+    cores' reference outputs."""
+    if settings is standin.KEPLER_SETTINGS:
+        np.savez_compressed(path, **standin.export_kepler(settings))
+        return
     model, toas = standin.make_standin(settings, full=not small)
-    export = standin.export_snapshot if model.has_correlated_errors \
-        else standin.export_wls_snapshot
-    arrays = export(model, toas, settings, chunk=chunk,
-                    grid=not small and bool(settings.get("grid", True)))
+    if settings.get("wideband"):
+        arrays = standin.export_wideband_snapshot(model, toas, settings)
+    else:
+        export = standin.export_snapshot if model.has_correlated_errors \
+            else standin.export_wls_snapshot
+        arrays = export(model, toas, settings, chunk=chunk,
+                        grid=not small and bool(settings.get("grid", True)))
     np.savez_compressed(path, **arrays)
 
 
@@ -477,7 +558,10 @@ if __name__ == "__main__":
                          "YOUNG_SETTINGS (Vela-shaped, GLF0D_1 x GLTD_1 "
                          "grid); small_dd_fbx, small_bt_piecewise, "
                          "small_pta, small_young: their small stand-ins "
-                         "(no grid)")
+                         "(no grid); b1855_wb, small_wb: WB_SETTINGS, "
+                         "SMALL_WB_SETTINGS (the wideband fits); "
+                         "b1855_noise: NOISE_SETTINGS (the noise fit); "
+                         "kepler: the Kepler cores' outputs")
     args = ap.parse_args()
     _write(args.write, args.chunk, SETTINGS[args.settings],
            args.settings in SMALL_DEPTH)

@@ -124,27 +124,34 @@ def test_wls_grid_poisons_an_unphysical_point(port):
 
 
 def test_wls_fitters_refuse_correlated_noise_and_unported_modes(port):
-    """The refusals that remain: correlated noise in a WLS fitter, free
-    noise parameters in a downhill fit and wideband TOAs in
-    ``Fitter.auto`` (both wait for ``ROADMAP.md`` A6)."""
+    """The refusal that remains: correlated noise in a WLS fitter.  The
+    modes that waited for ``ROADMAP.md`` A6 now run: ``Fitter.auto`` on
+    wideband TOAs picks ``WidebandDownhillFitter``, and a downhill fit
+    with a free EFAC alternates timing and noise fits."""
     import dataclasses
 
     from pint_torch.bridge import STANDIN_PATH, load_snapshot
     from pint_torch.fitter import (CorrelatedErrors, DownhillWLSFitter,
                                    Fitter, WLSFitter)
+    from pint_torch.wideband import WidebandDownhillFitter
 
     m, b = load_snapshot(STANDIN_PATH, device="cpu")
     for cls in (WLSFitter, DownhillWLSFitter):
         with pytest.raises(CorrelatedErrors, match="EcorrNoise"):
             cls(b, m)
-    with pytest.raises(NotImplementedError, match="wideband"):
-        Fitter.auto(dataclasses.replace(port["batch"], wideband=True),
-                    port["model"])
-    m2 = port["model"].copy()
-    m2[next(p for p in m2.params_table if p.startswith("EFAC"))].frozen = \
-        False
-    with pytest.raises(NotImplementedError, match="noise"):
-        DownhillWLSFitter(port["batch"], m2).fit_toas()
+    batch, model = port["batch"], port["model"]
+    dm = model.total_dm(batch)
+    wb = dataclasses.replace(batch, dm=dm, dm_error=torch.full_like(dm, 1e-4))
+    assert type(Fitter.auto(wb, model)) is WidebandDownhillFitter
+    m2 = model.copy()
+    efac = next(p for p in m2.params_table if p.startswith("EFAC"))
+    m2[efac].frozen = False
+    f = DownhillWLSFitter(batch, m2)
+    f.fit_toas(noise_fit_niter=1)
+    assert [r.names for r in f.noise_fit_results] == [[efac]]
+    assert f.noise_fit_results[0].converged
+    assert f.model.value(efac) != model.value(efac)
+    assert f.model[efac].uncertainty > 0
 
 
 def test_downhill_stops_at_maxiter_as_the_reference_does(port):

@@ -14,16 +14,23 @@ the B1913+16-shaped DDGR WLS stand-in ``b1913_ddgr_standin.npz``;
 ``pta``: J1713+0747 with chromatic and solar-wind terms
 ``j1713_pta_standin.npz``; ``young``: the Vela-shaped
 ``vela_young_standin.npz``; ``bt``, ``dds``, ``ddh``, ``small_dd_fbx``,
-``small_bt_piecewise``, ``small_pta``, ``small_young``: the small ones),
-runs the fit its model calls for (``GLSFitter`` with correlated noise,
-else ``WLSFitter``; ``maxiter`` as the snapshot's reference ran it) and,
+``small_bt_piecewise``, ``small_pta``, ``small_young``: the small ones;
+``b1855_wb``, ``small_wb``: the wideband stand-ins; ``b1855_noise``: the
+noise-fit stand-in), runs the fit its model calls for
+(``WidebandTOAFitter`` for wideband TOAs, ``GLSFitter`` with correlated
+noise, else ``WLSFitter``; ``maxiter`` as the snapshot's reference ran
+it) and,
 where the snapshot has a grid, one warm-up 16x16 grid of its parameters
 (M2 x SINI, H3 x STIGMA, F0 x F1, KIN x KOM, MTOT x M2, FB0 x FB1 or
 GLF0D_1 x GLTD_1; ``chunk=256``, ``niter`` as the reference ran it: 1
 for the GLS stand-ins, 4 for the WLS ones), then traces one more warm
 grid (where there is one; a path without a grid says so and goes on),
-one warm design matrix and one more fit with ``torch.profiler`` and
-prints, per traced region:
+one warm design matrix and one more fit -- and, where the snapshot's
+reference frees noise parameters for ``Fitter.auto``, a second noise
+fit from the snapshot's values (scipy's L-BFGS-B over the likelihood's
+value and gradient, the first having built them) and one Hessian of the
+likelihood -- with ``torch.profiler``
+and prints, per traced region:
 the wall time, the summed device time of all CUDA kernels, the device's
 busy share (device time over wall time), and the ten kernels with the
 most device time.  Run on a machine with a CUDA GPU, from the repository
@@ -83,9 +90,10 @@ def main() -> int:
 
     from pint_torch import bridge
     from pint_torch.bridge import load_snapshot, read_snapshot
-    from pint_torch.fitter import WLSFitter
+    from pint_torch.fitter import Fitter, WLSFitter
     from pint_torch.gls_fitter import GLSFitter
     from pint_torch.grid import grid_chisq
+    from pint_torch.wideband import WidebandTOAFitter
 
     snapshots = {"b1855": bridge.STANDIN_PATH, "dmx15": bridge.DMX15_PATH,
                  "ell1": bridge.ELL1_PATH, "ell1h": bridge.ELL1H_PATH,
@@ -98,7 +106,9 @@ def main() -> int:
               "small_dd_fbx": bridge.DD_FBX_SMALL_PATH,
               "small_bt_piecewise": bridge.BT_PIECEWISE_SMALL_PATH,
               "small_pta": bridge.PTA_SMALL_PATH,
-              "small_young": bridge.YOUNG_SMALL_PATH}
+              "small_young": bridge.YOUNG_SMALL_PATH,
+              "b1855_wb": bridge.WB_PATH, "small_wb": bridge.WB_SMALL_PATH,
+              "b1855_noise": bridge.NOISE_PATH}
     names = sys.argv[1:] or list(snapshots)
     snapshots.update(others)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -111,15 +121,32 @@ def main() -> int:
         niter = settings["grid_niter"]
         gnames = tuple(meta["reference"].get("grid_params", ("M2", "SINI")))
         model, batch = load_snapshot(snapshots[name], device="cuda")
-        gls = model.has_correlated_errors
-        fitter = (GLSFitter if gls else WLSFitter)(batch, model)
+        cls = WidebandTOAFitter if batch.wideband \
+            else GLSFitter if model.has_correlated_errors else WLSFitter
+        fitter = cls(batch, model)
         fitter.fit_toas(maxiter=settings["fit_maxiter"])
         fitter.model.designmatrix(batch)
         regions = [("design matrix warm",
                     lambda: fitter.model.designmatrix(batch)),
-                   ("fit warm", lambda: (GLSFitter if gls else WLSFitter)(
-                       batch, model).fit_toas(
-                           maxiter=settings["fit_maxiter"]))]
+                   ("fit warm", lambda: cls(batch, model).fit_toas(
+                       maxiter=settings["fit_maxiter"]))]
+        free = meta["reference"].get("auto_noise_params")
+        if free:
+            m_free = model.copy()
+            for p in free:
+                m_free[p].frozen = False
+            auto = Fitter.auto(batch, m_free)
+            res = auto.fit_noise()  # from the snapshot's values; builds
+            fns = next(v for k, v in auto.model._cache.items()
+                       if isinstance(k, tuple) and k[0] == "noisefit_fns")
+            x = torch.tensor([auto.model.value(p) for p in fns[2]],
+                             dtype=torch.float64, device=batch.device)
+            rs = [auto.resids.time_resids] + (
+                [auto.resids.dm.resids] if batch.wideband else [])
+            regions += [(f"noise fit warm ({len(free)} parameters, "
+                         f"L-BFGS-B {res.nit} iterations, {res.nfev} "
+                         "evaluations)", auto.fit_noise),
+                        ("noise Hessian warm", lambda: fns[1](x, *rs))]
         if "ref/grid_chi2" in ref:
             axes = tuple(ref[f"ref/grid_{g.lower()}"] for g in gnames)
             grid_chisq(fitter, gnames, axes, niter=niter, chunk=256)
