@@ -13,10 +13,11 @@ Phases, one line each:
 2. build -- the seven hand kernels, one nvcc per source, started
    together; the ptxas report of each ``__global__`` (registers, stack
    frame, spill bytes; K1's per S = 1..6, K2's and K4's per mode and orbit
-   source, K6's per form), read from the build logs: K1's primal templates
-   must hold no stack frame, and no primal (K1, K2 in its five modes and
-   both orbit sources, K4 likewise, K6, K7), no ELL1H dual and no tiled K5
-   kernel may spill;
+   source, K6's per form, its duals staged and direct), read from the
+   build logs: K1's primal templates must hold no stack frame, and no
+   primal (K1, K2 in its five modes and both orbit sources, K4 likewise,
+   K6, K7), no ELL1H dual, no K6 or K7 dual and no tiled K5 kernel may
+   spill;
 3. main paths, each with the kernel launch counts zeroed just before it
    and read just after, and every kernel of the path required to have
    launched; then its bars against the reference package's outputs stored
@@ -107,7 +108,8 @@ Phases, one line each:
    on the card, on the orbits of ``kepler_reference.npz`` (e 0-0.95, one
    exactly circular) against the reference's values (1e-13 of each
    state's largest) and Jacobians (1e-10 of each output's largest
-   partial);
+   partial), each warm call's time beside its bound (its float64
+   operations, counted by a dispatch mode, at the instruction rate);
 4. kernels -- each CUDA kernel (the primal and dual instantiations of K1,
    K2 and K4 -- K4's for ELL1, ELL1k, ELL1H exact and ELL1H harmonic --,
    K3's shared-memory instantiation at nt = 88 and its global one at nt =
@@ -145,13 +147,16 @@ Phases, one line each:
    1e-10 rel, NaN rows poisoning every partial (K2's DD also on
    small_dd_fbx's call, K4's ELL1 on bw's: timed, recorded); K6 in each
    form on its path's call (FBX bw, waves on FBX bw_waves, waves on PB
-   small_dd_fbx) and on random coefficients and TOAs, orbits and pbprime
-   bitwise, partials 1e-10 rel; K7 on pta's SWX call, on small_pta's and
-   on random elongations 1-179 deg with indices 1.5-4.4 and windows, the
-   geometry bitwise, partials 1e-10 rel.
+   small_dd_fbx) and on random coefficients and TOAs (the waves' duals
+   also at 60 terms, a tile of fewer threads above 48 KB, and 230, the
+   direct dual), orbits and pbprime bitwise, partials 1e-10 rel; K7 on
+   pta's SWX call, on small_pta's and on random elongations 1-179 deg
+   with indices 1.5-4.4 and windows, the geometry bitwise, partials 1e-10
+   rel.
    K2's Newton steps on each path's inputs set its operation count; the
-   per-element operation counts of K1, K2 and K4 are bounded at the
-   float64 instruction rate (-fmad=false); K5's counts what its function
+   per-element operation counts of K1, K2, K4, K6 and K7 are bounded at
+   the float64 instruction rate (-fmad=false; K6's and K7's count each
+   math-library call at its SASS count, ``SASS_OPS``); K5's counts what its function
    needs (QR at the float64 tensor-core rate, the k x k SVD at the CUDA
    cores' flop rate).
    CUDA-event times of kernel, twin and, for K3 and K5, the library call
@@ -304,27 +309,112 @@ def _k1_ops(S: int, has_pe: bool, partials: bool) -> int:
     return primal + (S + 2) * lanes if partials else primal
 
 
+#: float64 instructions one call of CUDA's math library runs on its fast
+#: path, counted in the SASS that nvcc emits with the kernels' flags
+#: (``-fmad=false``) by ``tools/torch_sass_ops.py``: the float64-pipe
+#: instructions (DADD, DMUL, DFMA, DSETP, conversions) from a one-call
+#: kernel's entry to its EXIT, with the calls no branch skips followed
+#: (``pow`` keeps its core out of line) and the slow paths (a huge
+#: argument's reduction, a subnormal, a division's exceptions) left out;
+#: predicated fix-ups before the EXIT count, so a count may exceed the
+#: fast path's by an instruction or two.  Counted for sm_90a by nvcc 12.9
+#: (NVIDIA H100 80GB HBM3).  A division is ``div``.
+SASS_OPS = {"sin": 18, "cos": 18, "sincos": 23, "atan": 28, "atan2": 40,
+            "log": 30, "exp": 18, "pow": 94, "sqrt": 8, "div": 8,
+            "hypot": 15}
+
+
 def _k6_ops(form: int, nfb: int, nw: int, partials: bool) -> int:
-    """float64 operations per element of ``binary_orbits.cu``, counted
-    from the source as K2's are (a sine-cosine pair as 40, a division as
-    1): the Horner ladder 6 a term and its tail and reciprocal 2; each
-    wave term its frequency, phase, sincos, sum and rate (51) and the
-    base's and the tail's 5; the dual the FB columns' powers (3 a term)
-    and rate (3), each wave term's sincos and 14 more, and the pbprime
-    row's scaling (1 a column and 2)."""
-    nc = nfb if form == 0 else (1 if form == 1 else nfb) + 2 * nw + 1
-    fwd = (6 * nfb + 2 if form != 1 else 3) + (51 * nw + 5 if form else 0)
-    rev = 6 * nfb + (54 * nw + 4 if form else 0) + (1 + nc) + 2
-    return fwd + (rev if partials else 0)
+    """float64 instructions per element of ``binary_orbits.cu``'s work,
+    with a sincos and a division at their SASS counts and every other
+    operation as 1 (the reciprocals 1/n of the ladders are constants, not
+    counted).  Forward: the Horner ladder 6 a term, then orbits t and
+    1/freq (9); the PB base's period, t/pb and 1/pb (17); the waves on an
+    FBX base a second reciprocal (8); each wave term its frequency, phase,
+    sincos, sum and rate (34) and the waves' tw, sums and 1/(inv +
+    dphi_dot) (11).  Dual: -pbprime^2 and pbprime's t entry (2); the FB
+    columns' powers and scaled rows and the rate's ladder (6 a term, less
+    3); the PB base's entries (36); each wave term its sincos and 25
+    more, and the OM columns (2)."""
+    sc, dv = SASS_OPS["sincos"], SASS_OPS["div"]
+    fb = 6 * nfb + 1 + dv
+    fwd = {0: fb, 1: 1 + 2 * dv, 2: fb + dv}[form]
+    if form:
+        fwd += (sc + 11) * nw + 3 + dv
+    if not partials:
+        return fwd
+    rev = 2 + (6 * nfb - 3 if form != 1 else 20 + 2 * dv)
+    if form:
+        rev += (sc + 25) * nw + 2
+    return fwd + rev
 
 
-#: float64 operations per element of ``solar_wind_pl.cu``, counted from the
-#: source (a sine, cosine, arctangent or logarithm as 20, a power as 41: a
-#: logarithm, an exponential and a product): the primal's elongation
-#: geometry 49 and its tail 47, and a node each 64 (1 + 20 + 41 + 2); the
-#: dual's node 114 (a sincos pair, the power, three sums and their terms,
-#: a logarithm) and its partials' 61 more
-K7_OPS = {False: 49 + 47 + 64 * 64, True: 49 + 47 + 114 * 64 + 61}
+#: float64 instructions per element (a TOA in a window) of
+#: ``solar_wind_pl.cu``'s work, whatever computes it: a power counts as
+#: one logarithm, one exponential and one product, the dual's d/dp term
+#: reuses the node's logarithm, and sin and cos of one angle are one
+#: sincos, each at its SASS count (``SASS_OPS``); every other operation is
+#: 1.  The elongation: sincos, two products, u = z/b, atan and two more
+#: (63); each of the 64 nodes: the primal's cos, log, exp and 4 (70; the
+#: built kernel's node loop runs 70 float64 instructions a pass,
+#: tools/torch_sass_ops.py), the dual's sincos, log, exp, a division and
+#: 12 (91; its loop 91); the tail: (AU/b)^p (b/pc) with I and the sum (two
+#: divisions, log, exp and 5: 69); the dual's partials three divisions
+#: and 20 more (44).  The same count bounds any implementation: CUDA's
+#: pow() or exp(y log x).
+_SC, _LOG, _EXP, _DIV = (SASS_OPS[k] for k in ("sincos", "log", "exp",
+                                                 "div"))
+K7_ELONGATION = _SC + 2 + _DIV + SASS_OPS["atan"] + 2
+K7_TAIL = 2 * _DIV + _LOG + _EXP + 5
+K7_OPS = {False: K7_ELONGATION + 64 * (SASS_OPS["cos"] + _LOG + _EXP + 4)
+          + K7_TAIL,
+          True: K7_ELONGATION + 64 * (_SC + _LOG + _EXP + _DIV + 12)
+          + K7_TAIL + 3 * _DIV + 20}
+
+
+def _aten_ops(fn):
+    """(float64 operations, result) of one call of ``fn``, counted by a
+    dispatch mode over the aten operations it runs: an elementwise
+    operation counts each output element once, a math-library one
+    (``SASS_OPS``) its SASS count, a square or cube 1 or 2, a batched
+    matrix product 2 k for each output element; views, copies, fills and
+    stacking count none."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    free = {"select", "view", "_unsafe_view", "alias", "scalar_tensor",
+            "permute", "expand", "_efficientzerotensor", "zeros", "ones",
+            "stack", "_to_copy", "to", "unsqueeze", "squeeze", "cat",
+            "slice", "zeros_like", "ones_like", "lift_fresh", "new_zeros",
+            "new_ones", "diagonal", "fill_", "split_with_sizes",
+            "transpose", "clone", "t", "detach", "copy_", "empty",
+            "empty_like", "new_empty", "unbind", "as_strided"}
+    lib = {"sin": "sin", "cos": "cos", "atan2": "atan2", "atan": "atan",
+           "sqrt": "sqrt", "div": "div", "reciprocal": "div",
+           "hypot": "hypot", "exp": "exp", "log": "log", "pow": "pow"}
+    total = [0.0]
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            if name in free:
+                return out
+            res = out[0] if isinstance(out, (tuple, list)) else out
+            n = res.numel() if torch.is_tensor(res) else 1
+            if name in ("bmm", "mm", "matmul"):
+                n *= 2 * args[0].shape[-1]
+            elif name == "pow" and not torch.is_tensor(args[1]) \
+                    and args[1] in (2, 3):
+                n *= args[1] - 1
+            else:
+                n *= SASS_OPS.get(lib.get(name, ""), 1)
+            total[0] += n
+            return out
+
+    with Count():
+        res = fn()
+    return total[0], res
 
 
 def _fail(msg: str) -> None:
@@ -733,7 +823,9 @@ def _kepler_phase(path, tag) -> None:
     (1e-13 of each state's largest component) and Jacobians (1e-10 of each
     output's largest partial; on the exactly circular orbit all but the
     eps2 column, where the 1e-30 nudge leaves rounding times 1e30 in
-    either package); times the warm batched call."""
+    either package); times the warm batched call beside its bound, the
+    call's float64 operations (:func:`_aten_ops`) at the instruction
+    rate."""
     import numpy as np
     import torch
 
@@ -762,17 +854,24 @@ def _kepler_phase(path, tag) -> None:
                     / np.maximum(np.where(keep, np.abs(jr), 0.0).max(2),
                                  1e-300)).max())
         ok = ok and dv <= 1e-13 and dj <= 1e-10 and np.isfinite(j).all()
-        call()
+        ops, _ = _aten_ops(call)
         torch.cuda.synchronize()
         t = time.perf_counter()
         for _ in range(5):
             call()
         torch.cuda.synchronize()
+        # the least time: the call's operations (values and Jacobian, as
+        # the dispatch mode counts them) at the float64 instruction rate,
+        # or its inputs and outputs once through HBM
+        bound = _bound(8 * (x.size + v.size + j.size), ops,
+                       rate=F64_INSTR_PER_S)
         notes.append(f"{core} ({len(x)} orbits, e 0-0.95, one circular): "
                      f"values max {dv:.3e} of each state's largest (<= "
                      f"1e-13), Jacobian max {dj:.3e} of each output's "
                      f"largest partial (<= 1e-10), "
-                     f"{(time.perf_counter() - t) / 5 * 1e3:.3f} ms a call")
+                     f"{(time.perf_counter() - t) / 5 * 1e3:.3f} ms a call, "
+                     f"bound {bound[0]:.6f} ms ({bound[1]}; "
+                     f"{ops / len(x):.0f} float64 operations an orbit)")
     print("phase kepler: " + "; ".join(notes) + f" {tag}", flush=True)
     if not ok:
         raise RuntimeError("the Kepler cores disagree with the reference")
@@ -885,24 +984,30 @@ def main() -> int:
     ptxas += [("ell1_binary", K4.KERNELS[(m, p, True) if o else (m, p)],
                f"ell1_binary_{'dual' if p else 'primal'}ILi{m}ELb{int(o)}EE")
               for m in range(4) for o in (False, True) for p in (False, True)]
-    ptxas += [("binary_orbits", K6.KERNELS[(f, p)],
-               f"binary_orbits_kernelILi{f}ELb{int(p)}EE")
-              for f in (K6.FBX, K6.WAVES_PB, K6.WAVES_FBX)
-              for p in (False, True)]
+    k6_forms = (K6.FBX, K6.WAVES_PB, K6.WAVES_FBX)
+    ptxas += [("binary_orbits", K6.KERNELS[(f, False)],
+               f"binary_orbits_primalILi{f}EE") for f in k6_forms]
+    # each dual staged through shared memory and, past the widest tile,
+    # direct
+    ptxas += [("binary_orbits", K6.KERNELS[(f, True)]
+               + ("" if st else " (direct)"),
+               f"binary_orbits_dualILi{f}ELb{int(st)}EE")
+              for f in k6_forms for st in (True, False)]
     ptxas += [("solar_wind_pl", K7.KERNELS[p],
                f"solar_wind_pl_kernelILb{int(p)}EE") for p in (False, True)]
     ptxas += [("wls_lstsq", K5.KERNELS[n], K5.KERNELS[n])
               for n in ("fold", "svd", "global")]
     # no primal may spill (K1, K2 and K4 in each mode and orbit source,
-    # K6, K7), nor ELL1H's duals, nor K5's tiled kernels
+    # K6, K7), nor ELL1H's duals, K6's and K7's duals or K5's tiled kernels
     k4_primals = [K4.KERNELS[(m, False)] for m in range(4)] \
         + [K4.KERNELS[(m, False, True)] for m in range(4)] \
         + [K4.KERNELS[(m, True)] for m in (K4.ELL1H_EXACT,
                                            K4.ELL1H_HARMONIC)]
-    new_primals = [K2.KERNELS[(m, False, True)] for m in K2.MODES] \
+    no_spill = [K2.KERNELS[(m, False, True)] for m in K2.MODES] \
         + [K2.KERNELS[(K2.BTX, False)], K7.KERNELS[False]] \
-        + [K6.KERNELS[(f, False)] for f in (K6.FBX, K6.WAVES_PB,
-                                            K6.WAVES_FBX)]
+        + [K6.KERNELS[(f, p)] + d for f in k6_forms for p in (False, True)
+           for d in (("", " (direct)") if p else ("",))] \
+        + [K7.KERNELS[True]]
     for src, kernel, marker in ptxas:
         log = _build.library_path(src).with_suffix(".log")
         r = _build.ptxas_report(log.read_text() if log.exists() else "",
@@ -912,11 +1017,11 @@ def main() -> int:
             f"stores, {r[3]} bytes spill loads" if r else "not in the build "
             "log"), flush=True)
         # K1's primal templates keep no stack frame; no primal spills, nor
-        # ELL1H's duals, nor K5's tiled kernels
+        # ELL1H's duals, K6's and K7's duals or K5's tiled kernels
         k1_primal = kernel.startswith(K1.KERNELS[False])
         primal = k1_primal \
             or kernel in [K2.KERNELS[(m, False)] for m in range(4)] \
-            or kernel in k4_primals or kernel in new_primals \
+            or kernel in k4_primals or kernel in no_spill \
             or kernel in (K5.KERNELS["fold"], K5.KERNELS["svd"])
         if r is None or (k1_primal and r[1]) or (primal and (r[2] or r[3])):
             raise RuntimeError(f"ptxas: no report for {kernel}, or a stack "
@@ -1594,8 +1699,8 @@ def main() -> int:
     # K6 in its three forms, each on its path's largest call (FBX: bw;
     # ORBWAVES on an FBX base: bw_waves; on a PB base: small_dd_fbx) and
     # on seeded random coefficients within 1e-3 of the path's and TOAs
-    # over +-3e8 s: orbits and pbprime bitwise, the partials to 1e-10 of
-    # each column's largest
+    # over +-3e8 s (the waves' duals also at 60 and 230 terms): orbits
+    # and pbprime bitwise, the partials to 1e-10 of each column's largest
     k6_paths = {K6.FBX: "bw", K6.WAVES_FBX: "bw_waves",
                 K6.WAVES_PB: "small_dd_fbx"}
     for form, path in k6_paths.items():
@@ -1630,6 +1735,26 @@ def main() -> int:
             if partials:
                 prel = max(prel, p_rel(Pk[..., 0, :], Pr[..., 0, :]),
                            p_rel(Pk[..., 1, :], Pr[..., 1, :]))
+            wide = []
+            if partials and form != K6.FBX:
+                # ORBWAVES wider than the stand-ins': 60 terms (a tile of
+                # fewer than 128 threads, above 48 KB) and 230 (wider than
+                # one warp's tile: the direct dual)
+                base = c6[0, :1 if form == K6.WAVES_PB else nfb]
+                for nww in (60, 230):
+                    cw = torch.cat([base, 1e-4 * rt(2 * nww), c6[0, -1:]])
+                    cw = cw.expand(4, -1) * (1.0 + rt(4, cw.numel(),
+                                                      lo=-1e-3, hi=1e-3))
+                    tw6 = rt(4, 2000, lo=-3e8, hi=3e8)
+                    ok_, pk_, Pk = K6._launch(tw6, cw.contiguous(), form,
+                                              nfb, nww, off, True)
+                    or_, pr_, Pr = K6.binary_orbits_reference(
+                        tw6, cw, form, nfb, nww, off, True)
+                    same = same and bool(torch.equal(ok_, or_)) \
+                        and bool(torch.equal(pk_, pr_))
+                    prel = max(prel, p_rel(Pk[..., 0, :], Pr[..., 0, :]),
+                               p_rel(Pk[..., 1, :], Pr[..., 1, :]))
+                    wide.append(nww)
             B6, N6 = tt6.shape
             nc = c6.shape[1]
             ms = _time_ms(lambda: K6._launch(*a6), 50)
@@ -1639,7 +1764,9 @@ def main() -> int:
                            + (16 * (1 + nc) * B6 * N6 if partials else 0),
                            B6 * N6 * ops, rate=F64_INSTR_PER_S)
             print(f"phase kernel {kernel}: {path} B={B6} N={N6} nfb={nfb} "
-                  f"nwaves={nw} (+ {Br} random rows); orbits and pbprime "
+                  f"nwaves={nw} (+ {Br} random rows"
+                  + "".join(f", + 4 x 2000 at nwaves={w}" for w in wide)
+                  + "); orbits and pbprime "
                   f"bitwise {same}, max|d orbits| {err:.3e} (= 0); "
                   + (f"partials ({2 * (1 + nc)}) max rel {prel:.3e} "
                      "(<= 1e-10); " if partials else "")

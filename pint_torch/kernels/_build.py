@@ -21,7 +21,6 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 __all__ = ["KernelBuildError", "KernelLaunchError", "NVCC_FLAGS",
-           "CONTRACTED", "flags",
            "build", "load", "library_path", "check", "ptr", "stream_of",
            "traced", "ptxas_report"]
 
@@ -29,17 +28,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 
 #: sm_90a keeps wgmma/setmaxnreg available to later kernels; -fmad=false
-#: keeps every product rounded alone (double-double and folded products)
+#: keeps every product rounded alone (double-double and folded products),
+#: in every kernel
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")
-
-#: the kernels built with contraction on in place of -fmad=false: K7 calls
-#: pow(), whose library code rounds as torch's own pow (built with
-#: contraction) only when it may fuse; K7's own arithmetic is written with
-#: the ``__d*_rn`` intrinsics, which are never fused, so every product of
-#: it still rounds alone
-CONTRACTED = ("solar_wind_pl",)
 
 _HEADERS = ("dual.cuh",)
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -68,22 +61,13 @@ def _nvcc() -> str:
     return found
 
 
-def flags(name: str) -> tuple:
-    """nvcc's flags for kernel ``name``: :data:`NVCC_FLAGS`, with
-    ``-fmad=true`` for the :data:`CONTRACTED` ones."""
-    if name not in CONTRACTED:
-        return NVCC_FLAGS
-    return tuple("-fmad=true" if f == "-fmad=false" else f
-                 for f in NVCC_FLAGS)
-
-
 def library_path(name: str) -> Path:
     """Where the shared library of kernel ``name`` lives for the current
     sources and flags."""
     h = hashlib.sha256()
     for part in (f"{name}.cu",) + _HEADERS:
         h.update((CSRC / part).read_bytes())
-    h.update(" ".join(flags(name)).encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -103,7 +87,7 @@ def build(names: Iterable[str]) -> Dict[str, float]:
             times[name] = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *flags(name), "-o", str(tmp),
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),

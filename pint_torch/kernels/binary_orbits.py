@@ -43,7 +43,9 @@ REPLACES = "pint_tpu/models/binary/engines.py:68"
 REPLACES_OF = {FBX: REPLACES,
                WAVES_PB: "pint_tpu/models/binary/engines.py:83",
                WAVES_FBX: "pint_tpu/models/binary/engines.py:83"}
-#: the six ``__global__`` instantiations, by (form, partials asked for)
+#: the six kernels, by (form, partials asked for); a dual too wide for a
+#: one-warp tile in shared memory runs its direct instantiation under the
+#: same name
 KERNELS = {(f, p): f"binary_orbits_{n}_{'dual' if p else 'primal'}"
            for f, n in ((FBX, "fbx"), (WAVES_PB, "waves_pb"),
                         (WAVES_FBX, "waves_fbx")) for p in (False, True)}

@@ -27,13 +27,26 @@
 // binary_orbits_forward, binary_orbits_partials) repeats both passes
 // operation for operation, so orbits and pbprime are bitwise the twin's.
 //
-// Six instantiations: primal and dual (DUAL, a template parameter) of each
-// FORM.  One thread per (point, TOA).  The primal is a few hundred operations a
-// TOA and bound by its bytes (t in, two values out); the dual recomputes
-// the wave terms' sines and cosines in its partial pass rather than keep
-// 2 nwaves of them, and writes 16 (1 + ncoef) bytes a TOA.
+// Per FORM a primal and a dual, the dual staged through shared memory or,
+// past the widest tile, direct (STAGED; the wrapper counts both under the
+// dual's name).  One thread per (point, TOA).  The primal is a few hundred
+// operations a TOA and bound by its bytes (t in, two values out).  The
+// dual recomputes the wave terms'
+// sines and cosines in its partial pass rather than keep 2 nwaves of them,
+// and writes 16 (1 + ncoef) bytes a TOA, which bound it: each thread builds
+// its 2 (1 + ncoef) partials in its row of the block's tile in shared
+// memory, each pbprime entry already scaled by -pbprime^2 (pbprime comes
+// out of the forward pass first), and the tile -- one contiguous,
+// 16-byte-aligned range of the output -- leaves in one TMA bulk store
+// (cp.async.bulk).  The block is sized from ncoef in dynamic shared
+// memory: 128 threads while their tile fits (10 KB at ncoef = 4, 32 KB at
+// ncoef = 15), else fewer, in whole warps, down to one warp, whose tile
+// fits up to ncoef = 453 in the 227 KB a block may opt into.  Past that
+// width -- 226 ORBWAVES terms, which the reference allows -- the dual
+// writes each row straight to device memory (STAGED = false).
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -90,8 +103,8 @@ __device__ __forceinline__ void forward(const double* c, int nfb, int nw,
   pbprime = 1.0 / (inv + dphi_dot);
 }
 
-// The partials of one element into P[0 .. 2 (1 + nc)): orbits' then
-// pbprime's; the pbprime row is first written as dg and scaled at the end.
+// The partials of one element into its row P[0 .. 2 (1 + nc)): orbits',
+// then pbprime's, each pbprime entry stored as m dg, m = -pbprime^2.
 template <int FORM>
 __device__ __forceinline__ void partials(const double* c, int nfb, int nw,
                                          int nc, double t, double tw_off,
@@ -99,12 +112,13 @@ __device__ __forceinline__ void partials(const double* c, int nfb, int nw,
                                          double pb_s, double* P) {
   double* Po = P;
   double* Pg = P + 1 + nc;
+  const double m = -(pbprime * pbprime);
   double po_t, pg_t;
   int first;
   if constexpr (FORM == WAVES_PB) {
     po_t = 1.0 / pb_s;
     Po[1] = -((t / pb_s) / pb_s) * 86400.0;
-    Pg[1] = 0.0 - 86400.0 / (pb_s * pb_s);
+    Pg[1] = m * (0.0 - 86400.0 / (pb_s * pb_s));
     pg_t = 0.0;
     first = 1;
   } else {
@@ -112,7 +126,7 @@ __device__ __forceinline__ void partials(const double* c, int nfb, int nw,
     for (int n = 0; n < nfb; ++n) {
       const double nxt = (cn * t) * (1.0 / (n + 1));
       Po[1 + n] = nxt;
-      Pg[1 + n] = cn;
+      Pg[1 + n] = m * cn;
       cn = nxt;
     }
     double dfreq = 0.0;
@@ -135,30 +149,40 @@ __device__ __forceinline__ void partials(const double* c, int nfb, int nw,
       const double curv = ss * sp + cc * cp;
       Po[1 + first + 2 * k] = cp;
       Po[2 + first + 2 * k] = sp;
-      Pg[1 + first + 2 * k] = -(w * sp);
-      Pg[2 + first + 2 * k] = w * cp;
+      Pg[1 + first + 2 * k] = m * -(w * sp);
+      Pg[2 + first + 2 * k] = m * (w * cp);
       po_t = po_t + w * rate;
       pg_t = pg_t - (w * w) * curv;
       g_om_o = g_om_o + ((double)(k + 1) * tw) * rate;
       g_om_g = g_om_g + (double)(k + 1) * rate - (w * ((double)(k + 1) * tw)) * curv;
     }
     Po[nc] = g_om_o;
-    Pg[nc] = g_om_g;
+    Pg[nc] = m * g_om_g;
   }
   Po[0] = po_t;
-  Pg[0] = pg_t;
-  const double m = -(pbprime * pbprime);
-  for (int j = 0; j <= nc; ++j) Pg[j] = m * Pg[j];
+  Pg[0] = m * pg_t;
 }
 
-template <int FORM, bool DUAL>
-__global__ void binary_orbits_kernel(const double* __restrict__ tt0,
+// One TMA bulk store of ``bytes`` (a multiple of 16) from shared memory to
+// a 16-byte-aligned global address, by the calling thread, which waits
+// until the source has been read (the tile must outlive the copy).
+__device__ __forceinline__ void bulk_store(double* dst, const double* src,
+                                           unsigned bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(src);
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      ::"l"(dst), "r"(s), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+template <int FORM>
+__global__ void binary_orbits_primal(const double* __restrict__ tt0,
                                      const double* __restrict__ coef, int B,
                                      int N, int nc, int nfb, int nw,
                                      double tw_off,
                                      double* __restrict__ orbits_out,
-                                     double* __restrict__ pbprime_out,
-                                     double* __restrict__ P) {
+                                     double* __restrict__ pbprime_out) {
   const long idx = (long)blockIdx.x * THREADS + threadIdx.x;
   if (idx >= (long)B * N) return;
   const int b = (int)(idx / N);
@@ -168,23 +192,89 @@ __global__ void binary_orbits_kernel(const double* __restrict__ tt0,
   forward<FORM>(c, nfb, nw, t, tw_off, orbits, pbprime, freq, pb_s);
   orbits_out[idx] = orbits;
   pbprime_out[idx] = pbprime;
-  if constexpr (DUAL)
+}
+
+// blockDim.x threads, each with its row of 2 (1 + nc) doubles in the tile
+// (STAGED) or in the output itself.
+template <int FORM, bool STAGED>
+__global__ void binary_orbits_dual(const double* __restrict__ tt0,
+                                   const double* __restrict__ coef, int B,
+                                   int N, int nc, int nfb, int nw,
+                                   double tw_off,
+                                   double* __restrict__ orbits_out,
+                                   double* __restrict__ pbprime_out,
+                                   double* __restrict__ P) {
+  extern __shared__ __align__(16) double tile[];
+  const long row = 2 * (1 + nc);
+  const long first = (long)blockIdx.x * blockDim.x;
+  const long idx = first + threadIdx.x;
+  const long total = (long)B * N;
+  if (idx < total) {
+    const int b = (int)(idx / N);
+    const double* c = coef + (long)b * nc;
+    const double t = tt0[idx];
+    double orbits, pbprime, freq = 0.0, pb_s = 0.0;
+    forward<FORM>(c, nfb, nw, t, tw_off, orbits, pbprime, freq, pb_s);
+    orbits_out[idx] = orbits;
+    pbprime_out[idx] = pbprime;
     partials<FORM>(c, nfb, nw, nc, t, tw_off, pbprime, freq, pb_s,
-                   P + idx * 2 * (1 + nc));
+                   STAGED ? tile + threadIdx.x * row : P + idx * row);
+  }
+  if constexpr (STAGED) {
+    // the tile's rows are the output's [first, first + rows)
+    const long rows = total - first < blockDim.x ? total - first : blockDim.x;
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (threadIdx.x == 0)
+      bulk_store(P + first * row, tile, (unsigned)(rows * row * 8));
+  }
+}
+
+// The shared memory a block may opt into (227 KB on the H100).
+int max_smem() {
+  static int bytes = 0;
+  if (bytes == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           dev);
+  }
+  return bytes;
 }
 
 template <int FORM>
-void launch(const double* tt0, const double* coef, int B, int N, int nc,
-            int nfb, int nw, double tw_off, double* orbits, double* pbprime,
-            double* P, cudaStream_t st) {
+int launch(const double* tt0, const double* coef, int B, int N, int nc,
+           int nfb, int nw, double tw_off, double* orbits, double* pbprime,
+           double* P, cudaStream_t st) {
   const long total = (long)B * N;
-  const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
-  if (P == nullptr)
-    binary_orbits_kernel<FORM, false><<<blocks, THREADS, 0, st>>>(
+  if (P == nullptr) {
+    const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
+    binary_orbits_primal<FORM><<<blocks, THREADS, 0, st>>>(
+        tt0, coef, B, N, nc, nfb, nw, tw_off, orbits, pbprime);
+    return 0;
+  }
+  if (reinterpret_cast<uintptr_t>(P) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const long row_bytes = 16L * (1 + nc);
+  int threads = THREADS;
+  while (threads > 32 && threads * row_bytes > max_smem()) threads -= 32;
+  const long smem = threads * row_bytes;
+  if (smem > max_smem()) {
+    const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
+    binary_orbits_dual<FORM, false><<<blocks, THREADS, 0, st>>>(
         tt0, coef, B, N, nc, nfb, nw, tw_off, orbits, pbprime, P);
-  else
-    binary_orbits_kernel<FORM, true><<<blocks, THREADS, 0, st>>>(
-        tt0, coef, B, N, nc, nfb, nw, tw_off, orbits, pbprime, P);
+    return 0;
+  }
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        binary_orbits_dual<FORM, true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  binary_orbits_dual<FORM, true><<<blocks, threads, smem, st>>>(
+      tt0, coef, B, N, nc, nfb, nw, tw_off, orbits, pbprime, P);
+  return 0;
 }
 
 }  // namespace
@@ -196,23 +286,24 @@ extern "C" int binary_orbits_launch(const double* tt0, const double* coef,
                                     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if ((long)B * N == 0) return 0;
+  int rc;
   switch (form) {
     case FBX:
-      launch<FBX>(tt0, coef, B, N, nfb, nfb, 0, tw_off, orbits, pbprime,
-                  partials, st);
+      rc = launch<FBX>(tt0, coef, B, N, nfb, nfb, 0, tw_off, orbits, pbprime,
+                       partials, st);
       break;
     case WAVES_PB:
-      launch<WAVES_PB>(tt0, coef, B, N, 2 + 2 * nw, 0, nw, tw_off, orbits,
-                       pbprime, partials, st);
+      rc = launch<WAVES_PB>(tt0, coef, B, N, 2 + 2 * nw, 0, nw, tw_off,
+                            orbits, pbprime, partials, st);
       break;
     case WAVES_FBX:
-      launch<WAVES_FBX>(tt0, coef, B, N, nfb + 1 + 2 * nw, nfb, nw, tw_off,
-                        orbits, pbprime, partials, st);
+      rc = launch<WAVES_FBX>(tt0, coef, B, N, nfb + 1 + 2 * nw, nfb, nw,
+                             tw_off, orbits, pbprime, partials, st);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  return rc != 0 ? rc : (int)cudaGetLastError();
 }
 
 extern "C" const char* binary_orbits_error_string(int code) {

@@ -14,12 +14,13 @@
 // and window) comes in from torch, as do the nodes x_j and weights w_j
 // (numpy's leggauss(64), the reference's own; never retyped here).  The
 // 64 terms are summed in index order, which the plain twin
-// (kernels/solar_wind_pl.py) repeats, so g is bitwise the twin's.  Unlike
-// K1-K6 this file is built with contraction on: the library's pow() built
-// with -fmad=false rounds a few values in a million a bit apart from
-// torch's pow, which is built with it on; the kernel's own additions,
-// products and divisions are the never-fused __d*_rn intrinsics, so each
-// still rounds alone.
+// (kernels/solar_wind_pl.py) repeats, so g is bitwise the twin's.  Each
+// power is exp(y log(x)), one logarithm and one exponential, where CUDA's
+// pow() computes its logarithm in double-double first; the dual's d/dp sum
+// reuses the node's logarithm and takes sin(phi) and cos(phi) from one
+// sincos(), as both instantiations take sin(theta) and cos(theta).  Built
+// with -fmad=false like K1-K6: every product and sum rounds alone, as the
+// twin's torch operations do.
 //
 // Each point carries W power-law indices (W = 1: NE_SW's SWP; W = nswx:
 // one SWXP_ per window) and each TOA a window index (win[n] < 0: no
@@ -28,8 +29,14 @@
 //
 // The dual writes dg/dtheta (the astrometry's partials reach the
 // elongation through it), dg/dp (SWP, SWXP_ may be fitted) and dg/dI_inf
-// (through which torch chains I_inf's dependence on p), (B, N, 3).  One
-// thread per (point, TOA); ops-bound: 64 cosines and powers an element.
+// (through which torch chains I_inf's dependence on p), (B, N, 3), each
+// thread its three straight to the output: staged through shared memory
+// to leave as one contiguous run, as K2's dual writes its partials, they
+// took 7% longer on the pta stand-in's call (tools/torch_kernel_variants.py
+// `staged`), since 24 bytes an element are nothing to this kernel.  One
+// thread per (point, TOA); bound by its operations: 64 nodes an element,
+// each a cosine (the dual a sincos), a logarithm and an exponential
+// (chip_smoke.py K7_OPS counts them).
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -39,22 +46,6 @@ constexpr int THREADS = 128;
 constexpr int NGL = 64;
 constexpr double AU_LS = 1.495978707e11 / 299792458.0;        // AU / c
 constexpr double PC_LS = 3.0856775814913673e16 / 299792458.0;  // pc / c
-
-// The kernel's own arithmetic, rounded once each: the file is built with
-// contraction on (kernels/_build.py CONTRACTED) so that the library's pow()
-// rounds as torch's (built so) does, and these intrinsics are never fused.
-__device__ __forceinline__ double mul(double a, double b) {
-  return __dmul_rn(a, b);
-}
-__device__ __forceinline__ double add(double a, double b) {
-  return __dadd_rn(a, b);
-}
-__device__ __forceinline__ double sub(double a, double b) {
-  return __dsub_rn(a, b);
-}
-__device__ __forceinline__ double dvd(double a, double b) {
-  return __ddiv_rn(a, b);
-}
 
 template <bool DUAL>
 __global__ void solar_wind_pl_kernel(const double* __restrict__ r,
@@ -68,65 +59,70 @@ __global__ void solar_wind_pl_kernel(const double* __restrict__ r,
                                      double* __restrict__ P) {
   __shared__ double x1[NGL], wj[NGL];
   if (threadIdx.x < NGL) {
-    x1[threadIdx.x] = add(gl[threadIdx.x], 1.0);
+    x1[threadIdx.x] = gl[threadIdx.x] + 1.0;
     wj[threadIdx.x] = gl[NGL + threadIdx.x];
   }
   __syncthreads();
   const long idx = (long)blockIdx.x * THREADS + threadIdx.x;
   if (idx >= (long)B * N) return;
+  double* row = DUAL ? P + 3 * idx : nullptr;  // the element's partials
   const int b = (int)(idx / N);
   const int n = (int)(idx - (long)b * N);
   const int k = win == nullptr ? 0 : win[n];
   if (k < 0) {
     geom[idx] = 0.0;
-    if constexpr (DUAL) {
-      P[3 * idx] = 0.0;
-      P[3 * idx + 1] = 0.0;
-      P[3 * idx + 2] = 0.0;
+    if constexpr (DUAL) row[0] = row[1] = row[2] = 0.0;
+  } else {
+    const double pk = p[(long)b * W + k];
+    const double ik = iinf[(long)b * W + k];
+    const double rn = r[n];
+    const double th = theta[idx];
+    // one sincos(), each result the bits of the twin's torch.sin and
+    // torch.cos
+    double st, ct;
+    sincos(th, &st, &ct);
+    const double bb = rn * st;
+    const double z = rn * ct;
+    const double u = z / bb;
+    const double half = 0.5 * atan(u);
+    const double pm2 = pk - 2.0;
+    double acc = 0.0, acc_h = 0.0, acc_p = 0.0;
+    for (int j = 0; j < NGL; ++j) {
+      const double phi = half * x1[j];
+      double sp, cp;
+      if constexpr (DUAL)
+        sincos(phi, &sp, &cp);
+      else
+        cp = cos(phi);
+      // cos(phi)^(p - 2), with the logarithm the dual's d/dp sum reuses
+      const double lc = log(cp);
+      const double v = exp(pm2 * lc);
+      acc = acc + wj[j] * v;
+      if constexpr (DUAL) {
+        // w (-(pm2 v sp / cp) x1) and w (v log(cp))
+        acc_h = acc_h + wj[j] * (-(pm2 * v * sp / cp) * x1[j]);
+        acc_p = acc_p + wj[j] * (v * lc);
+      }
     }
-    return;
-  }
-  const double pk = p[(long)b * W + k];
-  const double ik = iinf[(long)b * W + k];
-  const double rn = r[n];
-  const double th = theta[idx];
-  // sin() and cos() apart, each the bits of the twin's torch.sin and
-  // torch.cos
-  const double bb = mul(rn, sin(th));
-  const double z = mul(rn, cos(th));
-  const double u = dvd(z, bb);
-  const double half = mul(0.5, atan(u));
-  const double pm2 = sub(pk, 2.0);
-  double acc = 0.0, acc_h = 0.0, acc_p = 0.0;
-  for (int j = 0; j < NGL; ++j) {
-    const double phi = mul(half, x1[j]);
-    const double cp = cos(phi);
-    const double v = pow(cp, pm2);
-    acc = add(acc, mul(wj[j], v));
+    const double I = half * acc;
+    // (AU / b)^p (b / pc), the logarithm shared with d/dp
+    const double la = log(AU_LS / bb);
+    const double a = exp(pk * la) * (bb / PC_LS);
+    const double C = ik + I;
+    geom[idx] = a * C;
     if constexpr (DUAL) {
-      const double sp = sin(phi);
-      // w (-(pm2 v sp / cp) x1) and w (v log(cp))
-      acc_h = add(acc_h,
-                  mul(wj[j], mul(-dvd(mul(mul(pm2, v), sp), cp), x1[j])));
-      acc_p = add(acc_p, mul(wj[j], mul(v, log(cp))));
+      // half = arctan(z / b) / 2; dz = -b dtheta, db = z dtheta
+      const double bb2 = bb * bb;
+      const double du = (-bb2 - z * z) / bb2;
+      const double dhalf = 0.5 * du / (1.0 + u * u);
+      const double dI_dth = (acc + half * acc_h) * dhalf;
+      const double dI_dp = half * acc_p;
+      const double da_dth = (1.0 - pk) * a / bb * z;
+      const double da_dp = a * la;
+      row[0] = da_dth * C + a * dI_dth;
+      row[1] = da_dp * C + a * dI_dp;
+      row[2] = a;
     }
-  }
-  const double I = mul(half, acc);
-  const double a = mul(pow(dvd(AU_LS, bb), pk), dvd(bb, PC_LS));
-  const double C = add(ik, I);
-  geom[idx] = mul(a, C);
-  if constexpr (DUAL) {
-    // half = arctan(z / b) / 2; dz = -b dtheta, db = z dtheta
-    const double bb2 = mul(bb, bb);
-    const double du = dvd(sub(-bb2, mul(z, z)), bb2);
-    const double dhalf = dvd(mul(0.5, du), add(1.0, mul(u, u)));
-    const double dI_dth = mul(add(acc, mul(half, acc_h)), dhalf);
-    const double dI_dp = mul(half, acc_p);
-    const double da_dth = mul(dvd(mul(sub(1.0, pk), a), bb), z);
-    const double da_dp = mul(a, log(dvd(AU_LS, bb)));
-    P[3 * idx] = add(mul(da_dth, C), mul(a, dI_dth));
-    P[3 * idx + 1] = add(mul(da_dp, C), mul(a, dI_dp));
-    P[3 * idx + 2] = a;
   }
 }
 

@@ -67,7 +67,8 @@ def sw_i_inf(p):
 def solar_wind_pl_reference(r, theta, p, i_inf, partials: bool = True):
     """Plain PyTorch version of K7 on broadcast shapes (``p`` and
     ``i_inf`` already one per element): ``(geom, P)``, P (..., 3) or None
-    when ``partials`` is False."""
+    when ``partials`` is False.  Each power is ``exp(y * log(x))``, as the
+    kernel computes it, the logarithm shared with the d/dp terms."""
     st, ct = torch.sin(theta), torch.cos(theta)
     b = r * st
     z = r * ct
@@ -80,14 +81,16 @@ def solar_wind_pl_reference(r, theta, p, i_inf, partials: bool = True):
     for x1, w in zip(_X1, _W):
         phi = half * x1
         cp = torch.cos(phi)
-        v = torch.pow(cp, pm2)
+        lc = torch.log(cp)
+        v = torch.exp(pm2 * lc)
         acc = acc + w * v
         if partials:
             sp = torch.sin(phi)
             acc_h = acc_h + w * (-(pm2 * v * sp / cp) * x1)
-            acc_p = acc_p + w * (v * torch.log(cp))
+            acc_p = acc_p + w * (v * lc)
     I = half * acc
-    a = torch.pow(_full(AU_LS, b) / b, p) * (b / _full(PC_LS, b))
+    la = torch.log(_full(AU_LS, b) / b)
+    a = torch.exp(p * la) * (b / _full(PC_LS, b))
     C = i_inf + I
     geom = a * C
     if not partials:
@@ -97,7 +100,7 @@ def solar_wind_pl_reference(r, theta, p, i_inf, partials: bool = True):
     dI_dth = (acc + half * acc_h) * dhalf
     dI_dp = half * acc_p
     da_dth = (1.0 - p) * a / b * z
-    da_dp = a * torch.log(_full(AU_LS, b) / b)
+    da_dp = a * la
     shape = geom.shape
     return geom, torch.stack([(da_dth * C + a * dI_dth).expand(shape),
                               (da_dp * C + a * dI_dp).expand(shape),

@@ -3,8 +3,9 @@
 * ``import pint_torch`` and loading a snapshot leave ``jax`` and
   ``pint_tpu`` out of ``sys.modules`` (checked in a fresh interpreter);
 * no module of ``pint_torch``, nor ``chip_smoke.py`` or the port's tools
-  (``tools/torch_grid_profile.py``, ``tools/torch_kernel_variants.py``),
-  imports either;
+  (``tools/torch_grid_profile.py``, ``tools/torch_kernel_variants.py``,
+  ``tools/torch_sass_ops.py``), imports either;
+* every kernel is built with ``-fmad=false``;
 * the slice's outputs are float64 and the global default dtype is
   untouched;
 * entry points run on the card unless the caller asks for the CPU: the
@@ -32,7 +33,8 @@ def _port_sources():
     files = sorted((REPO / "pint_torch").rglob("*.py"))
     return files + [REPO / "chip_smoke.py",
                     REPO / "tools" / "torch_grid_profile.py",
-                    REPO / "tools" / "torch_kernel_variants.py"]
+                    REPO / "tools" / "torch_kernel_variants.py",
+                    REPO / "tools" / "torch_sass_ops.py"]
 
 
 def test_import_and_load_pull_in_no_jax():
@@ -192,6 +194,39 @@ def test_cpu_tensors_never_reach_a_kernel():
                            for n in mod.KERNELS.values()}
     assert len(counts) == 2 + 20 + 2 + 16 + 3 + 6 + 2
     assert not any(counts.values())
+
+
+def test_every_kernel_is_built_without_contraction(tmp_path, monkeypatch):
+    """Each kernel's nvcc command carries -fmad=false and no -fmad=true:
+    every product and sum of K1-K7 rounds alone, as the twins' torch
+    operations do (K7 calls no pow(), the one reason it once was built
+    with contraction)."""
+    from pint_torch import kernels
+    from pint_torch.kernels import _build
+
+    cmds = {}
+
+    class Nvcc:
+        def __init__(self, cmd, **kw):
+            cmds[Path(cmd[-1]).stem] = cmd
+            Path(cmd[cmd.index("-o") + 1]).write_bytes(b"")
+            self.returncode = 0
+
+        def communicate(self):
+            return "", None
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "Popen", Nvcc)
+    _build.build(kernels.NAMES)
+    assert set(cmds) == set(kernels.NAMES)
+    for name, cmd in cmds.items():
+        assert "-fmad=false" in cmd and "-fmad=true" not in cmd, name
+    assert not hasattr(_build, "CONTRACTED")
+    code = [line.split("//")[0] for line in (
+        REPO / "pint_torch" / "kernels" / "csrc" /
+        "solar_wind_pl.cu").read_text().splitlines()]
+    assert not any("pow(" in line for line in code)
 
 
 def test_kernel_sources_ship_with_the_package():

@@ -122,6 +122,75 @@ def test_orbit_partials_match_reference_jacfwd(which):
     assert np.abs(Jt - Jtr).max() <= 1e-10 * np.abs(Jtr).max()
 
 
+def _partials_as_before(t, c, form, nfb, nw, off, pbprime, freq):
+    """One element's (2, 1 + nc) partials as the kernel wrote them before
+    its tile: the pbprime row first as dg, each entry then scaled by
+    -pbprime^2 (``binary_orbits.cu``'s earlier read-back)."""
+    nc = len(c)
+    Po, Pg = [0.0] * (1 + nc), [0.0] * (1 + nc)
+    if form == T.WAVES_PB:
+        pb_s = c[0] * 86400.0
+        po_t = 1.0 / pb_s
+        Po[1] = -((t / pb_s) / pb_s) * 86400.0
+        Pg[1] = 0.0 - 86400.0 / (pb_s * pb_s)
+        pg_t, first = 0.0, 1
+    else:
+        cn = 1.0
+        for n in range(nfb):
+            nxt = (cn * t) * (1.0 / (n + 1))
+            Po[1 + n], Pg[1 + n], cn = nxt, cn, nxt
+        dfreq = 0.0
+        for n in range(nfb - 1, 0, -1):
+            dfreq = (dfreq * t) * (1.0 / n) + c[n]
+        po_t, pg_t, first = freq, dfreq, nfb
+    if form != T.FBX:
+        om, tw = c[first + 2 * nw], t + off
+        g_om_o = g_om_g = 0.0
+        for k in range(nw):
+            cc, ss = c[first + 2 * k], c[first + 2 * k + 1]
+            w = (k + 1) * om
+            ph = w * tw
+            sp, cp = np.sin(ph), np.cos(ph)
+            rate, curv = ss * cp - cc * sp, ss * sp + cc * cp
+            Po[1 + first + 2 * k], Po[2 + first + 2 * k] = cp, sp
+            Pg[1 + first + 2 * k], Pg[2 + first + 2 * k] = -(w * sp), w * cp
+            po_t = po_t + w * rate
+            pg_t = pg_t - (w * w) * curv
+            g_om_o = g_om_o + ((k + 1) * tw) * rate
+            g_om_g = g_om_g + (k + 1) * rate - (w * ((k + 1) * tw)) * curv
+        Po[nc], Pg[nc] = g_om_o, g_om_g
+    Po[0], Pg[0] = po_t, pg_t
+    m = -(pbprime * pbprime)
+    return np.array([Po, [m * g for g in Pg]])
+
+
+@pytest.mark.parametrize("form,nfb,nw", [(T.FBX, 4, 0), (T.WAVES_PB, 0, 60),
+                                         (T.WAVES_FBX, 2, 230)])
+def test_twin_partials_keep_the_layout_and_scaled_pbprime_row(form, nfb, nw):
+    """K6's twin partials (B, N, 2, 1 + nc) against the kernel's formulas
+    as they were before its shared-memory tile, element by element: the
+    orbits row, then the pbprime row scaled by -pbprime^2.  At 60 ORBWAVES
+    terms the tile of 128 threads passes 227 KB (the dual takes fewer
+    threads); at 230 one warp's passes it (the direct dual).  Within
+    1e-14 of each column's largest (numpy's sine against torch's)."""
+    names, vals = _coef(form, nfb, nw, seed=7)
+    t, off = _tt0(7, 40), 4321.5
+    o, pb, P = K6.binary_orbits_reference(
+        torch.tensor(t)[None], torch.tensor(vals)[None], form, nfb, nw, off)
+    f = T.binary_orbits_forward(torch.tensor(t)[None],
+                                torch.tensor(vals)[None], form, nfb, nw, off)
+    freq = f["freq"].expand(1, len(t))[0].numpy() if "freq" in f else \
+        np.zeros(len(t))
+    nc = len(vals)
+    assert P.shape == (1, len(t), 2, 1 + nc)
+    want = np.stack([_partials_as_before(t[i], vals, form, nfb, nw, off,
+                                         float(pb[0, i]), float(freq[i]))
+                     for i in range(len(t))])
+    got = P[0].numpy()
+    scale = np.abs(want).max(axis=0)
+    assert (np.abs(got - want) <= 1e-14 * scale).all()
+
+
 @pytest.mark.parametrize("mode", K2.MODES)
 def test_k2_orbit_input_equals_the_pb_form(mode):
     """Fed ``orbits_pb``'s own output (and, for BT, PB 86400 as R's

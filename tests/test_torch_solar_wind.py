@@ -1,11 +1,12 @@
 """The solar-wind geometry and components on the CPU.
 
-K7 (``solar_wind_pl``)'s plain twin against the reference's
-``solar_wind_geometry_pl`` (``pint_tpu/models/solar_wind.py:50-70``) at
-power-law indices 1.5, 2, 2.5 and 4.4 and elongations from 1 to 179
-degrees, within 1e-13 of the uncancelled magnitude A (I_inf + |I|) (and
-1e-13 rel below 150 degrees: XLA's 64-term reduction and its ``pow``
-round otherwise than the twin's ordered loop by a few ulps, which the
+K7 (``solar_wind_pl``)'s plain twin, whose powers are ``exp(y log x)``,
+against the reference's ``solar_wind_geometry_pl``
+(``pint_tpu/models/solar_wind.py:50-70``, ``jnp.power``) at power-law
+indices 1.5, 2, 2.5, 3 and 4.4 and elongations from 1 to 179 degrees,
+within 1e-13 of the uncancelled magnitude A (I_inf + |I|) (and 1e-13 rel
+below 150 degrees: XLA's 64-term reduction and its ``pow`` round
+otherwise than the twin's ordered loop by a few ulps, which the
 cancellation of I_inf + I near opposition magnifies); its partials in
 theta and p through ``torch.func`` against ``jax.jacfwd``; per-window
 indices with TOAs outside every window.  The components against the
@@ -41,7 +42,7 @@ THETA = np.radians(np.linspace(1.0, 179.0, 97))
 R = np.linspace(490.0, 510.0, 97)
 
 
-@pytest.mark.parametrize("p", [1.5, 2.0, 2.5, 4.4])
+@pytest.mark.parametrize("p", [1.5, 2.0, 2.5, 3.0, 4.4])
 def test_geometry_twin_matches_reference(p):
     from pint_tpu.models.solar_wind import solar_wind_geometry_pl
 

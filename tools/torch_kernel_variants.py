@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time design variants of the port's K1-K5 kernels on the GPU.
+"""Time design variants of the port's K1-K7 kernels on the GPU.
 
 Each variant is the committed kernel source with one textual change: it is
 built with the kernels' own nvcc flags into ``pint_torch/_build/variants/``,
@@ -8,9 +8,9 @@ is timed with CUDA events against the committed source on the same inputs,
 in two rounds (the second in reverse order), with its outputs checked
 bitwise against the committed kernel's (K5's, which round differently, to
 its twin's bars).  With ``--parent DIR`` (an unpacked earlier tree of the
-repository) that tree's K1, K2 and K5 sources run beside them as the
-variant ``parent``.  The variants record the design choices of the
-kernels:
+repository) that tree's sources run beside them as the variant
+``parent`` (a parent that built K7 with contraction on is built so).  The
+variants record the design choices of the kernels:
 
 * K2 ``dd_binary_primal`` on the B1855 stand-in's main-path inputs
   (captured from its GLS fit and M2 x SINI grid, B=256, N=4005) and on the
@@ -57,11 +57,32 @@ kernels:
   ``trail-only`` skip the fold's trailing updates or its panels (timings
   of the two halves of the fold, outputs not checked), and ``acc=1`` sums
   a slice's U^T T in one chain of dependent mma's instead of four
-  independent ones.
+  independent ones;
+* K7 (``--only K7``) ``solar_wind_pl_primal`` and ``_dual`` on the pta
+  stand-in's main-path calls (captured from its GLS fit and KIN x KOM
+  grid, B=256, N=4005): ``pow`` puts the parent's ``pow(cp, p - 2)``
+  back in the node loop (its d/dp term then takes its own logarithm),
+  ``sin-and-cos`` calls ``sin()`` and ``cos()`` apart where the kernel
+  takes each pair from one ``sincos()``, ``staged`` (dual) writes the
+  block's partials through shared memory as one contiguous run instead of
+  each thread's three straight to the output, ``lb9`` holds the kernel to
+  9 blocks an SM (``__launch_bounds__``, 56 registers), ``threads-64``
+  launches blocks of 64 threads; the geometry bitwise as committed but
+  for ``pow`` and the parent, whose powers round otherwise (within 1e-13
+  of each value);
+* K6 (``--only K6``) each form's dual on its path's largest call (FBX on
+  the bw stand-in's fit and FB0 x FB1 grid, B=256, N=4005; ORBWAVES on
+  an FBX base on bw_waves', on a PB base on small_dd_fbx's fit) and the
+  FBX primal: ``loop-stores`` writes the tile with the block's threads in
+  a coalesced loop, as K2's dual does, instead of one TMA bulk store;
+  ``strided-stores`` runs every width on the direct dual, each thread
+  writing its row straight to the output; orbits and pbprime bitwise.
+  The partials of K6 and K7 are held within 1e-10 of each column's
+  largest.
 
 Run on a machine with a CUDA GPU and nvcc, from the repository root::
 
-    python3 tools/torch_kernel_variants.py [--parent DIR] [--only K1,K2,K3,K4,K5]
+    python3 tools/torch_kernel_variants.py [--parent DIR] [--only K1,...,K7]
 """
 
 from __future__ import annotations
@@ -438,6 +459,73 @@ __device__ __forceinline__ void trail_column(double* T, double* R,
 """ + K5_FOLD_TILE),
 )
 
+# ---- K6, K7 -----------------------------------------------------------------
+K7_EXPLOG = """      const double lc = log(cp);
+      const double v = exp(pm2 * lc);
+"""
+#: the parent's node loop: pow(), its d/dp term taking its own logarithm
+K7_POW = (
+    (K7_EXPLOG, "      const double v = pow(cp, pm2);\n"),
+    ("acc_p = acc_p + wj[j] * (v * lc);",
+     "acc_p = acc_p + wj[j] * (v * log(cp));"),
+)
+#: sin() and cos() apart, where the kernel takes each pair from sincos()
+K7_SINCOS = (
+    ("      if constexpr (DUAL)\n        sincos(phi, &sp, &cp);\n"
+     "      else\n        cp = cos(phi);\n",
+     "      if constexpr (DUAL) sp = sin(phi);\n      cp = cos(phi);\n"),
+    ("    sincos(th, &st, &ct);\n", "    st = sin(th);\n    ct = cos(th);\n"),
+)
+#: the dual's partials staged through shared memory, the block's rows
+#: written as one contiguous run (K2's dual's way), in place of each
+#: thread's three stride-3 stores
+K7_STAGED = (
+    ("""  const long idx = (long)blockIdx.x * THREADS + threadIdx.x;
+  if (idx >= (long)B * N) return;
+  double* row = DUAL ? P + 3 * idx : nullptr;  // the element's partials
+""", """  __shared__ double rows[DUAL ? 3 * THREADS : 1];
+  const long first = (long)blockIdx.x * THREADS;
+  const long idx = first + threadIdx.x;
+  const long total = (long)B * N;
+  double* row = rows + (DUAL ? 3 * threadIdx.x : 0);
+  if (idx < total) {
+"""),
+    ("      row[2] = a;\n    }\n  }\n}\n",
+     """      row[2] = a;
+    }
+  }
+  }
+  if constexpr (DUAL) {
+    __syncthreads();
+    const long n = (total - first < THREADS ? total - first : THREADS) * 3;
+    double* out = P + first * 3;
+    for (long e = threadIdx.x; e < n; e += THREADS) out[e] = rows[e];
+  }
+}
+"""),
+)
+#: the kernel held to 9 blocks of 128 threads an SM (56 registers)
+K7_LB9 = ("template <bool DUAL>\n__global__ void solar_wind_pl_kernel(",
+          "template <bool DUAL>\n__global__ void __launch_bounds__(THREADS, 9)"
+          "\nsolar_wind_pl_kernel(")
+#: blocks of 64 threads in place of 128
+K7_T64 = ("constexpr int THREADS = 128;", "constexpr int THREADS = 64;")
+K6_BULK = (
+    """    asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");
+    __syncthreads();
+    if (threadIdx.x == 0)
+      bulk_store(P + first * row, tile, (unsigned)(rows * row * 8));
+""")
+#: the tile written by the block's threads in a coalesced loop, as K2's
+#: dual writes its partials, in place of the TMA bulk store
+K6_LOOP = """    __syncthreads();
+    double* out = P + first * row;
+    for (long e = threadIdx.x; e < rows * row; e += blockDim.x)
+      out[e] = tile[e];
+"""
+#: every width on the direct dual: each row straight to the output
+K6_DIRECT = ("  if (smem > max_smem()) {", "  if (true) {")
+
 #: ptxas markers printed per kernel source
 MARKERS = {
     "dd_binary": ["dd_binary_primalILi0E", "dd_binary_dualILi0E"],
@@ -448,6 +536,13 @@ MARKERS = {
     "schur_cholesky_solve": ["kernelILb1E", "kernelILb0E"],
     "wls_lstsq": ["wls_tsqr_fold", "wls_tsqr_svd", "wls_lstsq_global",
                   "wls_lstsq_kernel"],
+    "solar_wind_pl": ["solar_wind_pl_kernelILb0E",
+                      "solar_wind_pl_kernelILb1E"],
+    "binary_orbits": ["binary_orbits_dualILi0ELb1E",
+                      "binary_orbits_dualILi0ELb0E",
+                      "binary_orbits_dualILi2ELb1E",
+                      "binary_orbits_dualILi1ELb1E",
+                      "binary_orbits_kernelILi0ELb1E"],
 }
 
 
@@ -465,7 +560,22 @@ def _variants(parent):
     k2 = (CSRC / "dd_binary.cu").read_text()
     k3 = (CSRC / "schur_cholesky_solve.cu").read_text()
     k5 = (CSRC / "wls_lstsq.cu").read_text()
+    k6 = (CSRC / "binary_orbits.cu").read_text()
+    k7 = (CSRC / "solar_wind_pl.cu").read_text()
     out = {
+        "solar_wind_pl": {
+            "committed": k7,
+            "pow": _patch(k7, *K7_POW),
+            "sin-and-cos": _patch(k7, *K7_SINCOS),
+            "staged": _patch(k7, *K7_STAGED),
+            "lb9": _patch(k7, K7_LB9),
+            "threads-64": _patch(k7, K7_T64),
+        },
+        "binary_orbits": {
+            "committed": k6,
+            "loop-stores": _patch(k6, (K6_BULK, K6_LOOP)),
+            "strided-stores": _patch(k6, K6_DIRECT),
+        },
         "ell1_binary": {"committed": (CSRC / "ell1_binary.cu").read_text()},
         "dd_binary": {
             "committed": k2,
@@ -512,7 +622,7 @@ def _variants(parent):
     if parent is not None:
         pc = Path(parent) / "pint_torch" / "kernels" / "csrc"
         for kernel in ("dd_binary", "spin_phase", "wls_lstsq",
-                       "ell1_binary"):
+                       "ell1_binary", "solar_wind_pl", "binary_orbits"):
             out[kernel]["parent"] = (pc / f"{kernel}.cu").read_text()
         out["wls_lstsq"]["parent-qr-only"] = _patch(
             out["wls_lstsq"]["parent"],
@@ -610,11 +720,11 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", help="an unpacked earlier tree whose K1, K2 "
-                    "and K5 sources run as the variant 'parent'")
+    ap.add_argument("--parent", help="an unpacked earlier tree whose "
+                    "kernel sources run as the variant 'parent'")
     ap.add_argument("--only", default="K1,K2,K3,K5",
-                    help="comma-separated subset of K1,K2,K3,K4,K5 (K4: "
-                    "its ELL1 primal and dual against --parent's)")
+                    help="comma-separated subset of K1,K2,K3,K4,K5,K6,K7 "
+                    "(K4: its ELL1 primal and dual against --parent's)")
     args = ap.parse_args()
     only = set(args.only.split(","))
     if not torch.cuda.is_available():
@@ -631,7 +741,8 @@ def main() -> int:
     work.mkdir(parents=True, exist_ok=True)
     wanted = {"K1": "spin_phase", "K2": "dd_binary",
               "K3": "schur_cholesky_solve", "K4": "ell1_binary",
-              "K5": "wls_lstsq"}
+              "K5": "wls_lstsq", "K6": "binary_orbits",
+              "K7": "solar_wind_pl"}
     procs, libs = {}, {}
     #: K2 sources from before its modes (a parent tree): the launch takes
     #: no mode and no per-TOA inputs; K2 and K4 sources from before their
@@ -640,6 +751,11 @@ def main() -> int:
     no_orbits = set()
     all_variants = _variants(args.parent)
     variants_src = all_variants.get("dd_binary", {})
+    #: a parent that built K7 with contraction on (for its pow()) builds
+    #: it so here too
+    contracted = args.parent is not None and "CONTRACTED = (\"solar_wind_pl" \
+        in (Path(args.parent) / "pint_torch" / "kernels" /
+            "_build.py").read_text()
     for kernel, variants in all_variants.items():
         if kernel not in {wanted[k] for k in only}:
             continue
@@ -650,8 +766,12 @@ def main() -> int:
                 no_orbits.add((kernel, name))
             cu = work / f"{kernel}-{name}.cu"
             cu.write_text(src)
+            flags = _build.NVCC_FLAGS
+            if contracted and kernel == "solar_wind_pl" and name == "parent":
+                flags = tuple("-fmad=true" if f == "-fmad=false" else f
+                              for f in flags)
             procs[(kernel, name)] = subprocess.Popen(
-                [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(CSRC), "-o",
+                [_build._nvcc(), *flags, "-I", str(CSRC), "-o",
                  str(cu.with_suffix(".so")), str(cu)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     for (kernel, name), proc in procs.items():
@@ -862,6 +982,9 @@ def main() -> int:
 
     if "K5" in only:
         k5_variants(libs, card, dev, vp, ci, stream, ptr)
+
+    if only & {"K6", "K7"}:
+        k6_k7_variants(libs, only, card, dev, vp, ci, stream, ptr)
     return 0
 
 
@@ -953,6 +1076,150 @@ def k5_variants(libs, card, dev, vp, ci, stream, ptr):
         print(f"round {rnd} wls_lstsq P={P} N={N} k={k} {label}: "
               f"{_time_ms(run, 5):.4f} ms; sweeps mean {float(swp.mean()):.4f}"
               f"; {check} [{card}]", flush=True)
+
+
+def _path_capture(path, modules):
+    """The calls of ``modules``' kernels on one stand-in's main path --
+    the fit the reference ran (GLS with correlated noise, else WLS, at the
+    snapshot's ``maxiter``), then its grid where it has one --, captured
+    as ``chip_smoke.py`` does (the largest call of each)."""
+    sys.path.insert(0, str(REPO))
+    from chip_smoke import Capture, _grid_of
+    from pint_torch.bridge import load_snapshot, read_snapshot
+    from pint_torch.fitter import WLSFitter
+    from pint_torch.gls_fitter import GLSFitter
+    from pint_torch.grid import grid_chisq
+
+    meta, ref = read_snapshot(path)
+    settings = meta["reference"]["settings"]
+    cap = Capture(modules)
+    cap.install()
+    try:
+        model, batch = load_snapshot(path, device="cuda")
+        fitter = (GLSFitter if model.has_correlated_errors
+                  else WLSFitter)(batch, model)
+        fitter.fit_toas(maxiter=settings["fit_maxiter"])
+        grid = _grid_of(meta, ref)
+        if grid is not None:
+            grid_chisq(fitter, *grid, niter=settings["grid_niter"],
+                       chunk=256)
+    finally:
+        cap.remove()
+    return cap
+
+
+def _col_rel(a, b) -> float:
+    """Largest gap of ``a`` to ``b`` over each last-axis column's largest
+    |b| (the partials' bar)."""
+    a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+    return float(((a - b).abs().amax(dim=0)
+                  / b.abs().amax(dim=0).clamp(min=1e-300)).max())
+
+
+def k6_k7_variants(libs, only, card, dev, vp, ci, stream, ptr):
+    """K7 on the pta path's calls and K6's three duals (FBX on bw, waves on
+    an FBX base on bw_waves, on a PB base on small_dd_fbx) and FBX primal,
+    each variant beside the committed source in two rounds: the geometry,
+    orbits and pbprime bitwise as committed (``pow`` and the parent's K7,
+    whose powers round otherwise, within 1e-13 of each value), the
+    partials within 1e-10 of each column's largest."""
+    import torch
+
+    from pint_torch.bridge import (BW_PATH, BW_WAVES_PATH,
+                                   DD_FBX_SMALL_PATH, PTA_PATH)
+    from pint_torch.kernels import binary_orbits as K6
+    from pint_torch.kernels import solar_wind_pl as K7
+
+    def run_all(label, kernel, names, make_run, n_exact, loose=()):
+        runs, ref = {}, None
+        for name in names:
+            run, outs = make_run(libs[(kernel, name)])
+            if run() != 0:
+                raise SystemExit(f"{kernel} {name}: launch failed")
+            torch.cuda.synchronize()
+            outs = [o.clone() for o in outs]
+            if ref is None:
+                ref = outs
+            exact = all(torch.equal(a, b)
+                        for a, b in zip(outs[:n_exact], ref[:n_exact]))
+            gap = max((float(((a - b).abs() / b.abs().clamp(
+                min=1e-300)).max()) for a, b in
+                zip(outs[:n_exact], ref[:n_exact])), default=0.0)
+            prel = max((_col_rel(a, b) for a, b in
+                        zip(outs[n_exact:], ref[n_exact:])), default=0.0)
+            ok = (exact or (name in loose and gap <= 1e-13)) \
+                and prel <= 1e-10
+            runs[name] = (run, f"bitwise as committed {exact}, max rel "
+                          f"{gap:.3e}, partials max rel {prel:.3e}")
+            if not ok:
+                raise SystemExit(f"{label} {name} misses its bars: "
+                                 f"{runs[name][1]}")
+        for rnd, name in _rounds(names):
+            run, note = runs[name]
+            print(f"round {rnd} {label} {name}: {_time_ms(run):.4f} ms, "
+                  f"{note} [{card}]", flush=True)
+
+    if "K7" in only:
+        cap = _path_capture(PTA_PATH, {"solar_wind_pl": K7})
+        names = [n for k, n in libs if k == "solar_wind_pl"]
+        for partials in (False, True):
+            r, th, p, ii, win, _ = cap.args("solar_wind_pl", partials)
+            B, N = th.shape
+            w32 = None if win is None else win.to(torch.int32).contiguous()
+            gl = K7._gl(dev)
+            geom = torch.empty(B, N, dtype=torch.float64, device=dev)
+            P = torch.empty(B, N, 3, dtype=torch.float64, device=dev) \
+                if partials else None
+
+            def make_run(lib, r=r, th=th, p=p, ii=ii, w32=w32, B=B, N=N,
+                         geom=geom, P=P):
+                fn = lib.solar_wind_pl_launch
+                fn.argtypes = [vp] * 6 + [ci] * 3 + [vp] * 3
+                fn.restype = ci
+                return (lambda: fn(ptr(r), ptr(th), ptr(p), ptr(ii),
+                                   ptr(w32), ptr(gl), B, N, p.shape[1],
+                                   ptr(geom), ptr(P), stream),
+                        [geom] + ([P] if partials else []))
+
+            vs = [n for n in names if partials or n != "staged"]
+            inside = N if win is None else int((win >= 0).sum())
+            run_all(f"{K7.KERNELS[partials]} pta B={B} N={N} ({inside} "
+                    "TOAs in a window)", "solar_wind_pl", vs, make_run, 1,
+                    loose=("pow", "parent"))
+
+    if "K6" in only:
+        names = [n for k, n in libs if k == "binary_orbits"]
+        for form, path, label in ((K6.FBX, BW_PATH, "bw"),
+                                  (K6.WAVES_FBX, BW_WAVES_PATH, "bw_waves"),
+                                  (K6.WAVES_PB, DD_FBX_SMALL_PATH,
+                                   "small_dd_fbx")):
+            cap = _path_capture(path, {"binary_orbits": K6})
+            for partials in ((False, True) if form == K6.FBX else (True,)):
+                tt0, coef, _, nfb, nw, off, _ = cap.args(
+                    "binary_orbits", (form, partials))
+                B, N = tt0.shape
+                o = torch.empty(B, N, dtype=torch.float64, device=dev)
+                pb = torch.empty_like(o)
+                P = torch.empty(B, N, 2, 1 + coef.shape[1],
+                                dtype=torch.float64, device=dev) \
+                    if partials else None
+
+                def make_run(lib, tt0=tt0, coef=coef, nfb=nfb, nw=nw,
+                             off=off, B=B, N=N, o=o, pb=pb, P=P, form=form):
+                    fn = lib.binary_orbits_launch
+                    fn.argtypes = [vp, vp, ci, ci, ci, ci, ci,
+                                   ctypes.c_double, vp, vp, vp, vp]
+                    fn.restype = ci
+                    return (lambda: fn(ptr(tt0), ptr(coef), B, N, form, nfb,
+                                       nw, off, ptr(o), ptr(pb), ptr(P),
+                                       stream),
+                            [o, pb] + ([P] if partials else []))
+
+                vs = names if partials else \
+                    [n for n in names if n in ("committed", "parent")]
+                run_all(f"{K6.KERNELS[(form, partials)]} {label} B={B} "
+                        f"N={N} nfb={nfb} nwaves={nw}", "binary_orbits", vs,
+                        make_run, 2)
 
 
 if __name__ == "__main__":
