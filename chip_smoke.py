@@ -103,7 +103,26 @@ Phases, one line each:
    the joint chi2 1e-6 rel; for a fit with free noise parameters each
    round's L-BFGS-B iterations and converged flag, its lnlike 1e-9 rel,
    the noise values within 1e-2 of their uncertainties and the timing
-   uncertainties 1e-4 rel.  Then the Kepler phase: ``kepler_2d``,
+   uncertainties 1e-4 rel.  After its bars, each path whose snapshot
+   holds the fitter, residuals, model and grid API's reference outputs
+   (``ref/api/``: b1855, ell1, ngc, bt, bw, pta, b1855_wb, b1855_noise,
+   small_wb) runs an api phase, counts zeroed around it, one line per
+   entry point with its wall s and launches: ``d_delay_d_param``
+   (b1855's M2, PB, A1, FD1, DMX_0001; ell1's EPS1, A1 and the frozen
+   TASC; bw's FB1; pta's SWXDM_0001: 1e-10 of the column's largest), the
+   derived parameters at the snapshot's values (1e-12 rel, sigmas 1e-10)
+   and after the first fit (1e-2 sigma, sigmas 1e-6 rel), the labelled
+   covariance (labels, diagonal 1e-6 rel, correlations 1e-6 abs),
+   ``update_model``'s fields, the report's lines, the residual statistics
+   (1e-10 s; ECORR epochs exactly, errors 1e-12 rel; the Taylor
+   frequency 1e-13 rel), ``tuple_chisq`` at 37 points and
+   ``grid_chisq_derived`` on a 16x16 (Mc, cos i) grid with ``doonefit``
+   (chi2 1e-6 rel, argmin, rungs, refit values 1e-2 sigma),
+   ``ModelState.predicted_chi2`` (1e-6 rel), ``PowellFitter`` on ngc and
+   bt (chi2 1e-6 rel, values 1e-2 sigma, converged; its evaluations and
+   ms per evaluation), on wideband TOAs the dispersion slope and the DM
+   covariance (1e-13 rel) and the ``full_cov`` wideband downhill fit on
+   small_wb; each path's api kernels must have launched.  Then the Kepler phase: ``kepler_2d``,
    ``kepler_3d`` and ``kepler_two_body`` with their ``jacfwd`` Jacobians
    on the card, on the orbits of ``kepler_reference.npz`` (e 0-0.95, one
    exactly circular) against the reference's values (1e-13 of each
@@ -817,6 +836,303 @@ def _bars(label, out):
             raise RuntimeError(f"bar failed ({label}): {what}")
 
 
+#: the API's refit parameters the grids report (the exporter's API_EXTRA)
+API_EXTRA = ("A1", "PB")
+
+
+def _derived_m2(mc, cosi):
+    return mc
+
+
+def _derived_sini(mc, cosi):
+    import numpy as np
+
+    return np.sqrt(1.0 - cosi**2)
+
+
+def _api_phase(label, out, kernels, tag) -> dict:
+    """The fitter, residuals, model and grid API on one path, against the
+    reference's outputs under the snapshot's ``ref/api/``; launch counts
+    zeroed just before and read just after, each entry point's wall s
+    (after synchronize) and its launches printed on a line of its own.
+    Bars: ``d_delay_d_param`` 1e-10 of the column's largest; the derived
+    parameters at the snapshot's values 1e-12 rel (sigmas 1e-10 rel),
+    after the first fit within 1e-2 of their sigma (sigmas 1e-6 rel);
+    the covariance's labels, diagonal 1e-6 rel, correlations 1e-6 abs;
+    ``update_model``'s START, FINISH and NTOA exact, CHI2, CHI2R, TRES and
+    DMRES 1e-6 rel, DMDATA equal; the report's lines; the residual
+    statistics 1e-10 s (the phase mean 1e-10 s x F0), the ECORR epochs
+    exactly and their errors 1e-12 rel, the Taylor frequency and the basis
+    weights 1e-13 rel; ``predicted_chi2`` 1e-6 rel; Powell's chi2 1e-6 rel,
+    values 1e-2 sigma and converged flag; the tuple and derived grids'
+    chi2 1e-6 rel with argmin and rungs, refit values 1e-2 sigma;
+    ``doonefit`` likewise; the wideband downhill fit with ``full_cov`` at
+    the fit bars; on wideband TOAs the dispersion slope and the DM
+    covariance 1e-13 rel (against the reference's total DM and scaled DM
+    errors).  Returns the phase's launch counts."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from pint_torch import fitter as PF
+    from pint_torch.gls_fitter import DownhillGLSFitter
+    from pint_torch.grid import doonefit, grid_chisq_derived, tuple_chisq
+    from pint_torch.wideband import WidebandDownhillFitter
+
+    meta, ref = out["meta"], out["ref"]
+    rr = meta["reference"]
+    api = rr["api"]
+    f = out["fitter"]
+    model, batch = f.model_init, f.batch
+    P = "ref/api/"
+    checks, lines = [], []
+    kernels.reset_counts()
+    last = dict(kernels.launch_counts())
+
+    def entry(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        now = kernels.launch_counts()
+        d = {k: now[k] - last[k] for k in now if now[k] != last[k]}
+        last.update(now)
+        lines.append((name, wall, d))
+        return res
+
+    def rel(a, b):
+        return abs(float(a) / float(b) - 1)
+
+    def check(ok, what):
+        checks.append((bool(ok), what))
+
+    for key in sorted(k for k in ref if k.startswith(P + "d_delay/")):
+        p = key.rsplit("/", 1)[1]
+        got = entry(f"d_delay_d_param({p})",
+                    lambda: model.d_delay_d_param(batch, p)).cpu().numpy()
+        want = ref[key]
+        gap = float(np.abs(got - want).max() / np.abs(want).max())
+        check(gap <= 1e-10, f"d_delay_d_param({p})")
+        lines[-1] += (f"max|d| {gap:.3e} of the column's largest",)
+
+    def derived_bars(d, key, post):
+        keys = api[f"{key}_keys"]
+        vals, sigs = ref[f"{P}{key}_values"], ref[f"{P}{key}_sigmas"]
+        check([k for k in d if k != "Binary"] == keys
+              and d.get("Binary") == api[f"{key}_binary"], f"{key} keys")
+        worst = 0.0
+        for k, v, s_ in zip(keys, vals, sigs):
+            gv, gs = d[k]
+            if post and s_:
+                dv = abs(float(gv) - v) / s_
+                ok = dv <= 1e-2 and abs(gs / s_ - 1) <= 1e-6
+            else:
+                dv = abs(float(gv) - v) / max(abs(v), 1e-300)
+                ok = dv <= (1e-6 if post else 1e-12) and (
+                    abs(gs - s_) <= 1e-10 * abs(s_))
+            worst = max(worst, dv)
+            check(ok, f"{key} {k}")
+        return worst
+
+    if "update_model" in api:
+        d = entry("get_derived_params(snapshot values)",
+                  lambda: model.get_derived_params(returndict=True)[1])
+        lines[-1] += (f"values max rel {derived_bars(d, 'derived_pre', False):.3e}",)
+        um = api["update_model"]
+        fm = f.model
+        check(fm["START"].value == (um["START"], 0.0)
+              and fm["FINISH"].value == (um["FINISH"], 0.0)
+              and fm["NTOA"].value == um["NTOA"]
+              and fm["DMDATA"].value == um["DMDATA"], "update_model exact")
+        for k in ("CHI2", "CHI2R", "TRES", "DMRES"):
+            check((fm[k].value is None) == (um[k] is None) and (
+                um[k] is None or rel(fm[k].value, um[k]) <= 1e-6),
+                f"update_model {k}")
+        cov = entry("parameter_covariance_matrix",
+                    lambda: f.parameter_covariance_matrix)
+        corr = f.get_parameter_correlation_matrix().matrix
+        dd = float(np.abs(np.diag(cov.matrix) / np.diag(ref[P + "cov"])
+                          - 1).max())
+        dc = float(np.abs(corr - ref[P + "corr"]).max())
+        check(cov.get_label_names(axis=0) == api["cov_labels"], "cov labels")
+        check(dd <= 1e-6 and dc <= 1e-6, "covariance")
+        lines[-1] += (f"diagonal max rel {dd:.3e}, correlations max|d| "
+                      f"{dc:.3e}",)
+        d = entry("get_derived_params(after the fit)",
+                  lambda: f.get_derived_params(returndict=True)[1])
+        lines[-1] += (f"values max {derived_bars(d, 'derived_post', True):.3e} sigma",)
+        text = entry("get_summary", f.get_summary)
+        num = re.compile(r"(?<![A-Za-z_\d.])[-+]?\d+\.?\d*(?:[eE][-+]?\d+)?")
+
+        def skel(t):
+            return [" ".join(num.sub("#", x).split()) for x in t.splitlines()]
+
+        check(skel(text) == skel(api["summary"]), "summary lines")
+    if "rms_weighted" in api:
+        r = f.resids
+        F0 = f.model.value("F0")
+        got = entry("rms_weighted, calc_time_mean, calc_phase_mean",
+                    lambda: (r.rms_weighted(), r.calc_time_mean(),
+                             r.calc_phase_mean()))
+        want = (api["rms_weighted"], api["time_mean"], api["phase_mean"])
+        gaps = [abs(a - b) for a, b in zip(got, want)]
+        check(gaps[0] <= 1e-10 and gaps[1] <= 1e-10
+              and gaps[2] <= 1e-10 * F0, "rms and means")
+        w = entry("calc_whitened_resids",
+                  lambda: r.calc_whitened_resids() * r.get_data_error())
+        dw = float(np.abs(w.cpu().numpy() - ref[P + "whitened_times_sigma"])
+                   .max())
+        nr = entry("noise_resids", r.noise_resids)
+        dn = max(float(np.abs(v.cpu().numpy()
+                              - ref[f"{P}noise_resids/{k}"]).max())
+                 for k, v in nr.items())
+        check(dw <= 1e-10 and dn <= 1e-10 and len(nr) == len(
+            [k for k in ref if k.startswith(P + "noise_resids/")]),
+            "whitened residuals and noise realizations")
+        fr_ = entry("get_PSR_freq(taylor)",
+                    lambda: r.get_PSR_freq("taylor")).cpu().numpy()
+        df = float(np.abs(fr_ / ref[P + "psr_freq_taylor"] - 1).max())
+        wb = model.full_basis_weight(batch)
+        dwb = float(np.abs(wb / ref[P + "full_basis_weight"] - 1).max())
+        ea = entry("ecorr_average", r.ecorr_average)
+        idx = np.concatenate([np.asarray(i, dtype=np.int64)
+                              for i in ea["indices"]])
+        de = float(np.abs(ea["time_resids"].cpu().numpy()
+                          - ref[P + "ecorr_time_resids"]).max())
+        der = float(np.abs(ea["errors"].cpu().numpy()
+                           / ref[P + "ecorr_errors"] - 1).max())
+        check(df <= 1e-13 and dwb <= 1e-13, "Taylor frequency, weights")
+        check(np.array_equal(idx, ref[P + "ecorr_indices"])
+              and np.array_equal([len(i) for i in ea["indices"]],
+                                 ref[P + "ecorr_index_counts"])
+              and de <= 1e-10 and der <= 1e-12, "ecorr_average")
+        lines[-1] += (f"rms/means max|d| {max(gaps[:2]):.3e} s, whitened x "
+                      f"sigma {dw:.3e} s, noise realizations {dn:.3e} s, "
+                      f"Taylor frequency rel {df:.3e}, epoch averages "
+                      f"{de:.3e} s, errors rel {der:.3e}",)
+    if P + "tuple_chi2" in ref:
+        niter = rr["settings"]["grid_niter"]
+        sig = api["errors"]
+        pts = ref[P + "tuple_points"]
+        c2, ex = entry("tuple_chisq", lambda: tuple_chisq(
+            f, ("M2", "SINI"), pts, extraparnames=API_EXTRA, niter=niter,
+            chunk=256))
+        rungs = f.last_grid_diagnostics["ladder_rung"]
+        d2 = float(np.abs(c2 / ref[P + "tuple_chi2"] - 1).max())
+        dx = max(float(np.abs((ex[k] - ref[f"{P}tuple_extra/{k}"])
+                              / sig[k]).max()) for k in API_EXTRA)
+        check(d2 <= 1e-6 and dx <= 1e-2
+              and np.argmin(c2) == np.argmin(ref[P + "tuple_chi2"])
+              and np.array_equal(rungs, ref[P + "tuple_rungs"]),
+              "tuple_chisq")
+        lines[-1] += (f"{len(pts)} tuples, chi2 max rel {d2:.3e}, refit "
+                      f"max {dx:.3e} sigma, rungs {sorted(set(rungs.tolist()))}",)
+        mc, cosi = ref[P + "derived_mc"], ref[P + "derived_cosi"]
+        c2, _, ex = entry("grid_chisq_derived", lambda: grid_chisq_derived(
+            f, ("M2", "SINI"), (_derived_m2, _derived_sini), (mc, cosi),
+            extraparnames=API_EXTRA, niter=niter, chunk=256))
+        rungs = f.last_grid_diagnostics["ladder_rung"].ravel()
+        d2 = float(np.abs(c2.ravel() / ref[P + "derived_chi2"] - 1).max())
+        dx = max(float(np.abs((ex[k].ravel() - ref[f"{P}derived_extra/{k}"])
+                              / sig[k]).max()) for k in API_EXTRA)
+        check(d2 <= 1e-6 and dx <= 1e-2
+              and np.argmin(c2) == np.argmin(ref[P + "derived_chi2"])
+              and np.array_equal(rungs, ref[P + "derived_rungs"]),
+              "grid_chisq_derived")
+        lines[-1] += (f"{c2.shape[0]}x{c2.shape[1]} (Mc, cos i) -> (M2, "
+                      f"SINI), chi2 max rel {d2:.3e}, refit max {dx:.3e} "
+                      f"sigma",)
+        if "doonefit_chi2" in api:
+            c1, ex = entry("doonefit", lambda: doonefit(
+                f, ("M2", "SINI"), pts[0], extraparnames=API_EXTRA,
+                maxiter=rr["settings"]["fit_maxiter"]))
+            d1 = rel(c1, api["doonefit_chi2"])
+            dx = max(abs(a - b) / sig[k] for k, a, b in
+                     zip(API_EXTRA, ex, ref[P + "doonefit_extra"]))
+            check(d1 <= 1e-6 and dx <= 1e-2, "doonefit")
+            lines[-1] += (f"chi2 rel {d1:.3e}, refit max {dx:.3e} sigma",)
+    if "predicted_chi2" in api:
+        cls = {"b1855": "GLSState", "b1855_wb": "WidebandState"}.get(
+            label, "WLSState")
+        fc = {"GLSState": DownhillGLSFitter,
+              "WidebandState": WidebandDownhillFitter}.get(
+                  cls, PF.DownhillWLSFitter)
+        st = getattr(PF, cls)(fc(batch, model), model)
+        got = entry(f"{cls}.predicted_chi2", lambda: (
+            st.chi2, st.predicted_chi2(lambda_=1.0),
+            st.predicted_chi2(lambda_=0.5)))
+        want = (api["state_chi2"], *api["predicted_chi2"])
+        dp = max(rel(a, b) for a, b in zip(got, want))
+        check(dp <= 1e-6, f"{cls}.predicted_chi2")
+        lines[-1] += (f"chi2 and lambda 1, 0.5 max rel {dp:.3e}",)
+    if "powell" in api:
+        pw = api["powell"]
+        m = model.copy()
+        key = "postfit" if pw["start"] == "prefit" else "auto"
+        names = rr["postfit_params"]
+        for i, p in enumerate(names):
+            m[p].uncertainty = float(ref[f"ref/{key}_uncertainties"][i])
+            if key == "auto":
+                m[p].value = float(ref[f"ref/{key}_values"][i])
+        pf = PF.PowellFitter(batch, m)
+        c2 = entry("PowellFitter", lambda: pf.fit_toas(maxiter=pw["maxiter"]))
+        sig = ref[f"ref/{key}_uncertainties"]
+        dv = float(np.abs((np.array([pf.model.value(p) for p in names])
+                           - ref[P + "powell_values"]) / sig).max())
+        dc = rel(c2, pw["chi2"])
+        check(dc <= 1e-6 and dv <= 1e-2 and pf.converged == pw["converged"],
+              "PowellFitter")
+        wall = lines[-1][1]
+        lines[-1] += (f"maxiter {pw['maxiter']}, {pf.nfev} evaluations vs "
+                      f"{pw['nfev']}, {pf.nit} iterations vs {pw['nit']}, "
+                      f"converged {pf.converged} vs {pw['converged']}, "
+                      f"{wall / pf.nfev * 1e3:.3f} ms per evaluation, chi2 "
+                      f"rel {dc:.3e}, values max {dv:.3e} sigma",)
+    if batch.wideband:
+        from pint_torch.models.dispersion_model import DMconst
+
+        slope = entry("total_dispersion_slope",
+                      lambda: model.total_dispersion_slope(batch))
+        dcov = entry("dm_covariance_matrix",
+                     lambda: model.dm_covariance_matrix(batch))
+        ds = float(np.abs(slope.cpu().numpy()
+                          / (ref["ref/total_dm"] * DMconst) - 1).max())
+        dc = float(np.abs(torch.diagonal(dcov).cpu().numpy()
+                          / ref["ref/scaled_dm_uncertainty"]**2 - 1).max())
+        check(ds <= 1e-13 and dc <= 1e-13, "DM slope and covariance")
+        lines[-1] += (f"slope max rel {ds:.3e}, covariance diagonal max rel "
+                      f"{dc:.3e}",)
+    if "downhill_full_cov" in api:
+        want = api["downhill_full_cov"]
+        wf = WidebandDownhillFitter(batch, model)
+        c2 = entry("WidebandDownhillFitter(full_cov)",
+                   lambda: wf.fit_toas(full_cov=True))
+        names = rr["postfit_params"]
+        sig = ref[P + "downhill_full_cov_uncertainties"]
+        dv = float(np.abs((np.array([wf.model.value(p) for p in names])
+                           - ref[P + "downhill_full_cov_values"]) / sig)
+                   .max())
+        du = float(np.abs(np.array([wf.model[p].uncertainty for p in names])
+                          / sig - 1).max())
+        dc = rel(c2, want["chi2"])
+        check(dc <= 1e-6 and dv <= 1e-2 and du <= 1e-6
+              and wf.converged == want["converged"]
+              and not wf.noise_ampls and not want["noise_ampls"],
+              "full_cov downhill fit")
+        lines[-1] += (f"chi2 rel {dc:.3e}, values max {dv:.3e} sigma, "
+                      f"uncertainties rel {du:.3e}",)
+    counts = kernels.launch_counts()
+    for name, wall, d, *note in lines:
+        print(f"phase api {label} {name}: {wall:.4f} s; launches {d}"
+              + (f"; {note[0]}" if note else "") + f" {tag}", flush=True)
+    for ok, what in checks:
+        if not ok:
+            raise RuntimeError(f"api bar failed ({label}): {what}")
+    return counts
+
+
 def _kepler_phase(path, tag) -> None:
     """The Kepler cores with their ``jacfwd`` Jacobians on the card, each
     on the snapshot's orbits in one batch, against the reference's values
@@ -1069,6 +1385,20 @@ def main() -> int:
         "b1855_noise": (*K1.KERNELS.values(), *k2[K2.DD]),
         "small_wb": (*K1.KERNELS.values(), *k2[K2.DD],
                      *K7.KERNELS.values())}
+    # the kernels each path's api phase must launch (the API's entry
+    # points on that path)
+    api_kernels = {
+        "b1855": (K1.KERNELS[False], *k2[K2.DD], K3.KERNELS[False]),
+        "ell1": (K1.KERNELS[False], K4.KERNELS[(K4.ELL1, False)],
+                 K4.KERNELS[(K4.ELL1, True)], *k5_tiled),
+        "ngc": (K1.KERNELS[False],),
+        "bt": (K1.KERNELS[False], K2.KERNELS[(K2.BT, False)]),
+        "bw": (K6.KERNELS[(K6.FBX, True)], k4_orbit[K4.ELL1][1]),
+        "pta": (K7.KERNELS[True], K2.KERNELS[(K2.DDK, True)]),
+        "b1855_wb": (*K1.KERNELS.values(), *k2[K2.DD]),
+        "b1855_noise": (K1.KERNELS[False], K2.KERNELS[(K2.DD, False)]),
+        "small_wb": (*K1.KERNELS.values(), *k2[K2.DD],
+                     *K7.KERNELS.values())}
     for label, path in (("b1855", STANDIN_PATH), ("dmx15", DMX15_PATH),
                         ("ell1", ELL1_PATH), ("ell1h", ELL1H_PATH),
                         ("ngc", NGC_PATH), ("ngc_phoff", NGC_PHOFF_PATH),
@@ -1089,6 +1419,12 @@ def main() -> int:
             raise RuntimeError(f"kernels never launched on the {label} main "
                                f"path: {missing}")
         _bars(label, out)
+        if "api" in out["meta"]["reference"]:
+            api_counts = _api_phase(label, out, kernels, tag)
+            missing = [k for k in api_kernels[label] if api_counts[k] == 0]
+            if missing:
+                raise RuntimeError(f"kernels never launched on the {label} "
+                                   f"api phase: {missing}")
         paths[label] = (counts, cap)
         del out
 

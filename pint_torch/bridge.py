@@ -9,7 +9,10 @@ pairs), each component's per-TOA context (DMX windows, mask selections),
 for a model with an absolute phase the TZR TOA's batch row and contexts
 under ``tzr/`` and, under ``ref/``, the reference package's own outputs
 on the same inputs, so a run can be checked where the reference does not
-run.
+run (those of the fitter, residuals, model and grid API under
+``ref/api/``).  The optional ``meta["top_level"]`` holds the model's own
+parameters (``TOP_LEVEL_PARAMS``: START and FINISH as (hi, lo) pairs) and
+the TOAs' ``ephem``; a snapshot without it loads with their defaults.
 
 This module reads snapshots only; the exporter needs the reference package
 and lives with the tests (``tests/test_torch_snapshot.py``).
@@ -160,7 +163,9 @@ def load_snapshot(path_or_dict: Union[str, Path, dict] = STANDIN_PATH,
     created on the device directly, in float64."""
     dev = resolve_device(device)
     meta, arrays = read_snapshot(path_or_dict)
-    batch = TOABatch.from_numpy(_batch_arrays(arrays, ""), dev)
+    top = {"PSR": meta.get("name") or None, **meta.get("top_level", {})}
+    batch = TOABatch.from_numpy(_batch_arrays(arrays, ""), dev,
+                                ephem=top.pop("ephem", None))
     comps = []
     for c in meta["components"]:
         cls = Component.component_types.get(c["class"])
@@ -186,6 +191,7 @@ def load_snapshot(path_or_dict: Union[str, Path, dict] = STANDIN_PATH,
             uncertainty=p.get("uncertainty"),
             continuous=bool(p.get("continuous", True)), key=p.get("key"),
             key_value=list(p.get("key_value") or []))
-    model = TimingModel(meta.get("name", ""), comps, params, dev)
+    model = TimingModel(meta.get("name", ""), comps, params, dev,
+                        top_level=top)
     model.validate()
     return model, batch

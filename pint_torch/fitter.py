@@ -1,11 +1,15 @@
-"""Fitters without correlated noise, the Levenberg-Marquardt fitter, and
-the dispatch to the fitter a model and its TOAs need (port of
-``pint_tpu/fitter.py``: ``Fitter.auto`` :78-92, the ``Fitter`` helpers
-with the Huber IRLS harness :113-180,283-297 and the maximum-likelihood
-noise fit :235-280; ``_wls_step`` :506-518, ``WLSFitter`` :520-585, the
-``DownhillFitter`` with its robust entry and its alternation of timing
-and noise fits :588-749, ``DownhillWLSFitter`` :752-759, ``LMFitter``
-:762-857; ``apply_Sdiag_threshold`` and ``fit_wls_svd`` :895-939; the
+"""Fitters without correlated noise, the Levenberg-Marquardt and Powell
+fitters, the dispatch to the fitter a model and its TOAs need, and the
+model states of a downhill fit (port of ``pint_tpu/fitter.py``:
+``Fitter.auto`` :78-92, the ``Fitter`` helpers with the Huber IRLS
+harness :113-180, ``update_model`` :207-232, the maximum-likelihood noise
+fit :235-280, the labelled covariance, the parameter accessors, the
+report and ``minimize_func`` :283-500; ``_wls_step`` :506-518,
+``WLSFitter`` :520-585, the ``DownhillFitter`` with its robust entry and
+its alternation of timing and noise fits :588-749, ``DownhillWLSFitter``
+:752-759, ``LMFitter`` :762-857, ``PowellFitter`` :858-887;
+``apply_Sdiag_threshold``, ``fit_wls_svd`` and the GLS normal-equation
+helpers :895-966; ``ModelState`` and its flavours :970-1079; the
 exceptions of ``pint_tpu/exceptions.py`` they raise).
 
 The WLS solve whitens the design matrix and residuals by the scaled TOA
@@ -15,7 +19,8 @@ below ``threshold * max`` are dropped with a :class:`DegeneracyWarning`
 that names the degenerate parameter combination.  The iteration (the
 downhill line search, parameter updates, the IRLS reweighting of
 ``robust="huber"``, the noise fit's L-BFGS-B) stays on the host, as in
-the reference.
+the reference.  Powell's search runs in scipy on the host, each of its
+evaluations one residual-and-chi2 pass on the model's device.
 """
 
 from __future__ import annotations
@@ -37,7 +42,9 @@ __all__ = ["Fitter", "WLSFitter", "DownhillFitter", "DownhillWLSFitter",
            "fit_wls_svd", "apply_Sdiag_threshold", "DegeneracyWarning",
            "CorrelatedErrors", "ConvergenceFailure", "StepProblem",
            "MaxiterReached", "NonFiniteSystemError", "UsageError",
-           "LMFitter"]
+           "LMFitter", "PowellFitter", "ModelState", "WLSState", "GLSState",
+           "WidebandState", "get_gls_mtcm_mtcy",
+           "get_gls_mtcm_mtcy_fullcov"]
 
 
 class UsageError(ValueError):
@@ -105,6 +112,10 @@ class Fitter:
         self.model_init = model
         self.model = model.copy()
         self.update_resids()
+        # the reference's prefit residuals (``fitter.py:60``): residuals of
+        # this fitter's own model, first read when the report asks, so
+        # after a fit they hold the fitted model's as the reference's do
+        self.resids_init = self.make_resids(self.model)
         self.method = "base"
         self.converged = False
         self.errors: Dict[str, float] = {}
@@ -119,6 +130,191 @@ class Fitter:
 
     def fit_toas(self, maxiter: int = 1, **kw) -> float:
         raise NotImplementedError
+
+    def update_model(self, chi2: Optional[float] = None) -> None:
+        """Stamp the fit's products and the TOAs' properties into the model
+        (reference ``fitter.py:207``): START, FINISH (the MJDs' float64
+        extremes), NTOA, EPHEM and DMDATA always; with ``chi2`` also CHI2,
+        CHI2R, TRES [us] and, wideband, DMRES."""
+        m = self.model
+        mjds = self.batch.mjds
+        if mjds is not None and len(mjds):
+            mjds = np.asarray(mjds, dtype=np.float64)
+            m["START"].value = (float(mjds.min()), 0.0)
+            m["FINISH"].value = (float(mjds.max()), 0.0)
+        m["NTOA"].value = self.batch.ntoas
+        if self.batch.ephem:
+            m["EPHEM"].value = self.batch.ephem
+        wideband = getattr(self, "is_wideband", False)
+        m["DMDATA"].value = "Y" if wideband else None
+        if chi2 is not None:
+            m["CHI2"].value = chi2
+            dof = self.resids.dof
+            m["CHI2R"].value = chi2 / dof if dof > 0 else None
+            rms = self.resids.rms_weighted()
+            if wideband:
+                m["TRES"].value = rms["toa"] * 1e6
+                m["DMRES"].value = rms["dm"]
+            else:
+                m["TRES"].value = rms * 1e6
+
+    # -- the labelled covariance (reference ``fitter.py:283-364``) -----------
+    @property
+    def parameter_covariance_matrix(self):
+        """The post-fit parameter covariance as a labelled
+        :class:`~pint_torch.pint_matrix.CovarianceMatrix` over the fitted
+        parameters (Offset first where fitted), or None before a fit."""
+        from pint_torch.pint_matrix import CovarianceMatrix
+
+        if self.covariance is None:
+            return None
+        labels = {p: (i, i + 1, "") for i, p in enumerate(self.fitted_params)}
+        return CovarianceMatrix(self.covariance, [labels, labels])
+
+    @property
+    def covariance_matrix(self):
+        return self.parameter_covariance_matrix
+
+    def get_parameter_correlation_matrix(self, pretty_print: bool = False):
+        cov = self.parameter_covariance_matrix
+        if cov is None:
+            return None
+        corr = cov.to_correlation_matrix()
+        if pretty_print:
+            print(corr.prettyprint())
+        return corr
+
+    def get_parameter_covariance_matrix(self, with_phase: bool = False):
+        """The labelled covariance, with the Offset row only when
+        ``with_phase``."""
+        cov = self.parameter_covariance_matrix
+        if cov is None or with_phase:
+            return cov
+        names = [n for n in cov.get_label_names(axis=0) if n != "Offset"]
+        return cov.get_label_matrix(names)
+
+    # -- parameter accessors (reference ``fitter.py:283-342``) ---------------
+    def get_fitparams(self) -> dict:
+        return {p: self.model[p].value for p in self.model.free_params}
+
+    def get_allparams(self) -> dict:
+        return {p: self.model[p].value for p in self.model.params}
+
+    def get_fitparams_num(self) -> dict:
+        return {p: self.model.value(p) for p in self.model.free_params}
+
+    def get_fitparams_uncertainty(self) -> dict:
+        return {p: self.model[p].uncertainty for p in self.model.free_params}
+
+    def get_params_dict(self, which: str = "free",
+                        kind: str = "quantity") -> dict:
+        names = self.model.free_params if which == "free" \
+            else self.model.params
+        if kind in ("quantity", "value"):
+            return {p: self.model[p].value for p in names}
+        if kind == "uncertainty":
+            return {p: self.model[p].uncertainty for p in names}
+        raise UsageError(f"Unknown kind {kind!r}")
+
+    def set_params(self, fitp: dict) -> None:
+        for p, v in fitp.items():
+            self.model[p].value = v
+
+    set_fitparams = set_params
+
+    def set_param_uncertainties(self, fitp: dict) -> None:
+        for p, v in fitp.items():
+            self.model[p].uncertainty = float(v)
+
+    def make_resids(self, model) -> Residuals:
+        """Residuals of this fitter's TOAs under any model."""
+        return Residuals(self.batch, model)
+
+    def reset_model(self) -> None:
+        """Forget the fit: the initial model and fresh residuals."""
+        self.model = self.model_init.copy()
+        self.converged = False
+        self.covariance = None
+        self.fitted_params = []
+        self.errors = {}
+        self.update_resids()
+
+    def ftest(self, parameter, component=None, remove: bool = False,
+              full_output: bool = False, maxiter: int = 1):
+        """The two-number form ``ftest(chi2_other, dof_other)``: the F-test
+        of another fit against this one (reference ``fitter.py:410-413``).
+        The forms that add or remove a parameter need the model editing
+        the port does not have yet."""
+        from pint_torch.utils import FTest
+
+        if isinstance(parameter, (int, float, np.integer, np.floating)) \
+                and isinstance(component,
+                               (int, float, np.integer, np.floating)):
+            return FTest(float(parameter), int(component),
+                         self.resids.chi2, self.resids.dof)
+        raise NotImplementedError(
+            "ftest's add and remove forms need add_param/remove_param on "
+            "the model, which the port does not have yet")
+
+    # -- the report (reference ``fitter.py:450-494``) ------------------------
+    def print_summary(self) -> None:
+        print(self.get_summary())
+
+    def _value_text(self, model, p) -> str:
+        par = model[p]
+        return str(model.epoch_value(p)) if par.kind == "mjd" \
+            else str(par.value)
+
+    def get_summary(self, nodmx: bool = True) -> str:
+        """The fit's report: method, TOAs and free parameters, pre- and
+        post-fit weighted rms, chi2, a row per free parameter (prefit,
+        postfit, uncertainty, units; DMX rows left out with ``nodmx``),
+        then :meth:`get_derived_params`."""
+        r = self.resids
+
+        def toa_rms(resids):
+            rms = resids.rms_weighted()
+            return rms["toa"] if isinstance(rms, dict) else rms
+
+        lines = [
+            f"Fitted model using {self.method} with "
+            f"{len(self.model.free_params)} free parameters to "
+            f"{self.batch.ntoas} TOAs",
+            f"Prefit residuals Wrms = {toa_rms(self.resids_init) * 1e6:.4f} "
+            f"us, Postfit residuals Wrms = {toa_rms(r) * 1e6:.4f} us",
+            f"Chisq = {r.chi2:.3f} for {r.dof} d.o.f. for reduced Chisq of "
+            f"{r.reduced_chi2:.3f}",
+            "",
+            f"{'PAR':<12} {'Prefit':>20} {'Postfit':>20} "
+            f"{'Uncertainty':>14} {'Units':>10}",
+        ]
+        for p in self.model.free_params:
+            if nodmx and p.startswith("DMX"):
+                continue
+            unc = self.errors.get(p)
+            lines.append(
+                f"{p:<12} {self._value_text(self.model_init, p):>20} "
+                f"{self._value_text(self.model, p):>20} "
+                f"{(f'{unc:.3g}' if unc is not None else '-'):>14} "
+                f"{self.model[p].units:>10}")
+        return "\n".join(lines) + "\n\n" + self.get_derived_params()
+
+    def get_derived_params(self, returndict: bool = False):
+        """The model's derived quantities, the post-fit TOA rms feeding the
+        ELL1 validity check."""
+        rms = self.resids.rms_weighted()
+        if isinstance(rms, dict):
+            rms = rms["toa"]
+        return self.model.get_derived_params(
+            rms=rms * 1e6, ntoas=self.batch.ntoas, returndict=returndict)
+
+    def minimize_func(self, values, params) -> float:
+        """chi2 with ``params`` set to ``values``: one residual-and-chi2
+        pass on the model's device, one host read."""
+        for v, p in zip(values, params):
+            self.model[p].value = float(v)
+        self.update_resids()
+        return self.resids.chi2
 
     def get_designmatrix(self):
         """``(M, names)``; constant (linear) columns come from the model's
@@ -180,6 +376,7 @@ class Fitter:
                           "without the weights settling")
         chi2 = self.resids.chi2
         self.chi2 = chi2
+        self.update_model(chi2)
         return chi2
 
     def _set_covariance(self, cov, params) -> None:
@@ -334,6 +531,7 @@ class WLSFitter(Fitter):
             self._set_covariance(cov, params)
         self.converged = True
         self.chi2 = chi2
+        self.update_model(chi2)
         return chi2
 
 
@@ -454,6 +652,7 @@ class DownhillFitter(Fitter):
                     f"tolerance (chi2 {best_chi2:.3f})")
             warnings.warn(f"Downhill fit hit maxiter={maxiter}")
         self.chi2 = best_chi2
+        self.update_model(best_chi2)
         return best_chi2
 
 
@@ -545,4 +744,162 @@ class LMFitter(Fitter):
         ntm = len(params)
         self._set_covariance(((xvar / norm).T / norm)[:ntm, :ntm], params)
         self.chi2 = chi2
+        self.update_model(chi2)
         return chi2
+
+
+class PowellFitter(Fitter):
+    """Derivative-free scipy Powell minimization of chi2 over the free
+    parameters (reference ``fitter.py:858``): the search on the host, each
+    evaluation one residual-and-chi2 pass on the model's device.  Each
+    parameter moves in units of its uncertainty, or 1e-8 of its value
+    (1e-10 at 0) without one.  ``nfev`` and ``nit`` keep scipy's
+    counts."""
+
+    def __init__(self, batch, model):
+        super().__init__(batch, model)
+        self.method = "Powell"
+        self.nfev = self.nit = 0
+
+    def fit_toas(self, maxiter: int = 20, **kw) -> float:
+        from scipy.optimize import minimize
+
+        params = list(self.model.free_params)
+        x0 = np.array([self.model.value(p) for p in params])
+        scale = np.array([
+            float(self.model[p].uncertainty or 0.0)
+            or (abs(x) * 1e-8 if x else 1e-10) for p, x in zip(params, x0)])
+
+        def fun(z):
+            return self.minimize_func(list(x0 + z * scale), params)
+
+        res = minimize(fun, np.zeros(len(params)), method="Powell",
+                       options={"maxiter": maxiter, "xtol": 1e-10,
+                                "ftol": 1e-10})
+        self.minimize_func(list(x0 + res.x * scale), params)
+        self.nfev, self.nit = int(res.nfev), int(res.nit)
+        self.fitted_params = params
+        self.converged = bool(res.success)
+        chi2 = self.resids.chi2
+        self.chi2 = chi2
+        self.update_model(chi2)
+        return chi2
+
+
+def get_gls_mtcm_mtcy(phiinv, Nvec, M, residuals):
+    """``(M^T N^-1 M + diag(phiinv), M^T N^-1 y)`` of the basis-augmented
+    GLS normal equations (reference ``fitter.py:942``): ``M`` the timing
+    columns and the noise basis, ``Nvec`` the white variances, ``phiinv``
+    the prior weights; tensors on ``M``'s device."""
+    Ninv = 1.0 / Nvec
+    mtcm = M.T @ (Ninv[:, None] * M) + torch.diag(phiinv)
+    mtcy = M.T @ (Ninv * residuals)
+    return mtcm, mtcy
+
+
+def get_gls_mtcm_mtcy_fullcov(cov, M, residuals):
+    """``(M^T C^-1 M, M^T C^-1 y)`` with the dense data covariance ``C``
+    through its Cholesky factor (reference ``fitter.py:957``)."""
+    cf = torch.linalg.cholesky(cov)
+    cm = torch.cholesky_solve(M, cf)
+    return M.T @ cm, cm.T @ residuals
+
+
+class ModelState:
+    """A model and its fit products during a downhill fit (reference
+    ``fitter.py:970``): residuals, chi2, the linearized step and its
+    covariance, each computed once when first read, by the matching
+    downhill fitter's ``_solve_step`` -- the numbers the fit itself uses.
+    Taking a step gives a new state."""
+
+    def __init__(self, fitter, model=None):
+        self.fitter = fitter
+        self.model = model if model is not None else fitter.model
+        self._cache = {}
+
+    def _fitter_cls(self):
+        return DownhillWLSFitter
+
+    def _work(self):
+        if "work" not in self._cache:
+            self._cache["work"] = self._fitter_cls()(self.fitter.batch,
+                                                     self.model)
+        return self._cache["work"]
+
+    @property
+    def params(self):
+        return list(self.model.free_params)
+
+    @property
+    def resids(self):
+        return self._work().resids
+
+    @property
+    def chi2(self) -> float:
+        if "chi2" not in self._cache:
+            self._cache["chi2"] = float(self.resids.chi2)
+        return self._cache["chi2"]
+
+    def _solve(self):
+        if "step" not in self._cache:
+            dpars, params, cov = self._work()._solve_step()
+            self._cache["step"] = (dpars.cpu().numpy(), list(params),
+                                   cov.cpu().numpy())
+        return self._cache["step"]
+
+    @property
+    def step(self) -> np.ndarray:
+        return self._solve()[0]
+
+    @property
+    def parameter_covariance_matrix(self) -> np.ndarray:
+        return self._solve()[2]
+
+    def predicted_chi2(self, step=None, lambda_: float = 1.0) -> float:
+        """chi2 after ``lambda_ * step`` on the quadratic model: chi2 less
+        ``(2 lambda - lambda^2) s^T Sigma^+ s`` in the solver's own metric
+        (the covariance's pseudo-inverse as numpy's ``lstsq`` takes it, on
+        the host, as the reference does)."""
+        dpars, _, cov = self._solve()
+        s = np.asarray(dpars if step is None else step, dtype=np.float64)
+        sn, *_ = np.linalg.lstsq(cov, s, rcond=None)
+        dec = float(s @ sn)
+        return self.chi2 - (2 * lambda_ - lambda_**2) * dec
+
+    def take_step_model(self, step, lambda_: float = 1.0):
+        """A new model moved by ``lambda_ * step`` along the solver's
+        parameters (the Offset has no model parameter)."""
+        _, params, _ = self._solve()
+        new = self.model.copy()
+        for p, s in zip(params, np.asarray(step) * lambda_):
+            if p not in new.params:
+                continue
+            new[p].value = new.value(p) + float(s)
+        return new
+
+    def take_step(self, step=None, lambda_: float = 1.0) -> "ModelState":
+        if step is None:
+            step = self.step
+        return type(self)(self.fitter, self.take_step_model(step, lambda_))
+
+
+class WLSState(ModelState):
+    """The uncorrelated-noise state."""
+
+
+class GLSState(ModelState):
+    """The correlated-noise (GLS) state."""
+
+    def _fitter_cls(self):
+        from pint_torch.gls_fitter import DownhillGLSFitter
+
+        return DownhillGLSFitter
+
+
+class WidebandState(ModelState):
+    """The wideband (TOA + DM) state."""
+
+    def _fitter_cls(self):
+        from pint_torch.wideband import WidebandDownhillFitter
+
+        return WidebandDownhillFitter

@@ -227,6 +227,7 @@ class GLSFitter(Fitter):
             return
         self.noise_ampls = {comp: dpars[ntm + off:ntm + off + size]
                             for comp, (off, size) in self._noise_dims.items()}
+        self.resids.noise_ampls = self.noise_ampls
 
     def fit_toas(self, maxiter: int = 1, threshold: float = 0.0,
                  robust=None) -> float:
@@ -248,6 +249,7 @@ class GLSFitter(Fitter):
                 "poisoned solve)")
         self.converged = True
         self.chi2 = chi2
+        self.update_model(chi2)
         return chi2
 
 

@@ -1,8 +1,10 @@
 """Chi2 over a parameter grid with a refit per point (port of
-``pint_tpu/grid.py``: ``_classify_linear_columns`` and
-``_classified_columns_cached`` :109-216, the WLS ``build_grid_chi2_fn``
-:219-376, ``build_grid_gls_chi2_fn`` :427-1051 and ``grid_chisq``
-:1183-1366).
+``pint_tpu/grid.py``: ``WrappedFitter`` and ``doonefit`` :75-106,
+``_classify_linear_columns`` and ``_classified_columns_cached``
+:109-216, the WLS ``build_grid_chi2_fn`` :219-376,
+``build_grid_gls_chi2_fn`` :427-1051, ``_extraout`` :1054, ``grid_chisq``
+:1183-1366 and the derived and tuple grids ``grid_chisq_derived``,
+``tuple_chisq`` and ``tuple_chisq_derived`` :1490-1555).
 
 Grid parameters are frozen per point and the remaining free parameters are
 refit by ``niter`` Gauss-Newton steps.  Points go through in fixed-size
@@ -44,7 +46,8 @@ from pint_torch.runtime.solve import SVD_RUNG, hardened_cholesky
 from pint_torch.utils import classify_linear_columns, linearity_probe_steps
 
 __all__ = ["build_grid_chi2_fn", "build_grid_gls_chi2_fn", "grid_chisq",
-           "point_spans", "RIDGE", "ESCALATION"]
+           "grid_chisq_derived", "tuple_chisq", "tuple_chisq_derived",
+           "WrappedFitter", "doonefit", "point_spans", "RIDGE", "ESCALATION"]
 
 #: base ridge of the normalized Schur solve (the reference's CPU branch:
 #: normalize by diag(A - Y^T Y), ridge 1e-12; H100 float64 is IEEE)
@@ -198,7 +201,8 @@ def _cached_bundle(model, batch, slot_name, all_names, nfit, grid_spans,
     values (mask selectors included), the batch and the fit/grid split,
     so one cached slot serves repeated grids at unchanged values."""
     vkey = (tuple((n, str(p.value), p.key, tuple(p.key_value))
-                  for n, p in model.params_table.items()),
+                  for n, p in model.params_table.items()
+                  if p.component != "TimingModel"),
             all_names, nfit, None if grid_spans is None
             else tuple(float(s) for s in grid_spans))
     slot = model._cache.get(slot_name)
@@ -456,6 +460,80 @@ def point_spans(model, parnames, pts) -> list:
     return spans
 
 
+class WrappedFitter:
+    """A fitter that freezes chosen parameters at given values before it
+    fits (reference ``grid.py:75``): one-off frozen fits; the batched grid
+    (:func:`grid_chisq`) serves bulk grids."""
+
+    def __init__(self, ftr, **fitargs):
+        self.ftr = ftr
+        self.fitargs = fitargs
+
+    def doonefit(self, parnames: Sequence[str], parvalues: Sequence[float],
+                 extraparnames: Sequence[str] = ()) -> Tuple[float, list]:
+        """Fit with ``parnames`` frozen at ``parvalues``: (chi2, the
+        values of ``extraparnames``)."""
+        model = self.ftr.model.copy()
+        for name, value in zip(parnames, parvalues):
+            model[name].value = float(value)
+            model[name].frozen = True
+        f = type(self.ftr)(self.ftr.batch, model)
+        chi2 = float(f.fit_toas(**self.fitargs))
+        return chi2, [f.model[n].value for n in extraparnames]
+
+
+def doonefit(ftr, parnames: Sequence[str], parvalues: Sequence[float],
+             extraparnames: Sequence[str] = (),
+             **fitargs) -> Tuple[float, list]:
+    """One frozen-parameter fit (reference ``grid.py:101``)."""
+    return WrappedFitter(ftr, **fitargs).doonefit(parnames, parvalues,
+                                                  extraparnames)
+
+
+def _extraout(extraparnames, fit_params, grid_params, vfit, pts, model,
+              shape=None) -> dict:
+    """Each point's value of ``extraparnames`` (reference
+    ``grid.py:1054``): a refit parameter's from the point's Gauss-Newton
+    state, a grid parameter's from the point, any other the model's."""
+    out = {}
+    fit_params, grid_params = list(fit_params), list(grid_params)
+    pts = np.asarray(pts)
+    for name in extraparnames:
+        if name in fit_params:
+            col = vfit[:, fit_params.index(name)]
+        elif name in grid_params:
+            col = pts[:, grid_params.index(name)]
+        else:
+            col = np.full(len(pts), model.value(name))
+        out[name] = col.reshape(shape) if shape is not None else col
+    return out
+
+
+def _attach_grid_diagnostics(ftr, diag, nonlinear_columns, shape=None):
+    """The per-point solve diagnostics on ``ftr.last_grid_diagnostics``:
+    ``ladder_rung`` (-1 a poisoned point), ``ridge`` and ``condition``,
+    shaped as the grid, and the nonlinear columns."""
+    out = {"ladder_rung": diag[:, 0].astype(int), "ridge": diag[:, 1],
+           "condition": diag[:, 2]}
+    if shape is not None:
+        out = {k: v.reshape(shape) for k, v in out.items()}
+    out["nonlinear_columns"] = nonlinear_columns
+    ftr.last_grid_diagnostics = out
+    return out
+
+
+def _points_chisq(ftr, parnames, pts, niter, chunk):
+    """(chi2, vfit, diag, fit_params, fn) at the points ``pts`` (P, G) of
+    ``parnames``, by the GLS or the WLS grid, the classification spanning
+    the actual points."""
+    model, batch = ftr.model, ftr.batch
+    fn, _, fit_params = build_grid_chi2_fn(
+        model, batch, tuple(parnames), niter=niter, chunk=chunk,
+        grid_spans=point_spans(model, tuple(parnames), pts))
+    chi2, vfit, diag = fn(pts)
+    return chi2, vfit, diag, fit_params, fn
+
+
 def grid_chisq(ftr, parnames: Sequence[str], parvalues: Sequence,
                extraparnames: Sequence[str] = (), niter: int = 4,
                chunk: int = 256) -> Tuple[np.ndarray, dict]:
@@ -464,29 +542,70 @@ def grid_chisq(ftr, parnames: Sequence[str], parvalues: Sequence,
     (:func:`build_grid_chi2_fn`); returns the chi2 array (grid-shaped) and
     ``{name: grid-shaped values}`` for ``extraparnames``.  Per-point solve
     diagnostics land on ``ftr.last_grid_diagnostics``."""
-    model, batch = ftr.model, ftr.batch
     parnames = tuple(parnames)
     grids = [np.asarray(v, dtype=np.float64) for v in parvalues]
     shape = tuple(len(g) for g in grids)
     pts = np.stack([g.ravel() for g in np.meshgrid(*grids, indexing="ij")],
                    axis=-1)
-    fn, _, fit_params = build_grid_chi2_fn(
-        model, batch, parnames, niter=niter, chunk=chunk,
-        grid_spans=point_spans(model, parnames, pts))
-    chi2, vfit, diag = fn(pts)
-    ftr.last_grid_diagnostics = {
-        "ladder_rung": diag[:, 0].astype(int).reshape(shape),
-        "ridge": diag[:, 1].reshape(shape),
-        "condition": diag[:, 2].reshape(shape),
-        "nonlinear_columns": fn.nonlinear_columns,
-    }
-    extra = {}
-    for name in extraparnames:
-        if name in fit_params:
-            col = vfit[:, list(fit_params).index(name)]
-        elif name in parnames:
-            col = pts[:, parnames.index(name)]
-        else:
-            col = np.full(len(pts), model.value(name))
-        extra[name] = col.reshape(shape)
-    return chi2.reshape(shape), extra
+    chi2, vfit, diag, fit_params, fn = _points_chisq(ftr, parnames, pts,
+                                                     niter, chunk)
+    _attach_grid_diagnostics(ftr, diag, fn.nonlinear_columns, shape)
+    return chi2.reshape(shape), _extraout(extraparnames, fit_params,
+                                          parnames, vfit, pts, ftr.model,
+                                          shape)
+
+
+def grid_chisq_derived(ftr, parnames: Sequence[str], parfuncs: Sequence,
+                       gridvalues: Sequence,
+                       extraparnames: Sequence[str] = (), niter: int = 4,
+                       chunk: int = 256):
+    """Chi2 over the outer-product grid of ``gridvalues`` in derived
+    quantities: model parameter i is ``parfuncs[i](*point)`` (reference
+    ``grid.py:1490``).  Returns (chi2, the grid's mesh arrays, extra
+    parameter values), grid-shaped."""
+    parnames = tuple(parnames)
+    grids = [np.asarray(v, dtype=np.float64) for v in gridvalues]
+    shape = tuple(len(g) for g in grids)
+    mesh = np.meshgrid(*grids, indexing="ij")
+    flat = [g.ravel() for g in mesh]
+    pts = np.stack([np.asarray([f(*vals) for vals in zip(*flat)],
+                               dtype=np.float64) for f in parfuncs], axis=-1)
+    chi2, vfit, diag, fit_params, fn = _points_chisq(ftr, parnames, pts,
+                                                     niter, chunk)
+    _attach_grid_diagnostics(ftr, diag, fn.nonlinear_columns, shape)
+    return (chi2.reshape(shape), [g.reshape(shape) for g in mesh],
+            _extraout(extraparnames, fit_params, parnames, vfit, pts,
+                      ftr.model, shape))
+
+
+def tuple_chisq(ftr, parnames: Sequence[str], parvalues: Sequence,
+                extraparnames: Sequence[str] = (), niter: int = 4,
+                chunk: int = 256):
+    """Chi2 at a list of parameter tuples, any number of them (reference
+    ``grid.py:1517``): (chi2 (P,), extra parameter values)."""
+    parnames = tuple(parnames)
+    pts = np.asarray(parvalues, dtype=np.float64)
+    chi2, vfit, diag, fit_params, fn = _points_chisq(ftr, parnames, pts,
+                                                     niter, chunk)
+    _attach_grid_diagnostics(ftr, diag, fn.nonlinear_columns)
+    return chi2, _extraout(extraparnames, fit_params, parnames, vfit, pts,
+                           ftr.model)
+
+
+def tuple_chisq_derived(ftr, parnames: Sequence[str], parfuncs: Sequence,
+                        parvalues: Sequence,
+                        extraparnames: Sequence[str] = (), niter: int = 4,
+                        chunk: int = 256):
+    """Chi2 at tuples of derived quantities: model parameter i is
+    ``parfuncs[i](*point)`` (reference ``grid.py:1535``).  Returns (chi2,
+    each derived quantity's values, extra parameter values)."""
+    parnames = tuple(parnames)
+    raw = np.asarray(parvalues, dtype=np.float64)
+    pts = np.stack([np.asarray([f(*vals) for vals in raw], dtype=np.float64)
+                    for f in parfuncs], axis=-1)
+    chi2, vfit, diag, fit_params, fn = _points_chisq(ftr, parnames, pts,
+                                                     niter, chunk)
+    _attach_grid_diagnostics(ftr, diag, fn.nonlinear_columns)
+    return (chi2, [raw[:, i] for i in range(raw.shape[1])],
+            _extraout(extraparnames, fit_params, parnames, vfit, pts,
+                      ftr.model))

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from pint_torch.dd import dd_mul, dd_sub
@@ -34,6 +35,7 @@ from pint_torch.models.binary.engines import (BT, BTX, DD_PARAMS, DDGR,
                                               orbit_coefficients)
 from pint_torch.models.timing_model import DelayComponent, stack_params
 from pint_torch.pulsar_ecliptic import OBL_IERS2010_RAD
+from pint_torch.utils import taylor_horner
 
 __all__ = ["PulsarBinary", "BinaryBT", "BinaryBT_piecewise", "BinaryDD",
            "BinaryDDS", "BinaryDDH", "BinaryDDGR", "BinaryDDK", "BinaryELL1",
@@ -84,6 +86,68 @@ class PulsarBinary(DelayComponent):
         ecc = self._value("ECC")
         if ecc is not None and not 0 <= ecc < 1:
             raise TimingModelError(f"ECC = {ecc} must be within [0, 1)")
+
+    def pb(self, t=None):
+        """Orbital period [d] and its 1-sigma uncertainty (None where no
+        source parameter carries one) at MJD(s) ``t``, the epoch by
+        default, from PB/PBDOT(+XPBDOT) or the FB ladder -- days on both
+        paths (reference ``components.py:262``); host numpy."""
+        table = self._parent.params_table
+        ep = self._parent.epoch_value(self.epoch_param)
+        t_mjd = ep if t is None else t
+        dt_d = np.asarray(t_mjd, dtype=np.float64) - ep
+        if self._value("PB") is not None:
+            pb_d = float(self._value("PB"))
+            unc = table["PB"].uncertainty
+            err2 = float(unc) ** 2 if unc is not None else 0.0
+            pbdot = 0.0
+            for name in ("PBDOT", "XPBDOT"):
+                p = table.get(name)
+                if p is not None and p.value is not None:
+                    pbdot += float(p.value)
+                    if p.uncertainty is not None:
+                        err2 += (float(p.uncertainty) * dt_d) ** 2
+            val = pb_d + pbdot * dt_d
+            err = np.sqrt(err2) if np.any(err2) else None
+            return val, err
+        nfb = int(self.config.get("nfb", 0))
+        if nfb:
+            dt_s = dt_d * DAY_S
+            coeffs = [float(table[f"FB{i}"].value or 0.0) for i in range(nfb)]
+            f = np.asarray(taylor_horner(dt_s, coeffs), dtype=np.float64)
+            val = 1.0 / f / DAY_S
+            # d(1/f)/dFB_i = -(dt^i / i!) / f^2
+            err2 = np.zeros_like(np.asarray(dt_s, dtype=np.float64))
+            any_err = False
+            for i in range(nfb):
+                u_i = table[f"FB{i}"].uncertainty
+                if u_i is not None:
+                    any_err = True
+                    err2 = err2 + (dt_s**i / math.factorial(i) / f**2
+                                   * float(u_i)) ** 2
+            err = np.sqrt(err2) / DAY_S if any_err else None
+            return val, err
+        raise AttributeError(
+            "Neither PB nor FB0 is present in the timing model")
+
+    def pbdot_pair(self):
+        """(PBDOT, sigma): -FB1/FB0^2 where the FB ladder drives the orbit,
+        else PBDOT itself; None when neither is set (reference
+        ``components.py:309``)."""
+        table = self._parent.params_table
+        fb1 = table.get("FB1")
+        if fb1 is not None and fb1.value:
+            fb0 = table["FB0"]
+            f0v, f1v = float(fb0.value), float(fb1.value)
+            val = -f1v / f0v**2
+            err = float(np.hypot((fb1.uncertainty or 0.0) / f0v**2,
+                                 2.0 * f1v * (fb0.uncertainty or 0.0)
+                                 / f0v**3))
+            return val, err
+        p = table.get("PBDOT")
+        if p is not None and p.value:
+            return float(p.value), float(p.uncertainty or 0.0)
+        return None
 
     def _tt0(self, pv, batch, acc_delay):
         epoch = pv[self.epoch_param]

@@ -34,7 +34,7 @@ from pint_torch.phase import Phase
 
 __all__ = ["Param", "Component", "DelayComponent", "PhaseComponent",
            "NoiseComponent", "TimingModel", "DEFAULT_ORDER",
-           "OFFSET_PRIOR_WEIGHT"]
+           "OFFSET_PRIOR_WEIGHT", "TOP_LEVEL_PARAMS"]
 
 #: variance [s^2] of the uninformative prior on the marginalized overall
 #: phase offset (``augment_basis_for_offset``); the reference's value, kept
@@ -50,6 +50,23 @@ DEFAULT_ORDER = [
     "spindown", "glitch", "piecewise_spindown", "phase_jump", "wave",
     "wavex", "dmwavex", "cmwavex", "ifunc",
 ]
+
+
+#: the model's own parameters, ahead of the components' (reference
+#: ``timing_model.py:298-319``): (name, kind, units, default value); the
+#: fitters' ``update_model`` writes START, FINISH, NTOA, EPHEM, DMDATA,
+#: CHI2, CHI2R, TRES and DMRES
+TOP_LEVEL_PARAMS = (
+    ("PSR", "str", "", None), ("EPHEM", "str", "", None),
+    ("CLOCK", "str", "", None), ("UNITS", "str", "", None),
+    ("TIMEEPH", "str", "", None), ("T2CMETHOD", "str", "", None),
+    ("BINARY", "str", "", None), ("DILATEFREQ", "bool", "", False),
+    ("PLANET_SHAPIRO", "bool", "", False), ("START", "mjd", "", None),
+    ("FINISH", "mjd", "", None), ("RM", "float", "rad m^-2", None),
+    ("INFO", "str", "", None), ("CHI2", "float", "", None),
+    ("CHI2R", "float", "", None), ("TRES", "float", "us", None),
+    ("DMRES", "float", "pc/cm3", None), ("NTOA", "int", "", None),
+    ("EPHVER", "int", "", None), ("DMDATA", "str", "", None))
 
 
 @dataclass
@@ -143,22 +160,42 @@ def stack_params(pv, names: Sequence[str], device) -> torch.Tensor:
 
 class TimingModel:
     """Components in the reference's dict order plus the parameter table
-    (``params`` in the reference's parameter order)."""
+    (``params`` in the reference's parameter order: the model's own
+    :data:`TOP_LEVEL_PARAMS` first, with ``top_level``'s values where
+    ``params`` lacks them, then the components')."""
 
     def __init__(self, name: str, components: List[Component],
-                 params: Dict[str, Param], device):
+                 params: Dict[str, Param], device,
+                 top_level: Optional[dict] = None):
         self.name = name
         self.device = torch.device(device)
         self.components: Dict[str, Component] = {}
         for c in components:
             self.components[type(c).__name__] = c
             c._parent = self
-        self.params_table: Dict[str, Param] = params
-        for p in params.values():
+        top = dict(top_level or {})
+        table: Dict[str, Param] = {}
+        for pname, kind, units, default in TOP_LEVEL_PARAMS:
+            value = top.get(pname, default)
+            if kind == "mjd" and value is not None:
+                value = (float(value[0]), float(value[1]))
+            table[pname] = params.get(pname) or Param(
+                pname, "TimingModel", kind, value, units=units)
+        table.update((n, p) for n, p in params.items() if n not in table)
+        self.params_table: Dict[str, Param] = table
+        for p in table.values():
             comp = self.components.get(p.component)
             if comp is not None:
                 comp.params.append(p.name)
         self._cache: dict = {}
+
+    def epoch_value(self, name) -> float:
+        """A parameter's value as one float64 (an epoch's hi + lo)."""
+        v = self.params_table[name].value
+        if v is None:
+            return 0.0
+        return float(v[0]) + float(v[1]) if isinstance(v, tuple) \
+            else float(v)
 
     def copy(self) -> "TimingModel":
         """An independent model: its own parameter table and component
@@ -195,6 +232,56 @@ class TimingModel:
 
     def __getitem__(self, name) -> Param:
         return self.params_table[name]
+
+    def __contains__(self, name) -> bool:
+        return name in self.params_table
+
+    @property
+    def params(self) -> List[str]:
+        """Every parameter name, the model's own first (reference
+        ``timing_model.py:416``)."""
+        return list(self.params_table)
+
+    @property
+    def is_binary(self) -> bool:
+        return any(n.startswith("Binary") for n in self.components)
+
+    def get_params_dict(self, which: str = "free",
+                        kind: str = "value") -> Dict[str, object]:
+        """{name: value | uncertainty | Param} of the free parameters or of
+        all the components' (reference ``timing_model.py:483``)."""
+        if which == "free":
+            names = self.free_params
+        elif which == "all":
+            names = [n for n, p in self.params_table.items()
+                     if p.component != "TimingModel"]
+        else:
+            raise ValueError(f"Unknown which {which!r}")
+        out = {}
+        for n in names:
+            par = self.params_table[n]
+            if kind == "value":
+                out[n] = par.value
+            elif kind == "uncertainty":
+                out[n] = par.uncertainty
+            elif kind in ("quantity", "parameter"):
+                out[n] = par
+            else:
+                raise ValueError(f"Unknown kind {kind!r}")
+        return out
+
+    def get_params_mapping(self) -> Dict[str, str]:
+        """{parameter: component name} (reference
+        ``timing_model.py:507``)."""
+        return {n: p.component for n, p in self.params_table.items()}
+
+    def set_param_values(self, values: Dict[str, object]) -> None:
+        for n, v in values.items():
+            self.params_table[n].value = v
+
+    def set_param_uncertainties(self, values: Dict[str, float]) -> None:
+        for n, v in values.items():
+            self.params_table[n].uncertainty = v
 
     @property
     def free_params(self) -> List[str]:
@@ -293,7 +380,8 @@ class TimingModel:
     def _frozen_fingerprint(self, free) -> tuple:
         free_set = set(free)
         return tuple((n, p.value) for n, p in self.params_table.items()
-                     if n not in free_set and p.kind not in ("str", "bool"))
+                     if n not in free_set and p.kind not in ("str", "bool")
+                     and p.component != "TimingModel")
 
     def _jac_frac_linear_cached(self, batch, free) -> torch.Tensor:
         """d frac / d params with constant (linear) columns cached (reference
@@ -492,3 +580,242 @@ class TimingModel:
         n = len(U) if n is None else n
         return (np.hstack([np.asarray(U), np.ones((n, 1))]),
                 np.concatenate([np.asarray(w), [OFFSET_PRIOR_WEIGHT]]))
+
+    # -- the model's API around the noise basis (reference
+    # ``timing_model.py:1213-1310``) -----------------------------------------
+    def noise_model_designmatrix(self, batch) -> Optional[np.ndarray]:
+        """The correlated-noise basis, host numpy, or None."""
+        Us, _, _ = self.noise_basis_by_component(batch)
+        return np.hstack(Us) if Us else None
+
+    def noise_model_dimensions(self, batch) -> Dict[str, tuple]:
+        """{component: (offset, size)} of the noise basis columns."""
+        return self.noise_basis_by_component(batch)[2]
+
+    @property
+    def ntmpar(self) -> int:
+        """Timing design-matrix columns, the implicit offset included."""
+        return len(self.design_param_names()) \
+            + int("PhaseOffset" not in self.components)
+
+    def full_designmatrix(self, batch):
+        """(``[M | noise basis]``, names), on the batch's device."""
+        M, names = self.designmatrix(batch)
+        U = self.noise_model_designmatrix(batch)
+        if U is None:
+            return M, names
+        return torch.cat([M, torch.as_tensor(U, dtype=F64,
+                                             device=M.device)], dim=1), names
+
+    def full_basis_weight(self, batch) -> np.ndarray:
+        """Prior weights of the full design matrix's columns: 1e40 (the
+        uninformative enterprise value) for the timing columns, the noise
+        weights for the basis.  Host numpy only, as the reference requires
+        of the 1e40."""
+        phi_tm = np.full(self.ntmpar, 1e40)
+        _, w = self.noise_model_basis_weight(batch)
+        return phi_tm if w is None else np.concatenate([phi_tm, w])
+
+    def dm_covariance_matrix(self, batch) -> torch.Tensor:
+        """The wideband DM data's covariance, diag(scaled DM error^2), on
+        the batch's device (reference ``timing_model.py:1641``)."""
+        sigma = torch.as_tensor(self.scaled_dm_uncertainty(batch), dtype=F64,
+                                device=batch.device)
+        return torch.diag(sigma**2)
+
+    def total_dispersion_slope(self, batch) -> torch.Tensor:
+        """The model's DM as a dispersion slope [s MHz^2] (reference
+        ``timing_model.py:580``)."""
+        from pint_torch.models.dispersion_model import DMconst
+
+        return self.total_dm(batch) * DMconst
+
+    # -- derivatives (reference ``timing_model.py:1588-1640``) ---------------
+    def d_delay_d_param(self, batch, param: str, acc_delay=None
+                        ) -> torch.Tensor:
+        """d(total delay)/d(param) [s/unit], (N,), by ``torch.func.jacfwd``
+        of the delay summed over the delay components in the one
+        parameter, through the kernels' jvp rules as the design matrix
+        goes -- a frozen parameter too, and an epoch at its float64
+        value.  The parameter enters as a (1, 1) tensor, the port's
+        one-point shape; the rest are the model's current values."""
+        const_pv = self.const_pv()
+        comps = self.delay_components
+        N = batch.ntoas
+
+        def total_delay(v):
+            pv = dict(const_pv)
+            pv[param] = v
+            acc = torch.zeros((1, N), dtype=F64, device=batch.device)
+            for comp in comps:
+                acc = acc + comp.delay_func(pv, batch,
+                                            comp.build_context(batch), acc)
+            return acc
+
+        v0 = torch.tensor([[self.epoch_value(param)]], dtype=F64,
+                          device=batch.device)
+        return jacfwd(total_delay)(v0)[0, :, 0, 0]
+
+    def _central_difference(self, param: str, h: float, fn):
+        par = self.params_table[param]
+        v0 = par.value
+        out = []
+        for v in (self.value(param) + h, self.value(param) - h):
+            par.value = v
+            out.append(fn())
+        par.value = v0
+        return (out[0] - out[1]) / (2 * h)
+
+    def d_delay_d_param_num(self, batch, param: str,
+                            step: float = 1e-2) -> torch.Tensor:
+        """Central-difference delay derivative, the step ``step`` relative
+        to the value (absolute at 0) (reference ``timing_model.py:1610``)."""
+        v0 = self.value(param)
+        h = abs(v0) * step if v0 != 0 else step
+        return self._central_difference(param, h, lambda: self.delay(batch))
+
+    def d_toasigma_d_param(self, batch, param: str) -> np.ndarray:
+        """d(scaled TOA sigma)/d(param) of a noise parameter by central
+        difference of the host scaling (reference
+        ``timing_model.py:1627``)."""
+        h = max(abs(self.value(param)) * 1e-6, 1e-9)
+        return self._central_difference(
+            param, h, lambda: self.scaled_toa_uncertainty(batch))
+
+    # -- the derived quantities (reference ``timing_model.py:1004-1137``) ----
+    def get_derived_params(self, rms: Optional[float] = None,
+                           ntoas: Optional[int] = None,
+                           returndict: bool = False):
+        """The report of derived quantities with 1-sigma uncertainties;
+        ``rms`` [us] and ``ntoas`` add the ELL1 validity check.  Each
+        propagated sigma is the norm of ``torch.func.grad`` of the
+        closed-form expression times the uncertainties, in float64 on the
+        model's device (a singular gradient counts nothing where its
+        uncertainty is 0).  Returns the text, or ``(text, dict)`` with
+        ``returndict``; the dict's values are (value, sigma) pairs, but
+        ``"Binary"``, the binary component's name."""
+        import math
+
+        from torch.func import grad
+
+        from pint_torch import derived_quantities as dq
+        from pint_torch.utils import ELL1_check
+
+        dev = self.device
+        table = self.params_table
+
+        def up(fn, names):
+            vals = torch.tensor([self.value(n) for n in names], dtype=F64,
+                                device=dev)
+            errs = np.array([float(table[n].uncertainty or 0.0)
+                             for n in names])
+            v = float(fn(*vals))
+            if not np.any(errs):
+                return v, 0.0
+            g = grad(lambda xs: fn(*xs))(vals).cpu().numpy()
+            terms = np.where(errs == 0.0, 0.0, g * errs)
+            return v, float(np.sqrt(np.sum(terms**2)))
+
+        def fmt(v, e, unit=""):
+            u = f" {unit}" if unit else ""
+            return f"{v:.12g} +/- {e:.3g}{u}" if e else f"{v:.12g}{u}"
+
+        def has(name):
+            return name in table and table[name].value is not None
+
+        out = {}
+        s = "Derived Parameters:\n"
+        if has("F0"):
+            p, pe = up(lambda f0: 1.0 / f0, ["F0"])
+            out["P (s)"] = (p, pe)
+            s += f"Period = {fmt(p, pe, 's')}\n"
+            if has("F1"):
+                pd, pde = up(lambda f0, f1: -f1 / f0**2, ["F0", "F1"])
+                out["Pdot (s/s)"] = (pd, pde)
+                s += f"Pdot = {fmt(pd, pde)}\n"
+                f0v, f1v = self.value("F0"), self.value("F1")
+                if f1v < 0.0:
+                    out["age"] = (dq.pulsar_age(f0v, f1v), 0.0)
+                    out["B"] = (dq.pulsar_B(f0v, f1v), 0.0)
+                    out["Blc"] = (dq.pulsar_B_lightcyl(f0v, f1v), 0.0)
+                    out["Edot"] = (dq.pulsar_edot(f0v, f1v), 0.0)
+                    s += (f"Characteristic age = {out['age'][0]:.4g} yr "
+                          "(braking index = 3)\n")
+                    s += f"Surface magnetic field = {out['B'][0]:.3g} G\n"
+                    s += ("Magnetic field at light cylinder = "
+                          f"{out['Blc'][0]:.4g} G\n")
+                    s += (f"Spindown Edot = {out['Edot'][0]:.4g} erg/s "
+                          "(I=1e45 g cm^2)\n")
+                else:
+                    s += "Not computing Age, B, or Edot since F1 > 0.0\n"
+        if "PX" in table and table["PX"].value and not table["PX"].frozen:
+            d, de = up(lambda px: 1000.0 / px, ["PX"])
+            out["Dist (pc)"] = (d, de)
+            s += f"\nParallax distance = {fmt(d, de, 'pc')}\n"
+        if self.is_binary:
+            binary = next(n for n in self.components if n.startswith("Binary"))
+            out["Binary"] = binary
+            s += f"\nBinary model {binary}\n"
+            bcomp = self.components[binary]
+            pb, pbe = bcomp.pb()
+            pbe = float(pbe or 0.0)
+            out["PB (d)"] = (pb, pbe)
+            s += f"Orbital Period  (PB) = {fmt(pb, pbe, 'd')}\n"
+            pbdot = bcomp.pbdot_pair()
+            if pbdot is not None:
+                out["PBDOT (s/s)"] = pbdot
+                s += f"Orbital Pdot (PBDOT) = {fmt(*pbdot)}\n"
+            ell1 = binary.startswith("BinaryELL1")
+            if ell1:
+                s += "Conversion from ELL1 parameters:\n"
+                ecc = up(lambda e1, e2: torch.hypot(e1, e2), ["EPS1", "EPS2"])
+                om = up(lambda e1, e2: torch.remainder(
+                    torch.rad2deg(torch.atan2(e1, e2)), 360.0),
+                    ["EPS1", "EPS2"])
+                out["ECC"], out["OM (deg)"] = ecc, om
+                s += f"ECC = {fmt(*ecc)}\nOM  = {fmt(*om, 'deg')}\n"
+                t0v = self.epoch_value("TASC") + pb * om[0] / 360.0
+                t0e = float(np.hypot(float(table["TASC"].uncertainty or 0.0),
+                                     pb * om[1] / 360.0))
+                out["T0"] = (t0v, t0e)
+                s += f"T0  = {fmt(t0v, t0e)}\n"
+                if rms is not None and ntoas is not None:
+                    s += ELL1_check(self.value("A1"), ecc[0], rms, ntoas,
+                                    outstring=True)
+                s += "\n"
+            eccv = out["ECC"][0] if ell1 else self.value("ECC")
+            tsun = dq.TSUN_S
+            if has("A1") and not table["A1"].frozen:
+                fm = up(lambda a1: 4.0 * math.pi**2 * a1**3
+                        / (tsun * (pb * 86400.0) ** 2), ["A1"])
+                out["Mass Function (Msun)"] = fm
+                s += f"Mass function = {fmt(*fm, 'Msun')}\n"
+                mcmed = dq.companion_mass(pb, self.value("A1"), i_deg=60.0)
+                mcmin = dq.companion_mass(pb, self.value("A1"), i_deg=90.0)
+                out["Mc,med (Msun)"] = (mcmed, 0.0)
+                out["Mc,min (Msun)"] = (mcmin, 0.0)
+                s += ("Min / Median Companion mass (assuming Mpsr = 1.4 Msun)"
+                      f" = {mcmin:.4f} / {mcmed:.4f} Msun\n")
+            if "OMDOT" in table and table["OMDOT"].value:
+                mt = up(lambda od: (od * math.pi / 180.0 / 86400.0 / 365.25
+                                    / (3.0 * tsun ** (2.0 / 3.0)
+                                       * (pb * 86400.0 / (2 * math.pi))
+                                       ** (-5.0 / 3.0)
+                                       / (1.0 - eccv**2))) ** 1.5, ["OMDOT"])
+                out["Mtot (Msun)"] = mt
+                s += ("Total mass, assuming GR, from OMDOT is "
+                      f"{fmt(*mt, 'Msun')}\n")
+            if has("SINI") and 0.0 <= self.value("SINI") < 1.0 and has("M2"):
+                if not table["SINI"].frozen:
+                    cosi = up(lambda si: torch.sqrt(1.0 - si**2), ["SINI"])
+                    inc = up(lambda si: torch.rad2deg(torch.arcsin(si)),
+                             ["SINI"])
+                    s += "From SINI in model:\n"
+                    s += f"    cos(i) = {fmt(*cosi)}\n"
+                    s += f"    i = {fmt(*inc, 'deg')}\n"
+                mp = dq.pulsar_mass(pb, self.value("A1"), self.value("M2"),
+                                    float(np.degrees(np.arcsin(
+                                        self.value("SINI")))))
+                out["Mp (Msun)"] = (mp, 0.0)
+                s += f"Pulsar mass (Shapiro Delay) = {mp:.4f} Msun"
+        return (s, out) if returndict else s

@@ -49,6 +49,9 @@ class TOABatch:
     #: they are not the model's own TOAs (the TZR row); None: the
     #: components' own contexts apply
     contexts: Optional[dict] = None
+    #: the solar-system ephemeris the TOAs were made with (the
+    #: reference's ``toas.ephem``), or None
+    ephem: Optional[str] = None
 
     @property
     def ntoas(self) -> int:
@@ -78,7 +81,7 @@ class TOABatch:
             ssb_obs_pos=mv(self.ssb_obs_pos), ssb_obs_vel=mv(self.ssb_obs_vel),
             obs_sun_pos=mv(self.obs_sun_pos),
             planet_pos={k: mv(v) for k, v in self.planet_pos.items()},
-            mjds=self.mjds, tzr=self.tzr,
+            mjds=self.mjds, tzr=self.tzr, ephem=self.ephem,
             dm=None if self.dm is None else mv(self.dm),
             dm_error=None if self.dm_error is None else mv(self.dm_error),
             contexts=None if self.contexts is None else {

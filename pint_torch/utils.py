@@ -1,15 +1,21 @@
-"""Numerical utilities of the slice (port of ``pint_tpu/utils.py:153-244``):
-design-matrix normalization, the linear-column probe and the Woodbury /
-Sherman-Morrison chi2 kernels, on float64 tensors."""
+"""Numerical utilities of the slice (port of ``pint_tpu/utils.py:90-111,
+153-260,439-462``): design-matrix normalization, the linear-column probe
+and the Woodbury / Sherman-Morrison chi2 kernels, on float64 tensors; the
+F-test, the ELL1 validity check and the Taylor series, host numpy and
+scipy."""
 
 from __future__ import annotations
+
+import math
+from typing import Sequence
 
 import numpy as np
 import torch
 
 __all__ = ["normalize_designmatrix", "woodbury_dot", "sherman_morrison_dot",
            "weighted_mean", "linearity_probe_steps",
-           "classify_linear_columns"]
+           "classify_linear_columns", "FTest", "ELL1_check",
+           "taylor_horner"]
 
 
 def weighted_mean(arr, weights):
@@ -78,3 +84,51 @@ def sherman_morrison_dot(Ndiag, U, weights, x, y):
     dot = dot - torch.sum(weights * ux * uy / denom)
     logdet = logdet + torch.sum(torch.log(denom))
     return dot, logdet
+
+
+def FTest(chi2_1, dof_1, chi2_2, dof_2) -> float:
+    """Probability that the improvement of the dof_2 < dof_1 model is by
+    chance (reference ``utils.py:247``): small means the extra parameters
+    are significant; 1.0 where chi2 or dof does not fall."""
+    from scipy.stats import f as fdist
+
+    delta_chi2 = chi2_1 - chi2_2
+    delta_dof = dof_1 - dof_2
+    if delta_chi2 <= 0 or delta_dof <= 0 or dof_2 <= 0:
+        return 1.0
+    F = (delta_chi2 / delta_dof) / (chi2_2 / dof_2)
+    return float(fdist.sf(F, delta_dof, dof_2))
+
+
+def ELL1_check(A1_ls: float, E: float, TRES_us: float, NTOA: int,
+               outstring: bool = True):
+    """Is the ELL1 small-eccentricity approximation valid: asini/c * ecc^4
+    << TRES / sqrt(NTOA) (reference ``utils.py:439``)?  ``A1_ls`` in
+    light-seconds, ``TRES_us`` in microseconds; the report, or a bool with
+    ``outstring=False``."""
+    lhs_us = float(A1_ls) * float(E) ** 4 * 1e6
+    rhs_us = float(TRES_us) / math.sqrt(NTOA)
+    if outstring:
+        s = (
+            "Checking applicability of ELL1 model -- \n"
+            "    Condition is asini/c * ecc**4 << timing precision / "
+            "sqrt(# TOAs) to use ELL1\n"
+            f"    asini/c * ecc**4    = {lhs_us:.3g} us\n"
+            f"    TRES / sqrt(# TOAs) = {rhs_us:.3g} us\n"
+        )
+    if lhs_us * 50.0 < rhs_us:
+        return s + "    Should be fine.\n" if outstring else True
+    if lhs_us * 5.0 < rhs_us:
+        return s + "    Should be OK, but not optimal.\n" if outstring else True
+    return (s + "    *** WARNING*** Should probably use BT or DD instead!\n"
+            if outstring else False)
+
+
+def taylor_horner(x, coeffs: Sequence) -> np.ndarray:
+    """sum_i coeffs[i] x^i / i! by Horner's method, host float64
+    (reference ``utils.py:90``)."""
+    x = np.asarray(x, dtype=np.float64)
+    result = np.zeros_like(x)
+    for i, c in reversed(list(enumerate(coeffs))):
+        result = result * x + float(c) / math.factorial(i)
+    return result

@@ -26,7 +26,7 @@ from pint_torch.gls_fitter import (GLSFitter, build_augmented_system,
                                    solve_system)
 from pint_torch.residuals import Residuals
 from pint_torch.runtime.solve import NonFiniteSystemError
-from pint_torch.utils import normalize_designmatrix
+from pint_torch.utils import normalize_designmatrix, weighted_mean
 
 __all__ = ["WidebandDMResiduals", "CombinedResiduals",
            "WidebandTOAResiduals", "WidebandTOAFitter",
@@ -38,6 +38,7 @@ class WidebandDMResiduals:
     (reference ``wideband.py:49``)."""
 
     residual_type = "dm"
+    unit = "pc/cm3"
 
     def __init__(self, batch, model):
         self.batch = batch
@@ -46,6 +47,7 @@ class WidebandDMResiduals:
         if self.dm_data is None:
             raise ValueError(
                 "Input TOAs do not have wideband DM values (-pp_dm flags)")
+        self.dm_error = batch.dm_error
         self._resids = None
 
     @property
@@ -54,10 +56,45 @@ class WidebandDMResiduals:
             self._resids = self.dm_data - self.model.total_dm(self.batch)
         return self._resids
 
-    def get_data_error(self) -> torch.Tensor:
-        """The DMEFAC/DMEQUAD-scaled DM uncertainties [pc/cm^3]."""
+    def get_data_error(self, scaled: bool = True) -> torch.Tensor:
+        """The DM uncertainties [pc/cm^3], DMEFAC/DMEQUAD-scaled unless
+        ``scaled`` is False."""
+        if not scaled:
+            return self.dm_error
         return torch.as_tensor(self.model.scaled_dm_uncertainty(self.batch),
                                dtype=F64, device=self.batch.device)
+
+    def get_dm_data(self):
+        """(DM values, DM errors), the batch's measurements."""
+        return self.dm_data, self.dm_error
+
+    @property
+    def dof(self) -> int:
+        """DMs less the free parameters of the Dispersion components, less
+        one (reference ``wideband.py:118``)."""
+        from pint_torch.models.dispersion_model import Dispersion
+
+        table = self.model.params_table
+        nfree = sum(1 for c in self.model.components.values()
+                    if isinstance(c, Dispersion)
+                    for p in c.params if not table[p].frozen)
+        return self.batch.ntoas - nfree - 1
+
+    def rms_weighted(self) -> float:
+        """Weighted rms of the DM residuals, weights from the scaled
+        errors (plain where an error is 0)."""
+        err = self.get_data_error()
+        r = self.resids
+        if bool((err == 0).any()):
+            return float(torch.sqrt(torch.mean(r**2)))
+        w = 1.0 / err**2
+        mean, _ = weighted_mean(r, w)
+        return float(torch.sqrt(torch.sum(w * (r - mean) ** 2)
+                                / torch.sum(w)))
+
+    def update(self) -> "WidebandDMResiduals":
+        self._resids = None
+        return self
 
     def calc_chi2(self) -> float:
         err = self.get_data_error()
@@ -83,8 +120,31 @@ class CombinedResiduals:
         return torch.cat([r.resids for r in self.residual_objs.values()])
 
     @property
+    def _combined_data_error(self) -> torch.Tensor:
+        return torch.cat([r.get_data_error()
+                          for r in self.residual_objs.values()])
+
+    @property
+    def data_error(self) -> torch.Tensor:
+        """The stacked scaled uncertainties."""
+        return self._combined_data_error
+
+    @property
+    def model(self):
+        """The members' model, or their models where they differ."""
+        models = [r.model for r in self.residual_objs.values()]
+        return models[0] if len(set(map(id, models))) == 1 else models
+
+    @property
+    def unit(self) -> dict:
+        return {name: r.unit for name, r in self.residual_objs.items()}
+
+    @property
     def chi2(self) -> float:
         return sum(r.chi2 for r in self.residual_objs.values())
+
+    def rms_weighted(self) -> Dict[str, float]:
+        return {k: r.rms_weighted() for k, r in self.residual_objs.items()}
 
 
 class WidebandTOAResiduals(CombinedResiduals):
@@ -93,11 +153,15 @@ class WidebandTOAResiduals(CombinedResiduals):
 
     def __init__(self, batch, model):
         self.batch = batch
-        self.model = model
+        self._model = model
         toa = Residuals(batch, model)
         toa.residual_type = "toa"
         super().__init__([toa, WidebandDMResiduals(batch, model)])
         self._chi2 = None
+
+    @property
+    def model(self):
+        return self._model
 
     @property
     def toa(self) -> Residuals:
@@ -132,6 +196,12 @@ class WidebandTOAResiduals(CombinedResiduals):
     def reduced_chi2(self) -> float:
         return self.chi2 / self.dof
 
+    def update(self) -> "WidebandTOAResiduals":
+        for r in self.residual_objs.values():
+            r.update()
+        self._chi2 = None
+        return self
+
 
 class WidebandTOAFitter(Fitter):
     """GLS fit of the stacked TOA+DM system (reference
@@ -144,6 +214,7 @@ class WidebandTOAFitter(Fitter):
     def __init__(self, batch, model):
         super().__init__(batch, model)
         self.method = "General_Data_Fitter"
+        self.resids_init = self.make_combined_residuals()
         self._gls_cache: dict = {}
         self._noise_dims = None
         self.noise_ampls = {}
@@ -151,6 +222,18 @@ class WidebandTOAFitter(Fitter):
     def update_resids(self) -> WidebandTOAResiduals:
         self.resids = WidebandTOAResiduals(self.batch, self.model)
         return self.resids
+
+    def make_combined_residuals(self) -> WidebandTOAResiduals:
+        """Fresh TOA+DM residuals under the current model."""
+        return WidebandTOAResiduals(self.batch, self.model)
+
+    def get_data_uncertainty(self, scaled: bool = True) -> torch.Tensor:
+        """The stacked [TOA sigma; DM sigma] (reference
+        ``wideband.py:277``)."""
+        if scaled:
+            return self.resids._combined_data_error
+        return torch.cat([self.resids.toa.get_data_error(scaled=False),
+                          self.resids.dm.get_data_error(scaled=False)])
 
     def get_noise_covariancematrix(self) -> torch.Tensor:
         """The block-diagonal stacked data covariance: the TOA block with
@@ -183,6 +266,7 @@ class WidebandTOAFitter(Fitter):
             self.noise_ampls = {comp: dpars[ntm + off:ntm + off + size]
                                 for comp, (off, size)
                                 in self._noise_dims.items()}
+            self.resids.toa.noise_ampls = self.noise_ampls
 
     def fit_toas(self, maxiter: int = 1, threshold: float = 0.0,
                  full_cov: bool = False) -> float:
@@ -203,6 +287,7 @@ class WidebandTOAFitter(Fitter):
                 "poisoned solve)")
         self.converged = True
         self.chi2 = chi2
+        self.update_model(chi2)
         return chi2
 
 
@@ -216,18 +301,25 @@ class WidebandDownhillFitter(WidebandTOAFitter, DownhillFitter):
         super().__init__(batch, model)
         self.method = "downhill_wideband"
         self.threshold = 0.0
+        self.full_cov = False
 
     def _solve_step(self):
-        dpars, _, covmat, params = self._wideband_step(self.threshold)
+        dpars, _, covmat, params = self._wideband_step(self.threshold,
+                                                       self.full_cov)
         ntm = len(params)
         return dpars[:ntm], params, covmat[:ntm, :ntm]
 
-    def fit_toas(self, maxiter: int = 20, threshold: float = 0.0,
-                 **kw) -> float:
+    def fit_toas(self, maxiter: int = 20, full_cov: bool = False,
+                 threshold: float = 0.0, **kw) -> float:
+        """The downhill fit of the stacked system, with ``full_cov`` through
+        the dense data covariance (reference ``wideband.py:429-439``); the
+        noise amplitudes of the accepted point only without it."""
+        self.full_cov = full_cov
         self.threshold = threshold
         chi2 = DownhillFitter.fit_toas(self, maxiter=maxiter, **kw)
-        dpars, _, _, params = self._wideband_step(threshold)
-        self._store_noise_ampls(dpars, len(params))
+        if not full_cov:
+            dpars, _, _, params = self._wideband_step(threshold)
+            self._store_noise_ampls(dpars, len(params))
         return chi2
 
 

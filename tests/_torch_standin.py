@@ -931,7 +931,8 @@ def _export_tzr(model, arrays) -> None:
 
 def export_state(model, toas) -> dict:
     """The snapshot arrays (with ``meta`` JSON) of a model and its TOAs,
-    without reference outputs."""
+    without reference outputs; ``meta["top_level"]`` holds the model's own
+    parameters and the TOAs' ephemeris (:func:`top_level_meta`)."""
     from pint_tpu.models.parameter import maskParameter
 
     b = toas.to_batch()
@@ -974,7 +975,8 @@ def export_state(model, toas) -> dict:
     meta = {"format": "pint_torch-snapshot-1", "name": model.PSR.value,
             "components": comps, "params": params,
             "free_params": list(model.free_params),
-            "design_params": list(model.design_param_names())}
+            "design_params": list(model.design_param_names()),
+            "top_level": top_level_meta(model, toas)}
     arrays["meta"] = np.asarray(json.dumps(meta))
     return arrays
 
@@ -1403,3 +1405,277 @@ def component_outputs(model, toas, m, b, name):
                            torch.tensor(np.array(delay))[None])
     return (np.broadcast_to(np.asarray(got.int_ + got.frac), (1, n))[0],
             np.broadcast_to(np.asarray(ref.int_ + ref.frac), (n,)))
+
+
+# ---------------------------------------------------------------------------
+# the fitter, residuals, model and grid API's reference outputs
+# ---------------------------------------------------------------------------
+#: what each stand-in's ``ref/api/`` keys hold, by its exporter settings
+#: name: ``d_delay`` the parameters of ``d_delay_d_param``; ``post`` the
+#: products of the snapshot's first fit (``update_model``'s fields, the
+#: labelled covariance, the derived parameters before and after);
+#: ``stats`` the residual statistics after it; ``grid`` the tuple and
+#: derived grids over (M2, SINI) after it; ``doonefit``; ``state`` the
+#: ``ModelState`` flavour whose ``predicted_chi2`` is kept; ``powell``
+#: ``PowellFitter``'s ``maxiter`` and its start ("prefit": the snapshot's
+#: values scaled by its first fit's uncertainties; "auto": ``Fitter.auto``'s
+#: fit); ``full_cov`` the wideband downhill fit with the dense covariance
+API = {
+    "b1855": dict(d_delay=("M2", "PB", "A1", "FD1", "DMX_0001"), post=True,
+                  stats=True, grid=True, state="GLSState"),
+    "ell1": dict(d_delay=("EPS1", "A1", "TASC"), post=True, grid=True,
+                 doonefit=True, state="WLSState"),
+    "ngc": dict(powell=(20, "prefit")),
+    "bt": dict(powell=(20, "auto")),
+    "bw": dict(d_delay=("FB1",), post=True),
+    "pta": dict(d_delay=("SWXDM_0001",)),
+    "b1855_wb": dict(post=True, state="WidebandState"),
+    "b1855_noise": dict(post=True, stats=True),
+    "small_wb": dict(full_cov=True),
+}
+#: the tuple grid's points and the derived grid's axes
+API_TUPLES = 37
+API_GRID_POINTS = 16
+#: the parameters whose refit values the grids report
+API_EXTRA = ("A1", "PB")
+#: update_model's fields
+UPDATE_MODEL_FIELDS = ("START", "FINISH", "NTOA", "CHI2", "CHI2R", "TRES",
+                       "DMRES", "DMDATA", "EPHEM")
+
+
+def top_level_meta(model, toas) -> dict:
+    """The model's own parameters (START and FINISH as (hi, lo) pairs) and
+    the TOAs' ephemeris: the snapshot's ``meta["top_level"]``."""
+    from pint_tpu.dd import dd_from_longdouble
+
+    out = {}
+    for name in model.top_level_params:
+        v = getattr(model, name).value
+        if v is None or name == "PSR":
+            continue
+        if name in ("START", "FINISH"):
+            d = dd_from_longdouble(np.longdouble(v))
+            v = [float(d.hi), float(d.lo)]
+        elif isinstance(v, (bool, np.bool_)):
+            v = bool(v)
+        elif isinstance(v, (int, np.integer)):
+            v = int(v)
+        elif isinstance(v, (float, np.floating)):
+            v = float(v)
+        else:
+            v = str(v)
+        out[name] = v
+    if getattr(toas, "ephem", None):
+        out["ephem"] = str(toas.ephem)
+    return out
+
+
+def _first_fit(model, toas, settings):
+    """The snapshot's first fit, as the exporter and ``chip_smoke.py`` run
+    it: ``WidebandTOAFitter``, ``GLSFitter`` or ``WLSFitter`` at the
+    settings' ``fit_maxiter``."""
+    from pint_tpu.fitter import WLSFitter
+    from pint_tpu.gls_fitter import GLSFitter
+    from pint_tpu.wideband import WidebandTOAFitter
+
+    cls = WidebandTOAFitter if toas.wideband else GLSFitter \
+        if model.has_correlated_errors else WLSFitter
+    f = cls(toas, model)
+    f.fit_toas(maxiter=settings["fit_maxiter"])
+    return f
+
+
+def api_grid_points(model, errors, seed: int = 11):
+    """The tuple grid's (M2, SINI) points, seeded, 3 sigma about the fit
+    (SINI kept below 1), and the derived grid's (Mc, cos i) axes, 3 sigma
+    about the fit."""
+    rng = np.random.default_rng(seed)
+    m2, si = float(model.M2.value), float(model.SINI.value)
+    # a model that keeps M2 and SINI frozen spans a tenth of M2 and 0.01
+    sm, ss = errors.get("M2", 0.1 * m2), errors.get("SINI", 0.01)
+    pts = np.stack([m2 + 3 * sm * rng.uniform(-1, 1, API_TUPLES),
+                    np.minimum(si + 3 * ss * rng.uniform(-1, 1, API_TUPLES),
+                               0.9999)], axis=1)
+    ci = np.sqrt(1.0 - si**2)
+    sci = si * ss / ci
+    mc = np.linspace(m2 - 3 * sm, m2 + 3 * sm, API_GRID_POINTS)
+    cosi = np.linspace(max(ci - 3 * sci, 0.01 * ci), ci + 3 * sci,
+                       API_GRID_POINTS)
+    return pts, mc, cosi
+
+
+def derived_m2(mc, cosi):
+    return mc
+
+
+def derived_sini(mc, cosi):
+    return np.sqrt(1.0 - cosi**2)
+
+
+def _derived_dict(d, prefix, arrays, ref_api, key):
+    """A ``get_derived_params`` dict: values and sigmas as arrays in its key
+    order, the keys and ``Binary`` in the meta."""
+    keys = [k for k in d if k != "Binary"]
+    ref_api[f"{key}_keys"] = keys
+    ref_api[f"{key}_binary"] = d.get("Binary")
+    arrays[f"{prefix}{key}_values"] = np.array([float(d[k][0]) for k in keys])
+    arrays[f"{prefix}{key}_sigmas"] = np.array([float(d[k][1]) for k in keys])
+
+
+def reference_api_points(f, pts, niter: int):
+    """The reference's chi2, rungs and :data:`API_EXTRA` values at the (M2,
+    SINI) points ``pts`` after ``f``'s fit: what its ``tuple_chisq`` and
+    ``grid_chisq_derived`` compute (``build_grid_chi2_fn`` over the
+    points' spans), the WLS grid fed 16 points a call (memory only)."""
+    from pint_tpu import grid as G
+
+    names = ("M2", "SINI")
+    fn, _, fit_params = G.build_grid_chi2_fn(
+        f.model, f.toas, names, niter=niter,
+        grid_spans=G._point_spans(f.model, names, pts))
+    step = len(pts) if f.model.has_correlated_errors else 16
+    outs = [fn(pts[i:i + step]) for i in range(0, len(pts), step)]
+    c2 = np.concatenate([np.asarray(o[0]) for o in outs])
+    vf = np.concatenate([np.asarray(o[1]) for o in outs])
+    dg = np.concatenate([np.asarray(o[2]) for o in outs])
+    ex = G._extraout(API_EXTRA, fit_params, names, vf, pts, f.model)
+    return c2, dg[:, 0].astype(int), {k: np.asarray(v) for k, v in ex.items()}
+
+
+def export_api(model, toas, which: str, arrays: dict, meta: dict) -> None:
+    """Add the reference's outputs of the fitter, residuals, model and grid
+    API (:data:`API`) to a snapshot's ``arrays`` under ``ref/api/`` and to
+    ``meta["reference"]["api"]``, and the model's own parameters to
+    ``meta["top_level"]``."""
+    import copy
+
+    from pint_tpu import fitter as F
+    from pint_tpu import grid as G
+    from pint_tpu.wideband import WidebandDownhillFitter, WidebandTOAFitter
+
+    spec = API[which]
+    settings = meta["reference"]["settings"]
+    ref_api = {}
+    P = "ref/api/"
+    meta["top_level"] = top_level_meta(model, toas)
+    for p in spec.get("d_delay", ()):
+        arrays[f"{P}d_delay/{p}"] = np.asarray(model.d_delay_d_param(toas, p))
+    if spec.get("post"):
+        _derived_dict(model.get_derived_params(returndict=True)[1], P,
+                      arrays, ref_api, "derived_pre")
+        f = _first_fit(model, toas, settings)
+        fm = f.model
+        ref_api["update_model"] = {
+            k: (None if getattr(fm, k).value is None
+                else float(getattr(fm, k).value) if k not in ("DMDATA",
+                                                              "EPHEM")
+                else str(getattr(fm, k).value)) for k in UPDATE_MODEL_FIELDS}
+        cov = f.parameter_covariance_matrix
+        ref_api["cov_labels"] = cov.get_label_names(axis=0)
+        arrays[P + "cov"] = np.asarray(cov.matrix)
+        arrays[P + "corr"] = np.asarray(
+            f.get_parameter_correlation_matrix().matrix)
+        _derived_dict(f.get_derived_params(returndict=True)[1], P, arrays,
+                      ref_api, "derived_post")
+        ref_api["summary"] = f.get_summary()
+        ref_api["errors"] = {k: float(v) for k, v in f.errors.items()}
+        if spec.get("stats"):
+            r = f.resids
+            ref_api["rms_weighted"] = float(r.rms_weighted())
+            ref_api["time_mean"] = float(r.calc_time_mean())
+            ref_api["phase_mean"] = float(r.calc_phase_mean())
+            arrays[P + "whitened_times_sigma"] = np.asarray(
+                r.calc_whitened_resids()) * np.asarray(r.get_data_error())
+            for comp, nr in r.noise_resids().items():
+                arrays[f"{P}noise_resids/{comp}"] = np.asarray(nr)
+            arrays[P + "psr_freq_taylor"] = np.asarray(
+                r.get_PSR_freq("taylor"))
+            arrays[P + "full_basis_weight"] = np.asarray(
+                model.full_basis_weight(toas))
+            ea = r.ecorr_average()
+            arrays[P + "ecorr_time_resids"] = np.asarray(ea["time_resids"])
+            arrays[P + "ecorr_errors"] = np.asarray(ea["errors"])
+            arrays[P + "ecorr_index_counts"] = np.array(
+                [len(i) for i in ea["indices"]])
+            arrays[P + "ecorr_indices"] = np.concatenate(
+                [np.asarray(i, dtype=np.int64) for i in ea["indices"]])
+        if spec.get("grid"):
+            pts, mc, cosi = api_grid_points(fm, f.errors)
+            arrays[P + "tuple_points"] = pts
+            arrays[P + "derived_mc"] = mc
+            arrays[P + "derived_cosi"] = cosi
+            niter = settings["grid_niter"]
+            mesh = np.meshgrid(mc, cosi, indexing="ij")
+            dpts = np.stack([derived_m2(*mesh).ravel(),
+                             derived_sini(*mesh).ravel()], axis=-1)
+            for key, p in (("tuple", pts), ("derived", dpts)):
+                c2, rungs, ex = reference_api_points(f, p, niter)
+                arrays[f"{P}{key}_chi2"] = c2
+                arrays[f"{P}{key}_rungs"] = rungs
+                for k, v in ex.items():
+                    arrays[f"{P}{key}_extra/{k}"] = v
+            if spec.get("doonefit"):
+                chi2, ex = G.doonefit(f, ("M2", "SINI"), pts[0],
+                                      extraparnames=API_EXTRA,
+                                      maxiter=settings["fit_maxiter"])
+                ref_api["doonefit_chi2"] = float(chi2)
+                arrays[P + "doonefit_extra"] = np.array(
+                    [float(v) for v in ex])
+    if spec.get("state"):
+        from pint_tpu.gls_fitter import DownhillGLSFitter
+
+        cls = getattr(F, spec["state"])
+        fc = {"GLSState": DownhillGLSFitter,
+              "WidebandState": WidebandDownhillFitter}.get(
+                  spec["state"], F.DownhillWLSFitter)
+        st = cls(fc(toas, model), model)
+        ref_api["state_chi2"] = float(st.chi2)
+        ref_api["predicted_chi2"] = [float(st.predicted_chi2(lambda_=lam))
+                                     for lam in (1.0, 0.5)]
+    if spec.get("powell"):
+        import scipy.optimize as opt
+
+        maxiter, start = spec["powell"]
+        m = copy.deepcopy(model)
+        key = "postfit" if start == "prefit" else "auto"
+        names = meta["reference"]["postfit_params"]
+        for i, p in enumerate(names):
+            par = getattr(m, p)
+            par.uncertainty = float(arrays[f"ref/{key}_uncertainties"][i])
+            if start == "auto":
+                par.value = float(arrays[f"ref/{key}_values"][i])
+        seen, minimize = [], opt.minimize
+
+        def spy(*a, **k):
+            seen.append(minimize(*a, **k))
+            return seen[-1]
+
+        opt.minimize = spy
+        try:
+            f = F.PowellFitter(toas, m)
+            chi2 = f.fit_toas(maxiter=maxiter)
+        finally:
+            opt.minimize = minimize
+        ref_api["powell"] = {"maxiter": maxiter, "start": start,
+                             "chi2": float(chi2),
+                             "converged": bool(f.converged),
+                             "nfev": int(seen[-1].nfev),
+                             "nit": int(seen[-1].nit)}
+        arrays[P + "powell_values"] = np.array(
+            [float(getattr(f.model, p).value) for p in names])
+    if spec.get("full_cov"):
+        import types
+
+        f = WidebandDownhillFitter(toas, model)
+        # the reference's downhill class is no WidebandTOAFitter, so it
+        # lacks the dense covariance its full_cov solve reads: bind the
+        # reference's own method
+        f.get_noise_covariancematrix = types.MethodType(
+            WidebandTOAFitter.get_noise_covariancematrix, f)
+        chi2 = f.fit_toas(full_cov=True)
+        names = meta["reference"]["postfit_params"]
+        ref_api["downhill_full_cov"] = {
+            "chi2": float(chi2), "converged": bool(f.converged),
+            "noise_ampls": bool(getattr(f.resids, "noise_ampls", None))}
+        _fit_outputs(f, names, "api/downhill_full_cov", arrays)
+    meta["reference"]["api"] = ref_api

@@ -10,7 +10,9 @@
   untouched;
 * entry points run on the card unless the caller asks for the CPU: the
   snapshots (the wideband and noise fits run on the batch's device) and
-  the Kepler cores.
+  the Kepler cores; the fitter, residuals, model and grid API
+  (``PowellFitter``, ``tuple_chisq``, ``d_delay_d_param``, the derived
+  parameters) follows its model and batch onto the card.
 """
 
 import ast
@@ -43,7 +45,9 @@ def test_import_and_load_pull_in_no_jax():
         "import pint_torch, pint_torch.bridge, pint_torch.gls_fitter, "
         "pint_torch.fitter, pint_torch.grid, pint_torch.kernels, "
         "pint_torch.pulsar_ecliptic, pint_torch.wideband, "
-        "pint_torch.noisefit, pint_torch.orbital.kepler\n"
+        "pint_torch.noisefit, pint_torch.orbital.kepler, "
+        "pint_torch.pint_matrix, pint_torch.derived_quantities, "
+        "pint_torch.utils, pint_torch.residuals\n"
         "import pint_torch.integrity.robust\n"
         "from pint_torch.bridge import load_snapshot, STANDIN_PATH, "
         "ELL1_PATH, ELL1H_PATH, NGC_PHOFF_PATH, DDK_PATH, DDGR_PATH, "
@@ -129,6 +133,55 @@ def test_entry_points_default_to_the_gpu():
                        (K.kepler_two_body, K.KeplerTwoBodyParameters)):
         with pytest.raises(NoGPUError):
             fn(params(*[0.5] * len(params._fields)), 1.0)
+
+
+@pytest.mark.parametrize("module", ["utils", "derived_quantities",
+                                    "pint_matrix", "grid", "fitter"])
+def test_api_modules_import_no_jax(module):
+    """The API's modules import neither ``jax`` nor ``pint_tpu`` (by their
+    source, and in a fresh interpreter)."""
+    path = REPO / "pint_torch" / f"{module}.py"
+    test_no_jax_import_in_port_sources(path)
+    code = (f"import sys, pint_torch.{module}\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\nsys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("entry", ["PowellFitter", "tuple_chisq",
+                                   "d_delay_d_param"])
+def test_api_entry_points_default_to_the_gpu(entry):
+    """A user's call of ``PowellFitter``, ``tuple_chisq`` or
+    ``d_delay_d_param`` starts from a snapshot loaded on the default
+    device, the card: without one it raises ``NoGPUError``; on the CPU,
+    asked for, each computes on its batch's device."""
+    from pint_torch import NoGPUError
+    from pint_torch.bridge import NGC_PATH, load_snapshot
+    from pint_torch.fitter import PowellFitter, WLSFitter
+    from pint_torch.grid import tuple_chisq
+
+    def run(device=None):
+        m, b = load_snapshot(NGC_PATH, device=device)
+        if entry == "PowellFitter":
+            f = PowellFitter(b, m)
+            f.fit_toas(maxiter=1)
+            return f.resids.time_resids
+        if entry == "tuple_chisq":
+            f = WLSFitter(b, m)
+            f.fit_toas()
+            c2, _ = tuple_chisq(f, ("F0",), [[m.value("F0")]], niter=1)
+            assert np.isfinite(c2).all()
+            return f.resids.time_resids
+        return m.d_delay_d_param(b, "DM")
+
+    if not torch.cuda.is_available():
+        with pytest.raises(NoGPUError):
+            run()
+    out = run("cpu")
+    assert out.device.type == "cpu" and out.dtype == torch.float64
 
 
 def test_cpu_tensors_never_reach_a_kernel():

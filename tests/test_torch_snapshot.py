@@ -35,6 +35,16 @@ and DDH, which ``chip_smoke.py`` drives at small depth); ``--settings bw``,
 ``b1855_wb_standin.npz``, ``small_wb_standin.npz`` and
 ``b1855_noise_standin.npz`` (the wideband fits and the noise fit), and
 ``kepler`` for ``kepler_reference.npz`` (the Kepler cores' outputs).
+``--api`` adds the fitter, residuals, model and grid API's reference
+outputs (``_torch_standin.API``) to a committed stand-in in place::
+
+    python tests/test_torch_snapshot.py --settings b1855 --api \
+        --write pint_torch/data/b1855_standin.npz
+
+(likewise ``ell1``, ``ngc``, ``bt``, ``bw``, ``pta``, ``b1855_wb``,
+``b1855_noise``, ``small_wb``): the stand-in is simulated again, its state
+must come out bitwise as committed, and every array already in the file
+is kept as it is.
 
 The tests check that a small export round-trips through
 :func:`pint_torch.bridge.load_snapshot` bitwise, and that the committed
@@ -476,6 +486,105 @@ def test_dd_family_export_round_trips_bitwise(which):
     assert np.array_equal(b.tdb.hi.numpy(), np.asarray(jb.tdb.hi))
 
 
+#: the stand-ins that carry the API's reference outputs (``ref/api/``,
+#: ``meta["top_level"]``), by bridge path, with the digest of everything
+#: they held before: every array but ``ref/api/``, and ``meta`` without
+#: ``top_level`` and ``reference["api"]``
+API_DIGESTS = {
+    "STANDIN_PATH": ("b1855", "7069eab5407dcd77"),
+    "ELL1_PATH": ("ell1", "7bff9baef0509fb9"),
+    "NGC_PATH": ("ngc", "31da0aeb34defa7d"),
+    "BT_SMALL_PATH": ("bt", "6c56478ab3766781"),
+    "BW_PATH": ("bw", "1f282a81e6e842a0"),
+    "PTA_PATH": ("pta", "362355bd91c3e6cc"),
+    "WB_PATH": ("b1855_wb", "b608cd0b554a8fa2"),
+    "NOISE_PATH": ("b1855_noise", "795971794b0d10f3"),
+    "WB_SMALL_PATH": ("small_wb", "d952071572e0b5f1"),
+}
+
+
+def _earlier_digest(path) -> str:
+    """sha256 (16 hex) of a snapshot's arrays but ``ref/api/`` (name,
+    dtype, shape, bytes) and of its ``meta`` without the API's keys."""
+    import hashlib
+
+    h = hashlib.sha256()
+    with np.load(path, allow_pickle=False) as z:
+        for k in sorted(z.files):
+            if k == "meta" or k.startswith("ref/api/"):
+                continue
+            a = z[k]
+            h.update(k.encode())
+            h.update(str(a.dtype).encode())
+            h.update(str(a.shape).encode())
+            h.update(np.ascontiguousarray(a).tobytes())
+        meta = json.loads(str(z["meta"]))
+    meta.pop("top_level", None)
+    meta.get("reference", {}).pop("api", None)
+    h.update(json.dumps(meta, sort_keys=True).encode())
+    return h.hexdigest()[:16]
+
+
+@pytest.mark.parametrize("attr", list(API_DIGESTS))
+def test_api_snapshots_keep_every_earlier_key(attr):
+    """Adding the API's outputs left every array and the rest of ``meta``
+    bitwise as committed before; the API keys are those its
+    ``_torch_standin.API`` entry asks for."""
+    from pint_torch import bridge
+
+    which, digest = API_DIGESTS[attr]
+    path = getattr(bridge, attr)
+    assert _earlier_digest(path) == digest
+    meta, arrays = bridge.read_snapshot(path)
+    spec = standin.API[which]
+    api = meta["reference"]["api"]
+    keys = {k for k in arrays if k.startswith("ref/api/")}
+    for p in spec.get("d_delay", ()):
+        assert f"ref/api/d_delay/{p}" in keys
+    assert ("update_model" in api) == bool(spec.get("post"))
+    assert ("ref/api/tuple_chi2" in keys) == bool(spec.get("grid"))
+    assert ("powell" in api) == bool(spec.get("powell"))
+    assert ("predicted_chi2" in api) == bool(spec.get("state"))
+    assert ("downhill_full_cov" in api) == bool(spec.get("full_cov"))
+    if spec.get("grid"):
+        assert arrays["ref/api/tuple_chi2"].shape == (standin.API_TUPLES,)
+        assert arrays["ref/api/derived_chi2"].shape \
+            == (standin.API_GRID_POINTS**2,)
+
+
+def test_top_level_meta_and_api_keys_round_trip(tmp_path):
+    """``meta["top_level"]`` loads into the model's own parameters (START
+    and FINISH as exact pairs) and the batch's ephemeris, the ``ref/api/``
+    arrays come back bitwise, and a snapshot without ``top_level`` loads
+    with the defaults."""
+    from pint_torch.bridge import load_snapshot, read_snapshot
+
+    model, toas = standin.make_standin(standin.SMALL_SETTINGS, full=False)
+    model.START.value = 54000.123456789
+    model.CHI2.value = 12.5
+    model.NTOA.value = 80
+    arrays = standin.export_state(model, toas)
+    arrays["ref/api/d_delay/PB"] = np.asarray(model.d_delay_d_param(toas,
+                                                                     "PB"))
+    path = tmp_path / "api.npz"
+    np.savez_compressed(path, **arrays)
+    m, b = load_snapshot(str(path), device="cpu")
+    meta, again = read_snapshot(str(path))
+    assert meta["top_level"]["START"][0] == 54000.123456789
+    assert m["START"].value == tuple(meta["top_level"]["START"])
+    assert (m["CHI2"].value, m["NTOA"].value) == (12.5, 80)
+    assert m["PSR"].value == model.PSR.value
+    assert m["EPHEM"].value == model.EPHEM.value and b.ephem == toas.ephem
+    assert np.array_equal(again["ref/api/d_delay/PB"],
+                          arrays["ref/api/d_delay/PB"])
+    meta.pop("top_level")
+    bare = dict(again, meta=np.asarray(json.dumps(meta)))
+    m2, b2 = load_snapshot(bare, device="cpu")
+    assert m2["START"].value is None and m2["CHI2"].value is None
+    assert m2["DILATEFREQ"].value is False and b2.ephem is None
+    assert m2.free_params == m.free_params
+
+
 #: the committed full-width stand-ins, by the exporter's ``--settings``
 SETTINGS = {"b1855": standin.FULL_SETTINGS,
             "dmx15": standin.DMX15_SETTINGS,
@@ -526,6 +635,36 @@ def _write(path: str, chunk: int, settings: dict, small: bool = False) -> None:
     np.savez_compressed(path, **arrays)
 
 
+def _add_api(path: str, which: str) -> None:
+    """Add the API's reference outputs (``standin.export_api``) to the
+    committed stand-in at ``path``: the arrays already there stay as they
+    are, and the model rebuilt from the settings must export the same
+    state bitwise."""
+    settings = SETTINGS[which]
+    with np.load(path, allow_pickle=False) as z:
+        arrays = {k: z[k] for k in z.files}
+    meta = json.loads(str(arrays["meta"]))
+    model, toas = standin.make_standin(settings,
+                                       full=which not in SMALL_DEPTH)
+    state = standin.export_state(model, toas)
+    fresh = json.loads(str(state.pop("meta")))
+    for k, v in state.items():
+        if not np.array_equal(v, arrays[k]):
+            raise SystemExit(f"{k} is not as committed: rebuild differs")
+    if {k: v for k, v in fresh.items() if k != "top_level"} \
+            != {k: v for k, v in meta.items()
+                if k not in ("reference", "top_level")}:
+        raise SystemExit("the rebuilt model's meta is not as committed")
+    before = dict(arrays)
+    standin.export_api(model, toas, which, arrays, meta)
+    for k, v in arrays.items():
+        if k in before and v is not before[k] or k not in before \
+                and not k.startswith("ref/api/"):
+            raise SystemExit(f"export_api wrote {k} outside ref/api/")
+    arrays["meta"] = np.asarray(json.dumps(meta))
+    np.savez_compressed(path, **arrays)
+
+
 if __name__ == "__main__":
     import argparse
 
@@ -562,6 +701,12 @@ if __name__ == "__main__":
                          "SMALL_WB_SETTINGS (the wideband fits); "
                          "b1855_noise: NOISE_SETTINGS (the noise fit); "
                          "kepler: the Kepler cores' outputs")
+    ap.add_argument("--api", action="store_true",
+                    help="add the API's reference outputs to the committed "
+                         "file at --write, keeping its arrays")
     args = ap.parse_args()
-    _write(args.write, args.chunk, SETTINGS[args.settings],
-           args.settings in SMALL_DEPTH)
+    if args.api:
+        _add_api(args.write, args.settings)
+    else:
+        _write(args.write, args.chunk, SETTINGS[args.settings],
+               args.settings in SMALL_DEPTH)
