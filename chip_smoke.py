@@ -128,7 +128,29 @@ Phases, one line each:
    exactly circular) against the reference's values (1e-13 of each
    state's largest) and Jacobians (1e-10 of each output's largest
    partial), each warm call's time beside its bound (its float64
-   operations, counted by a dispatch mode, at the instruction rate);
+   operations, counted by a dispatch mode, at the instruction rate).
+   Then the mcmc phase, each path's counts zeroed just before it, from
+   the reference's outputs under its snapshot's ``ref/bayes/``: on ell1
+   and ddgr (256 walkers x 20 steps, 89 and 86 free parameters, 4005
+   TOAs; K1 with K4's ELL1 or K2's DDGR primal), ngc_phoff (32 x 50, a
+   PhaseOffset: no mean subtracted) and small_wb_white (32 x 50, the
+   wideband likelihood; K7 through ``evaluate_dm``): ``BayesianTiming``
+   with the stored prior box, ``lnposterior_batch`` at 64 stored points
+   (within 5e-7 of the reference's chi2, -inf and NaN where the
+   reference's), ``lnprior`` and ``prior_transform`` (1e-12 rel), then
+   the seeded ``MCMCFitter.fit_toas`` from the stored walkers: every
+   accept decision the reference's unless the port's margin ``|lnratio
+   - log u|`` is within twice the lnposterior bar, the walkers bitwise
+   up to the first decision that differs, and with none inside the
+   margin the whole chain bitwise, lnprob at the bar, acceptance and the
+   maximum exact, its values and the stds bitwise, chi2 1e-6 rel.
+   Printed: steps/s and walker evaluations/s, the acceptance,
+   ``lnposterior_batch`` at B = 128 walker rows (the median of 5 warm
+   calls), its wrapper launches and its CUDA kernels under
+   ``torch.profiler``, and ell1's busy share of 5 warm steps; a
+   checkpointed 25 + 25 steps on ngc_phoff equal 50 uninterrupted
+   bitwise; b1855 (correlated noise) is refused with
+   ``NotImplementedError``;
 4. kernels -- each CUDA kernel (the primal and dual instantiations of K1,
    K2 and K4 -- K4's for ELL1, ELL1k, ELL1H exact and ELL1H harmonic --,
    K3's shared-memory instantiation at nt = 88 and its global one at nt =
@@ -171,7 +193,9 @@ Phases, one line each:
    direct dual), orbits and pbprime bitwise, partials 1e-10 rel; K7 on
    pta's SWX call, on small_pta's and on random elongations 1-179 deg
    with indices 1.5-4.4 and windows, the geometry bitwise, partials 1e-10
-   rel.
+   rel; K1's, K4's ELL1, K2's DDGR and K7's primals on the mcmc phase's
+   B = 128 walker rows (every parameter distinct per row), bitwise,
+   timed and recorded with the phase's launches.
    K2's Newton steps on each path's inputs set its operation count; the
    per-element operation counts of K1, K2, K4, K6 and K7 are bounded at
    the float64 instruction rate (-fmad=false; K6's and K7's count each
@@ -1133,6 +1157,281 @@ def _api_phase(label, out, kernels, tag) -> dict:
     return counts
 
 
+#: the mcmc phase's bar: lnposterior within LNPOST_BAR of the reference's
+#: chi2 at each point (the 1e-6-relative chi2 bar carried over to -chi2/2)
+LNPOST_BAR = 5e-7
+
+
+def _bayes_info(meta, ref) -> dict:
+    """The stored prior box as ``prior_info``."""
+    bz = meta["reference"]["bayes"]
+    return {p: dict(distr="uniform", pmin=float(lo), pmax=float(hi))
+            for p, lo, hi in zip(bz["params"], ref["ref/bayes/pmin"],
+                                 ref["ref/bayes/pmax"])}
+
+
+def _chain_bars(stored, bz, f, pos) -> dict:
+    """The chain bars of the mcmc phase on the port's run ``f`` (its
+    sampler's ``decision_log`` set) against the reference's stored one
+    from the same walkers: each decision the reference's unless the port's
+    margin ``|lnratio - log u|`` is within twice the lnposterior bar of
+    the proposal and the current point, the walkers bitwise up to the
+    first decision that differs; with no decision inside the margin the
+    whole chain bitwise, lnprob at the lnposterior bar, the acceptance
+    and the maximum's index exact, its values and the stds bitwise and
+    the returned chi2 to 1e-6 rel.  Returns what it found; raises on a
+    broken bar."""
+    import numpy as np
+
+    s, bt = f.sampler, f.bt
+    chain, lnprob = s.get_chain(), s.get_log_prob()
+    want = stored["walker_chain"].transpose(2, 0, 1)
+    T, W, _ = want.shape
+    half = W // 2
+    lnpr = float(sum(p.prior.logpdf(p.prior.ppf(0.5)) for p in bt.params))
+
+    def chi2_of(lp):
+        return -2.0 * (lp - lnpr + bt.lognorm)
+
+    lp_cur = bt.lnposterior_batch(pos)
+    inside, diverged = [], None
+    for t in range(T):
+        for h in (0, 1):
+            sl = slice(0, half) if h == 0 else slice(half, W)
+            marg, lp_prop = s.decision_log[2 * t + h]
+            with np.errstate(invalid="ignore"):
+                tol = 2.0 * LNPOST_BAR * np.maximum(chi2_of(lp_prop),
+                                                    chi2_of(lp_cur[sl]))
+                inm = np.isfinite(marg) & (np.abs(marg) <= tol)
+            inside += [t] * int(inm.sum())
+            differ = (marg > 0) != stored["accepted"][t, sl]
+            if (differ & ~inm).any():
+                raise RuntimeError(f"an accept decision at step {t} differs "
+                                   "from the reference's outside the margin")
+            if differ.any():
+                diverged = (t, h)
+                break
+        if diverged:
+            break
+        lp_cur = lnprob[t]
+    upto = diverged[0] if diverged else T
+    if not np.array_equal(chain[:upto], want[:upto]):
+        raise RuntimeError(f"the walkers are not bitwise the reference's "
+                           f"before step {upto}")
+    out = dict(inside=len(inside), inside_steps=sorted(set(inside)),
+               diverged=diverged, bitwise_steps=upto)
+    if inside:
+        return out
+    c2 = -2.0 * (stored["lnprob"] - lnpr + bt.lognorm)
+    dl = float(np.max(np.abs(lnprob - stored["lnprob"]) / c2))
+    n = chain.shape[0]
+    lnp = s.get_log_prob(flat=True, discard=int(n * bz["burn_frac"]))
+    chi2 = f.model["CHI2"].value
+    dchi2 = abs(chi2 - bz["chi2"]) / abs(bz["chi2"])
+    ok = (diverged is None and dl <= LNPOST_BAR
+          and s.naccepted == bz["naccepted"]
+          and int(np.argmax(lnp)) == bz["maxpost_index"]
+          and np.array_equal(f.maxpost_fitvals, stored["maxpost_fitvals"])
+          and np.array_equal([f.errors[p] for p in f.fitkeys],
+                             stored["stds"])
+          and dchi2 <= 1e-6)
+    if not ok:
+        raise RuntimeError("with no decision inside the margin the chain, "
+                           "lnprob, acceptance, maximum, stds or chi2 "
+                           "differ from the reference's")
+    out.update(lnprob_rel=dl, chi2_rel=dchi2)
+    return out
+
+
+def _profile_cuda(fn):
+    """(CUDA events, summed device microseconds, wall s) of one ``fn()``
+    under ``torch.profiler``; (None, None, wall) where the profiler shows
+    no device activity or cannot read it (a measurement, not a bar)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    try:
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        us = sum(e.time_range.elapsed_us() for e in dev)
+    except (AttributeError, RuntimeError) as e:
+        print(f"chip_smoke: torch.profiler's events unreadable: {e}",
+              file=sys.stderr)
+        dev = []
+    if not dev:
+        return None, None, wall
+    return len(dev), us, wall
+
+
+def _mcmc_phase(label, path, kernels, tag, busy: bool = False):
+    """The Bayesian timing interface and the ensemble MCMC on one path,
+    from the reference's outputs under the snapshot's ``ref/bayes/``, its
+    counts zeroed just before and read just after: ``BayesianTiming``
+    with the stored prior box, ``lnposterior_batch`` at the stored points,
+    ``lnprior`` and ``prior_transform``, then the seeded
+    ``MCMCFitter.fit_toas`` from the stored walkers.  Bars: lnposterior
+    within 5e-7 of the reference's chi2 at each point, -inf (and NaN)
+    exactly where the reference has them; lnprior and prior_transform
+    1e-12 rel; the chain bars (:func:`_chain_bars`).  Printed: steps/s and
+    walker evaluations/s over the run, the acceptance fraction, then
+    ``lnposterior_batch`` at B = 128 walker rows (the median of 5 warm
+    calls), its kernel launches (the wrappers' counters) and all its CUDA
+    kernels (``torch.profiler``), with ``busy`` the device's busy share
+    of 5 warm steps.  Returns (the run's counts, the capture of the B =
+    128 call)."""
+    import numpy as np
+    import torch
+
+    from pint_torch.bayesian import BayesianTiming
+    from pint_torch.bridge import load_snapshot, read_snapshot
+    from pint_torch.mcmc_fitter import MCMCFitter
+    from pint_torch.sampler import EnsembleSampler
+
+    meta, ref = read_snapshot(path)
+    bz = meta["reference"]["bayes"]
+    stored = {k[len("ref/bayes/"):]: v for k, v in ref.items()
+              if k.startswith("ref/bayes/")}
+    info = _bayes_info(meta, ref)
+    kernels.reset_counts()
+    model, batch = load_snapshot(path, device="cuda")
+    bt = BayesianTiming(model, batch, prior_info=info)
+    pts = stored["points"]
+    lp = bt.lnposterior_batch(pts)
+    want = stored["lnposterior"]
+    same_nonfinite = bool(np.array_equal(np.isneginf(lp), np.isneginf(want))
+                          and np.array_equal(np.isnan(lp), np.isnan(want)))
+    fin = np.isfinite(want)
+    d_lp = float(np.max(np.abs(lp[fin] - want[fin]) / stored["chi2"][fin]))
+    lnpr = np.array([bt.lnprior(x) for x in pts])
+    fin_p = np.isfinite(stored["lnprior"])
+    d_pr = float(np.max(np.abs(lnpr[fin_p] - stored["lnprior"][fin_p])
+                        / np.abs(stored["lnprior"][fin_p])))
+    same_pr = bool(np.array_equal(np.isneginf(lnpr),
+                                  np.isneginf(stored["lnprior"])))
+    pt = np.array([bt.prior_transform(c) for c in stored["cubes"]])
+    d_pt = float(np.max(np.abs(pt - stored["prior_transform"])
+                        / np.abs(stored["prior_transform"])))
+    s = EnsembleSampler(bz["nwalkers"], seed=bz["seeds"]["sampler"])
+    s.decision_log = []
+    f = MCMCFitter(batch, model, prior_info=info, sampler=s)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    chi2 = f.fit_toas(maxiter=bz["nsteps"], pos=stored["pos"].copy())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = kernels.launch_counts()
+    print(f"phase mcmc {label}: N={batch.ntoas} TOAs, {len(bt.param_labels)} "
+          f"free, {bz['nwalkers']} walkers x {bz['nsteps']} steps, "
+          f"{bt.likelihood_method}; lnposterior at {len(pts)} points max|d| "
+          f"{d_lp:.3e} of chi2 (<= {LNPOST_BAR:g}), -inf/NaN where the "
+          f"reference's {same_nonfinite}; lnprior max rel {d_pr:.3e}, "
+          f"prior_transform max rel {d_pt:.3e} (<= 1e-12); fit_toas "
+          f"{wall:.4f} s, {bz['nsteps'] / wall:.2f} steps/s, "
+          f"{bz['nwalkers'] * (bz['nsteps'] + 1) / wall:.1f} walker "
+          f"evaluations/s, acceptance {s.acceptance_fraction:.6f} "
+          f"(reference {bz['acceptance']:.6f}), chi2 {chi2:.10g}; launches "
+          f"(nonzero) {dict((k, v) for k, v in counts.items() if v)} {tag}",
+          flush=True)
+    if not (same_nonfinite and d_lp <= LNPOST_BAR and same_pr
+            and d_pr <= 1e-12 and d_pt <= 1e-12):
+        raise RuntimeError(f"mcmc bar failed ({label}): lnposterior, "
+                           "lnprior or prior_transform")
+    cb = _chain_bars(stored, bz, f, stored["pos"])
+    print(f"phase mcmc {label} chain: {cb['inside']} decision(s) inside the "
+          f"margin" + (f" at step(s) {cb['inside_steps']}" if cb["inside"]
+                       else "")
+          + f"; first differing decision {cb['diverged']}; walkers bitwise "
+          f"over {cb['bitwise_steps']} of {bz['nsteps']} steps"
+          + (f"; whole chain bitwise, lnprob max|d| {cb['lnprob_rel']:.3e} "
+             f"of chi2, acceptance and maximum exact, stds bitwise, chi2 "
+             f"rel {cb['chi2_rel']:.3e}" if not cb["inside"] else "")
+          + f" {tag}", flush=True)
+    # B = 128 walker rows of the run: the median of 5 warm calls, the
+    # kernel launches of one, its CUDA kernels under the profiler
+    rows = f.sampler.get_chain(flat=True)[-128:]
+    cap = Capture(kernels.modules())
+    cap.install()
+    before = kernels.launch_counts()
+    bt.lnposterior_batch(rows)
+    one = {k: v - before[k] for k, v in kernels.launch_counts().items()
+           if v != before[k]}
+    cap.remove()
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        bt.lnposterior_batch(rows)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    n_ev, dev_us, wall_p = _profile_cuda(lambda: bt.lnposterior_batch(rows))
+    line = (f"phase mcmc {label} B=128: lnposterior_batch median of 5 warm "
+            f"{1e3 * float(np.median(times)):.4f} ms; kernel launches per "
+            f"evaluation {one} ({sum(one.values())}); CUDA kernels per "
+            f"evaluation (torch.profiler) "
+            + (f"{n_ev}, device {dev_us / 1e3:.4f} ms of {wall_p * 1e3:.4f} "
+               "ms wall" if n_ev else "not measured (no device events)"))
+    if busy:
+        x = f.sampler.get_chain()[-1].copy()
+        s5 = EnsembleSampler(bz["nwalkers"], seed=1)
+        s5.initialize_batched(bt.lnposterior_batch, len(bt.param_labels))
+        s5.run_mcmc(x, 1)
+        n5, us5, w5 = _profile_cuda(lambda: s5.run_mcmc(x, 5))
+        line += ("; busy share of 5 warm steps "
+                 + (f"{us5 / 1e6 / w5:.4f} ({us5 / 1e3:.2f} ms device of "
+                    f"{w5 * 1e3:.2f} ms wall, {n5} CUDA events)" if n5
+                    else "not measured (no device events)"))
+    print(line + f" {tag}", flush=True)
+    return counts, cap
+
+
+def _mcmc_resume(path, tag) -> None:
+    """On the path's snapshot a checkpointed run of half the steps plus a
+    resumed half must equal an uninterrupted run bitwise."""
+    import tempfile
+
+    import numpy as np
+
+    from pint_torch.bridge import load_snapshot, read_snapshot
+    from pint_torch.mcmc_fitter import MCMCFitter
+    from pint_torch.sampler import EnsembleSampler
+
+    meta, ref = read_snapshot(path)
+    bz = meta["reference"]["bayes"]
+    info = _bayes_info(meta, ref)
+    model, batch = load_snapshot(path, device="cuda")
+    n, seed = bz["nsteps"], bz["seeds"]["sampler"]
+
+    def run(steps, sampler, **kw):
+        f = MCMCFitter(batch, model, prior_info=info, sampler=sampler)
+        chi2 = f.fit_toas(maxiter=steps, **kw)
+        return f.sampler, chi2
+
+    whole, c_whole = run(n, EnsembleSampler(bz["nwalkers"], seed=seed),
+                         pos=ref["ref/bayes/pos"].copy())
+    with tempfile.TemporaryDirectory() as d:
+        ck = str(Path(d) / "chain.npz")
+        run(n // 2, EnsembleSampler(bz["nwalkers"], seed=seed),
+            pos=ref["ref/bayes/pos"].copy(), checkpoint=ck)
+        resumed, c_res = run(n, EnsembleSampler(bz["nwalkers"]),
+                             checkpoint=ck)
+    same = bool(np.array_equal(resumed.get_chain(), whole.get_chain())
+                and np.array_equal(resumed.get_log_prob(),
+                                   whole.get_log_prob())
+                and resumed.naccepted == whole.naccepted and c_res == c_whole)
+    print(f"phase mcmc resume: {n // 2} checkpointed + {n - n // 2} resumed "
+          f"steps equal {n} uninterrupted bitwise {same} {tag}", flush=True)
+    if not same:
+        raise RuntimeError("a resumed MCMC run differs from an "
+                           "uninterrupted one")
+
+
 def _kepler_phase(path, tag) -> None:
     """The Kepler cores with their ``jacfwd`` Jacobians on the card, each
     on the snapshot's orbits in one batch, against the reference's values
@@ -1260,7 +1559,8 @@ def main() -> int:
                                    ELL1H_PATH, NGC_PATH, NGC_PHOFF_PATH,
                                    KEPLER_PATH, NOISE_PATH, PTA_PATH,
                                    PTA_SMALL_PATH, STANDIN_PATH,
-                                   WB_PATH, WB_SMALL_PATH, YOUNG_PATH,
+                                   WB_PATH, WB_SMALL_PATH,
+                                   WB_WHITE_SMALL_PATH, YOUNG_PATH,
                                    YOUNG_SMALL_PATH)
     from pint_torch.kernels import _build
     from pint_torch.kernels import binary_orbits as K6
@@ -1427,6 +1727,40 @@ def main() -> int:
                                    f"api phase: {missing}")
         paths[label] = (counts, cap)
         del out
+
+    # ---- the mcmc phase: Bayesian timing and the ensemble MCMC -------------
+    # each path's counts zeroed just before it; the kernels its walkers'
+    # evaluations must launch
+    mcmc_kernels = {
+        "ell1": (K1.KERNELS[False], K4.KERNELS[(K4.ELL1, False)]),
+        "ddgr": (K1.KERNELS[False], K2.KERNELS[(K2.DDGR, False)]),
+        "ngc_phoff": (K1.KERNELS[False],),
+        "small_wb_white": (K1.KERNELS[False], K7.KERNELS[False])}
+    for label, path in (("ell1", ELL1_PATH), ("ddgr", DDGR_PATH),
+                        ("ngc_phoff", NGC_PHOFF_PATH),
+                        ("small_wb_white", WB_WHITE_SMALL_PATH)):
+        counts, cap128 = _mcmc_phase(label, path, kernels, tag,
+                                     busy=label == "ell1")
+        missing = [k for k in mcmc_kernels[label] if counts[k] == 0]
+        if missing:
+            raise RuntimeError(f"kernels never launched on the {label} mcmc "
+                               f"phase: {missing}")
+        paths[f"mcmc_{label}"] = (counts, cap128)
+    _mcmc_resume(NGC_PHOFF_PATH, tag)
+    from pint_torch.bayesian import BayesianTiming
+    from pint_torch.bridge import load_snapshot
+
+    m_gls, b_gls = load_snapshot(STANDIN_PATH, device="cuda")
+    box = {p: dict(distr="uniform", pmin=m_gls.value(p) - 1.0,
+                   pmax=m_gls.value(p) + 1.0) for p in m_gls.free_params}
+    try:
+        BayesianTiming(m_gls, b_gls, prior_info=box)
+    except NotImplementedError as e:
+        print(f"phase mcmc refusal b1855: NotImplementedError: {e} {tag}",
+              flush=True)
+    else:
+        raise RuntimeError("BayesianTiming took b1855's correlated noise")
+    del m_gls, b_gls
 
     _kepler_phase(KEPLER_PATH, tag)
 
@@ -2170,6 +2504,78 @@ def main() -> int:
             raise RuntimeError(f"{kernel} disagrees with its plain version")
         record(kernel, "solar_wind_pl.cu", K7.REPLACES, err, ms, plain,
                bound, path="pta")
+
+    # The mcmc phase's primals on the walkers' own rows (B = 128 walker
+    # positions, every parameter distinct per row): K1 and K4's ELL1 on
+    # ell1's evaluation, K2's DDGR on ddgr's (each row its own ECC and PB,
+    # so the Kepler solve stops at a different step in each), K7 on
+    # small_wb_white's; each bitwise against its twin, timed beside its
+    # bound and recorded with the phase's launches
+    def mcmc_args(label, name, key):
+        return paths[f"mcmc_{label}"][1].args(name, key)
+
+    a1 = mcmc_args("ell1", "spin_phase", False)
+    a4 = mcmc_args("ell1", "ell1_binary", (K4.ELL1, False))
+    a2 = mcmc_args("ddgr", "dd_binary", (K2.DDGR, False))
+    a7 = mcmc_args("small_wb_white", "solar_wind_pl", False)
+    th, _, _, _, dl, F, has_pe, _ = a1
+    B1, N1, S1 = dl.shape[0], dl.shape[1], F.shape[1]
+    B4, N4w = a4[0].shape
+    B2, N2 = a2[0].shape
+    _, steps, _ = K2.kepler_steps(a2[0], a2[1])
+    st_elem = float(steps.double().mean())
+    _, th7, p7, _, w7, _ = a7
+    B7, N7 = th7.shape
+    inside7 = int((w7 >= 0).sum()) if w7 is not None else N7
+    walker_calls = (
+        ("ell1", K1.KERNELS[False], "spin_phase.cu", K1.REPLACES,
+         lambda: K1._launch(*a1)[:2],
+         lambda: K1.spin_phase_reference(*a1)[:2],
+         _bound(16 * N1 + 8 * B1 * (2 + S1) + 8 * B1 * N1 * 3,
+                B1 * N1 * _k1_ops(S1, has_pe, False), rate=F64_INSTR_PER_S),
+         f"B={B1} N={N1} S={S1}"),
+        ("ell1", K4.KERNELS[(K4.ELL1, False)], "ell1_binary.cu",
+         K4.REPLACES_OF[K4.ELL1], lambda: K4._launch(*a4)[:1],
+         lambda: K4.ell1_binary_reference(a4[0], a4[1], K4.ELL1, False)[:1],
+         _bound(8 * B4 * N4w + 8 * B4 * a4[1].shape[1] + 8 * B4 * N4w,
+                B4 * N4w * _k4_ops(K4.ELL1, False), rate=F64_INSTR_PER_S),
+         f"B={B4} N={N4w}"),
+        ("ddgr", K2.KERNELS[(K2.DDGR, False)], "dd_binary.cu",
+         K2.REPLACES_OF[K2.DDGR], lambda: K2._launch(*a2)[:1],
+         lambda: K2.dd_binary_reference(a2[0], a2[1], False, K2.DDGR,
+                                        a2[3])[:1],
+         _bound(8 * B2 * N2 + 8 * B2 * len(K2.ROW_COLUMNS[K2.DDGR])
+                + 8 * B2 * N2, B2 * N2 * _k2_ops(st_elem, False, K2.DDGR),
+                rate=F64_INSTR_PER_S),
+         f"B={B2} N={N2}, Newton steps per element {st_elem:.4f}, per "
+         f"warp (most in the warp) {warp_max_mean(steps, rows=True):.4f}, ECC "
+         f"{float(a2[1][:, 5].min()):.12f}-{float(a2[1][:, 5].max()):.12f} "
+         f"in {len(torch.unique(a2[1][:, 5]))} distinct rows"),
+        ("small_wb_white", K7.KERNELS[False], "solar_wind_pl.cu",
+         K7.REPLACES, lambda: K7._launch(*a7)[:1],
+         lambda: K7._twin(*a7)[:1],
+         _bound(8 * N7 + 8 * B7 * N7 + 16 * B7 * p7.shape[1] + 4 * N7
+                + 8 * B7 * N7, B7 * inside7 * K7_OPS[False],
+                rate=F64_INSTR_PER_S),
+         f"B={B7} N={N7}"))
+    for label, kernel, source, replaces, launch, twin, bound, what \
+            in walker_calls:
+        got, want = launch(), twin()
+        same = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        ms = _time_ms(launch, 20)
+        plain = _time_ms(twin, 3)
+        launches = paths[f"mcmc_{label}"][0][kernel]
+        print(f"phase kernel {kernel}: mcmc {label} walker rows {what}; "
+              f"bitwise {same}, max|d| {err:.3e} (= 0); kernel {ms:.4f} ms, "
+              f"plain {plain:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; "
+              f"share {bound[0] / ms:.2f}); {launches} launches in the mcmc "
+              f"phase {tag}", flush=True)
+        if not same:
+            raise RuntimeError(f"{kernel} disagrees with its plain version on "
+                               f"the {label} walkers' rows")
+        record(kernel, source, replaces, err, ms, plain, bound,
+               path=f"mcmc_{label}")
 
     # K5: the ell1 path's largest call (its 256 points, N = 4005, k = 88)
     # runs the tiled kernels.  Each is held against its own plain version on

@@ -10,9 +10,11 @@ for a model with an absolute phase the TZR TOA's batch row and contexts
 under ``tzr/`` and, under ``ref/``, the reference package's own outputs
 on the same inputs, so a run can be checked where the reference does not
 run (those of the fitter, residuals, model and grid API under
-``ref/api/``).  The optional ``meta["top_level"]`` holds the model's own
-parameters (``TOP_LEVEL_PARAMS``: START and FINISH as (hi, lo) pairs) and
-the TOAs' ``ephem``; a snapshot without it loads with their defaults.
+``ref/api/``, those of the Bayesian timing interface and the ensemble
+MCMC under ``ref/bayes/``).  The optional ``meta["top_level"]`` holds the
+model's own parameters (``TOP_LEVEL_PARAMS``: START and FINISH as (hi,
+lo) pairs) and the TOAs' ``ephem``; a snapshot without it loads with
+their defaults.
 
 This module reads snapshots only; the exporter needs the reference package
 and lives with the tests (``tests/test_torch_snapshot.py``).
@@ -37,7 +39,8 @@ __all__ = ["load_snapshot", "read_snapshot", "SNAPSHOT_FORMAT",
            "BT_SMALL_PATH", "DDS_SMALL_PATH", "DDH_SMALL_PATH", "BW_PATH",
            "BW_WAVES_PATH", "PTA_PATH", "YOUNG_PATH", "DD_FBX_SMALL_PATH",
            "BT_PIECEWISE_SMALL_PATH", "PTA_SMALL_PATH", "YOUNG_SMALL_PATH",
-           "WB_PATH", "WB_SMALL_PATH", "NOISE_PATH", "KEPLER_PATH"]
+           "WB_PATH", "WB_SMALL_PATH", "WB_WHITE_SMALL_PATH", "NOISE_PATH",
+           "KEPLER_PATH"]
 
 SNAPSHOT_FORMAT = "pint_torch-snapshot-1"
 #: the committed full-width B1855+09-shaped stand-in
@@ -95,6 +98,9 @@ WB_PATH = STANDIN_PATH.with_name("b1855_wb_standin.npz")
 #: the small stand-in made wideband, with NE_SW (SWM 1), SWX windows,
 #: DMWaveX, FDJUMPDM and a DMJUMP (the wideband fitters)
 WB_SMALL_PATH = STANDIN_PATH.with_name("small_wb_standin.npz")
+#: the same with white noise only (no ECORR, no red noise): the diagonal
+#: wideband likelihood of the Bayesian timing interface
+WB_WHITE_SMALL_PATH = STANDIN_PATH.with_name("small_wb_white_standin.npz")
 #: the B1855+09 stand-in with every EFAC, EQUAD and ECORR and the red
 #: noise's TNREDAMP/TNREDGAM free (the maximum-likelihood noise fit)
 NOISE_PATH = STANDIN_PATH.with_name("b1855_noise_standin.npz")

@@ -56,6 +56,22 @@ RIDGE = 1e-12
 ESCALATION = (1.0, 1e3, 1e6)
 
 
+def _model_param_sig(model) -> tuple:
+    """Value signature of every component parameter, mask selectors
+    included (reference ``grid.py:45-58``): the run identity a checkpoint
+    fingerprint hashes.  Mask parameters (EFAC/ECORR/JUMP selectors)
+    contribute their key/key_value because editing a selector's range
+    changes weights and noise bases at an unchanged parameter value."""
+    def sig(par, name):
+        s = (name, str(par.value))
+        if par.key is not None:
+            s += (str(par.key), tuple(str(v) for v in par.key_value))
+        return s
+
+    return tuple(sig(model.params_table[p], p)
+                 for c in model.components.values() for p in c.params)
+
+
 def _classify_linear_columns(jac_fn, free_init, nfit: int, ngrid: int,
                              grid_spans: Optional[Sequence[float]] = None):
     """(J0 (N, nfit), nonlinear column indices, probed grid spans): columns

@@ -86,6 +86,28 @@ class Param:
     continuous: bool = True
     key: Optional[str] = None
     key_value: List[str] = field(default_factory=list)
+    #: the prior for Bayesian inference; None until read or set
+    _prior: object = field(default=None, repr=False, compare=False)
+
+    @property
+    def prior(self):
+        """The parameter's prior (reference ``parameter.py:105``): an
+        improper flat prior unless one was set."""
+        if self._prior is None:
+            from pint_torch.models.priors import Prior, UniformUnboundedRV
+
+            self._prior = Prior(UniformUnboundedRV())
+        return self._prior
+
+    @prior.setter
+    def prior(self, p):
+        self._prior = p
+
+    def prior_pdf(self, value=None, logpdf: bool = False):
+        """The prior's density (or its log) at ``value``, the parameter's
+        own value by default."""
+        v = self.value if value is None else value
+        return self.prior.logpdf(v) if logpdf else self.prior.pdf(v)
 
 
 class Component:
@@ -294,8 +316,13 @@ class TimingModel:
         return tuple(
             n for n, p in self.params_table.items()
             if p.component != "TimingModel" and not p.frozen and p.continuous
-            and p.kind != "mjd"
-            and getattr(self.components.get(p.component), "kind", "") != "noise")
+            and p.kind != "mjd" and not self._is_noise_param(n))
+
+    def _is_noise_param(self, name: str) -> bool:
+        """The parameter belongs to a noise component (reference
+        ``timing_model.py:900``)."""
+        comp = self.components.get(self.params_table[name].component)
+        return getattr(comp, "kind", None) == "noise"
 
     @property
     def has_correlated_errors(self) -> bool:

@@ -211,6 +211,11 @@ SMALL_WB_SETTINGS = dict(SMALL_SETTINGS, wideband=True, small_wb=True,
                          err_scale=0.5, mjd_start=54180.0,
                          mjd_end=55914.9375)
 
+#: the small wideband stand-in with white noise only (no ECORR, no red
+#: noise), so that its wideband likelihood is the diagonal ``wb_wls`` one
+#: the Bayesian timing interface evaluates
+SMALL_WB_WHITE_SETTINGS = dict(SMALL_WB_SETTINGS, rn_modes=0, ecorr=False)
+
 _GROUP = {  # (receiver, backend) -> (-f flag, sub-band MHz, error us)
     ("430", "ASP"): ("ASP_430", (422.0, 3.0), 0.7),
     ("L-wide", "ASP"): ("ASP_L-wide", (1150.0, 75.0), 1.0),
@@ -607,9 +612,9 @@ def standin_par(s, full: bool) -> str:
     """Par text: B1855+09-like timing (full width) or the small test
     stand-in (its binary as BT, DDS or DDH where the settings ask), or the
     J1713+0747- or B1913+16-shaped heads (at either width), with DMX
-    windows covering the span, EFAC/EQUAD and (but for B1913+16) ECORR per
-    group; no red noise where ``rn_modes`` is 0, and a fitted PHOFF where
-    the settings ask for it."""
+    windows covering the span, EFAC/EQUAD and (but for B1913+16, or where
+    ``ecorr`` is False) ECORR per group; no red noise where ``rn_modes``
+    is 0, and a fitted PHOFF where the settings ask for it."""
     if s.get("pulsar") == "J1713+0747":
         head = j1713_head(s)
     elif s.get("pulsar") == "B1913+16":
@@ -657,7 +662,7 @@ def standin_par(s, full: bool) -> str:
         efac, equad, ecorr = _NOISE[g]
         lines += [f"EFAC -f {g} {efac}",
                   f"EQUAD -f {g} {equad * scale:.6g}"]
-        if s.get("pulsar") != "B1913+16":
+        if s.get("pulsar") != "B1913+16" and s.get("ecorr", True):
             lines.append(f"ECORR -f {g} {ecorr * scale:.6g}")
     if s.get("wideband"):
         lines += _wideband_noise_lines(s)
@@ -1679,3 +1684,144 @@ def export_api(model, toas, which: str, arrays: dict, meta: dict) -> None:
             "noise_ampls": bool(getattr(f.resids, "noise_ampls", None))}
         _fit_outputs(f, names, "api/downhill_full_cov", arrays)
     meta["reference"]["api"] = ref_api
+
+
+# ---------------------------------------------------------------------------
+# Bayesian timing and the ensemble MCMC's reference outputs
+# ---------------------------------------------------------------------------
+#: the stand-ins that carry ``ref/bayes/``, by their exporter settings
+#: name: the MCMC run's walkers and steps
+BAYES = {"ell1": dict(nwalkers=256, nsteps=20),
+         "ddgr": dict(nwalkers=256, nsteps=20),
+         "ngc_phoff": dict(nwalkers=32, nsteps=50),
+         "small_wb_white": dict(nwalkers=32, nsteps=50)}
+#: the prior box's half-width in post-fit uncertainties (the reference's
+#: ``set_priors_basic`` default), the seeded points and how many of them
+#: lie outside the box, the unit cubes of ``prior_transform``
+BAYES_PRIORERRFACT = 10.0
+BAYES_POINTS = 64
+BAYES_OUTSIDE = 8
+BAYES_CUBES = 16
+#: seeds of the points and cubes, of the initial walker ball and of the
+#: sampler's generator
+BAYES_SEEDS = dict(points=20261017, pos=20261018, sampler=20261019)
+
+
+def bayes_prior_info(model, toas, names, uncertainties) -> dict:
+    """The prior box of the reference's ``set_priors_basic`` at
+    :data:`BAYES_PRIORERRFACT` on an ``MCMCFitter`` of the snapshot's
+    model: each free parameter's value +/- the factor times its post-fit
+    uncertainty (``names``/``uncertainties`` the snapshot's
+    ``postfit_params`` and ``ref/postfit_uncertainties``)."""
+    from pint_tpu.mcmc_fitter import MCMCFitter, set_priors_basic
+
+    f = MCMCFitter(toas, model)
+    unc = dict(zip(names, (float(u) for u in uncertainties)))
+    for p in f.fitkeys:
+        getattr(f.model, p).uncertainty = unc[p]
+    return set_priors_basic(f, BAYES_PRIORERRFACT)
+
+
+def bayes_points(values, pmin, pmax, seed: int):
+    """:data:`BAYES_POINTS` seeded points about ``values``: each
+    coordinate off by a normal draw times its box half-width over 10 (one
+    post-fit sigma) times a per-point scale from 0.01 to 1; the last
+    :data:`BAYES_OUTSIDE` with one coordinate 5% of the half-width past an
+    edge of the box.  Also :data:`BAYES_CUBES` seeded unit cubes."""
+    rng = np.random.default_rng(seed)
+    values = np.asarray(values, dtype=np.float64)
+    half = 0.5 * (np.asarray(pmax) - np.asarray(pmin))
+    n, nd = BAYES_POINTS, len(values)
+    scale = 10.0 ** rng.uniform(-2.0, 0.0, n)
+    pts = values + (half / BAYES_PRIORERRFACT) * scale[:, None] \
+        * rng.standard_normal((n, nd))
+    for i in range(n - BAYES_OUTSIDE, n):
+        k = int(rng.integers(nd))
+        side = 1.0 if rng.random() < 0.5 else -1.0
+        edge = pmax[k] if side > 0 else pmin[k]
+        pts[i, k] = edge + side * 0.05 * half[k]
+    return pts, rng.random((BAYES_CUBES, nd))
+
+
+def export_bayes(model, toas, which: str, arrays: dict, meta: dict) -> None:
+    """Add the reference's Bayesian timing and MCMC outputs to a
+    snapshot's ``arrays`` under ``ref/bayes/`` and to
+    ``meta["reference"]["bayes"]``: the prior box (``pmin``, ``pmax`` in
+    free-parameter order), :func:`bayes_points`' points with each one's
+    ``lnposterior_batch``, ``lnprior`` and chi2 (the batched path's, from
+    a box 100 times as wide), ``prior_transform`` of the cubes, the
+    initial walker positions (the reference's seeded ball of
+    ``errfact`` 0.1 post-fit sigmas, walkers outside the box reset to the
+    values) and a seeded ``MCMCFitter.fit_toas`` from them: the chain
+    (``walker_chain``, (nwalkers, ndim, nsteps): walker-major, so that a
+    rejected step repeats its predecessor beside it and compresses), its
+    log-posteriors, each decision's accept flag, the acceptance fraction,
+    the maximum posterior, its index and values, the posterior stds and
+    the returned chi2."""
+    from pint_tpu.bayesian import BayesianTiming
+    from pint_tpu.mcmc_fitter import MCMCFitter
+    from pint_tpu.sampler import EnsembleSampler
+
+    spec = BAYES[which]
+    ref = meta["reference"]
+    if toas.delta_pulse_number is not None:
+        raise ValueError("the port's batched lnposterior takes the delta "
+                         "pulse numbers as 0; these TOAs have some")
+    names = list(model.free_params)
+    info = bayes_prior_info(model, toas, ref["postfit_params"],
+                            arrays["ref/postfit_uncertainties"])
+    pmin = np.array([info[p]["pmin"] for p in names])
+    pmax = np.array([info[p]["pmax"] for p in names])
+    values = np.array([float(getattr(model, p).value or 0.0) for p in names])
+    pts, cubes = bayes_points(values, pmin, pmax, BAYES_SEEDS["points"])
+    P = "ref/bayes/"
+    arrays[P + "pmin"], arrays[P + "pmax"] = pmin, pmax
+    arrays[P + "points"], arrays[P + "cubes"] = pts, cubes
+    bt = BayesianTiming(model, toas, prior_info=info)
+    arrays[P + "lnposterior"] = np.asarray(bt.lnposterior_batch(pts))
+    half = 0.5 * (pmax - pmin)
+    wide = {p: dict(distr="uniform", pmin=v - 100.0 * h, pmax=v + 100.0 * h)
+            for p, v, h in zip(names, values, half)}
+    bw = BayesianTiming(model, toas, prior_info=wide)
+    lp_wide = np.asarray(bw.lnposterior_batch(pts))
+    lognorm = float(np.sum(np.log(np.asarray(
+        model.scaled_toa_uncertainty(toas)))))
+    if toas.wideband:
+        lognorm += float(np.sum(np.log(np.asarray(
+            model.scaled_dm_uncertainty(toas)))))
+    lnpr_wide = np.array([bw.lnprior(x) for x in pts])
+    arrays[P + "chi2"] = -2.0 * (lp_wide - lnpr_wide + lognorm)
+    arrays[P + "lnprior"] = np.array([bt.lnprior(x) for x in pts])
+    arrays[P + "prior_transform"] = np.array([bt.prior_transform(c)
+                                              for c in cubes])
+    f = MCMCFitter(toas, model, prior_info=info,
+                   sampler=EnsembleSampler(spec["nwalkers"],
+                                           seed=BAYES_SEEDS["sampler"]))
+    unc = dict(zip(ref["postfit_params"],
+                   arrays["ref/postfit_uncertainties"]))
+    for p in names:
+        getattr(f.model, p).uncertainty = float(unc[p])
+    pos = f.sampler.get_initial_pos(f.fitkeys, f.get_fitvals(),
+                                    f.get_fiterrs(), f.errfact,
+                                    seed=BAYES_SEEDS["pos"])
+    bad = ~np.isfinite(f.bt.lnposterior_batch(pos))
+    pos[bad] = f.get_fitvals()
+    arrays[P + "pos"] = pos.copy()
+    chi2 = f.fit_toas(maxiter=spec["nsteps"], pos=pos)
+    chain = f.sampler.get_chain()
+    prev = np.concatenate([arrays[P + "pos"][None], chain[:-1]])
+    arrays[P + "walker_chain"] = np.ascontiguousarray(
+        chain.transpose(1, 2, 0))
+    arrays[P + "lnprob"] = f.sampler.get_log_prob()
+    arrays[P + "accepted"] = np.any(chain != prev, axis=2)
+    nsteps = chain.shape[0]
+    lnp = f.sampler.get_log_prob(flat=True, discard=int(nsteps * 0.25))
+    arrays[P + "maxpost_fitvals"] = np.asarray(f.maxpost_fitvals)
+    arrays[P + "stds"] = np.array([f.errors[p] for p in f.fitkeys])
+    ref["bayes"] = dict(
+        spec, params=names, priorerrfact=BAYES_PRIORERRFACT,
+        seeds=dict(BAYES_SEEDS), errfact=float(f.errfact), burn_frac=0.25,
+        lognorm=lognorm, acceptance=float(f.sampler.acceptance_fraction),
+        naccepted=int(f.sampler.naccepted), maxpost=float(f.maxpost),
+        maxpost_index=int(np.argmax(lnp)), chi2=float(chi2),
+        likelihood=bt.likelihood_method)

@@ -47,19 +47,22 @@ def test_import_and_load_pull_in_no_jax():
         "pint_torch.pulsar_ecliptic, pint_torch.wideband, "
         "pint_torch.noisefit, pint_torch.orbital.kepler, "
         "pint_torch.pint_matrix, pint_torch.derived_quantities, "
-        "pint_torch.utils, pint_torch.residuals\n"
+        "pint_torch.utils, pint_torch.residuals, pint_torch.bayesian, "
+        "pint_torch.sampler, pint_torch.mcmc_fitter, "
+        "pint_torch.models.priors, pint_torch.runtime.checkpoint\n"
         "import pint_torch.integrity.robust\n"
         "from pint_torch.bridge import load_snapshot, STANDIN_PATH, "
         "ELL1_PATH, ELL1H_PATH, NGC_PHOFF_PATH, DDK_PATH, DDGR_PATH, "
         "BT_SMALL_PATH, DDS_SMALL_PATH, DDH_SMALL_PATH, BW_PATH, "
         "BW_WAVES_PATH, PTA_PATH, YOUNG_PATH, DD_FBX_SMALL_PATH, "
         "BT_PIECEWISE_SMALL_PATH, PTA_SMALL_PATH, YOUNG_SMALL_PATH, "
-        "WB_PATH, WB_SMALL_PATH, NOISE_PATH\n"
+        "WB_PATH, WB_SMALL_PATH, WB_WHITE_SMALL_PATH, NOISE_PATH\n"
         "for p in (STANDIN_PATH, ELL1_PATH, ELL1H_PATH, NGC_PHOFF_PATH, "
         "DDK_PATH, DDGR_PATH, BT_SMALL_PATH, DDS_SMALL_PATH, "
         "DDH_SMALL_PATH, BW_PATH, BW_WAVES_PATH, PTA_PATH, YOUNG_PATH, "
         "DD_FBX_SMALL_PATH, BT_PIECEWISE_SMALL_PATH, PTA_SMALL_PATH, "
-        "YOUNG_SMALL_PATH, WB_PATH, WB_SMALL_PATH, NOISE_PATH):\n"
+        "YOUNG_SMALL_PATH, WB_PATH, WB_SMALL_PATH, WB_WHITE_SMALL_PATH, "
+        "NOISE_PATH):\n"
         "    load_snapshot(p, device='cpu')\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print('BAD', bad)\n"
@@ -117,12 +120,12 @@ def test_entry_points_default_to_the_gpu():
                                    DDK_PATH, ELL1H_PATH, NGC_PATH,
                                    NGC_PHOFF_PATH, NOISE_PATH,
                                    PTA_SMALL_PATH, WB_PATH, WB_SMALL_PATH,
-                                   YOUNG_PATH)
+                                   WB_WHITE_SMALL_PATH, YOUNG_PATH)
 
     for path in (STANDIN_PATH, ELL1H_PATH, NGC_PATH, NGC_PHOFF_PATH,
                  DDK_PATH, DDGR_PATH, BT_SMALL_PATH, BW_PATH,
                  PTA_SMALL_PATH, YOUNG_PATH, WB_PATH, WB_SMALL_PATH,
-                 NOISE_PATH):
+                 WB_WHITE_SMALL_PATH, NOISE_PATH):
         with pytest.raises(NoGPUError):
             load_snapshot(path)
     # the Kepler cores take their elements on the host and run on the card
@@ -136,11 +139,14 @@ def test_entry_points_default_to_the_gpu():
 
 
 @pytest.mark.parametrize("module", ["utils", "derived_quantities",
-                                    "pint_matrix", "grid", "fitter"])
+                                    "pint_matrix", "grid", "fitter",
+                                    "bayesian", "sampler", "mcmc_fitter",
+                                    "models.priors", "runtime.checkpoint"])
 def test_api_modules_import_no_jax(module):
-    """The API's modules import neither ``jax`` nor ``pint_tpu`` (by their
-    source, and in a fresh interpreter)."""
-    path = REPO / "pint_torch" / f"{module}.py"
+    """The API's modules and the Bayesian and MCMC ones import neither
+    ``jax`` nor ``pint_tpu`` (by their source, and in a fresh
+    interpreter)."""
+    path = REPO / "pint_torch" / f"{module.replace('.', '/')}.py"
     test_no_jax_import_in_port_sources(path)
     code = (f"import sys, pint_torch.{module}\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -152,10 +158,11 @@ def test_api_modules_import_no_jax(module):
 
 
 @pytest.mark.parametrize("entry", ["PowellFitter", "tuple_chisq",
-                                   "d_delay_d_param"])
+                                   "d_delay_d_param", "MCMCFitter"])
 def test_api_entry_points_default_to_the_gpu(entry):
-    """A user's call of ``PowellFitter``, ``tuple_chisq`` or
-    ``d_delay_d_param`` starts from a snapshot loaded on the default
+    """A user's call of ``PowellFitter``, ``tuple_chisq``,
+    ``d_delay_d_param`` or ``MCMCFitter`` (with its ``BayesianTiming``
+    and ``EnsembleSampler``) starts from a snapshot loaded on the default
     device, the card: without one it raises ``NoGPUError``; on the CPU,
     asked for, each computes on its batch's device."""
     from pint_torch import NoGPUError
@@ -174,6 +181,19 @@ def test_api_entry_points_default_to_the_gpu(entry):
             f.fit_toas()
             c2, _ = tuple_chisq(f, ("F0",), [[m.value("F0")]], niter=1)
             assert np.isfinite(c2).all()
+            return f.resids.time_resids
+        if entry == "MCMCFitter":
+            from pint_torch.mcmc_fitter import MCMCFitter
+            from pint_torch.sampler import EnsembleSampler
+
+            f = MCMCFitter(b, m, sampler=EnsembleSampler(8, seed=1))
+            for p in f.fitkeys:
+                f.model[p].uncertainty = 1e-3 * abs(m.value(p)) + 1e-12
+            f.set_priors(f)
+            assert np.isfinite(f.fit_toas(2, seed=2))
+            x = f.bt.batched_posterior().fn(
+                torch.tensor(f.sampler.get_chain()[-1], device=b.device))
+            assert x.device == b.device
             return f.resids.time_resids
         return m.d_delay_d_param(b, "DM")
 
@@ -313,6 +333,7 @@ def test_kernel_sources_ship_with_the_package():
                     ("small_young_standin.npz", 80),
                     ("b1855_wb_standin.npz", 890),
                     ("small_wb_standin.npz", 80),
+                    ("small_wb_white_standin.npz", 80),
                     ("b1855_noise_standin.npz", 4005)):
         assert np.load(REPO / "pint_torch" / "data" / snap,
                        allow_pickle=False)["tdb_hi"].shape == (n,)

@@ -44,7 +44,16 @@ outputs (``_torch_standin.API``) to a committed stand-in in place::
 (likewise ``ell1``, ``ngc``, ``bt``, ``bw``, ``pta``, ``b1855_wb``,
 ``b1855_noise``, ``small_wb``): the stand-in is simulated again, its state
 must come out bitwise as committed, and every array already in the file
-is kept as it is.
+is kept as it is.  ``--bayes`` adds the Bayesian timing interface's and
+the ensemble MCMC's reference outputs (``_torch_standin.BAYES``,
+``export_bayes``) the same way::
+
+    python tests/test_torch_snapshot.py --settings ell1 --bayes \
+        --write pint_torch/data/j1909_ell1_standin.npz
+
+(likewise ``ddgr``, ``ngc_phoff`` and ``small_wb_white``, the last after
+``--settings small_wb_white --write
+pint_torch/data/small_wb_white_standin.npz``).
 
 The tests check that a small export round-trips through
 :func:`pint_torch.bridge.load_snapshot` bitwise, and that the committed
@@ -503,15 +512,17 @@ API_DIGESTS = {
 }
 
 
-def _earlier_digest(path) -> str:
-    """sha256 (16 hex) of a snapshot's arrays but ``ref/api/`` (name,
-    dtype, shape, bytes) and of its ``meta`` without the API's keys."""
+def _digest(path, skip=("ref/api/", "ref/bayes/")) -> str:
+    """sha256 (16 hex) of a snapshot's arrays but those under the
+    prefixes ``skip`` (name, dtype, shape, bytes) and of its ``meta``
+    without their keys (``top_level`` and ``reference["api"]`` for
+    ``ref/api/``, ``reference["bayes"]`` for ``ref/bayes/``)."""
     import hashlib
 
     h = hashlib.sha256()
     with np.load(path, allow_pickle=False) as z:
         for k in sorted(z.files):
-            if k == "meta" or k.startswith("ref/api/"):
+            if k == "meta" or k.startswith(skip):
                 continue
             a = z[k]
             h.update(k.encode())
@@ -519,10 +530,19 @@ def _earlier_digest(path) -> str:
             h.update(str(a.shape).encode())
             h.update(np.ascontiguousarray(a).tobytes())
         meta = json.loads(str(z["meta"]))
-    meta.pop("top_level", None)
-    meta.get("reference", {}).pop("api", None)
+    if "ref/api/" in skip:
+        meta.pop("top_level", None)
+        meta.get("reference", {}).pop("api", None)
+    if "ref/bayes/" in skip:
+        meta.get("reference", {}).pop("bayes", None)
     h.update(json.dumps(meta, sort_keys=True).encode())
     return h.hexdigest()[:16]
+
+
+def _earlier_digest(path) -> str:
+    """The digest of a snapshot as it was before the API's and the
+    Bayesian interface's outputs were added."""
+    return _digest(path)
 
 
 @pytest.mark.parametrize("attr", list(API_DIGESTS))
@@ -585,6 +605,109 @@ def test_top_level_meta_and_api_keys_round_trip(tmp_path):
     assert m2.free_params == m.free_params
 
 
+#: the stand-ins that carry the Bayesian interface's and the ensemble
+#: MCMC's reference outputs (``ref/bayes/``), by bridge path, with the
+#: digest of everything they held before: every array but ``ref/bayes/``,
+#: and ``meta`` without ``reference["bayes"]``
+BAYES_DIGESTS = {
+    "ELL1_PATH": ("ell1", "15f67a9adcffe330"),
+    "DDGR_PATH": ("ddgr", "b470bef0e49e11ec"),
+    "NGC_PHOFF_PATH": ("ngc_phoff", "0dc75484e8bbeea5"),
+    "WB_WHITE_SMALL_PATH": ("small_wb_white", "4075a4eaea5920c5"),
+}
+
+
+@pytest.mark.parametrize("attr", list(BAYES_DIGESTS))
+def test_bayes_snapshots_keep_every_earlier_key(attr):
+    """Adding ``ref/bayes/`` left every array and the rest of ``meta``
+    bitwise as committed before; the keys hold the prior box, the points
+    with their values, the cubes, the walkers and the seeded run at the
+    shapes ``_torch_standin.BAYES`` asks for."""
+    from pint_torch import bridge
+
+    which, digest = BAYES_DIGESTS[attr]
+    path = getattr(bridge, attr)
+    assert _digest(path, ("ref/bayes/",)) == digest
+    meta, arrays = bridge.read_snapshot(path)
+    bz = meta["reference"]["bayes"]
+    spec = standin.BAYES[which]
+    m, _ = bridge.load_snapshot(path, device="cpu")
+    nd = len(m.free_params)
+    assert bz["params"] == m.free_params
+    assert (bz["nwalkers"], bz["nsteps"]) == (spec["nwalkers"],
+                                              spec["nsteps"])
+    assert bz["seeds"] == standin.BAYES_SEEDS
+    P = "ref/bayes/"
+    n, k = standin.BAYES_POINTS, standin.BAYES_CUBES
+    shapes = {"pmin": (nd,), "pmax": (nd,), "points": (n, nd),
+              "lnposterior": (n,), "lnprior": (n,), "chi2": (n,),
+              "cubes": (k, nd), "prior_transform": (k, nd),
+              "pos": (spec["nwalkers"], nd),
+              "walker_chain": (spec["nwalkers"], nd, spec["nsteps"]),
+              "lnprob": (spec["nsteps"], spec["nwalkers"]),
+              "accepted": (spec["nsteps"], spec["nwalkers"]),
+              "maxpost_fitvals": (nd,), "stds": (nd,)}
+    assert {k[len(P):] for k in arrays if k.startswith(P)} == set(shapes)
+    for key, shape in shapes.items():
+        assert arrays[P + key].shape == shape, key
+    assert int(arrays[P + "accepted"].sum()) == bz["naccepted"]
+    assert bz["acceptance"] == bz["naccepted"] / (spec["nwalkers"]
+                                                  * spec["nsteps"])
+    out = np.isneginf(arrays[P + "lnposterior"])
+    assert out[-standin.BAYES_OUTSIDE:].all() and not out[:-8].any()
+    inside = (arrays[P + "pos"] >= arrays[P + "pmin"]) \
+        & (arrays[P + "pos"] <= arrays[P + "pmax"])
+    assert inside.all()
+
+
+def test_committed_small_wb_white_file_loads_with_stated_shapes():
+    """The small wideband stand-in with white noise only: 80 wideband TOAs,
+    the DM terms of ``small_wb`` without ECORR or red noise (so no
+    correlated errors), the wideband fits; written with its settings."""
+    from pint_torch import bridge
+
+    path = bridge.WB_WHITE_SMALL_PATH
+    assert os.path.getsize(path) < 2 * 1024 * 1024
+    meta, arrays = bridge.read_snapshot(path)
+    rr = meta["reference"]
+    assert rr["settings"] == standin.SMALL_WB_WHITE_SETTINGS
+    assert rr["settings"]["rn_modes"] == 0 and not rr["settings"]["ecorr"]
+    m, b = bridge.load_snapshot(path, device="cpu")
+    assert b.ntoas == 80 and b.wideband and not m.has_correlated_errors
+    assert {"SolarWindDispersion", "SolarWindDispersionX", "DMWaveX",
+            "FDJumpDM", "ScaleDmError"} <= set(m.components)
+    assert not {"EcorrNoise", "PLRedNoise"} & set(m.components)
+    assert rr["auto_fitter"] == "WidebandDownhillFitter"
+    assert "ref/grid_chi2" not in arrays
+    for key in ("postfit", "full_cov", "downhill", "lm", "auto"):
+        assert np.isfinite(arrays[f"ref/{key}_uncertainties"]).all()
+
+
+def test_bayes_keys_round_trip(tmp_path):
+    """``ref/bayes/`` arrays and ``meta["reference"]["bayes"]`` come back
+    bitwise, and the snapshot loads as without them."""
+    from pint_torch.bridge import load_snapshot, read_snapshot
+
+    model, toas = standin.make_standin(standin.SMALL_SETTINGS, full=False)
+    arrays = standin.export_state(model, toas)
+    bare_m, _ = load_snapshot(dict(arrays), device="cpu")
+    meta = json.loads(str(arrays["meta"]))
+    meta["reference"] = {"bayes": {"nwalkers": 4, "params": ["F0"]}}
+    arrays["meta"] = np.asarray(json.dumps(meta))
+    rng = np.random.default_rng(1)
+    arrays["ref/bayes/walker_chain"] = rng.standard_normal((4, 1, 3))
+    arrays["ref/bayes/accepted"] = rng.random((3, 4)) < 0.5
+    path = tmp_path / "bayes.npz"
+    np.savez_compressed(path, **arrays)
+    meta2, again = read_snapshot(str(path))
+    assert meta2["reference"]["bayes"] == meta["reference"]["bayes"]
+    for k in ("ref/bayes/walker_chain", "ref/bayes/accepted"):
+        assert again[k].dtype == arrays[k].dtype
+        assert np.array_equal(again[k], arrays[k])
+    m, _ = load_snapshot(str(path), device="cpu")
+    assert m.free_params == bare_m.free_params
+
+
 #: the committed full-width stand-ins, by the exporter's ``--settings``
 SETTINGS = {"b1855": standin.FULL_SETTINGS,
             "dmx15": standin.DMX15_SETTINGS,
@@ -607,11 +730,12 @@ SETTINGS = {"b1855": standin.FULL_SETTINGS,
             "small_young": standin.SMALL_YOUNG_SETTINGS,
             "b1855_wb": standin.WB_SETTINGS,
             "small_wb": standin.SMALL_WB_SETTINGS,
+            "small_wb_white": standin.SMALL_WB_WHITE_SETTINGS,
             "b1855_noise": standin.NOISE_SETTINGS,
             "kepler": standin.KEPLER_SETTINGS}
 #: the committed stand-ins of small depth: no grid
 SMALL_DEPTH = ("bt", "dds", "ddh", "small_dd_fbx", "small_bt_piecewise",
-               "small_pta", "small_young", "small_wb")
+               "small_pta", "small_young", "small_wb", "small_wb_white")
 #: full-width stand-ins without a grid
 NO_GRID = ("bw_waves",)
 
@@ -635,11 +759,10 @@ def _write(path: str, chunk: int, settings: dict, small: bool = False) -> None:
     np.savez_compressed(path, **arrays)
 
 
-def _add_api(path: str, which: str) -> None:
-    """Add the API's reference outputs (``standin.export_api``) to the
-    committed stand-in at ``path``: the arrays already there stay as they
-    are, and the model rebuilt from the settings must export the same
-    state bitwise."""
+def _rebuilt(path: str, which: str):
+    """(model, toas, arrays, meta) of the committed stand-in at ``path``,
+    its model and TOAs simulated again from the settings: their exported
+    state must come out bitwise as committed."""
     settings = SETTINGS[which]
     with np.load(path, allow_pickle=False) as z:
         arrays = {k: z[k] for k in z.files}
@@ -655,12 +778,22 @@ def _add_api(path: str, which: str) -> None:
             != {k: v for k, v in meta.items()
                 if k not in ("reference", "top_level")}:
         raise SystemExit("the rebuilt model's meta is not as committed")
+    return model, toas, arrays, meta
+
+
+def _add_outputs(path: str, which: str, export, prefix: str) -> None:
+    """Add a family of reference outputs (``export``: ``export_api`` under
+    ``ref/api/``, ``export_bayes`` under ``ref/bayes/``) to the committed
+    stand-in at ``path``: the arrays already there stay as they are, and
+    the model rebuilt from the settings must export the same state
+    bitwise."""
+    model, toas, arrays, meta = _rebuilt(path, which)
     before = dict(arrays)
-    standin.export_api(model, toas, which, arrays, meta)
+    export(model, toas, which, arrays, meta)
     for k, v in arrays.items():
         if k in before and v is not before[k] or k not in before \
-                and not k.startswith("ref/api/"):
-            raise SystemExit(f"export_api wrote {k} outside ref/api/")
+                and not k.startswith(prefix):
+            raise SystemExit(f"{export.__name__} wrote {k} outside {prefix}")
     arrays["meta"] = np.asarray(json.dumps(meta))
     np.savez_compressed(path, **arrays)
 
@@ -699,14 +832,24 @@ if __name__ == "__main__":
                          "small_pta, small_young: their small stand-ins "
                          "(no grid); b1855_wb, small_wb: WB_SETTINGS, "
                          "SMALL_WB_SETTINGS (the wideband fits); "
+                         "small_wb_white: SMALL_WB_WHITE_SETTINGS (white "
+                         "noise only); "
                          "b1855_noise: NOISE_SETTINGS (the noise fit); "
                          "kepler: the Kepler cores' outputs")
     ap.add_argument("--api", action="store_true",
                     help="add the API's reference outputs to the committed "
                          "file at --write, keeping its arrays")
+    ap.add_argument("--bayes", action="store_true",
+                    help="add the Bayesian timing interface's and the "
+                         "ensemble MCMC's reference outputs to the committed "
+                         "file at --write, keeping its arrays")
     args = ap.parse_args()
     if args.api:
-        _add_api(args.write, args.settings)
+        _add_outputs(args.write, args.settings, standin.export_api,
+                     "ref/api/")
+    elif args.bayes:
+        _add_outputs(args.write, args.settings, standin.export_bayes,
+                     "ref/bayes/")
     else:
         _write(args.write, args.chunk, SETTINGS[args.settings],
                args.settings in SMALL_DEPTH)
