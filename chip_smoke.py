@@ -10,14 +10,14 @@ Phases, one line each:
 
 1. device -- the card's name and power limit (nvidia-smi) and its
    properties;
-2. build -- the seven hand kernels, one nvcc per source, started
+2. build -- the eight hand kernels, one nvcc per source, started
    together; the ptxas report of each ``__global__`` (registers, stack
    frame, spill bytes; K1's per S = 1..6, K2's and K4's per mode and orbit
-   source, K6's per form, its duals staged and direct), read from the
-   build logs: K1's primal templates must hold no stack frame, and no
-   primal (K1, K2 in its five modes and both orbit sources, K4 likewise,
-   K6, K7), no ELL1H dual, no K6 or K7 dual and no tiled K5 kernel may
-   spill;
+   source, K6's per form, its duals staged and direct, K8's per mode and
+   output), read from the build logs: K1's primal templates must hold no
+   stack frame, and no primal (K1, K2 in its five modes and both orbit
+   sources, K4 likewise, K6, K7), no ELL1H dual, no K6 or K7 dual, no
+   tiled K5 kernel and no K8 kernel may spill;
 3. main paths, each with the kernel launch counts zeroed just before it
    and read just after, and every kernel of the path required to have
    launched; then its bars against the reference package's outputs stored
@@ -150,7 +150,28 @@ Phases, one line each:
    ``torch.profiler``, and ell1's busy share of 5 warm steps; a
    checkpointed 25 + 25 steps on ngc_phoff equal 50 uninterrupted
    bitwise; b1855 (correlated noise) is refused with
-   ``NotImplementedError``;
+   ``NotImplementedError``.  Then the photon phase, each stand-in's
+   counts zeroed just before it, on small_photon (the reference photon
+   test's 300 photons, 16 walkers x 30 steps) and photon_j0030 (32768
+   weighted, barycentred photons over twelve years with J0030+0451's two
+   peaks; F0 with a normal prior, F1 in a box; 128 x 40): the photons'
+   phases within 1e-10 s x F0 cycles of the reference's (the count that
+   differ at all and that changed bin printed), ``event_optimize``'s
+   FFTFIT start (the weighted profile, ``fftfit_full`` within 1e-10
+   cycles of the reference's shift, ``rotate``, ``set_template``), then
+   ``MCMCFitterBinnedTemplate`` (K8 BINNED) and
+   ``MCMCFitterAnalyticTemplate`` (K8 GAUSS): ``lnposterior_batch`` at
+   the 64 stored points within each point's bar (1e-12 of the sum of
+   |log terms|, plus, binned, the jump of each photon within the phase
+   bar of a bin edge, analytic the phase bar times the sum of |d term /
+   d phi|), -inf where the reference's; ``get_template_vals`` 1e-13 rel
+   of the host template; the seeded chain from the stored walkers
+   (decisions the reference's unless the margin is within the two
+   points' bars, walkers bitwise, and with none differing lnprob within
+   its bar, acceptance, maximum and stds exact); printed: steps/s, walker
+   evaluations/s, the half-ensemble's ``lnposterior_batch`` (median of 5
+   warm calls), its launches, its CUDA kernels under ``torch.profiler``
+   and its peak memory; K1's primal and every K8 kernel must launch;
 4. kernels -- each CUDA kernel (the primal and dual instantiations of K1,
    K2 and K4 -- K4's for ELL1, ELL1k, ELL1H exact and ELL1H harmonic --,
    K3's shared-memory instantiation at nt = 88 and its global one at nt =
@@ -195,11 +216,18 @@ Phases, one line each:
    with indices 1.5-4.4 and windows, the geometry bitwise, partials 1e-10
    rel; K1's, K4's ELL1, K2's DDGR and K7's primals on the mcmc phase's
    B = 128 walker rows (every parameter distinct per row), bitwise,
-   timed and recorded with the phase's launches.
+   timed and recorded with the phase's launches; K8 in each mode on the
+   photon_j0030 path's calls and on edge rows (phases 0, -0.0, -1e-17,
+   1 - 1e-16, every k / 256 and one ulp either side, NaN rows; weights
+   with exact 0s and 1s, and none; a zero-density bin; 1, 2 and 5 peaks
+   of sigma 0.005-0.3): the density bitwise, NaN where the plain version
+   has NaN, each row's sum within 1e-12 of its sum of |terms|, two
+   launches bitwise; timed on a half-ensemble's B = 64 rows, the row
+   sum against ``torch.sum``.
    K2's Newton steps on each path's inputs set its operation count; the
    per-element operation counts of K1, K2, K4, K6 and K7 are bounded at
-   the float64 instruction rate (-fmad=false; K6's and K7's count each
-   math-library call at its SASS count, ``SASS_OPS``); K5's counts what its function
+   the float64 instruction rate (-fmad=false; K6's, K7's and K8's count
+   each math-library call at its SASS count, ``SASS_OPS``); K5's counts what its function
    needs (QR at the float64 tensor-core rate, the k x k SVD at the CUDA
    cores' flop rate).
    CUDA-event times of kernel, twin and, for K3 and K5, the library call
@@ -240,6 +268,9 @@ F64_TC_FLOP_PER_S = 67e12
 #: multiply is an instruction of its own, and the per-element operation
 #: counts of K1, K2 and K4 are bounded at this rate
 F64_INSTR_PER_S = 132 * 64 * 1.98e9
+#: the H100 SXM's L2 cache: a timed loop whose inputs fit in it reads them
+#: from the cache, not from HBM
+L2_BYTES = 50 * 2**20
 
 #: float64 operations per element of ``dd_binary.cu``, counted from the
 #: source with a sine, cosine, arctangent, logarithm or square root counted
@@ -511,6 +542,8 @@ class Capture:
                 (True,) if len(args) > 6 and args[6] is not None else ())
         elif name == "binary_orbits":
             partials = (int(args[2]), bool(args[6]))
+        elif name == "photon_lnlike":
+            partials = (int(args[3]), bool(args[4]))
         else:
             partials = args[-1] if name in ("spin_phase", "solar_wind_pl") \
                 else None
@@ -550,6 +583,18 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _rotated(fn, x, *rest):
+    """``fn`` on ``x``'s copies in turn, with ``rest`` after it: copies
+    enough that together they hold four times the L2 cache, so that each
+    call of a timed loop reads its ``x`` from HBM as the bytes bound
+    assumes."""
+    import itertools
+
+    n = max(2, math.ceil(4 * L2_BYTES / (x.numel() * x.element_size())))
+    copies = itertools.cycle([x.clone() for _ in range(n)])
+    return lambda: fn(next(copies), *rest)
 
 
 def _bound(nbytes: float, ops: float, tensor_ops: float = 0.0,
@@ -1170,77 +1215,108 @@ def _bayes_info(meta, ref) -> dict:
                                  ref["ref/bayes/pmax"])}
 
 
-def _chain_bars(stored, bz, f, pos) -> dict:
-    """The chain bars of the mcmc phase on the port's run ``f`` (its
-    sampler's ``decision_log`` set) against the reference's stored one
-    from the same walkers: each decision the reference's unless the port's
-    margin ``|lnratio - log u|`` is within twice the lnposterior bar of
-    the proposal and the current point, the walkers bitwise up to the
-    first decision that differs; with no decision inside the margin the
-    whole chain bitwise, lnprob at the lnposterior bar, the acceptance
-    and the maximum's index exact, its values and the stds bitwise and
-    the returned chi2 to 1e-6 rel.  Returns what it found; raises on a
+def _chain_bars(f, want, accepted, bars, tol, final) -> dict:
+    """The chain bars on the port's run ``f`` (its sampler's
+    ``decision_log`` set) against the reference's stored run from the
+    same walkers, ``want`` its (T, W, ndim) chain and ``accepted`` its (T,
+    W) decisions: each decision the reference's unless the port's margin
+    ``|lnratio - log u|`` is within ``tol(bar of the proposal, bar of the
+    current point)``, ``bars(k)`` the (n,) lnposterior bars of the
+    starting walkers (k = 0) and of half-step k - 1's proposals; the
+    walkers bitwise up to the first decision that differs.  With no
+    decision differing, ``final(out, hist)`` holds the whole run to the
+    phase's own bars (``hist`` the (T, W) bars of each step's walkers) and
+    adds to ``out`` what it found.  Returns what it found; raises on a
     broken bar."""
     import numpy as np
 
-    s, bt = f.sampler, f.bt
-    chain, lnprob = s.get_chain(), s.get_log_prob()
-    want = stored["walker_chain"].transpose(2, 0, 1)
+    s = f.sampler
+    chain = s.get_chain()
     T, W, _ = want.shape
     half = W // 2
-    lnpr = float(sum(p.prior.logpdf(p.prior.ppf(0.5)) for p in bt.params))
-
-    def chi2_of(lp):
-        return -2.0 * (lp - lnpr + bt.lognorm)
-
-    lp_cur = bt.lnposterior_batch(pos)
-    inside, diverged = [], None
+    bar_cur = np.array(bars(0), dtype=np.float64)
+    hist, inside, diverged = [], [], None
     for t in range(T):
         for h in (0, 1):
             sl = slice(0, half) if h == 0 else slice(half, W)
-            marg, lp_prop = s.decision_log[2 * t + h]
+            marg, _ = s.decision_log[2 * t + h]
+            bp = bars(1 + 2 * t + h)
             with np.errstate(invalid="ignore"):
-                tol = 2.0 * LNPOST_BAR * np.maximum(chi2_of(lp_prop),
-                                                    chi2_of(lp_cur[sl]))
-                inm = np.isfinite(marg) & (np.abs(marg) <= tol)
+                inm = np.isfinite(marg) & (np.abs(marg)
+                                           <= tol(bp, bar_cur[sl]))
             inside += [t] * int(inm.sum())
-            differ = (marg > 0) != stored["accepted"][t, sl]
+            acc = marg > 0
+            differ = acc != accepted[t, sl]
             if (differ & ~inm).any():
                 raise RuntimeError(f"an accept decision at step {t} differs "
                                    "from the reference's outside the margin")
             if differ.any():
                 diverged = (t, h)
                 break
+            bar_cur[sl][acc] = bp[acc]
         if diverged:
             break
-        lp_cur = lnprob[t]
+        hist.append(bar_cur.copy())
     upto = diverged[0] if diverged else T
     if not np.array_equal(chain[:upto], want[:upto]):
         raise RuntimeError(f"the walkers are not bitwise the reference's "
                            f"before step {upto}")
     out = dict(inside=len(inside), inside_steps=sorted(set(inside)),
                diverged=diverged, bitwise_steps=upto)
-    if inside:
-        return out
-    c2 = -2.0 * (stored["lnprob"] - lnpr + bt.lognorm)
-    dl = float(np.max(np.abs(lnprob - stored["lnprob"]) / c2))
-    n = chain.shape[0]
-    lnp = s.get_log_prob(flat=True, discard=int(n * bz["burn_frac"]))
-    chi2 = f.model["CHI2"].value
-    dchi2 = abs(chi2 - bz["chi2"]) / abs(bz["chi2"])
-    ok = (diverged is None and dl <= LNPOST_BAR
-          and s.naccepted == bz["naccepted"]
-          and int(np.argmax(lnp)) == bz["maxpost_index"]
-          and np.array_equal(f.maxpost_fitvals, stored["maxpost_fitvals"])
-          and np.array_equal([f.errors[p] for p in f.fitkeys],
-                             stored["stds"])
-          and dchi2 <= 1e-6)
-    if not ok:
-        raise RuntimeError("with no decision inside the margin the chain, "
-                           "lnprob, acceptance, maximum, stds or chi2 "
-                           "differ from the reference's")
-    out.update(lnprob_rel=dl, chi2_rel=dchi2)
+    if not diverged:
+        final(out, np.asarray(hist))
     return out
+
+
+def _mcmc_chain_bars(stored, bz, f, pos) -> dict:
+    """:func:`_chain_bars` of the mcmc phase: each point's bar
+    LNPOST_BAR x its chi2, the margin twice the larger of the proposal's
+    and the current point's; with no decision inside the margin the
+    whole chain bitwise, lnprob at the lnposterior bar, the acceptance and
+    the maximum's index exact, its values and the stds bitwise and the
+    returned chi2 to 1e-6 rel."""
+    import numpy as np
+
+    s, bt = f.sampler, f.bt
+    lnpr = float(sum(p.prior.logpdf(p.prior.ppf(0.5)) for p in bt.params))
+
+    def chi2_of(lp):
+        return -2.0 * (lp - lnpr + bt.lognorm)
+
+    lp0 = bt.lnposterior_batch(pos)
+
+    def bars(k):
+        with np.errstate(invalid="ignore"):
+            return LNPOST_BAR * chi2_of(lp0 if k == 0
+                                        else s.decision_log[k - 1][1])
+
+    def final(out, hist):
+        if out["inside"]:
+            return
+        lnprob = s.get_log_prob()
+        c2 = -2.0 * (stored["lnprob"] - lnpr + bt.lognorm)
+        dl = float(np.max(np.abs(lnprob - stored["lnprob"]) / c2))
+        n = lnprob.shape[0]
+        lnp = s.get_log_prob(flat=True, discard=int(n * bz["burn_frac"]))
+        chi2 = f.model["CHI2"].value
+        dchi2 = abs(chi2 - bz["chi2"]) / abs(bz["chi2"])
+        ok = (dl <= LNPOST_BAR
+              and s.naccepted == bz["naccepted"]
+              and int(np.argmax(lnp)) == bz["maxpost_index"]
+              and np.array_equal(f.maxpost_fitvals,
+                                 stored["maxpost_fitvals"])
+              and np.array_equal([f.errors[p] for p in f.fitkeys],
+                                 stored["stds"])
+              and dchi2 <= 1e-6)
+        if not ok:
+            raise RuntimeError("with no decision inside the margin the "
+                               "chain, lnprob, acceptance, maximum, stds or "
+                               "chi2 differ from the reference's")
+        out.update(lnprob_rel=dl, chi2_rel=dchi2)
+
+    return _chain_bars(f, stored["walker_chain"].transpose(2, 0, 1),
+                       stored["accepted"], bars,
+                       lambda bp, bc: 2.0 * np.maximum(bp, bc), final)
 
 
 def _profile_cuda(fn):
@@ -1279,7 +1355,7 @@ def _mcmc_phase(label, path, kernels, tag, busy: bool = False):
     ``MCMCFitter.fit_toas`` from the stored walkers.  Bars: lnposterior
     within 5e-7 of the reference's chi2 at each point, -inf (and NaN)
     exactly where the reference has them; lnprior and prior_transform
-    1e-12 rel; the chain bars (:func:`_chain_bars`).  Printed: steps/s and
+    1e-12 rel; the chain bars (:func:`_mcmc_chain_bars`).  Printed: steps/s and
     walker evaluations/s over the run, the acceptance fraction, then
     ``lnposterior_batch`` at B = 128 walker rows (the median of 5 warm
     calls), its kernel launches (the wrappers' counters) and all its CUDA
@@ -1343,7 +1419,7 @@ def _mcmc_phase(label, path, kernels, tag, busy: bool = False):
             and d_pr <= 1e-12 and d_pt <= 1e-12):
         raise RuntimeError(f"mcmc bar failed ({label}): lnposterior, "
                            "lnprior or prior_transform")
-    cb = _chain_bars(stored, bz, f, stored["pos"])
+    cb = _mcmc_chain_bars(stored, bz, f, stored["pos"])
     print(f"phase mcmc {label} chain: {cb['inside']} decision(s) inside the "
           f"margin" + (f" at step(s) {cb['inside_steps']}" if cb["inside"]
                        else "")
@@ -1430,6 +1506,471 @@ def _mcmc_resume(path, tag) -> None:
     if not same:
         raise RuntimeError("a resumed MCMC run differs from an "
                            "uninterrupted one")
+
+
+#: the photon phase's bar on a photon's phase [s]: the residual bar,
+#: carried to phases (x F0 cycles) and to the log-likelihood
+PHOTON_BAR_S = 1e-10
+
+
+def _k8_ops(mode: int, density: bool, npeaks: int = 0) -> int:
+    """float64 instructions per photon (and walker row) of K8's work,
+    with an exponential, a logarithm and a division at their SASS counts
+    (``SASS_OPS``) and every other operation as 1.  The wrap x - floor(x)
+    (2); BINNED the scaled index (1: its conversion and clip are integer
+    work); GAUSS per peak the wrap of phi - loc (3), 13 images each an
+    add, a division, two products, an exponential and a sum, then s / den,
+    the product by the norm and the sum (2 and a division); the
+    log-likelihood the weights' product, 1 - w and their sum (3), the
+    floor at 1e-300 (1), the logarithm and the block sum (1).  The GAUSS
+    count, 403 a peak, is the SASS's: its peak loop issues 402 float64
+    instructions a pass (``tools/torch_sass_ops.py``)."""
+    from pint_torch.kernels.photon_lnlike import NWRAP
+
+    ops = 2 + (1 if mode == 0 else npeaks * (
+        3 + (2 * NWRAP + 1) * (4 + _DIV + _EXP) + 2 + _DIV))
+    return ops if density else ops + 3 + 1 + _LOG + 1
+
+
+def _photon_template(meta):
+    """The stand-in's template, rebuilt from its settings' peaks."""
+    from pint_torch.templates import LCGaussian, LCTemplate
+
+    s = meta["reference"]["photon"]["settings"]
+    return LCTemplate([LCGaussian([w, loc]) for w, loc, _ in s["peaks"]],
+                      [n for _, _, n in s["peaks"]])
+
+
+def _photon_bars(f, pts):
+    """(B,) bar of the lnposterior of fitter ``f`` at each of the (B,
+    ndim) host points: 1e-12 x sum_i |term_i| (the sums' order) plus,
+    binned, the jump to the neighbouring bin's term of each photon whose
+    phase lies within the phase bar (1e-10 s x F0) of a bin edge, or,
+    analytic, the phase bar times sum_i |d term_i / d phi| (a central
+    difference of the plain density); term_i = log(max(w_i f(phi_i) + 1
+    - w_i, 1e-300)) at the port's phases.  A check, computed with K8's
+    plain version off the main path."""
+    import torch
+
+    from pint_torch.kernels.photon_lnlike import (BINNED,
+                                                  photon_lnlike_reference)
+
+    dev = f.batch.device
+    vals = torch.as_tensor(pts, dtype=torch.float64, device=dev)
+    frac = f.model.evaluate(vals, tuple(f.fitkeys), f.batch,
+                            f.model.const_pv())[0].frac
+    w = None if f.weights is None else torch.as_tensor(
+        f.weights, dtype=torch.float64, device=dev)
+    mode, table = f._table()
+    floor = torch.full((), 1e-300, dtype=torch.float64, device=dev)
+
+    def terms(x):
+        d = photon_lnlike_reference(x, None, table, mode, density=True)
+        return torch.log(torch.maximum(d if w is None else w * d + (1 - w),
+                                       floor))
+
+    t0 = terms(frac)
+    bar = 1e-12 * t0.abs().sum(-1)
+    dphi = PHOTON_BAR_S * f.model.value("F0")
+    if mode == BINNED:
+        nb = table.shape[0]
+        x = torch.remainder(frac, 1.0) * nb
+        near = (x - torch.round(x)).abs() <= dphi * nb
+        jump = (terms(frac + dphi) - terms(frac - dphi)).abs()
+        bar = bar + torch.where(near, jump, 0.0).sum(-1)
+    else:
+        h = 1e-7
+        slope = (terms(frac + h) - terms(frac - h)).abs() / (2 * h)
+        bar = bar + dphi * slope.sum(-1)
+    return bar.cpu().numpy()
+
+
+def _photon_chain_bars(kind, f, stored, props, ref) -> dict:
+    """:func:`_chain_bars` of the photon phase, ``props`` every point the
+    run evaluated in order (the walkers, then each half-step's
+    proposals): each point's bar :func:`_photon_bars`, the margin the sum
+    of the proposal's and the current point's; with no decision differing
+    each lnprob within its point's bar, the acceptance and the maximum's
+    index exact, its values and the stds bitwise."""
+    import numpy as np
+
+    s = f.sampler
+    bars = [_photon_bars(f, p) for p in props]
+
+    def final(out, hist):
+        lnprob = s.get_log_prob()
+        dlp = np.abs(lnprob - stored[f"{kind}/lnprob"])
+        ratio = float(np.max(dlp / np.maximum(hist, 1e-300)))
+        burn = int(lnprob.shape[0] * 0.25)
+        lnp = s.get_log_prob(flat=True, discard=burn)
+        lnp_ref = stored[f"{kind}/lnprob"][burn:].reshape(-1)
+        ok = (ratio <= 1.0 and s.naccepted == ref[kind]["naccepted"]
+              and int(np.argmax(lnp)) == int(np.argmax(lnp_ref))
+              and np.array_equal(f.maxpost_fitvals,
+                                 stored[f"{kind}/maxpost_fitvals"])
+              and np.array_equal([f.errors[p] for p in f.fitkeys],
+                                 stored[f"{kind}/stds"]))
+        if not ok:
+            raise RuntimeError(f"photon {kind}: with no decision differing "
+                               "the lnprob, acceptance, maximum or stds "
+                               "differ from the reference's")
+        out.update(lnprob_ratio=ratio,
+                   maxpost_d=abs(f.maxpost - ref[kind]["maxpost"]))
+
+    return _chain_bars(f, stored[f"{kind}/walker_chain"].transpose(2, 0, 1),
+                       stored[f"{kind}/accepted"], bars.__getitem__,
+                       lambda bp, bc: bp + bc, final)
+
+
+def _photon_phase(label, path, kernels, tag):
+    """The photon domain on one photon stand-in, the counts zeroed just
+    before each ``fit_toas`` and each ``get_template_vals`` and read just
+    after (the checks' launches are not counted): load, the photons'
+    phases against the
+    reference's, the FFTFIT start of ``event_optimize`` (weighted profile,
+    ``fftfit_full``, ``rotate``, ``set_template``), then for
+    ``MCMCFitterBinnedTemplate`` and ``MCMCFitterAnalyticTemplate`` the
+    lnposterior at the stored points, ``get_template_vals`` at the
+    phases, and the seeded ``fit_toas`` from the stored walkers.  Bars:
+    phases within 1e-10 s x F0 cycles; the shift within 1e-10 cycles (if
+    no photon's bin moved); each lnposterior within :func:`_photon_bars`,
+    -inf exactly where the reference's; the template values 1e-13 rel of
+    the host's; the chain bars (:func:`_photon_chain_bars`).  Printed:
+    steps/s and walker evaluations/s, acceptance, then
+    ``lnposterior_batch`` at B = nwalkers / 2 walker rows (the median of 5
+    warm calls), its launches, its CUDA kernels under ``torch.profiler``
+    and the peak of ``torch.cuda.max_memory_allocated`` over one call.
+    Returns (the two ``fit_toas``' counts, the two
+    ``get_template_vals``' counts, the capture of the phase's kernel calls:
+    the largest of each instantiation)."""
+    import numpy as np
+    import torch
+
+    from pint_torch.bridge import load_snapshot, read_snapshot
+    from pint_torch.event_fitter import (MCMCFitterAnalyticTemplate,
+                                         MCMCFitterBinnedTemplate)
+    from pint_torch.fftfit import fftfit_full
+    from pint_torch.sampler import EnsembleSampler
+
+    meta, ref = read_snapshot(path)
+    R = meta["reference"]["photon"]
+    S = R["settings"]
+    stored = {k[len("ref/photon/"):]: v for k, v in ref.items()
+              if k.startswith("ref/photon/")}
+    nbins, info = R["nbins"], R["prior_info"]
+    counts, tv_counts = {}, {}
+
+    def counted(into, fn):
+        """``fn()`` with the counts zeroed just before and added to
+        ``into`` just after."""
+        kernels.reset_counts()
+        r = fn()
+        for k, v in kernels.launch_counts().items():
+            into[k] = into.get(k, 0) + v
+        return r
+
+    cap = Capture(kernels.modules())
+    cap.install()
+    t_phase = t = time.perf_counter()
+    model, batch = load_snapshot(path, device="cuda")
+    template = _photon_template(meta)
+    fb = MCMCFitterBinnedTemplate(batch, model, template, nbins=nbins,
+                                  prior_info=info)
+    phases = fb.phaseogram_phases()
+    F0 = model.value("F0")
+    d_ph = (phases - stored["phases"] + 0.5) % 1.0 - 0.5
+    n_diff = int(np.count_nonzero(d_ph))
+    b_port = np.minimum((phases * nbins).astype(int), nbins - 1)
+    b_ref = np.minimum((stored["phases"] * nbins).astype(int), nbins - 1)
+    n_bin = int(np.count_nonzero(b_port != b_ref))
+    prof, _ = np.histogram(phases, bins=nbins, range=(0.0, 1.0),
+                           weights=fb.weights)
+    grid = (np.arange(nbins) + 0.5) / nbins
+    fft = fftfit_full(np.asarray(template(grid)), prof.astype(np.float64))
+    if n_bin:  # a photon changed bin: hold the FFT to the reference's bins
+        prof_r, _ = np.histogram(stored["phases"], bins=nbins,
+                                 range=(0.0, 1.0), weights=fb.weights)
+        fft_chk = fftfit_full(np.asarray(template(grid)),
+                              prof_r.astype(np.float64))
+    else:
+        fft_chk = fft
+    d_shift = abs(fft_chk[0] - R["fftfit"][0])
+    rotated = template.copy()
+    rotated.rotate(fft[0])
+    fb.set_template(rotated)
+    fa = MCMCFitterAnalyticTemplate(batch, model, rotated, prior_info=info)
+    load_s = time.perf_counter() - t
+    line = (f"phase photon {label}: N={batch.ntoas} photons "
+            f"({'weighted' if fb.weights is not None else 'unweighted'}), "
+            f"free {fb.fitkeys}; phases max|d| {np.abs(d_ph).max():.3e} "
+            f"cycles (<= {PHOTON_BAR_S * F0:.3e}), {n_diff} photon(s) differ "
+            f"at all, {n_bin} in another of {nbins} bins; FFTFIT shift "
+            f"{fft[0]:.15f} +/- {fft[1]:.3e} (reference {R['fftfit'][0]:.15f},"
+            f" |d| {d_shift:.3e} <= 1e-10); start {load_s:.4f} s")
+    print(line + f" {tag}", flush=True)
+    if np.abs(d_ph).max() > PHOTON_BAR_S * F0 or d_shift > 1e-10:
+        raise RuntimeError(f"photon bar failed ({label}): phases or FFTFIT")
+    pts = stored["points"]
+    host_vals = np.asarray(rotated(phases))
+    out = {}
+    for kind, f in (("binned", fb), ("analytic", fa)):
+        lp = f.lnposterior_batch(pts)
+        want = stored[f"lnposterior_{kind}"]
+        same_inf = bool(np.array_equal(np.isneginf(lp), np.isneginf(want))
+                        and not np.isnan(lp).any())
+        fin = np.isfinite(want)
+        bars = _photon_bars(f, pts[fin])
+        ratio = float(np.max(np.abs(lp[fin] - want[fin]) / bars))
+        tv = counted(tv_counts, lambda: f.get_template_vals(phases))
+        tv_ref = host_vals if kind == "analytic" else \
+            f.template_bins[np.minimum(((phases % 1.0) * nbins).astype(int),
+                                       nbins - 1)]
+        d_tv = float(np.max(np.abs(tv - tv_ref) / np.abs(tv_ref)))
+        print(f"phase photon {label} {kind}: {f!r}; lnposterior at "
+              f"{len(pts)} points max |d| / bar {ratio:.3e} (<= 1; bars "
+              f"{bars.min():.3e}-{bars.max():.3e}), -inf where the "
+              f"reference's {same_inf} ({int((~fin).sum())} outside the "
+              f"box); get_template_vals max rel {d_tv:.3e} (<= 1e-13) {tag}",
+              flush=True)
+        if not (same_inf and ratio <= 1.0 and d_tv <= 1e-13):
+            raise RuntimeError(f"photon bar failed ({label} {kind}): "
+                               "lnposterior or template values")
+        # the seeded chain from the stored walkers, each evaluated point
+        # recorded for the bars
+        s = EnsembleSampler(S["nwalkers"], seed=R["seeds"]["sampler"])
+        s.decision_log = []
+        f.sampler = s
+        props = []
+        evaluate = f.lnposterior_batch
+
+        def recorded(p, _ev=evaluate):
+            props.append(np.array(p))
+            return _ev(p)
+
+        f.lnposterior_batch = recorded
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        maxpost = counted(counts, lambda: f.fit_toas(
+            maxiter=S["nsteps"], pos=stored[f"{kind}/pos"].copy()))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        del f.lnposterior_batch
+        cb = _photon_chain_bars(kind, f, stored, props, R)
+        print(f"phase photon {label} {kind} chain: {S['nwalkers']} walkers "
+              f"x {S['nsteps']} steps, fit_toas {wall:.4f} s, "
+              f"{S['nsteps'] / wall:.2f} steps/s, "
+              f"{S['nwalkers'] * (S['nsteps'] + 1) / wall:.1f} walker "
+              f"evaluations/s, acceptance {s.acceptance_fraction:.6f} "
+              f"(reference {R[kind]['acceptance']:.6f}), maxpost "
+              f"{maxpost:.10f}; {cb['inside']} decision(s) inside the margin"
+              + (f" at step(s) {cb['inside_steps']}" if cb["inside"] else "")
+              + f"; first differing decision {cb['diverged']}; walkers "
+              f"bitwise over {cb['bitwise_steps']} of {S['nsteps']} steps"
+              + (f"; whole chain bitwise, lnprob max |d| / bar "
+                 f"{cb['lnprob_ratio']:.3e}, acceptance and maximum exact, "
+                 f"stds bitwise, maxpost |d| {cb['maxpost_d']:.3e}"
+                 if not cb["diverged"] else "") + f" {tag}", flush=True)
+        out[kind] = f
+    cap.remove()
+    print(f"phase photon {label}: {time.perf_counter() - t_phase:.2f} s "
+          f"wall (the bars' evaluations included); launches (nonzero) in "
+          f"the two fit_toas {dict((k, v) for k, v in counts.items() if v)}"
+          f"; in the two get_template_vals "
+          f"{dict((k, v) for k, v in tv_counts.items() if v)} {tag}",
+          flush=True)
+    # B = nwalkers / 2 rows of each run (a half-ensemble): the median of 5
+    # warm calls, the launches of one, its CUDA kernels, its peak memory
+    for kind, f in out.items():
+        rows = f.sampler.get_chain(flat=True)[-(S["nwalkers"] // 2):]
+        before = kernels.launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        f.lnposterior_batch(rows)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        one = {k: v - before[k] for k, v in kernels.launch_counts().items()
+               if v != before[k]}
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            f.lnposterior_batch(rows)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        n_ev, dev_us, wall_p = _profile_cuda(
+            lambda: f.lnposterior_batch(rows))
+        print(f"phase photon {label} {kind} B={len(rows)}: lnposterior_batch "
+              f"median of 5 warm {1e3 * float(np.median(times)):.4f} ms; "
+              f"kernel launches per evaluation {one} ({sum(one.values())}); "
+              f"CUDA kernels per evaluation (torch.profiler) "
+              + (f"{n_ev}, device {dev_us / 1e3:.4f} ms of "
+                 f"{wall_p * 1e3:.4f} ms wall" if n_ev
+                 else "not measured (no device events)")
+              + f"; peak memory over one call {peak / 2**20:.2f} MiB above "
+              f"{base / 2**20:.2f} MiB held {tag}", flush=True)
+    return counts, tv_counts, cap
+
+
+def _k8_kernels(capj, dev, tag) -> list:
+    """K8 on the photon_j0030 path's calls (``capj``: the half-ensemble's
+    B = 64 rows in each mode, get_template_vals' densities) and on edge
+    rows: phases 0, -0.0, -1e-17, 1 - 1e-16, every k / 256 and one ulp
+    either side (and each less 1), a row with NaNs and one all NaN;
+    weights with exact 0s and 1s, and none; a zero-density bin (its
+    photons weighted 1); 1, 2 and 5 Gaussian peaks with sigma 0.005 to
+    0.3.  The density bitwise the plain version's, NaN where it has NaN;
+    each row's sum within 1e-12 of its sum of |terms|; two launches
+    bitwise; then each instantiation timed on a half-ensemble's B = 64
+    rows, its phases read from HBM (:func:`_rotated`), beside its bound,
+    and once with one L2-resident copy; the row sum on one copy of its
+    partials, which lie in the L2 cache on the path too.  Returns the records' (kernel, source,
+    replaces, err, ms, plain_ms, bound, library_ms) tuples."""
+    import numpy as np
+    import torch
+
+    from pint_torch.kernels import photon_lnlike as K8
+    from pint_torch.templates import LCGaussian, LCTemplate
+
+    out = []
+
+    def k8_same(a, b):
+        return bool(torch.equal(torch.isnan(a), torch.isnan(b))
+                    and torch.equal(torch.nan_to_num(a, nan=0.0),
+                                    torch.nan_to_num(b, nan=0.0)))
+
+    def k8_check(frac, w, table, mode):
+        """(density bitwise, max |d sum| / sum |terms|, NaN rows alike,
+        two launches bitwise, max |d density|)."""
+        dk = K8._launch(frac, w, table, mode, True)
+        dr = K8.photon_lnlike_reference(frac, w, table, mode, True)
+        lk = K8._launch(frac, w, table, mode, False)
+        lr = K8.photon_lnlike_reference(frac, w, table, mode, False)
+        again = k8_same(dk, K8._launch(frac, w, table, mode, True)) \
+            and k8_same(lk, K8._launch(frac, w, table, mode, False))
+        v = dr if w is None else w * dr + (1 - w)
+        scale = torch.log(torch.clamp_min(v, 1e-300)).abs().sum(-1)
+        fin = torch.isfinite(lr)
+        rel = float(((lk - lr).abs()[fin] / scale[fin]).max()) \
+            if bool(fin.any()) else 0.0
+        dd = (dk - dr).abs()
+        err = float(dd[torch.isfinite(dd)].max()) if bool(
+            torch.isfinite(dd).any()) else 0.0
+        return (k8_same(dk, dr), rel, k8_same(lk[~fin], lr[~fin]), again,
+                err)
+
+    nb8 = 256
+    edge = [0.0, -0.0, -1e-17, 1.0 - 1e-16, 0.5, -0.5, 1e-300, -1e-300]
+    for k in range(nb8 + 1):
+        x = k / nb8
+        edge += [np.nextafter(x, -np.inf), x, np.nextafter(x, np.inf)]
+    edge = np.asarray(edge)
+    E8 = len(edge)
+    rng8 = np.random.default_rng(20261023)
+    nan_row = rng8.uniform(-0.5, 0.5, E8)
+    nan_row[::7] = np.nan
+    frac_e = torch.tensor(np.stack([edge, edge - 1.0,
+                                    rng8.uniform(-0.5, 0.5, E8), nan_row,
+                                    np.full(E8, np.nan)]),
+                          dtype=torch.float64, device=dev)
+    w_e = rng8.beta(0.5, 1.5, E8)
+    w_e[::5], w_e[1::5] = 0.0, 1.0
+    bins_path = capj.args("photon_lnlike", (K8.BINNED, False))[2]
+    bins_zero = bins_path.clone()
+    bins_zero[3] = 0.0
+    in_zero = np.minimum(((edge % 1.0) * nb8).astype(int), nb8 - 1) == 3
+    w_e[in_zero] = 1.0
+    w_e = torch.tensor(w_e, dtype=torch.float64, device=dev)
+
+    def gtab(peaks):
+        t = LCTemplate([LCGaussian([sg, loc]) for sg, loc, _ in peaks],
+                       [n for _, _, n in peaks])
+        return torch.tensor(K8.gauss_table(t), dtype=torch.float64,
+                            device=dev)
+
+    gauss_path = capj.args("photon_lnlike", (K8.GAUSS, False))[2]
+    cases8 = []
+    for mode, key in ((K8.BINNED, "binned"), (K8.GAUSS, "gauss")):
+        a_l = capj.args("photon_lnlike", (mode, False))
+        a_d = capj.args("photon_lnlike", (mode, True))
+        cases8 += [(f"{key} path B={a_l[0].shape[0]} N={a_l[0].shape[1]}",
+                    a_l[0], a_l[1], a_l[2], mode),
+                   (f"{key} path density {tuple(a_d[0].shape)}", a_d[0],
+                    None, a_d[2], mode)]
+    for wk, w in (("weights 0/1", w_e), ("no weights", None)):
+        cases8.append((f"binned edges, a zero bin, {wk}", frac_e, w,
+                       bins_zero, K8.BINNED))
+        for tk, tab in (("1 peak sigma 0.005", gtab([[0.005, 0.3, 0.7]])),
+                        ("the path's 2 peaks", gauss_path),
+                        ("5 peaks sigma 0.005-0.3",
+                         gtab([[0.005, 0.1, 0.2], [0.3, 0.5, 0.2],
+                               [0.02, 0.62, 0.15], [0.1, 0.8, 0.1],
+                               [0.05, 0.95, 0.1]]))):
+            cases8.append((f"gauss edges, {tk}, {wk}", frac_e, w, tab,
+                           K8.GAUSS))
+    ok8, err8 = True, {K8.BINNED: 0.0, K8.GAUSS: 0.0}
+    for what, frac8, w8, tab8, mode in cases8:
+        same, rel, nan_ok, again, err = k8_check(frac8, w8, tab8, mode)
+        err8[mode] = max(err8[mode], err)
+        print(f"phase kernel photon_lnlike {what}: density bitwise {same}, "
+              f"sums max |d| / sum|terms| {rel:.3e} (<= 1e-12), NaN rows "
+              f"alike {nan_ok}, two launches bitwise {again} {tag}",
+              flush=True)
+        ok8 = ok8 and same and rel <= 1e-12 and nan_ok and again
+    if not ok8:
+        raise RuntimeError("photon_lnlike disagrees with its plain version")
+    # timed on a half-ensemble's rows, 80 of the 82 evaluations of a
+    # 128-walker chain: the first 64 of the walkers' first evaluation
+    for mode in (K8.BINNED, K8.GAUSS):
+        a8 = capj.args("photon_lnlike", (mode, False))
+        for density in (False, True):
+            kernel = K8.KERNELS[(mode, density)]
+            fr8 = a8[0][:a8[0].shape[0] // 2]
+            w8, tab8 = (None, capj.args("photon_lnlike", (mode, True))[2]) \
+                if density else (a8[1], a8[2])
+            B8, N8 = fr8.shape
+            npk = (tab8.shape[0] - 1) // 4 if mode == K8.GAUSS else 0
+            warm = _time_ms(lambda: K8._launch_terms(fr8, w8, tab8, mode,
+                                                     density), 20)
+            ms = _time_ms(_rotated(K8._launch_terms, fr8, w8, tab8, mode,
+                                   density), 20)
+            plain = _time_ms(_rotated(K8.photon_lnlike_reference, fr8, w8,
+                                      tab8, mode, density), 3)
+            nblk = (N8 + 255) // 256
+            nbytes = 8 * B8 * N8 + 8 * tab8.shape[0] + (
+                8 * B8 * N8 if density else 8 * N8 + 8 * B8 * nblk)
+            ops8 = _k8_ops(mode, density, npk)
+            bound = _bound(nbytes, B8 * N8 * ops8, rate=F64_INSTR_PER_S)
+            print(f"phase kernel {kernel}: photon_j0030 B={B8} N={N8}"
+                  + (f", {npk} peaks" if npk else f", {tab8.shape[0]} bins")
+                  + f"; phases from HBM (rotated copies): kernel {ms:.4f} "
+                  f"ms, plain {plain:.4f} ms, bound {bound[0]:.4f} ms "
+                  f"({bound[1]}, {ops8} ops/photon; share "
+                  f"{bound[0] / ms:.2f}); one copy, L2-resident: kernel "
+                  f"{warm:.4f} ms {tag}", flush=True)
+            out.append((kernel, "photon_lnlike.cu", K8.REPLACES, err8[mode],
+                        ms, plain, bound))
+    a8 = capj.args("photon_lnlike", (K8.GAUSS, False))
+    parts8 = K8._launch_terms(a8[0][:a8[0].shape[0] // 2], a8[1], a8[2],
+                              K8.GAUSS, False)
+    rs_k = K8._launch_rowsum(parts8)
+    rs_r = torch.sum(parts8, dim=-1)
+    rs_err = float((rs_k - rs_r).abs().max())
+    rs_rel = float(((rs_k - rs_r).abs() / parts8.abs().sum(-1)).max())
+    ms = _time_ms(lambda: K8._launch_rowsum(parts8), 20)
+    plain = _time_ms(lambda: torch.sum(parts8, dim=-1), 20)
+    Br, nblk = parts8.shape
+    bound = _bound(8 * Br * nblk + 8 * Br, Br * nblk, rate=F64_INSTR_PER_S)
+    print(f"phase kernel {K8.KERNELS['rowsum']}: photon_j0030 B={Br} "
+          f"partials {nblk}; max|d| {rs_err:.3e}, / sum|partials| "
+          f"{rs_rel:.3e} (<= 1e-12) against torch.sum; kernel {ms:.4f} ms, "
+          f"torch.sum {plain:.4f} ms, bound {bound[0]:.6f} ms ({bound[1]}; "
+          f"share {bound[0] / ms:.3f}) {tag}", flush=True)
+    if rs_rel > 1e-12:
+        raise RuntimeError("photon_lnlike_rowsum disagrees with torch.sum")
+    out.append((K8.KERNELS["rowsum"], "photon_lnlike.cu", K8.REPLACES,
+                rs_err, ms, plain, bound, plain))
+    return out
 
 
 def _kepler_phase(path, tag) -> None:
@@ -1561,7 +2102,8 @@ def main() -> int:
                                    PTA_SMALL_PATH, STANDIN_PATH,
                                    WB_PATH, WB_SMALL_PATH,
                                    WB_WHITE_SMALL_PATH, YOUNG_PATH,
-                                   YOUNG_SMALL_PATH)
+                                   YOUNG_SMALL_PATH, PHOTON_PATH,
+                                   PHOTON_SMALL_PATH)
     from pint_torch.kernels import _build
     from pint_torch.kernels import binary_orbits as K6
     from pint_torch.kernels import solar_wind_pl as K7
@@ -1570,6 +2112,7 @@ def main() -> int:
     from pint_torch.kernels import schur_cholesky_solve as K3
     from pint_torch.kernels import spin_phase as K1
     from pint_torch.kernels import wls_lstsq as K5
+    from pint_torch.kernels import photon_lnlike as K8
 
     dev = torch.device("cuda")
     card = _card()
@@ -1613,6 +2156,10 @@ def main() -> int:
                f"solar_wind_pl_kernelILb{int(p)}EE") for p in (False, True)]
     ptxas += [("wls_lstsq", K5.KERNELS[n], K5.KERNELS[n])
               for n in ("fold", "svd", "global")]
+    ptxas += [("photon_lnlike", K8.KERNELS[(m, d)],
+               f"photon_{'density' if d else 'lnlike'}_kernelILi{m}EE")
+              for m in (K8.BINNED, K8.GAUSS) for d in (False, True)]
+    ptxas += [("photon_lnlike", K8.KERNELS["rowsum"], "photon_lnlike_rowsum")]
     # no primal may spill (K1, K2 and K4 in each mode and orbit source,
     # K6, K7), nor ELL1H's duals, K6's and K7's duals or K5's tiled kernels
     k4_primals = [K4.KERNELS[(m, False)] for m in range(4)] \
@@ -1623,7 +2170,7 @@ def main() -> int:
         + [K2.KERNELS[(K2.BTX, False)], K7.KERNELS[False]] \
         + [K6.KERNELS[(f, p)] + d for f in k6_forms for p in (False, True)
            for d in (("", " (direct)") if p else ("",))] \
-        + [K7.KERNELS[True]]
+        + [K7.KERNELS[True]] + list(K8.KERNELS.values())
     for src, kernel, marker in ptxas:
         log = _build.library_path(src).with_suffix(".log")
         r = _build.ptxas_report(log.read_text() if log.exists() else "",
@@ -1761,6 +2308,23 @@ def main() -> int:
     else:
         raise RuntimeError("BayesianTiming took b1855's correlated noise")
     del m_gls, b_gls
+
+    # ---- the photon phase: the photon-template fitters ----------------------
+    # the counts zeroed just before each fit_toas and get_template_vals:
+    # the chains must launch K1's primal and K8's log-likelihood kernels,
+    # get_template_vals K8's density kernels
+    for label, path in (("small_photon", PHOTON_SMALL_PATH),
+                        ("photon_j0030", PHOTON_PATH)):
+        counts, tv_counts, cap_ph = _photon_phase(label, path, kernels, tag)
+        in_fit = [K1.KERNELS[False], K8.KERNELS["rowsum"]] + [
+            K8.KERNELS[(m, False)] for m in (K8.BINNED, K8.GAUSS)]
+        in_tv = [K8.KERNELS[(m, True)] for m in (K8.BINNED, K8.GAUSS)]
+        missing = [k for k in in_fit if counts[k] == 0] + [
+            k for k in in_tv if tv_counts[k] == 0]
+        if missing:
+            raise RuntimeError(f"kernels never launched on the {label} "
+                               f"photon phase: {missing}")
+        paths[label] = ({k: counts[k] + tv_counts[k] for k in counts}, cap_ph)
 
     _kepler_phase(KEPLER_PATH, tag)
 
@@ -2576,6 +3140,9 @@ def main() -> int:
                                f"the {label} walkers' rows")
         record(kernel, source, replaces, err, ms, plain, bound,
                path=f"mcmc_{label}")
+
+    for rec in _k8_kernels(paths["photon_j0030"][1], dev, tag):
+        record(*rec, path="photon_j0030")
 
     # K5: the ell1 path's largest call (its 256 points, N = 4005, k = 88)
     # runs the tiled kernels.  Each is held against its own plain version on

@@ -11,7 +11,8 @@ under ``tzr/`` and, under ``ref/``, the reference package's own outputs
 on the same inputs, so a run can be checked where the reference does not
 run (those of the fitter, residuals, model and grid API under
 ``ref/api/``, those of the Bayesian timing interface and the ensemble
-MCMC under ``ref/bayes/``).  The optional ``meta["top_level"]`` holds the
+MCMC under ``ref/bayes/``, those of the photon fitters under
+``ref/photon/``).  Photons carry their weights under ``weight``.  The optional ``meta["top_level"]`` holds the
 model's own parameters (``TOP_LEVEL_PARAMS``: START and FINISH as (hi,
 lo) pairs) and the TOAs' ``ephem``; a snapshot without it loads with
 their defaults.
@@ -40,7 +41,7 @@ __all__ = ["load_snapshot", "read_snapshot", "SNAPSHOT_FORMAT",
            "BW_WAVES_PATH", "PTA_PATH", "YOUNG_PATH", "DD_FBX_SMALL_PATH",
            "BT_PIECEWISE_SMALL_PATH", "PTA_SMALL_PATH", "YOUNG_SMALL_PATH",
            "WB_PATH", "WB_SMALL_PATH", "WB_WHITE_SMALL_PATH", "NOISE_PATH",
-           "KEPLER_PATH"]
+           "KEPLER_PATH", "PHOTON_PATH", "PHOTON_SMALL_PATH"]
 
 SNAPSHOT_FORMAT = "pint_torch-snapshot-1"
 #: the committed full-width B1855+09-shaped stand-in
@@ -106,6 +107,11 @@ WB_WHITE_SMALL_PATH = STANDIN_PATH.with_name("small_wb_white_standin.npz")
 NOISE_PATH = STANDIN_PATH.with_name("b1855_noise_standin.npz")
 #: the Kepler cores' inputs and the reference's values and Jacobians
 KEPLER_PATH = STANDIN_PATH.with_name("kepler_reference.npz")
+#: the Fermi-LAT-shaped J0030+0451 photons: 32768 weighted, barycentred
+#: photons over twelve years with J0030's two-peak template (the photon
+#: fitters and FFTFIT), and the reference photon test's 300 photons
+PHOTON_PATH = STANDIN_PATH.with_name("j0030_photon_standin.npz")
+PHOTON_SMALL_PATH = STANDIN_PATH.with_name("small_photon_standin.npz")
 
 _BATCH_KEYS = ("tdb_hi", "tdb_lo", "tdb0", "tdb_s_hi", "tdb_s_lo", "freq",
                "error_us", "ssb_obs_pos", "ssb_obs_vel", "obs_sun_pos",
@@ -155,7 +161,7 @@ def _batch_arrays(arrays: dict, prefix: str) -> dict:
     """The batch fields stored under ``prefix`` (the model's TOAs under
     "", the TZR row under "tzr/"), keys without the prefix."""
     out = {k: arrays[prefix + k] for k in _BATCH_KEYS}
-    out.update({k: arrays[prefix + k] for k in ("dm", "dm_error")
+    out.update({k: arrays[prefix + k] for k in ("dm", "dm_error", "weight")
                 if prefix + k in arrays})
     out.update({k[len(prefix):]: v for k, v in arrays.items()
                 if k.startswith(prefix + "planet_pos/")})

@@ -9,9 +9,10 @@ persists the chain with the generator's state and a fingerprint of the
 run, so that a resumed run continues the chain bit-identically and a
 checkpoint of another run is refused.
 
-Not in the port yet: the photon-template fitters (ROADMAP queue A item
-6c), ``concat_toas`` (merging TOAs, item 10) and walker plans (item 9);
-each raises ``NotImplementedError`` naming its item.
+The photon-template fitters live in :mod:`pint_torch.event_fitter` and
+import from here too, as the reference's do.  Not in the port yet:
+``concat_toas`` (merging TOAs, ROADMAP queue A item 10) and walker plans
+(item 9); each raises ``NotImplementedError`` naming its item.
 """
 
 from __future__ import annotations
@@ -25,19 +26,19 @@ from pint_torch.bayesian import BayesianTiming, apply_prior_info
 from pint_torch.fitter import Fitter
 from pint_torch.sampler import EnsembleSampler, MCMCSampler, NpzBackend
 
-__all__ = ["MCMCFitter", "set_priors_basic", "lnprior_basic",
+__all__ = ["MCMCFitter", "MCMCFitterBinnedTemplate",
+           "MCMCFitterAnalyticTemplate", "set_priors_basic", "lnprior_basic",
            "lnlikelihood_basic", "lnlikelihood_chi2", "concat_toas"]
 
 log = logging.getLogger("pint_torch")
 
-_TEMPLATE_FITTERS = ("MCMCFitterBinnedTemplate", "MCMCFitterAnalyticTemplate")
-
-
 def __getattr__(name):
-    if name in _TEMPLATE_FITTERS:
-        raise NotImplementedError(
-            f"{name} (the photon-template MCMC fitters) is ROADMAP queue A "
-            "item 6c")
+    # the photon-template fitters live with the template machinery; the
+    # reference's import location works too (``mcmc_fitter.py:441``)
+    if name in ("MCMCFitterBinnedTemplate", "MCMCFitterAnalyticTemplate"):
+        import pint_torch.event_fitter as ef
+
+        return getattr(ef, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -62,15 +63,23 @@ def lnlikelihood_chi2(ftr, theta) -> float:
 
 
 def lnlikelihood_basic(ftr, theta):
-    """Photon-template log-likelihood (reference ``mcmc_fitter.py:59``),
-    for the template fitters of ROADMAP queue A item 6c."""
+    """Photon-template log-likelihood at ``theta`` (reference
+    ``mcmc_fitter.py:59``): template density at the wrapped event phases,
+    weight-mixed when photon weights are present, clamped at 1e-300 as the
+    fitter's own batched posterior is; on the host, from the model's
+    phases (the parameters keep the values afterwards)."""
     if not hasattr(ftr, "_template_density"):
         raise TypeError(
             f"{type(ftr).__name__} has no photon template; "
             "lnlikelihood_basic is for the template MCMC fitters "
             "(use lnlikelihood_chi2 for residual fitters)")
-    raise NotImplementedError("the photon-template MCMC fitters are ROADMAP "
-                              "queue A item 6c")
+    for p, v in zip(ftr.fitkeys, np.atleast_1d(np.asarray(theta, float))):
+        ftr.model[p].value = float(v)
+    ph = ftr.model.phase(ftr.batch).frac.cpu().numpy() % 1.0
+    probs = np.maximum(np.asarray(ftr._template_density(ph)), 1e-300)
+    if getattr(ftr, "weights", None) is None:
+        return float(np.sum(np.log(probs)))
+    return float(np.sum(np.log(ftr.weights * probs + 1.0 - ftr.weights)))
 
 
 def set_priors_basic(ftr, priorerrfact: float = 10.0):
@@ -118,7 +127,8 @@ class MCMCFitter(Fitter):
         if not resids:
             raise TypeError(
                 "resids=False selects the reference's photon-template mode; "
-                "the template MCMC fitters are ROADMAP queue A item 6c")
+                "use MCMCFitterBinnedTemplate / MCMCFitterAnalyticTemplate "
+                "(pint_torch.event_fitter) for that")
         super().__init__(batch, model, **kw)
         self.method = "MCMC"
         self.sampler = sampler or EnsembleSampler(nwalkers)

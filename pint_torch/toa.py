@@ -1,5 +1,5 @@
 """The device-side TOA batch (port of ``pint_tpu/toa.py:120-149``, with
-the wideband DM data of ``:520-545``).
+the wideband DM data of ``:520-545`` and the photons' ``-weight`` flag).
 
 Positions are in light-seconds and velocities in ls/s; ``tdb`` is the
 double-double TDB MJD and ``tdb_s`` the seconds since ``tdb0`` (an integer
@@ -11,7 +11,7 @@ batches come from a snapshot of the reference package's state
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Dict, Optional
 
 import numpy as np
@@ -52,6 +52,9 @@ class TOABatch:
     #: the solar-system ephemeris the TOAs were made with (the
     #: reference's ``toas.ephem``), or None
     ephem: Optional[str] = None
+    #: (N,) photon weights (the reference's ``-weight`` flag, which the
+    #: photon fitters read), or None
+    weights: Optional[torch.Tensor] = None
 
     @property
     def ntoas(self) -> int:
@@ -71,9 +74,32 @@ class TOABatch:
 
     def to(self, device) -> "TOABatch":
         """A copy of the batch on ``device``."""
-        def mv(x):
-            return x.to(device=device, dtype=F64)
+        return self._map(lambda x: x.to(device=device, dtype=F64),
+                         lambda v: v.to(device) if torch.is_tensor(v) else v)
 
+    def select(self, mask, model) -> "TOABatch":
+        """The batch of the TOAs where ``mask`` (N,) is true (the
+        reference's ``toas[mask]``) for ``model``: every per-TOA tensor and
+        the MJDs sliced.  Refused with ``NotImplementedError`` for a batch
+        that carries its own contexts, or where one of the model's
+        components holds a per-TOA context (DMX windows, noise masks):
+        slicing those is the host TOA layer's (ROADMAP queue A item 10)."""
+        keep = np.asarray(mask, dtype=bool)
+        if keep.shape != (self.ntoas,):
+            raise ValueError(f"select: mask of shape {keep.shape} for "
+                             f"{self.ntoas} TOAs")
+        held = [n for n, c in model.components.items() if c.context]
+        if self.contexts is not None or held:
+            raise NotImplementedError(
+                "selecting TOAs whose components hold per-TOA contexts "
+                f"({held or 'the batch own'}) is ROADMAP queue A item 10")
+        idx = torch.as_tensor(np.flatnonzero(keep), device=self.device)
+        return replace(self._map(lambda x: x.index_select(0, idx), None),
+                       mjds=None if self.mjds is None else self.mjds[keep])
+
+    def _map(self, mv, ctx) -> "TOABatch":
+        """A copy with ``mv`` applied to every per-TOA tensor and ``ctx``
+        to each context value (None: no contexts)."""
         return TOABatch(
             tdb=DD(mv(self.tdb.hi), mv(self.tdb.lo)), tdb0=self.tdb0,
             tdb_s=DD(mv(self.tdb_s.hi), mv(self.tdb_s.lo)),
@@ -84,19 +110,19 @@ class TOABatch:
             mjds=self.mjds, tzr=self.tzr, ephem=self.ephem,
             dm=None if self.dm is None else mv(self.dm),
             dm_error=None if self.dm_error is None else mv(self.dm_error),
-            contexts=None if self.contexts is None else {
-                n: {k: v.to(device) if torch.is_tensor(v) else v
-                    for k, v in c.items()}
-                for n, c in self.contexts.items()})
+            weights=None if self.weights is None else mv(self.weights),
+            contexts=None if self.contexts is None or ctx is None
+            else {n: {k: ctx(v) for k, v in c.items()}
+                  for n, c in self.contexts.items()})
 
     @classmethod
     def from_numpy(cls, arrays: dict, device, **kw) -> "TOABatch":
         """Build on ``device`` from host arrays keyed like the snapshot
         (``tdb_hi``, ``tdb_lo``, ``tdb0``, ``tdb_s_hi``, ``tdb_s_lo``,
         ``freq``, ``error_us``, ``ssb_obs_pos``, ``ssb_obs_vel``,
-        ``obs_sun_pos``, ``planet_pos/<name>``, ``mjds`` and, for wideband
-        TOAs, ``dm`` and ``dm_error``); ``kw`` sets ``tzr`` and
-        ``contexts``."""
+        ``obs_sun_pos``, ``planet_pos/<name>``, ``mjds``, for wideband
+        TOAs ``dm`` and ``dm_error`` and for weighted photons ``weight``);
+        ``kw`` sets ``tzr`` and ``contexts``."""
         def t(name):
             return torch.tensor(np.asarray(arrays[name], dtype=np.float64),
                                 dtype=F64, device=device)
@@ -112,4 +138,5 @@ class TOABatch:
                    mjds=np.asarray(arrays["mjds"], dtype=np.float64),
                    dm=t("dm") if "dm" in arrays else None,
                    dm_error=t("dm_error") if "dm_error" in arrays else None,
+                   weights=t("weight") if "weight" in arrays else None,
                    **kw)

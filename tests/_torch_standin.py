@@ -1825,3 +1825,207 @@ def export_bayes(model, toas, which: str, arrays: dict, meta: dict) -> None:
         naccepted=int(f.sampler.naccepted), maxpost=float(f.maxpost),
         maxpost_index=int(np.argmax(lnp)), chi2=float(chi2),
         likelihood=bt.likelihood_method)
+
+
+# ---------------------------------------------------------------------------
+# the photon domain: Fermi-LAT-shaped photon stand-ins
+# ---------------------------------------------------------------------------
+#: J0030+0451's par as the reference's photon tests write it
+#: (``tests/test_photon_domain.py:259-261``)
+J0030_PAR = ("PSR J0030+0451\nRAJ 00:30:27.4\nDECJ 04:51:39.7\n"
+             "POSEPOCH 55000\nF0 205.53069 1\nF1 -4.3e-16\nPEPOCH 55000\n"
+             "DM 4.33\nUNITS TDB\n")
+#: the reference test's own set-up (300 barycentred photons over 20 days,
+#: one Gaussian peak, phases from ``default_rng(7)``) plus a seeded weight
+#: column; F0 free, 3e-8 Hz off, in a uniform box of +/- 2e-7 Hz
+SMALL_PHOTON_SETTINGS = dict(
+    pulsar="J0030+0451", photons=300, mjd_start=54990.0, mjd_end=55010.0,
+    toa_seed=6, phase_seed=7, weight_seed=8, peaks=[[0.04, 0.5, 0.6]],
+    weighted_draw=False, free=["F0"], unc={"F0": 1e-8},
+    offset={"F0": 3e-8}, priors={"F0": ["truth_box", 2e-7]}, nbins=256,
+    nwalkers=16, nsteps=30)
+#: twelve years of a bright MSP's LAT photons after a weight cut: 32768
+#: barycentred photons, weights skewed low (Beta(0.5, 1.5)), each phase a
+#: draw from J0030's two-peak template (peaks 0.44 apart) with probability
+#: its weight and uniform otherwise; F0 (3 sigma off, event_optimize's
+#: normal prior of 10 sigma) and F1 (a uniform box of 10 sigma) free
+PHOTON_SETTINGS = dict(
+    pulsar="J0030+0451", photons=32768, mjd_start=54700.0,
+    mjd_end=59000.0, toa_seed=20261017, phase_seed=20261018,
+    weight_seed=20261019, peaks=[[0.04, 0.15, 0.35], [0.06, 0.59, 0.25]],
+    weighted_draw=True, free=["F0", "F1"], unc={"F0": 1.5e-11, "F1": 3e-19},
+    offset={"F0": 4.5e-11}, priors={"F0": ["normal", 10.0],
+                                    "F1": ["uniform", 10.0]},
+    nbins=256, nwalkers=128, nsteps=40)
+#: the seeds of the lnposterior points, of the initial walker ball and of
+#: the samplers' generators; the number of points and of those outside a
+#: uniform box
+PHOTON_SEEDS = dict(points=20261020, pos=20261021, sampler=20261022)
+PHOTON_POINTS = 64
+PHOTON_OUTSIDE = 8
+
+
+def photon_template(s):
+    """The stand-in's ``LCTemplate`` (``pint_tpu``'s)."""
+    from pint_tpu.templates import LCGaussian, LCTemplate
+
+    return LCTemplate([LCGaussian([w, loc]) for w, loc, _ in s["peaks"]],
+                      [n for _, _, n in s["peaks"]])
+
+
+def make_photon_standin(s):
+    """(truth model, TOAs, weights) of a photon stand-in: barycentred
+    photons (``obs="barycenter"``, ``freq=inf``) each moved so that its
+    phase under the truth is its draw (the reference test's
+    ``adjust_TOAs``)."""
+    import io
+
+    from pint_tpu.models import get_model
+    from pint_tpu.simulation import make_fake_toas_uniform
+
+    m = get_model(io.StringIO(J0030_PAR))
+    t = make_fake_toas_uniform(s["mjd_start"], s["mjd_end"], s["photons"], m,
+                               error_us=1.0, obs="barycenter", freq=np.inf,
+                               rng=np.random.default_rng(s["toa_seed"]))
+    n = len(t)
+    template = photon_template(s)
+    ph_now = np.asarray(m.phase(t).frac) % 1.0
+    rng = np.random.default_rng(s["phase_seed"])
+    ph_want = template.random(n, rng=rng)
+    w = np.random.default_rng(s["weight_seed"]).beta(0.5, 1.5, n)
+    if s["weighted_draw"]:
+        uniform = rng.random(n)
+        ph_want = np.where(rng.random(n) < w, ph_want, uniform)
+    dt = ((ph_want - ph_now + 0.5) % 1.0 - 0.5) / float(m.F0.value)
+    t.adjust_TOAs(dt)
+    return m, t, w
+
+
+def photon_start(m, s):
+    """The fitters' starting model: the settings' free parameters with
+    their uncertainties, F0 moved off the truth; and the prior_info of
+    the settings' priors about the starting values."""
+    import copy
+
+    m2 = copy.deepcopy(m)
+    info = {}
+    for p in s["free"]:
+        par = getattr(m2, p)
+        par.frozen = False
+        par.value = float(par.value) + s["offset"].get(p, 0.0)
+        par.uncertainty = s["unc"][p]
+        kind, k = s["priors"][p]
+        v = float(par.value)
+        if kind == "normal":
+            info[p] = {"distr": "normal", "mu": v, "sigma": k * s["unc"][p]}
+        elif kind == "uniform":
+            info[p] = {"distr": "uniform", "pmin": v - k * s["unc"][p],
+                       "pmax": v + k * s["unc"][p]}
+        else:  # "truth_box": +/- k about the truth, as the reference test
+            t = float(getattr(m, p).value)
+            info[p] = {"distr": "uniform", "pmin": t - k, "pmax": t + k}
+    return m2, info
+
+
+def photon_points(values, info, names, unc, seed: int):
+    """:data:`PHOTON_POINTS` seeded points about ``values``: each
+    coordinate off by a normal draw times its uncertainty times a
+    per-point scale from 0.01 to 3; the last :data:`PHOTON_OUTSIDE` with
+    a uniform-box coordinate 5% of the box's half-width past an edge."""
+    rng = np.random.default_rng(seed)
+    n, nd = PHOTON_POINTS, len(values)
+    scale = 10.0 ** rng.uniform(-2.0, np.log10(3.0), n)
+    sig = np.array([unc[p] for p in names])
+    pts = np.asarray(values) + sig * scale[:, None] \
+        * rng.standard_normal((n, nd))
+    boxes = [i for i, p in enumerate(names)
+             if info[p]["distr"] == "uniform"]
+    for i in range(n - PHOTON_OUTSIDE, n):
+        k = boxes[int(rng.integers(len(boxes)))]
+        lo, hi = info[names[k]]["pmin"], info[names[k]]["pmax"]
+        half = 0.5 * (hi - lo)
+        pts[i, k] = hi + 0.05 * half if rng.random() < 0.5 \
+            else lo - 0.05 * half
+    return pts
+
+
+def export_photon(s) -> dict:
+    """A photon stand-in's snapshot: the starting model and the photons
+    (their weights under ``weight``), with the reference's outputs under
+    ``ref/photon/`` and ``meta["reference"]["photon"]``: the photons'
+    phases under the starting model; ``fftfit_full`` of the weighted
+    ``nbins`` profile against the template (shift, error, scale, its
+    error); then, with the template rotated by the shift (the binned
+    fitter's ``set_template``, as ``event_optimize`` does), each fitter's
+    ``lnposterior_batch`` at :func:`photon_points` and a seeded
+    ``fit_toas`` from the stored walker ball (the chain walker-major,
+    its log-posteriors, accept flags, maximum and stds)."""
+    from pint_tpu.event_fitter import (MCMCFitterAnalyticTemplate,
+                                       MCMCFitterBinnedTemplate)
+    from pint_tpu.fftfit import fftfit_full
+    from pint_tpu.sampler import EnsembleSampler
+
+    truth, toas, w = make_photon_standin(s)
+    m2, info = photon_start(truth, s)
+    arrays = export_state(m2, toas)
+    arrays["weight"] = w
+    meta = json.loads(str(arrays["meta"]))
+    template = photon_template(s)
+    nbins = s["nbins"]
+    seeds = PHOTON_SEEDS
+
+    def fitter(kind, nwalkers=16):
+        sampler = EnsembleSampler(nwalkers, seed=seeds["sampler"])
+        if kind == "binned":
+            f = MCMCFitterBinnedTemplate(toas, m2, template, nbins=nbins,
+                                         weights=w, prior_info=info,
+                                         sampler=sampler)
+            f.set_template(rotated)
+            return f
+        return MCMCFitterAnalyticTemplate(toas, m2, rotated, weights=w,
+                                          prior_info=info, sampler=sampler)
+
+    P = "ref/photon/"
+    f0 = MCMCFitterBinnedTemplate(toas, m2, template, nbins=nbins,
+                                  weights=w, prior_info=info)
+    phases = f0.phaseogram_phases()
+    arrays[P + "phases"] = phases
+    prof, _ = np.histogram(phases, bins=nbins, range=(0.0, 1.0), weights=w)
+    grid = (np.arange(nbins) + 0.5) / nbins
+    fft = fftfit_full(np.asarray(template(grid)), prof.astype(np.float64))
+    rotated = template.copy()
+    rotated.rotate(fft[0])
+    names = list(f0.fitkeys)
+    values = f0.get_fitvals()
+    pts = photon_points(values, info, names, s["unc"], seeds["points"])
+    arrays[P + "points"] = pts
+    ref = {"settings": dict(s), "prior_info": info, "params": names,
+           "fftfit": [float(v) for v in fft], "seeds": dict(seeds),
+           "nbins": nbins, "truth": {p: float(getattr(truth, p).value)
+                                     for p in names}}
+    for kind in ("binned", "analytic"):
+        f = fitter(kind, s["nwalkers"])
+        arrays[P + f"lnposterior_{kind}"] = np.asarray(
+            f.lnposterior_batch(pts))
+        pos = f.sampler.get_initial_pos(f.fitkeys, f.get_fitvals(),
+                                        f.get_fiterrs(), f.errfact,
+                                        seed=seeds["pos"])
+        pos[~np.isfinite(f.lnposterior_batch(pos))] = f.get_fitvals()
+        arrays[P + f"{kind}/pos"] = pos.copy()
+        maxpost = f.fit_toas(maxiter=s["nsteps"], pos=pos)
+        chain = f.sampler.get_chain()
+        prev = np.concatenate([arrays[P + f"{kind}/pos"][None], chain[:-1]])
+        arrays[P + f"{kind}/walker_chain"] = np.ascontiguousarray(
+            chain.transpose(1, 2, 0))
+        arrays[P + f"{kind}/lnprob"] = f.sampler.get_log_prob()
+        arrays[P + f"{kind}/accepted"] = np.any(chain != prev, axis=2)
+        arrays[P + f"{kind}/maxpost_fitvals"] = np.asarray(
+            f.maxpost_fitvals)
+        arrays[P + f"{kind}/stds"] = np.array([f.errors[p]
+                                               for p in f.fitkeys])
+        ref[kind] = dict(maxpost=float(maxpost),
+                         acceptance=float(f.sampler.acceptance_fraction),
+                         naccepted=int(f.sampler.naccepted))
+    meta["reference"] = {"photon": ref, "settings": dict(s)}
+    arrays["meta"] = np.asarray(json.dumps(meta))
+    return arrays

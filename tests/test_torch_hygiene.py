@@ -49,20 +49,23 @@ def test_import_and_load_pull_in_no_jax():
         "pint_torch.pint_matrix, pint_torch.derived_quantities, "
         "pint_torch.utils, pint_torch.residuals, pint_torch.bayesian, "
         "pint_torch.sampler, pint_torch.mcmc_fitter, "
-        "pint_torch.models.priors, pint_torch.runtime.checkpoint\n"
+        "pint_torch.models.priors, pint_torch.runtime.checkpoint, "
+        "pint_torch.event_fitter, pint_torch.templates, pint_torch.fftfit, "
+        "pint_torch.eventstats\n"
         "import pint_torch.integrity.robust\n"
         "from pint_torch.bridge import load_snapshot, STANDIN_PATH, "
         "ELL1_PATH, ELL1H_PATH, NGC_PHOFF_PATH, DDK_PATH, DDGR_PATH, "
         "BT_SMALL_PATH, DDS_SMALL_PATH, DDH_SMALL_PATH, BW_PATH, "
         "BW_WAVES_PATH, PTA_PATH, YOUNG_PATH, DD_FBX_SMALL_PATH, "
         "BT_PIECEWISE_SMALL_PATH, PTA_SMALL_PATH, YOUNG_SMALL_PATH, "
-        "WB_PATH, WB_SMALL_PATH, WB_WHITE_SMALL_PATH, NOISE_PATH\n"
+        "WB_PATH, WB_SMALL_PATH, WB_WHITE_SMALL_PATH, NOISE_PATH, "
+        "PHOTON_PATH, PHOTON_SMALL_PATH\n"
         "for p in (STANDIN_PATH, ELL1_PATH, ELL1H_PATH, NGC_PHOFF_PATH, "
         "DDK_PATH, DDGR_PATH, BT_SMALL_PATH, DDS_SMALL_PATH, "
         "DDH_SMALL_PATH, BW_PATH, BW_WAVES_PATH, PTA_PATH, YOUNG_PATH, "
         "DD_FBX_SMALL_PATH, BT_PIECEWISE_SMALL_PATH, PTA_SMALL_PATH, "
         "YOUNG_SMALL_PATH, WB_PATH, WB_SMALL_PATH, WB_WHITE_SMALL_PATH, "
-        "NOISE_PATH):\n"
+        "NOISE_PATH, PHOTON_PATH, PHOTON_SMALL_PATH):\n"
         "    load_snapshot(p, device='cpu')\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print('BAD', bad)\n"
@@ -141,11 +144,15 @@ def test_entry_points_default_to_the_gpu():
 @pytest.mark.parametrize("module", ["utils", "derived_quantities",
                                     "pint_matrix", "grid", "fitter",
                                     "bayesian", "sampler", "mcmc_fitter",
-                                    "models.priors", "runtime.checkpoint"])
+                                    "models.priors", "runtime.checkpoint",
+                                    "event_fitter", "fftfit", "eventstats",
+                                    "templates.lcprimitives",
+                                    "templates.lctemplate",
+                                    "templates.lcfitters"])
 def test_api_modules_import_no_jax(module):
-    """The API's modules and the Bayesian and MCMC ones import neither
-    ``jax`` nor ``pint_tpu`` (by their source, and in a fresh
-    interpreter)."""
+    """The API's modules, the Bayesian and MCMC ones and the photon
+    domain's import neither ``jax`` nor ``pint_tpu`` (by their source,
+    and in a fresh interpreter)."""
     path = REPO / "pint_torch" / f"{module.replace('.', '/')}.py"
     test_no_jax_import_in_port_sources(path)
     code = (f"import sys, pint_torch.{module}\n"
@@ -158,7 +165,8 @@ def test_api_modules_import_no_jax(module):
 
 
 @pytest.mark.parametrize("entry", ["PowellFitter", "tuple_chisq",
-                                   "d_delay_d_param", "MCMCFitter"])
+                                   "d_delay_d_param", "MCMCFitter",
+                                   "MCMCFitterBinnedTemplate"])
 def test_api_entry_points_default_to_the_gpu(entry):
     """A user's call of ``PowellFitter``, ``tuple_chisq``,
     ``d_delay_d_param`` or ``MCMCFitter`` (with its ``BayesianTiming``
@@ -195,6 +203,18 @@ def test_api_entry_points_default_to_the_gpu(entry):
                 torch.tensor(f.sampler.get_chain()[-1], device=b.device))
             assert x.device == b.device
             return f.resids.time_resids
+        if entry == "MCMCFitterBinnedTemplate":
+            from pint_torch.bridge import PHOTON_SMALL_PATH
+            from pint_torch.event_fitter import MCMCFitterBinnedTemplate
+            from pint_torch.sampler import EnsembleSampler
+            from pint_torch.templates import LCGaussian, LCTemplate
+
+            m, b = load_snapshot(PHOTON_SMALL_PATH, device=device)
+            f = MCMCFitterBinnedTemplate(
+                b, m, LCTemplate([LCGaussian([0.04, 0.5])], [0.6]),
+                sampler=EnsembleSampler(8, seed=1))
+            assert np.isfinite(f.fit_toas(2, seed=2))
+            return m.phase(b).frac
         return m.d_delay_d_param(b, "DM")
 
     if not torch.cuda.is_available():
@@ -262,18 +282,31 @@ def test_cpu_tensors_never_reach_a_kernel():
                           torch.full((1, 5), 0.5, dtype=torch.float64), p,
                           sw_i_inf(p), win)
         assert bool(torch.isfinite(g).all())
+    # K8 in both modes, the density and the log-likelihood sums
+    from pint_torch.kernels.photon_lnlike import (BINNED, GAUSS,
+                                                  photon_lnlike)
+
+    fr = torch.full((2, 5), 0.3, dtype=torch.float64)
+    for mode, tab in ((BINNED, torch.ones(8, dtype=torch.float64)),
+                      (GAUSS, torch.tensor([0.4, 0.04, 0.3, 0.6, 0.1],
+                                           dtype=torch.float64))):
+        for dens in (False, True):
+            out = photon_lnlike(fr, torch.full((5,), 0.5,
+                                               dtype=torch.float64),
+                                tab, mode, dens)
+            assert bool(torch.isfinite(out).all())
     counts = kernels.launch_counts()
     assert set(counts) == {n for mod in kernels.modules().values()
                            for n in mod.KERNELS.values()}
-    assert len(counts) == 2 + 20 + 2 + 16 + 3 + 6 + 2
+    assert len(counts) == 2 + 20 + 2 + 16 + 3 + 6 + 2 + 5
     assert not any(counts.values())
 
 
 def test_every_kernel_is_built_without_contraction(tmp_path, monkeypatch):
     """Each kernel's nvcc command carries -fmad=false and no -fmad=true:
-    every product and sum of K1-K7 rounds alone, as the twins' torch
+    every product and sum of K1-K8 rounds alone, as the twins' torch
     operations do (K7 calls no pow(), the one reason it once was built
-    with contraction)."""
+    with contraction; K8's density is bitwise its plain version's)."""
     from pint_torch import kernels
     from pint_torch.kernels import _build
 
@@ -306,7 +339,7 @@ def test_kernel_sources_ship_with_the_package():
     csrc = REPO / "pint_torch" / "kernels" / "csrc"
     for name in ("spin_phase", "dd_binary", "schur_cholesky_solve",
                  "ell1_binary", "wls_lstsq", "binary_orbits",
-                 "solar_wind_pl"):
+                 "solar_wind_pl", "photon_lnlike"):
         src = (csrc / f"{name}.cu").read_text()
         assert "extern \"C\"" in src and f"{name}_launch" in src
     from pint_torch import kernels
@@ -334,6 +367,8 @@ def test_kernel_sources_ship_with_the_package():
                     ("b1855_wb_standin.npz", 890),
                     ("small_wb_standin.npz", 80),
                     ("small_wb_white_standin.npz", 80),
-                    ("b1855_noise_standin.npz", 4005)):
+                    ("b1855_noise_standin.npz", 4005),
+                    ("j0030_photon_standin.npz", 32768),
+                    ("small_photon_standin.npz", 300)):
         assert np.load(REPO / "pint_torch" / "data" / snap,
                        allow_pickle=False)["tdb_hi"].shape == (n,)

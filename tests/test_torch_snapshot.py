@@ -53,7 +53,14 @@ the ensemble MCMC's reference outputs (``_torch_standin.BAYES``,
 
 (likewise ``ddgr``, ``ngc_phoff`` and ``small_wb_white``, the last after
 ``--settings small_wb_white --write
-pint_torch/data/small_wb_white_standin.npz``).
+pint_torch/data/small_wb_white_standin.npz``).  The photon stand-ins carry
+the photon fitters' reference outputs (``_torch_standin.export_photon``)
+from the start::
+
+    python tests/test_torch_snapshot.py --settings photon_j0030 \
+        --write pint_torch/data/j0030_photon_standin.npz
+    python tests/test_torch_snapshot.py --settings small_photon \
+        --write pint_torch/data/small_photon_standin.npz
 
 The tests check that a small export round-trips through
 :func:`pint_torch.bridge.load_snapshot` bitwise, and that the committed
@@ -708,6 +715,85 @@ def test_bayes_keys_round_trip(tmp_path):
     assert m.free_params == bare_m.free_params
 
 
+#: every committed stand-in's digest over all its arrays and its whole
+#: ``meta`` (:func:`_digest` skipping nothing): a later slice adds its own
+#: files and keys and leaves these bitwise as committed
+STANDIN_DIGESTS = {
+    "b1855_standin.npz": "e46ca733e8d5f704",
+    "b1855_dmx15_standin.npz": "f7b1a3459359b557",
+    "j1909_ell1_standin.npz": "01421e04c4b69221",
+    "j1909_ell1h_standin.npz": "f6d8521020ec53f6",
+    "ngc6440e_standin.npz": "33880485365f9ab4",
+    "ngc6440e_phoff_standin.npz": "c46420e97d28e723",
+    "j1713_ddk_standin.npz": "d0ab08c8de54d5a2",
+    "b1913_ddgr_standin.npz": "cf1396c98cdd6209",
+    "small_bt_standin.npz": "dc4b064fe1907a73",
+    "small_dds_standin.npz": "ff19b6eb2b7b0e64",
+    "small_ddh_standin.npz": "18833c1737423086",
+    "j0023_bw_standin.npz": "072342f8bc85ff35",
+    "j0023_bw_waves_standin.npz": "75d1d3a2f250dd54",
+    "j1713_pta_standin.npz": "1cecb08c9653b6a0",
+    "vela_young_standin.npz": "c0056607984bff1b",
+    "small_dd_fbx_standin.npz": "c7fd5aa3dea6ffb6",
+    "small_bt_piecewise_standin.npz": "c7c5ee1519ffb468",
+    "small_pta_standin.npz": "deb4e49ba4dcca68",
+    "small_young_standin.npz": "4389df9ef4ebb4f3",
+    "b1855_wb_standin.npz": "f47b91d0e15f04a2",
+    "small_wb_standin.npz": "350879e8353040e1",
+    "small_wb_white_standin.npz": "de71decd12bfeb87",
+    "b1855_noise_standin.npz": "98e4959c97f187a4",
+    "j0030_photon_standin.npz": "8e1405a4b33d1e3e",
+    "small_photon_standin.npz": "9f4512243849e3ca",
+}
+
+
+@pytest.mark.parametrize("name", list(STANDIN_DIGESTS))
+def test_committed_standins_are_bitwise_as_committed(name):
+    path = os.path.join(REPO, "pint_torch", "data", name)
+    assert _digest(path, skip=()) == STANDIN_DIGESTS[name]
+
+
+@pytest.mark.parametrize("which", ["photon_j0030", "small_photon"])
+def test_committed_photon_files_load_with_stated_shapes(which):
+    """The photon stand-ins: barycentred photons (infinite frequency, the
+    observatory at the barycentre) with their weights, the J0030+0451 par
+    with the settings' free parameters, the reference's photon outputs at
+    the settings' shapes; both files together under 4 MB."""
+    from pint_torch import bridge
+
+    path = bridge.PHOTON_PATH if which == "photon_j0030" \
+        else bridge.PHOTON_SMALL_PATH
+    assert os.path.getsize(bridge.PHOTON_PATH) \
+        + os.path.getsize(bridge.PHOTON_SMALL_PATH) < 4 * 1024 * 1024
+    s = SETTINGS[which]
+    meta, arrays = bridge.read_snapshot(path)
+    R = meta["reference"]["photon"]
+    assert R["settings"] == s == meta["reference"]["settings"]
+    m, b = bridge.load_snapshot(path, device="cpu")
+    n, nd, P = s["photons"], len(s["free"]), "ref/photon/"
+    assert b.ntoas == n and b.weights.shape == (n,)
+    assert m.free_params == s["free"] == R["params"]
+    assert np.isinf(arrays["freq"]).all() and not arrays["ssb_obs_pos"].any()
+    shapes = {"phases": (n,), "points": (standin.PHOTON_POINTS, nd),
+              "lnposterior_binned": (standin.PHOTON_POINTS,),
+              "lnposterior_analytic": (standin.PHOTON_POINTS,)}
+    for kind in ("binned", "analytic"):
+        shapes.update({
+            f"{kind}/pos": (s["nwalkers"], nd),
+            f"{kind}/walker_chain": (s["nwalkers"], nd, s["nsteps"]),
+            f"{kind}/lnprob": (s["nsteps"], s["nwalkers"]),
+            f"{kind}/accepted": (s["nsteps"], s["nwalkers"]),
+            f"{kind}/maxpost_fitvals": (nd,), f"{kind}/stds": (nd,)})
+        assert int(arrays[f"{P}{kind}/accepted"].sum()) \
+            == R[kind]["naccepted"]
+        out = np.isneginf(arrays[f"{P}lnposterior_{kind}"])
+        assert out[-standin.PHOTON_OUTSIDE:].all() \
+            and not out[:-standin.PHOTON_OUTSIDE].any()
+    assert {k[len(P):] for k in arrays if k.startswith(P)} == set(shapes)
+    for key, shape in shapes.items():
+        assert arrays[P + key].shape == shape, key
+
+
 #: the committed full-width stand-ins, by the exporter's ``--settings``
 SETTINGS = {"b1855": standin.FULL_SETTINGS,
             "dmx15": standin.DMX15_SETTINGS,
@@ -732,7 +818,9 @@ SETTINGS = {"b1855": standin.FULL_SETTINGS,
             "small_wb": standin.SMALL_WB_SETTINGS,
             "small_wb_white": standin.SMALL_WB_WHITE_SETTINGS,
             "b1855_noise": standin.NOISE_SETTINGS,
-            "kepler": standin.KEPLER_SETTINGS}
+            "kepler": standin.KEPLER_SETTINGS,
+            "photon_j0030": standin.PHOTON_SETTINGS,
+            "small_photon": standin.SMALL_PHOTON_SETTINGS}
 #: the committed stand-ins of small depth: no grid
 SMALL_DEPTH = ("bt", "dds", "ddh", "small_dd_fbx", "small_bt_piecewise",
                "small_pta", "small_young", "small_wb", "small_wb_white")
@@ -747,6 +835,9 @@ def _write(path: str, chunk: int, settings: dict, small: bool = False) -> None:
     cores' reference outputs."""
     if settings is standin.KEPLER_SETTINGS:
         np.savez_compressed(path, **standin.export_kepler(settings))
+        return
+    if settings.get("photons"):
+        np.savez_compressed(path, **standin.export_photon(settings))
         return
     model, toas = standin.make_standin(settings, full=not small)
     if settings.get("wideband"):
@@ -835,7 +926,9 @@ if __name__ == "__main__":
                          "small_wb_white: SMALL_WB_WHITE_SETTINGS (white "
                          "noise only); "
                          "b1855_noise: NOISE_SETTINGS (the noise fit); "
-                         "kepler: the Kepler cores' outputs")
+                         "kepler: the Kepler cores' outputs; photon_j0030, "
+                         "small_photon: PHOTON_SETTINGS, "
+                         "SMALL_PHOTON_SETTINGS (the photon fitters)")
     ap.add_argument("--api", action="store_true",
                     help="add the API's reference outputs to the committed "
                          "file at --write, keeping its arrays")

@@ -24,8 +24,8 @@ out after the first ``EXIT`` and are not counted; an instruction before
 that ``EXIT`` that the fast path branches over or predicates off is, so
 the count is the fast path's or a little more.  A call that no predicated
 branch skips (``pow`` keeps its core out of line) is followed to its
-``RET`` and counted.  For K6's and K7's built libraries it prints each
-loop's count a pass (K7's node loop).  The SASS is written under
+``RET`` and counted.  For K6's, K7's and K8's built libraries it prints
+each loop's count a pass (K7's node loop, K8's Gaussian peak loop).  The SASS is written under
 ``--out`` (default ``pint_torch/_build/sass/``) for reading.
 
 Run on a machine with the CUDA toolkit, from the repository root::
@@ -187,12 +187,13 @@ def main() -> int:
         result[name] = c
         print(f"{name}: {c['fp64']} fp64, {c['mufu']} mufu, {c['total']} "
               "instructions in all", flush=True)
-    # K6's and K7's libraries: each loop's instructions a pass (K7's node
-    # loop: its cosine or sincos, logarithm, exponential and arithmetic)
+    # K6's, K7's and K8's libraries: each loop's instructions a pass (K7's
+    # node loop: its cosine or sincos, logarithm, exponential and
+    # arithmetic; K8's peak loop: 13 images, each an exponential)
     from pint_torch import kernels
 
     kernels.build_all()
-    for name in ("solar_wind_pl", "binary_orbits"):
+    for name in ("solar_wind_pl", "binary_orbits", "photon_lnlike"):
         path = _build.library_path(name)
         text = subprocess.run([cuobjdump, "-sass", str(path)], check=True,
                               capture_output=True, text=True).stdout
