@@ -10,14 +10,15 @@ Phases, one line each:
 
 1. device -- the card's name and power limit (nvidia-smi) and its
    properties;
-2. build -- the eight hand kernels, one nvcc per source, started
+2. build -- the nine hand kernels, one nvcc per source, started
    together; the ptxas report of each ``__global__`` (registers, stack
    frame, spill bytes; K1's per S = 1..6, K2's and K4's per mode and orbit
    source, K6's per form, its duals staged and direct, K8's per mode and
-   output), read from the build logs: K1's primal templates must hold no
-   stack frame, and no primal (K1, K2 in its five modes and both orbit
-   sources, K4 likewise, K6, K7), no ELL1H dual, no K6 or K7 dual, no
-   tiled K5 kernel and no K8 kernel may spill;
+   output, K9's per factor layout and entry point), read from the build
+   logs: K1's primal templates must hold no stack frame, and no primal
+   (K1, K2 in its five modes and both orbit sources, K4 likewise, K6,
+   K7), no ELL1H dual, no K6 or K7 dual, no tiled K5 kernel, no K8 and no
+   K9 kernel may spill;
 3. main paths, each with the kernel launch counts zeroed just before it
    and read just after, and every kernel of the path required to have
    launched; then its bars against the reference package's outputs stored
@@ -171,7 +172,34 @@ Phases, one line each:
    its bar, acceptance, maximum and stds exact); printed: steps/s, walker
    evaluations/s, the half-ensemble's ``lnposterior_batch`` (median of 5
    warm calls), its launches, its CUDA kernels under ``torch.profiler``
-   and its peak memory; K1's primal and every K8 kernel must launch;
+   and its peak memory; K1's primal and every K8 kernel must launch.
+   Then the stream phase on j1909_stream
+   (``j1909_stream_standin.npz``: J1909-3744's 4005 TOAs with 30
+   red-noise modes on a pinned 8.87-yr period, a K = 150 GLS frame): the
+   base ``GLSFitter.fit_toas(maxiter=2)`` on 400 epochs, then with the
+   counts zeroed ``StreamingGLS`` through 40 single-epoch appends (one
+   carrying a copy of its own row, which the duplicate check pens), a
+   5-epoch backlog, a quarantine of 3 rows and their release and
+   ``apply_validation`` -- each operation's kind, block, quarantined
+   rows, steps, block id and fallback reason class the reference's, chi2
+   1e-6 rel, values 1e-2 sigma, uncertainties 1e-6 rel; the final factor
+   within 1e-9 x max|L| of the reference's and of a fresh Cholesky of the
+   frame Gram; the stream within 1e-2 sigma of the port's scratch fit of
+   the final set, that fit at the fit bars; ``stream_updates`` cut at
+   half (refused on resume, as the reference's: a fallback re-froze the
+   frame) and before the first fallback (resumed bitwise); p50/p99 of
+   rank-k appends and of refactors apart, appends/s, the warm refit and
+   the speedup, K9 launches an append, the profiler's kernels and busy
+   share over five warm appends; K1, K4's ELL1 and K9's
+   ``stream_ingest_smem`` must launch.  Then the serve phase: the
+   reference's base-fit states of j1909_stream (3600, 3690, 3780, 4005
+   TOAs) and small_stream (40, 56, 64) as ``FitRequest.from_fitter``,
+   their residuals within 1e-10 s of the reference's, then on the
+   reference's residuals ``ShapeBatcher.run`` (buckets (4096, 512) and
+   (64, 32), a padded lane) and ``serve_fused(steps=3,
+   reweight="huber")``: buckets and batches equal, dx within 1e-6 of each
+   column's error, errors, chi2 and chi2_initial 1e-9 rel, padded equal
+   to dedicated to 1e-9; the warm dispatch's ms and requests/s;
 4. kernels -- each CUDA kernel (the primal and dual instantiations of K1,
    K2 and K4 -- K4's for ELL1, ELL1k, ELL1H exact and ELL1H harmonic --,
    K3's shared-memory instantiation at nt = 88 and its global one at nt =
@@ -223,7 +251,16 @@ Phases, one line each:
    of sigma 0.005-0.3): the density bitwise, NaN where the plain version
    has NaN, each row's sum within 1e-12 of its sum of |terms|, two
    launches bitwise; timed on a half-ensemble's B = 64 rows, the row
-   sum against ``torch.sum``.
+   sum against ``torch.sum``.  K9: ``stream_ingest`` on the
+   stream path's calls (k = 16 appends, the k = 64 backlog, the k = 4
+   quarantine and release) and ``chol_rank_update`` on the path's factor,
+   then both on random factors at K = 23 (shared memory) and 233
+   (global), each sign, zero rows interleaved, a downdate of absent rows:
+   the factor bitwise its plain version's (NaN alike), b' and chi2'
+   within 1e-13 of their sums of |terms|, ok and cond equal, zero rows
+   bitwise no-ops; timed beside ``torch.linalg.cholesky_ex`` of the
+   updated Gram (the library yardstick) and the bound, the chain of k K
+   dependent column steps printed.
    K2's Newton steps on each path's inputs set its operation count; the
    per-element operation counts of K1, K2, K4, K6 and K7 are bounded at
    the float64 instruction rate (-fmad=false; K6's, K7's and K8's count
@@ -251,6 +288,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -544,6 +582,9 @@ class Capture:
             partials = (int(args[2]), bool(args[6]))
         elif name == "photon_lnlike":
             partials = (int(args[3]), bool(args[4]))
+        elif name == "chol_rank_update":
+            partials = (len(args) > 3 and args[3] is not None,
+                        int(args[1].shape[0]), float(args[2]))
         else:
             partials = args[-1] if name in ("spin_phase", "solar_wind_pl") \
                 else None
@@ -2033,6 +2074,594 @@ def _kepler_phase(path, tag) -> None:
         raise RuntimeError("the Kepler cores disagree with the reference")
 
 
+# ---- the stream and serve phases ------------------------------------------
+def _reason_class(reason):
+    """A fallback reason's class: its first two words (``condition
+    proxy``, ``non-finite/non-PD updated``, ``sentinel design``, ``column
+    layout``), or None on the rank-k path."""
+    return None if reason is None else " ".join(reason.split()[:2])
+
+
+def _mask(n, idx):
+    import numpy as np
+
+    keep = np.zeros(n, dtype=bool)
+    keep[idx] = True
+    return keep
+
+
+def _stream_blocks(m, b, meta):
+    """(base batch, [append batches]) of a stream snapshot's schedule, the
+    append ``dup`` with a copy of its first row."""
+    from pint_torch.bridge import stream_schedule
+    from pint_torch.toa import merge_TOAs
+
+    base, rows, dup, _ = stream_schedule(meta)
+    out = []
+    for i, r in enumerate(rows):
+        blk = b.select(_mask(b.ntoas, r), m)
+        if i == dup:
+            blk = merge_TOAs([blk, b.select(_mask(b.ntoas, r[:1]), m)])
+        out.append(blk)
+    return b.select(_mask(b.ntoas, base), m), out
+
+
+def _stream_phase(path, kernels, tag):
+    """The streaming GLS engine on the j1909_stream stand-in, the counts
+    zeroed just before the stream's operations and read just after: the
+    base ``GLSFitter.fit_toas(maxiter=2)`` on the first 400 epochs, then
+    ``StreamingGLS`` through the 40 single-epoch appends (one with a copy
+    of its own row, which the duplicate check pens), the 5-epoch backlog,
+    a quarantine of 3 of its rows and their release and one
+    ``apply_validation``.  Bars, per operation against the reference's
+    (``ref/stream/``): the kind, block, quarantined rows, steps, block id
+    and fallback reason class exactly; chi2 1e-6 rel, values 1e-2 sigma,
+    uncertainties 1e-6 rel; the final factor within 1e-9 x max|L| of the
+    reference's and of a fresh Cholesky of the frame Gram; the stream's
+    final values within 1e-2 sigma of the port's scratch
+    ``fit_toas(maxiter=4)`` of the final set, and that scratch fit at the
+    fit bars against the reference's; ``stream_updates`` cut after half
+    the chunks refused on resume where the reference's was (a fallback
+    re-froze the frame), and cut before the first fallback resumed
+    bitwise the uninterrupted stream.  Printed: p50/p99 wall ms (after
+    synchronize) of rank-k appends and of fallbacks apart, appends/s, a
+    warm fresh ``fit_toas(maxiter=1)`` of the final set and the speedup,
+    K9 launches an append, and ``torch.profiler``'s CUDA kernels and busy
+    share over five warm rank-k single-epoch appends of a replay.  Returns
+    (counts,
+    the capture of K9's calls, stats)."""
+    import numpy as np
+    import torch
+
+    from pint_torch.bridge import load_snapshot, read_snapshot
+    from pint_torch.gls_fitter import GLSFitter
+    from pint_torch.kernels import chol_rank_update as K9
+    from pint_torch.runtime.checkpoint import CheckpointError
+    from pint_torch.streaming import StreamingGLS, stream_updates
+    from pint_torch.streaming import update as up
+
+    meta, ref = read_snapshot(path)
+    R = meta["reference"]["stream"]
+    S = meta["reference"]["settings"]
+    P = "ref/stream/"
+    design = R["design"]
+    model, batch = load_snapshot(path, device="cuda")
+    prefit = model.copy()
+    base, blocks = _stream_blocks(model, batch, meta)
+    qrows = S["stream"]["quarantine"]
+
+    def fit_base():
+        f = GLSFitter(base, prefit)
+        f.fit_toas(maxiter=S["fit_maxiter"])
+        return f
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    f = fit_base()
+    torch.cuda.synchronize()
+    base_s = time.perf_counter() - t
+    cap = Capture({"chol_rank_update": kernels.modules()["chol_rank_update"]})
+    cap.install()
+    kernels.reset_counts()
+    eng = StreamingGLS(f)
+    ntm = len(eng.cache.params)
+    ops, errs, walls, k9 = [], [], [], []
+
+    def run(fn):
+        n0 = kernels.launch_counts()[K9.KERNELS[(True, True)]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = fn()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        k9.append(kernels.launch_counts()[K9.KERNELS[(True, True)]] - n0)
+        ops.append(o)
+        e = eng.cache.errors()[:ntm]
+        errs.append(np.array([x for p, x in zip(eng.cache.params, e)
+                              if p != "Offset"]))
+
+    for blk in blocks:
+        run(lambda blk=blk: eng.update_toas(blk))
+    after = eng.cache.state_dict()
+    after_vals = np.array([eng.fitter.model.value(p) for p in design])
+    qb = ops[-1].block_id
+    run(lambda: eng.quarantine_rows(qb, qrows))
+    run(lambda: eng.release_quarantined(qb, qrows))
+    nval = len(eng.apply_validation())
+    counts = kernels.launch_counts()
+    cap.remove()
+
+    bad = []
+    for i, (o, e, want) in enumerate(zip(ops, errs, R["ops"])):
+        same = (o.kind, o.block, o.quarantined, o.steps, o.block_id) == (
+            want["kind"], want["block"], want["quarantined"], want["steps"],
+            want["block_id"]) and _reason_class(o.fallback) \
+            == _reason_class(want["fallback"])
+        vals = np.array([o.params[p] for p in design])
+        rv, re = ref[P + "values"][i], ref[P + "errors"][i]
+        dchi = abs(o.chi2 / ref[P + "chi2"][i] - 1.0)
+        dv = float(np.max(np.abs(vals - rv) / re))
+        de = float(np.max(np.abs(e / re - 1.0)))
+        if not (same and dchi <= 1e-6 and dv <= 1e-2 and de <= 1e-6):
+            bad.append(f"op {i} ({o.kind}): same {same}, chi2 {dchi:.3e}, "
+                       f"values {dv:.3e} sigma, errors {de:.3e}")
+    gaps = [(abs(o.chi2 / ref[P + "chi2"][i] - 1.0),
+             float(np.max(np.abs(np.array([o.params[p] for p in design])
+                                 - ref[P + "values"][i])
+                          / ref[P + "errors"][i])),
+             float(np.max(np.abs(errs[i] / ref[P + "errors"][i] - 1.0))))
+            for i, o in enumerate(ops)]
+    c = eng.cache
+    L = c.L.cpu().numpy()
+    Lr = ref[P + "final/L"]
+    d_final = float(np.max(np.abs(L - Lr)) / np.max(np.abs(Lr)))
+    A = torch.diag(c.phiinv)
+    for blk in c.blocks:
+        idx = torch.as_tensor(np.flatnonzero(blk.alive), device=c.L.device)
+        M, w = blk.M[idx], blk.w[idx]
+        A = A + (M.T * w) @ M
+    fresh = torch.linalg.cholesky(A).cpu().numpy()
+    d_fresh = float(np.max(np.abs(L - fresh)) / np.max(np.abs(fresh)))
+    if nval != R["validation_ops"]:
+        bad.append(f"apply_validation: {nval} operations, reference "
+                   f"{R['validation_ops']}")
+    if d_final > 1e-9 or d_fresh > 1e-9:
+        bad.append(f"final factor {d_final:.3e} of max|L| from the "
+                   f"reference's, {d_fresh:.3e} from a fresh Cholesky")
+
+    # the scratch fit of the final certified set, and the warm refit's time
+    final = c.toas.certified()
+    sf = GLSFitter(final, prefit)
+    sf.fit_toas(maxiter=4)
+    sv = np.array([sf.model.value(p) for p in design])
+    se = np.array([sf.model[p].uncertainty for p in design])
+    stream_v = np.array([eng.fitter.model.value(p) for p in design])
+    d_scratch = float(np.max(np.abs(stream_v - sv) / se))
+    d_sref = float(np.max(np.abs(sv - ref[P + "scratch_values"])
+                          / ref[P + "scratch_errors"]))
+    d_seref = float(np.max(np.abs(se / ref[P + "scratch_errors"] - 1.0)))
+    rel = {p: abs(stream_v[design.index(p)] / sv[design.index(p)] - 1.0)
+           for p in ("F0", "F1")}
+    rel_ref = {p: abs(ref[P + "final_values"][design.index(p)]
+                      / ref[P + "scratch_values"][design.index(p)] - 1.0)
+               for p in ("F0", "F1")}
+    if d_scratch > 1e-2 or d_sref > 1e-2 or d_seref > 1e-6:
+        bad.append(f"scratch fit: stream {d_scratch:.3e} sigma from it, it "
+                   f"{d_sref:.3e} sigma and {d_seref:.3e} rel from the "
+                   "reference's")
+    refit = GLSFitter(final, eng.fitter.model)
+    refit.fit_toas(maxiter=1)
+    refit_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refit = GLSFitter(final, eng.fitter.model)
+        refit.fit_toas(maxiter=1)
+        torch.cuda.synchronize()
+        refit_ms.append(1e3 * (time.perf_counter() - t0))
+
+    # stream_updates cut and resumed on a fresh engine
+    orig = up._invoke_stream
+    ckpt = {}
+    tmp = tempfile.TemporaryDirectory()
+    for name, want in R["checkpoint"].items():
+        d = Path(tmp.name) / name
+
+        def cut(engine, blk, index, at=want["cut"]):
+            if index == at:
+                raise KeyboardInterrupt
+            return orig(engine, blk, index)
+
+        up._invoke_stream = cut
+        try:
+            stream_updates(StreamingGLS(fit_base()), blocks,
+                           checkpoint=str(d))
+        except KeyboardInterrupt:
+            pass
+        finally:
+            up._invoke_stream = orig
+        e2 = StreamingGLS(fit_base())
+        try:
+            outs = stream_updates(e2, blocks, checkpoint=str(d))
+        except CheckpointError:
+            ckpt[name] = dict(cut=want["cut"], refused=True)
+        else:
+            got = e2.cache.state_dict()
+            vals = np.array([e2.fitter.model.value(p) for p in design])
+            ckpt[name] = dict(
+                cut=want["cut"], refused=False, ran=len(outs),
+                bitwise=bool(all(np.array_equal(got[k], after[k])
+                                 for k in ("L", "b", "x", "chi2"))
+                             and np.array_equal(vals, after_vals)))
+        if ckpt[name] != want:
+            bad.append(f"checkpoint {name}: {ckpt[name]}, reference {want}")
+    tmp.cleanup()
+
+    # five warm rank-k single-epoch appends of a replay under the profiler
+    fb = [o["fallback"] is not None for o in R["ops"][:len(blocks)]]
+    epochs = S["stream"]["blocks"]
+    chosen = [i for i in range(1, len(blocks)) if not fb[i]
+              and epochs[i] == epochs[0] and i != S["stream"]["dup"]][:5]
+    e3 = StreamingGLS(fit_base())
+    n_ev = us = wall = 0
+    for i, blk in enumerate(blocks[:chosen[-1] + 1]):
+        if i not in chosen:
+            e3.update_toas(blk)
+            continue
+        n, u, w = _profile_cuda(lambda blk=blk: e3.update_toas(blk))
+        n_ev, us, wall = (None, None, wall + w) if n is None or n_ev is None \
+            else (n_ev + n, us + u, wall + w)
+
+    n_app = len(blocks)
+    rk = [walls[i] for i in range(n_app) if ops[i].fallback is None]
+    fbw = [walls[i] for i in range(n_app) if ops[i].fallback is not None]
+    stats = dict(
+        K=c.K, base_s=base_s, rankk_p50=float(np.percentile(rk, 50)),
+        rankk_p99=float(np.percentile(rk, 99)),
+        fallback_p50=float(np.percentile(fbw, 50)) if fbw else None,
+        fallback_p99=float(np.percentile(fbw, 99)) if fbw else None,
+        appends_per_s=n_app / (sum(walls[:n_app]) / 1e3),
+        refit_p50=float(np.percentile(refit_ms, 50)),
+        n_rankk=len(rk), n_fallback=len(fbw),
+        k9_per_append=sorted(set(k9[:n_app])),
+        k9_rankk=sorted({k9[i] for i in range(n_app)
+                         if ops[i].fallback is None}),
+        k9_fallback=sorted({k9[i] for i in range(n_app)
+                            if ops[i].fallback is not None}),
+        downdate_ms=walls[n_app], release_ms=walls[n_app + 1])
+    stats["speedup"] = stats["refit_p50"] / stats["rankk_p50"]
+    busy = f"{n_ev} CUDA kernels, {us / 1e3:.4f} ms device in " \
+        f"{wall * 1e3:.4f} ms wall, busy {us / 1e6 / wall:.4f}" \
+        if n_ev else f"{wall * 1e3:.4f} ms wall, device time not measured " \
+        "(the profiler saw no device events)"
+    print(f"phase stream j1909_stream: K = {c.K} frame columns, "
+          f"{len(ops)} operations ({n_app} appends: {len(rk)} rank-k, "
+          f"{len(fbw)} refactors; a quarantine, a release), "
+          f"apply_validation {nval}; base fit {base_s:.4f} s; chi2 max "
+          f"{max(g[0] for g in gaps):.3e} rel, values max "
+          f"{max(g[1] for g in gaps):.3e} sigma, uncertainties max "
+          f"{max(g[2] for g in gaps):.3e} rel; final factor "
+          f"{d_final:.3e} of max|L| from the reference's, {d_fresh:.3e} "
+          f"from a fresh Cholesky; scratch fit: stream {d_scratch:.3e} "
+          f"sigma from it (F0 {rel['F0']:.3e}, F1 {rel['F1']:.3e} rel; "
+          f"the reference's F0 {rel_ref['F0']:.3e}, F1 {rel_ref['F1']:.3e}),"
+          f" it {d_sref:.3e} sigma / {d_seref:.3e} rel from the "
+          f"reference's; checkpoint {ckpt} {tag}", flush=True)
+    print(f"phase stream times: rank-k append p50 {stats['rankk_p50']:.4f} "
+          f"ms, p99 {stats['rankk_p99']:.4f} ms ({len(rk)}); refactor "
+          f"p50 {stats['fallback_p50']:.4f} ms, p99 "
+          f"{stats['fallback_p99']:.4f} ms ({len(fbw)}); quarantine "
+          f"{stats['downdate_ms']:.4f} ms, release {stats['release_ms']:.4f}"
+          f" ms; {stats['appends_per_s']:.3f} appends/s; warm refit "
+          f"fit_toas(maxiter=1) of the {final.ntoas} TOAs p50 "
+          f"{stats['refit_p50']:.4f} ms (3), speedup "
+          f"{stats['speedup']:.3f}; K9 launches an append: rank-k "
+          f"{stats['k9_rankk']}, refactor {stats['k9_fallback']}; "
+          f"{len(chosen)} warm rank-k appends under torch.profiler: {busy} "
+          f"{tag}", flush=True)
+    if bad:
+        raise RuntimeError("stream phase: " + "; ".join(bad))
+    return counts, cap, stats
+
+
+def _serve_phase(path, small_path, kernels, tag):
+    """The shape-bucketed serve batcher on the card, the counts zeroed
+    just before the requests are built and read after the last dispatch:
+    ``FitRequest.from_fitter`` on j1909_stream's base-fit state (the
+    reference's values) at 3600, 3690, 3780 and 4005 TOAs and
+    small_stream's at 40, 56 and 64 -- two buckets, (4096, 512) and (64,
+    32), the second with a padded batch lane --, then
+    ``ShapeBatcher.run`` and ``serve_fused(steps=3, reweight="huber")``
+    per bucket group.  Bars: each request's residuals within 1e-10 s of
+    the reference's; served on the reference's residuals (the same
+    inputs), the same bucket and batch, ``dx`` within 1e-6 of each
+    column's error, errors, chi2 and chi2_initial within 1e-9 rel, the
+    fused steps alike; each request padded equal to its dedicated shape to
+    1e-9 rel.  Printed: the warm dispatch's ms and requests/s.  Returns
+    the counts."""
+    import numpy as np
+    import torch
+
+    from pint_torch.bridge import load_snapshot, read_snapshot
+    from pint_torch.gls_fitter import GLSFitter
+    from pint_torch.serving import (FitRequest, ShapeBatcher, bucket_of,
+                                    pad_request, serve_fused, serve_kernel)
+
+    meta, ref = read_snapshot(path)
+    R = meta["reference"]["serve"]
+    loaded = {"stream": load_snapshot(path, device="cuda"),
+              "small_stream": load_snapshot(small_path, device="cuda")}
+    for which, (m, _) in loaded.items():
+        for p, v in zip(m.design_param_names(),
+                        ref[f"ref/serve/{which}_values"]):
+            m[p].value = float(v)
+    kernels.reset_counts()
+    reqs, bad = [], []
+    d_r = 0.0
+    for i, (which, n) in enumerate(R["requests"]):
+        m, b = loaded[which]
+        q = FitRequest.from_fitter(
+            GLSFitter(b.select(np.arange(b.ntoas) < n, m), m),
+            request_id=f"{which}:{n}")
+        rr = ref[f"ref/serve/{i}/r"]
+        d_r = max(d_r, float(np.max(np.abs(q.r.cpu().numpy() - rr))))
+        reqs.append(FitRequest(M=q.M, r=rr, w=q.w, phiinv=q.phiinv,
+                               params=q.params, norm=q.norm,
+                               request_id=q.request_id, device="cuda"))
+    sb = ShapeBatcher()
+    res = sb.run(reqs)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = sb.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = kernels.launch_counts()
+    gap = dict(dx=0.0, err=0.0, chi2=0.0, pad=0.0, fdx=0.0, ferr=0.0,
+               fchi2=0.0)
+    for i, (q, r) in enumerate(zip(reqs, res)):
+        Q = f"ref/serve/{i}/"
+        if list(r.bucket) != R["buckets"][i] or r.batch != R["batches"][i]:
+            bad.append(f"request {i}: bucket {r.bucket} batch {r.batch}")
+        e = ref[Q + "errors"]
+        gap["dx"] = max(gap["dx"], float(np.max(np.abs(r.dx - ref[Q + "dx"])
+                                                / e)))
+        gap["err"] = max(gap["err"], float(np.max(np.abs(r.errors / e - 1))))
+        c2 = np.array([r.chi2, r.chi2_initial])
+        gap["chi2"] = max(gap["chi2"], float(np.max(np.abs(
+            c2 / ref[Q + "chi2"] - 1))))
+        n, k = q.M.shape
+        ded = serve_kernel(*pad_request(q, n, k))
+        dd = [x.cpu().numpy() for x in ded]
+        gap["pad"] = max(gap["pad"], float(np.max(np.abs(r.dx - dd[0])
+                                                  / np.abs(dd[1]))),
+                         float(np.max(np.abs(r.errors / dd[1] - 1))),
+                         abs(r.chi2 / float(dd[2]) - 1),
+                         abs(r.chi2_initial / float(dd[3]) - 1))
+    for bucket, idxs in R["groups"]:
+        batch = bucket_of(len(idxs), sb.batch_buckets)
+        padded = [pad_request(reqs[i], *bucket) for i in idxs]
+        padded += [padded[0]] * (batch - len(padded))
+        ops = tuple(torch.stack([p[j] for p in padded]) for j in range(5))
+        dx, err, chi2, chi2_0 = (x.cpu().numpy() for x in serve_fused(
+            steps=R["steps"], reweight=R["reweight"])(*ops))
+        for lane, i in enumerate(idxs):
+            Q, k = f"ref/serve/{i}/", reqs[i].n_free
+            e = ref[Q + "fused_errors"]
+            gap["fdx"] = max(gap["fdx"], float(np.max(
+                np.abs(dx[lane, :, :k] - ref[Q + "fused_dx"]) / e)))
+            gap["ferr"] = max(gap["ferr"], float(np.max(
+                np.abs(err[lane, :k] / e - 1))))
+            gap["fchi2"] = max(gap["fchi2"], float(np.max(np.abs(
+                np.append(chi2[lane], chi2_0[lane])
+                / ref[Q + "fused_chi2"] - 1))))
+    ok = d_r <= 1e-10 and gap["dx"] <= 1e-6 and gap["fdx"] <= 1e-6 \
+        and max(gap["err"], gap["chi2"], gap["pad"], gap["ferr"],
+                gap["fchi2"]) <= 1e-9
+    print(f"phase serve: {len(reqs)} requests, buckets "
+          f"{sorted({tuple(r.bucket) for r in res})}, batches "
+          f"{[r.batch for r in res]}; residuals max {d_r:.3e} s from the "
+          f"reference's; dx max {gap['dx']:.3e} of the column's error, "
+          f"errors {gap['err']:.3e}, chi2 {gap['chi2']:.3e} rel; padded "
+          f"against dedicated {gap['pad']:.3e}; serve_fused(steps=3, huber)"
+          f" dx {gap['fdx']:.3e} of the error, errors {gap['ferr']:.3e}, "
+          f"chi2 {gap['fchi2']:.3e} rel; warm ShapeBatcher.run "
+          f"{wall * 1e3:.4f} ms, {len(reqs) / wall:.3f} requests/s {tag}",
+          flush=True)
+    if bad or not ok:
+        raise RuntimeError("serve phase: " + "; ".join(bad) + f" {gap}")
+    return counts
+
+
+def _k9_ops(K: int, rows: int, k: int, ingest: bool) -> int:
+    """float64 instructions of one K9 call on ``rows`` nonzero rows of a
+    rung of ``k`` (a zero row is skipped), a sqrt and a division at their
+    SASS counts and every other operation 1: per row and column step j the
+    owner's d d + s xj xj, sqrt and two divisions (3 + 8 + 16), and per row
+    below it sign s x, a sum, a division, c x - s col (4 + 8 ... 13); with
+    the ingest r_now (2 k K), V = sqrt(w) M (rows' sqrt and K products), b'
+    (3 k K + 2 K), chi2 (3 k + 2); the final check 2 K^2."""
+    dv, sq = SASS_OPS["div"], SASS_OPS["sqrt"]
+    sweep = rows * (K * (3 + sq + 2 * dv) + (5 + dv) * K * (K - 1) // 2)
+    extra = (2 * k * K + rows * (sq + K) + 3 * k * K + 2 * K + 3 * k + 2) \
+        if ingest else 0
+    return sweep + extra + 2 * K * K
+
+
+def _k9_kernels(cap, counts, dev, tag) -> list:
+    """K9 against its plain version on the card: ``stream_ingest`` on the
+    stream path's calls (k = 16 appends, the k = 64 backlog, the k = 4
+    quarantine downdate and release), ``chol_rank_update`` on the path's
+    factor with its weighted rows, and both on random SPD factors at K =
+    23 (shared memory) and 233 (global), each sign, with zero rows
+    interleaved and a downdate of absent rows.  Bars: the factor bitwise
+    (NaN where the plain version's is), b' and chi2' within 1e-13 of
+    their sums of |terms|, ok and cond equal, a zero row a bitwise no-op.
+    Times (CUDA events behind a spin kernel): each instantiation on one
+    call (the path's k = 16 append for the shared-memory ones, K = 233, k
+    = 16 for the global ones), its plain version, the library yardstick
+    ``torch.linalg.cholesky_ex`` of the updated Gram (formed outside the
+    timed window) and the bound; the chain length k K of dependent column
+    steps printed.  Returns the ``kernels`` records."""
+    import torch
+
+    from pint_torch.kernels import chol_rank_update as K9
+
+    gen = torch.Generator(device=dev).manual_seed(20261018)
+    notes, ok, records, errs = [], True, [], {}
+
+    def spd(K):
+        A = torch.randn((K + 9, K), generator=gen, dtype=torch.float64,
+                        device=dev)
+        # row-major, as the wrappers hand K9 its factor (torch's Cholesky
+        # may return the transposed layout)
+        return torch.linalg.cholesky(A.T @ A + torch.eye(
+            K, dtype=torch.float64, device=dev)).contiguous()
+
+    def same(a, b):
+        return bool(torch.equal(torch.isnan(a), torch.isnan(b))) and bool(
+            torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
+
+    def ingest_check(label, L, b, chi2, M, r, w, dx, sign):
+        nonlocal ok
+        got = K9._launch(L, M, sign, (b, chi2, r, w, dx))
+        want = K9.stream_ingest_reference(L, b, chi2, M, r, w, dx, sign)
+        rnow = r - M @ dx
+        bt = b.abs() + M.abs().T @ (w * rnow).abs()
+        ct = chi2.abs() + (w * rnow * rnow).abs().sum()
+        fl = same(got[0], want[0])
+        db = float(((got[1] - want[1]).abs() / bt.clamp(min=1e-300)).max())
+        dc = float((got[2] - want[2]).abs() / ct.clamp(min=1e-300))
+        oc = float(got[3]) == float(want[3]) and (
+            same(got[4].reshape(1), want[4].reshape(1)))
+        fine = fl and db <= 1e-13 and dc <= 1e-13 and oc
+        ok = ok and fine
+        errs[label] = float((got[0] - want[0]).abs().nan_to_num().max())
+        notes.append(f"{label}: factor {'bitwise' if fl else 'DIFFERS'}, "
+                     f"b' {db:.1e}, chi2' {dc:.1e} of |terms|, ok/cond "
+                     f"{'equal' if oc else 'DIFFER'}")
+        return got
+
+    def rank_check(label, L, V, sign):
+        nonlocal ok
+        got, want = K9._launch(L, V, sign), K9.chol_rank_update_reference(
+            L, V, sign)
+        fl = same(got, want)
+        ok = ok and fl
+        errs[label] = float((got - want).abs().nan_to_num().max())
+        notes.append(f"{label}: factor {'bitwise' if fl else 'DIFFERS'}")
+        return got
+
+    # the path's calls
+    calls = sorted((key, args) for key, (_, args) in cap.calls.items()
+                   if key[0] == "chol_rank_update" and key[1][0])
+    path16 = None
+    for (_, (ingest, k, sign)), args in calls:
+        L, M, sgn, vecs = args
+        ingest_check(f"path stream_ingest k={k} sign {sgn:+.0f}", L,
+                     *vecs[:2], M, *vecs[2:], sgn)
+        if k == 16 and sgn > 0:
+            path16 = args
+    if path16 is None:
+        raise RuntimeError("no k = 16 append reached K9 on the stream path")
+    L16, M16, _, v16 = path16
+    b16, c16, r16, w16, dx16 = v16
+    V16 = torch.sqrt(w16)[:, None] * M16
+    rank_check("path chol_rank_update k=16 +1", L16, V16, 1.0)
+    # random factors: both layouts, each sign, zero rows, absent rows
+    for K in (23, 233):
+        L = spd(K)
+        V = torch.randn((16, K), generator=gen, dtype=torch.float64,
+                        device=dev)
+        V[[2, 5, 9, 10, 15]] = 0.0
+        up = rank_check(f"K={K} update", L, V, 1.0)
+        rank_check(f"K={K} downdate", up, V, -1.0)
+        z = K9._launch(L, torch.zeros((4, K), dtype=torch.float64,
+                                      device=dev), -1.0)
+        zero = bool(torch.equal(z, L))
+        ok = ok and zero
+        notes.append(f"K={K} zero rows: {'bitwise no-op' if zero else 'NOT'}")
+        rank_check(f"K={K} absent downdate", L, 30.0 * V, -1.0)
+        r = torch.randn(16, generator=gen, dtype=torch.float64, device=dev)
+        w = torch.rand(16, generator=gen, dtype=torch.float64,
+                       device=dev) + 0.5
+        w[[2, 5, 9, 10, 15]] = 0.0
+        dx = 1e-3 * torch.randn(K, generator=gen, dtype=torch.float64,
+                                device=dev)
+        b = torch.randn(K, generator=gen, dtype=torch.float64, device=dev)
+        c2 = torch.tensor(7.0, dtype=torch.float64, device=dev)
+        for sign in (1.0, -1.0):
+            g = ingest_check(f"K={K} stream_ingest sign {sign:+.0f}", L, b,
+                             c2, V if sign > 0 else 30.0 * V, r, w, dx, sign)
+        ok = ok and not bool(g[3])  # the absent downdate is refused
+    print("phase kernel chol_rank_update: " + "; ".join(notes) + f" {tag}",
+          flush=True)
+    if not ok:
+        raise RuntimeError("chol_rank_update disagrees with its plain "
+                           "version")
+
+    def timed(kernel, L, M, sign, vecs, label, path_launches):
+        K, k = L.shape[0], M.shape[0]
+        ingest = vecs is not None
+        Vw = torch.sqrt(vecs[3])[:, None] * M if ingest else M
+        rows = int((Vw != 0).any(dim=1).sum())
+        if ingest:
+            ms = _time_ms(lambda: K9._launch(L, M, sign, vecs), 20)
+            plain = _time_ms(lambda: K9.stream_ingest_reference(
+                L, vecs[0], vecs[1], M, vecs[2], vecs[3], vecs[4], sign), 1,
+                warmup=1)
+        else:
+            ms = _time_ms(lambda: K9._launch(L, M, sign), 20)
+            plain = _time_ms(lambda: K9.chol_rank_update_reference(
+                L, M, sign), 1, warmup=1)
+        G = L @ L.T + sign * (Vw.T @ Vw)
+        lib = _time_ms(lambda: torch.linalg.cholesky_ex(G), 20)
+        nbytes = 8 * (2 * K * K + k * K + 2) + (
+            8 * (2 * k + 3 * K + 2) if ingest else 0)
+        bound = _bound(nbytes, _k9_ops(K, rows, k, ingest),
+                       rate=F64_INSTR_PER_S)
+        print(f"phase kernel {kernel} {label}: K={K} k={k} ({rows} nonzero "
+              f"rows), {ms:.4f} ms, plain {plain:.4f} ms, library "
+              f"torch.linalg.cholesky_ex of the updated Gram {lib:.4f} ms, "
+              f"bound {bound[0]:.6f} ms ({bound[1]}; "
+              f"{_k9_ops(K, rows, k, ingest)} float64 instructions), chain "
+              f"{rows * K} dependent column steps {tag}", flush=True)
+        return dict(name=kernel, route="cuda",
+                    source="pint_torch/kernels/csrc/chol_rank_update.cu",
+                    replaces=K9.REPLACES if not ingest else
+                    "pint_tpu/streaming/lowrank.py:115",
+                    launches=path_launches, max_abs_err=max(
+                        v for key, v in errs.items()
+                        if (("stream_ingest" in key) == ingest)
+                        and ((K == 233) == ("K=233" in key))),
+                    ms=ms, plain_ms=plain, bound_ms=bound[0],
+                    bound_by=bound[1], library_ms=lib, path="stream")
+
+    for (_, (ingest, k, sign)), args in calls:
+        if (k, sign) != (16, 1.0):
+            L, M, sgn, vecs = args
+            timed(K9.KERNELS[(K9.uses_smem(L.shape[0]), True)], L, M, sgn,
+                  vecs, f"path k={k} sign {sgn:+.0f}", None)
+    records.append(timed(K9.KERNELS[(True, True)], L16, M16, 1.0, v16,
+                         "path k=16 append",
+                         counts[K9.KERNELS[(True, True)]]))
+    records.append(timed(K9.KERNELS[(True, False)], L16, V16, 1.0, None,
+                         "path factor, k=16",
+                         counts[K9.KERNELS[(True, False)]]))
+    L = spd(233)
+    V = torch.randn((16, 233), generator=gen, dtype=torch.float64, device=dev)
+    r = torch.randn(16, generator=gen, dtype=torch.float64, device=dev)
+    w = torch.rand(16, generator=gen, dtype=torch.float64, device=dev) + 0.5
+    vecs = (torch.randn(233, generator=gen, dtype=torch.float64, device=dev),
+            torch.tensor(7.0, dtype=torch.float64, device=dev), r, w,
+            1e-3 * torch.randn(233, generator=gen, dtype=torch.float64,
+                               device=dev))
+    records.append(timed(K9.KERNELS[(False, True)], L, V, 1.0, vecs,
+                         "random", counts[K9.KERNELS[(False, True)]]))
+    records.append(timed(K9.KERNELS[(False, False)], L, V, 1.0, None,
+                         "random", counts[K9.KERNELS[(False, False)]]))
+    return records
+
+
 def _noise_bars(f, rounds, ref, rref, notes) -> list:
     """The alternation's noise fits against the reference's: per round the
     L-BFGS-B iterations and converged flag, the lnlike at the optimum (1e-9
@@ -2103,7 +2732,8 @@ def main() -> int:
                                    WB_PATH, WB_SMALL_PATH,
                                    WB_WHITE_SMALL_PATH, YOUNG_PATH,
                                    YOUNG_SMALL_PATH, PHOTON_PATH,
-                                   PHOTON_SMALL_PATH)
+                                   PHOTON_SMALL_PATH, STREAM_PATH,
+                                   STREAM_SMALL_PATH)
     from pint_torch.kernels import _build
     from pint_torch.kernels import binary_orbits as K6
     from pint_torch.kernels import solar_wind_pl as K7
@@ -2113,6 +2743,7 @@ def main() -> int:
     from pint_torch.kernels import spin_phase as K1
     from pint_torch.kernels import wls_lstsq as K5
     from pint_torch.kernels import photon_lnlike as K8
+    from pint_torch.kernels import chol_rank_update as K9
 
     dev = torch.device("cuda")
     card = _card()
@@ -2160,6 +2791,9 @@ def main() -> int:
                f"photon_{'density' if d else 'lnlike'}_kernelILi{m}EE")
               for m in (K8.BINNED, K8.GAUSS) for d in (False, True)]
     ptxas += [("photon_lnlike", K8.KERNELS["rowsum"], "photon_lnlike_rowsum")]
+    ptxas += [("chol_rank_update", K9.KERNELS[(sm, ing)],
+               f"chol_rank_kernelILb{int(sm)}ELb{int(ing)}EE")
+              for sm in (True, False) for ing in (False, True)]
     # no primal may spill (K1, K2 and K4 in each mode and orbit source,
     # K6, K7), nor ELL1H's duals, K6's and K7's duals or K5's tiled kernels
     k4_primals = [K4.KERNELS[(m, False)] for m in range(4)] \
@@ -2170,7 +2804,8 @@ def main() -> int:
         + [K2.KERNELS[(K2.BTX, False)], K7.KERNELS[False]] \
         + [K6.KERNELS[(f, p)] + d for f in k6_forms for p in (False, True)
            for d in (("", " (direct)") if p else ("",))] \
-        + [K7.KERNELS[True]] + list(K8.KERNELS.values())
+        + [K7.KERNELS[True]] + list(K8.KERNELS.values()) \
+        + list(K9.KERNELS.values())
     for src, kernel, marker in ptxas:
         log = _build.library_path(src).with_suffix(".log")
         r = _build.ptxas_report(log.read_text() if log.exists() else "",
@@ -2327,6 +2962,25 @@ def main() -> int:
         paths[label] = ({k: counts[k] + tv_counts[k] for k in counts}, cap_ph)
 
     _kepler_phase(KEPLER_PATH, tag)
+
+    # ---- the stream and serve phases: the streaming GLS engine on K9 ---------
+    stream_counts, stream_cap, _ = _stream_phase(STREAM_PATH, kernels, tag)
+    want = (*K1.KERNELS.values(), K4.KERNELS[(K4.ELL1, False)],
+            K4.KERNELS[(K4.ELL1, True)], K9.KERNELS[(True, True)])
+    missing = [k for k in want if stream_counts[k] == 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on the stream path: "
+                           f"{missing}")
+    print("phase stream launches: " + ", ".join(
+        f"{k} {v}" for k, v in stream_counts.items() if v) + f" {tag}",
+        flush=True)
+    serve_counts = _serve_phase(STREAM_PATH, STREAM_SMALL_PATH, kernels, tag)
+    want = (*K1.KERNELS.values(), K4.KERNELS[(K4.ELL1, False)],
+            K4.KERNELS[(K4.ELL1, True)], *k2[K2.DD])
+    missing = [k for k in want if serve_counts[k] == 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on the serve path: "
+                           f"{missing}")
 
     # ---- kernels against their plain twins ----------------------------------
     # Every CUDA kernel -- the primal and dual instantiations of K1, of K2
@@ -3416,6 +4070,8 @@ def main() -> int:
            max(cases["random k=130 (global)"]["err"],
                cases["random k=233 (global)"]["err"]), ms_glob, plain_glob,
            bound_glob, lib_glob, path="ell1")
+
+    records += _k9_kernels(stream_cap, stream_counts, dev, tag)
 
     print(f"phase wall: {time.perf_counter() - t_start:.2f} s for the whole "
           f"run {tag}", flush=True)

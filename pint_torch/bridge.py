@@ -41,7 +41,8 @@ __all__ = ["load_snapshot", "read_snapshot", "SNAPSHOT_FORMAT",
            "BW_WAVES_PATH", "PTA_PATH", "YOUNG_PATH", "DD_FBX_SMALL_PATH",
            "BT_PIECEWISE_SMALL_PATH", "PTA_SMALL_PATH", "YOUNG_SMALL_PATH",
            "WB_PATH", "WB_SMALL_PATH", "WB_WHITE_SMALL_PATH", "NOISE_PATH",
-           "KEPLER_PATH", "PHOTON_PATH", "PHOTON_SMALL_PATH"]
+           "KEPLER_PATH", "PHOTON_PATH", "PHOTON_SMALL_PATH", "STREAM_PATH",
+           "STREAM_SMALL_PATH", "stream_schedule"]
 
 SNAPSHOT_FORMAT = "pint_torch-snapshot-1"
 #: the committed full-width B1855+09-shaped stand-in
@@ -112,6 +113,12 @@ KEPLER_PATH = STANDIN_PATH.with_name("kepler_reference.npz")
 #: fitters and FFTFIT), and the reference photon test's 300 photons
 PHOTON_PATH = STANDIN_PATH.with_name("j0030_photon_standin.npz")
 PHOTON_SMALL_PATH = STANDIN_PATH.with_name("small_photon_standin.npz")
+#: the J1909-3744-shaped red-noise stream (4005 TOAs, K = 150 frame
+#: columns) with the serve batcher's reference outputs, and its small CPU
+#: version (80 TOAs, K = 23): each carries its operation schedule
+#: (:func:`stream_schedule`) and the reference's run of it
+STREAM_PATH = STANDIN_PATH.with_name("j1909_stream_standin.npz")
+STREAM_SMALL_PATH = STANDIN_PATH.with_name("small_stream_standin.npz")
 
 _BATCH_KEYS = ("tdb_hi", "tdb_lo", "tdb0", "tdb_s_hi", "tdb_s_lo", "freq",
                "error_us", "ssb_obs_pos", "ssb_obs_vel", "obs_sun_pos",
@@ -161,7 +168,8 @@ def _batch_arrays(arrays: dict, prefix: str) -> dict:
     """The batch fields stored under ``prefix`` (the model's TOAs under
     "", the TZR row under "tzr/"), keys without the prefix."""
     out = {k: arrays[prefix + k] for k in _BATCH_KEYS}
-    out.update({k: arrays[prefix + k] for k in ("dm", "dm_error", "weight")
+    out.update({k: arrays[prefix + k] for k in ("dm", "dm_error", "weight",
+                                                 "mjd_lo", "obs")
                 if prefix + k in arrays})
     out.update({k[len(prefix):]: v for k, v in arrays.items()
                 if k.startswith(prefix + "planet_pos/")})
@@ -177,7 +185,8 @@ def load_snapshot(path_or_dict: Union[str, Path, dict] = STANDIN_PATH,
     meta, arrays = read_snapshot(path_or_dict)
     top = {"PSR": meta.get("name") or None, **meta.get("top_level", {})}
     batch = TOABatch.from_numpy(_batch_arrays(arrays, ""), dev,
-                                ephem=top.pop("ephem", None))
+                                ephem=top.pop("ephem", None),
+                                coverage=meta.get("coverage"))
     comps = []
     for c in meta["components"]:
         cls = Component.component_types.get(c["class"])
@@ -207,3 +216,19 @@ def load_snapshot(path_or_dict: Union[str, Path, dict] = STANDIN_PATH,
                         top_level=top)
     model.validate()
     return model, batch
+
+
+def stream_schedule(meta: dict):
+    """A stream snapshot's operations: ``(base rows, [rows of each
+    append], dup, quarantine)`` -- the first ``base`` epochs, then one
+    append a ``blocks`` entry of that many epochs (TOAs epoch-major,
+    ``n_subbands`` an epoch), the append ``dup`` carrying a copy of its
+    first row, and the ``quarantine`` rows of the last append's block."""
+    s = meta["reference"]["settings"]
+    st, n = s["stream"], s["n_subbands"]
+    base = np.arange(st["base"] * n)
+    rows, pos = [], len(base)
+    for ne in st["blocks"]:
+        rows.append(np.arange(pos, pos + ne * n))
+        pos += ne * n
+    return base, rows, st["dup"], list(st["quarantine"])

@@ -1,7 +1,8 @@
 """Generalized-least-squares fitter (port of ``pint_tpu/gls_fitter.py``:
 ``_solve_cholesky``/``_solve_svd`` :50-88, ``build_augmented_system``
-:91-129, ``gls_normal_equations`` :162-185, ``_schur_gls_solve`` and
-``_try_schur_path`` :188-287, ``GLSFitter`` :408-730,
+:91-129, ``linearized_system`` :132, ``gls_normal_equations`` :162-185,
+``_schur_gls_solve`` and ``_try_schur_path`` :188-287, ``GLSFitter``
+:408-730 with its streaming entry points :626-660,
 ``DownhillGLSFitter`` :733-763).
 
 The augmented system is ``[M_timing | U_noise]``, unit-norm columns, with
@@ -30,7 +31,8 @@ from pint_torch.runtime.solve import (NonFiniteSystemError, SingularMatrixError,
 from pint_torch.utils import normalize_designmatrix
 
 __all__ = ["GLSFitter", "DownhillGLSFitter", "build_augmented_system",
-           "gls_normal_equations", "solve_system", "DegeneracyWarning"]
+           "linearized_system", "gls_normal_equations", "solve_system",
+           "DegeneracyWarning"]
 
 
 def _solve_cholesky(mtcm, mtcy):
@@ -86,6 +88,22 @@ def build_augmented_system(model, batch, wideband: bool = False):
         sigma = np.concatenate([sigma, model.scaled_dm_uncertainty(batch)])
     Nvec = torch.as_tensor(sigma**2, dtype=F64, device=dev)
     return M, params, norm, phiinv, Nvec, dims
+
+
+def linearized_system(model, batch, resids=None):
+    """``(M, r, w, phiinv, params, norm)``: the normalized Woodbury-form
+    linearized GLS system at the model's current state, as float64
+    tensors on the batch's device (``params`` a tuple): the entry the
+    serving batcher and the streaming engine stack or ingest.  ``w`` is
+    the white-noise weight ``1/Nvec`` (a zero weight marks a padded row
+    downstream); ``resids`` defaults to a fresh
+    :class:`~pint_torch.residuals.Residuals` at the current state."""
+    if resids is None:
+        from pint_torch.residuals import Residuals
+
+        resids = Residuals(batch, model)
+    M, params, norm, phiinv, Nvec, _ = build_augmented_system(model, batch)
+    return M, resids.time_resids, 1.0 / Nvec, phiinv, tuple(params), norm
 
 
 def gls_normal_equations(M, r, Nvec=None, phiinv=None, cov=None):
@@ -251,6 +269,42 @@ class GLSFitter(Fitter):
         self.chi2 = chi2
         self.update_model(chi2)
         return chi2
+
+
+    # -- streaming updates (pint_torch.streaming) ---------------------------
+    def streaming(self, **kw):
+        """The fitter's :class:`~pint_torch.streaming.update.StreamingGLS`
+        engine, built on first use from the current state (construction
+        options -- block ladder, warm steps -- only then)."""
+        if getattr(self, "_stream", None) is None:
+            from pint_torch.streaming.update import StreamingGLS
+
+            self._stream = StreamingGLS(self, **kw)
+        elif kw:
+            raise UsageError(
+                "this fitter's streaming engine already exists; "
+                "construction options must be passed on the first "
+                "streaming()/update_toas() call")
+        return self._stream
+
+    def update_toas(self, new_toas, steps=None, **engine_kw):
+        """Ingest newly arrived TOAs incrementally: the validate/quarantine
+        gate, a rank-k update of the normal-equation factor (K9) for the
+        certified rows, warm-started Gauss-Newton from the previous
+        solution.  ``steps`` is a per-call override; any other keyword is
+        a construction option of :meth:`streaming`.  Returns the
+        :class:`~pint_torch.streaming.update.UpdateOutcome`."""
+        return self.streaming(**engine_kw).update_toas(new_toas, steps=steps)
+
+    def quarantine_rows(self, block_id: int, rows):
+        """Quarantine certified rows of one stream block: a rank-k
+        downdate of exactly those rows and a warm refit."""
+        return self.streaming().quarantine_rows(block_id, rows)
+
+    def release_quarantined(self, block_id: int, rows):
+        """Release repaired rows back into the fit: a rank-k update, never
+        a full rebuild, and a warm refit."""
+        return self.streaming().release_quarantined(block_id, rows)
 
 
 class DownhillGLSFitter(DownhillFitter):

@@ -21,7 +21,7 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 __all__ = ["KernelBuildError", "KernelLaunchError", "NVCC_FLAGS",
-           "build", "load", "library_path", "check", "ptr", "stream_of",
+           "build", "build_count", "load", "library_path", "check", "ptr", "stream_of",
            "traced", "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -36,6 +36,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _HEADERS = ("dual.cuh",)
 _loaded: Dict[str, ctypes.CDLL] = {}
+#: kernel libraries compiled by this process (the port's analogue of
+#: XLA's compile count)
+_compiled = [0]
+
+
+def build_count() -> int:
+    """Kernel libraries this process has compiled with nvcc so far."""
+    return _compiled[0]
 
 
 class KernelBuildError(RuntimeError):
@@ -101,6 +109,7 @@ def build(names: Iterable[str]) -> Dict[str, float]:
             failures.append(f"{name}:\n{log}")
             continue
         os.replace(tmp, out)
+        _compiled[0] += 1
     if failures:
         raise KernelBuildError("nvcc failed:\n" + "\n".join(failures))
     return times

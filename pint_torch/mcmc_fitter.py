@@ -10,9 +10,9 @@ run, so that a resumed run continues the chain bit-identically and a
 checkpoint of another run is refused.
 
 The photon-template fitters live in :mod:`pint_torch.event_fitter` and
-import from here too, as the reference's do.  Not in the port yet:
-``concat_toas`` (merging TOAs, ROADMAP queue A item 10) and walker plans
-(item 9); each raises ``NotImplementedError`` naming its item.
+import from here too, as the reference's do.  Not in the port yet: walker
+plans (ROADMAP queue A item 9), which raise ``NotImplementedError`` naming
+the item.
 """
 
 from __future__ import annotations
@@ -103,9 +103,11 @@ def set_priors_basic(ftr, priorerrfact: float = 10.0):
 
 
 def concat_toas(toas_list):
-    """Concatenate TOAs (reference ``mcmc_fitter.py concat_toas``)."""
-    raise NotImplementedError("merging TOA batches (merge_TOAs) is ROADMAP "
-                              "queue A item 10")
+    """Concatenate TOA batches (reference ``mcmc_fitter.py concat_toas``;
+    :func:`pint_torch.toa.merge_TOAs`)."""
+    from pint_torch.toa import merge_TOAs
+
+    return merge_TOAs(list(toas_list))
 
 
 class MCMCFitter(Fitter):

@@ -97,14 +97,16 @@ def _tdb_seconds(batch) -> np.ndarray:
     return batch.tdb.hi.cpu().numpy() * DAY_S
 
 
-def _masked(comp, prefix: str):
+def _masked(comp, prefix: str, batch=None):
     """(name, value, mask) of the component's set ``PREFIX<n>`` masks, in
-    index order."""
+    index order: the masks of ``batch``'s own contexts where it carries
+    them (a subset), else the component's."""
     model = comp._parent
     names = sorted((p for p in comp.params
                     if p.startswith(prefix) and p[len(prefix):].isdigit()),
                    key=lambda p: int(p[len(prefix):]))
-    return [(n, model.params_table[n].value, comp.context["masks"][n])
+    ctx = comp.context if batch is None else comp.build_context(batch)
+    return [(n, model.params_table[n].value, ctx["masks"][n])
             for n in names if model.params_table[n].value is not None]
 
 
@@ -117,9 +119,9 @@ class ScaleToaError(NoiseComponent):
 
     def scale_toa_sigma(self, model, batch, sigma_s: np.ndarray) -> np.ndarray:
         out = np.array(sigma_s, dtype=np.float64, copy=True)
-        for _, v, m in _masked(self, "EQUAD"):
+        for _, v, m in _masked(self, "EQUAD", batch):
             out[m] = np.hypot(out[m], v * 1e-6)
-        for _, v, m in _masked(self, "EFAC"):
+        for _, v, m in _masked(self, "EFAC", batch):
             out[m] *= v
         return out
 
@@ -135,9 +137,9 @@ class ScaleDmError(NoiseComponent):
 
     def scale_dm_sigma(self, model, batch, sigma_dm: np.ndarray) -> np.ndarray:
         out = np.array(sigma_dm, dtype=np.float64, copy=True)
-        for _, v, m in _masked(self, "DMEQUAD"):
+        for _, v, m in _masked(self, "DMEQUAD", batch):
             out[m] = np.hypot(out[m], v)
-        for _, v, m in _masked(self, "DMEFAC"):
+        for _, v, m in _masked(self, "DMEFAC", batch):
             out[m] *= v
         return out
 
@@ -154,7 +156,7 @@ class EcorrNoise(NoiseComponent):
     def basis_weight_pair(self, model, batch) -> Tuple[np.ndarray, np.ndarray]:
         t = _tdb_seconds(batch)
         umats, weights = [], []
-        for _, v, m in _masked(self, "ECORR"):
+        for _, v, m in _masked(self, "ECORR", batch):
             idx = np.nonzero(m)[0]
             umats.append((idx, ecorr_quantization_matrix(t[idx])))
             weights.append((v * 1e-6) ** 2)
@@ -206,7 +208,7 @@ class _PLNoise(NoiseComponent):
     def basis_weight_pair(self, model, batch) -> Tuple[np.ndarray, np.ndarray]:
         t, f = self.get_time_frequencies(batch)
         F = fourier_design_matrix(t, f)
-        scale = self.context.get("scale")
+        scale = self.build_context(batch).get("scale")
         if scale is not None:
             F = F * np.asarray(scale, dtype=np.float64)[:, None]
         df = np.diff(np.concatenate([[0.0], f]))

@@ -62,6 +62,28 @@ SMALL_DMX_SETTINGS = dict(
 #: refits with ``niter=4`` Gauss-Newton steps, the reference's default
 ELL1_SETTINGS = dict(FULL_SETTINGS, pulsar="J1909-3744", grid_niter=4)
 
+#: the streaming stand-in (``j1909_stream``): the J1909-3744 shape of
+#: ``ELL1_SETTINGS`` with NANOGrav-15-yr-style achromatic red noise, 30
+#: modes on a period pinned to the 8.87-yr span (``TNREDTSPAN``), no
+#: ECORR.  ``stream``: a ``GLSFitter.fit_toas(maxiter=2)`` on the first
+#: ``base`` epochs, then one append a ``blocks`` entry of that many epochs
+#: (40 single epochs of 9 sub-bands, then a backlog of 5), the append
+#: ``dup`` carrying a copy of its own first row; then ``quarantine`` rows
+#: of the last append's block are quarantined and released, and
+#: ``apply_validation`` runs once
+STREAM_SETTINGS = dict(
+    ELL1_SETTINGS, rn_modes=30, rn_tspan=8.87, grid=None,
+    stream=dict(base=400, blocks=[1] * 40 + [5], dup=4,
+                quarantine=[0, 3, 7]))
+
+#: its CPU-test version (``small_stream``): the small stand-in without
+#: ECORR, five red-noise modes on a 6-yr period, 3 DMX windows; a fit on
+#: the first 40 TOAs, five appends of 8 (the third opens a DMX window with
+#: no base rows)
+SMALL_STREAM_SETTINGS = dict(
+    SMALL_SETTINGS, ecorr=False, rn_tspan=6.0,
+    stream=dict(base=10, blocks=[2] * 5, dup=1, quarantine=[0, 3, 5]))
+
 #: the small CPU-test version of the ELL1 stand-in (20 epochs x 4, 3 DMX
 #: windows, a 4 x 4 grid)
 SMALL_ELL1_SETTINGS = dict(SMALL_SETTINGS, pulsar="J1909-3744",
@@ -426,6 +448,9 @@ def j1909_par(s) -> str:
         efac, equad = _NOISE_J1909[g]
         lines += [f"EFAC -f {g} {efac}",
                   f"EQUAD -f {g} {equad * s['err_scale']:.6g}"]
+    if s.get("rn_tspan"):
+        lines += [f"TNRedAmp {s.get('rn_amp', -13.8)}", "TNRedGam 3.2",
+                  f"TNRedC {s['rn_modes']}", f"TNREDTSPAN {s['rn_tspan']}"]
     lines += ["UNITS TDB"]
     if s.get("binary") == "ELL1H":
         lines = ["BINARY ELL1H" if ln == "BINARY ELL1" else ln
@@ -669,6 +694,8 @@ def standin_par(s, full: bool) -> str:
     if s["rn_modes"]:
         lines += [f"TNRedAmp {s.get('rn_amp', -13.8)}", "TNRedGam 3.2",
                   f"TNRedC {s['rn_modes']}"]
+        if s.get("rn_tspan"):
+            lines.append(f"TNREDTSPAN {s['rn_tspan']}")
     if s.get("phoff"):
         lines.append("PHOFF 0 1")
     lines += ["UNITS TDB"]
@@ -2027,5 +2054,325 @@ def export_photon(s) -> dict:
                          acceptance=float(f.sampler.acceptance_fraction),
                          naccepted=int(f.sampler.naccepted))
     meta["reference"] = {"photon": ref, "settings": dict(s)}
+    arrays["meta"] = np.asarray(json.dumps(meta))
+    return arrays
+
+
+# ---------------------------------------------------------------------------
+# the streaming GLS engine and the serve batcher's reference outputs
+# ---------------------------------------------------------------------------
+def stream_rows(s):
+    """(base rows, [rows of each append]) of a stream stand-in's schedule
+    (:func:`pint_torch.bridge.stream_schedule`)."""
+    from pint_torch.bridge import stream_schedule
+
+    return stream_schedule({"reference": {"settings": s}})[:2]
+
+
+def _integrity_meta(toas) -> dict:
+    """What the coverage checks read on the host: each site's clock-chain
+    end (None where the reference finds no finite one) and the ephemeris
+    span (None where it loads none), as ``run_toa_checks`` reads them."""
+    from pint_tpu.ephemeris import load_ephemeris
+    from pint_tpu.observatory import get_observatory
+
+    clock = {}
+    for site in np.unique(np.asarray(toas.obs).astype(str)):
+        try:
+            last = float(get_observatory(site).last_clock_correction_mjd(
+                limits="allow"))
+        except Exception:
+            last = None
+        clock[site] = last if last is not None and np.isfinite(last) \
+            else None
+    span = None
+    if getattr(toas, "ephem", None):
+        try:
+            span = [float(v) for v in
+                    load_ephemeris(str(toas.ephem)).coverage_mjd()]
+        except Exception:
+            span = None
+    return {"clock_end": clock, "ephem_span": span}
+
+
+def _integrity_arrays(toas) -> dict:
+    """The duplicate check's keys beyond the batch: the sub-double part of
+    each UTC MJD and each TOA's observatory."""
+    mjd64 = np.asarray(toas.utc_mjd, dtype=np.float64)
+    with np.errstate(invalid="ignore"):
+        lo = np.asarray(np.asarray(toas.utc_mjd)
+                        - mjd64.astype(np.longdouble), dtype=np.float64)
+    lo = np.where(np.isfinite(lo), lo, 0.0)
+    if getattr(toas, "utc_mjd_lo", None) is not None:
+        lo = lo + np.asarray(toas.utc_mjd_lo, dtype=np.float64)
+    return {"mjd_lo": lo, "obs": np.asarray(toas.obs).astype(str)}
+
+
+def _block_of(toas, rows, dup: bool):
+    """The reference's append block of ``rows``; with ``dup`` a copy of its
+    first row after it."""
+    from pint_tpu.toa import merge_TOAs
+
+    blk = toas[rows]
+    return merge_TOAs([blk, toas[rows[:1]]]) if dup else blk
+
+
+def _ref_state(eng) -> dict:
+    c = eng.cache
+    return {"L": np.asarray(c.L).copy(), "b": np.asarray(c.b).copy(),
+            "x": np.asarray(c.x).copy(), "chi2": float(c.chi2)}
+
+
+class _Crash(RuntimeError):
+    """The cut of a checkpointed stream."""
+
+
+def reference_stream(model, toas, s, tmpdir=None) -> dict:
+    """Run a stream stand-in's schedule (``s["stream"]``) through the
+    reference's streaming engine: the base fit, the appends, the
+    quarantine and release of the last block's rows, ``apply_validation``;
+    then a scratch ``GLSFitter.fit_toas(maxiter=4)`` of the final certified
+    set, and ``stream_updates`` over the appends with a checkpoint cut
+    after half the chunks (``cut_half``) and, where a fallback comes later,
+    before the first fallback (``cut_first``), each resumed on a fresh
+    engine.  Returns the operations' outcomes and the states kept."""
+    import copy
+
+    from pint_tpu.gls_fitter import GLSFitter
+    from pint_tpu.runtime.checkpoint import CheckpointError as RefCkptError
+    from pint_tpu.streaming import update as up
+    from pint_tpu.streaming.lowrank import DEFAULT_BLOCK_BUCKETS
+    from pint_tpu.streaming.update import StreamingGLS, stream_updates
+
+    st = s["stream"]
+    base_rows, rows = stream_rows(s)
+    base = toas[base_rows]
+
+    def fit_base():
+        f = GLSFitter(base, copy.deepcopy(model))
+        f.fit_toas(maxiter=s["fit_maxiter"])
+        return f
+
+    def engine(f):
+        return StreamingGLS(f, block_buckets=DEFAULT_BLOCK_BUCKETS)
+
+    def blocks():
+        return [_block_of(toas, r, i == st["dup"]) for i, r in enumerate(rows)]
+
+    f = fit_base()
+    eng = engine(f)
+    design = [p for p in eng.cache.params if p != "Offset"]
+    ntm = len(eng.cache.params)
+    out = {"design": design, "base_values": np.array(
+        [float(getattr(f.model, p).value) for p in design]),
+        "states": {"base": _ref_state(eng)}, "ops": []}
+
+    def record(o):
+        i = len(out["ops"])
+        errs = np.asarray(eng.cache.errors())[:ntm]
+        out["ops"].append(dict(
+            kind=o.kind, block=int(o.block), quarantined=int(o.quarantined),
+            steps=int(o.steps), chi2=float(o.chi2),
+            dx_final=float(o.dx_final), fallback=o.fallback,
+            block_id=None if o.block_id is None else int(o.block_id),
+            values=np.array([o.params[p] for p in design]),
+            errors=np.array([e for p, e in zip(eng.cache.params, errs)
+                             if p != "Offset"])))
+        if (i + 1) % 10 == 0:
+            out["states"][f"op{i}"] = _ref_state(eng)
+
+    for b in blocks():
+        record(eng.update_toas(b))
+    out["after_appends"] = _ref_state(eng)
+    out["after_appends"]["values"] = np.array(
+        [float(getattr(f.model, p).value) for p in design])
+    qb = out["ops"][-1]["block_id"]
+    record(eng.quarantine_rows(qb, st["quarantine"]))
+    record(eng.release_quarantined(qb, st["quarantine"]))
+    out["validation_ops"] = len(eng.apply_validation())
+    out["states"]["final"] = _ref_state(eng)
+    c = eng.cache
+    A = np.diag(c.phiinv).astype(np.float64)
+    for blk in c.blocks:
+        m = blk.alive
+        A += (blk.M[m].T * blk.w[m]) @ blk.M[m]
+    fresh = np.linalg.cholesky(A)
+    out["fresh_gap"] = float(np.max(np.abs(c.L - fresh))
+                             / np.max(np.abs(fresh)))
+    out["rebuilds"], out["fallbacks"] = eng.rebuilds, c.fallbacks
+    scratch = GLSFitter(c.toas.certified(), copy.deepcopy(model))
+    scratch.fit_toas(maxiter=4)
+    out["scratch_values"] = np.array(
+        [float(getattr(scratch.model, p).value) for p in design])
+    out["scratch_errors"] = np.array(
+        [float(getattr(scratch.model, p).uncertainty) for p in design])
+    out["final_values"] = np.array(
+        [float(getattr(f.model, p).value) for p in design])
+    first_fb = next((i for i, o in enumerate(out["ops"][:len(rows)])
+                     if o["fallback"] is not None), None)
+    cuts = {"cut_half": len(rows) // 2}
+    if first_fb:
+        cuts["cut_first"] = first_fb
+    want = out["after_appends"]
+    orig = up._invoke_stream
+    out["checkpoint"] = {}
+    with tempfile.TemporaryDirectory(dir=tmpdir) as d:
+        for name, cut in cuts.items():
+            path = os.path.join(d, name)
+
+            def crashing(engine_, batch, index, cut=cut):
+                if index == cut:
+                    raise _Crash("cut")
+                return orig(engine_, batch, index)
+
+            up._invoke_stream = crashing
+            try:
+                stream_updates(engine(fit_base()), blocks(), checkpoint=path)
+            except _Crash:
+                pass
+            finally:
+                up._invoke_stream = orig
+            e2 = engine(fit_base())
+            try:
+                outs = stream_updates(e2, blocks(), checkpoint=path)
+            except RefCkptError:
+                out["checkpoint"][name] = dict(cut=cut, refused=True)
+                continue
+            got = _ref_state(e2)
+            vals = np.array([float(getattr(e2.fitter.model, p).value)
+                             for p in design])
+            out["checkpoint"][name] = dict(
+                cut=cut, refused=False, ran=len(outs),
+                bitwise=bool(all(np.array_equal(got[k], want[k])
+                                 for k in ("L", "b", "x"))
+                             and got["chi2"] == want["chi2"]
+                             and np.array_equal(vals, want["values"])))
+    return out
+
+
+#: the serve phase's requests: (stand-in, TOAs of the base-fit state)
+SERVE_REQUESTS = (("stream", 3600), ("stream", 3690), ("stream", 3780),
+                  ("stream", 4005), ("small_stream", 40),
+                  ("small_stream", 56), ("small_stream", 64))
+SERVE_STEPS = 3
+
+
+def serve_groups(batcher, reqs):
+    """The batcher's bucket groups of ``reqs`` in its order: [(bucket,
+    [request index])]."""
+    groups = {}
+    for i, q in enumerate(reqs):
+        groups.setdefault(batcher.bucket_for(q), []).append(i)
+    return list(groups.items())
+
+
+def reference_serve(fitted) -> dict:
+    """The reference's ``ShapeBatcher.run`` on :data:`SERVE_REQUESTS`
+    (``fitted``: stand-in -> (base-fitted model, TOAs)) and
+    ``serve_fused(steps=3, reweight="huber")`` on each bucket group padded
+    to its batch rung, unpadded per request."""
+    from pint_tpu.gls_fitter import GLSFitter
+    from pint_tpu.serving.batcher import (FitRequest, ShapeBatcher,
+                                          bucket_of, pad_request,
+                                          serve_fused)
+
+    reqs = []
+    for which, n in SERVE_REQUESTS:
+        model, toas = fitted[which]
+        f = GLSFitter(toas[np.arange(n)], model)
+        reqs.append(FitRequest.from_fitter(f, request_id=f"{which}:{n}"))
+    sb = ShapeBatcher()
+    res = sb.run(reqs)
+    fused = [None] * len(reqs)
+    for bucket, idxs in serve_groups(sb, reqs):
+        batch = bucket_of(len(idxs), sb.batch_buckets)
+        padded = [pad_request(reqs[i], *bucket) for i in idxs]
+        padded += [padded[0]] * (batch - len(padded))
+        ops = tuple(np.stack([p[j] for p in padded]) for j in range(5))
+        dx, err, chi2, chi2_0 = (np.asarray(a) for a in serve_fused(
+            steps=SERVE_STEPS, reweight="huber")(*ops))
+        for lane, i in enumerate(idxs):
+            k = reqs[i].n_free
+            fused[i] = (dx[lane, :, :k], err[lane, :k], chi2[lane],
+                        float(chi2_0[lane]))
+    return {"reqs": reqs, "res": res, "fused": fused}
+
+
+def export_stream(s, tmpdir=None) -> dict:
+    """A stream stand-in's snapshot: the whole TOA set (the base and every
+    append block) with the duplicate check's keys (``mjd_lo``, ``obs``) and
+    ``meta["coverage"]``, and under ``ref/stream/`` and
+    ``meta["reference"]["stream"]`` the reference's run
+    (:func:`reference_stream`): each operation's outcome, values and
+    uncertainties; ``L``, ``b``, ``chi2`` after the base fit, every tenth
+    operation and at the end; the scratch fit; the checkpoint cuts.  The
+    full-width one (``STREAM_SETTINGS``) also holds under ``ref/serve/``
+    the serve batcher's outputs on :data:`SERVE_REQUESTS` (with the small
+    stand-in's requests), each request's residuals beside them."""
+    import copy
+
+    from pint_tpu.gls_fitter import GLSFitter
+
+    full = s is STREAM_SETTINGS
+    model, toas = make_standin(s, full=full)
+    arrays = export_state(model, toas)
+    arrays.update(_integrity_arrays(toas))
+    meta = json.loads(str(arrays["meta"]))
+    meta["coverage"] = _integrity_meta(toas)
+    run = reference_stream(model, toas, s, tmpdir=tmpdir)
+    P = "ref/stream/"
+    ops = run["ops"]
+    arrays[P + "chi2"] = np.array([o["chi2"] for o in ops])
+    arrays[P + "dx_final"] = np.array([o["dx_final"] for o in ops])
+    arrays[P + "values"] = np.stack([o["values"] for o in ops])
+    arrays[P + "errors"] = np.stack([o["errors"] for o in ops])
+    for key in ("base_values", "scratch_values", "scratch_errors",
+                "final_values"):
+        arrays[P + key] = run[key]
+    for name, state in run["states"].items():
+        for k in ("L", "b"):
+            arrays[f"{P}{name}/{k}"] = state[k]
+        arrays[f"{P}{name}/chi2"] = np.array([state["chi2"]])
+    ref = {"settings": dict(s), "design": run["design"],
+           "ops": [{k: v for k, v in o.items()
+                    if k not in ("values", "errors", "chi2", "dx_final")}
+                   for o in ops],
+           "states": list(run["states"]), "validation_ops":
+           run["validation_ops"], "fresh_gap": run["fresh_gap"],
+           "rebuilds": run["rebuilds"], "fallbacks": run["fallbacks"],
+           "checkpoint": run["checkpoint"],
+           "K": int(run["states"]["base"]["L"].shape[0])}
+    meta["reference"] = {"settings": dict(s), "stream": ref}
+    if full:
+        small, stoas = make_standin(SMALL_STREAM_SETTINGS, full=False)
+        fitted = {}
+        for which, (m, t, ss) in {"stream": (model, toas, s),
+                                  "small_stream": (small, stoas,
+                                                   SMALL_STREAM_SETTINGS)
+                                  }.items():
+            f = GLSFitter(t[stream_rows(ss)[0]], copy.deepcopy(m))
+            f.fit_toas(maxiter=ss["fit_maxiter"])
+            d = list(f.model.design_param_names())
+            arrays[f"ref/serve/{which}_values"] = np.array(
+                [float(getattr(f.model, p).value) for p in d])
+            fitted[which] = (f.model, t)
+        srv = reference_serve(fitted)
+        from pint_tpu.serving.batcher import ShapeBatcher
+
+        groups = serve_groups(ShapeBatcher(), srv["reqs"])
+        for i, (q, r, fz) in enumerate(zip(srv["reqs"], srv["res"],
+                                           srv["fused"])):
+            Q = f"ref/serve/{i}/"
+            arrays[Q + "r"] = np.asarray(q.r)
+            arrays[Q + "dx"], arrays[Q + "errors"] = r.dx, r.errors
+            arrays[Q + "chi2"] = np.array([r.chi2, r.chi2_initial])
+            arrays[Q + "fused_dx"], arrays[Q + "fused_errors"] = fz[0], fz[1]
+            arrays[Q + "fused_chi2"] = np.append(fz[2], fz[3])
+        meta["reference"]["serve"] = {
+            "requests": [list(r) for r in SERVE_REQUESTS],
+            "buckets": [list(r.bucket) for r in srv["res"]],
+            "batches": [int(r.batch) for r in srv["res"]],
+            "groups": [[list(b), idx] for b, idx in groups],
+            "steps": SERVE_STEPS, "reweight": "huber"}
     arrays["meta"] = np.asarray(json.dumps(meta))
     return arrays

@@ -12,7 +12,9 @@
   snapshots (the wideband and noise fits run on the batch's device) and
   the Kepler cores; the fitter, residuals, model and grid API
   (``PowellFitter``, ``tuple_chisq``, ``d_delay_d_param``, the derived
-  parameters) follows its model and batch onto the card.
+  parameters) follows its model and batch onto the card, the streaming
+  engine follows its fitter's and the serve batcher runs on the card unless
+  asked for the CPU.
 """
 
 import ast
@@ -51,16 +53,18 @@ def test_import_and_load_pull_in_no_jax():
         "pint_torch.sampler, pint_torch.mcmc_fitter, "
         "pint_torch.models.priors, pint_torch.runtime.checkpoint, "
         "pint_torch.event_fitter, pint_torch.templates, pint_torch.fftfit, "
-        "pint_torch.eventstats\n"
-        "import pint_torch.integrity.robust\n"
+        "pint_torch.eventstats, pint_torch.streaming, pint_torch.serving, "
+        "pint_torch.kernels.chol_rank_update, pint_torch.toa\n"
+        "import pint_torch.integrity.robust, pint_torch.integrity.quarantine\n"
         "from pint_torch.bridge import load_snapshot, STANDIN_PATH, "
         "ELL1_PATH, ELL1H_PATH, NGC_PHOFF_PATH, DDK_PATH, DDGR_PATH, "
         "BT_SMALL_PATH, DDS_SMALL_PATH, DDH_SMALL_PATH, BW_PATH, "
         "BW_WAVES_PATH, PTA_PATH, YOUNG_PATH, DD_FBX_SMALL_PATH, "
         "BT_PIECEWISE_SMALL_PATH, PTA_SMALL_PATH, YOUNG_SMALL_PATH, "
         "WB_PATH, WB_SMALL_PATH, WB_WHITE_SMALL_PATH, NOISE_PATH, "
-        "PHOTON_PATH, PHOTON_SMALL_PATH\n"
-        "for p in (STANDIN_PATH, ELL1_PATH, ELL1H_PATH, NGC_PHOFF_PATH, "
+        "PHOTON_PATH, PHOTON_SMALL_PATH, STREAM_PATH, STREAM_SMALL_PATH\n"
+        "for p in (STREAM_PATH, STREAM_SMALL_PATH, STANDIN_PATH, ELL1_PATH, "
+        "ELL1H_PATH, NGC_PHOFF_PATH, "
         "DDK_PATH, DDGR_PATH, BT_SMALL_PATH, DDS_SMALL_PATH, "
         "DDH_SMALL_PATH, BW_PATH, BW_WAVES_PATH, PTA_PATH, YOUNG_PATH, "
         "DD_FBX_SMALL_PATH, BT_PIECEWISE_SMALL_PATH, PTA_SMALL_PATH, "
@@ -148,14 +152,21 @@ def test_entry_points_default_to_the_gpu():
                                     "event_fitter", "fftfit", "eventstats",
                                     "templates.lcprimitives",
                                     "templates.lctemplate",
-                                    "templates.lcfitters"])
+                                    "templates.lcfitters",
+                                    "streaming.lowrank", "streaming.cache",
+                                    "streaming.update", "streaming.door",
+                                    "streaming.__init__", "serving.batcher",
+                                    "serving.__init__",
+                                    "integrity.quarantine",
+                                    "kernels.chol_rank_update", "toa"])
 def test_api_modules_import_no_jax(module):
-    """The API's modules, the Bayesian and MCMC ones and the photon
-    domain's import neither ``jax`` nor ``pint_tpu`` (by their source,
-    and in a fresh interpreter)."""
+    """The API's modules, the Bayesian and MCMC ones, the photon
+    domain's, the streaming engine's, the serve batcher's and the
+    quarantine gate's import neither ``jax`` nor ``pint_tpu`` (by their
+    source, and in a fresh interpreter)."""
     path = REPO / "pint_torch" / f"{module.replace('.', '/')}.py"
     test_no_jax_import_in_port_sources(path)
-    code = (f"import sys, pint_torch.{module}\n"
+    code = (f"import sys, pint_torch.{module.replace('.__init__', '')}\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\nsys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -166,13 +177,16 @@ def test_api_modules_import_no_jax(module):
 
 @pytest.mark.parametrize("entry", ["PowellFitter", "tuple_chisq",
                                    "d_delay_d_param", "MCMCFitter",
-                                   "MCMCFitterBinnedTemplate"])
+                                   "MCMCFitterBinnedTemplate",
+                                   "StreamingGLS", "ShapeBatcher"])
 def test_api_entry_points_default_to_the_gpu(entry):
     """A user's call of ``PowellFitter``, ``tuple_chisq``,
-    ``d_delay_d_param`` or ``MCMCFitter`` (with its ``BayesianTiming``
-    and ``EnsembleSampler``) starts from a snapshot loaded on the default
-    device, the card: without one it raises ``NoGPUError``; on the CPU,
-    asked for, each computes on its batch's device."""
+    ``d_delay_d_param``, ``MCMCFitter`` (with its ``BayesianTiming``
+    and ``EnsembleSampler``), the streaming engine or the serve batcher
+    starts from a snapshot loaded on the default device, the card (the
+    batcher and its requests take ``device=None`` for it): without one it
+    raises ``NoGPUError``; on the CPU, asked for, each computes on its
+    batch's device."""
     from pint_torch import NoGPUError
     from pint_torch.bridge import NGC_PATH, load_snapshot
     from pint_torch.fitter import PowellFitter, WLSFitter
@@ -215,11 +229,42 @@ def test_api_entry_points_default_to_the_gpu(entry):
                 sampler=EnsembleSampler(8, seed=1))
             assert np.isfinite(f.fit_toas(2, seed=2))
             return m.phase(b).frac
+        if entry in ("StreamingGLS", "ShapeBatcher"):
+            from pint_torch.bridge import STREAM_SMALL_PATH
+            from pint_torch.gls_fitter import GLSFitter
+            from pint_torch.serving import FitRequest, ShapeBatcher
+            from pint_torch.streaming import StreamingGLS
+
+            m, b = load_snapshot(STREAM_SMALL_PATH, device=device)
+            f = GLSFitter(b.select(np.arange(b.ntoas) < 40, m), m)
+            f.fit_toas()
+            if entry == "ShapeBatcher":
+                q = FitRequest.from_fitter(f)
+                assert q.M.device == b.device
+                res = ShapeBatcher(device=device).run([q])
+                assert np.isfinite(res[0].chi2)
+                moved = FitRequest(M=q.M.cpu(), r=q.r.cpu(), w=q.w.cpu(),
+                                   phiinv=q.phiinv.cpu(), device=device)
+                assert moved.M.device.type == b.device.type
+                return moved.r
+            eng = StreamingGLS(f)
+            o = eng.update_toas(b.select((np.arange(b.ntoas) >= 40)
+                                         & (np.arange(b.ntoas) < 48), m))
+            assert o.fallback is None and eng.cache.L.device == b.device
+            return eng.cache.b
         return m.d_delay_d_param(b, "DM")
 
     if not torch.cuda.is_available():
         with pytest.raises(NoGPUError):
             run()
+        if entry == "ShapeBatcher":
+            from pint_torch.serving import FitRequest, ShapeBatcher
+
+            with pytest.raises(NoGPUError):
+                ShapeBatcher()
+            with pytest.raises(NoGPUError):
+                FitRequest(M=np.zeros((2, 1)), r=np.zeros(2), w=np.ones(2),
+                           phiinv=np.zeros(1))
     out = run("cpu")
     assert out.device.type == "cpu" and out.dtype == torch.float64
 
@@ -295,18 +340,32 @@ def test_cpu_tensors_never_reach_a_kernel():
                                                dtype=torch.float64),
                                 tab, mode, dens)
             assert bool(torch.isfinite(out).all())
+    # K9 alone and fused with a block's ingest, each sign
+    from pint_torch.kernels.chol_rank_update import (chol_rank_update,
+                                                     stream_ingest)
+
+    L = torch.eye(4, dtype=torch.float64) * 2.0
+    V = torch.full((2, 4), 0.5, dtype=torch.float64)
+    z4, z2 = torch.zeros(4, dtype=torch.float64), torch.ones(2,
+                                                             dtype=torch.float64)
+    for sign in (1.0, -1.0):
+        assert bool(torch.isfinite(chol_rank_update(L, V, sign)).all())
+        out = stream_ingest(L, z4, torch.zeros((), dtype=torch.float64), V,
+                            z2, z2, z4, sign)
+        assert bool(out[3]) and bool(torch.isfinite(out[0]).all())
     counts = kernels.launch_counts()
     assert set(counts) == {n for mod in kernels.modules().values()
                            for n in mod.KERNELS.values()}
-    assert len(counts) == 2 + 20 + 2 + 16 + 3 + 6 + 2 + 5
+    assert len(counts) == 2 + 20 + 2 + 16 + 3 + 6 + 2 + 5 + 4
     assert not any(counts.values())
 
 
 def test_every_kernel_is_built_without_contraction(tmp_path, monkeypatch):
     """Each kernel's nvcc command carries -fmad=false and no -fmad=true:
-    every product and sum of K1-K8 rounds alone, as the twins' torch
+    every product and sum of K1-K9 rounds alone, as the twins' torch
     operations do (K7 calls no pow(), the one reason it once was built
-    with contraction; K8's density is bitwise its plain version's)."""
+    with contraction; K8's density and K9's factor are bitwise their plain
+    versions')."""
     from pint_torch import kernels
     from pint_torch.kernels import _build
 
@@ -339,7 +398,7 @@ def test_kernel_sources_ship_with_the_package():
     csrc = REPO / "pint_torch" / "kernels" / "csrc"
     for name in ("spin_phase", "dd_binary", "schur_cholesky_solve",
                  "ell1_binary", "wls_lstsq", "binary_orbits",
-                 "solar_wind_pl", "photon_lnlike"):
+                 "solar_wind_pl", "photon_lnlike", "chol_rank_update"):
         src = (csrc / f"{name}.cu").read_text()
         assert "extern \"C\"" in src and f"{name}_launch" in src
     from pint_torch import kernels
@@ -369,6 +428,8 @@ def test_kernel_sources_ship_with_the_package():
                     ("small_wb_white_standin.npz", 80),
                     ("b1855_noise_standin.npz", 4005),
                     ("j0030_photon_standin.npz", 32768),
-                    ("small_photon_standin.npz", 300)):
+                    ("small_photon_standin.npz", 300),
+                    ("j1909_stream_standin.npz", 4005),
+                    ("small_stream_standin.npz", 80)):
         assert np.load(REPO / "pint_torch" / "data" / snap,
                        allow_pickle=False)["tdb_hi"].shape == (n,)

@@ -423,7 +423,17 @@ def test_module_surface_and_refusals(ell1):
     # the photon-template fitters import from here, as the reference's do
     assert PM.MCMCFitterBinnedTemplate is EF.MCMCFitterBinnedTemplate
     assert PM.MCMCFitterAnalyticTemplate is EF.MCMCFitterAnalyticTemplate
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # concat_toas is merge_TOAs: two halves of the batch, selected with
+    # their DMX and mask contexts, join into the whole batch's rows
+    b, m = ell1["b"], ell1["m"]
+    first = np.arange(b.ntoas) < 2000
+    both = PM.concat_toas([b.select(first, m), b.select(~first, m)])
+    assert both.ntoas == b.ntoas and np.array_equal(both.mjds, b.mjds)
+    assert np.array_equal(both.tdb.hi.numpy(), b.tdb.hi.numpy())
+    assert np.array_equal(
+        both.contexts["DispersionDMX"]["masks"].numpy(),
+        m.components["DispersionDMX"].context["masks"].numpy())
+    with pytest.raises(ValueError):
         PM.concat_toas([])
     with pytest.raises(AttributeError):
         PM.no_such_thing

@@ -744,6 +744,8 @@ STANDIN_DIGESTS = {
     "b1855_noise_standin.npz": "98e4959c97f187a4",
     "j0030_photon_standin.npz": "8e1405a4b33d1e3e",
     "small_photon_standin.npz": "9f4512243849e3ca",
+    "j1909_stream_standin.npz": "835be31b2f063300",
+    "small_stream_standin.npz": "66e7396ad5f53eab",
 }
 
 
@@ -794,6 +796,49 @@ def test_committed_photon_files_load_with_stated_shapes(which):
         assert arrays[P + key].shape == shape, key
 
 
+@pytest.mark.parametrize("which", ["stream", "small_stream"])
+def test_committed_stream_files_load_with_stated_shapes(which):
+    """The stream stand-ins: every TOA with the duplicate check's keys and
+    the coverage values, the schedule in the settings, K = 150 (23) frame
+    columns, one outcome per operation (the appends, a quarantine and its
+    release), each stored state a K x K factor, both checkpoint cuts; the
+    full-width one the serve outputs of its seven requests; both files
+    together under 2 MB."""
+    from pint_torch import bridge
+
+    path = bridge.STREAM_PATH if which == "stream" \
+        else bridge.STREAM_SMALL_PATH
+    assert os.path.getsize(bridge.STREAM_PATH) \
+        + os.path.getsize(bridge.STREAM_SMALL_PATH) < 2 * 1024 * 1024
+    s = SETTINGS[which]
+    meta, arrays = bridge.read_snapshot(path)
+    R = meta["reference"]["stream"]
+    assert R["settings"] == s == meta["reference"]["settings"]
+    m, b = bridge.load_snapshot(path, device="cpu")
+    n = s["n_epochs"] * s["n_subbands"]
+    assert b.ntoas == n and b.obs.shape == (n,) and b.mjd_lo.shape == (n,)
+    assert set(b.coverage) == {"clock_end", "ephem_span"}
+    base, rows, dup, quarantine = bridge.stream_schedule(meta)
+    assert len(base) + sum(len(r) for r in rows) == n
+    assert quarantine == s["stream"]["quarantine"]
+    K, nops = (150, 43) if which == "stream" else (23, 7)
+    assert R["K"] == K and len(R["ops"]) == nops
+    assert [o["kind"] for o in R["ops"]] == ["append"] * len(rows) \
+        + ["downdate", "release"]
+    assert R["ops"][dup]["quarantined"] == 1
+    P, nd = "ref/stream/", len(R["design"])
+    for key in ("values", "errors"):
+        assert arrays[P + key].shape == (nops, nd)
+    for name in R["states"]:
+        assert arrays[f"{P}{name}/L"].shape == (K, K)
+    assert set(R["checkpoint"]) == {"cut_half", "cut_first"}
+    if which == "stream":
+        srv = meta["reference"]["serve"]
+        assert len(srv["requests"]) == 7 and len(srv["groups"]) == 2
+        for i in range(7):
+            assert arrays[f"ref/serve/{i}/fused_dx"].shape[0] == srv["steps"]
+
+
 #: the committed full-width stand-ins, by the exporter's ``--settings``
 SETTINGS = {"b1855": standin.FULL_SETTINGS,
             "dmx15": standin.DMX15_SETTINGS,
@@ -820,7 +865,9 @@ SETTINGS = {"b1855": standin.FULL_SETTINGS,
             "b1855_noise": standin.NOISE_SETTINGS,
             "kepler": standin.KEPLER_SETTINGS,
             "photon_j0030": standin.PHOTON_SETTINGS,
-            "small_photon": standin.SMALL_PHOTON_SETTINGS}
+            "small_photon": standin.SMALL_PHOTON_SETTINGS,
+            "stream": standin.STREAM_SETTINGS,
+            "small_stream": standin.SMALL_STREAM_SETTINGS}
 #: the committed stand-ins of small depth: no grid
 SMALL_DEPTH = ("bt", "dds", "ddh", "small_dd_fbx", "small_bt_piecewise",
                "small_pta", "small_young", "small_wb", "small_wb_white")
@@ -838,6 +885,9 @@ def _write(path: str, chunk: int, settings: dict, small: bool = False) -> None:
         return
     if settings.get("photons"):
         np.savez_compressed(path, **standin.export_photon(settings))
+        return
+    if settings.get("stream"):
+        np.savez_compressed(path, **standin.export_stream(settings))
         return
     model, toas = standin.make_standin(settings, full=not small)
     if settings.get("wideband"):
@@ -928,7 +978,10 @@ if __name__ == "__main__":
                          "b1855_noise: NOISE_SETTINGS (the noise fit); "
                          "kepler: the Kepler cores' outputs; photon_j0030, "
                          "small_photon: PHOTON_SETTINGS, "
-                         "SMALL_PHOTON_SETTINGS (the photon fitters)")
+                         "SMALL_PHOTON_SETTINGS (the photon fitters); "
+                         "stream, small_stream: STREAM_SETTINGS, "
+                         "SMALL_STREAM_SETTINGS (the streaming engine; the "
+                         "full-width one also the serve batcher)")
     ap.add_argument("--api", action="store_true",
                     help="add the API's reference outputs to the committed "
                          "file at --write, keeping its arrays")
