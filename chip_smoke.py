@@ -10,15 +10,15 @@ Phases, one line each:
 
 1. device -- the card's name and power limit (nvidia-smi) and its
    properties;
-2. build -- the nine hand kernels, one nvcc per source, started
+2. build -- the ten hand kernels, one nvcc per source, started
    together; the ptxas report of each ``__global__`` (registers, stack
    frame, spill bytes; K1's per S = 1..6, K2's and K4's per mode and orbit
    source, K6's per form, its duals staged and direct, K8's per mode and
-   output, K9's per factor layout and entry point), read from the build
-   logs: K1's primal templates must hold no stack frame, and no primal
-   (K1, K2 in its five modes and both orbit sources, K4 likewise, K6,
-   K7), no ELL1H dual, no K6 or K7 dual, no tiled K5 kernel, no K8 and no
-   K9 kernel may spill;
+   output, K9's per factor layout and entry point, K10's), read from the
+   build logs: K1's primal templates must hold no stack frame, and no
+   primal (K1, K2 in its five modes and both orbit sources, K4 likewise,
+   K6, K7), no ELL1H dual, no K6 or K7 dual, no tiled K5 kernel, no K8,
+   no K9 and no K10 kernel may spill;
 3. main paths, each with the kernel launch counts zeroed just before it
    and read just after, and every kernel of the path required to have
    launched; then its bars against the reference package's outputs stored
@@ -199,7 +199,16 @@ Phases, one line each:
    (64, 32), a padded lane) and ``serve_fused(steps=3,
    reweight="huber")``: buckets and batches equal, dx within 1e-6 of each
    column's error, errors, chi2 and chi2_initial 1e-9 rel, padded equal
-   to dedicated to 1e-9; the warm dispatch's ms and requests/s;
+   to dedicated to 1e-9; the warm dispatch's ms and requests/s.  Then
+   the catalog phase on pta67_catalog (``pta67_catalog_standin.npz``: 67
+   pulsars of 100-400 TOAs, two with a corrupt row; 14 GWB modes, R =
+   1876; K1 and K10 must launch): load, ingest, ``CatalogFitter`` (1
+   settle and 4 timed ``fit(maxiter=1)`` passes, ``refine(steps=8)``),
+   ``JointLikelihood``, ``lnlike_batch`` at the bench's 32 points (8 timed
+   repetitions) and the 48 stored ones, the seeded 32 x 10 chain; its
+   bars in ``_catalog_phase``; printed the bench block's quantities
+   (``catalog_fits_per_s``, ``joint_lnlike_per_s``, ``pad_waste_frac``,
+   buckets), each stage's wall s and the peak device memory;
 4. kernels -- each CUDA kernel (the primal and dual instantiations of K1,
    K2 and K4 -- K4's for ELL1, ELL1k, ELL1H exact and ELL1H harmonic --,
    K3's shared-memory instantiation at nt = 88 and its global one at nt =
@@ -260,7 +269,11 @@ Phases, one line each:
    within 1e-13 of their sums of |terms|, ok and cond equal, zero rows
    bitwise no-ops; timed beside ``torch.linalg.cholesky_ex`` of the
    updated Gram (the library yardstick) and the bound, the chain of k K
-   dependent column steps printed.
+   dependent column steps printed.  K10 on the catalog path's G and u at
+   B = 16 and 32 of the bench's points and on zero-amplitude rows: within
+   1e-12 of its scale of the plain version (bitwise expected), exactly
+   0.0 at zero amplitude; timed beside the library's ``cholesky_ex`` +
+   ``solve_triangular`` + log-determinant and the bound.
    K2's Newton steps on each path's inputs set its operation count; the
    per-element operation counts of K1, K2, K4, K6 and K7 are bounded at
    the float64 instruction rate (-fmad=false; K6's, K7's and K8's count
@@ -290,6 +303,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -2662,6 +2676,387 @@ def _k9_kernels(cap, counts, dev, tag) -> list:
     return records
 
 
+CATALOG_LNLIKE_REPS = 8
+#: the joint likelihood's bar: 1e-9 x max(1, |reference|)
+LNLIKE_BAR = 1e-9
+
+
+def _catalog_on(reqs, r_concat):
+    """The catalogue requests ``reqs`` with the residuals ``r_concat``
+    (concatenated over the members, as the snapshot stores the
+    reference's) in place of their own."""
+    import numpy as np
+
+    from pint_torch.serving import FitRequest
+
+    parts = np.split(np.asarray(r_concat),
+                     np.cumsum([q.n_toas for q in reqs])[:-1])
+    return [FitRequest(M=q.M, r=x, w=q.w, phiinv=q.phiinv, params=q.params,
+                       norm=q.norm, request_id=q.request_id,
+                       device=q.M.device) for q, x in zip(reqs, parts)]
+
+
+def _catalog_lanes(cf, reqs, fn):
+    """Each member's outputs of ``fn`` over the fitter's bucket groups."""
+    outs = [None] * len(reqs)
+    for bucket, idx in sorted(cf.bucket_plan.buckets.items()):
+        o = [x.cpu().numpy() for x in fn(*cf._group_operands(
+            bucket, [reqs[i] for i in idx]))]
+        for j, i in enumerate(idx):
+            outs[i] = [x[j] for x in o]
+    return outs
+
+
+def _catalog_phase(path, kernels, tag):
+    """The PTA catalogue on the card, the counts zeroed just before the
+    snapshot is loaded and read after the chain: ``load_catalog_snapshot``
+    (each member's raw TOAs), ``ingest_catalog`` (lenient gate),
+    ``CatalogFitter`` with 1 settle and 4 timed ``fit(maxiter=1)`` passes,
+    ``refine(steps=8)``, ``JointLikelihood(n_modes)``, ``lnlike_batch`` at
+    the bench's 32 points (1 warm-up, 8 timed repetitions) and at every
+    stored point, and the seeded ``EnsembleSampler`` chain on
+    ``lnlike_batch`` from the stored walkers.  Bars (``ref/catalog/``):
+    certified rows, quarantined rows and codes, excluded members; ladders,
+    each member's bucket and the padding waste, all exactly; each pass's
+    residuals within 1e-10 s of the reference's and, served on the
+    reference's residuals (the same inputs: the reference's jitted
+    residuals round ~1e-13 s apart from its eager arithmetic, which the
+    port follows -- ~1e-8 of these chi2), each batched step within 1e-6 of
+    its error, errors, chi2 and the initial chi2 within 1e-9 rel; the
+    applied steps within 1e-6 sigma, errors 1e-9 rel, the post-fit chi2 of
+    the port's own residuals 1e-6 rel; the values after the passes within
+    1e-6 sigma; the refine on the reference's residuals (chi2 trajectories
+    1e-9 rel, first steps 1e-6 sigma) and the port's own (1e-6); the joint
+    likelihood on the reference's residuals: each per-pulsar value 1e-9
+    rel, at every point 1e-9 x max(1, |ref|), the cross term 1e-8 x max(1,
+    |ref cross|); on both, at zero amplitude the cross term exactly 0.0 and
+    the joint value the per-pulsar sum to 1e-12 rel; the port's own joint
+    values at the 1e-9 bar; the chain at PR 12's chain bars with that bar
+    as each point's.  Printed: the bench block's quantities
+    (``catalog_fits_per_s``, ``joint_lnlike_per_s``, ``pad_waste_frac``,
+    buckets), each stage's wall s, chain steps/s and the peak device
+    memory.  Returns (counts, the main path's joint likelihood, the bench
+    points)."""
+    import numpy as np
+    import torch
+
+    from pint_torch.bridge import load_catalog_snapshot, read_snapshot
+    from pint_torch.catalog import (CatalogFitter, JointLikelihood,
+                                    catalog_batched, catalog_fused,
+                                    ingest_catalog)
+    from pint_torch.sampler import EnsembleSampler
+
+    meta, ref = read_snapshot(path)
+    R, S = meta["reference"]["catalog"], meta["reference"]["settings"]
+    P = "ref/catalog/"
+    walls = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t
+        return out
+
+    kernels.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    pairs = timed("load", lambda: load_catalog_snapshot(path, device="cuda"))
+    report = timed("ingest", lambda: ingest_catalog(pairs))
+    cf = timed("fitter", lambda: CatalogFitter(report))
+    taken = []
+    orig = cf._requests
+    cf._requests = lambda: taken.append(orig()) or taken[-1]
+    passes = S["fit_passes"]
+    fits = [timed("settle", lambda: cf.fit(maxiter=1))]
+    fits += timed("fit", lambda: [cf.fit(maxiter=1)
+                                  for _ in range(passes - 1)])
+    rf = timed("refine", lambda: cf.refine(steps=S["refine_steps"]))
+    cf._requests = orig
+    jl = timed("joint", lambda: JointLikelihood(cf, n_modes=S["n_modes"]))
+    pts = ref[P + "likelihood/points"]
+    bench = pts[:S["bench_points"]]
+    jl.lnlike_batch(bench)
+    timed("lnlike", lambda: [jl.lnlike_batch(bench)
+                             for _ in range(CATALOG_LNLIKE_REPS)])
+    own = timed("points", lambda: jl.lnlike_batch(pts))
+    own_nc = jl.lnlike_nocommon()
+    s = EnsembleSampler(S["walkers"], seed=S["seeds"]["sampler"])
+    s.decision_log = []
+    s.initialize_batched(jl.lnlike_batch, 2)
+    timed("chain", lambda: s.run_mcmc(ref[P + "chain/pos"].copy(),
+                                      S["chain_steps"]))
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    bad, gap = [], {}
+    # the gate and the buckets, exactly
+    I = R["ingest"]
+    if report.to_dict() != {k: v for k, v in I.items()
+                            if k not in ("members", "quarantined_rows")}:
+        bad.append(f"ingest report {report.to_dict()}")
+    if [dict(name=p.name, n_toas=p.n_toas, n_quarantined=p.n_quarantined,
+             codes=list(p.quarantine_codes))
+            for p in report.pulsars] != I["members"]:
+        bad.append("ingest members")
+    rows = [[] if b.quarantine_mask is None else
+            [int(i) for i in np.flatnonzero(b.quarantine_mask)]
+            for _, b in pairs]
+    if rows != I["quarantined_rows"]:
+        bad.append(f"quarantined rows {rows}")
+    B = R["buckets"]
+    bp = cf.bucket_plan
+    if [list(x) for x in cf.shapes] != B["shapes"] \
+            or list(bp.ntoa_ladder) != B["ntoa_ladder"] \
+            or list(bp.nfree_ladder) != B["nfree_ladder"] \
+            or {f"{bn}x{bk}": idx for (bn, bk), idx
+                in bp.buckets.items()} != B["members"] \
+            or bp.pad_waste_frac != B["pad_waste_frac"]:
+        bad.append(f"buckets {bp.to_dict()}")
+    # each pass: the port's residuals, then the batched call on the
+    # reference's residuals, then the applied fit
+    design = R["design"]
+    for k in range(passes):
+        Q = f"{P}pass{k}/"
+        reqs, fit = taken[k], fits[k]
+        r_own = np.concatenate([q.r.cpu().numpy() for q in reqs])
+        gap["r"] = max(gap.get("r", 0.0),
+                       float(np.max(np.abs(r_own - ref[Q + "r"]))))
+        outs = _catalog_lanes(cf, _catalog_on(reqs, ref[Q + "r"]),
+                              catalog_batched())
+        dx = np.concatenate([o[0][:len(q.params)]
+                             for o, q in zip(outs, reqs)])
+        er = np.concatenate([o[1][:len(q.params)]
+                             for o, q in zip(outs, reqs)])
+        e = ref[Q + "lin_err"]
+        for key, v in (
+                ("dx", np.abs(dx - ref[Q + "lin_dx"]) / e),
+                ("err", np.abs(er / e - 1)),
+                ("chi2", np.abs(np.array([o[2] for o in outs])
+                                / ref[Q + "lin_chi2"] - 1)),
+                ("chi2_initial", np.abs(np.array([o[3] for o in outs])
+                                        / ref[Q + "chi2_initial"] - 1)),
+                ("fit_err", np.abs(np.concatenate(
+                    [[f.errors[n] for n in f.errors] for f in fit.fits])
+                    / ref[Q + "errors"] - 1)),
+                ("fit_dx", np.abs(np.concatenate(
+                    [[f.dpars[n] for n in f.dpars] for f in fit.fits])
+                    - ref[Q + "dpars"]) / ref[Q + "errors"]),
+                ("fit_chi2", np.abs(np.array([f.chi2 for f in fit.fits])
+                                    / ref[Q + "chi2"] - 1))):
+            gap[key] = max(gap.get(key, 0.0), float(np.max(v)))
+        if [list(f.bucket) for f in fit.fits] != R["passes"][k]["buckets"]:
+            bad.append(f"pass {k} buckets")
+    last = f"{P}pass{passes - 1}/"
+    vals = np.concatenate([[p.fitted_model[n].value for n in d]
+                           for p, d in zip(report.pulsars, design)])
+    sig = np.concatenate([[f.errors[n] for n in d]
+                          for f, d in zip(fits[-1].fits, design)])
+    gap["values"] = float(np.max(np.abs(vals - ref[last + "values"]) / sig))
+    # the refine, on the reference's residuals and on the port's own
+    reqs = taken[-1]
+    same = _catalog_on(reqs, ref[P + "final_r"])
+    outs = _catalog_lanes(cf, same, catalog_fused(steps=S["refine_steps"]))
+    e = ref[last + "errors"]
+    gap["refine_chi2"] = float(np.max(np.abs(np.stack(
+        [o[2] for o in outs]) / ref[P + "refine/chi2_steps"] - 1)))
+    gap["refine_dx"] = float(np.max(np.abs(np.concatenate(
+        [o[0][0][:len(q.params)] / q.norm[:len(q.params)]
+         for o, q in zip(outs, reqs)]) - ref[P + "refine/dpars_first"]) / e))
+    names = [p.name for p in report.pulsars]
+    gap["refine_own_chi2"] = float(np.max(np.abs(np.stack(
+        [rf.chi2_steps[n] for n in names]) / ref[P + "refine/chi2_steps"]
+        - 1)))
+    gap["refine_own_dx"] = float(np.max(np.abs(np.concatenate(
+        [[rf.dpars_first[n][x] for x in rf.dpars_first[n]] for n in names])
+        - ref[P + "refine/dpars_first"]) / e))
+    if rf.dispatches != R["refine"]["dispatches"]:
+        bad.append(f"refine dispatches {rf.dispatches}")
+    # the joint likelihood on the reference's residuals, and the pin
+    js = JointLikelihood(cf, n_modes=S["n_modes"], requests=same)
+    L = R["likelihood"]
+    want = ref[P + "likelihood/lnlike"]
+    want_cross = want - L["nocommon"]
+    gap["per_pulsar"] = float(np.max(np.abs(
+        js.per_pulsar_lnlike() / ref[P + "likelihood/per_pulsar"] - 1)))
+    got = js.lnlike_batch(pts)
+    gap["lnlike"] = float(np.max(np.abs(got - want)
+                                 / np.maximum(1, np.abs(want))))
+    gap["cross"] = float(np.max(np.abs((got - js.lnlike_nocommon())
+                                       - want_cross)
+                                / np.maximum(1, np.abs(want_cross))))
+    gap["own_lnlike"] = float(np.max(np.abs(own - want)
+                                     / np.maximum(1, np.abs(want))))
+    gap["own_cross"] = float(np.max(np.abs((own - own_nc) - want_cross)
+                                    / np.maximum(1, np.abs(want_cross))))
+    for name, j in (("own", jl), ("same", js)):
+        c0 = j.cross_batch(np.array([[-np.inf, 4.33]])).cpu().numpy()
+        parts = j.per_pulsar_lnlike()
+        pin = abs(j.lnlike_nocommon() - parts.sum()) / abs(parts.sum())
+        gap[f"pin_{name}"] = pin
+        if c0[0] != 0.0 or pin > 1e-12:
+            bad.append(f"factorization pin ({name}): cross {c0[0]!r}, "
+                       f"{pin:.3e} rel")
+    if (jl.pad_shape != tuple(L["pad_shape"]) or jl.Tspan != L["Tspan"]
+            or np.max(np.abs(jl.Lhd - ref[P + "likelihood/Lhd"])) > 1e-12):
+        bad.append("pad shape, Tspan or the HD factor")
+    # the chain: PR 12's chain bars, each point's bar the joint one
+    stored = {k: ref[P + "chain/" + k] for k in ("walker_chain", "lnprob",
+                                               "accepted", "pos")}
+    lp0 = jl.lnlike_batch(stored["pos"])
+
+    def bars(k):
+        lp = lp0 if k == 0 else s.decision_log[k - 1][1]
+        with np.errstate(invalid="ignore"):
+            return LNLIKE_BAR * np.maximum(1.0, np.abs(lp))
+
+    def final(out, hist):
+        if out["inside"]:
+            return
+        lp = s.get_log_prob()
+        rel = float(np.max(np.abs(lp - stored["lnprob"])
+                           / np.maximum(1.0, np.abs(stored["lnprob"]))))
+        if rel > LNLIKE_BAR or s.naccepted != R["chain"]["naccepted"]:
+            raise RuntimeError("catalogue chain: lnprob or acceptance "
+                               "differ from the reference's")
+        out.update(lnprob_rel=rel)
+
+    chain = _chain_bars(types.SimpleNamespace(sampler=s),
+                        stored["walker_chain"].transpose(2, 0, 1),
+                        stored["accepted"], bars,
+                        lambda bp, bc: 2.0 * np.maximum(bp, bc), final)
+    n = report.n_pulsars
+    fits_per_s = n * (passes - 1) / walls["fit"]
+    lnl_per_s = len(bench) * CATALOG_LNLIKE_REPS / walls["lnlike"]
+    steps_per_s = S["chain_steps"] / walls["chain"]
+    print(f"phase catalog: {n} pulsars, {report.n_toas} certified TOAs, "
+          f"{report.n_quarantined} quarantined ({', '.join(report.codes())}"
+          f"), R = {jl.G.shape[0]} ({S['n_modes']} modes); buckets "
+          f"{bp.n_buckets} ({bp.to_dict()['buckets']}), pad_waste_frac "
+          f"{bp.pad_waste_frac}; catalog_fits_per_s {fits_per_s} "
+          f"(4 passes {walls['fit']} s, settle {walls['settle']} s), "
+          f"joint_lnlike_per_s {lnl_per_s} ({CATALOG_LNLIKE_REPS} x "
+          f"{len(bench)} points {walls['lnlike']} s), chain "
+          f"{S['walkers']} x {S['chain_steps']} {walls['chain']} s "
+          f"({steps_per_s} steps/s; bitwise steps {chain['bitwise_steps']}, "
+          f"decisions inside the margin {chain['inside']}, diverged "
+          f"{chain['diverged']}); walls load {walls['load']} s, ingest "
+          f"{walls['ingest']} s, fitter {walls['fitter']} s, refine "
+          f"{walls['refine']} s, joint {walls['joint']} s, {len(pts)} "
+          f"points {walls['points']} s; max_memory_allocated "
+          f"{peak / 2**20:.2f} MiB; K10 launches "
+          f"{counts['hd_cross_lnlike']} {tag}", flush=True)
+    print("phase catalog bars: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in gap.items()) + f" {tag}", flush=True)
+    ok = (gap["r"] <= 1e-10 and gap["dx"] <= 1e-6 and gap["fit_dx"] <= 1e-6
+          and max(gap["err"], gap["chi2"], gap["chi2_initial"],
+                  gap["fit_err"]) <= 1e-9 and gap["fit_chi2"] <= 1e-6
+          and gap["values"] <= 1e-6 and gap["refine_chi2"] <= 1e-9
+          and max(gap["refine_dx"], gap["refine_own_dx"],
+                  gap["refine_own_chi2"]) <= 1e-6
+          and gap["per_pulsar"] <= 1e-9
+          and max(gap["lnlike"], gap["own_lnlike"]) <= LNLIKE_BAR
+          and gap["cross"] <= 1e-8)
+    if bad or not ok:
+        raise RuntimeError("catalog phase: " + "; ".join(bad) + f" {gap}")
+    return counts, jl, bench
+
+
+def _k10_ops(R: int, m: int) -> int:
+    """float64 instructions of K10 for one walker: the spectrum (m exp,
+    two more exp and a log a mode, sqrt), then per column j the R + 1 - j
+    rows' M entry (3) and j products and differences each, the pivot's sqrt
+    and log, the R - j divisions and z^2's product and sum (a sqrt, exp,
+    log and division at their SASS counts)."""
+    e, lg, sq, dv = SASS_OPS["exp"], SASS_OPS["log"], SASS_OPS["sqrt"], \
+        SASS_OPS["div"]
+    ops = m * (3 * e + lg + sq + 8)
+    for j in range(R):
+        ops += (R + 1 - j) * (3 + 2 * j) + sq + lg + 2 + (R - j) * dv + 2
+    return ops
+
+
+def _k10_kernels(jl, counts, bench, dev, tag) -> list:
+    """K10 against its plain version on the card at the catalogue path's G
+    and u and the bench's points, B = 16 and 32, and on rows at zero
+    amplitude: within 1e-12 x max(1, sum |log L_jj| + 0.5 ||z||^2) (the
+    sums from the library's factor; bitwise expected), the zero-amplitude
+    rows exactly 0.0.  Times (CUDA events behind a spin kernel): the
+    kernel, its plain version, the library yardstick --
+    ``torch.linalg.cholesky_ex`` of the formed M, ``solve_triangular`` and
+    the log-determinant, M formed outside the timed window -- and the
+    bound.  Returns the ``kernels`` record (B = 32)."""
+    import torch
+
+    from pint_torch.kernels import hd_cross_lnlike as K10
+
+    G, u, f, T = jl.G, jl.u, jl._freqs_t, jl.Tspan
+    R, m = G.shape[0], f.shape[0]
+    pts = torch.as_tensor(bench, dtype=torch.float64, device=dev)
+    eye = torch.eye(R, dtype=torch.float64, device=dev)
+
+    def formed(la, ga):
+        d = K10._sqrt_phi(la, ga, f, T).repeat_interleave(2, dim=1).repeat(
+            1, R // (2 * m))
+        return (d[:, :, None] * G) * d[:, None, :] + eye, d * u
+
+    def library(M, v):
+        L, _ = torch.linalg.cholesky_ex(M)
+        z = torch.linalg.solve_triangular(L, v[..., None], upper=False)
+        logd = torch.log(torch.diagonal(L, dim1=-2, dim2=-1))
+        return 0.5 * (z[..., 0] ** 2).sum(-1) - logd.sum(-1), logd, z
+
+    notes, err, rec = [], 0.0, None
+    for B in (16, 32):
+        la, ga = pts[:B, 0].contiguous(), pts[:B, 1].contiguous()
+        got = K10._launch(G, u, la, ga, f, T)
+        want = K10.hd_cross_lnlike_reference(G, u, la, ga, f, T)
+        M, v = formed(la, ga)
+        lib, logd, z = library(M, v)
+        scale = torch.clamp(logd.abs().sum(-1) + 0.5 * (z[..., 0] ** 2).sum(
+            -1), min=1.0)
+        e = float(((got - want).abs() / scale).max())
+        el = float(((got - lib).abs() / scale).max())
+        bit = bool(torch.equal(got, want))
+        err = max(err, float((got - want).abs().max()))
+        notes.append(f"B={B}: {'bitwise' if bit else 'DIFFERS'}, {e:.3e} "
+                     f"of the scale (<= 1e-12), library {el:.3e}")
+        if e > 1e-12:
+            raise RuntimeError(f"hd_cross_lnlike disagrees with its plain "
+                               f"version at B = {B}: {e:.3e}")
+        if B == 32:
+            ms = _time_ms(lambda: K10._launch(G, u, la, ga, f, T), 3,
+                          warmup=1)
+            plain = _time_ms(lambda: K10.hd_cross_lnlike_reference(
+                G, u, la, ga, f, T), 1, warmup=1)
+            lib_ms = _time_ms(lambda: library(M, v), 3, warmup=1)
+            # G, u, the points and frequencies read, the (B, R, R + 1)
+            # workspace and the results written
+            nbytes = 8 * (R * R + R + 2 * B + m + B + B * R * (R + 1))
+            bound = _bound(nbytes, B * _k10_ops(R, m), rate=F64_INSTR_PER_S)
+            rec = (ms, plain, lib_ms, bound)
+        del M, v, z
+    zl = torch.tensor([-float("inf"), -14.0, -float("inf")],
+                      dtype=torch.float64, device=dev)
+    zg = torch.tensor([4.33, 4.33, 2.0], dtype=torch.float64, device=dev)
+    z0 = K10._launch(G, u, zl, zg, f, T).cpu()
+    if not (float(z0[0]) == 0.0 and float(z0[2]) == 0.0
+            and float(z0[1]) != 0.0):
+        raise RuntimeError(f"hd_cross_lnlike at zero amplitude: {z0}")
+    ms, plain, lib_ms, bound = rec
+    print(f"phase kernel hd_cross_lnlike: R={R} m={m}; " + "; ".join(notes)
+          + f"; zero amplitude exactly 0.0; B=32 {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, library cholesky_ex + solve_triangular + "
+          f"log-det {lib_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; "
+          f"{_k10_ops(R, m)} float64 instructions a walker) {tag}",
+          flush=True)
+    return [dict(name=K10.KERNELS[None], route="cuda",
+                 source="pint_torch/kernels/csrc/hd_cross_lnlike.cu",
+                 replaces=K10.REPLACES, launches=counts[K10.KERNELS[None]],
+                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound[0],
+                 bound_by=bound[1], library_ms=lib_ms, path="catalog")]
+
+
 def _noise_bars(f, rounds, ref, rref, notes) -> list:
     """The alternation's noise fits against the reference's: per round the
     L-BFGS-B iterations and converged flag, the lnlike at the optimum (1e-9
@@ -2733,7 +3128,7 @@ def main() -> int:
                                    WB_WHITE_SMALL_PATH, YOUNG_PATH,
                                    YOUNG_SMALL_PATH, PHOTON_PATH,
                                    PHOTON_SMALL_PATH, STREAM_PATH,
-                                   STREAM_SMALL_PATH)
+                                   STREAM_SMALL_PATH, CATALOG_PATH)
     from pint_torch.kernels import _build
     from pint_torch.kernels import binary_orbits as K6
     from pint_torch.kernels import solar_wind_pl as K7
@@ -2744,6 +3139,7 @@ def main() -> int:
     from pint_torch.kernels import wls_lstsq as K5
     from pint_torch.kernels import photon_lnlike as K8
     from pint_torch.kernels import chol_rank_update as K9
+    from pint_torch.kernels import hd_cross_lnlike as K10
 
     dev = torch.device("cuda")
     card = _card()
@@ -2794,6 +3190,7 @@ def main() -> int:
     ptxas += [("chol_rank_update", K9.KERNELS[(sm, ing)],
                f"chol_rank_kernelILb{int(sm)}ELb{int(ing)}EE")
               for sm in (True, False) for ing in (False, True)]
+    ptxas += [("hd_cross_lnlike", K10.KERNELS[None], "hd_cross_kernel")]
     # no primal may spill (K1, K2 and K4 in each mode and orbit source,
     # K6, K7), nor ELL1H's duals, K6's and K7's duals or K5's tiled kernels
     k4_primals = [K4.KERNELS[(m, False)] for m in range(4)] \
@@ -2805,7 +3202,7 @@ def main() -> int:
         + [K6.KERNELS[(f, p)] + d for f in k6_forms for p in (False, True)
            for d in (("", " (direct)") if p else ("",))] \
         + [K7.KERNELS[True]] + list(K8.KERNELS.values()) \
-        + list(K9.KERNELS.values())
+        + list(K9.KERNELS.values()) + list(K10.KERNELS.values())
     for src, kernel, marker in ptxas:
         log = _build.library_path(src).with_suffix(".log")
         r = _build.ptxas_report(log.read_text() if log.exists() else "",
@@ -2980,6 +3377,14 @@ def main() -> int:
     missing = [k for k in want if serve_counts[k] == 0]
     if missing:
         raise RuntimeError(f"kernels never launched on the serve path: "
+                           f"{missing}")
+
+    # ---- the catalogue phase: the PTA catalogue on K10 ----------------------
+    cat_counts, cat_jl, cat_bench = _catalog_phase(CATALOG_PATH, kernels, tag)
+    want = (*K1.KERNELS.values(), K10.KERNELS[None])
+    missing = [k for k in want if cat_counts[k] == 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on the catalog path: "
                            f"{missing}")
 
     # ---- kernels against their plain twins ----------------------------------
@@ -4072,6 +4477,7 @@ def main() -> int:
            bound_glob, lib_glob, path="ell1")
 
     records += _k9_kernels(stream_cap, stream_counts, dev, tag)
+    records += _k10_kernels(cat_jl, cat_counts, cat_bench, dev, tag)
 
     print(f"phase wall: {time.perf_counter() - t_start:.2f} s for the whole "
           f"run {tag}", flush=True)

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Tuple, Union
+from typing import List, Tuple, Union
 
 import numpy as np
 import torch
@@ -42,7 +42,8 @@ __all__ = ["load_snapshot", "read_snapshot", "SNAPSHOT_FORMAT",
            "BT_PIECEWISE_SMALL_PATH", "PTA_SMALL_PATH", "YOUNG_SMALL_PATH",
            "WB_PATH", "WB_SMALL_PATH", "WB_WHITE_SMALL_PATH", "NOISE_PATH",
            "KEPLER_PATH", "PHOTON_PATH", "PHOTON_SMALL_PATH", "STREAM_PATH",
-           "STREAM_SMALL_PATH", "stream_schedule"]
+           "STREAM_SMALL_PATH", "stream_schedule", "CATALOG_PATH",
+           "CATALOG_SMALL_PATH", "load_catalog_snapshot"]
 
 SNAPSHOT_FORMAT = "pint_torch-snapshot-1"
 #: the committed full-width B1855+09-shaped stand-in
@@ -119,6 +120,13 @@ PHOTON_SMALL_PATH = STANDIN_PATH.with_name("small_photon_standin.npz")
 #: (:func:`stream_schedule`) and the reference's run of it
 STREAM_PATH = STANDIN_PATH.with_name("j1909_stream_standin.npz")
 STREAM_SMALL_PATH = STANDIN_PATH.with_name("small_stream_standin.npz")
+#: the 67-pulsar catalogue (the NANOGrav 15-year GWB analysis' pulsar
+#: count, 100-400 TOAs each, two members with a corrupt row) with the
+#: reference's ingest, buckets, fits, joint likelihood at 14 modes and
+#: chain; and its 16-pulsar CPU version (the reference catalogue test's, 3
+#: modes)
+CATALOG_PATH = STANDIN_PATH.with_name("pta67_catalog_standin.npz")
+CATALOG_SMALL_PATH = STANDIN_PATH.with_name("small_catalog_standin.npz")
 
 _BATCH_KEYS = ("tdb_hi", "tdb_lo", "tdb0", "tdb_s_hi", "tdb_s_lo", "freq",
                "error_us", "ssb_obs_pos", "ssb_obs_vel", "obs_sun_pos",
@@ -232,3 +240,20 @@ def stream_schedule(meta: dict):
         rows.append(np.arange(pos, pos + ne * n))
         pos += ne * n
     return base, rows, st["dup"], list(st["quarantine"])
+
+
+def load_catalog_snapshot(path_or_dict: Union[str, Path, dict] = CATALOG_PATH,
+                          device=None) -> List[Tuple[TimingModel, TOABatch]]:
+    """The ``(model, batch)`` pairs of a catalogue snapshot, on ``device``
+    (default ``"cuda"``): member ``i``'s arrays under ``psr/<i>/``, each a
+    snapshot of its own (:func:`load_snapshot`), its TOAs as they were
+    recorded, corrupt rows included (the catalogue's gate,
+    :func:`pint_torch.catalog.ingest_catalog`, quarantines them)."""
+    dev = resolve_device(device)
+    meta, arrays = read_snapshot(path_or_dict)
+    out = []
+    for i in range(int(meta["catalog"]["members"])):
+        pre = f"psr/{i}/"
+        out.append(load_snapshot({k[len(pre):]: v for k, v in arrays.items()
+                                  if k.startswith(pre)}, device=dev))
+    return out

@@ -81,6 +81,27 @@ class Astrometry(DelayComponent):
         L_hat = self.ssb_to_psb_xyz(pv, batch.tdb.hi)
         return self._geometric_delay(pv, batch, L_hat, pv.get("PX", 0.0))
 
+    def ssb_to_psb_xyz_ICRS(self, epoch=None) -> np.ndarray:
+        """Unit vector(s) SSB -> pulsar in ICRS at the MJD epoch(s), proper
+        motion applied, on the host (reference ``astrometry.py:80``); the
+        default epoch is POSEPOCH, else the model's PEPOCH."""
+        model = self._parent
+        if epoch is None:
+            table = model.params_table
+            pe = table.get("POSEPOCH")
+            if pe is None or pe.value is None:
+                pe = table.get("PEPOCH")
+            if pe is None or pe.value is None:
+                raise ValueError("No POSEPOCH/PEPOCH to evaluate the "
+                                 "position at")
+            epoch = model.epoch_value(pe.name)
+        ep = torch.as_tensor(np.atleast_1d(np.asarray(epoch,
+                                                      dtype=np.float64)),
+                             dtype=torch.float64)
+        xyz = self.ssb_to_psb_xyz(model.const_pv(), ep).numpy()
+        return xyz.reshape(np.shape(epoch) + (3,)) if np.shape(epoch) \
+            else xyz[0]
+
 
 class AstrometryEquatorial(Astrometry):
     """Config: ``has_posepoch`` (POSEPOCH set)."""

@@ -34,7 +34,12 @@ from pint_torch.phase import Phase
 
 __all__ = ["Param", "Component", "DelayComponent", "PhaseComponent",
            "NoiseComponent", "TimingModel", "DEFAULT_ORDER",
-           "OFFSET_PRIOR_WEIGHT", "TOP_LEVEL_PARAMS"]
+           "OFFSET_PRIOR_WEIGHT", "TOP_LEVEL_PARAMS", "MissingComponent"]
+
+
+class MissingComponent(ValueError):
+    """The model lacks a component the caller needs (reference
+    ``pint_tpu.exceptions.MissingComponent``)."""
 
 #: variance [s^2] of the uninformative prior on the marginalized overall
 #: phase offset (``augment_basis_for_offset``); the reference's value, kept
@@ -545,6 +550,18 @@ class TimingModel:
             if hasattr(c, "scale_dm_sigma"):
                 err = c.scale_dm_sigma(self, batch, err)
         return err
+
+    def psr_direction(self) -> np.ndarray:
+        """Unit vector SSB -> pulsar (ICRS) at POSEPOCH/PEPOCH (reference
+        ``timing_model.py:1187``): the sky position the catalog's
+        Hellings-Downs separations are taken from.  Raises
+        :class:`MissingComponent` without an astrometry component."""
+        for c in self.components.values():
+            if hasattr(c, "ssb_to_psb_xyz_ICRS"):
+                return np.asarray(c.ssb_to_psb_xyz_ICRS(), dtype=np.float64)
+        raise MissingComponent(
+            f"{self.name or '?'}: no astrometry component -- cross-pulsar "
+            "correlations need a sky position")
 
     # -- noise ---------------------------------------------------------------
     def scaled_toa_uncertainty(self, batch) -> np.ndarray:

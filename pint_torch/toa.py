@@ -20,7 +20,7 @@ evaluation reads: a batch that keys a cache is never changed by it.
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Dict, List, Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -65,16 +65,17 @@ class _Quarantine:
         self.applied_n = None
 
 
-def _set_dependent(model) -> List[str]:
-    """The model's contexts that depend on the whole TOA set: ECORR epochs
-    and a Fourier basis whose period is the data span (no ``TN*TSPAN``)."""
-    out = []
+def _set_dependent(model) -> Dict[str, str]:
+    """The model's contexts that depend on the whole TOA set, by component:
+    ECORR epochs and a Fourier basis whose period is the data span (no
+    ``TN*TSPAN``)."""
+    out = {}
     for name, comp in model.components.items():
         if getattr(comp, "is_ecorr", False):
-            out.append(f"{name} (ECORR epochs)")
+            out[name] = "ECORR epochs"
         elif hasattr(comp, "get_time_frequencies") \
                 and comp.config.get("tspan_s") is None:
-            out.append(f"{name} (a basis over the data span)")
+            out[name] = "a basis over the data span"
     return out
 
 
@@ -181,7 +182,8 @@ class TOABatch:
         return self._map(lambda x: x.to(device=device, dtype=F64),
                          lambda v: v.to(device) if torch.is_tensor(v) else v)
 
-    def select(self, mask, model=None) -> "TOABatch":
+    def select(self, mask, model=None,
+               standalone: bool = False) -> "TOABatch":
         """The batch of the TOAs where ``mask`` (N,) is true (the
         reference's ``toas[mask]``): every per-TOA tensor and host array
         sliced, each row-local context (:data:`ROW_LOCAL_CONTEXTS`) sliced
@@ -192,7 +194,12 @@ class TOABatch:
         its own.  Contexts
         that depend on the whole set (ECORR epochs, a basis without
         ``TNREDTSPAN``) or that no rule slices are refused with
-        ``NotImplementedError`` (ROADMAP queue A item 10)."""
+        ``NotImplementedError`` (ROADMAP queue A item 10) -- unless
+        ``standalone``: the subset is then a TOA set of its own, evaluated
+        by itself as the reference's ``toas[mask]`` handed to a fresh
+        fitter is, so its ECORR epochs and data span are its own (the
+        noise components derive both from the batch they are given) and
+        those components' per-TOA masks slice along the TOA axis."""
         keep = np.asarray(mask, dtype=bool)
         if keep.shape != (self.ntoas,):
             raise ValueError(f"select: mask of shape {keep.shape} for "
@@ -205,13 +212,14 @@ class TOABatch:
         else:
             src = {n: c.context for n, c in model.components.items()
                    if c.context and n not in _NOT_PER_TOA}
-        if model is not None:
-            bad = _set_dependent(model)
-            if bad:
-                raise NotImplementedError(
-                    f"selecting TOAs whose contexts depend on the whole set "
-                    f"({', '.join(bad)}) is ROADMAP queue A item 10")
-        other = [n for n in src if n not in ROW_LOCAL_CONTEXTS]
+        dep = {} if model is None else _set_dependent(model)
+        if dep and not standalone:
+            raise NotImplementedError(
+                f"selecting TOAs whose contexts depend on the whole set "
+                f"({', '.join(f'{n} ({r})' for n, r in dep.items())}) is "
+                "ROADMAP queue A item 10")
+        other = [n for n in src if n not in ROW_LOCAL_CONTEXTS
+                 and not (standalone and n in dep)]
         if other:
             raise NotImplementedError(
                 f"selecting TOAs whose components hold per-TOA contexts no "
@@ -294,13 +302,14 @@ class TOABatch:
         m = self._q.mask
         return int(np.sum(m)) if m is not None else 0
 
-    def certified(self, model=None) -> "TOABatch":
+    def certified(self, model=None, standalone: bool = False) -> "TOABatch":
         """The rows :meth:`validate` did not quarantine (``self`` when
-        there are none)."""
+        there are none); ``standalone`` as :meth:`select`'s."""
         m = self._q.mask
         if m is None or not np.any(m):
             return self
-        return self.select(~np.asarray(m, dtype=bool), model)
+        return self.select(~np.asarray(m, dtype=bool), model,
+                           standalone=standalone)
 
     def quarantined(self, model=None) -> "TOABatch":
         """The quarantined rows (for inspection and repair)."""

@@ -2376,3 +2376,237 @@ def export_stream(s, tmpdir=None) -> dict:
             "steps": SERVE_STEPS, "reweight": "huber"}
     arrays["meta"] = np.asarray(json.dumps(meta))
     return arrays
+
+
+# ---------------------------------------------------------------------------
+# the PTA catalogue: many pulsars, learned buckets, the joint likelihood
+# ---------------------------------------------------------------------------
+#: the reference catalogue test's own catalogue (``tests/test_catalog.py:
+#: 60-68``: 16 pulsars, 24-64 TOAs, one corrupt row in members 3 and 11) at
+#: 3 GWB modes; the bench's fit passes (1 settle + 4 timed), an 8-step
+#: fused refine, the bench's 32 joint-likelihood points plus 16 seeded
+#: ones, and a seeded 32-walker x 10-step chain on ``lnlike_batch``
+SMALL_CATALOG_SETTINGS = dict(
+    catalog=dict(n_pulsars=16, seed=7, ntoa_range=[24, 64],
+                 bad_rows_in=[3, 11]),
+    n_modes=3, fit_passes=5, refine_steps=8, bench_points=32,
+    seeded_points=16, points_box=[[-17.0, -12.5], [2.0, 6.0]],
+    walkers=32, chain_steps=10,
+    seeds=dict(points=20261023, pos=20261024, sampler=42))
+#: the full-width catalogue (``pta67_catalog``): the reference generator at
+#: the NANOGrav 15-year GWB analysis' 67 pulsars and 14 GWB frequencies
+#: (R = 67 x 28 = 1876), the bench's seed, 100-400 TOAs a pulsar
+PTA67_CATALOG_SETTINGS = dict(
+    SMALL_CATALOG_SETTINGS,
+    catalog=dict(n_pulsars=67, seed=20260804, ntoa_range=[100, 400],
+                 bad_rows_in=[3, 11]),
+    n_modes=14)
+
+
+def catalog_points(s) -> np.ndarray:
+    """The joint-likelihood points of catalogue settings ``s``: the bench's
+    ``bench_points`` on log10_A in [-16, -13] at gamma 13/3
+    (``bench.py:675-678``), then ``seeded_points`` uniform in the box."""
+    n = s["bench_points"]
+    bench = np.column_stack([np.linspace(-16.0, -13.0, n),
+                             np.full(n, 13.0 / 3.0)])
+    (alo, ahi), (glo, ghi) = s["points_box"]
+    rng = np.random.default_rng(s["seeds"]["points"])
+    k = s["seeded_points"]
+    seeded = np.column_stack([rng.uniform(alo, ahi, k),
+                              rng.uniform(glo, ghi, k)])
+    return np.concatenate([bench, seeded])
+
+
+def catalog_start(s) -> np.ndarray:
+    """The chain's starting walkers: a seeded ball about (-14, 13/3), as the
+    reference catalogue test's sampler start."""
+    rng = np.random.default_rng(s["seeds"]["pos"])
+    w = s["walkers"]
+    return np.column_stack([-14.0 + 0.3 * rng.standard_normal(w),
+                            13.0 / 3.0 + 0.2 * rng.standard_normal(w)])
+
+
+def catalog_pairs(s):
+    """The reference generator's ``(model, TOAs)`` pairs of settings
+    ``s``."""
+    from pint_tpu.catalog import make_synthetic_catalog
+
+    c = s["catalog"]
+    return make_synthetic_catalog(
+        n_pulsars=c["n_pulsars"], seed=c["seed"],
+        ntoa_range=tuple(c["ntoa_range"]), bad_rows_in=c["bad_rows_in"])
+
+
+class _spy_catalog_batched:
+    """Record the outputs of every call of the reference's batched catalogue
+    kernel (``pint_tpu.catalog.batchfit.catalog_batched``) until
+    :meth:`stop`."""
+
+    def __init__(self):
+        from pint_tpu.catalog import batchfit
+
+        self._mod, self._orig, self._calls = batchfit, \
+            batchfit.catalog_batched, []
+
+        def spied(spec=None):
+            fn = self._orig(spec)
+
+            def call(*operands):
+                out = fn(*operands)
+                self._calls.append([np.asarray(o) for o in out])
+                return out
+
+            return call
+
+        batchfit.catalog_batched = spied
+
+    def take(self) -> list:
+        calls, self._calls = self._calls, []
+        return calls
+
+    def stop(self) -> None:
+        self._mod.catalog_batched = self._orig
+
+
+def reference_catalog(pairs, s) -> dict:
+    """The reference's catalogue path on ``pairs``: ingest, the learned
+    buckets, ``fit_passes`` ``fit(maxiter=1)`` passes (each member's
+    residuals before each pass, its fit after), ``refine``, the joint
+    likelihood at :func:`catalog_points` and a seeded chain on
+    ``lnlike_batch``."""
+    from pint_tpu.catalog import (CatalogFitter, JointLikelihood,
+                                  ingest_catalog)
+    from pint_tpu.sampler import EnsembleSampler
+
+    report = ingest_catalog(pairs)
+    members = []
+    for p in report.pulsars:
+        members.append(dict(name=p.name, n_toas=p.n_toas,
+                            n_quarantined=p.n_quarantined,
+                            codes=list(p.quarantine_codes)))
+    masks = []
+    for _, toas in pairs:
+        m = toas.quarantine_mask
+        masks.append([] if m is None else
+                     [int(i) for i in np.flatnonzero(m)])
+    cf = CatalogFitter(report)
+    bp = cf.bucket_plan
+    out = {"ingest": dict(report.to_dict(), members=members,
+                          quarantined_rows=masks),
+           "buckets": dict(bp.to_dict(), shapes=[list(x) for x in cf.shapes],
+                           members={f"{bn}x{bk}": idx for (bn, bk), idx
+                                    in sorted(bp.buckets.items())}),
+           "passes": []}
+    design = [list(p.model.free_params) for p in report.pulsars]
+    lin = _spy_catalog_batched()
+    for _ in range(s["fit_passes"]):
+        r = [np.asarray(p.fitter.resids.time_resids, dtype=np.float64)
+             for p in report.pulsars]
+        calls = lin.take()
+        res = cf.fit(maxiter=1)
+        calls = lin.take()
+        dx, err, c2 = [None] * len(r), [None] * len(r), np.zeros(len(r))
+        for (_, idx), o in zip(sorted(bp.buckets.items()), calls):
+            for j, i in enumerate(idx):
+                k = len(res.fits[i].dpars)
+                dx[i], err[i], c2[i] = o[0][j, :k], o[1][j, :k], o[2][j]
+        out["passes"].append(dict(
+            r=np.concatenate(r),
+            chi2=np.array([f.chi2 for f in res.fits]),
+            chi2_initial=np.array([f.chi2_initial for f in res.fits]),
+            dpars=np.concatenate([[f.dpars[n] for n in f.dpars]
+                                  for f in res.fits]),
+            errors=np.concatenate([[f.errors[n] for n in f.errors]
+                                   for f in res.fits]),
+            values=np.concatenate([[float(getattr(p.fitted_model, n).value)
+                                    for n in d]
+                                   for p, d in zip(report.pulsars, design)]),
+            lin_dx=np.concatenate(dx), lin_err=np.concatenate(err),
+            lin_chi2=c2, params=[list(f.dpars) for f in res.fits],
+            buckets=[list(f.bucket) for f in res.fits],
+            n_buckets=res.n_buckets, pad_waste_frac=res.pad_waste_frac))
+    lin.stop()
+    out["design"] = design
+    out["final_r"] = np.concatenate([
+        np.asarray(p.fitter.resids.time_resids, dtype=np.float64)
+        for p in report.pulsars])
+    ref = cf.refine(steps=s["refine_steps"])
+    names = [p.name for p in report.pulsars]
+    out["refine"] = dict(
+        chi2_steps=np.stack([ref.chi2_steps[n] for n in names]),
+        dpars_first=np.concatenate([[ref.dpars_first[n][k]
+                                     for k in ref.dpars_first[n]]
+                                    for n in names]),
+        dispatches=ref.dispatches, n_buckets=ref.n_buckets)
+    jl = JointLikelihood(cf, n_modes=s["n_modes"])
+    pts = catalog_points(s)
+    out["likelihood"] = dict(
+        points=pts, per_pulsar=np.asarray(jl.per_pulsar_lnlike()),
+        nocommon=float(jl.lnlike_nocommon()),
+        lnlike=np.asarray(jl.lnlike_batch(pts)), Tspan=float(jl.Tspan),
+        pad_shape=list(jl.pad_shape), Lhd=np.asarray(jl.Lhd))
+    sampler = EnsembleSampler(s["walkers"], seed=s["seeds"]["sampler"])
+    sampler.initialize_batched(jl.lnlike_batch, 2)
+    pos = catalog_start(s)
+    sampler.run_mcmc(pos.copy(), s["chain_steps"])
+    chain = np.asarray(sampler.get_chain())
+    prev = np.concatenate([pos[None], chain[:-1]])
+    out["chain"] = dict(pos=pos, walker_chain=np.ascontiguousarray(
+        chain.transpose(1, 2, 0)), lnprob=np.asarray(sampler.get_log_prob()),
+        accepted=np.any(chain != prev, axis=2),
+        naccepted=int(sampler.naccepted))
+    out["cf"], out["jl"], out["report"] = cf, jl, report
+    return out
+
+
+def export_catalog(s, pairs=None, run=None) -> dict:
+    """A catalogue snapshot: each member's model and its raw TOAs (the
+    corrupt rows too, so the port's gate reproduces the quarantine) under
+    ``psr/<i>/`` (:func:`export_state` with the duplicate check's keys),
+    and under ``ref/catalog/`` and ``meta["reference"]["catalog"]`` the
+    reference's run (:func:`reference_catalog`): the ingest report and
+    quarantined rows, the ladders and bucket members, each fit pass's
+    residuals (concatenated over the certified members), steps, errors,
+    chi2 and values, the refine's chi2 trajectories and first steps, the
+    joint likelihood at the points, and the chain."""
+    pairs = catalog_pairs(s) if pairs is None else pairs
+    arrays = {}
+    for i, (model, toas) in enumerate(pairs):
+        st = export_state(model, toas)
+        st.update(_integrity_arrays(toas))
+        for k, v in st.items():
+            arrays[f"psr/{i}/{k}"] = v
+    run = reference_catalog(pairs, s) if run is None else run
+    P = "ref/catalog/"
+    passes = []
+    for k, ps in enumerate(run["passes"]):
+        for key in ("r", "chi2", "chi2_initial", "dpars", "errors",
+                    "values", "lin_dx", "lin_err", "lin_chi2"):
+            arrays[f"{P}pass{k}/{key}"] = ps[key]
+        passes.append({key: ps[key] for key in ("params", "buckets",
+                                                "n_buckets",
+                                                "pad_waste_frac")})
+    arrays[P + "final_r"] = run["final_r"]
+    rf = run["refine"]
+    arrays[P + "refine/chi2_steps"] = rf["chi2_steps"]
+    arrays[P + "refine/dpars_first"] = rf["dpars_first"]
+    lk = run["likelihood"]
+    for key in ("points", "per_pulsar", "lnlike", "Lhd"):
+        arrays[P + "likelihood/" + key] = lk[key]
+    ch = run["chain"]
+    for key in ("pos", "walker_chain", "lnprob", "accepted"):
+        arrays[P + "chain/" + key] = ch[key]
+    meta = {"format": "pint_torch-snapshot-1", "name": "catalog",
+            "catalog": {"members": len(pairs)},
+            "reference": {"settings": dict(s), "catalog": dict(
+                ingest=run["ingest"], buckets=run["buckets"],
+                design=run["design"], passes=passes,
+                refine=dict(dispatches=rf["dispatches"],
+                            n_buckets=rf["n_buckets"]),
+                likelihood=dict(nocommon=lk["nocommon"],
+                                Tspan=lk["Tspan"],
+                                pad_shape=lk["pad_shape"]),
+                chain=dict(naccepted=ch["naccepted"]))}}
+    arrays["meta"] = np.asarray(json.dumps(meta))
+    return arrays

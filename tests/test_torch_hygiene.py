@@ -54,7 +54,8 @@ def test_import_and_load_pull_in_no_jax():
         "pint_torch.models.priors, pint_torch.runtime.checkpoint, "
         "pint_torch.event_fitter, pint_torch.templates, pint_torch.fftfit, "
         "pint_torch.eventstats, pint_torch.streaming, pint_torch.serving, "
-        "pint_torch.kernels.chol_rank_update, pint_torch.toa\n"
+        "pint_torch.kernels.chol_rank_update, pint_torch.toa, "
+        "pint_torch.catalog, pint_torch.kernels.hd_cross_lnlike\n"
         "import pint_torch.integrity.robust, pint_torch.integrity.quarantine\n"
         "from pint_torch.bridge import load_snapshot, STANDIN_PATH, "
         "ELL1_PATH, ELL1H_PATH, NGC_PHOFF_PATH, DDK_PATH, DDGR_PATH, "
@@ -71,6 +72,10 @@ def test_import_and_load_pull_in_no_jax():
         "YOUNG_SMALL_PATH, WB_PATH, WB_SMALL_PATH, WB_WHITE_SMALL_PATH, "
         "NOISE_PATH, PHOTON_PATH, PHOTON_SMALL_PATH):\n"
         "    load_snapshot(p, device='cpu')\n"
+        "from pint_torch.bridge import CATALOG_PATH, CATALOG_SMALL_PATH, "
+        "load_catalog_snapshot\n"
+        "for p in (CATALOG_PATH, CATALOG_SMALL_PATH):\n"
+        "    load_catalog_snapshot(p, device='cpu')\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n")
@@ -158,12 +163,17 @@ def test_entry_points_default_to_the_gpu():
                                     "streaming.__init__", "serving.batcher",
                                     "serving.__init__",
                                     "integrity.quarantine",
-                                    "kernels.chol_rank_update", "toa"])
+                                    "kernels.chol_rank_update", "toa",
+                                    "catalog.crosscorr", "catalog.buckets",
+                                    "catalog.ingest", "catalog.batchfit",
+                                    "catalog.likelihood", "catalog.__init__",
+                                    "kernels.hd_cross_lnlike"])
 def test_api_modules_import_no_jax(module):
     """The API's modules, the Bayesian and MCMC ones, the photon
-    domain's, the streaming engine's, the serve batcher's and the
-    quarantine gate's import neither ``jax`` nor ``pint_tpu`` (by their
-    source, and in a fresh interpreter)."""
+    domain's, the streaming engine's, the serve batcher's, the
+    quarantine gate's, the catalogue's and K10's wrapper import neither
+    ``jax`` nor ``pint_tpu`` (by their source, and in a fresh
+    interpreter)."""
     path = REPO / "pint_torch" / f"{module.replace('.', '/')}.py"
     test_no_jax_import_in_port_sources(path)
     code = (f"import sys, pint_torch.{module.replace('.__init__', '')}\n"
@@ -178,7 +188,8 @@ def test_api_modules_import_no_jax(module):
 @pytest.mark.parametrize("entry", ["PowellFitter", "tuple_chisq",
                                    "d_delay_d_param", "MCMCFitter",
                                    "MCMCFitterBinnedTemplate",
-                                   "StreamingGLS", "ShapeBatcher"])
+                                   "StreamingGLS", "ShapeBatcher",
+                                   "JointLikelihood"])
 def test_api_entry_points_default_to_the_gpu(entry):
     """A user's call of ``PowellFitter``, ``tuple_chisq``,
     ``d_delay_d_param``, ``MCMCFitter`` (with its ``BayesianTiming``
@@ -252,6 +263,19 @@ def test_api_entry_points_default_to_the_gpu(entry):
                                          & (np.arange(b.ntoas) < 48), m))
             assert o.fallback is None and eng.cache.L.device == b.device
             return eng.cache.b
+        if entry == "JointLikelihood":
+            from pint_torch.bridge import (CATALOG_SMALL_PATH,
+                                           load_catalog_snapshot)
+            from pint_torch.catalog import (CatalogFitter, JointLikelihood,
+                                            ingest_catalog)
+
+            pairs = load_catalog_snapshot(CATALOG_SMALL_PATH, device=device)
+            cf = CatalogFitter(ingest_catalog(pairs[:4]))
+            cf.fit()
+            jl = JointLikelihood(cf, n_modes=2)
+            assert jl.G.device == pairs[0][1].device
+            assert np.isfinite(jl.lnlike(-14.0, 13.0 / 3.0))
+            return jl.cross_batch(np.array([[-14.0, 4.0]]))
         return m.d_delay_d_param(b, "DM")
 
     if not torch.cuda.is_available():
@@ -353,19 +377,28 @@ def test_cpu_tensors_never_reach_a_kernel():
         out = stream_ingest(L, z4, torch.zeros((), dtype=torch.float64), V,
                             z2, z2, z4, sign)
         assert bool(out[3]) and bool(torch.isfinite(out[0]).all())
+    # K10, the catalogue's cross term
+    from pint_torch.kernels.hd_cross_lnlike import hd_cross_lnlike
+
+    G = torch.eye(6, dtype=torch.float64) * 1e12
+    out = hd_cross_lnlike(G, torch.ones(6, dtype=torch.float64),
+                          torch.tensor([-14.0, -np.inf], dtype=torch.float64),
+                          torch.tensor([4.33, 4.33], dtype=torch.float64),
+                          torch.tensor([1e-8], dtype=torch.float64), 1e8)
+    assert bool(torch.isfinite(out).all()) and float(out[1]) == 0.0
     counts = kernels.launch_counts()
     assert set(counts) == {n for mod in kernels.modules().values()
                            for n in mod.KERNELS.values()}
-    assert len(counts) == 2 + 20 + 2 + 16 + 3 + 6 + 2 + 5 + 4
+    assert len(counts) == 2 + 20 + 2 + 16 + 3 + 6 + 2 + 5 + 4 + 1
     assert not any(counts.values())
 
 
 def test_every_kernel_is_built_without_contraction(tmp_path, monkeypatch):
     """Each kernel's nvcc command carries -fmad=false and no -fmad=true:
-    every product and sum of K1-K9 rounds alone, as the twins' torch
+    every product and sum of K1-K10 rounds alone, as the twins' torch
     operations do (K7 calls no pow(), the one reason it once was built
-    with contraction; K8's density and K9's factor are bitwise their plain
-    versions')."""
+    with contraction; K8's density, K9's factor and K10's cross term are
+    bitwise their plain versions')."""
     from pint_torch import kernels
     from pint_torch.kernels import _build
 
@@ -398,7 +431,8 @@ def test_kernel_sources_ship_with_the_package():
     csrc = REPO / "pint_torch" / "kernels" / "csrc"
     for name in ("spin_phase", "dd_binary", "schur_cholesky_solve",
                  "ell1_binary", "wls_lstsq", "binary_orbits",
-                 "solar_wind_pl", "photon_lnlike", "chol_rank_update"):
+                 "solar_wind_pl", "photon_lnlike", "chol_rank_update",
+                 "hd_cross_lnlike"):
         src = (csrc / f"{name}.cu").read_text()
         assert "extern \"C\"" in src and f"{name}_launch" in src
     from pint_torch import kernels
@@ -433,3 +467,10 @@ def test_kernel_sources_ship_with_the_package():
                     ("small_stream_standin.npz", 80)):
         assert np.load(REPO / "pint_torch" / "data" / snap,
                        allow_pickle=False)["tdb_hi"].shape == (n,)
+    for snap, members in (("pta67_catalog_standin.npz", 67),
+                          ("small_catalog_standin.npz", 16)):
+        with np.load(REPO / "pint_torch" / "data" / snap,
+                     allow_pickle=False) as z:
+            assert {k.split("/")[1] for k in z.files
+                    if k.startswith("psr/")} == {str(i)
+                                                 for i in range(members)}

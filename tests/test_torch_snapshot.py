@@ -746,6 +746,8 @@ STANDIN_DIGESTS = {
     "small_photon_standin.npz": "9f4512243849e3ca",
     "j1909_stream_standin.npz": "835be31b2f063300",
     "small_stream_standin.npz": "66e7396ad5f53eab",
+    "pta67_catalog_standin.npz": "646cdff793b4bd90",
+    "small_catalog_standin.npz": "eaf1f23e39b8a18c",
 }
 
 
@@ -867,7 +869,9 @@ SETTINGS = {"b1855": standin.FULL_SETTINGS,
             "photon_j0030": standin.PHOTON_SETTINGS,
             "small_photon": standin.SMALL_PHOTON_SETTINGS,
             "stream": standin.STREAM_SETTINGS,
-            "small_stream": standin.SMALL_STREAM_SETTINGS}
+            "small_stream": standin.SMALL_STREAM_SETTINGS,
+            "pta67_catalog": standin.PTA67_CATALOG_SETTINGS,
+            "small_catalog": standin.SMALL_CATALOG_SETTINGS}
 #: the committed stand-ins of small depth: no grid
 SMALL_DEPTH = ("bt", "dds", "ddh", "small_dd_fbx", "small_bt_piecewise",
                "small_pta", "small_young", "small_wb", "small_wb_white")
@@ -888,6 +892,9 @@ def _write(path: str, chunk: int, settings: dict, small: bool = False) -> None:
         return
     if settings.get("stream"):
         np.savez_compressed(path, **standin.export_stream(settings))
+        return
+    if settings.get("catalog"):
+        np.savez_compressed(path, **standin.export_catalog(settings))
         return
     model, toas = standin.make_standin(settings, full=not small)
     if settings.get("wideband"):
@@ -981,7 +988,11 @@ if __name__ == "__main__":
                          "SMALL_PHOTON_SETTINGS (the photon fitters); "
                          "stream, small_stream: STREAM_SETTINGS, "
                          "SMALL_STREAM_SETTINGS (the streaming engine; the "
-                         "full-width one also the serve batcher)")
+                         "full-width one also the serve batcher); "
+                         "pta67_catalog, small_catalog: "
+                         "PTA67_CATALOG_SETTINGS, SMALL_CATALOG_SETTINGS "
+                         "(the PTA catalogue: ingest, buckets, fits, joint "
+                         "likelihood, chain)")
     ap.add_argument("--api", action="store_true",
                     help="add the API's reference outputs to the committed "
                          "file at --write, keeping its arrays")
