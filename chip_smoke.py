@@ -268,12 +268,15 @@ Phases, one line each:
    the factor bitwise its plain version's (NaN alike), b' and chi2'
    within 1e-13 of their sums of |terms|, ok and cond equal, zero rows
    bitwise no-ops; timed beside ``torch.linalg.cholesky_ex`` of the
-   updated Gram (the library yardstick) and the bound, the chain of k K
-   dependent column steps printed.  K10 on the catalog path's G and u at
-   B = 16 and 32 of the bench's points and on zero-amplitude rows: within
-   1e-12 of its scale of the plain version (bitwise expected), exactly
-   0.0 at zero amplitude; timed beside the library's ``cholesky_ex`` +
-   ``solve_triangular`` + log-determinant and the bound.
+   updated Gram (the library yardstick) and the bound, the chain of
+   dependent steps (n + K - 1 a wavefront pass of n rows) and the us a
+   step printed.  K10 on the catalog path's G and u at B = 16 and 32 of
+   the bench's points and the 48 stored ones, in the wrapper's chunks, in
+   one chunk and in chunks of 3, and on zero-amplitude rows: bitwise its
+   plain version (and within 1e-12 of its scale), exactly 0.0 at zero
+   amplitude, its workspace within its cap; timed (the median of 5 warm
+   calls) beside the library's ``cholesky_ex`` + ``solve_triangular`` + log-determinant and
+   the bound.
    K2's Newton steps on each path's inputs set its operation count; the
    per-element operation counts of K1, K2, K4, K6 and K7 are bounded at
    the float64 instruction rate (-fmad=false; K6's, K7's and K8's count
@@ -2514,8 +2517,9 @@ def _k9_kernels(cap, counts, dev, tag) -> list:
     call (the path's k = 16 append for the shared-memory ones, K = 233, k
     = 16 for the global ones), its plain version, the library yardstick
     ``torch.linalg.cholesky_ex`` of the updated Gram (formed outside the
-    timed window) and the bound; the chain length k K of dependent column
-    steps printed.  Returns the ``kernels`` records."""
+    timed window) and the bound; the chain of dependent steps (each
+    wavefront pass of n rows n + K - 1) and the us a step printed.
+    Returns the ``kernels`` records."""
     import torch
 
     from pint_torch.kernels import chol_rank_update as K9
@@ -2633,12 +2637,15 @@ def _k9_kernels(cap, counts, dev, tag) -> list:
             8 * (2 * k + 3 * K + 2) if ingest else 0)
         bound = _bound(nbytes, _k9_ops(K, rows, k, ingest),
                        rate=F64_INSTR_PER_S)
+        chain = K9.chain_steps(K, rows)
         print(f"phase kernel {kernel} {label}: K={K} k={k} ({rows} nonzero "
               f"rows), {ms:.4f} ms, plain {plain:.4f} ms, library "
               f"torch.linalg.cholesky_ex of the updated Gram {lib:.4f} ms, "
               f"bound {bound[0]:.6f} ms ({bound[1]}; "
               f"{_k9_ops(K, rows, k, ingest)} float64 instructions), chain "
-              f"{rows * K} dependent column steps {tag}", flush=True)
+              f"{chain} dependent steps (wavefront passes of "
+              f"{K9.pass_rows(K)} rows; {rows * K} row by row), "
+              f"{1e3 * ms / max(chain, 1):.3f} us a step {tag}", flush=True)
         return dict(name=kernel, route="cuda",
                     source="pint_torch/kernels/csrc/chol_rank_update.cu",
                     replaces=K9.REPLACES if not ingest else
@@ -2744,6 +2751,7 @@ def _catalog_phase(path, kernels, tag):
     from pint_torch.catalog import (CatalogFitter, JointLikelihood,
                                     catalog_batched, catalog_fused,
                                     ingest_catalog)
+    from pint_torch.kernels import hd_cross_lnlike as K10
     from pint_torch.sampler import EnsembleSampler
 
     meta, ref = read_snapshot(path)
@@ -2788,6 +2796,11 @@ def _catalog_phase(path, kernels, tag):
                                       S["chain_steps"]))
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    # K10's share of that peak: the factor and pivots of the widest chunk
+    # (the 48 stored points), as the wrapper allocates them
+    R_k10 = jl.G.shape[0]
+    k10_ws = 8 * K10.walkers_per_chunk(len(pts), R_k10) * (
+        R_k10 * (R_k10 + 1) + R_k10)
 
     bad, gap = [], {}
     # the gate and the buckets, exactly
@@ -2944,8 +2957,11 @@ def _catalog_phase(path, kernels, tag):
           f"{walls['ingest']} s, fitter {walls['fitter']} s, refine "
           f"{walls['refine']} s, joint {walls['joint']} s, {len(pts)} "
           f"points {walls['points']} s; max_memory_allocated "
-          f"{peak / 2**20:.2f} MiB; K10 launches "
-          f"{counts['hd_cross_lnlike']} {tag}", flush=True)
+          f"{peak / 2**20:.2f} MiB, of it K10's workspace at the "
+          f"{len(pts)} stored points {k10_ws / 2**20:.2f} MiB (cap "
+          f"{K10.WORKSPACE_CAP_BYTES / 2**20:.0f} MiB); K10 launches "
+          + ", ".join(f"{k} {counts[k]}" for k in K10.KERNELS.values())
+          + f" {tag}", flush=True)
     print("phase catalog bars: " + ", ".join(
         f"{k} {v:.3e}" for k, v in gap.items()) + f" {tag}", flush=True)
     ok = (gap["r"] <= 1e-10 and gap["dx"] <= 1e-6 and gap["fit_dx"] <= 1e-6
@@ -2959,7 +2975,7 @@ def _catalog_phase(path, kernels, tag):
           and gap["cross"] <= 1e-8)
     if bad or not ok:
         raise RuntimeError("catalog phase: " + "; ".join(bad) + f" {gap}")
-    return counts, jl, bench
+    return counts, jl, bench, pts
 
 
 def _k10_ops(R: int, m: int) -> int:
@@ -2976,24 +2992,46 @@ def _k10_ops(R: int, m: int) -> int:
     return ops
 
 
-def _k10_kernels(jl, counts, bench, dev, tag) -> list:
+#: warm calls K10's time is the median of
+K10_REPS = 5
+
+
+def _median_ms(fn, reps: int) -> float:
+    """Median device ms of ``reps`` calls of ``fn`` after a warm-up, each
+    timed alone by :func:`_time_ms` (CUDA events behind a spin kernel)."""
+    import statistics
+
+    fn()
+    return statistics.median(_time_ms(fn, 1, warmup=0) for _ in range(reps))
+
+
+def _k10_kernels(jl, counts, bench, stored, dev, tag) -> list:
     """K10 against its plain version on the card at the catalogue path's G
-    and u and the bench's points, B = 16 and 32, and on rows at zero
-    amplitude: within 1e-12 x max(1, sum |log L_jj| + 0.5 ||z||^2) (the
-    sums from the library's factor; bitwise expected), the zero-amplitude
-    rows exactly 0.0.  Times (CUDA events behind a spin kernel): the
-    kernel, its plain version, the library yardstick --
-    ``torch.linalg.cholesky_ex`` of the formed M, ``solve_triangular`` and
-    the log-determinant, M formed outside the timed window -- and the
-    bound.  Returns the ``kernels`` record (B = 32)."""
+    and u: the bench's points at B = 16 and 32 and every stored point (B =
+    48), each in the wrapper's chunks under its workspace cap, in one
+    chunk (the cap raised past B) and in chunks of at most 3 walkers:
+    bitwise (``torch.equal``), and within 1e-12 x max(1, sum |log L_jj| +
+    0.5 ||z||^2) (the sums from the library's factor); on rows at zero
+    amplitude exactly 0.0.  At B = 48 the call's own peak device memory
+    over what was held (its workspace: never over the cap).  Times at B =
+    32: the kernel (the median of ``K10_REPS`` warm calls, CUDA events
+    behind a spin kernel), its launches a call by kernel, its plain
+    version, the
+    library yardstick -- ``torch.linalg.cholesky_ex`` of the formed M,
+    ``solve_triangular`` and the log-determinant, M formed outside the
+    timed window -- and the bound.  Returns the ``kernels`` record (B =
+    32; ``parts`` holds each of its kernels' launches on the path)."""
     import torch
 
     from pint_torch.kernels import hd_cross_lnlike as K10
 
     G, u, f, T = jl.G, jl.u, jl._freqs_t, jl.Tspan
     R, m = G.shape[0], f.shape[0]
-    pts = torch.as_tensor(bench, dtype=torch.float64, device=dev)
+    pts = torch.as_tensor(stored, dtype=torch.float64, device=dev)
+    bpts = torch.as_tensor(bench, dtype=torch.float64, device=dev)
     eye = torch.eye(R, dtype=torch.float64, device=dev)
+    cap = K10.WORKSPACE_CAP_BYTES
+    per_walker = 8 * (R * (R + 1) + R)
 
     def formed(la, ga):
         d = K10._sqrt_phi(la, ga, f, T).repeat_interleave(2, dim=1).repeat(
@@ -3006,35 +3044,61 @@ def _k10_kernels(jl, counts, bench, dev, tag) -> list:
         logd = torch.log(torch.diagonal(L, dim1=-2, dim2=-1))
         return 0.5 * (z[..., 0] ** 2).sum(-1) - logd.sum(-1), logd, z
 
-    notes, err, rec = [], 0.0, None
-    for B in (16, 32):
-        la, ga = pts[:B, 0].contiguous(), pts[:B, 1].contiguous()
-        got = K10._launch(G, u, la, ga, f, T)
+    def chunked(cap_bytes, la, ga):
+        K10.WORKSPACE_CAP_BYTES = cap_bytes
+        try:
+            return K10._launch(G, u, la, ga, f, T)
+        finally:
+            K10.WORKSPACE_CAP_BYTES = cap
+
+    notes, err, rec, mem = [], 0.0, None, None
+    for B in (16, 32, 48):
+        src = bpts if B <= len(bpts) else pts
+        la, ga = src[:B, 0].contiguous(), src[:B, 1].contiguous()
         want = K10.hd_cross_lnlike_reference(G, u, la, ga, f, T)
+        if B == 48:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+        got = K10._launch(G, u, la, ga, f, T)
+        if B == 48:
+            torch.cuda.synchronize()
+            mem = torch.cuda.max_memory_allocated() - held
+            if mem - 8 * B > cap:
+                raise RuntimeError(f"hd_cross_lnlike's workspace {mem} bytes "
+                                   f"is over its cap {cap}")
+        one = chunked(per_walker * B, la, ga)
+        small = chunked(per_walker * 3, la, ga)
         M, v = formed(la, ga)
         lib, logd, z = library(M, v)
         scale = torch.clamp(logd.abs().sum(-1) + 0.5 * (z[..., 0] ** 2).sum(
             -1), min=1.0)
         e = float(((got - want).abs() / scale).max())
         el = float(((got - lib).abs() / scale).max())
-        bit = bool(torch.equal(got, want))
-        err = max(err, float((got - want).abs().max()))
-        notes.append(f"B={B}: {'bitwise' if bit else 'DIFFERS'}, {e:.3e} "
-                     f"of the scale (<= 1e-12), library {el:.3e}")
-        if e > 1e-12:
+        bit = all(bool(torch.equal(x, want)) for x in (got, one, small))
+        err = max(err, *(float((x - want).abs().max())
+                         for x in (got, one, small)))
+        notes.append(f"B={B} (chunks of {K10.walkers_per_chunk(B, R)}, of "
+                     f"{B} and of 3): {'bitwise' if bit else 'DIFFERS'}, "
+                     f"{e:.3e} of the scale (<= 1e-12), library {el:.3e}")
+        if not bit or e > 1e-12:
             raise RuntimeError(f"hd_cross_lnlike disagrees with its plain "
-                               f"version at B = {B}: {e:.3e}")
+                               f"version at B = {B}: {e:.3e}, bitwise {bit}")
         if B == 32:
-            ms = _time_ms(lambda: K10._launch(G, u, la, ga, f, T), 3,
-                          warmup=1)
+            before = dict(K10.launch_counts)
+            K10._launch(G, u, la, ga, f, T)
+            a_call = {k: K10.launch_counts[k] - before[k]
+                      for k in K10.KERNELS.values()}
+            ms = _median_ms(lambda: K10._launch(G, u, la, ga, f, T),
+                            K10_REPS)
             plain = _time_ms(lambda: K10.hd_cross_lnlike_reference(
                 G, u, la, ga, f, T), 1, warmup=1)
-            lib_ms = _time_ms(lambda: library(M, v), 3, warmup=1)
+            lib_ms = _median_ms(lambda: library(M, v), K10_REPS)
             # G, u, the points and frequencies read, the (B, R, R + 1)
             # workspace and the results written
             nbytes = 8 * (R * R + R + 2 * B + m + B + B * R * (R + 1))
             bound = _bound(nbytes, B * _k10_ops(R, m), rate=F64_INSTR_PER_S)
-            rec = (ms, plain, lib_ms, bound)
+            rec = (ms, plain, lib_ms, bound, a_call)
         del M, v, z
     zl = torch.tensor([-float("inf"), -14.0, -float("inf")],
                       dtype=torch.float64, device=dev)
@@ -3043,18 +3107,25 @@ def _k10_kernels(jl, counts, bench, dev, tag) -> list:
     if not (float(z0[0]) == 0.0 and float(z0[2]) == 0.0
             and float(z0[1]) != 0.0):
         raise RuntimeError(f"hd_cross_lnlike at zero amplitude: {z0}")
-    ms, plain, lib_ms, bound = rec
+    ms, plain, lib_ms, bound, a_call = rec
+    verdict = "met" if ms <= lib_ms else "missed"
     print(f"phase kernel hd_cross_lnlike: R={R} m={m}; " + "; ".join(notes)
-          + f"; zero amplitude exactly 0.0; B=32 {ms:.4f} ms, plain "
-          f"{plain:.4f} ms, library cholesky_ex + solve_triangular + "
-          f"log-det {lib_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; "
-          f"{_k10_ops(R, m)} float64 instructions a walker) {tag}",
-          flush=True)
-    return [dict(name=K10.KERNELS[None], route="cuda",
+          + f"; zero amplitude exactly 0.0; B=48 peak {mem / 2**20:.2f} MiB "
+          f"over what was held (cap {cap / 2**20:.0f} MiB); B=32 {ms:.4f} "
+          f"ms (median of {K10_REPS}; {sum(a_call.values())} launches: "
+          + ", ".join(f"{k} {a_call[k]}" for k in a_call)
+          + f"), plain {plain:.4f} ms, library cholesky_ex + "
+          f"solve_triangular + log-det {lib_ms:.4f} ms (no slower than the "
+          f"library: {verdict}), bound {bound[0]:.4f} ms ({bound[1]}; "
+          f"{_k10_ops(R, m)} float64 instructions a walker), share "
+          f"{bound[0] / ms:.4f} {tag}", flush=True)
+    return [dict(name=K10.NAME, route="cuda",
                  source="pint_torch/kernels/csrc/hd_cross_lnlike.cu",
-                 replaces=K10.REPLACES, launches=counts[K10.KERNELS[None]],
+                 replaces=K10.REPLACES,
+                 launches=sum(counts[k] for k in K10.KERNELS.values()),
                  max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound[0],
-                 bound_by=bound[1], library_ms=lib_ms, path="catalog")]
+                 bound_by=bound[1], library_ms=lib_ms, path="catalog",
+                 parts={k: counts[k] for k in K10.KERNELS.values()})]
 
 
 def _noise_bars(f, rounds, ref, rref, notes) -> list:
@@ -3190,7 +3261,7 @@ def main() -> int:
     ptxas += [("chol_rank_update", K9.KERNELS[(sm, ing)],
                f"chol_rank_kernelILb{int(sm)}ELb{int(ing)}EE")
               for sm in (True, False) for ing in (False, True)]
-    ptxas += [("hd_cross_lnlike", K10.KERNELS[None], "hd_cross_kernel")]
+    ptxas += [("hd_cross_lnlike", k, k) for k in K10.KERNELS.values()]
     # no primal may spill (K1, K2 and K4 in each mode and orbit source,
     # K6, K7), nor ELL1H's duals, K6's and K7's duals or K5's tiled kernels
     k4_primals = [K4.KERNELS[(m, False)] for m in range(4)] \
@@ -3380,8 +3451,9 @@ def main() -> int:
                            f"{missing}")
 
     # ---- the catalogue phase: the PTA catalogue on K10 ----------------------
-    cat_counts, cat_jl, cat_bench = _catalog_phase(CATALOG_PATH, kernels, tag)
-    want = (*K1.KERNELS.values(), K10.KERNELS[None])
+    cat_counts, cat_jl, cat_bench, cat_pts = _catalog_phase(CATALOG_PATH,
+                                                            kernels, tag)
+    want = (*K1.KERNELS.values(), *K10.KERNELS.values())
     missing = [k for k in want if cat_counts[k] == 0]
     if missing:
         raise RuntimeError(f"kernels never launched on the catalog path: "
@@ -4477,7 +4549,7 @@ def main() -> int:
            bound_glob, lib_glob, path="ell1")
 
     records += _k9_kernels(stream_cap, stream_counts, dev, tag)
-    records += _k10_kernels(cat_jl, cat_counts, cat_bench, dev, tag)
+    records += _k10_kernels(cat_jl, cat_counts, cat_bench, cat_pts, dev, tag)
 
     print(f"phase wall: {time.perf_counter() - t_start:.2f} s for the whole "
           f"run {tag}", flush=True)

@@ -35,7 +35,10 @@ from pint_torch import F64
 from pint_torch.integrity.robust import (HUBER_K, huber_weights,
                                          irls_converged, median)
 from pint_torch.residuals import Residuals
-from pint_torch.runtime.solve import NonFiniteSystemError
+from pint_torch.exceptions import (ConvergenceFailure, CorrelatedErrors,
+                                   DegeneracyWarning, MaxiterReached,
+                                   NonFiniteSystemError, StepProblem,
+                                   UsageError)
 from pint_torch.utils import normalize_designmatrix
 
 __all__ = ["Fitter", "WLSFitter", "DownhillFitter", "DownhillWLSFitter",
@@ -45,37 +48,6 @@ __all__ = ["Fitter", "WLSFitter", "DownhillFitter", "DownhillWLSFitter",
            "LMFitter", "PowellFitter", "ModelState", "WLSState", "GLSState",
            "WidebandState", "get_gls_mtcm_mtcy",
            "get_gls_mtcm_mtcy_fullcov"]
-
-
-class UsageError(ValueError):
-    """Invalid argument or argument combination passed to a public API."""
-
-
-class DegeneracyWarning(UserWarning):
-    """The design matrix has (near-)degenerate directions."""
-
-
-class CorrelatedErrors(ValueError):
-    """A fitter that assumes uncorrelated errors was given correlated
-    noise."""
-
-    def __init__(self, model):
-        trouble = [type(c).__name__ for c in model.noise_components
-                   if getattr(c, "introduces_correlated_errors", False)]
-        super().__init__(f"Model has correlated errors ({trouble}); use a "
-                         "GLS-family fitter")
-
-
-class ConvergenceFailure(ValueError):
-    """A fitter failed to converge."""
-
-
-class StepProblem(ConvergenceFailure):
-    """A fitter step failed to decrease chi2 even after lambda-halving."""
-
-
-class MaxiterReached(ConvergenceFailure):
-    """Fitter hit the iteration limit before meeting tolerance."""
 
 
 class Fitter:

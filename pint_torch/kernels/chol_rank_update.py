@@ -20,12 +20,15 @@ is; a downdate of rows that were never in the factor poisons it with NaN
 and ``ok`` comes back false, nothing raises.
 
 On a CUDA tensor this launches ``csrc/chol_rank_update.cu`` (or raises):
-one CTA a factor, one thread a row, the factor in shared memory while it
-fits (K <= 169 on an H100), else in global memory.  On a CPU tensor it
-runs the plain PyTorch version, :func:`chol_rank_update_reference` /
-:func:`stream_ingest_reference`, which rounds op for op as the kernel
-does (each sum in the kernel's order), so the factor is bitwise the
-kernel's.
+one CTA a factor, the nonzero rows of ``V`` taken as a wavefront over the
+factor's columns (row m at column t - m at step t: a pass of n rows
+:func:`chain_steps` long, n + K - 1 steps, instead of n K), the factor in
+shared memory while it fits (K <= 223 on an H100), else in a global
+scratch.  On a CPU tensor it runs the plain PyTorch version,
+:func:`chol_rank_update_reference` / :func:`stream_ingest_reference`, a
+sweep row by row that rounds op for op as the kernel does (each entry's
+updates in row order, each sum in the kernel's order), so the factor is
+bitwise the kernel's.
 """
 
 from __future__ import annotations
@@ -38,8 +41,8 @@ from pint_torch import F64
 from pint_torch.kernels import _build
 
 __all__ = ["chol_rank_update", "stream_ingest", "chol_rank_update_reference",
-           "stream_ingest_reference", "uses_smem", "launch_counts",
-           "REPLACES", "KERNELS"]
+           "stream_ingest_reference", "uses_smem", "pass_rows",
+           "chain_steps", "launch_counts", "REPLACES", "KERNELS"]
 
 NAME = "chol_rank_update"
 REPLACES = "pint_tpu/streaming/lowrank.py:55"
@@ -112,10 +115,12 @@ def _lib():
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ctypes.c_double, ci, ci,
-                       ci, vp, vp, vp, vp, vp, vp]
+                       ci, vp, vp, vp, vp, vp, vp, vp, vp]
         fn.restype = ci
-        lib.chol_rank_update_uses_smem.argtypes = [ci]
-        lib.chol_rank_update_uses_smem.restype = ci
+        for f in (lib.chol_rank_update_uses_smem,
+                  lib.chol_rank_update_pass_rows):
+            f.argtypes = [ci]
+            f.restype = ci
     return lib
 
 
@@ -123,6 +128,20 @@ def uses_smem(K: int) -> bool:
     """Whether the kernel works a K-column factor in shared memory on the
     current CUDA device."""
     return bool(_lib().chol_rank_update_uses_smem(int(K)))
+
+
+def pass_rows(K: int) -> int:
+    """Rows of ``V`` one wavefront pass of the kernel takes at K columns
+    on the current CUDA device."""
+    return int(_lib().chol_rank_update_pass_rows(int(K)))
+
+
+def chain_steps(K: int, rows: int) -> int:
+    """Dependent column steps of a kernel call on ``rows`` nonzero rows:
+    each pass of n rows n + K - 1."""
+    n = pass_rows(K)
+    full, rest = divmod(int(rows), n)
+    return full * (n + K - 1) + (rest + K - 1 if rest else 0)
 
 
 def _launch(L, V, sign, ingest=None):
@@ -143,9 +162,15 @@ def _launch(L, V, sign, ingest=None):
     outs = [None if t is None else p(t) for t in (b2, chi22, rnow)]
     lib = _lib()
     smem = uses_smem(K)
+    # the working factor and the pass's rows, where shared memory cannot
+    # hold the factor
+    work = [None, None] if smem else [
+        torch.empty(K * (K + 1) // 2, dtype=F64, device=dev),
+        torch.empty((pass_rows(K), K), dtype=F64, device=dev)]
     rc = lib.chol_rank_update_launch(
-        p(L), p(V), *args, float(sign), K, k, int(ingest is not None), p(L2),
-        *outs, p(okc), _build.stream_of(L))
+        p(L), p(V), *args, float(sign), K, k, int(ingest is not None),
+        *(None if t is None else p(t) for t in work), p(L2), *outs, p(okc),
+        _build.stream_of(L))
     launch_counts[KERNELS[(smem, ingest is not None)]] += 1
     _build.check(NAME, rc)
     if ingest is None:

@@ -1,5 +1,6 @@
 // K10 hd_cross_lnlike: the Hellings-Downs cross term of the joint PTA
-// log-likelihood, one walker point (log10_A, gamma) per CTA.
+// log-likelihood at a batch of walker points, as a blocked right-looking
+// Cholesky spread over many CTAs per walker.
 //
 // Replaces the cross term of pint_tpu/catalog/likelihood.py:112
 // _joint_kernel (its lines 141-153: phi_gw and sqp, the einsum over the
@@ -14,116 +15,295 @@
 //            (scale = 1 / (12 pi^2 Tspan), every power as exp(y log x))
 //   d_r    = sqrt(phi_{(r mod 2m) / 2})
 //   M      = I + D G D  (M_ij = (d_i G_ij) d_j + delta_ij),  v = D u
-//   L L^T = M (left-looking, column by column), z = L^-1 v
+//   L L^T = M, z = L^-1 v
 //   out_b  = 0.5 sum_j z_j^2 - sum_j log L_jj
 // At log10_A = -inf the amplitude is exactly 0: M = I, v = 0, and the
 // result is exactly 0.0 (the reference's factorization pin).
 //
-// Design: one CTA per walker; the factor lives in a global workspace (B,
-// R, R + 1) the wrapper allocates, column-major per walker (column j's
-// rows j..R at W[j (R + 1) + i]; row R is the augmented row that carries
-// v, so that its entries become z).  Column j: phase 1, each thread takes
-// rows i >= j (strided over the block) and forms s_i = M_ij - sum_{k<j}
-// L_ik L_jk in ascending k (the row of v: v_j - sum z_k L_jk); a barrier;
-// phase 2, every thread takes the same pivot sqrt(s_j), divides its rows,
-// and thread 0 adds log L_jj; a barrier.  Thread 0 adds z_j^2 once column
-// j is out.  Every sum runs in one fixed order in one thread; no atomics.
-// Built with -fmad=false, each product and difference rounds alone, so the
-// plain version (kernels/hd_cross_lnlike.py), a right-looking loop whose
-// every entry sees the same rounding sequence, gives the same bits.
+// The factor lives in a global workspace (B, R, R + 1), column-major per
+// walker: column j's rows j..R at W[j (R + 1) + i], row R the augmented
+// row that carries v and becomes z.  Only the lower triangle is written or
+// read.  One call, per chunk of walkers the wrapper hands it:
+//   hd_cross_form    M's lower triangle and v into the workspace, in 32 x
+//                    32 tiles (G read row-wise, written column-wise);
+//   per panel of NB = 64 columns [k0, k1):
+//   hd_cross_panel   grid (row blocks of RB = 128 below the panel's
+//                    diagonal block) x walkers, one thread a row, its
+//                    panel entries in registers: the CTA factors the NB x
+//                    NB diagonal block right-looking (the pivot sqrt(a_jj),
+//                    each row's entry divided, each row's later entries
+//                    updated by one product each) and carries its RB rows
+//                    along, one barrier a column.  Every CTA of a walker
+//                    factors the diagonal block itself (the same bits), so
+//                    no CTA waits for another; block 0 keeps the pivots.
+//   hd_cross_trail   grid (64 x 64 tiles of the trailing lower triangle,
+//                    the augmented row included) x walkers, 128 threads,
+//                    an 8 x 4 register tile a thread: the tile's running
+//                    values stay in registers while the panel's columns
+//                    stream through shared memory KC = 32 at a time, and
+//                    each entry takes a = a - L_ik L_lk, one rounded
+//                    product at a time, in ascending k.
+//   hd_cross_sum     one CTA a walker: log L_jj and z_j^2 formed in
+//                    parallel, then both sums taken by one thread in column
+//                    order.
 //
-// What bounds it: the R^3 / 6 multiply-subtracts per walker (separate
-// float64 instructions under -fmad=false) at the CUDA cores' instruction
-// rate; in practice the left-looking loads (each column reads the
-// trailing rows' prefixes, R^3 / 6 doubles per walker from L2 or HBM)
-// and one SM per walker (B = 32 walkers fill 32 of 132 SMs).  A tiled,
-// multi-CTA or DMMA factorization is later work (ROADMAP
-// kernel-performance).
+// Bitwise with the plain version (kernels/hd_cross_lnlike.py), an
+// unblocked right-looking loop: built with -fmad=false (and no DMMA, whose
+// f64 tensor cores fuse the multiply-add), every entry receives the same
+// sequence of rounded products and differences in ascending column order,
+// each column is divided by its pivot after all earlier columns' updates,
+// and the two sums run in column order.  No partial sum of a panel's
+// products is ever formed apart from the entry's running value.
+//
+// What bounds it: the R^3 / 6 multiply-subtracts per walker, each a
+// separate float64 multiply and subtract on the CUDA cores (16.7e12
+// float64 instructions/s on an H100 SXM).  The trailing update holds most
+// of them: its register tile does 64 float64 instructions for every 12
+// shared-memory loads, and its tiles of all walkers fill the card; it also
+// streams the trailing triangle through HBM once a panel.  The panel
+// factor is NB / R of the work but a chain of R dependent columns a chunk
+// of walkers, each a sqrt, a division and a barrier: the larger the chunk,
+// the fewer chains (tools/torch_chol_probe.py times the blockings).
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int MAX_THREADS = 1024;
+constexpr int FT = 32;         // formation tile edge
+// the blocking (tools/torch_chol_probe.py --variants times others)
+constexpr int NB = 64;         // panel width
+constexpr int RB = 128;        // panel rows a CTA below the diagonal block
+constexpr int PT = NB + RB;    // panel CTA threads, one a row
+constexpr int TILE = 64;       // trailing tile edge
+constexpr int TM = 8;          // a thread's rows of the tile
+constexpr int TN = 4;          // a thread's columns of the tile
+constexpr int TX = TILE / TM;  // threads along the tile's rows
+constexpr int TY = TILE / TN;
+constexpr int TT = TX * TY;    // trailing CTA threads
+constexpr int KC = 32;         // panel columns staged at a time
+constexpr int ST = 256;        // sum CTA threads
 
-__global__ void hd_cross_kernel(const double* __restrict__ G,
-                                const double* __restrict__ u,
-                                const double* __restrict__ log10_A,
-                                const double* __restrict__ gamma,
-                                const double* __restrict__ freqs, int R,
-                                int m, double scale, double ln10,
-                                double lnfyr, double* __restrict__ W,
-                                double* __restrict__ out) {
-  extern __shared__ double sq[];  // sqrt(phi_k), k < m
-  const int t = threadIdx.x, T = blockDim.x;
-  const int b = blockIdx.x;
+__device__ __forceinline__ double sqrt_phi(int r, int two_m, double la,
+                                           double g, const double* freqs,
+                                           double scale, double ln10,
+                                           double lnfyr) {
+  const int k = (r % two_m) >> 1;
+  const double amp = exp(la * ln10);
+  const double phi = (((amp * amp) * scale) * exp((g - 3.0) * lnfyr))
+                     * exp((-g) * log(freqs[k]));
+  return sqrt(phi);
+}
+
+__global__ void __launch_bounds__(FT * 8)
+hd_cross_form(const double* __restrict__ G, const double* __restrict__ u,
+              const double* __restrict__ log10_A,
+              const double* __restrict__ gamma,
+              const double* __restrict__ freqs, int R, int m, double scale,
+              double ln10, double lnfyr, double* __restrict__ W) {
+  __shared__ double tile[FT][FT + 1];
+  __shared__ double dr[FT], dc[FT];
+  const int ntc = (R + FT - 1) / FT;
+  const int ti = blockIdx.x / ntc, tj = blockIdx.x % ntc;
+  if (tj > ti) return;
+  const int b = blockIdx.y, tx = threadIdx.x, ty = threadIdx.y;
+  const int i0 = ti * FT, j0 = tj * FT, two_m = 2 * m;
   const long LD = (long)R + 1;
   double* w = W + (long)b * R * LD;
-  const int two_m = 2 * m;
-
   const double la = log10_A[b], g = gamma[b];
-  for (int k = t; k < m; k += T) {
-    const double amp = exp(la * ln10);
-    const double phi = (((amp * amp) * scale) * exp((g - 3.0) * lnfyr))
-                       * exp((-g) * log(freqs[k]));
-    sq[k] = sqrt(phi);
+  // d of the tile's rows (ty 0) and columns (ty 1)
+  const int di = (ty == 0 ? i0 : j0) + tx;
+  if (ty < 2 && di < R)
+    (ty == 0 ? dr : dc)[tx] =
+        sqrt_phi(di, two_m, la, g, freqs, scale, ln10, lnfyr);
+  for (int r = ty; r < FT; r += 8) {
+    const int i = i0 + r, j = j0 + tx;
+    tile[r][tx] = (i < R && j < R) ? G[(long)i * R + j] : 0.0;
   }
   __syncthreads();
+  for (int c = ty; c < FT; c += 8) {
+    const int j = j0 + c, i = i0 + tx;
+    if (j >= R || i > R || i < j) continue;
+    w[(long)j * LD + i] = i < R
+        ? (dr[tx] * tile[tx][c]) * dc[c] + (i == j ? 1.0 : 0.0)
+        : dc[c] * u[j];
+  }
+}
 
-  double acc_log = 0.0, acc_zz = 0.0;
-  for (int j = 0; j < R; ++j) {
-    const double dj = sq[(j % two_m) >> 1];
-    double* colj = w + (long)j * LD;
-    // phase 1: the column's entries before the division
-    for (int i = j + t; i <= R; i += T) {
-      double s;
-      if (i < R)
-        s = (sq[(i % two_m) >> 1] * G[(long)i * R + j]) * dj
-            + (i == j ? 1.0 : 0.0);
-      else
-        s = dj * u[j];
-      for (int k = 0; k < j; ++k) {
-        const double* colk = w + (long)k * LD;
-        s = s - colk[i] * colk[j];
+// The panel [k0, k0 + nbw): thread t < NB holds the diagonal block's row
+// k0 + t, thread NB + q the row r0 + q below it (r0 = k0 + nbw + RB
+// blockIdx.x), its panel entries in registers, x[0] the current column's
+// and x[l] column jj + l's, shifted along after each column so that one
+// column's code (not unrolled over the columns) serves them all.  Per
+// column jj: every thread takes the pivot sqrt(L_jj) published before the
+// last barrier and divides its entry; the diagonal block's rows publish
+// theirs (column jj, double-buffered), and row jj + 1 its next diagonal
+// entry, already updated by its own product; a row below stores its
+// finished entry; a barrier; each row's later panel entries take their
+// product.  One barrier a column.
+__global__ void __launch_bounds__(PT)
+hd_cross_panel(double* __restrict__ W, double* __restrict__ piv_out, int R,
+               int k0, int nbw) {
+  __shared__ double cj[2][NB];  // column jj of the diagonal block, divided
+  __shared__ double pd[2];      // the next pivot's entry
+  const int t = threadIdx.x, b = blockIdx.y;
+  const long LD = (long)R + 1;
+  double* w = W + (long)b * R * LD;
+  const bool diag = t < NB;
+  const int row = diag ? k0 + t : k0 + nbw + RB * blockIdx.x + t - NB;
+  const bool live = diag ? t < nbw : row <= R;
+  double x[NB];
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+    x[c] = (live && c < nbw && (!diag || c <= t))
+        ? w[(long)(k0 + c) * LD + row] : 0.0;
+  if (t == 0) pd[0] = x[0];
+  __syncthreads();
+  for (int jj = 0; jj < nbw; ++jj) {
+    const double piv = sqrt(pd[jj & 1]);
+    const int rel = t - jj;
+    const bool below = live && (!diag || rel > 0);
+    if (below) x[0] = x[0] / piv;
+    if (diag && below) {
+      cj[jj & 1][t] = x[0];
+      if (rel == 1) {
+        x[1] = x[1] - x[0] * x[0];
+        pd[(jj + 1) & 1] = x[1];
       }
-      colj[i] = s;
+    }
+    if (t == 0 && blockIdx.x == 0) piv_out[(long)b * R + k0 + jj] = piv;
+    if (!diag && live) w[(long)(k0 + jj) * LD + row] = x[0];
+    __syncthreads();
+    if (below) {
+#pragma unroll
+      for (int l = 1; l < NB; ++l)
+        if (jj + l < nbw && (!diag || (l <= rel && !(l == 1 && rel == 1))))
+          x[l] = x[l] - x[0] * cj[jj & 1][jj + l];
+    }
+#pragma unroll
+    for (int l = 0; l < NB - 1; ++l) x[l] = x[l + 1];
+  }
+}
+
+// The trailing lower triangle after the panel [k0, k1): rows k1..R,
+// columns k1..R-1, each entry minus L_ik L_lk for k = k0..k1-1 in turn.
+// Thread (tx, ty) holds rows i0 + tx + TX a and columns l0 + ty + TY c.
+__global__ void __launch_bounds__(TT)
+hd_cross_trail(double* __restrict__ W, int R, int k0, int k1) {
+  __shared__ double Li[KC][TILE], Ll[KC][TILE];
+  const int ntc = (R - k1 + TILE - 1) / TILE;
+  const int ti = blockIdx.x / ntc, tl = blockIdx.x % ntc;
+  if (tl > ti) return;
+  const int b = blockIdx.y, t = threadIdx.x, tx = t % TX, ty = t / TX;
+  const long LD = (long)R + 1;
+  double* w = W + (long)b * R * LD;
+  const int i0 = k1 + ti * TILE, l0 = k1 + tl * TILE;
+  auto in = [&](int i, int l) { return i <= R && l < R && i >= l; };
+  double acc[TM][TN];
+#pragma unroll
+  for (int a = 0; a < TM; ++a)
+#pragma unroll
+    for (int c = 0; c < TN; ++c) {
+      const int i = i0 + tx + TX * a, l = l0 + ty + TY * c;
+      acc[a][c] = in(i, l) ? w[(long)l * LD + i] : 0.0;
+    }
+  for (int kc = k0; kc < k1; kc += KC) {
+    const int kn = min(KC, k1 - kc);
+    __syncthreads();
+    for (int e = t; e < KC * TILE; e += TT) {
+      const int kk = e / TILE, r = e % TILE;
+      const double* col = w + (long)(kc + kk) * LD;
+      Li[kk][r] = (kk < kn && i0 + r <= R) ? col[i0 + r] : 0.0;
+      Ll[kk][r] = (kk < kn && l0 + r < R) ? col[l0 + r] : 0.0;
     }
     __syncthreads();
-    // phase 2: the pivot (the same bits in every thread) and the division
-    const double piv = sqrt(colj[j]);
-    for (int i = j + 1 + t; i <= R; i += T) colj[i] = colj[i] / piv;
-    if (t == 0) acc_log = acc_log + log(piv);
-    __syncthreads();
-    if (t == 0) {
-      const double z = colj[R];
-      acc_zz = acc_zz + z * z;
+#pragma unroll 4
+    for (int kk = 0; kk < kn; ++kk) {
+      double li[TM], ll[TN];
+#pragma unroll
+      for (int a = 0; a < TM; ++a) li[a] = Li[kk][tx + TX * a];
+#pragma unroll
+      for (int c = 0; c < TN; ++c) ll[c] = Ll[kk][ty + TY * c];
+#pragma unroll
+      for (int a = 0; a < TM; ++a)
+#pragma unroll
+        for (int c = 0; c < TN; ++c) acc[a][c] = acc[a][c] - li[a] * ll[c];
     }
+  }
+#pragma unroll
+  for (int a = 0; a < TM; ++a)
+#pragma unroll
+    for (int c = 0; c < TN; ++c) {
+      const int i = i0 + tx + TX * a, l = l0 + ty + TY * c;
+      if (in(i, l)) w[(long)l * LD + i] = acc[a][c];
+    }
+}
+
+__global__ void __launch_bounds__(ST)
+hd_cross_sum(const double* __restrict__ W, const double* __restrict__ piv,
+             int R, double* __restrict__ out) {
+  __shared__ double lg[ST * 4], zz[ST * 4];
+  const int t = threadIdx.x, b = blockIdx.x;
+  const long LD = (long)R + 1;
+  const double* w = W + (long)b * R * LD;
+  double acc_log = 0.0, acc_zz = 0.0;
+  for (int j0 = 0; j0 < R; j0 += ST * 4) {
+    const int n = min(ST * 4, R - j0);
+    for (int q = t; q < n; q += ST) {
+      const double z = w[(long)(j0 + q) * LD + R];
+      lg[q] = log(piv[(long)b * R + j0 + q]);
+      zz[q] = z * z;
+    }
+    __syncthreads();
+    if (t == 0)
+      for (int q = 0; q < n; ++q) {
+        acc_log = acc_log + lg[q];
+        acc_zz = acc_zz + zz[q];
+      }
+    __syncthreads();
   }
   if (t == 0) out[b] = 0.5 * acc_zz - acc_log;
 }
 
 }  // namespace
 
-// G (R, R) row-major, u (R,), log10_A and gamma (B,), freqs (m,) with R a
-// multiple of 2 m; workspace (B, R, R + 1); out (B,).  scale = 1 / (12 pi^2
-// Tspan), ln10 = log(10), lnfyr = log(1 / yr in Hz), from the caller.
+// One chunk of B walkers: G (R, R) row-major, u (R,), log10_A and gamma
+// (B,), freqs (m,) with R a multiple of 2 m; workspace (B, R, R + 1),
+// pivots (B, R), out (B,).  scale = 1 / (12 pi^2 Tspan), ln10 = log(10),
+// lnfyr = log(1 / yr in Hz), from the caller.  counts[0..3] += the
+// launches of hd_cross_form, _panel, _trail and _sum.
 extern "C" int hd_cross_lnlike_launch(const double* G, const double* u,
                                       const double* log10_A,
                                       const double* gamma,
                                       const double* freqs, int B, int R,
                                       int m, double scale, double ln10,
                                       double lnfyr, double* workspace,
-                                      double* out, void* stream) {
+                                      double* pivots, double* out,
+                                      int* counts, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (B <= 0 || R <= 0 || m <= 0 || R % (2 * m) != 0)
+  if (B <= 0 || B > 65535 || R <= 0 || m <= 0 || R % (2 * m) != 0)
     return (int)cudaErrorInvalidValue;
-  int threads = ((R + 1 + 31) / 32) * 32;
-  threads = threads > MAX_THREADS ? MAX_THREADS : threads;
-  const size_t shmem = (size_t)m * sizeof(double);
-  if (shmem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  hd_cross_kernel<<<B, threads, shmem, st>>>(G, u, log10_A, gamma, freqs, R,
-                                             m, scale, ln10, lnfyr, workspace,
-                                             out);
+  cudaError_t e;
+  const int nf = (R + 1 + FT - 1) / FT, nfc = (R + FT - 1) / FT;
+  hd_cross_form<<<dim3(nf * nfc, B), dim3(FT, 8), 0, st>>>(
+      G, u, log10_A, gamma, freqs, R, m, scale, ln10, lnfyr, workspace);
+  ++counts[0];
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  for (int k0 = 0; k0 < R; k0 += NB) {
+    const int nbw = R - k0 < NB ? R - k0 : NB, k1 = k0 + nbw;
+    const int nrb = (R + 1 - k1 + RB - 1) / RB;
+    hd_cross_panel<<<dim3(nrb, B), PT, 0, st>>>(workspace, pivots, R, k0,
+                                                nbw);
+    ++counts[1];
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    if (k1 == R) break;
+    const int ntr = (R + 1 - k1 + TILE - 1) / TILE;
+    const int ntc = (R - k1 + TILE - 1) / TILE;
+    hd_cross_trail<<<dim3(ntr * ntc, B), TT, 0, st>>>(workspace, R, k0, k1);
+    ++counts[2];
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  hd_cross_sum<<<B, ST, 0, st>>>(workspace, pivots, R, out);
+  ++counts[3];
   return (int)cudaGetLastError();
 }
 

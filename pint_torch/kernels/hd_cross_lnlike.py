@@ -22,14 +22,18 @@ with ``R = n_pulsars x 2 n_modes`` (only its lower triangle is read), ``u``
 (R,), ``log10_A`` and ``gamma`` (B,), ``freqs`` (m,); returns (B,).  At
 ``log10_A = -inf`` the amplitude is exactly 0 and the result exactly 0.0.
 
-On a CUDA tensor this launches ``csrc/hd_cross_lnlike.cu`` (or raises): one
-CTA per point, a column-by-column (left-looking) Cholesky in a (B, R, R + 1)
-global workspace this wrapper allocates, the solve as the factor's
-augmented row, and fixed-order sums.  On a CPU tensor it runs
+On a CUDA tensor this launches ``csrc/hd_cross_lnlike.cu`` (or raises): a
+blocked right-looking Cholesky over many CTAs a walker -- M formed into a
+(walkers, R, R + 1) global workspace, then per panel of 64 columns a panel
+factor and a tiled update of the trailing lower triangle, the solve as the
+factor's augmented row, and fixed-order sums -- with the walkers taken in
+chunks so that the workspace never exceeds :data:`WORKSPACE_CAP_BYTES`.
+The card has no backward kernel yet: a gradient through a CUDA call
+raises ``NotImplementedError``.  On a CPU tensor it runs
 :func:`hd_cross_lnlike_reference`, a right-looking loop in which every
 entry sees the kernel's rounding sequence (each product rounded alone, the
 differences in ascending column order), so its result is the kernel's
-bitwise.
+bitwise, for any chunking; it is differentiable.
 """
 
 from __future__ import annotations
@@ -43,13 +47,19 @@ from pint_torch import F64
 from pint_torch.kernels import _build
 
 __all__ = ["hd_cross_lnlike", "hd_cross_lnlike_reference", "launch_counts",
-           "REPLACES", "KERNELS", "FYR_HZ"]
+           "REPLACES", "KERNELS", "FYR_HZ", "WORKSPACE_CAP_BYTES",
+           "walkers_per_chunk"]
 
 NAME = "hd_cross_lnlike"
 REPLACES = "pint_tpu/catalog/likelihood.py:112"
-#: the one ``__global__`` of ``csrc/hd_cross_lnlike.cu``
-KERNELS = {None: "hd_cross_lnlike"}
+#: the kernels of ``csrc/hd_cross_lnlike.cu``, in launch order: M's
+#: formation, a panel's factor, the trailing update, the sums
+KERNELS = {"form": "hd_cross_form", "panel": "hd_cross_panel",
+           "trail": "hd_cross_trail", "sum": "hd_cross_sum"}
 launch_counts = dict.fromkeys(KERNELS.values(), 0)
+#: the most device memory one call's workspace (the factor and the pivots
+#: of its chunk of walkers) may take
+WORKSPACE_CAP_BYTES = 2 ** 30
 
 #: one inverse year in Hz, the spectrum's reference frequency
 FYR_HZ = 1.0 / (365.25 * 86400.0)
@@ -88,12 +98,26 @@ def hd_cross_lnlike_reference(G, u, log10_A, gamma, freqs, Tspan: float):
     acc_zz = torch.zeros(B, dtype=F64, device=G.device)
     for j in range(R):
         piv = torch.sqrt(A[:, j, j])
-        col = A[:, j + 1:, j] / piv[:, None]
+        # a copy, so that autograd keeps no view of A across the update
+        col = A[:, j + 1:, j].clone() / piv[:, None]
         A[:, j + 1:, j + 1:].sub_(col[:, :, None] * col[:, None, :])
         acc_log = acc_log + torch.log(piv)
         z = col[:, -1]
         acc_zz = acc_zz + z * z
     return 0.5 * acc_zz - acc_log
+
+
+def walkers_per_chunk(B: int, R: int) -> int:
+    """Walkers a launch takes so that the (chunk, R, R + 1) factor and the
+    (chunk, R) pivots stay within :data:`WORKSPACE_CAP_BYTES`, the ``B``
+    walkers split into chunks as even as may be."""
+    per = 8 * (R * (R + 1) + R)
+    if per > WORKSPACE_CAP_BYTES:
+        raise ValueError(
+            f"hd_cross_lnlike: one walker's workspace at R = {R} is {per} "
+            f"bytes, over the cap of {WORKSPACE_CAP_BYTES}")
+    n = math.ceil(B / (WORKSPACE_CAP_BYTES // per))
+    return math.ceil(B / n)
 
 
 def _lib():
@@ -102,7 +126,7 @@ def _lib():
     if fn.argtypes is None:
         vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, cd, cd, cd, vp, vp,
-                       vp]
+                       vp, vp, vp]
         fn.restype = ci
     return lib
 
@@ -110,15 +134,38 @@ def _lib():
 def _launch(G, u, log10_A, gamma, freqs, Tspan):
     B, R, m = log10_A.shape[0], G.shape[0], freqs.shape[0]
     dev = G.device
-    work = torch.empty((B, R, R + 1), dtype=F64, device=dev)
+    n = walkers_per_chunk(B, R)
+    work = torch.empty((n, R, R + 1), dtype=F64, device=dev)
+    piv = torch.empty((n, R), dtype=F64, device=dev)
     out = torch.empty((B,), dtype=F64, device=dev)
     p = _build.ptr
-    rc = _lib().hd_cross_lnlike_launch(
-        p(G), p(u), p(log10_A), p(gamma), p(freqs), B, R, m, _scale(Tspan),
-        _LN10, _LN_FYR, p(work), p(out), _build.stream_of(G))
-    launch_counts[KERNELS[None]] += 1
-    _build.check(NAME, rc)
+    lib = _lib()
+    for b0 in range(0, B, n):
+        b1 = min(B, b0 + n)
+        counts = (ctypes.c_int * len(KERNELS))()
+        rc = lib.hd_cross_lnlike_launch(
+            p(G), p(u), p(log10_A[b0:b1]), p(gamma[b0:b1]), p(freqs),
+            b1 - b0, R, m, _scale(Tspan), _LN10, _LN_FYR, p(work), p(piv),
+            p(out[b0:b1]), counts, _build.stream_of(G))
+        for name, c in zip(KERNELS.values(), counts):
+            launch_counts[name] += c
+        _build.check(NAME, rc)
     return out
+
+
+class _OnCard(torch.autograd.Function):
+    """The CUDA launch under autograd: no backward kernel yet (queue B 5b),
+    so a gradient through it raises instead of coming back empty."""
+
+    @staticmethod
+    def forward(ctx, G, u, log10_A, gamma, freqs, Tspan):
+        return _launch(G, u, log10_A, gamma, freqs, Tspan)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(
+            "hd_cross_lnlike: no backward kernel on the card yet (queue B "
+            "5b); differentiate its plain version on CPU tensors")
 
 
 def hd_cross_lnlike(G, u, log10_A, gamma, freqs, Tspan: float):
@@ -140,7 +187,7 @@ def hd_cross_lnlike(G, u, log10_A, gamma, freqs, Tspan: float):
             "device, and Tspan > 0")
     G, u, log10_A, gamma, freqs = (t.contiguous() for t in ts)
     if G.is_cuda:
-        return _launch(G, u, log10_A, gamma, freqs, float(Tspan))
+        return _OnCard.apply(G, u, log10_A, gamma, freqs, float(Tspan))
     if G.device.type != "cpu":
         raise ValueError(f"hd_cross_lnlike: no kernel for device {G.device}")
     return hd_cross_lnlike_reference(G, u, log10_A, gamma, freqs,

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from pint_torch.dd import dd_mul, dd_sub
+from pint_torch.exceptions import MissingParameter, TimingModelError
 from pint_torch.kernels import binary_orbits as K6
 from pint_torch.kernels import dd_binary as K2
 from pint_torch.kernels import ell1_binary as K4
@@ -44,16 +45,6 @@ __all__ = ["PulsarBinary", "BinaryBT", "BinaryBT_piecewise", "BinaryDD",
 DAY_S = 86400.0
 
 
-class MissingParameter(ValueError):
-    """A component lacks a parameter its model needs (the reference's
-    ``MissingParameter``)."""
-
-
-class TimingModelError(ValueError):
-    """A parameter value the model cannot use (the reference's
-    ``TimingModelError``)."""
-
-
 class PulsarBinary(DelayComponent):
     """Config: ``nfb`` and ``nwaves``, the FBX and ORBWAVES orbits'
     counts (0 and 0: PB/PBDOT orbits)."""
@@ -71,15 +62,15 @@ class PulsarBinary(DelayComponent):
         the epoch, A1, SINI and ECC."""
         name = type(self).__name__
         if not self.config.get("nfb", 0) and self._value("PB") is None:
-            raise MissingParameter(f"{name}: PB (or FB0) is required")
+            raise MissingParameter(name, "PB (or FB0)")
         if self.config.get("nwaves", 0):
             for p in ("ORBWAVE_OM", "ORBWAVE_EPOCH"):
                 if self._value(p) is None:
-                    raise MissingParameter(f"{name}: {p} is required")
+                    raise MissingParameter(name, p)
         if self._value(self.epoch_param) is None:
-            raise MissingParameter(f"{name}: {self.epoch_param} is required")
+            raise MissingParameter(name, self.epoch_param)
         if self._value("A1") is None:
-            raise MissingParameter(f"{name}: A1 is required")
+            raise MissingParameter(name, "A1")
         sini = self._value("SINI")
         if sini is not None and not -1.0 <= sini <= 1.0:
             raise TimingModelError(f"SINI = {sini} must be within [-1, 1]")
@@ -225,8 +216,8 @@ class BinaryBT_piecewise(BinaryBT):
         for i in self.config.get("piece_indices", []):
             for pre in ("XR1_", "XR2_"):
                 if self._value(f"{pre}{i:04d}") is None:
-                    raise MissingParameter(
-                        f"BinaryBT_piecewise: {pre}{i:04d} is required")
+                    raise MissingParameter("BinaryBT_piecewise",
+                                           f"{pre}{i:04d}")
 
     def delay_func(self, pv, batch, ctx, acc_delay):
         tt0 = self._tt0(pv, batch, acc_delay)
@@ -288,7 +279,7 @@ class BinaryDDH(BinaryDD):
     def validate(self):
         super().validate()
         if self._value("H3") is None or self._value("STIGMA") is None:
-            raise MissingParameter("BinaryDDH: H3/STIGMA are required")
+            raise MissingParameter("BinaryDDH", "H3/STIGMA")
 
     def _row(self, pv, tt0):
         sini, m2 = ddh_sini_m2(pv, tt0)
@@ -306,7 +297,7 @@ class BinaryDDGR(BinaryDD):
     def validate(self):
         super().validate()
         if self._value("MTOT") is None or self._value("M2") is None:
-            raise MissingParameter("BinaryDDGR: MTOT/M2 are required")
+            raise MissingParameter("BinaryDDGR", "MTOT/M2")
 
     def binary_delay(self, pv, tt0):
         return K2.dd_binary(tt0, stack_params(ddgr_row(pv, tt0), DDGR_PARAMS,
@@ -330,7 +321,7 @@ class BinaryDDK(BinaryDD):
     def validate(self):
         super().validate()
         if self._value("KIN") is None or self._value("KOM") is None:
-            raise MissingParameter("BinaryDDK: KIN/KOM are required")
+            raise MissingParameter("BinaryDDK", "KIN/KOM")
         if self._value("PX") in (None, 0.0):
             raise TimingModelError(
                 "DDK needs a non-zero PX (Kopeikin parallax terms)")

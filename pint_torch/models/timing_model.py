@@ -30,16 +30,13 @@ from torch.func import jacfwd
 
 from pint_torch import F64
 from pint_torch.dd import DD
+from pint_torch.exceptions import MissingComponent
 from pint_torch.phase import Phase
 
 __all__ = ["Param", "Component", "DelayComponent", "PhaseComponent",
            "NoiseComponent", "TimingModel", "DEFAULT_ORDER",
            "OFFSET_PRIOR_WEIGHT", "TOP_LEVEL_PARAMS", "MissingComponent"]
 
-
-class MissingComponent(ValueError):
-    """The model lacks a component the caller needs (reference
-    ``pint_tpu.exceptions.MissingComponent``)."""
 
 #: variance [s^2] of the uninformative prior on the marginalized overall
 #: phase offset (``augment_basis_for_offset``); the reference's value, kept

@@ -26,12 +26,9 @@ from typing import List, Optional
 
 import numpy as np
 
+from pint_torch.exceptions import CheckpointError
+
 __all__ = ["CheckpointError", "fingerprint_of", "SweepCheckpoint"]
-
-
-class CheckpointError(Exception):
-    """A checkpoint is unusable: fingerprint mismatch, corrupt file, or
-    incompatible layout."""
 
 
 def fingerprint_of(**kw) -> str:

@@ -8,6 +8,8 @@ from dataclasses import dataclass
 
 import torch
 
+from pint_torch.exceptions import NonFiniteSystemError, SingularMatrixError
+
 __all__ = ["SolveDiagnostics", "JITTER_LADDER", "LADDER_RUNGS", "SVD_RUNG",
            "NonFiniteSystemError", "SingularMatrixError", "hardened_cholesky",
            "solve_normal_cholesky", "ladder_cholesky_solve"]
@@ -18,14 +20,6 @@ JITTER_LADDER = (0.0, 1e-12, 1e-9, 1e-6)
 LADDER_RUNGS = 3
 #: level reported when the eigendecomposition rung was used
 SVD_RUNG = LADDER_RUNGS
-
-
-class NonFiniteSystemError(ValueError):
-    """NaN/inf in a linear system: refusing to solve."""
-
-
-class SingularMatrixError(ValueError):
-    """Cholesky failed at every jitter rung; escalate to SVD."""
 
 
 @dataclass(frozen=True)

@@ -27,6 +27,7 @@ import torch
 
 from pint_torch import F64
 from pint_torch.dd import DD, two_prod, two_sum
+from pint_torch.exceptions import TOAIntegrityError
 
 __all__ = ["TOABatch", "merge_TOAs", "ROW_LOCAL_CONTEXTS",
            "TOAIntegrityError"]
@@ -43,14 +44,6 @@ ROW_LOCAL_CONTEXTS = ("DispersionDMX", "PhaseJump", "DelayJump",
 #: components that read nothing per TOA from their context beyond the
 #: model's own (the TZR row): a subset leaves them out
 _NOT_PER_TOA = ("AbsPhase",)
-
-
-class TOAIntegrityError(ValueError):
-    """TOA validation found rows to quarantine under the strict policy."""
-
-    def __init__(self, msg, report=None):
-        super().__init__(msg)
-        self.report = report
 
 
 class _Quarantine:

@@ -20,7 +20,9 @@ log-likelihoods 1e-9 rel, the joint one 1e-9 x max(1, |ref|), its cross
 term 1e-8 x max(1, |ref cross|); at zero amplitude the cross term exactly
 0.0 and the joint value the per-pulsar sum to 1e-12 rel; K10's plain
 version against the reference's ``_joint_kernel`` cross term at 3 and 5
-modes and on synthetic operands with a padded member; the chain bitwise;
+modes and on synthetic operands with a padded member; the card's blocked
+schedule bitwise the plain version, its workspace cap, the gradient of
+the plain version and the card's refusal of one; the chain bitwise;
 the refusals.
 """
 
@@ -473,6 +475,133 @@ def test_k10_plain_version_against_a_dense_factorization():
         hd_cross_lnlike(G, u, la, ga, freqs[:2], 3e8)
     with pytest.raises(ValueError):
         hd_cross_lnlike(G, u, la, ga, freqs, 0.0)
+
+
+def _k10_blocked(G, u, la, ga, freqs, Tspan, nb, chunk, tile=5):
+    """K10's schedule on the card in plain torch: the walkers in chunks of
+    ``chunk``; M and v formed; per panel of ``nb`` columns its diagonal
+    block factored right-looking (pivot, division, the later columns
+    updated one product at a time), the rows below it, the augmented row
+    among them, solved against it column by column, then the trailing
+    lower triangle in ``tile`` x ``tile`` tiles, each tile's entries
+    updated by the panel's columns one rounded product at a time in
+    ascending k; the sums in column order."""
+    from pint_torch.kernels.hd_cross_lnlike import _sqrt_phi
+
+    R, m = G.shape[0], freqs.shape[0]
+    eye = torch.eye(R, dtype=torch.float64)
+    outs = []
+    for b0 in range(0, la.shape[0], chunk):
+        l_, g_ = la[b0:b0 + chunk], ga[b0:b0 + chunk]
+        n = l_.shape[0]
+        d = _sqrt_phi(l_, g_, freqs, Tspan).repeat_interleave(
+            2, dim=1).repeat(1, R // (2 * m))
+        W = torch.zeros((n, R + 1, R), dtype=torch.float64)
+        W[:, :R] = (d[:, :, None] * G) * d[:, None, :] + eye
+        W[:, R] = d * u
+        piv = torch.zeros((n, R), dtype=torch.float64)
+        for k0 in range(0, R, nb):
+            k1 = min(R, k0 + nb)
+            for j in range(k0, k1):  # the diagonal block, right-looking
+                piv[:, j] = torch.sqrt(W[:, j, j])
+                W[:, j + 1:k1, j] = W[:, j + 1:k1, j] / piv[:, j, None]
+                for c in range(j + 1, k1):
+                    W[:, c:k1, c] = W[:, c:k1, c] \
+                        - W[:, c:k1, j] * W[:, c, j, None]
+            for j in range(k0, k1):  # the rows below it, solved
+                W[:, k1:, j] = W[:, k1:, j] / piv[:, j, None]
+                for c in range(j + 1, k1):
+                    W[:, k1:, c] = W[:, k1:, c] - W[:, k1:, j] * W[:, c, j, None]
+            for i0 in range(k1, R + 1, tile):
+                for c0 in range(k1, min(i0 + tile, R), tile):
+                    c1 = min(c0 + tile, R)
+                    blk = W[:, i0:i0 + tile, c0:c1]
+                    for k in range(k0, k1):
+                        blk -= W[:, i0:i0 + tile, k, None] \
+                            * W[:, None, c0:c1, k]
+        acc_log = torch.zeros(n, dtype=torch.float64)
+        acc_zz = torch.zeros(n, dtype=torch.float64)
+        for j in range(R):
+            acc_log = acc_log + torch.log(piv[:, j])
+            z = W[:, R, j]
+            acc_zz = acc_zz + z * z
+        outs.append(0.5 * acc_zz - acc_log)
+    return torch.cat(outs)
+
+
+@pytest.mark.parametrize("nb", [2, 3, 8])
+def test_k10_tile_schedule_is_bitwise_the_plain_version(joint, nb):
+    """K10's blocked schedule (panels of nb columns, each a factored
+    diagonal block and a solve of the rows below, tiles updated one
+    product at a time in ascending k, the augmented row along, walkers
+    chunked and not) is ``torch.equal`` to ``hd_cross_lnlike_reference``
+    on small_catalog's G and u (R = 96) and on a random SPD G at R = 26
+    (13 pulsars x 2 modes: no multiple of 3 or 8; R is always even), with
+    a zero-amplitude point among the walkers."""
+    from pint_torch.kernels.hd_cross_lnlike import hd_cross_lnlike_reference
+
+    jl = joint[0]
+    rng = np.random.default_rng(nb)
+    A = rng.normal(size=(30, 26))
+    cases = [(jl.G, jl.u, jl._freqs_t, jl.Tspan),
+             (torch.as_tensor(A.T @ A * 1e14), torch.as_tensor(
+                 rng.normal(size=26) * 1e7), torch.tensor([1.0 / 3e8]),
+              3e8)]
+    la = torch.tensor([-14.5, -13.9, -np.inf, -15.2, -14.1],
+                      dtype=torch.float64)
+    ga = torch.tensor([4.33, 3.1, 4.33, 5.0, 2.5], dtype=torch.float64)
+    for G, u, f, T in cases:
+        want = hd_cross_lnlike_reference(G, u, la, ga, f, T)
+        assert float(want[2]) == 0.0
+        for chunk in (5, 2):
+            assert torch.equal(_k10_blocked(G, u, la, ga, f, T, nb, chunk),
+                               want), (G.shape, chunk)
+
+
+def test_k10_workspace_cap_and_chunks():
+    """The walkers a launch takes keep the workspace (factor and pivots)
+    within ``WORKSPACE_CAP_BYTES`` and split as evenly as may be; a single
+    walker over the cap is refused."""
+    from pint_torch.kernels.hd_cross_lnlike import (WORKSPACE_CAP_BYTES,
+                                                    walkers_per_chunk)
+
+    for B, R in ((32, 1876), (48, 1876), (1, 1876), (7, 96), (500, 96)):
+        n = walkers_per_chunk(B, R)
+        assert 1 <= n <= B
+        assert n * 8 * (R * (R + 1) + R) <= WORKSPACE_CAP_BYTES
+        chunks = -(-B // n)
+        assert chunks == -(-B // (WORKSPACE_CAP_BYTES
+                                  // (8 * (R * (R + 1) + R))))
+    assert walkers_per_chunk(32, 1876) == 32
+    assert walkers_per_chunk(48, 1876) == 24
+    with pytest.raises(ValueError):
+        walkers_per_chunk(1, 12000)
+
+
+def test_k10_plain_version_differentiates_and_the_card_refuses(monkeypatch):
+    """The CPU twin carries a gradient to log10_A and gamma; the CUDA
+    launch's autograd node raises ``NotImplementedError`` naming queue B
+    5b instead of returning no gradient (driven here with the launch
+    replaced by the plain version, on CPU tensors)."""
+    from pint_torch.kernels import hd_cross_lnlike as K10
+
+    rng = np.random.default_rng(3)
+    A = rng.normal(size=(16, 12))
+    G = torch.as_tensor(A.T @ A * 1e14)
+    u = torch.as_tensor(rng.normal(size=12) * 1e7)
+    f = torch.tensor([1.0 / 3e8, 2.0 / 3e8], dtype=torch.float64)
+    la = torch.tensor([-14.0, -13.5], dtype=torch.float64,
+                      requires_grad=True)
+    ga = torch.tensor([4.33, 3.0], dtype=torch.float64, requires_grad=True)
+    K10.hd_cross_lnlike(G, u, la, ga, f, 3e8).sum().backward()
+    assert bool(torch.isfinite(la.grad).all()) and bool((la.grad != 0).all())
+    assert bool(torch.isfinite(ga.grad).all())
+    monkeypatch.setattr(K10, "_launch", lambda *a: K10.
+                        hd_cross_lnlike_reference(*a).detach())
+    out = K10._OnCard.apply(G, u, la, ga, f, 3e8)
+    assert out.requires_grad
+    with pytest.raises(NotImplementedError, match="B 5b"):
+        out.sum().backward()
 
 
 def test_chain_on_lnlike_batch_is_the_reference_chain(both, joint):

@@ -460,6 +460,7 @@ def _ref_raises(model, **values):
 ])
 def test_validate_refusals_match_the_references_types(settings, values):
     from pint_torch.bridge import load_snapshot
+    from pint_torch.exceptions import ModelError
 
     s = {"DDS": standin.SMALL_DDS_SETTINGS, "DDH": standin.SMALL_DDH_SETTINGS,
          "BT": standin.SMALL_BT_SETTINGS, "DDGR": standin.SMALL_DDGR_SETTINGS,
@@ -470,4 +471,4 @@ def test_validate_refusals_match_the_references_types(settings, values):
     with pytest.raises(Exception) as e:
         load_snapshot(_with(arrays, **values), device="cpu")
     assert type(e.value).__name__ == want
-    assert isinstance(e.value, ValueError)
+    assert isinstance(e.value, ModelError)

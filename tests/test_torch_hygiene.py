@@ -38,7 +38,8 @@ def _port_sources():
     return files + [REPO / "chip_smoke.py",
                     REPO / "tools" / "torch_grid_profile.py",
                     REPO / "tools" / "torch_kernel_variants.py",
-                    REPO / "tools" / "torch_sass_ops.py"]
+                    REPO / "tools" / "torch_sass_ops.py",
+                    REPO / "tools" / "torch_chol_probe.py"]
 
 
 def test_import_and_load_pull_in_no_jax():
@@ -389,7 +390,7 @@ def test_cpu_tensors_never_reach_a_kernel():
     counts = kernels.launch_counts()
     assert set(counts) == {n for mod in kernels.modules().values()
                            for n in mod.KERNELS.values()}
-    assert len(counts) == 2 + 20 + 2 + 16 + 3 + 6 + 2 + 5 + 4 + 1
+    assert len(counts) == 2 + 20 + 2 + 16 + 3 + 6 + 2 + 5 + 4 + 4
     assert not any(counts.values())
 
 

@@ -7,7 +7,8 @@ K9's plain version against the reference's ``_rank_pass`` and
 1e-13 of the factor's largest entry: XLA's CPU code rounds the sweep's
 sums and products in its own order, a few 1e-16 of it measured; the
 plain version itself rounds as the kernel does); pad rows bitwise no-ops;
-a downdate of absent rows refused with the reference's reason text; the
+the card's order (a wavefront over the rows, in passes) bitwise the plain
+version's; a downdate of absent rows refused with the reference's reason text; the
 condition guard.  Then the small stream stand-in (``small_stream``: the
 small stand-in without ECORR, five red-noise modes on a 6-yr period, 80
 TOAs) in both packages, operation by operation: the kind, block,
@@ -116,6 +117,69 @@ def test_pad_rows_are_bitwise_no_ops():
     y = stream_ingest(t(L), t(b), c2, t(Vp), t(rp), t(wp), t(dx), 1.0)
     assert torch.equal(x[0], y[0])
     assert np.allclose(x[1].numpy(), y[1].numpy(), rtol=1e-15, atol=0)
+
+
+def _k9_wavefront(L, V, sign, pass_rows):
+    """K9's order on the card in plain torch: the nonzero rows of ``V`` in
+    passes of ``pass_rows``, each pass a wavefront -- at step t, row m of
+    the pass takes column j = t - m: its owner's (r, c, s) from L[j, j] and
+    x_m[j], L[j, j] = r, then the rows below j of column j and of x_m --
+    with the plain version's formulas."""
+    L = L.clone()
+    K = L.shape[0]
+    rows = [V[r].clone() for r in range(V.shape[0])
+            if bool((V[r] != 0).any())]
+    for p0 in range(0, len(rows), pass_rows):
+        xs = rows[p0:p0 + pass_rows]
+        n = len(xs)
+        for t in range(n + K - 1):
+            active = [(m, t - m) for m in range(n) if 0 <= t - m < K]
+            cs = {}
+            for m, j in active:
+                d, xj = L[j, j].clone(), xs[m][j].clone()
+                rr = torch.sqrt(d * d + sign * xj * xj)
+                cs[m] = (rr / d, xj / d)
+                L[j, j] = rr
+            for m, j in active:
+                c, s = cs[m]
+                xi = xs[m][j + 1:]
+                col = (L[j + 1:, j] + (sign * s) * xi) / c
+                L[j + 1:, j] = col
+                xs[m][j + 1:] = c * xi - s * col
+    return L
+
+
+@pytest.mark.parametrize("pass_rows", [3, 48])
+@pytest.mark.parametrize("sign", [1.0, -1.0], ids=["update", "downdate"])
+@pytest.mark.parametrize("K", [12, 23])
+def test_k9_wavefront_order_is_bitwise_the_plain_version(K, sign,
+                                                         pass_rows):
+    """The wavefront over rows (one pass, or passes of 3 rows), with zero
+    rows interleaved, gives ``chol_rank_update_reference``'s factor and,
+    on weighted rows, ``stream_ingest_reference``'s, bitwise: each entry
+    takes the rows' updates in row order either way."""
+    from pint_torch.kernels.chol_rank_update import (
+        chol_rank_update_reference, stream_ingest_reference)
+
+    L, rng = _spd_factor(K, 40 + K)
+    V = rng.normal(size=(16, K))
+    V[[0, 3, 4, 9, 15]] = 0.0
+    t = torch.tensor
+    L, V = t(L), t(V)
+    if sign < 0:
+        L = chol_rank_update_reference(L, V, 1.0)
+    want = chol_rank_update_reference(L, V, sign)
+    assert torch.equal(_k9_wavefront(L, V, sign, pass_rows), want)
+    w = t(rng.uniform(0.5, 2.0, 16))
+    w[[2, 7]] = 0.0
+    r, dx, b = t(rng.normal(size=16)), t(1e-3 * rng.normal(size=K)), \
+        t(rng.normal(size=K))
+    got = stream_ingest_reference(L, b, t(np.float64(3.0)), V, r, w, dx,
+                                  sign)[0]
+    mine = _k9_wavefront(L, torch.sqrt(w)[:, None] * V, sign, pass_rows)
+    # a weighted downdate may drive a diagonal through zero: NaN alike
+    assert torch.equal(torch.isnan(mine), torch.isnan(got))
+    assert torch.equal(torch.nan_to_num(mine), torch.nan_to_num(got))
 
 
 def test_downdate_of_absent_rows_is_refused_like_the_reference():
