@@ -208,7 +208,25 @@ Phases, one line each:
    repetitions) and the 48 stored ones, the seeded 32 x 10 chain; its
    bars in ``_catalog_phase``; printed the bench block's quantities
    (``catalog_fits_per_s``, ``joint_lnlike_per_s``, ``pad_waste_frac``,
-   buckets), each stage's wall s and the peak device memory;
+   buckets), each stage's wall s and the peak device memory.  Then the
+   sweep phase on b1855 and dmx15 (counts zeroed around each; K1, K2's
+   DD and K3 must launch): after the first fit, ``grid_chisq`` of the
+   32 x 32 M2 x SINI grid stored under ``ref/sweep/`` (``chunk=256``,
+   four chunks) unfused and at ``fuse=3`` and ``4`` -- each fused group
+   one replay of a CUDA graph of its chunks, captured at the first fused
+   call --, the fused surfaces bitwise the unfused one and each at the
+   grid bars against the reference's fused sweep, ``fn.fused``'s
+   dispatches the reference's; printed the warm walls (median of 5), the
+   graphs' replays and captured launches, the profiled kernels and busy
+   share and the peak memory of each kind.  Then on b1855
+   ``grid_chisq(checkpoint=)`` into a temporary directory, a sweep of
+   the phase's own chunk function under ``checkpointed_map`` failing once
+   with a device-shaped error (retried) and once with another at chunk 2
+   (resumed, chunks 2-3 recomputed), each bitwise the unfused surface,
+   and the refusal of a checkpoint after a parameter value changed; and a
+   32 x 10 ``EnsembleSampler`` chain on ngc_phoff whose batched
+   lnposterior fails once with a device-shaped error, bitwise the chain
+   without it;
 4. kernels -- each CUDA kernel (the primal and dual instantiations of K1,
    K2 and K4 -- K4's for ELL1, ELL1k, ELL1H exact and ELL1H harmonic --,
    K3's shared-memory instantiation at nt = 88 and its global one at nt =
@@ -3175,6 +3193,394 @@ def _noise_bars(f, rounds, ref, rref, notes) -> list:
     return checks
 
 
+#: the sweep phase's grid and fused widths (the reference's ``ref/sweep/``
+#: was run at fuse 3; the port's fuse 4 holds one group)
+SWEEP_GRID = ("M2", "SINI")
+SWEEP_FUSES = (3, 4)
+SWEEP_REPS = 5
+
+
+def _sweep_ref(path):
+    """(meta, the snapshot's arrays, the stored sweep's arrays by name)."""
+    from pint_torch.bridge import read_snapshot
+
+    meta, ref = read_snapshot(path)
+    P = "ref/sweep/"
+    return meta, ref, {k[len(P):]: v for k, v in ref.items()
+                       if k.startswith(P)}
+
+
+def _sweep_fitter(path, meta):
+    """The GLS fitter after the snapshot's first fit, on the card."""
+    from pint_torch.bridge import load_snapshot
+    from pint_torch.gls_fitter import GLSFitter
+
+    model, batch = load_snapshot(path, device="cuda")
+    f = GLSFitter(batch, model)
+    f.fit_toas(maxiter=meta["reference"]["settings"]["fit_maxiter"])
+    return f
+
+
+def _sweep_surface(c2, extra, f, names):
+    """(chi2 (P,), the extra parameters' values (P, n), diag (P, 3)) of a
+    ``grid_chisq`` call on the host."""
+    import numpy as np
+
+    d = f.last_grid_diagnostics
+    return (np.asarray(c2).ravel(),
+            np.stack([np.asarray(extra[n]).ravel() for n in names], axis=1),
+            np.stack([d["ladder_rung"].ravel().astype(float),
+                      d["ridge"].ravel(), d["condition"].ravel()], axis=1))
+
+
+def _same(a, b) -> bool:
+    import numpy as np
+
+    return all(np.array_equal(x, y, equal_nan=True) for x, y in zip(a, b))
+
+
+def _sweep_phase(label, path, kernels, tag):
+    """The fused GLS sweep on one stand-in, counts zeroed just before and
+    read just after: after the first fit, ``grid_chisq`` of the stored
+    32 x 32 M2 x SINI grid (``chunk=256``, the snapshot's ``niter``)
+    unfused and at ``fuse=3`` and ``4``, cold and then the median of 5 warm
+    calls each; the fused surfaces (chi2, the extra parameters' refit
+    values, rung, ridge and condition) must be bitwise the unfused one,
+    and each holds the reference's fused surface (``ref/sweep/``) at the
+    grid bars: chi2 1e-6 rel, argmin and rungs equal, values within 1e-2
+    sigma.  The grid function built as ``grid_chisq`` builds it gives
+    ``fn.fused``'s ``dispatch_count()`` (the reference's stored one at
+    fuse 3) and its graphs' replays and captured launches (the wrappers
+    count a launch where it is captured: the replays run the captured
+    launches again uncounted).  Printed: the warm walls, the CUDA kernels
+    and busy share of one warm sweep of each kind under ``torch.profiler``,
+    the peak device memory (``max_memory_allocated``) of a cold and a warm
+    sweep at fuse 1 (the unfused sweep), 3 and 4, and what the caching
+    allocator keeps reserved after each fuse's sweeps once its free blocks
+    are released (``empty_cache``): a captured graph's intermediates live
+    in its private pool, which counts as reserved, not allocated, and
+    stays reserved while the graph lives in the model's grid bundle; the
+    reserve is read again after the bundle is dropped.  Returns the
+    phase's counts."""
+    import gc
+    import numpy as np
+    import statistics
+    import torch
+
+    from pint_torch.grid import build_grid_chi2_fn, grid_chisq, point_spans
+
+    meta, ref, sw = _sweep_ref(path)
+    rr = meta["reference"]
+    niter = rr["settings"]["grid_niter"]
+    extra = ("PB", "A1")
+    axes = (sw["m2"], sw["sini"])
+    pts = np.stack([g.ravel() for g in np.meshgrid(*axes, indexing="ij")],
+                   axis=-1)
+    names = rr["postfit_params"]
+    sig = np.array([ref["ref/postfit_uncertainties"][names.index(p)]
+                    for p in extra])
+    f = _sweep_fitter(path, meta)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2**20
+    kernels.reset_counts()
+
+    def sweep(fuse):
+        c2, ex = grid_chisq(f, SWEEP_GRID, axes, extraparnames=extra,
+                            niter=niter, chunk=256,
+                            fuse=None if fuse == 1 else fuse)
+        return _sweep_surface(c2, ex, f, extra)
+
+    def timed(fuse):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = sweep(fuse)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t, \
+            torch.cuda.max_memory_allocated() / 2**20
+
+    def reserved():
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved() / 2**20
+
+    cold, warm, peak, surf, resv = {}, {}, {}, {}, {0: reserved()}
+    for fuse in (1,) + SWEEP_FUSES:
+        surf[fuse], cold[fuse], pk_cold = timed(fuse)
+        walls, pk_warm = [], 0.0
+        for _ in range(SWEEP_REPS):
+            out, w, pk = timed(fuse)
+            walls.append(w)
+            pk_warm = max(pk_warm, pk)
+            if not _same(out, surf[fuse]):
+                raise RuntimeError(f"sweep {label}: a warm fuse={fuse} "
+                                   "sweep differs from the cold one")
+        warm[fuse] = statistics.median(walls)
+        peak[fuse] = (pk_cold, pk_warm)
+        resv[fuse] = reserved()
+    counts = kernels.launch_counts()
+    fn, _, fit_params = build_grid_chi2_fn(
+        f.model, f.batch, SWEEP_GRID, niter=niter, chunk=256,
+        grid_spans=point_spans(f.model, SWEEP_GRID, pts))
+    base = fn(pts)
+    n_unfused = fn.dispatch_count()
+    dispatch = {}
+    for fuse in SWEEP_FUSES:
+        got = fn.fused(pts, fuse=fuse)
+        dispatch[fuse] = fn.dispatch_count()
+        if not _same(got, base):
+            raise RuntimeError(f"sweep {label}: fn.fused(fuse={fuse}) is "
+                               "not bitwise fn")
+    stats = fn.graph_stats()
+    prof = {fuse: _profile_cuda(lambda: sweep(fuse))
+            for fuse in (1,) + SWEEP_FUSES}
+    del fn
+    f.model._cache.clear()
+    resv_dropped = reserved()
+    bitwise = all(_same(surf[fz], surf[1]) for fz in SWEEP_FUSES)
+    rc2, rdg = sw["chi2"].ravel(), sw["diag"]
+    rvf = np.stack([sw[p.lower()].ravel() for p in extra], axis=1)
+    c2, vf, dg = surf[SWEEP_FUSES[0]]
+    d_c2 = float(np.max(np.abs(c2 / rc2 - 1)))
+    d_vf = float(np.max(np.abs(vf - rvf) / sig))
+    same_arg = int(np.nanargmin(c2)) == int(np.nanargmin(rc2))
+    same_rung = bool(np.array_equal(dg[:, 0], rdg[:, 0]))
+    want_disp = int(sw["dispatch_count"])
+    nchunks = -(-len(pts) // 256)
+    print(f"phase sweep {label}: {len(pts)} points, chunk 256 ({nchunks} "
+          f"chunks), niter={niter}, fits {len(fit_params)}; fused bitwise "
+          f"the unfused (chi2, {', '.join(extra)}, rung, ridge, condition; "
+          f"fn.fused against fn too) {bitwise}; against ref/sweep/ (the "
+          f"reference's fuse=3): chi2 max rel {d_c2:.3e} (<= 1e-6), argmin "
+          f"{same_arg}, rungs {same_rung}, values max {d_vf:.3e} sigma (<= "
+          f"1e-2); dispatches unfused {n_unfused}, "
+          + ", ".join(f"fuse={fz} {dispatch[fz]}" for fz in SWEEP_FUSES)
+          + f" (reference fuse=3 {want_disp}) {tag}", flush=True)
+    for fuse in (1,) + SWEEP_FUSES:
+        n_ev, us, wall = prof[fuse]
+        st = stats.get(fuse, {})
+        busy = "not measured" if us is None else \
+            f"{n_ev} CUDA kernels, {us / 1e3:.4f} ms device in " \
+            f"{wall * 1e3:.4f} ms, busy {us / 1e6 / wall:.4f}"
+        graph = "" if fuse == 1 else (
+            f"; graph replays {st.get('replays')}, captured launches a "
+            f"replay {sum(st.get('launches', {}).values())} ("
+            + ", ".join(f"{k} {v}" for k, v in st.get("launches",
+                                                      {}).items()) + ")")
+        print(f"phase sweep {label} fuse={fuse}: cold {cold[fuse]:.4f} s, "
+              f"warm {warm[fuse]:.4f} s (median of {SWEEP_REPS}), "
+              f"{len(pts) / warm[fuse]:.2f} fits/s; profiled warm sweep "
+              f"{busy}; max_memory_allocated cold {peak[fuse][0]:.2f} MiB, "
+              f"warm {peak[fuse][1]:.2f} MiB ({held:.2f} MiB held before "
+              f"the sweeps); memory_reserved after its sweeps "
+              f"{resv[fuse]:.2f} MiB{graph} {tag}", flush=True)
+    print(f"phase sweep {label} memory: memory_reserved (after empty_cache)"
+          f" before the sweeps {resv[0]:.2f} MiB, after fuse=1 "
+          f"{resv[1]:.2f}, after fuse="
+          + ", after fuse=".join(f"{fz} {resv[fz]:.2f}" for fz in SWEEP_FUSES)
+          + f" (graphs of fuse {', '.join(map(str, SWEEP_FUSES))} held in "
+          f"the grid bundle), after the bundle is dropped "
+          f"{resv_dropped:.2f} MiB {tag}", flush=True)
+    if not (bitwise and d_c2 <= 1e-6 and same_arg and same_rung
+            and d_vf <= 1e-2 and dispatch[3] == want_disp
+            and n_unfused == nchunks
+            and all(dispatch[fz] == -(-nchunks // fz) for fz in SWEEP_FUSES)
+            and all(stats.get(fz, {}).get("replays") for fz in SWEEP_FUSES)):
+        raise RuntimeError(f"sweep {label}: a bar missed")
+    return counts
+
+
+def _sweep_families(paths, tag) -> None:
+    """A fused GLS sweep captured on each binary family's GLS stand-in
+    ``(label, path)``: the grid pair the last two free parameters but F0
+    and F1, 16 points about their values at chunk 4 and ``niter=1``,
+    ``fn.fused(fuse=2)`` (two replays of one graph) bitwise ``fn``; with
+    the parameters as fitted and with every other one frozen, so that
+    frozen values (numbers, not tensors) reach ``evaluate`` under the
+    capture."""
+    import numpy as np
+
+    from pint_torch.bridge import load_snapshot
+    from pint_torch.grid import build_grid_chi2_fn, point_spans
+
+    res = []
+    for label, path in paths:
+        for frozen in (False, True):
+            model, batch = load_snapshot(path, device="cuda")
+            free = [n for n, p in model.params_table.items()
+                    if not p.frozen]
+            grid = tuple(n for n in free if n not in ("F0", "F1"))[-2:]
+            if frozen:
+                for n in free:
+                    if n not in ("F0", "F1") + grid:
+                        model[n].frozen = True
+            steps = []
+            for n in grid:
+                v, u = model.value(n), model[n].uncertainty
+                steps.append(v + np.linspace(-1, 1, 4) * (
+                    u if u and np.isfinite(u) else 1e-9 * max(abs(v), 1)))
+            pts = np.stack([g.ravel() for g in np.meshgrid(
+                *steps, indexing="ij")], axis=-1)
+            fn, _, _ = build_grid_chi2_fn(
+                model, batch, grid, niter=1, chunk=4,
+                grid_spans=point_spans(model, grid, pts))
+            base = fn(pts)
+            got = fn.fused(pts, fuse=2)
+            same = _same(got, base)
+            reps = fn.graph_stats().get(2, {}).get("replays")
+            res.append((f"{label}{' frozen' if frozen else ''} "
+                        f"{'x'.join(grid)}", same, reps,
+                        same and reps == 2 and fn.dispatch_count() == 2))
+    print("phase sweep families: fn.fused(fuse=2) of 16 points at chunk 4 "
+          "against fn (bitwise, graph replays): "
+          + "; ".join(f"{n} {same} {r}" for n, same, r, _ in res)
+          + f" {tag}", flush=True)
+    bad = [n for n, _, _, ok in res if not ok]
+    if bad:
+        raise RuntimeError(f"sweep families: a fused sweep missed: {bad}")
+
+
+def _sweep_checkpoint(path, tag) -> None:
+    """Checkpointed sweeps on the stand-in, each into a fresh temporary
+    directory: ``grid_chisq(checkpoint=)`` bitwise the unfused surface;
+    the phase's own chunk function (the built grid function on a block)
+    failing once with a device-shaped error under ``checkpointed_map``
+    with a retry policy, retried, bitwise; the same stopped by a
+    non-retryable error at chunk 2 and resumed, recomputing chunks 2-3
+    only, bitwise; and after one parameter value changes,
+    ``grid_chisq(checkpoint=)`` on the first directory raises
+    ``CheckpointError``."""
+    import shutil
+
+    import numpy as np
+
+    from pint_torch.exceptions import CheckpointError
+    from pint_torch.grid import build_grid_chi2_fn, grid_chisq, point_spans
+    from pint_torch.runtime.checkpoint import RetryPolicy, checkpointed_map
+
+    meta, ref, sw = _sweep_ref(path)
+    niter = meta["reference"]["settings"]["grid_niter"]
+    axes = (sw["m2"], sw["sini"])
+    pts = np.stack([g.ravel() for g in np.meshgrid(*axes, indexing="ij")],
+                   axis=-1)
+    f = _sweep_fitter(path, meta)
+    base, _ = grid_chisq(f, SWEEP_GRID, axes, niter=niter, chunk=256)
+    base_d = f.last_grid_diagnostics["ladder_rung"]
+    tmp = Path(tempfile.mkdtemp(prefix="pint_torch_sweep_"))
+    try:
+        c_ck, _ = grid_chisq(f, SWEEP_GRID, axes, niter=niter, chunk=256,
+                             checkpoint=str(tmp / "whole"),
+                             retry=RetryPolicy(backoff_base=0.0))
+        whole = bool(np.array_equal(c_ck, base) and np.array_equal(
+            f.last_grid_diagnostics["ladder_rung"], base_d))
+        files = sorted(p.name for p in (tmp / "whole").iterdir())
+        fn, _, _ = build_grid_chi2_fn(
+            f.model, f.batch, SWEEP_GRID, niter=niter, chunk=256,
+            grid_spans=point_spans(f.model, SWEEP_GRID, pts))
+        blocks = [pts[i:i + 256] for i in range(0, len(pts), 256)]
+        fp = dict(parnames=SWEEP_GRID, pts=pts, niter=niter)
+        calls = []
+
+        def chunk_fn(blk, fail_at=None, exc=None):
+            i = next(j for j, b in enumerate(blocks) if b is blk)
+            calls.append(i)
+            if i == fail_at and calls.count(i) == 1:
+                raise exc
+            c2, vf, dg = fn(blk)
+            return {"chi2": c2, "vfit": vf, "diag": dg}
+
+        def stitched(outs):
+            return np.concatenate([o["chi2"] for o in outs])
+
+        outs = checkpointed_map(
+            lambda b: chunk_fn(b, 1, RuntimeError(
+                "injected: CUDA error on device 0")), blocks,
+            checkpoint=str(tmp / "retried"), fingerprint=fp,
+            retry=RetryPolicy(backoff_base=0.0))
+        retried = bool(calls == [0, 1, 1, 2, 3]
+                       and np.array_equal(stitched(outs), base.ravel()))
+        calls.clear()
+        stop = KeyError("injected: the sweep stops at chunk 2")
+        try:
+            checkpointed_map(lambda b: chunk_fn(b, 2, stop), blocks,
+                             checkpoint=str(tmp / "resumed"), fingerprint=fp)
+            stopped = False
+        except KeyError:
+            stopped = calls == [0, 1, 2]
+        calls.clear()
+        outs = checkpointed_map(lambda b: chunk_fn(b), blocks,
+                                checkpoint=str(tmp / "resumed"),
+                                fingerprint=fp)
+        resumed = bool(stopped and calls == [2, 3]
+                       and np.array_equal(stitched(outs), base.ravel()))
+        m2 = f.model.copy()
+        m2["PB"].value = m2.value("PB") + 1e-10
+        from pint_torch.gls_fitter import GLSFitter
+
+        try:
+            grid_chisq(GLSFitter(f.batch, m2), SWEEP_GRID, axes, niter=niter,
+                       chunk=256, checkpoint=str(tmp / "whole"))
+            refused = ""
+        except CheckpointError as e:
+            refused = f"CheckpointError: {str(e)[:60]}..."
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase sweep checkpoint: grid_chisq(checkpoint=) bitwise "
+          f"{whole} ({', '.join(files)}); one device-shaped failure retried, "
+          f"bitwise {retried}; stopped at chunk 2 and resumed, chunks 2-3 "
+          f"recomputed, bitwise {resumed}; a changed PB refused: "
+          f"{refused or 'no'} {tag}", flush=True)
+    if not (whole and retried and resumed and refused
+            and files == ["chunk_00000.npz", "chunk_00001.npz",
+                          "chunk_00002.npz", "chunk_00003.npz",
+                          "meta.json"]):
+        raise RuntimeError("a checkpointed sweep missed a bar")
+
+
+def _sampler_retries(path, tag) -> None:
+    """One ``EnsembleSampler`` chain on the stand-in (32 walkers x 10
+    steps from the stored walkers) whose batched lnposterior fails once
+    with a device-shaped error: retried, the chain bitwise the one
+    without the failure."""
+    import numpy as np
+
+    from pint_torch.bayesian import BayesianTiming
+    from pint_torch.bridge import load_snapshot, read_snapshot
+    from pint_torch.sampler import EnsembleSampler
+
+    meta, ref = read_snapshot(path)
+    bz = meta["reference"]["bayes"]
+    model, batch = load_snapshot(path, device="cuda")
+    bt = BayesianTiming(model, batch, prior_info=_bayes_info(meta, ref))
+
+    def chain(inject):
+        calls = [0]
+
+        def lnpost(pts):
+            calls[0] += 1
+            if inject and calls[0] == 3:
+                raise RuntimeError("injected: device lost")
+            return bt.lnposterior_batch(pts)
+
+        s = EnsembleSampler(bz["nwalkers"], seed=bz["seeds"]["sampler"],
+                            retries=2, retry_backoff=0.0)
+        s.initialize_batched(lnpost, len(bt.param_labels))
+        s.run_mcmc(ref["ref/bayes/pos"].copy(), 10)
+        return np.asarray(s._chain), np.asarray(s._lnprob), calls[0]
+
+    x1, l1, n1 = chain(True)
+    x0, l0, n0 = chain(False)
+    same = bool(np.array_equal(x1, x0) and np.array_equal(l1, l0)
+                and n1 == n0 + 1)
+    print(f"phase sweep sampler retries: {bz['nwalkers']} walkers x 10 "
+          f"steps, one injected device-shaped failure retried ({n1} "
+          f"evaluations against {n0}), chain and lnprob bitwise the "
+          f"uninjected {same} {tag}", flush=True)
+    if not same:
+        raise RuntimeError("a retried chain differs from the uninjected one")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -3458,6 +3864,27 @@ def main() -> int:
     if missing:
         raise RuntimeError(f"kernels never launched on the catalog path: "
                            f"{missing}")
+
+    # ---- the sweep phase: fused, checkpointed and retried GLS sweeps --------
+    t_sweep = time.perf_counter()
+    for label, path, k3 in (("b1855", STANDIN_PATH, K3.KERNELS[False]),
+                            ("dmx15", DMX15_PATH, K3.KERNELS[True])):
+        sweep_counts = _sweep_phase(label, path, kernels, tag)
+        missing = [k for k in (*K1.KERNELS.values(), *k2[K2.DD], k3)
+                   if sweep_counts[k] == 0]
+        if missing:
+            raise RuntimeError(f"kernels never launched on the {label} sweep "
+                               f"phase: {missing}")
+    _sweep_families((("ddk", DDK_PATH), ("bt", BT_SMALL_PATH),
+                     ("dds", DDS_SMALL_PATH), ("ddh", DDH_SMALL_PATH),
+                     ("small_dd_fbx", DD_FBX_SMALL_PATH),
+                     ("small_bt_piecewise", BT_PIECEWISE_SMALL_PATH),
+                     ("small_pta", PTA_SMALL_PATH),
+                     ("small_wb", WB_SMALL_PATH)), tag)
+    _sweep_checkpoint(STANDIN_PATH, tag)
+    _sampler_retries(NGC_PHOFF_PATH, tag)
+    print(f"phase sweep wall: {time.perf_counter() - t_sweep:.2f} s {tag}",
+          flush=True)
 
     # ---- kernels against their plain twins ----------------------------------
     # Every CUDA kernel -- the primal and dual instantiations of K1, of K2

@@ -28,6 +28,14 @@ noise model, as the reference does (``grid.py:1251``):
   (:mod:`pint_torch.kernels.wls_lstsq`), the reference's ``lstsq``, and the
   chi2 is the weighted sum of squares.  A point whose singular values are
   not finite is poisoned (rung -1).
+
+``grid_chisq`` takes the reference's whole signature.  ``fuse=K`` on the
+GLS grid retires K chunks a dispatch: on the card one CUDA graph, captured
+once per (grid bundle, chunk, ``niter``, K) and replayed; on the CPU the
+group's chunks run one after another.  ``checkpoint=`` runs the sweep
+through :func:`pint_torch.runtime.checkpoint.checkpointed_map` (chunks
+persisted, retried under ``retry`` and resumed bitwise).  Meshes and
+execution plans are ROADMAP queue A item 9.
 """
 
 from __future__ import annotations
@@ -40,20 +48,64 @@ import torch
 from torch.func import jvp, vmap
 
 from pint_torch import F64
+from pint_torch import config as _config
+from pint_torch.exceptions import UsageError
 from pint_torch.kernels.schur_cholesky_solve import schur_cholesky_solve
 from pint_torch.kernels.wls_lstsq import wls_lstsq
+from pint_torch.logging import log
 from pint_torch.runtime.solve import SVD_RUNG, hardened_cholesky
 from pint_torch.utils import classify_linear_columns, linearity_probe_steps
 
 __all__ = ["build_grid_chi2_fn", "build_grid_gls_chi2_fn", "grid_chisq",
            "grid_chisq_derived", "tuple_chisq", "tuple_chisq_derived",
-           "WrappedFitter", "doonefit", "point_spans", "RIDGE", "ESCALATION"]
+           "WrappedFitter", "doonefit", "point_spans", "default_gls_chunk",
+           "RIDGE", "ESCALATION"]
 
 #: base ridge of the normalized Schur solve (the reference's CPU branch:
 #: normalize by diag(A - Y^T Y), ridge 1e-12; H100 float64 is IEEE)
 RIDGE = 1e-12
 #: ridge multipliers of the chunk-level escalation ladder
 ESCALATION = (1.0, 1e3, 1e6)
+#: the static GLS chunk by device type: 256 on the card (every chip run of
+#: the port used it), the reference's 128 on the CPU; a point's result does
+#: not depend on the chunk
+_STATIC_CHUNK = {"cuda": 256, "cpu": 128}
+#: the WLS grid's chunk when none is given
+_WLS_CHUNK = 256
+_warned_executor = False
+
+
+def default_gls_chunk(device=None) -> int:
+    """The GLS grid's chunk on ``device`` (default: the card where one is
+    visible, else the CPU): the process override
+    (:func:`pint_torch.config.set_grid_chunk` / ``PINT_TORCH_GRID_CHUNK``,
+    a typed :class:`UsageError` when malformed) wins, else
+    :data:`_STATIC_CHUNK`."""
+    override = _config.grid_chunk()
+    if override is not None:
+        return int(override)
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    return _STATIC_CHUNK.get(torch.device(device).type, _STATIC_CHUNK["cpu"])
+
+
+def _resolve_auto_chunk(model, batch, chunk, gls: bool = True):
+    """The ``chunk`` string contract: ``"auto"`` is the static default
+    (the tuned decision is ROADMAP queue A item 8's; the reference takes
+    this branch on a manifest miss) and ``None`` on the WLS grid, any
+    other string a :class:`UsageError`; anything else passes through."""
+    if not isinstance(chunk, str):
+        return chunk
+    if chunk != "auto":
+        raise UsageError(
+            f"chunk={chunk!r}: pass a positive integer, 'auto', or "
+            "None for the static default")
+    if not gls:
+        return None
+    resolved = default_gls_chunk(batch.device)
+    log.info(f"grid chunk 'auto': no tuned decision (the autotuner is "
+             f"ROADMAP queue A item 8); the static default {resolved}")
+    return resolved
 
 
 def _model_param_sig(model) -> tuple:
@@ -148,8 +200,9 @@ def _grid_bundle(model, batch, evaluate, jac_fn, all_names, nfit, ngrid,
     """The per-grid constants of the GLS grid (reference
     ``grid.py:540-633``): expansion point, white weights, the classified
     constant columns with their unit-W-norm scaling and Gram blocks, the
-    noise block's factor and Y = L_D^-1 C^T, and the Woodbury chi2 factor
-    with the offset marginalized."""
+    noise block's factor and Y = L_D^-1 C^T, the Woodbury chi2 factor
+    with the offset marginalized, and an empty dict for the fused sweep's
+    CUDA graphs, which live and die with the bundle."""
     dev = batch.device
     sigma = model.scaled_toa_uncertainty(batch)
     w = torch.as_tensor(1.0 / sigma**2, dtype=F64, device=dev)
@@ -185,15 +238,20 @@ def _grid_bundle(model, batch, evaluate, jac_fn, all_names, nfit, ngrid,
                                   name="grid noise block")
     Y_base = _tri(L_D, (B_base.T @ Uw).T)
     return (free_init, int0, w, nl_fit, B_base, A_base, Y_base, Uw, L_D,
-            s_col, U_chi, cf_chi)
+            s_col, U_chi, cf_chi, {})
 
 
-def _setup(model, batch, grid_params, fit_params, chunk):
-    """What both grid builders share: the validated chunk, the fit/grid
-    split and the model's evaluation and Jacobian at (B, n) values."""
+def _setup(model, batch, grid_params, fit_params, chunk, gls: bool):
+    """What both grid builders share: the validated chunk (``None`` the
+    static default, ``"auto"`` resolved), the fit/grid split and the
+    model's evaluation and Jacobian at (B, n) values."""
+    chunk = _resolve_auto_chunk(model, batch, chunk, gls)
+    if chunk is None:
+        chunk = default_gls_chunk(batch.device) if gls else _WLS_CHUNK
     if isinstance(chunk, bool) or not isinstance(chunk, (int, np.integer)) \
             or int(chunk) <= 0:
-        raise ValueError(f"chunk must be a positive integer, got {chunk!r}")
+        raise UsageError(
+            f"chunk must be a positive integer or 'auto', got {chunk!r}")
     grid_params = tuple(grid_params)
     if fit_params is None:
         fit_params = tuple(p for p in model.free_params
@@ -241,14 +299,14 @@ def _resid_seconds_fn(evaluate, int0, w, F0):
     return resid_seconds
 
 
-def _nonlinear_columns_fn(evaluate, nl_idx):
+def _nonlinear_columns_fn(evaluate, nl_idx, n: int):
     """d frac / d v[:, nl] per point: (B, N, k), by ``jvp`` over one-hot
-    tangents."""
-    k = len(nl_idx)
+    tangents.  The one-hot rows are built once, so an evaluation issues
+    no indexing with host values (it may be captured in a CUDA graph)."""
+    onehot = torch.eye(n, dtype=F64, device=nl_idx.device)[nl_idx]
 
     def nonlinear_columns(v):
-        basis = torch.zeros((k,) + tuple(v.shape), dtype=F64, device=v.device)
-        basis[torch.arange(k, device=v.device), :, nl_idx] = 1.0
+        basis = onehot[:, None, :].expand(len(onehot), *v.shape)
 
         def one(t):
             return jvp(lambda x: evaluate(x)[0].frac, (v,), (t,))[1]
@@ -294,7 +352,7 @@ def _wls_bundle(model, batch, evaluate, jac_fn, all_names, nfit, ngrid,
 
 def build_grid_chi2_fn(model, batch, grid_params: Sequence[str],
                        fit_params: Optional[Sequence[str]] = None,
-                       niter: int = 4, chunk: int = 256,
+                       niter: int = 4, chunk=None,
                        grid_spans: Optional[Sequence[float]] = None):
     """Return ``(fn, free_init, fit_params)`` where ``fn(points (P, G))``
     gives ``(chi2 (P,), vfit (P, nfit), diag (P, 3))``; diag columns are
@@ -307,13 +365,14 @@ def build_grid_chi2_fn(model, batch, grid_params: Sequence[str],
     least squares (reference ``grid.py:219-376``); its rung is
     ``SVD_RUNG``, or -1 where a step's singular values were not finite,
     its ridge 0 and its condition estimate the largest s_max / s_min of
-    its steps."""
+    its steps.  ``chunk`` (points a batch; ``None`` 256) does not change
+    a point's result."""
     if model.noise_basis_by_component(batch)[0]:
         return build_grid_gls_chi2_fn(model, batch, grid_params,
                                       fit_params=fit_params, niter=niter,
                                       chunk=chunk, grid_spans=grid_spans)
     chunk, grid_params, fit_params, all_names, evaluate, jac_fn = _setup(
-        model, batch, grid_params, fit_params, chunk)
+        model, batch, grid_params, fit_params, chunk, gls=False)
     dev = batch.device
     nfit = len(fit_params)
     F0 = model.value("F0")
@@ -323,7 +382,8 @@ def build_grid_chi2_fn(model, batch, grid_params: Sequence[str],
                             len(grid_params), grid_spans, F0))
     nl_idx = torch.as_tensor(nl_fit, dtype=torch.long, device=dev)
     resid_seconds = _resid_seconds_fn(evaluate, int0, w, F0)
-    nonlinear_columns = _nonlinear_columns_fn(evaluate, nl_idx)
+    nonlinear_columns = _nonlinear_columns_fn(evaluate, nl_idx,
+                                              len(all_names))
 
     def chunk_fn(gvals):
         Bp = gvals.shape[0]
@@ -364,19 +424,39 @@ def build_grid_chi2_fn(model, batch, grid_params: Sequence[str],
 
 def build_grid_gls_chi2_fn(model, batch, grid_params: Sequence[str],
                            fit_params: Optional[Sequence[str]] = None,
-                           niter: int = 4, chunk: int = 256,
+                           niter: int = 4, chunk=None,
                            grid_spans: Optional[Sequence[float]] = None):
     """Return ``(fn, free_init, fit_params)`` where ``fn(points (P, G))``
     gives ``(chi2 (P,), vfit (P, nfit), diag (P, 3))``; diag columns are
-    (ladder rung, ridge applied, condition estimate) per point."""
+    (ladder rung, ridge applied, condition estimate) per point.  ``chunk``
+    is the points a batch (``None``: :func:`default_gls_chunk`; ``"auto"``
+    the same, logged).
+
+    ``fn.fused(points, fuse=8)`` gives the same surface retiring ``fuse``
+    chunks a dispatch (reference ``grid.py:919-974``); the last group is
+    padded by repeating its final block.  On the card each group is one
+    replay of a CUDA graph of ``fuse`` chunk evaluations, captured at the
+    first call after an eager warm-up chunk on a side stream and kept in
+    the cached grid bundle (a new bundle drops it); a capture that fails
+    raises.  Each captured (niter, chunk, fuse) graph keeps its private
+    memory pool (its intermediates: reserved device memory, not counted
+    by ``max_memory_allocated``) for as long as the bundle lives, so
+    sweeps at several ``fuse`` widths hold a pool each until the
+    parameter values change.  On the CPU the group's chunks run one
+    after another.  Chunks holding unsolved points then re-run eagerly
+    at escalated ridges, as in ``fn``.  ``fn.dispatch_count()`` counts the last call's dispatches
+    as the reference does: each eager chunk, each escalation re-run and
+    each fused group once.  ``fn.graph_stats()`` gives, per captured
+    graph, its replays and the kernel launches it captured (the wrappers
+    count a launch when it is captured, not when it is replayed)."""
     chunk, grid_params, fit_params, all_names, evaluate, jac_fn = _setup(
-        model, batch, grid_params, fit_params, chunk)
+        model, batch, grid_params, fit_params, chunk, gls=True)
     dev = batch.device
     nfit = len(fit_params)
     nt = 1 + nfit
     F0 = model.value("F0")
     (free_init, int0, w, nl_fit, B_base, A_base, Y_base, Uw, L_D, s_col,
-     U_chi, cf_chi) = _cached_bundle(
+     U_chi, cf_chi, graphs) = _cached_bundle(
         model, batch, "grid_gls_bundle", all_names, nfit, grid_spans,
         lambda: _grid_bundle(model, batch, evaluate, jac_fn, all_names, nfit,
                              len(grid_params), grid_spans, F0))
@@ -384,7 +464,8 @@ def build_grid_gls_chi2_fn(model, batch, grid_params: Sequence[str],
     nlp_idx = nl_idx + 1
     k = len(nl_fit)
     resid_seconds = _resid_seconds_fn(evaluate, int0, w, F0)
-    nonlinear_columns = _nonlinear_columns_fn(evaluate, nl_idx)
+    nonlinear_columns = _nonlinear_columns_fn(evaluate, nl_idx,
+                                              len(all_names))
 
     def chunk_fn(gvals, ridge_scale: float):
         Bp = gvals.shape[0]
@@ -426,43 +507,134 @@ def build_grid_gls_chi2_fn(model, batch, grid_params: Sequence[str],
         chi2 = (r * wr).sum(dim=-1) - (z * z).sum(dim=0)
         return chi2, v[:, :nfit], solved, cond
 
+    dispatches = [0]
+
+    def _eval_chunk(blk, scale):
+        dispatches[0] += 1
+        return chunk_fn(blk, scale)
+
+    def _host(res, keep):
+        return tuple(t[:keep].cpu().numpy() for t in res)
+
     def fn(points):
+        dispatches[0] = 0
         blocks = _blocks(points, chunk, dev)
-        first = [chunk_fn(blk, 1.0) for blk, _ in blocks]
-        out_c, out_v, out_d = [], [], []
-        for (blk, keep), res in zip(blocks, first):
-            c2, vf, dg = _escalate(blk, keep, res)
-            out_c.append(c2)
-            out_v.append(vf)
-            out_d.append(dg)
-        return (np.concatenate(out_c), np.concatenate(out_v),
-                np.concatenate(out_d))
+        first = [_eval_chunk(blk, 1.0) for blk, _ in blocks]
+        return _stitch([_escalate(blk, keep, _host(res, keep))
+                        for (blk, keep), res in zip(blocks, first)])
 
     def _escalate(blk, keep, res):
         """Re-run a chunk holding unsolved points at escalated ridges; only
-        the failed points take the escalated values."""
-        c2, vf, ok, cnd = (t[:keep].cpu().numpy() for t in res)
-        c2, vf, cond = c2.copy(), vf.copy(), cnd.copy()
-        solved = ok.copy()
+        the failed points take the escalated values.  ``res`` is the
+        chunk's first pass on the host, cut to its ``keep`` rows."""
+        c2, vf, ok, cnd = (np.array(a) for a in res)
+        cond, solved = cnd, ok
         rung = np.where(solved, 0, -1)
         for ri in range(1, len(ESCALATION)):
             if solved.all():
                 break
-            c2e, vfe, oke, cde = (t[:keep].cpu().numpy()
-                                  for t in chunk_fn(blk, ESCALATION[ri]))
+            c2e, vfe, oke, cde = _host(_eval_chunk(blk, ESCALATION[ri]), keep)
             newly = ~solved & oke
             c2[newly] = c2e[newly]
             vf[newly] = vfe[newly]
             cond[newly] = cde[newly]
             rung[newly] = ri
             solved |= newly
+        if not solved.all():
+            log.warning(
+                f"grid GLS solve: {int((~solved).sum())} point(s) "
+                "unsolved at every escalation ridge -- their chi2 is "
+                "NaN (rung -1), not fabricated")
         ridge = np.where(rung >= 0, RIDGE * np.take(np.asarray(ESCALATION),
                                                     np.maximum(rung, 0)),
                          np.nan)
         return c2, vf, np.stack([rung.astype(np.float64), ridge, cond], axis=1)
 
+    def _graph(fuse, first):
+        """The CUDA graph of ``fuse`` chunk evaluations, captured once and
+        kept in the bundle's slot; ``first`` (fuse, chunk, G) seeds its
+        static input for the warm-up."""
+        key = (niter, chunk, fuse)
+        g = graphs.get(key)
+        if g is None:
+            g = _FusedGraph(chunk_fn, first, fuse)
+            graphs[key] = g
+        return g
+
+    def fused(points, fuse: int = 8):
+        dispatches[0] = 0
+        fuse = max(1, int(fuse))
+        blocks = _blocks(points, chunk, dev)
+        out = []
+        for lo in range(0, len(blocks), fuse):
+            group = blocks[lo:lo + fuse]
+            dispatches[0] += 1
+            if dev.type == "cuda":
+                blks = [b for b, _ in group]
+                blks += [blks[-1]] * (fuse - len(blks))
+                stacked = torch.stack(blks)
+                res = _graph(fuse, stacked).run(stacked)
+            else:
+                res = [tuple(t.numpy() for t in chunk_fn(b, 1.0))
+                       for b, _ in group]
+            out += [_escalate(blk, keep, tuple(a[:keep] for a in r))
+                    for (blk, keep), r in zip(group, res)]
+        return _stitch(out)
+
     fn.nonlinear_columns = tuple(nl_fit)
+    fn.fused = fused
+    fn.dispatch_count = lambda: dispatches[0]
+    fn.graph_stats = lambda: {key[2]: g.stats() for key, g in graphs.items()
+                              if key[:2] == (niter, chunk)}
     return fn, free_init, tuple(fit_params)
+
+
+def _stitch(parts):
+    """Concatenate per-chunk (chi2, vfit, diag) host arrays."""
+    return tuple(np.concatenate([p[i] for p in parts]) for i in range(3))
+
+
+class _FusedGraph:
+    """One CUDA graph running ``chunk_fn(block_f, 1.0)`` for f < ``fuse``
+    on a static (fuse, chunk, G) input into static outputs.  It keeps
+    ``chunk_fn`` -- and through it every tensor the graph reads -- and
+    the graph's private memory pool alive for as long as it lives.
+    Before the capture one eager chunk runs on a side stream, so that the
+    kernels are built and loaded and the libraries initialized outside
+    it."""
+
+    def __init__(self, chunk_fn, first, fuse: int):
+        from pint_torch.kernels import launch_counts
+
+        self.chunk_fn = chunk_fn
+        self.static_in = first.clone()
+        side = torch.cuda.Stream(first.device)
+        side.wait_stream(torch.cuda.current_stream(first.device))
+        with torch.cuda.stream(side):
+            chunk_fn(self.static_in[0], 1.0)
+        torch.cuda.current_stream(first.device).wait_stream(side)
+        before = launch_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            outs = [chunk_fn(self.static_in[f], 1.0) for f in range(fuse)]
+            self.static_out = tuple(torch.stack([o[i] for o in outs])
+                                    for i in range(4))
+        after = launch_counts()
+        self.launches = {n: after[n] - before[n] for n in after
+                         if after[n] != before[n]}
+        self.replays = 0
+
+    def run(self, stacked):
+        """Replay on ``stacked`` (fuse, chunk, G); per block the host
+        (chi2, vfit, ok, cond)."""
+        self.static_in.copy_(stacked)
+        self.graph.replay()
+        self.replays += 1
+        host = [t.cpu().numpy() for t in self.static_out]
+        return [tuple(h[f] for h in host) for f in range(stacked.shape[0])]
+
+    def stats(self) -> dict:
+        return {"replays": self.replays, "launches": dict(self.launches)}
 
 
 def point_spans(model, parnames, pts) -> list:
@@ -550,21 +722,114 @@ def _points_chisq(ftr, parnames, pts, niter, chunk):
     return chi2, vfit, diag, fit_params, fn
 
 
+def _grid_fingerprint(parnames, pts, niter, batch, gls, model,
+                      free_init) -> dict:
+    """The sweep's identity (reference ``grid.py:1369``): everything the
+    chi2 surface depends on; the device is not part of it."""
+    return dict(parnames=tuple(parnames), pts=pts, niter=niter,
+                ntoas=int(batch.ntoas), gls=gls,
+                toas_version=getattr(batch, "_version", 0),
+                params=_model_param_sig(model),
+                free_init=np.asarray(free_init))
+
+
+def _checkpointed_grid(fn, pts: np.ndarray, checkpoint: str, retry,
+                       fingerprint: dict, chunk: int, sidecar=None):
+    """The sweep through the checkpointed executor (reference
+    ``grid.py:1383``): contiguous blocks of ``chunk`` points, each one
+    ``fn`` call, so a resumed sweep evaluates the same blocks and stitches
+    the uninterrupted surface.  The store keeps ``chunk`` and refuses a
+    resume at another one, which the reference's fingerprint would let
+    through wherever both cut the points into as many chunks."""
+    from pint_torch.runtime.checkpoint import checkpointed_map
+
+    blocks = [pts[i:i + chunk] for i in range(0, len(pts), chunk)]
+
+    def chunk_fn(blk):
+        c2, vf, dg = fn(blk)
+        return {"chi2": c2, "vfit": vf, "diag": dg}
+
+    outs = checkpointed_map(chunk_fn, blocks, checkpoint=checkpoint,
+                            fingerprint=fingerprint, retry=retry,
+                            sidecar=sidecar, block=int(chunk))
+    return tuple(np.concatenate([o[k] for o in outs])
+                 for k in ("chi2", "vfit", "diag"))
+
+
 def grid_chisq(ftr, parnames: Sequence[str], parvalues: Sequence,
-               extraparnames: Sequence[str] = (), niter: int = 4,
-               chunk: int = 256) -> Tuple[np.ndarray, dict]:
+               extraparnames: Sequence[str] = (),
+               executor=None, ncpu=None, chunksize=1,
+               printprogress: bool = False, niter: int = 4, mesh=None,
+               chunk=None, checkpoint: Optional[str] = None, retry=None,
+               plan=None, fuse: Optional[int] = None,
+               **fitargs) -> Tuple[np.ndarray, dict]:
     """Chi2 over the outer-product grid of ``parvalues``, by the GLS grid
     where the model has correlated noise and the WLS grid otherwise
     (:func:`build_grid_chi2_fn`); returns the chi2 array (grid-shaped) and
     ``{name: grid-shaped values}`` for ``extraparnames``.  Per-point solve
-    diagnostics land on ``ftr.last_grid_diagnostics``."""
+    diagnostics land on ``ftr.last_grid_diagnostics``.  The signature is
+    the reference's (``grid.py:1183``):
+
+    * ``executor``, ``ncpu``: no-ops (points are batched on the device),
+      warned once; ``chunksize``, ``printprogress`` and ``fitargs`` are
+      accepted and unused;
+    * ``chunk``: points a batch (``None``: :func:`default_gls_chunk` on
+      the GLS grid, 256 on the WLS one; ``"auto"`` the same);
+    * ``checkpoint`` (a directory) with ``retry`` (a
+      :class:`~pint_torch.runtime.checkpoint.RetryPolicy`): completed
+      chunks persist, failed ones retry, a crashed sweep resumes;
+    * ``fuse`` (GLS grid): chunks retired a dispatch (``fn.fused``); the
+      WLS grid ignores it, as the reference's does;
+    * ``mesh``, ``plan``: ROADMAP queue A item 9; the reference's refusals
+      of their combinations come first."""
+    global _warned_executor
+    if (executor is not None or ncpu not in (None, 1)) \
+            and not _warned_executor:
+        _warned_executor = True
+        log.warning("grid_chisq: executor/ncpu are no-ops here - grid "
+                    "points are batched on the device")
+    model, batch = ftr.model, ftr.batch
     parnames = tuple(parnames)
     grids = [np.asarray(v, dtype=np.float64) for v in parvalues]
     shape = tuple(len(g) for g in grids)
     pts = np.stack([g.ravel() for g in np.meshgrid(*grids, indexing="ij")],
                    axis=-1)
-    chi2, vfit, diag, fit_params, fn = _points_chisq(ftr, parnames, pts,
-                                                     niter, chunk)
+    gls = bool(model.noise_basis_by_component(batch)[0])
+    chunk = _resolve_auto_chunk(model, batch, chunk, gls=gls)
+    if plan is not None and mesh is not None:
+        raise UsageError("plan= and mesh= cannot be combined; the plan "
+                         "carries its own mesh")
+    if isinstance(plan, str) and plan != "auto":
+        raise UsageError(f"plan={plan!r}: pass 'auto' or an ExecutionPlan")
+    if checkpoint is not None and mesh is not None:
+        raise UsageError("checkpoint= and mesh= cannot be combined; pass "
+                         "plan= for elastic checkpointed multi-device "
+                         "execution")
+    if checkpoint is not None and plan is None and fuse is not None \
+            and int(fuse) > 1:
+        raise UsageError(
+            "fuse= with checkpoint= needs plan= (the elastic supervisor "
+            "owns fused checkpointed dispatch); drop fuse or add "
+            "plan='auto'")
+    if mesh is not None or plan is not None:
+        raise NotImplementedError(
+            "grid_chisq: mesh= and plan= (multi-device sweeps and the "
+            "elastic supervisor) are ROADMAP queue A item 9")
+    fn, free_init, fit_params = build_grid_chi2_fn(
+        model, batch, parnames, niter=niter, chunk=chunk,
+        grid_spans=point_spans(model, parnames, pts))
+    if checkpoint is not None:
+        chi2, vfit, diag = _checkpointed_grid(
+            fn, pts, checkpoint, retry,
+            fingerprint=_grid_fingerprint(parnames, pts, niter, batch, gls,
+                                          model, free_init[0].cpu().numpy()),
+            chunk=chunk if chunk else (default_gls_chunk(batch.device)
+                                       if gls else _WLS_CHUNK),
+            sidecar={"platform": batch.device.type, "num_devices": 1})
+    elif fuse is not None and int(fuse) > 1 and gls:
+        chi2, vfit, diag = fn.fused(pts, fuse=int(fuse))
+    else:
+        chi2, vfit, diag = fn(pts)
     _attach_grid_diagnostics(ftr, diag, fn.nonlinear_columns, shape)
     return chi2.reshape(shape), _extraout(extraparnames, fit_params,
                                           parnames, vfit, pts, ftr.model,
@@ -574,11 +839,13 @@ def grid_chisq(ftr, parnames: Sequence[str], parvalues: Sequence,
 def grid_chisq_derived(ftr, parnames: Sequence[str], parfuncs: Sequence,
                        gridvalues: Sequence,
                        extraparnames: Sequence[str] = (), niter: int = 4,
-                       chunk: int = 256):
+                       **kw):
     """Chi2 over the outer-product grid of ``gridvalues`` in derived
     quantities: model parameter i is ``parfuncs[i](*point)`` (reference
     ``grid.py:1490``).  Returns (chi2, the grid's mesh arrays, extra
-    parameter values), grid-shaped."""
+    parameter values), grid-shaped.  Of ``kw`` the port reads ``chunk``
+    (as :func:`grid_chisq` does) and ignores the rest, as the reference
+    ignores all of it."""
     parnames = tuple(parnames)
     grids = [np.asarray(v, dtype=np.float64) for v in gridvalues]
     shape = tuple(len(g) for g in grids)
@@ -587,7 +854,7 @@ def grid_chisq_derived(ftr, parnames: Sequence[str], parfuncs: Sequence,
     pts = np.stack([np.asarray([f(*vals) for vals in zip(*flat)],
                                dtype=np.float64) for f in parfuncs], axis=-1)
     chi2, vfit, diag, fit_params, fn = _points_chisq(ftr, parnames, pts,
-                                                     niter, chunk)
+                                                     niter, kw.get("chunk"))
     _attach_grid_diagnostics(ftr, diag, fn.nonlinear_columns, shape)
     return (chi2.reshape(shape), [g.reshape(shape) for g in mesh],
             _extraout(extraparnames, fit_params, parnames, vfit, pts,
@@ -595,14 +862,14 @@ def grid_chisq_derived(ftr, parnames: Sequence[str], parfuncs: Sequence,
 
 
 def tuple_chisq(ftr, parnames: Sequence[str], parvalues: Sequence,
-                extraparnames: Sequence[str] = (), niter: int = 4,
-                chunk: int = 256):
+                extraparnames: Sequence[str] = (), niter: int = 4, **kw):
     """Chi2 at a list of parameter tuples, any number of them (reference
-    ``grid.py:1517``): (chi2 (P,), extra parameter values)."""
+    ``grid.py:1517``): (chi2 (P,), extra parameter values).  ``kw`` as in
+    :func:`grid_chisq_derived`."""
     parnames = tuple(parnames)
     pts = np.asarray(parvalues, dtype=np.float64)
     chi2, vfit, diag, fit_params, fn = _points_chisq(ftr, parnames, pts,
-                                                     niter, chunk)
+                                                     niter, kw.get("chunk"))
     _attach_grid_diagnostics(ftr, diag, fn.nonlinear_columns)
     return chi2, _extraout(extraparnames, fit_params, parnames, vfit, pts,
                            ftr.model)
@@ -611,16 +878,17 @@ def tuple_chisq(ftr, parnames: Sequence[str], parvalues: Sequence,
 def tuple_chisq_derived(ftr, parnames: Sequence[str], parfuncs: Sequence,
                         parvalues: Sequence,
                         extraparnames: Sequence[str] = (), niter: int = 4,
-                        chunk: int = 256):
+                        **kw):
     """Chi2 at tuples of derived quantities: model parameter i is
     ``parfuncs[i](*point)`` (reference ``grid.py:1535``).  Returns (chi2,
-    each derived quantity's values, extra parameter values)."""
+    each derived quantity's values, extra parameter values).  ``kw`` as in
+    :func:`grid_chisq_derived`."""
     parnames = tuple(parnames)
     raw = np.asarray(parvalues, dtype=np.float64)
     pts = np.stack([np.asarray([f(*vals) for vals in raw], dtype=np.float64)
                     for f in parfuncs], axis=-1)
     chi2, vfit, diag, fit_params, fn = _points_chisq(ftr, parnames, pts,
-                                                     niter, chunk)
+                                                     niter, kw.get("chunk"))
     _attach_grid_diagnostics(ftr, diag, fn.nonlinear_columns)
     return (chi2, [raw[:, i] for i in range(raw.shape[1])],
             _extraout(extraparnames, fit_params, parnames, vfit, pts,

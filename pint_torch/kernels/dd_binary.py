@@ -269,8 +269,10 @@ class DDBinaryFn(torch.autograd.Function):
         rows = ROW_COLUMNS[(ctx.mode, True) if ctx.orbit else ctx.mode]
         nr = len(rows)
         if d_params is not None:
+            # the mode's entries gathered as views, not by a list index
+            # (a host-to-device copy, which a CUDA graph cannot capture)
             dp = d_params if nr == d_params.shape[-1] \
-                else d_params[..., rows]
+                else torch.stack([d_params[..., r] for r in rows], dim=-1)
             out = out + (P[..., lead:lead + nr] @ dp.unsqueeze(-1)).squeeze(-1)
         for i, d in enumerate((d_x0, d_x1, d_x2)):
             if d is not None:

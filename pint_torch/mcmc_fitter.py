@@ -17,20 +17,19 @@ the item.
 
 from __future__ import annotations
 
-import logging
 from typing import Optional
 
 import numpy as np
 
 from pint_torch.bayesian import BayesianTiming, apply_prior_info
 from pint_torch.fitter import Fitter
+from pint_torch.logging import log
 from pint_torch.sampler import EnsembleSampler, MCMCSampler, NpzBackend
 
 __all__ = ["MCMCFitter", "MCMCFitterBinnedTemplate",
            "MCMCFitterAnalyticTemplate", "set_priors_basic", "lnprior_basic",
            "lnlikelihood_basic", "lnlikelihood_chi2", "concat_toas"]
 
-log = logging.getLogger("pint_torch")
 
 def __getattr__(name):
     # the photon-template fitters live with the template machinery; the

@@ -531,9 +531,11 @@ def toa_inputs(mode) -> tuple:
 # ----------------------------------------------------------------------
 def _tensor(v, like):
     """``v`` as a float64 tensor on ``like``'s device (a (B, 1) tensor
-    stays as it is)."""
-    return v if torch.is_tensor(v) else torch.tensor(
-        [[float(v)]], dtype=like.dtype, device=like.device)
+    stays as it is).  A number is filled on the device, not copied from
+    the host: an evaluation may be captured in a CUDA graph (the fused
+    grid sweep)."""
+    return v if torch.is_tensor(v) else torch.full(
+        (1, 1), float(v), dtype=like.dtype, device=like.device)
 
 
 def dds_sini(pv, like):

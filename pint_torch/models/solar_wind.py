@@ -128,15 +128,14 @@ class SolarWindDispersionX(_SolarWind):
         p = stack_params(pv, [f"SWXP_{i:04d}" for i in idx], batch.device)
         vals = stack_params(pv, [f"SWXDM_{i:04d}" for i in idx],
                             batch.device)
-        theta0 = float(ctx["theta0"])
+        # read on the device, not on the host: an evaluation may be
+        # captured in a CUDA graph (the fused grid sweep)
+        theta0 = ctx["theta0"].to(dtype=p.dtype).reshape(1)
         i_inf = sw_i_inf(p)
         # conjunction and opposition at 1 AU: window k's at "TOAs" k and
         # W + k
         W = p.shape[1]
-        ends = torch.cat([torch.full((W,), theta0, dtype=p.dtype,
-                                     device=p.device),
-                          torch.full((W,), math.pi - theta0, dtype=p.dtype,
-                                     device=p.device)])
+        ends = torch.cat([theta0.expand(W), (math.pi - theta0).expand(W)])
         g = solar_wind_pl(torch.full_like(ends, AU_LS), ends[None], p, i_inf,
                           torch.arange(2 * W, device=p.device) % W)
         g_conj, g_opp = g[:, :W], g[:, W:]

@@ -30,9 +30,12 @@ class Spindown(PhaseComponent):
         F = stack_params(pv, [f"F{i}" for i in range(S)], batch.device)
         has_pe = bool(self.config.get("has_pepoch", True)) and "PEPOCH" in pv
         pe = pv.get("PEPOCH") if has_pe else None
-        pepoch = torch.tensor([[pe.hi, pe.lo] if pe is not None
-                               else [0.0, 0.0]], dtype=F64,
-                              device=batch.device)
+        hi, lo = (pe.hi, pe.lo) if pe is not None else (0.0, 0.0)
+        # filled on the device, not copied from the host: an evaluation
+        # may be captured in a CUDA graph (the fused grid sweep)
+        pepoch = torch.full((1, 2), float(hi), dtype=F64,
+                            device=batch.device)
+        pepoch[:, 1] = float(lo)
         if delay.ndim == 1:
             delay = delay.unsqueeze(0)
         k, f = spin_phase(batch.tdb_s.hi, batch.tdb_s.lo, batch.tdb0, pepoch,

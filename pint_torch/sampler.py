@@ -11,24 +11,26 @@ is the reference's bit for bit.  :class:`NpzBackend` checkpoints a chain
 with the generator's exact state, so a resumed run continues it
 bit-identically.
 
-Walker meshes and execution plans are ROADMAP queue A item 9; retries of a
-failed evaluation and the telemetry counters are item 8: a failed
-evaluation raises.
+A batched evaluation that fails in a device-shaped way is retried with
+exponential backoff (:func:`pint_torch.runtime.checkpoint.with_retries`,
+as the reference's is); any other failure propagates.  Walker meshes and
+execution plans are ROADMAP queue A item 9; the telemetry counters item 8.
 """
 
 from __future__ import annotations
 
-import logging
 import os
 import pickle
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+from pint_torch.logging import log
+from pint_torch.runtime.checkpoint import RetryPolicy, with_retries
+
 __all__ = ["MCMCSampler", "EnsembleSampler", "EmceeSampler", "NpzBackend",
            "integrated_autocorr_time", "run_sampler_autocorr"]
 
-log = logging.getLogger("pint_torch")
 
 
 def _next_pow_two(n: int) -> int:
@@ -215,8 +217,10 @@ class EnsembleSampler(MCMCSampler):
     evaluation is batched.
 
     ``mesh`` and ``plan`` (walker meshes, ROADMAP queue A item 9) must stay
-    None; ``retries`` and ``retry_backoff`` are accepted and unused (queue
-    A item 8): a failed evaluation raises.  Setting ``decision_log`` to a
+    None.  ``retries`` and ``retry_backoff`` make the :class:`RetryPolicy`
+    under which every batched evaluation runs (``retry_policy``): a
+    device-shaped failure is retried, anything else propagates.  Setting
+    ``decision_log`` to a
     list records, per half-ensemble update, ``(lnratio - log u, lp_prop)``
     -- each decision's margin and the proposals' log-posteriors -- for
     checks of a chain against another package's.
@@ -234,6 +238,8 @@ class EnsembleSampler(MCMCSampler):
                 "walker meshes and execution plans are ROADMAP queue A "
                 "item 9")
         self.nwalkers = nwalkers
+        self.retry_policy = RetryPolicy(max_retries=retries,
+                                        backoff_base=retry_backoff)
         self.a = a
         self.rng = np.random.default_rng(seed)
         self.method = "stretch"
@@ -254,7 +260,10 @@ class EnsembleSampler(MCMCSampler):
         self.decision_log: Optional[list] = None
 
     def _eval_lnpost(self, pts: np.ndarray) -> np.ndarray:
-        return np.array(self._lnpost_batch(pts), dtype=np.float64)
+        """The batched lnposterior under :attr:`retry_policy`."""
+        return with_retries(
+            lambda: np.array(self._lnpost_batch(pts), dtype=np.float64),
+            self.retry_policy, what="lnposterior batch")
 
     def resume(self) -> np.ndarray:
         """Restore chain + RNG state from the backend; returns the walker

@@ -12,13 +12,10 @@ from __future__ import annotations
 
 from typing import Optional
 
-import logging
-
 import numpy as np
 
+from pint_torch.logging import log
 from pint_torch.templates.lctemplate import LCTemplate
-
-log = logging.getLogger("pint_torch")
 
 __all__ = ["LCFitter", "hessian", "get_errors", "make_err_plot"]
 

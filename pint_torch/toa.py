@@ -255,18 +255,21 @@ class TOABatch:
                  check_coverage: bool = True,
                  max_error_us: Optional[float] = None):
         """Run the TOA checks (:mod:`pint_torch.integrity.quarantine`).
-        ``strict`` (the default) raises :class:`TOAIntegrityError` when
-        anything is found; ``lenient`` quarantines with a warning;
+        ``policy`` defaults to :func:`pint_torch.config.ingestion_policy`
+        (``strict`` unless configured).  ``strict`` raises
+        :class:`TOAIntegrityError` when anything is found; ``lenient``
+        quarantines with a warning;
         ``collect`` quarantines silently.  The report carries the
         changed-row delta against the previously applied mask and rides
         on :attr:`last_validation`."""
         import warnings
 
+        from pint_torch.config import ingestion_policy
         from pint_torch.integrity.quarantine import (ABSURD_ERROR_US,
                                                      row_delta,
                                                      run_toa_checks)
 
-        policy = policy or "strict"
+        policy = policy or ingestion_policy()
         if policy not in ("strict", "lenient", "collect"):
             raise ValueError(f"unknown ingestion policy {policy!r}")
         report = run_toa_checks(

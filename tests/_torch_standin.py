@@ -1517,6 +1517,56 @@ def _first_fit(model, toas, settings):
     return f
 
 
+#: the fused sweep's reference run (``ref/sweep/``): a 32 x 32 M2 x SINI
+#: grid about the first fit, 1024 points in chunks of 256 retired three a
+#: dispatch (two fused dispatches, the second padded), and the refit values
+#: of two of its fit parameters
+SWEEP = dict(points=32, chunk=256, fuse=3, extra=("PB", "A1"))
+
+
+def export_sweep(model, toas, which: str, arrays: dict, meta: dict) -> None:
+    """Add the reference's fused ``grid_chisq`` (:data:`SWEEP`) after the
+    snapshot's first fit to ``arrays`` under ``ref/sweep/``: the axes,
+    chi2, per-point diagnostics, the extra parameters' refit values and
+    the grid function's ``dispatch_count()``.  The fit must give the
+    committed post-fit values bitwise."""
+    from pint_tpu import grid as G
+
+    settings = meta["reference"]["settings"]
+    f = _first_fit(model, toas, settings)
+    vals = np.array([float(getattr(f.model, p).value)
+                     for p in meta["reference"]["postfit_params"]])
+    if not np.array_equal(vals, arrays["ref/postfit_values"]):
+        raise SystemExit("the first fit is not the committed one")
+    axes = grid_axes(f.model, SWEEP["points"])
+    built = []
+    build = G.build_grid_chi2_fn
+
+    def spy(*a, **kw):
+        out = build(*a, **kw)
+        built.append(out[0])
+        return out
+
+    G.build_grid_chi2_fn = spy
+    try:
+        c2, extra = G.grid_chisq(f, ("M2", "SINI"), axes,
+                                 extraparnames=SWEEP["extra"],
+                                 niter=settings["grid_niter"],
+                                 chunk=SWEEP["chunk"], fuse=SWEEP["fuse"])
+    finally:
+        G.build_grid_chi2_fn = build
+    P = "ref/sweep/"
+    arrays[P + "m2"], arrays[P + "sini"] = axes
+    arrays[P + "chi2"] = np.asarray(c2)
+    d = f.last_grid_diagnostics
+    arrays[P + "diag"] = np.stack([d["ladder_rung"].ravel().astype(float),
+                                   d["ridge"].ravel(),
+                                   d["condition"].ravel()], axis=1)
+    for p in SWEEP["extra"]:
+        arrays[P + p.lower()] = np.asarray(extra[p])
+    arrays[P + "dispatch_count"] = np.asarray(built[-1].dispatch_count())
+
+
 def api_grid_points(model, errors, seed: int = 11):
     """The tuple grid's (M2, SINI) points, seeded, 3 sigma about the fit
     (SINI kept below 1), and the derived grid's (Mc, cos i) axes, 3 sigma

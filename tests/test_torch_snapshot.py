@@ -53,7 +53,14 @@ the ensemble MCMC's reference outputs (``_torch_standin.BAYES``,
 
 (likewise ``ddgr``, ``ngc_phoff`` and ``small_wb_white``, the last after
 ``--settings small_wb_white --write
-pint_torch/data/small_wb_white_standin.npz``).  The photon stand-ins carry
+pint_torch/data/small_wb_white_standin.npz``).  ``--sweep`` adds the
+reference's fused 32x32 M2 x SINI ``grid_chisq`` after the first fit
+(``_torch_standin.SWEEP``, ``export_sweep``: ``chunk=256``, ``fuse=3``)
+under ``ref/sweep/`` the same way, to b1855 and dmx15::
+
+    python tests/test_torch_snapshot.py --settings b1855 --sweep \
+        --write pint_torch/data/b1855_standin.npz
+  The photon stand-ins carry
 the photon fitters' reference outputs (``_torch_standin.export_photon``)
 from the start::
 
@@ -519,11 +526,12 @@ API_DIGESTS = {
 }
 
 
-def _digest(path, skip=("ref/api/", "ref/bayes/")) -> str:
+def _digest(path, skip=("ref/api/", "ref/bayes/", "ref/sweep/")) -> str:
     """sha256 (16 hex) of a snapshot's arrays but those under the
     prefixes ``skip`` (name, dtype, shape, bytes) and of its ``meta``
     without their keys (``top_level`` and ``reference["api"]`` for
-    ``ref/api/``, ``reference["bayes"]`` for ``ref/bayes/``)."""
+    ``ref/api/``, ``reference["bayes"]`` for ``ref/bayes/``; the fused
+    sweep's ``ref/sweep/`` has arrays only)."""
     import hashlib
 
     h = hashlib.sha256()
@@ -716,8 +724,9 @@ def test_bayes_keys_round_trip(tmp_path):
 
 
 #: every committed stand-in's digest over all its arrays and its whole
-#: ``meta`` (:func:`_digest` skipping nothing): a later slice adds its own
-#: files and keys and leaves these bitwise as committed
+#: ``meta`` (:func:`_digest` skipping only the fused sweep's
+#: ``ref/sweep/``, added later to the two b1855 files): a later slice adds
+#: its own files and keys and leaves these bitwise as committed
 STANDIN_DIGESTS = {
     "b1855_standin.npz": "e46ca733e8d5f704",
     "b1855_dmx15_standin.npz": "f7b1a3459359b557",
@@ -754,7 +763,7 @@ STANDIN_DIGESTS = {
 @pytest.mark.parametrize("name", list(STANDIN_DIGESTS))
 def test_committed_standins_are_bitwise_as_committed(name):
     path = os.path.join(REPO, "pint_torch", "data", name)
-    assert _digest(path, skip=()) == STANDIN_DIGESTS[name]
+    assert _digest(path, skip=("ref/sweep/",)) == STANDIN_DIGESTS[name]
 
 
 @pytest.mark.parametrize("which", ["photon_j0030", "small_photon"])
@@ -1000,8 +1009,15 @@ if __name__ == "__main__":
                     help="add the Bayesian timing interface's and the "
                          "ensemble MCMC's reference outputs to the committed "
                          "file at --write, keeping its arrays")
+    ap.add_argument("--sweep", action="store_true",
+                    help="add the reference's fused 32x32 grid sweep "
+                         "(ref/sweep/) to the committed file at --write, "
+                         "keeping its arrays")
     args = ap.parse_args()
-    if args.api:
+    if args.sweep:
+        _add_outputs(args.write, args.settings, standin.export_sweep,
+                     "ref/sweep/")
+    elif args.api:
         _add_outputs(args.write, args.settings, standin.export_api,
                      "ref/api/")
     elif args.bayes:
