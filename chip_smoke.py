@@ -10,11 +10,12 @@ Phases, one line each:
 
 1. device -- the card's name and power limit (nvidia-smi) and its
    properties;
-2. build -- the ten hand kernels, one nvcc per source, started
+2. build -- the eleven hand kernels, one nvcc per source, started
    together; the ptxas report of each ``__global__`` (registers, stack
    frame, spill bytes; K1's per S = 1..6, K2's and K4's per mode and orbit
    source, K6's per form, its duals staged and direct, K8's per mode and
-   output, K9's per factor layout and entry point, K10's), read from the
+   output, K9's per factor layout and entry point, K10's, K11's per
+   accumulation mode and compute dtype), read from the
    build logs: K1's primal templates must hold no stack frame, and no
    primal (K1, K2 in its five modes and both orbit sources, K4 likewise,
    K6, K7), no ELL1H dual, no K6 or K7 dual, no tiled K5 kernel, no K8,
@@ -226,7 +227,34 @@ Phases, one line each:
    and the refusal of a checkpoint after a parameter value changed; and a
    32 x 10 ``EnsembleSampler`` chain on ngc_phoff whose batched
    lnposterior fails once with a device-shaped error, bitwise the chain
-   without it;
+   without it.  Then the precision phase (K11's counts zeroed just before
+   it and read just after; every K11 instantiation must launch), against the reference's forced outputs under each stand-in's
+   ``ref/precision/``, for float32 at ``native``, ``f64``, ``two_sum`` and
+   ``two_prod`` and bfloat16 at ``two_prod`` (``PRECISION_SPECS``; the
+   other bfloat16 modes run on the serve requests too): on b1855 the
+   first fit (``gls.design``) and, after the float64 first fit, the grid
+   at 16 stored points (``grid.gram`` and ``grid.correction``), a fused
+   sweep under float32 two_prod captured with K11 and bitwise its
+   unfused surface; on j1909_stream the serve phase's seven requests
+   (``serve.gram``) on the reference's residuals; on pta67_catalog each
+   bucket's batched fit at the ingest state (``catalog.fit``) and the
+   joint likelihood at 4 points (``catalog.lnlike``), on the reference's
+   residuals.  Bars: under float64 accumulation of float32 parts the
+   standing ones (fit chi2 1e-6 rel and values 1e-2 sigma; grid chi2
+   1e-6 rel, argmin and rungs; serve and catalogue steps 1e-6 of their
+   errors, errors and chi2 1e-9 rel; the joint likelihood 1e-9 x max(1,
+   |ref|)) and each within its segment's forced budget of the port's own
+   float64; float32 native and bfloat16 two_prod within the forced budget
+   of the reference's (float32 native's steps and values not held: its
+   float32 sums leave them at each package's own rounding); the default
+   and ``PrecisionPolicy.f64()`` bitwise, with no K11 count moving during
+   them.  The probes
+   (``tune_precision_segments``, unforced, then forced into a temporary
+   tune directory, from which a fresh fitter resolves its decision) decide
+   as the reference's unless its rel_err is within 2x of the threshold.
+   Printed: each bar's gap, the probes' rel_errs beside the reference's,
+   and each consumer's wall under float64 and forced float32 two_prod
+   (median of ``PRECISION_REPS`` warm calls);
 4. kernels -- each CUDA kernel (the primal and dual instantiations of K1,
    K2 and K4 -- K4's for ELL1, ELL1k, ELL1H exact and ELL1H harmonic --,
    K3's shared-memory instantiation at nt = 88 and its global one at nt =
@@ -294,7 +322,19 @@ Phases, one line each:
    plain version (and within 1e-12 of its scale), exactly 0.0 at zero
    amplitude, its workspace within its cap; timed (the median of 5 warm
    calls) beside the library's ``cholesky_ex`` + ``solve_triangular`` + log-determinant and
-   the bound.
+   the bound.  K11 in each accumulation mode and compute dtype on the
+   largest call each consumer gave it in the precision phase and on
+   seeded random operands (a 1-D rhs, a shared operand, k = 1, k <
+   split, k off the tile, a zero column, NaN and Inf), within
+   ``4 k_blk 2^-53 (|a|@|b|)`` elementwise (``2 k 2^-24 (|a|@|b|)`` for
+   native, plus a bfloat16 ulp for bfloat16) of its twin, NaN and Inf
+   where the twin's; timed on each consumer's call (the record: the
+   largest) beside its bound (a multiply and an add a product, three
+   products a pair under two_prod, at the float64 tensor cores' rate --
+   the products of the rounded parts are exact in float64 -- or for
+   native at float32's CUDA-core rate or bfloat16's tensor-core rate) and
+   the library's ``torch.matmul`` of the pre-rounded operands, one call a
+   pass.
    K2's Newton steps on each path's inputs set its operation count; the
    per-element operation counts of K1, K2, K4, K6 and K7 are bounded at
    the float64 instruction rate (-fmad=false; K6's, K7's and K8's count
@@ -334,6 +374,10 @@ HERE = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 F64_FLOP_PER_S = 34e12
 F64_TC_FLOP_PER_S = 67e12
+#: float32 outside the tensor cores and bfloat16 on them (dense), the
+#: rates that bound K11's native products
+F32_FLOP_PER_S = 67e12
+BF16_TC_FLOP_PER_S = 989e12
 #: float64 instructions per second of the CUDA cores: 132 SMs x 64 FP64
 #: lanes x 1.98 GHz.  The 34 TFLOP/s above counts a fused multiply-add as
 #: two operations; the kernels are built with -fmad=false (their
@@ -3581,6 +3625,730 @@ def _sampler_retries(path, tag) -> None:
         raise RuntimeError("a retried chain differs from the uninjected one")
 
 
+# ---------------------------------------------------------------------------
+# the precision phase: the precision layer's segments on K11
+# ---------------------------------------------------------------------------
+#: the forced specs held against the reference's stored outputs
+#: (``ref/precision/``): float32 at every accumulation, bfloat16 two_prod
+PRECISION_SPECS = (("float32", "native"), ("float32", "f64"),
+                   ("float32", "two_sum"), ("float32", "two_prod"),
+                   ("bfloat16", "two_prod"))
+#: the other bfloat16 modes, run on the serve requests only (no stored
+#: outputs): each K11 instantiation launches on the phase's path
+PRECISION_EXTRA = (("bfloat16", "native"), ("bfloat16", "f64"),
+                   ("bfloat16", "two_sum"))
+#: warm repetitions of each timed consumer (the median is printed)
+PRECISION_REPS = 5
+
+
+def _ptag(ct, acc) -> str:
+    return f"{'f32' if ct == 'float32' else 'bf16'}_{acc}"
+
+
+def _pexact(ct, acc) -> bool:
+    """The specs held at the standing bars: float64 accumulation of float32
+    parts; float32 native and bfloat16 at the segment's forced budget."""
+    return ct == "float32" and acc != "native"
+
+
+def _psteps(ct, acc) -> bool:
+    """Whether a forced spec's steps and values are held against the
+    reference's: not under float32 native, whose float32 sums over
+    thousands of rows, amplified by the systems' conditioning (~1e7),
+    leave each package's steps at its own rounding (its chi2 is held)."""
+    return not (ct == "float32" and acc == "native")
+
+
+class _K11Spy:
+    """Keep each consumer's largest K11 call (by the output's size) while
+    installed, per (consumer, accumulation, dtype), without copying the
+    operands; counting stays in K11's own ``_launch``."""
+
+    def __init__(self, K11):
+        self.K11 = K11
+        self.orig = K11._launch
+        self.calls = {}
+        self.consumer = None
+
+    def __enter__(self):
+        def spy(a3, b3, ct, acc, bounds):
+            if self.consumer is not None:
+                key = (self.consumer, acc, ct)
+                size = a3.shape[0] * a3.shape[1] * b3.shape[2] * a3.shape[2]
+                if key not in self.calls or self.calls[key][0] < size:
+                    self.calls[key] = (size, (a3, b3, ct, acc, bounds))
+            return self.orig(a3, b3, ct, acc, bounds)
+
+        self.K11._launch = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.K11._launch = self.orig
+
+
+def _k11_bar(a, b, ct, acc, bounds):
+    """The elementwise bar of K11 against its twin: ``4 k_blk 2^-53
+    (|a|@|b|)`` for the float64-accumulated modes (k_blk the longest
+    two_sum block, else k), ``2 k 2^-24 (|a|@|b|)`` for native, plus one
+    bfloat16 ulp of the result for bfloat16."""
+    import torch
+
+    k = a.shape[-1]
+    scale = torch.matmul(a.abs(), b.abs())
+    if acc == "native":
+        return 2.0 * k * 2.0 ** -24 * scale
+    if acc == "two_sum":
+        k = max(hi - lo for lo, hi in zip(bounds[:-1], bounds[1:]))
+    return 4.0 * k * 2.0 ** -53 * scale
+
+
+def _k11_check(K11, a3, b3, ct, acc, split=8):
+    """(max |kernel - twin|, max of that over its bar, NaN/Inf positions
+    equal) of K11 on (B, m, k) x (B, k, n) operands."""
+    import torch
+
+    bounds = K11.split_bounds(a3.shape[-1], split)
+    got = K11._launch(a3, b3, ct, acc, bounds)
+    want = K11.compensated_matmul_reference(a3, b3, ct, acc, split)
+    fin = torch.isfinite(want)
+    same_nf = bool(torch.equal(torch.isnan(got), torch.isnan(want))) and \
+        bool(torch.equal(torch.isinf(got), torch.isinf(want)))
+    d = (got - want).abs().where(fin, torch.zeros_like(want))
+    bar = _k11_bar(a3, b3, ct, acc, bounds)
+    if ct == "bfloat16" and acc == "native":
+        w = want.abs().where(fin, torch.ones_like(want)).clamp(min=1e-300)
+        bar = bar + torch.exp2(torch.floor(torch.log2(w)) - 7.0)
+    ratio = float((d / bar.where(fin, torch.ones_like(bar)).clamp(
+        min=1e-300)).max()) if d.numel() else 0.0
+    return float(d.max()) if d.numel() else 0.0, ratio, same_nf
+
+
+def _k11_unique_bytes(t) -> int:
+    """Bytes a strided operand spans once (a stride-0 batch counted once)."""
+    span = 1 + sum((n - 1) * abs(s) for n, s in zip(t.shape, t.stride()))
+    return 8 * min(span, t.numel())
+
+
+def _k11_bound(a3, b3, ct, acc):
+    """K11's least time: each operand read once and the output written
+    once over HBM, or its products (a multiply and an add each, three
+    products a pair under two_prod) at the card's fastest rate for them.
+    The products of float32 or bfloat16 parts are exact in float64, so
+    f64, two_sum and two_prod go at the float64 tensor cores' rate;
+    native float32 at the CUDA cores' float32 rate, native bfloat16 at the
+    bfloat16 tensor cores'."""
+    B, m, k = a3.shape
+    n = b3.shape[-1]
+    nbytes = _k11_unique_bytes(a3) + _k11_unique_bytes(b3) + 8 * B * m * n
+    flops = 2.0 * B * m * n * k * (3 if acc == "two_prod" else 1)
+    if acc != "native":
+        return _bound(nbytes, 0.0, tensor_ops=flops)
+    rate = F32_FLOP_PER_S if ct == "float32" else BF16_TC_FLOP_PER_S
+    return _bound(nbytes, flops, rate=rate)
+
+
+def _k11_library(K11, a3, b3, ct, acc):
+    """One PyTorch call a pass for the same function on pre-rounded
+    operands: ``torch.matmul`` in float64 of the rounded parts (three
+    calls under two_prod), in float32 for native."""
+    import torch
+
+    F = torch.float64
+    ah = K11.round_to(a3, ct)
+    bh = K11.round_to(b3, ct)
+    if acc == "native":
+        a32, b32 = ah.float(), bh.float()
+        return lambda: torch.matmul(a32, b32)
+    if acc != "two_prod":
+        a64, b64 = ah.to(F), bh.to(F)
+        return lambda: torch.matmul(a64, b64)
+    al = K11.round_to(a3 - ah.to(F), ct).to(F)
+    bl = K11.round_to(b3 - bh.to(F), ct).to(F)
+    ah, bh = ah.to(F), bh.to(F)
+    return lambda: (torch.matmul(ah, bh), torch.matmul(ah, bl),
+                    torch.matmul(al, bh))
+
+
+def _no_k11(fn, what, bad):
+    """``fn()``, adding to ``bad`` if any K11 count moved during it: the
+    default and ``PrecisionPolicy.f64()`` never launch K11."""
+    from pint_torch.kernels import compensated_matmul as K11
+
+    before = dict(K11.launch_counts)
+    out = fn()
+    moved = {k: v - before[k] for k, v in K11.launch_counts.items()
+             if v != before[k]}
+    if moved:
+        bad.append(f"{what}: K11 launched {moved}")
+    return out
+
+
+def _precision_wall(fn, reps=PRECISION_REPS):
+    """Median wall s after synchronize of ``reps`` warm calls of ``fn``."""
+    import statistics
+
+    import torch
+
+    fn()
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    return statistics.median(walls)
+
+
+#: the band of float64's own rounding of a probe's solve under two_prod: a
+#: rel_err below it on both sides is that rounding, not the reduced
+#: precision (1e-13 to 1e-11 on the CPU; tests/test_torch_precision.py
+#: holds both packages' two_prod rel_errs below it)
+PROBE_ROUNDING_BAND = 1e-10
+
+
+def _decisions_agree(mine, stored, segments_def, tag) -> list:
+    """Segments whose decided dtype differs from the stored reference's
+    where the reference's rel_err is not within 2x of the threshold.  A
+    difference where both rel_errs lie in float64's rounding band
+    (``PROBE_ROUNDING_BAND``) is printed, not failed: there the threshold
+    decides by rounding."""
+    bad = []
+    for mode in ("unforced", "forced"):
+        for seg, want in stored[mode].items():
+            d = segments_def[seg]
+            bar = d.forced_budget if mode == "forced" else d.safe_rel
+            got = mine[mode].get(seg)
+            if got is None:
+                bad.append(f"{mode} {seg}: not probed")
+                continue
+            if bar / 2 <= want["rel_err"] <= 2 * bar \
+                    or got.value["compute_dtype"] == want["decision"]:
+                continue
+            msg = (f"{mode} {seg}: {got.value['compute_dtype']} (rel_err "
+                   f"{got.measured['rel_err']:.3e}) against the reference's "
+                   f"{want['decision']} ({want['rel_err']:.3e})")
+            if max(got.measured["rel_err"], want["rel_err"]) \
+                    <= PROBE_ROUNDING_BAND:
+                print(f"phase precision probe decided by rounding: {msg} "
+                      f"{tag}", flush=True)
+            else:
+                bad.append(msg)
+    return bad
+
+
+def _probe_line(label, mine, stored) -> str:
+    return "; ".join(
+        f"{mode} " + ", ".join(
+            f"{seg} {d.value['compute_dtype']} rel_err "
+            f"{d.measured['rel_err']:.3e} (reference "
+            f"{stored[mode][seg]['decision']} "
+            f"{stored[mode][seg]['rel_err']:.3e})"
+            for seg, d in mine[mode].items())
+        for mode in ("unforced", "forced"))
+
+
+def _precision_b1855(path, spy, tag):
+    """b1855's consumers (``gls.design``, ``grid.gram``,
+    ``grid.correction``): the first fit and, after the float64 first fit,
+    the grid at the stored points, under every forced spec against
+    ``ref/precision/`` and the port's own float64; the default and
+    ``PrecisionPolicy.f64()`` bitwise; a fused sweep under float32
+    two_prod captured and bitwise its unfused surface; the probes; the
+    walls.  Returns the bars' failures."""
+    import numpy as np
+
+    from pint_torch import autotune, config
+    from pint_torch import precision as P
+    from pint_torch.bridge import load_snapshot, read_snapshot
+    from pint_torch.gls_fitter import GLSFitter
+    from pint_torch.grid import build_grid_gls_chi2_fn
+
+    meta, ref = read_snapshot(path)
+    S, R = meta["reference"]["settings"], meta["reference"]
+    pre = "ref/precision/"
+    design = R["postfit_params"]
+    sig = ref["ref/postfit_uncertainties"]
+    pts = ref[pre + "grid_points"]
+    bad = []
+    base_m, base_b = load_snapshot(path, device="cuda")
+
+    def fit(policy):
+        f = GLSFitter(base_b, base_m.copy())
+        with P.use_policy(policy):
+            chi2 = f.fit_toas(maxiter=S["fit_maxiter"])
+        return f, chi2, np.array([f.model.value(p) for p in design])
+
+    spy.consumer = "gls.design"
+    f64, chi2_64, v64 = _no_k11(lambda: fit(None), "b1855 fit default", bad)
+    _, chi2_f, vf = _no_k11(lambda: fit(P.PrecisionPolicy.f64()),
+                            "b1855 fit f64()", bad)
+    if not (chi2_f == chi2_64 and np.array_equal(vf, v64)):
+        bad.append("b1855 fit: PrecisionPolicy.f64() not bitwise the default")
+
+    def grid(policy, chunk=len(pts)):
+        with P.use_policy(policy):
+            fn, _, _ = build_grid_gls_chi2_fn(
+                f64.model, base_b, ("M2", "SINI"), niter=S["grid_niter"],
+                chunk=chunk)
+        return fn
+
+    spy.consumer = "grid.gram"
+    g64 = _no_k11(lambda: grid(None)(pts), "b1855 grid default", bad)
+    if not _same(g64, _no_k11(lambda: grid(P.PrecisionPolicy.f64())(pts),
+                              "b1855 grid f64()", bad)):
+        bad.append("b1855 grid: PrecisionPolicy.f64() not bitwise")
+    lines = []
+    for ct, acc in PRECISION_SPECS:
+        t = _ptag(ct, acc)
+        pol = P.PrecisionPolicy.forced(ct, accumulation=acc)
+        spy.consumer = "gls.design"
+        _, chi2, v = fit(pol)
+        spy.consumer = "grid.gram"
+        c2, _, dg = grid(pol)(pts)
+        rc2 = float(ref[f"{pre}{t}/fit_chi2"][0])
+        rv = ref[f"{pre}{t}/fit_values"]
+        gr = ref[f"{pre}{t}/grid_chi2"]
+        budget = P.SEGMENTS["gls.design"].forced_budget
+        d_chi2 = abs(chi2 / rc2 - 1)
+        d_v = float(np.max(np.abs(v - rv) / sig))
+        own = abs(chi2 / chi2_64 - 1)
+        own_v = float(np.max(np.abs(v - v64) / np.maximum(np.abs(v64), sig)))
+        d_g = float(np.max(np.abs(c2 / gr - 1)))
+        own_g = float(np.max(np.abs(c2 - g64[0])) / np.max(np.abs(g64[0])))
+        same_arg = int(np.argmin(c2)) == int(np.argmin(gr))
+        same_rung = bool(np.array_equal(dg[:, 0],
+                                        ref[f"{pre}{t}/grid_rungs"]))
+        gbudget = P.SEGMENTS["grid.gram"].forced_budget
+        if _pexact(ct, acc):
+            ok = d_chi2 <= 1e-6 and d_v <= 1e-2 and own <= budget \
+                and own_v <= budget and d_g <= 1e-6 and same_arg \
+                and same_rung and own_g <= gbudget
+        else:
+            scale = np.maximum(np.abs(rv), sig)
+            ok = d_chi2 <= budget and float(np.max(np.abs(c2 - gr))
+                                            / np.max(np.abs(gr))) <= gbudget \
+                and (not _psteps(ct, acc) or float(np.max(
+                    np.abs(v - rv) / scale)) <= budget)
+        lines.append(f"{t}: fit chi2 {d_chi2:.3e} rel, values {d_v:.3e} "
+                     f"sigma from the reference's, {own:.3e} / {own_v:.3e} "
+                     f"from its own float64; grid chi2 {d_g:.3e} rel, argmin "
+                     f"{'equal' if same_arg else 'DIFFERS'}, rungs "
+                     f"{'equal' if same_rung else 'DIFFER'}, {own_g:.3e} "
+                     f"from its own float64")
+        if not ok:
+            bad.append(f"b1855 {t}: " + lines[-1])
+    print(f"phase precision b1855: " + "; ".join(lines) + f" {tag}",
+          flush=True)
+    # a fused sweep under float32 two_prod: captured, K11 included
+    pol = P.PrecisionPolicy.forced("float32", accumulation="two_prod")
+    spy.consumer = "grid.fused"
+    fn = grid(pol, chunk=len(pts) // 2)
+    with P.use_policy(pol):
+        unfused = fn(pts)
+        fused = fn.fused(pts, fuse=2)
+    stats = fn.graph_stats()
+    k11_in = {k: v for s in stats.values() for k, v in s["launches"].items()
+              if k.startswith("compensated_matmul")}
+    print(f"phase precision b1855 fused: fn.fused(fuse=2) under float32 "
+          f"two_prod {'bitwise' if _same(fused, unfused) else 'DIFFERS'}; "
+          f"graphs {stats}; K11 in the capture {k11_in} {tag}", flush=True)
+    if not (_same(fused, unfused) and k11_in):
+        bad.append("b1855 fused sweep under two_prod")
+    # walls: float64 against forced float32 two_prod, median of 5 warm
+    spy.consumer = None
+    walls = {}
+    for name, pol in (("f64", None), ("f32_two_prod", pol)):
+        walls[("fit", name)] = _precision_wall(lambda: fit(pol))
+        gfn = grid(pol)
+        with P.use_policy(pol):
+            walls[("grid", name)] = _precision_wall(lambda: gfn(pts))
+    print("phase precision b1855 walls (median of 5 warm, s): " + ", ".join(
+        f"{k[0]} {k[1]} {v:.4f}" for k, v in walls.items()) + f" {tag}",
+        flush=True)
+    # the probes, unforced and forced, in a temporary tune dir; a fresh
+    # fitter then resolves the forced decisions from the manifest alone
+    with tempfile.TemporaryDirectory() as tmp:
+        config.set_tune_dir(tmp)
+        autotune.reset_manifest_singleton()
+        try:
+            mine = {mode: P.tune_precision_segments(
+                f64, force=mode == "forced", grid_params=("M2", "SINI"),
+                points=pts[:4], tuning_manifest=autotune.manifest())
+                for mode in ("unforced", "forced")}
+            fresh = GLSFitter(base_b, f64.model.copy())
+            sp = P.segment_spec("gls.design", model=fresh.model,
+                                toas=fresh.batch)
+        finally:
+            config.set_tune_dir(None)
+            autotune.reset_manifest_singleton()
+    print(f"phase precision b1855 probes: "
+          + _probe_line("b1855", mine, R["precision"]["probes"])
+          + f"; a fresh fitter resolves gls.design {sp.tag()} "
+          f"source={sp.source} {tag}", flush=True)
+    bad += _decisions_agree(mine, R["precision"]["probes"], P.SEGMENTS,
+                            tag)
+    if sp.reduced != (mine["forced"]["gls.design"].value["compute_dtype"]
+                      != "float64") or (sp.reduced and sp.source != "tuned"):
+        bad.append("b1855: the fresh fitter did not resolve the manifest")
+    return bad, walls
+
+
+def _serve_requests(path, small_path):
+    """The serve phase's seven requests on the card at the reference's
+    base-fit values, with the reference's residuals (``ref/serve/``), and
+    the stream's base fitter."""
+    import numpy as np
+
+    from pint_torch.bridge import load_snapshot, read_snapshot, \
+        stream_schedule
+    from pint_torch.gls_fitter import GLSFitter
+    from pint_torch.serving import FitRequest
+
+    meta, ref = read_snapshot(path)
+    R = meta["reference"]["serve"]
+    loaded = {"stream": load_snapshot(path, device="cuda"),
+              "small_stream": load_snapshot(small_path, device="cuda")}
+    for which, (m, _) in loaded.items():
+        for p, v in zip(m.design_param_names(),
+                        ref[f"ref/serve/{which}_values"]):
+            m[p].value = float(v)
+    reqs = []
+    for i, (which, n) in enumerate(R["requests"]):
+        m, b = loaded[which]
+        q = FitRequest.from_fitter(
+            GLSFitter(b.select(np.arange(b.ntoas) < n, m), m),
+            request_id=f"{which}:{n}")
+        reqs.append(FitRequest(M=q.M, r=ref[f"ref/serve/{i}/r"], w=q.w,
+                               phiinv=q.phiinv, params=q.params,
+                               norm=q.norm, request_id=q.request_id,
+                               device=q.M.device))
+    m, b = loaded["stream"]
+    rows = stream_schedule(meta)[0]
+    keep = np.zeros(b.ntoas, dtype=bool)
+    keep[rows] = True
+    return meta, ref, reqs, GLSFitter(b.select(keep, m), m)
+
+
+def _precision_serve(path, small_path, spy, tag):
+    """j1909_stream's ``serve.gram``: ``ShapeBatcher.run`` on the seven
+    requests under every forced spec against ``ref/precision/`` (and its
+    own float64), the three other bfloat16 modes run too; the default and
+    ``PrecisionPolicy.f64()`` bitwise; the probe on the stream's base fit;
+    the walls."""
+    import numpy as np
+
+    from pint_torch import precision as P
+    from pint_torch.serving import ShapeBatcher
+
+    meta, ref, reqs, base = _serve_requests(path, small_path)
+    pre = "ref/precision/"
+    sb = ShapeBatcher()
+    bad, lines = [], []
+    spy.consumer = "serve.gram"
+
+    def run(policy):
+        with P.use_policy(policy):
+            return sb.run(reqs)
+
+    def flat(res):
+        return [np.concatenate([r.dx, r.errors, [r.chi2, r.chi2_initial]])
+                for r in res]
+
+    r64 = _no_k11(lambda: run(None), "serve default", bad)
+    r64f = _no_k11(lambda: run(P.PrecisionPolicy.f64()), "serve f64()", bad)
+    if not all(np.array_equal(a, b) for a, b in zip(flat(r64), flat(r64f))):
+        bad.append("serve: PrecisionPolicy.f64() not bitwise the default")
+    budget = P.SEGMENTS["serve.gram"].forced_budget
+    for ct, acc in PRECISION_SPECS + PRECISION_EXTRA:
+        t = _ptag(ct, acc)
+        res = run(P.PrecisionPolicy.forced(ct, accumulation=acc))
+        if (ct, acc) in PRECISION_EXTRA:
+            lines.append(f"{t}: chi2 {max(abs(r.chi2 / q.chi2 - 1) for r, q in zip(res, r64)):.3e} rel from its own float64 (no stored output)")
+            continue
+        g = dict(dx=0.0, err=0.0, chi2=0.0, own=0.0)
+        for i, (r, r6) in enumerate(zip(res, r64)):
+            Q = f"{pre}{t}/{i}/"
+            e = ref[Q + "errors"]
+            c2 = np.array([r.chi2, r.chi2_initial])
+            if _pexact(ct, acc):
+                g["dx"] = max(g["dx"], float(np.max(np.abs(
+                    r.dx - ref[Q + "dx"]) / e)))
+                g["err"] = max(g["err"], float(np.max(np.abs(
+                    r.errors / e - 1))))
+            else:
+                g["dx"] = max(g["dx"], float(np.max(np.abs(
+                    r.dx - ref[Q + "dx"]) / np.maximum(
+                        np.abs(ref[Q + "dx"]), e))))
+            g["chi2"] = max(g["chi2"], float(np.max(np.abs(
+                c2 / ref[Q + "chi2"] - 1))))
+            g["own"] = max(g["own"], abs(r.chi2 / r6.chi2 - 1))
+        if _pexact(ct, acc):
+            ok = g["dx"] <= 1e-6 and g["err"] <= 1e-9 and g["chi2"] <= 1e-9 \
+                and g["own"] <= budget
+        else:
+            ok = g["chi2"] <= budget and (not _psteps(ct, acc)
+                                          or g["dx"] <= budget)
+        lines.append(f"{t}: dx {g['dx']:.3e}, errors {g['err']:.3e}, chi2 "
+                     f"{g['chi2']:.3e} from the reference's, chi2 "
+                     f"{g['own']:.3e} from its own float64")
+        if not ok:
+            bad.append(f"serve {t}: " + lines[-1])
+    print("phase precision serve: " + "; ".join(lines) + f" {tag}",
+          flush=True)
+    spy.consumer = None
+    pol = P.PrecisionPolicy.forced("float32", accumulation="two_prod")
+    walls = {("serve", "f64"): _precision_wall(lambda: run(None)),
+             ("serve", "f32_two_prod"): _precision_wall(lambda: run(pol))}
+    mine = {mode: P.tune_precision_segments(
+        base, segments=("serve.gram",), force=mode == "forced")
+        for mode in ("unforced", "forced")}
+    stored = meta["reference"]["precision"]["probes"]
+    print("phase precision serve probes: " + _probe_line("serve", mine,
+                                                         stored)
+          + "; walls (median of 5 warm, s): " + ", ".join(
+              f"{k[1]} {v:.4f}" for k, v in walls.items()) + f" {tag}",
+          flush=True)
+    bad += _decisions_agree(mine, stored, P.SEGMENTS, tag)
+    return bad, walls
+
+
+def _precision_catalog(path, spy, tag):
+    """pta67_catalog's ``catalog.fit`` and ``catalog.lnlike`` at the ingest
+    state on the reference's residuals (``ref/catalog/pass0/r``): each
+    bucket's batched call and the joint likelihood at the stored points
+    under every forced spec against ``ref/precision/`` (and its own
+    float64); the default and ``PrecisionPolicy.f64()`` bitwise; the
+    catalogue probes; the walls."""
+    import numpy as np
+
+    from pint_torch import precision as P
+    from pint_torch.bridge import load_catalog_snapshot, read_snapshot
+    from pint_torch.catalog import (CatalogFitter, JointLikelihood,
+                                    catalog_batched, ingest_catalog)
+
+    meta, ref = read_snapshot(path)
+    S = meta["reference"]["settings"]
+    pre = "ref/precision/"
+    report = ingest_catalog(load_catalog_snapshot(path, device="cuda"))
+    cf = CatalogFitter(report)
+    reqs = _catalog_on(cf._requests(), ref["ref/catalog/pass0/r"])
+    ks = [q.n_free for q in reqs]
+    pts = ref[pre + "lnlike_points"]
+    bad, lines = [], []
+
+    def fit(policy):
+        with P.use_policy(policy):
+            return _catalog_lanes(cf, reqs, catalog_batched())
+
+    def lnlike(policy):
+        with P.use_policy(policy):
+            jl = JointLikelihood(cf, n_modes=S["n_modes"], requests=reqs)
+            return jl.lnlike_batch(pts)
+
+    spy.consumer = "catalog.fit"
+    f64 = _no_k11(lambda: fit(None), "catalog fit default", bad)
+    f64f = _no_k11(lambda: fit(P.PrecisionPolicy.f64()), "catalog fit f64()",
+                   bad)
+    same_fit = all(all(np.array_equal(x, y) for x, y in zip(a, b))
+                   for a, b in zip(f64, f64f))
+    spy.consumer = "catalog.lnlike"
+    l64 = _no_k11(lambda: lnlike(None), "catalog lnlike default", bad)
+    l64f = _no_k11(lambda: lnlike(P.PrecisionPolicy.f64()),
+                   "catalog lnlike f64()", bad)
+    if not (same_fit and np.array_equal(l64, l64f)):
+        bad.append("catalog: PrecisionPolicy.f64() not bitwise the default")
+    fb = P.SEGMENTS["catalog.fit"].forced_budget
+    lb = P.SEGMENTS["catalog.lnlike"].forced_budget
+    for ct, acc in PRECISION_SPECS:
+        t = _ptag(ct, acc)
+        pol = P.PrecisionPolicy.forced(ct, accumulation=acc)
+        spy.consumer = "catalog.fit"
+        outs = fit(pol)
+        spy.consumer = "catalog.lnlike"
+        ll = lnlike(pol)
+        rdx = np.split(ref[f"{pre}{t}/fit_dx"], np.cumsum(ks)[:-1])
+        rerr = np.split(ref[f"{pre}{t}/fit_errors"], np.cumsum(ks)[:-1])
+        rc2 = ref[f"{pre}{t}/fit_chi2"]
+        g = dict(dx=0.0, err=0.0, chi2=0.0, own=0.0)
+        for i, (o, o6) in enumerate(zip(outs, f64)):
+            k = ks[i]
+            e = rerr[i]
+            scale = e if _pexact(ct, acc) else np.maximum(np.abs(rdx[i]), e)
+            g["dx"] = max(g["dx"], float(np.max(np.abs(o[0][:k] - rdx[i])
+                                                / scale)))
+            g["err"] = max(g["err"], float(np.max(np.abs(o[1][:k] / e - 1))))
+            g["chi2"] = max(g["chi2"], float(np.max(np.abs(
+                np.array([o[2], o[3]]) / rc2[i] - 1))))
+            g["own"] = max(g["own"], abs(float(o[2]) / float(o6[2]) - 1))
+        rl = ref[f"{pre}{t}/lnlike"]
+        d_l = float(np.max(np.abs(ll - rl) / np.maximum(1.0, np.abs(rl))))
+        own_l = float(np.max(np.abs(ll - l64) / np.maximum(1.0,
+                                                           np.abs(l64))))
+        if _pexact(ct, acc):
+            ok = g["dx"] <= 1e-6 and g["err"] <= 1e-9 and g["chi2"] <= 1e-9 \
+                and g["own"] <= fb and d_l <= 1e-9 and own_l <= lb
+        else:
+            ok = g["chi2"] <= fb and d_l <= lb and (not _psteps(ct, acc)
+                                                     or g["dx"] <= fb)
+        lines.append(f"{t}: fit dx {g['dx']:.3e}, errors {g['err']:.3e}, "
+                     f"chi2 {g['chi2']:.3e} from the reference's, chi2 "
+                     f"{g['own']:.3e} from its own float64; lnlike "
+                     f"{d_l:.3e} x max(1, |ref|), {own_l:.3e} from its own")
+        if not ok:
+            bad.append(f"catalog {t}: " + lines[-1])
+    print("phase precision catalog: " + "; ".join(lines) + f" {tag}",
+          flush=True)
+    spy.consumer = None
+    pol = P.PrecisionPolicy.forced("float32", accumulation="two_prod")
+    walls = {}
+    for name, p in (("f64", None), ("f32_two_prod", pol)):
+        walls[("catalog.fit", name)] = _precision_wall(lambda: fit(p))
+        walls[("catalog.lnlike", name)] = _precision_wall(lambda: lnlike(p))
+    mine = {mode: P.tune_precision_segments(
+        report.pulsars[0].fitter, segments=("catalog.fit", "catalog.lnlike"),
+        catalog=report, force=mode == "forced")
+        for mode in ("unforced", "forced")}
+    stored = meta["reference"]["precision"]["probes"]
+    print("phase precision catalog probes: "
+          + _probe_line("catalog", mine, stored)
+          + "; walls (median of 5 warm, s; lnlike: the likelihood's build "
+          "and 4 points): " + ", ".join(
+              f"{k[0]} {k[1]} {v:.4f}" for k, v in walls.items())
+          + f" {tag}", flush=True)
+    bad += _decisions_agree(mine, stored, P.SEGMENTS, tag)
+    return bad, walls
+
+
+def _precision_phase(paths, kernels, tag):
+    """The precision layer on the card, K11's counts zeroed just before
+    and read just after: b1855 (``gls.design``, ``grid.gram``,
+    ``grid.correction``, a fused sweep), j1909_stream (``serve.gram``) and
+    pta67_catalog (``catalog.fit``, ``catalog.lnlike``), each under every
+    forced spec (module docstring).  Returns (counts, the largest K11 call
+    per consumer and mode, the walls)."""
+    from pint_torch.kernels import compensated_matmul as K11
+
+    t0 = time.perf_counter()
+    kernels.reset_counts()
+    with _K11Spy(K11) as spy:
+        bad, walls = _precision_b1855(paths["b1855"], spy, tag)
+        b2, w2 = _precision_serve(paths["stream"], paths["small_stream"],
+                                  spy, tag)
+        b3, w3 = _precision_catalog(paths["catalog"], spy, tag)
+    counts = kernels.launch_counts()
+    bad += b2 + b3
+    walls.update(w2)
+    walls.update(w3)
+    print("phase precision launches: " + ", ".join(
+        f"{k} {v}" for k, v in counts.items() if v)
+        + f"; wall {time.perf_counter() - t0:.2f} s {tag}", flush=True)
+    if bad:
+        raise RuntimeError("precision phase: " + " | ".join(bad))
+    return counts, spy.calls, walls
+
+
+#: the index in ``_k11_cases`` of its largest case, (2, 300, 4005) x
+#: (2, 4005, 30)
+K11_LARGEST_CASE = 5
+
+
+def _k11_cases(dev) -> list:
+    """K11's seeded random (B, m, k) x (B, k, n) cases on ``dev``, entries
+    spread over six decades: a 1-D rhs, a batch against a shared operand,
+    k = 1, k < split, k off the 16-deep tile, a tall contraction over
+    4005 rows, and a zero column with NaN and Inf."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(20261018)
+
+    def rnd(*shape):
+        return (torch.rand(*shape, generator=gen, dtype=torch.float64,
+                           device=dev) - 0.5) * torch.exp(
+            6 * torch.rand(*shape, generator=gen, dtype=torch.float64,
+                           device=dev) - 3)
+
+    cases = []
+    for sa, sb in (((7, 37), (37, 1)), ((3, 9, 40), (1, 40, 4)),
+                   ((4, 1), (1, 3)), ((5, 5), (5, 2)), ((33, 50), (50, 17)),
+                   ((2, 300, 4005), (2, 4005, 30))):
+        a, b = rnd(*sa), rnd(*sb)
+        if a.ndim == 2:
+            a = a[None]
+        if b.ndim == 2:
+            b = b[None]
+        cases.append((a, b.expand(a.shape[0], *b.shape[1:])))
+    a, b = rnd(1, 9, 21), rnd(1, 21, 6)
+    b[..., 2] = 0.0
+    a[0, 3, 4], a[0, 5, 7], b[0, 10, 4] = math.nan, math.inf, -math.inf
+    cases.append((a, b))
+    return cases
+
+
+def _k11_kernels(calls, counts, dev, tag) -> list:
+    """K11 against its plain twin on the card: every instantiation on the
+    largest call each consumer gave it in the precision phase (its mode
+    and dtype) and on the seeded random operands of ``_k11_cases``,
+    within each mode's bar (``_k11_bar``); timed
+    on each consumer's call beside its bound, the twin and the library's
+    passes, the record holding the largest.  Returns the kernels-line
+    records."""
+    from pint_torch.kernels import compensated_matmul as K11
+
+    rand_cases = _k11_cases(dev)
+    records = []
+    for acc in K11.ACCUMULATIONS:
+        for ct in ("float32", "bfloat16"):
+            name = K11.KERNELS[(acc, ct)]
+            mine = {key: c for key, c in calls.items()
+                    if key[1] == acc and key[2] == ct}
+            errs, worst, nf, err_path = [], 0.0, True, 0.0
+            for (consumer, _, _), (_, (a3, b3, _, _, bd)) in mine.items():
+                e, r, s = _k11_check(K11, a3, b3, ct, acc)
+                ms_c = _time_ms(lambda: K11._launch(a3, b3, ct, acc, bd), 5)
+                plain_c = _time_ms(lambda: K11.compensated_matmul_reference(
+                    a3, b3, ct, acc), 3, warmup=1)
+                lib_c = _time_ms(_k11_library(K11, a3, b3, ct, acc), 5)
+                bound_c = _k11_bound(a3, b3, ct, acc)
+                errs.append(f"{consumer} {tuple(a3.shape)}x"
+                            f"{tuple(b3.shape)} {e:.3e} ({r:.3f} of the bar)"
+                            f", kernel {ms_c:.4f} ms, plain {plain_c:.4f}, "
+                            f"library {lib_c:.4f}, bound {bound_c[0]:.4f} "
+                            f"({bound_c[1]})")
+                worst, nf = max(worst, r), nf and s
+                err_path = max(err_path, e)
+            err = 0.0
+            for a, b in rand_cases:
+                e, r, s = _k11_check(K11, a, b, ct, acc)
+                err, worst, nf = max(err, e), max(worst, r), nf and s
+            big = max(mine.values(), key=lambda c: c[0])[1] if mine \
+                else (*rand_cases[K11_LARGEST_CASE], ct, acc,
+                      K11.split_bounds(4005, 8))
+            a3, b3, _, _, bd = big
+            ms = _time_ms(lambda: K11._launch(a3, b3, ct, acc, bd), 5)
+            plain = _time_ms(lambda: K11.compensated_matmul_reference(
+                a3, b3, ct, acc), 3, warmup=1)
+            lib = _time_ms(_k11_library(K11, a3, b3, ct, acc), 5)
+            bound = _k11_bound(a3, b3, ct, acc)
+            print(f"phase kernel {name}: path calls " + ("; ".join(errs) or
+                                                        "none")
+                  + f"; random {err:.3e}; worst {worst:.3f} of the bar; NaN/"
+                  f"Inf where the twin's {nf}; at {tuple(a3.shape)}x"
+                  f"{tuple(b3.shape)} kernel {ms:.4f} ms, plain {plain:.4f}"
+                  f" ms, library {lib:.4f} ms, bound {bound[0]:.4f} ms "
+                  f"({bound[1]}) {tag}", flush=True)
+            if not (worst <= 1.0 and nf):
+                raise RuntimeError(f"{name} disagrees with its plain version")
+            records.append(dict(
+                name=name, route="cuda",
+                source="pint_torch/kernels/csrc/compensated_matmul.cu",
+                replaces=K11.REPLACES, launches=counts[name],
+                max_abs_err=max(err, err_path), ms=ms, plain_ms=plain,
+                bound_ms=bound[0], bound_by=bound[1], library_ms=lib,
+                path="precision"))
+    return records
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -3617,6 +4385,7 @@ def main() -> int:
     from pint_torch.kernels import photon_lnlike as K8
     from pint_torch.kernels import chol_rank_update as K9
     from pint_torch.kernels import hd_cross_lnlike as K10
+    from pint_torch.kernels import compensated_matmul as K11
 
     dev = torch.device("cuda")
     card = _card()
@@ -3668,6 +4437,10 @@ def main() -> int:
                f"chol_rank_kernelILb{int(sm)}ELb{int(ing)}EE")
               for sm in (True, False) for ing in (False, True)]
     ptxas += [("hd_cross_lnlike", k, k) for k in K10.KERNELS.values()]
+    ptxas += [("compensated_matmul", K11.KERNELS[(acc, ct)],
+               f"compensated_matmul_kernelILi{i}ELi{j}E")
+              for i, acc in enumerate(K11.ACCUMULATIONS)
+              for j, ct in enumerate(("float32", "bfloat16"))]
     # no primal may spill (K1, K2 and K4 in each mode and orbit source,
     # K6, K7), nor ELL1H's duals, K6's and K7's duals or K5's tiled kernels
     k4_primals = [K4.KERNELS[(m, False)] for m in range(4)] \
@@ -3885,6 +4658,16 @@ def main() -> int:
     _sampler_retries(NGC_PHOFF_PATH, tag)
     print(f"phase sweep wall: {time.perf_counter() - t_sweep:.2f} s {tag}",
           flush=True)
+
+    # ---- the precision phase: the precision layer's segments on K11 --------
+    prec_counts, k11_calls, _ = _precision_phase(
+        {"b1855": STANDIN_PATH, "stream": STREAM_PATH,
+         "small_stream": STREAM_SMALL_PATH, "catalog": CATALOG_PATH},
+        kernels, tag)
+    missing = [k for k in K11.KERNELS.values() if prec_counts[k] == 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on the precision path: "
+                           f"{missing}")
 
     # ---- kernels against their plain twins ----------------------------------
     # Every CUDA kernel -- the primal and dual instantiations of K1, of K2
@@ -4977,6 +5760,7 @@ def main() -> int:
 
     records += _k9_kernels(stream_cap, stream_counts, dev, tag)
     records += _k10_kernels(cat_jl, cat_counts, cat_bench, cat_pts, dev, tag)
+    records += _k11_kernels(k11_calls, prec_counts, dev, tag)
 
     print(f"phase wall: {time.perf_counter() - t_start:.2f} s for the whole "
           f"run {tag}", flush=True)

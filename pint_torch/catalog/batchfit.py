@@ -9,13 +9,16 @@ batcher.serve_batched`), or ``steps`` of them fused
 (:func:`~pint_torch.serving.batcher.serve_fused`): zero-weight pad rows,
 zero pad columns and a unit pad diagonal make the padded solve the
 dedicated one.  ``compiles`` counts the hand kernels built during a pass
-(the port's analogue of the reference's fresh XLA compiles).
+(the port's analogue of the reference's fresh XLA compiles).  The batched
+calls run the ``catalog.fit`` precision segment
+(:func:`resolve_catalog_fit_spec`), and the bucket ladders are the tuning
+manifest's where it holds them for this catalogue's shapes, else the
+learned ones.
 
 Left to later items: ``plan=`` (the execution-plan mesh, ROADMAP queue A
 item 9) and ``pool=`` / :meth:`CatalogFitter.warm` with a pool (CUDA graphs
-per bucket, item 8) raise ``NotImplementedError``; with no autotune
-manifest (item 8) the ladders are the learned ones; the telemetry spans
-and events are item 8's.
+per bucket, item 8) raise ``NotImplementedError``; the telemetry spans and
+events are item 8's.
 """
 
 from __future__ import annotations
@@ -43,18 +46,19 @@ DEFAULT_CATALOG_BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
 
 
 def resolve_catalog_fit_spec():
-    """The ``catalog.fit`` precision spec: float64 (reduced specs are ROADMAP
-    queue A item 7's ``precision/``)."""
-    from pint_torch.serving.batcher import SegmentSpec
+    """The active ``catalog.fit`` precision
+    :class:`~pint_torch.precision.SegmentSpec` (override -> manifest ->
+    float64 default), resolved on the host at dispatch time."""
+    from pint_torch.precision import segment_spec
 
-    return SegmentSpec()
+    return segment_spec("catalog.fit")
 
 
 def catalog_fused(spec=None, steps: int = DEFAULT_REFINE_STEPS,
                   reweight=None):
     """``steps`` linearized fit steps per pulsar lane in one call
-    (:func:`~pint_torch.serving.batcher.serve_fused`); ``reweight="huber"``
-    re-weights the Grams by Huber IRLS."""
+    (:func:`~pint_torch.serving.batcher.serve_fused`) at the ``catalog.fit``
+    spec; ``reweight="huber"`` re-weights the Grams by Huber IRLS."""
     from pint_torch.serving.batcher import serve_fused
 
     return serve_fused(resolve_catalog_fit_spec() if spec is None else spec,
@@ -189,6 +193,12 @@ class CatalogFitter:
         #: changed in between)
         self._request_memo = self._build_requests()
         self.shapes = [(q.n_toas, q.n_free) for q in self._request_memo]
+        if ntoa_ladder is None and nfree_ladder is None:
+            from pint_torch import autotune
+
+            tuned = autotune.resolve_catalog_ladders(self.shapes)
+            if tuned is not None:
+                ntoa_ladder, nfree_ladder = tuned["ntoa"], tuned["nfree"]
         if ntoa_ladder is None or nfree_ladder is None:
             learned_n, learned_k = learn_ladders(self.shapes)
             ntoa_ladder = ntoa_ladder or learned_n

@@ -28,10 +28,15 @@ hd_cross_lnlike`): the spectrum, M's Cholesky, the solve and the
 log-determinant.  At zero amplitude (``log10_A = -inf``) the cross term is
 exactly 0 and the joint value is the sum of the per-pulsar ones.
 
+The per-pulsar blocks' Gram and projection products are the
+``catalog.lnlike`` precision segment (``precision=`` a
+:class:`~pint_torch.precision.SegmentSpec`, or None for the active one):
+under a reduced spec they run through :func:`pint_torch.precision.matmul`
+on the reference's operands; the factorizations, determinants, reductions
+and K10's cross term stay float64, as in the reference.
+
 Left to later items: ``plan=`` (mesh placement over ``pulsar`` and
-``walker``, ROADMAP queue A item 9) raises; ``precision=`` takes None or a
-float64 :class:`~pint_torch.serving.batcher.SegmentSpec` (a reduced one is
-item 7's ``precision/`` and raises).
+``walker``, ROADMAP queue A item 9) raises.
 """
 
 from __future__ import annotations
@@ -50,18 +55,21 @@ __all__ = ["JointLikelihood", "FYR_HZ"]
 _DAY_S = 86400.0
 
 
-def _pulsar_blocks(M, r, w, phiinv, pad, F):
+def _pulsar_blocks(M, r, w, phiinv, pad, F, spec=None):
     """Each padded pulsar's marginalized Woodbury pieces, the pulsar axis
     leading: ``(lnl, y, X)`` -- its log-likelihood, ``F^T P^-1 r`` and
     ``F^T P^-1 F``.  Pad rows carry ``w = 0``, pad columns ``phiinv = 0``
-    and a unit pad diagonal: they add exactly nothing."""
-    from pint_torch.serving.batcher import _gram, _mv
+    and a unit pad diagonal: they add exactly nothing.  ``spec`` is the
+    ``catalog.lnlike`` segment of the Gram and projection products (None:
+    float64, the blocked products)."""
+    from pint_torch.precision import matmul as _pmatmul
+    from pint_torch.serving.batcher import _mv, _pgram, _pmv
 
     wM = w[..., None] * M
     s = torch.sqrt(torch.sum(wM * M, dim=-2) + phiinv)
     s = torch.where(s > 0, s, torch.ones_like(s))
     Ms = M / s[..., None, :]
-    Sigma = _gram(Ms, w[..., None] * Ms) + torch.diag_embed(
+    Sigma = _pgram(Ms, w[..., None] * Ms, spec) + torch.diag_embed(
         phiinv / s**2) + torch.diag_embed(pad)
     cf, info = torch.linalg.cholesky_ex(Sigma)
     if bool((info != 0).any()):
@@ -70,7 +78,7 @@ def _pulsar_blocks(M, r, w, phiinv, pad, F):
         raise NonFiniteSystemError(
             "joint likelihood: a pulsar's basis-space matrix is not positive "
             "definite")
-    b = _mv(Ms.mT, w * r)
+    b = _pmv(Ms.mT, w * r, spec)
     xb = torch.cholesky_solve(b[..., None], cf)[..., 0]
     rNr = torch.sum(w * r * r, dim=-1)
     lndetN = -torch.sum(torch.where(w > 0, torch.log(torch.where(
@@ -87,9 +95,10 @@ def _pulsar_blocks(M, r, w, phiinv, pad, F):
     lnl = -0.5 * (rNr - torch.sum(b * xb, dim=-1) + lndetN + lndet_phi
                   + lndet_sigma + n_real * n2pi)
     WF = w[..., None] * F
-    A_mf = _gram(Ms, WF)
-    y = _mv(F.mT, w * r) - _mv(A_mf.mT, xb)
-    X = _gram(F, WF) - A_mf.mT @ torch.cholesky_solve(A_mf, cf)
+    A_mf = _pgram(Ms, WF, spec)
+    y = _pmv(F.mT, w * r, spec) - _mv(A_mf.mT, xb)
+    X = _pgram(F, WF, spec) \
+        - _pmatmul(A_mf.mT, torch.cholesky_solve(A_mf, cf), spec)
     return lnl, y, X
 
 
@@ -113,15 +122,19 @@ class JointLikelihood:
                  pad_shape: Optional[Tuple[int, int]] = None,
                  precision=None, requests: Optional[Sequence] = None):
         from pint_torch.catalog.crosscorr import hd_cholesky
-        from pint_torch.serving.batcher import (FitRequest, SegmentSpec,
-                                                _check_spec, pad_request)
+        from pint_torch.precision import SegmentSpec, segment_spec
+        from pint_torch.serving.batcher import FitRequest, pad_request
 
-        if precision is not None and not isinstance(precision, SegmentSpec):
+        # the catalog.lnlike segment, resolved once: the per-pulsar blocks
+        # and per_pulsar_lnlike share it
+        if precision is None:
+            self._pspec = segment_spec("catalog.lnlike")
+        elif isinstance(precision, SegmentSpec):
+            self._pspec = precision
+        else:
             raise UsageError(
                 f"precision must be a SegmentSpec or None, got "
                 f"{type(precision).__name__}")
-        _check_spec(precision)
-        self._pspec = SegmentSpec() if precision is None else precision
         if plan is not None:
             raise NotImplementedError(
                 "JointLikelihood(plan=...): execution plans over a "
@@ -179,7 +192,7 @@ class JointLikelihood:
         self.Lhd = hd_cholesky(self._directions())
         self.pad_shape = (n_pad, k_pad)
         data = tuple(torch.stack([p[i] for p in parts]) for i in range(6))
-        lnl, y, X = _pulsar_blocks(*data)
+        lnl, y, X = _pulsar_blocks(*data, spec=self._pspec)
         self._lnl = lnl
         self._lnl_sum = torch.sum(lnl)
         Lhd = torch.as_tensor(self.Lhd, dtype=F64, device=self.device)

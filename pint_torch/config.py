@@ -1,14 +1,13 @@
 """Process settings of pint_torch (port of ``pint_tpu/config.py``): the
-data directory, the ingestion policy and the GLS grid chunk override,
-each read from a ``PINT_TORCH_*`` environment variable and settable for
-the process.
+data directory, the ingestion policy, the GLS grid chunk override and the
+tuning-manifest directory, each read from a ``PINT_TORCH_*`` environment
+variable and settable for the process.
 
 The device-mismatch policy's reader (the preflight device probe),
-telemetry, the AOT-cache directory and the tuning-manifest directory are
-what ROADMAP queue A item 8 ports: the device policy is its default
-``"warn"`` and the telemetry mode ``"off"``, and asking for another
-policy or mode or setting either directory raises
-``NotImplementedError``.
+telemetry and the AOT-cache directory are what ROADMAP queue A item 8
+ports: the device policy is its default ``"warn"`` and the telemetry mode
+``"off"``, and asking for another policy or mode or setting the AOT-cache
+directory raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,7 +23,7 @@ __all__ = ["datadir",
            "tune_dir", "set_tune_dir"]
 
 _ITEM8 = ("is ROADMAP queue A item 8 (the preflight device probe, "
-          "telemetry, the AOT cache and the autotuner), not ported yet")
+          "telemetry and the AOT cache), not ported yet")
 
 #: the reference's device-mismatch policies (``PINT_TORCH_DEVICE_POLICY``),
 #: read by its preflight device probe, which the port does not have yet:
@@ -183,20 +182,37 @@ def set_grid_chunk(chunk) -> None:
     _grid_chunk = _coerce_chunk(chunk, "set_grid_chunk")
 
 
+#: where the tuning manifest persists decisions across processes
+#: (``PINT_TORCH_TUNE_DIR`` / :func:`set_tune_dir`), keyed by workload vkey
+#: and device fingerprint (:mod:`pint_torch.autotune`); ``None`` (the
+#: default) turns persistence off and the tunable call sites take their
+#: static defaults
+_tune_dir = os.environ.get("PINT_TORCH_TUNE_DIR") or None
+
+
 def tune_dir():
-    """``None``: no tuning manifest.  ``PINT_TORCH_TUNE_DIR`` set raises
-    ``NotImplementedError``."""
-    if os.environ.get("PINT_TORCH_TUNE_DIR"):
-        raise NotImplementedError("PINT_TORCH_TUNE_DIR: the autotuner "
-                                  + _ITEM8)
-    return None
+    """Tuning-manifest directory, or ``None`` when persistence is off.  The
+    environment value is not validated at import;
+    :class:`pint_torch.autotune.manifest.TuningManifest` raises the typed
+    error at first use."""
+    return _tune_dir
 
 
 def set_tune_dir(path) -> None:
-    """``None`` or empty keeps tuning off; a directory raises
-    ``NotImplementedError``."""
-    if path:
-        raise NotImplementedError("set_tune_dir: the autotuner " + _ITEM8)
+    """Set (or, with ``None``/empty, turn off) the tuning-manifest
+    directory for this process.  It is created if absent; an uncreatable or
+    unwritable target raises :class:`~pint_torch.exceptions.UsageError` at
+    once, through the validation
+    :class:`~pint_torch.autotune.manifest.TuningManifest` itself does."""
+    global _tune_dir
+    if not path:
+        _tune_dir = None
+        return
+    path = os.path.abspath(str(path))
+    from pint_torch.autotune.manifest import TuningManifest
+
+    TuningManifest(path)
+    _tune_dir = path
 
 
 def datadir() -> str:

@@ -11,8 +11,11 @@ basis columns; with wideband TOAs the timing rows stack ``[M_toa;
 M_dm]`` and the basis gets zero DM rows.  The noise block is identical on
 every iteration, so the
 Schur-complement path factors it once per fit and solves only the timing
-system per step.  The Gram products are float64 ``torch.matmul`` on the
-model's device; the solves go through the hardened ladder.
+system per step.  The Gram products run on the model's device through
+the ``gls.design`` precision segment (:func:`pint_torch.precision.matmul`:
+float64 ``torch.matmul`` by default, kernel K11 under a reduced spec),
+resolved once a step; the solves go through the hardened ladder, entered at
+the autotuner's tuned rung where a manifest holds one.
 """
 
 from __future__ import annotations
@@ -25,8 +28,10 @@ import torch
 from pint_torch import F64
 from pint_torch.fitter import (DegeneracyWarning, DownhillFitter, Fitter,
                                UsageError)
-from pint_torch.runtime.solve import (NonFiniteSystemError, SingularMatrixError,
-                                      SolveDiagnostics, hardened_cholesky,
+from pint_torch.precision import matmul as _pmatmul
+from pint_torch.runtime.solve import (JITTER_LADDER, NonFiniteSystemError,
+                                      SingularMatrixError, SolveDiagnostics,
+                                      hardened_cholesky,
                                       solve_normal_cholesky)
 from pint_torch.utils import normalize_designmatrix
 
@@ -106,17 +111,28 @@ def linearized_system(model, batch, resids=None):
     return M, resids.time_resids, 1.0 / Nvec, phiinv, tuple(params), norm
 
 
-def gls_normal_equations(M, r, Nvec=None, phiinv=None, cov=None):
+def _design_spec(model, batch):
+    """The resolved ``gls.design`` precision segment of this workload
+    (override -> manifest ``precision.gls.design`` key -> the bit-identical
+    float64 default), resolved once a step."""
+    from pint_torch.precision import segment_spec
+
+    return segment_spec("gls.design", model=model, toas=batch)
+
+
+def gls_normal_equations(M, r, Nvec=None, phiinv=None, cov=None, spec=None):
     """``M^T C^-1 M + diag(phiinv)`` and ``M^T C^-1 r``: C diagonal
     (``Nvec``, the Woodbury form) or the dense ``cov``, through its
-    Cholesky factor (no prior)."""
+    Cholesky factor (no prior).  ``spec`` is the ``gls.design`` segment's
+    :class:`~pint_torch.precision.SegmentSpec` (None or float64: the plain
+    products)."""
     if cov is not None:
         cf, _, _ = hardened_cholesky(cov, name="TOA covariance")
         cm = torch.cholesky_solve(M, cf)
-        return M.T @ cm, cm.T @ r
+        return _pmatmul(M.T, cm, spec), _pmatmul(cm.T, r, spec)
     cinv = 1.0 / Nvec
-    mtcm = M.T @ (cinv[:, None] * M) + torch.diag(phiinv)
-    mtcy = M.T @ (cinv * r)
+    mtcm = _pmatmul(M.T, cinv[:, None] * M, spec) + torch.diag(phiinv)
+    mtcy = _pmatmul(M.T, cinv * r, spec)
     return mtcm, mtcy
 
 
@@ -125,10 +141,15 @@ def _cho_solve(L, b):
         .reshape(b.shape)
 
 
-def _schur_gls_solve(M, r, Nvec, phiinv, ntm: int, cache: dict):
+def _schur_gls_solve(M, r, Nvec, phiinv, ntm: int, cache: dict,
+                     ladder=None, spec=None):
     """Solve through the Schur complement of the noise block; returns
     (xvar_t, xhat, diagnostics).  The noise block's factor is cached while
-    its inputs are unchanged."""
+    its inputs and the ``gls.design`` spec are unchanged.  Both
+    factorizations run through the hardened jitter ``ladder`` (the
+    autotuner's tuned entry-rung suffix; default the full ladder); its
+    Grams through the ``gls.design`` segment ``spec``."""
+    ladder = ladder or JITTER_LADDER
     if not bool(torch.isfinite(r).all()):
         raise NonFiniteSystemError(
             "GLS residual vector contains NaN/inf; refusing the solve")
@@ -136,24 +157,27 @@ def _schur_gls_solve(M, r, Nvec, phiinv, ntm: int, cache: dict):
     M_t, M_u = M[:, :ntm], M[:, ntm:]
     pu = phiinv[ntm:]
     WM_u = W[:, None] * M_u
+    skey = None if spec is None else spec.key()
     hit = cache.get("schur")
     if (hit is not None and hit[0] == tuple(M.shape) and hit[1] == ntm
             and torch.equal(hit[2], pu) and torch.equal(hit[3], Nvec)
-            and torch.equal(hit[4], M_u)):
+            and torch.equal(hit[4], M_u) and hit[7] == skey):
         L_D, jit_D = hit[5], hit[6]
     else:
-        D = M_u.T @ WM_u + torch.diag(pu)
-        L_D, jit_D, _ = hardened_cholesky(D, name="GLS noise block")
+        D = _pmatmul(M_u.T, WM_u, spec) + torch.diag(pu)
+        L_D, jit_D, _ = hardened_cholesky(D, name="GLS noise block",
+                                          ladder=ladder)
         cache["schur"] = (tuple(M.shape), ntm, pu.clone(), Nvec.clone(),
-                          M_u.clone(), L_D, jit_D)
-    A = M_t.T @ (W[:, None] * M_t) + torch.diag(phiinv[:ntm])
-    C = M_t.T @ WM_u
+                          M_u.clone(), L_D, jit_D, skey)
+    A = _pmatmul(M_t.T, W[:, None] * M_t, spec) + torch.diag(phiinv[:ntm])
+    C = _pmatmul(M_t.T, WM_u, spec)
     b_t = M_t.T @ (W * r)
     b_u = WM_u.T @ r
     Y = torch.linalg.solve_triangular(L_D, C.T, upper=False)
     z_u = torch.linalg.solve_triangular(L_D, b_u[:, None], upper=False)[:, 0]
     S = A - Y.T @ Y
-    L_S, jit_S, attempts = hardened_cholesky(S, name="GLS Schur complement")
+    L_S, jit_S, attempts = hardened_cholesky(S, name="GLS Schur complement",
+                                             ladder=ladder)
     x_t = _cho_solve(L_S, b_t - Y.T @ z_u)
     xvar_t = _cho_solve(L_S, torch.eye(ntm, dtype=F64, device=M.device))
     x_u = _cho_solve(L_D, b_u - C.T @ x_t)
@@ -166,12 +190,15 @@ def _schur_gls_solve(M, r, Nvec, phiinv, ntm: int, cache: dict):
     return xvar_t, torch.cat([x_t, x_u]), diag
 
 
-def _try_schur_path(fitter, M, r, Nvec, phiinv, ntm, norm):
+def _try_schur_path(fitter, M, r, Nvec, phiinv, ntm, norm, spec=None):
     """(dpars, errs, covmat) from the Schur path, or None when its ladder
-    is exhausted (the caller's dense path takes over)."""
+    is exhausted (the caller's dense path takes over).  The fitter carries
+    the cross-iteration cache and, when tuned, the ladder's entry rung
+    (``_solve_ladder``)."""
     try:
-        xvar_t, xhat, diag = _schur_gls_solve(M, r, Nvec, phiinv, ntm,
-                                              fitter._gls_cache)
+        xvar_t, xhat, diag = _schur_gls_solve(
+            M, r, Nvec, phiinv, ntm, fitter._gls_cache,
+            ladder=getattr(fitter, "_solve_ladder", None), spec=spec)
     except SingularMatrixError:
         return None
     fitter.solve_diagnostics = diag
@@ -184,16 +211,17 @@ def _try_schur_path(fitter, M, r, Nvec, phiinv, ntm, norm):
 
 
 def solve_system(fitter, M, r, params, norm, phiinv=None, Nvec=None,
-                 threshold: float = 0.0, cov=None):
+                 threshold: float = 0.0, cov=None, spec=None):
     """(dpars, errs, covmat) of one normalized GLS system: the Schur path
     where the system has noise columns (and no dense ``cov``), else the
-    Cholesky ladder, else the SVD -- at once with ``threshold > 0``."""
+    Cholesky ladder, else the SVD -- at once with ``threshold > 0``.
+    ``spec`` is the ``gls.design`` segment of the Grams (None: float64)."""
     ntm = len(params)
     if cov is None and threshold <= 0 and M.shape[1] > ntm:
-        out = _try_schur_path(fitter, M, r, Nvec, phiinv, ntm, norm)
+        out = _try_schur_path(fitter, M, r, Nvec, phiinv, ntm, norm, spec)
         if out is not None:
             return out
-    mtcm, mtcy = gls_normal_equations(M, r, Nvec, phiinv, cov)
+    mtcm, mtcy = gls_normal_equations(M, r, Nvec, phiinv, cov, spec=spec)
     if threshold <= 0:
         try:
             xvar, xhat, diag = _solve_cholesky(mtcm, mtcy)
@@ -219,12 +247,16 @@ class GLSFitter(Fitter):
         self.noise_ampls = {}
 
     def _gls_step(self, threshold: float = 0.0):
-        """One linearized GLS solve: (dpars, errs, covmat, params)."""
+        """One linearized GLS solve: (dpars, errs, covmat, params).  The
+        ``gls.design`` segment is resolved once a step and kept on
+        ``_precision_spec``."""
+        self._precision_spec = _design_spec(self.model, self.batch)
         M, params, norm, phiinv, Nvec, dims = build_augmented_system(
             self.model, self.batch)
         self._noise_dims = dims
         return (*solve_system(self, M, self.resids.time_resids, params,
-                              norm, phiinv, Nvec, threshold), params)
+                              norm, phiinv, Nvec, threshold,
+                              spec=self._precision_spec), params)
 
     def _apply_step(self, dpars, errs, covmat, params):
         dp = dpars.cpu().numpy()
@@ -250,6 +282,11 @@ class GLSFitter(Fitter):
     def fit_toas(self, maxiter: int = 1, threshold: float = 0.0,
                  robust=None) -> float:
         """``maxiter`` linearized GLS steps; returns the post-fit chi2."""
+        from pint_torch import autotune
+
+        # the tuned solve-ladder entry rung, resolved once a fit (None: the
+        # full ladder, also the healthy rung-0 outcome)
+        self._solve_ladder = autotune.resolve_solve_ladder(self)
         if self._check_robust_arg(robust):
             raise UsageError(
                 "robust fitting is available on the WLS-family fitters "

@@ -34,8 +34,13 @@ GLS grid retires K chunks a dispatch: on the card one CUDA graph, captured
 once per (grid bundle, chunk, ``niter``, K) and replayed; on the CPU the
 group's chunks run one after another.  ``checkpoint=`` runs the sweep
 through :func:`pint_torch.runtime.checkpoint.checkpointed_map` (chunks
-persisted, retried under ``retry`` and resumed bitwise).  Meshes and
-execution plans are ROADMAP queue A item 9.
+persisted, retried under ``retry`` and resumed bitwise).  The GLS grid's
+per-point products are the ``grid.gram`` precision segment and its
+Woodbury chi2 correction the ``grid.correction`` one
+(:mod:`pint_torch.precision`; float64 and bit-identical by default), and
+``chunk="auto"`` resolves through the tuning manifest
+(:func:`pint_torch.autotune.resolve_grid_chunk`).  Meshes and execution
+plans are ROADMAP queue A item 9.
 """
 
 from __future__ import annotations
@@ -53,6 +58,8 @@ from pint_torch.exceptions import UsageError
 from pint_torch.kernels.schur_cholesky_solve import schur_cholesky_solve
 from pint_torch.kernels.wls_lstsq import wls_lstsq
 from pint_torch.logging import log
+from pint_torch.precision import SegmentSpec, downcast
+from pint_torch.precision import matmul as _pm
 from pint_torch.runtime.solve import SVD_RUNG, hardened_cholesky
 from pint_torch.utils import classify_linear_columns, linearity_probe_steps
 
@@ -90,10 +97,11 @@ def default_gls_chunk(device=None) -> int:
 
 
 def _resolve_auto_chunk(model, batch, chunk, gls: bool = True):
-    """The ``chunk`` string contract: ``"auto"`` is the static default
-    (the tuned decision is ROADMAP queue A item 8's; the reference takes
-    this branch on a manifest miss) and ``None`` on the WLS grid, any
-    other string a :class:`UsageError`; anything else passes through."""
+    """The ``chunk`` string contract: ``"auto"`` resolves the tuning
+    manifest's decision (:func:`pint_torch.autotune.resolve_grid_chunk`;
+    the static default, logged, on any miss) and is ``None`` on the WLS
+    grid, any other string a :class:`UsageError`; anything else passes
+    through."""
     if not isinstance(chunk, str):
         return chunk
     if chunk != "auto":
@@ -102,21 +110,42 @@ def _resolve_auto_chunk(model, batch, chunk, gls: bool = True):
             "None for the static default")
     if not gls:
         return None
-    resolved = default_gls_chunk(batch.device)
-    log.info(f"grid chunk 'auto': no tuned decision (the autotuner is "
-             f"ROADMAP queue A item 8); the static default {resolved}")
+    from pint_torch import autotune
+
+    resolved = autotune.resolve_grid_chunk(model, batch)
+    log.info(f"grid chunk 'auto': {resolved} (the tuning manifest's "
+             "decision where it holds one for this workload, else the "
+             f"static default {default_gls_chunk(batch.device)})")
     return resolved
+
+
+def _value_str(par) -> str:
+    """``str`` of a parameter's value as the reference holds it: an epoch's
+    (hi, lo) pair as the long double it was read as, a pair parameter as a
+    list, an integer parameter as an int."""
+    v = par.value
+    if v is None:
+        return "None"
+    if par.kind == "mjd":
+        return str(np.longdouble(v[0]) + np.longdouble(v[1]))
+    if par.kind == "pair":
+        return str(list(v))
+    if par.kind == "int":
+        return str(int(v))
+    return str(v)
 
 
 def _model_param_sig(model) -> tuple:
     """Value signature of every component parameter, mask selectors
-    included (reference ``grid.py:45-58``): the run identity a checkpoint
-    fingerprint hashes.  Mask parameters (EFAC/ECORR/JUMP selectors)
-    contribute their key/key_value because editing a selector's range
-    changes weights and noise bases at an unchanged parameter value."""
+    included (reference ``grid.py:45-58``), each value spelled as the
+    reference's ``str``: the run identity a checkpoint fingerprint hashes
+    and the tuning manifest's model-bound vkeys carry.  Mask parameters
+    (EFAC/ECORR/JUMP selectors) contribute their key/key_value because
+    editing a selector's range changes weights and noise bases at an
+    unchanged parameter value."""
     def sig(par, name):
-        s = (name, str(par.value))
-        if par.key is not None:
+        s = (name, _value_str(par))
+        if par.kind == "mask" or par.key is not None:
             s += (str(par.key), tuple(str(v) for v in par.key_value))
         return s
 
@@ -422,15 +451,30 @@ def build_grid_chi2_fn(model, batch, grid_params: Sequence[str],
     return fn, free_init, fit_params
 
 
-def build_grid_gls_chi2_fn(model, batch, grid_params: Sequence[str],
+def build_grid_gls_chi2_fn(model, toas, grid_params: Sequence[str],
                            fit_params: Optional[Sequence[str]] = None,
                            niter: int = 4, chunk=None,
-                           grid_spans: Optional[Sequence[float]] = None):
+                           grid_spans: Optional[Sequence[float]] = None,
+                           correction_dtype: Optional[str] = None,
+                           precision=None):
     """Return ``(fn, free_init, fit_params)`` where ``fn(points (P, G))``
     gives ``(chi2 (P,), vfit (P, nfit), diag (P, 3))``; diag columns are
-    (ladder rung, ridge applied, condition estimate) per point.  ``chunk``
-    is the points a batch (``None``: :func:`default_gls_chunk`; ``"auto"``
-    the same, logged).
+    (ladder rung, ridge applied, condition estimate) per point.  ``toas``
+    is the :class:`~pint_torch.toa.TOABatch`.  ``chunk`` is the points a
+    batch (``None``: :func:`default_gls_chunk`; ``"auto"`` the tuning
+    manifest's decision, else the same).
+
+    ``correction_dtype`` (``"float64"`` | ``"float32"``) is the precision
+    of the Woodbury chi2 correction: ``None`` takes the precision
+    override's ``grid.correction`` segment, else the tuning manifest's
+    decision, which keeps float64 unless recorded for exactly this system.
+    Under float32 the correction's operands are cast once a build (the
+    cached bundle stays float64), the triangular solve runs in float32 and
+    ``z.z`` comes back as float64.  ``precision`` is the ``grid.gram``
+    segment's :class:`~pint_torch.precision.SegmentSpec` (``None``: the
+    active one): the per-point design and Gram products run through
+    :func:`pint_torch.precision.matmul`, a float64 spec being the plain
+    products bit for bit.
 
     ``fn.fused(points, fuse=8)`` gives the same surface retiring ``fuse``
     chunks a dispatch (reference ``grid.py:919-974``); the last group is
@@ -438,7 +482,8 @@ def build_grid_gls_chi2_fn(model, batch, grid_params: Sequence[str],
     replay of a CUDA graph of ``fuse`` chunk evaluations, captured at the
     first call after an eager warm-up chunk on a side stream and kept in
     the cached grid bundle (a new bundle drops it); a capture that fails
-    raises.  Each captured (niter, chunk, fuse) graph keeps its private
+    raises.  Each captured graph, one a (niter, chunk, correction dtype,
+    ``grid.gram`` precision key, fuse), keeps its private
     memory pool (its intermediates: reserved device memory, not counted
     by ``max_memory_allocated``) for as long as the bundle lives, so
     sweeps at several ``fuse`` widths hold a pool each until the
@@ -449,8 +494,33 @@ def build_grid_gls_chi2_fn(model, batch, grid_params: Sequence[str],
     each fused group once.  ``fn.graph_stats()`` gives, per captured
     graph, its replays and the kernel launches it captured (the wrappers
     count a launch when it is captured, not when it is replayed)."""
+    from pint_torch import precision as _precision
+
+    batch = toas
     chunk, grid_params, fit_params, all_names, evaluate, jac_fn = _setup(
         model, batch, grid_params, fit_params, chunk, gls=True)
+    if correction_dtype is None:
+        corr_override = _precision.override_spec("grid.correction")
+        if corr_override is not None:
+            correction_dtype = "float32" if corr_override.reduced \
+                else "float64"
+        else:
+            from pint_torch import autotune
+
+            correction_dtype = autotune.resolve_correction_dtype(model,
+                                                                 batch)
+    if correction_dtype not in ("float64", "float32"):
+        raise UsageError(
+            f"correction_dtype must be 'float64' or 'float32', got "
+            f"{correction_dtype!r}")
+    if precision is None:
+        precision = _precision.segment_spec("grid.gram", model=model,
+                                            toas=batch)
+    elif not isinstance(precision, SegmentSpec):
+        raise UsageError(
+            f"precision must be a SegmentSpec or None, got "
+            f"{type(precision).__name__}")
+    gspec = precision if precision.reduced else None
     dev = batch.device
     nfit = len(fit_params)
     nt = 1 + nfit
@@ -460,6 +530,10 @@ def build_grid_gls_chi2_fn(model, batch, grid_params: Sequence[str],
         model, batch, "grid_gls_bundle", all_names, nfit, grid_spans,
         lambda: _grid_bundle(model, batch, evaluate, jac_fn, all_names, nfit,
                              len(grid_params), grid_spans, F0))
+    f32_corr = correction_dtype == "float32"
+    if f32_corr:
+        U_chi = downcast(U_chi, "float32")
+        cf_chi = downcast(cf_chi, "float32")
     nl_idx = torch.as_tensor(nl_fit, dtype=torch.long, device=dev)
     nlp_idx = nl_idx + 1
     k = len(nl_fit)
@@ -478,21 +552,22 @@ def build_grid_gls_chi2_fn(model, batch, grid_params: Sequence[str],
             if k:
                 M_nl = (-nonlinear_columns(v) / F0) / s_col[nlp_idx]
                 wM = w[:, None] * M_nl
-                A_cols = B_base.T @ wM                        # (B, nt, k)
-                A_cols[:, nlp_idx, :] = M_nl.transpose(1, 2) @ wM
+                A_cols = _pm(B_base.T, wM, gspec)             # (B, nt, k)
+                A_cols[:, nlp_idx, :] = _pm(M_nl.transpose(1, 2), wM, gspec)
                 A = A_base.expand(Bp, nt, nt).clone()
                 A[:, :, nlp_idx] = A_cols
                 A[:, nlp_idx, :] = A_cols.transpose(1, 2)
-                C_rows = M_nl.transpose(1, 2) @ Uw            # (B, k, nu)
+                C_rows = _pm(M_nl.transpose(1, 2), Uw, gspec)  # (B, k, nu)
                 Y = Y_base.expand(Bp, *Y_base.shape).clone()
                 Y[:, :, nlp_idx] = _tri(L_D, C_rows.transpose(1, 2))
-                b_t = wr @ B_base
-                b_t[:, nlp_idx] = (M_nl.transpose(1, 2) @ wr[:, :, None])[..., 0]
+                b_t = _pm(wr, B_base, gspec)
+                b_t[:, nlp_idx] = _pm(M_nl.transpose(1, 2), wr[:, :, None],
+                                      gspec)[..., 0]
             else:
                 A = A_base.expand(Bp, nt, nt)
                 Y = Y_base.expand(Bp, *Y_base.shape)
-                b_t = wr @ B_base
-            b_u = r @ Uw
+                b_t = _pm(wr, B_base, gspec)
+            b_u = _pm(r, Uw, gspec)
             z_u = _tri(L_D, b_u.T).T
             Ar = A - Y.transpose(1, 2) @ Y
             rhs = b_t - (Y.transpose(1, 2) @ z_u[:, :, None])[..., 0]
@@ -503,8 +578,13 @@ def build_grid_gls_chi2_fn(model, batch, grid_params: Sequence[str],
             cond = torch.maximum(cond, cnd)
         r = resid_seconds(v)
         wr = w * r
-        z = _tri(cf_chi, (wr @ U_chi).T)                      # (nu+1, B)
-        chi2 = (r * wr).sum(dim=-1) - (z * z).sum(dim=0)
+        if f32_corr:
+            z = _tri(cf_chi, (downcast(wr, "float32") @ U_chi).T)
+            corr = (z * z).sum(dim=0).to(F64)
+        else:
+            z = _tri(cf_chi, (wr @ U_chi).T)                  # (nu+1, B)
+            corr = (z * z).sum(dim=0)
+        chi2 = (r * wr).sum(dim=-1) - corr
         return chi2, v[:, :nfit], solved, cond
 
     dispatches = [0]
@@ -554,7 +634,7 @@ def build_grid_gls_chi2_fn(model, batch, grid_params: Sequence[str],
         """The CUDA graph of ``fuse`` chunk evaluations, captured once and
         kept in the bundle's slot; ``first`` (fuse, chunk, G) seeds its
         static input for the warm-up."""
-        key = (niter, chunk, fuse)
+        key = (niter, chunk, correction_dtype, precision.key(), fuse)
         g = graphs.get(key)
         if g is None:
             g = _FusedGraph(chunk_fn, first, fuse)
@@ -584,8 +664,9 @@ def build_grid_gls_chi2_fn(model, batch, grid_params: Sequence[str],
     fn.nonlinear_columns = tuple(nl_fit)
     fn.fused = fused
     fn.dispatch_count = lambda: dispatches[0]
-    fn.graph_stats = lambda: {key[2]: g.stats() for key, g in graphs.items()
-                              if key[:2] == (niter, chunk)}
+    fn.graph_stats = lambda: {
+        key[-1]: g.stats() for key, g in graphs.items()
+        if key[:-1] == (niter, chunk, correction_dtype, precision.key())}
     return fn, free_init, tuple(fit_params)
 
 

@@ -1,0 +1,226 @@
+"""K11 ``compensated_matmul``: a float64 matrix product from operands rounded
+to a reduced compute dtype, re-entering float64 by an accumulation mode.
+
+Replaces ``pint_tpu/precision/compensated.py:163`` ``_matmul_jnp`` with its
+operand split (``:152`` ``_dd_split_jnp``) and fold (``:121``
+``two_sum_accumulate``): the reduced-precision matmul of the precision
+layer's segments (:func:`pint_torch.precision.matmul`).  ``a`` is
+``(..., m, k)`` or ``(k,)``, ``b`` ``(..., k, n)`` or ``(k,)``, both float64,
+batch axes broadcast as ``torch.matmul`` broadcasts them; the result is
+float64 of ``torch.matmul``'s shape.  ``compute_dtype`` is ``"float32"`` or
+``"bfloat16"``; ``accumulation`` one of :data:`ACCUMULATIONS`:
+
+* ``native``: products and sum in float32, the sum rounded to the compute
+  dtype and widened;
+* ``f64``: the rounded operands' exact products summed in float64;
+* ``two_sum``: float64 partials over the blocks of :func:`split_bounds`
+  (the reference's ``_split_slices(k, split)``), folded in block order by
+  :func:`fold_partials`;
+* ``two_prod``: the operands split into reduced ``hi + lo`` pairs, the
+  float64 sums ``hi@hi``, ``hi@lo``, ``lo@hi`` folded in that order.
+
+On a CUDA tensor this launches ``csrc/compensated_matmul.cu`` (one kernel,
+which under ``two_sum`` folds each block's partial in registers), on
+PyTorch's current stream, so a CUDA-graph capture holds it; a failed build
+or launch raises.  On a CPU tensor it runs
+:func:`compensated_matmul_reference`, the plain version, which follows the
+reference's arithmetic step by step: the casts, ``torch.matmul`` in
+float64 of the rounded parts for each block or pass, and the fold.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import List
+
+import numpy as np
+import torch
+
+from pint_torch import F64
+from pint_torch.exceptions import UsageError
+from pint_torch.kernels import _build
+
+__all__ = ["compensated_matmul", "compensated_matmul_reference",
+           "split_bounds", "round_to", "fold_partials", "two_sum",
+           "launch_counts", "REPLACES", "KERNELS", "ACCUMULATIONS",
+           "MAX_BLOCKS"]
+
+NAME = "compensated_matmul"
+REPLACES = "pint_tpu/precision/compensated.py:163"
+ACCUMULATIONS = ("native", "f64", "two_sum", "two_prod")
+_MODE = {acc: i for i, acc in enumerate(ACCUMULATIONS)}
+_CT = {"float32": (0, "f32"), "bfloat16": (1, "bf16")}
+#: the ``__global__`` instantiations, by (accumulation, compute dtype)
+KERNELS = {(acc, ct): f"compensated_matmul_{acc}_{short}"
+           for acc in ACCUMULATIONS for ct, (_, short) in _CT.items()}
+launch_counts = dict.fromkeys(KERNELS.values(), 0)
+#: the most contraction blocks a two_sum launch takes (the kernel's
+#: by-value boundary table)
+MAX_BLOCKS = 256
+
+
+class _Bounds(ctypes.Structure):
+    _fields_ = [("n", ctypes.c_int), ("b", ctypes.c_int * (MAX_BLOCKS + 1))]
+
+
+def split_bounds(k: int, split: int) -> List[int]:
+    """The contraction-block boundaries of the reference's
+    ``_split_slices(k, split)``: ``split`` near-equal blocks of ``range(k)``
+    (fewer when ``k`` is small), empty blocks dropped; ``[0, ..., k]``."""
+    n = max(1, min(int(split), int(k)))
+    bounds = np.linspace(0, k, n + 1).astype(int)
+    out = [int(bounds[0])]
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        if hi > lo:
+            out.append(int(hi))
+    return out
+
+
+def round_to(x: torch.Tensor, compute_dtype: str) -> torch.Tensor:
+    """``x`` rounded to ``compute_dtype`` and held in that dtype: float64 to
+    float32 by round to nearest even, to bfloat16 through float32 (twice
+    rounded, as the reference's astype and the kernel do)."""
+    if compute_dtype == "float32":
+        return x.to(torch.float32)
+    if compute_dtype == "bfloat16":
+        return x.to(torch.float32).to(torch.bfloat16)
+    raise UsageError(f"compensated_matmul: compute dtype {compute_dtype!r} "
+                     "is neither float32 nor bfloat16")
+
+
+def two_sum(a, b):
+    """Knuth's branch-free two_sum: ``(s, e)`` with ``s + e == a + b``."""
+    s = a + b
+    bb = s - a
+    e = (a - (s - bb)) + (b - bb)
+    return s, e
+
+
+def fold_partials(partials):
+    """The reference's ``two_sum_accumulate``: ``hi + lo`` of the partials
+    carried as a compensated (hi, lo) pair, in order."""
+    partials = list(partials)
+    if not partials:
+        raise UsageError("two_sum_accumulate needs at least one partial")
+    hi = partials[0]
+    lo = None
+    for p in partials[1:]:
+        hi, e = two_sum(hi, p)
+        lo = e if lo is None else lo + e
+    return hi if lo is None else hi + lo
+
+
+def compensated_matmul_reference(a, b, compute_dtype: str, accumulation: str,
+                                 split: int = 8):
+    """Plain PyTorch version of K11 (the reference's ``_matmul_jnp`` step by
+    step)."""
+    _check_modes(compute_dtype, accumulation)
+    if accumulation == "two_prod":
+        ah = round_to(a, compute_dtype)
+        al = round_to(a - ah.to(F64), compute_dtype)
+        bh = round_to(b, compute_dtype)
+        bl = round_to(b - bh.to(F64), compute_dtype)
+        ah64, al64, bh64, bl64 = (t.to(F64) for t in (ah, al, bh, bl))
+        return fold_partials([torch.matmul(ah64, bh64),
+                              torch.matmul(ah64, bl64),
+                              torch.matmul(al64, bh64)])
+    al = round_to(a, compute_dtype)
+    bl = round_to(b, compute_dtype)
+    if accumulation == "native":
+        prod = torch.matmul(al.to(torch.float32), bl.to(torch.float32))
+        return round_to(prod, compute_dtype).to(F64) \
+            if compute_dtype == "bfloat16" else prod.to(F64)
+    a64, b64 = al.to(F64), bl.to(F64)
+    if accumulation == "f64":
+        return torch.matmul(a64, b64)
+    bounds = split_bounds(a.shape[-1], split)
+    parts = []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        bb = b64[lo:hi] if b64.ndim == 1 else b64[..., lo:hi, :]
+        parts.append(torch.matmul(a64[..., lo:hi], bb))
+    return fold_partials(parts)
+
+
+def _check_modes(compute_dtype, accumulation):
+    if compute_dtype not in _CT:
+        raise UsageError(f"compensated_matmul: compute dtype "
+                         f"{compute_dtype!r} is neither float32 nor bfloat16")
+    if accumulation not in _MODE:
+        raise UsageError(f"compensated_matmul: accumulation "
+                         f"{accumulation!r} not in {ACCUMULATIONS}")
+
+
+def _lib():
+    lib = _build.load(NAME)
+    if lib.compensated_matmul_launch.argtypes is None:
+        vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.compensated_matmul_launch.argtypes = [
+            vp, ll, ll, ll, vp, ll, ll, ll, vp, ci, ci, ci, ci, ci, _Bounds,
+            vp]
+        lib.compensated_matmul_launch.restype = ci
+    return lib
+
+
+def _launch(a3, b3, compute_dtype, accumulation, bounds):
+    """The kernel on 3-D operands ``a3`` (B, m, k), ``b3`` (B, k, n) of any
+    strides: (B, m, n)."""
+    B, m, k = a3.shape
+    n = b3.shape[-1]
+    out = torch.empty((B, m, n), dtype=F64, device=a3.device)
+    if B == 0 or m == 0 or n == 0:
+        return out
+    if accumulation != "two_sum":
+        bounds = [0, k]
+    nparts = len(bounds) - 1
+    if nparts > MAX_BLOCKS:
+        raise UsageError(f"compensated_matmul: {nparts} two_sum blocks, "
+                         f"more than the kernel's {MAX_BLOCKS}")
+    bd = _Bounds()
+    bd.n = nparts
+    for i, v in enumerate(bounds):
+        bd.b[i] = v
+    ct, _ = _CT[compute_dtype]
+    rc = _lib().compensated_matmul_launch(
+        _build.ptr(a3), *a3.stride(), _build.ptr(b3), *b3.stride(),
+        _build.ptr(out), B, m, n, _MODE[accumulation], ct, bd,
+        _build.stream_of(a3))
+    launch_counts[KERNELS[(accumulation, compute_dtype)]] += 1
+    _build.check(NAME, rc)
+    return out
+
+
+def compensated_matmul(a, b, compute_dtype: str, accumulation: str,
+                       split: int = 8):
+    """K11: ``a @ b`` under ``(compute_dtype, accumulation)`` (see the module
+    docstring)."""
+    _check_modes(compute_dtype, accumulation)
+    if a.dtype != F64 or b.dtype != F64 or a.device != b.device \
+            or a.ndim < 1 or b.ndim < 1 or a.shape[-1] != \
+            (b.shape[0] if b.ndim == 1 else b.shape[-2]):
+        raise ValueError(
+            f"compensated_matmul: a {tuple(a.shape)} {a.dtype}, b "
+            f"{tuple(b.shape)} {b.dtype}; want float64 (..., m, k) or (k,) "
+            "and (..., k, n) or (k,) on one device")
+    k = a.shape[-1]
+    bounds = split_bounds(k, split)
+    if accumulation == "two_sum" and len(bounds) < 2:
+        raise UsageError("two_sum_accumulate needs at least one partial")
+    if a.device.type == "cpu":
+        return compensated_matmul_reference(a, b, compute_dtype,
+                                            accumulation, split)
+    if not a.is_cuda:
+        raise ValueError(f"compensated_matmul: no kernel for device "
+                         f"{a.device}")
+    a2 = a[None, :] if a.ndim == 1 else a
+    b2 = b[:, None] if b.ndim == 1 else b
+    batch = torch.broadcast_shapes(a2.shape[:-2], b2.shape[:-2])
+    m, n = a2.shape[-2], b2.shape[-1]
+    a3 = a2.expand(*batch, m, k).reshape(-1, m, k)
+    b3 = b2.expand(*batch, k, n).reshape(-1, k, n)
+    out = _launch(a3, b3, compute_dtype, accumulation, bounds)
+    out = out.reshape(*batch, m, n)
+    if b.ndim == 1:
+        out = out[..., 0]
+    if a.ndim == 1:
+        out = out[..., 0, :] if b.ndim > 1 else out[..., 0]
+    return out

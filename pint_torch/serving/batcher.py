@@ -21,9 +21,13 @@
 * :class:`ShapeBatcher` groups requests per bucket, pads the batch axis to
   its ladder, dispatches one batched call per group and unpads.
 
-Only the float64 ``serve.gram`` precision is ported: a reduced
-:class:`SegmentSpec` is ROADMAP queue A item 7's ``precision/``; the warm
-pool (``pool=``) becomes CUDA graphs in item 8.
+The kernels' Gram, projection and post-step products are the
+``serve.gram`` precision segment (:mod:`pint_torch.precision`): under the
+default float64 spec they are the blocked products above, bit for bit;
+under a reduced :class:`~pint_torch.precision.SegmentSpec` they follow the
+reference's product boundaries (the whole padded row axis, in
+``_split_slices`` blocks for ``two_sum``) through kernel K11.  The warm
+pool (``pool=``) becomes CUDA graphs in ROADMAP queue A item 8.
 """
 
 from __future__ import annotations
@@ -37,6 +41,8 @@ import torch
 
 from pint_torch import F64, resolve_device
 from pint_torch.fitter import UsageError
+from pint_torch.precision import SegmentSpec
+from pint_torch.precision import matmul as _pmatmul
 
 __all__ = ["DEFAULT_NTOA_BUCKETS", "DEFAULT_NFREE_BUCKETS",
            "DEFAULT_BATCH_BUCKETS", "bucket_of", "FitRequest", "FitResult",
@@ -73,36 +79,13 @@ def bucket_of(n: int, ladder: Sequence[int]) -> int:
     return top
 
 
-@dataclass(frozen=True)
-class SegmentSpec:
-    """A precision segment's compute and accumulation dtypes (the
-    reference's ``pint_tpu.precision.SegmentSpec``); only float64 is
-    ported."""
-
-    compute: str = "float64"
-    accumulate: str = "float64"
-
-    @property
-    def is_f64(self) -> bool:
-        return self.compute == "float64" and self.accumulate == "float64"
-
-    def key(self) -> tuple:
-        return (self.compute, self.accumulate)
-
-    def suffix(self) -> str:
-        return "" if self.is_f64 else f"@{self.compute}/{self.accumulate}"
-
-
 def resolve_serve_spec() -> SegmentSpec:
-    """The active ``serve.gram`` spec: float64 (the reference's default)."""
-    return SegmentSpec()
+    """The active ``serve.gram`` :class:`~pint_torch.precision.SegmentSpec`
+    (override -> manifest -> float64 default), resolved on the host at
+    dispatch time."""
+    from pint_torch.precision import segment_spec
 
-
-def _check_spec(spec) -> None:
-    if spec is not None and not spec.is_f64:
-        raise NotImplementedError(
-            f"serve.gram at {spec.compute}/{spec.accumulate}: reduced "
-            "precision segments are ROADMAP queue A item 7's precision/")
+    return segment_spec("serve.gram")
 
 
 @dataclass
@@ -232,14 +215,30 @@ def _gram(A, B):
     return torch.matmul(Ab.mT, Bb).sum(dim=-3)
 
 
-def _scaled_system(M, w, phiinv, pad_free):
+def _pgram(A, B, spec):
+    """``A^T B`` under the precision ``spec``: :func:`_gram`'s blocked float64
+    product by default, else :func:`pint_torch.precision.matmul` of ``A^T``
+    and ``B`` over the whole row axis."""
+    if spec is None or not spec.reduced:
+        return _gram(A, B)
+    return _pmatmul(A.mT, B, spec)
+
+
+def _pmv(A, v, spec):
+    """``A v`` under the precision ``spec`` (:func:`_mv` by default)."""
+    if spec is None or not spec.reduced:
+        return _mv(A, v)
+    return _pmatmul(A, v.unsqueeze(-1), spec).squeeze(-1)
+
+
+def _scaled_system(M, w, phiinv, pad_free, spec=None):
     """The unit-W-norm column scale, scaled design, prior diagonal and
     Gram with its factor and inverse (any leading batch axes)."""
     s = torch.sqrt(torch.sum((w.unsqueeze(-1) * M) * M, dim=-2) + phiinv)
     s = torch.where(s > 0, s, torch.ones_like(s))
     Ms = M / s.unsqueeze(-2)
     prior = torch.diag_embed(phiinv / s**2) + torch.diag_embed(pad_free)
-    A = _gram(Ms, w.unsqueeze(-1) * Ms) + prior
+    A = _pgram(Ms, w.unsqueeze(-1) * Ms, spec) + prior
     cf, _ = torch.linalg.cholesky_ex(A)
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device) \
         .expand(A.shape)
@@ -253,12 +252,13 @@ def serve_kernel(M, r, w, phiinv, pad_free, spec=None):
     """One linearized (Gauss-Newton) fit on padded systems, the batch axis
     (or axes) leading: ``(dx, err, chi2, chi2_initial)``.  The column
     scaling makes the padded factor block-diagonal, so the real block's
-    solve is the dedicated shape's."""
-    _check_spec(spec)
-    s, Ms, _, _, cf, _, err = _scaled_system(M, w, phiinv, pad_free)
-    b = _mv(Ms.mT, w * r)
+    solve is the dedicated shape's.  ``spec`` is the ``serve.gram`` segment
+    of the Gram, projection and post-step products (None: float64); the
+    scaling, the factor and both chi2 sums stay float64."""
+    s, Ms, _, _, cf, _, err = _scaled_system(M, w, phiinv, pad_free, spec)
+    b = _pmv(Ms.mT, w * r, spec)
     dx = torch.cholesky_solve(b.unsqueeze(-1), cf).squeeze(-1) / s
-    r_post = r - _mv(M, dx)
+    r_post = r - _pmv(M, dx, spec)
     chi2 = torch.sum(w * r_post * r_post, dim=-1)
     return dx, err, chi2, torch.sum(w * r * r, dim=-1)
 
@@ -272,9 +272,11 @@ def serve_kernel_steps(M, r, w, phiinv, pad_free, spec=None,
     :func:`serve_kernel`'s step up to one refinement correction);
     ``"huber"`` re-accumulates the Gram under Huber IRLS weights
     ``min(1, k/|z|)`` of the carried whitened residuals, preconditioned by
-    the clean system's inverse with one refinement correction."""
-    _check_spec(spec)
-    s, Ms, prior, A, _, Ainv, err = _scaled_system(M, w, phiinv, pad_free)
+    the clean system's inverse with one refinement correction.  ``spec``
+    is as :func:`serve_kernel`'s (the refinement's products stay
+    float64, as the reference's do)."""
+    s, Ms, prior, A, _, Ainv, err = _scaled_system(M, w, phiinv, pad_free,
+                                                   spec)
     chi2_initial = torch.sum(w * r * r, dim=-1)
     rc = r
     dxs, chi2s = [], []
@@ -286,12 +288,12 @@ def serve_kernel_steps(M, r, w, phiinv, pad_free, spec=None,
             g = torch.clamp(HUBER_STEP_K / torch.clamp(z, min=1e-300),
                             max=1.0)
             wt = w * g
-            At = _gram(Ms, wt.unsqueeze(-1) * Ms) + prior
-        bt = _mv(Ms.mT, wt * rc)
+            At = _pgram(Ms, wt.unsqueeze(-1) * Ms, spec) + prior
+        bt = _pmv(Ms.mT, wt * rc, spec)
         x = _mv(Ainv, bt)
         x = x + _mv(Ainv, bt - _mv(At, x))
         dx = x / s
-        rc = rc - _mv(M, dx)
+        rc = rc - _pmv(M, dx, spec)
         dxs.append(dx)
         chi2s.append(torch.sum(wt * rc * rc, dim=-1))
     return (torch.stack(dxs, dim=-2), err, torch.stack(chi2s, dim=-1),
@@ -306,7 +308,6 @@ def serve_fused(spec=None, steps: int = 1, reweight=None):
     if reweight not in (None, "huber"):
         raise UsageError(f"unknown reweight {reweight!r} (None | 'huber')")
     spec = resolve_serve_spec() if spec is None else spec
-    _check_spec(spec)
     steps = int(steps)
     return lambda M, r, w, phiinv, pad_free: serve_kernel_steps(
         M, r, w, phiinv, pad_free, spec=spec, steps=steps, reweight=reweight)
@@ -314,9 +315,8 @@ def serve_fused(spec=None, steps: int = 1, reweight=None):
 
 def serve_batched(spec=None):
     """The batched :func:`serve_kernel` for ``spec`` (default the active
-    float64 spec)."""
+    ``serve.gram`` spec, :func:`resolve_serve_spec`)."""
     spec = resolve_serve_spec() if spec is None else spec
-    _check_spec(spec)
     return lambda M, r, w, phiinv, pad_free: serve_kernel(
         M, r, w, phiinv, pad_free, spec=spec)
 

@@ -84,15 +84,21 @@ class StreamingGLS:
                 f"{type(fitter).__name__} (the rank-k paths rewrite the "
                 "Woodbury normal-equation factor, which only the GLS "
                 "family builds)")
+        if block_buckets is None:
+            # the tuning manifest's append-block-size ladder, else the
+            # static one
+            from pint_torch import autotune
+
+            tuned = autotune.resolve_update_blocks()
+            block_buckets = tuned if tuned is not None \
+                else DEFAULT_BLOCK_BUCKETS
         self.fitter = fitter
         self.steps = int(steps)
         if self.steps < 1:
             raise UsageError(f"steps must be >= 1, got {steps}")
         certified = fitter.batch.certified(fitter.model)
-        self.cache = StreamCache(
-            fitter.model, certified,
-            block_buckets=DEFAULT_BLOCK_BUCKETS if block_buckets is None
-            else block_buckets)
+        self.cache = StreamCache(fitter.model, certified,
+                                 block_buckets=block_buckets)
         #: the quarantine pen: penned blocks awaiting repair, by pen id ->
         #: (batch, reasons)
         self.pen: Dict[int, tuple] = {}

@@ -153,6 +153,11 @@ class TOABatch:
     coverage: Optional[dict] = None
     _q: _Quarantine = field(default_factory=_Quarantine, init=False,
                             repr=False, compare=False)
+    #: the reference's edit counter of its TOA set (``TOAs._version``, a
+    #: vkey element of the tuning manifest's model-bound decisions): what
+    #: the batch was made with, raised by :meth:`validate` as the
+    #: reference's is
+    _version: int = field(default=0, repr=False, compare=False)
 
     @property
     def ntoas(self) -> int:
@@ -289,6 +294,7 @@ class TOABatch:
         q.mask = report.mask if report else None
         q.reasons = report.reasons_by_row() if report else None
         q.applied_n = self.ntoas
+        object.__setattr__(self, "_version", self._version + 1)
         if report and policy == "lenient":
             warnings.warn(report.render())
         return report

@@ -1409,9 +1409,11 @@ def port_and_reference(settings, full: bool = False):
     state."""
     from pint_torch.bridge import load_snapshot
 
+    import dataclasses
+
     model, toas = make_standin(settings, full=full)
     m, b = load_snapshot(export_state(model, toas), device="cpu")
-    return model, toas, m, b
+    return model, toas, m, dataclasses.replace(b, _version=toas._version)
 
 
 def component_outputs(model, toas, m, b, name):
@@ -2660,3 +2662,212 @@ def export_catalog(s, pairs=None, run=None) -> dict:
                 chain=dict(naccepted=ch["naccepted"]))}}
     arrays["meta"] = np.asarray(json.dumps(meta))
     return arrays
+
+
+# ---------------------------------------------------------------------------
+# the precision layer: forced reduced-precision outputs and the probes
+# ---------------------------------------------------------------------------
+#: the precision layer's reference runs (``ref/precision/``): the forced
+#: specs of its bars (float32 at every accumulation, bfloat16 under
+#: two_prod), the grid's points (every fifth value of the stored 16 x 16
+#: M2 x SINI axes: 4 x 4), the joint likelihood's points (the first four of
+#: the catalogue's) and the probes' points (the grid's first four)
+PRECISION = dict(specs=(("float32", "native"), ("float32", "f64"),
+                        ("float32", "two_sum"), ("float32", "two_prod"),
+                        ("bfloat16", "two_prod")),
+                 grid_every=5, lnlike_points=4, probe_points=4)
+
+
+def precision_tag(ct: str, acc: str) -> str:
+    """``f32_two_prod`` etc.: a forced spec's key in ``ref/precision/``."""
+    return f"{'f32' if ct == 'float32' else 'bf16'}_{acc}"
+
+
+def _forced(ct, acc):
+    from pint_tpu.precision import PrecisionPolicy, use_policy
+
+    return use_policy(PrecisionPolicy.forced(ct, accumulation=acc))
+
+
+def _probe_records(ftr, **kw) -> dict:
+    """The reference's probes at its default candidate (float32
+    ``two_prod``), unforced and forced: per segment the measured
+    ``rel_err`` and the dtype decided."""
+    from pint_tpu.precision import tune_precision_segments
+
+    out = {}
+    for force in (False, True):
+        decs = tune_precision_segments(ftr, force=force, **kw)
+        out["forced" if force else "unforced"] = {
+            seg: {"rel_err": float(d.measured["rel_err"]),
+                  "decision": d.value["compute_dtype"]}
+            for seg, d in decs.items()}
+    return out
+
+
+def precision_grid_points(arrays) -> np.ndarray:
+    e = PRECISION["grid_every"]
+    g1, g2 = arrays["ref/grid_m2"][::e], arrays["ref/grid_sini"][::e]
+    return np.stack([g.ravel() for g in np.meshgrid(g1, g2, indexing="ij")],
+                    axis=-1)
+
+
+def export_precision(model, toas, which: str, arrays: dict,
+                     meta: dict) -> None:
+    """b1855's ``ref/precision/``: under each forced spec of
+    :data:`PRECISION`, the snapshot's first fit from its values (chi2,
+    values and uncertainties of ``postfit_params``) and, after the float64
+    first fit, the GLS grid (``grid.gram`` and ``grid.correction``) at
+    :func:`precision_grid_points` (chi2 and rungs); the probes on the
+    float64 first fit.  The float64 first fit must be the committed one."""
+    import copy
+
+    import jax.numpy as jnp
+
+    from pint_tpu.gls_fitter import GLSFitter
+    from pint_tpu.grid import build_grid_gls_chi2_fn
+
+    settings = meta["reference"]["settings"]
+    design = meta["reference"]["postfit_params"]
+    base = copy.deepcopy(model)
+    f64 = _first_fit(copy.deepcopy(model), toas, settings)
+    vals = np.array([float(getattr(f64.model, p).value) for p in design])
+    if not np.array_equal(vals, arrays["ref/postfit_values"]):
+        raise SystemExit("the first fit is not the committed one")
+    pts = precision_grid_points(arrays)
+    P = "ref/precision/"
+    arrays[P + "grid_points"] = pts
+    for ct, acc in PRECISION["specs"]:
+        tag = precision_tag(ct, acc)
+        with _forced(ct, acc):
+            f = GLSFitter(toas, copy.deepcopy(base))
+            chi2 = f.fit_toas(maxiter=settings["fit_maxiter"])
+            fn, _, _ = build_grid_gls_chi2_fn(
+                f64.model, toas, ("M2", "SINI"),
+                niter=settings["grid_niter"], chunk=len(pts))
+        arrays[f"{P}{tag}/fit_chi2"] = np.array([float(chi2)])
+        arrays[f"{P}{tag}/fit_values"] = np.array(
+            [float(getattr(f.model, p).value) for p in design])
+        arrays[f"{P}{tag}/fit_errors"] = np.array(
+            [float(getattr(f.model, p).uncertainty) for p in design])
+        c2, _, dg = (np.asarray(x) for x in fn(jnp.asarray(pts)))
+        arrays[f"{P}{tag}/grid_chi2"] = c2
+        arrays[f"{P}{tag}/grid_rungs"] = dg[:, 0]
+    meta["reference"]["precision"] = {
+        "specs": [list(s) for s in PRECISION["specs"]],
+        "grid_params": ["M2", "SINI"], "grid_every": PRECISION["grid_every"],
+        "probes": _probe_records(
+            f64, grid_params=("M2", "SINI"),
+            points=pts[:PRECISION["probe_points"]])}
+
+
+def export_precision_serve(arrays: dict, meta: dict) -> None:
+    """j1909_stream's ``ref/precision/``: ``ShapeBatcher.run`` on the serve
+    phase's seven requests (:data:`SERVE_REQUESTS`, the committed
+    ``ref/serve/`` ones) under each forced spec: each request's dx,
+    errors, chi2 and chi2_initial; and the probes on the stream's base
+    fit.  The stand-ins rebuilt from the settings must export their
+    committed state and base fits bitwise."""
+    import copy
+
+    from pint_tpu.gls_fitter import GLSFitter
+    from pint_tpu.serving.batcher import FitRequest, ShapeBatcher
+
+    fitted = {}
+    base = None
+    for which, s in (("stream", STREAM_SETTINGS),
+                     ("small_stream", SMALL_STREAM_SETTINGS)):
+        model, toas = make_standin(s, full=s is STREAM_SETTINGS)
+        if which == "stream":
+            st = export_state(model, toas)
+            st.update(_integrity_arrays(toas))
+            for k, v in st.items():
+                if k != "meta" and not np.array_equal(v, arrays[k]):
+                    raise SystemExit(f"{k} is not as committed")
+        f = GLSFitter(toas[stream_rows(s)[0]], copy.deepcopy(model))
+        f.fit_toas(maxiter=s["fit_maxiter"])
+        d = list(f.model.design_param_names())
+        if not np.array_equal(np.array([float(getattr(f.model, p).value)
+                                        for p in d]),
+                              arrays[f"ref/serve/{which}_values"]):
+            raise SystemExit(f"the {which} base fit is not the committed one")
+        fitted[which] = (f.model, toas)
+        if which == "stream":
+            base = f
+    reqs = []
+    for i, (which, n) in enumerate(SERVE_REQUESTS):
+        model, toas = fitted[which]
+        q = FitRequest.from_fitter(GLSFitter(toas[np.arange(n)], model),
+                                   request_id=f"{which}:{n}")
+        if not np.array_equal(np.asarray(q.r), arrays[f"ref/serve/{i}/r"]):
+            raise SystemExit(f"request {i} is not the committed one")
+        reqs.append(q)
+    P = "ref/precision/"
+    for ct, acc in PRECISION["specs"]:
+        tag = precision_tag(ct, acc)
+        with _forced(ct, acc):
+            res = ShapeBatcher().run(reqs)
+        for i, r in enumerate(res):
+            Q = f"{P}{tag}/{i}/"
+            arrays[Q + "dx"], arrays[Q + "errors"] = r.dx, r.errors
+            arrays[Q + "chi2"] = np.array([r.chi2, r.chi2_initial])
+    meta["reference"]["precision"] = {
+        "specs": [list(s) for s in PRECISION["specs"]],
+        "probes": _probe_records(base, segments=("serve.gram",))}
+
+
+def export_precision_catalog(s, arrays: dict, meta: dict) -> None:
+    """pta67_catalog's ``ref/precision/``: at the ingest state (the
+    residuals of ``ref/catalog/pass0/r``), under each forced spec, the
+    batched catalogue fit's outputs per member (each bucket's
+    ``catalog_batched`` call; dx and errors concatenated over the members,
+    chi2 and chi2_initial) and the joint likelihood at the first
+    :data:`PRECISION` ``lnlike_points`` of the catalogue's points; and the
+    catalogue probes.  The members rebuilt from the settings must export
+    their committed state bitwise."""
+    from pint_tpu import precision as R
+    from pint_tpu.catalog import (CatalogFitter, JointLikelihood,
+                                  ingest_catalog)
+
+    pairs = catalog_pairs(s)
+    for i, (model, toas) in enumerate(pairs):
+        st = export_state(model, toas)
+        st.update(_integrity_arrays(toas))
+        for k, v in st.items():
+            if k != "meta" and not np.array_equal(v, arrays[f"psr/{i}/{k}"]):
+                raise SystemExit(f"psr/{i}/{k} is not as committed")
+    report = ingest_catalog(pairs)
+    r0 = np.concatenate([np.asarray(p.fitter.resids.time_resids,
+                                    dtype=np.float64)
+                         for p in report.pulsars])
+    if not np.array_equal(r0, arrays["ref/catalog/pass0/r"]):
+        raise SystemExit("the ingest state's residuals are not pass0's")
+    pts = catalog_points(s)[:PRECISION["lnlike_points"]]
+    P = "ref/precision/"
+    arrays[P + "lnlike_points"] = pts
+    cf = CatalogFitter(report)
+    for ct, acc in PRECISION["specs"]:
+        tag = precision_tag(ct, acc)
+        spec = R.SegmentSpec(segment="catalog.fit", compute_dtype=ct,
+                             accumulation=acc, source="forced")
+        outs = [None] * len(report.pulsars)
+        execs = list(cf.bucket_executables(spec=spec).values())
+        for (bucket, idx), (fn, operands) in zip(
+                sorted(cf.bucket_plan.buckets.items()), execs):
+            o = [np.asarray(x) for x in fn(*operands)]
+            for lane, i in enumerate(idx):
+                k = cf.shapes[i][1]
+                outs[i] = (o[0][lane, :k], o[1][lane, :k], o[2][lane],
+                           o[3][lane])
+        arrays[f"{P}{tag}/fit_dx"] = np.concatenate([x[0] for x in outs])
+        arrays[f"{P}{tag}/fit_errors"] = np.concatenate([x[1] for x in outs])
+        arrays[f"{P}{tag}/fit_chi2"] = np.array([[x[2], x[3]] for x in outs])
+        lspec = R.SegmentSpec(segment="catalog.lnlike", compute_dtype=ct,
+                              accumulation=acc, source="forced")
+        jl = JointLikelihood(report, n_modes=s["n_modes"], precision=lspec)
+        arrays[f"{P}{tag}/lnlike"] = np.array([jl.lnlike(*p) for p in pts])
+    meta["reference"]["precision"] = {
+        "specs": [list(x) for x in PRECISION["specs"]],
+        "probes": _probe_records(report.pulsars[0].fitter,
+                                 segments=("catalog.fit", "catalog.lnlike"),
+                                 catalog=report)}

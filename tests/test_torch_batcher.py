@@ -12,8 +12,9 @@ prior; then, served on the same residuals -- the reference's, since a
 residual gap at the 1e-13 s rounding of the reference's jitted evaluation
 is ~5e-9 of the small stand-in's chi2 --, the same buckets and batches,
 errors, chi2 and the initial chi2 within 1e-9 rel and ``dx`` within 1e-9
-of each column's error; the refusals of ``pool=`` and of a reduced
-precision spec.
+of each column's error; the refusal of ``pool=`` and the usage errors of
+a precision spec outside the reference's dtypes and accumulations (a
+reduced spec is served; ``tests/test_torch_precision.py`` holds it).
 """
 
 import copy
@@ -159,20 +160,27 @@ def test_serve_fused_matches_the_reference(requests_both, reweight):
 
 
 def test_refusals():
-    """``pool=`` waits for item 8, a reduced precision spec for item 7's
-    precision/, bad shapes and step counts are usage errors."""
+    """``pool=`` waits for item 8; a precision spec outside the reference's
+    dtypes and accumulations, bad shapes and step counts are usage errors
+    (a reduced ``serve.gram`` spec is served since the precision layer)."""
     from pint_torch.fitter import UsageError
     from pint_torch.serving import (FitRequest, SegmentSpec, ShapeBatcher,
                                     serve_fused, serve_kernel)
 
     with pytest.raises(NotImplementedError, match="item 8"):
         ShapeBatcher(pool=object(), device="cpu")
-    spec = SegmentSpec(compute="float32")
-    with pytest.raises(NotImplementedError, match="precision/"):
-        serve_fused(spec=spec)
+    with pytest.raises(UsageError, match="compute_dtype"):
+        SegmentSpec(segment="serve.gram", compute_dtype="float16")
+    with pytest.raises(UsageError, match="accumulation"):
+        SegmentSpec(segment="serve.gram", accumulation="kahan")
+    spec = SegmentSpec(segment="serve.gram", compute_dtype="float32",
+                       accumulation="two_prod")
+    assert callable(serve_fused(spec=spec))
     z = torch.zeros((1, 4, 2), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        serve_kernel(z, z[..., 0], z[..., 0], z[:, 0], z[:, 0], spec=spec)
+    out = serve_kernel(z, z[..., 0], z[..., 0], z[:, 0], z[:, 0] + 1.0,
+                       spec=spec)
+    assert all(torch.equal(a, b) for a, b in zip(out, serve_kernel(
+        z, z[..., 0], z[..., 0], z[:, 0], z[:, 0] + 1.0)))
     with pytest.raises(UsageError):
         serve_fused(steps=0)
     with pytest.raises(UsageError):

@@ -643,9 +643,8 @@ def test_refusals(both):
         cf.warm(pool=object())
     with pytest.raises(NotImplementedError, match="item 9"):
         JointLikelihood(cf, n_modes=3, plan=object())
-    with pytest.raises(NotImplementedError, match="precision/"):
-        JointLikelihood(cf, n_modes=3,
-                        precision=SegmentSpec("float32", "float64"))
+    with pytest.raises(UsageError, match="compute_dtype"):
+        SegmentSpec("catalog.lnlike", "float16")
     with pytest.raises(UsageError):
         JointLikelihood(cf, n_modes=3, precision="float32")
     with pytest.raises(UsageError):
@@ -654,7 +653,8 @@ def test_refusals(both):
         JointLikelihood(cf, n_modes=0)
     with pytest.raises(UsageError):
         JointLikelihood(cf, n_modes=3, requests=[])
-    jl = JointLikelihood(cf, n_modes=3, precision=SegmentSpec())
+    jl = JointLikelihood(cf, n_modes=3,
+                         precision=SegmentSpec(segment="catalog.lnlike"))
     with pytest.raises(UsageError):
         jl.lnlike_batch(np.zeros((3, 4)))
     with pytest.raises(UsageError):

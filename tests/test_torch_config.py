@@ -4,8 +4,9 @@ package's ``config`` and ``logging`` on the CPU.
 Each ``PINT_TORCH_*`` variable parses as its ``PINT_TPU_*`` counterpart
 does, values and errors both; the setters refuse what the reference's
 refuse; the device policies other than ``warn``, the telemetry modes
-other than ``off`` and the two directories of ROADMAP queue A item 8
-raise ``NotImplementedError``; ``TOABatch.validate``
+other than ``off`` and the AOT-cache directory of ROADMAP queue A item 8
+raise ``NotImplementedError``, the tuning directory reads as the
+reference's; ``TOABatch.validate``
 reads the configured ingestion policy; a repeated message is
 deduplicated as the reference's is.
 """
@@ -123,9 +124,11 @@ def test_telemetry_variable_off_as_the_reference(reload_both, value):
 
 
 def test_item_8_settings_raise(reload_both, tmp_path):
-    """Telemetry modes but ``off``, the AOT cache and the tuning
-    directory are ROADMAP queue A item 8: they raise, naming it; unset
-    they read None as the reference's do by default."""
+    """Telemetry modes but ``off`` and the AOT cache are ROADMAP queue A
+    item 8: they raise, naming it; unset they read None as the reference's
+    do by default.  The tuning directory is ported (the autotuner's
+    records): set, it reads as the reference's, and an unwritable one
+    raises the reference's ``UsageError``."""
     r, p = reload_both({})
     assert p.aot_cache_dir() is None is r.aot_cache_dir()
     assert p.tune_dir() is None is r.tune_dir()
@@ -134,17 +137,28 @@ def test_item_8_settings_raise(reload_both, tmp_path):
     p.set_tune_dir("")
     for call in (lambda: p.set_telemetry_mode("basic"),
                  lambda: p.set_telemetry_mode("full"),
-                 lambda: p.set_aot_cache_dir(str(tmp_path)),
-                 lambda: p.set_tune_dir(str(tmp_path))):
+                 lambda: p.set_aot_cache_dir(str(tmp_path))):
         with pytest.raises(NotImplementedError, match="item 8"):
             call()
+    for mod in (r, p):
+        mod.set_tune_dir(str(tmp_path / "tune"))
+    assert p.tune_dir() == r.tune_dir() == str(tmp_path / "tune")
+    blocker = tmp_path / "file"
+    blocker.write_text("")
+    outs = []
+    for mod in (r, p):
+        with pytest.raises(ValueError) as e:
+            mod.set_tune_dir(str(blocker / "sub"))
+        outs.append(type(e.value).__name__)
+    assert outs[0] == outs[1] == "UsageError"
     with pytest.raises(ValueError):
         p.set_telemetry_mode("loud")
     r2, p2 = reload_both({"TELEMETRY": "full", "AOT_CACHE_DIR": "x",
                           "TUNE_DIR": "y"})
-    for call in (p2.telemetry_mode, p2.aot_cache_dir, p2.tune_dir):
+    for call in (p2.telemetry_mode, p2.aot_cache_dir):
         with pytest.raises(NotImplementedError, match="item 8"):
             call()
+    assert p2.tune_dir() == r2.tune_dir() == "y"
 
 
 def test_data_paths():

@@ -39,7 +39,8 @@ def _port_sources():
                     REPO / "tools" / "torch_grid_profile.py",
                     REPO / "tools" / "torch_kernel_variants.py",
                     REPO / "tools" / "torch_sass_ops.py",
-                    REPO / "tools" / "torch_chol_probe.py"]
+                    REPO / "tools" / "torch_chol_probe.py",
+                    REPO / "tools" / "torch_k11_probe.py"]
 
 
 def test_import_and_load_pull_in_no_jax():
@@ -56,7 +57,9 @@ def test_import_and_load_pull_in_no_jax():
         "pint_torch.event_fitter, pint_torch.templates, pint_torch.fftfit, "
         "pint_torch.eventstats, pint_torch.streaming, pint_torch.serving, "
         "pint_torch.kernels.chol_rank_update, pint_torch.toa, "
-        "pint_torch.catalog, pint_torch.kernels.hd_cross_lnlike\n"
+        "pint_torch.catalog, pint_torch.kernels.hd_cross_lnlike, "
+        "pint_torch.kernels.compensated_matmul, pint_torch.precision, "
+        "pint_torch.autotune\n"
         "import pint_torch.integrity.robust, pint_torch.integrity.quarantine\n"
         "from pint_torch.bridge import load_snapshot, STANDIN_PATH, "
         "ELL1_PATH, ELL1H_PATH, NGC_PHOFF_PATH, DDK_PATH, DDGR_PATH, "
@@ -168,11 +171,18 @@ def test_entry_points_default_to_the_gpu():
                                     "catalog.crosscorr", "catalog.buckets",
                                     "catalog.ingest", "catalog.batchfit",
                                     "catalog.likelihood", "catalog.__init__",
-                                    "kernels.hd_cross_lnlike"])
+                                    "kernels.hd_cross_lnlike",
+                                    "kernels.compensated_matmul",
+                                    "precision.policy",
+                                    "precision.compensated",
+                                    "precision.tune", "precision.__init__",
+                                    "autotune.records", "autotune.manifest",
+                                    "autotune.__init__"])
 def test_api_modules_import_no_jax(module):
     """The API's modules, the Bayesian and MCMC ones, the photon
     domain's, the streaming engine's, the serve batcher's, the
-    quarantine gate's, the catalogue's and K10's wrapper import neither
+    quarantine gate's, the catalogue's, K10's and K11's wrappers, the
+    precision layer's and the autotuner's records' import neither
     ``jax`` nor ``pint_tpu`` (by their source, and in a fresh
     interpreter)."""
     path = REPO / "pint_torch" / f"{module.replace('.', '/')}.py"
@@ -190,7 +200,8 @@ def test_api_modules_import_no_jax(module):
                                    "d_delay_d_param", "MCMCFitter",
                                    "MCMCFitterBinnedTemplate",
                                    "StreamingGLS", "ShapeBatcher",
-                                   "JointLikelihood"])
+                                   "JointLikelihood",
+                                   "tune_precision_segments"])
 def test_api_entry_points_default_to_the_gpu(entry):
     """A user's call of ``PowellFitter``, ``tuple_chisq``,
     ``d_delay_d_param``, ``MCMCFitter`` (with its ``BayesianTiming``
@@ -277,6 +288,15 @@ def test_api_entry_points_default_to_the_gpu(entry):
             assert jl.G.device == pairs[0][1].device
             assert np.isfinite(jl.lnlike(-14.0, 13.0 / 3.0))
             return jl.cross_batch(np.array([[-14.0, 4.0]]))
+        if entry == "tune_precision_segments":
+            from pint_torch.precision import tune_precision_segments
+
+            f = WLSFitter(b, m)
+            f.fit_toas()
+            dec = tune_precision_segments(f, segments=("serve.gram",),
+                                          force=True)
+            assert dec["serve.gram"].value["compute_dtype"] == "float32"
+            return f.resids.time_resids
         return m.d_delay_d_param(b, "DM")
 
     if not torch.cuda.is_available():
@@ -387,16 +407,24 @@ def test_cpu_tensors_never_reach_a_kernel():
                           torch.tensor([4.33, 4.33], dtype=torch.float64),
                           torch.tensor([1e-8], dtype=torch.float64), 1e8)
     assert bool(torch.isfinite(out).all()) and float(out[1]) == 0.0
+    # K11, the precision segments' matmul, in every mode and dtype
+    from pint_torch.kernels.compensated_matmul import compensated_matmul
+
+    a = torch.ones((2, 3, 20), dtype=torch.float64)
+    for ct in ("float32", "bfloat16"):
+        for acc in ("native", "f64", "two_sum", "two_prod"):
+            out = compensated_matmul(a, a[0].T, ct, acc)
+            assert out.shape == (2, 3, 3) and bool((out == 20.0).all())
     counts = kernels.launch_counts()
     assert set(counts) == {n for mod in kernels.modules().values()
                            for n in mod.KERNELS.values()}
-    assert len(counts) == 2 + 20 + 2 + 16 + 3 + 6 + 2 + 5 + 4 + 4
+    assert len(counts) == 2 + 20 + 2 + 16 + 3 + 6 + 2 + 5 + 4 + 4 + 8
     assert not any(counts.values())
 
 
 def test_every_kernel_is_built_without_contraction(tmp_path, monkeypatch):
     """Each kernel's nvcc command carries -fmad=false and no -fmad=true:
-    every product and sum of K1-K10 rounds alone, as the twins' torch
+    every product and sum of K1-K11 rounds alone, as the twins' torch
     operations do (K7 calls no pow(), the one reason it once was built
     with contraction; K8's density, K9's factor and K10's cross term are
     bitwise their plain versions')."""
@@ -433,7 +461,7 @@ def test_kernel_sources_ship_with_the_package():
     for name in ("spin_phase", "dd_binary", "schur_cholesky_solve",
                  "ell1_binary", "wls_lstsq", "binary_orbits",
                  "solar_wind_pl", "photon_lnlike", "chol_rank_update",
-                 "hd_cross_lnlike"):
+                 "hd_cross_lnlike", "compensated_matmul"):
         src = (csrc / f"{name}.cu").read_text()
         assert "extern \"C\"" in src and f"{name}_launch" in src
     from pint_torch import kernels

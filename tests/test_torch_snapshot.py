@@ -60,6 +60,19 @@ under ``ref/sweep/`` the same way, to b1855 and dmx15::
 
     python tests/test_torch_snapshot.py --settings b1855 --sweep \
         --write pint_torch/data/b1855_standin.npz
+
+``--precision`` adds the precision layer's reference outputs
+(``_torch_standin.PRECISION``: the forced reduced-precision fits and grid
+of b1855, the serve batcher's requests of j1909_stream, the catalogue fit
+and joint likelihood of pta67_catalog, and each one's probes) under
+``ref/precision/`` the same way::
+
+    python tests/test_torch_snapshot.py --settings b1855 --precision \
+        --write pint_torch/data/b1855_standin.npz
+    python tests/test_torch_snapshot.py --settings stream --precision \
+        --write pint_torch/data/j1909_stream_standin.npz
+    python tests/test_torch_snapshot.py --settings pta67_catalog \
+        --precision --write pint_torch/data/pta67_catalog_standin.npz
   The photon stand-ins carry
 the photon fitters' reference outputs (``_torch_standin.export_photon``)
 from the start::
@@ -526,12 +539,14 @@ API_DIGESTS = {
 }
 
 
-def _digest(path, skip=("ref/api/", "ref/bayes/", "ref/sweep/")) -> str:
+def _digest(path, skip=("ref/api/", "ref/bayes/", "ref/sweep/",
+                       "ref/precision/")) -> str:
     """sha256 (16 hex) of a snapshot's arrays but those under the
     prefixes ``skip`` (name, dtype, shape, bytes) and of its ``meta``
     without their keys (``top_level`` and ``reference["api"]`` for
-    ``ref/api/``, ``reference["bayes"]`` for ``ref/bayes/``; the fused
-    sweep's ``ref/sweep/`` has arrays only)."""
+    ``ref/api/``, ``reference["bayes"]`` for ``ref/bayes/``,
+    ``reference["precision"]`` for ``ref/precision/``; the fused sweep's
+    ``ref/sweep/`` has arrays only)."""
     import hashlib
 
     h = hashlib.sha256()
@@ -550,6 +565,8 @@ def _digest(path, skip=("ref/api/", "ref/bayes/", "ref/sweep/")) -> str:
         meta.get("reference", {}).pop("api", None)
     if "ref/bayes/" in skip:
         meta.get("reference", {}).pop("bayes", None)
+    if "ref/precision/" in skip:
+        meta.get("reference", {}).pop("precision", None)
     h.update(json.dumps(meta, sort_keys=True).encode())
     return h.hexdigest()[:16]
 
@@ -725,8 +742,10 @@ def test_bayes_keys_round_trip(tmp_path):
 
 #: every committed stand-in's digest over all its arrays and its whole
 #: ``meta`` (:func:`_digest` skipping only the fused sweep's
-#: ``ref/sweep/``, added later to the two b1855 files): a later slice adds
-#: its own files and keys and leaves these bitwise as committed
+#: ``ref/sweep/``, added later to the two b1855 files, and the precision
+#: layer's ``ref/precision/``, added later to b1855, j1909_stream and
+#: pta67_catalog): a later slice adds its own files and keys and leaves
+#: these bitwise as committed
 STANDIN_DIGESTS = {
     "b1855_standin.npz": "e46ca733e8d5f704",
     "b1855_dmx15_standin.npz": "f7b1a3459359b557",
@@ -763,7 +782,8 @@ STANDIN_DIGESTS = {
 @pytest.mark.parametrize("name", list(STANDIN_DIGESTS))
 def test_committed_standins_are_bitwise_as_committed(name):
     path = os.path.join(REPO, "pint_torch", "data", name)
-    assert _digest(path, skip=("ref/sweep/",)) == STANDIN_DIGESTS[name]
+    assert _digest(path, skip=("ref/sweep/", "ref/precision/")) \
+        == STANDIN_DIGESTS[name]
 
 
 @pytest.mark.parametrize("which", ["photon_j0030", "small_photon"])
@@ -955,6 +975,31 @@ def _add_outputs(path: str, which: str, export, prefix: str) -> None:
     np.savez_compressed(path, **arrays)
 
 
+def _add_precision(path: str, which: str) -> None:
+    """Add the precision layer's reference outputs (``ref/precision/``) to
+    the committed b1855, j1909_stream or pta67_catalog stand-in at
+    ``path``; the arrays already there stay as they are."""
+    if which == "b1855":
+        _add_outputs(path, which, standin.export_precision, "ref/precision/")
+        return
+    with np.load(path, allow_pickle=False) as z:
+        arrays = {k: z[k] for k in z.files}
+    meta = json.loads(str(arrays["meta"]))
+    before = dict(arrays)
+    if which == "stream":
+        standin.export_precision_serve(arrays, meta)
+    elif which == "pta67_catalog":
+        standin.export_precision_catalog(SETTINGS[which], arrays, meta)
+    else:
+        raise SystemExit(f"no precision outputs for {which}")
+    for k, v in arrays.items():
+        if k in before and v is not before[k] or k not in before \
+                and not k.startswith("ref/precision/"):
+            raise SystemExit(f"the export wrote {k} outside ref/precision/")
+    arrays["meta"] = np.asarray(json.dumps(meta))
+    np.savez_compressed(path, **arrays)
+
+
 if __name__ == "__main__":
     import argparse
 
@@ -1013,8 +1058,15 @@ if __name__ == "__main__":
                     help="add the reference's fused 32x32 grid sweep "
                          "(ref/sweep/) to the committed file at --write, "
                          "keeping its arrays")
+    ap.add_argument("--precision", action="store_true",
+                    help="add the reference's forced reduced-precision "
+                         "outputs and probes (ref/precision/) to the "
+                         "committed b1855, stream or pta67_catalog file at "
+                         "--write, keeping its arrays")
     args = ap.parse_args()
-    if args.sweep:
+    if args.precision:
+        _add_precision(args.write, args.settings)
+    elif args.sweep:
         _add_outputs(args.write, args.settings, standin.export_sweep,
                      "ref/sweep/")
     elif args.api:
