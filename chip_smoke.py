@@ -10,8 +10,8 @@ Phases, one line each:
 
 1. device -- the card's name and power limit (nvidia-smi) and its
    properties;
-2. build -- the eleven hand kernels, one nvcc per source, started
-   together; the ptxas report of each ``__global__`` (registers, stack
+2. build -- the twelve hand kernels (K12's are entry points of K10's
+   source), one nvcc per source, started together; the ptxas report of each ``__global__`` (registers, stack
    frame, spill bytes; K1's per S = 1..6, K2's and K4's per mode and orbit
    source, K6's per form, its duals staged and direct, K8's per mode and
    output, K9's per factor layout and entry point, K10's, K11's per
@@ -254,7 +254,24 @@ Phases, one line each:
    as the reference's unless its rel_err is within 2x of the threshold.
    Printed: each bar's gap, the probes' rel_errs beside the reference's,
    and each consumer's wall under float64 and forced float32 two_prod
-   (median of ``PRECISION_REPS`` warm calls);
+   (median of ``PRECISION_REPS`` warm calls);  then the amortized phase (each
+   stand-in's counts zeroed just before it; ``_amortized_phase``), from
+   the reference's run under ``ref/amortized/``: on ell1 and ddgr
+   ``AmortizedVI.from_bayesian`` on the stored box (K1's and K4's ELL1
+   or K2's DDGR duals under autograd, their ``backward``), on
+   pta67_catalog ``from_joint_likelihood`` at the ingest state on the
+   reference's residuals (K10 forward, K12 backward), each with a 4 x 32
+   flow: ``train_flow`` of 20 steps of 64 samples, then the reference's
+   trained posterior's ``draw(4096)`` and ``log_prob`` at 256 points.
+   Bars: ``init()`` bitwise, the samples within 2 ulp (the last step's
+   bitwise), the ELBO, lnpost, logq and gradient at the stored first
+   step, the free-running trace and final weights against the
+   reference's run (op by op on ell1 and ddgr, where the snapshot holds
+   it), the last step's gradient at the reference's stored state, Adam
+   from the reference's gradient, draws, moments and log-probs, a save
+   and load on the card; printed: 300 (pta67: 100) timed steps, a step's
+   forward and backward ms, busy share, peak memory, draws/s and
+   log-probs/s;
 4. kernels -- each CUDA kernel (the primal and dual instantiations of K1,
    K2 and K4 -- K4's for ELL1, ELL1k, ELL1H exact and ELL1H harmonic --,
    K3's shared-memory instantiation at nt = 88 and its global one at nt =
@@ -335,6 +352,14 @@ Phases, one line each:
    native at float32's CUDA-core rate or bfloat16's tensor-core rate) and
    the library's ``torch.matmul`` of the pre-rounded operands, one call a
    pass.
+   K12 against its plain version on the amortized pta67 path's G, u and
+   walker points at B = 16, 32, 48 and 64 in every chunking (bitwise,
+   within 1e-12 x sum_k |e_k| (w_k^2 + (M^-1)_kk + 1)), exactly 0.0 at
+   zero amplitude, timed beside ``cholesky_ex`` + ``cholesky_inverse`` +
+   ``solve_triangular`` and its bound (the factor's and the inverse's
+   2 R^3 / 3 flops a walker at the float64 tensor cores); each kernel Function's ``backward``
+   (K1, K2 in each mode, K4, K6, K7) against autograd through its twin at
+   its path's inputs, within 1e-10 of each input's largest.
    K2's Newton steps on each path's inputs set its operation count; the
    per-element operation counts of K1, K2, K4, K6 and K7 are bounded at
    the float64 instruction rate (-fmad=false; K6's, K7's and K8's count
@@ -360,6 +385,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -620,8 +646,15 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+#: the launch functions :class:`Capture` spies on: each kernel module's
+#: ``_launch``, and K10's module's ``_launch_grad`` (K12), recorded as
+#: ``hd_cross_lnlike_grad``
+LAUNCHERS = ("_launch", "_launch_grad")
+
+
 class Capture:
-    """Spy on each kernel module's ``_launch``: keeps a copy of the largest
+    """Spy on each kernel module's launch functions (:data:`LAUNCHERS`):
+    keeps a copy of the largest
     call's inputs per (kernel, partials) -- per (kernel, (mode, partials))
     for K2 and K4 on PB orbits, (kernel, (mode, partials, True)) with
     orbit inputs, (kernel, (form, partials)) for K6 -- so the comparisons
@@ -635,18 +668,22 @@ class Capture:
 
     def install(self):
         for name, mod in self.kernels.items():
-            orig = mod._launch
-            self._orig[name] = orig
+            for attr in LAUNCHERS:
+                if not hasattr(mod, attr):
+                    continue
+                orig = getattr(mod, attr)
+                self._orig[(name, attr)] = orig
 
-            def spy(*args, _orig=orig, _name=name):
-                self._record(_name, args)
-                return _orig(*args)
+                def spy(*args, _orig=orig,
+                        _name=name + attr[len("_launch"):]):
+                    self._record(_name, args)
+                    return _orig(*args)
 
-            mod._launch = spy
+                setattr(mod, attr, spy)
 
     def remove(self):
-        for name, mod in self.kernels.items():
-            mod._launch = self._orig[name]
+        for (name, attr), orig in self._orig.items():
+            setattr(self.kernels[name], attr, orig)
 
     def _record(self, name, args):
         import torch
@@ -4349,6 +4386,598 @@ def _k11_kernels(calls, counts, dev, tag) -> list:
     return records
 
 
+# ---------------------------------------------------------------------------
+# the amortized phase: flows trained on reverse mode through the kernels
+# ---------------------------------------------------------------------------
+#: the training run's bars: the ELBO trace within this rel at every step,
+#: the final weights and the last step's gradient within this of each
+#: leaf's largest
+AMORT_TRACE_BAR = 1e-6
+AMORT_REPS = 10
+
+
+def _amortized_leaves(ref, prefix):
+    """The stored leaves under ``ref/amortized/<prefix>``, in order."""
+    P = "ref/amortized/" + prefix
+    return [ref[k] for k in sorted(k for k in ref if k.startswith(P))]
+
+
+def _amortized_vi(kind, path, meta, ref, flow_kw):
+    """(AmortizedVI on the card, its posterior object): from_bayesian on the
+    stored ``ref/bayes/`` box, or from_joint_likelihood at the catalogue's
+    ingest state on the reference's residuals."""
+    from pint_torch.amortized import AmortizedVI
+
+    if kind == "bayes":
+        from pint_torch.bayesian import BayesianTiming
+        from pint_torch.bridge import load_snapshot
+
+        model, batch = load_snapshot(path, device="cuda")
+        bt = BayesianTiming(model, batch, prior_info=_bayes_info(meta, ref))
+        return AmortizedVI.from_bayesian(bt, **flow_kw), bt
+    from pint_torch.bridge import load_catalog_snapshot
+    from pint_torch.catalog import (CatalogFitter, JointLikelihood,
+                                    ingest_catalog)
+
+    S = meta["reference"]["settings"]
+    cf = CatalogFitter(ingest_catalog(load_catalog_snapshot(path,
+                                                            device="cuda")))
+    reqs = _catalog_on(cf._requests(), ref["ref/catalog/pass0/r"])
+    jl = JointLikelihood(cf, n_modes=S["n_modes"], requests=reqs)
+    return AmortizedVI.from_joint_likelihood(jl, **flow_kw), jl
+
+
+def _amortized_phase(label, path, kind, kernels, tag, timed_steps):
+    """Amortized inference on one stand-in, from the reference's outputs
+    under ``ref/amortized/``, the counts zeroed just before the main path
+    (the VI's construction, ``train_flow`` of the stored schedule, the
+    reference's trained posterior's draws and log-probabilities) and read
+    just after.  Bars: ``init()`` bitwise; the base samples within 2 ulp of
+    the reference's (and the 20-step stream's sha256 printed); at the
+    initial parameters and the stored first samples the ELBO, each sample's
+    lnpost (5e-7 x chi2; the catalogue 1e-9 x max(1, |ref|)), logq (1e-12 x
+    max(1, |logq|)) and each gradient leaf (1e-6 of its largest |g_ref|,
+    zeros where the reference's); the last step's samples the reference's
+    (sha256); the free-running ELBO trace within :data:`AMORT_TRACE_BAR`
+    rel at every step and the final weights within it of each leaf's
+    largest, against the reference's run evaluated op by op where the
+    snapshot holds one (``ref/amortized/op_by_op/``: ell1, ddgr), else its
+    compiled run; at the compiled run's state before its last step the
+    ELBO (1e-6 rel) and the gradient (1e-6 of each leaf's largest against
+    the op-by-op gradient there where stored, zeros alike), and Adam's
+    update from the compiled gradient within 1e-12 of each leaf's largest
+    |w| of the compiled final weights.  Printed beside: the gaps to the
+    compiled run, and where stored the compiled ELBO's central
+    differences along the two reference gradients' difference beside
+    each gradient's derivative along it.  The reference's trained
+    posterior carried in:
+    the kept draws, the 4096 draws' mean and std within 1e-12 of each box's
+    width, log-probs within 1e-12 x max(1, |ref|) with -inf exactly where
+    the reference's; saved and loaded on the card bitwise.  Printed: the
+    free-running trace's and weights' gaps, then ``timed_steps`` steps:
+    steps/s, the forward and backward ms of a step (median of
+    :data:`AMORT_REPS`), the CUDA kernels and busy share of 5 steps under
+    ``torch.profiler``, a step's ``max_memory_allocated``, draws/s and
+    log-probs/s.  Returns (counts, capture, the posterior object)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from pint_torch.amortized import (AmortizedPosterior, TrainConfig,
+                                      _prng, train_flow)
+    from pint_torch.amortized.flows import leaves, unflatten
+    from pint_torch.amortized.train import adam_update, loss_and_grad
+    from pint_torch.bridge import read_snapshot
+
+    meta, ref = read_snapshot(path)
+    A = meta["reference"]["amortized"]
+    P = "ref/amortized/"
+    dev = torch.device("cuda")
+    flow_kw = dict(n_layers=A["n_layers"], hidden=A["hidden"],
+                   seed=A["flow_seed"])
+    cfg = TrainConfig(steps=A["steps"], n_samples=A["n_samples"], lr=A["lr"],
+                      seed=A["train_seed"])
+    f64 = torch.float64
+    cap = Capture(kernels.modules())
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vi, obj = _amortized_vi(kind, path, meta, ref, flow_kw)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cap.install()
+    t0 = time.perf_counter()
+    res = train_flow(vi, cfg)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    cap.remove()
+    nl = vi.flow.n_coupling_layers
+    final_ref = [torch.as_tensor(x, dtype=f64, device=dev)
+                 for x in _amortized_leaves(ref, "final/")]
+    post = AmortizedPosterior(vi.flow, vi.transform,
+                              unflatten(final_ref, nl), vi.param_labels,
+                              vi.vkey)
+    draws = post.draw(A["draws"], seed=A["draw_seed"])
+    lp = post.log_prob(ref[P + "logprob_points"])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    bad = []
+    # the initial parameters and the random stream
+    init = leaves(vi.flow.init(dev))
+    if not all(np.array_equal(a.cpu().numpy(), b) for a, b in zip(
+            init, _amortized_leaves(ref, "init/"))):
+        bad.append("init() not bitwise")
+    key, zs = _prng.prng_key(cfg.seed), []
+    for _ in range(cfg.steps):
+        key, sub = _prng.split(key)
+        zs.append(_prng.normal(sub, (cfg.n_samples, vi.ndim)))
+    z0 = ref[P + "z0"]
+    ulp = float((np.abs(zs[0] - z0) / np.spacing(np.abs(z0))).max())
+    same = [hashlib.sha256(z.tobytes()).hexdigest() == want
+            for z, want in zip(zs, A["z_sha256_steps"])]
+    if ulp > 2.0:
+        bad.append(f"base samples {ulp} ulp from the reference's")
+    if not same[-1]:
+        bad.append("the last step's samples are not the reference's")
+    # the ELBO, lnpost, logq and gradient at (init, z0)
+    ps = [x.clone().requires_grad_(True) for x in init]
+    zt = torch.as_tensor(z0, dtype=f64, device=dev)
+    params = unflatten(ps, nl)
+    x, logq = vi.sample_and_logq(params, zt)
+    lnpost = vi.lnpost_batch(x)
+    elbo = torch.mean(lnpost - logq)
+    grad = torch.autograd.grad(elbo, ps)
+    lnpost = lnpost.detach().cpu().numpy()
+    logq = logq.detach().cpu().numpy()
+    want_lp, want_q = ref[P + "lnpost0"], ref[P + "logq0"]
+    if kind == "bayes":
+        xs = x.detach().cpu().numpy()
+        lnpr = np.array([obj.lnprior(p) for p in xs])
+        scale = -2.0 * (want_lp - lnpr + obj.lognorm)
+        bar_lp = LNPOST_BAR
+    else:
+        scale = np.maximum(1.0, np.abs(want_lp))
+        bar_lp = LNLIKE_BAR
+    d_lp = float(np.max(np.abs(lnpost - want_lp) / scale))
+    d_q = float(np.max(np.abs(logq - want_q) / np.maximum(1.0,
+                                                          np.abs(want_q))))
+    d_elbo = abs(float(elbo.detach()) - A["elbo0"]) \
+        / float(np.mean(scale))
+    d_g, zeros = 0.0, True
+    for g, w in zip(grad, _amortized_leaves(ref, "grad0/")):
+        g = g.cpu().numpy()
+        zeros = zeros and bool(np.array_equal(g == 0, w == 0))
+        d_g = max(d_g, float(np.abs(g - w).max()
+                             / max(np.abs(w).max(), 1e-300)))
+    # Adam's first step from the port's and the reference's first gradient:
+    # lr * g / (|g| + eps), so an entry whose sign differs moves a whole
+    # step; the first such entry (in leaf order) printed
+    flips, first_flip = 0, "none"
+    for i, (g, w) in enumerate(zip(grad, _amortized_leaves(ref, "grad0/"))):
+        g = g.cpu().numpy().ravel()
+        w = w.ravel()
+        bad_sign = (np.sign(g) != np.sign(w)) & (np.maximum(
+            np.abs(g), np.abs(w)) > cfg.eps)
+        flips += int(bad_sign.sum())
+        if bad_sign.any() and first_flip == "none":
+            j = int(np.flatnonzero(bad_sign)[0])
+            first_flip = (f"leaf {i} entry {j}: the reference's {w[j]:.3e}, "
+                          f"the port's {g[j]:.3e}")
+    if not (d_lp <= bar_lp and d_q <= 1e-12 and d_elbo <= bar_lp
+            and d_g <= 1e-6 and zeros):
+        bad.append(f"ELBO at the stored samples: lnpost {d_lp:.3e}, logq "
+                   f"{d_q:.3e}, ELBO {d_elbo:.3e}, gradient {d_g:.3e}, "
+                   f"exact zeros {zeros}")
+    # the free-running run against the reference's, op by op where stored
+    O = "op_by_op/" if P + "op_by_op/trace" in ref else ""
+    trace, trace_c = ref[P + O + "trace"], ref[P + "trace"]
+    gap = np.abs(res.elbo_trace - trace) / np.abs(trace)
+    gap_c = np.abs(res.elbo_trace - trace_c) / np.abs(trace_c)
+
+    def leaf_gap(got, prefix):
+        return max(float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-300))
+                   for g, w in zip(got, _amortized_leaves(ref, prefix)))
+
+    mine = [x.detach().cpu().numpy() for x in leaves(res.params)]
+    d_wfree = leaf_gap(mine, O + "final/")
+    d_wfree_c = leaf_gap(mine, "final/")
+    if not (gap.max() <= AMORT_TRACE_BAR and d_wfree <= AMORT_TRACE_BAR):
+        bad.append(f"free-running run: trace {gap.max():.3e} (step "
+                   f"{int(np.argmax(gap)) + 1}), final weights "
+                   f"{d_wfree:.3e}")
+    # the last step at the compiled run's state and samples
+    st = [[torch.as_tensor(x, dtype=f64, device=dev)
+           for x in _amortized_leaves(ref, f"state/{t}_")]
+          for t in ("p", "m", "v")]
+    loss, g_last = loss_and_grad(vi, st[0], torch.as_tensor(
+        zs[-1], dtype=f64, device=dev))
+    d_last = abs(-float(loss) - trace_c[-1]) / abs(trace_c[-1])
+    g_last = [g.cpu().numpy() for g in g_last]
+    d_gl = leaf_gap(g_last, O + "grad_last/")
+    d_gc = leaf_gap(g_last, "grad_last/")
+    zeros_l = all(np.array_equal(g == 0, w == 0) for g, w in zip(
+        g_last, _amortized_leaves(ref, O + "grad_last/")))
+    g_ref = [torch.as_tensor(x, dtype=f64, device=dev)
+             for x in _amortized_leaves(ref, "grad_last/")]
+    p_last = adam_update(*st, A["t_state"], g_ref, cfg)[0]
+    d_w = max(float((a - w).abs().max() / w.abs().max().clamp(min=1e-300))
+              for a, w in zip(p_last, final_ref))
+    if not (d_last <= AMORT_TRACE_BAR and d_gl <= AMORT_TRACE_BAR
+            and zeros_l and d_w <= 1e-12):
+        bad.append(f"the last step at the reference's state: ELBO "
+                   f"{d_last:.3e}, gradient {d_gl:.3e}, zeros alike "
+                   f"{zeros_l}, Adam from its gradient {d_w:.3e}")
+    fd_note = ""
+    if O:
+        F = A["op_by_op"]
+        own = float(np.max(np.abs(trace_c - trace) / np.abs(trace)))
+        fd_note = (f"; the compiled reference's own trace against its "
+                   f"op-by-op run up to {own:.3e}, and along the two "
+                   f"reference gradients' difference at its last state the "
+                   f"compiled ELBO's central differences "
+                   + ", ".join(f"{x:.6e}" for x in F["fd"])
+                   + f" (steps {F['fd_h']}) against the op-by-op "
+                   f"gradient's {F['along_op_by_op']:.6e} and the "
+                   f"compiled's {F['along_compiled']:.6e}")
+    # the reference's posterior
+    width = np.array([s[2] - s[1] if s[0] == "uniform" else s[2]
+                      for s in vi.transform.specs])
+    kept = ref[P + "draws"]
+    d_draw = float(np.max(np.abs(draws[:len(kept)] - kept) / width))
+    d_mom = float(max(np.max(np.abs(draws.mean(0) - ref[P + "draws_mean"])
+                             / width),
+                      np.max(np.abs(draws.std(0) - ref[P + "draws_std"])
+                             / width)))
+    want = ref[P + "logprob"]
+    inf_same = bool(np.array_equal(np.isneginf(lp), np.isneginf(want)))
+    fin = np.isfinite(want)
+    d_logp = float(np.max(np.abs(lp[fin] - want[fin])
+                          / np.maximum(1.0, np.abs(want[fin]))))
+    with tempfile.TemporaryDirectory() as tmp:
+        post.save(os.path.join(tmp, "flow"))
+        back = AmortizedPosterior.load(os.path.join(tmp, "flow"))
+        reload_same = bool(np.array_equal(back.draw(64, seed=3),
+                                          post.draw(64, seed=3)))
+    if not (d_draw <= 1e-12 and d_mom <= 1e-12 and inf_same
+            and d_logp <= 1e-12 and reload_same):
+        bad.append(f"posterior: draws {d_draw:.3e}, moments {d_mom:.3e}, "
+                   f"log-probs {d_logp:.3e}, -inf alike {inf_same}, "
+                   f"reloaded bitwise {reload_same}")
+    print(f"phase amortized {label}: {vi.ndim}-dim, flow {A['n_layers']} x "
+          f"{A['hidden']}; setup {setup_s:.4f} s, train {cfg.steps} x "
+          f"{cfg.n_samples} {train_s:.4f} s; init bitwise; z0 max "
+          f"{ulp:.0f} ulp, {sum(same)} of {cfg.steps} steps' samples "
+          f"bitwise (sha256), the last step's {same[-1]}; "
+          f"at (init, z0): lnpost {d_lp:.3e} (<= {bar_lp:g} of "
+          f"{'chi2' if kind == 'bayes' else 'max(1, |ref|)'}), logq "
+          f"{d_q:.3e}, ELBO {d_elbo:.3e}, gradient {d_g:.3e} of each leaf's "
+          f"largest (<= 1e-6), zeros alike {zeros}; Adam's first step: "
+          f"{flips} entries of opposite sign (first {first_flip}); "
+          f"free-running against the reference's "
+          f"{'op-by-op' if O else 'compiled'} run: trace gaps "
+          + ", ".join(f"{g:.1e}" for g in gap)
+          + f" (<= {AMORT_TRACE_BAR:g}), final weights {d_wfree:.3e} of each "
+          f"leaf's largest (<= {AMORT_TRACE_BAR:g})"
+          + (f"; against its compiled run: trace up to {gap_c.max():.3e}, "
+             f"weights {d_wfree_c:.3e}" if O else "")
+          + f"; at the compiled run's state before the last step: ELBO "
+          f"{d_last:.3e}, gradient {d_gl:.3e} of each leaf's largest "
+          f"(<= 1e-6{', the op-by-op one' if O else ''}"
+          + (f"; the compiled one {d_gc:.3e}" if O else "")
+          + f"), zeros alike {zeros_l}, Adam from the reference's gradient "
+          f"{d_w:.3e} (<= 1e-12){fd_note}; draws {d_draw:.3e}, moments "
+          f"{d_mom:.3e} of the box width, log-probs {d_logp:.3e}, -inf alike "
+          f"{inf_same} ({int(np.isneginf(want).sum())} outside), reloaded "
+          f"bitwise "
+          f"{reload_same}; launches (nonzero) "
+          f"{dict((k, v) for k, v in counts.items() if v)} {tag}",
+          flush=True)
+    if bad:
+        raise RuntimeError(f"amortized bars failed ({label}): "
+                           + "; ".join(bad))
+    # timed: the schedule's steps, a step's parts, the profiler
+    tcfg = TrainConfig(steps=timed_steps, n_samples=cfg.n_samples,
+                       lr=cfg.lr, seed=cfg.seed, checkpoint_chunk=timed_steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_flow(vi, tcfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    zt = torch.as_tensor(zs[1], dtype=f64, device=dev)
+    elbo_fn = vi.elbo_fn()
+    fwd, bwd = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_mem = torch.cuda.memory_allocated()
+    for _ in range(AMORT_REPS):
+        ps = [x.clone().requires_grad_(True) for x in final_ref]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = -elbo_fn(unflatten(ps, nl), zt)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        torch.autograd.grad(loss, ps)
+        torch.cuda.synchronize()
+        fwd.append(t1 - t0)
+        bwd.append(time.perf_counter() - t1)
+    peak = torch.cuda.max_memory_allocated() - held_mem
+    n5, us5, w5 = _profile_cuda(lambda: train_flow(vi, TrainConfig(
+        steps=5, n_samples=cfg.n_samples, lr=cfg.lr, seed=cfg.seed)))
+    post.draw(A["draws"], seed=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d4 = post.draw(A["draws"], seed=2)
+    torch.cuda.synchronize()
+    t_draw = time.perf_counter() - t0
+    post.log_prob(d4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    post.log_prob(d4)
+    torch.cuda.synchronize()
+    t_lp = time.perf_counter() - t0
+    print(f"phase amortized {label} timed: {timed_steps} steps {wall:.4f} s, "
+          f"{timed_steps / wall:.3f} steps/s; a step's forward "
+          f"{1e3 * float(np.median(fwd)):.4f} ms, backward "
+          f"{1e3 * float(np.median(bwd)):.4f} ms (medians of {AMORT_REPS}); "
+          f"5 steps under torch.profiler: "
+          + (f"{n5} CUDA kernels, busy {us5 / 1e6 / w5:.4f} ({us5 / 1e3:.2f} "
+             f"ms device of {w5 * 1e3:.2f} ms wall)" if n5 else
+             "not measured (no device events)")
+          + f"; a step's peak {peak / 2**20:.2f} MiB over "
+          f"{held_mem / 2**20:.2f} held; draw({A['draws']}) "
+          f"{A['draws'] / t_draw:.1f} draws/s, log_prob of {A['draws']} "
+          f"{A['draws'] / t_lp:.1f} /s {tag}", flush=True)
+    return counts, cap, obj
+
+
+#: warm calls K12's time is the median of
+K12_REPS = 5
+
+
+def _k12_bound(B: int, R: int, m: int):
+    """K12's least time for ``B`` walkers: its inputs read and its output
+    written once, against its whole work -- the factor's R^3 / 6 and L^-1's
+    R^3 / 6 multiply-adds a walker (2 R^3 / 3 flops), GEMM-shaped in their
+    trailing updates, at the float64 tensor cores' rate, and 5 R^2 flops on
+    the CUDA cores (M's two products an entry, the squared column norms of
+    L^-1 and w's column sums)."""
+    nbytes = 8 * (R * R + R + 2 * B + m + 2 * B)
+    return _bound(nbytes, B * 5 * R ** 2, tensor_ops=B * 2 * R ** 3 / 3)
+
+
+def _k12_kernels(jl, cap, counts, dev, tag) -> list:
+    """K12 against its plain version on the card at the amortized path's G,
+    u and walker points (its largest call, B = 64) at B = 16, 32, 48 and 64,
+    each in the wrapper's chunks under the workspace cap, in one chunk and
+    in chunks of 3: bitwise (``torch.equal``) and within 1e-12 x sum_k
+    |e_k| (w_k^2 + (M^-1)_kk + 1) (those from the library's factor, for
+    log10_A and gamma apart); exactly 0.0 at zero amplitude.  Times at B =
+    64: the kernel (median of ``K12_REPS`` warm calls), its launches a call,
+    its plain version, the library yardstick -- ``cholesky_ex`` of the
+    formed M, the diagonal of ``cholesky_inverse`` and ``solve_triangular``,
+    M formed outside the timed window -- and the bound (:func:`_k12_bound`)."""
+    import torch
+
+    from pint_torch.kernels import hd_cross_lnlike as K10
+
+    G, u, la0, ga0, f, T = cap.args("hd_cross_lnlike_grad")
+    R, m = G.shape[0], f.shape[0]
+    eye = torch.eye(R, dtype=torch.float64, device=dev)
+    eg = K10.gamma_weights(f).repeat_interleave(2).repeat(R // (2 * m))
+    per = 8 * (R * (R + 1) + (K10.NB + 2) * R)
+    capb = K10.WORKSPACE_CAP_BYTES
+
+    def library(la, ga):
+        d = K10._sqrt_phi(la, ga, f, T).repeat_interleave(2, dim=1).repeat(
+            1, R // (2 * m))
+        M = (d[:, :, None] * G) * d[:, None, :] + eye
+        return M, d * u
+
+    def lib_terms(M, v):
+        L, _ = torch.linalg.cholesky_ex(M)
+        dinv = torch.diagonal(torch.cholesky_inverse(L), dim1=-2, dim2=-1)
+        z = torch.linalg.solve_triangular(L, v[..., None], upper=False)
+        w = torch.linalg.solve_triangular(L.mT, z, upper=True)[..., 0]
+        return w, dinv
+
+    def chunked(cap_bytes, la, ga):
+        K10.WORKSPACE_CAP_BYTES = cap_bytes
+        try:
+            return K10._launch_grad(G, u, la, ga, f, T)
+        finally:
+            K10.WORKSPACE_CAP_BYTES = capb
+
+    notes, err, rec = [], 0.0, None
+    for B in (16, 32, 48, 64):
+        la, ga = la0[:B].contiguous(), ga0[:B].contiguous()
+        want = K10.hd_cross_grad_reference(G, u, la, ga, f, T)
+        got = K10._launch_grad(G, u, la, ga, f, T)
+        one = chunked(per * B, la, ga)
+        small = chunked(per * 3, la, ga)
+        M, v = library(la, ga)
+        w, dinv = lib_terms(M, v)
+        t = w * w + dinv + 1.0
+        scale = torch.stack([math.log(10.0) * t.sum(-1),
+                             (eg.abs() * t).sum(-1)], dim=1)
+        lib = torch.stack([math.log(10.0) * (w * w + dinv - 1.0).sum(-1),
+                           (eg * (w * w + dinv - 1.0)).sum(-1)], dim=1)
+        e = float(((got - want).abs() / scale).max())
+        el = float(((got - lib).abs() / scale).max())
+        bit = all(bool(torch.equal(x, want)) for x in (got, one, small))
+        err = max(err, *(float((x - want).abs().max())
+                         for x in (got, one, small)))
+        notes.append(f"B={B} (chunks of "
+                     f"{K10.walkers_per_chunk(B, R, K10.NB + 2)}, of {B} "
+                     f"and of 3): {'bitwise' if bit else 'DIFFERS'}, "
+                     f"{e:.3e} of the scale (<= 1e-12), library {el:.3e}")
+        if not bit or e > 1e-12:
+            raise RuntimeError(f"hd_cross_grad disagrees with its plain "
+                               f"version at B = {B}: {e:.3e}, bitwise {bit}")
+        if B == 64:
+            before = dict(K10.launch_counts)
+            K10._launch_grad(G, u, la, ga, f, T)
+            a_call = {k: K10.launch_counts[k] - before[k]
+                      for k in K10.GRAD_KERNELS.values()}
+            ms = _median_ms(
+                lambda: K10._launch_grad(G, u, la, ga, f, T), K12_REPS)
+            plain = _time_ms(lambda: K10.hd_cross_grad_reference(
+                G, u, la, ga, f, T), 1, warmup=0)
+            lib_ms = _median_ms(lambda: lib_terms(M, v), K12_REPS)
+            bound = _k12_bound(B, R, m)
+            rec = (ms, plain, lib_ms, bound, a_call)
+        del M, v, w, dinv
+    zl = torch.tensor([-float("inf"), -14.0, -float("inf")],
+                      dtype=torch.float64, device=dev)
+    zg = torch.tensor([4.33, 4.33, 2.0], dtype=torch.float64, device=dev)
+    z0 = K10._launch_grad(G, u, zl, zg, f, T).cpu()
+    if not (bool((z0[0] == 0.0).all()) and bool((z0[2] == 0.0).all())
+            and bool((z0[1] != 0.0).all())):
+        raise RuntimeError(f"hd_cross_grad at zero amplitude: {z0}")
+    ms, plain, lib_ms, bound, a_call = rec
+    print(f"phase kernel hd_cross_grad: R={R} m={m}; " + "; ".join(notes)
+          + f"; zero amplitude exactly 0.0; B=64 {ms:.4f} ms (median of "
+          f"{K12_REPS}; {sum(a_call.values())} launches: "
+          + ", ".join(f"{k} {a_call[k]}" for k in a_call)
+          + f"), plain {plain:.4f} ms, library cholesky_ex + "
+          f"cholesky_inverse diagonal + solve_triangular {lib_ms:.4f} ms, "
+          f"bound {bound[0]:.4f} ms ({bound[1]}; 2 R^3 / 3 flops a walker "
+          f"at the float64 tensor cores, 5 R^2 at the CUDA cores), share "
+          f"{bound[0] / ms:.4f} {tag}",
+          flush=True)
+    parts = {k: counts[k] for k in K10.GRAD_KERNELS.values()}
+    return [dict(name="hd_cross_grad", route="cuda",
+                 source="pint_torch/kernels/csrc/hd_cross_lnlike.cu",
+                 replaces=K10.GRAD_REPLACES, launches=sum(parts.values()),
+                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound[0],
+                 bound_by=bound[1], library_ms=lib_ms,
+                 path="amortized_pta67_catalog", parts=parts)]
+
+
+def _backward_kernels(caps, dev, tag, partial: bool = False) -> dict:
+    """Each kernel Function's ``backward`` (the kernel's partials contracted
+    with a seeded cotangent) against autograd through its plain twin on the
+    same CUDA tensors, at the inputs its path gave it: K1's and K4's
+    (ELL1) duals on the amortized ell1 path, K2's DDGR on amortized ddgr,
+    K2's DD, BT, DDK and BTX on b1855, bt, ddk and small_bt_piecewise, K6's
+    FBX and waves on bw, bw_waves and small_dd_fbx, K7 on pta: every input
+    cotangent within 1e-10 of its largest.  Timed: the backward node alone
+    (``torch.autograd.grad`` on a kept graph, the contraction) on the
+    amortized paths' calls.  ``partial``: check only the paths in
+    ``caps`` (a probe's).  Returns {name: (error, backward ms)}."""
+    import torch
+
+    from pint_torch.kernels import binary_orbits as K6
+    from pint_torch.kernels import dd_binary as K2
+    from pint_torch.kernels import ell1_binary as K4
+    from pint_torch.kernels import solar_wind_pl as K7
+    from pint_torch.kernels import spin_phase as K1
+
+    gen = torch.Generator(device=dev).manual_seed(20261026)
+    lines, out = [], {}
+
+    def check(name, fn, twin, args, timed=False):
+        xs = [a.detach().clone().requires_grad_(True) for a in args]
+        y = fn(*xs)
+        ys = y if isinstance(y, tuple) else (y,)
+        cots = [torch.randn(o.shape, generator=gen, dtype=torch.float64,
+                            device=dev) for o in ys]
+        got = torch.autograd.grad(ys, xs, cots, retain_graph=timed,
+                                  allow_unused=True)
+        xt = [a.detach().clone().requires_grad_(True) for a in args]
+        yt = twin(*xt)
+        yt = yt if isinstance(yt, tuple) else (yt,)
+        want = torch.autograd.grad(yt, xt, cots, allow_unused=True)
+        e = 0.0
+        for g, w in zip(got, want):
+            if w is None:
+                continue
+            g = torch.zeros_like(w) if g is None else g
+            e = max(e, float((g - w).abs().max()
+                             / w.abs().max().clamp(min=1e-300)))
+        ms = None
+        if timed:
+            ms = _median_ms(lambda: torch.autograd.grad(
+                ys, xs, cots, retain_graph=True, allow_unused=True), 5)
+        lines.append(f"{name} {e:.3e}" + (f" ({ms:.4f} ms)" if timed else ""))
+        out[name] = (e, ms)
+        if not e <= 1e-10:
+            raise RuntimeError(f"{name}'s backward disagrees with its twin's: "
+                               f"{e:.3e}")
+
+    def k1(args, timed=False):
+        th, tl, t0, pe, dl, F, has = args[:7]
+        check("spin_phase (K1)", lambda p, d, f_: K1.spin_phase(
+            th, tl, t0, p, d, f_, has)[1], lambda p, d, f_:
+            K1.spin_phase_reference(th, tl, t0, p, d, f_, has, False)[1],
+            (pe, dl, F), timed)
+
+    def k2(name, args, timed=False):
+        tt0, params, mode, toa, orb = args[:5]
+        extra = list(toa or ()) + list(orb or ())
+        nt = len(toa or ())
+
+        def split(rest):
+            return tuple(rest[:nt]) or None, tuple(rest[nt:]) or None
+
+        check(name, lambda t, p, *r: K2.dd_binary(t, p, mode, *split(r)),
+              lambda t, p, *r: K2.dd_binary_reference(
+                  t, p, False, mode, *split(r))[0],
+              (tt0, params, *extra), timed)
+
+    def k4(name, args, timed=False):
+        tt, params, mode, _, nh, h4 = args[:6]
+        orb = args[6] if len(args) > 6 else None
+        check(name, lambda t, p, *o: K4.ell1_binary(
+            t, p, mode, nh, h4, tuple(o) or None),
+            lambda t, p, *o: K4.ell1_binary_reference(
+                t, p, mode, False, nh, h4, tuple(o) or None)[0],
+            (tt, params, *(orb or ())), timed)
+
+    def k6(name, args):
+        tt0, coef, form, nfb, nw, off = args[:6]
+        check(name, lambda t, c: K6.binary_orbits(t, c, form, nfb, nw, off),
+              lambda t, c: K6.binary_orbits_reference(
+                  t, c, form, nfb, nw, off, False)[:2], (tt0, coef))
+
+    def k7(name, args):
+        r, th, p, ii, win = args[:5]
+        check(name, lambda t, p_, i_: K7.solar_wind_pl(r, t, p_, i_, win),
+              lambda t, p_, i_: K7._twin(r, t, p_, i_, win, False)[0],
+              (th, p, ii))
+
+    cases = [
+        ("amortized_ell1", lambda c: k1(c.args("spin_phase", True), True)),
+        ("amortized_ell1", lambda c: k4("ell1_binary ELL1 (K4)", c.args(
+            "ell1_binary", (K4.ELL1, True)), True)),
+        ("amortized_ddgr", lambda c: k2("dd_binary DDGR (K2)", c.args(
+            "dd_binary", (K2.DDGR, True)), True))]
+    for mode, path, nm in ((K2.DD, "b1855", "DD"), (K2.BT, "bt", "BT"),
+                           (K2.DDK, "ddk", "DDK"),
+                           (K2.BTX, "small_bt_piecewise", "BTX")):
+        cases.append((path, lambda c, mode=mode, nm=nm: k2(
+            f"dd_binary {nm} (K2)", c.args("dd_binary", (mode, True)))))
+    cases.append(("small_dd_fbx", lambda c: k2(
+        "dd_binary DD orbit inputs (K2)", c.args("dd_binary",
+                                                 (K2.DD, True, True)))))
+    for form, path, nm in ((K6.FBX, "bw", "FBX"),
+                           (K6.WAVES_FBX, "bw_waves", "waves on FBX"),
+                           (K6.WAVES_PB, "small_dd_fbx", "waves on PB")):
+        cases.append((path, lambda c, form=form, nm=nm: k6(
+            f"binary_orbits {nm} (K6)", c.args("binary_orbits",
+                                                (form, True)))))
+    cases.append(("pta", lambda c: k7("solar_wind_pl (K7)",
+                                      c.args("solar_wind_pl", True))))
+    for path, case in cases:
+        if path in caps or not partial:
+            case(caps[path])
+    print("phase kernel backward: each Function's backward against autograd "
+          "through its twin, max of each input's |d| / its largest (<= "
+          "1e-10; the backward node's ms on the amortized path): "
+          + "; ".join(lines) + f" {tag}", flush=True)
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -4437,6 +5066,9 @@ def main() -> int:
                f"chol_rank_kernelILb{int(sm)}ELb{int(ing)}EE")
               for sm in (True, False) for ing in (False, True)]
     ptxas += [("hd_cross_lnlike", k, k) for k in K10.KERNELS.values()]
+    ptxas += [("hd_cross_lnlike", k, k) for k in (
+        "hd_cross_inv_panel", "hd_cross_inv_trail", "hd_cross_colsum",
+        "hd_cross_bins")]
     ptxas += [("compensated_matmul", K11.KERNELS[(acc, ct)],
                f"compensated_matmul_kernelILi{i}ELi{j}E")
               for i, acc in enumerate(K11.ACCUMULATIONS)
@@ -4668,6 +5300,31 @@ def main() -> int:
     if missing:
         raise RuntimeError(f"kernels never launched on the precision path: "
                            f"{missing}")
+
+    # ---- the amortized phase: flows trained on reverse mode ---------------
+    # each stand-in's counts zeroed just before it; under autograd the
+    # posterior's forward launches the dual kernels, K10's backward K12
+    amort_kernels = {
+        "ell1": (K1.KERNELS[True], K4.KERNELS[(K4.ELL1, True)]),
+        "ddgr": (K1.KERNELS[True], K2.KERNELS[(K2.DDGR, True)]),
+        "pta67_catalog": (*K10.KERNELS.values(),
+                          *K10.GRAD_KERNELS.values())}
+    t_amort = time.perf_counter()
+    for label, path, kind, timed in (
+            ("ell1", ELL1_PATH, "bayes", 300),
+            ("ddgr", DDGR_PATH, "bayes", 300),
+            ("pta67_catalog", CATALOG_PATH, "catalog", 100)):
+        counts_a, cap_a, obj = _amortized_phase(label, path, kind, kernels,
+                                                tag, timed)
+        missing = [k for k in amort_kernels[label] if counts_a[k] == 0]
+        if missing:
+            raise RuntimeError(f"kernels never launched on the {label} "
+                               f"amortized path: {missing}")
+        paths[f"amortized_{label}"] = (counts_a, cap_a)
+        if kind == "catalog":
+            amort_jl = obj
+    print(f"phase amortized wall: {time.perf_counter() - t_amort:.2f} s "
+          f"{tag}", flush=True)
 
     # ---- kernels against their plain twins ----------------------------------
     # Every CUDA kernel -- the primal and dual instantiations of K1, of K2
@@ -5761,6 +6418,9 @@ def main() -> int:
     records += _k9_kernels(stream_cap, stream_counts, dev, tag)
     records += _k10_kernels(cat_jl, cat_counts, cat_bench, cat_pts, dev, tag)
     records += _k11_kernels(k11_calls, prec_counts, dev, tag)
+    counts_c, cap_c = paths["amortized_pta67_catalog"]
+    records += _k12_kernels(amort_jl, cap_c, counts_c, dev, tag)
+    _backward_kernels({k: v[1] for k, v in paths.items()}, dev, tag)
 
     print(f"phase wall: {time.perf_counter() - t_start:.2f} s for the whole "
           f"run {tag}", flush=True)

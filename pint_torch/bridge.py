@@ -43,7 +43,7 @@ __all__ = ["load_snapshot", "read_snapshot", "SNAPSHOT_FORMAT",
            "WB_PATH", "WB_SMALL_PATH", "WB_WHITE_SMALL_PATH", "NOISE_PATH",
            "KEPLER_PATH", "PHOTON_PATH", "PHOTON_SMALL_PATH", "STREAM_PATH",
            "STREAM_SMALL_PATH", "stream_schedule", "CATALOG_PATH",
-           "CATALOG_SMALL_PATH", "load_catalog_snapshot"]
+           "CATALOG_SMALL_PATH", "load_catalog_snapshot", "flow_params"]
 
 SNAPSHOT_FORMAT = "pint_torch-snapshot-1"
 #: the committed full-width B1855+09-shaped stand-in
@@ -257,3 +257,19 @@ def load_catalog_snapshot(path_or_dict: Union[str, Path, dict] = CATALOG_PATH,
         out.append(load_snapshot({k[len(pre):]: v for k, v in arrays.items()
                                   if k.startswith(pre)}, device=dev))
     return out
+
+
+def flow_params(tree, device=None) -> dict:
+    """The reference's flow parameter tree (``{"layers": [{"W1", "b1",
+    "Ws", "bs", "Wt", "bt"}, ...], "loc", "log_scale"}`` of numpy or
+    array-likes) as the port's: the same dict of float64 tensors on
+    ``device`` (default ``"cuda"``), each leaf bitwise."""
+    dev = resolve_device(device)
+
+    def t(x):
+        return torch.tensor(np.asarray(x, dtype=np.float64), dtype=F64,
+                               device=dev)
+
+    return {"layers": [{k: t(v) for k, v in layer.items()}
+                       for layer in tree["layers"]],
+            "loc": t(tree["loc"]), "log_scale": t(tree["log_scale"])}

@@ -221,6 +221,21 @@ class JointLikelihood:
                                pts[:, 1].contiguous(), self._freqs_t,
                                self.Tspan)
 
+    def lnlike_fn(self):
+        """The joint log-likelihood as a tensor function: ``(N, 2)``
+        ``(log10_A, gamma)`` float64 points on the device -> ``(N,)``,
+        keeping the autograd graph (the reference's ``_fn()`` with its
+        ``_data_args()`` closed over); the gradient through the cross term
+        is K12 (:func:`pint_torch.kernels.hd_cross_lnlike.hd_cross_grad`)."""
+        def fn(points: torch.Tensor) -> torch.Tensor:
+            if points.ndim != 2 or points.shape[1] != 2:
+                raise UsageError(
+                    f"joint-likelihood points are (N, 2) (log10_A, gamma); "
+                    f"got {tuple(points.shape)}")
+            return self._lnl_sum + self.cross_batch(points)
+
+        return fn
+
     def lnlike(self, log10_A: float, gamma: float) -> float:
         """The joint log-likelihood at one ``(log10_A, gamma)`` point."""
         return float(self.lnlike_batch(

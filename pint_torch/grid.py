@@ -45,6 +45,8 @@ plans are ROADMAP queue A item 9.
 
 from __future__ import annotations
 
+import gc
+
 import weakref
 from typing import Optional, Sequence, Tuple
 
@@ -696,10 +698,21 @@ class _FusedGraph:
         torch.cuda.current_stream(first.device).wait_stream(side)
         before = launch_counts()
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            outs = [chunk_fn(self.static_in[f], 1.0) for f in range(fuse)]
-            self.static_out = tuple(torch.stack([o[i] for o in outs])
-                                    for i in range(4))
+        # no cyclic garbage collection inside the capture: one that frees
+        # an earlier graph destroys it there, which the capture refuses
+        # (cudaErrorStreamCaptureInvalidated); torch.cuda.graph collects
+        # before it begins
+        gc_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph):
+                outs = [chunk_fn(self.static_in[f], 1.0)
+                        for f in range(fuse)]
+                self.static_out = tuple(torch.stack([o[i] for o in outs])
+                                        for i in range(4))
+        finally:
+            if gc_on:
+                gc.enable()
         after = launch_counts()
         self.launches = {n: after[n] - before[n] for n in after
                          if after[n] != before[n]}

@@ -3,9 +3,9 @@
 Each kernel module holds the wrapper (K1 ``spin_phase``, K2 ``dd_binary``,
 K3 ``schur_cholesky_solve``, K4 ``ell1_binary``, K5 ``wls_lstsq``, K6
 ``binary_orbits``, K7 ``solar_wind_pl``, K8 ``photon_lnlike``, K9
-``chol_rank_update``, K10 ``hd_cross_lnlike``, K11
-``compensated_matmul``), its
-plain PyTorch version (``*_reference``, same signature and semantics) and
+``chol_rank_update``, K10 ``hd_cross_lnlike`` with its backward K12
+``hd_cross_grad``, K11 ``compensated_matmul``), its plain PyTorch version
+(``*_reference``, same signature and semantics) and
 ``launch_counts``, one count per CUDA kernel instantiation of its source,
 that the wrapper raises by one where it launches that kernel.  Dispatch
 is by device: a CUDA tensor launches the kernel, built from ``csrc/`` with

@@ -10,8 +10,8 @@ PB, then the ORBWAVES C/S pairs and ORBWAVE_OM); ``form`` is ``FBX``,
 ``WAVES_PB`` or ``WAVES_FBX``; ``tw_off`` the seconds from ORBWAVE_EPOCH
 to the binary's epoch (``tw = tt0 + tw_off``).  Returns ``orbits`` and
 ``pbprime``, (B, N) each; the local partials (B, N, 2, 1 + ncoef) with
-respect to tt0 and the coefficients feed the ``jvp`` of the
-:class:`torch.autograd.Function`, through which the orbit-input forms of
+respect to tt0 and the coefficients feed the ``jvp`` and the ``backward``
+of the :class:`torch.autograd.Function`, through which the orbit-input forms of
 K2 and K4 (:mod:`pint_torch.kernels.dd_binary`,
 :mod:`pint_torch.kernels.ell1_binary`) reach the fitted FBn, ORBWAVE
 amplitudes and frequency.
@@ -29,6 +29,7 @@ import torch
 
 from pint_torch import F64
 from pint_torch.kernels import _build
+from pint_torch.kernels.dual import row_cotangent, toa_cotangent
 from pint_torch.models.binary.engines import (FBX, WAVES_FBX, WAVES_PB,
                                               binary_orbits_forward,
                                               binary_orbits_partials)
@@ -122,8 +123,8 @@ def _run(tt0, coef, form, nfb, nwaves, tw_off, partials):
 
 class BinaryOrbitsFn(torch.autograd.Function):
     """K6 under autodiff: forward returns ``(orbits, pbprime, P)``; ``jvp``
-    contracts the tangents of tt0 and the coefficients with ``P``;
-    ``vmap`` folds a vmapped axis into B.  ``form``, ``nfb``, ``nwaves``
+    contracts the tangents of tt0 and the coefficients with ``P``,
+    ``backward`` the two outputs' cotangents with it; ``vmap`` folds a vmapped axis into B.  ``form``, ``nfb``, ``nwaves``
     and ``tw_off`` are plain Python values."""
 
     @staticmethod
@@ -134,6 +135,8 @@ class BinaryOrbitsFn(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         ctx.mark_non_differentiable(output[2])
         ctx.save_for_forward(output[2])
+        ctx.save_for_backward(output[2])
+        ctx.shapes = (inputs[0].shape, inputs[1].shape)
 
     @staticmethod
     def jvp(ctx, d_tt0, d_coef, *_):
@@ -144,6 +147,16 @@ class BinaryOrbitsFn(torch.autograd.Function):
         if d_coef is not None:
             out = out + (P[..., 1:] @ d_coef[:, None, :, None]).squeeze(-1)
         return out[..., 0], out[..., 1], None
+
+    @staticmethod
+    def backward(ctx, g_orb, g_pbp, _gP):
+        (P,) = ctx.saved_tensors
+        G = g_orb.unsqueeze(-1) * P[..., 0, :] \
+            + g_pbp.unsqueeze(-1) * P[..., 1, :]
+        ones = torch.ones_like(g_orb)
+        return (toa_cotangent(ones, G[..., 0], ctx.shapes[0]),
+                row_cotangent(ones, G[..., 1:], ctx.shapes[1]),
+                None, None, None, None)
 
     @staticmethod
     def vmap(info, in_dims, tt0, coef, form, nfb, nwaves, tw_off):

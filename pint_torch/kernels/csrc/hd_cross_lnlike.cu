@@ -142,7 +142,7 @@ hd_cross_form(const double* __restrict__ G, const double* __restrict__ u,
 // product.  One barrier a column.
 __global__ void __launch_bounds__(PT)
 hd_cross_panel(double* __restrict__ W, double* __restrict__ piv_out, int R,
-               int k0, int nbw) {
+               int k0, int nbw, double* __restrict__ diag_out) {
   __shared__ double cj[2][NB];  // column jj of the diagonal block, divided
   __shared__ double pd[2];      // the next pivot's entry
   const int t = threadIdx.x, b = blockIdx.y;
@@ -165,6 +165,8 @@ hd_cross_panel(double* __restrict__ W, double* __restrict__ piv_out, int R,
     if (below) x[0] = x[0] / piv;
     if (diag && below) {
       cj[jj & 1][t] = x[0];
+      if (diag_out != nullptr && blockIdx.x == 0)
+        diag_out[((long)b * R + row) * NB + jj] = x[0];
       if (rel == 1) {
         x[1] = x[1] - x[0] * x[0];
         pd[(jj + 1) & 1] = x[1];
@@ -264,6 +266,199 @@ hd_cross_sum(const double* __restrict__ W, const double* __restrict__ piv,
   if (t == 0) out[b] = 0.5 * acc_zz - acc_log;
 }
 
+
+// ---- K12 hd_cross_grad: the backward of the cross term -------------------
+// d out / d theta = sum_k e_k (w_k^2 + (M^-1)_kk - 1), w = M^-1 v = L^-T z,
+// e_k = d log d_k / d theta: ln 10 for log10_A, 0.5 (ln fyr - ln f_j(k))
+// for gamma.  After the factor (the forward's kernels, the diagonal
+// blocks' L entries kept in DL (B, R, NB)), X = L^-1 is formed in the
+// workspace's upper triangle, X[i][k] (i > k) at W[i (R + 1) + k] and
+// X[k][k] in the diagonal slot, which the factor leaves free (L_kk is the
+// pivot).  Right-looking forward substitution by panels of NB rows, every
+// entry X[i][k] = (delta_ik - sum_{j<i} L_ij X_jk) / L_ii, its products
+// rounded alone and subtracted in ascending j:
+//   hd_cross_inv_panel  grid (columns k < k1 in blocks of IC) x walkers,
+//                       one thread a column: the panel's rows, the
+//                       diagonal block of L staged in shared memory;
+//   hd_cross_inv_trail  grid (64 x 64 tiles of rows k1..R-1 x columns
+//                       0..k1-1) x walkers: each entry minus L_ij X_jk
+//                       for j in the panel, the trailing kernel's tiling;
+//   hd_cross_colsum     one thread a column: s_k = sum_i X_ik^2, wz_k =
+//                       sum_i X_ik z_i (= w_k) in ascending i, then c_k =
+//                       (wz_k wz_k + s_k) - 1;
+//   hd_cross_bins       one CTA a walker: c summed into the m frequency
+//                       bins in ascending k, then the two sums over the
+//                       bins in ascending j (log10_A's times ln 10 last).
+// X's columns are independent: the inverse spreads over k1 / IC CTAs a
+// walker in the panel and over tiles in the trail, the forward
+// substitution's chain is R / NB panels.  What bounds it: the R^3 / 6
+// multiply-subtracts of the inverse and the factor's R^3 / 6 again, each a
+// float64 multiply and a subtract on the CUDA cores.
+constexpr int IC = 128;        // inverse panel CTA threads, one a column
+
+__global__ void __launch_bounds__(IC)
+hd_cross_inv_panel(double* __restrict__ W, const double* __restrict__ piv,
+                   const double* __restrict__ DL, int R, int k0, int nbw) {
+  __shared__ double Ld[NB][NB + 1];  // Ld[l][jj] = L[k0 + l][k0 + jj]
+  __shared__ double pv[NB];
+  const int t = threadIdx.x, b = blockIdx.y, k1 = k0 + nbw;
+  const long LD = (long)R + 1;
+  double* w = W + (long)b * R * LD;
+  for (int e = t; e < NB * NB; e += IC) {
+    const int l = e / NB, jj = e % NB;
+    Ld[l][jj] = (l < nbw && jj < l)
+        ? DL[((long)b * R + k0 + l) * NB + jj] : 0.0;
+  }
+  for (int l = t; l < NB; l += IC)
+    pv[l] = l < nbw ? piv[(long)b * R + k0 + l] : 1.0;
+  __syncthreads();
+  const int k = blockIdx.x * IC + t;
+  if (k >= k1) return;
+  // x[l] holds row k0 + jj + l of column k, shifted along after each row
+  double x[NB];
+#pragma unroll
+  for (int l = 0; l < NB; ++l) {
+    const int row = k0 + l;
+    x[l] = l >= nbw ? 0.0
+        : row == k ? 1.0 : (k < k0 ? w[(long)row * LD + k] : 0.0);
+  }
+  for (int jj = 0; jj < nbw; ++jj) {
+    const int j = k0 + jj;
+    x[0] = x[0] / pv[jj];
+    if (j >= k) w[(long)j * LD + k] = x[0];
+#pragma unroll
+    for (int l = 1; l < NB; ++l)
+      if (jj + l < nbw) x[l] = x[l] - Ld[jj + l][jj] * x[0];
+#pragma unroll
+    for (int l = 0; l < NB - 1; ++l) x[l] = x[l + 1];
+  }
+}
+
+// Rows k1..R-1, columns 0..k1-1 of X, each entry minus L_ij X_jk for j in
+// the panel [k0, k1) in turn; thread (tx, ty) holds rows i0 + tx + TX a and
+// columns c0 + ty + TY c.  A column k >= k0 starts from delta_ik = 0.
+__global__ void __launch_bounds__(TT)
+hd_cross_inv_trail(double* __restrict__ W, int R, int k0, int k1) {
+  __shared__ double Li[KC][TILE], Xj[KC][TILE];
+  const int ntc = (k1 + TILE - 1) / TILE;
+  const int ti = blockIdx.x / ntc, tc = blockIdx.x % ntc;
+  const int b = blockIdx.y, t = threadIdx.x, tx = t % TX, ty = t / TX;
+  const long LD = (long)R + 1;
+  double* w = W + (long)b * R * LD;
+  const int i0 = k1 + ti * TILE, c0 = tc * TILE;
+  double acc[TM][TN];
+#pragma unroll
+  for (int a = 0; a < TM; ++a)
+#pragma unroll
+    for (int c = 0; c < TN; ++c) {
+      const int i = i0 + tx + TX * a, k = c0 + ty + TY * c;
+      acc[a][c] = (i < R && k < k0) ? w[(long)i * LD + k] : 0.0;
+    }
+  for (int jc = k0; jc < k1; jc += KC) {
+    const int jn = min(KC, k1 - jc);
+    __syncthreads();
+    for (int e = t; e < KC * TILE; e += TT) {
+      const int jj = e / TILE, r = e % TILE, j = jc + jj;
+      const bool on = jj < jn;
+      Li[jj][r] = (on && i0 + r < R) ? w[(long)j * LD + i0 + r] : 0.0;
+      Xj[jj][r] = (on && c0 + r <= j) ? w[(long)j * LD + c0 + r] : 0.0;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int jj = 0; jj < jn; ++jj) {
+      double li[TM], xk[TN];
+#pragma unroll
+      for (int a = 0; a < TM; ++a) li[a] = Li[jj][tx + TX * a];
+#pragma unroll
+      for (int c = 0; c < TN; ++c) xk[c] = Xj[jj][ty + TY * c];
+#pragma unroll
+      for (int a = 0; a < TM; ++a)
+#pragma unroll
+        for (int c = 0; c < TN; ++c) acc[a][c] = acc[a][c] - li[a] * xk[c];
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < TM; ++a)
+#pragma unroll
+    for (int c = 0; c < TN; ++c) {
+      const int i = i0 + tx + TX * a, k = c0 + ty + TY * c;
+      if (i < R && k < k1) w[(long)i * LD + k] = acc[a][c];
+    }
+}
+
+__global__ void __launch_bounds__(ST)
+hd_cross_colsum(const double* __restrict__ W, int R, double* __restrict__ cb) {
+  const int b = blockIdx.y, k = blockIdx.x * ST + threadIdx.x;
+  if (k >= R) return;
+  const long LD = (long)R + 1;
+  const double* w = W + (long)b * R * LD;
+  double s = 0.0, wz = 0.0;
+  for (int i = k; i < R; ++i) {
+    const double x = w[(long)i * LD + k];
+    s = s + x * x;
+    wz = wz + x * w[(long)i * LD + R];
+  }
+  cb[(long)b * R + k] = (wz * wz + s) - 1.0;
+}
+
+constexpr int BT = 128;        // bins CTA threads, one a bin (m <= BT)
+
+__global__ void __launch_bounds__(BT)
+hd_cross_bins(const double* __restrict__ cb, const double* __restrict__ eg,
+              int R, int m, double ln10, double* __restrict__ out) {
+  __shared__ double S[BT];
+  const int b = blockIdx.x, j = threadIdx.x, two_m = 2 * m;
+  const double* c = cb + (long)b * R;
+  if (j < m) {
+    double acc = 0.0;
+    for (int a = 0; a < R / two_m; ++a) {
+      acc = acc + c[a * two_m + 2 * j];
+      acc = acc + c[a * two_m + 2 * j + 1];
+    }
+    S[j] = acc;
+  }
+  __syncthreads();
+  if (j == 0) {
+    double ga = 0.0, gg = 0.0;
+    for (int q = 0; q < m; ++q) {
+      ga = ga + S[q];
+      gg = gg + eg[q] * S[q];
+    }
+    out[2 * b] = ga * ln10;
+    out[2 * b + 1] = gg;
+  }
+}
+
+// The factor of one chunk: M and v formed, then per panel its factor and
+// the trailing update (diag_out: the diagonal blocks' L entries, or null).
+cudaError_t factor(const double* G, const double* u, const double* log10_A,
+                   const double* gamma, const double* freqs, int B, int R,
+                   int m, double scale, double ln10, double lnfyr,
+                   double* workspace, double* pivots, double* diag_out,
+                   int* counts, cudaStream_t st) {
+  cudaError_t e;
+  const int nf = (R + 1 + FT - 1) / FT, nfc = (R + FT - 1) / FT;
+  hd_cross_form<<<dim3(nf * nfc, B), dim3(FT, 8), 0, st>>>(
+      G, u, log10_A, gamma, freqs, R, m, scale, ln10, lnfyr, workspace);
+  ++counts[0];
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  for (int k0 = 0; k0 < R; k0 += NB) {
+    const int nbw = R - k0 < NB ? R - k0 : NB, k1 = k0 + nbw;
+    const int nrb = (R + 1 - k1 + RB - 1) / RB;
+    hd_cross_panel<<<dim3(nrb, B), PT, 0, st>>>(workspace, pivots, R, k0,
+                                                nbw, diag_out);
+    ++counts[1];
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    if (k1 == R) break;
+    const int ntr = (R + 1 - k1 + TILE - 1) / TILE;
+    const int ntc = (R - k1 + TILE - 1) / TILE;
+    hd_cross_trail<<<dim3(ntr * ntc, B), TT, 0, st>>>(workspace, R, k0, k1);
+    ++counts[2];
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // One chunk of B walkers: G (R, R) row-major, u (R,), log10_A and gamma
@@ -282,28 +477,52 @@ extern "C" int hd_cross_lnlike_launch(const double* G, const double* u,
   cudaStream_t st = (cudaStream_t)stream;
   if (B <= 0 || B > 65535 || R <= 0 || m <= 0 || R % (2 * m) != 0)
     return (int)cudaErrorInvalidValue;
-  cudaError_t e;
-  const int nf = (R + 1 + FT - 1) / FT, nfc = (R + FT - 1) / FT;
-  hd_cross_form<<<dim3(nf * nfc, B), dim3(FT, 8), 0, st>>>(
-      G, u, log10_A, gamma, freqs, R, m, scale, ln10, lnfyr, workspace);
-  ++counts[0];
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  for (int k0 = 0; k0 < R; k0 += NB) {
-    const int nbw = R - k0 < NB ? R - k0 : NB, k1 = k0 + nbw;
-    const int nrb = (R + 1 - k1 + RB - 1) / RB;
-    hd_cross_panel<<<dim3(nrb, B), PT, 0, st>>>(workspace, pivots, R, k0,
-                                                nbw);
-    ++counts[1];
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    if (k1 == R) break;
-    const int ntr = (R + 1 - k1 + TILE - 1) / TILE;
-    const int ntc = (R - k1 + TILE - 1) / TILE;
-    hd_cross_trail<<<dim3(ntr * ntc, B), TT, 0, st>>>(workspace, R, k0, k1);
-    ++counts[2];
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  }
+  cudaError_t e = factor(G, u, log10_A, gamma, freqs, B, R, m, scale, ln10,
+                         lnfyr, workspace, pivots, nullptr, counts, st);
+  if (e != cudaSuccess) return (int)e;
   hd_cross_sum<<<B, ST, 0, st>>>(workspace, pivots, R, out);
   ++counts[3];
+  return (int)cudaGetLastError();
+}
+
+// K12 on one chunk of B walkers: the inputs and workspace as above, diag
+// (B, R, NB) and cb (B, R) scratch, eg (m,) gamma's e per bin, 0.5 (lnfyr
+// - log f_j); out (B, 2) d out_b / d (log10_A_b, gamma_b).  counts[0..6]
+// += the launches of hd_cross_form, _panel, _trail, _inv_panel,
+// _inv_trail, _colsum and _bins.
+extern "C" int hd_cross_grad_launch(const double* G, const double* u,
+                                    const double* log10_A,
+                                    const double* gamma, const double* freqs,
+                                    const double* eg, int B, int R, int m,
+                                    double scale, double ln10, double lnfyr,
+                                    double* workspace, double* pivots,
+                                    double* diag, double* cb, double* out,
+                                    int* counts, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (B <= 0 || B > 65535 || R <= 0 || m <= 0 || m > BT || R % (2 * m) != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = factor(G, u, log10_A, gamma, freqs, B, R, m, scale, ln10,
+                         lnfyr, workspace, pivots, diag, counts, st);
+  if (e != cudaSuccess) return (int)e;
+  for (int k0 = 0; k0 < R; k0 += NB) {
+    const int nbw = R - k0 < NB ? R - k0 : NB, k1 = k0 + nbw;
+    hd_cross_inv_panel<<<dim3((k1 + IC - 1) / IC, B), IC, 0, st>>>(
+        workspace, pivots, diag, R, k0, nbw);
+    ++counts[3];
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    if (k1 == R) break;
+    const int ntr = (R - k1 + TILE - 1) / TILE, ntc = (k1 + TILE - 1) / TILE;
+    hd_cross_inv_trail<<<dim3(ntr * ntc, B), TT, 0, st>>>(workspace, R, k0,
+                                                         k1);
+    ++counts[4];
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  hd_cross_colsum<<<dim3((R + ST - 1) / ST, B), ST, 0, st>>>(workspace, R,
+                                                            cb);
+  ++counts[5];
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  hd_cross_bins<<<B, BT, 0, st>>>(cb, eg, R, m, ln10, out);
+  ++counts[6];
   return (int)cudaGetLastError();
 }
 

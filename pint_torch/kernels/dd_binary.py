@@ -24,8 +24,8 @@ seconds; the local partials (B, N, :func:`npartial`) with respect to
 tt0, the orbit inputs, the row entries the mode reads and the per-TOA
 inputs (:func:`~pint_torch.models.binary.engines.partial_columns`: 17 in
 DD and DDGR, 11 in BT and BTX, 19 in DDK; one fewer with orbit inputs),
-from the kernel's reverse sweep, feed the ``jvp`` of the
-:class:`torch.autograd.Function`.
+from the kernel's reverse sweep, feed the ``jvp`` and the ``backward`` of
+the :class:`torch.autograd.Function`.
 
 On a CUDA tensor this launches ``csrc/dd_binary.cu`` (or raises); on a
 CPU tensor it runs :func:`dd_binary_reference`, the plain PyTorch twin.
@@ -39,6 +39,7 @@ import torch
 
 from pint_torch import F64
 from pint_torch.kernels import _build
+from pint_torch.kernels.dual import row_cotangent, sum_to, toa_cotangent
 from pint_torch.models.binary.engines import (BT, BTX, DD, DD_PARAMS,
                                               DDGR, DDGR_PARAMS, DDK,
                                               DDK_TOA_INPUTS, bt_forward,
@@ -233,8 +234,9 @@ class DDBinaryFn(torch.autograd.Function):
     tangents with ``P`` (the orbit inputs' through their two columns, the
     row's through the columns of the entries the mode reads, the per-TOA
     inputs' through the last ones; an entry the mode does not read has no
-    column and contributes nothing); ``vmap`` folds a vmapped axis into
-    B.  ``mode`` is a plain Python value; ``x0``, ``x1`` and ``x2`` are
+    column and contributes nothing); ``backward`` maps the delay's
+    cotangent back through the same columns; ``vmap`` folds a vmapped axis
+    into B.  ``mode`` is a plain Python value; ``x0``, ``x1`` and ``x2`` are
     the per-TOA inputs (DDK's d_a1, d_om and sini; BTX's a1; None where
     the mode has none), ``orbits`` and ``pbprime`` the orbit inputs (None
     on PB orbits), (B, N) each."""
@@ -250,8 +252,12 @@ class DDBinaryFn(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         ctx.mark_non_differentiable(output[1])
         ctx.save_for_forward(output[1])
+        ctx.save_for_backward(output[1])
         ctx.mode = inputs[2] if len(inputs) > 2 else DD
         ctx.orbit = len(inputs) > 6 and inputs[6] is not None
+        ctx.n_in = len(inputs)
+        ctx.shapes = tuple(None if t is None else t.shape
+                           for t in inputs[:2] + inputs[3:])
 
     @staticmethod
     def jvp(ctx, d_tt0, d_params, _mode=None, d_x0=None, d_x1=None,
@@ -278,6 +284,26 @@ class DDBinaryFn(torch.autograd.Function):
             if d is not None:
                 out = out + d * P[..., lead + nr + i]
         return out, None
+
+    @staticmethod
+    def backward(ctx, grad, _gP):
+        (P,) = ctx.saved_tensors
+        sh_t, sh_p, *sh_x = ctx.shapes + (None,) * (7 - len(ctx.shapes))
+        g_t = toa_cotangent(grad, P[..., 0], sh_t)
+        lead = 3 if ctx.orbit else 1
+        g_orb = [toa_cotangent(grad, P[..., 1 + i], sh_x[3 + i])
+                 if ctx.orbit else None for i in range(2)]
+        rows = ROW_COLUMNS[(ctx.mode, True) if ctx.orbit else ctx.mode]
+        nr = len(rows)
+        g_rows = row_cotangent(grad, P[..., lead:lead + nr],
+                               P.shape[:1] + (nr,))
+        at = {r: j for j, r in enumerate(rows)}
+        zero = torch.zeros_like(g_rows[..., 0])
+        g_p = sum_to(torch.stack([g_rows[..., at[c]] if c in at else zero
+                                  for c in range(sh_p[-1])], dim=-1), sh_p)
+        g_x = [toa_cotangent(grad, P[..., lead + nr + i], sh_x[i])
+               if sh_x[i] is not None else None for i in range(3)]
+        return (g_t, g_p, None, *g_x, *g_orb)[:ctx.n_in]
 
     @staticmethod
     def vmap(info, in_dims, tt0, params, mode=DD, x0=None, x1=None,

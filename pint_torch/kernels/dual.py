@@ -6,13 +6,20 @@ the one ``dual.cuh`` applies, with the same operands in the same order, so
 a kernel and its plain PyTorch twin agree to rounding.  K1
 (``spin_phase``) uses them; K2 computes its partials by a reverse sweep
 instead (``models/binary/engines.py``).
+
+The kernels' ``backward`` shares :func:`row_cotangent` and
+:func:`toa_cotangent`: with the local partials P (B, N, K) saved at the
+forward, an input's cotangent is the output cotangent contracted with
+its columns of P, mapped as each ``jvp`` maps tangents to columns, and
+summed over the axes the input was broadcast along.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["Dual", "val", "seed"]
+__all__ = ["Dual", "val", "seed", "sum_to", "row_cotangent",
+           "toa_cotangent"]
 
 
 def _e(x):
@@ -76,3 +83,32 @@ def seed(v, index: int, k: int) -> Dual:
     d = torch.zeros(v.shape + (k,), dtype=v.dtype, device=v.device)
     d[..., index] = 1.0
     return Dual(v, d)
+
+
+# ---------------------------------------------------------------------------
+# reverse mode through the partials
+# ---------------------------------------------------------------------------
+def sum_to(g, shape):
+    """``g`` summed over its leading axes and the unit axes of ``shape``
+    (the input's own shape, before the kernel broadcast it); None stays
+    None."""
+    if g is None or shape is None:
+        return None
+    while g.ndim > len(shape):
+        g = g.sum(0)
+    dims = [i for i, (a, b) in enumerate(zip(g.shape, shape))
+            if b == 1 and a != 1]
+    return g.sum(dims, keepdim=True) if dims else g
+
+
+def row_cotangent(grad, cols, shape):
+    """Cotangent of a per-row input (B, K) whose K entries have the
+    partials ``cols`` (B, N, K): the sum over the TOAs of ``grad`` (B, N)
+    times each column, summed to ``shape``."""
+    return sum_to((grad.unsqueeze(-2) @ cols).squeeze(-2), shape)
+
+
+def toa_cotangent(grad, col, shape):
+    """Cotangent of a per-TOA input (B, N) whose partial is ``col`` (B,
+    N), summed to ``shape``."""
+    return sum_to(grad * col, shape)

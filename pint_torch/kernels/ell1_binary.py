@@ -20,7 +20,7 @@ place of PB/PBDOT/XPBDOT's (``engines.py:111``).  Returns the delay
 respect to ttasc and the row -- with orbit inputs, orbits and pbprime in
 place of PB and PBDOT and none for XPBDOT
 (:func:`~pint_torch.models.binary.engines.ell1_columns`) -- from the
-kernel's reverse sweep, feed the ``jvp`` of the
+kernel's reverse sweep, feed the ``jvp`` and the ``backward`` of the
 :class:`torch.autograd.Function`.
 
 On a CUDA tensor this launches ``csrc/ell1_binary.cu`` (or raises); on a
@@ -35,6 +35,7 @@ import torch
 
 from pint_torch import F64
 from pint_torch.kernels import _build
+from pint_torch.kernels.dual import row_cotangent, sum_to, toa_cotangent
 from pint_torch.models.binary.engines import (ELL1, ELL1_PARAMS,
                                               ELL1H_EXACT, ELL1H_HARMONIC,
                                               ELL1H_PARAMS, ELL1K,
@@ -150,8 +151,9 @@ def _run(ttasc, params, mode, partials, nharms, use_h4, orb=None):
 
 class ELL1BinaryFn(torch.autograd.Function):
     """K4 under autodiff: forward returns ``(delay, P)``; ``jvp`` contracts
-    tangents with ``P`` (the orbit inputs' through their two columns);
-    ``vmap`` folds a vmapped axis into B.  ``mode``, ``nharms`` and
+    tangents with ``P`` (the orbit inputs' through their two columns),
+    ``backward`` the delay's cotangent through the same columns; ``vmap``
+    folds a vmapped axis into B.  ``mode``, ``nharms`` and
     ``use_h4`` are plain Python values; ``orbits`` and ``pbprime`` the
     orbit inputs (None on PB orbits)."""
 
@@ -165,7 +167,11 @@ class ELL1BinaryFn(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         ctx.mark_non_differentiable(output[1])
         ctx.save_for_forward(output[1])
+        ctx.save_for_backward(output[1])
         ctx.orbit = len(inputs) > 5 and inputs[5] is not None
+        ctx.n_in = len(inputs)
+        ctx.shapes = tuple(None if t is None else t.shape
+                           for t in inputs[:2] + inputs[5:])
 
     @staticmethod
     def jvp(ctx, d_ttasc, d_params, _mode=None, _nharms=None, _use_h4=None,
@@ -184,6 +190,24 @@ class ELL1BinaryFn(torch.autograd.Function):
         elif d_params is not None:
             out = out + (P[..., 1:] @ d_params.unsqueeze(-1)).squeeze(-1)
         return out, None
+
+    @staticmethod
+    def backward(ctx, grad, _gP):
+        (P,) = ctx.saved_tensors
+        sh_t, sh_p, *sh_o = ctx.shapes + (None,) * (4 - len(ctx.shapes))
+        g_t = toa_cotangent(grad, P[..., 0], sh_t)
+        if ctx.orbit:
+            g_orb = [toa_cotangent(grad, P[..., 1 + i], sh_o[i])
+                     for i in range(2)]
+            # PB, PBDOT and XPBDOT have no column with orbit inputs
+            g3 = row_cotangent(grad, P[..., 3:], P.shape[:1] + (
+                P.shape[-1] - 3,))
+            g_p = sum_to(torch.cat([torch.zeros_like(g3[..., :3]), g3],
+                                   dim=-1), sh_p)
+        else:
+            g_orb = [None, None]
+            g_p = row_cotangent(grad, P[..., 1:], sh_p)
+        return (g_t, g_p, None, None, None, *g_orb)[:ctx.n_in]
 
     @staticmethod
     def vmap(info, in_dims, ttasc, params, mode, nharms=7, use_h4=False,

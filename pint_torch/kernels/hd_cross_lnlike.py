@@ -28,12 +28,37 @@ blocked right-looking Cholesky over many CTAs a walker -- M formed into a
 factor and a tiled update of the trailing lower triangle, the solve as the
 factor's augmented row, and fixed-order sums -- with the walkers taken in
 chunks so that the workspace never exceeds :data:`WORKSPACE_CAP_BYTES`.
-The card has no backward kernel yet: a gradient through a CUDA call
-raises ``NotImplementedError``.  On a CPU tensor it runs
-:func:`hd_cross_lnlike_reference`, a right-looking loop in which every
-entry sees the kernel's rounding sequence (each product rounded alone, the
-differences in ascending column order), so its result is the kernel's
-bitwise, for any chunking; it is differentiable.
+On a CPU tensor it runs :func:`hd_cross_lnlike_reference`, a right-looking
+loop in which every entry sees the kernel's rounding sequence (each
+product rounded alone, the differences in ascending column order), so its
+result is the kernel's bitwise, for any chunking.
+
+K12 ``hd_cross_grad``, the backward of this function, is the gradient
+with respect to each walker's ``(log10_A, gamma)``.  It replaces what
+``jax.value_and_grad`` (``pint_tpu/amortized/train.py:103``) makes of the
+cross term when the ELBO's flow samples the catalogue's GWB posterior.
+With ``w = M^-1 v = L^-T z`` and ``e_k = d log d_k / d theta``::
+
+    d out / d theta = sum_k e_k (w_k^2 + (M^-1)_kk - 1)
+
+with ``e_k = ln 10`` for log10_A and ``0.5 (ln fyr - ln f_j(k))`` for gamma
+(j(k) the frequency bin of row k).  ``diag(M^-1)`` is the squared column
+norms of ``X = L^-1``.  Per walker: K10's factor again, ``X`` by forward
+substitution, ``c_k = (w_k w_k + s_k) - 1`` with ``s_k = sum_i X_ik^2`` and
+``w_k = sum_i X_ik z_i`` in ascending i, the c_k summed into the m bins in
+ascending k, and the two derivatives as sums over the bins in ascending j
+(log10_A's times ln 10 last).  At small amplitude M ~ I and each c_k
+cancels, so kernel and plain version take every term in the same order;
+at zero amplitude L = X = I, z = 0 and the result is exactly 0.0.  On a
+CUDA tensor :func:`hd_cross_grad` launches the source's
+``hd_cross_grad_launch`` (or raises): the factor by K10's form, panel and
+trailing kernels, recomputed chunk by chunk of walkers (the factors of a
+batch do not fit the cap together), the diagonal blocks of L kept aside,
+then ``X`` in the same workspace's upper triangle by a blocked forward
+substitution over many CTAs a walker, the column sums and the bins.  On a
+CPU tensor it runs :func:`hd_cross_grad_reference`, in the kernel's
+rounding order, so its result is the kernel's bitwise.  ``G``, ``u`` and
+``freqs`` are data: no gradient flows to them.
 """
 
 from __future__ import annotations
@@ -46,17 +71,28 @@ import torch
 from pint_torch import F64
 from pint_torch.kernels import _build
 
-__all__ = ["hd_cross_lnlike", "hd_cross_lnlike_reference", "launch_counts",
-           "REPLACES", "KERNELS", "FYR_HZ", "WORKSPACE_CAP_BYTES",
-           "walkers_per_chunk"]
+__all__ = ["hd_cross_lnlike", "hd_cross_lnlike_reference", "hd_cross_grad",
+           "hd_cross_grad_reference", "launch_counts", "REPLACES",
+           "GRAD_REPLACES", "KERNELS", "GRAD_KERNELS", "NB", "FYR_HZ",
+           "WORKSPACE_CAP_BYTES", "walkers_per_chunk", "check_inputs",
+           "gamma_weights"]
 
 NAME = "hd_cross_lnlike"
 REPLACES = "pint_tpu/catalog/likelihood.py:112"
-#: the kernels of ``csrc/hd_cross_lnlike.cu``, in launch order: M's
-#: formation, a panel's factor, the trailing update, the sums
+GRAD_REPLACES = "pint_tpu/amortized/train.py:103"
+#: K10's kernels, in launch order: M's formation, a panel's factor, the
+#: trailing update, the sums
 KERNELS = {"form": "hd_cross_form", "panel": "hd_cross_panel",
            "trail": "hd_cross_trail", "sum": "hd_cross_sum"}
-launch_counts = dict.fromkeys(KERNELS.values(), 0)
+#: K12's, in launch order: K10's factor (counted under K12's names), the
+#: inverse's panel and trailing update, the column sums, the bins
+GRAD_KERNELS = {"form": "hd_cross_grad_form", "panel": "hd_cross_grad_panel",
+                "trail": "hd_cross_grad_trail",
+                "inv_panel": "hd_cross_inv_panel",
+                "inv_trail": "hd_cross_inv_trail",
+                "colsum": "hd_cross_colsum", "bins": "hd_cross_bins"}
+launch_counts = dict.fromkeys([*KERNELS.values(), *GRAD_KERNELS.values()],
+                              0)
 #: the most device memory one call's workspace (the factor and the pivots
 #: of its chunk of walkers) may take
 WORKSPACE_CAP_BYTES = 2 ** 30
@@ -65,6 +101,9 @@ WORKSPACE_CAP_BYTES = 2 ** 30
 FYR_HZ = 1.0 / (365.25 * 86400.0)
 _LN10 = math.log(10.0)
 _LN_FYR = math.log(FYR_HZ)
+#: the panel width of the source: K12 keeps a walker's diagonal blocks of
+#: L as (R, NB)
+NB = 64
 
 
 def _scale(Tspan: float) -> float:
@@ -81,12 +120,12 @@ def _sqrt_phi(log10_A, gamma, freqs, Tspan):
     return torch.sqrt(phi)
 
 
-def hd_cross_lnlike_reference(G, u, log10_A, gamma, freqs, Tspan: float):
-    """Plain PyTorch version of K10: the augmented matrix ``[[M, .], [v^T,
-    .]]`` factored right-looking, column by column, the trailing block
-    updated by each column's rounded products in turn -- the kernel's
-    left-looking sums in the same order -- and the two sums taken in
-    column order."""
+def factor_columns(G, u, log10_A, gamma, freqs, Tspan: float):
+    """The augmented matrix ``[[M, .], [v^T, .]]`` factored right-looking,
+    column by column, the trailing block updated by each column's rounded
+    products in turn -- the kernel's left-looking sums in the same order;
+    yields each column's pivot ``L_jj`` (B,) and its entries below, ``L_ij``
+    and ``z_j`` last (B, R - j)."""
     B, R, m = log10_A.shape[0], G.shape[0], freqs.shape[0]
     d = _sqrt_phi(log10_A, gamma, freqs, Tspan).repeat_interleave(
         2, dim=1).repeat(1, R // (2 * m))
@@ -94,24 +133,78 @@ def hd_cross_lnlike_reference(G, u, log10_A, gamma, freqs, Tspan: float):
     eye = torch.eye(R, dtype=F64, device=G.device)
     A[:, :R, :R] = (d[:, :, None] * G) * d[:, None, :] + eye
     A[:, R, :R] = d * u
-    acc_log = torch.zeros(B, dtype=F64, device=G.device)
-    acc_zz = torch.zeros(B, dtype=F64, device=G.device)
     for j in range(R):
         piv = torch.sqrt(A[:, j, j])
         # a copy, so that autograd keeps no view of A across the update
         col = A[:, j + 1:, j].clone() / piv[:, None]
         A[:, j + 1:, j + 1:].sub_(col[:, :, None] * col[:, None, :])
+        yield piv, col
+
+
+def hd_cross_lnlike_reference(G, u, log10_A, gamma, freqs, Tspan: float):
+    """Plain PyTorch version of K10: :func:`factor_columns`, then the two
+    sums taken in column order."""
+    acc_log = torch.zeros_like(log10_A)
+    acc_zz = torch.zeros_like(log10_A)
+    for piv, col in factor_columns(G, u, log10_A, gamma, freqs, Tspan):
         acc_log = acc_log + torch.log(piv)
         z = col[:, -1]
         acc_zz = acc_zz + z * z
     return 0.5 * acc_zz - acc_log
 
 
-def walkers_per_chunk(B: int, R: int) -> int:
-    """Walkers a launch takes so that the (chunk, R, R + 1) factor and the
-    (chunk, R) pivots stay within :data:`WORKSPACE_CAP_BYTES`, the ``B``
-    walkers split into chunks as even as may be."""
-    per = 8 * (R * (R + 1) + R)
+def gamma_weights(freqs):
+    """(m,) e of gamma per frequency bin, ``0.5 (ln fyr - ln f_j)``."""
+    return 0.5 * (_LN_FYR - torch.log(freqs))
+
+
+def hd_cross_grad_reference(G, u, log10_A, gamma, freqs, Tspan: float):
+    """Plain PyTorch version of K12: ``(B, 2)`` d out / d (log10_A, gamma),
+    in the kernel's order (module docstring)."""
+    B, R, m = log10_A.shape[0], G.shape[0], freqs.shape[0]
+    with torch.no_grad():
+        L = torch.zeros((B, R, R), dtype=F64, device=G.device)
+        piv = torch.zeros((B, R), dtype=F64, device=G.device)
+        z = torch.zeros((B, R), dtype=F64, device=G.device)
+        for j, (p, col) in enumerate(factor_columns(G, u, log10_A, gamma,
+                                                    freqs, Tspan)):
+            piv[:, j] = p
+            L[:, j + 1:, j] = col[:, :-1]
+            z[:, j] = col[:, -1]
+        # X = L^-1 by rows: row j divided by its pivot once every earlier
+        # row's product has been subtracted; columns past j are still 0
+        X = torch.eye(R, dtype=F64, device=G.device).repeat(B, 1, 1)
+        for j in range(R):
+            X[:, j, :j + 1] = X[:, j, :j + 1] / piv[:, j:j + 1]
+            X[:, j + 1:, :j + 1] -= L[:, j + 1:, j:j + 1] \
+                * X[:, j:j + 1, :j + 1]
+        s = torch.zeros((B, R), dtype=F64, device=G.device)
+        wz = torch.zeros((B, R), dtype=F64, device=G.device)
+        for i in range(R):
+            x = X[:, i, :]
+            s = s + x * x
+            wz = wz + x * z[:, i:i + 1]
+        c = (wz * wz + s) - 1.0
+        cv = c.view(B, R // (2 * m), m, 2)
+        S = torch.zeros((B, m), dtype=F64, device=G.device)
+        for a in range(cv.shape[1]):
+            S = S + cv[:, a, :, 0]
+            S = S + cv[:, a, :, 1]
+        eg = gamma_weights(freqs)
+        ga = torch.zeros(B, dtype=F64, device=G.device)
+        gg = torch.zeros(B, dtype=F64, device=G.device)
+        for j in range(m):
+            ga = ga + S[:, j]
+            gg = gg + eg[j] * S[:, j]
+        return torch.stack([ga * _LN10, gg], dim=1)
+
+
+def walkers_per_chunk(B: int, R: int, vectors: int = 1) -> int:
+    """Walkers a launch takes so that the (chunk, R, R + 1) factor and
+    ``vectors`` (chunk, R) scratch vectors (the forward's pivots) stay
+    within :data:`WORKSPACE_CAP_BYTES`, the ``B`` walkers split into chunks
+    as even as may be."""
+    per = 8 * (R * (R + 1) + vectors * R)
     if per > WORKSPACE_CAP_BYTES:
         raise ValueError(
             f"hd_cross_lnlike: one walker's workspace at R = {R} is {per} "
@@ -122,12 +215,15 @@ def walkers_per_chunk(B: int, R: int) -> int:
 
 def _lib():
     lib = _build.load(NAME)
-    fn = lib.hd_cross_lnlike_launch
-    if fn.argtypes is None:
+    if lib.hd_cross_lnlike_launch.argtypes is None:
         vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, cd, cd, cd, vp, vp,
-                       vp, vp, vp]
-        fn.restype = ci
+        lib.hd_cross_lnlike_launch.argtypes = [
+            vp, vp, vp, vp, vp, ci, ci, ci, cd, cd, cd, vp, vp, vp, vp, vp]
+        lib.hd_cross_grad_launch.argtypes = [
+            vp, vp, vp, vp, vp, vp, ci, ci, ci, cd, cd, cd, vp, vp, vp, vp,
+            vp, vp, vp]
+        lib.hd_cross_lnlike_launch.restype = ci
+        lib.hd_cross_grad_launch.restype = ci
     return lib
 
 
@@ -153,24 +249,56 @@ def _launch(G, u, log10_A, gamma, freqs, Tspan):
     return out
 
 
-class _OnCard(torch.autograd.Function):
-    """The CUDA launch under autograd: no backward kernel yet (queue B 5b),
-    so a gradient through it raises instead of coming back empty."""
+def _launch_grad(G, u, log10_A, gamma, freqs, Tspan):
+    B, R, m = log10_A.shape[0], G.shape[0], freqs.shape[0]
+    dev = G.device
+    n = walkers_per_chunk(B, R, vectors=NB + 2)
+    work = torch.empty((n, R, R + 1), dtype=F64, device=dev)
+    piv = torch.empty((n, R), dtype=F64, device=dev)
+    diag = torch.empty((n, R, NB), dtype=F64, device=dev)
+    cb = torch.empty((n, R), dtype=F64, device=dev)
+    out = torch.empty((B, 2), dtype=F64, device=dev)
+    eg = gamma_weights(freqs).contiguous()
+    p = _build.ptr
+    lib = _lib()
+    for b0 in range(0, B, n):
+        b1 = min(B, b0 + n)
+        counts = (ctypes.c_int * len(GRAD_KERNELS))()
+        rc = lib.hd_cross_grad_launch(
+            p(G), p(u), p(log10_A[b0:b1]), p(gamma[b0:b1]), p(freqs), p(eg),
+            b1 - b0, R, m, _scale(Tspan), _LN10, _LN_FYR, p(work), p(piv),
+            p(diag), p(cb), p(out[b0:b1]), counts, _build.stream_of(G))
+        for name, c in zip(GRAD_KERNELS.values(), counts):
+            launch_counts[name] += c
+        _build.check(NAME, rc)
+    return out
+
+
+class _CrossTerm(torch.autograd.Function):
+    """K10 under autograd: the forward launches K10 (its plain version on
+    CPU tensors), the backward K12 (likewise), which returns d out / d
+    (log10_A, gamma) per walker; the output cotangent scales them."""
 
     @staticmethod
-    def forward(ctx, G, u, log10_A, gamma, freqs, Tspan):
-        return _launch(G, u, log10_A, gamma, freqs, Tspan)
+    def forward(G, u, log10_A, gamma, freqs, Tspan):
+        if G.is_cuda:
+            return _launch(G, u, log10_A, gamma, freqs, Tspan)
+        return hd_cross_lnlike_reference(G, u, log10_A, gamma, freqs, Tspan)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:5])
+        ctx.Tspan = inputs[5]
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "hd_cross_lnlike: no backward kernel on the card yet (queue B "
-            "5b); differentiate its plain version on CPU tensors")
+        D = hd_cross_grad(*ctx.saved_tensors, ctx.Tspan)
+        return None, None, grad * D[:, 0], grad * D[:, 1], None, None
 
 
-def hd_cross_lnlike(G, u, log10_A, gamma, freqs, Tspan: float):
-    """K10: the (B,) cross terms ``0.5 ||L^-1 D u||^2 - log det L`` of ``M
-    = I + D G D`` (module docstring)."""
+def check_inputs(G, u, log10_A, gamma, freqs, Tspan: float, name: str):
+    """Raise ValueError unless the inputs are K10's (module docstring) and
+    its data (``G``, ``u``, ``freqs``) take no gradient."""
     ts = (G, u, log10_A, gamma, freqs)
     R = G.shape[0] if G.ndim == 2 else -1
     m = freqs.shape[0] if freqs.ndim == 1 else 0
@@ -180,15 +308,32 @@ def hd_cross_lnlike(G, u, log10_A, gamma, freqs, Tspan: float):
             or m < 1 or R < 1 or R % (2 * m) or log10_A.shape[0] < 1 \
             or not Tspan > 0:
         raise ValueError(
-            f"hd_cross_lnlike: G {tuple(G.shape)}, u {tuple(u.shape)}, "
+            f"{name}: G {tuple(G.shape)}, u {tuple(u.shape)}, "
             f"log10_A {tuple(log10_A.shape)}, gamma {tuple(gamma.shape)}, "
             f"freqs {tuple(freqs.shape)}, Tspan {Tspan!r}; want float64 "
             "(R,R), (R,), (B,), (B,), (m,) with R a multiple of 2 m, on one "
             "device, and Tspan > 0")
-    G, u, log10_A, gamma, freqs = (t.contiguous() for t in ts)
-    if G.is_cuda:
-        return _OnCard.apply(G, u, log10_A, gamma, freqs, float(Tspan))
-    if G.device.type != "cpu":
-        raise ValueError(f"hd_cross_lnlike: no kernel for device {G.device}")
-    return hd_cross_lnlike_reference(G, u, log10_A, gamma, freqs,
-                                     float(Tspan))
+    if G.requires_grad or u.requires_grad or freqs.requires_grad:
+        raise ValueError(f"{name}: G, u and freqs are data; the gradient "
+                         "goes to log10_A and gamma only")
+    if G.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {G.device}")
+
+
+def hd_cross_lnlike(G, u, log10_A, gamma, freqs, Tspan: float):
+    """K10: the (B,) cross terms ``0.5 ||L^-1 D u||^2 - log det L`` of ``M
+    = I + D G D`` (module docstring)."""
+    check_inputs(G, u, log10_A, gamma, freqs, Tspan, "hd_cross_lnlike")
+    G, u, log10_A, gamma, freqs = (t.contiguous() for t in (
+        G, u, log10_A, gamma, freqs))
+    return _CrossTerm.apply(G, u, log10_A, gamma, freqs, float(Tspan))
+
+
+def hd_cross_grad(G, u, log10_A, gamma, freqs, Tspan: float):
+    """K12: ``(B, 2)`` d out_b / d (log10_A_b, gamma_b) of K10's cross term
+    (module docstring)."""
+    ts = [t.detach().contiguous() for t in (G, u, log10_A, gamma, freqs)]
+    check_inputs(*ts, Tspan, "hd_cross_grad")
+    if ts[0].is_cuda:
+        return _launch_grad(*ts, float(Tspan))
+    return hd_cross_grad_reference(*ts, float(Tspan))

@@ -10,8 +10,8 @@ pulsar's elongation [rad]; ``p`` and ``i_inf`` (B, W), each point's
 power-law index per window and :func:`sw_i_inf` of it; ``win`` (N,) each
 TOA's window (None: window 0 for every TOA; negative: none, geometry 0).
 Returns the geometry (B, N) in parsecs; the local partials (B, N, 3) with
-respect to theta, p and I_inf feed the ``jvp`` of the
-:class:`torch.autograd.Function`.
+respect to theta, p and I_inf feed the ``jvp`` and the ``backward`` of
+the :class:`torch.autograd.Function`.
 
 On a CUDA tensor this launches ``csrc/solar_wind_pl.cu`` (or raises); on
 a CPU tensor it runs :func:`solar_wind_pl_reference`, the plain PyTorch
@@ -30,6 +30,7 @@ import torch
 
 from pint_torch import F64
 from pint_torch.kernels import _build
+from pint_torch.kernels.dual import sum_to, toa_cotangent
 
 __all__ = ["solar_wind_pl", "solar_wind_pl_reference", "sw_i_inf", "AU_LS",
            "PC_LS",
@@ -190,7 +191,9 @@ def _run(r, theta, p, i_inf, win, partials):
 class SolarWindPLFn(torch.autograd.Function):
     """K7 under autodiff: forward returns ``(geom, P)``; ``jvp`` contracts
     the tangents of theta, p and I_inf (the latter two taken at each
-    TOA's window) with ``P``; ``vmap`` folds a vmapped axis into B."""
+    TOA's window) with ``P``, ``backward`` the geometry's cotangent with
+    it, summed into each TOA's window; ``vmap`` folds a vmapped axis into
+    B."""
 
     @staticmethod
     def forward(r, theta, p, i_inf, win):
@@ -200,7 +203,9 @@ class SolarWindPLFn(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         ctx.mark_non_differentiable(output[1])
         ctx.save_for_forward(output[1])
+        ctx.save_for_backward(output[1])
         ctx.win = inputs[4]
+        ctx.shapes = tuple(t.shape for t in inputs[1:4])
 
     @staticmethod
     def jvp(ctx, d_r, d_theta, d_p, d_i, _d_win):
@@ -212,6 +217,26 @@ class SolarWindPLFn(torch.autograd.Function):
             if d is not None:
                 out = out + _per_toa(d, ctx.win) * P[..., j]
         return out, None
+
+    @staticmethod
+    def backward(ctx, grad, _gP):
+        (P,) = ctx.saved_tensors
+        sh_th, sh_p, sh_i = ctx.shapes
+        W = sh_p[-1]
+        win = ctx.win
+        idx = torch.zeros(P.shape[1], dtype=torch.long, device=P.device) \
+            if win is None else win.clamp(min=0).to(torch.long)
+
+        def per_window(col):
+            # a TOA outside every window has geometry 0 and no partials
+            g = grad * col
+            if win is not None:
+                g = torch.where(win < 0, 0.0, g)
+            return g.new_zeros(g.shape[0], W).index_add_(1, idx, g)
+
+        return (None, toa_cotangent(grad, P[..., 0], sh_th),
+                sum_to(per_window(P[..., 1]), sh_p),
+                sum_to(per_window(P[..., 2]), sh_i), None)
 
     @staticmethod
     def vmap(info, in_dims, r, theta, p, i_inf, win):

@@ -14,9 +14,10 @@ axis B (1 for a fit, the chunk of points for a grid):
 
 Returns ``(k, f)`` (B, N): integer cycles and the fraction, renormalized
 like ``Phase.make``.  The local partials of ``f`` (B, N, S+2) with respect
-to F0..F_{S-1}, the delay and PEPOCH's high word feed the ``jvp`` of the
-:class:`torch.autograd.Function`, so ``torch.func.jacfwd`` reaches the
-kernel without a hand-derived backward.
+to F0..F_{S-1}, the delay and PEPOCH's high word feed the ``jvp`` and the
+``backward`` of the :class:`torch.autograd.Function`, so
+``torch.func.jacfwd`` and ``torch.autograd.grad`` reach the kernel without
+a hand-derived derivative.
 
 On a CUDA tensor this launches ``csrc/spin_phase.cu`` (or raises); on a
 CPU tensor it runs :func:`spin_phase_reference`, the plain PyTorch twin.
@@ -32,7 +33,8 @@ import torch
 from pint_torch import F64
 from pint_torch.dd import DAY_S_F, _day2sec_impl, _mul_mod1_impl
 from pint_torch.kernels import _build
-from pint_torch.kernels.dual import Dual, seed, val
+from pint_torch.kernels.dual import (Dual, row_cotangent, seed, sum_to,
+                                     toa_cotangent, val)
 
 __all__ = ["spin_phase", "spin_phase_reference", "launch_counts",
            "REPLACES"]
@@ -196,8 +198,9 @@ def _run(tdb_hi, tdb_lo, tdb0, pepoch, delay, F, has_pepoch, partials):
 
 class SpinPhaseFn(torch.autograd.Function):
     """K1 under autodiff: forward returns ``(k, f, P)``; ``jvp`` contracts
-    the incoming tangents with the local partials ``P``; ``vmap`` folds a
-    vmapped axis into the kernel's batch axis B."""
+    the incoming tangents with the local partials ``P``, ``backward`` the
+    cotangent of ``f`` with them (:mod:`pint_torch.kernels.dual`); ``vmap``
+    folds a vmapped axis into the kernel's batch axis B."""
 
     @staticmethod
     def forward(tdb_hi, tdb_lo, pepoch, delay, F, tdb0, has_pepoch):
@@ -208,6 +211,8 @@ class SpinPhaseFn(torch.autograd.Function):
         k, _, P = output
         ctx.mark_non_differentiable(k, P)
         ctx.save_for_forward(P)
+        ctx.save_for_backward(P)
+        ctx.shapes = tuple(t.shape for t in inputs[2:5])
 
     @staticmethod
     def jvp(ctx, d_hi, d_lo, d_pe, d_delay, d_F, _t0, _has):
@@ -222,6 +227,19 @@ class SpinPhaseFn(torch.autograd.Function):
             df = df + d_pe[:, 0:1] * P[..., S + 1] \
                 + (d_pe[:, 1:2] * DAY_S_F) * P[..., S]
         return None, df, None
+
+    @staticmethod
+    def backward(ctx, _gk, gf, _gP):
+        (P,) = ctx.saved_tensors
+        S = P.shape[-1] - 2
+        pe, dl, Fs = ctx.shapes
+        g_F = row_cotangent(gf, P[..., :S], Fs)
+        g_delay = toa_cotangent(gf, P[..., S], dl)
+        # PEPOCH's low word enters as the delay does, DAY_S_F to a day
+        g_pe = sum_to(torch.stack([(gf * P[..., S + 1]).sum(-1),
+                                   (gf * P[..., S]).sum(-1) * DAY_S_F],
+                                  dim=-1), pe)
+        return None, None, g_pe, g_delay, g_F, None, None
 
     @staticmethod
     def vmap(info, in_dims, tdb_hi, tdb_lo, pepoch, delay, F, tdb0,

@@ -2871,3 +2871,292 @@ def export_precision_catalog(s, arrays: dict, meta: dict) -> None:
         "probes": _probe_records(report.pulsars[0].fitter,
                                  segments=("catalog.fit", "catalog.lnlike"),
                                  catalog=report)}
+
+
+# ---------------------------------------------------------------------------
+# amortized inference: the flow's ELBO, its training and its posterior
+# ---------------------------------------------------------------------------
+#: the flow, the training run and the posterior's queries of
+#: ``ref/amortized/``: ``AmortizedVI(n_layers, hidden, seed)`` on the
+#: stand-in's posterior, ``TrainConfig(steps, n_samples, lr, seed)``,
+#: ``draw(draws, seed=draw_seed)`` (``draws_kept`` of them stored), and
+#: ``log_prob`` at ``logprob_points`` points (``logprob_outside`` with one
+#: coordinate past its box edge, ``logprob_edges`` exactly on one)
+AMORTIZED = dict(n_layers=4, hidden=32, flow_seed=1, steps=20, n_samples=64,
+                 lr=1e-2, train_seed=2, draws=4096, draws_kept=512,
+                 draw_seed=5, logprob_points=256, logprob_outside=16,
+                 logprob_edges=8, logprob_seed=7, points_seed=20261025)
+
+
+def amortized_z_stream(seed: int, steps: int, n: int, ndim: int):
+    """The reference's per-step base samples of ``train_flow``: ``split``
+    from ``PRNGKey(seed)`` each step, then ``normal`` (n, ndim)."""
+    import jax
+
+    key = jax.random.PRNGKey(seed)
+    out = []
+    for _ in range(steps):
+        key, sub = jax.random.split(key)
+        out.append(np.asarray(jax.random.normal(sub, (n, ndim),
+                                                dtype=np.float64)))
+    return out
+
+
+def z_stream_sha256(zs) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for z in zs:
+        h.update(np.ascontiguousarray(z, dtype=np.float64).tobytes())
+    return h.hexdigest()
+
+
+def reference_amortized(vi, spec=AMORTIZED) -> tuple:
+    """The reference's amortized run on ``vi`` (a ``pint_tpu``
+    ``AmortizedVI``): (arrays under their names below ``ref/amortized/``,
+    meta).  At the initial parameters and the first step's samples: the
+    ELBO, each sample's lnpost and logq and the whole gradient; the
+    ``steps``-step training run (its ELBO trace, the state before its last
+    step, the gradient of that step and the final weights); the trained
+    posterior's draws and log-probabilities at seeded points about them
+    (some outside the box, some on an edge)."""
+    import jax
+    import jax.numpy as jnp
+
+    from pint_tpu.amortized import AmortizedPosterior, TrainConfig
+    from pint_tpu.amortized.train import _adam_step_fn
+
+    cfg = TrainConfig(steps=spec["steps"], n_samples=spec["n_samples"],
+                      lr=spec["lr"], seed=spec["train_seed"])
+    zs = amortized_z_stream(cfg.seed, cfg.steps, cfg.n_samples, vi.ndim)
+    init = jax.tree_util.tree_map(jnp.asarray, vi.flow.init())
+    out = {}
+    for i, leaf in enumerate(jax.tree_util.tree_leaves(init)):
+        out[f"init/leaf_{i:03d}"] = np.asarray(leaf)
+    z0 = jnp.asarray(zs[0])
+    out["z0"] = zs[0]
+    elbo = vi.elbo_fn()
+    val, grad = jax.value_and_grad(lambda p: elbo(p, z0))(init)
+    x, logq = vi.sample_and_logq(init, z0)
+    out["lnpost0"] = np.asarray(vi.lnpost_batch(x))
+    out["logq0"] = np.asarray(logq)
+    for i, leaf in enumerate(jax.tree_util.tree_leaves(grad)):
+        out[f"grad0/leaf_{i:03d}"] = np.asarray(leaf)
+    step = _adam_step_fn(vi, cfg)
+
+    params = init
+    m = jax.tree_util.tree_map(jnp.zeros_like, params)
+    v = jax.tree_util.tree_map(jnp.zeros_like, params)
+    t, trace = 0, []
+    for k, z in enumerate(zs):
+        if k == len(zs) - 1:
+            before = (params, m, v, int(t))
+        params, m, v, t, e = step(params, m, v, t, jnp.asarray(z))
+        trace.append(float(e))
+    final, trace = params, np.asarray(trace)
+    out["trace"] = trace
+    for tag, tree in zip(("state/p", "state/m", "state/v"), before[:3]):
+        for i, leaf in enumerate(jax.tree_util.tree_leaves(tree)):
+            out[f"{tag}_{i:03d}"] = np.asarray(leaf)
+    for i, leaf in enumerate(jax.tree_util.tree_leaves(final)):
+        out[f"final/leaf_{i:03d}"] = np.asarray(leaf)
+    zl = jnp.asarray(zs[-1])
+    g_last = jax.jit(jax.grad(lambda p: -elbo(p, zl)))(before[0])
+    for i, leaf in enumerate(jax.tree_util.tree_leaves(g_last)):
+        out[f"grad_last/leaf_{i:03d}"] = np.asarray(leaf)
+
+    class _Result:
+        params = final
+    post = AmortizedPosterior.from_training(vi, _Result)
+    draws = post.draw(spec["draws"], seed=spec["draw_seed"])
+    out["draws"] = draws[:spec["draws_kept"]]
+    out["draws_mean"] = draws.mean(axis=0)
+    out["draws_std"] = draws.std(axis=0)
+    pts = np.array(post.draw(spec["logprob_points"],
+                             seed=spec["logprob_seed"]))
+    rng = np.random.default_rng(spec["points_seed"])
+    lo = np.array([s[1] for s in vi.transform.specs])
+    hi = np.array([s[2] for s in vi.transform.specs])
+    uni = np.array([s[0] == "uniform" for s in vi.transform.specs])
+    cols = np.flatnonzero(uni)
+    n_out, n_edge = spec["logprob_outside"], spec["logprob_edges"]
+    for i in range(n_out + n_edge):
+        k = int(rng.choice(cols))
+        up = rng.random() < 0.5
+        if i < n_out:
+            pts[i, k] = (hi[k] if up else lo[k]) \
+                + (1.0 if up else -1.0) * 0.05 * (hi[k] - lo[k])
+        else:
+            pts[i, k] = hi[k] if up else lo[k]
+    out["logprob_points"] = pts
+    out["logprob"] = post.log_prob(pts)
+    meta = dict(spec, elbo0=float(val), t_state=before[3],
+                z_sha256=z_stream_sha256(zs),
+                z_sha256_steps=[z_stream_sha256([z]) for z in zs],
+                labels=list(vi.param_labels),
+                specs=[list(s) for s in vi.transform.specs],
+                vkey=repr(vi.vkey))
+    return out, meta
+
+
+def reference_amortized_op_by_op(vi, arrays: dict,
+                                  spec=AMORTIZED) -> tuple:
+    """The reference's amortized run evaluated op by op (its jitted step
+    under ``jax.disable_jit``), beside the compiled run of
+    :func:`reference_amortized` already in ``arrays``: (arrays under
+    ``ref/amortized/op_by_op/``, meta).  Its ELBO trace and final weights,
+    and at the compiled run's stored state before its last step its
+    gradient; and there the compiled ELBO's central differences along the
+    two gradients' difference (steps ``h`` of the unit direction) beside
+    each gradient's derivative along it.  Where the posterior is a few ulps
+    of a parameter wide (ddgr's F0) the compiled gradient leaves the
+    compiled ELBO's own differences and the op-by-op one follows them."""
+    import jax
+    import jax.numpy as jnp
+
+    from pint_tpu.amortized import TrainConfig
+    from pint_tpu.amortized.train import _adam_step_fn
+
+    P = "ref/amortized/"
+    cfg = TrainConfig(steps=spec["steps"], n_samples=spec["n_samples"],
+                      lr=spec["lr"], seed=spec["train_seed"])
+    zs = amortized_z_stream(cfg.seed, cfg.steps, cfg.n_samples, vi.ndim)
+    init = vi.flow.init()
+    treedef = jax.tree_util.tree_structure(init)
+
+    def stored(tag):
+        return jax.tree_util.tree_unflatten(treedef, [
+            jnp.asarray(arrays[k]) for k in sorted(
+                k for k in arrays if k.startswith(P + tag))])
+
+    if not all(np.array_equal(np.asarray(a), b) for a, b in zip(
+            jax.tree_util.tree_leaves(init),
+            jax.tree_util.tree_leaves(stored("init/leaf_")))):
+        raise SystemExit("the flow's init() is not the stored one")
+    step = _adam_step_fn(vi, cfg)
+    params = jax.tree_util.tree_map(jnp.asarray, init)
+    m = jax.tree_util.tree_map(jnp.zeros_like, params)
+    v = jax.tree_util.tree_map(jnp.zeros_like, params)
+    t, trace = 0, []
+    with jax.disable_jit():
+        for z in zs:
+            params, m, v, t, e = step(params, m, v, t, jnp.asarray(z))
+            trace.append(float(e))
+    out = {"op_by_op/trace": np.asarray(trace)}
+    for i, leaf in enumerate(jax.tree_util.tree_leaves(params)):
+        out[f"op_by_op/final/leaf_{i:03d}"] = np.asarray(leaf)
+    state = stored("state/p_")
+    zl = jnp.asarray(zs[-1])
+    elbo = vi.elbo_fn()
+
+    def loss(p):
+        return -elbo(p, zl)
+
+    g_op = [np.asarray(x) for x in
+            jax.tree_util.tree_leaves(jax.grad(loss)(state))]
+    for i, leaf in enumerate(g_op):
+        out[f"op_by_op/grad_last/leaf_{i:03d}"] = leaf
+    g_c = [arrays[k] for k in sorted(k for k in arrays
+                                     if k.startswith(P + "grad_last/"))]
+    d = [a - b for a, b in zip(g_c, g_op)]
+    norm = float(np.sqrt(sum(float((x * x).sum()) for x in d)))
+    if norm == 0.0:
+        d = g_op
+        norm = float(np.sqrt(sum(float((x * x).sum()) for x in d)))
+    d = [x / norm for x in d]
+    compiled = jax.jit(loss)
+    hs = (1e-7, 1e-6, 1e-5)
+    fd = []
+    for h in hs:
+        up, dn = (jax.tree_util.tree_unflatten(treedef, [
+            jnp.asarray(np.asarray(x) + s * h * y) for x, y in zip(
+                jax.tree_util.tree_leaves(state), d)]) for s in (1.0, -1.0))
+        fd.append((float(compiled(up)) - float(compiled(dn))) / (2.0 * h))
+    meta = dict(fd_h=list(hs), fd=fd,
+                along_compiled=float(sum((a * b).sum()
+                                         for a, b in zip(g_c, d))),
+                along_op_by_op=float(sum((a * b).sum()
+                                         for a, b in zip(g_op, d))))
+    return out, meta
+
+
+def export_amortized_op_by_op(model, toas, which: str, arrays: dict,
+                              meta: dict) -> None:
+    """Add :func:`reference_amortized_op_by_op` on the stand-in's
+    ``ref/bayes/`` box to ``arrays`` under ``ref/amortized/op_by_op/`` and
+    to ``meta["reference"]["amortized"]["op_by_op"]``."""
+    vi = amortized_vi_bayes(model, toas, arrays, meta)
+    out, m = reference_amortized_op_by_op(vi, arrays)
+    for k, v in out.items():
+        arrays["ref/amortized/" + k] = v
+    meta["reference"]["amortized"]["op_by_op"] = m
+
+
+def amortized_vi_bayes(model, toas, arrays, meta, spec=AMORTIZED):
+    """The reference's ``AmortizedVI.from_bayesian`` on a stand-in with its
+    ``ref/bayes/`` prior box."""
+    from pint_tpu.amortized import AmortizedVI
+    from pint_tpu.bayesian import BayesianTiming
+
+    bz = meta["reference"]["bayes"]
+    info = {p: dict(distr="uniform", pmin=lo, pmax=hi) for p, lo, hi in
+            zip(bz["params"], arrays["ref/bayes/pmin"],
+                arrays["ref/bayes/pmax"])}
+    return AmortizedVI.from_bayesian(
+        BayesianTiming(model, toas, prior_info=info),
+        n_layers=spec["n_layers"], hidden=spec["hidden"],
+        seed=spec["flow_seed"])
+
+
+def export_amortized(model, toas, which: str, arrays: dict,
+                     meta: dict) -> None:
+    """Add the reference's amortized run (:func:`reference_amortized`) on
+    the stand-in's ``ref/bayes/`` box to ``arrays`` under
+    ``ref/amortized/`` and to ``meta["reference"]["amortized"]``."""
+    vi = amortized_vi_bayes(model, toas, arrays, meta)
+    out, m = reference_amortized(vi)
+    for k, v in out.items():
+        arrays["ref/amortized/" + k] = v
+    meta["reference"]["amortized"] = m
+
+
+def amortized_vi_catalog(s, spec=AMORTIZED):
+    """The reference's ``AmortizedVI.from_joint_likelihood`` on the
+    catalogue's joint likelihood at the ingest state (the residuals of
+    ``ref/catalog/pass0/r``), with its default box: (vi, ingest report,
+    joint likelihood)."""
+    from pint_tpu.amortized import AmortizedVI
+    from pint_tpu.catalog import JointLikelihood, ingest_catalog
+
+    report = ingest_catalog(catalog_pairs(s))
+    jl = JointLikelihood(report, n_modes=s["n_modes"])
+    return AmortizedVI.from_joint_likelihood(
+        jl, n_layers=spec["n_layers"], hidden=spec["hidden"],
+        seed=spec["flow_seed"]), report, jl
+
+
+def export_amortized_catalog(s, arrays: dict, meta: dict,
+                             k12_grad: bool = False) -> None:
+    """A catalogue's ``ref/amortized/``: :func:`reference_amortized` on the
+    joint likelihood at the ingest state, whose residuals must be
+    ``ref/catalog/pass0/r``; with ``k12_grad`` also ``jax.grad`` of the
+    batched joint kernel at the stored likelihood points (``k12_grad``,
+    (N, 2): the gradient K12 computes)."""
+    import jax
+    import jax.numpy as jnp
+
+    vi, report, jl = amortized_vi_catalog(s)
+    if k12_grad:
+        fn, data = jl._fn(), jl._data_args()
+        pts = jnp.asarray(arrays["ref/catalog/likelihood/points"])
+        arrays["ref/amortized/k12_grad"] = np.asarray(jax.jit(jax.grad(
+            lambda p: jnp.sum(fn(p, *data))))(pts))
+    r0 = np.concatenate([np.asarray(p.fitter.resids.time_resids,
+                                    dtype=np.float64)
+                         for p in report.pulsars])
+    if not np.array_equal(r0, arrays["ref/catalog/pass0/r"]):
+        raise SystemExit("the ingest state's residuals are not pass0's")
+    out, m = reference_amortized(vi)
+    for k, v in out.items():
+        arrays["ref/amortized/" + k] = v
+    meta["reference"]["amortized"] = m

@@ -578,11 +578,11 @@ def test_k10_workspace_cap_and_chunks():
         walkers_per_chunk(1, 12000)
 
 
-def test_k10_plain_version_differentiates_and_the_card_refuses(monkeypatch):
-    """The CPU twin carries a gradient to log10_A and gamma; the CUDA
-    launch's autograd node raises ``NotImplementedError`` naming queue B
-    5b instead of returning no gradient (driven here with the launch
-    replaced by the plain version, on CPU tensors)."""
+def test_k10_plain_version_differentiates_and_the_card_refuses():
+    """The gradient to log10_A and gamma is K12's (its plain version on CPU
+    tensors, bitwise), finite and nonzero, within 1e-12 of autograd through
+    K10's plain version; a gradient to the data (G, u, freqs) is refused on
+    either device instead of coming back empty."""
     from pint_torch.kernels import hd_cross_lnlike as K10
 
     rng = np.random.default_rng(3)
@@ -596,12 +596,15 @@ def test_k10_plain_version_differentiates_and_the_card_refuses(monkeypatch):
     K10.hd_cross_lnlike(G, u, la, ga, f, 3e8).sum().backward()
     assert bool(torch.isfinite(la.grad).all()) and bool((la.grad != 0).all())
     assert bool(torch.isfinite(ga.grad).all())
-    monkeypatch.setattr(K10, "_launch", lambda *a: K10.
-                        hd_cross_lnlike_reference(*a).detach())
-    out = K10._OnCard.apply(G, u, la, ga, f, 3e8)
-    assert out.requires_grad
-    with pytest.raises(NotImplementedError, match="B 5b"):
-        out.sum().backward()
+    D = K10.hd_cross_grad_reference(G, u, la.detach(), ga.detach(), f, 3e8)
+    assert torch.equal(la.grad, D[:, 0]) and torch.equal(ga.grad, D[:, 1])
+    want = torch.autograd.grad(K10.hd_cross_lnlike_reference(
+        G, u, la, ga, f, 3e8).sum(), [la, ga])
+    for g, w in zip((la.grad, ga.grad), want):
+        assert bool(((g - w).abs() <= 1e-12 * w.abs()).all())
+    with pytest.raises(ValueError, match="data"):
+        K10.hd_cross_lnlike(G.clone().requires_grad_(True), u, la, ga, f,
+                            3e8)
 
 
 def test_chain_on_lnlike_batch_is_the_reference_chain(both, joint):

@@ -40,7 +40,8 @@ def _port_sources():
                     REPO / "tools" / "torch_kernel_variants.py",
                     REPO / "tools" / "torch_sass_ops.py",
                     REPO / "tools" / "torch_chol_probe.py",
-                    REPO / "tools" / "torch_k11_probe.py"]
+                    REPO / "tools" / "torch_k11_probe.py",
+                    REPO / "tools" / "torch_amortized_probe.py"]
 
 
 def test_import_and_load_pull_in_no_jax():
@@ -58,6 +59,7 @@ def test_import_and_load_pull_in_no_jax():
         "pint_torch.eventstats, pint_torch.streaming, pint_torch.serving, "
         "pint_torch.kernels.chol_rank_update, pint_torch.toa, "
         "pint_torch.catalog, pint_torch.kernels.hd_cross_lnlike, "
+        "pint_torch.amortized, "
         "pint_torch.kernels.compensated_matmul, pint_torch.precision, "
         "pint_torch.autotune\n"
         "import pint_torch.integrity.robust, pint_torch.integrity.quarantine\n"
@@ -173,6 +175,7 @@ def test_entry_points_default_to_the_gpu():
                                     "catalog.likelihood", "catalog.__init__",
                                     "kernels.hd_cross_lnlike",
                                     "kernels.compensated_matmul",
+                                    "amortized.__init__",
                                     "precision.policy",
                                     "precision.compensated",
                                     "precision.tune", "precision.__init__",
@@ -407,6 +410,15 @@ def test_cpu_tensors_never_reach_a_kernel():
                           torch.tensor([4.33, 4.33], dtype=torch.float64),
                           torch.tensor([1e-8], dtype=torch.float64), 1e8)
     assert bool(torch.isfinite(out).all()) and float(out[1]) == 0.0
+    # K12, its gradient, exactly 0 at zero amplitude
+    from pint_torch.kernels.hd_cross_lnlike import (GRAD_KERNELS,
+                                                    hd_cross_grad)
+
+    D = hd_cross_grad(G, torch.ones(6, dtype=torch.float64),
+                      torch.tensor([-14.0, -np.inf], dtype=torch.float64),
+                      torch.tensor([4.33, 4.33], dtype=torch.float64),
+                      torch.tensor([1e-8], dtype=torch.float64), 1e8)
+    assert bool(torch.isfinite(D).all()) and bool((D[1] == 0.0).all())
     # K11, the precision segments' matmul, in every mode and dtype
     from pint_torch.kernels.compensated_matmul import compensated_matmul
 
@@ -416,15 +428,16 @@ def test_cpu_tensors_never_reach_a_kernel():
             out = compensated_matmul(a, a[0].T, ct, acc)
             assert out.shape == (2, 3, 3) and bool((out == 20.0).all())
     counts = kernels.launch_counts()
-    assert set(counts) == {n for mod in kernels.modules().values()
-                           for n in mod.KERNELS.values()}
-    assert len(counts) == 2 + 20 + 2 + 16 + 3 + 6 + 2 + 5 + 4 + 4 + 8
+    tables = [mod.KERNELS for mod in kernels.modules().values()]
+    assert set(counts) == {n for t in tables + [GRAD_KERNELS]
+                           for n in t.values()}
+    assert len(counts) == 2 + 20 + 2 + 16 + 3 + 6 + 2 + 5 + 4 + 4 + 8 + 7
     assert not any(counts.values())
 
 
 def test_every_kernel_is_built_without_contraction(tmp_path, monkeypatch):
     """Each kernel's nvcc command carries -fmad=false and no -fmad=true:
-    every product and sum of K1-K11 rounds alone, as the twins' torch
+    every product and sum of K1-K12 rounds alone, as the twins' torch
     operations do (K7 calls no pow(), the one reason it once was built
     with contraction; K8's density, K9's factor and K10's cross term are
     bitwise their plain versions')."""
@@ -446,6 +459,7 @@ def test_every_kernel_is_built_without_contraction(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
     monkeypatch.setattr(_build.subprocess, "Popen", Nvcc)
     _build.build(kernels.NAMES)
+    # K12's kernels are entry points of K10's source, hd_cross_lnlike
     assert set(cmds) == set(kernels.NAMES)
     for name, cmd in cmds.items():
         assert "-fmad=false" in cmd and "-fmad=true" not in cmd, name

@@ -540,12 +540,13 @@ API_DIGESTS = {
 
 
 def _digest(path, skip=("ref/api/", "ref/bayes/", "ref/sweep/",
-                       "ref/precision/")) -> str:
+                       "ref/precision/", "ref/amortized/")) -> str:
     """sha256 (16 hex) of a snapshot's arrays but those under the
     prefixes ``skip`` (name, dtype, shape, bytes) and of its ``meta``
     without their keys (``top_level`` and ``reference["api"]`` for
     ``ref/api/``, ``reference["bayes"]`` for ``ref/bayes/``,
-    ``reference["precision"]`` for ``ref/precision/``; the fused sweep's
+    ``reference["precision"]`` for ``ref/precision/``,
+    ``reference["amortized"]`` for ``ref/amortized/``; the fused sweep's
     ``ref/sweep/`` has arrays only)."""
     import hashlib
 
@@ -567,6 +568,8 @@ def _digest(path, skip=("ref/api/", "ref/bayes/", "ref/sweep/",
         meta.get("reference", {}).pop("bayes", None)
     if "ref/precision/" in skip:
         meta.get("reference", {}).pop("precision", None)
+    if "ref/amortized/" in skip:
+        meta.get("reference", {}).pop("amortized", None)
     h.update(json.dumps(meta, sort_keys=True).encode())
     return h.hexdigest()[:16]
 
@@ -659,7 +662,8 @@ def test_bayes_snapshots_keep_every_earlier_key(attr):
 
     which, digest = BAYES_DIGESTS[attr]
     path = getattr(bridge, attr)
-    assert _digest(path, ("ref/bayes/",)) == digest
+    # ref/amortized/, added later to ell1 and ddgr, is left out as well
+    assert _digest(path, ("ref/bayes/", "ref/amortized/")) == digest
     meta, arrays = bridge.read_snapshot(path)
     bz = meta["reference"]["bayes"]
     spec = standin.BAYES[which]
@@ -742,10 +746,11 @@ def test_bayes_keys_round_trip(tmp_path):
 
 #: every committed stand-in's digest over all its arrays and its whole
 #: ``meta`` (:func:`_digest` skipping only the fused sweep's
-#: ``ref/sweep/``, added later to the two b1855 files, and the precision
+#: ``ref/sweep/``, added later to the two b1855 files, the precision
 #: layer's ``ref/precision/``, added later to b1855, j1909_stream and
-#: pta67_catalog): a later slice adds its own files and keys and leaves
-#: these bitwise as committed
+#: pta67_catalog, and amortized inference's ``ref/amortized/``, added
+#: later to ell1, ddgr and pta67_catalog): a later slice adds its own
+#: files and keys and leaves these bitwise as committed
 STANDIN_DIGESTS = {
     "b1855_standin.npz": "e46ca733e8d5f704",
     "b1855_dmx15_standin.npz": "f7b1a3459359b557",
@@ -782,8 +787,73 @@ STANDIN_DIGESTS = {
 @pytest.mark.parametrize("name", list(STANDIN_DIGESTS))
 def test_committed_standins_are_bitwise_as_committed(name):
     path = os.path.join(REPO, "pint_torch", "data", name)
-    assert _digest(path, skip=("ref/sweep/", "ref/precision/")) \
-        == STANDIN_DIGESTS[name]
+    assert _digest(path, skip=("ref/sweep/", "ref/precision/",
+                               "ref/amortized/")) == STANDIN_DIGESTS[name]
+
+
+#: the stand-ins that carry amortized inference's reference outputs
+#: (``ref/amortized/``), by bridge path, with the digest of everything
+#: they held before: every array but ``ref/amortized/``, and ``meta``
+#: without ``reference["amortized"]``
+AMORTIZED_DIGESTS = {
+    "ELL1_PATH": "01421e04c4b69221",
+    "DDGR_PATH": "cf1396c98cdd6209",
+    "CATALOG_PATH": "8840f2a96a48fb9e",
+    "CATALOG_SMALL_PATH": "eaf1f23e39b8a18c",
+}
+
+
+@pytest.mark.parametrize("attr", list(AMORTIZED_DIGESTS))
+def test_amortized_snapshots_keep_every_earlier_key(attr):
+    """Adding ``ref/amortized/`` left every array and the rest of ``meta``
+    bitwise as committed before; its keys hold the flow's initial
+    parameters, the first step's samples, lnpost, logq and gradient, the
+    trace, the state before the last step with its gradient, the final
+    weights, the kept draws with the moments of all, and the log-prob
+    points with their values, at the shapes ``_torch_standin.AMORTIZED``
+    asks for; ell1's and ddgr's also the same run op by op (its trace,
+    final weights and the gradient at the compiled run's last state) with
+    the compiled ELBO's central differences."""
+    from pint_torch import bridge
+
+    path = getattr(bridge, attr)
+    assert _digest(path, ("ref/amortized/",)) == AMORTIZED_DIGESTS[attr]
+    meta, arrays = bridge.read_snapshot(path)
+    A = meta["reference"]["amortized"]
+    spec = standin.AMORTIZED
+    assert {k: A[k] for k in spec} == spec
+    nd = len(A["labels"])
+    P = "ref/amortized/"
+    n, steps = spec["n_samples"], spec["steps"]
+    shapes = {"z0": (n, nd), "lnpost0": (n,), "logq0": (n,),
+              "trace": (steps,),
+              "draws": (spec["draws_kept"], nd), "draws_mean": (nd,),
+              "draws_std": (nd,), "logprob_points": (spec["logprob_points"],
+                                                     nd),
+              "logprob": (spec["logprob_points"],)}
+    for key, shape in shapes.items():
+        assert arrays[P + key].shape == shape, key
+    nl = 6 * spec["n_layers"] + 2
+    for tag in ("init/leaf_", "grad0/leaf_", "final/leaf_", "state/p_",
+                "state/m_", "state/v_", "grad_last/leaf_"):
+        got = [k for k in arrays if k.startswith(P + tag)]
+        assert len(got) == nl, tag
+    assert A["t_state"] == steps - 1
+    assert len(A["z_sha256_steps"]) == steps
+    op = attr in ("ELL1_PATH", "DDGR_PATH")
+    for tag in ("op_by_op/final/leaf_", "op_by_op/grad_last/leaf_"):
+        got = [k for k in arrays if k.startswith(P + tag)]
+        assert len(got) == (nl if op else 0), tag
+    assert (P + "op_by_op/trace" in arrays) == op
+    if op:
+        assert arrays[P + "op_by_op/trace"].shape == (steps,)
+        F = A["op_by_op"]
+        assert len(F["fd"]) == len(F["fd_h"]) == 3
+    bad = np.isneginf(arrays[P + "logprob"])
+    assert int(bad.sum()) == spec["logprob_outside"]
+    assert bad[:spec["logprob_outside"]].all()
+    assert ("k12_grad" in {k[len(P):] for k in arrays if k.startswith(P)}) \
+        == (attr == "CATALOG_SMALL_PATH")
 
 
 @pytest.mark.parametrize("which", ["photon_j0030", "small_photon"])
@@ -1000,6 +1070,34 @@ def _add_precision(path: str, which: str) -> None:
     np.savez_compressed(path, **arrays)
 
 
+def _add_amortized(path: str, which: str) -> None:
+    """Add the reference's amortized run (``ref/amortized/``) to the
+    committed ell1, ddgr, pta67_catalog or small_catalog stand-in at
+    ``path`` (small_catalog's with K12's reference gradients; ell1's and
+    ddgr's with the same run op by op, ``ref/amortized/op_by_op/``); the
+    arrays already there stay as they are."""
+    if which in ("ell1", "ddgr"):
+        _add_outputs(path, which, standin.export_amortized,
+                     "ref/amortized/")
+        _add_outputs(path, which, standin.export_amortized_op_by_op,
+                     "ref/amortized/op_by_op/")
+        return
+    if which not in ("pta67_catalog", "small_catalog"):
+        raise SystemExit(f"no amortized outputs for {which}")
+    with np.load(path, allow_pickle=False) as z:
+        arrays = {k: z[k] for k in z.files}
+    meta = json.loads(str(arrays["meta"]))
+    before = dict(arrays)
+    standin.export_amortized_catalog(SETTINGS[which], arrays, meta,
+                                     k12_grad=which == "small_catalog")
+    for k, v in arrays.items():
+        if k in before and v is not before[k] or k not in before \
+                and not k.startswith("ref/amortized/"):
+            raise SystemExit(f"the export wrote {k} outside ref/amortized/")
+    arrays["meta"] = np.asarray(json.dumps(meta))
+    np.savez_compressed(path, **arrays)
+
+
 if __name__ == "__main__":
     import argparse
 
@@ -1058,13 +1156,29 @@ if __name__ == "__main__":
                     help="add the reference's fused 32x32 grid sweep "
                          "(ref/sweep/) to the committed file at --write, "
                          "keeping its arrays")
+    ap.add_argument("--amortized", action="store_true",
+                    help="add the reference's amortized-inference run "
+                         "(ref/amortized/) to the committed ell1, ddgr, "
+                         "pta67_catalog or small_catalog file at --write, "
+                         "keeping its arrays")
+    ap.add_argument("--amortized-op-by-op", action="store_true",
+                    help="add the reference's amortized run evaluated op "
+                         "by op (ref/amortized/op_by_op/) to the committed "
+                         "ell1 or ddgr file at --write, beside its "
+                         "ref/amortized/")
     ap.add_argument("--precision", action="store_true",
                     help="add the reference's forced reduced-precision "
                          "outputs and probes (ref/precision/) to the "
                          "committed b1855, stream or pta67_catalog file at "
                          "--write, keeping its arrays")
     args = ap.parse_args()
-    if args.precision:
+    if args.amortized:
+        _add_amortized(args.write, args.settings)
+    elif args.amortized_op_by_op:
+        _add_outputs(args.write, args.settings,
+                     standin.export_amortized_op_by_op,
+                     "ref/amortized/op_by_op/")
+    elif args.precision:
         _add_precision(args.write, args.settings)
     elif args.sweep:
         _add_outputs(args.write, args.settings, standin.export_sweep,
