@@ -10,7 +10,7 @@ Phases, one line each:
 
 1. device -- the card's name and power limit (nvidia-smi) and its
    properties;
-2. build -- the twelve hand kernels (K12's are entry points of K10's
+2. build -- the fourteen hand kernels (K12's are entry points of K10's
    source), one nvcc per source, started together; the ptxas report of each ``__global__`` (registers, stack
    frame, spill bytes; K1's per S = 1..6, K2's and K4's per mode and orbit
    source, K6's per form, its duals staged and direct, K8's per mode and
@@ -271,7 +271,30 @@ Phases, one line each:
    from the reference's gradient, draws, moments and log-probs, a save
    and load on the card; printed: 300 (pta67: 100) timed steps, a step's
    forward and backward ms, busy share, peak memory, draws/s and
-   log-probs/s;
+   log-probs/s; then the predict phase (``_predict_phase``), from the
+   snapshots' models and the port's own host layer (clock corrections,
+   TDB, posvels, each component's context of the node TOAs), against the
+   reference's ``ref/predict/``: P1, the bench's read path, on ngc (a
+   ``PredictorCache`` at the barycentre over 2 days from PEPOCH, 48
+   windows of 60 minutes with 12 coefficients: ``build()``, a settle
+   batch, 8 requests x 48 epochs coalesced through
+   ``run_predict_requests``, 12 single-request probes), and P2, one
+   ``generate_predictor_sets`` at GBT over 2.5 days from MJD 55000 for
+   b1855, ell1, ddk and ddgr (240 rows on the 256 rung, 5760 node TOAs),
+   then b1855's cache at GBT serving P1's mix -- each path's counts
+   zeroed just before it and read after, K13 and K14 (and the phase's K1,
+   K2 and K4 primals) required to launch.  Bars: the host layer at every
+   stored node set and the TZR row it builds (clock and TDB 1e-12 s,
+   positions 1 mm, velocities 1e-9 km/s), the node targets (integer
+   phases exactly, y and rfrac 1e-10 cycles), the predicted phases 1e-10
+   cycles, frequencies 1e-12 rel, fit rms 1e-11 cycles -- each phase bar
+   at least 8 (targets) or 16 (predictions, rms) granules ulp(F0
+   max|delay|), the rounding both packages' spin phase carries --, the
+   windows logged above ``FIT_RMS_WARN`` the reference's, every
+   PredictResult's bucket, batch and windows equal and no kernel build
+   during a call; printed: P1's and b1855's ``predicts_per_s``, p50/p99
+   ms of the probes and ``cache_hit_rate``, P2's generation wall s, each
+   after ``torch.cuda.synchronize()``;
 4. kernels -- each CUDA kernel (the primal and dual instantiations of K1,
    K2 and K4 -- K4's for ELL1, ELL1k, ELL1H exact and ELL1H harmonic --,
    K3's shared-memory instantiation at nt = 88 and its global one at nt =
@@ -360,7 +383,13 @@ Phases, one line each:
    2 R^3 / 3 flops a walker at the float64 tensor cores); each kernel Function's ``backward``
    (K1, K2 in each mode, K4, K6, K7) against autograd through its twin at
    its path's inputs, within 1e-10 of each input's largest.
-   K2's Newton steps on each path's inputs set its operation count; the
+   K14 ``polyco_fit`` on P1's and P2's calls and on 256 seeded rows of
+  which 200 are pad rows (exactly 0), K13 ``polyco_eval`` on P1's and
+  P2's calls and on seeded evaluations, each bitwise its plain version;
+  timed (median of 20 warm calls) beside its bound (launch-sized at these
+  shapes), its plain version and, for K14, ``torch.linalg.lstsq`` on the
+  same rows.
+  K2's Newton steps on each path's inputs set its operation count; the
    per-element operation counts of K1, K2, K4, K6 and K7 are bounded at
    the float64 instruction rate (-fmad=false; K6's, K7's and K8's count
    each math-library call at its SASS count, ``SASS_OPS``); K5's counts what its function
@@ -4863,8 +4892,11 @@ def _backward_kernels(caps, dev, tag, partial: bool = False) -> dict:
     FBX and waves on bw, bw_waves and small_dd_fbx, K7 on pta: every input
     cotangent within 1e-10 of its largest.  Timed: the backward node alone
     (``torch.autograd.grad`` on a kept graph, the contraction) on the
-    amortized paths' calls.  ``partial``: check only the paths in
-    ``caps`` (a probe's).  Returns {name: (error, backward ms)}."""
+    amortized paths' calls, beside its bound: the saved partials (B, N, k)
+    and the cotangent read once, each input's gradient written once, and
+    2 B N k operations for the contraction.  ``partial``: check only the
+    paths in ``caps`` (a probe's).  Returns {name: (error, backward
+    ms)}."""
     import torch
 
     from pint_torch.kernels import binary_orbits as K6
@@ -4876,7 +4908,7 @@ def _backward_kernels(caps, dev, tag, partial: bool = False) -> dict:
     gen = torch.Generator(device=dev).manual_seed(20261026)
     lines, out = [], {}
 
-    def check(name, fn, twin, args, timed=False):
+    def check(name, fn, twin, args, timed=False, k=0):
         xs = [a.detach().clone().requires_grad_(True) for a in args]
         y = fn(*xs)
         ys = y if isinstance(y, tuple) else (y,)
@@ -4899,7 +4931,12 @@ def _backward_kernels(caps, dev, tag, partial: bool = False) -> dict:
         if timed:
             ms = _median_ms(lambda: torch.autograd.grad(
                 ys, xs, cots, retain_graph=True, allow_unused=True), 5)
-        lines.append(f"{name} {e:.3e}" + (f" ({ms:.4f} ms)" if timed else ""))
+            bn = sum(c.numel() for c in cots)
+            bound = _bound(8 * (bn * (k + 1) + sum(x.numel() for x in xs)),
+                           2 * bn * k)
+        lines.append(f"{name} {e:.3e}" + (
+            f" ({ms:.4f} ms, B x N {tuple(cots[0].shape)}, k {k}, bound "
+            f"{bound[0]:.4f} ms ({bound[1]}))" if timed else ""))
         out[name] = (e, ms)
         if not e <= 1e-10:
             raise RuntimeError(f"{name}'s backward disagrees with its twin's: "
@@ -4910,7 +4947,7 @@ def _backward_kernels(caps, dev, tag, partial: bool = False) -> dict:
         check("spin_phase (K1)", lambda p, d, f_: K1.spin_phase(
             th, tl, t0, p, d, f_, has)[1], lambda p, d, f_:
             K1.spin_phase_reference(th, tl, t0, p, d, f_, has, False)[1],
-            (pe, dl, F), timed)
+            (pe, dl, F), timed, F.shape[1] + 2)
 
     def k2(name, args, timed=False):
         tt0, params, mode, toa, orb = args[:5]
@@ -4923,7 +4960,8 @@ def _backward_kernels(caps, dev, tag, partial: bool = False) -> dict:
         check(name, lambda t, p, *r: K2.dd_binary(t, p, mode, *split(r)),
               lambda t, p, *r: K2.dd_binary_reference(
                   t, p, False, mode, *split(r))[0],
-              (tt0, params, *extra), timed)
+              (tt0, params, *extra), timed,
+              K2.npartial(mode, orb is not None))
 
     def k4(name, args, timed=False):
         tt, params, mode, _, nh, h4 = args[:6]
@@ -4932,7 +4970,8 @@ def _backward_kernels(caps, dev, tag, partial: bool = False) -> dict:
             t, p, mode, nh, h4, tuple(o) or None),
             lambda t, p, *o: K4.ell1_binary_reference(
                 t, p, mode, False, nh, h4, tuple(o) or None)[0],
-            (tt, params, *(orb or ())), timed)
+            (tt, params, *(orb or ())), timed,
+            K4.npartial(mode, orb is not None))
 
     def k6(name, args):
         tt0, coef, form, nfb, nw, off = args[:6]
@@ -4978,6 +5017,512 @@ def _backward_kernels(caps, dev, tag, partial: bool = False) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the predict phase: the phase-prediction path on K13 and K14
+# ---------------------------------------------------------------------------
+#: the predict path's bars against ``ref/predict/``: the host layer's node
+#: columns (clock corrections and TDB [s], positions [km], velocities
+#: [km/s]), phases [cycles], frequencies (relative) and fit rms [cycles]
+HOST_CLOCK_BAR_S = 1e-12
+HOST_TDB_BAR_S = 1e-12
+HOST_POS_BAR_KM = 1e-6
+HOST_VEL_BAR_KMS = 1e-9
+PREDICT_PHASE_BAR = 1e-10
+PREDICT_FREQ_BAR = 1e-12
+PREDICT_RMS_BAR = 1e-11
+#: the floor of those bars, in granules q = ulp(F0 max|delay|) of the node
+#: set: the spin phase carries F0 times the delay (~1e5 cycles at a few
+#: hundred Hz) in one float64, so each package's node phase is rounded to
+#: q (2.9e-11 cycles for ell1), the two packages' delays part by an ulp
+#: and their spin arithmetic by as much -- each node phase by up to 2 q, a
+#: target (a difference of two) by 4 q, a fitted prediction or rms by
+#: about twice its targets' gap.  The bars are max(bar, floor x q)
+PREDICT_TARGET_FLOOR_Q = 8
+PREDICT_FIT_FLOOR_Q = 16
+#: P2's members, in the reference's order
+PREDICT_MEMBERS = ("b1855", "ell1", "ddk", "ddgr")
+
+
+def _k13_ops(n: int) -> int:
+    """float64 instructions per element of ``polyco_eval.cu``, the
+    division at its SASS count: 5 a Horner step of both series (n - 1
+    steps), poly's last step (2), the ramp and its sums (4), floor and the
+    fraction (2), the frequency's division and sum."""
+    return 5 * (n - 1) + 8 + SASS_OPS["div"] + 1
+
+
+def _k14_ops(m: int, n: int) -> int:
+    """float64 instructions of one row of ``polyco_fit.cu``, sqrt and
+    division at their SASS counts: V by repeated products, per column k
+    the norm (2 (m - k)), its sqrt, alpha, v'v, its reciprocal and v_k,
+    then for each of the n - k later columns (y among them) the dot
+    (2 (m - k)), f and the update (2 (m - k)); back substitution; the
+    residual (3 a term) and the rms."""
+    sq, dv = SASS_OPS["sqrt"], SASS_OPS["div"]
+    ops = m * (n - 1)
+    for k in range(n):
+        r = m - k
+        ops += 2 * r + sq + dv + 5 + (n - k) * (4 * r + 1)
+    ops += sum(2 * (n - 1 - i) + dv for i in range(n))
+    return ops + 3 * m * n + 2 * m + sq + dv
+
+
+def _horner_np(tmid, seg_min, coeffs, rint, rfrac, f0, t):
+    """``(int, frac, freq)`` of a grid at ``t`` by the cache's numpy
+    recurrence, each time in its (half-open) window."""
+    import numpy as np
+
+    half = seg_min / 2880.0
+    w = np.clip(np.searchsorted(tmid - half, t, side="right") - 1, 0,
+                len(tmid) - 1)
+    dt = (t - tmid[w]) * 1440.0
+    c = coeffs[w]
+    poly = np.zeros_like(dt)
+    dpoly = np.zeros_like(dt)
+    for i in range(c.shape[1] - 1, 0, -1):
+        poly = poly * dt + c[:, i]
+        dpoly = dpoly * dt + i * c[:, i]
+    poly = poly * dt + c[:, 0]
+    raw = rfrac[w] + 60.0 * f0 * dt + poly
+    ip = np.floor(raw)
+    return rint[w] + ip, raw - ip, f0 + dpoly / 60.0
+
+
+def _phase_gap(pi, pf, ri, rf) -> float:
+    """The largest gap [cycles] of two absolute phases; inf where the
+    integers differ away from a cycle's edge."""
+    import numpy as np
+
+    pi, pf, ri, rf = (np.asarray(a, dtype=np.float64).ravel()
+                      for a in (pi, pf, ri, rf))
+    inside = np.minimum(rf, 1.0 - rf) > 1e-9
+    if not np.array_equal(pi[inside], ri[inside]):
+        return math.inf
+    return float(np.max(np.abs((pi - ri) + (pf - rf))))
+
+
+class _WarnedWindows:
+    """Collect the ``predict window <s>: fit rms ...`` warnings of the
+    ``pint_torch`` logger in place of its handlers while inside (one line
+    a window would flood the log): ``windows`` the logged rows in order."""
+
+    def __init__(self):
+        import logging
+
+        self.log = logging.getLogger("pint_torch")
+        self.windows = []
+        outer = self
+
+        class Collect(logging.Handler):
+            def emit(self, record):
+                msg = record.getMessage()
+                if msg.startswith("predict window "):
+                    outer.windows.append(int(msg.split()[2].rstrip(":")))
+
+        self.handler = Collect(logging.WARNING)
+
+    def __enter__(self):
+        self.saved = list(self.log.handlers)
+        for h in self.saved:
+            self.log.removeHandler(h)
+        self.log.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.log.removeHandler(self.handler)
+        for h in self.saved:
+            self.log.addHandler(h)
+        return False
+
+
+def _grid_gaps(model, P, ref, meta_p, coeffs, rms, rint, rfrac, f0,
+               warned):
+    """One stored grid (``P``: ``ref/predict/serve/`` or ``gen/``) against
+    the port's: the host layer at its nodes, its node targets (run again
+    by ``node_targets``; the integers exactly), the predicted phases and
+    frequencies at 64 seeded epochs a window through the port's and the
+    stored coefficients, and the fit rms."""
+    import numpy as np
+
+    from pint_torch.predict.generate import node_mjds, node_targets, \
+        node_toas
+
+    tmid = ref[P + "tmids"]
+    seg, nc, obs, fq = (meta_p["segLength"], meta_p["ncoeff"],
+                        meta_p["obs"], meta_p["obsFreq"])
+    ts = node_toas(model, node_mjds(tmid, seg, nc)[0], obs, fq)
+    want = np.asarray(ref[P + "tdb_hi"], dtype=np.longdouble) \
+        + np.asarray(ref[P + "tdb_lo"], dtype=np.longdouble)
+    g = dict(
+        clock=float(np.max(np.abs(ts.clock_corr_s - ref[P + "clock_corr_s"]))),
+        tdb=float(np.max(np.abs(np.asarray((ts.tdb - want) * 86400,
+                                           dtype=np.float64)))),
+        pos=float(max(np.max(np.abs(ts.ssb_obs_pos_km
+                                    - ref[P + "ssb_obs_pos_km"])),
+                      np.max(np.abs(ts.obs_sun_pos_km
+                                    - ref[P + "obs_sun_pos_km"])))),
+        vel=float(np.max(np.abs(ts.ssb_obs_vel_kms
+                                - ref[P + "ssb_obs_vel_kms"]))))
+    h = node_targets(model, tmid, seg, nc, obs, fq)
+    g["q"] = float(np.spacing(abs(f0) * float(
+        model.delay(ts).abs().max())))
+    g["rint"] = bool(np.array_equal(h["rint"], ref[P + "rint"])
+                     and np.array_equal(rint, ref[P + "rint"]))
+    g["y"] = float(np.max(np.abs(h["y"] - ref[P + "y"])))
+    g["rfrac"] = float(max(np.max(np.abs(h["rfrac"] - ref[P + "rfrac"])),
+                           np.max(np.abs(rfrac - ref[P + "rfrac"]))))
+    g["x"] = float(np.max(np.abs(h["x"] - ref[P + "x"])))
+    rng = np.random.default_rng(20260808)
+    half = seg / 2880.0
+    t = np.concatenate([rng.uniform(c - half, c + half, 64) for c in tmid])
+    pi, pf, pq = _horner_np(tmid, seg, coeffs, rint, rfrac, f0, t)
+    ri, rf, rq = _horner_np(tmid, seg, ref[P + "coeffs"], ref[P + "rint"],
+                            ref[P + "rfrac"], f0, t)
+    g["phase"] = _phase_gap(pi, pf, ri, rf)
+    g["freq"] = float(np.max(np.abs(pq / rq - 1)))
+    g["rms"] = float(np.max(np.abs(rms - ref[P + "fit_rms"])))
+    # the windows the port logged above FIT_RMS_WARN, the reference's
+    g["warned"] = list(warned) == meta_p["warned"]
+    return g
+
+
+def _bars_of(q) -> tuple:
+    """(target, prediction, rms) bars [cycles] at granule ``q``."""
+    return (max(PREDICT_PHASE_BAR, PREDICT_TARGET_FLOOR_Q * q),
+            max(PREDICT_PHASE_BAR, PREDICT_FIT_FLOOR_Q * q),
+            max(PREDICT_RMS_BAR, PREDICT_FIT_FLOOR_Q * q))
+
+
+def _grid_ok(g) -> bool:
+    b_y, b_p, b_r = _bars_of(g["q"])
+    return (g["clock"] <= HOST_CLOCK_BAR_S and g["tdb"] <= HOST_TDB_BAR_S
+            and g["pos"] <= HOST_POS_BAR_KM and g["vel"] <= HOST_VEL_BAR_KMS
+            and g["rint"] and g["warned"] and g["x"] <= PREDICT_PHASE_BAR
+            and max(g["y"], g["rfrac"]) <= b_y and g["phase"] <= b_p
+            and g["freq"] <= PREDICT_FREQ_BAR and g["rms"] <= b_r)
+
+
+def _grid_line(g) -> str:
+    q = g["q"]
+    return (f"host clock {g['clock']:.2e} s, TDB {g['tdb']:.2e} s, pos "
+            f"{g['pos']:.2e} km, vel {g['vel']:.2e} km/s; granule q "
+            f"{q:.3e} cycles; rint {'equal' if g['rint'] else 'DIFFER'}, x "
+            f"{g['x']:.2e}, y {g['y']:.3e} ({g['y'] / q:.1f} q), rfrac "
+            f"{g['rfrac']:.3e} ({g['rfrac'] / q:.1f} q), predicted phase "
+            f"{g['phase']:.3e} cycles ({g['phase'] / q:.1f} q), freq "
+            f"{g['freq']:.2e} rel, fit rms {g['rms']:.3e} cycles "
+            f"({g['rms'] / q:.1f} q), windows logged above the rms bar "
+            f"{'the same' if g['warned'] else 'DIFFER'}")
+
+
+def _serve_predicts(model, ref, meta_p):
+    """P1's request mix on a ``PredictorCache`` of ``model`` (the settings
+    of its stored ``ref/predict/serve/``): build, the settle batch, the
+    bench batch coalesced, then the probes one by one, each after
+    ``torch.cuda.synchronize()``.  Returns (cache, results by batch,
+    quantities)."""
+    import numpy as np
+    import torch
+
+    from pint_torch.predict import PredictorCache, PredictRequest
+    from pint_torch.predict.door import run_predict_requests
+
+    P = "ref/predict/serve/"
+    k, n = meta_p["requests"], meta_p["times_per_request"]
+    ladders = dict(time_buckets=(n,), batch_buckets=(1, k))
+    reqs = {tag: [PredictRequest(t, request_id=f"{tag}-{i}")
+                  for i, t in enumerate(ref[P + f"{tag}_times"])]
+            for tag in ("settle", "bench", "probe")}
+    t = time.perf_counter()
+    cache = PredictorCache(model, meta_p["mjd_start"], meta_p["mjd_end"],
+                           obs=meta_p["obs"], segLength=meta_p["segLength"],
+                           ncoeff=meta_p["ncoeff"], obsFreq=meta_p["obsFreq"])
+    cache.build()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    res = {"settle": run_predict_requests(cache, None, reqs["settle"],
+                                          **ladders)}
+    torch.cuda.synchronize()
+    h0, m0 = cache.hits, cache.misses
+    t = time.perf_counter()
+    res["bench"] = run_predict_requests(cache, None, reqs["bench"], **ladders)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t
+    lat, res["probe"] = [], []
+    for q in reqs["probe"]:
+        t = time.perf_counter()
+        res["probe"] += run_predict_requests(cache, None, [q], **ladders)
+        torch.cuda.synchronize()
+        lat.append(1e3 * (time.perf_counter() - t))
+    dh, dm = cache.hits - h0, cache.misses - m0
+    return cache, res, dict(
+        windows=int(cache.n_windows), build_s=build_s,
+        predicts_per_s=n * k / elapsed, p50_ms=float(np.percentile(lat, 50)),
+        p99_ms=float(np.percentile(lat, 99)),
+        cache_hit_rate=dh / (dh + dm) if dh + dm else 0.0)
+
+
+def _served_gaps(cache, res, ref):
+    """Every PredictResult against the stored one: (phase gap, freq gap,
+    the host ``cache.predict`` at the bench epochs, mismatches of bucket,
+    batch, windows and compiles)."""
+    import numpy as np
+
+    P = "ref/predict/serve/"
+    phase = freq = 0.0
+    bad = []
+    for key, rs in res.items():
+        for i, r in enumerate(rs):
+            phase = max(phase, _phase_gap(r.phase_int, r.phase_frac,
+                                          ref[P + f"{key}_phase_int"][i],
+                                          ref[P + f"{key}_phase_frac"][i]))
+            freq = max(freq, float(np.max(np.abs(
+                r.freq / ref[P + f"{key}_freq"][i] - 1))))
+            want = tuple(int(ref[P + f"{key}_{f}"][i])
+                         for f in ("bucket", "batch", "windows"))
+            if (r.bucket, r.batch, r.windows) != want or r.compiles:
+                bad.append(f"{key} {i}: (bucket, batch, windows) "
+                           f"{(r.bucket, r.batch, r.windows)} != {want} or "
+                           f"compiles {r.compiles}")
+    pi, pf, _ = cache.predict(ref[P + "bench_times"].ravel())
+    host = _phase_gap(pi, pf, ref[P + "predict_phase_int"],
+                      ref[P + "predict_phase_frac"])
+    return phase, freq, host, bad
+
+
+def _predict_phase(paths, kernels, tag):
+    """The phase-prediction path (``pint_torch.predict``) on the card,
+    from the snapshots' models and the port's own host layer, against the
+    reference's ``ref/predict/``.  P1 (counts zeroed just before, read
+    just after): ngc's ``PredictorCache`` at the barycentre over 2 days
+    from PEPOCH (48 windows of 60 min, 12 coefficients), built, a settle
+    batch, 8 requests x 48 epochs coalesced, 12 single-request probes.
+    P2 (likewise): ``generate_predictor_sets`` at GBT over 2.5 days from
+    MJD 55000 for b1855, ell1, ddk and ddgr (240 rows on the 256 rung),
+    then b1855's cache at GBT serving P1's mix.  Bars: the host layer at
+    every stored node set (clock and TDB 1e-12 s, positions 1 mm,
+    velocities 1e-9 km/s) and the TZR row built by it (the same bars
+    against the snapshot's); node targets (integers exactly, y and rfrac
+    1e-10 cycles), predicted phases 1e-10 cycles, frequencies 1e-12 rel,
+    fit rms 1e-11 cycles, the same warned windows; every PredictResult's
+    phases and frequencies at those bars, its bucket, batch and windows
+    equal and no build during the call.  Returns {path: (counts,
+    Capture)} for P1 and P2."""
+    import numpy as np
+    import torch
+
+    from pint_torch.bridge import load_snapshot, read_snapshot
+    from pint_torch.predict import generate_predictor_sets
+
+    t_phase = time.perf_counter()
+    models, refs = {}, {}
+    for label in ("ngc",) + PREDICT_MEMBERS:
+        meta, ref = read_snapshot(paths[label])
+        models[label] = load_snapshot(paths[label], device="cuda")[0]
+        refs[label] = (meta["reference"]["predict"], ref)
+    bad = []
+
+    # the TZR row from the host layer against the snapshot's
+    ab = models["ngc"].components["AbsPhase"]
+    host, stored = ab.host_tzr_batch(), ab.context["tzr_batch"]
+    c_ls = 299792.458
+    tzr = dict(
+        tdb=float(abs((host.tdb.hi - stored.tdb.hi) + (host.tdb.lo
+                                                       - stored.tdb.lo))
+                  .max()) * 86400,
+        pos=max(float((getattr(host, f) - getattr(stored, f)).abs().max())
+                for f in ("ssb_obs_pos", "obs_sun_pos")) * c_ls,
+        vel=float((host.ssb_obs_vel - stored.ssb_obs_vel).abs().max()) * c_ls,
+        ctx=all(torch.equal(host.contexts[c][k], v)
+                for c, d in stored.contexts.items() for k, v in d.items()))
+    print(f"phase predict tzr: the host layer's TZR row against the "
+          f"snapshot's: TDB {tzr['tdb']:.2e} s, positions {tzr['pos']:.2e} "
+          f"km, velocity {tzr['vel']:.2e} km/s, contexts "
+          f"{'equal' if tzr['ctx'] else 'DIFFER'} {tag}", flush=True)
+    if not (tzr["tdb"] <= HOST_TDB_BAR_S and tzr["pos"] <= HOST_POS_BAR_KM
+            and tzr["vel"] <= HOST_VEL_BAR_KMS and tzr["ctx"]):
+        bad.append(f"TZR row {tzr}")
+
+    out = {}
+    # ---- P1: the bench's read path on ngc ----------------------------------
+    rp, ref = refs["ngc"]
+    cap = Capture(kernels.modules())
+    kernels.reset_counts()
+    cap.install()
+    try:
+        with _WarnedWindows() as w1:
+            cache, res, q = _serve_predicts(models["ngc"], ref, rp["serve"])
+    finally:
+        cap.remove()
+    out["predict_p1"] = (kernels.launch_counts(), cap)
+    phase, freq, hostg, sbad = _served_gaps(cache, res, ref)
+    g = _grid_gaps(models["ngc"], "ref/predict/serve/", ref, rp["serve"],
+                   cache._coeffs, cache._rms, cache._rint, cache._rfrac,
+                   cache.f0, w1.windows)
+    print(f"phase predict P1 ngc @: {q['windows']} windows, build "
+          f"{q['build_s']:.4f} s, predicts_per_s {q['predicts_per_s']:.3f}, "
+          f"p50 {q['p50_ms']:.4f} ms, p99 {q['p99_ms']:.4f} ms (12 probes, "
+          f"wall after synchronize), cache_hit_rate "
+          f"{q['cache_hit_rate']:.4f}; results: phase {phase:.2e} cycles, "
+          f"freq {freq:.2e} rel, cache.predict {hostg:.2e} cycles; "
+          f"{_grid_line(g)} {tag}", flush=True)
+    if not (_grid_ok(g) and max(phase, hostg) <= _bars_of(g["q"])[1]
+            and freq <= PREDICT_FREQ_BAR) or sbad:
+        bad.append(f"P1: {g} phase {phase} freq {freq} host {hostg} {sbad}")
+
+    # ---- P2: one predictor batch for four pulsars, then b1855's cache ------
+    gen = refs[PREDICT_MEMBERS[0]][0]["gen"]
+    cap = Capture(kernels.modules())
+    kernels.reset_counts()
+    cap.install()
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with _WarnedWindows() as w2:
+            sets = generate_predictor_sets(
+                [models[n] for n in PREDICT_MEMBERS], gen["mjd_start"],
+                gen["mjd_end"], gen["obs"], segLength=gen["segLength"],
+                ncoeff=gen["ncoeff"], obsFreq=gen["obsFreq"])
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t
+        rp, ref = refs["b1855"]
+        with _WarnedWindows() as w3:
+            cache, res, q = _serve_predicts(models["b1855"], ref,
+                                            rp["serve"])
+    finally:
+        cap.remove()
+    out["predict_p2"] = (kernels.launch_counts(), cap)
+    print(f"phase predict P2 generation: {len(sets)} pulsars x "
+          f"{sets[0].n_windows} windows at {gen['obs']} in one "
+          f"generate_predictor_sets, {gen_s:.4f} s wall after synchronize "
+          f"{tag}", flush=True)
+    for i, (name, s) in enumerate(zip(PREDICT_MEMBERS, sets)):
+        rp_m, ref_m = refs[name]
+        W = s.n_windows
+        g = _grid_gaps(models[name], "ref/predict/gen/", ref_m, rp_m["gen"],
+                       s.coeffs, s.fit_rms, s.rphase_int, s.rphase_frac,
+                       s.f0, [r - i * W for r in w2.windows
+                              if i * W <= r < (i + 1) * W])
+        print(f"phase predict P2 {name} gbt: max fit rms "
+              f"{float(s.fit_rms.max()):.3e} cycles, "
+              f"{len(rp_m['gen']['warned'])} windows above FIT_RMS_WARN in "
+              f"the reference; {_grid_line(g)} {tag}", flush=True)
+        if not _grid_ok(g):
+            bad.append(f"P2 {name}: {g}")
+    phase, freq, hostg, sbad = _served_gaps(cache, res, ref)
+    g = _grid_gaps(models["b1855"], "ref/predict/serve/", ref, rp["serve"],
+                   cache._coeffs, cache._rms, cache._rint, cache._rfrac,
+                   cache.f0, w3.windows)
+    print(f"phase predict P2 b1855 cache gbt: {q['windows']} windows, build "
+          f"{q['build_s']:.4f} s, predicts_per_s {q['predicts_per_s']:.3f}, "
+          f"p50 {q['p50_ms']:.4f} ms, p99 {q['p99_ms']:.4f} ms, "
+          f"cache_hit_rate {q['cache_hit_rate']:.4f}; results: phase "
+          f"{phase:.2e} cycles, freq {freq:.2e} rel, cache.predict "
+          f"{hostg:.2e} cycles; {_grid_line(g)} {tag}", flush=True)
+    if not (_grid_ok(g) and max(phase, hostg) <= _bars_of(g["q"])[1]
+            and freq <= PREDICT_FREQ_BAR) or sbad:
+        bad.append(f"P2 cache: {g} phase {phase} freq {freq} host {hostg} "
+                   f"{sbad}")
+    print(f"phase predict wall: {time.perf_counter() - t_phase:.2f} s {tag}",
+          flush=True)
+    if bad:
+        raise RuntimeError("predict phase: " + "; ".join(bad))
+    return out
+
+
+def _k13_k14_kernels(p1, p2, dev, tag) -> list:
+    """K13 and K14 against their plain versions on P1's and P2's calls and
+    on seeded rows -- 256 rows of which 200 are pad rows, and random
+    evaluations --, bitwise; each timed (the median of 20 warm calls)
+    beside its bound, its plain version and, for K14, the library's
+    ``torch.linalg.lstsq`` on the same rows (K13 has no single PyTorch
+    call).  Returns their records."""
+    import torch
+
+    from pint_torch.kernels import polyco_eval as K13
+    from pint_torch.kernels import polyco_fit as K14
+
+    gen = torch.Generator(device=dev).manual_seed(20260808)
+    records = []
+    # K14: P1's 64-row call, P2's 256-row call, a seeded 256-row case with
+    # 200 pad rows (zero targets on the last window's nodes)
+    x2, y2, n = (p2[1].args("polyco_fit")[i] for i in (0, 1, 2))
+    xs = x2.clone()
+    ys = torch.randn(xs.shape, generator=gen, dtype=torch.float64,
+                     device=dev) * 1e-6
+    ys[56:] = 0.0
+    cases = {"P1": p1[1].args("polyco_fit")[:3], "P2": (x2, y2, n),
+             "seeded, 200 pad rows": (xs, ys, n)}
+    err14, same14, pad0 = 0.0, True, True
+    for label, (x, y, nc) in cases.items():
+        ck, rk = K14._launch(x, y, nc)
+        cr, rr = K14.polyco_fit_reference(x, y, nc)
+        same14 = same14 and bool(torch.equal(ck, cr) and torch.equal(rk, rr))
+        err14 = max(err14, float((ck - cr).abs().max()),
+                    float((rk - rr).abs().max()))
+        if label.startswith("seeded"):
+            pad0 = bool((ck[56:] == 0).all() and (rk[56:] == 0).all())
+    W, m = x2.shape
+    cols = [torch.ones_like(x2)]
+    for _ in range(1, n):
+        cols.append(cols[-1] * x2)
+    V = torch.stack(cols, dim=2)
+    ms14 = _median_ms(lambda: K14._launch(x2, y2, n), 20)
+    plain14 = _median_ms(lambda: K14.polyco_fit_reference(x2, y2, n), 5)
+    lib14 = _median_ms(lambda: torch.linalg.lstsq(V, y2.unsqueeze(-1)), 20)
+    bound14 = _bound(8 * (2 * W * m + W * (n + 1)), W * _k14_ops(m, n),
+                     rate=F64_INSTR_PER_S)
+    # K13: P1's and P2's largest calls and seeded evaluations
+    a1 = p1[1].args("polyco_eval")
+    a2 = p2[1].args("polyco_eval")
+    B, T, nc = a1[3].shape
+    rnd = (torch.rand((B, T), generator=gen, dtype=torch.float64,
+                      device=dev) * 60 - 30,
+           torch.rand((B, T), generator=gen, dtype=torch.float64,
+                      device=dev) - 0.5,
+           torch.rand((B, T), generator=gen, dtype=torch.float64,
+                      device=dev) * 700 + 1,
+           torch.randn((B, T, nc), generator=gen, dtype=torch.float64,
+                       device=dev) * 1e-3)
+    err13, same13 = 0.0, True
+    for args in (a1, a2, rnd):
+        ok = K13._launch(*args)
+        orr = K13.polyco_eval_reference(*args)
+        same13 = same13 and all(torch.equal(a, b) for a, b in zip(ok, orr))
+        err13 = max([err13] + [float((a - b).abs().max())
+                               for a, b in zip(ok, orr)])
+    ms13 = _median_ms(lambda: K13._launch(*a1), 20)
+    plain13 = _median_ms(lambda: K13.polyco_eval_reference(*a1), 5)
+    bound13 = _bound(8 * B * T * (3 + nc) + 24 * B * T,
+                     B * T * _k13_ops(nc), rate=F64_INSTR_PER_S)
+    print(f"phase kernel polyco_fit: W={W} m={m} n={n} (P2's call; P1's "
+          f"{tuple(cases['P1'][0].shape)}); bitwise its plain version on "
+          f"P1's, P2's and 256 seeded rows: {same14}, pad rows exactly 0: "
+          f"{pad0}; {ms14:.4f} ms (plain {plain14:.4f}, library "
+          f"torch.linalg.lstsq {lib14:.4f}, bound {bound14[0]:.6f} "
+          f"({bound14[1]}; launch-sized)) {tag}", flush=True)
+    print(f"phase kernel polyco_eval: B={B} T={T} n={nc} (P1's call; P2's "
+          f"{tuple(a2[3].shape)}); bitwise its plain version on P1's, P2's "
+          f"and seeded inputs: {same13}; {ms13:.4f} ms (plain "
+          f"{plain13:.4f}, library none: no single PyTorch call, bound "
+          f"{bound13[0]:.6f} ({bound13[1]}; launch-sized)) {tag}", flush=True)
+    if not (same14 and pad0 and same13):
+        raise RuntimeError("polyco_fit or polyco_eval disagrees with its "
+                           "plain version")
+    for K, src, err, ms, plain, bound, lib, path in (
+            (K14, "polyco_fit.cu", err14, ms14, plain14, bound14, lib14,
+             p2), (K13, "polyco_eval.cu", err13, ms13, plain13, bound13,
+                   None, p1)):
+        (name,) = K.KERNELS.values()
+        records.append(dict(
+            name=name, route="cuda", source=f"pint_torch/kernels/csrc/{src}",
+            replaces=K.REPLACES, launches=path[0][name], max_abs_err=err,
+            ms=ms, plain_ms=plain, bound_ms=bound[0], bound_by=bound[1],
+            library_ms=lib,
+            path="predict_p2" if path is p2 else "predict_p1"))
+    return records
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -5015,6 +5560,8 @@ def main() -> int:
     from pint_torch.kernels import chol_rank_update as K9
     from pint_torch.kernels import hd_cross_lnlike as K10
     from pint_torch.kernels import compensated_matmul as K11
+    from pint_torch.kernels import polyco_eval as K13
+    from pint_torch.kernels import polyco_fit as K14
 
     dev = torch.device("cuda")
     card = _card()
@@ -5073,6 +5620,7 @@ def main() -> int:
                f"compensated_matmul_kernelILi{i}ELi{j}E")
               for i, acc in enumerate(K11.ACCUMULATIONS)
               for j, ct in enumerate(("float32", "bfloat16"))]
+    ptxas += [(n, n, f"{n}_kernel") for n in ("polyco_eval", "polyco_fit")]
     # no primal may spill (K1, K2 and K4 in each mode and orbit source,
     # K6, K7), nor ELL1H's duals, K6's and K7's duals or K5's tiled kernels
     k4_primals = [K4.KERNELS[(m, False)] for m in range(4)] \
@@ -5084,7 +5632,8 @@ def main() -> int:
         + [K6.KERNELS[(f, p)] + d for f in k6_forms for p in (False, True)
            for d in (("", " (direct)") if p else ("",))] \
         + [K7.KERNELS[True]] + list(K8.KERNELS.values()) \
-        + list(K9.KERNELS.values()) + list(K10.KERNELS.values())
+        + list(K9.KERNELS.values()) + list(K10.KERNELS.values()) \
+        + list(K13.KERNELS.values()) + list(K14.KERNELS.values())
     for src, kernel, marker in ptxas:
         log = _build.library_path(src).with_suffix(".log")
         r = _build.ptxas_report(log.read_text() if log.exists() else "",
@@ -5325,6 +5874,30 @@ def main() -> int:
             amort_jl = obj
     print(f"phase amortized wall: {time.perf_counter() - t_amort:.2f} s "
           f"{tag}", flush=True)
+
+    # ---- the predict phase: phase prediction on K13 and K14 ----------------
+    # P1's and P2's counts each zeroed just before it and read just after:
+    # both must launch K13 and K14, and the phase evaluations K1 (P2 also
+    # K2's DD, DDK and DDGR primals and K4's ELL1 primal)
+    predict = _predict_phase({"ngc": NGC_PATH, "b1855": STANDIN_PATH,
+                              "ell1": ELL1_PATH, "ddk": DDK_PATH,
+                              "ddgr": DDGR_PATH}, kernels, tag)
+    predict_kernels = {
+        "predict_p1": (K1.KERNELS[False], *K13.KERNELS.values(),
+                       *K14.KERNELS.values()),
+        "predict_p2": (K1.KERNELS[False], *K13.KERNELS.values(),
+                       *K14.KERNELS.values(),
+                       *(K2.KERNELS[(m, False)] for m in (K2.DD, K2.DDK,
+                                                          K2.DDGR)),
+                       K4.KERNELS[(K4.ELL1, False)])}
+    for label, (counts_p, cap_p) in predict.items():
+        missing = [k for k in predict_kernels[label] if counts_p[k] == 0]
+        if missing:
+            raise RuntimeError(f"kernels never launched on the {label} "
+                               f"path: {missing}")
+        print(f"phase {label} launches: " + ", ".join(
+            f"{k} {v}" for k, v in counts_p.items() if v) + f" {tag}",
+            flush=True)
 
     # ---- kernels against their plain twins ----------------------------------
     # Every CUDA kernel -- the primal and dual instantiations of K1, of K2
@@ -6421,6 +6994,8 @@ def main() -> int:
     counts_c, cap_c = paths["amortized_pta67_catalog"]
     records += _k12_kernels(amort_jl, cap_c, counts_c, dev, tag)
     _backward_kernels({k: v[1] for k, v in paths.items()}, dev, tag)
+    records += _k13_k14_kernels(predict["predict_p1"],
+                                predict["predict_p2"], dev, tag)
 
     print(f"phase wall: {time.perf_counter() - t_start:.2f} s for the whole "
           f"run {tag}", flush=True)

@@ -24,9 +24,12 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["F64", "NoGPUError", "resolve_device"]
+__all__ = ["F64", "NoGPUError", "resolve_device", "c"]
 
 __version__ = "0.1.0"
+
+#: speed of light [m/s] (the host layer's light-second conversions)
+c = 299792458.0
 
 #: the one floating dtype of the port
 F64 = torch.float64

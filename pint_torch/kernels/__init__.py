@@ -4,7 +4,8 @@ Each kernel module holds the wrapper (K1 ``spin_phase``, K2 ``dd_binary``,
 K3 ``schur_cholesky_solve``, K4 ``ell1_binary``, K5 ``wls_lstsq``, K6
 ``binary_orbits``, K7 ``solar_wind_pl``, K8 ``photon_lnlike``, K9
 ``chol_rank_update``, K10 ``hd_cross_lnlike`` with its backward K12
-``hd_cross_grad``, K11 ``compensated_matmul``), its plain PyTorch version
+``hd_cross_grad``, K11 ``compensated_matmul``, K13 ``polyco_eval``, K14
+``polyco_fit``), its plain PyTorch version
 (``*_reference``, same signature and semantics) and
 ``launch_counts``, one count per CUDA kernel instantiation of its source,
 that the wrapper raises by one where it launches that kernel.  Dispatch
@@ -28,7 +29,8 @@ __all__ = ["NAMES", "modules", "build_all", "launch_counts", "reset_counts",
 #: the kernels, by wrapper-module name
 NAMES = ("spin_phase", "dd_binary", "schur_cholesky_solve", "ell1_binary",
          "wls_lstsq", "binary_orbits", "solar_wind_pl", "photon_lnlike",
-         "chol_rank_update", "hd_cross_lnlike", "compensated_matmul")
+         "chol_rank_update", "hd_cross_lnlike", "compensated_matmul",
+         "polyco_eval", "polyco_fit")
 
 
 def modules() -> Dict[str, ModuleType]:

@@ -108,6 +108,11 @@ class AstrometryEquatorial(Astrometry):
 
     register = True
 
+    def coords_as_ICRS(self):
+        """(RA, Dec) [rad] at POSEPOCH (reference ``astrometry.py:202``)."""
+        t = self._parent.params_table
+        return float(t["RAJ"].value), float(t["DECJ"].value)
+
     def ssb_to_psb_xyz(self, pv, epoch_mjd):
         ra0 = pv["RAJ"]
         dec0 = pv["DECJ"]
@@ -126,6 +131,17 @@ class AstrometryEcliptic(Astrometry):
     ``has_posepoch``."""
 
     register = True
+
+    def coords_as_ICRS(self):
+        """(RA, Dec) [rad] of the position rotated to equatorial, proper
+        motion left out (reference ``astrometry.py:295``)."""
+        t = self._parent.params_table
+        v = self.ssb_to_psb_xyz(
+            {"ELONG": float(t["ELONG"].value), "ELAT": float(t["ELAT"].value),
+             "PMELONG": 0.0, "PMELAT": 0.0},
+            torch.zeros(1, dtype=torch.float64)).numpy()[0]
+        return (float(np.arctan2(v[1], v[0]) % (2 * np.pi)),
+                float(np.arcsin(v[2])))
 
     def ssb_to_psb_xyz(self, pv, epoch_mjd):
         dt_day = self._dt_day(pv, epoch_mjd)

@@ -219,6 +219,11 @@ class BinaryBT_piecewise(BinaryBT):
                     raise MissingParameter("BinaryBT_piecewise",
                                            f"{pre}{i:04d}")
 
+    def host_context(self, toas):
+        return {"masks": self._range_masks(
+            toas, self.config.get("piece_indices", []), "XR1_", "XR2_",
+            right_open=True)}
+
     def delay_func(self, pv, batch, ctx, acc_delay):
         tt0 = self._tt0(pv, batch, acc_delay)
         if tt0.ndim == 1:

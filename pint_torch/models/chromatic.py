@@ -69,6 +69,10 @@ class ChromaticCMX(Chromatic):
     register = True
     category = "chromatic_cmx"
 
+    def host_context(self, toas):
+        return {"masks": self._range_masks(toas, self.config["cmx_indices"],
+                                           "CMXR1_", "CMXR2_")}
+
     def delay_func(self, pv, batch, ctx, acc_delay):
         masks = ctx.get("masks")
         if masks is None:

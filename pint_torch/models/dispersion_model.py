@@ -67,6 +67,10 @@ class DispersionDMX(Dispersion):
     register = True
     category = "dispersion_dmx"
 
+    def host_context(self, toas):
+        return {"masks": self._range_masks(toas, self.config["dmx_indices"],
+                                           "DMXR1_", "DMXR2_")}
+
     def dmx_dm(self, pv, batch, ctx):
         masks = ctx.get("masks")
         if masks is None:
@@ -91,6 +95,10 @@ class DispersionJump(Dispersion):
     register = True
     category = "dispersion_jump"
 
+    def host_context(self, toas):
+        return {"masks": self._select_masks(toas,
+                                            self.config.get("dm_jumps", []))}
+
     def jump_dm(self, pv, batch, ctx):
         out = torch.zeros_like(batch.freq)
         for j in self.config.get("dm_jumps", []):
@@ -111,6 +119,10 @@ class FDJumpDM(Dispersion):
 
     register = True
     category = "fdjumpdm"
+
+    def host_context(self, toas):
+        return {"masks": self._select_masks(
+            toas, self.config.get("fdjump_dms", []))}
 
     def fdjump_dm(self, pv, batch, ctx):
         out = torch.zeros_like(batch.freq)

@@ -25,6 +25,15 @@ class FDJump(DelayComponent):
     register = True
     category = "fdjump"
 
+    def host_context(self, toas):
+        """Masks of the FD jumps with a selector or a non-zero value (the
+        reference's ``build_context``)."""
+        table = self._parent.params_table
+        names = [p for p in self.config.get("fdjumps", [])
+                 if not (table[p].key is None
+                         and table[p].value in (None, 0.0))]
+        return {"masks": self._select_masks(toas, names)}
+
     def delay_func(self, pv, batch, ctx, acc_delay):
         f_ghz = batch.freq / torch.full_like(batch.freq, 1000.0)
         p = self._parent.params_table.get("FDJUMPLOG")

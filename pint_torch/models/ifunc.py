@@ -44,6 +44,18 @@ class IFunc(PhaseComponent):
     register = True
     category = "ifunc"
 
+    def host_context(self, toas):
+        """The IFUNCk points sorted by MJD (reference ``ifunc.py:46-59``)."""
+        table = self._parent.params_table
+        pts = []
+        for n in self.params:
+            v = table[n].value
+            if n.startswith("IFUNC") and n[5:].isdigit() and v is not None:
+                pts.append((float(v[0]), float(v[1])))
+        pts.sort()
+        return {"x": np.array([p[0] for p in pts]),
+                "y": np.array([p[1] for p in pts])}
+
     def phase_func(self, pv, batch, ctx, delay):
         x, y = ctx["x"], ctx["y"]
         ts = (batch.tdb.hi + batch.tdb.lo) - delay / DAY_S

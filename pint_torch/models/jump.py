@@ -18,6 +18,9 @@ class PhaseJump(PhaseComponent):
     register = True
     category = "phase_jump"
 
+    def host_context(self, toas):
+        return {"masks": self._select_masks(toas, self.config["jumps"])}
+
     def phase_func(self, pv, batch, ctx, delay) -> Phase:
         jphase = torch.zeros_like(batch.freq)
         F0 = pv.get("F0", 0.0)
@@ -34,6 +37,10 @@ class DelayJump(DelayComponent):
 
     register = True
     category = "jump_delay"
+
+    def host_context(self, toas):
+        return {"masks": self._select_masks(toas,
+                                            self.config.get("jumps", []))}
 
     def delay_func(self, pv, batch, ctx, acc_delay):
         d = torch.zeros_like(batch.freq)

@@ -9,6 +9,8 @@ out of the absolute phase).
 
 from __future__ import annotations
 
+import numpy as np
+
 from pint_torch.models.timing_model import PhaseComponent
 from pint_torch.phase import Phase
 
@@ -21,6 +23,11 @@ class PhaseOffset(PhaseComponent):
 
     register = True
     category = "phase_offset"
+
+    def host_context(self, toas):
+        # the host TZR TOA carries a "tzr" flag (make_single_toa)
+        return {"apply": np.array([0.0 if "tzr" in fl else 1.0
+                                   for fl in toas.flags])}
 
     def phase_func(self, pv, batch, ctx, delay) -> Phase:
         return Phase.from_float(-pv.get("PHOFF", 0.0) * ctx["apply"])

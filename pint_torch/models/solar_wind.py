@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from pint_torch.kernels.solar_wind_pl import (AU_LS, PC_LS, solar_wind_pl,
@@ -100,6 +101,26 @@ class SolarWindDispersionX(_SolarWind):
 
     register = True
     category = "solar_windx"
+
+    def host_context(self, toas):
+        return {"masks": self._range_masks(toas, self.config["swx_indices"],
+                                           "SWXR1_", "SWXR2_"),
+                "theta0": self._theta0()}
+
+    def _theta0(self) -> float:
+        """The conjunction's elongation from the pulsar's ecliptic latitude
+        on a circular Earth orbit (reference ``solar_wind.py:96-108``)."""
+        from pint_torch.pulsar_ecliptic import OBL_IERS2010_RAD
+
+        astro = next(c for c in self._parent.components.values()
+                     if hasattr(c, "coords_as_ICRS"))
+        ra, dec = astro.coords_as_ICRS()
+        v = np.array([np.cos(dec) * np.cos(ra), np.cos(dec) * np.sin(ra),
+                      np.sin(dec)])
+        ce, se = np.cos(OBL_IERS2010_RAD), np.sin(OBL_IERS2010_RAD)
+        z_ecl = -se * v[1] + ce * v[2]
+        beta = abs(float(np.arcsin(np.clip(z_ecl, -1, 1))))
+        return max(beta, 1e-3)
 
     def _layers(self, ctx):
         """Each TOA's window index (-1: none), one layer per window a TOA

@@ -136,10 +136,46 @@ class Component:
     def build_context(self, batch) -> dict:
         """The component's per-TOA context for ``batch``: its own, built
         for the model's TOAs, unless the batch carries its own (the TZR
-        row)."""
+        row, a subset, TOAs made on the host)."""
         if batch.contexts is not None:
             return batch.contexts.get(type(self).__name__, {})
         return self.context
+
+    def host_context(self, toas) -> dict:
+        """The component's per-TOA context for the host table ``toas``
+        (:class:`pint_torch.toa.TOAs`; the reference's ``build_context``),
+        as host numpy: empty unless the component reads one."""
+        return {}
+
+    def _value(self, name):
+        p = self._parent.params_table.get(name) if self._parent else None
+        return None if p is None else p.value
+
+    def _range_masks(self, toas, indices, r1: str, r2: str,
+                     right_open: bool = False):
+        """(n, N) float64 0/1 masks of the MJD windows ``[r1_i, r2_i]``
+        (``[r1_i, r2_i)`` when ``right_open``), or None without windows
+        (the reference's DMX/CMX/SWX/piecewise ``build_context``)."""
+        mjds = np.asarray(toas.get_mjds(), dtype=np.float64)
+        masks = []
+        for i in indices:
+            lo = _mjd_float(self._value(f"{r1}{i:04d}"))
+            hi = _mjd_float(self._value(f"{r2}{i:04d}"))
+            inside = (mjds >= lo) & ((mjds < hi) if right_open
+                                     else (mjds <= hi))
+            masks.append(inside.astype(np.float64))
+        return np.array(masks) if masks else None
+
+    def _select_masks(self, toas, names) -> dict:
+        """{name: (N,) float64 0/1} of the mask parameters ``names``."""
+        from pint_torch.toa import select_toa_mask
+
+        out = {}
+        for j in names:
+            m = np.zeros(len(toas))
+            m[select_toa_mask(self._parent.params_table[j], toas)] = 1.0
+            out[j] = m
+        return out
 
 
 class DelayComponent(Component):
@@ -169,6 +205,27 @@ class PhaseComponent(Component):
 class NoiseComponent(Component):
     kind = "noise"
     introduces_correlated_errors = False
+
+    def host_context(self, toas) -> dict:
+        """``masks`` {name: (N,) bool} of the component's set mask
+        parameters (what the snapshot carries for a noise component)."""
+        from pint_torch.toa import select_toa_mask
+
+        table = self._parent.params_table
+        masks = {}
+        for n in self.params:
+            p = table[n]
+            if p.kind == "mask" and p.value is not None:
+                m = np.zeros(len(toas), dtype=bool)
+                m[select_toa_mask(p, toas)] = True
+                masks[n] = m
+        return {"masks": masks} if masks else {}
+
+
+def _mjd_float(v) -> float:
+    """An epoch parameter's value as the float64 the reference's
+    ``float(longdouble)`` gives: the pair's high word."""
+    return float(v[0]) if isinstance(v, tuple) else float(v)
 
 
 def stack_params(pv, names: Sequence[str], device) -> torch.Tensor:
@@ -359,10 +416,50 @@ class TimingModel:
         return torch.tensor([[self.value(n) for n in names]], dtype=F64,
                             device=self.device)
 
+    def host_contexts(self, toas, device=None) -> dict:
+        """Each component's context for the host table ``toas``, by
+        component name (the reference's ``_build_context``,
+        ``timing_model.py:611``): float64 tensors on ``device`` (the
+        model's by default), a noise component's host numpy as the
+        snapshot's are."""
+        dev = self.device if device is None else torch.device(device)
+
+        def to_dev(x):
+            if isinstance(x, dict):
+                return {k: to_dev(v) for k, v in x.items()}
+            if x is None:
+                return None
+            return torch.tensor(np.asarray(x, dtype=np.float64), dtype=F64,
+                                device=dev)
+
+        return {name: (c.host_context(toas) if c.kind == "noise"
+                       else to_dev(c.host_context(toas)))
+                for name, c in self.components.items()}
+
+    def batch_of(self, toas):
+        """The device batch of ``toas``: a :class:`TOABatch` as it is, a
+        host :class:`~pint_torch.toa.TOAs` frozen on the model's device
+        with this model's contexts, cached per TOAs object and its
+        ``_version`` (the reference's ``_get_compiled`` data cache)."""
+        from pint_torch.toa import TOAs
+
+        if not isinstance(toas, TOAs):
+            return toas
+        data = self._cache.setdefault("host_batches",
+                                      weakref.WeakKeyDictionary())
+        hit = data.get(toas)
+        if hit is None or hit[0] != toas._version:
+            hit = (toas._version, toas.to_batch(device=self.device,
+                                                model=self))
+            data[toas] = hit
+        return hit[1]
+
     def evaluate(self, values: torch.Tensor, free_names: Sequence[str],
                  batch, const_pv: Optional[dict] = None):
         """(Phase, delay), each (B, N), at ``values`` (B, len(free_names))
-        (reference ``_get_compiled.eval_fn``, ``timing_model.py:643-654``)."""
+        (reference ``_get_compiled.eval_fn``, ``timing_model.py:643-654``);
+        ``batch`` a :class:`TOABatch` or host TOAs (:meth:`batch_of`)."""
+        batch = self.batch_of(batch)
         pv = dict(self.const_pv() if const_pv is None else const_pv)
         for i, nm in enumerate(free_names):
             pv[nm] = values[:, i:i + 1]
@@ -403,6 +500,7 @@ class TimingModel:
         return ph
 
     def delay(self, batch) -> torch.Tensor:
+        """Total delay [s] at each TOA (a batch or host TOAs)."""
         free = tuple(self.free_params)
         return self.evaluate(self.free_values(free), free, batch)[1][0]
 

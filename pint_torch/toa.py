@@ -1,12 +1,22 @@
-"""The device-side TOA batch (port of ``pint_tpu/toa.py:120-149``, with
-the wideband DM data of ``:520-545``, the photons' ``-weight`` flag, the
-validate/quarantine gate of ``:314-391`` and ``merge_TOAs`` of ``:1292``).
+"""The TOA tables: the host table :class:`TOAs` and the device batch
+:class:`TOABatch`.
 
-Positions are in light-seconds and velocities in ls/s; ``tdb`` is the
+:class:`TOAs` (port of ``pint_tpu/toa.py:153-240,401-494,799-841``) is the
+host table built from arrays (:func:`get_TOAs_array`,
+:func:`make_single_toa`): longdouble UTC MJDs, the one-time pipeline
+``apply_clock_corrections -> compute_TDBs -> compute_posvels`` (both the
+longdouble and the (hi, lo) pair branch of the TDBs), and
+:meth:`TOAs.to_batch`, which freezes it into a batch on the device with each
+component's context for these TOAs when a model is given.  Reading tim
+files is not part of this package yet.
+
+:class:`TOABatch` (port of ``pint_tpu/toa.py:120-149``, with the wideband
+DM data of ``:520-545``, the photons' ``-weight`` flag, the
+validate/quarantine gate of ``:314-391`` and ``merge_TOAs`` of ``:1292``)
+keeps positions in light-seconds and velocities in ls/s; ``tdb`` is the
 double-double TDB MJD and ``tdb_s`` the seconds since ``tdb0`` (an integer
-MJD near the data midpoint) as an exact host-built pair.  Host ingest
-(par/tim parsing, clocks, TDB, ephemeris) is not part of this package yet:
-batches come from a snapshot of the reference package's state
+MJD near the data midpoint) as an exact host-built pair.  Batches come
+from the host table or from a snapshot of the reference package's state
 (:mod:`pint_torch.bridge`).
 
 A subset (:meth:`TOABatch.select`) or a merge (:func:`merge_TOAs`) carries
@@ -20,19 +30,23 @@ evaluation reads: a batch that keys a cache is never changed by it.
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from pint_torch import F64
+from pint_torch import c as C_M_S
 from pint_torch.dd import DD, two_prod, two_sum
-from pint_torch.exceptions import TOAIntegrityError
+from pint_torch.exceptions import (InvalidTOAError, TOAIntegrityError,
+                                   UsageError)
 
-__all__ = ["TOABatch", "merge_TOAs", "ROW_LOCAL_CONTEXTS",
+__all__ = ["TOABatch", "TOAs", "merge_TOAs", "get_TOAs_array",
+           "make_single_toa", "select_toa_mask", "ROW_LOCAL_CONTEXTS",
            "TOAIntegrityError"]
 
 DAY_S = 86400.0
+C_KM_S = C_M_S / 1e3
 
 #: the components whose per-TOA context a subset or merge slices or joins
 #: along the TOA axis: DMX window membership and the JUMP and EFAC/EQUAD
@@ -427,3 +441,375 @@ def merge_TOAs(batches) -> TOABatch:
             b.quarantine_reasons if b.quarantine_reasons is not None
             else [[] for _ in range(b.ntoas)])]
     return out
+
+
+# ---------------------------------------------------------------------------
+# the host table (reference ``pint_tpu/toa.py:153-240,401-494,799-841``)
+# ---------------------------------------------------------------------------
+def _observatory(name):
+    from pint_torch.observatory import get_observatory
+
+    return get_observatory(name)
+
+
+@dataclass(eq=False)  # identity hash: TOAs key the model's batch cache
+class TOAs:
+    """Host TOA table: numpy arrays (longdouble UTC MJDs, flags,
+    observatory names) and the pipeline's products."""
+
+    utc_mjd: np.ndarray        # (N,) longdouble site-arrival MJDs (UTC)
+    error_us: np.ndarray       # (N,) float64
+    freq_mhz: np.ndarray       # (N,) float64 (inf: infinite frequency)
+    obs: np.ndarray            # (N,) object str, canonical site names
+    flags: List[Dict[str, str]]
+    commands: List = field(default_factory=list)
+    filename: Optional[str] = None
+
+    # pipeline products
+    clock_corr_s: Optional[np.ndarray] = None
+    tdb: Optional[np.ndarray] = None  # longdouble MJD
+    #: the sub-double part of utc_mjd / tdb where longdouble is only a
+    #: double (the pair branch); None where longdouble carries it
+    utc_mjd_lo: Optional[np.ndarray] = None
+    tdb_lo: Optional[np.ndarray] = None
+    ssb_obs_pos_km: Optional[np.ndarray] = None
+    ssb_obs_vel_kms: Optional[np.ndarray] = None
+    obs_sun_pos_km: Optional[np.ndarray] = None
+    planet_pos_km: Dict[str, np.ndarray] = field(default_factory=dict)
+    ephem: Optional[str] = None
+    include_bipm: bool = True
+    include_gps: bool = True
+    bipm_version: str = "BIPM2021"
+    planets: bool = False
+    #: bumped on every in-place change; the model's batch cache keys on it
+    _version: int = 0
+
+    def __len__(self) -> int:
+        return len(self.utc_mjd)
+
+    @property
+    def ntoas(self) -> int:
+        return len(self)
+
+    # -- the pipeline --------------------------------------------------------
+    def apply_clock_corrections(self, include_gps=True, include_bipm=True,
+                                bipm_version="BIPM2021", limits="warn"):
+        """Site clock chain, GPS, BIPM and the tim ``-to`` offsets."""
+        self.include_gps, self.include_bipm = include_gps, include_bipm
+        self.bipm_version = bipm_version
+        corr = np.zeros(len(self), dtype=np.float64)
+        for i, fl in enumerate(self.flags):
+            if "to" in fl:
+                corr[i] += float(fl["to"])
+        utc64 = np.asarray(self.utc_mjd, dtype=np.float64)
+        for site in np.unique(self.obs):
+            m = self.obs == site
+            corr[m] += _observatory(site).clock_corrections(
+                utc64[m], include_gps=include_gps, include_bipm=include_bipm,
+                bipm_version=bipm_version, limits=limits)
+        self.clock_corr_s = corr
+        self._version += 1
+        return self
+
+    def corrected_utc_mjd(self) -> np.ndarray:
+        cc = self.clock_corr_s if self.clock_corr_s is not None else 0.0
+        return self.utc_mjd + np.asarray(cc, dtype=np.longdouble) \
+            / np.longdouble(DAY_S)
+
+    def compute_TDBs(self, method="default", ephem=None):
+        """Corrected UTC -> TDB: a longdouble MJD, or, where the UTC MJDs
+        carry a low word, an exact (hi, lo) pair built with error-free
+        sums so that no rounding of the absolute MJD lands in hi."""
+        if self.utc_mjd_lo is not None:
+            utc64 = np.asarray(self.utc_mjd, dtype=np.float64)
+            cc = (self.clock_corr_s if self.clock_corr_s is not None
+                  else np.zeros_like(utc64))
+            corr64 = utc64 + cc / DAY_S  # argument precision only
+            off = np.empty_like(utc64)
+            for site in np.unique(self.obs):
+                m = self.obs == site
+                off[m] = _observatory(site).get_TDB_offset_seconds(
+                    corr64[m], method=method, ephem=ephem)
+            hi, err = two_sum(utc64, (cc + off) / DAY_S)
+            hi, lo = two_sum(hi, err + self.utc_mjd_lo)
+            self.tdb = np.asarray(hi, dtype=np.longdouble)
+            self.tdb_lo = lo
+        else:
+            utc = self.corrected_utc_mjd()
+            tdb = np.empty_like(utc)
+            for site in np.unique(self.obs):
+                m = self.obs == site
+                tdb[m] = _observatory(site).get_TDBs(utc[m], method=method,
+                                                     ephem=ephem)
+            self.tdb = tdb
+            self.tdb_lo = None
+        self._version += 1
+        return self
+
+    def compute_posvels(self, ephem="DE440", planets=False):
+        """The observatory's, the Sun's and (``planets``) the five planets'
+        positions [km] and the observatory's velocity [km/s]."""
+        from pint_torch.ephemeris import load_ephemeris
+
+        if self.tdb is None:
+            self.compute_TDBs(ephem=ephem or "DE440")
+        self.ephem = ephem or "DE440"
+        self.planets = planets
+        eph = load_ephemeris(self.ephem)
+        n = len(self)
+        utc64 = np.asarray(self.corrected_utc_mjd(), dtype=np.float64)
+        tdb64 = np.asarray(self.tdb, dtype=np.float64)
+        pos = np.empty((n, 3))
+        vel = np.empty((n, 3))
+        for site in np.unique(self.obs):
+            m = self.obs == site
+            ob = _observatory(site)
+            if getattr(ob, "needs_flags", False):
+                # spacecraft: the GCRS position rides in per-TOA flags
+                fl = [self.flags[i] for i in np.where(m)[0]]
+                pv = ob.posvel_flags(utc64[m], tdb64[m], fl, ephem=self.ephem)
+            else:
+                pv = ob.posvel(utc64[m], tdb64[m], ephem=self.ephem)
+            pos[m], vel[m] = pv.pos, pv.vel
+        self.ssb_obs_pos_km, self.ssb_obs_vel_kms = pos, vel
+        sun_pos, _ = eph.posvel_ssb("sun", tdb64)
+        self.obs_sun_pos_km = sun_pos - pos
+        self.planet_pos_km = {}
+        if planets:
+            for pl in ("jupiter", "saturn", "venus", "uranus", "neptune"):
+                ppos, _ = eph.posvel_ssb(pl, tdb64)
+                self.planet_pos_km[pl] = ppos - pos
+        self._version += 1
+        return self
+
+    # -- accessors -----------------------------------------------------------
+    def get_mjds(self, high_precision=False):
+        return self.utc_mjd if high_precision \
+            else np.asarray(self.utc_mjd, dtype=np.float64)
+
+    def get_freqs(self) -> np.ndarray:
+        return self.freq_mhz
+
+    def get_obss(self) -> np.ndarray:
+        return self.obs
+
+    @property
+    def wideband(self) -> bool:
+        return len(self) > 0 and all("pp_dm" in fl for fl in self.flags)
+
+    def _mjd_lo(self) -> np.ndarray:
+        """The sub-double part of each UTC MJD (the duplicate check's
+        key beside the float MJD)."""
+        mjd64 = np.asarray(self.utc_mjd, dtype=np.float64)
+        with np.errstate(invalid="ignore"):
+            lo = np.asarray(np.asarray(self.utc_mjd)
+                            - mjd64.astype(np.longdouble), dtype=np.float64)
+        lo = np.where(np.isfinite(lo), lo, 0.0)
+        if self.utc_mjd_lo is not None:
+            lo = lo + np.asarray(self.utc_mjd_lo, dtype=np.float64)
+        return lo
+
+    # -- the device batch ----------------------------------------------------
+    def to_batch(self, tdb0: Optional[float] = None, device=None,
+                 model=None, tzr: bool = False) -> TOABatch:
+        """Freeze into a :class:`TOABatch` on ``device`` (default
+        ``"cuda"``): light-second units, double-double times, ``tdb_s``
+        rebuilt from the host error-free transforms as the reference's
+        ``to_batch`` does; with ``model``, each of its components' context
+        for these TOAs (:meth:`TimingModel.host_contexts`)."""
+        from pint_torch import resolve_device
+
+        if self.tdb is None:
+            raise UsageError(
+                "Run compute_TDBs/compute_posvels before to_batch()")
+        if self.ssb_obs_pos_km is None:
+            raise UsageError("Run compute_posvels before to_batch()")
+        dev = resolve_device(device)
+        if tdb0 is None:
+            tdb0 = float(np.round(np.mean(np.asarray(self.tdb,
+                                                     dtype=np.float64))))
+        if self.tdb_lo is not None:
+            hi, lo = two_sum(np.asarray(self.tdb, np.float64), self.tdb_lo)
+        else:
+            hi = np.asarray(self.tdb, dtype=np.float64)
+            lo = np.asarray(self.tdb - hi.astype(np.longdouble),
+                            dtype=np.float64)
+        d_hi = hi - tdb0  # same-scale MJDs: Sterbenz-exact
+        s_hi, s_err = two_prod(d_hi, DAY_S)
+        s_hi, s_err2 = two_sum(s_hi, s_err + lo * DAY_S)
+
+        def t(a):
+            return torch.tensor(np.asarray(a, dtype=np.float64), dtype=F64,
+                                device=dev)
+
+        dm = dm_err = None
+        if self.wideband:
+            dm = t([float(fl["pp_dm"]) for fl in self.flags])
+            if all("pp_dme" in fl for fl in self.flags):
+                dm_err = t([float(fl["pp_dme"]) for fl in self.flags])
+        return TOABatch(
+            tdb=DD(t(hi), t(lo)), tdb0=float(tdb0), tdb_s=DD(t(s_hi),
+                                                             t(s_err2)),
+            freq=t(self.freq_mhz), error_us=t(self.error_us),
+            ssb_obs_pos=t(self.ssb_obs_pos_km / C_KM_S),
+            ssb_obs_vel=t(self.ssb_obs_vel_kms / C_KM_S),
+            obs_sun_pos=t(self.obs_sun_pos_km / C_KM_S),
+            planet_pos={k: t(v / C_KM_S)
+                        for k, v in self.planet_pos_km.items()},
+            mjds=np.asarray(self.get_mjds(), dtype=np.float64), tzr=tzr,
+            dm=dm, dm_error=dm_err,
+            contexts=None if model is None
+            else model.host_contexts(self, device=dev),
+            ephem=self.ephem, mjd_lo=self._mjd_lo(),
+            obs=np.asarray(self.obs).astype(str))
+
+
+def select_toa_mask(par, toas) -> np.ndarray:
+    """Indices of the TOAs a mask parameter (``key``, ``key_value``)
+    selects (reference ``parameter.py:493``): every TOA without a key, an
+    MJD or frequency range, an observatory, a ``name``, or a flag's
+    value."""
+    n = len(toas)
+    if par.key is None:
+        return np.arange(n)
+    if par.key == "mjd":
+        m = np.asarray(toas.get_mjds(), dtype=np.float64)
+        lo, hi = float(par.key_value[0]), float(par.key_value[1])
+        return np.nonzero((m >= lo) & (m <= hi))[0]
+    if par.key == "freq":
+        f = toas.get_freqs()
+        lo, hi = float(par.key_value[0]), float(par.key_value[1])
+        return np.nonzero((f >= lo) & (f <= hi))[0]
+    if par.key == "tel":
+        want = _observatory(str(par.key_value[0])).name
+        return np.nonzero(toas.get_obss() == want)[0]
+    if par.key == "name":
+        names = np.array([fl.get("name", "") for fl in toas.flags])
+        return np.nonzero(names == str(par.key_value[0]))[0]
+    flag = par.key.lstrip("-")
+    want = str(par.key_value[0])
+    return np.nonzero(np.array([fl.get(flag) == want
+                                for fl in toas.flags], dtype=bool))[0]
+
+
+def _pair_split(a, b):
+    """(mjd1, mjd2) -> (longdouble hi, float64 lo), the low word kept
+    where longdouble is only a double."""
+    hi = np.asarray(a, dtype=np.longdouble) \
+        + np.asarray(b, dtype=np.longdouble)
+    if np.finfo(np.longdouble).eps > 2e-19:
+        _, lo = two_sum(np.asarray(a, dtype=np.float64),
+                        np.asarray(b, dtype=np.float64))
+    else:
+        lo = np.zeros_like(np.asarray(hi, dtype=np.float64))
+    return hi, lo
+
+
+def parse_clock_bipm(clock_value):
+    """(include_bipm, bipm_version or None) that a par file's CLOCK
+    implies; include_bipm is None where CLOCK decides nothing."""
+    clk = str(clock_value or "").upper()
+    if clk.startswith("TT(BIPM"):
+        ver = clk[3:].rstrip(")")
+        return True, (ver if ver and ver != "BIPM" else None)
+    if clk in ("TT(TAI)", "UTC(NIST)", "TT"):
+        return False, None
+    return None, None
+
+
+def _model_value(model, name):
+    return model[name].value if name in model else None
+
+
+def _resolve_pipeline_options(model, ephem, planets, include_bipm,
+                              bipm_version):
+    """Ephemeris, planets and BIPM settings from the model, where the
+    caller left them open."""
+    if model is not None:
+        if ephem is None and "EPHEM" in model:
+            ephem = str(_model_value(model, "EPHEM"))
+        if include_bipm is None and "CLOCK" in model:
+            include_bipm, ver = parse_clock_bipm(_model_value(model,
+                                                              "CLOCK"))
+            if ver:
+                bipm_version = ver
+        if planets is False and "PLANET_SHAPIRO" in model:
+            planets = bool(_model_value(model, "PLANET_SHAPIRO"))
+    if include_bipm is None:
+        include_bipm = True
+    return ephem, planets, include_bipm, bipm_version
+
+
+def _finalize_toas(t: TOAs, ephem, planets, include_gps, include_bipm,
+                   bipm_version, limits) -> TOAs:
+    """The pipeline after the table is made: clock chain, TDB, posvels."""
+    t.apply_clock_corrections(include_gps=include_gps,
+                              include_bipm=include_bipm,
+                              bipm_version=bipm_version, limits=limits)
+    t.compute_TDBs(ephem=ephem or "DE440")
+    t.compute_posvels(ephem=ephem or "DE440", planets=planets)
+    return t
+
+
+def get_TOAs_array(times, obs: str, errors=1.0, freqs=np.inf, flags=None,
+                   ephem: Optional[str] = None, planets: bool = False,
+                   include_gps: bool = True,
+                   include_bipm: Optional[bool] = None,
+                   bipm_version: str = "BIPM2021", model=None,
+                   limits: str = "warn", **kwargs) -> TOAs:
+    """TOAs at one observatory from arrays, through the whole pipeline
+    (reference ``toa.py:1120``).  ``times`` is an MJD array or an
+    ``(mjd1, mjd2)`` pair of arrays summing to full precision; scalar
+    ``errors``/``freqs`` broadcast; ``flags`` is one dict for every TOA or
+    a list of per-TOA dicts; other keywords become shared flags."""
+    ephem, planets, include_bipm, bipm_version = _resolve_pipeline_options(
+        model, ephem, planets, include_bipm, bipm_version)
+    if isinstance(times, tuple) and len(times) == 2:
+        hi, lo = _pair_split(times[0], times[1])
+        utc = np.atleast_1d(hi)
+        lo = np.atleast_1d(lo)
+    else:
+        utc = np.atleast_1d(np.asarray(times, dtype=np.longdouble))
+        lo = None
+    n = len(utc)
+    err = np.broadcast_to(np.asarray(errors, dtype=np.float64), (n,)).copy()
+    freq = np.broadcast_to(np.asarray(freqs, dtype=np.float64), (n,)).copy()
+    freq[freq <= 0] = np.inf
+    site = _observatory(obs).name
+    obs_arr = np.full(n, site, dtype=object)
+    if flags is None:
+        flag_list = [dict() for _ in range(n)]
+    elif isinstance(flags, dict):
+        flag_list = [dict(flags) for _ in range(n)]
+    else:
+        if len(flags) != n:
+            raise InvalidTOAError("flags list length must match times")
+        flag_list = [dict(f) for f in flags]
+    for k, v in kwargs.items():
+        for f in flag_list:
+            f.setdefault(k.lstrip("-"), str(v))
+    t = TOAs(utc, err, freq, obs_arr, flag_list, [], None)
+    if lo is not None and np.any(lo):
+        t.utc_mjd_lo = np.asarray(lo, dtype=np.float64)
+    return _finalize_toas(t, ephem, planets, include_gps, include_bipm,
+                          bipm_version, limits)
+
+
+def make_single_toa(mjd, obs: str, freq_mhz: float = np.inf,
+                    error_us: float = 0.0, ephem: str = "DE440",
+                    include_gps=True, include_bipm=True,
+                    bipm_version="BIPM2021", planets=False) -> TOAs:
+    """A one-TOA table flagged ``tzr`` (an absolute phase's TZR TOA,
+    reference ``toa.py:1347``)."""
+    t = TOAs(utc_mjd=np.array([mjd], dtype=np.longdouble),
+             error_us=np.array([error_us]),
+             freq_mhz=np.array([freq_mhz if freq_mhz and freq_mhz > 0
+                                else np.inf]),
+             obs=np.array([_observatory(obs).name], dtype=object),
+             flags=[{"tzr": "True"}])
+    t.apply_clock_corrections(include_gps=include_gps,
+                              include_bipm=include_bipm,
+                              bipm_version=bipm_version)
+    t.compute_TDBs(ephem=ephem)
+    t.compute_posvels(ephem=ephem, planets=planets)
+    return t

@@ -1,13 +1,17 @@
 """Numerical utilities of the slice (port of ``pint_tpu/utils.py:90-111,
-153-260,439-462``): design-matrix normalization, the linear-column probe
-and the Woodbury / Sherman-Morrison chi2 kernels, on float64 tensors; the
-F-test, the ELL1 validity check and the Taylor series, host numpy and
-scipy."""
+114-140,153-260,290-297,357-364,439-462``): design-matrix normalization,
+the linear-column probe and the Woodbury / Sherman-Morrison chi2 kernels,
+on float64 tensors; the F-test, the ELL1 validity check, the Taylor series
+and the host layer's position/velocity pair and file helpers, host numpy
+and scipy."""
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
 import math
-from typing import Sequence
+from pathlib import Path
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -15,7 +19,54 @@ import torch
 __all__ = ["normalize_designmatrix", "woodbury_dot", "sherman_morrison_dot",
            "weighted_mean", "linearity_probe_steps",
            "classify_linear_columns", "FTest", "ELL1_check",
-           "taylor_horner"]
+           "taylor_horner", "PosVel", "open_or_use", "compute_hash"]
+
+
+class PosVel(NamedTuple):
+    """A position and velocity pair with provenance labels (reference
+    ``utils.py:114``): ``pos``/``vel`` (..., 3) host arrays in the caller's
+    units (the host layer uses km and km/s); ``obj``/``origin`` name the
+    vector's ends, and addition composes frames: (obj=B, origin=A) +
+    (obj=C, origin=B) = (obj=C, origin=A)."""
+
+    pos: np.ndarray
+    vel: np.ndarray
+    obj: str = ""
+    origin: str = ""
+
+    def __add__(self, other: "PosVel") -> "PosVel":
+        obj, origin = self.obj, self.origin
+        if self.obj and other.origin == self.obj:
+            obj, origin = other.obj, self.origin
+        elif other.obj and self.origin == other.obj:
+            obj, origin = self.obj, other.origin
+        return PosVel(self.pos + other.pos, self.vel + other.vel, obj, origin)
+
+    def __sub__(self, other: "PosVel") -> "PosVel":
+        return PosVel(self.pos - other.pos, self.vel - other.vel, self.obj,
+                      other.obj or self.origin)
+
+    def __neg__(self) -> "PosVel":
+        return PosVel(-self.pos, -self.vel, self.origin, self.obj)
+
+
+@contextlib.contextmanager
+def open_or_use(f, mode: str = "r"):
+    """Open a path, or pass a file-like object straight through."""
+    if isinstance(f, (str, bytes, Path)):
+        with open(f, mode) as fh:
+            yield fh
+    else:
+        yield f
+
+
+def compute_hash(filename) -> bytes:
+    """SHA-256 digest of a file's contents, for change detection."""
+    h = hashlib.sha256()
+    with open_or_use(filename, "rb") as f:
+        while block := f.read(128 * h.block_size):
+            h.update(block)
+    return h.digest()
 
 
 def weighted_mean(arr, weights):

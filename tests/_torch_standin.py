@@ -3160,3 +3160,179 @@ def export_amortized_catalog(s, arrays: dict, meta: dict,
     for k, v in out.items():
         arrays["ref/amortized/" + k] = v
     meta["reference"]["amortized"] = m
+
+
+# ---------------------------------------------------------------------------
+# the phase-prediction path's reference outputs (``ref/predict/``)
+# ---------------------------------------------------------------------------
+#: P1, the bench's read path (``bench.py:1520-1604``), on ngc at the
+#: barycentre from PEPOCH, and the same request mix on b1855's cache at
+#: GBT from MJD 55000; P2, one ``generate_predictor_sets`` call over four
+#: stand-ins at GBT (the settings and the order of the members)
+PREDICT = dict(span_days=2.0, segLength=60.0, ncoeff=12, obsFreq=1400.0,
+               requests=8, times_per_request=48, probes=12, seed=20260808,
+               gen_start=55000.0, gen_days=2.5, gen_obs="gbt",
+               gen_members=("b1855", "ell1", "ddk", "ddgr"),
+               serve={"ngc": "@", "b1855": "gbt"})
+
+
+def predict_node_toas(model, tmids, segLength: float, ncoeff: int,
+                      obs: str, obsFreq: float):
+    """The reference's node TOAs of ``node_targets`` (``predict/
+    generate.py:136-190``), made the same way, for their stored columns."""
+    from pint_tpu.observatory import get_observatory
+    from pint_tpu.polycos import MIN_PER_DAY
+    from pint_tpu.toa import TOAs
+
+    obsname = get_observatory(obs).name
+    span_d = segLength / MIN_PER_DAY
+    nnode = max(2 * ncoeff, ncoeff + 4)
+    k = np.arange(nnode)
+    cheb = np.cos(np.pi * (k + 0.5) / nnode)[::-1]
+    flat = (tmids[:, None] + cheb[None, :] * (span_d / 2)).ravel()
+    n = len(flat)
+    ts = TOAs(utc_mjd=np.asarray(flat, dtype=np.longdouble),
+              error_us=np.ones(n), freq_mhz=np.full(n, obsFreq),
+              obs=np.array([obsname] * n, dtype=object),
+              flags=[{} for _ in range(n)])
+    include_bipm = str(model.CLOCK.value
+                       or "").upper().startswith("TT(BIPM")
+    if obsname != "barycenter":
+        ts.apply_clock_corrections(include_bipm=include_bipm)
+    else:
+        ts.clock_corr_s = np.zeros(n)
+    ts.compute_TDBs(ephem=model.EPHEM.value or "DE440")
+    ts.compute_posvels(ephem=model.EPHEM.value or "DE440",
+                       planets=bool(model.PLANET_SHAPIRO.value))
+    return ts
+
+
+def _predict_generation(prefix, arrays, model, tmids, host, coeffs, rms,
+                        obs):
+    """Store one pulsar's generation under ``prefix``: the midpoints, the
+    node TOAs' host columns, the targets, the coefficients and the fit
+    rms; returns the warned windows."""
+    from pint_tpu.predict.generate import FIT_RMS_WARN
+
+    S = PREDICT
+    ts = predict_node_toas(model, tmids, S["segLength"], S["ncoeff"], obs,
+                           S["obsFreq"])
+    hi = np.asarray(ts.tdb, dtype=np.float64)
+    arrays.update({
+        prefix + "tmids": np.asarray(tmids),
+        prefix + "clock_corr_s": np.asarray(ts.clock_corr_s),
+        prefix + "tdb_hi": hi,
+        prefix + "tdb_lo": np.asarray(ts.tdb - hi.astype(np.longdouble),
+                                      dtype=np.float64),
+        prefix + "ssb_obs_pos_km": ts.ssb_obs_pos_km,
+        prefix + "ssb_obs_vel_kms": ts.ssb_obs_vel_kms,
+        prefix + "obs_sun_pos_km": ts.obs_sun_pos_km,
+        prefix + "x": host["x"], prefix + "y": host["y"],
+        prefix + "rint": host["rint"], prefix + "rfrac": host["rfrac"],
+        prefix + "coeffs": np.asarray(coeffs),
+        prefix + "fit_rms": np.asarray(rms)})
+    return [int(s) for s in np.nonzero(np.asarray(rms) > FIT_RMS_WARN)[0]]
+
+
+def _serve_requests(lo, hi):
+    """The bench's request epochs: settle (8 x 48), bench (8 x 48) and
+    the probes (12 x 48), drawn in that order from one seeded stream."""
+    S = PREDICT
+    rng = np.random.default_rng(S["seed"])
+    n, k = S["times_per_request"], S["requests"]
+
+    def draw(m):
+        return np.stack([np.sort(rng.uniform(lo, hi, size=n))
+                         for _ in range(m)])
+
+    return {"settle": draw(k), "bench": draw(k), "probe": draw(S["probes"])}
+
+
+def export_predict_serve(model, which: str, arrays: dict, meta: dict) -> None:
+    """P1's read path on ``model`` (``ref/predict/serve/``): a
+    ``PredictorCache`` over ``span_days`` from PEPOCH (ngc, at the
+    barycentre) or from ``gen_start`` (b1855, at GBT), built, then the
+    settle and bench batches coalesced through ``run_predict_requests``
+    (``pool=None``, the bench's ladders) and the probes one by one; every
+    result's arrays and ``cache.predict`` at the bench epochs."""
+    from pint_tpu.predict import PredictorCache, PredictRequest
+    from pint_tpu.predict.door import run_predict_requests
+    from pint_tpu.predict.generate import node_targets
+
+    S = PREDICT
+    obs = S["serve"][which]
+    start = float(model.PEPOCH.value) if which == "ngc" \
+        else S["gen_start"]
+    cache = PredictorCache(model, start, start + S["span_days"], obs=obs,
+                           segLength=S["segLength"], ncoeff=S["ncoeff"],
+                           obsFreq=S["obsFreq"])
+    cache.build()
+    P = "ref/predict/serve/"
+    host = node_targets(model, cache._tmid, S["segLength"], S["ncoeff"],
+                        obs, S["obsFreq"])
+    for k in ("rint", "rfrac"):
+        if not np.array_equal(host[k], getattr(cache, "_" + k)):
+            raise SystemExit("node_targets is not the cache's build")
+    warned = _predict_generation(P, arrays, model, cache._tmid, host,
+                                 cache._coeffs, cache._rms, obs)
+    lo, hi = cache.coverage()
+    reqs = _serve_requests(lo, hi)
+    ladders = dict(time_buckets=(S["times_per_request"],),
+                   batch_buckets=(1, S["requests"]))
+    for tag, times in reqs.items():
+        arrays[P + tag + "_times"] = times
+        if tag == "probe":
+            res = [run_predict_requests(cache, None,
+                                        [PredictRequest(t)], **ladders)[0]
+                   for t in times]
+        else:
+            res = run_predict_requests(
+                cache, None, [PredictRequest(t) for t in times], **ladders)
+        for f in ("phase_int", "phase_frac", "freq"):
+            arrays[P + f"{tag}_{f}"] = np.stack([getattr(r, f) for r in res])
+        for f in ("bucket", "batch", "windows"):
+            arrays[P + f"{tag}_{f}"] = np.array([getattr(r, f) for r in res])
+    pi, pf, fr = cache.predict(reqs["bench"].ravel())
+    arrays[P + "predict_phase_int"] = pi
+    arrays[P + "predict_phase_frac"] = pf
+    arrays[P + "predict_freq"] = fr
+    ref = meta.setdefault("reference", {}).setdefault("predict", {})
+    ref["serve"] = {"obs": obs, "mjd_start": start,
+                    "mjd_end": start + S["span_days"],
+                    "segLength": S["segLength"], "ncoeff": S["ncoeff"],
+                    "obsFreq": S["obsFreq"], "seed": S["seed"],
+                    "requests": S["requests"],
+                    "times_per_request": S["times_per_request"],
+                    "probes": S["probes"], "warned": warned,
+                    "hits": int(cache.hits), "misses": int(cache.misses)}
+
+
+def export_predict_gen(models: dict, arrays_by: dict, meta_by: dict) -> None:
+    """P2 (``ref/predict/gen/``): one ``generate_predictor_sets`` call at
+    ``gen_obs`` over ``gen_days`` from ``gen_start`` for the members'
+    models in :data:`PREDICT`'s order (``pool=None``); each member's rows
+    go to its own snapshot's arrays."""
+    from pint_tpu.predict.generate import (generate_predictor_sets,
+                                           node_targets, window_tmids)
+
+    S = PREDICT
+    names = list(S["gen_members"])
+    lo, hi = S["gen_start"], S["gen_start"] + S["gen_days"]
+    sets = generate_predictor_sets([models[n] for n in names], lo, hi,
+                                   S["gen_obs"], segLength=S["segLength"],
+                                   ncoeff=S["ncoeff"], obsFreq=S["obsFreq"])
+    tmids = window_tmids(lo, hi, S["segLength"])
+    for n, ps in zip(names, sets):
+        host = node_targets(models[n], tmids, S["segLength"], S["ncoeff"],
+                            S["gen_obs"], S["obsFreq"])
+        if not np.array_equal(host["rint"], ps.rphase_int):
+            raise SystemExit(f"{n}: node_targets is not the set's")
+        warned = _predict_generation("ref/predict/gen/", arrays_by[n],
+                                     models[n], tmids, host, ps.coeffs,
+                                     ps.fit_rms, S["gen_obs"])
+        ref = meta_by[n].setdefault("reference", {}).setdefault("predict",
+                                                                 {})
+        ref["gen"] = {"obs": S["gen_obs"], "mjd_start": lo, "mjd_end": hi,
+                      "segLength": S["segLength"], "ncoeff": S["ncoeff"],
+                      "obsFreq": S["obsFreq"], "members": names,
+                      "member": names.index(n), "warned": warned}

@@ -41,7 +41,8 @@ def _port_sources():
                     REPO / "tools" / "torch_sass_ops.py",
                     REPO / "tools" / "torch_chol_probe.py",
                     REPO / "tools" / "torch_k11_probe.py",
-                    REPO / "tools" / "torch_amortized_probe.py"]
+                    REPO / "tools" / "torch_amortized_probe.py",
+                    REPO / "tools" / "torch_predict_probe.py"]
 
 
 def test_import_and_load_pull_in_no_jax():
@@ -61,7 +62,9 @@ def test_import_and_load_pull_in_no_jax():
         "pint_torch.catalog, pint_torch.kernels.hd_cross_lnlike, "
         "pint_torch.amortized, "
         "pint_torch.kernels.compensated_matmul, pint_torch.precision, "
-        "pint_torch.autotune\n"
+        "pint_torch.autotune, pint_torch.predict, pint_torch.polycos, "
+        "pint_torch.observatory, pint_torch.timescales, "
+        "pint_torch.ephemeris, pint_torch.tdb_integrated, pint_torch.earth\n"
         "import pint_torch.integrity.robust, pint_torch.integrity.quarantine\n"
         "from pint_torch.bridge import load_snapshot, STANDIN_PATH, "
         "ELL1_PATH, ELL1H_PATH, NGC_PHOFF_PATH, DDK_PATH, DDGR_PATH, "
@@ -180,12 +183,16 @@ def test_entry_points_default_to_the_gpu():
                                     "precision.compensated",
                                     "precision.tune", "precision.__init__",
                                     "autotune.records", "autotune.manifest",
-                                    "autotune.__init__"])
+                                    "autotune.__init__",
+                                    "observatory.__init__",
+                                    "predict.__init__"])
 def test_api_modules_import_no_jax(module):
     """The API's modules, the Bayesian and MCMC ones, the photon
     domain's, the streaming engine's, the serve batcher's, the
     quarantine gate's, the catalogue's, K10's and K11's wrappers, the
-    precision layer's and the autotuner's records' import neither
+    precision layer's, the autotuner's records', the host layer's
+    observatories (with the timescales, ephemeris and Earth they import)
+    and the predict package (with K13, K14 and the polycos) import neither
     ``jax`` nor ``pint_tpu`` (by their source, and in a fresh
     interpreter)."""
     path = REPO / "pint_torch" / f"{module.replace('.', '/')}.py"
@@ -427,17 +434,28 @@ def test_cpu_tensors_never_reach_a_kernel():
         for acc in ("native", "f64", "two_sum", "two_prod"):
             out = compensated_matmul(a, a[0].T, ct, acc)
             assert out.shape == (2, 3, 3) and bool((out == 20.0).all())
+    # K13 and K14, the predict path's evaluation and fit
+    from pint_torch.kernels.polyco_eval import polyco_eval
+    from pint_torch.kernels.polyco_fit import polyco_fit
+
+    ip, frac, freq = polyco_eval(fr, fr, fr + 300.0, fr[..., None].repeat(
+        1, 1, 12))
+    assert bool(torch.isfinite(freq).all()) and bool((frac >= 0).all())
+    xs = torch.linspace(-0.99, 0.99, 24, dtype=torch.float64)[None]
+    c, rms = polyco_fit(xs, xs * 0.0, 12)
+    assert bool((c == 0.0).all()) and float(rms[0]) == 0.0
     counts = kernels.launch_counts()
     tables = [mod.KERNELS for mod in kernels.modules().values()]
     assert set(counts) == {n for t in tables + [GRAD_KERNELS]
                            for n in t.values()}
-    assert len(counts) == 2 + 20 + 2 + 16 + 3 + 6 + 2 + 5 + 4 + 4 + 8 + 7
+    assert len(counts) == 2 + 20 + 2 + 16 + 3 + 6 + 2 + 5 + 4 + 4 + 8 + 7 \
+        + 1 + 1
     assert not any(counts.values())
 
 
 def test_every_kernel_is_built_without_contraction(tmp_path, monkeypatch):
     """Each kernel's nvcc command carries -fmad=false and no -fmad=true:
-    every product and sum of K1-K12 rounds alone, as the twins' torch
+    every product and sum of K1-K14 rounds alone, as the twins' torch
     operations do (K7 calls no pow(), the one reason it once was built
     with contraction; K8's density, K9's factor and K10's cross term are
     bitwise their plain versions')."""
@@ -475,7 +493,8 @@ def test_kernel_sources_ship_with_the_package():
     for name in ("spin_phase", "dd_binary", "schur_cholesky_solve",
                  "ell1_binary", "wls_lstsq", "binary_orbits",
                  "solar_wind_pl", "photon_lnlike", "chol_rank_update",
-                 "hd_cross_lnlike", "compensated_matmul"):
+                 "hd_cross_lnlike", "compensated_matmul", "polyco_eval",
+                 "polyco_fit"):
         src = (csrc / f"{name}.cu").read_text()
         assert "extern \"C\"" in src and f"{name}_launch" in src
     from pint_torch import kernels

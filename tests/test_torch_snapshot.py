@@ -540,13 +540,15 @@ API_DIGESTS = {
 
 
 def _digest(path, skip=("ref/api/", "ref/bayes/", "ref/sweep/",
-                       "ref/precision/", "ref/amortized/")) -> str:
+                       "ref/precision/", "ref/amortized/",
+                       "ref/predict/")) -> str:
     """sha256 (16 hex) of a snapshot's arrays but those under the
     prefixes ``skip`` (name, dtype, shape, bytes) and of its ``meta``
     without their keys (``top_level`` and ``reference["api"]`` for
     ``ref/api/``, ``reference["bayes"]`` for ``ref/bayes/``,
     ``reference["precision"]`` for ``ref/precision/``,
-    ``reference["amortized"]`` for ``ref/amortized/``; the fused sweep's
+    ``reference["amortized"]`` for ``ref/amortized/``,
+    ``reference["predict"]`` for ``ref/predict/``; the fused sweep's
     ``ref/sweep/`` has arrays only)."""
     import hashlib
 
@@ -570,6 +572,8 @@ def _digest(path, skip=("ref/api/", "ref/bayes/", "ref/sweep/",
         meta.get("reference", {}).pop("precision", None)
     if "ref/amortized/" in skip:
         meta.get("reference", {}).pop("amortized", None)
+    if "ref/predict/" in skip:
+        meta.get("reference", {}).pop("predict", None)
     h.update(json.dumps(meta, sort_keys=True).encode())
     return h.hexdigest()[:16]
 
@@ -662,8 +666,10 @@ def test_bayes_snapshots_keep_every_earlier_key(attr):
 
     which, digest = BAYES_DIGESTS[attr]
     path = getattr(bridge, attr)
-    # ref/amortized/, added later to ell1 and ddgr, is left out as well
-    assert _digest(path, ("ref/bayes/", "ref/amortized/")) == digest
+    # ref/amortized/ and ref/predict/, added later to ell1 and ddgr, are
+    # left out as well
+    assert _digest(path, ("ref/bayes/", "ref/amortized/", "ref/predict/")) \
+        == digest
     meta, arrays = bridge.read_snapshot(path)
     bz = meta["reference"]["bayes"]
     spec = standin.BAYES[which]
@@ -788,7 +794,8 @@ STANDIN_DIGESTS = {
 def test_committed_standins_are_bitwise_as_committed(name):
     path = os.path.join(REPO, "pint_torch", "data", name)
     assert _digest(path, skip=("ref/sweep/", "ref/precision/",
-                               "ref/amortized/")) == STANDIN_DIGESTS[name]
+                               "ref/amortized/", "ref/predict/")) \
+        == STANDIN_DIGESTS[name]
 
 
 #: the stand-ins that carry amortized inference's reference outputs
@@ -817,7 +824,8 @@ def test_amortized_snapshots_keep_every_earlier_key(attr):
     from pint_torch import bridge
 
     path = getattr(bridge, attr)
-    assert _digest(path, ("ref/amortized/",)) == AMORTIZED_DIGESTS[attr]
+    assert _digest(path, ("ref/amortized/", "ref/predict/")) \
+        == AMORTIZED_DIGESTS[attr]
     meta, arrays = bridge.read_snapshot(path)
     A = meta["reference"]["amortized"]
     spec = standin.AMORTIZED
@@ -1045,6 +1053,47 @@ def _add_outputs(path: str, which: str, export, prefix: str) -> None:
     np.savez_compressed(path, **arrays)
 
 
+#: the committed stand-in of each P2 member
+PREDICT_FILES = {"b1855": "b1855_standin.npz", "ell1": "j1909_ell1_standin.npz",
+                 "ddk": "j1713_ddk_standin.npz",
+                 "ddgr": "b1913_ddgr_standin.npz"}
+
+
+def _add_predict(path: str, which: str) -> None:
+    """Add ``ref/predict/`` (``_torch_standin.PREDICT``): P1's read path
+    to the committed ngc stand-in at ``path``, or (``p2``) P2's joint
+    generation to the four members' committed stand-ins in the directory
+    ``path`` and b1855's read path to b1855's; each model rebuilt from its
+    settings must export its committed state bitwise, and the arrays
+    already there stay as they are."""
+    if which == "ngc":
+        members = {"ngc": path}
+    elif which == "p2":
+        members = {n: os.path.join(path, f)
+                   for n, f in PREDICT_FILES.items()}
+    else:
+        raise SystemExit("--predict takes --settings ngc or p2")
+    built = {n: _rebuilt(p, n) for n, p in members.items()}
+    models = {n: b[0] for n, b in built.items()}
+    arrays = {n: b[2] for n, b in built.items()}
+    metas = {n: b[3] for n, b in built.items()}
+    before = {n: dict(a) for n, a in arrays.items()}
+    if which == "ngc":
+        standin.export_predict_serve(models["ngc"], "ngc", arrays["ngc"],
+                                     metas["ngc"])
+    else:
+        standin.export_predict_gen(models, arrays, metas)
+        standin.export_predict_serve(models["b1855"], "b1855",
+                                     arrays["b1855"], metas["b1855"])
+    for n, p in members.items():
+        for k, v in arrays[n].items():
+            if k in before[n] and v is not before[n][k] \
+                    or k not in before[n] and not k.startswith("ref/predict/"):
+                raise SystemExit(f"the export wrote {k} outside ref/predict/")
+        arrays[n]["meta"] = np.asarray(json.dumps(metas[n]))
+        np.savez_compressed(p, **arrays[n])
+
+
 def _add_precision(path: str, which: str) -> None:
     """Add the precision layer's reference outputs (``ref/precision/``) to
     the committed b1855, j1909_stream or pta67_catalog stand-in at
@@ -1110,7 +1159,8 @@ if __name__ == "__main__":
     ap.add_argument("--chunk", type=int, default=16,
                     help="grid points per reference executable (memory only;"
                          " each point's chi2 is independent of it)")
-    ap.add_argument("--settings", choices=sorted(SETTINGS), default="b1855",
+    ap.add_argument("--settings", choices=sorted(SETTINGS) + ["p2"],
+                    default="b1855",
                     help="b1855: FULL_SETTINGS (72 DMX windows of 45 d); "
                          "dmx15: DMX15_SETTINGS (216 windows of 15 d); "
                          "ell1: ELL1_SETTINGS (the J1909-3744-shaped WLS "
@@ -1171,8 +1221,17 @@ if __name__ == "__main__":
                          "outputs and probes (ref/precision/) to the "
                          "committed b1855, stream or pta67_catalog file at "
                          "--write, keeping its arrays")
+    ap.add_argument("--predict", action="store_true",
+                    help="add the phase-prediction path's reference outputs "
+                         "(ref/predict/): with --settings ngc, P1's read "
+                         "path to the committed file at --write; with "
+                         "--settings p2, P2's generation over b1855, ell1, "
+                         "ddk and ddgr (and b1855's read path) to their "
+                         "committed files in the directory --write")
     args = ap.parse_args()
-    if args.amortized:
+    if args.predict:
+        _add_predict(args.write, args.settings)
+    elif args.amortized:
         _add_amortized(args.write, args.settings)
     elif args.amortized_op_by_op:
         _add_outputs(args.write, args.settings,
