@@ -14,12 +14,13 @@ Phases, one line each:
    source), one nvcc per source, started together; the ptxas report of each ``__global__`` (registers, stack
    frame, spill bytes; K1's per S = 1..6, K2's and K4's per mode and orbit
    source, K6's per form, its duals staged and direct, K8's per mode and
-   output, K9's per factor layout and entry point, K10's, K11's per
-   accumulation mode and compute dtype), read from the
+   output, K9's per factor layout and entry point, K10's, K11's forward
+   and backward per accumulation mode and compute dtype), read from the
    build logs: K1's primal templates must hold no stack frame, and no
    primal (K1, K2 in its five modes and both orbit sources, K4 likewise,
-   K6, K7), no ELL1H dual, no K6 or K7 dual, no tiled K5 kernel, no K8,
-   no K9 and no K10 kernel may spill;
+   K6, K7), no ELL1H dual, no K6 or K7 dual, no tiled K5 kernel, no K8
+   kernel but the MIXED ones (whose switch over eight primitives is
+   printed, not bounded), no K9 and no K10 kernel may spill;
 3. main paths, each with the kernel launch counts zeroed just before it
    and read just after, and every kernel of the path required to have
    launched; then its bars against the reference package's outputs stored
@@ -174,6 +175,23 @@ Phases, one line each:
    evaluations/s, the half-ensemble's ``lnposterior_batch`` (median of 5
    warm calls), its launches, its CUDA kernels under ``torch.profiler``
    and its peak memory; K1's primal and every K8 kernel must launch.
+   Then the photon_mixed phase (``_photon_mixed_phase``) on photon_j0030
+   at its full 32768 photons: a template of one of each closed-form
+   primitive (``LCGaussian``, ``LCGaussian2``, ``LCLorentzian``,
+   ``LCLorentzian2``, ``LCVonMises``, ``LCTopHat``, ``LCKing``,
+   ``LCHarmonic``), rotated by the stored shift, on
+   ``MCMCFitterAnalyticTemplate`` (K8 MIXED) against ``ref/photon_mixed/``:
+   the lnposterior at the stored points within ``_photon_bars``, the
+   density at the stored phases within 1e-12 of its sum of |terms|, the
+   seeded 128-walker x 10-step chain at the photon chain bars; printed:
+   steps/s, the half-ensemble's ``lnposterior_batch`` and its busy
+   share; K1's primal, K8's MIXED kernels and the row sum must launch.
+   Then the full-covariance fits (``_full_cov_phase``) on b1855_noise:
+   ``GLSFitter.fit_toas(maxiter=2, full_cov=True)`` and
+   ``DownhillGLSFitter.fit_toas(full_cov=True)`` against
+   ``ref/full_cov/`` at the GLS bars (chi2 1e-6 rel, values 1e-2 sigma,
+   uncertainties 1e-6 rel), each fit's wall printed; K1's and K2 DD's
+   kernels must launch.
    Then the stream phase on j1909_stream
    (``j1909_stream_standin.npz``: J1909-3744's 4005 TOAs with 30
    red-noise modes on a pinned 8.87-yr period, a K = 150 GLS frame): the
@@ -269,9 +287,21 @@ Phases, one line each:
    reference's run (op by op on ell1 and ddgr, where the snapshot holds
    it), the last step's gradient at the reference's stored state, Adam
    from the reference's gradient, draws, moments and log-probs, a save
-   and load on the card; printed: 300 (pta67: 100) timed steps, a step's
+   and load on the card; printed: 150 (pta67: 100) timed steps, a step's
    forward and backward ms, busy share, peak memory, draws/s and
-   log-probs/s; then the predict phase (``_predict_phase``), from the
+   log-probs/s; then the amortized_reduced phase
+   (``_amortized_reduced_phase``): ell1 trained under
+   ``use_policy(PrecisionPolicy.forced("float32"))`` (flow.coupling at
+   float32 with float64 accumulation: K11 forward, its gradient K11's
+   backward) against ``ref/amortized_reduced/`` at the amortized phase's ell1 bars (the
+   ELBO and gradient at the initial parameters, the first two steps' ELBO
+   and the whole trace 1e-6 rel of the reference's op-by-op run, the
+   final weights and the gradient at the stored state 1e-6 of each leaf's
+   largest), then 2 steps under each of the eight (dtype, accumulation)
+   specs of flow.coupling alone, so that every K11 forward and backward
+   instantiation launches on the path, and 50 timed steps: steps/s and
+   the busy share of 5 steps; then the predict phase
+   (``_predict_phase``), from the
    snapshots' models and the port's own host layer (clock corrections,
    TDB, posvels, each component's context of the node TOAs), against the
    reference's ``ref/predict/``: P1, the bench's read path, on ngc (a
@@ -375,6 +405,22 @@ Phases, one line each:
    native at float32's CUDA-core rate or bfloat16's tensor-core rate) and
    the library's ``torch.matmul`` of the pre-rounded operands, one call a
    pass.
+   K11's backward in each accumulation mode and compute dtype, bitwise
+   its plain twin, on the amortized_reduced path's largest call (the
+   coupling MLP's (64, 32) @ (32, 45)), seeded flow shapes, an off-tile
+   batch and the serve Gram (4, 512, 4096) @ (4, 4096, 512); timed at the
+   path's call and at the serve Gram beside its bound (a, b and g read
+   and da, db written once, or 2 m k n multiply-adds for each cotangent,
+   twice under two_prod, at the float64 tensor cores' rate; native at
+   float32's or bfloat16's), the twin and the library's ``torch.matmul``
+   of the cotangent with the pre-rounded operands, then the rounding.
+   K8's MIXED density and log-likelihood kernels on the photon_mixed
+   path's calls and on edge rows (phases 0, -0.0, -1e-17, 1 - 1e-16, each
+   primitive's location and half a cycle off with an ulp either side, a
+   NaN row) under the path's table, each primitive alone and a wide King
+   and Lorentzian: the density bitwise, each row's sum within 1e-12 of its
+   sum of |terms|, two launches bitwise; timed at B = 64 rows of 32768
+   photons read from HBM beside the bound (``_k8_mixed_ops``).
    K12 against its plain version on the amortized pta67 path's G, u and
    walker points at B = 16, 32, 48 and 64 in every chunking (bitwise,
    within 1e-12 x sum_k |e_k| (w_k^2 + (M^-1)_kk + 1)), exactly 0.0 at
@@ -5523,6 +5569,619 @@ def _k13_k14_kernels(p1, p2, dev, tag) -> list:
     return records
 
 
+# ---------------------------------------------------------------------------
+# slice 21: K11's backward under a reduced flow.coupling spec, K8's MIXED
+# mode, the narrowband GLS fitters' full covariance
+# ---------------------------------------------------------------------------
+#: the (compute dtype, accumulation) specs of flow.coupling the
+#: amortized_reduced path trains 2 steps each under, after the stored run
+AMORT_REDUCED_SPECS = tuple((ct, acc) for ct in ("float32", "bfloat16")
+                            for acc in ("native", "f64", "two_sum",
+                                        "two_prod"))
+
+
+class _K11BwdSpy:
+    """Keep the largest K11 backward call per (accumulation, dtype) while
+    installed, copying the operands; counting stays in K11's own
+    ``_launch_backward``."""
+
+    def __init__(self, K11):
+        self.K11 = K11
+        self.orig = K11._launch_backward
+        self.calls = {}
+
+    def __enter__(self):
+        def spy(a3, b3, g3, ct, acc):
+            key = (acc, ct)
+            size = a3.numel() + b3.numel() + g3.numel()
+            if key not in self.calls or self.calls[key][0] < size:
+                self.calls[key] = (size, (a3.clone(), b3.clone(),
+                                          g3.clone()))
+            return self.orig(a3, b3, g3, ct, acc)
+
+        self.K11._launch_backward = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.K11._launch_backward = self.orig
+
+
+def _amortized_reduced_phase(path, kernels, tag, timed_steps):
+    """Amortized training under a reduced ``flow.coupling`` spec on ell1,
+    from ``ref/amortized_reduced/``: the counts zeroed just before the main
+    path (the VI's construction and ``train_flow`` of the stored schedule
+    inside ``use_policy(PrecisionPolicy.forced("float32"))``, then 2 steps
+    under each of :data:`AMORT_REDUCED_SPECS` forced on flow.coupling
+    alone) and read just after.  Bars (the amortized phase's ell1 bars): the ELBO at the
+    initial parameters and stored first samples 1e-6 rel and its gradient
+    1e-6 of each leaf's largest; the first two steps' ELBO and the whole
+    trace 1e-6 rel of the reference's op-by-op run (and of its jitted one,
+    printed); the final weights 1e-6 of each leaf's largest; at the stored
+    state before the last step the gradient 1e-6 of each leaf's largest
+    of the op-by-op gradient there, zeros alike; each spec's 2 steps
+    finite.  Then ``timed_steps`` steps at the stored width: steps/s, and
+    5 steps under ``torch.profiler``: CUDA kernels and busy share.
+    Returns (counts, the K11 backward calls by (accumulation, dtype))."""
+    import numpy as np
+    import torch
+
+    from pint_torch import precision
+    from pint_torch.amortized import TrainConfig, _prng, train_flow
+    from pint_torch.amortized.flows import leaves
+    from pint_torch.amortized.train import loss_and_grad
+    from pint_torch.bridge import read_snapshot
+    from pint_torch.kernels import compensated_matmul as K11
+
+    meta, ref = read_snapshot(path)
+    A = meta["reference"]["amortized_reduced"]
+    P = "ref/amortized_reduced/"
+    dev = torch.device("cuda")
+    f64 = torch.float64
+    flow_kw = dict(n_layers=A["n_layers"], hidden=A["hidden"],
+                   seed=A["flow_seed"])
+    cfg = TrainConfig(steps=A["steps"], n_samples=A["n_samples"], lr=A["lr"],
+                      seed=A["train_seed"])
+
+    def stored(prefix):
+        return [ref[k] for k in sorted(k for k in ref
+                                       if k.startswith(P + prefix))]
+
+    def leaf_gap(got, prefix):
+        return max(float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-300))
+                   for g, w in zip(got, stored(prefix)))
+
+    pol = precision.PrecisionPolicy.forced(*A["policy"])
+    spec_runs = {}
+    with _K11BwdSpy(K11) as spy:
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with precision.use_policy(pol):
+            vi, bt = _amortized_vi("bayes", path, meta, ref, flow_kw)
+            res = train_flow(vi, cfg)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        for ct, acc in AMORT_REDUCED_SPECS:
+            sp = precision.PrecisionPolicy.forced(
+                ct, accumulation=acc, segments=("flow.coupling",))
+            with precision.use_policy(sp):
+                from pint_torch.amortized import AmortizedVI
+
+                vs = AmortizedVI.from_bayesian(bt, **flow_kw)
+                r2 = train_flow(vs, TrainConfig(
+                    steps=2, n_samples=cfg.n_samples, lr=cfg.lr,
+                    seed=cfg.seed))
+            spec_runs[(ct, acc)] = (vs.flow.spec.tag(), r2.elbo_trace)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+    calls = dict(spy.calls)
+    bad = []
+    if not (vi.flow.spec.reduced and vi.flow.spec.tag() == A["flow_spec"]):
+        bad.append(f"flow.coupling spec {vi.flow.spec.tag()}, not "
+                   f"{A['flow_spec']}")
+    key, zs = _prng.prng_key(cfg.seed), []
+    for _ in range(cfg.steps):
+        key, sub = _prng.split(key)
+        zs.append(_prng.normal(sub, (cfg.n_samples, vi.ndim)))
+    with precision.use_policy(pol):
+        init = leaves(vi.flow.init(dev))
+        loss0, g0 = loss_and_grad(vi, init, torch.as_tensor(
+            zs[0], dtype=f64, device=dev))
+        d_e0 = abs(-float(loss0) / A["elbo0"] - 1)
+        d_g0 = leaf_gap([-g.cpu().numpy() for g in g0], "grad0/")
+        st = [torch.as_tensor(x, dtype=f64, device=dev)
+              for x in stored("state/p_")]
+        _, g_last = loss_and_grad(vi, st, torch.as_tensor(
+            zs[-1], dtype=f64, device=dev))
+    g_last = [g.cpu().numpy() for g in g_last]
+    d_gl = leaf_gap(g_last, "op_by_op/grad_last/")
+    d_gc = leaf_gap(g_last, "grad_last/")
+    zeros = all(np.array_equal(g == 0, w == 0) for g, w in zip(
+        g_last, stored("op_by_op/grad_last/")))
+    gap = np.abs(res.elbo_trace / ref[P + "op_by_op/trace"] - 1)
+    gap_c = np.abs(res.elbo_trace / ref[P + "trace"] - 1)
+    mine = [x.detach().cpu().numpy() for x in leaves(res.params)]
+    d_w = leaf_gap(mine, "op_by_op/final/")
+    d_wc = leaf_gap(mine, "final/")
+    if not (d_e0 <= AMORT_TRACE_BAR and d_g0 <= AMORT_TRACE_BAR):
+        bad.append(f"at (init, z0): ELBO {d_e0:.3e}, gradient {d_g0:.3e}")
+    if not (gap[:2].max() <= AMORT_TRACE_BAR and gap.max() <= AMORT_TRACE_BAR
+            and d_w <= AMORT_TRACE_BAR):
+        bad.append(f"trace {gap.max():.3e}, final weights {d_w:.3e}")
+    if not (d_gl <= AMORT_TRACE_BAR and zeros):
+        bad.append(f"gradient at the stored state {d_gl:.3e}, zeros alike "
+                   f"{zeros}")
+    nonfinite = [k for k, (_, tr) in spec_runs.items()
+                 if not np.all(np.isfinite(tr))]
+    if nonfinite:
+        bad.append(f"non-finite ELBO under {nonfinite}")
+    print(f"phase amortized_reduced ell1: {vi.ndim}-dim, flow "
+          f"{A['n_layers']} x {A['hidden']} under forced {A['policy']} "
+          f"(flow.coupling {vi.flow.spec.tag()}); train {cfg.steps} x "
+          f"{cfg.n_samples} {train_s:.4f} s; at (init, z0): ELBO {d_e0:.3e}, "
+          f"gradient {d_g0:.3e} of each leaf's largest (<= 1e-6); trace "
+          f"against the reference's op-by-op run: "
+          + ", ".join(f"{g:.1e}" for g in gap)
+          + f" (first two <= 1e-6, all <= 1e-6), against its jitted run up "
+          f"to {gap_c.max():.3e}; final weights {d_w:.3e} (jitted "
+          f"{d_wc:.3e}) of each leaf's largest; at the stored state the "
+          f"gradient {d_gl:.3e} of the op-by-op one's leaves (jitted "
+          f"{d_gc:.3e}), zeros alike {zeros}; 2 steps under each spec: "
+          + ", ".join(f"{t} {tr[-1]:.6e}" for t, tr in spec_runs.values())
+          + f"; launches (nonzero) "
+          f"{dict((k, v) for k, v in counts.items() if v)} {tag}",
+          flush=True)
+    if bad:
+        raise RuntimeError("amortized_reduced bars failed: " + "; ".join(bad))
+    tcfg = TrainConfig(steps=timed_steps, n_samples=cfg.n_samples,
+                       lr=cfg.lr, seed=cfg.seed, checkpoint_chunk=timed_steps)
+    with precision.use_policy(pol):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_flow(vi, tcfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n5, us5, w5 = _profile_cuda(lambda: train_flow(vi, TrainConfig(
+            steps=5, n_samples=cfg.n_samples, lr=cfg.lr, seed=cfg.seed)))
+    print(f"phase amortized_reduced ell1 timed: {timed_steps} steps "
+          f"{wall:.4f} s, {timed_steps / wall:.3f} steps/s; 5 steps under "
+          f"torch.profiler: "
+          + (f"{n5} CUDA kernels, busy {us5 / 1e6 / w5:.4f} ({us5 / 1e3:.2f} "
+             f"ms device of {w5 * 1e3:.2f} ms wall)" if n5 else
+             "not measured (no device events)") + f" {tag}", flush=True)
+    return counts, calls
+
+
+def _k11_bwd_library(K11, a3, b3, g3, ct, acc):
+    """One PyTorch call a product for the backward's function:
+    ``torch.matmul`` of the cotangent with the pre-rounded operands (in
+    float32 for native, float64 otherwise; two a cotangent under
+    two_prod), then the rounding to the compute dtype."""
+    import torch
+
+    F = torch.float64
+    at, bt = a3.transpose(1, 2), b3.transpose(1, 2)
+    if acc == "native":
+        gc = K11.round_to(g3, ct).float()
+        ac, bc = K11.round_to(at, ct).float(), K11.round_to(bt, ct).float()
+        return lambda: (K11.round_to(torch.matmul(gc, bc), ct),
+                        K11.round_to(torch.matmul(ac, gc), ct))
+    ah, bh = K11.round_to(at, ct).to(F), K11.round_to(bt, ct).to(F)
+    if acc != "two_prod":
+        return lambda: (K11.round_to(torch.matmul(g3, bh), ct),
+                        K11.round_to(torch.matmul(ah, g3), ct))
+    al = K11.round_to(at - ah, ct).to(F)
+    bl = K11.round_to(bt - bh, ct).to(F)
+    return lambda: tuple(K11.round_to(torch.matmul(x, y), ct) for x, y in (
+        (g3, bh), (g3, bl), (ah, g3), (al, g3)))
+
+
+def _k11_bwd_bound(a3, b3, ct, acc):
+    """The backward's least time: a, b and g read once and da, db written
+    once over HBM, or its products -- 2 m k n multiply-adds for da and for
+    db, twice that under two_prod -- at the float64 tensor cores' rate
+    (float32's CUDA cores' or bfloat16's tensor cores' for native)."""
+    B, m, k = a3.shape
+    n = b3.shape[-1]
+    nbytes = 8 * B * (2 * m * k + 2 * k * n + m * n)
+    flops = 2.0 * 2.0 * B * m * k * n * (2 if acc == "two_prod" else 1)
+    if acc != "native":
+        return _bound(nbytes, 0.0, tensor_ops=flops)
+    rate = F32_FLOP_PER_S if ct == "float32" else BF16_TC_FLOP_PER_S
+    return _bound(nbytes, flops, rate=rate)
+
+
+def _k11_bwd_kernels(calls, counts, dev, tag) -> list:
+    """K11's backward against its plain twin on the card, bitwise, in every
+    (accumulation, dtype): on the amortized_reduced path's largest call of
+    it (the coupling MLP's (64, in) @ (in, out) products), on seeded flow
+    shapes ((64, 2) @ (2, 32), (64, 32) @ (32, 3), (256, 32) @ (32, 32)),
+    an off-tile batch, and the serve Gram (4, 512, 4096) @ (4, 4096, 512);
+    timed at the path's call and at the serve Gram beside its bound, the
+    twin and the library's products.  Returns the kernels-line records
+    (measured at the path's call)."""
+    import torch
+
+    from pint_torch.kernels import compensated_matmul as K11
+
+    gen = torch.Generator(device=dev).manual_seed(20261102)
+
+    def rnd(*shape, spread=6.0):
+        return (torch.rand(*shape, generator=gen, dtype=torch.float64,
+                           device=dev) - 0.5) * torch.exp(
+            spread * torch.rand(*shape, generator=gen, dtype=torch.float64,
+                                device=dev) - spread / 2)
+
+    shapes = ((1, 64, 2, 32), (1, 64, 32, 3), (1, 256, 32, 32),
+              (3, 37, 19, 45))
+    rand = [(rnd(B, m, k), rnd(B, k, n), rnd(B, m, n))
+            for B, m, k, n in shapes]
+    gram = (rnd(4, 512, 4096, spread=2.0), rnd(4, 4096, 512, spread=2.0),
+            rnd(4, 512, 512, spread=2.0))
+    records = []
+    for acc in K11.ACCUMULATIONS:
+        for ct in ("float32", "bfloat16"):
+            name = K11.BWD_KERNELS[(acc, ct)]
+            path_call = calls.get((acc, ct), (0, None))[1]
+            cases = ([("path", path_call)] if path_call else []) \
+                + [(f"{tuple(a.shape)}x{tuple(b.shape)}", (a, b, g))
+                   for a, b, g in rand] + [("serve Gram", gram)]
+            same, err = True, 0.0
+            for _, (a3, b3, g3) in cases:
+                dk = K11._launch_backward(a3, b3, g3, ct, acc)
+                dr = K11.compensated_matmul_backward_reference(a3, b3, g3,
+                                                               ct, acc)
+                for x, y in zip(dk, dr):
+                    same = same and bool(torch.equal(x, y))
+                    err = max(err, float((x - y).abs().max()))
+            a3, b3, g3 = path_call if path_call else rand[0]
+            ms = _time_ms(lambda: K11._launch_backward(a3, b3, g3, ct, acc),
+                          20)
+            plain = _time_ms(lambda: K11.compensated_matmul_backward_reference(
+                a3, b3, g3, ct, acc), 3, warmup=1)
+            lib = _time_ms(_k11_bwd_library(K11, a3, b3, g3, ct, acc), 20)
+            bound = _k11_bwd_bound(a3, b3, ct, acc)
+            ga, gb, gg = gram
+            ms_g = _time_ms(lambda: K11._launch_backward(ga, gb, gg, ct, acc),
+                            3, warmup=1)
+            plain_g = _time_ms(
+                lambda: K11.compensated_matmul_backward_reference(
+                    ga, gb, gg, ct, acc), 1, warmup=0)
+            lib_g = _time_ms(_k11_bwd_library(K11, ga, gb, gg, ct, acc), 3,
+                             warmup=1)
+            bound_g = _k11_bwd_bound(ga, gb, ct, acc)
+            print(f"phase kernel {name}: bitwise the twin {same} (max|d| "
+                  f"{err:.3e}) on "
+                  + ", ".join(c for c, _ in cases)
+                  + f"; at {tuple(a3.shape)}x{tuple(b3.shape)} kernel "
+                  f"{ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms, "
+                  f"bound {bound[0]:.6f} ms ({bound[1]}); at the serve Gram "
+                  f"kernel {ms_g:.4f} ms, plain {plain_g:.4f} ms, library "
+                  f"{lib_g:.4f} ms, bound {bound_g[0]:.4f} ms ({bound_g[1]}; "
+                  f"share {bound_g[0] / ms_g:.3f}); {counts[name]} launches "
+                  f"on the amortized_reduced path {tag}", flush=True)
+            if not same:
+                raise RuntimeError(f"{name} disagrees with its plain version")
+            records.append(dict(
+                name=name, route="cuda",
+                source="pint_torch/kernels/csrc/compensated_matmul.cu",
+                replaces=K11.REPLACES_BWD, launches=counts[name],
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound[0],
+                bound_by=bound[1], library_ms=lib,
+                path="amortized_reduced"))
+    return records
+
+
+def _k8_mixed_ops(table) -> int:
+    """float64 instructions per photon of K8's MIXED density over
+    ``table``'s primitives (exponential, logarithm, cosine and division at
+    their SASS counts, ``SASS_OPS``; every other operation 1): the wrap
+    (2); per primitive the norm's product and sum (2) and its pdf --
+    Gaussian as GAUSS's peak; two-sided Gaussian 1 + 13 (6 + exp) + 1;
+    Lorentzian 2 + cos + 1 + div; two-sided Lorentzian 4 + 13 (6 + div);
+    von Mises 4 + cos + exp + div; top hat 6; King 4 + 13 (6 + 2 div +
+    log + exp) + div; harmonic 4 + cos."""
+    from pint_torch.kernels.photon_lnlike import NWRAP, REC
+
+    im = 2 * NWRAP + 1
+    cos = SASS_OPS["cos"]
+    per = {0: 3 + im * (4 + _DIV + _EXP) + 2 + _DIV,
+           1: 2 + im * (6 + _EXP), 2: 3 + cos + _DIV,
+           3: 4 + im * (6 + _DIV), 4: 4 + cos + _EXP + _DIV, 5: 6,
+           6: 4 + im * (6 + 2 * _DIV + _LOG + _EXP) + _DIV, 7: 4 + cos}
+    codes = [int(c) for c in table[1::REC]]
+    return 2 + sum(2 + per[c] for c in codes)
+
+
+def _photon_mixed_phase(label, path, kernels, tag):
+    """K8's MIXED mode on a photon stand-in, from ``ref/photon_mixed/``:
+    the mixed template (one of each closed-form primitive, rotated by the
+    stored FFTFIT shift) on ``MCMCFitterAnalyticTemplate``, the counts
+    zeroed just before ``fit_toas`` and ``get_template_vals`` and read
+    just after.  Bars: the route is K8 MIXED; the lnposterior at the
+    stored points within :func:`_photon_bars`, -inf where the
+    reference's; the density at the stored phases within 1e-12 of the
+    sum of |terms| (bg and each norm x pdf) of the reference's; the seeded
+    chain from the stored walkers at :func:`_photon_chain_bars`.  Printed:
+    steps/s, and ``lnposterior_batch`` at B = nwalkers / 2 rows (the
+    median of 5 warm calls) with its CUDA kernels and busy share.
+    Returns (counts, capture)."""
+    import numpy as np
+    import torch
+
+    import pint_torch.templates as PT
+    from pint_torch.bridge import load_snapshot, read_snapshot
+    from pint_torch.event_fitter import MCMCFitterAnalyticTemplate
+    from pint_torch.sampler import EnsembleSampler
+
+    meta, ref = read_snapshot(path)
+    R = meta["reference"]["photon"]
+    M = meta["reference"]["photon_mixed"]
+    S = R["settings"]
+    Pm = "ref/photon_mixed/"
+    stored = {"mixed/" + k[len(Pm):]: v for k, v in ref.items()
+              if k.startswith(Pm)}
+    refm = {"mixed": dict(naccepted=M["naccepted"], maxpost=M["maxpost"])}
+    import importlib
+
+    prims = importlib.import_module("pint_torch.templates.lcprimitives")
+    tpl = PT.LCTemplate([getattr(prims, c)(list(p), **kw)
+                         for c, p, _, kw in M["template"]],
+                        [n for _, _, n, _ in M["template"]])
+    tpl.rotate(M["shift"])
+    cap = Capture(kernels.modules())
+    cap.install()
+    t_phase = time.perf_counter()
+    model, batch = load_snapshot(path, device="cuda")
+    f = MCMCFitterAnalyticTemplate(batch, model, tpl,
+                                   prior_info=R["prior_info"])
+    route = repr(f)
+    pts = ref["ref/photon/points"]
+    lp = f.lnposterior_batch(pts)
+    want = stored["mixed/lnposterior"]
+    fin = np.isfinite(want)
+    same_inf = bool(np.array_equal(np.isneginf(lp), np.isneginf(want)))
+    bars = _photon_bars(f, pts[fin])
+    ratio = float(np.max(np.abs(lp[fin] - want[fin]) / bars))
+    phases = ref["ref/photon/phases"]
+    kernels.reset_counts()
+    tv = f.get_template_vals(phases)
+    torch.cuda.synchronize()
+    tv_counts = kernels.launch_counts()
+    norms = tpl.norms()
+    scale = np.abs(1.0 - norms.sum()) + sum(
+        np.abs(n * np.asarray(p(phases))) for n, p in zip(norms,
+                                                          tpl.primitives))
+    d_tv = float(np.max(np.abs(tv - stored["mixed/density"]) / scale))
+    print(f"phase photon_mixed {label}: N={batch.ntoas} photons, "
+          f"{len(tpl.primitives)} primitives ("
+          + ", ".join(type(p).__name__ for p in tpl.primitives)
+          + f"); {route}; lnposterior at {len(pts)} points max |d| / bar "
+          f"{ratio:.3e} (<= 1), -inf where the reference's {same_inf}; "
+          f"density at the stored phases max |d| / sum|terms| {d_tv:.3e} "
+          f"(<= 1e-12) {tag}", flush=True)
+    if not ("K8 photon_lnlike MIXED" in route and same_inf and ratio <= 1.0
+            and d_tv <= 1e-12):
+        raise RuntimeError(f"photon_mixed bars failed ({label})")
+    s = EnsembleSampler(S["nwalkers"], seed=R["seeds"]["sampler"])
+    s.decision_log = []
+    f.sampler = s
+    props = []
+    evaluate = f.lnposterior_batch
+
+    def recorded(p, _ev=evaluate):
+        props.append(np.array(p))
+        return _ev(p)
+
+    f.lnposterior_batch = recorded
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    maxpost = f.fit_toas(maxiter=M["steps"],
+                         pos=ref["ref/photon/analytic/pos"].copy())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = kernels.launch_counts()
+    del f.lnposterior_batch
+    cap.remove()
+    cb = _photon_chain_bars("mixed", f, stored, props, refm)
+    print(f"phase photon_mixed {label} chain: {S['nwalkers']} walkers x "
+          f"{M['steps']} steps, fit_toas {wall:.4f} s, "
+          f"{M['steps'] / wall:.2f} steps/s, acceptance "
+          f"{s.acceptance_fraction:.6f} (reference {M['acceptance']:.6f}), "
+          f"maxpost {maxpost:.10f}; {cb['inside']} decision(s) inside the "
+          f"margin; first differing decision {cb['diverged']}; walkers "
+          f"bitwise over {cb['bitwise_steps']} of {M['steps']} steps; "
+          f"launches (nonzero) {dict((k, v) for k, v in counts.items() if v)}"
+          f"; get_template_vals "
+          f"{dict((k, v) for k, v in tv_counts.items() if v)}; "
+          f"{time.perf_counter() - t_phase:.2f} s wall {tag}", flush=True)
+    rows = s.get_chain(flat=True)[-(S["nwalkers"] // 2):]
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        f.lnposterior_batch(rows)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    n_ev, dev_us, wall_p = _profile_cuda(lambda: f.lnposterior_batch(rows))
+    print(f"phase photon_mixed {label} B={len(rows)}: lnposterior_batch "
+          f"median of 5 warm {1e3 * float(np.median(times)):.4f} ms; CUDA "
+          f"kernels per evaluation (torch.profiler) "
+          + (f"{n_ev}, device {dev_us / 1e3:.4f} ms of {wall_p * 1e3:.4f} "
+             f"ms wall, busy {dev_us / 1e6 / wall_p:.4f}" if n_ev
+             else "not measured (no device events)") + f" {tag}",
+          flush=True)
+    return {k: counts[k] + tv_counts[k] for k in counts}, cap
+
+
+def _k8_mixed_kernels(cap, dev, tag) -> list:
+    """K8's MIXED instantiations against the plain version on the card: on
+    the photon_mixed path's calls (B = 64 walker rows of N = 32768 photons
+    and get_template_vals' density), and on edge rows (phases 0, -0.0,
+    -1e-17, 1 - 1e-16, each primitive's location and half a cycle off with
+    one ulp either side, a NaN row; weights with exact 0s and 1s, and
+    none) under the path's table, each primitive alone, and a King of
+    gamma 1.2 and a Lorentzian of gamma 0.3: the density bitwise (NaN
+    where the plain version's), each row's sum within 1e-12 of its sum of
+    |terms|, two launches bitwise; timed on the path's B = 64 rows, their
+    phases read from HBM (:func:`_rotated`), beside the bound.  Returns
+    the records' (kernel, source, replaces, err, ms, plain_ms, bound)
+    tuples."""
+    import numpy as np
+    import torch
+
+    from pint_torch.kernels import photon_lnlike as K8
+
+    def same(a, b):
+        return bool(torch.equal(torch.isnan(a), torch.isnan(b))
+                    and torch.equal(torch.nan_to_num(a, nan=0.0),
+                                    torch.nan_to_num(b, nan=0.0)))
+
+    a_l = cap.args("photon_lnlike", (K8.MIXED, False))
+    a_d = cap.args("photon_lnlike", (K8.MIXED, True))
+    tab = a_l[2]
+    host = tab.cpu().numpy()
+    recs = host[1:].reshape(-1, K8.REC)
+    locs = [float(r[1 + {0: 1, 1: 2, 2: 1, 3: 2, 4: 1, 5: 1, 6: 2,
+                         7: 0}[int(r[0])]]) for r in recs]
+    edge = [0.0, -0.0, -1e-17, 1.0 - 1e-16, 0.5, -0.5]
+    for x in locs + [(v + 0.5) % 1.0 for v in locs]:
+        edge += [np.nextafter(x, -np.inf), x, np.nextafter(x, np.inf)]
+    edge = np.asarray(edge)
+    rng = np.random.default_rng(20261103)
+    nan_row = rng.uniform(-0.5, 0.5, len(edge))
+    nan_row[::5] = np.nan
+    frac_e = torch.tensor(np.stack([edge, edge - 1.0, nan_row]),
+                          dtype=torch.float64, device=dev)
+    w_e = rng.beta(0.5, 1.5, len(edge))
+    w_e[::4], w_e[1::4] = 0.0, 1.0
+    w_e = torch.tensor(w_e, dtype=torch.float64, device=dev)
+    tables = [("path table", tab)]
+    for i, r in enumerate(recs):
+        one = np.concatenate([[1.0 - r[4]], r])
+        tables.append((f"primitive {int(r[0])} alone",
+                       torch.tensor(one, dtype=torch.float64, device=dev)))
+    from pint_torch.templates import LCTemplate
+    from pint_torch.templates.lcprimitives import LCKing, LCLorentzian
+
+    wide = LCTemplate([LCKing([0.05, 1.2, 0.3]), LCLorentzian([0.3, 0.7])],
+                      [0.3, 0.3])
+    tables.append(("King gamma 1.2, Lorentzian gamma 0.3",
+                   torch.tensor(K8.mixed_table(wide), dtype=torch.float64,
+                                device=dev)))
+    cases = [(f"path B={a_l[0].shape[0]} N={a_l[0].shape[1]}", a_l[0],
+              a_l[1], tab), (f"path density {tuple(a_d[0].shape)}",
+                             a_d[0], None, a_d[2])]
+    for tk, t8 in tables:
+        for wk, w in (("weights 0/1", w_e), ("no weights", None)):
+            cases.append((f"edges, {tk}, {wk}", frac_e, w, t8))
+    ok, err = True, 0.0
+    for what, fr, w, t8 in cases:
+        dk = K8._launch(fr, w, t8, K8.MIXED, True)
+        dr = K8.photon_lnlike_reference(fr, w, t8, K8.MIXED, True)
+        lk = K8._launch(fr, w, t8, K8.MIXED, False)
+        lr = K8.photon_lnlike_reference(fr, w, t8, K8.MIXED, False)
+        again = same(dk, K8._launch(fr, w, t8, K8.MIXED, True)) \
+            and same(lk, K8._launch(fr, w, t8, K8.MIXED, False))
+        v = dr if w is None else w * dr + (1 - w)
+        scale = torch.log(torch.clamp_min(v, 1e-300)).abs().sum(-1)
+        fin = torch.isfinite(lr)
+        rel = float(((lk - lr).abs()[fin] / scale[fin]).max()) \
+            if bool(fin.any()) else 0.0
+        dd = (dk - dr).abs()
+        if bool(torch.isfinite(dd).any()):
+            err = max(err, float(dd[torch.isfinite(dd)].max()))
+        bit = same(dk, dr)
+        print(f"phase kernel photon_lnlike MIXED {what}: density bitwise "
+              f"{bit}, sums max |d| / sum|terms| {rel:.3e} (<= 1e-12), NaN "
+              f"rows alike {same(lk[~fin], lr[~fin])}, two launches bitwise "
+              f"{again} {tag}", flush=True)
+        ok = ok and bit and rel <= 1e-12 and again \
+            and same(lk[~fin], lr[~fin])
+    if not ok:
+        raise RuntimeError("photon_lnlike MIXED disagrees with its plain "
+                           "version")
+    out = []
+    for density in (False, True):
+        kernel = K8.KERNELS[(K8.MIXED, density)]
+        fr8 = a_l[0][:a_l[0].shape[0] // 2] if a_l[0].shape[0] > 64 \
+            else a_l[0]
+        w8 = None if density else a_l[1]
+        B8, N8 = fr8.shape
+        ms = _time_ms(_rotated(K8._launch_terms, fr8, w8, tab, K8.MIXED,
+                               density), 10)
+        plain = _time_ms(_rotated(K8.photon_lnlike_reference, fr8, w8, tab,
+                                  K8.MIXED, density), 2, warmup=1)
+        nblk = (N8 + 255) // 256
+        nbytes = 8 * B8 * N8 + 8 * tab.shape[0] + (
+            8 * B8 * N8 if density else 8 * N8 + 8 * B8 * nblk)
+        ops = _k8_mixed_ops(host) + (0 if density else 3 + 1 + _LOG + 1)
+        bound = _bound(nbytes, B8 * N8 * ops, rate=F64_INSTR_PER_S)
+        print(f"phase kernel {kernel}: photon_j0030 B={B8} N={N8}, "
+              f"{len(recs)} primitives; phases from HBM: kernel {ms:.4f} ms, "
+              f"plain {plain:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}, "
+              f"{ops} ops/photon; share {bound[0] / ms:.2f}) {tag}",
+              flush=True)
+        out.append((kernel, "photon_lnlike.cu", K8.REPLACES, err, ms, plain,
+                    bound))
+    return out
+
+
+def _full_cov_phase(path, kernels, tag):
+    """The narrowband GLS fitters' full-covariance path on b1855_noise
+    (4005 TOAs; the dense N x N covariance of white noise, ECORR and red
+    noise through ``torch.linalg.cholesky``), from ``ref/full_cov/``: the
+    counts zeroed just before ``GLSFitter.fit_toas(full_cov=True)`` and
+    ``DownhillGLSFitter.fit_toas(full_cov=True)`` and read just after.
+    Bars (the GLS bars): chi2 1e-6 rel, values 1e-2 sigma, uncertainties
+    1e-6 rel, the converged flag the reference's.  Printed: each fit's
+    wall s.  Returns the counts."""
+    import numpy as np
+    import torch
+
+    from pint_torch.bridge import load_snapshot, read_snapshot
+    from pint_torch.gls_fitter import DownhillGLSFitter, GLSFitter
+
+    meta, ref = read_snapshot(path)
+    R = meta["reference"]["full_cov"]
+    model, batch = load_snapshot(path, device="cuda")
+    counts = {}
+    for key, cls, kw in (("gls", GLSFitter,
+                          dict(maxiter=R["gls_maxiter"], full_cov=True)),
+                         ("downhill", DownhillGLSFitter,
+                          dict(full_cov=True))):
+        f = cls(batch, model)
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        chi2 = f.fit_toas(**kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        for k, v in kernels.launch_counts().items():
+            counts[k] = counts.get(k, 0) + v
+        r = R[key]
+        params = r["params"]
+        vals = np.array([f.model.value(p) for p in params])
+        unc = np.array([f.model[p].uncertainty for p in params])
+        sig = ref[f"ref/full_cov/{key}_uncertainties"]
+        d_c = abs(chi2 / r["chi2"] - 1)
+        d_v = float(np.abs((vals - ref[f"ref/full_cov/{key}_values"])
+                           / sig).max())
+        d_u = float(np.abs(unc / sig - 1).max())
+        ok = (d_c <= 1e-6 and d_v <= 1e-2 and d_u <= 1e-6
+              and f.converged == r["converged"]
+              and [p for p in f.fitted_params if p != "Offset"] == params)
+        print(f"phase full_cov b1855_noise {cls.__name__}: N={batch.ntoas}, "
+              f"{len(params)} parameters; chi2 {chi2:.10f} (reference "
+              f"{r['chi2']:.10f}, {d_c:.3e} <= 1e-6), values {d_v:.3e} sigma "
+              f"(<= 1e-2), uncertainties {d_u:.3e} (<= 1e-6), converged "
+              f"{f.converged}; {wall:.4f} s {tag}", flush=True)
+        if not ok:
+            raise RuntimeError(f"full_cov bars failed ({cls.__name__})")
+    return counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -5607,7 +6266,8 @@ def main() -> int:
               for n in ("fold", "svd", "global")]
     ptxas += [("photon_lnlike", K8.KERNELS[(m, d)],
                f"photon_{'density' if d else 'lnlike'}_kernelILi{m}EE")
-              for m in (K8.BINNED, K8.GAUSS) for d in (False, True)]
+              for m in (K8.BINNED, K8.GAUSS, K8.MIXED)
+              for d in (False, True)]
     ptxas += [("photon_lnlike", K8.KERNELS["rowsum"], "photon_lnlike_rowsum")]
     ptxas += [("chol_rank_update", K9.KERNELS[(sm, ing)],
                f"chol_rank_kernelILb{int(sm)}ELb{int(ing)}EE")
@@ -5618,6 +6278,10 @@ def main() -> int:
         "hd_cross_bins")]
     ptxas += [("compensated_matmul", K11.KERNELS[(acc, ct)],
                f"compensated_matmul_kernelILi{i}ELi{j}E")
+              for i, acc in enumerate(K11.ACCUMULATIONS)
+              for j, ct in enumerate(("float32", "bfloat16"))]
+    ptxas += [("compensated_matmul", K11.BWD_KERNELS[(acc, ct)],
+               f"compensated_matmul_bwd_kernelILi{i}ELi{j}E")
               for i, acc in enumerate(K11.ACCUMULATIONS)
               for j, ct in enumerate(("float32", "bfloat16"))]
     ptxas += [(n, n, f"{n}_kernel") for n in ("polyco_eval", "polyco_fit")]
@@ -5631,7 +6295,8 @@ def main() -> int:
         + [K2.KERNELS[(K2.BTX, False)], K7.KERNELS[False]] \
         + [K6.KERNELS[(f, p)] + d for f in k6_forms for p in (False, True)
            for d in (("", " (direct)") if p else ("",))] \
-        + [K7.KERNELS[True]] + list(K8.KERNELS.values()) \
+        + [K7.KERNELS[True]] + [v for k, v in K8.KERNELS.items()
+                                if k == "rowsum" or k[0] != K8.MIXED] \
         + list(K9.KERNELS.values()) + list(K10.KERNELS.values()) \
         + list(K13.KERNELS.values()) + list(K14.KERNELS.values())
     for src, kernel, marker in ptxas:
@@ -5788,6 +6453,23 @@ def main() -> int:
             raise RuntimeError(f"kernels never launched on the {label} "
                                f"photon phase: {missing}")
         paths[label] = ({k: counts[k] + tv_counts[k] for k in counts}, cap_ph)
+    # K8's MIXED mode: the closed-form primitives' mixture at full width
+    counts_m, cap_m = _photon_mixed_phase("photon_j0030", PHOTON_PATH,
+                                          kernels, tag)
+    want = (K1.KERNELS[False], K8.KERNELS["rowsum"],
+            K8.KERNELS[(K8.MIXED, False)], K8.KERNELS[(K8.MIXED, True)])
+    missing = [k for k in want if counts_m[k] == 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on the photon_mixed "
+                           f"path: {missing}")
+    paths["photon_mixed"] = (counts_m, cap_m)
+    # the narrowband GLS fitters' full covariance
+    counts_f = _full_cov_phase(NOISE_PATH, kernels, tag)
+    missing = [k for k in (*K1.KERNELS.values(), *k2[K2.DD])
+               if counts_f[k] == 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on the full_cov path: "
+                           f"{missing}")
 
     _kepler_phase(KEPLER_PATH, tag)
 
@@ -5860,8 +6542,8 @@ def main() -> int:
                           *K10.GRAD_KERNELS.values())}
     t_amort = time.perf_counter()
     for label, path, kind, timed in (
-            ("ell1", ELL1_PATH, "bayes", 300),
-            ("ddgr", DDGR_PATH, "bayes", 300),
+            ("ell1", ELL1_PATH, "bayes", 150),
+            ("ddgr", DDGR_PATH, "bayes", 150),
             ("pta67_catalog", CATALOG_PATH, "catalog", 100)):
         counts_a, cap_a, obj = _amortized_phase(label, path, kind, kernels,
                                                 tag, timed)
@@ -5872,6 +6554,16 @@ def main() -> int:
         paths[f"amortized_{label}"] = (counts_a, cap_a)
         if kind == "catalog":
             amort_jl = obj
+    # under a reduced flow.coupling spec: K11 forward and backward
+    counts_r, k11_bwd_calls = _amortized_reduced_phase(ELL1_PATH, kernels,
+                                                       tag, 50)
+    want = (K1.KERNELS[True], K4.KERNELS[(K4.ELL1, True)],
+            *K11.KERNELS.values(), *K11.BWD_KERNELS.values())
+    missing = [k for k in want if counts_r[k] == 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on the amortized_reduced "
+                           f"path: {missing}")
+    paths["amortized_reduced"] = (counts_r, None)
     print(f"phase amortized wall: {time.perf_counter() - t_amort:.2f} s "
           f"{tag}", flush=True)
 
@@ -6714,6 +7406,8 @@ def main() -> int:
 
     for rec in _k8_kernels(paths["photon_j0030"][1], dev, tag):
         record(*rec, path="photon_j0030")
+    for rec in _k8_mixed_kernels(paths["photon_mixed"][1], dev, tag):
+        record(*rec, path="photon_mixed")
 
     # K5: the ell1 path's largest call (its 256 points, N = 4005, k = 88)
     # runs the tiled kernels.  Each is held against its own plain version on
@@ -6991,6 +7685,7 @@ def main() -> int:
     records += _k9_kernels(stream_cap, stream_counts, dev, tag)
     records += _k10_kernels(cat_jl, cat_counts, cat_bench, cat_pts, dev, tag)
     records += _k11_kernels(k11_calls, prec_counts, dev, tag)
+    records += _k11_bwd_kernels(k11_bwd_calls, counts_r, dev, tag)
     counts_c, cap_c = paths["amortized_pta67_catalog"]
     records += _k12_kernels(amort_jl, cap_c, counts_c, dev, tag)
     _backward_kernels({k: v[1] for k, v in paths.items()}, dev, tag)

@@ -21,8 +21,9 @@ update in the reference's order of operations.  The host loop owns:
 
 ``plan=`` (the sample axis sharded over a device mesh) is ROADMAP queue A
 item 9 and raises.  A reduced ``flow.coupling`` precision spec runs the
-coupling matmuls on K11, which has no backward yet (ROADMAP queue B item
-12a): training under one raises rather than drop the gradient.
+coupling matmuls on K11 and their gradient on K11's backward kernel
+(:class:`~pint_torch.kernels.compensated_matmul.CompensatedMatmul`), as
+the reference's ``value_and_grad`` differentiates its reduced matmul.
 """
 
 from __future__ import annotations
@@ -173,11 +174,6 @@ def train_flow(vi: AmortizedVI, cfg: Optional[TrainConfig] = None,
         raise NotImplementedError(
             "train_flow(plan=...): the sample axis over a device mesh is "
             "ROADMAP queue A item 9")
-    if vi.flow.spec.reduced:
-        raise NotImplementedError(
-            f"train_flow under a reduced flow.coupling spec "
-            f"({vi.flow.spec.tag()}): K11 has no backward yet (ROADMAP "
-            "queue B item 12a); its gradient would be dropped")
     n = cfg.n_samples
     dev = vi.device
     step_fn = adam_step(vi, cfg)

@@ -171,16 +171,17 @@ def dd_abs(x: DD) -> DD:
     return DD(x.hi * sgn, x.lo * sgn)
 
 
-def dd_sum(x: DD, dim=None) -> DD:
+def dd_sum(x: DD, axis=None) -> DD:
     """Sum of a DD tensor keeping dd precision (compensated sequential fold).
-    ``dim=None`` sums over all elements."""
+    ``axis=None`` sums over all elements (numpy convention); an integer
+    axis reduces that axis only."""
     hi, lo = x.hi, x.lo
     if not hi.ndim:
         return x
-    if dim is None:
+    if axis is None:
         hs, ls = hi.reshape(-1), lo.reshape(-1)
     else:
-        hs, ls = hi.movedim(dim, 0), lo.movedim(dim, 0)
+        hs, ls = hi.movedim(axis, 0), lo.movedim(axis, 0)
     acc = DD(hs[0], ls[0])
     for i in range(1, hs.shape[0]):
         acc = dd_add(acc, DD(hs[i], ls[i]))

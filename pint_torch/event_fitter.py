@@ -33,11 +33,16 @@ import torch
 
 from pint_torch import F64
 from pint_torch.fitter import Fitter
-from pint_torch.kernels.photon_lnlike import (BINNED, GAUSS, gauss_table,
-                                              photon_lnlike)
+from pint_torch.kernels.photon_lnlike import (BINNED, GAUSS, MIXED,
+                                              MIXED_CODES, gauss_table,
+                                              mixed_table, photon_lnlike)
 from pint_torch.sampler import EnsembleSampler
+from pint_torch.templates import lcprimitives as _prims
 from pint_torch.templates.lcprimitives import LCGaussian
 from pint_torch.templates.lctemplate import LCTemplate
+
+#: the closed-form primitives K8's MIXED mode evaluates
+_MIXED_CLASSES = tuple(getattr(_prims, name) for name in MIXED_CODES)
 
 __all__ = ["MCMCFitterBinnedTemplate", "MCMCFitterAnalyticTemplate",
            "marginalize_over_phase"]
@@ -117,8 +122,8 @@ class _PhotonMCMCFitter(Fitter):
             names = sorted({type(p).__name__
                             for p in self.template.primitives})
             return f"torch _pdf ({', '.join(names)})"
-        return "K8 photon_lnlike " + ("BINNED" if kt[0] == BINNED
-                                      else "GAUSS")
+        return "K8 photon_lnlike " + {BINNED: "BINNED", GAUSS: "GAUSS",
+                                      MIXED: "MIXED"}[kt[0]]
 
     def _density(self, frac: torch.Tensor) -> torch.Tensor:
         """The template density at ``frac mod 1`` (any shape; K8 takes it
@@ -389,8 +394,11 @@ class MCMCFitterAnalyticTemplate(_PhotonMCMCFitter):
     """Analytic LCTemplate evaluated on the device (reference
     ``mcmc_fitter.py:485``); template parameters stay fixed during timing
     sampling (fit them separately with LCFitter).  The route (K8's GAUSS
-    mode for a template of ``LCGaussian`` peaks, else the primitives' torch
-    branches) is chosen at the first evaluation; the template's parameters
+    mode for a template of ``LCGaussian`` peaks, its MIXED mode for any
+    other mixture of the closed-form primitives, else -- an
+    energy-dependent template, ``LCSkewGaussian``, ``LCEmpiricalFourier``,
+    ``LCKernelDensity`` -- the primitives' torch branches) is chosen at
+    the first evaluation; the template's parameters
     are read at every call, as the reference's traced density reads
     them, and go to the device only when they changed (a host-to-device
     copy between an evaluation's kernels would wait for them)."""
@@ -398,19 +406,23 @@ class MCMCFitterAnalyticTemplate(_PhotonMCMCFitter):
     def __init__(self, batch, model, template: LCTemplate, **kw):
         if not isinstance(template, LCTemplate):
             raise TypeError("MCMCFitterAnalyticTemplate needs an LCTemplate")
-        self._gauss = None
-        self._gauss_table = (None, None)
+        self._mode = None
+        self._kernel_table = (None, None)
         super().__init__(batch, model, template, **kw)
 
     def _table(self):
-        if self._gauss is None:
-            self._gauss = all(type(p) is LCGaussian
-                              for p in self.template.primitives) \
-                and not self.template.is_energy_dependent()
-        if not self._gauss:
+        if self._mode is None:
+            prims = self.template.primitives
+            closed = not self.template.is_energy_dependent()
+            self._mode = GAUSS if closed and all(
+                type(p) is LCGaussian for p in prims) else MIXED \
+                if closed and all(type(p) in _MIXED_CLASSES
+                                  for p in prims) else False
+        if self._mode is False:
             return None
-        host = gauss_table(self.template)
-        if not np.array_equal(host, self._gauss_table[0]):
-            self._gauss_table = (host, torch.as_tensor(
+        host = gauss_table(self.template) if self._mode == GAUSS \
+            else mixed_table(self.template)
+        if not np.array_equal(host, self._kernel_table[0]):
+            self._kernel_table = (host, torch.as_tensor(
                 host, dtype=F64, device=self.batch.device))
-        return GAUSS, self._gauss_table[1]
+        return self._mode, self._kernel_table[1]

@@ -60,7 +60,7 @@ class Fitter:
     robust_iterations = 0
 
     @staticmethod
-    def auto(batch, model, downhill: bool = True) -> "Fitter":
+    def auto(batch, model, downhill: bool = True, **kw) -> "Fitter":
         """The fitter the model and TOAs call for (reference
         ``fitter.py:78-92``): for wideband TOAs ``WidebandDownhillFitter``
         (``WidebandTOAFitter`` when ``downhill`` is False), with correlated
@@ -71,19 +71,33 @@ class Fitter:
                                              WidebandTOAFitter)
 
             return (WidebandDownhillFitter if downhill
-                    else WidebandTOAFitter)(batch, model)
+                    else WidebandTOAFitter)(batch, model, **kw)
         if model.has_correlated_errors:
             from pint_torch.gls_fitter import DownhillGLSFitter, GLSFitter
 
-            return (DownhillGLSFitter if downhill else GLSFitter)(batch,
-                                                                   model)
-        return (DownhillWLSFitter if downhill else WLSFitter)(batch, model)
+            return (DownhillGLSFitter if downhill else GLSFitter)(
+                batch, model, **kw)
+        return (DownhillWLSFitter if downhill else WLSFitter)(batch, model,
+                                                               **kw)
 
-    def __init__(self, batch, model):
+    def __init__(self, batch, model, residuals: Optional[Residuals] = None,
+                 track_mode: Optional[str] = None):
+        """``residuals`` (a :class:`~pint_torch.residuals.Residuals`) are
+        the fitter's first residuals in place of a fresh computation, as
+        the reference's; ``track_mode`` other than None raises: pulse-number
+        tracking needs the whole TOA set (ROADMAP queue A item 10c)."""
+        if track_mode is not None:
+            raise NotImplementedError(
+                f"Fitter(track_mode={track_mode!r}): pulse-number tracking "
+                "is ROADMAP queue A item 10c")
         self.batch = batch
         self.model_init = model
         self.model = model.copy()
-        self.update_resids()
+        self.track_mode = track_mode
+        if residuals is not None:
+            self.resids = residuals
+        else:
+            self.update_resids()
         # the reference's prefit residuals (``fitter.py:60``): residuals of
         # this fitter's own model, first read when the report asks, so
         # after a fit they hold the fitted model's as the reference's do
@@ -472,18 +486,20 @@ class WLSFitter(Fitter):
     """One-shot weighted-least-squares fitter (reference
     ``fitter.py:520``)."""
 
-    def __init__(self, batch, model):
-        super().__init__(batch, model)
+    def __init__(self, batch, model, **kw):
+        super().__init__(batch, model, **kw)
         if model.has_correlated_errors:
             raise CorrelatedErrors(model)
         self.method = "weighted_least_square"
 
     def fit_toas(self, maxiter: int = 1, threshold: Optional[float] = None,
-                 robust=None, huber_k: Optional[float] = None,
-                 robust_maxiter: int = 30, robust_tol: float = 1e-3) -> float:
+                 debug: bool = False, robust=None,
+                 huber_k: Optional[float] = None, robust_maxiter: int = 30,
+                 robust_tol: float = 1e-3) -> float:
         """``maxiter`` linearized WLS steps; returns the post-fit chi2.
         ``robust="huber"`` wraps them in the IRLS loop that Huber-weights
-        outlying TOAs (``robust_weights``)."""
+        outlying TOAs (``robust_weights``).  ``debug`` is accepted and, as
+        in the reference, changes nothing."""
         if self._check_robust_arg(robust):
             return self._run_irls(
                 lambda: self._fit_wls(maxiter, threshold), huber_k,
@@ -512,8 +528,8 @@ class DownhillFitter(Fitter):
     ``fitter.py:588``).  ``iterations`` counts the steps solved in the last
     ``fit_toas``, over all its timing fits."""
 
-    def __init__(self, batch, model):
-        super().__init__(batch, model)
+    def __init__(self, batch, model, **kw):
+        super().__init__(batch, model, **kw)
         self.method = "downhill"
 
     def _solve_step(self):
@@ -534,7 +550,8 @@ class DownhillFitter(Fitter):
     def fit_toas(self, maxiter: int = 20,
                  required_chi2_decrease: float = 1e-2,
                  max_chi2_increase: float = 1e-2, min_lambda: float = 1e-3,
-                 noise_fit_niter: int = 2, noisefit_method: str = "L-BFGS-B",
+                 debug: bool = False, noise_fit_niter: int = 2,
+                 noisefit_method: str = "L-BFGS-B",
                  compute_noise_uncertainties: bool = True,
                  raise_on_maxiter: bool = False, robust=None,
                  huber_k: Optional[float] = None, robust_maxiter: int = 30,
@@ -548,7 +565,8 @@ class DownhillFitter(Fitter):
         noise fit), the Hessian's uncertainties on the last round, then a
         final timing fit; ``noise_fit_results`` keeps each round's
         result.  ``robust="huber"`` (WLS family only) wraps the timing fit
-        in the IRLS loop."""
+        in the IRLS loop.  ``debug`` is accepted and, as in the reference,
+        changes nothing."""
         self.iterations = 0
         timing_kw = dict(maxiter=maxiter,
                          required_chi2_decrease=required_chi2_decrease,
@@ -631,10 +649,10 @@ class DownhillFitter(Fitter):
 class DownhillWLSFitter(DownhillFitter):
     """Reference ``fitter.py:752``."""
 
-    def __init__(self, batch, model):
+    def __init__(self, batch, model, **kw):
         if model.has_correlated_errors:
             raise CorrelatedErrors(model)
-        super().__init__(batch, model)
+        super().__init__(batch, model, **kw)
         self.method = "downhill_wls"
 
 
@@ -650,8 +668,8 @@ class LMFitter(Fitter):
     #: the wideband fitter stacks the DM rows
     wideband_system = False
 
-    def __init__(self, batch, model):
-        super().__init__(batch, model)
+    def __init__(self, batch, model, **kw):
+        super().__init__(batch, model, **kw)
         self.method = "levenberg_marquardt"
         self._noise_dims = None
 
@@ -674,7 +692,8 @@ class LMFitter(Fitter):
     def fit_toas(self, maxiter: int = 50, min_chi2_decrease: float = 1e-3,
                  lambda_factor_decrease: float = 2.0,
                  lambda_factor_increase: float = 3.0,
-                 min_lambda: float = 0.5, threshold: float = 1e-14) -> float:
+                 min_lambda: float = 0.5, threshold: float = 1e-14,
+                 debug: bool = False) -> float:
         from pint_torch.gls_fitter import _solve_svd
 
         self.update_resids()
@@ -728,8 +747,8 @@ class PowellFitter(Fitter):
     (1e-10 at 0) without one.  ``nfev`` and ``nit`` keep scipy's
     counts."""
 
-    def __init__(self, batch, model):
-        super().__init__(batch, model)
+    def __init__(self, batch, model, **kw):
+        super().__init__(batch, model, **kw)
         self.method = "Powell"
         self.nfev = self.nit = 0
 

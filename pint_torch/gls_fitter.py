@@ -239,18 +239,30 @@ def solve_system(fitter, M, r, params, norm, phiinv=None, Nvec=None,
 class GLSFitter(Fitter):
     """One-shot GLS fitter (reference ``gls_fitter.py:408``)."""
 
-    def __init__(self, batch, model):
-        super().__init__(batch, model)
+    def __init__(self, batch, model, residuals=None, track_mode=None):
+        super().__init__(batch, model, residuals=residuals,
+                         track_mode=track_mode)
         self.method = "generalized_least_square"
         self._gls_cache: dict = {}
         self._noise_dims = None
         self.noise_ampls = {}
 
-    def _gls_step(self, threshold: float = 0.0):
+    def _gls_step(self, threshold: float = 0.0, full_cov: bool = False):
         """One linearized GLS solve: (dpars, errs, covmat, params).  The
         ``gls.design`` segment is resolved once a step and kept on
-        ``_precision_spec``."""
+        ``_precision_spec``.  With ``full_cov`` the timing design matrix
+        alone is solved against the dense N x N TOA covariance through
+        its Cholesky factor (reference ``gls_fitter.py:439-444``): no
+        noise columns, so no noise amplitudes."""
         self._precision_spec = _design_spec(self.model, self.batch)
+        if full_cov:
+            self._noise_dims = None
+            M_tm, params = self.get_designmatrix()
+            M, norm = normalize_designmatrix(M_tm)
+            cov = self.model.toa_covariance_matrix(self.batch)
+            return (*solve_system(self, M, self.resids.time_resids, params,
+                                  norm, threshold=threshold, cov=cov,
+                                  spec=self._precision_spec), params)
         M, params, norm, phiinv, Nvec, dims = build_augmented_system(
             self.model, self.batch)
         self._noise_dims = dims
@@ -280,10 +292,19 @@ class GLSFitter(Fitter):
         self.resids.noise_ampls = self.noise_ampls
 
     def fit_toas(self, maxiter: int = 1, threshold: float = 0.0,
-                 robust=None) -> float:
-        """``maxiter`` linearized GLS steps; returns the post-fit chi2."""
+                 full_cov: bool = False, debug: bool = False,
+                 robust=None, plan=None) -> float:
+        """``maxiter`` linearized GLS steps; returns the post-fit chi2.
+        ``full_cov`` solves against the dense TOA covariance (no noise
+        amplitudes are stored); ``debug`` is accepted and, as in the
+        reference, changes nothing; ``plan`` (the TOA axis over a device
+        mesh) is ROADMAP queue A item 9 and raises."""
         from pint_torch import autotune
 
+        if plan is not None:
+            raise NotImplementedError(
+                "GLSFitter.fit_toas(plan=...): the normal equations over a "
+                "device mesh are ROADMAP queue A item 9")
         # the tuned solve-ladder entry rung, resolved once a fit (None: the
         # full ladder, also the healthy rung-0 outcome)
         self._solve_ladder = autotune.resolve_solve_ladder(self)
@@ -293,10 +314,12 @@ class GLSFitter(Fitter):
                 "only (Huber IRLS assumes uncorrelated errors)")
         self.update_resids()
         for _ in range(max(1, maxiter)):
-            dpars, errs, covmat, params = self._gls_step(threshold=threshold)
+            dpars, errs, covmat, params = self._gls_step(
+                threshold=threshold, full_cov=full_cov)
             self._apply_step(dpars, errs, covmat, params)
             self.update_resids()
-            self._store_noise_ampls(dpars, len(params))
+            if not full_cov:
+                self._store_noise_ampls(dpars, len(params))
         chi2 = self.resids.calc_chi2()
         if np.isnan(chi2):
             raise NonFiniteSystemError(
@@ -348,11 +371,13 @@ class DownhillGLSFitter(DownhillFitter):
     """Iterative GLS with the downhill line search (reference
     ``gls_fitter.py:733-763``): each step is :meth:`GLSFitter._gls_step`'s
     solution, taken whole or halved by :class:`DownhillFitter`; the noise
-    amplitudes come from one more solve at the accepted point."""
+    amplitudes come from one more solve at the accepted point (none under
+    ``full_cov``)."""
 
-    def __init__(self, batch, model):
-        super().__init__(batch, model)
+    def __init__(self, batch, model, **kw):
+        super().__init__(batch, model, **kw)
         self.method = "downhill_gls"
+        self.full_cov = False
         self.threshold = 0.0
         self._gls_cache: dict = {}
         self._noise_dims = None
@@ -360,16 +385,22 @@ class DownhillGLSFitter(DownhillFitter):
 
     def _solve_step(self):
         dpars, _, covmat, params = GLSFitter._gls_step(
-            self, threshold=self.threshold)
+            self, threshold=self.threshold, full_cov=self.full_cov)
         ntm = len(params)
         return dpars[:ntm], params, covmat[:ntm, :ntm]
 
-    def fit_toas(self, maxiter: int = 20, threshold: float = 0.0,
-                 **kw) -> float:
+    def fit_toas(self, maxiter: int = 20, full_cov: bool = False,
+                 threshold: float = 0.0, **kw) -> float:
+        """The downhill fit of :class:`DownhillFitter` on GLS steps;
+        ``full_cov`` takes each step against the dense TOA covariance
+        (reference ``gls_fitter.py:749-760``)."""
+        self.full_cov = full_cov
         self.threshold = threshold
         chi2 = super().fit_toas(maxiter=maxiter, **kw)
-        # the noise amplitudes of the accepted parameters, not of a step
-        # that was halved or rejected
-        dpars, _, _, params = GLSFitter._gls_step(self, threshold=threshold)
-        GLSFitter._store_noise_ampls(self, dpars, len(params))
+        if not full_cov:
+            # the noise amplitudes of the accepted parameters, not of a
+            # step that was halved or rejected
+            dpars, _, _, params = GLSFitter._gls_step(self,
+                                                      threshold=threshold)
+            GLSFitter._store_noise_ampls(self, dpars, len(params))
         return chi2

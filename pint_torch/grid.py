@@ -383,8 +383,9 @@ def _wls_bundle(model, batch, evaluate, jac_fn, all_names, nfit, ngrid,
 
 def build_grid_chi2_fn(model, batch, grid_params: Sequence[str],
                        fit_params: Optional[Sequence[str]] = None,
-                       niter: int = 4, chunk=None,
-                       grid_spans: Optional[Sequence[float]] = None):
+                       niter: int = 4,
+                       grid_spans: Optional[Sequence[float]] = None,
+                       chunk=None):
     """Return ``(fn, free_init, fit_params)`` where ``fn(points (P, G))``
     gives ``(chi2 (P,), vfit (P, nfit), diag (P, 3))``; diag columns are
     (ladder rung, ridge applied, condition estimate) per point.

@@ -26,6 +26,16 @@ or launch raises.  On a CPU tensor it runs
 :func:`compensated_matmul_reference`, the plain version, which follows the
 reference's arithmetic step by step: the casts, ``torch.matmul`` in
 float64 of the rounded parts for each block or pass, and the fold.
+
+The backward (:class:`CompensatedMatmul`, an ``autograd.Function``; the
+reference differentiates ``_matmul_jnp`` with ``jax.vjp`` inside
+``amortized/train.py:103``'s ``value_and_grad``) is a second kernel of the
+same source, ``compensated_matmul_bwd``, which computes both cotangents in
+one launch, with :func:`compensated_matmul_backward_reference` its plain
+version: the jaxpr of ``jax.vjp`` operation for operation (the roundings
+to the compute dtype and its additions in their order), each float64 or
+float32 sum taken one product at a time in ascending contraction index in
+kernel and twin alike, so the two agree bitwise.
 """
 
 from __future__ import annotations
@@ -41,9 +51,11 @@ from pint_torch.exceptions import UsageError
 from pint_torch.kernels import _build
 
 __all__ = ["compensated_matmul", "compensated_matmul_reference",
+           "compensated_matmul_backward",
+           "compensated_matmul_backward_reference", "CompensatedMatmul",
            "split_bounds", "round_to", "fold_partials", "two_sum",
-           "launch_counts", "REPLACES", "KERNELS", "ACCUMULATIONS",
-           "MAX_BLOCKS"]
+           "launch_counts", "REPLACES", "REPLACES_BWD", "KERNELS",
+           "BWD_KERNELS", "ACCUMULATIONS", "MAX_BLOCKS"]
 
 NAME = "compensated_matmul"
 REPLACES = "pint_tpu/precision/compensated.py:163"
@@ -53,7 +65,14 @@ _CT = {"float32": (0, "f32"), "bfloat16": (1, "bf16")}
 #: the ``__global__`` instantiations, by (accumulation, compute dtype)
 KERNELS = {(acc, ct): f"compensated_matmul_{acc}_{short}"
            for acc in ACCUMULATIONS for ct, (_, short) in _CT.items()}
-launch_counts = dict.fromkeys(KERNELS.values(), 0)
+#: the backward's instantiations, by (accumulation, compute dtype)
+BWD_KERNELS = {(acc, ct): f"compensated_matmul_bwd_{acc}_{short}"
+               for acc in ACCUMULATIONS for ct, (_, short) in _CT.items()}
+#: what the backward replaces: ``jax.vjp`` of ``_matmul_jnp`` under the
+#: amortized training step's ``value_and_grad``
+REPLACES_BWD = "pint_tpu/amortized/train.py:103"
+launch_counts = dict.fromkeys(list(KERNELS.values())
+                              + list(BWD_KERNELS.values()), 0)
 #: the most contraction blocks a two_sum launch takes (the kernel's
 #: by-value boundary table)
 MAX_BLOCKS = 256
@@ -158,6 +177,10 @@ def _lib():
             vp, ll, ll, ll, vp, ll, ll, ll, vp, ci, ci, ci, ci, ci, _Bounds,
             vp]
         lib.compensated_matmul_launch.restype = ci
+        lib.compensated_matmul_bwd_launch.argtypes = [
+            vp, ll, ll, ll, vp, ll, ll, ll, vp, ll, ll, ll, vp, vp, ci, ci,
+            ci, ci, ci, ci, vp]
+        lib.compensated_matmul_bwd_launch.restype = ci
     return lib
 
 
@@ -224,3 +247,145 @@ def compensated_matmul(a, b, compute_dtype: str, accumulation: str,
     if a.ndim == 1:
         out = out[..., 0, :] if b.ndim > 1 else out[..., 0]
     return out
+
+
+# ---------------------------------------------------------------------------
+# the backward
+# ---------------------------------------------------------------------------
+def _seq_matmul(x, y):
+    """``x (B, M, C) @ y (B, C, N)`` in ``x``'s dtype with each sum taken
+    one product at a time in ascending ``C``, from 0: the kernel's order."""
+    B, M, C = x.shape
+    acc = torch.zeros((B, M, y.shape[-1]), dtype=x.dtype, device=x.device)
+    for c in range(C):
+        acc = acc + x[:, :, c:c + 1] * y[:, c:c + 1, :]
+    return acc
+
+
+def _ct_add(x, y, compute_dtype):
+    """A compute-dtype addition: float32, rounded to bfloat16 under
+    bfloat16 (values held in float32)."""
+    return round_to(x + y, compute_dtype).to(torch.float32)
+
+
+def _fold_pair(hi, lo, compute_dtype):
+    """The ``two_prod`` cotangent from its hi and lo operands' float64
+    sums: ``f64(H) + f64(ct((L + H) - H))``."""
+    h = round_to(hi, compute_dtype).to(torch.float32)
+    lo = round_to(lo, compute_dtype).to(torch.float32)
+    s = _ct_add(_ct_add(lo, h, compute_dtype), -h, compute_dtype)
+    return h.to(F64) + s.to(F64)
+
+
+def compensated_matmul_backward_reference(a3, b3, g3, compute_dtype: str,
+                                          accumulation: str):
+    """Plain PyTorch version of K11's backward on 3-D operands ``a3`` (B,
+    m, k), ``b3`` (B, k, n) and the cotangent ``g3`` (B, m, n), all float64:
+    ``(da (B, m, k), db (B, k, n))``, float64 (see the kernel's source)."""
+    _check_modes(compute_dtype, accumulation)
+    at, bt = a3.transpose(1, 2), b3.transpose(1, 2)
+    f32 = torch.float32
+    if accumulation == "native":
+        gc = round_to(g3, compute_dtype).to(f32)
+        da = _seq_matmul(gc, round_to(bt, compute_dtype).to(f32))
+        db = _seq_matmul(round_to(at, compute_dtype).to(f32), gc)
+        return (round_to(da, compute_dtype).to(F64),
+                round_to(db, compute_dtype).to(F64))
+    if accumulation != "two_prod":
+        da = _seq_matmul(g3, round_to(bt, compute_dtype).to(F64))
+        db = _seq_matmul(round_to(at, compute_dtype).to(F64), g3)
+        return (round_to(da, compute_dtype).to(F64),
+                round_to(db, compute_dtype).to(F64))
+
+    def split(x):
+        hi = round_to(x, compute_dtype)
+        return hi.to(F64), round_to(x - hi.to(F64), compute_dtype).to(F64)
+
+    ah, al = split(at)
+    bh, bl = split(bt)
+    da = _fold_pair(_seq_matmul(g3, bh), _seq_matmul(g3, bl), compute_dtype)
+    db = _fold_pair(_seq_matmul(ah, g3), _seq_matmul(al, g3), compute_dtype)
+    return da, db
+
+
+def _launch_backward(a3, b3, g3, compute_dtype, accumulation):
+    """The backward kernel on 3-D operands of any strides: (da, db)."""
+    B, m, k = a3.shape
+    n = b3.shape[-1]
+    da = torch.empty((B, m, k), dtype=F64, device=a3.device)
+    db = torch.empty((B, k, n), dtype=F64, device=a3.device)
+    if B == 0 or k == 0 or (m == 0 and n == 0):
+        return da, db
+    ct, _ = _CT[compute_dtype]
+    rc = _lib().compensated_matmul_bwd_launch(
+        _build.ptr(a3), *a3.stride(), _build.ptr(b3), *b3.stride(),
+        _build.ptr(g3), *g3.stride(), _build.ptr(da), _build.ptr(db), B, m,
+        k, n, _MODE[accumulation], ct, _build.stream_of(a3))
+    launch_counts[BWD_KERNELS[(accumulation, compute_dtype)]] += 1
+    _build.check(NAME, rc)
+    return da, db
+
+
+def _backward_3d(a3, b3, g3, compute_dtype, accumulation):
+    if a3.device.type == "cpu":
+        return compensated_matmul_backward_reference(a3, b3, g3,
+                                                     compute_dtype,
+                                                     accumulation)
+    if not a3.is_cuda:
+        raise ValueError(f"compensated_matmul_backward: no kernel for "
+                         f"device {a3.device}")
+    return _launch_backward(a3, b3, g3, compute_dtype, accumulation)
+
+
+def compensated_matmul_backward(a, b, g, compute_dtype: str,
+                                accumulation: str):
+    """K11's backward: ``(da, db)``, the cotangents of ``a @ b`` under
+    ``(compute_dtype, accumulation)`` at the output cotangent ``g``, as the
+    reference's ``jax.vjp`` computes them.  ``a`` (m, k) or (k,) and ``b``
+    (k, n) or (k,); or both with the same batch axes; or ``a`` batched and
+    ``b`` 2-D, where ``a``'s batch folds into its rows so that ``db`` is
+    one contraction over them, rounded once as the reference's is.  Other
+    broadcasts raise: no caller differentiates them."""
+    _check_modes(compute_dtype, accumulation)
+    a2 = a[None, :] if a.ndim == 1 else a
+    b2 = b[:, None] if b.ndim == 1 else b
+    m, k, n = a2.shape[-2], a2.shape[-1], b2.shape[-1]
+    lead = a2.shape[:-2]
+    if b2.ndim > 2 and lead != b2.shape[:-2]:
+        raise NotImplementedError(
+            f"compensated_matmul_backward: a {tuple(a.shape)} @ b "
+            f"{tuple(b.shape)} broadcasts b's batch; only a shared 2-D b or "
+            "equal batch axes are differentiated")
+    g2 = g.reshape(*lead, m, n)
+    if b2.ndim == 2:
+        da3, db3 = _backward_3d(a2.reshape(1, -1, k), b2[None],
+                                g2.reshape(1, -1, n), compute_dtype,
+                                accumulation)
+        da, db = da3.reshape(*lead, m, k), db3[0]
+    else:
+        da3, db3 = _backward_3d(a2.reshape(-1, m, k), b2.reshape(-1, k, n),
+                                g2.reshape(-1, m, n), compute_dtype,
+                                accumulation)
+        da, db = da3.reshape(*lead, m, k), db3.reshape(*lead, k, n)
+    return da.reshape(a.shape), db.reshape(b.shape)
+
+
+class CompensatedMatmul(torch.autograd.Function):
+    """``a @ b`` under a reduced spec with K11's backward: forward
+    :func:`compensated_matmul`, backward
+    :func:`compensated_matmul_backward` (the kernel on the card, its twin
+    on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, a, b, compute_dtype, accumulation, split):
+        ctx.save_for_backward(a, b)
+        ctx.modes = (compute_dtype, accumulation)
+        return compensated_matmul(a, b, compute_dtype, accumulation, split)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da, db = compensated_matmul_backward(a, b, g.contiguous(),
+                                             *ctx.modes)
+        return (da if ctx.needs_input_grad[0] else None,
+                db if ctx.needs_input_grad[1] else None, None, None, None)

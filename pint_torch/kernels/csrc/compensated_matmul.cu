@@ -237,6 +237,196 @@ extern "C" int compensated_matmul_launch(
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K11's backward: the cotangents (da, db) of a @ b under one (mode, compute
+// dtype), as jax.vjp of the reference's _matmul_jnp computes them (its
+// jaxpr read operation by operation, float64 a, b and cotangent g):
+//   native    gc, bc, ac the operands rounded to the compute dtype;
+//             da = ct(gc @ bc^T), db = ct(ac^T @ gc), products and sums in
+//             float32 (bfloat16 x bfloat16 is exact in float32), the sum
+//             rounded to the compute dtype, then widened;
+//   f64       da = ct(g @ f64(bc)^T), db = ct(f64(ac)^T @ g): float64
+//             products of the UNROUNDED cotangent (not exact, unlike the
+//             forward's) summed in float64, then rounded to the compute
+//             dtype by the transpose of astype, then widened;
+//   two_sum   the same as f64: the fold's transpose hands each block's
+//             partial the cotangent g itself (c + (-c) chains), and the
+//             blocks' slices of da and db are disjoint, so each element is
+//             one float64 sum over the whole contraction;
+//   two_prod  H = ct(g @ f64(bh)^T), L = ct(g @ f64(bl)^T);
+//             da = f64(H) + f64(ct((L + H) - H)), the two compute-dtype
+//             additions in that order (the split lo = ct(a - f64(ah))
+//             transposes into d_a = d_lo + (d_ah + ct(-d_lo))); db the
+//             mirror with ah, al: H = ct(f64(ah)^T @ g), L = ct(f64(al)^T
+//             @ g).
+// A compute-dtype addition is a float32 addition, rounded to bfloat16
+// under bfloat16, as XLA's CPU code and torch compute it.
+//
+// One launch computes both: the first tiles_da blocks the (m, k) tiles of
+// da, the rest the (k, n) tiles of db.  A thread owns one element and sums
+// its products one at a time in ascending contraction index (0.0 first),
+// so the plain version (kernels/compensated_matmul.py) repeats the sum
+// bitwise with one elementwise multiply and add per index.  Bound: 2 m k
+// n float64 multiply-adds a mode (4 under two_prod), issued as separate
+// multiplies and adds on the CUDA cores (-fmad=false); the float64
+// tensor cores could do them at their matrix rate.  Simple first: one
+// element a thread, 16 x 16 tiles in shared memory.
+namespace {
+
+template <int CT>
+__device__ __forceinline__ float ct_add(float x, float y) {
+  const float s = x + y;
+  return CT == CT_BF16 ? bf16_round(s) : s;
+}
+
+template <int MODE, int CT>
+__device__ __forceinline__ double bwd_epilogue(double acc, double acc_lo,
+                                               float accf) {
+  if constexpr (MODE == NATIVE) {
+    return (double)(CT == CT_BF16 ? bf16_round(accf) : accf);
+  } else if constexpr (MODE == TWO_PROD) {
+    const float h = round_ct<CT>(acc), l = round_ct<CT>(acc_lo);
+    const float s = ct_add<CT>(ct_add<CT>(l, h), -h);
+    return (double)h + (double)s;
+  } else {
+    return (double)round_ct<CT>(acc);
+  }
+}
+
+template <int MODE, int CT>
+__global__ void __launch_bounds__(T * T)
+compensated_matmul_bwd_kernel(
+    const double* __restrict__ a, long long sab, long long sam,
+    long long sak, const double* __restrict__ b, long long sbb,
+    long long sbk, long long sbn, const double* __restrict__ g,
+    long long sgb, long long sgm, long long sgn, double* __restrict__ da,
+    double* __restrict__ db, int batch, int m, int k, int n, int tiles_da,
+    int cols_da, int cols_db) {
+  __shared__ double gs[T][T + 1];
+  __shared__ float hs[T][T + 1];
+  __shared__ float ls[MODE == TWO_PROD ? T : 1][T + 1];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const bool is_da = (int)blockIdx.x < tiles_da;
+  const int tile = is_da ? blockIdx.x : blockIdx.x - tiles_da;
+  const int cols = is_da ? cols_da : cols_db;
+  const int tr = tile / cols, tc = tile % cols;
+  for (long long bat = blockIdx.z; bat < batch; bat += gridDim.z) {
+    const double* ab = a + bat * sab;
+    const double* bb = b + bat * sbb;
+    const double* gb = g + bat * sgb;
+    double acc = 0.0, acc_lo = 0.0;
+    float accf = 0.0f;
+    if (is_da) {
+      // da (m, k): element (i, kk), a sum over j < n of g[i, j] b[kk, j]
+      for (int j0 = 0; j0 < n; j0 += T) {
+        const int len = n - j0 < T ? n - j0 : T;
+        {
+          const int r = tr * T + ty, c = j0 + tx;
+          const double x = (r < m && c < n) ? gb[r * sgm + c * sgn] : 0.0;
+          gs[ty][tx] = MODE == NATIVE ? (double)round_ct<CT>(x) : x;
+        }
+        {
+          const int r = tc * T + ty, c = j0 + tx;
+          const double x = (r < k && c < n) ? bb[r * sbk + c * sbn] : 0.0;
+          const float h = round_ct<CT>(x);
+          hs[ty][tx] = h;
+          if constexpr (MODE == TWO_PROD) ls[ty][tx] = round_ct<CT>(x - (double)h);
+        }
+        __syncthreads();
+        for (int jj = 0; jj < len; ++jj) {
+          const double gv = gs[ty][jj];
+          if constexpr (MODE == NATIVE) {
+            accf = accf + (float)gv * hs[tx][jj];
+          } else if constexpr (MODE == TWO_PROD) {
+            acc = acc + gv * (double)hs[tx][jj];
+            acc_lo = acc_lo + gv * (double)ls[tx][jj];
+          } else {
+            acc = acc + gv * (double)hs[tx][jj];
+          }
+        }
+        __syncthreads();
+      }
+      const int i = tr * T + ty, kk = tc * T + tx;
+      if (i < m && kk < k)
+        da[bat * (long long)m * k + (long long)i * k + kk] =
+            bwd_epilogue<MODE, CT>(acc, acc_lo, accf);
+    } else {
+      // db (k, n): element (kk, j), a sum over i < m of a[i, kk] g[i, j]
+      for (int i0 = 0; i0 < m; i0 += T) {
+        const int len = m - i0 < T ? m - i0 : T;
+        {
+          const int r = i0 + ty, c = tr * T + tx;
+          const double x = (r < m && c < k) ? ab[r * sam + c * sak] : 0.0;
+          const float h = round_ct<CT>(x);
+          hs[ty][tx] = h;
+          if constexpr (MODE == TWO_PROD) ls[ty][tx] = round_ct<CT>(x - (double)h);
+        }
+        {
+          const int r = i0 + ty, c = tc * T + tx;
+          const double x = (r < m && c < n) ? gb[r * sgm + c * sgn] : 0.0;
+          gs[ty][tx] = MODE == NATIVE ? (double)round_ct<CT>(x) : x;
+        }
+        __syncthreads();
+        for (int ii = 0; ii < len; ++ii) {
+          const double gv = gs[ii][tx];
+          if constexpr (MODE == NATIVE) {
+            accf = accf + hs[ii][ty] * (float)gv;
+          } else if constexpr (MODE == TWO_PROD) {
+            acc = acc + (double)hs[ii][ty] * gv;
+            acc_lo = acc_lo + (double)ls[ii][ty] * gv;
+          } else {
+            acc = acc + (double)hs[ii][ty] * gv;
+          }
+        }
+        __syncthreads();
+      }
+      const int kk = tr * T + ty, j = tc * T + tx;
+      if (kk < k && j < n)
+        db[bat * (long long)k * n + (long long)kk * n + j] =
+            bwd_epilogue<MODE, CT>(acc, acc_lo, accf);
+    }
+  }
+}
+
+}  // namespace
+
+// a (batch, m, k), b (batch, k, n), g (batch, m, n) float64 of any
+// strides; da (batch, m, k) and db (batch, k, n) float64, contiguous.
+extern "C" int compensated_matmul_bwd_launch(
+    const double* a, long long sab, long long sam, long long sak,
+    const double* b, long long sbb, long long sbk, long long sbn,
+    const double* g, long long sgb, long long sgm, long long sgn, double* da,
+    double* db, int batch, int m, int k, int n, int mode, int ct,
+    void* stream) {
+  if (batch <= 0 || k <= 0 || (m <= 0 && n <= 0)) return 0;
+  const long long cols_da = (k + T - 1) / T, rows_da = (m + T - 1) / T;
+  const long long cols_db = (n + T - 1) / T, rows_db = (k + T - 1) / T;
+  const long long tiles_da = rows_da * cols_da;
+  const long long tiles = tiles_da + rows_db * cols_db;
+  if (tiles > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)tiles, 1,
+                  (unsigned)(batch < 65535 ? batch : 65535));
+  cudaStream_t st = (cudaStream_t)stream;
+#define CMB_ARGS a, sab, sam, sak, b, sbb, sbk, sbn, g, sgb, sgm, sgn, da, db, \
+                 batch, m, k, n, (int)tiles_da, (int)cols_da, (int)cols_db
+#define CMB_LAUNCH(M, C) \
+  compensated_matmul_bwd_kernel<M, C><<<grid, dim3(T, T), 0, st>>>(CMB_ARGS)
+  if (ct == CT_F32) {
+    if (mode == NATIVE) CMB_LAUNCH(NATIVE, CT_F32);
+    else if (mode == F64) CMB_LAUNCH(F64, CT_F32);
+    else if (mode == TWO_SUM) CMB_LAUNCH(TWO_SUM, CT_F32);
+    else CMB_LAUNCH(TWO_PROD, CT_F32);
+  } else {
+    if (mode == NATIVE) CMB_LAUNCH(NATIVE, CT_BF16);
+    else if (mode == F64) CMB_LAUNCH(F64, CT_BF16);
+    else if (mode == TWO_SUM) CMB_LAUNCH(TWO_SUM, CT_BF16);
+    else CMB_LAUNCH(TWO_PROD, CT_BF16);
+  }
+#undef CMB_LAUNCH
+#undef CMB_ARGS
+  return (int)cudaGetLastError();
+}
+
 extern "C" const char* compensated_matmul_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

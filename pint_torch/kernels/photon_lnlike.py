@@ -8,9 +8,11 @@ the density (``_template_density``, binned ``:327-333`` and analytic
 at ``phi = frac mod 1``, then ``sum(log(maximum(w f + 1 - w, 1e-300)))``.
 Inputs: ``frac`` (B, N) the photons' phase fractions, one row a walker;
 ``weights`` (N,) or None; ``table`` (nbins,) the binned template (mode
-:data:`BINNED`) or :func:`gauss_table` of an all-Gaussian ``LCTemplate``
-(mode :data:`GAUSS`).  Returns (B,) sums, or with ``density=True`` the
-(B, N) density.
+:data:`BINNED`), :func:`gauss_table` of an all-Gaussian ``LCTemplate``
+(mode :data:`GAUSS`), or :func:`mixed_table` of a template of any of the
+closed-form primitives :data:`MIXED_CODES` (mode :data:`MIXED`: ROADMAP
+queue B 5d, the rest of ``lcprimitives.py:118-356``).  Returns (B,) sums,
+or with ``density=True`` the (B, N) density.
 
 On a CUDA tensor this launches ``csrc/photon_lnlike.cu`` (or raises): the
 density, or the per-block sums, in one kernel, the rows' sums of the
@@ -32,19 +34,27 @@ from pint_torch import F64
 from pint_torch.kernels import _build
 
 __all__ = ["photon_lnlike", "photon_lnlike_reference", "gauss_table",
-           "BINNED", "GAUSS", "NWRAP", "launch_counts", "REPLACES",
-           "KERNELS"]
+           "mixed_table", "BINNED", "GAUSS", "MIXED", "MIXED_CODES", "REC",
+           "NWRAP", "launch_counts", "REPLACES", "KERNELS"]
 
 NAME = "photon_lnlike"
 REPLACES = "pint_tpu/event_fitter.py:110"
-BINNED, GAUSS = 0, 1
+BINNED, GAUSS, MIXED = 0, 1, 2
 #: image terms each side of a wrapped Gaussian (``lcprimitives.py:27``)
 NWRAP = 6
+#: MIXED's type code of each closed-form primitive, by class name
+MIXED_CODES = {"LCGaussian": 0, "LCGaussian2": 1, "LCLorentzian": 2,
+               "LCLorentzian2": 3, "LCVonMises": 4, "LCTopHat": 5,
+               "LCKing": 6, "LCHarmonic": 7}
+#: numbers a MIXED record: (type, p0, p1, p2, norm, c0, c1, c2)
+REC = 8
 #: the ``__global__`` instantiations: (mode, density) and the row sums
 KERNELS = {(BINNED, False): "photon_lnlike_binned",
            (GAUSS, False): "photon_lnlike_gauss",
+           (MIXED, False): "photon_lnlike_mixed",
            (BINNED, True): "photon_density_binned",
            (GAUSS, True): "photon_density_gauss",
+           (MIXED, True): "photon_density_mixed",
            "rowsum": "photon_lnlike_rowsum"}
 launch_counts = dict.fromkeys(KERNELS.values(), 0)
 _THREADS = 256
@@ -63,8 +73,103 @@ def gauss_table(template) -> np.ndarray:
     return np.asarray(out, dtype=np.float64)
 
 
+def mixed_table(template) -> np.ndarray:
+    """The MIXED mode's table of an ``LCTemplate`` of closed-form
+    primitives: ``[bg, (type, p0, p1, p2, norm, c0, c1, c2) per
+    primitive]`` (see ``csrc/photon_lnlike.cu``), each constant as the
+    reference's numpy computes it: ``sigma * np.sqrt(2 * np.pi)``, ``1.0 /
+    w``, ``math.sqrt(2.0 / np.pi) / (w1 + w2)``, ``np.sinh`` and
+    ``np.cosh`` of ``2 * np.pi * gamma``, ``2.0 / np.pi / (g1 + g2)``,
+    kappa ``1.0 / (2 * np.pi * width) ** 2`` with scipy's ``i0e``, King's
+    normalisation by scipy's ``gammaln``, ``2 * np.pi * order``."""
+    import math
+
+    from scipy.special import gammaln, i0e
+
+    norms = template.norms()
+    out = [1.0 - norms.sum()]
+    for n, prim in zip(norms, template.primitives):
+        name = type(prim).__name__
+        if name not in MIXED_CODES:
+            raise ValueError(f"mixed_table: {name} is not a closed-form "
+                             f"primitive ({sorted(MIXED_CODES)})")
+        code, p = MIXED_CODES[name], [float(x) for x in prim.p]
+        c = [0.0, 0.0, 0.0]
+        if code == 0:
+            c[0] = p[0] * np.sqrt(2 * np.pi)
+        elif code == 1:
+            c = [1.0 / p[0], 1.0 / p[1],
+                 math.sqrt(2.0 / np.pi) / (p[0] + p[1])]
+        elif code == 2:
+            a = 2 * np.pi * p[0]
+            c[:2] = [float(np.sinh(a)), float(np.cosh(a))]
+        elif code == 3:
+            c = [1.0 / p[0], 1.0 / p[1], 2.0 / np.pi / (p[0] + p[1])]
+        elif code == 4:
+            kappa = 1.0 / (2 * np.pi * p[0]) ** 2
+            c[:2] = [kappa, float(i0e(kappa))]
+        elif code == 5:
+            c[:2] = [p[0] / 2, 1.0 / p[0]]
+        elif code == 6:
+            s, g = p[0], p[1]
+            c[0] = float(s * np.sqrt(2 * np.pi * g)
+                         * np.exp(gammaln(g - 0.5) - gammaln(g)))
+        else:
+            c[0] = 2 * np.pi * prim.order
+        out += [float(code)] + (p + [0.0, 0.0, 0.0])[:3] + [float(n)] + c
+    return np.asarray(out, dtype=np.float64)
+
+
+def _mixed_pdf(phi, rec):
+    """One MIXED record's density at ``phi`` (the kernel's operations;
+    ``rec`` a float64 tensor of :data:`REC` numbers, every divisor a
+    tensor)."""
+    code = int(rec[0])
+    p0, p1, p2, c0, c1, c2 = rec[1], rec[2], rec[3], rec[5], rec[6], rec[7]
+    if code == 0:
+        z = torch.remainder(phi - p1, 1.0)
+        s = 0.0
+        for k in range(-NWRAP, NWRAP + 1):
+            t = (z + k) / p0
+            s = s + torch.exp(-0.5 * (t * t))
+        return s / c0
+    if code in (1, 3):
+        z0 = phi - p2 if code == 1 \
+            else torch.remainder(phi - p2 + 0.5, 1.0) - 0.5
+        s = 0.0
+        for k in range(-NWRAP, NWRAP + 1):
+            z = z0 + k
+            zz = z * torch.where(z <= 0.0, c0, c1)
+            s = s + (torch.exp(-0.5 * (zz * zz)) if code == 1
+                     else c2 / (1.0 + zz * zz))
+        return s * c2 if code == 1 else s
+    if code == 2:
+        return c0 / (c1 - torch.cos(2 * np.pi * (phi - p1)))
+    if code == 4:
+        return torch.exp(c0 * (torch.cos(2 * np.pi * (phi - p1)) - 1.0)) \
+            / c1
+    if code == 5:
+        z = torch.remainder(phi - p1 + 0.5, 1.0) - 0.5
+        return torch.where(torch.abs(z) <= c0, c1, torch.zeros_like(c1))
+    if code == 6:
+        z0 = torch.remainder(phi - p2 + 0.5, 1.0) - 0.5
+        s = 0.0
+        for k in range(-NWRAP, NWRAP + 1):
+            t = (z0 + k) / p0
+            u = 0.5 * (t * t)
+            s = s + torch.exp(-p1 * torch.log(1.0 + u / p1))
+        return s / c0
+    return 1.0 + 2.0 * torch.cos(c0 * (phi - p0))
+
+
 def _density_reference(frac, table, mode):
     phi = torch.remainder(frac, 1.0)
+    if mode == MIXED:
+        f = table[0]
+        for i in range((table.shape[0] - 1) // REC):
+            rec = table[1 + REC * i:1 + REC * (i + 1)]
+            f = f + rec[4] * _mixed_pdf(phi, rec)
+        return f
     if mode == BINNED:
         x = phi * table.shape[0]
         idx = torch.where(torch.isnan(x), 0.0, x).long()
@@ -143,21 +248,22 @@ def _launch(frac, weights, table, mode, density):
 def photon_lnlike(frac, weights, table, mode: int, density: bool = False):
     """K8: (B,) log-likelihood sums, or the (B, N) density (see the module
     docstring)."""
-    if mode not in (BINNED, GAUSS):
-        raise ValueError(f"photon_lnlike: mode {mode} is neither BINNED "
-                         "nor GAUSS")
+    if mode not in (BINNED, GAUSS, MIXED):
+        raise ValueError(f"photon_lnlike: mode {mode} is not BINNED, GAUSS "
+                         "or MIXED")
     ts = (frac, table) + (() if weights is None else (weights,))
     if any(t.dtype != F64 or t.device != frac.device for t in ts) \
             or frac.ndim != 2 or table.ndim != 1 \
             or (weights is not None and weights.shape != frac.shape[1:]) \
             or (mode == GAUSS and (table.shape[0] - 1) % 4) \
+            or (mode == MIXED and (table.shape[0] - 1) % REC) \
             or (mode == BINNED and table.shape[0] == 0):
         raise ValueError(
             f"photon_lnlike: frac {tuple(frac.shape)}, table "
             f"{tuple(table.shape)}, weights "
             f"{None if weights is None else tuple(weights.shape)}; want "
-            "float64 (B,N), (nbins,) or (1+4 peaks,), and (N,) on one "
-            "device")
+            "float64 (B,N), (nbins,), (1+4 peaks,) or (1+8 primitives,), "
+            "and (N,) on one device")
     frac, table = frac.contiguous(), table.contiguous()
     weights = None if weights is None else weights.contiguous()
     if frac.is_cuda:

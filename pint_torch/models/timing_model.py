@@ -30,7 +30,7 @@ from torch.func import jacfwd
 
 from pint_torch import F64
 from pint_torch.dd import DD
-from pint_torch.exceptions import MissingComponent
+from pint_torch.exceptions import MissingComponent, UnknownParameter
 from pint_torch.phase import Phase
 
 __all__ = ["Param", "Component", "DelayComponent", "PhaseComponent",
@@ -369,12 +369,32 @@ class TimingModel:
         return [n for n, p in self.params_table.items()
                 if p.component != "TimingModel" and not p.frozen]
 
-    def design_param_names(self) -> Tuple[str, ...]:
-        """Free, continuous, non-epoch, non-noise parameters: the timing
-        design-matrix columns after the offset."""
+    @free_params.setter
+    def free_params(self, names: Sequence[str]) -> None:
+        """Free exactly ``names`` and freeze every other parameter but the
+        model's own (reference ``timing_model.py:427-437``); a name the
+        model lacks raises :class:`UnknownParameter`.  Every cache keyed on
+        the free set (the compiled evaluations' host batches, the design
+        matrix's linear columns, the noise bases, the grid's classified
+        columns and bundles) lives in ``_cache`` and is dropped."""
+        names = set(names)
+        unknown = names - set(self.params)
+        if unknown:
+            raise UnknownParameter(f"Unknown parameters: {sorted(unknown)}")
+        for n, p in self.params_table.items():
+            if p.component == "TimingModel":
+                continue
+            p.frozen = n not in names
+        self._cache.clear()
+
+    def design_param_names(self, incfrozen: bool = False) -> Tuple[str, ...]:
+        """Continuous, non-epoch, non-noise parameters, free ones only
+        unless ``incfrozen``: the timing design-matrix columns after the
+        offset."""
         return tuple(
             n for n, p in self.params_table.items()
-            if p.component != "TimingModel" and not p.frozen and p.continuous
+            if p.component != "TimingModel"
+            and (incfrozen or not p.frozen) and p.continuous
             and p.kind != "mjd" and not self._is_noise_param(n))
 
     def _is_noise_param(self, name: str) -> bool:
@@ -568,13 +588,13 @@ class TimingModel:
             J[:, nl_t] = Jnl[0, :, 0, :]
         return J
 
-    def designmatrix(self, batch, incoffset: bool = True,
-                     reuse_linear: bool = False):
-        """(M, names): columns -d phase / d param / F0, after an offset
-        column 1/F0 unless a PhaseOffset fits PHOFF (reference
-        ``timing_model.py:859-888``)."""
+    def designmatrix(self, batch, incfrozen: bool = False,
+                     incoffset: bool = True, reuse_linear: bool = False):
+        """(M, names): columns -d phase / d param / F0, frozen parameters'
+        too with ``incfrozen``, after an offset column 1/F0 unless a
+        PhaseOffset fits PHOFF (reference ``timing_model.py:859-888``)."""
         incoffset = incoffset and "PhaseOffset" not in self.components
-        free = self.design_param_names()
+        free = self.design_param_names(incfrozen=incfrozen)
         if reuse_linear:
             J = self._jac_frac_linear_cached(batch, free)
         else:

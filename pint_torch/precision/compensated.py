@@ -25,7 +25,8 @@ import torch
 
 from pint_torch import F64
 from pint_torch.exceptions import UsageError
-from pint_torch.kernels.compensated_matmul import compensated_matmul
+from pint_torch.kernels.compensated_matmul import (CompensatedMatmul,
+                                                   compensated_matmul)
 from pint_torch.kernels.compensated_matmul import \
     fold_partials as two_sum_accumulate
 from pint_torch.kernels.compensated_matmul import round_to, split_bounds
@@ -76,7 +77,11 @@ def matmul(a, b, spec: Optional[SegmentSpec] = None,
     same bits, no K11 launch).  A reduced spec rounds the operands to the
     compute dtype once and re-enters float64 through the spec's
     accumulation: kernel K11 on CUDA tensors, its plain twin on CPU tensors
-    and on numpy operands (returned as numpy)."""
+    and on numpy operands (returned as numpy).  Where autograd records
+    (an operand that requires grad), the product is
+    :class:`~pint_torch.kernels.compensated_matmul.CompensatedMatmul`, whose
+    backward is K11's backward kernel (its twin on the CPU): the gradient
+    ``jax.vjp`` of the reference's reduced matmul gives."""
     if spec is None or not spec.reduced:
         return a @ b
     host = isinstance(a, np.ndarray) and isinstance(b, np.ndarray)
@@ -87,6 +92,9 @@ def matmul(a, b, spec: Optional[SegmentSpec] = None,
         dev = b.device if isinstance(a, np.ndarray) else a.device
         a = torch.as_tensor(a, dtype=F64, device=dev)
         b = torch.as_tensor(b, dtype=F64, device=dev)
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return CompensatedMatmul.apply(a, b, spec.compute_dtype,
+                                       spec.accumulation, split)
     out = compensated_matmul(a, b, spec.compute_dtype, spec.accumulation,
                              split)
     return out.numpy() if host else out

@@ -2110,6 +2110,114 @@ def export_photon(s) -> dict:
     return arrays
 
 
+#: ``ref/photon_mixed/``: one primitive of each closed-form kind K8's MIXED
+#: mode evaluates, (class, parameters, norm, keyword arguments), the widths
+#: and the King's gamma within each shape's use, the two strongest peaks
+#: where J0030's template has its peaks (0.15, 0.59); rotated by the stored
+#: FFTFIT shift as the analytic fitter's template is
+PHOTON_MIXED = (("LCGaussian", [0.03, 0.15], 0.12, {}),
+                ("LCGaussian2", [0.02, 0.035, 0.59], 0.10, {}),
+                ("LCLorentzian", [0.015, 0.30], 0.05, {}),
+                ("LCLorentzian2", [0.02, 0.03, 0.45], 0.05, {}),
+                ("LCVonMises", [0.04, 0.70], 0.05, {}),
+                ("LCTopHat", [0.08, 0.85], 0.04, {}),
+                ("LCKing", [0.025, 4.0, 0.05], 0.05, {}),
+                ("LCHarmonic", [0.10], 0.04, {"order": 2}))
+#: the mixed template's seeded chain: at most this many steps
+PHOTON_MIXED_STEPS = 10
+
+
+def photon_mixed_template(mod, shift: float):
+    """The :data:`PHOTON_MIXED` template of package ``mod``'s
+    ``templates`` (its classes from ``templates.lcprimitives``), rotated by
+    ``shift``."""
+    import importlib
+
+    prims = importlib.import_module(mod.__name__ + ".lcprimitives")
+    t = mod.LCTemplate([getattr(prims, c)(list(p), **kw)
+                        for c, p, _, kw in PHOTON_MIXED],
+                       [n for _, _, n, _ in PHOTON_MIXED])
+    t.rotate(shift)
+    return t
+
+
+def export_photon_mixed(s, arrays: dict, meta: dict) -> None:
+    """Add the mixed template's reference outputs to a photon stand-in's
+    ``arrays`` under ``ref/photon_mixed/`` and ``meta["reference"]
+    ["photon_mixed"]``: the template density at the stored phases, the
+    analytic fitter's ``lnposterior_batch`` at the stored points and a
+    seeded ``fit_toas`` (:data:`PHOTON_MIXED_STEPS` steps at most) from
+    the stored analytic walker ball (the chain walker-major, its
+    log-posteriors, accept flags, maximum and stds).  The stand-in is
+    simulated again and must export its committed state bitwise."""
+    from pint_tpu import templates as RT
+    from pint_tpu.event_fitter import MCMCFitterAnalyticTemplate
+    from pint_tpu.sampler import EnsembleSampler
+
+    truth, toas, w = make_photon_standin(s)
+    m2, info = photon_start(truth, s)
+    for k, v in export_state(m2, toas).items():
+        if k != "meta" and not np.array_equal(v, arrays[k]):
+            raise SystemExit(f"{k} is not as committed: rebuild differs")
+    R = meta["reference"]["photon"]
+    P = "ref/photon_mixed/"
+    tpl = photon_mixed_template(RT, float(R["fftfit"][0]))
+    phases = arrays["ref/photon/phases"]
+    arrays[P + "density"] = np.asarray(tpl(phases), dtype=np.float64)
+    f = MCMCFitterAnalyticTemplate(
+        toas, m2, tpl, weights=w, prior_info=info,
+        sampler=EnsembleSampler(s["nwalkers"], seed=PHOTON_SEEDS["sampler"]))
+    arrays[P + "lnposterior"] = np.asarray(
+        f.lnposterior_batch(arrays["ref/photon/points"]))
+    steps = min(s["nsteps"], PHOTON_MIXED_STEPS)
+    pos = arrays["ref/photon/analytic/pos"].copy()
+    maxpost = f.fit_toas(maxiter=steps, pos=pos.copy())
+    chain = f.sampler.get_chain()
+    prev = np.concatenate([pos[None], chain[:-1]])
+    arrays[P + "walker_chain"] = np.ascontiguousarray(chain.transpose(1, 2, 0))
+    arrays[P + "lnprob"] = f.sampler.get_log_prob()
+    arrays[P + "accepted"] = np.any(chain != prev, axis=2)
+    arrays[P + "maxpost_fitvals"] = np.asarray(f.maxpost_fitvals)
+    arrays[P + "stds"] = np.array([f.errors[p] for p in f.fitkeys])
+    meta["reference"]["photon_mixed"] = dict(
+        template=[[c, list(p), n, kw] for c, p, n, kw in PHOTON_MIXED],
+        shift=float(R["fftfit"][0]), steps=steps, maxpost=float(maxpost),
+        acceptance=float(f.sampler.acceptance_fraction),
+        naccepted=int(f.sampler.naccepted))
+
+
+#: ``ref/full_cov/``: the narrowband GLS fitters with ``full_cov=True``
+#: (``GLSFitter`` at ``gls_maxiter`` steps, ``DownhillGLSFitter`` at its
+#: default ``maxiter``)
+FULL_COV = dict(gls_maxiter=2)
+
+
+def export_full_cov(model, toas, which: str, arrays: dict,
+                    meta: dict) -> None:
+    """Add the reference's full-covariance fits to ``arrays`` under
+    ``ref/full_cov/`` (``gls_`` and ``downhill_``: the fitted parameters'
+    values and uncertainties) and to ``meta["reference"]["full_cov"]``
+    (each fit's chi2, parameters, converged flag and downhill steps)."""
+    from pint_tpu.gls_fitter import DownhillGLSFitter, GLSFitter
+
+    ref = dict(FULL_COV)
+    for key, cls, kw in (
+            ("gls", GLSFitter, dict(maxiter=FULL_COV["gls_maxiter"],
+                                    full_cov=True)),
+            ("downhill", DownhillGLSFitter, dict(full_cov=True))):
+        f = cls(toas, model)
+        chi2 = f.fit_toas(**kw)
+        params = [p for p in f.fitted_params if p != "Offset"]
+        arrays[f"ref/full_cov/{key}_values"] = np.array(
+            [float(getattr(f.model, p).value) for p in params])
+        arrays[f"ref/full_cov/{key}_uncertainties"] = np.array(
+            [float(getattr(f.model, p).uncertainty) for p in params])
+        ref[key] = dict(chi2=float(chi2), params=params,
+                        converged=bool(f.converged),
+                        iterations=int(getattr(f, "iterations", 0)))
+    meta["reference"]["full_cov"] = ref
+
+
 # ---------------------------------------------------------------------------
 # the streaming GLS engine and the serve batcher's reference outputs
 # ---------------------------------------------------------------------------
@@ -3090,6 +3198,105 @@ def export_amortized_op_by_op(model, toas, which: str, arrays: dict,
     for k, v in out.items():
         arrays["ref/amortized/" + k] = v
     meta["reference"]["amortized"]["op_by_op"] = m
+
+
+#: ``ref/amortized_reduced/``: the amortized run of :data:`AMORTIZED` under
+#: ``use_policy(PrecisionPolicy.forced(*REDUCED_POLICY))``: every precision
+#: segment, ``flow.coupling`` among them, at float32 with ``f64``
+#: accumulation (the reference's ``forced`` default)
+REDUCED_POLICY = ("float32",)
+
+
+def reference_amortized_reduced(model, toas, arrays, meta,
+                                spec=AMORTIZED) -> tuple:
+    """The reference's amortized run under the forced reduced policy on a
+    stand-in with ``ref/bayes/`` (arrays under ``ref/amortized_reduced/``,
+    meta): at the initial parameters and the first step's samples the ELBO
+    and its gradient; the ``steps``-step run jitted (its trace, the state
+    before its last step, the final weights) and the gradient at that
+    state, jitted and op by op; the same run op by op (``jax.disable_jit``:
+    its trace and final weights)."""
+    import jax
+    import jax.numpy as jnp
+
+    from pint_tpu import precision
+    from pint_tpu.amortized import TrainConfig
+    from pint_tpu.amortized.train import _adam_step_fn
+
+    with precision.use_policy(
+            precision.PrecisionPolicy.forced(*REDUCED_POLICY)):
+        vi = amortized_vi_bayes(model, toas, arrays, meta, spec)
+        if not vi.flow.spec.reduced:
+            raise SystemExit("the forced policy left flow.coupling float64")
+        cfg = TrainConfig(steps=spec["steps"], n_samples=spec["n_samples"],
+                          lr=spec["lr"], seed=spec["train_seed"])
+        zs = amortized_z_stream(cfg.seed, cfg.steps, cfg.n_samples, vi.ndim)
+        init = jax.tree_util.tree_map(jnp.asarray, vi.flow.init())
+        elbo = vi.elbo_fn()
+        z0 = jnp.asarray(zs[0])
+        val, grad = jax.value_and_grad(lambda p: elbo(p, z0))(init)
+        out = {}
+        for i, leaf in enumerate(jax.tree_util.tree_leaves(grad)):
+            out[f"grad0/leaf_{i:03d}"] = np.asarray(leaf)
+        step = _adam_step_fn(vi, cfg)
+
+        def run(op_by_op: bool):
+            params = init
+            m = jax.tree_util.tree_map(jnp.zeros_like, params)
+            v = jax.tree_util.tree_map(jnp.zeros_like, params)
+            t, trace, before = 0, [], None
+            for k, z in enumerate(zs):
+                if k == len(zs) - 1:
+                    before = (params, m, v, int(t))
+                if op_by_op:
+                    with jax.disable_jit():
+                        params, m, v, t, e = step(params, m, v, t,
+                                                  jnp.asarray(z))
+                else:
+                    params, m, v, t, e = step(params, m, v, t,
+                                              jnp.asarray(z))
+                trace.append(float(e))
+            return params, np.asarray(trace), before
+
+        final, trace, before = run(False)
+        out["trace"] = trace
+        for tag, tree in zip(("state/p", "state/m", "state/v"), before[:3]):
+            for i, leaf in enumerate(jax.tree_util.tree_leaves(tree)):
+                out[f"{tag}_{i:03d}"] = np.asarray(leaf)
+        for i, leaf in enumerate(jax.tree_util.tree_leaves(final)):
+            out[f"final/leaf_{i:03d}"] = np.asarray(leaf)
+        zl = jnp.asarray(zs[-1])
+
+        def loss(p):
+            return -elbo(p, zl)
+
+        for tag, g in (("grad_last", jax.jit(jax.grad(loss))(before[0])),
+                       ("op_by_op/grad_last", None)):
+            if g is None:
+                with jax.disable_jit():
+                    g = jax.grad(loss)(before[0])
+            for i, leaf in enumerate(jax.tree_util.tree_leaves(g)):
+                out[f"{tag}/leaf_{i:03d}"] = np.asarray(leaf)
+        final_o, trace_o, _ = run(True)
+        out["op_by_op/trace"] = trace_o
+        for i, leaf in enumerate(jax.tree_util.tree_leaves(final_o)):
+            out[f"op_by_op/final/leaf_{i:03d}"] = np.asarray(leaf)
+        m = dict(spec, elbo0=float(val), t_state=before[3],
+                 policy=list(REDUCED_POLICY), flow_spec=vi.flow.spec.tag(),
+                 z_sha256=z_stream_sha256(zs),
+                 labels=list(vi.param_labels))
+    return out, m
+
+
+def export_amortized_reduced(model, toas, which: str, arrays: dict,
+                             meta: dict) -> None:
+    """Add :func:`reference_amortized_reduced` to ``arrays`` under
+    ``ref/amortized_reduced/`` and to
+    ``meta["reference"]["amortized_reduced"]``."""
+    out, m = reference_amortized_reduced(model, toas, arrays, meta)
+    for k, v in out.items():
+        arrays["ref/amortized_reduced/" + k] = v
+    meta["reference"]["amortized_reduced"] = m
 
 
 def amortized_vi_bayes(model, toas, arrays, meta, spec=AMORTIZED):

@@ -31,8 +31,10 @@ seed=1)`` in both packages:
   (``bridge.flow_params``): draws within 1e-12 of each box's width,
   log-probs within 1e-12 x max(1, |ref|) with ``-inf`` exactly where the
   reference's; saved by either package, loaded by the other, bitwise;
-* ``train_flow(plan=)`` and a reduced ``flow.coupling`` spec refused;
-  ``AmortizedPosterior.load`` defaults to the card.
+* ``train_flow(plan=)`` refused; under a reduced ``flow.coupling`` spec
+  it trains (K11's backward; its bars against the reference are in
+  ``test_torch_amortized_reduced.py``); ``AmortizedPosterior.load``
+  defaults to the card.
 """
 
 import os
@@ -391,8 +393,8 @@ def test_plan_reduced_spec_and_missing_card_are_refused(ngc, tmp_path):
     flow = Flow(FlowConfig(pvi.ndim, **SPEC), spec=spec)
     vi = AmortizedVI(pvi.lnpost_batch, pvi.transform.specs, flow=flow,
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="K11"):
-        train_flow(vi, TrainConfig(**CFG))
+    res = train_flow(vi, TrainConfig(**dict(CFG, steps=2)))
+    assert res.steps == 2 and np.all(np.isfinite(res.elbo_trace))
     post = AmortizedPosterior(flow, pvi.transform, flow.init("cpu"),
                               pvi.param_labels)
     assert post.draw(8, seed=1).shape == (8, pvi.ndim)

@@ -382,14 +382,17 @@ def test_cpu_tensors_never_reach_a_kernel():
                           torch.full((1, 5), 0.5, dtype=torch.float64), p,
                           sw_i_inf(p), win)
         assert bool(torch.isfinite(g).all())
-    # K8 in both modes, the density and the log-likelihood sums
-    from pint_torch.kernels.photon_lnlike import (BINNED, GAUSS,
+    # K8 in its three modes, the density and the log-likelihood sums
+    from pint_torch.kernels.photon_lnlike import (BINNED, GAUSS, MIXED,
                                                   photon_lnlike)
 
     fr = torch.full((2, 5), 0.3, dtype=torch.float64)
+    mixed = torch.tensor([0.6, 0.0, 0.04, 0.3, 0.0, 0.4, 0.1, 0.0, 0.0],
+                         dtype=torch.float64)
     for mode, tab in ((BINNED, torch.ones(8, dtype=torch.float64)),
                       (GAUSS, torch.tensor([0.4, 0.04, 0.3, 0.6, 0.1],
-                                           dtype=torch.float64))):
+                                           dtype=torch.float64)),
+                      (MIXED, mixed)):
         for dens in (False, True):
             out = photon_lnlike(fr, torch.full((5,), 0.5,
                                                dtype=torch.float64),
@@ -426,14 +429,19 @@ def test_cpu_tensors_never_reach_a_kernel():
                       torch.tensor([4.33, 4.33], dtype=torch.float64),
                       torch.tensor([1e-8], dtype=torch.float64), 1e8)
     assert bool(torch.isfinite(D).all()) and bool((D[1] == 0.0).all())
-    # K11, the precision segments' matmul, in every mode and dtype
-    from pint_torch.kernels.compensated_matmul import compensated_matmul
+    # K11, the precision segments' matmul, and its backward, in every
+    # mode and dtype
+    from pint_torch.kernels.compensated_matmul import (
+        BWD_KERNELS, compensated_matmul, compensated_matmul_backward)
 
     a = torch.ones((2, 3, 20), dtype=torch.float64)
     for ct in ("float32", "bfloat16"):
         for acc in ("native", "f64", "two_sum", "two_prod"):
             out = compensated_matmul(a, a[0].T, ct, acc)
             assert out.shape == (2, 3, 3) and bool((out == 20.0).all())
+            g = torch.ones((3, 3), dtype=torch.float64)
+            da, db = compensated_matmul_backward(a[0], a[0].T, g, ct, acc)
+            assert bool((da == 3.0).all()) and bool((db == 3.0).all())
     # K13 and K14, the predict path's evaluation and fit
     from pint_torch.kernels.polyco_eval import polyco_eval
     from pint_torch.kernels.polyco_fit import polyco_fit
@@ -446,10 +454,10 @@ def test_cpu_tensors_never_reach_a_kernel():
     assert bool((c == 0.0).all()) and float(rms[0]) == 0.0
     counts = kernels.launch_counts()
     tables = [mod.KERNELS for mod in kernels.modules().values()]
-    assert set(counts) == {n for t in tables + [GRAD_KERNELS]
+    assert set(counts) == {n for t in tables + [GRAD_KERNELS, BWD_KERNELS]
                            for n in t.values()}
-    assert len(counts) == 2 + 20 + 2 + 16 + 3 + 6 + 2 + 5 + 4 + 4 + 8 + 7 \
-        + 1 + 1
+    assert len(counts) == 2 + 20 + 2 + 16 + 3 + 6 + 2 + 7 + 4 + 4 + 8 + 8 \
+        + 7 + 1 + 1
     assert not any(counts.values())
 
 

@@ -416,9 +416,11 @@ def test_accessors_and_refusals(small):
 
 
 def test_other_primitives_take_the_torch_route(small):
-    """An analytic template with a von Mises peak and a two-sided
+    """An analytic template with a skewed Gaussian peak and a two-sided
     Gaussian is evaluated by the primitives' torch branches (the repr
-    says so): its lnposterior within 1e-12 rel of the reference's."""
+    says so; a von Mises peak and a two-sided Gaussian alone now take K8's
+    MIXED mode, ``test_torch_photon_mixed.py``): its lnposterior within
+    1e-12 rel of the reference's."""
     from pint_torch import templates as P
     from pint_torch.event_fitter import MCMCFitterAnalyticTemplate as PA
     from pint_torch.templates import lcprimitives as PP
@@ -427,14 +429,14 @@ def test_other_primitives_take_the_torch_route(small):
     from pint_tpu.templates import lcprimitives as RP
 
     def tpl(mod, prims):
-        return mod.LCTemplate([mod.LCVonMises([0.05, 0.5]),
+        return mod.LCTemplate([prims.LCSkewGaussian([0.05, 0.5, 2.0]),
                                prims.LCGaussian2([0.02, 0.04, 0.7])],
                               [0.4, 0.2])
 
     a = PA(small["b"], small["m"], tpl(P, PP), prior_info=small["info"])
     b = RA(small["toas"], small["m2"], tpl(R, RP), weights=small["w"],
            prior_info=small["info"])
-    assert "torch _pdf (LCGaussian2, LCVonMises)" in repr(a)
+    assert "torch _pdf (LCGaussian2, LCSkewGaussian)" in repr(a)
     pts = _stored(small)[0]["ref/photon/points"]
     got, want = a.lnposterior_batch(pts), b.lnposterior_batch(pts)
     fin = np.isfinite(want)

@@ -539,11 +539,20 @@ API_DIGESTS = {
 }
 
 
+#: reference outputs added after every digest below was taken (the
+#: reduced-precision amortized run, the mixed photon template, the
+#: full-covariance GLS fits): every digest leaves them out, arrays and
+#: ``meta["reference"]`` key alike, so each pins what its file held before
+LATER = {"ref/amortized_reduced/": "amortized_reduced",
+         "ref/photon_mixed/": "photon_mixed", "ref/full_cov/": "full_cov"}
+
+
 def _digest(path, skip=("ref/api/", "ref/bayes/", "ref/sweep/",
                        "ref/precision/", "ref/amortized/",
                        "ref/predict/")) -> str:
     """sha256 (16 hex) of a snapshot's arrays but those under the
-    prefixes ``skip`` (name, dtype, shape, bytes) and of its ``meta``
+    prefixes ``skip`` and :data:`LATER` (name, dtype, shape, bytes) and of
+    its ``meta``
     without their keys (``top_level`` and ``reference["api"]`` for
     ``ref/api/``, ``reference["bayes"]`` for ``ref/bayes/``,
     ``reference["precision"]`` for ``ref/precision/``,
@@ -553,6 +562,7 @@ def _digest(path, skip=("ref/api/", "ref/bayes/", "ref/sweep/",
     import hashlib
 
     h = hashlib.sha256()
+    skip = tuple(skip) + tuple(LATER)
     with np.load(path, allow_pickle=False) as z:
         for k in sorted(z.files):
             if k == "meta" or k.startswith(skip):
@@ -574,6 +584,8 @@ def _digest(path, skip=("ref/api/", "ref/bayes/", "ref/sweep/",
         meta.get("reference", {}).pop("amortized", None)
     if "ref/predict/" in skip:
         meta.get("reference", {}).pop("predict", None)
+    for key in LATER.values():
+        meta.get("reference", {}).pop(key, None)
     h.update(json.dumps(meta, sort_keys=True).encode())
     return h.hexdigest()[:16]
 
@@ -1147,6 +1159,26 @@ def _add_amortized(path: str, which: str) -> None:
     np.savez_compressed(path, **arrays)
 
 
+def _add_photon_mixed(path: str, which: str) -> None:
+    """Add ``ref/photon_mixed/`` (``_torch_standin.export_photon_mixed``)
+    to the committed photon stand-in at ``path``; the arrays already there
+    stay as they are."""
+    if which not in ("photon_j0030", "small_photon"):
+        raise SystemExit(f"no photon_mixed outputs for {which}")
+    with np.load(path, allow_pickle=False) as z:
+        arrays = {k: z[k] for k in z.files}
+    meta = json.loads(str(arrays["meta"]))
+    before = dict(arrays)
+    standin.export_photon_mixed(SETTINGS[which], arrays, meta)
+    for k, v in arrays.items():
+        if k in before and v is not before[k] or k not in before \
+                and not k.startswith("ref/photon_mixed/"):
+            raise SystemExit(f"the export wrote {k} outside "
+                             "ref/photon_mixed/")
+    arrays["meta"] = np.asarray(json.dumps(meta))
+    np.savez_compressed(path, **arrays)
+
+
 if __name__ == "__main__":
     import argparse
 
@@ -1216,6 +1248,19 @@ if __name__ == "__main__":
                          "by op (ref/amortized/op_by_op/) to the committed "
                          "ell1 or ddgr file at --write, beside its "
                          "ref/amortized/")
+    ap.add_argument("--amortized-reduced", action="store_true",
+                    help="add the reference's amortized run under the "
+                         "forced float32 policy, jitted and op by op "
+                         "(ref/amortized_reduced/), to the committed ell1 "
+                         "file at --write")
+    ap.add_argument("--photon-mixed", action="store_true",
+                    help="add the mixed closed-form template's reference "
+                         "outputs (ref/photon_mixed/) to the committed "
+                         "photon file at --write")
+    ap.add_argument("--full-cov", action="store_true",
+                    help="add the narrowband GLS fitters' full-covariance "
+                         "fits (ref/full_cov/) to the committed b1855_noise "
+                         "file at --write")
     ap.add_argument("--precision", action="store_true",
                     help="add the reference's forced reduced-precision "
                          "outputs and probes (ref/precision/) to the "
@@ -1233,6 +1278,15 @@ if __name__ == "__main__":
         _add_predict(args.write, args.settings)
     elif args.amortized:
         _add_amortized(args.write, args.settings)
+    elif args.amortized_reduced:
+        _add_outputs(args.write, args.settings,
+                     standin.export_amortized_reduced,
+                     "ref/amortized_reduced/")
+    elif args.photon_mixed:
+        _add_photon_mixed(args.write, args.settings)
+    elif args.full_cov:
+        _add_outputs(args.write, args.settings, standin.export_full_cov,
+                     "ref/full_cov/")
     elif args.amortized_op_by_op:
         _add_outputs(args.write, args.settings,
                      standin.export_amortized_op_by_op,
