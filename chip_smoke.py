@@ -722,9 +722,9 @@ def _card() -> str:
 
 
 #: the launch functions :class:`Capture` spies on: each kernel module's
-#: ``_launch``, and K10's module's ``_launch_grad`` (K12), recorded as
-#: ``hd_cross_lnlike_grad``
-LAUNCHERS = ("_launch", "_launch_grad")
+#: ``_launch``, and K10's module's ``_launch_value_and_grad`` (K12's
+#: sequence), recorded as ``hd_cross_lnlike_value_and_grad``
+LAUNCHERS = ("_launch", "_launch_value_and_grad")
 
 
 class Capture:
@@ -3152,18 +3152,33 @@ def _catalog_phase(path, kernels, tag):
     return counts, jl, bench, pts
 
 
-def _k10_ops(R: int, m: int) -> int:
+def _k10_ops(R: int, m: int, products: bool = True) -> int:
     """float64 instructions of K10 for one walker: the spectrum (m exp,
     two more exp and a log a mode, sqrt), then per column j the R + 1 - j
     rows' M entry (3) and j products and differences each, the pivot's sqrt
     and log, the R - j divisions and z^2's product and sum (a sqrt, exp,
-    log and division at their SASS counts)."""
+    log and division at their SASS counts); without ``products`` all but
+    the j products and differences an entry (the GEMM-shaped updates,
+    which :func:`_k10_bound` counts at the tensor cores' rate)."""
     e, lg, sq, dv = SASS_OPS["exp"], SASS_OPS["log"], SASS_OPS["sqrt"], \
         SASS_OPS["div"]
     ops = m * (3 * e + lg + sq + 8)
     for j in range(R):
-        ops += (R + 1 - j) * (3 + 2 * j) + sq + lg + 2 + (R - j) * dv + 2
+        ops += (R + 1 - j) * (3 + (2 * j if products else 0)) + sq + lg \
+            + 2 + (R - j) * dv + 2
     return ops
+
+
+def _k10_bound(B: int, R: int, m: int):
+    """K10's least time for ``B`` walkers: G, u, the points and
+    frequencies read, the (B, R, R + 1) workspace and the results written,
+    against the factor's R^3 / 6 multiply-adds a walker (R^3 / 3 flops,
+    GEMM-shaped in its trailing updates) at the float64 tensor cores' rate
+    and the rest (M's entries, pivots, divisions, sums) at the CUDA cores'
+    float64 instruction rate."""
+    nbytes = 8 * (R * R + R + 2 * B + m + B + B * R * (R + 1))
+    return _bound(nbytes, B * _k10_ops(R, m, products=False),
+                  tensor_ops=B * R ** 3 / 3, rate=F64_INSTR_PER_S)
 
 
 #: warm calls K10's time is the median of
@@ -3268,10 +3283,7 @@ def _k10_kernels(jl, counts, bench, stored, dev, tag) -> list:
             plain = _time_ms(lambda: K10.hd_cross_lnlike_reference(
                 G, u, la, ga, f, T), 1, warmup=1)
             lib_ms = _median_ms(lambda: library(M, v), K10_REPS)
-            # G, u, the points and frequencies read, the (B, R, R + 1)
-            # workspace and the results written
-            nbytes = 8 * (R * R + R + 2 * B + m + B + B * R * (R + 1))
-            bound = _bound(nbytes, B * _k10_ops(R, m), rate=F64_INSTR_PER_S)
+            bound = _k10_bound(B, R, m)
             rec = (ms, plain, lib_ms, bound, a_call)
         del M, v, z
     zl = torch.tensor([-float("inf"), -14.0, -float("inf")],
@@ -3291,7 +3303,9 @@ def _k10_kernels(jl, counts, bench, stored, dev, tag) -> list:
           + f"), plain {plain:.4f} ms, library cholesky_ex + "
           f"solve_triangular + log-det {lib_ms:.4f} ms (no slower than the "
           f"library: {verdict}), bound {bound[0]:.4f} ms ({bound[1]}; "
-          f"{_k10_ops(R, m)} float64 instructions a walker), share "
+          f"R^3 / 3 flops a walker at the float64 tensor cores, "
+          f"{_k10_ops(R, m, products=False)} float64 instructions at the "
+          f"CUDA cores), share "
           f"{bound[0] / ms:.4f} {tag}", flush=True)
     return [dict(name=K10.NAME, route="cuda",
                  source="pint_torch/kernels/csrc/hd_cross_lnlike.cu",
@@ -3816,11 +3830,15 @@ def _k11_bar(a, b, ct, acc, bounds):
 
 def _k11_check(K11, a3, b3, ct, acc, split=8):
     """(max |kernel - twin|, max of that over its bar, NaN/Inf positions
-    equal) of K11 on (B, m, k) x (B, k, n) operands."""
+    equal, a second launch bitwise the first) of K11 on (B, m, k) x (B, k,
+    n) operands."""
     import torch
 
     bounds = K11.split_bounds(a3.shape[-1], split)
     got = K11._launch(a3, b3, ct, acc, bounds)
+    again = K11._launch(a3, b3, ct, acc, bounds)
+    same = bool(torch.equal(got.nan_to_num(), again.nan_to_num())) and \
+        bool(torch.equal(torch.isnan(got), torch.isnan(again)))
     want = K11.compensated_matmul_reference(a3, b3, ct, acc, split)
     fin = torch.isfinite(want)
     same_nf = bool(torch.equal(torch.isnan(got), torch.isnan(want))) and \
@@ -3832,7 +3850,7 @@ def _k11_check(K11, a3, b3, ct, acc, split=8):
         bar = bar + torch.exp2(torch.floor(torch.log2(w)) - 7.0)
     ratio = float((d / bar.where(fin, torch.ones_like(bar)).clamp(
         min=1e-300)).max()) if d.numel() else 0.0
-    return float(d.max()) if d.numel() else 0.0, ratio, same_nf
+    return float(d.max()) if d.numel() else 0.0, ratio, same_nf, same
 
 
 def _k11_unique_bytes(t) -> int:
@@ -4369,7 +4387,9 @@ def _k11_cases(dev) -> list:
     """K11's seeded random (B, m, k) x (B, k, n) cases on ``dev``, entries
     spread over six decades: a 1-D rhs, a batch against a shared operand,
     k = 1, k < split, k off the 16-deep tile, a tall contraction over
-    4005 rows, and a zero column with NaN and Inf."""
+    4005 rows, an off-tile shape (m, n past a tile edge, k off the
+    256-deep middle sums, few enough tiles that the contraction is split),
+    and a zero column with NaN and Inf."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(20261018)
@@ -4383,7 +4403,8 @@ def _k11_cases(dev) -> list:
     cases = []
     for sa, sb in (((7, 37), (37, 1)), ((3, 9, 40), (1, 40, 4)),
                    ((4, 1), (1, 3)), ((5, 5), (5, 2)), ((33, 50), (50, 17)),
-                   ((2, 300, 4005), (2, 4005, 30))):
+                   ((2, 300, 4005), (2, 4005, 30)),
+                   ((3, 70, 1000), (3, 1000, 77))):
         a, b = rnd(*sa), rnd(*sb)
         if a.ndim == 2:
             a = a[None]
@@ -4399,24 +4420,31 @@ def _k11_cases(dev) -> list:
 
 def _k11_kernels(calls, counts, dev, tag) -> list:
     """K11 against its plain twin on the card: every instantiation on the
-    largest call each consumer gave it in the precision phase (its mode
-    and dtype) and on the seeded random operands of ``_k11_cases``,
-    within each mode's bar (``_k11_bar``); timed
-    on each consumer's call beside its bound, the twin and the library's
-    passes, the record holding the largest.  Returns the kernels-line
-    records."""
+    largest call each consumer gave K11 in the precision phase in any mode
+    (the four path shapes gls.design, grid.gram, serve.gram and
+    catalog.lnlike among them) and on the seeded random operands of
+    ``_k11_cases`` (an off-tile, split shape among them), within each
+    mode's bar (``_k11_bar``), NaN and Inf where the twin's, and a second
+    launch bitwise the first; timed on each path shape beside its bound,
+    the twin and the library's passes, the record holding the largest call
+    of its own mode.  Returns the kernels-line records."""
     from pint_torch.kernels import compensated_matmul as K11
 
     rand_cases = _k11_cases(dev)
+    shapes = {}
+    for (consumer, _, _), (size, args) in calls.items():
+        if consumer not in shapes or shapes[consumer][0] < size:
+            shapes[consumer] = (size, args)
     records = []
     for acc in K11.ACCUMULATIONS:
         for ct in ("float32", "bfloat16"):
             name = K11.KERNELS[(acc, ct)]
             mine = {key: c for key, c in calls.items()
                     if key[1] == acc and key[2] == ct}
-            errs, worst, nf, err_path = [], 0.0, True, 0.0
-            for (consumer, _, _), (_, (a3, b3, _, _, bd)) in mine.items():
-                e, r, s = _k11_check(K11, a3, b3, ct, acc)
+            errs, worst, nf, err_path, same = [], 0.0, True, 0.0, True
+            for consumer, (_, (a3, b3, _, _, _)) in sorted(shapes.items()):
+                bd = K11.split_bounds(a3.shape[-1], 8)
+                e, r, s_nf, s_bit = _k11_check(K11, a3, b3, ct, acc)
                 ms_c = _time_ms(lambda: K11._launch(a3, b3, ct, acc, bd), 5)
                 plain_c = _time_ms(lambda: K11.compensated_matmul_reference(
                     a3, b3, ct, acc), 3, warmup=1)
@@ -4426,13 +4454,15 @@ def _k11_kernels(calls, counts, dev, tag) -> list:
                             f"{tuple(b3.shape)} {e:.3e} ({r:.3f} of the bar)"
                             f", kernel {ms_c:.4f} ms, plain {plain_c:.4f}, "
                             f"library {lib_c:.4f}, bound {bound_c[0]:.4f} "
-                            f"({bound_c[1]})")
-                worst, nf = max(worst, r), nf and s
+                            f"({bound_c[1]}), share "
+                            f"{bound_c[0] / ms_c:.4f}")
+                worst, nf, same = max(worst, r), nf and s_nf, same and s_bit
                 err_path = max(err_path, e)
             err = 0.0
             for a, b in rand_cases:
-                e, r, s = _k11_check(K11, a, b, ct, acc)
-                err, worst, nf = max(err, e), max(worst, r), nf and s
+                e, r, s_nf, s_bit = _k11_check(K11, a, b, ct, acc)
+                err, worst = max(err, e), max(worst, r)
+                nf, same = nf and s_nf, same and s_bit
             big = max(mine.values(), key=lambda c: c[0])[1] if mine \
                 else (*rand_cases[K11_LARGEST_CASE], ct, acc,
                       K11.split_bounds(4005, 8))
@@ -4442,15 +4472,17 @@ def _k11_kernels(calls, counts, dev, tag) -> list:
                 a3, b3, ct, acc), 3, warmup=1)
             lib = _time_ms(_k11_library(K11, a3, b3, ct, acc), 5)
             bound = _k11_bound(a3, b3, ct, acc)
-            print(f"phase kernel {name}: path calls " + ("; ".join(errs) or
-                                                        "none")
+            print(f"phase kernel {name}: path shapes " + ("; ".join(errs)
+                                                         or "none")
                   + f"; random {err:.3e}; worst {worst:.3f} of the bar; NaN/"
-                  f"Inf where the twin's {nf}; at {tuple(a3.shape)}x"
-                  f"{tuple(b3.shape)} kernel {ms:.4f} ms, plain {plain:.4f}"
-                  f" ms, library {lib:.4f} ms, bound {bound[0]:.4f} ms "
-                  f"({bound[1]}) {tag}", flush=True)
-            if not (worst <= 1.0 and nf):
-                raise RuntimeError(f"{name} disagrees with its plain version")
+                  f"Inf where the twin's {nf}; two launches bitwise {same}; "
+                  f"at {tuple(a3.shape)}x{tuple(b3.shape)} kernel {ms:.4f} "
+                  f"ms, plain {plain:.4f} ms, library {lib:.4f} ms, bound "
+                  f"{bound[0]:.4f} ms ({bound[1]}), share "
+                  f"{bound[0] / ms:.4f} {tag}", flush=True)
+            if not (worst <= 1.0 and nf and same):
+                raise RuntimeError(f"{name} disagrees with its plain version "
+                                   f"or with itself")
             records.append(dict(
                 name=name, route="cuda",
                 source="pint_torch/kernels/csrc/compensated_matmul.cu",
@@ -4748,6 +4780,21 @@ def _amortized_phase(label, path, kind, kernels, tag, timed_steps):
           f"{reload_same}; launches (nonzero) "
           f"{dict((k, v) for k, v in counts.items() if v)} {tag}",
           flush=True)
+    step_launches = {k: v / cfg.steps for k, v in counts.items() if v}
+    if kind == "catalog":
+        # every walker factored once a step: value and gradient from K12's
+        # sequence, K10's own launch never called where a gradient is taken
+        from pint_torch.kernels import hd_cross_lnlike as K10
+
+        alone = {k: counts[k] for k in K10.KERNELS.values() if counts[k]}
+        if alone:
+            bad.append(f"K10 launched alone under a gradient: {alone}")
+        print(f"phase amortized {label} launches a step: K10 "
+              + str({k: step_launches.get(k, 0.0)
+                     for k in K10.KERNELS.values()})
+              + ", K12 " + str({k: step_launches.get(k, 0.0)
+                                for k in K10.GRAD_KERNELS.values()})
+              + f" {tag}", flush=True)
     if bad:
         raise RuntimeError(f"amortized bars failed ({label}): "
                            + "; ".join(bad))
@@ -4811,32 +4858,37 @@ K12_REPS = 5
 
 
 def _k12_bound(B: int, R: int, m: int):
-    """K12's least time for ``B`` walkers: its inputs read and its output
-    written once, against its whole work -- the factor's R^3 / 6 and L^-1's
-    R^3 / 6 multiply-adds a walker (2 R^3 / 3 flops), GEMM-shaped in their
-    trailing updates, at the float64 tensor cores' rate, and 5 R^2 flops on
-    the CUDA cores (M's two products an entry, the squared column norms of
-    L^-1 and w's column sums)."""
-    nbytes = 8 * (R * R + R + 2 * B + m + 2 * B)
+    """K12's least time for ``B`` walkers (value and gradient from one
+    factor): its inputs read and its outputs written once, against its
+    whole work -- the factor's R^3 / 6 and L^-1's R^3 / 6 multiply-adds a
+    walker (2 R^3 / 3 flops), GEMM-shaped in their trailing updates, at the
+    float64 tensor cores' rate, and 5 R^2 flops on the CUDA cores (M's two
+    products an entry, the squared column norms of L^-1 and w's column
+    sums)."""
+    nbytes = 8 * (R * R + R + 2 * B + m + B + 2 * B)
     return _bound(nbytes, B * 5 * R ** 2, tensor_ops=B * 2 * R ** 3 / 3)
 
 
 def _k12_kernels(jl, cap, counts, dev, tag) -> list:
-    """K12 against its plain version on the card at the amortized path's G,
-    u and walker points (its largest call, B = 64) at B = 16, 32, 48 and 64,
-    each in the wrapper's chunks under the workspace cap, in one chunk and
-    in chunks of 3: bitwise (``torch.equal``) and within 1e-12 x sum_k
+    """K12's launch sequence (value and gradient from one factor) against
+    its plain versions on the card at the amortized path's G, u and walker
+    points (its largest call, B = 64) at B = 16, 32, 48 and 64, each in the
+    wrapper's chunks under the workspace cap, in one chunk and in chunks of
+    3: the value bitwise K10's (``_launch``) and the gradient bitwise its
+    plain version (``torch.equal``), and the gradient within 1e-12 x sum_k
     |e_k| (w_k^2 + (M^-1)_kk + 1) (those from the library's factor, for
     log10_A and gamma apart); exactly 0.0 at zero amplitude.  Times at B =
-    64: the kernel (median of ``K12_REPS`` warm calls), its launches a call,
-    its plain version, the library yardstick -- ``cholesky_ex`` of the
-    formed M, the diagonal of ``cholesky_inverse`` and ``solve_triangular``,
-    M formed outside the timed window -- and the bound (:func:`_k12_bound`)."""
+    64: the sequence (median of ``K12_REPS`` warm calls), its launches a
+    call, K10 alone beside it, its plain version, the library yardstick for
+    the same work -- ``cholesky_ex`` of the formed M, the value's solve and
+    log-determinant, the diagonal of ``cholesky_inverse`` and w's two
+    solves, M formed outside the timed window -- and the bound
+    (:func:`_k12_bound`)."""
     import torch
 
     from pint_torch.kernels import hd_cross_lnlike as K10
 
-    G, u, la0, ga0, f, T = cap.args("hd_cross_lnlike_grad")
+    G, u, la0, ga0, f, T = cap.args("hd_cross_lnlike_value_and_grad")
     R, m = G.shape[0], f.shape[0]
     eye = torch.eye(R, dtype=torch.float64, device=dev)
     eg = K10.gamma_weights(f).repeat_interleave(2).repeat(R // (2 * m))
@@ -4853,13 +4905,15 @@ def _k12_kernels(jl, cap, counts, dev, tag) -> list:
         L, _ = torch.linalg.cholesky_ex(M)
         dinv = torch.diagonal(torch.cholesky_inverse(L), dim1=-2, dim2=-1)
         z = torch.linalg.solve_triangular(L, v[..., None], upper=False)
+        value = 0.5 * (z[..., 0] ** 2).sum(-1) - torch.log(
+            torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
         w = torch.linalg.solve_triangular(L.mT, z, upper=True)[..., 0]
-        return w, dinv
+        return w, dinv, value
 
     def chunked(cap_bytes, la, ga):
         K10.WORKSPACE_CAP_BYTES = cap_bytes
         try:
-            return K10._launch_grad(G, u, la, ga, f, T)
+            return K10._launch_value_and_grad(G, u, la, ga, f, T)
         finally:
             K10.WORKSPACE_CAP_BYTES = capb
 
@@ -4867,58 +4921,65 @@ def _k12_kernels(jl, cap, counts, dev, tag) -> list:
     for B in (16, 32, 48, 64):
         la, ga = la0[:B].contiguous(), ga0[:B].contiguous()
         want = K10.hd_cross_grad_reference(G, u, la, ga, f, T)
-        got = K10._launch_grad(G, u, la, ga, f, T)
-        one = chunked(per * B, la, ga)
-        small = chunked(per * 3, la, ga)
+        want_v = K10._launch(G, u, la, ga, f, T)
+        outs = [K10._launch_value_and_grad(G, u, la, ga, f, T),
+                chunked(per * B, la, ga), chunked(per * 3, la, ga)]
         M, v = library(la, ga)
-        w, dinv = lib_terms(M, v)
+        w, dinv, _ = lib_terms(M, v)
         t = w * w + dinv + 1.0
         scale = torch.stack([math.log(10.0) * t.sum(-1),
                              (eg.abs() * t).sum(-1)], dim=1)
         lib = torch.stack([math.log(10.0) * (w * w + dinv - 1.0).sum(-1),
                            (eg * (w * w + dinv - 1.0)).sum(-1)], dim=1)
+        got = outs[0][1]
         e = float(((got - want).abs() / scale).max())
         el = float(((got - lib).abs() / scale).max())
-        bit = all(bool(torch.equal(x, want)) for x in (got, one, small))
-        err = max(err, *(float((x - want).abs().max())
-                         for x in (got, one, small)))
+        bit = all(bool(torch.equal(g, want)) for _, g in outs)
+        bit_v = all(bool(torch.equal(x, want_v)) for x, _ in outs)
+        err = max(err, *(float((g - want).abs().max()) for _, g in outs))
         notes.append(f"B={B} (chunks of "
                      f"{K10.walkers_per_chunk(B, R, K10.NB + 2)}, of {B} "
-                     f"and of 3): {'bitwise' if bit else 'DIFFERS'}, "
+                     f"and of 3): gradient {'bitwise' if bit else 'DIFFERS'}"
+                     f", value {'bitwise K10' if bit_v else 'DIFFERS'}, "
                      f"{e:.3e} of the scale (<= 1e-12), library {el:.3e}")
-        if not bit or e > 1e-12:
+        if not (bit and bit_v) or e > 1e-12:
             raise RuntimeError(f"hd_cross_grad disagrees with its plain "
-                               f"version at B = {B}: {e:.3e}, bitwise {bit}")
+                               f"versions at B = {B}: {e:.3e}, gradient "
+                               f"bitwise {bit}, value bitwise {bit_v}")
         if B == 64:
             before = dict(K10.launch_counts)
-            K10._launch_grad(G, u, la, ga, f, T)
+            K10._launch_value_and_grad(G, u, la, ga, f, T)
             a_call = {k: K10.launch_counts[k] - before[k]
                       for k in K10.GRAD_KERNELS.values()}
-            ms = _median_ms(
-                lambda: K10._launch_grad(G, u, la, ga, f, T), K12_REPS)
-            plain = _time_ms(lambda: K10.hd_cross_grad_reference(
+            ms = _median_ms(lambda: K10._launch_value_and_grad(
+                G, u, la, ga, f, T), K12_REPS)
+            ms10 = _median_ms(lambda: K10._launch(G, u, la, ga, f, T),
+                              K12_REPS)
+            plain = _time_ms(lambda: K10.hd_cross_value_and_grad_reference(
                 G, u, la, ga, f, T), 1, warmup=0)
             lib_ms = _median_ms(lambda: lib_terms(M, v), K12_REPS)
             bound = _k12_bound(B, R, m)
-            rec = (ms, plain, lib_ms, bound, a_call)
+            rec = (ms, ms10, plain, lib_ms, bound, a_call)
         del M, v, w, dinv
     zl = torch.tensor([-float("inf"), -14.0, -float("inf")],
                       dtype=torch.float64, device=dev)
     zg = torch.tensor([4.33, 4.33, 2.0], dtype=torch.float64, device=dev)
-    z0 = K10._launch_grad(G, u, zl, zg, f, T).cpu()
+    zv, z0 = (x.cpu() for x in K10._launch_value_and_grad(G, u, zl, zg, f,
+                                                         T))
     if not (bool((z0[0] == 0.0).all()) and bool((z0[2] == 0.0).all())
-            and bool((z0[1] != 0.0).all())):
-        raise RuntimeError(f"hd_cross_grad at zero amplitude: {z0}")
-    ms, plain, lib_ms, bound, a_call = rec
+            and bool((z0[1] != 0.0).all()) and float(zv[0]) == 0.0
+            and float(zv[2]) == 0.0):
+        raise RuntimeError(f"hd_cross_grad at zero amplitude: {zv}, {z0}")
+    ms, ms10, plain, lib_ms, bound, a_call = rec
     print(f"phase kernel hd_cross_grad: R={R} m={m}; " + "; ".join(notes)
-          + f"; zero amplitude exactly 0.0; B=64 {ms:.4f} ms (median of "
-          f"{K12_REPS}; {sum(a_call.values())} launches: "
-          + ", ".join(f"{k} {a_call[k]}" for k in a_call)
-          + f"), plain {plain:.4f} ms, library cholesky_ex + "
-          f"cholesky_inverse diagonal + solve_triangular {lib_ms:.4f} ms, "
-          f"bound {bound[0]:.4f} ms ({bound[1]}; 2 R^3 / 3 flops a walker "
-          f"at the float64 tensor cores, 5 R^2 at the CUDA cores), share "
-          f"{bound[0] / ms:.4f} {tag}",
+          + f"; zero amplitude exactly 0.0; B=64 value and gradient "
+          f"{ms:.4f} ms (median of {K12_REPS}; {sum(a_call.values())} "
+          f"launches: " + ", ".join(f"{k} {a_call[k]}" for k in a_call)
+          + f"; K10 alone {ms10:.4f} ms), plain {plain:.4f} ms, library "
+          f"cholesky_ex + solves + log-det + cholesky_inverse diagonal "
+          f"{lib_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; 2 R^3 / 3 "
+          f"flops a walker at the float64 tensor cores, 5 R^2 at the CUDA "
+          f"cores), share {bound[0] / ms:.4f} {tag}",
           flush=True)
     parts = {k: counts[k] for k in K10.GRAD_KERNELS.values()}
     return [dict(name="hd_cross_grad", route="cuda",
@@ -6274,10 +6335,17 @@ def main() -> int:
               for sm in (True, False) for ing in (False, True)]
     ptxas += [("hd_cross_lnlike", k, k) for k in K10.KERNELS.values()]
     ptxas += [("hd_cross_lnlike", k, k) for k in (
-        "hd_cross_inv_panel", "hd_cross_inv_trail", "hd_cross_colsum",
-        "hd_cross_bins")]
+        "hd_cross_inv_left", "hd_cross_colsum", "hd_cross_bins")]
+    # K11's forward: native float32 on the CUDA cores, native bfloat16 on
+    # its tensor cores, the float64-accumulated modes on the float64 ones,
+    # and split-K's second pass
     ptxas += [("compensated_matmul", K11.KERNELS[(acc, ct)],
-               f"compensated_matmul_kernelILi{i}ELi{j}E")
+               ("cm_f32", "cm_bf16")[j] if acc == "native"
+               else f"cm_dmmaILi{i}ELi{j}E")
+              for i, acc in enumerate(K11.ACCUMULATIONS)
+              for j, ct in enumerate(("float32", "bfloat16"))]
+    ptxas += [("compensated_matmul", f"{K11.KERNELS[(acc, ct)]} (split-K "
+               "pass)", f"cm_reduceILi{i}ELi{j}E")
               for i, acc in enumerate(K11.ACCUMULATIONS)
               for j, ct in enumerate(("float32", "bfloat16"))]
     ptxas += [("compensated_matmul", K11.BWD_KERNELS[(acc, ct)],
@@ -6534,12 +6602,12 @@ def main() -> int:
 
     # ---- the amortized phase: flows trained on reverse mode ---------------
     # each stand-in's counts zeroed just before it; under autograd the
-    # posterior's forward launches the dual kernels, K10's backward K12
+    # posterior's forward launches the dual kernels, the cross term K12's
+    # value-and-gradient sequence (and K10 alone never)
     amort_kernels = {
         "ell1": (K1.KERNELS[True], K4.KERNELS[(K4.ELL1, True)]),
         "ddgr": (K1.KERNELS[True], K2.KERNELS[(K2.DDGR, True)]),
-        "pta67_catalog": (*K10.KERNELS.values(),
-                          *K10.GRAD_KERNELS.values())}
+        "pta67_catalog": tuple(K10.GRAD_KERNELS.values())}
     t_amort = time.perf_counter()
     for label, path, kind, timed in (
             ("ell1", ELL1_PATH, "bayes", 150),

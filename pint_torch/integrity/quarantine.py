@@ -203,10 +203,25 @@ def _check_ephem_coverage(mjd64, ephem, span):
         f"[{lo:.1f}, {hi:.1f}]") for i in np.nonzero(bad)[0]]
 
 
+def _ephem_span(ephem):
+    """The MJD span ``ephem`` covers, or None for the analytic fallback or
+    an ephemeris that does not load (the reference's
+    ``_check_ephem_coverage``)."""
+    from pint_torch.ephemeris import load_ephemeris
+
+    try:
+        return load_ephemeris(ephem).coverage_mjd()
+    except Exception:
+        return None
+
+
 def run_toa_checks(batch, check_coverage: bool = True,
-                   max_error_us: float = ABSURD_ERROR_US) -> QuarantineReport:
+                   max_error_us: float = ABSURD_ERROR_US,
+                   ephem: Optional[str] = None) -> QuarantineReport:
     """Run every check over a :class:`~pint_torch.toa.TOABatch`; returns
-    the report (the caller's policy decides what it does with it)."""
+    the report (the caller's policy decides what it does with it).
+    ``ephem`` names the ephemeris whose coverage is checked, in place of
+    the batch's own (whose span the batch carries)."""
     n = batch.ntoas
     mjd64 = np.asarray(batch.mjds, dtype=np.float64)
     mjd_lo = np.zeros(n) if batch.mjd_lo is None \
@@ -225,8 +240,11 @@ def run_toa_checks(batch, check_coverage: bool = True,
     if check_coverage:
         findings += _check_clock_coverage(mjd64, obs,
                                           cov.get("clock_end") or {})
-        span = cov.get("ephem_span")
-        if batch.ephem and span is not None:
-            findings += _check_ephem_coverage(mjd64, batch.ephem, span)
+        if ephem:
+            span = _ephem_span(str(ephem))
+        else:
+            ephem, span = batch.ephem, cov.get("ephem_span")
+        if ephem and span is not None:
+            findings += _check_ephem_coverage(mjd64, ephem, span)
     findings.sort(key=lambda f: (f.index, f.code))
     return QuarantineReport(n_toas=n, findings=findings)

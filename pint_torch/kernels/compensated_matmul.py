@@ -19,10 +19,15 @@ float64 of ``torch.matmul``'s shape.  ``compute_dtype`` is ``"float32"`` or
 * ``two_prod``: the operands split into reduced ``hi + lo`` pairs, the
   float64 sums ``hi@hi``, ``hi@lo``, ``lo@hi`` folded in that order.
 
-On a CUDA tensor this launches ``csrc/compensated_matmul.cu`` (one kernel,
-which under ``two_sum`` folds each block's partial in registers), on
-PyTorch's current stream, so a CUDA-graph capture holds it; a failed build
-or launch raises.  On a CPU tensor it runs
+On a CUDA tensor this launches ``csrc/compensated_matmul.cu`` on PyTorch's
+current stream, so a CUDA-graph capture holds it: the float64-accumulated
+modes on the float64 tensor cores after a pass that rounds (and splits)
+each operand once into scratch (:func:`_copies`), native bfloat16 on the
+bfloat16 tensor cores, native float32 on the CUDA cores; ``two_sum`` folds
+each block's partial as the block ends; where the output tiles cannot
+fill the card, a split of the contraction with a second pass that sums
+(or folds) the parts in order.  All scratch is allocated here; a failed
+build or launch raises.  On a CPU tensor it runs
 :func:`compensated_matmul_reference`, the plain version, which follows the
 reference's arithmetic step by step: the casts, ``torch.matmul`` in
 float64 of the rounded parts for each block or pass, and the fold.
@@ -174,14 +179,50 @@ def _lib():
     if lib.compensated_matmul_launch.argtypes is None:
         vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.compensated_matmul_launch.argtypes = [
-            vp, ll, ll, ll, vp, ll, ll, ll, vp, ci, ci, ci, ci, ci, _Bounds,
-            vp]
+            vp, ll, ll, ll, vp, ll, ll, ll, vp, vp, vp, vp, vp, vp, ci, ci,
+            ci, ci, ci, ci, ci, _Bounds, vp]
         lib.compensated_matmul_launch.restype = ci
+        lib.compensated_matmul_splits.argtypes = [ci] * 7
+        lib.compensated_matmul_splits.restype = ci
+        lib.compensated_matmul_init.restype = ci
+        _build.check(NAME, lib.compensated_matmul_init())
         lib.compensated_matmul_bwd_launch.argtypes = [
             vp, ll, ll, ll, vp, ll, ll, ll, vp, ll, ll, ll, vp, vp, ci, ci,
             ci, ci, ci, ci, vp]
         lib.compensated_matmul_bwd_launch.restype = ci
     return lib
+
+
+#: the source's padding of the float64 tensor-core modes' rounded copies:
+#: rows of A to PAD_M, the contraction to TK, columns of B to PAD_N
+_PAD_M, _PAD_K, _PAD_N = 64, 16, 64
+
+
+def _copies(a3, b3, accumulation):
+    """Scratch for the rounded copies the float64 tensor-core modes make of
+    ``a3`` and ``b3`` (hi, and lo under two_prod; one copy of an operand
+    shared by the batch): ``(tensors, (ahi, alo, bhi, blo))``, the
+    pointers for the launch and the tensors to hold until it is queued;
+    null pointers under native."""
+    if accumulation == "native":
+        return (), (None,) * 4
+    B, m, k = a3.shape
+    n = b3.shape[-1]
+
+    def up(x, p):
+        return -(-x // p) * p
+
+    mp, kp, np_ = up(m, _PAD_M), up(k, _PAD_K), up(n, _PAD_N)
+    ba = 1 if B == 1 or a3.stride(0) == 0 else B
+    bb = 1 if B == 1 or b3.stride(0) == 0 else B
+    two = accumulation == "two_prod"
+    a_t = torch.empty((2 if two else 1, ba, mp, kp), dtype=F64,
+                      device=a3.device)
+    b_t = torch.empty((2 if two else 1, bb, kp, np_), dtype=F64,
+                      device=a3.device)
+    return (a_t, b_t), (_build.ptr(a_t[0]), _build.ptr(a_t[1]) if two
+                        else None, _build.ptr(b_t[0]),
+                        _build.ptr(b_t[1]) if two else None)
 
 
 def _launch(a3, b3, compute_dtype, accumulation, bounds):
@@ -203,10 +244,20 @@ def _launch(a3, b3, compute_dtype, accumulation, bounds):
     for i, v in enumerate(bounds):
         bd.b[i] = v
     ct, _ = _CT[compute_dtype]
-    rc = _lib().compensated_matmul_launch(
+    mode = _MODE[accumulation]
+    lib = _lib()
+    splits = lib.compensated_matmul_splits(B, m, n, k, mode, ct, nparts)
+    # split-K's parts: (splits x (2 under two_prod), B, m, n), here so that
+    # a CUDA-graph capture holds them
+    part = out if splits == 1 else torch.empty(
+        (splits * (2 if accumulation == "two_prod" else 1), B, m, n),
+        dtype=F64, device=a3.device)
+    held, copies = _copies(a3, b3, accumulation)
+    rc = lib.compensated_matmul_launch(
         _build.ptr(a3), *a3.stride(), _build.ptr(b3), *b3.stride(),
-        _build.ptr(out), B, m, n, _MODE[accumulation], ct, bd,
-        _build.stream_of(a3))
+        _build.ptr(out), _build.ptr(part), *copies, B, m, n, k, mode, ct,
+        splits, bd, _build.stream_of(a3))
+    del held
     launch_counts[KERNELS[(accumulation, compute_dtype)]] += 1
     _build.check(NAME, rc)
     return out

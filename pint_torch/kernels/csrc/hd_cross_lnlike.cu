@@ -270,120 +270,183 @@ hd_cross_sum(const double* __restrict__ W, const double* __restrict__ piv,
 // ---- K12 hd_cross_grad: the backward of the cross term -------------------
 // d out / d theta = sum_k e_k (w_k^2 + (M^-1)_kk - 1), w = M^-1 v = L^-T z,
 // e_k = d log d_k / d theta: ln 10 for log10_A, 0.5 (ln fyr - ln f_j(k))
-// for gamma.  After the factor (the forward's kernels, the diagonal
-// blocks' L entries kept in DL (B, R, NB)), X = L^-1 is formed in the
+// for gamma.  It runs in the same launch sequence as the value, on the
+// factor the value was read from (jax.value_and_grad's shape): K10's form,
+// panel and trailing kernels with the diagonal blocks' L entries kept in
+// DL (B, R, NB), hd_cross_sum for the value, then X = L^-1 in the
 // workspace's upper triangle, X[i][k] (i > k) at W[i (R + 1) + k] and
 // X[k][k] in the diagonal slot, which the factor leaves free (L_kk is the
-// pivot).  Right-looking forward substitution by panels of NB rows, every
-// entry X[i][k] = (delta_ik - sum_{j<i} L_ij X_jk) / L_ii, its products
-// rounded alone and subtracted in ascending j:
-//   hd_cross_inv_panel  grid (columns k < k1 in blocks of IC) x walkers,
-//                       one thread a column: the panel's rows, the
-//                       diagonal block of L staged in shared memory;
-//   hd_cross_inv_trail  grid (64 x 64 tiles of rows k1..R-1 x columns
-//                       0..k1-1) x walkers: each entry minus L_ij X_jk
-//                       for j in the panel, the trailing kernel's tiling;
-//   hd_cross_colsum     one thread a column: s_k = sum_i X_ik^2, wz_k =
-//                       sum_i X_ik z_i (= w_k) in ascending i, then c_k =
-//                       (wz_k wz_k + s_k) - 1;
-//   hd_cross_bins       one CTA a walker: c summed into the m frequency
-//                       bins in ascending k, then the two sums over the
-//                       bins in ascending j (log10_A's times ln 10 last).
-// X's columns are independent: the inverse spreads over k1 / IC CTAs a
-// walker in the panel and over tiles in the trail, the forward
-// substitution's chain is R / NB panels.  What bounds it: the R^3 / 6
-// multiply-subtracts of the inverse and the factor's R^3 / 6 again, each a
-// float64 multiply and a subtract on the CUDA cores.
-constexpr int IC = 128;        // inverse panel CTA threads, one a column
+// pivot).  Every entry X[i][k] = (delta_ik - sum_{j<i} L_ij X_jk) / L_ii,
+// its products rounded alone and subtracted in ascending j, then divided:
+//   hd_cross_inv_left  one launch a row block [i0, i0 + NB) (left-looking),
+//                      grid (64-column tiles of columns 0..i0 + NB) x
+//                      walkers, 128 threads: the tile's entries stay in an
+//                      8 x 4 register tile a thread while every earlier row
+//                      j in [c0, i0) streams through a two-stage cp.async
+//                      ring in shared memory (L's column j below the block
+//                      and X's row j, both contiguous in the workspace's
+//                      column j), one rounded product subtracted at a time
+//                      in ascending j; then the tile goes to shared
+//                      memory, one thread a column takes its NB rows into
+//                      registers, and the in-block triangle (the diagonal
+//                      block of L staged in the same shared memory) and
+//                      the divisions by the pivots finish each entry, which
+//                      is written once;
+//   hd_cross_colsum    one thread a column: s_k = sum_i X_ik^2, wz_k =
+//                      sum_i X_ik z_i (= w_k) in ascending i, then c_k =
+//                      (wz_k wz_k + s_k) - 1;
+//   hd_cross_bins      one CTA a walker: c summed into the m frequency
+//                      bins in ascending k, then the two sums over the
+//                      bins in ascending j (log10_A's times ln 10 last).
+// What bounds it: the R^3 / 6 multiply-subtracts of the inverse and the
+// factor's R^3 / 6 again, each a float64 multiply and a subtract on the
+// CUDA cores (no DMMA: a fused multiply-add would change the bits that
+// hold the kernel to its plain version).  The inverse reads L's and X's
+// earlier rows once a row block (R / NB times) and writes X once.
+constexpr int KS = 16;         // rows j a stage of the inverse's ring
+constexpr int IT = 128;        // inverse CTA threads
+constexpr int ITC = 64;        // the inverse's column tile, one column a
+                               // thread in the in-block phase
+constexpr int IM = 8;          // a thread's rows of the register tile
+constexpr int IX = NB / IM;    // threads along the tile's rows
+constexpr int IN = ITC * IX / IT;  // a thread's columns of the register tile
+static_assert(IN * IT == ITC * IX && ITC <= IT, "the register tile");
+constexpr int IRING = 2 * KS * (NB + ITC);     // the ring's doubles
+constexpr int ISQ = NB * ((ITC > NB ? ITC : NB) + 1);  // the tile's, L's
+constexpr int INV_SMEM = 8 * (IRING > ISQ ? IRING : ISQ);
 
-__global__ void __launch_bounds__(IC)
-hd_cross_inv_panel(double* __restrict__ W, const double* __restrict__ piv,
-                   const double* __restrict__ DL, int R, int k0, int nbw) {
-  __shared__ double Ld[NB][NB + 1];  // Ld[l][jj] = L[k0 + l][k0 + jj]
+__device__ __forceinline__ void cp_async8(double* dst, const double* src,
+                                          bool on) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+               "l"(src), "r"(on ? 8 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [i0, i0 + nbw) of X, columns c0..c0 + ITC - 1 (c0 = ITC
+// blockIdx.x, up to the block's last row).  Thread (tx, ty) of the
+// register tile holds rows i0 + tx + IX a and columns c0 + ty + (ITC / IN)
+// c; in the in-block phase thread t < ITC holds column c0 + t.  Dynamic
+// shared memory of INV_SMEM bytes (hd_cross_lnlike_init raises the limit
+// where it passes 48 KB).
+__global__ void __launch_bounds__(IT)
+hd_cross_inv_left(double* __restrict__ W, const double* __restrict__ piv,
+                  const double* __restrict__ DL, int R, int i0, int nbw) {
+  // the ring: stage s holds L's rows [jj][r] (NB) then X's [jj][c] (ITC);
+  // after it, the tile's rows S[l][c] (NB x (ITC + 1)) and then the
+  // diagonal block of L, Ld[l][jj] (NB x (NB + 1)), in the same memory
+  extern __shared__ __align__(16) double sm[];
   __shared__ double pv[NB];
-  const int t = threadIdx.x, b = blockIdx.y, k1 = k0 + nbw;
+  constexpr int CY = ITC / IN;
+  const int t = threadIdx.x, b = blockIdx.y, tx = t % IX, ty = t / IX;
+  const int c0 = blockIdx.x * ITC;
   const long LD = (long)R + 1;
   double* w = W + (long)b * R * LD;
-  for (int e = t; e < NB * NB; e += IC) {
-    const int l = e / NB, jj = e % NB;
-    Ld[l][jj] = (l < nbw && jj < l)
-        ? DL[((long)b * R + k0 + l) * NB + jj] : 0.0;
+  for (int l = t; l < NB; l += IT)
+    pv[l] = l < nbw ? piv[(long)b * R + i0 + l] : 1.0;
+  double acc[IM][IN];
+#pragma unroll
+  for (int a = 0; a < IM; ++a)
+#pragma unroll
+    for (int c = 0; c < IN; ++c) acc[a][c] = 0.0;
+  // stage the rows [jc, jc + KS) of L (below the block) and X (this tile),
+  // both contiguous in the workspace's column j
+  auto stage = [&](int buf, int jc) {
+    double* Li = sm + buf * KS * (NB + ITC);
+    double* Xj = Li + KS * NB;
+    for (int e = t; e < KS * NB; e += IT) {
+      const int jj = e / NB, r = e % NB, j = jc + jj;
+      const bool on = j < i0 && r < nbw;
+      cp_async8(Li + e, on ? w + (long)j * LD + i0 + r : w, on);
+    }
+    for (int e = t; e < KS * ITC; e += IT) {
+      const int jj = e / ITC, r = e % ITC, j = jc + jj;
+      const bool on = j < i0 && c0 + r <= j;
+      cp_async8(Xj + e, on ? w + (long)j * LD + c0 + r : w, on);
+    }
+    cp_async_commit();
+  };
+  if (c0 < i0) stage(0, c0);
+  for (int jc = c0, s = 0; jc < i0; jc += KS, ++s) {
+    if (jc + KS < i0) {
+      stage((s + 1) & 1, jc + KS);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const double* Li = sm + (s & 1) * KS * (NB + ITC);
+    const double* Xj = Li + KS * NB;
+    const int kn = min(KS, i0 - jc);
+#pragma unroll 2
+    for (int jj = 0; jj < kn; ++jj) {
+      double li[IM], xk[IN];
+#pragma unroll
+      for (int a = 0; a < IM; ++a) li[a] = Li[jj * NB + tx + IX * a];
+#pragma unroll
+      for (int c = 0; c < IN; ++c) xk[c] = Xj[jj * ITC + ty + CY * c];
+#pragma unroll
+      for (int a = 0; a < IM; ++a)
+#pragma unroll
+        for (int c = 0; c < IN; ++c) acc[a][c] = acc[a][c] - li[a] * xk[c];
+    }
+    __syncthreads();
   }
-  for (int l = t; l < NB; l += IC)
-    pv[l] = l < nbw ? piv[(long)b * R + k0 + l] : 1.0;
+  // the tile to shared memory, then one column a thread
+#pragma unroll
+  for (int a = 0; a < IM; ++a)
+#pragma unroll
+    for (int c = 0; c < IN; ++c)
+      sm[(tx + IX * a) * (ITC + 1) + ty + CY * c] = acc[a][c];
   __syncthreads();
-  const int k = blockIdx.x * IC + t;
-  if (k >= k1) return;
-  // x[l] holds row k0 + jj + l of column k, shifted along after each row
+  const int k = c0 + t;
+  const bool own = t < ITC && k < i0 + nbw;
+  // x[l] holds row i0 + l of column k
   double x[NB];
 #pragma unroll
   for (int l = 0; l < NB; ++l) {
-    const int row = k0 + l;
-    x[l] = l >= nbw ? 0.0
-        : row == k ? 1.0 : (k < k0 ? w[(long)row * LD + k] : 0.0);
+    const int row = i0 + l;
+    x[l] = (!own || l >= nbw) ? 0.0
+        : row == k ? 1.0 : (k < row ? sm[l * (ITC + 1) + t] : 0.0);
   }
+  __syncthreads();
+  for (int e = t; e < NB * NB; e += IT) {
+    const int l = e / NB, jj = e % NB;
+    sm[l * (NB + 1) + jj] = (l < nbw && jj < l)
+        ? DL[((long)b * R + i0 + l) * NB + jj] : 0.0;
+  }
+  __syncthreads();
+  if (!own) return;
+  if (nbw == NB) {
+    // a whole block: every index known, so x stays in registers unmoved
+#pragma unroll
+    for (int jj = 0; jj < NB; ++jj) {
+      x[jj] = x[jj] / pv[jj];
+      if (i0 + jj >= k) w[(long)(i0 + jj) * LD + k] = x[jj];
+#pragma unroll
+      for (int l = jj + 1; l < NB; ++l)
+        x[l] = x[l] - sm[l * (NB + 1) + jj] * x[jj];
+    }
+    return;
+  }
+  // the last, partial block: row jj + l in x[l], shifted along after each
   for (int jj = 0; jj < nbw; ++jj) {
-    const int j = k0 + jj;
+    const int i = i0 + jj;
     x[0] = x[0] / pv[jj];
-    if (j >= k) w[(long)j * LD + k] = x[0];
+    if (i >= k) w[(long)i * LD + k] = x[0];
 #pragma unroll
     for (int l = 1; l < NB; ++l)
-      if (jj + l < nbw) x[l] = x[l] - Ld[jj + l][jj] * x[0];
+      if (jj + l < nbw) x[l] = x[l] - sm[(jj + l) * (NB + 1) + jj] * x[0];
 #pragma unroll
     for (int l = 0; l < NB - 1; ++l) x[l] = x[l + 1];
   }
-}
-
-// Rows k1..R-1, columns 0..k1-1 of X, each entry minus L_ij X_jk for j in
-// the panel [k0, k1) in turn; thread (tx, ty) holds rows i0 + tx + TX a and
-// columns c0 + ty + TY c.  A column k >= k0 starts from delta_ik = 0.
-__global__ void __launch_bounds__(TT)
-hd_cross_inv_trail(double* __restrict__ W, int R, int k0, int k1) {
-  __shared__ double Li[KC][TILE], Xj[KC][TILE];
-  const int ntc = (k1 + TILE - 1) / TILE;
-  const int ti = blockIdx.x / ntc, tc = blockIdx.x % ntc;
-  const int b = blockIdx.y, t = threadIdx.x, tx = t % TX, ty = t / TX;
-  const long LD = (long)R + 1;
-  double* w = W + (long)b * R * LD;
-  const int i0 = k1 + ti * TILE, c0 = tc * TILE;
-  double acc[TM][TN];
-#pragma unroll
-  for (int a = 0; a < TM; ++a)
-#pragma unroll
-    for (int c = 0; c < TN; ++c) {
-      const int i = i0 + tx + TX * a, k = c0 + ty + TY * c;
-      acc[a][c] = (i < R && k < k0) ? w[(long)i * LD + k] : 0.0;
-    }
-  for (int jc = k0; jc < k1; jc += KC) {
-    const int jn = min(KC, k1 - jc);
-    __syncthreads();
-    for (int e = t; e < KC * TILE; e += TT) {
-      const int jj = e / TILE, r = e % TILE, j = jc + jj;
-      const bool on = jj < jn;
-      Li[jj][r] = (on && i0 + r < R) ? w[(long)j * LD + i0 + r] : 0.0;
-      Xj[jj][r] = (on && c0 + r <= j) ? w[(long)j * LD + c0 + r] : 0.0;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int jj = 0; jj < jn; ++jj) {
-      double li[TM], xk[TN];
-#pragma unroll
-      for (int a = 0; a < TM; ++a) li[a] = Li[jj][tx + TX * a];
-#pragma unroll
-      for (int c = 0; c < TN; ++c) xk[c] = Xj[jj][ty + TY * c];
-#pragma unroll
-      for (int a = 0; a < TM; ++a)
-#pragma unroll
-        for (int c = 0; c < TN; ++c) acc[a][c] = acc[a][c] - li[a] * xk[c];
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < TM; ++a)
-#pragma unroll
-    for (int c = 0; c < TN; ++c) {
-      const int i = i0 + tx + TX * a, k = c0 + ty + TY * c;
-      if (i < R && k < k1) w[(long)i * LD + k] = acc[a][c];
-    }
 }
 
 __global__ void __launch_bounds__(ST)
@@ -485,35 +548,31 @@ extern "C" int hd_cross_lnlike_launch(const double* G, const double* u,
   return (int)cudaGetLastError();
 }
 
-// K12 on one chunk of B walkers: the inputs and workspace as above, diag
-// (B, R, NB) and cb (B, R) scratch, eg (m,) gamma's e per bin, 0.5 (lnfyr
-// - log f_j); out (B, 2) d out_b / d (log10_A_b, gamma_b).  counts[0..6]
-// += the launches of hd_cross_form, _panel, _trail, _inv_panel,
-// _inv_trail, _colsum and _bins.
-extern "C" int hd_cross_grad_launch(const double* G, const double* u,
-                                    const double* log10_A,
-                                    const double* gamma, const double* freqs,
-                                    const double* eg, int B, int R, int m,
-                                    double scale, double ln10, double lnfyr,
-                                    double* workspace, double* pivots,
-                                    double* diag, double* cb, double* out,
-                                    int* counts, void* stream) {
+// K10 and K12 on one chunk of B walkers from one factor: the inputs and
+// workspace as above, diag (B, R, NB) and cb (B, R) scratch, eg (m,)
+// gamma's e per bin, 0.5 (lnfyr - log f_j); value (B,) the cross terms
+// (K10's bitwise: the same kernels on the same inputs) and grad (B, 2)
+// d value_b / d (log10_A_b, gamma_b).  counts[0..6] += the launches of
+// hd_cross_form, _panel, _trail, _sum, _inv_left, _colsum and _bins.
+extern "C" int hd_cross_value_and_grad_launch(
+    const double* G, const double* u, const double* log10_A,
+    const double* gamma, const double* freqs, const double* eg, int B, int R,
+    int m, double scale, double ln10, double lnfyr, double* workspace,
+    double* pivots, double* diag, double* cb, double* value, double* grad,
+    int* counts, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (B <= 0 || B > 65535 || R <= 0 || m <= 0 || m > BT || R % (2 * m) != 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = factor(G, u, log10_A, gamma, freqs, B, R, m, scale, ln10,
                          lnfyr, workspace, pivots, diag, counts, st);
   if (e != cudaSuccess) return (int)e;
-  for (int k0 = 0; k0 < R; k0 += NB) {
-    const int nbw = R - k0 < NB ? R - k0 : NB, k1 = k0 + nbw;
-    hd_cross_inv_panel<<<dim3((k1 + IC - 1) / IC, B), IC, 0, st>>>(
-        workspace, pivots, diag, R, k0, nbw);
-    ++counts[3];
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    if (k1 == R) break;
-    const int ntr = (R - k1 + TILE - 1) / TILE, ntc = (k1 + TILE - 1) / TILE;
-    hd_cross_inv_trail<<<dim3(ntr * ntc, B), TT, 0, st>>>(workspace, R, k0,
-                                                         k1);
+  hd_cross_sum<<<B, ST, 0, st>>>(workspace, pivots, R, value);
+  ++counts[3];
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  for (int i0 = 0; i0 < R; i0 += NB) {
+    const int nbw = R - i0 < NB ? R - i0 : NB;
+    hd_cross_inv_left<<<dim3((i0 + nbw + ITC - 1) / ITC, B), IT, INV_SMEM,
+                        st>>>(workspace, pivots, diag, R, i0, nbw);
     ++counts[4];
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
@@ -521,9 +580,17 @@ extern "C" int hd_cross_grad_launch(const double* G, const double* u,
                                                             cb);
   ++counts[5];
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  hd_cross_bins<<<B, BT, 0, st>>>(cb, eg, R, m, ln10, out);
+  hd_cross_bins<<<B, BT, 0, st>>>(cb, eg, R, m, ln10, grad);
   ++counts[6];
   return (int)cudaGetLastError();
+}
+
+// Once a process, before the first launch (and outside any CUDA-graph
+// capture): the inverse's dynamic shared memory above 48 KB.
+extern "C" int hd_cross_lnlike_init() {
+  return (int)cudaFuncSetAttribute(
+      hd_cross_inv_left, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      INV_SMEM);
 }
 
 extern "C" const char* hd_cross_lnlike_error_string(int code) {

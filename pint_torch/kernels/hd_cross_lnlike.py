@@ -43,21 +43,30 @@ With ``w = M^-1 v = L^-T z`` and ``e_k = d log d_k / d theta``::
 
 with ``e_k = ln 10`` for log10_A and ``0.5 (ln fyr - ln f_j(k))`` for gamma
 (j(k) the frequency bin of row k).  ``diag(M^-1)`` is the squared column
-norms of ``X = L^-1``.  Per walker: K10's factor again, ``X`` by forward
-substitution, ``c_k = (w_k w_k + s_k) - 1`` with ``s_k = sum_i X_ik^2`` and
-``w_k = sum_i X_ik z_i`` in ascending i, the c_k summed into the m bins in
-ascending k, and the two derivatives as sums over the bins in ascending j
-(log10_A's times ln 10 last).  At small amplitude M ~ I and each c_k
-cancels, so kernel and plain version take every term in the same order;
-at zero amplitude L = X = I, z = 0 and the result is exactly 0.0.  On a
-CUDA tensor :func:`hd_cross_grad` launches the source's
-``hd_cross_grad_launch`` (or raises): the factor by K10's form, panel and
-trailing kernels, recomputed chunk by chunk of walkers (the factors of a
-batch do not fit the cap together), the diagonal blocks of L kept aside,
-then ``X`` in the same workspace's upper triangle by a blocked forward
-substitution over many CTAs a walker, the column sums and the bins.  On a
-CPU tensor it runs :func:`hd_cross_grad_reference`, in the kernel's
-rounding order, so its result is the kernel's bitwise.  ``G``, ``u`` and
+norms of ``X = L^-1``.  Per walker: ``X`` by forward substitution, ``c_k =
+(w_k w_k + s_k) - 1`` with ``s_k = sum_i X_ik^2`` and ``w_k = sum_i X_ik
+z_i`` in ascending i, the c_k summed into the m bins in ascending k, and
+the two derivatives as sums over the bins in ascending j (log10_A's times
+ln 10 last).  At small amplitude M ~ I and each c_k cancels, so kernel and
+plain version take every term in the same order; at zero amplitude L = X
+= I, z = 0 and the result is exactly 0.0.
+
+Value and gradient come from one factorization, as ``jax.value_and_grad``
+computes them: :func:`hd_cross_value_and_grad` launches the source's
+``hd_cross_value_and_grad_launch`` on a CUDA tensor (or raises) -- chunk
+by chunk of walkers under the workspace cap, K10's form, panel and
+trailing kernels (the diagonal blocks of L kept aside), K10's sum for the
+value (bitwise K10's), then ``X`` in the same workspace's upper triangle
+by a left-looking blocked forward substitution (one launch a row block,
+each entry written once), the column sums and the bins -- and on a CPU
+tensor :func:`hd_cross_value_and_grad_reference`, one
+:func:`factor_columns` pass in the kernels' rounding order, so both
+results are the kernels' bitwise.  Under autograd, :func:`hd_cross_lnlike`
+takes that path whenever ``log10_A`` or ``gamma`` needs a gradient: the
+forward keeps the (B, 2) gradient and the backward scales it by the
+cotangent, so a training step factors each walker once.  Without a
+gradient (the catalogue's ``lnlike_batch``, the chains) it runs K10 alone.
+:func:`hd_cross_grad` is the gradient of the same call.  ``G``, ``u`` and
 ``freqs`` are data: no gradient flows to them.
 """
 
@@ -72,7 +81,8 @@ from pint_torch import F64
 from pint_torch.kernels import _build
 
 __all__ = ["hd_cross_lnlike", "hd_cross_lnlike_reference", "hd_cross_grad",
-           "hd_cross_grad_reference", "launch_counts", "REPLACES",
+           "hd_cross_grad_reference", "hd_cross_value_and_grad",
+           "hd_cross_value_and_grad_reference", "launch_counts", "REPLACES",
            "GRAD_REPLACES", "KERNELS", "GRAD_KERNELS", "NB", "FYR_HZ",
            "WORKSPACE_CAP_BYTES", "walkers_per_chunk", "check_inputs",
            "gamma_weights"]
@@ -84,13 +94,13 @@ GRAD_REPLACES = "pint_tpu/amortized/train.py:103"
 #: trailing update, the sums
 KERNELS = {"form": "hd_cross_form", "panel": "hd_cross_panel",
            "trail": "hd_cross_trail", "sum": "hd_cross_sum"}
-#: K12's, in launch order: K10's factor (counted under K12's names), the
-#: inverse's panel and trailing update, the column sums, the bins
+#: K12's launch sequence (value and gradient from one factor), in launch
+#: order: K10's factor and sum (counted under K12's names), the inverse's
+#: row blocks, the column sums, the bins
 GRAD_KERNELS = {"form": "hd_cross_grad_form", "panel": "hd_cross_grad_panel",
-                "trail": "hd_cross_grad_trail",
-                "inv_panel": "hd_cross_inv_panel",
-                "inv_trail": "hd_cross_inv_trail",
-                "colsum": "hd_cross_colsum", "bins": "hd_cross_bins"}
+                "trail": "hd_cross_grad_trail", "sum": "hd_cross_grad_sum",
+                "inv": "hd_cross_inv_left", "colsum": "hd_cross_colsum",
+                "bins": "hd_cross_bins"}
 launch_counts = dict.fromkeys([*KERNELS.values(), *GRAD_KERNELS.values()],
                               0)
 #: the most device memory one call's workspace (the factor and the pivots
@@ -158,45 +168,66 @@ def gamma_weights(freqs):
     return 0.5 * (_LN_FYR - torch.log(freqs))
 
 
-def hd_cross_grad_reference(G, u, log10_A, gamma, freqs, Tspan: float):
-    """Plain PyTorch version of K12: ``(B, 2)`` d out / d (log10_A, gamma),
-    in the kernel's order (module docstring)."""
-    B, R, m = log10_A.shape[0], G.shape[0], freqs.shape[0]
+def _grad_from_factor(L, piv, z, freqs):
+    """K12's gradient from a walker's factor (``L`` (B, R, R) strictly
+    lower, its pivots and ``z``), in the kernels' order."""
+    B, R, m = L.shape[0], L.shape[1], freqs.shape[0]
+    # X = L^-1 by rows: row j divided by its pivot once every earlier row's
+    # product has been subtracted; columns past j are still 0
+    X = torch.eye(R, dtype=F64, device=L.device).repeat(B, 1, 1)
+    for j in range(R):
+        X[:, j, :j + 1] = X[:, j, :j + 1] / piv[:, j:j + 1]
+        X[:, j + 1:, :j + 1] -= L[:, j + 1:, j:j + 1] * X[:, j:j + 1, :j + 1]
+    s = torch.zeros((B, R), dtype=F64, device=L.device)
+    wz = torch.zeros((B, R), dtype=F64, device=L.device)
+    for i in range(R):
+        x = X[:, i, :]
+        s = s + x * x
+        wz = wz + x * z[:, i:i + 1]
+    c = (wz * wz + s) - 1.0
+    cv = c.view(B, R // (2 * m), m, 2)
+    S = torch.zeros((B, m), dtype=F64, device=L.device)
+    for a in range(cv.shape[1]):
+        S = S + cv[:, a, :, 0]
+        S = S + cv[:, a, :, 1]
+    eg = gamma_weights(freqs)
+    ga = torch.zeros(B, dtype=F64, device=L.device)
+    gg = torch.zeros(B, dtype=F64, device=L.device)
+    for j in range(m):
+        ga = ga + S[:, j]
+        gg = gg + eg[j] * S[:, j]
+    return torch.stack([ga * _LN10, gg], dim=1)
+
+
+def hd_cross_value_and_grad_reference(G, u, log10_A, gamma, freqs,
+                                      Tspan: float):
+    """Plain PyTorch version of K10 and K12 from one :func:`factor_columns`
+    pass: ``(value (B,), grad (B, 2))``, the value bitwise
+    :func:`hd_cross_lnlike_reference`'s and the gradient in the kernels'
+    order (module docstring)."""
+    B, R = log10_A.shape[0], G.shape[0]
     with torch.no_grad():
         L = torch.zeros((B, R, R), dtype=F64, device=G.device)
         piv = torch.zeros((B, R), dtype=F64, device=G.device)
         z = torch.zeros((B, R), dtype=F64, device=G.device)
+        acc_log = torch.zeros_like(log10_A)
+        acc_zz = torch.zeros_like(log10_A)
         for j, (p, col) in enumerate(factor_columns(G, u, log10_A, gamma,
                                                     freqs, Tspan)):
             piv[:, j] = p
             L[:, j + 1:, j] = col[:, :-1]
             z[:, j] = col[:, -1]
-        # X = L^-1 by rows: row j divided by its pivot once every earlier
-        # row's product has been subtracted; columns past j are still 0
-        X = torch.eye(R, dtype=F64, device=G.device).repeat(B, 1, 1)
-        for j in range(R):
-            X[:, j, :j + 1] = X[:, j, :j + 1] / piv[:, j:j + 1]
-            X[:, j + 1:, :j + 1] -= L[:, j + 1:, j:j + 1] \
-                * X[:, j:j + 1, :j + 1]
-        s = torch.zeros((B, R), dtype=F64, device=G.device)
-        wz = torch.zeros((B, R), dtype=F64, device=G.device)
-        for i in range(R):
-            x = X[:, i, :]
-            s = s + x * x
-            wz = wz + x * z[:, i:i + 1]
-        c = (wz * wz + s) - 1.0
-        cv = c.view(B, R // (2 * m), m, 2)
-        S = torch.zeros((B, m), dtype=F64, device=G.device)
-        for a in range(cv.shape[1]):
-            S = S + cv[:, a, :, 0]
-            S = S + cv[:, a, :, 1]
-        eg = gamma_weights(freqs)
-        ga = torch.zeros(B, dtype=F64, device=G.device)
-        gg = torch.zeros(B, dtype=F64, device=G.device)
-        for j in range(m):
-            ga = ga + S[:, j]
-            gg = gg + eg[j] * S[:, j]
-        return torch.stack([ga * _LN10, gg], dim=1)
+            acc_log = acc_log + torch.log(p)
+            zj = col[:, -1]
+            acc_zz = acc_zz + zj * zj
+        return 0.5 * acc_zz - acc_log, _grad_from_factor(L, piv, z, freqs)
+
+
+def hd_cross_grad_reference(G, u, log10_A, gamma, freqs, Tspan: float):
+    """Plain PyTorch version of K12: ``(B, 2)`` d out / d (log10_A, gamma),
+    in the kernel's order (module docstring)."""
+    return hd_cross_value_and_grad_reference(G, u, log10_A, gamma, freqs,
+                                             Tspan)[1]
 
 
 def walkers_per_chunk(B: int, R: int, vectors: int = 1) -> int:
@@ -219,11 +250,13 @@ def _lib():
         vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         lib.hd_cross_lnlike_launch.argtypes = [
             vp, vp, vp, vp, vp, ci, ci, ci, cd, cd, cd, vp, vp, vp, vp, vp]
-        lib.hd_cross_grad_launch.argtypes = [
+        lib.hd_cross_value_and_grad_launch.argtypes = [
             vp, vp, vp, vp, vp, vp, ci, ci, ci, cd, cd, cd, vp, vp, vp, vp,
-            vp, vp, vp]
+            vp, vp, vp, vp]
         lib.hd_cross_lnlike_launch.restype = ci
-        lib.hd_cross_grad_launch.restype = ci
+        lib.hd_cross_value_and_grad_launch.restype = ci
+        lib.hd_cross_lnlike_init.restype = ci
+        _build.check(NAME, lib.hd_cross_lnlike_init())
     return lib
 
 
@@ -249,7 +282,7 @@ def _launch(G, u, log10_A, gamma, freqs, Tspan):
     return out
 
 
-def _launch_grad(G, u, log10_A, gamma, freqs, Tspan):
+def _launch_value_and_grad(G, u, log10_A, gamma, freqs, Tspan):
     B, R, m = log10_A.shape[0], G.shape[0], freqs.shape[0]
     dev = G.device
     n = walkers_per_chunk(B, R, vectors=NB + 2)
@@ -257,43 +290,53 @@ def _launch_grad(G, u, log10_A, gamma, freqs, Tspan):
     piv = torch.empty((n, R), dtype=F64, device=dev)
     diag = torch.empty((n, R, NB), dtype=F64, device=dev)
     cb = torch.empty((n, R), dtype=F64, device=dev)
-    out = torch.empty((B, 2), dtype=F64, device=dev)
+    value = torch.empty((B,), dtype=F64, device=dev)
+    grad = torch.empty((B, 2), dtype=F64, device=dev)
     eg = gamma_weights(freqs).contiguous()
     p = _build.ptr
     lib = _lib()
     for b0 in range(0, B, n):
         b1 = min(B, b0 + n)
         counts = (ctypes.c_int * len(GRAD_KERNELS))()
-        rc = lib.hd_cross_grad_launch(
+        rc = lib.hd_cross_value_and_grad_launch(
             p(G), p(u), p(log10_A[b0:b1]), p(gamma[b0:b1]), p(freqs), p(eg),
             b1 - b0, R, m, _scale(Tspan), _LN10, _LN_FYR, p(work), p(piv),
-            p(diag), p(cb), p(out[b0:b1]), counts, _build.stream_of(G))
+            p(diag), p(cb), p(value[b0:b1]), p(grad[b0:b1]), counts,
+            _build.stream_of(G))
         for name, c in zip(GRAD_KERNELS.values(), counts):
             launch_counts[name] += c
         _build.check(NAME, rc)
-    return out
+    return value, grad
 
 
 class _CrossTerm(torch.autograd.Function):
-    """K10 under autograd: the forward launches K10 (its plain version on
-    CPU tensors), the backward K12 (likewise), which returns d out / d
-    (log10_A, gamma) per walker; the output cotangent scales them."""
+    """K10 under autograd.  With ``need_grad`` the forward runs value and
+    gradient from one factor (K12's launch sequence, its plain version on
+    CPU tensors) and keeps the (B, 2) gradient, which the backward scales
+    by the output cotangent; without it (no input needs a gradient) the
+    forward is K10 alone."""
 
     @staticmethod
-    def forward(G, u, log10_A, gamma, freqs, Tspan):
+    def forward(G, u, log10_A, gamma, freqs, Tspan, need_grad):
+        if not need_grad:
+            value = _launch(G, u, log10_A, gamma, freqs, Tspan) if G.is_cuda \
+                else hd_cross_lnlike_reference(G, u, log10_A, gamma, freqs,
+                                               Tspan)
+            return value, value.new_empty((0, 2))
         if G.is_cuda:
-            return _launch(G, u, log10_A, gamma, freqs, Tspan)
-        return hd_cross_lnlike_reference(G, u, log10_A, gamma, freqs, Tspan)
+            return _launch_value_and_grad(G, u, log10_A, gamma, freqs, Tspan)
+        return hd_cross_value_and_grad_reference(G, u, log10_A, gamma, freqs,
+                                                 Tspan)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.save_for_backward(*inputs[:5])
-        ctx.Tspan = inputs[5]
+        ctx.save_for_backward(output[1])
+        ctx.mark_non_differentiable(output[1])
 
     @staticmethod
-    def backward(ctx, grad):
-        D = hd_cross_grad(*ctx.saved_tensors, ctx.Tspan)
-        return None, None, grad * D[:, 0], grad * D[:, 1], None, None
+    def backward(ctx, grad, _):
+        (D,) = ctx.saved_tensors
+        return None, None, grad * D[:, 0], grad * D[:, 1], None, None, None
 
 
 def check_inputs(G, u, log10_A, gamma, freqs, Tspan: float, name: str):
@@ -320,20 +363,32 @@ def check_inputs(G, u, log10_A, gamma, freqs, Tspan: float, name: str):
         raise ValueError(f"{name}: no kernel for device {G.device}")
 
 
+def _prepared(G, u, log10_A, gamma, freqs, Tspan, name):
+    check_inputs(G, u, log10_A, gamma, freqs, Tspan, name)
+    return [t.contiguous() for t in (G, u, log10_A, gamma, freqs)]
+
+
 def hd_cross_lnlike(G, u, log10_A, gamma, freqs, Tspan: float):
     """K10: the (B,) cross terms ``0.5 ||L^-1 D u||^2 - log det L`` of ``M
-    = I + D G D`` (module docstring)."""
-    check_inputs(G, u, log10_A, gamma, freqs, Tspan, "hd_cross_lnlike")
-    G, u, log10_A, gamma, freqs = (t.contiguous() for t in (
-        G, u, log10_A, gamma, freqs))
-    return _CrossTerm.apply(G, u, log10_A, gamma, freqs, float(Tspan))
+    = I + D G D`` (module docstring); with K12's gradient from the same
+    factor when ``log10_A`` or ``gamma`` needs one."""
+    ts = _prepared(G, u, log10_A, gamma, freqs, Tspan, "hd_cross_lnlike")
+    need_grad = torch.is_grad_enabled() and _build.traced(log10_A, gamma)
+    return _CrossTerm.apply(*ts, float(Tspan), need_grad)[0]
+
+
+def hd_cross_value_and_grad(G, u, log10_A, gamma, freqs, Tspan: float):
+    """K10 and K12 from one factor: ``(value (B,), grad (B, 2))``, the
+    cross terms and d value_b / d (log10_A_b, gamma_b), outside autograd
+    (module docstring)."""
+    ts = _prepared(*(t.detach() for t in (G, u, log10_A, gamma, freqs)),
+                   Tspan, "hd_cross_value_and_grad")
+    if ts[0].is_cuda:
+        return _launch_value_and_grad(*ts, float(Tspan))
+    return hd_cross_value_and_grad_reference(*ts, float(Tspan))
 
 
 def hd_cross_grad(G, u, log10_A, gamma, freqs, Tspan: float):
     """K12: ``(B, 2)`` d out_b / d (log10_A_b, gamma_b) of K10's cross term
     (module docstring)."""
-    ts = [t.detach().contiguous() for t in (G, u, log10_A, gamma, freqs)]
-    check_inputs(*ts, Tspan, "hd_cross_grad")
-    if ts[0].is_cuda:
-        return _launch_grad(*ts, float(Tspan))
-    return hd_cross_grad_reference(*ts, float(Tspan))
+    return hd_cross_value_and_grad(G, u, log10_A, gamma, freqs, Tspan)[1]

@@ -38,7 +38,17 @@ class Residuals:
     noise_ampls = None
 
     def __init__(self, batch, model, subtract_mean: bool = True,
-                 use_weighted_mean: bool = True):
+                 use_weighted_mean: bool = True,
+                 track_mode: Optional[str] = None):
+        """``track_mode`` other than None raises: pulse-number tracking
+        needs the whole TOA set (ROADMAP queue A item 10c); without pulse
+        numbers the reference resolves None to ``"nearest"``, which is what
+        these residuals compute."""
+        if track_mode is not None:
+            raise NotImplementedError(
+                f"Residuals(track_mode={track_mode!r}): pulse-number "
+                "tracking is ROADMAP queue A item 10c")
+        self.track_mode = "nearest"
         self.batch = batch
         self.model = model
         self.subtract_mean = subtract_mean \

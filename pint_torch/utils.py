@@ -69,10 +69,24 @@ def compute_hash(filename) -> bytes:
     return h.digest()
 
 
-def weighted_mean(arr, weights):
-    """Weighted mean and its error."""
-    w = weights / torch.sum(weights)
-    return torch.sum(arr * w), torch.sqrt(1.0 / torch.sum(weights))
+def _sum_along(x, axis):
+    """The sum along ``axis``, its slices added one at a time in index
+    order (XLA's order on the CPU for a short axis)."""
+    s = x.select(axis, 0)
+    for i in range(1, x.shape[axis]):
+        s = s + x.select(axis, i)
+    return s
+
+
+def weighted_mean(arr, weights, axis=None):
+    """Weighted mean and its error, over every element or along ``axis``
+    (reference ``utils.py:143``)."""
+    if axis is None:
+        w = weights / torch.sum(weights)
+        return torch.sum(arr * w), torch.sqrt(1.0 / torch.sum(weights))
+    wsum = _sum_along(weights, axis)
+    w = weights / wsum.unsqueeze(axis)
+    return _sum_along(arr * w, axis), torch.sqrt(1.0 / wsum)
 
 
 def linearity_probe_steps(J0: np.ndarray) -> np.ndarray:
@@ -94,8 +108,9 @@ def classify_linear_columns(J0: np.ndarray, J1: np.ndarray) -> np.ndarray:
     return np.nonzero(moved)[0]
 
 
-def normalize_designmatrix(M):
-    """Unit-L2-norm columns: (M / norms, norms), zero columns keep norm 1."""
+def normalize_designmatrix(M, params=None):
+    """Unit-L2-norm columns: (M / norms, norms), zero columns keep norm 1;
+    ``params`` is accepted and unused, as the reference's."""
     norms = torch.sqrt(torch.sum(M * M, dim=0))
     safe = torch.where(norms == 0, 1.0, norms)
     return M / safe, safe

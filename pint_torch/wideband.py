@@ -15,7 +15,7 @@ solves are float64 tensors on the batch's device.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -40,9 +40,12 @@ class WidebandDMResiduals:
     residual_type = "dm"
     unit = "pc/cm3"
 
-    def __init__(self, batch, model):
+    def __init__(self, batch, model, subtract_mean: bool = False,
+                 use_weighted_mean: bool = True):
         self.batch = batch
         self.model = model
+        self.subtract_mean = subtract_mean
+        self.use_weighted_mean = use_weighted_mean
         self.dm_data = batch.dm
         if self.dm_data is None:
             raise ValueError(
@@ -50,11 +53,34 @@ class WidebandDMResiduals:
         self.dm_error = batch.dm_error
         self._resids = None
 
+    def calc_resids(self) -> torch.Tensor:
+        """The DM residuals, less their mean (weighted by the unscaled DM
+        errors unless ``use_weighted_mean`` is False) when
+        ``subtract_mean`` (reference ``wideband.py:69-81``)."""
+        resids = self.dm_data - self.model.total_dm(self.batch)
+        if self.subtract_mean:
+            if self.use_weighted_mean:
+                if self.dm_error is None or bool((self.dm_error == 0).any()):
+                    raise ValueError(
+                        "Zero DM errors: cannot weight DM residuals")
+                mean, _ = weighted_mean(resids, 1.0 / self.dm_error**2)
+                resids = resids - mean
+            else:
+                resids = resids - resids.mean()
+        self._resids = resids
+        return resids
+
     @property
     def resids(self) -> torch.Tensor:
         if self._resids is None:
-            self._resids = self.dm_data - self.model.total_dm(self.batch)
+            self.calc_resids()
         return self._resids
+
+    def update_model(self, new_model) -> None:
+        """Point these residuals at ``new_model`` (reference
+        ``wideband.py:103``)."""
+        self.model = new_model
+        self.update()
 
     def get_data_error(self, scaled: bool = True) -> torch.Tensor:
         """The DM uncertainties [pc/cm^3], DMEFAC/DMEQUAD-scaled unless
@@ -151,12 +177,14 @@ class WidebandTOAResiduals(CombinedResiduals):
     """TOA and DM residuals of one wideband data set (reference
     ``wideband.py:190``)."""
 
-    def __init__(self, batch, model):
+    def __init__(self, batch, model, toa_resid_args: Optional[dict] = None,
+                 dm_resid_args: Optional[dict] = None):
         self.batch = batch
         self._model = model
-        toa = Residuals(batch, model)
+        toa = Residuals(batch, model, **(toa_resid_args or {}))
         toa.residual_type = "toa"
-        super().__init__([toa, WidebandDMResiduals(batch, model)])
+        super().__init__([toa, WidebandDMResiduals(batch, model,
+                                                   **(dm_resid_args or {}))])
         self._chi2 = None
 
     @property
@@ -211,8 +239,17 @@ class WidebandTOAFitter(Fitter):
 
     is_wideband = True
 
-    def __init__(self, batch, model):
-        super().__init__(batch, model)
+    def __init__(self, batch, model, track_mode: Optional[str] = None,
+                 additional_args: Optional[dict] = None):
+        """``additional_args`` ``{"toa": {...}, "dm": {...}}`` are the
+        keywords of the TOA and DM residuals (reference
+        ``wideband.py:250-259``); ``track_mode`` other than None raises, as
+        ``Fitter``'s does (ROADMAP queue A item 10c)."""
+        self.additional_args = additional_args or {}
+        if track_mode is not None:
+            self.additional_args.setdefault("toa", {})["track_mode"] = \
+                track_mode
+        super().__init__(batch, model, track_mode=track_mode)
         self.method = "General_Data_Fitter"
         self.resids_init = self.make_combined_residuals()
         self._gls_cache: dict = {}
@@ -220,12 +257,16 @@ class WidebandTOAFitter(Fitter):
         self.noise_ampls = {}
 
     def update_resids(self) -> WidebandTOAResiduals:
-        self.resids = WidebandTOAResiduals(self.batch, self.model)
+        self.resids = self.make_combined_residuals()
         return self.resids
 
     def make_combined_residuals(self) -> WidebandTOAResiduals:
-        """Fresh TOA+DM residuals under the current model."""
-        return WidebandTOAResiduals(self.batch, self.model)
+        """Fresh TOA+DM residuals under the current model, with the
+        fitter's ``additional_args``."""
+        return WidebandTOAResiduals(
+            self.batch, self.model,
+            toa_resid_args=self.additional_args.get("toa", {}),
+            dm_resid_args=self.additional_args.get("dm", {}))
 
     def get_data_uncertainty(self, scaled: bool = True) -> torch.Tensor:
         """The stacked [TOA sigma; DM sigma] (reference
@@ -269,8 +310,9 @@ class WidebandTOAFitter(Fitter):
             self.resids.toa.noise_ampls = self.noise_ampls
 
     def fit_toas(self, maxiter: int = 1, threshold: float = 0.0,
-                 full_cov: bool = False) -> float:
-        """``maxiter`` linearized steps; returns the joint chi2."""
+                 full_cov: bool = False, debug: bool = False) -> float:
+        """``maxiter`` linearized steps; returns the joint chi2.  ``debug``
+        is accepted and unused, as the reference's."""
         self.update_resids()
         for _ in range(max(1, maxiter)):
             dpars, errs, covmat, params = self._wideband_step(threshold,
@@ -297,8 +339,10 @@ class WidebandDownhillFitter(WidebandTOAFitter, DownhillFitter):
     parameters it alternates with the joint TOA+DM noise fit.  The noise
     amplitudes come from one more solve at the accepted point."""
 
-    def __init__(self, batch, model):
-        super().__init__(batch, model)
+    def __init__(self, batch, model, track_mode: Optional[str] = None,
+                 additional_args: Optional[dict] = None):
+        super().__init__(batch, model, track_mode=track_mode,
+                         additional_args=additional_args)
         self.method = "downhill_wideband"
         self.threshold = 0.0
         self.full_cov = False
@@ -329,8 +373,9 @@ class WidebandLMFitter(LMFitter, WidebandTOAFitter):
 
     wideband_system = True
 
-    def __init__(self, batch, model):
-        super().__init__(batch, model)
+    def __init__(self, batch, model, track_mode=None, additional_args=None):
+        super().__init__(batch, model, track_mode=track_mode,
+                         additional_args=additional_args)
         self.method = "lm_wideband"
 
     def _residual_vector(self) -> torch.Tensor:

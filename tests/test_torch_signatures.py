@@ -57,7 +57,79 @@ PAIRS = [
     ("fitter", "LMFitter.fit_toas"),
     ("fitter", "PowellFitter.__init__"),
     ("dd", "dd_sum"),
+    # C12
+    ("wideband", "WidebandTOAFitter.__init__"),
+    ("wideband", "WidebandDownhillFitter.__init__"),
+    ("wideband", "WidebandLMFitter.__init__"),
+    ("wideband", "WidebandTOAFitter.fit_toas"),
+    ("wideband", "WidebandTOAResiduals.__init__"),
+    ("wideband", "WidebandDMResiduals.__init__"),
+    ("residuals", "Residuals.__init__"),
+    ("utils", "weighted_mean"),
+    ("utils", "normalize_designmatrix"),
+    ("integrity.quarantine", "run_toa_checks"),
 ]
+
+#: every public function or method with one qualified name in both
+#: packages whose parameters still differ, with the reason: a trailing
+#: ``device=None`` (the port's idiom) or the ROADMAP queue A item that
+#: owns the difference
+TRAILING_DEVICE = "trailing device="
+ALLOWED = {
+    "amortized.elbo:AmortizedVI.__init__": TRAILING_DEVICE,
+    "amortized.flows:Flow.init": TRAILING_DEVICE,
+    "amortized.posterior:AmortizedPosterior.load": TRAILING_DEVICE,
+    "fftfit:fftfit_basic": TRAILING_DEVICE,
+    "fftfit:fftfit_full": TRAILING_DEVICE,
+    "orbital.kepler:kepler_2d": TRAILING_DEVICE,
+    "orbital.kepler:kepler_3d": TRAILING_DEVICE,
+    "orbital.kepler:kepler_two_body": TRAILING_DEVICE,
+    "predict.cache:PredictorCache.__init__": TRAILING_DEVICE,
+    "predict.generate:fit_windows": TRAILING_DEVICE,
+    "predict.generate:generate_predictor_sets": TRAILING_DEVICE,
+    "predict.generate:generate_predictors": TRAILING_DEVICE,
+    "serving.batcher:FitRequest.__init__": TRAILING_DEVICE,
+    "serving.batcher:ShapeBatcher.__init__": TRAILING_DEVICE,
+    **{f"autotune:{f}": "8: autotune/search.py (the port's stubs raise "
+       "naming item 8)" for f in (
+           "autotune_workload", "chunk_ladder", "confirm_measured",
+           "measured_from_sweep", "rank_grid_chunks", "tune_bucket_ladders",
+           "tune_catalog_ladders", "tune_grid_chunk", "tune_plan_axes",
+           "tune_plan_strategy", "tune_precision", "tune_solve_rung",
+           "tune_update_blocks")},
+    "grid:default_gls_chunk": "8: pint_torch.config's device policies "
+                              "(device= for the reference's backend=)",
+    "streaming.cache:StreamCache.__init__": "8: the warm pool (pool=)",
+    "streaming.update:StreamingGLS.__init__": "8: the warm pool (pool=)",
+    "models.timing_model:TimingModel.delay": "6f: delay(cutoff_component=, "
+                                             "include_last=)",
+    "models.timing_model:TimingModel.dm_designmatrix":
+        "6f: dm_designmatrix(incfrozen=, incoffset=)",
+    "models.astrometry:Astrometry.sun_angle": "6f: the host sun_angle",
+    **{k: "6f: port-only trailing parameters with defaults" for k in (
+        "catalog.likelihood:JointLikelihood.__init__",
+        "noisefit:NoiseFitResult.__init__",
+        "runtime.checkpoint:SweepCheckpoint.__init__",
+        "runtime.checkpoint:checkpointed_map",
+        "models.binary.components:BinaryBT.binary_delay",
+        "models.absolute_phase:AbsPhase.get_TZR_toas")},
+    **{f"models.binary.engines:{f}": "6f: the binary engines on the "
+       "port's parameter dict (orbits through K2, K4, K6)" for f in (
+           "bt_delay", "dd_delay", "ddk_corrections", "ell1_delay",
+           "ell1_eps", "ell1_inverse_delay", "ell1_roemer_terms",
+           "ell1h_delay", "ell1k_delay")},
+    "models.timing_model:Component.__init__": "10b: components built from "
+                                              "par text",
+    "models.timing_model:TimingModel.__init__": "10b: the model built from "
+                                                "par text",
+    "models.timing_model:TimingModel.validate": "10b: validate(allow_tcb=)",
+    "toa:TOABatch.__init__": "10b: the host TOAs",
+    "toa:TOAs.to_batch": "10b: the host TOAs (the batch's device, contexts "
+                         "and TZR row)",
+    "toa:merge_TOAs": "10b: merge of host TOAs",
+    "toa:TOAs.__init__": "10c and 10b: pulse numbers; quarantine on host "
+                         "TOAs",
+}
 
 
 def _resolve(pkg, module, qual):
@@ -81,6 +153,252 @@ def test_signature_is_the_references(module, qual):
     defaults."""
     assert _params(_resolve("pint_torch", module, qual)) \
         == _params(_resolve("pint_tpu", module, qual))
+
+
+def _shared_differences():
+    """``{"module:qualified name": (port params, reference params)}`` of
+    every public function and method (constructors included) that both
+    packages define under one module and qualified name and whose
+    parameters differ in names, kinds, defaults or order (the port's
+    ``batch`` read as ``toas``; a function or class default compared by
+    name, NaN equal to NaN)."""
+    import importlib
+    import pkgutil
+
+    import pint_torch
+    import pint_tpu
+
+    def names(pkg):
+        return {mi.name[len(pkg.__name__) + 1:]: mi.name
+                for mi in pkgutil.walk_packages(pkg.__path__,
+                                                pkg.__name__ + ".")}
+
+    def same_default(x, y):
+        if isinstance(x, float) and isinstance(y, float) and x != x \
+                and y != y:
+            return True
+        if callable(x) and callable(y) and hasattr(x, "__name__") \
+                and hasattr(y, "__name__"):
+            return x.__name__ == y.__name__
+        try:
+            return bool(x == y)
+        except Exception:
+            return x is y
+
+    def same(pa, pb):
+        return len(pa) == len(pb) and all(
+            x[:2] == y[:2] and same_default(x[2], y[2])
+            for x, y in zip(pa, pb))
+
+    port, ref = names(pint_torch), names(pint_tpu)
+    out = {}
+    for mod in sorted(set(port) & set(ref)):
+        t = importlib.import_module(port[mod])
+        r = importlib.import_module(ref[mod])
+        for attr in sorted(vars(t)):
+            to, ro = getattr(t, attr), getattr(r, attr, None)
+            if attr.startswith("_") or ro is None \
+                    or getattr(to, "__module__", None) != t.__name__:
+                continue
+            pairs = []
+            if inspect.isfunction(to) and inspect.isfunction(ro):
+                pairs.append((attr, to, ro))
+            elif inspect.isclass(to) and inspect.isclass(ro):
+                for meth in sorted(vars(to)):
+                    if meth.startswith("_") and meth != "__init__":
+                        continue
+                    if inspect.getattr_static(ro, meth, None) is None \
+                            or isinstance(inspect.getattr_static(to, meth),
+                                          property) \
+                            or isinstance(inspect.getattr_static(ro, meth),
+                                          property):
+                        continue
+                    tf, rf = getattr(to, meth), getattr(ro, meth)
+                    if callable(tf) and callable(rf):
+                        pairs.append((f"{attr}.{meth}", tf, rf))
+            for qual, tf, rf in pairs:
+                try:
+                    pa, pb = _params(tf), _params(rf)
+                except (TypeError, ValueError):
+                    continue
+                if not same(pa, pb):
+                    out[f"{mod}:{qual}"] = (pa, pb)
+    return out
+
+
+def test_every_shared_signature_is_the_references_or_allowed():
+    """C12's guard: every public signature the two packages share is the
+    reference's, or its difference is in :data:`ALLOWED` with its reason:
+    a trailing ``device=None`` (then exactly the reference's parameters
+    and that one), or the ROADMAP queue A item that owns it (6f, 8, 10b,
+    10c).  A new difference fails, and so does an entry no longer needed."""
+    import re
+
+    diffs = _shared_differences()
+    new = sorted(set(diffs) - set(ALLOWED))
+    assert not new, f"signatures that differ from the reference's: {new}"
+    stale = sorted(set(ALLOWED) - set(diffs))
+    assert not stale, f"allowed differences that are gone: {stale}"
+    for key, why in ALLOWED.items():
+        pa, pb = diffs[key]
+        if why == TRAILING_DEVICE:
+            assert pa[:-1] == pb and pa[-1][0] == "device" \
+                and pa[-1][2] is None, key
+        else:
+            assert re.match(r"(6f|8|10b|10c)\b", why), (key, why)
+
+
+@pytest.fixture(scope="module")
+def wb_pair():
+    """(reference model, TOAs, port model, batch) of the small wideband
+    stand-in (80 TOAs with DMs, DMJUMP, DMEFAC/DMEQUAD)."""
+    return standin.port_and_reference(standin.SMALL_WB_SETTINGS)
+
+
+@pytest.mark.parametrize("args", [{"subtract_mean": True},
+                                  {"subtract_mean": True,
+                                   "use_weighted_mean": False}],
+                         ids=["weighted", "plain"])
+def test_dm_resid_args_reach_the_dm_residuals(wb_pair, args):
+    """``WidebandTOAResiduals(dm_resid_args=)`` and the fitters'
+    ``additional_args={"dm": ...}``: the DM residuals less their mean as
+    the reference's, within the wideband DM bar (1e-12 pc/cm^3); the mean really
+    went."""
+    import pint_tpu.wideband as R
+
+    import pint_torch.wideband as P
+
+    model, toas, m, b = wb_pair
+    want = np.asarray(R.WidebandTOAResiduals(
+        toas, model, dm_resid_args=args).dm.resids)
+    got = P.WidebandTOAResiduals(b, m, dm_resid_args=args).dm.resids.numpy()
+    assert np.abs(got - want).max() <= 1e-12
+    plain = P.WidebandTOAResiduals(b, m).dm.resids.numpy()
+    assert np.abs(got - plain).max() > 1e-9
+    f = P.WidebandTOAFitter(b, m, additional_args={"dm": dict(args)})
+    rf = R.WidebandTOAFitter(toas, model, additional_args={"dm": dict(args)})
+    assert np.abs(f.resids.dm.resids.numpy()
+                  - np.asarray(rf.resids.dm.resids)).max() <= 1e-12
+    toa_args = {"subtract_mean": False}
+    f = P.WidebandTOAFitter(b, m, None, {"toa": toa_args})
+    rf = R.WidebandTOAFitter(toas, model, None, {"toa": toa_args})
+    assert not f.resids.toa.subtract_mean
+    assert np.abs(f.resids.toa.time_resids.numpy()
+                  - np.asarray(rf.resids.toa.time_resids)).max() <= 1e-10
+
+
+def test_weighted_mean_along_an_axis_is_the_references_bitwise():
+    """``weighted_mean(axis=)`` on seeded (6, 9) inputs: bitwise the
+    reference's along either axis (sums in index order, as XLA's CPU code
+    takes an axis this short); over every element within 1e-13 rel (the
+    order of a whole-array sum differs); ``normalize_designmatrix(params=)``
+    unchanged by its unused argument."""
+    import jax.numpy as jnp
+    import torch
+
+    import pint_tpu.utils as R
+    import pint_torch.utils as P
+
+    rng = np.random.default_rng(12)
+    arr = rng.standard_normal((6, 9)) * 1e-6
+    w = rng.uniform(0.5, 2.0, size=(6, 9)) * 1e12
+    for axis in (0, 1):
+        rm, re_ = R.weighted_mean(jnp.asarray(arr), jnp.asarray(w), axis)
+        pm, pe = P.weighted_mean(torch.from_numpy(arr), torch.from_numpy(w),
+                                 axis=axis)
+        assert np.array_equal(pm.numpy(), np.asarray(rm)), axis
+        assert np.array_equal(pe.numpy(), np.asarray(re_)), axis
+    rm, re_ = R.weighted_mean(jnp.asarray(arr), jnp.asarray(w))
+    pm, pe = P.weighted_mean(torch.from_numpy(arr), torch.from_numpy(w))
+    assert abs(float(pm) / float(rm) - 1) <= 1e-13
+    assert abs(float(pe) / float(re_) - 1) <= 1e-13
+    assert P.weighted_mean(torch.from_numpy(arr), torch.from_numpy(w),
+                           0)[0].shape == (9,)
+    M = torch.from_numpy(arr)
+    a, na = P.normalize_designmatrix(M, ["x"] * 9)
+    b, nb = P.normalize_designmatrix(M)
+    assert torch.equal(a, b) and torch.equal(na, nb)
+
+
+def test_wideband_fit_toas_positional_debug():
+    """``fit_toas(maxiter, 0.0, False, True)``: the fourth positional is
+    ``debug`` in both packages, taken and unused: the committed small
+    wideband snapshot's ``WidebandTOAFitter.fit_toas(maxiter=2)`` at the
+    wideband fit bars of ``test_torch_wideband.py`` (chi2 1e-6 rel, values
+    1e-2 sigma, uncertainties 1e-6 rel)."""
+    from pint_torch.bridge import WB_SMALL_PATH, load_snapshot, read_snapshot
+    from pint_torch.wideband import WidebandTOAFitter
+
+    meta, ref = read_snapshot(WB_SMALL_PATH)
+    rr = meta["reference"]
+    m, b = load_snapshot(WB_SMALL_PATH, device="cpu")
+    f = WidebandTOAFitter(b, m)
+    chi2 = f.fit_toas(rr["settings"]["fit_maxiter"], 0.0, False, True)
+    params = rr["postfit_params"]
+    vals = np.array([f.model.value(p) for p in params])
+    unc = np.array([f.model[p].uncertainty for p in params])
+    sig = ref["ref/postfit_uncertainties"]
+    assert abs(chi2 / rr["postfit_chi2"] - 1) <= 1e-6
+    assert np.abs((vals - ref["ref/postfit_values"]) / sig).max() <= 1e-2
+    assert np.abs(unc / sig - 1).max() <= 1e-6
+
+
+def test_track_mode_is_refused_naming_item_10c(wb_pair):
+    from pint_torch.residuals import Residuals
+    from pint_torch.wideband import (WidebandDownhillFitter,
+                                     WidebandLMFitter, WidebandTOAFitter,
+                                     WidebandTOAResiduals)
+
+    _, _, m, b = wb_pair
+    assert Residuals(b, m, track_mode=None).track_mode == "nearest"
+    with pytest.raises(NotImplementedError, match="item 10c"):
+        Residuals(b, m, True, True, "nearest")
+    for cls in (WidebandTOAFitter, WidebandDownhillFitter, WidebandLMFitter):
+        with pytest.raises(NotImplementedError, match="item 10c"):
+            cls(b, m, "use_pulse_numbers")
+        with pytest.raises(NotImplementedError, match="item 10c"):
+            cls(b, m, additional_args={"toa": {"track_mode": "nearest"}})
+    with pytest.raises(NotImplementedError, match="item 10c"):
+        WidebandTOAResiduals(b, m, toa_resid_args={"track_mode": "nearest"})
+
+
+def test_run_toa_checks_checks_the_named_ephemeris(wb_pair, monkeypatch):
+    """``run_toa_checks(ephem=)``: the coverage of the named ephemeris (a
+    stand-in span that cuts the TOAs' on both sides, patched into each
+    package's ``load_ephemeris``) gives the reference's findings; one that
+    does not load gives none in either; without it the batch's own."""
+    import pint_tpu.ephemeris as RE
+    import pint_tpu.integrity.quarantine as RQ
+
+    import pint_torch.ephemeris as PE
+    import pint_torch.integrity.quarantine as PQ
+
+    _, toas, _, b = wb_pair
+    mjd = np.asarray(toas.utc_mjd, dtype=np.float64)
+    lo, hi = np.quantile(mjd, [0.2, 0.7])
+
+    class Span:
+        def coverage_mjd(self):
+            return float(lo), float(hi)
+
+    def load(name="DE440"):
+        if name != "DE_SPAN":
+            raise FileNotFoundError(name)
+        return Span()
+
+    monkeypatch.setattr(RE, "load_ephemeris", load)
+    monkeypatch.setattr(PE, "load_ephemeris", load)
+
+    def rows(report):
+        return [(f.index, f.code, f.message) for f in report.findings]
+
+    want = rows(RQ.run_toa_checks(toas, ephem="DE_SPAN"))
+    got = rows(PQ.run_toa_checks(b, True, 1e9, "DE_SPAN"))
+    assert got == want and any(c == "toa-ephem-coverage" for _, c, _ in got)
+    assert rows(PQ.run_toa_checks(b, ephem="DE_NONE")) \
+        == rows(RQ.run_toa_checks(toas, ephem="DE_NONE"))
+    assert not any(c == "toa-ephem-coverage"
+                   for _, c, _ in rows(PQ.run_toa_checks(b)))
 
 
 @pytest.fixture(scope="module")

@@ -1,19 +1,26 @@
 #!/usr/bin/env python3
-"""Build K9 (``chol_rank_update``) and K10 (``hd_cross_lnlike``) on one CUDA
-GPU, hold each kernel against its plain version at the main paths' widths,
-and time it.
+"""Build K9 (``chol_rank_update``) and K10 (``hd_cross_lnlike``, with K12's
+value-and-gradient sequence) on one CUDA GPU, hold each kernel against its
+plain version at the main paths' widths, and time it.
 
 Run from the root of a checkout on a machine with one CUDA GPU and nvcc::
 
     python3 tools/torch_chol_probe.py [--skip-k10] [--skip-k9] [--reps N]
-                                      [--variants] [--k9-variants] [--micro]
+                                      [--variants] [--k9-variants]
+                                      [--k12-variants] [--micro]
 
 K10: pta67_catalog's G and u (the catalogue loaded, ingested and put into
 a ``JointLikelihood`` from its snapshot values, no fit pass), the bench's
 first B points, bitwise its plain version at B = 16, 32 and 48, exactly
 0.0 at zero amplitude; its time at B = 32 (median of ``--reps`` calls,
 CUDA events), the library yardstick (``cholesky_ex`` + ``solve_triangular``
-+ log-det of the formed M) and launches a call.  K9: random SPD factors
++ log-det of the formed M) and launches a call; then K12 (value and
+gradient from one factor): the value bitwise K10's and the gradient
+bitwise its plain version at B = 16, 32, 48 and 64, in the wrapper's
+chunks and in chunks of 3, timed at B = 32 and 64 beside K10 alone with
+the device time by kernel; with ``--k12-variants`` K12's inverse built
+otherwise (``K12_VARIANTS``), bitwise the committed and timed beside it.
+K9: random SPD factors
 at K = 150 (shared memory) and 233 (global) with zero rows interleaved,
 k = 4, 16 and 64 rows (3, 9 and 45 of them nonzero, as on the stream
 path), each sign, alone and fused with the ingest: bitwise its plain
@@ -72,6 +79,20 @@ K10_VARIANTS = {
     "kc16": [("constexpr int KC = 32;", "constexpr int KC = 16;")]}
 
 
+#: K12's inverse built otherwise (one constant or line changed): 128-column
+#: tiles (every thread a column in the in-block phase, an 8 x 8 register
+#: tile), the in-block phase's shifting loop for whole blocks too, a ring
+#: of 8-row stages, three CTAs an SM (a register cap)
+K12_VARIANTS = {
+    "itc128": [("constexpr int ITC = 64;", "constexpr int ITC = 128;")],
+    "shift": [("  if (nbw == NB) {\n    // a whole block",
+               "  if (false) {\n    // a whole block")],
+    "ks8": [("constexpr int KS = 16;         // rows j a stage",
+             "constexpr int KS = 8;         // rows j a stage")],
+    "lb3": [("__launch_bounds__(IT)\nhd_cross_inv_left",
+             "__launch_bounds__(IT, 3)\nhd_cross_inv_left")]}
+
+
 def _same(a, b) -> bool:
     """Bitwise equal, NaN where the other is NaN."""
     import torch
@@ -98,12 +119,12 @@ def _patched(kernel, name, pairs):
     return cu, out_dir / f"{kernel}-{name}.so"
 
 
-def _variant_libs():
-    """Build each K10 variant; returns {name: loaded library}."""
+def _variant_libs(variants=None):
+    """Build each K10 (or K12) variant; returns {name: loaded library}."""
     from pint_torch.kernels import _build
 
     procs = {}
-    for name, pairs in K10_VARIANTS.items():
+    for name, pairs in (variants or K10_VARIANTS).items():
         cu, so = _patched("hd_cross_lnlike", name, pairs)
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
                "-o", str(so), str(cu)]
@@ -187,7 +208,7 @@ def _profile_split(fn, names) -> dict:
     return out
 
 
-def k10(torch, reps, tag, variants=False):
+def k10(torch, reps, tag, variants=False, k12_variants_too=False):
     import numpy as np
 
     from pint_torch.bridge import (CATALOG_PATH, load_catalog_snapshot,
@@ -243,6 +264,91 @@ def k10(torch, reps, tag, variants=False):
         want = K10.hd_cross_lnlike_reference(G, u, la, ga, f, T)
         ok = k10_variants(torch, K10, (G, u, la, ga, f, T), want, reps,
                           tag) and ok
+    return k12(torch, K10, (G, u, f, T), pts, reps, tag,
+               k12_variants_too) and ok
+
+
+def k12_variants(torch, K10, data, pts, reps, tag):
+    """K12's sequence at B = 32 with each of :data:`K12_VARIANTS` beside
+    the committed source, in two rounds (the second in reverse order):
+    value and gradient bitwise the committed library's."""
+    from pint_torch.kernels import _build
+
+    G, u, f, T = data
+    la, ga = pts[:32, 0].contiguous(), pts[:32, 1].contiguous()
+    committed = _build.load("hd_cross_lnlike")
+    want = K10._launch_value_and_grad(G, u, la, ga, f, T)
+    libs = {"committed": committed, **_variant_libs(K12_VARIANTS)}
+    ok, times = True, {n: [] for n in libs}
+    order = list(libs)
+    for rnd in (order, order[::-1]):
+        for name in rnd:
+            _build._loaded["hd_cross_lnlike"] = libs[name]
+            got = K10._launch_value_and_grad(G, u, la, ga, f, T)
+            bit = all(bool(torch.equal(x, y)) for x, y in zip(got, want))
+            ok = ok and bit
+            times[name].append(_ms(torch, lambda: K10._launch_value_and_grad(
+                G, u, la, ga, f, T), reps))
+            if not bit:
+                print(f"probe k12 variant {name}: DIFFERS {tag}", flush=True)
+    _build._loaded["hd_cross_lnlike"] = committed
+    for name, ts in times.items():
+        print(f"probe k12 variant {name}: {ts[0]:.4f} / {ts[1]:.4f} ms "
+              f"(rounds 1 / 2, B=32) {tag}", flush=True)
+    return ok
+
+
+def k12(torch, K10, data, pts, reps, tag, variants=False):
+    """K12's launch sequence (value and gradient from one factor) on the
+    bench's points, the first 48 and 16 more at their mean moved by
+    seeded steps: the value bitwise K10's and the gradient bitwise its
+    plain version at B = 16, 32, 48 and 64, in the wrapper's chunks and in
+    chunks of 3; timed at B = 32 and 64 beside K10 alone."""
+    G, u, f, T = data
+    R = G.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(64)
+    extra = pts.mean(0) + 0.1 * torch.randn(16, 2, generator=gen,
+                                             dtype=torch.float64,
+                                             device="cuda")
+    pts = torch.cat([pts, extra])
+    per = 8 * (R * (R + 1) + (K10.NB + 2) * R)
+    ok = True
+    for B in (16, 32, 48, 64):
+        la, ga = pts[:B, 0].contiguous(), pts[:B, 1].contiguous()
+        v, g = K10._launch_value_and_grad(G, u, la, ga, f, T)
+        cap = K10.WORKSPACE_CAP_BYTES
+        K10.WORKSPACE_CAP_BYTES = 3 * per
+        try:
+            v3, g3 = K10._launch_value_and_grad(G, u, la, ga, f, T)
+        finally:
+            K10.WORKSPACE_CAP_BYTES = cap
+        want_v = K10._launch(G, u, la, ga, f, T)
+        want_g = K10.hd_cross_grad_reference(G, u, la, ga, f, T)
+        bit = all(bool(torch.equal(x, y)) for x, y in (
+            (v, want_v), (v3, want_v), (g, want_g), (g3, want_g)))
+        ok = ok and bit
+        print(f"probe k12 B={B} R={R}: {'bitwise' if bit else 'DIFFERS'} "
+              f"(value {float((v - want_v).abs().max()):.3e}, gradient "
+              f"{float((g - want_g).abs().max()):.3e}) {tag}", flush=True)
+    for B in (32, 64):
+        la, ga = pts[:B, 0].contiguous(), pts[:B, 1].contiguous()
+        before = dict(K10.launch_counts)
+        K10._launch_value_and_grad(G, u, la, ga, f, T)
+        per_call = {k: v - before[k] for k, v in K10.launch_counts.items()
+                    if v != before[k]}
+        ms = _ms(torch, lambda: K10._launch_value_and_grad(
+            G, u, la, ga, f, T), reps)
+        ms10 = _ms(torch, lambda: K10._launch(G, u, la, ga, f, T), reps)
+        split = _profile_split(lambda: K10._launch_value_and_grad(
+            G, u, la, ga, f, T), ("hd_cross_form", "hd_cross_panel",
+                                  "hd_cross_trail", "hd_cross_sum",
+                                  "hd_cross_inv_left", "hd_cross_colsum",
+                                  "hd_cross_bins"))
+        print(f"probe k12 B={B}: value and gradient {ms:.4f} ms, K10 alone "
+              f"{ms10:.4f} ms (medians of {reps}); launches a call "
+              f"{per_call}; device ms by kernel {split} {tag}", flush=True)
+    if variants:
+        ok = k12_variants(torch, K10, data, pts, reps, tag) and ok
     return ok
 
 
@@ -416,6 +522,7 @@ def main() -> int:
     ap.add_argument("--variants", action="store_true")
     ap.add_argument("--micro", action="store_true")
     ap.add_argument("--k9-variants", action="store_true")
+    ap.add_argument("--k12-variants", action="store_true")
 
     args = ap.parse_args()
     import torch
@@ -442,7 +549,8 @@ def main() -> int:
     if args.k9_variants:
         ok = k9_variants(torch, args.reps, tag) and ok
     if not args.skip_k10:
-        ok = k10(torch, args.reps, tag, args.variants) and ok
+        ok = k10(torch, args.reps, tag, args.variants,
+                 args.k12_variants) and ok
     print(f"probe {'ok' if ok else 'FAILED'} {tag}", flush=True)
     return 0 if ok else 1
 
