@@ -125,7 +125,22 @@ Phases, one line each:
    bt (chi2 1e-6 rel, values 1e-2 sigma, converged; its evaluations and
    ms per evaluation), on wideband TOAs the dispersion slope and the DM
    covariance (1e-13 rel) and the ``full_cov`` wideband downhill fit on
-   small_wb; each path's api kernels must have launched.  Then the Kepler phase: ``kepler_2d``,
+   small_wb; each path's api kernels must have launched.  Then the files
+   phase: b1855, ell1 and ngc read from their committed par and tim files
+   (``pint_torch/data/b1855.par`` and ``.tim``, ``j1909_ell1.*``,
+   ``ngc6440e.*``) by ``pint_torch.models.get_model_and_toas``, each host
+   stage's wall time printed (par parse and model build, tim read, the TOA
+   table with the C++ MJD parse, validate, clock chain, TDB, posvels),
+   ``to_batch`` onto the card, then the residuals, the fits the reference
+   ran on the files, the 16x16 grid cold and warm; counts zeroed around
+   each, and K1's primal and dual on all three, K2's DD and K3 in shared
+   memory on b1855, K4's ELL1 on ell1 and K5's tiled kernels on ell1 and
+   ngc must launch.  The C++ parser must be the path that ran; the parse,
+   the tim columns, the parameter table, the configs, the free and design
+   parameters and the contexts must be bitwise the reference's run on the
+   same files (``ref/files/``), the host pipeline's columns within the
+   host layer's bars, and the main-path bars above hold against
+   ``ref/files/``.  Then the Kepler phase: ``kepler_2d``,
    ``kepler_3d`` and ``kepler_two_body`` with their ``jacfwd`` Jacobians
    on the card, on the orbits of ``kepler_reference.npz`` (e 0-0.95, one
    exactly circular) against the reference's values (1e-13 of each
@@ -1111,8 +1126,10 @@ def _bars(label, out):
             notes.append(f"auto converged, steps {pair[0]} vs {pair[1]}"
                          + (f", noise amplitudes max {d_n:.3e} of their "
                             "largest (<= 1e-6)" if want else ""))
-    auto_cls = type(out["fits"]["auto"][0]).__name__
-    checks.append((auto_cls == rref["auto_fitter"], "Fitter.auto class"))
+    auto_cls = type(out["fits"]["auto"][0]).__name__ \
+        if "auto" in out["fits"] else None
+    if auto_cls is not None:
+        checks.append((auto_cls == rref["auto_fitter"], "Fitter.auto class"))
     surface = out["surface"]
     grid_note = "no grid"
     if surface is not None:
@@ -1128,10 +1145,11 @@ def _bars(label, out):
                      f"vs {rref['grid_argmin']}; rungs "
                      f"{sorted(set(rungs.ravel().tolist()))} equal "
                      f"{same_rungs}")
+    auto_note = f"Fitter.auto {auto_cls} vs {rref['auto_fitter']}; " \
+        if auto_cls is not None else ""
     print(f"phase bars {label}: residuals max|d| {d_res:.3e} s (<= 1e-10); "
-          f"design matrix max col-rel {d_M:.3e}; Fitter.auto {auto_cls} vs "
-          f"{rref['auto_fitter']}; " + "; ".join(notes) + f"; {grid_note}",
-          flush=True)
+          f"design matrix max col-rel {d_M:.3e}; {auto_note}"
+          + "; ".join(notes) + f"; {grid_note}", flush=True)
     for ok, what in checks:
         if not ok:
             raise RuntimeError(f"bar failed ({label}): {what}")
@@ -6243,6 +6261,269 @@ def _full_cov_phase(path, kernels, tag):
     return counts
 
 
+#: the host layer's stages of ``get_model_and_toas``, each timed where it
+#: is entered: (label, module, attribute)
+FILES_STAGES = (
+    ("par parse and model build", "pint_torch.models.model_builder",
+     "ModelBuilder.__call__"),
+    ("tim read", "pint_torch.toa", "read_tim_file"),
+    ("TOA table (MJD parse)", "pint_torch.toa", "TOAs.from_raw"),
+    ("validate", "pint_torch.toa", "TOAs.validate"),
+    ("clock chain", "pint_torch.toa", "TOAs.apply_clock_corrections"),
+    ("TDB", "pint_torch.toa", "TOAs.compute_TDBs"),
+    ("posvels", "pint_torch.toa", "TOAs.compute_posvels"))
+
+
+class _StageTimer:
+    """Wall time of each of :data:`FILES_STAGES` while in the context, by
+    wrapping the function where the call enters it."""
+
+    def __init__(self, stages=FILES_STAGES):
+        self.stages = stages
+        self.seconds = {label: 0.0 for label, _, _ in stages}
+        self._orig = []
+
+    def __enter__(self):
+        import importlib
+
+        for label, mod_name, attr in self.stages:
+            owner = importlib.import_module(mod_name)
+            *path, name = attr.split(".")
+            for p in path:
+                owner = getattr(owner, p)
+            orig = owner.__dict__[name]
+            wrap = type(orig) if isinstance(
+                orig, (classmethod, staticmethod)) else None
+            fn = orig.__func__ if wrap else orig
+
+            def timed(*a, _fn=fn, _label=label, **kw):
+                t = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    self.seconds[_label] += time.perf_counter() - t
+
+            self._orig.append((owner, name, orig))
+            setattr(owner, name, wrap(timed) if wrap else timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._orig):
+            setattr(owner, name, orig)
+
+
+def _files_parity(model, toas, batch, meta, ref) -> dict:
+    """The port's reading of a stand-in's files against the reference's
+    run on them (``ref/files/``): ``bitwise`` {item: bool} for the parsed
+    MJDs, the tim columns, the parameter table, the components' configs,
+    the free and design parameters and each stored context; ``gaps``
+    {item: max |port - reference|} for the host pipeline's columns (s, s,
+    km, km/s) and the batch's fields."""
+    import numpy as np
+
+    from pint_torch.dd import dd_from_longdouble
+
+    def same(a, b):
+        a, b = np.asarray(a), np.asarray(b)
+        return a.shape == b.shape and bool(np.array_equal(a, b))
+
+    def gap(a, b):
+        return float(np.max(np.abs(np.asarray(a, dtype=np.float64)
+                                   - np.asarray(b, dtype=np.float64))))
+
+    bit, gaps = {}, {}
+    utc = dd_from_longdouble(toas.utc_mjd)
+    bit["parsed MJDs"] = same(utc.hi, ref["host/utc_mjd_hi"]) \
+        and same(utc.lo, ref["host/utc_mjd_lo"])
+    bit["tim columns"] = same(toas.error_us, ref["host/error_us"]) \
+        and same(toas.freq_mhz, ref["host/freq_mhz"]) \
+        and same(np.asarray(toas.obs).astype(str), ref["host/obs"]) \
+        and toas.flags == meta["flags"]
+    tdb = dd_from_longdouble(toas.tdb)
+    gaps["clock [s]"] = gap(toas.clock_corr_s, ref["host/clock_corr_s"])
+    gaps["TDB [s]"] = 86400.0 * max(
+        gap(tdb.hi, ref["host/tdb_hi"]),
+        float(np.max(np.abs((tdb.hi - ref["host/tdb_hi"])
+                            + (tdb.lo - ref["host/tdb_lo"])))))
+    gaps["posvels [km]"] = max(
+        gap(toas.ssb_obs_pos_km, ref["host/ssb_obs_pos_km"]),
+        gap(toas.obs_sun_pos_km, ref["host/obs_sun_pos_km"]))
+    gaps["velocity [km/s]"] = gap(toas.ssb_obs_vel_kms,
+                                  ref["host/ssb_obs_vel_kms"])
+    for k in ("clock_corr_s", "tdb_hi", "tdb_lo", "ssb_obs_pos_km",
+              "ssb_obs_vel_kms", "obs_sun_pos_km"):
+        col = {"tdb_hi": tdb.hi, "tdb_lo": tdb.lo}.get(k)
+        bit[f"host {k}"] = same(getattr(toas, k) if col is None else col,
+                                ref[f"host/{k}"])
+    table = []
+    for p in meta["params"]:
+        q = model[p["name"]]
+        v = list(q.value) if isinstance(q.value, tuple) else q.value
+        table.append(q.component == p["component"] and q.kind == p["kind"]
+                     and v == p["value"] and q.frozen == p["frozen"]
+                     and q.uncertainty == p["uncertainty"]
+                     and q.key == p["key"]
+                     and list(q.key_value) == p["key_value"])
+    names = [n for c in model.components.values() for n in c.params]
+    bit["parameter table"] = all(table) \
+        and names == [p["name"] for p in meta["params"]]
+    bit["component configs"] = [
+        {"class": n, "config": c.config}
+        for n, c in model.components.items()] == meta["components"]
+    bit["free parameters"] = list(model.free_params) == meta["free_params"]
+    bit["design parameters"] = list(model.design_param_names()) \
+        == meta["design_params"]
+    for k in ("tdb_hi", "tdb_lo", "tdb_s_hi", "tdb_s_lo", "freq", "error_us",
+              "ssb_obs_pos", "ssb_obs_vel", "obs_sun_pos"):
+        part = k.rsplit("_", 1)[-1] if k.startswith("tdb") else None
+        mine = getattr(getattr(batch, k.rsplit("_", 1)[0]), part) \
+            if part in ("hi", "lo") else getattr(batch, k)
+        mine = mine.cpu().numpy()
+        gaps[f"batch {k}"] = gap(mine, ref[k])
+        bit[f"batch {k}"] = same(mine, ref[k])
+    bit["batch tdb0"] = float(batch.tdb0) == float(ref["tdb0"])
+    for key, want in ref.items():
+        if not key.startswith("ctx/"):
+            continue
+        _, comp, *sub = key.split("/")
+        got = batch.contexts.get(comp, {})
+        for s in sub:
+            got = got.get(s) if isinstance(got, dict) else None
+        if got is None:
+            bit[key] = False
+            continue
+        got = got.cpu().numpy() if hasattr(got, "cpu") else np.asarray(got)
+        bit[key] = same(np.asarray(got, dtype=want.dtype), want)
+    return dict(bitwise=bit, gaps=gaps)
+
+
+def _files_phase(label, path, kernels, tag, device="cuda", grid_every=1):
+    """The main path from the stand-in's committed par and tim files, with
+    the counts zeroed just before and read just after: the model and host
+    TOAs through ``pint_torch.models.get_model_and_toas`` (each host stage
+    timed: :data:`FILES_STAGES`), ``to_batch`` onto the card, then the
+    residuals, the fits the reference ran on the files (``GLSFitter`` with
+    correlated noise, else ``WLSFitter`` and ``DownhillWLSFitter``) and
+    the 16 x 16 grid after the first fit, cold and warm.  Fails unless the
+    C++ parser ran, unless the parse, the parameter table, the configs and
+    the contexts are bitwise the reference's and the host columns within
+    the host layer's bars (:func:`_files_parity`), and on any of
+    :func:`_bars` against ``ref/files/``.  ``device`` and ``grid_every``
+    (every n-th axis value of the grid; 0: no grid) let the CPU tests
+    rehearse it.
+    Returns (counts, capture)."""
+    import numpy as np
+    import torch
+
+    from pint_torch import native
+    from pint_torch.bridge import files_reference, standin_files
+    from pint_torch.fitter import DownhillWLSFitter, WLSFitter
+    from pint_torch.gls_fitter import GLSFitter
+    from pint_torch.grid import grid_chisq
+    from pint_torch.models import get_model_and_toas
+    from pint_torch.residuals import Residuals
+
+    meta, ref = files_reference(path)
+    rr = meta["reference"]
+    par, tim = standin_files(path)
+    path_used = native.parser_path()
+    if path_used != "native":
+        raise RuntimeError("the C++ parser did not build: the files phase "
+                           "took the pure-Python path")
+    cap = Capture(kernels.modules())
+    cap.install()
+    kernels.reset_counts()
+    stages = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t
+        return out
+
+    with _StageTimer() as timer:
+        model, toas = stage("get_model_and_toas", lambda: get_model_and_toas(
+            str(par), str(tim), device=device))
+    batch = stage("to_batch", lambda: toas.to_batch(device=device,
+                                                    model=model))
+    resid = stage("residuals", lambda: Residuals(batch, model).time_resids)
+    abs_phase = "AbsPhase" in model.components
+    phase_int = model.phase(batch, abs_phase=True).int_ if abs_phase \
+        else None
+    M, _ = stage("designmatrix", lambda: model.designmatrix(batch))
+    maxiter = rr["settings"]["fit_maxiter"]
+    gls = model.has_correlated_errors
+    fitter = (GLSFitter if gls else WLSFitter)(batch, model)
+    fits = {"postfit": (fitter, stage("fit_postfit", lambda: fitter.fit_toas(
+        maxiter=maxiter)))}
+    if not gls:
+        d = DownhillWLSFitter(batch, model)
+        fits["downhill"] = (d, stage("fit_downhill", d.fit_toas))
+    gnames, axes = _grid_of(meta, ref)
+    if not grid_every:
+        surface = None
+    elif grid_every > 1:
+        axes = tuple(a[::grid_every] for a in axes)
+        ref = dict(ref)
+        ref["ref/grid_chi2"] = ref["ref/grid_chi2"][::grid_every,
+                                                     ::grid_every]
+        ref["ref/grid_rungs"] = ref["ref/grid_rungs"][::grid_every,
+                                                      ::grid_every]
+        c2 = ref["ref/grid_chi2"]
+        rr = dict(rr, grid_argmin=[int(i) for i in np.unravel_index(
+            int(np.nanargmin(c2)), c2.shape)])
+        meta = dict(meta, reference=rr)
+    niter = rr["settings"]["grid_niter"]
+    # a thinned grid runs as one chunk of its own points (each point's
+    # chi2 does not depend on the chunk)
+    chunk = 256 if grid_every == 1 else int(np.prod([len(a) for a in axes]))
+    if grid_every:
+        surface, _ = stage("grid_cold", lambda: grid_chisq(
+            fitter, gnames, axes, niter=niter, chunk=chunk))
+        if device == "cuda":  # the warm time is what a card run measures
+            surface, _ = stage("grid_warm", lambda: grid_chisq(
+                fitter, gnames, axes, niter=niter, chunk=chunk))
+    counts = kernels.launch_counts()
+    cap.remove()
+    parity = _files_parity(model, toas, batch, meta, ref)
+    print(f"phase files {label}: {par.name} + {tim.name} -> N="
+          f"{batch.ntoas} TOAs, {len(model.components)} components, "
+          f"{len(model.free_params)} free; parser {path_used}; host stages "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in timer.seconds.items())
+          + "; main path " + ", ".join(f"{k} {v:.4f} s"
+                                       for k, v in stages.items())
+          + f"; launches (nonzero) "
+          f"{dict((k, v) for k, v in counts.items() if v)} {tag}",
+          flush=True)
+    bit, gaps = parity["bitwise"], parity["gaps"]
+    print(f"phase files parity {label}: reference round trip through its "
+          f"own tim writer bitwise {meta['roundtrip_bitwise']} (differs: "
+          f"{meta['roundtrip_differs']}); bars against ref/files/; "
+          f"bitwise {sum(bit.values())}/{len(bit)}"
+          + (f" (not: {sorted(k for k, v in bit.items() if not v)})"
+             if not all(bit.values()) else "")
+          + "; gaps " + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+          + f" {tag}", flush=True)
+    must = ("parsed MJDs", "tim columns", "parameter table",
+            "component configs", "free parameters", "design parameters")
+    bad = [k for k in must if not bit[k]] + [
+        k for k in bit if k.startswith("ctx/") and not bit[k]]
+    host = (gaps["clock [s]"] <= HOST_CLOCK_BAR_S
+            and gaps["TDB [s]"] <= HOST_TDB_BAR_S
+            and gaps["posvels [km]"] <= HOST_POS_BAR_KM
+            and gaps["velocity [km/s]"] <= HOST_VEL_BAR_KMS)
+    if bad or not host:
+        raise RuntimeError(f"files parity failed ({label}): {bad}, host "
+                           f"columns within their bars {host}")
+    _bars(f"files {label}", dict(meta=meta, ref=ref, resid=resid, M=M,
+                                 phase_int=phase_int, fitter=fitter,
+                                 fits=fits, surface=surface, wide=None,
+                                 noise_rounds=[]))
+    return counts, cap
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -6470,6 +6751,17 @@ def main() -> int:
                                    f"api phase: {missing}")
         paths[label] = (counts, cap)
         del out
+
+    # ---- the files phase: b1855, ell1 and ngc read from their par and tim
+    # files by the port's own reading layer, each with its counts zeroed
+    # just before it; the kernels its main path must launch
+    for label, path in (("b1855", STANDIN_PATH), ("ell1", ELL1_PATH),
+                        ("ngc", NGC_PATH)):
+        counts, _ = _files_phase(label, path, kernels, tag)
+        missing = [k for k in path_kernels[label] if counts[k] == 0]
+        if missing:
+            raise RuntimeError(f"kernels never launched on the {label} files "
+                               f"phase: {missing}")
 
     # ---- the mcmc phase: Bayesian timing and the ensemble MCMC -------------
     # each path's counts zeroed just before it; the kernels its walkers'

@@ -43,7 +43,8 @@ __all__ = ["load_snapshot", "read_snapshot", "SNAPSHOT_FORMAT",
            "WB_PATH", "WB_SMALL_PATH", "WB_WHITE_SMALL_PATH", "NOISE_PATH",
            "KEPLER_PATH", "PHOTON_PATH", "PHOTON_SMALL_PATH", "STREAM_PATH",
            "STREAM_SMALL_PATH", "stream_schedule", "CATALOG_PATH",
-           "CATALOG_SMALL_PATH", "load_catalog_snapshot", "flow_params"]
+           "CATALOG_SMALL_PATH", "load_catalog_snapshot", "flow_params",
+           "standin_files", "files_reference"]
 
 SNAPSHOT_FORMAT = "pint_torch-snapshot-1"
 #: the committed full-width B1855+09-shaped stand-in
@@ -127,6 +128,31 @@ STREAM_SMALL_PATH = STANDIN_PATH.with_name("small_stream_standin.npz")
 #: modes)
 CATALOG_PATH = STANDIN_PATH.with_name("pta67_catalog_standin.npz")
 CATALOG_SMALL_PATH = STANDIN_PATH.with_name("small_catalog_standin.npz")
+
+
+
+def standin_files(path: Union[str, Path]) -> Tuple[Path, Path]:
+    """The par and tim files of the committed stand-in at ``path``
+    (``<name>_standin.npz`` -> ``<name>.par``, ``<name>.tim``), from which
+    ``pint_torch.models.get_model_and_toas`` reads it; its ``ref/files/``
+    holds the reference's run on them."""
+    path = Path(path)
+    stem = path.name[:-len("_standin.npz")] if path.name.endswith(
+        "_standin.npz") else path.stem
+    return path.with_name(stem + ".par"), path.with_name(stem + ".tim")
+
+
+def files_reference(path_or_dict: Union[str, Path, dict]) -> Tuple[dict,
+                                                                    dict]:
+    """(meta, arrays) of the reference's run on a stand-in's par and tim
+    files: ``meta["reference"]["files"]`` and the ``ref/files/`` arrays
+    without their prefix, laid out as a snapshot's own (the run's state
+    and batch, ``ref/`` outputs, ``host/`` columns)."""
+    meta, arrays = read_snapshot(path_or_dict)
+    pre = "ref/files/"
+    return (meta["reference"]["files"],
+            {k[len(pre):]: v for k, v in arrays.items() if k.startswith(pre)})
+
 
 _BATCH_KEYS = ("tdb_hi", "tdb_lo", "tdb0", "tdb_s_hi", "tdb_s_lo", "freq",
                "error_us", "ssb_obs_pos", "ssb_obs_vel", "obs_sun_pos",

@@ -5,16 +5,18 @@ Every member runs :meth:`pint_torch.toa.TOABatch.validate` (lenient by
 default: offenders are quarantined with a warning and never reach a fit)
 and the catalog keeps its certified rows only; a member left with fewer
 certified TOAs than free parameters + 1 is excluded with a reason, since a
-singular block would poison the joint solve.  Entries are ``(model,
+singular block would poison the joint solve.  Entries are ``(par, tim)``
+path pairs, read by :func:`pint_torch.models.get_model_and_toas` and
+validated on the host as the reference validates them, or ``(model,
 TOABatch)`` pairs, as :func:`pint_torch.bridge.load_catalog_snapshot`
-returns them; a ``(par, tim)`` path pair needs the host ingest of ROADMAP
-queue A item 10 and raises.  The reference's ``make_synthetic_catalog``
+returns them.  The reference's ``make_synthetic_catalog``
 simulates TOAs (item 11) and is not ported; the ``catalog_ingest``
 telemetry event waits for item 8.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import List, Sequence, Tuple
 
@@ -111,12 +113,15 @@ class CatalogIngestReport:
 
 
 def ingest_catalog(entries: Sequence, policy: str = "lenient",
-                   check_coverage: bool = False) -> CatalogIngestReport:
-    """Load a catalog of ``(model, TOABatch)`` pairs through the integrity
-    gate: each batch is validated under ``policy``, its certified rows kept
-    (as a TOA set of their own, as the reference's ``toas.certified()``),
-    and a member with fewer certified TOAs than free parameters + 1
-    excluded with a reason."""
+                   check_coverage: bool = False,
+                   device=None) -> CatalogIngestReport:
+    """Load a catalog of ``(par, tim)`` path pairs or ``(model, TOABatch)``
+    pairs through the integrity gate: each member's TOAs are validated
+    under ``policy`` (a file pair's host TOAs, as the reference's), its
+    certified rows kept (as a TOA set of their own, as the reference's
+    ``toas.certified()``; a file pair's made a batch on ``device``,
+    default ``"cuda"``), and a member with fewer certified TOAs than free
+    parameters + 1 excluded with a reason."""
     if not len(entries):
         raise UsageError("ingest_catalog needs at least one pulsar entry")
     report = CatalogIngestReport()
@@ -126,25 +131,30 @@ def ingest_catalog(entries: Sequence, policy: str = "lenient",
                 f"catalog entry {i} must be a (par, tim) or (model, toas) "
                 f"pair, got {type(entry).__name__}")
         model, toas = entry
-        if isinstance(model, str) and isinstance(toas, str):
-            raise NotImplementedError(
-                f"catalog entry {i}: reading par/tim files needs the host "
-                "ingest (clock corrections, TDB, ephemerides) of ROADMAP "
-                "queue A item 10; load a catalog snapshot "
-                "(pint_torch.bridge.load_catalog_snapshot)")
+        files = isinstance(model, (str, os.PathLike)) \
+            and isinstance(toas, (str, os.PathLike))
+        if files:
+            from pint_torch.models import get_model_and_toas
+
+            model, toas = get_model_and_toas(str(model), str(toas),
+                                             device=device)
         psr = model.params_table.get("PSR")
         name = str((psr.value if psr is not None else None)
                    or f"PSR{i:04d}")
         q = toas.validate(policy=policy, check_coverage=check_coverage)
-        certified = toas.certified(model, standalone=True)
+        certified = toas.certified() if files \
+            else toas.certified(model, standalone=True)
         n_q = int(q.n_quarantined) if q else 0
         codes = tuple(q.codes()) if q else ()
         n_free = len(model.free_params)
-        if certified.ntoas < n_free + 1:
+        n_cert = len(certified) if files else certified.ntoas
+        if n_cert < n_free + 1:
             report.excluded.append(
-                (name, f"{certified.ntoas} certified TOA(s) cannot "
+                (name, f"{n_cert} certified TOA(s) cannot "
                        f"constrain {n_free} free parameter(s)"))
             continue
+        if files:
+            certified = certified.to_batch(device=model.device, model=model)
         report.pulsars.append(CatalogPulsar(
             name=name, model=model, toas=certified,
             n_quarantined=n_q, quarantine_codes=codes))

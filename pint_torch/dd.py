@@ -19,12 +19,15 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 __all__ = [
     "DD", "two_sum", "quick_two_sum", "two_prod", "dd_from_float",
     "dd_add", "dd_sub", "dd_neg", "dd_mul", "dd_div", "dd_abs", "dd_sum",
     "dd_round_split", "mul_mod1", "day2sec_exact", "taylor_horner_dd",
+    "dd_from_longdouble", "dd_from_string", "dd_to_longdouble",
+    "two_sum_np", "two_prod_np",
 ]
 
 # 2**27 + 1, the Dekker/Veltkamp splitter for float64
@@ -108,6 +111,53 @@ def _as_dd(x) -> DD:
 def dd_from_float(x) -> DD:
     """Promote a float64 tensor (or float) to DD with a zero low word."""
     return DD(x, torch.zeros_like(x) if torch.is_tensor(x) else 0.0)
+
+
+# ---------------------------------------------------------------------------
+# host-side conversions (reference ``dd.py:157-180,282-296``): numpy only
+# ---------------------------------------------------------------------------
+def dd_from_longdouble(x) -> DD:
+    """Host-side: split numpy longdouble(s) into an exact (hi, lo) pair of
+    float64 arrays."""
+    x = np.asarray(x, dtype=np.longdouble)
+    hi = np.asarray(x, dtype=np.float64)
+    lo = np.asarray(x - hi.astype(np.longdouble), dtype=np.float64)
+    return DD(hi, lo)
+
+
+def dd_from_string(s: str) -> DD:
+    """Host-side: exact decimal string -> DD, correctly rounded to the full
+    ~106 bits by rational arithmetic, independent of the platform's
+    longdouble (the pure-Python path beside the C++ parser,
+    :func:`pint_torch.native.str2dd_batch`); a Fortran ``D`` exponent is
+    read as ``E``."""
+    from fractions import Fraction
+
+    v = Fraction(s.strip().translate(str.maketrans("Dd", "Ee")))
+    hi = float(v)
+    lo = float(v - Fraction(hi))
+    return DD(np.float64(hi), np.float64(lo))
+
+
+def dd_to_longdouble(x: DD) -> np.longdouble:
+    """Host-side: collapse to numpy longdouble (interop and printing)."""
+    return np.asarray(x.hi, dtype=np.longdouble) \
+        + np.asarray(x.lo, dtype=np.longdouble)
+
+
+def two_sum_np(a, b):
+    """Host-side error-free a + b = s + e on float64 numpy arrays."""
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return two_sum(a, b)
+
+
+def two_prod_np(a, b):
+    """Host-side error-free a * b = p + e (Dekker split) on float64 numpy
+    arrays."""
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return two_prod(a, b)
 
 
 def dd_add(x, y) -> DD:

@@ -218,10 +218,15 @@ def _ephem_span(ephem):
 def run_toa_checks(batch, check_coverage: bool = True,
                    max_error_us: float = ABSURD_ERROR_US,
                    ephem: Optional[str] = None) -> QuarantineReport:
-    """Run every check over a :class:`~pint_torch.toa.TOABatch`; returns
-    the report (the caller's policy decides what it does with it).
-    ``ephem`` names the ephemeris whose coverage is checked, in place of
-    the batch's own (whose span the batch carries)."""
+    """Run every check over a :class:`~pint_torch.toa.TOABatch` or a host
+    :class:`~pint_torch.toa.TOAs`; returns the report (the caller's policy
+    decides what it does with it).  ``ephem`` names the ephemeris whose
+    coverage is checked, in place of the TOAs' own (whose span a batch
+    carries)."""
+    from pint_torch.toa import TOAs
+
+    if isinstance(batch, TOAs):
+        return _run_host_checks(batch, check_coverage, max_error_us, ephem)
     n = batch.ntoas
     mjd64 = np.asarray(batch.mjds, dtype=np.float64)
     mjd_lo = np.zeros(n) if batch.mjd_lo is None \
@@ -248,3 +253,41 @@ def run_toa_checks(batch, check_coverage: bool = True,
             findings += _check_ephem_coverage(mjd64, ephem, span)
     findings.sort(key=lambda f: (f.index, f.code))
     return QuarantineReport(n_toas=n, findings=findings)
+
+
+def _run_host_checks(toas, check_coverage, max_error_us, ephem):
+    """:func:`run_toa_checks` over host TOAs (reference
+    ``quarantine.py:253``): the clock chains' ends from the observatories,
+    the ephemeris span from the ephemeris."""
+    from pint_torch.observatory import get_observatory
+
+    mjd64 = np.asarray(toas.utc_mjd, dtype=np.float64)
+    with np.errstate(invalid="ignore"):
+        mjd_lo = np.asarray(np.asarray(toas.utc_mjd)
+                            - mjd64.astype(np.longdouble), dtype=np.float64)
+    mjd_lo = np.where(np.isfinite(mjd_lo), mjd_lo, 0.0)
+    if toas.utc_mjd_lo is not None:
+        mjd_lo = mjd_lo + np.asarray(toas.utc_mjd_lo, dtype=np.float64)
+    err_us = np.asarray(toas.error_us, dtype=np.float64)
+    freq = np.asarray(toas.freq_mhz, dtype=np.float64)
+    obs = np.asarray(toas.obs)
+    findings: List[QuarantineFinding] = []
+    findings += _check_mjds(mjd64)
+    findings += _check_errors(err_us, max_error_us)
+    findings += _check_freqs(freq)
+    findings += _check_duplicates(mjd64, mjd_lo, obs, freq)
+    if check_coverage:
+        clock_end = {}
+        for site in np.unique(obs.astype(str)):
+            try:
+                clock_end[site] = float(get_observatory(
+                    site).last_clock_correction_mjd(limits="allow"))
+            except Exception:
+                continue  # no clock chain for this site: nothing to cover
+        findings += _check_clock_coverage(mjd64, obs, clock_end)
+        eph = ephem or toas.ephem
+        span = _ephem_span(str(eph)) if eph else None
+        if span is not None:
+            findings += _check_ephem_coverage(mjd64, str(eph), span)
+    findings.sort(key=lambda f: (f.index, f.code))
+    return QuarantineReport(n_toas=len(mjd64), findings=findings)

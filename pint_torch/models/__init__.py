@@ -17,5 +17,13 @@ from pint_torch.models import (absolute_phase, astrometry,  # noqa: F401
 from pint_torch.models.binary import components as _binary  # noqa: F401
 from pint_torch.models.timing_model import (Component, Param,  # noqa: F401
                                             TimingModel)
+from pint_torch.models.parameter import (  # noqa: F401
+    AngleParameter, MJDParameter, Parameter, boolParameter, floatParameter,
+    intParameter, maskParameter, prefixParameter, strParameter)
+from pint_torch.models.model_builder import (  # noqa: F401
+    AllComponents, ModelBuilder, get_model, get_model_and_toas,
+    parse_parfile)
 
-__all__ = ["Component", "Param", "TimingModel"]
+__all__ = ["Component", "Param", "TimingModel", "AllComponents",
+           "ModelBuilder", "get_model", "get_model_and_toas",
+           "parse_parfile"]

@@ -15,6 +15,9 @@ from __future__ import annotations
 
 import numpy as np
 
+from pint_torch.exceptions import MissingParameter
+from pint_torch.models.parameter import (MJDParameter, floatParameter,
+                                         strParameter)
 from pint_torch.models.timing_model import Component
 
 __all__ = ["AbsPhase"]
@@ -28,6 +31,19 @@ class AbsPhase(Component):
     register = True
     category = "absolute_phase"
     kind = "tzr"
+
+    def declare(self):
+        self.add_param(MJDParameter("TZRMJD",
+                                    description="Epoch of the zero phase TOA"))
+        self.add_param(strParameter(
+            "TZRSITE", description="Observatory of the zero phase TOA"))
+        self.add_param(floatParameter(
+            "TZRFRQ", units="MHz",
+            description="Frequency of the zero phase TOA"))
+
+    def validate(self):
+        if self.TZRMJD.value is None:
+            raise MissingParameter("AbsPhase", "TZRMJD")
 
     def get_TZR_toas(self, model=None):
         """The one-TOA host table at the TZR epoch (cached)."""

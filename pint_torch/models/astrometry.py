@@ -15,6 +15,9 @@ import math
 import numpy as np
 import torch
 
+from pint_torch.exceptions import MissingParameter
+from pint_torch.models.parameter import (AngleParameter, MJDParameter,
+                                         floatParameter, strParameter)
 from pint_torch.models.timing_model import DelayComponent
 from pint_torch.pulsar_ecliptic import OBL_IERS2010_RAD
 
@@ -42,6 +45,17 @@ def _rowsum(x):
 
 class Astrometry(DelayComponent):
     category = "astrometry"
+
+    def finish_config(self):
+        self._finish_epoch("has_posepoch", "POSEPOCH")
+
+    def _posepoch_from_pepoch(self, pm):
+        """POSEPOCH falls back to PEPOCH where a proper motion is set
+        (reference ``astrometry.py:212-217``)."""
+        if self.POSEPOCH.value is None and any(self._value(p) for p in pm):
+            pep = self._parent_param("PEPOCH")
+            if pep is not None and pep.value is not None:
+                self.POSEPOCH.value = pep.value
 
     def ssb_to_psb_xyz(self, pv, epoch_mjd):
         raise NotImplementedError
@@ -108,6 +122,27 @@ class AstrometryEquatorial(Astrometry):
 
     register = True
 
+    def declare(self):
+        self.add_param(AngleParameter("RAJ", angle_type="hms", aliases=["RA"],
+                                      description="Right ascension (J2000)"))
+        self.add_param(AngleParameter("DECJ", angle_type="dms",
+                                      aliases=["DEC"],
+                                      description="Declination (J2000)"))
+        self.add_param(floatParameter(
+            "PMRA", value=0.0, units="mas/yr",
+            description="Proper motion in RA (mu_alpha* = mu_alpha cos(dec))"))
+        self.add_param(floatParameter("PMDEC", value=0.0, units="mas/yr",
+                                      description="Proper motion in DEC"))
+        self.add_param(floatParameter("PX", value=0.0, units="mas",
+                                      description="Parallax"))
+        self.add_param(MJDParameter("POSEPOCH",
+                                    description="Epoch of position"))
+
+    def validate(self):
+        if self.RAJ.value is None or self.DECJ.value is None:
+            raise MissingParameter("AstrometryEquatorial", "RAJ/DECJ")
+        self._posepoch_from_pepoch(("PMRA", "PMDEC"))
+
     def coords_as_ICRS(self):
         """(RA, Dec) [rad] at POSEPOCH (reference ``astrometry.py:202``)."""
         t = self._parent.params_table
@@ -131,6 +166,31 @@ class AstrometryEcliptic(Astrometry):
     ``has_posepoch``."""
 
     register = True
+
+    def declare(self):
+        self.add_param(AngleParameter("ELONG", angle_type="deg",
+                                      aliases=["LAMBDA"],
+                                      description="Ecliptic longitude"))
+        self.add_param(AngleParameter("ELAT", angle_type="deg",
+                                      aliases=["BETA"],
+                                      description="Ecliptic latitude"))
+        self.add_param(floatParameter(
+            "PMELONG", value=0.0, units="mas/yr", aliases=["PMLAMBDA"],
+            description="PM in ecliptic longitude"))
+        self.add_param(floatParameter(
+            "PMELAT", value=0.0, units="mas/yr", aliases=["PMBETA"],
+            description="PM in ecliptic latitude"))
+        self.add_param(floatParameter("PX", value=0.0, units="mas",
+                                      description="Parallax"))
+        self.add_param(MJDParameter("POSEPOCH",
+                                    description="Epoch of position"))
+        self.add_param(strParameter("ECL", value="IERS2010",
+                                    description="Ecliptic convention"))
+
+    def validate(self):
+        if self.ELONG.value is None or self.ELAT.value is None:
+            raise MissingParameter("AstrometryEcliptic", "ELONG/ELAT")
+        self._posepoch_from_pepoch(("PMELONG", "PMELAT"))
 
     def coords_as_ICRS(self):
         """(RA, Dec) [rad] of the position rotated to equatorial, proper

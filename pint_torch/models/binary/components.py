@@ -34,6 +34,9 @@ from pint_torch.models.binary.engines import (BT, BTX, DD_PARAMS, DDGR,
                                               ddh_sini_m2, ddk_corrections,
                                               ecliptic_pm_to_equatorial,
                                               orbit_coefficients)
+from pint_torch.models.parameter import (MJDParameter, boolParameter,
+                                         floatParameter, intParameter,
+                                         prefixParameter)
 from pint_torch.models.timing_model import DelayComponent, stack_params
 from pint_torch.pulsar_ecliptic import OBL_IERS2010_RAD
 from pint_torch.utils import taylor_horner
@@ -52,9 +55,64 @@ class PulsarBinary(DelayComponent):
     category = "pulsar_system"
     epoch_param = "T0"
 
-    def _value(self, name):
-        p = self._parent.params_table.get(name)
-        return None if p is None else p.value
+    def declare(self):
+        f = floatParameter
+        self.add_param(f("PB", units="d", description="Orbital period"))
+        self.add_param(f("PBDOT", units="s/s", unit_scale=True,
+                         description="Orbital period derivative"))
+        self.add_param(f("XPBDOT", units="s/s", unit_scale=True,
+                         description="Excess PBDOT over GR"))
+        self.add_param(f("A1", units="ls",
+                         description="Projected semi-major axis"))
+        self.add_param(f("A1DOT", units="ls/s", aliases=["XDOT"],
+                         unit_scale=True, description="d(A1)/dt"))
+        self.add_param(MJDParameter("T0", description="Epoch of periastron"))
+        self.add_param(f("ECC", units="", aliases=["E"],
+                         description="Eccentricity"))
+        self.add_param(f("EDOT", units="1/s", unit_scale=True,
+                         description="Eccentricity derivative"))
+        self.add_param(f("OM", units="deg",
+                         description="Longitude of periastron"))
+        self.add_param(f("OMDOT", units="deg/yr",
+                         description="Periastron advance rate"))
+        self.add_param(f("M2", units="Msun", description="Companion mass"))
+        self.add_param(f("SINI", units="", description="Sine of inclination"))
+        self.add_param(f("GAMMA", units="s",
+                         description="Einstein-delay amplitude"))
+        self.add_param(prefixParameter("FB0", units="1/s", aliases=["FB"],
+                                       description="Orbital frequency"))
+        self.add_param(prefixParameter("ORBWAVEC0", units="",
+                                       aliases=["ORBWAVEC"],
+                                       description="ORBWAVE cosine amplitude"))
+        self.add_param(prefixParameter("ORBWAVES0", units="",
+                                       aliases=["ORBWAVES"],
+                                       description="ORBWAVE sine amplitude"))
+        self.add_param(f("ORBWAVE_OM", units="rad/s",
+                         description="Base ORBWAVE frequency"))
+        self.add_param(MJDParameter("ORBWAVE_EPOCH",
+                                    description="ORBWAVE reference epoch"))
+
+    def _set_indices(self, prefix: str) -> list:
+        n = len(prefix)
+        return sorted(int(p[n:]) for p in self.params
+                      if p.startswith(prefix) and p[n:].isdigit()
+                      and self._value(p) is not None)
+
+    def setup(self):
+        """``nfb``, the FBn count, and ``nwaves``, the ORBWAVE pairs'
+        (reference ``components.py:125-144``)."""
+        idxs = self._set_indices("FB")
+        self.config["nfb"] = (max(idxs) + 1) if idxs else 0
+        nc, ns = self._set_indices("ORBWAVEC"), self._set_indices("ORBWAVES")
+        if nc or ns:
+            if nc != list(range(len(nc))) or ns != list(range(len(ns))):
+                raise TimingModelError(
+                    f"ORBWAVE indices must be 0..k without gaps: {nc}/{ns}")
+            if len(nc) != len(ns):
+                raise TimingModelError(
+                    f"Equal numbers of ORBWAVEC/ORBWAVES required "
+                    f"({len(nc)} vs {len(ns)})")
+        self.config["nwaves"] = len(nc)
 
     def validate(self):
         """The reference's ``PulsarBinary.validate`` (``components.py:
@@ -211,6 +269,20 @@ class BinaryBT_piecewise(BinaryBT):
 
     register = True
 
+    def declare(self):
+        super().declare()
+        for name, units, desc in (
+                ("T0X_0001", "MJD", "Piecewise T0 override"),
+                ("A1X_0001", "ls", "Piecewise A1 override"),
+                ("XR1_0001", "MJD", "Piece start MJD"),
+                ("XR2_0001", "MJD", "Piece end MJD")):
+            self.add_param(prefixParameter(name, units=units,
+                                           description=desc))
+
+    def setup(self):
+        super().setup()
+        self.config["piece_indices"] = self._set_indices("T0X_")
+
     def validate(self):
         super().validate()
         for i in self.config.get("piece_indices", []):
@@ -248,6 +320,18 @@ class BinaryDD(PulsarBinary):
 
     register = True
 
+    def declare(self):
+        super().declare()
+        self.add_param(floatParameter("A0", units="s",
+                                      description="DD aberration A0"))
+        self.add_param(floatParameter("B0", units="s",
+                                      description="DD aberration B0"))
+        self.add_param(floatParameter(
+            "DR", units="", description="Relativistic deformation of the orbit"))
+        self.add_param(floatParameter(
+            "DTH", units="", aliases=["DTHETA"],
+            description="Relativistic deformation of the orbit"))
+
     def _row(self, pv, tt0):
         """The DD row's values by name; DDS and DDH reparameterize it."""
         return pv
@@ -263,6 +347,11 @@ class BinaryDDS(BinaryDD):
     K2's DD instantiation on the row with sini = 1 - exp(-SHAPMAX)."""
 
     register = True
+
+    def declare(self):
+        super().declare()
+        self.add_param(floatParameter("SHAPMAX", units="",
+                                      description="-log(1-SINI)"))
 
     def validate(self):
         super().validate()
@@ -280,6 +369,14 @@ class BinaryDDH(BinaryDD):
     2 stig / (1 + stig^2) and M2 = H3 / stig^3 / TSUN."""
 
     register = True
+
+    def declare(self):
+        super().declare()
+        self.add_param(floatParameter(
+            "H3", units="s", description="Orthometric Shapiro amplitude"))
+        self.add_param(floatParameter(
+            "STIGMA", units="", aliases=["VARSIGMA", "STIG"],
+            description="Orthometric Shapiro ratio"))
 
     def validate(self):
         super().validate()
@@ -299,10 +396,23 @@ class BinaryDDGR(BinaryDD):
 
     register = True
 
+    def declare(self):
+        super().declare()
+        self.add_param(floatParameter("MTOT", units="Msun",
+                                      description="Total system mass"))
+        self.add_param(floatParameter(
+            "XOMDOT", units="deg/yr",
+            description="Excess periastron advance over GR"))
+
     def validate(self):
         super().validate()
         if self._value("MTOT") is None or self._value("M2") is None:
             raise MissingParameter("BinaryDDGR", "MTOT/M2")
+        if self._value("PB") is None:
+            # the GR constraint equations are written in terms of PB
+            raise MissingParameter(
+                "BinaryDDGR", "PB",
+                "DDGR requires PB (FB parameterization unsupported)")
 
     def binary_delay(self, pv, tt0):
         return K2.dd_binary(tt0, stack_params(ddgr_row(pv, tt0), DDGR_PARAMS,
@@ -322,6 +432,16 @@ class BinaryDDK(BinaryDD):
     0.0."""
 
     register = True
+
+    def declare(self):
+        super().declare()
+        self.add_param(floatParameter("KIN", units="deg",
+                                      description="Orbital inclination"))
+        self.add_param(floatParameter(
+            "KOM", units="deg", description="Longitude of ascending node"))
+        self.add_param(boolParameter(
+            "K96", value=True,
+            description="Apply proper-motion (Kopeikin 1996) corrections"))
 
     def validate(self):
         super().validate()
@@ -366,6 +486,34 @@ class BinaryELL1(PulsarBinary):
     epoch_param = "TASC"
     mode = ELL1
 
+    def declare(self):
+        super().declare()
+        self.add_param(MJDParameter("TASC",
+                                    description="Epoch of ascending node"))
+        self.add_param(floatParameter(
+            "EPS1", units="", description="First Laplace-Lagrange parameter"))
+        self.add_param(floatParameter(
+            "EPS2", units="", description="Second Laplace-Lagrange parameter"))
+        self.add_param(floatParameter("EPS1DOT", units="1/s", unit_scale=True,
+                                      description="EPS1 derivative"))
+        self.add_param(floatParameter("EPS2DOT", units="1/s", unit_scale=True,
+                                      description="EPS2 derivative"))
+
+    def validate(self):
+        """TASC is T0 for a circular orbit given with T0; EPS1 and EPS2
+        default to 0 (reference ``components.py:610-625``)."""
+        if self.TASC.value is None:
+            if self.T0.value is not None and not (self._value("EPS1") or 0.0) \
+                    and not (self._value("EPS2") or 0.0) \
+                    and not (self._value("ECC") or 0.0):
+                self.TASC.value = self.T0.value
+            else:
+                raise MissingParameter(type(self).__name__, "TASC")
+        super().validate()
+        for p in ("EPS1", "EPS2"):
+            if self._value(p) is None:
+                getattr(self, p).value = 0.0
+
     def binary_delay(self, pv, tt0):
         return K4.ell1_binary(tt0, stack_params(pv, ELL1_PARAMS,
                                                 tt0.device), self.mode,
@@ -379,6 +527,12 @@ class BinaryELL1k(BinaryELL1):
     register = True
     mode = ELL1K
 
+    def declare(self):
+        super().declare()
+        self.add_param(floatParameter(
+            "LNEDOT", units="1/yr",
+            description="Relative eccentricity derivative"))
+
 
 class BinaryELL1H(BinaryELL1):
     """ELL1 with the orthometric Shapiro delay H3 with STIGMA, or H3 with
@@ -389,7 +543,20 @@ class BinaryELL1H(BinaryELL1):
 
     register = True
 
+    def declare(self):
+        super().declare()
+        self.add_param(floatParameter(
+            "H3", units="s", description="Orthometric Shapiro amplitude"))
+        self.add_param(floatParameter("H4", units="s",
+                                      description="Fourth Shapiro harmonic"))
+        self.add_param(floatParameter(
+            "STIGMA", units="", aliases=["VARSIGMA", "STIG"],
+            description="Orthometric Shapiro ratio"))
+        self.add_param(intParameter("NHARMS", value=7,
+                                    description="Number of Shapiro harmonics"))
+
     def validate(self):
+        super().validate()
         if self._value("H3") is None:
             raise ValueError("BinaryELL1H: H3 is required")
         if self._value("H4") is not None \

@@ -10,8 +10,13 @@ import math
 
 import torch
 
-from pint_torch.models.dispersion_model import DMconst
-from pint_torch.models.timing_model import DelayComponent, stack_params
+from pint_torch.exceptions import MissingParameter
+from pint_torch.models.dispersion_model import DMconst, _check_ranges
+from pint_torch.models.parameter import (MJDParameter, floatParameter,
+                                         prefixParameter)
+from pint_torch.models.timing_model import (DelayComponent,
+                                            check_contiguous_indices,
+                                            stack_params)
 
 __all__ = ["ChromaticCM", "ChromaticCMX", "chromatic_scale"]
 
@@ -39,6 +44,38 @@ class ChromaticCM(Chromatic):
     ``has_cmepoch``."""
 
     register = True
+
+    def declare(self):
+        p = prefixParameter("CM0", units="pc/cm3", value=0.0,
+                            description="Chromatic measure")
+        p.name, p.prefix, p.index = "CM", "CM", 0
+        self.add_param(p)
+        self.add_param(prefixParameter(
+            "CM1", units="pc/cm3/yr", value=0.0,
+            description="Chromatic measure derivative"))
+        self.add_param(floatParameter("TNCHROMIDX", units="", value=4.0,
+                                      description="Chromatic index alpha"))
+        self.add_param(MJDParameter("CMEPOCH",
+                                    description="Epoch of CM measurement"))
+
+    def setup(self):
+        idxs = [0] + sorted(int(n[2:]) for n in self.params
+                            if n.startswith("CM") and n[2:].isdigit())
+        check_contiguous_indices(idxs, "ChromaticCM", "CM")
+        self.config["num_cm_terms"] = len(idxs)
+
+    def finish_config(self):
+        self._finish_epoch("has_cmepoch", "CMEPOCH")
+
+    def validate(self):
+        higher = any(self._value(f"CM{i}")
+                     for i in range(1, self.config["num_cm_terms"]))
+        if higher and self.CMEPOCH.value is None:
+            pep = self._parent_param("PEPOCH")
+            if pep is not None and pep.value is not None:
+                self.CMEPOCH.value = pep.value
+            else:
+                raise MissingParameter("ChromaticCM", "CMEPOCH")
 
     def base_cm(self, pv, batch):
         n = int(self.config.get("num_cm_terms", 1))
@@ -68,6 +105,22 @@ class ChromaticCMX(Chromatic):
 
     register = True
     category = "chromatic_cmx"
+
+    def declare(self):
+        self.add_param(prefixParameter("CMX_0001", units="pc/cm3", value=0.0,
+                                       description="CM offset in range"))
+        self.add_param(prefixParameter("CMXR1_0001", units="MJD",
+                                       description="Range start MJD"))
+        self.add_param(prefixParameter("CMXR2_0001", units="MJD",
+                                       description="Range end MJD"))
+
+    def setup(self):
+        self.config["cmx_indices"] = sorted(
+            int(n[4:]) for n in self.params if n.startswith("CMX_"))
+
+    def validate(self):
+        _check_ranges(self, "ChromaticCMX", self.config["cmx_indices"],
+                      ("CMXR1_", "CMXR2_"))
 
     def host_context(self, toas):
         return {"masks": self._range_masks(toas, self.config["cmx_indices"],

@@ -15,7 +15,12 @@ import math
 
 import torch
 
-from pint_torch.models.timing_model import DelayComponent, stack_params
+from pint_torch.exceptions import MissingParameter
+from pint_torch.models.parameter import (MJDParameter, floatParameter,
+                                         maskParameter, prefixParameter)
+from pint_torch.models.timing_model import (DelayComponent,
+                                            check_contiguous_indices,
+                                            stack_params)
 
 __all__ = ["DispersionDM", "DispersionDMX", "DispersionJump", "FDJumpDM",
            "DMconst"]
@@ -23,6 +28,15 @@ __all__ = ["DispersionDM", "DispersionDMX", "DispersionJump", "FDJumpDM",
 #: dispersion constant [s MHz^2 cm^3 / pc]
 DMconst = 1.0 / 2.41e-4
 _DAY_PER_YEAR = 365.25
+
+
+def _check_ranges(comp, name, indices, prefixes) -> None:
+    """Each window ``i`` has its ``<prefix>_<i:04d>`` bounds set (the
+    reference's DMX/CMX/SWX ``validate``)."""
+    for i in indices:
+        for pre in prefixes:
+            if comp._value(f"{pre}{i:04d}") is None:
+                raise MissingParameter(name, f"{pre}{i:04d}")
 
 
 class Dispersion(DelayComponent):
@@ -36,6 +50,38 @@ class DispersionDM(Dispersion):
     """Config: ``num_dm_terms``, ``has_dmepoch``."""
 
     register = True
+
+    def declare(self):
+        dm0 = prefixParameter("DM0", units="pc/cm3",
+                              description="Dispersion measure")
+        # DM is the canonical name for index 0
+        dm0.name, dm0.prefix, dm0.index = "DM", "DM", 0
+        self.add_param(dm0)
+        self.add_param(prefixParameter("DM1", units="pc/cm3/yr", value=0.0,
+                                       description="DM derivative"))
+        self.add_param(MJDParameter("DMEPOCH",
+                                    description="Epoch of DM measurement"))
+
+    def setup(self):
+        idxs = [0] + sorted(int(n[2:]) for n in self.params
+                            if n.startswith("DM") and n[2:].isdigit())
+        check_contiguous_indices(idxs, "DispersionDM", "DM")
+        self.config["num_dm_terms"] = len(idxs)
+
+    def finish_config(self):
+        self._finish_epoch("has_dmepoch", "DMEPOCH")
+
+    def validate(self):
+        if self.DM.value is None:
+            raise MissingParameter("DispersionDM", "DM")
+        higher = any(self._value(f"DM{i}")
+                     for i in range(1, self.config["num_dm_terms"]))
+        if higher and self.DMEPOCH.value is None:
+            pep = self._parent_param("PEPOCH")
+            if pep is not None and pep.value is not None:
+                self.DMEPOCH.value = pep.value
+            else:
+                raise MissingParameter("DispersionDM", "DMEPOCH")
 
     def base_dm(self, pv, batch):
         n = int(self.config["num_dm_terms"])
@@ -67,6 +113,25 @@ class DispersionDMX(Dispersion):
     register = True
     category = "dispersion_dmx"
 
+    def declare(self):
+        # bare DMX: the nominal bin width [d] (informational)
+        self.add_param(floatParameter("DMX", units="d", frozen=True,
+                                      description="Nominal DMX bin width"))
+        self.add_param(prefixParameter("DMX_0001", units="pc/cm3", value=0.0,
+                                       description="DM offset in range"))
+        self.add_param(prefixParameter("DMXR1_0001", units="MJD",
+                                       description="Range start MJD"))
+        self.add_param(prefixParameter("DMXR2_0001", units="MJD",
+                                       description="Range end MJD"))
+
+    def setup(self):
+        self.config["dmx_indices"] = sorted(
+            int(n[4:]) for n in self.params if n.startswith("DMX_"))
+
+    def validate(self):
+        _check_ranges(self, "DispersionDMX", self.config["dmx_indices"],
+                      ("DMXR1_", "DMXR2_"))
+
     def host_context(self, toas):
         return {"masks": self._range_masks(toas, self.config["dmx_indices"],
                                            "DMXR1_", "DMXR2_")}
@@ -95,6 +160,15 @@ class DispersionJump(Dispersion):
     register = True
     category = "dispersion_jump"
 
+    def declare(self):
+        self.add_param(maskParameter(
+            "DMJUMP", index=1, units="pc/cm3", value=0.0,
+            description="DM offset for selected TOAs"))
+
+    def setup(self):
+        self.config["dm_jumps"] = [p for p in self.params
+                                   if p.startswith("DMJUMP")]
+
     def host_context(self, toas):
         return {"masks": self._select_masks(toas,
                                             self.config.get("dm_jumps", []))}
@@ -119,6 +193,15 @@ class FDJumpDM(Dispersion):
 
     register = True
     category = "fdjumpdm"
+
+    def declare(self):
+        self.add_param(maskParameter(
+            "FDJUMPDM", index=1, units="pc/cm3", value=0.0,
+            description="System-dependent DM offset"))
+
+    def setup(self):
+        self.config["fdjump_dms"] = [p for p in self.params
+                                     if p.startswith("FDJUMPDM")]
 
     def host_context(self, toas):
         return {"masks": self._select_masks(

@@ -10,9 +10,13 @@ import re
 import torch
 
 from pint_torch.models.binary.engines import _ipow
+from pint_torch.models.parameter import boolParameter, maskParameter
 from pint_torch.models.timing_model import DelayComponent
 
 __all__ = ["FDJump"]
+
+#: the highest FD polynomial index an FDJUMP may carry
+fdjump_max_index = 20
 
 _FDJ_RE = re.compile(r"^FD(\d+)JUMP(\d+)")
 
@@ -24,6 +28,21 @@ class FDJump(DelayComponent):
 
     register = True
     category = "fdjump"
+
+    def declare(self):
+        self.add_param(boolParameter(
+            "FDJUMPLOG", value=True,
+            description="Use log-frequency (Y) or linear frequency (N) for "
+            "FDJUMPs"))
+        # exemplars carry value=None so unset indices select no TOAs
+        for j in range(1, fdjump_max_index + 1):
+            self.add_param(maskParameter(
+                f"FD{j}JUMP", index=1, units="s",
+                description=f"System-dependent FD delay of polynomial index "
+                f"{j}"))
+
+    def setup(self):
+        self.config["fdjumps"] = [p for p in self.params if _FDJ_RE.match(p)]
 
     def host_context(self, toas):
         """Masks of the FD jumps with a selector or a non-zero value (the

@@ -6,7 +6,9 @@ from __future__ import annotations
 
 import torch
 
-from pint_torch.models.timing_model import DelayComponent
+from pint_torch.models.parameter import prefixParameter
+from pint_torch.models.timing_model import (DelayComponent,
+                                            check_contiguous_indices)
 
 __all__ = ["FD"]
 
@@ -16,6 +18,18 @@ class FD(DelayComponent):
 
     register = True
     category = "frequency_dependent"
+
+    def declare(self):
+        self.add_param(prefixParameter(
+            "FD1", units="s", value=0.0,
+            description="Log-frequency polynomial delay coefficient"))
+
+    def setup(self):
+        terms = sorted(int(p[2:]) for p in self.params
+                       if p.startswith("FD") and p[2:].isdigit())
+        self.config["num_FD_terms"] = len(terms)
+        if terms:
+            check_contiguous_indices(terms, "FD", "FD", start=1)
 
     def delay_func(self, pv, batch, ctx, acc_delay):
         freq = self.barycentric_freq(pv, batch)

@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pint_torch.exceptions import MissingParameter
+from pint_torch.models.parameter import intParameter, pairParameter
 from pint_torch.models.timing_model import PhaseComponent
 from pint_torch.phase import Phase
 
@@ -43,6 +45,24 @@ class IFunc(PhaseComponent):
 
     register = True
     category = "ifunc"
+
+    def declare(self):
+        self.add_param(intParameter("SIFUNC", continuous=False,
+                                    description="Type of interpolation"))
+        self.add_param(pairParameter(
+            "IFUNC1", units="s", continuous=False,
+            description="(MJD, offset) interpolation point"))
+
+    def finish_config(self):
+        self.config["sifunc"] = int(self._value("SIFUNC"))
+
+    def validate(self):
+        if self.SIFUNC.value is None:
+            raise MissingParameter("IFunc", "SIFUNC")
+        if int(self.SIFUNC.value) not in (0, 2):
+            raise MissingParameter(
+                "IFunc", "SIFUNC",
+                f"Interpolation type {self.SIFUNC.value} not supported")
 
     def host_context(self, toas):
         """The IFUNCk points sorted by MJD (reference ``ifunc.py:46-59``)."""

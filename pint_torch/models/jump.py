@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from pint_torch.models.parameter import maskParameter
 from pint_torch.models.timing_model import DelayComponent, PhaseComponent
 from pint_torch.phase import Phase
 
@@ -17,6 +18,15 @@ class PhaseJump(PhaseComponent):
 
     register = True
     category = "phase_jump"
+
+    def declare(self):
+        self.add_param(maskParameter(
+            "JUMP", index=1, units="s", value=0.0,
+            description="Phase jump (seconds) for selected TOAs"))
+
+    def setup(self):
+        self.config["jumps"] = [p for p in self.params
+                                if p.startswith("JUMP")]
 
     def host_context(self, toas):
         return {"masks": self._select_masks(toas, self.config["jumps"])}
@@ -37,6 +47,12 @@ class DelayJump(DelayComponent):
 
     register = True
     category = "jump_delay"
+
+    def declare(self):
+        self.add_param(maskParameter("JUMP", index=1, units="s", value=0.0,
+                                     description="Delay jump (seconds)"))
+
+    setup = PhaseJump.setup
 
     def host_context(self, toas):
         return {"masks": self._select_masks(toas,

@@ -18,6 +18,9 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from pint_torch.logging import log
+from pint_torch.models.parameter import (floatParameter, intParameter,
+                                         maskParameter)
 from pint_torch.models.timing_model import NoiseComponent
 
 __all__ = ["ScaleToaError", "ScaleDmError", "EcorrNoise", "PLRedNoise", "PLDMNoise",
@@ -110,12 +113,72 @@ def _masked(comp, prefix: str, batch=None):
             for n in names if model.params_table[n].value is not None]
 
 
+def _masks_of(comp, prefix: str) -> List[str]:
+    """The component's ``PREFIX<n>`` parameter names in index order."""
+    return sorted((p for p in comp.params
+                   if p.startswith(prefix) and p[len(prefix):].isdigit()),
+                  key=lambda p: int(p[len(prefix):]))
+
+
+def _check_unique_selections(comp, prefix: str) -> None:
+    """ValueError where two set ``PREFIX<n>`` masks select alike (the
+    reference's EFAC/EQUAD/ECORR ``validate``)."""
+    seen = []
+    for p in _masks_of(comp, prefix):
+        par = getattr(comp, p)
+        if par.value is None:
+            continue
+        kv = (par.key, tuple(par.key_value))
+        if kv in seen:
+            raise ValueError(f"Duplicate {prefix} selection {kv}")
+        seen.append(kv)
+
+
 class ScaleToaError(NoiseComponent):
     """sigma' = EFAC * sqrt(sigma^2 + EQUAD^2) per mask selection.
     Context: ``masks`` {parameter name: (N,) bool numpy}."""
 
     register = True
     category = "scale_toa_error"
+
+    def declare(self):
+        self.add_param(maskParameter(
+            "EFAC", index=1, units="", aliases=["T2EFAC", "TNEF"],
+            description="Multiplier on TOA uncertainties"))
+        self.add_param(maskParameter(
+            "EQUAD", index=1, units="us", aliases=["T2EQUAD"],
+            description="Error added in quadrature (us)"))
+        self.add_param(maskParameter(
+            "TNEQ", index=1, units="log10(s)",
+            description="Quadrature error, log10(seconds)"))
+
+    def setup(self):
+        # each TNEQ becomes an EQUAD unless an EQUAD already selects the
+        # same TOAs (reference ``noise_model.py:180-212``)
+        pd = self._params_dict
+        for tneq in _masks_of(self, "TNEQ"):
+            tp = pd[tneq]
+            if tp.value is None or tp.key is None:
+                continue
+            equad_sels = {(pd[e].key, tuple(pd[e].key_value))
+                          for e in _masks_of(self, "EQUAD")
+                          if pd[e].value is not None}
+            if (tp.key, tuple(tp.key_value)) in equad_sels:
+                log.warning(f"{tneq} {tp.key} {tp.key_value} is provided by "
+                            "an EQUAD; using EQUAD")
+                continue
+            idx = tp.index
+            while f"EQUAD{idx}" in pd and pd[f"EQUAD{idx}"].value is not None:
+                idx += 1
+            if f"EQUAD{idx}" not in pd:
+                self.add_param(maskParameter("EQUAD", index=idx, units="us"))
+            ep = pd[f"EQUAD{idx}"]
+            ep.value = 10.0 ** tp.value * 1e6  # s -> us
+            ep.key, ep.key_value = tp.key, list(tp.key_value)
+
+    def validate(self):
+        for prefix in ("EFAC", "EQUAD"):
+            _check_unique_selections(self, prefix)
 
     def scale_toa_sigma(self, model, batch, sigma_s: np.ndarray) -> np.ndarray:
         out = np.array(sigma_s, dtype=np.float64, copy=True)
@@ -135,6 +198,14 @@ class ScaleDmError(NoiseComponent):
     register = True
     category = "scale_dm_error"
 
+    def declare(self):
+        self.add_param(maskParameter(
+            "DMEFAC", index=1, units="",
+            description="Multiplier on DM uncertainties"))
+        self.add_param(maskParameter(
+            "DMEQUAD", index=1, units="pc/cm3",
+            description="DM error added in quadrature"))
+
     def scale_dm_sigma(self, model, batch, sigma_dm: np.ndarray) -> np.ndarray:
         out = np.array(sigma_dm, dtype=np.float64, copy=True)
         for _, v, m in _masked(self, "DMEQUAD", batch):
@@ -152,6 +223,14 @@ class EcorrNoise(NoiseComponent):
     category = "ecorr_noise"
     introduces_correlated_errors = True
     is_ecorr = True
+
+    def declare(self):
+        self.add_param(maskParameter(
+            "ECORR", index=1, units="us", aliases=["TNECORR"],
+            description="Epoch-correlated error (us)"))
+
+    def validate(self):
+        _check_unique_selections(self, "ECORR")
 
     def basis_weight_pair(self, model, batch) -> Tuple[np.ndarray, np.ndarray]:
         t = _tdb_seconds(batch)
@@ -172,6 +251,23 @@ class EcorrNoise(NoiseComponent):
         return U, w
 
 
+#: the reference frequency of the chromatic noise bases [MHz]
+_FREF_MHZ = 1400.0
+
+
+def _bary_freq_mhz(model, toas) -> np.ndarray:
+    """The TOAs' barycentric radio frequency [MHz] on the host, from the
+    model's astrometry at its current values (reference
+    ``noise_model.py:129``): the topocentric one without astrometry."""
+    freq = np.asarray(toas.get_freqs(), dtype=np.float64)
+    astro = next((c for c in model.components.values()
+                  if hasattr(c, "barycentric_radio_freq")), None)
+    if astro is None or toas.ssb_obs_vel_kms is None:
+        return freq
+    batch = toas.to_batch(device="cpu")
+    return astro.barycentric_radio_freq(model.const_pv(), batch).numpy()
+
+
 class _PLNoise(NoiseComponent):
     """A power-law Fourier process: sin/cos basis over the data span (or
     ``tspan_s``), power-law weights.  Config: ``amp``, ``gam``,
@@ -185,6 +281,60 @@ class _PLNoise(NoiseComponent):
     introduces_correlated_errors = True
     #: (log10 amplitude, spectral index) parameters
     _plc = ("", "")
+    #: the parameter prefix (``TNRED``), its description's name and the
+    #: default number of linear modes (reference ``noise_model.py:370``)
+    _tn = ("", "", 30)
+    #: whether the process has a TSPAN override parameter
+    _has_tspan = True
+
+    def declare(self):
+        pre, what, _ = self._tn
+        self.add_param(floatParameter(f"{pre}AMP", units="",
+                                      description=f"log10 {what} amplitude"))
+        self.add_param(floatParameter(f"{pre}GAM", units="",
+                                      description=f"{what} spectral index"))
+        self.add_param(intParameter(f"{pre}C",
+                                    description=f"Number of {what} modes"))
+        self.add_param(intParameter(
+            f"{pre}FLOG", description="Number of log-spaced modes"))
+        self.add_param(floatParameter(f"{pre}FLOG_FACTOR", units="",
+                                      description="Log-spacing factor"))
+        if self._has_tspan:
+            self.add_param(floatParameter(
+                f"{pre}TSPAN", units="year",
+                description="Fundamental-period override"))
+
+    def _plc_vals(self):
+        """(amplitude, index, linear modes, log modes, lowest frequency
+        ratio) of the parameters (reference ``get_plc_vals``)."""
+        pre, _, default_c = self._tn
+        n_lin = int(self._value(f"{pre}C") or default_c)
+        nlog = self._value(f"{pre}FLOG")
+        n_log = int(nlog) if nlog is not None else None
+        fac = self._value(f"{pre}FLOG_FACTOR") or 2.0
+        amp = 10.0 ** self._value(f"{pre}AMP")
+        fmr = 1.0 / fac**n_log if n_log is not None else 1.0
+        return amp, self._value(f"{pre}GAM"), n_lin, n_log, fmr
+
+    def finish_config(self):
+        amp, gam, n_lin, n_log, fmr = self._plc_vals()
+        ts = self._value(f"{self._tn[0]}TSPAN") if self._has_tspan else None
+        self.config.update(
+            amp=float(amp), gam=float(gam), n_lin=int(n_lin), n_log=n_log,
+            f_min_ratio=float(fmr),
+            tspan_s=None if ts is None else float(ts) * 365.25 * 86400)
+
+    def basis_scale(self, toas) -> Optional[np.ndarray]:
+        """The per-TOA multiplier of the Fourier basis for host TOAs (the
+        reference's ``_chromatic_scale``); None: achromatic."""
+        return None
+
+    def host_context(self, toas) -> dict:
+        ctx = super().host_context(toas)
+        scale = self.basis_scale(toas)
+        if scale is not None:
+            ctx["scale"] = np.asarray(scale, dtype=np.float64)
+        return ctx
 
     def amp_gam(self):
         """(amplitude, spectral index) at the table's current values
@@ -223,8 +373,29 @@ class PLRedNoise(_PLNoise):
     register = True
     category = "pl_red_noise"
     _plc = ("TNREDAMP", "TNREDGAM")
+    _tn = ("TNRED", "red-noise", 30)
     #: tempo1 RNAMP -> GW-convention amplitude divisor
     RN_FAC = (86400.0 * 365.24 * 1e6) / (2.0 * np.pi * np.sqrt(3.0))
+
+    def declare(self):
+        self.add_param(floatParameter(
+            "RNAMP", units="",
+            description="Red-noise amplitude (tempo1 convention)"))
+        self.add_param(floatParameter(
+            "RNIDX", units="", description="Red-noise spectral index (tempo1)"))
+        super().declare()
+
+    def _plc_vals(self):
+        if self._value("TNREDAMP") is None and self._value("RNAMP") is not None:
+            # tempo1 RNAMP -> GW-convention amplitude
+            n_lin = int(self._value("TNREDC") or 30)
+            nlog = self._value("TNREDFLOG")
+            n_log = int(nlog) if nlog is not None else None
+            facl = self._value("TNREDFLOG_FACTOR") or 2.0
+            fmr = 1.0 / facl**n_log if n_log is not None else 1.0
+            return (self._value("RNAMP") / self.RN_FAC,
+                    -1.0 * self._value("RNIDX"), n_lin, n_log, fmr)
+        return super()._plc_vals()
 
     def amp_gam(self):
         table = self._parent.params_table
@@ -242,6 +413,10 @@ class PLDMNoise(_PLNoise):
     register = True
     category = "pl_DM_noise"
     _plc = ("TNDMAMP", "TNDMGAM")
+    _tn = ("TNDM", "DM-noise", 30)
+
+    def basis_scale(self, toas):
+        return (_FREF_MHZ / _bary_freq_mhz(self._parent, toas)) ** 2
 
 
 class PLChromNoise(_PLNoise):
@@ -251,6 +426,11 @@ class PLChromNoise(_PLNoise):
     register = True
     category = "pl_chrom_noise"
     _plc = ("TNCHROMAMP", "TNCHROMGAM")
+    _tn = ("TNCHROM", "chromatic-noise", 30)
+
+    def basis_scale(self, toas):
+        alpha = float(self._value("TNCHROMIDX") or 4.0)
+        return (_FREF_MHZ / _bary_freq_mhz(self._parent, toas)) ** alpha
 
 
 class PLSWNoise(_PLNoise):
@@ -261,3 +441,19 @@ class PLSWNoise(_PLNoise):
     register = True
     category = "pl_sw_noise"
     _plc = ("TNSWAMP", "TNSWGAM")
+    _tn = ("TNSW", "solar-wind-noise", 100)
+    _has_tspan = False
+
+    def basis_scale(self, toas):
+        """The solar wind's DM geometry at 1 cm^-3 (its SWM and SWP) times
+        DMconst / f_bary^2."""
+        from pint_torch.models.dispersion_model import DMconst
+
+        sw = self._parent.components.get("SolarWindDispersion")
+        if sw is None:
+            raise ValueError(
+                "PLSWNoise requires a SolarWindDispersion component")
+        geometry = sw.geometry(self._parent.const_pv(),
+                               toas.to_batch(device="cpu")).numpy()
+        freq = _bary_freq_mhz(self._parent, toas)
+        return np.reshape(geometry, np.shape(freq)) * DMconst / freq**2

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from pint_torch.models.parameter import floatParameter
 from pint_torch.models.timing_model import PhaseComponent
 from pint_torch.phase import Phase
 
@@ -23,6 +24,10 @@ class PhaseOffset(PhaseComponent):
 
     register = True
     category = "phase_offset"
+
+    def declare(self):
+        self.add_param(floatParameter("PHOFF", value=0.0, units="",
+                                      description="Overall phase offset"))
 
     def host_context(self, toas):
         # the host TZR TOA carries a "tzr" flag (make_single_toa)

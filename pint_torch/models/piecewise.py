@@ -7,6 +7,9 @@ from __future__ import annotations
 
 import torch
 
+from pint_torch.exceptions import MissingParameter
+from pint_torch.models.glitch import _grow_indexed
+from pint_torch.models.parameter import prefixParameter
 from pint_torch.models.timing_model import PhaseComponent
 from pint_torch.phase import Phase
 
@@ -20,6 +23,33 @@ class PiecewiseSpindown(PhaseComponent):
 
     register = True
     category = "piecewise_spindown"
+
+    def declare(self):
+        # value=None exemplars: ranges may start at index 2 or later
+        for name, units, desc in [
+            ("PWEP_1", "MJD", "Piecewise solution reference epoch"),
+            ("PWSTART_1", "MJD", "Piecewise solution range start"),
+            ("PWSTOP_1", "MJD", "Piecewise solution range stop"),
+            ("PWPH_1", "pulse phase", "Piecewise solution phase offset"),
+            ("PWF0_1", "Hz", "Piecewise solution frequency offset"),
+            ("PWF1_1", "Hz/s",
+             "Piecewise solution frequency-derivative offset"),
+            ("PWF2_1", "Hz/s^2",
+             "Piecewise solution second-derivative offset"),
+        ]:
+            self.add_param(prefixParameter(name, units=units,
+                                           description=desc))
+
+    def setup(self):
+        self.config["pw_indices"] = _grow_indexed(
+            self, ("PWEP_", "PWSTART_", "PWSTOP_", "PWPH_", "PWF0_", "PWF1_",
+                   "PWF2_"))
+
+    def validate(self):
+        for i in self.config["pw_indices"]:
+            for pre in ("PWEP_", "PWSTART_", "PWSTOP_"):
+                if (self._value(f"{pre}{i}") or 0.0) == 0.0:
+                    raise MissingParameter("PiecewiseSpindown", f"{pre}{i}")
 
     def phase_func(self, pv, batch, ctx, delay):
         t_s = batch.tdb_seconds()

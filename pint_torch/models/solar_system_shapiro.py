@@ -34,6 +34,9 @@ class SolarSystemShapiro(DelayComponent):
     register = True
     category = "solar_system_shapiro"
 
+    def finish_config(self):
+        self.config["planet_shapiro"] = bool(self._value("PLANET_SHAPIRO"))
+
     @staticmethod
     def ss_obj_shapiro_delay(obj_pos_ls, psr_dir, T_obj):
         r = torch.sqrt(_rowsum(obj_pos_ls * obj_pos_ls))

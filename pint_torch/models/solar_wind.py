@@ -22,7 +22,13 @@ from pint_torch.kernels.solar_wind_pl import (AU_LS, PC_LS, solar_wind_pl,
                                               sw_i_inf)
 from pint_torch.models.astrometry import _rowsum
 from pint_torch.models.dispersion_model import DMconst
-from pint_torch.models.timing_model import DelayComponent, stack_params
+from pint_torch.exceptions import MissingParameter
+from pint_torch.models.dispersion_model import _check_ranges
+from pint_torch.models.parameter import (MJDParameter, floatParameter,
+                                         prefixParameter)
+from pint_torch.models.timing_model import (DelayComponent,
+                                            check_contiguous_indices,
+                                            stack_params)
 
 __all__ = ["SolarWindDispersion", "SolarWindDispersionX"]
 
@@ -57,6 +63,41 @@ class SolarWindDispersion(_SolarWind):
 
     register = True
     category = "solar_wind"
+
+    def declare(self):
+        p = prefixParameter("NE_SW0", units="cm^-3", value=0.0,
+                            description="Solar wind electron density at 1 AU",
+                            aliases=["NE1AU", "SOLARN0"])
+        p.name, p.prefix, p.index = "NE_SW", "NE_SW", 0
+        self.add_param(p)
+        self.add_param(prefixParameter("NE_SW1", units="cm^-3/yr", value=0.0,
+                                       description="NE_SW derivative"))
+        self.add_param(MJDParameter("SWEPOCH", description="Epoch of NE_SW"))
+        self.add_param(floatParameter(
+            "SWM", units="", value=0.0, continuous=False,
+            description="Solar wind model (0 spherical, 1 power-law)"))
+        self.add_param(floatParameter(
+            "SWP", units="", value=2.0,
+            description="Solar wind power-law index (SWM=1)"))
+
+    def setup(self):
+        idxs = [0] + sorted(int(n[5:]) for n in self.params
+                            if n.startswith("NE_SW") and n[5:].isdigit())
+        check_contiguous_indices(idxs, "SolarWindDispersion", "NE_SW")
+        self.config["num_ne_sw_terms"] = len(idxs)
+
+    def finish_config(self):
+        self.config["swm"] = int(self._value("SWM") or 0)
+        self._finish_epoch("has_swepoch", "SWEPOCH")
+
+    def validate(self):
+        if int(self.SWM.value or 0) not in (0, 1):
+            raise MissingParameter("SolarWindDispersion", "SWM",
+                                   f"SWM={self.SWM.value} not implemented")
+        higher = any(self._value(f"NE_SW{i}")
+                     for i in range(1, self.config["num_ne_sw_terms"]))
+        if higher and self.SWEPOCH.value is None:
+            raise MissingParameter("SolarWindDispersion", "SWEPOCH")
 
     def ne_sw(self, pv, batch):
         n = int(self.config.get("num_ne_sw_terms", 1))
@@ -101,6 +142,31 @@ class SolarWindDispersionX(_SolarWind):
 
     register = True
     category = "solar_windx"
+
+    def declare(self):
+        self.add_param(prefixParameter(
+            "SWXDM_0001", units="pc/cm3", value=0.0,
+            description="Max solar-wind DM in range"))
+        self.add_param(prefixParameter(
+            "SWXP_0001", units="", value=2.0,
+            description="Radial power-law index in range"))
+        self.add_param(prefixParameter("SWXR1_0001", units="MJD",
+                                       description="Range start MJD"))
+        self.add_param(prefixParameter("SWXR2_0001", units="MJD",
+                                       description="Range end MJD"))
+
+    def setup(self):
+        idx = sorted(int(n[6:]) for n in self.params
+                     if n.startswith("SWXDM_"))
+        self.config["swx_indices"] = idx
+        for i in idx:
+            if f"SWXP_{i:04d}" not in self._params_dict:
+                self.add_param(self._params_dict["SWXP_0001"].new_param(
+                    i, value=2.0))
+
+    def validate(self):
+        _check_ranges(self, "SolarWindDispersionX",
+                      self.config["swx_indices"], ("SWXR1_", "SWXR2_"))
 
     def host_context(self, toas):
         return {"masks": self._range_masks(toas, self.config["swx_indices"],

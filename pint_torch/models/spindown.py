@@ -12,7 +12,9 @@ from __future__ import annotations
 import torch
 
 from pint_torch import F64
+from pint_torch.exceptions import MissingParameter
 from pint_torch.kernels.spin_phase import spin_phase
+from pint_torch.models.parameter import MJDParameter, prefixParameter
 from pint_torch.models.timing_model import PhaseComponent, stack_params
 from pint_torch.phase import Phase
 
@@ -24,6 +26,30 @@ class Spindown(PhaseComponent):
 
     register = True
     category = "spindown"
+
+    def declare(self):
+        self.add_param(prefixParameter("F0", units="Hz",
+                                       description="Spin frequency"))
+        self.add_param(prefixParameter(
+            "F1", units="Hz/s", description="Spin frequency derivative"))
+        self.add_param(MJDParameter("PEPOCH",
+                                    description="Epoch of spin parameters"))
+
+    def setup(self):
+        idxs = sorted(int(name[1:]) for name in self.params
+                      if name.startswith("F") and name[1:].isdigit())
+        self.config["num_spin_terms"] = len(idxs)
+        if idxs != list(range(len(idxs))):
+            missing = min(set(range(max(idxs) + 1)) - set(idxs))
+            raise MissingParameter("Spindown", f"F{missing}",
+                                   "Spin terms F0..Fn must be contiguous")
+
+    def finish_config(self):
+        self._finish_epoch("has_pepoch", "PEPOCH")
+
+    def validate(self):
+        if self.F0.value is None:
+            raise MissingParameter("Spindown", "F0")
 
     def phase_func(self, pv, batch, ctx, delay) -> Phase:
         S = int(self.config["num_spin_terms"])

@@ -30,7 +30,8 @@ from torch.func import jacfwd
 
 from pint_torch import F64
 from pint_torch.dd import DD
-from pint_torch.exceptions import MissingComponent, UnknownParameter
+from pint_torch.exceptions import (MissingComponent, MissingParameter,
+                                   UnknownParameter)
 from pint_torch.phase import Phase
 
 __all__ = ["Param", "Component", "DelayComponent", "PhaseComponent",
@@ -90,6 +91,13 @@ class Param:
     key_value: List[str] = field(default_factory=list)
     #: the prior for Bayesian inference; None until read or set
     _prior: object = field(default=None, repr=False, compare=False)
+    #: the par-file aliases (``RA`` for ``RAJ``) and the class of the
+    #: reference parameter it was read as (``"prefixParameter"``), where
+    #: the model was built from par text
+    aliases: List[str] = field(default_factory=list)
+    ptype: str = ""
+    #: an indexed family's prefix (``DMX_`` of DMX_0003), or None
+    prefix: Optional[str] = None
 
     @property
     def prior(self):
@@ -133,6 +141,124 @@ class Component:
         self.params: List[str] = []
         self._parent: Optional["TimingModel"] = None
 
+    # -- building from par text (reference ``timing_model.py:107-257``) ---
+    @classmethod
+    def template(cls) -> "Component":
+        """A valueless instance holding every parameter it declares (the
+        reference's ``cls()``): what the model builder reads a par file
+        into and :class:`AllComponents` searches."""
+        c = cls()
+        c.__dict__["_params_dict"] = {}
+        c.declare()
+        return c
+
+    def declare(self) -> None:
+        """Add the component's parameters, unset, as
+        :mod:`pint_torch.models.parameter` objects (the reference
+        component's ``__init__``)."""
+
+    def setup(self) -> None:
+        """Grow and check the parameter families read from the par file
+        and record the structure in ``config`` (the reference's
+        ``setup``)."""
+
+    def validate(self) -> None:
+        """Raise where a required parameter is missing or invalid."""
+
+    def finish_config(self) -> None:
+        """Record in ``config`` what the evaluation reads from the
+        parameters' values at build time (epochs present, term counts);
+        the builder calls it after :meth:`TimingModel.validate`."""
+
+    def add_param(self, param, setup: bool = False):
+        self.__dict__.setdefault("_params_dict", {})[param.name] = param
+        param._component = self
+        if param.name not in self.params:
+            self.params.append(param.name)
+        if setup:
+            self.setup()
+        return param
+
+    def remove_param(self, name: str) -> None:
+        self.__dict__.get("_params_dict", {}).pop(name, None)
+        if name in self.params:
+            self.params.remove(name)
+
+    def __getattr__(self, name):
+        """A parameter by name: the builder's parameter object while the
+        component is being built, the model's :class:`Param` after."""
+        d = self.__dict__
+        pd = d.get("_params_dict")
+        if pd is not None and name in pd:
+            return pd[name]
+        parent = d.get("_parent")
+        if parent is not None and name in d.get("params", ()):
+            return parent[name]
+        raise AttributeError(
+            f"{type(self).__name__} has no attribute {name!r}")
+
+    def _param_objs(self) -> Dict[str, object]:
+        pd = self.__dict__.get("_params_dict")
+        if pd is not None:
+            return pd
+        return {n: self._parent[n] for n in self.params}
+
+    def match_param_alias(self, key: str) -> Optional[str]:
+        """The parameter ``key`` names or aliases, or None."""
+        key = key.upper()
+        for name, p in self._param_objs().items():
+            if hasattr(p, "name_matches"):
+                if p.name_matches(key):
+                    return name
+            elif key == name.upper() or key in (a.upper()
+                                                 for a in p.aliases):
+                return name
+        return None
+
+    def match_param_aliases(self, alias: str) -> str:
+        hit = self.match_param_alias(alias)
+        if hit is None:
+            raise UnknownParameter(
+                f"{alias!r} is not a parameter or alias of "
+                f"{type(self).__name__}")
+        return hit
+
+    @property
+    def aliases_map(self) -> Dict[str, str]:
+        """{alias or name: parameter name}."""
+        out: Dict[str, str] = {}
+        for name, p in self._param_objs().items():
+            out[name] = name
+            for a in p.aliases:
+                out[a] = name
+        return out
+
+    def get_prefix_mapping_component(self, prefix: str) -> Dict[int, str]:
+        """{index: parameter name} of the ``PREFIX<idx>`` parameters."""
+        out = {int(n[len(prefix):]): n for n in self.params
+               if n.startswith(prefix) and n[len(prefix):].isdigit()}
+        return dict(sorted(out.items()))
+
+    def get_params_of_type(self, param_type: str) -> List[str]:
+        """Names of the parameters read as class ``param_type``."""
+        want = param_type.lower()
+        return [n for n, p in self._param_objs().items()
+                if _ptype(p).lower() == want]
+
+    @property
+    def param_prefixs(self) -> Dict[str, List[str]]:
+        """{prefix: [parameter names]} of the indexed families (the
+        reference's spelling)."""
+        out: Dict[str, List[str]] = {}
+        for n, p in self._param_objs().items():
+            pre = getattr(p, "prefix", None)
+            if pre:
+                out.setdefault(pre, []).append(n)
+        return out
+
+    def _finish_epoch(self, flag: str, epoch: str) -> None:
+        self.config[flag] = self._value(epoch) is not None
+
     def build_context(self, batch) -> dict:
         """The component's per-TOA context for ``batch``: its own, built
         for the model's TOAs, unless the batch carries its own (the TZR
@@ -148,8 +274,20 @@ class Component:
         return {}
 
     def _value(self, name):
-        p = self._parent.params_table.get(name) if self._parent else None
-        return None if p is None else p.value
+        pd = self.__dict__.get("_params_dict")
+        if pd is not None and name in pd:
+            return pd[name].value
+        parent = self._parent
+        if parent is None or name not in parent:
+            return None
+        return parent[name].value
+
+    def _parent_param(self, name):
+        """The model's parameter ``name`` (another component's), or
+        None."""
+        parent = self._parent
+        return parent[name] if parent is not None and name in parent \
+            else None
 
     def _range_masks(self, toas, indices, r1: str, r2: str,
                      right_open: bool = False):
@@ -222,6 +360,35 @@ class NoiseComponent(Component):
         return {"masks": masks} if masks else {}
 
 
+def check_contiguous_indices(idxs, component: str, prefix: str,
+                             start: int = 0) -> None:
+    """MissingParameter unless ``idxs`` is exactly [start, start+1, ...]
+    (reference ``timing_model.py:93``): a gap would renumber which
+    coefficients are used."""
+    expected = list(range(start, start + len(idxs)))
+    if sorted(idxs) != expected:
+        missing = sorted(set(range(start, max(idxs) + 1)) - set(idxs))
+        bad = missing[0] if missing else max(idxs)
+        raise MissingParameter(component, f"{prefix}{bad}",
+                               f"{prefix} terms must be contiguous from "
+                               f"{prefix}{start}")
+
+
+def _ptype(p) -> str:
+    """The parameter class name of a builder parameter or a Param."""
+    if isinstance(p, Param):
+        return p.ptype or _KIND_PTYPE.get(p.kind, "floatParameter")
+    return type(p).__name__
+
+
+#: the reference parameter class of each Param kind, where a model did not
+#: come from par text
+_KIND_PTYPE = {"float": "floatParameter", "mjd": "MJDParameter",
+               "pair": "pairParameter", "mask": "maskParameter",
+               "int": "intParameter", "str": "strParameter",
+               "bool": "boolParameter"}
+
+
 def _mjd_float(v) -> float:
     """An epoch parameter's value as the float64 the reference's
     ``float(longdouble)`` gives: the pair's high word."""
@@ -237,6 +404,19 @@ def stack_params(pv, names: Sequence[str], device) -> torch.Tensor:
                       else torch.full((B, 1), float(c), dtype=F64,
                                       device=device)
                       for c in cols], dim=1)
+
+
+def validate_units(model, allow_tcb: bool) -> None:
+    """UNITS must be TDB, or TCB where ``allow_tcb`` (the reference's
+    ``TimingModel.validate``)."""
+    from pint_torch.exceptions import TimingModelError
+
+    units = model["UNITS"].value if "UNITS" in model else None
+    if units not in (None, "TDB", "TCB"):
+        raise TimingModelError(f"UNITS={units} not supported")
+    if units == "TCB" and not allow_tcb:
+        raise TimingModelError(
+            "TCB par files must be converted to TDB (use convert_tcb_tdb)")
 
 
 class TimingModel:
@@ -286,12 +466,59 @@ class TimingModel:
                   for n, p in self.params_table.items()}
         return TimingModel(self.name, comps, params, self.device)
 
-    def validate(self) -> None:
-        """Each component's own checks of its parameters, where it has
-        some (reference ``TimingModel.validate``)."""
+    def validate(self, allow_tcb: bool = False) -> None:
+        """UNITS (TDB, or TCB with ``allow_tcb``) and each component's own
+        checks of its parameters (reference ``timing_model.py:365``)."""
+        validate_units(self, allow_tcb)
         for c in self.components.values():
             if hasattr(c, "validate"):
                 c.validate()
+
+    # -- registry queries (reference ``timing_model.py:440-610``) ----------
+    @property
+    def top_level_params(self) -> List[str]:
+        return [n for n, p in self.params_table.items()
+                if p.component == "TimingModel"]
+
+    @property
+    def params_ordered(self) -> List[str]:
+        """Alias of :attr:`params` (the reference keeps both)."""
+        return self.params
+
+    def get_params_of_type(self, kind: str) -> List[str]:
+        """Parameters read as class ``kind`` or a subclass of it
+        (``maskParameter``, ``prefixParameter``, ``MJDParameter``,
+        ``floatParameter``)."""
+        from pint_torch.models import parameter
+
+        cls = {"maskParameter": parameter.maskParameter,
+               "prefixParameter": parameter.prefixParameter,
+               "MJDParameter": parameter.MJDParameter,
+               "floatParameter": parameter.floatParameter}[kind]
+        return [n for n, p in self.params_table.items()
+                if issubclass(getattr(parameter, _ptype(p)), cls)]
+
+    def get_prefix_mapping(self, prefix: str) -> Dict[int, str]:
+        """{index: name} of the ``PREFIX<idx>`` parameters over every
+        component; ValueError where no component carries the prefix."""
+        out: Dict[int, str] = {}
+        for comp in self.components.values():
+            out.update(comp.get_prefix_mapping_component(prefix))
+        if not out:
+            raise ValueError(f"Cannot find prefix {prefix!r} in the model")
+        return dict(sorted(out.items()))
+
+    def match_param_aliases(self, key: str) -> str:
+        """The parameter a par-file key names or aliases."""
+        for n in self.top_level_params:
+            p = self.params_table[n]
+            if key.upper() in [n.upper()] + [a.upper() for a in p.aliases]:
+                return n
+        for comp in self.components.values():
+            hit = comp.match_param_alias(key)
+            if hit:
+                return hit
+        raise UnknownParameter(f"Unrecognized parfile parameter {key!r}")
 
     # -- structure -----------------------------------------------------------
     def sorted_components(self, kind: str) -> List[Component]:

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from pint_torch.logging import log
+from pint_torch.models.parameter import boolParameter
 from pint_torch.models.timing_model import DelayComponent
 
 __all__ = ["TroposphereDelay"]
@@ -104,6 +105,10 @@ class TroposphereDelay(DelayComponent):
 
     register = True
     category = "troposphere"
+
+    def declare(self):
+        self.add_param(boolParameter("CORRECT_TROPOSPHERE", value=True,
+                                     description="Enable tropospheric delay"))
 
     def host_context(self, toas):
         v = self._value("CORRECT_TROPOSPHERE")

@@ -7,6 +7,9 @@ from __future__ import annotations
 
 import torch
 
+from pint_torch.exceptions import MissingParameter
+from pint_torch.models.parameter import (MJDParameter, floatParameter,
+                                         pairParameter)
 from pint_torch.models.timing_model import PhaseComponent
 from pint_torch.phase import Phase
 
@@ -20,6 +23,33 @@ class Wave(PhaseComponent):
 
     register = True
     category = "wave"
+
+    def declare(self):
+        self.add_param(MJDParameter(
+            "WAVEEPOCH", description="Reference epoch for wave solution"))
+        self.add_param(floatParameter(
+            "WAVE_OM", units="rad/d",
+            description="Base frequency of wave solution"))
+        self.add_param(pairParameter("WAVE1", units="s", continuous=False,
+                                     description="Wave sin/cos amplitudes"))
+
+    def setup(self):
+        terms = sorted(int(p[4:]) for p in self.params
+                       if p.startswith("WAVE") and p[4:].isdigit())
+        self.config["num_wave_terms"] = len(terms)
+        if terms and terms != list(range(1, max(terms) + 1)):
+            missing = min(set(range(1, max(terms) + 1)) - set(terms))
+            raise MissingParameter("Wave", f"WAVE{missing}")
+
+    def validate(self):
+        if self.WAVE_OM.value is None:
+            raise MissingParameter("Wave", "WAVE_OM")
+        if self.WAVEEPOCH.value is None:
+            pep = self._parent_param("PEPOCH")
+            if pep is None or pep.value is None:
+                raise MissingParameter("Wave", "WAVEEPOCH",
+                                       "WAVEEPOCH or PEPOCH required")
+            self.WAVEEPOCH.value = pep.value
 
     def phase_func(self, pv, batch, ctx, delay):
         ep = pv["WAVEEPOCH"]

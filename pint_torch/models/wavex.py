@@ -13,6 +13,8 @@ import torch
 
 from pint_torch.models.chromatic import chromatic_scale
 from pint_torch.models.dispersion_model import DMconst
+from pint_torch.exceptions import MissingParameter
+from pint_torch.models.parameter import MJDParameter, prefixParameter
 from pint_torch.models.timing_model import DelayComponent
 
 __all__ = ["WaveX", "DMWaveX", "CMWaveX"]
@@ -26,6 +28,47 @@ class _WaveXBase(DelayComponent):
 
     prefixes = ("WXFREQ_", "WXSIN_", "WXCOS_")
     epoch_name = "WXEPOCH"
+    amp_units = "s"
+
+    def declare(self):
+        name = type(self).__name__
+        fpre, spre, cpre = self.prefixes
+        self.add_param(MJDParameter(self.epoch_name,
+                                    description=f"{name} reference epoch"))
+        self.add_param(prefixParameter(
+            f"{fpre}0001", units="1/d",
+            description=f"{name} component frequency"))
+        self.add_param(prefixParameter(
+            f"{spre}0001", units=self.amp_units, value=0.0,
+            description=f"{name} sine amplitude"))
+        self.add_param(prefixParameter(
+            f"{cpre}0001", units=self.amp_units, value=0.0,
+            description=f"{name} cosine amplitude"))
+
+    def setup(self):
+        pf = self.prefixes[0]
+        idx = sorted(int(p[len(pf):]) for p in self.params
+                     if p.startswith(pf))
+        self.config["indices"] = idx
+        # grow missing sine/cosine partners with zero amplitude
+        for i in idx:
+            for pre in self.prefixes[1:]:
+                if f"{pre}{i:04d}" not in self._params_dict:
+                    ex = next(self._params_dict[p] for p in self.params
+                              if p.startswith(pre))
+                    self.add_param(ex.new_param(i, value=0.0))
+
+    def validate(self):
+        ep = getattr(self, self.epoch_name)
+        if ep.value is None:
+            pep = self._parent_param("PEPOCH")
+            if pep is None or pep.value is None:
+                raise MissingParameter(type(self).__name__, self.epoch_name)
+            ep.value = pep.value
+        pf = self.prefixes[0]
+        for i in self.config["indices"]:
+            if self._value(f"{pf}{i:04d}") in (None, 0.0):
+                raise MissingParameter(type(self).__name__, f"{pf}{i:04d}")
 
     def series(self, pv, batch, acc_delay):
         ep = pv[self.epoch_name]
@@ -57,6 +100,7 @@ class DMWaveX(_WaveXBase):
     category = "dmwavex"
     prefixes = ("DMWXFREQ_", "DMWXSIN_", "DMWXCOS_")
     epoch_name = "DMWXEPOCH"
+    amp_units = "pc/cm3"
 
     def dm_func(self, pv, batch, ctx):
         return self.series(pv, batch, torch.zeros_like(batch.freq))
@@ -74,6 +118,7 @@ class CMWaveX(_WaveXBase):
     category = "cmwavex"
     prefixes = ("CMWXFREQ_", "CMWXSIN_", "CMWXCOS_")
     epoch_name = "CMWXEPOCH"
+    amp_units = "pc/cm3"
 
     def delay_func(self, pv, batch, ctx, acc_delay):
         cm = self.series(pv, batch, acc_delay)

@@ -1,14 +1,16 @@
 """The TOA tables: the host table :class:`TOAs` and the device batch
 :class:`TOABatch`.
 
-:class:`TOAs` (port of ``pint_tpu/toa.py:153-240,401-494,799-841``) is the
-host table built from arrays (:func:`get_TOAs_array`,
-:func:`make_single_toa`): longdouble UTC MJDs, the one-time pipeline
-``apply_clock_corrections -> compute_TDBs -> compute_posvels`` (both the
-longdouble and the (hi, lo) pair branch of the TDBs), and
-:meth:`TOAs.to_batch`, which freezes it into a batch on the device with each
-component's context for these TOAs when a model is given.  Reading tim
-files is not part of this package yet.
+:class:`TOAs` (port of ``pint_tpu/toa.py:53-1365``) is the host table,
+read from tim files (:func:`get_TOAs`, whose MJD digits go through the C++
+parser of :mod:`pint_torch.native`) or built from arrays
+(:func:`get_TOAs_array`, :func:`make_single_toa`, :func:`get_TOAs_list`):
+longdouble UTC MJDs, flags, the integrity gate (:meth:`TOAs.validate`),
+the one-time pipeline ``apply_clock_corrections -> compute_TDBs ->
+compute_posvels`` (both the longdouble and the (hi, lo) pair branch of the
+TDBs), the tim writer, the hash-keyed pickles, and :meth:`TOAs.to_batch`,
+which freezes it into a batch on the device with each component's context
+for these TOAs when a model is given.
 
 :class:`TOABatch` (port of ``pint_tpu/toa.py:120-149``, with the wideband
 DM data of ``:520-545``, the photons' ``-weight`` flag, the
@@ -29,7 +31,13 @@ evaluation reads: a batch that keys a cache is never changed by it.
 
 from __future__ import annotations
 
+import hashlib
+import os
+import pickle
+import re
+from collections.abc import MutableMapping
 from dataclasses import dataclass, field, replace
+from fractions import Fraction
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -37,13 +45,17 @@ import torch
 
 from pint_torch import F64
 from pint_torch import c as C_M_S
-from pint_torch.dd import DD, two_prod, two_sum
-from pint_torch.exceptions import (InvalidTOAError, TOAIntegrityError,
+from pint_torch.dd import DD, two_prod, two_sum, two_sum_np
+from pint_torch.exceptions import (InvalidTOAError, PintPickleError,
+                                   TimSyntaxError, TOAIntegrityError,
                                    UsageError)
+from pint_torch.io.tim import RawTOA, format_toa_line, read_tim_file
 
-__all__ = ["TOABatch", "TOAs", "merge_TOAs", "get_TOAs_array",
-           "make_single_toa", "select_toa_mask", "ROW_LOCAL_CONTEXTS",
-           "TOAIntegrityError"]
+__all__ = ["TOABatch", "TOAs", "TOA", "FlagDict", "merge_TOAs", "get_TOAs",
+           "get_TOAs_list", "get_TOAs_array", "build_table",
+           "make_single_toa", "select_toa_mask", "read_toa_file",
+           "load_pickle", "save_pickle", "parse_decimal_strings",
+           "ROW_LOCAL_CONTEXTS", "TOAIntegrityError"]
 
 DAY_S = 86400.0
 C_KM_S = C_M_S / 1e3
@@ -388,9 +400,19 @@ class TOABatch:
                    **kw)
 
 
-def merge_TOAs(batches) -> TOABatch:
-    """One batch of ``batches`` in order (the reference's ``merge_TOAs``,
-    ``toa.py:1292``), all drawn from one snapshot: per-TOA tensors and host
+def merge_TOAs(toas_list):
+    """Concatenate TOAs in order (reference ``toa.py:1292``): host
+    :class:`TOAs` into host TOAs (:func:`_merge_host`), device batches
+    into one batch (:func:`_merge_batches`)."""
+    toas_list = list(toas_list)
+    if toas_list and all(isinstance(t, TOAs) for t in toas_list):
+        return _merge_host(toas_list)
+    return _merge_batches(toas_list)
+
+
+def _merge_batches(batches) -> TOABatch:
+    """One batch of ``batches`` in order, all drawn from one snapshot or
+    one model's host TOAs: per-TOA tensors and host
     arrays joined, each component's context joined along the TOA axis
     (every batch carries its own, or none does), ``tdb0``/``tdb_s``
     re-derived as the reference's ``to_batch`` does, the quarantine masks
@@ -481,11 +503,145 @@ class TOAs:
     include_gps: bool = True
     bipm_version: str = "BIPM2021"
     planets: bool = False
+    #: the quarantine of :meth:`validate` (True: quarantined) and each
+    #: row's reasons; carried through slicing, merging and pickling
+    quarantine_mask: Optional[np.ndarray] = None
+    quarantine_reasons: Optional[List[List[str]]] = None
     #: bumped on every in-place change; the model's batch cache keys on it
     _version: int = 0
 
     def __len__(self) -> int:
         return len(self.utc_mjd)
+
+    @classmethod
+    def from_raw(cls, raw, commands=None, filename=None) -> "TOAs":
+        """The table of a tim file's raw TOAs (reference ``toa.py:183``)."""
+        n = len(raw)
+        err = np.empty(n, dtype=np.float64)
+        freq = np.empty(n, dtype=np.float64)
+        obs = np.empty(n, dtype=object)
+        flags = []
+        for i, t in enumerate(raw):
+            err[i] = t.error_us
+            freq[i] = t.freq_mhz if t.freq_mhz > 0 else np.inf
+            obs[i] = _observatory(t.obs).name
+            fl = dict(t.flags)
+            if t.name:
+                fl.setdefault("name", t.name)
+            flags.append(fl)
+        utc, utc_lo = cls._mjds_from_raw(raw)
+        t = cls(utc, err, freq, obs, flags, commands or [], filename)
+        t.utc_mjd_lo = utc_lo
+        return t
+
+    @staticmethod
+    def _mjds_from_raw(raw):
+        """MJD strings -> (longdouble, optional float64 low word), the
+        decimal digits read by :func:`parse_decimal_strings` (the C++
+        parser; the pure-Python path without a compiler).  Where
+        longdouble is extended, the fraction's (hi, lo) pair is rounded
+        once to longdouble and added to the integer day, which is the
+        reference's ``longdouble(day) + longdouble("0." + digits)``;
+        where longdouble is only a double, the whole MJD's pair is kept
+        as (hi, lo) (reference ``toa.py:202-230``)."""
+        extended = np.finfo(np.longdouble).eps < 2e-19
+        strings = [("0." if extended else f"{t.mjd_int}.") + t.mjd_frac_str
+                   for t in raw]
+        hi, lo = parse_decimal_strings(strings)
+        if extended:
+            day = np.array([t.mjd_int for t in raw], dtype=np.longdouble)
+            return day + (hi.astype(np.longdouble)
+                          + lo.astype(np.longdouble)), None
+        return hi.astype(np.longdouble), lo
+
+    def __setstate__(self, state):
+        """Pickles written before a field was added load with its
+        default."""
+        self.__dict__.update(state)
+        from dataclasses import MISSING, fields
+
+        for f_ in fields(type(self)):
+            if f_.name not in self.__dict__:
+                if f_.default is not MISSING:
+                    self.__dict__[f_.name] = f_.default
+                elif f_.default_factory is not MISSING:
+                    self.__dict__[f_.name] = f_.default_factory()
+
+    def __getitem__(self, index) -> "TOAs":
+        idx = np.atleast_1d(np.arange(len(self))[index])
+        new = replace(self, utc_mjd=self.utc_mjd[idx],
+                      error_us=self.error_us[idx],
+                      freq_mhz=self.freq_mhz[idx], obs=self.obs[idx],
+                      flags=[dict(self.flags[i]) for i in idx])
+        for name in ("clock_corr_s", "tdb", "utc_mjd_lo", "tdb_lo",
+                     "ssb_obs_pos_km", "ssb_obs_vel_kms", "obs_sun_pos_km",
+                     "quarantine_mask"):
+            v = getattr(self, name)
+            if v is not None:
+                setattr(new, name, v[idx])
+        if self.quarantine_reasons is not None:
+            new.quarantine_reasons = [list(self.quarantine_reasons[i])
+                                      for i in idx]
+        new.planet_pos_km = {k: v[idx] for k, v in self.planet_pos_km.items()}
+        return new
+
+    # -- integrity: validation and quarantine (reference ``toa.py:314-394``)
+    def validate(self, policy: Optional[str] = None,
+                 check_coverage: bool = True,
+                 max_error_us: Optional[float] = None,
+                 ephem: Optional[str] = None):
+        """The TOA integrity checks (:mod:`pint_torch.integrity.quarantine`)
+        under the ingestion policy: ``strict`` raises
+        :class:`TOAIntegrityError` where anything is found, ``lenient``
+        quarantines with a logged summary, ``collect`` quarantines
+        silently.  Returns the report (also ``self.last_validation``)."""
+        from pint_torch.config import ingestion_policy
+        from pint_torch.integrity.quarantine import (ABSURD_ERROR_US,
+                                                     row_delta,
+                                                     run_toa_checks)
+        from pint_torch.logging import log
+
+        policy = policy or ingestion_policy()
+        report = run_toa_checks(
+            self, check_coverage=check_coverage,
+            max_error_us=ABSURD_ERROR_US if max_error_us is None
+            else max_error_us, ephem=ephem)
+        prev = self.quarantine_mask
+        applied_n = getattr(self, "_applied_validation_n", None)
+        if prev is None and applied_n is not None:
+            prev = np.zeros(min(applied_n, len(self)), dtype=bool)
+        report.delta = row_delta(prev, report.mask)
+        self.last_validation = report
+        if report and policy == "strict":
+            raise TOAIntegrityError(
+                f"TOA validation failed under the strict ingestion "
+                f"policy:\n{report.render()}", report=report)
+        self.quarantine_mask = report.mask if report else None
+        self.quarantine_reasons = report.reasons_by_row() if report else None
+        self._applied_validation_n = len(self)
+        self._version += 1
+        if report and policy == "lenient":
+            log.warning(report.render())
+        return report
+
+    @property
+    def n_quarantined(self) -> int:
+        m = self.quarantine_mask
+        return int(np.sum(m)) if m is not None else 0
+
+    def certified(self) -> "TOAs":
+        """The rows :meth:`validate` did not quarantine (``self`` where
+        none was)."""
+        m = self.quarantine_mask
+        if m is None or not np.any(m):
+            return self
+        return self[~np.asarray(m, dtype=bool)]
+
+    def quarantined(self) -> "TOAs":
+        m = self.quarantine_mask
+        if m is None:
+            return self[np.zeros(len(self), dtype=bool)]
+        return self[np.asarray(m, dtype=bool)]
 
     @property
     def ntoas(self) -> int:
@@ -593,9 +749,264 @@ class TOAs:
     def get_obss(self) -> np.ndarray:
         return self.obs
 
+    def get_errors(self) -> np.ndarray:
+        return self.error_us
+
+    def get_flag_value(self, flag: str, fill_value=None, as_type=None):
+        """(per-TOA values of ``flag``, ``fill_value`` where absent; the
+        indices that carry it)."""
+        vals, valid = [], []
+        for i, fl in enumerate(self.flags):
+            if flag in fl:
+                vals.append(as_type(fl[flag]) if as_type else fl[flag])
+                valid.append(i)
+            else:
+                vals.append(fill_value)
+        return vals, valid
+
     @property
     def wideband(self) -> bool:
         return len(self) > 0 and all("pp_dm" in fl for fl in self.flags)
+
+    def is_wideband(self) -> bool:
+        return self.wideband
+
+    def get_dms(self) -> Optional[np.ndarray]:
+        """Wideband DMs [pc/cm^3] from ``-pp_dm`` flags, or None."""
+        vals, valid = self.get_flag_value("pp_dm", as_type=float)
+        return np.asarray(vals, dtype=np.float64) \
+            if len(valid) == len(self) else None
+
+    def get_dm_errors(self) -> Optional[np.ndarray]:
+        """Wideband DM uncertainties from ``-pp_dme`` flags, or None."""
+        vals, valid = self.get_flag_value("pp_dme", as_type=float)
+        return np.asarray(vals, dtype=np.float64) \
+            if len(valid) == len(self) else None
+
+    def update_dms(self, dms, errors=None) -> None:
+        for i, fl in enumerate(self.flags):
+            fl["pp_dm"] = repr(float(dms[i]))
+            if errors is not None:
+                fl["pp_dme"] = repr(float(errors[i]))
+        self._version += 1
+
+    def get_clusters(self, gap_limit_hr: float = 2.0,
+                     add_column: bool = False) -> np.ndarray:
+        """Per-TOA observing-epoch index, epochs split by gaps longer than
+        ``gap_limit_hr`` hours and numbered in time order; with
+        ``add_column`` also each TOA's ``-cluster`` flag."""
+        if gap_limit_hr <= 0:
+            raise UsageError(f"gap_limit_hr must be positive, "
+                             f"got {gap_limit_hr}")
+        mjds = np.asarray(self.get_mjds(), dtype=np.float64)
+        if len(mjds) == 0:
+            return np.empty(0, dtype=np.int64)
+        order = np.argsort(mjds, kind="stable")
+        gaps = np.diff(mjds[order]) > gap_limit_hr / 24.0
+        clusters = np.empty(len(mjds), dtype=np.int64)
+        clusters[order] = np.concatenate([[0], np.cumsum(gaps)])
+        if add_column:
+            for i, c in enumerate(clusters):
+                self.flags[i]["cluster"] = str(int(c))
+            self._version += 1
+        return clusters
+
+    def adjust_TOAs(self, delta_seconds) -> "TOAs":
+        """Shift the arrival times in place by ``delta_seconds``."""
+        delta_day = np.asarray(delta_seconds, dtype=np.float64) / DAY_S
+        if self.utc_mjd_lo is not None:
+            # pair path: error-free sums keep the shifted time exact
+            hi, lo = two_sum_np(np.asarray(self.utc_mjd, np.float64),
+                                delta_day)
+            hi, lo = two_sum_np(hi, lo + self.utc_mjd_lo)
+            self.utc_mjd = np.asarray(hi, dtype=np.longdouble)
+            self.utc_mjd_lo = lo
+            if self.tdb is not None:
+                hi, lo = two_sum_np(np.asarray(self.tdb, np.float64),
+                                    delta_day)
+                hi, lo = two_sum_np(hi, lo + self.tdb_lo)
+                self.tdb = np.asarray(hi, dtype=np.longdouble)
+                self.tdb_lo = lo
+        else:
+            d = np.asarray(delta_seconds, dtype=np.longdouble) \
+                / np.longdouble(DAY_S)
+            self.utc_mjd = self.utc_mjd + d
+            if self.tdb is not None:
+                self.tdb = self.tdb + d
+        self._version += 1
+        return self
+
+    def first_MJD(self) -> float:
+        return float(np.min(self.get_mjds()))
+
+    def last_MJD(self) -> float:
+        return float(np.max(self.get_mjds()))
+
+    @property
+    def observatories(self) -> set:
+        return set(str(o) for o in self.obs)
+
+    def get_Tspan(self) -> float:
+        """The TOAs' span [d]."""
+        m = np.asarray(self.get_mjds(), dtype=np.float64)
+        return float(m.max() - m.min()) if len(m) else 0.0
+
+    def get_all_flags(self) -> list:
+        names: set = set()
+        for fl in self.flags:
+            names |= set(fl)
+        return sorted(names)
+
+    def get_flags(self) -> list:
+        return self.flags
+
+    def get_obs_groups(self):
+        """(observatory name, index array) groups, by name."""
+        obs = np.asarray([str(o) for o in self.obs])
+        for name in sorted(set(obs)):
+            yield name, np.nonzero(obs == name)[0]
+
+    def get_highest_density_range(self, ndays: float = 7.0):
+        """(start, end) MJD of the ``ndays``-wide window holding the most
+        TOAs."""
+        m = np.sort(np.asarray(self.get_mjds(), dtype=np.float64))
+        if not len(m):
+            raise UsageError("no TOAs")
+        counts = np.searchsorted(m, m + float(ndays), side="right") \
+            - np.arange(len(m))
+        i = int(np.argmax(counts))
+        return m[i], m[i] + float(ndays)
+
+    def get_summary(self) -> str:
+        """Short text summary (reference ``toa.py:563``)."""
+        s = f"Number of TOAs:  {len(self)}\n"
+        s += f"Number of commands:  {len(self.commands)}\n"
+        s += (f"Number of observatories: {len(self.observatories)} "
+              f"{sorted(self.observatories)}\n")
+        if len(self):
+            s += (f"MJD span:  {self.first_MJD():.3f} to "
+                  f"{self.last_MJD():.3f}\n")
+        err = np.asarray(self.error_us, dtype=np.float64)
+        freq = np.asarray(self.freq_mhz, dtype=np.float64)
+        for obs, grp in self.get_obs_groups():
+            s += f"{obs} TOAs ({len(grp)}):\n"
+            s += f"  Min freq:      {np.min(freq[grp]):.3f} MHz\n"
+            s += f"  Max freq:      {np.max(freq[grp]):.3f} MHz\n"
+            s += f"  Min error:     {np.min(err[grp]):.3g} us\n"
+            s += f"  Max error:     {np.max(err[grp]):.3g} us\n"
+            s += f"  Median error:  {np.median(err[grp]):.3g} us\n"
+        return s
+
+    def print_summary(self) -> None:
+        print(self.get_summary())
+
+    def select(self, selectarray) -> None:
+        """In-place boolean selection, undone by :meth:`unselect`
+        (deprecated in the reference too: prefer ``toas[mask]``)."""
+        import copy as _copy
+        import warnings as _warnings
+
+        _warnings.warn("Please use boolean indexing on the object instead: "
+                       "toas[selectarray].", DeprecationWarning)
+        stack = self.__dict__.pop("_select_stack", [])
+        try:
+            snapshot = _copy.deepcopy(self)
+        finally:
+            self._select_stack = stack
+        self._select_stack.append(snapshot)
+        new = self[np.asarray(selectarray)]
+        for k, v in new.__dict__.items():
+            if k != "_select_stack":
+                self.__dict__[k] = v
+        self._version += 1
+
+    def unselect(self) -> None:
+        """Undo the last :meth:`select`."""
+        import warnings as _warnings
+
+        from pint_torch.logging import log
+
+        _warnings.warn("Please use boolean indexing on the object instead.",
+                       DeprecationWarning)
+        try:
+            old = self._select_stack.pop()
+        except (AttributeError, IndexError):
+            log.error("No previous TOA table found.  No changes made.")
+            return
+        stack = self._select_stack
+        version = self._version
+        self.__dict__.update(old.__dict__)
+        self._select_stack = stack
+        self._version = version + 1
+
+    def merge(self, *others) -> "TOAs":
+        return merge_TOAs([self, *others])
+
+    def to_TOA_list(self) -> list:
+        """One :class:`TOA` per row."""
+        out = []
+        mjds = np.asarray(self.utc_mjd)
+        for i in range(len(self)):
+            day = np.floor(mjds[i])
+            out.append(TOA((float(day), float(mjds[i] - day)),
+                           error=float(self.error_us[i]),
+                           obs=str(self.obs[i]), freq=float(self.freq_mhz[i]),
+                           flags=dict(self.flags[i])))
+        return out
+
+    def update_all_times(self, ephem=None, planets=None) -> None:
+        """Clock corrections, TDBs and posvels again (after editing
+        arrival times or sites)."""
+        self.clock_corr_s = None
+        self.apply_clock_corrections(include_gps=self.include_gps,
+                                     include_bipm=self.include_bipm,
+                                     bipm_version=self.bipm_version)
+        self.compute_TDBs(ephem=ephem or self.ephem)
+        self.compute_posvels(ephem=ephem or self.ephem or "DE440",
+                             planets=self.planets if planets is None
+                             else planets)
+
+    def check_hashes(self, timfile: Optional[str] = None) -> bool:
+        """True while the source tim files (INCLUDEs too) are unchanged
+        since these TOAs were read."""
+        src = timfile or self.filename
+        if not src:
+            return True
+        try:
+            current = _tim_hashes(src)
+        except OSError:
+            return False
+        stored = getattr(self, "_hashes", None)
+        if stored is None:
+            raise UsageError(
+                "No source hashes were recorded when this TOAs object was "
+                "built; cannot verify against the tim file")
+        return stored == current
+
+    def write_TOA_file(self, path, name="pint_torch", format="tempo2"):
+        """Write a tim file (reference ``toa.py:843``): each MJD's digits
+        exactly as :func:`_mjd_line_parts` gives them."""
+        with open(path, "w") as f:
+            if format.lower() in ("tempo2", "1"):
+                f.write("FORMAT 1\n")
+            for i in range(len(self)):
+                ii, frac = _mjd_line_parts(
+                    self.utc_mjd[i], self.utc_mjd_lo[i]
+                    if self.utc_mjd_lo is not None else None)
+                fl = dict(self.flags[i])
+                nm = fl.pop("name", name)
+                f.write(format_toa_line(
+                    ii, frac, self.error_us[i], self.freq_mhz[i],
+                    self.obs[i], name=nm, flags=fl, fmt=format))
+
+    def save_pickle(self, path) -> None:
+        with open(path, "wb") as f:
+            pickle.dump(self, f)
+
+    @staticmethod
+    def load_pickle(path) -> "TOAs":
+        with open(path, "rb") as f:
+            return pickle.load(f)
 
     def _mjd_lo(self) -> np.ndarray:
         """The sub-double part of each UTC MJD (the duplicate check's
@@ -813,3 +1224,419 @@ def make_single_toa(mjd, obs: str, freq_mhz: float = np.inf,
     t.compute_TDBs(ephem=ephem)
     t.compute_posvels(ephem=ephem, planets=planets)
     return t
+
+
+# ---------------------------------------------------------------------------
+# reading tim files (reference ``pint_tpu/toa.py:53-118,918-1290``)
+# ---------------------------------------------------------------------------
+def parse_decimal_strings(strings):
+    """Decimal strings -> (hi, lo) float64 arrays to ~2^-104 relative: the
+    C++ parser (:func:`pint_torch.native.str2dd_batch`, double-double
+    accumulation) where it built, else the pure-Python path
+    (:func:`pint_torch.dd.dd_from_string`, exact rational rounding).  The
+    two may part in the low word's last bits; rounded to an 80-bit
+    longdouble, as the MJD parse does, they agree but at exact near-ties."""
+    from pint_torch import native
+    from pint_torch.dd import dd_from_string
+
+    if native.available():
+        return native.str2dd_batch(list(strings))
+    pairs = [dd_from_string(s) for s in strings]
+    return (np.array([p.hi for p in pairs], dtype=np.float64),
+            np.array([p.lo for p in pairs], dtype=np.float64))
+
+
+class FlagDict(MutableMapping):
+    """Validated per-TOA flags (reference ``toa.py:53``): string keys
+    stored lowercase without their leading ``-``, single-token string
+    values; an empty value deletes the flag."""
+
+    _key_re = re.compile(r"[a-zA-Z_][a-zA-Z0-9_]*$")
+
+    def __init__(self, *args, **kwargs):
+        self.store = {}
+        self.update(dict(*args, **kwargs))
+
+    @staticmethod
+    def from_dict(d: dict) -> "FlagDict":
+        r = FlagDict()
+        r.update(d)
+        return r
+
+    @staticmethod
+    def check_allowed_key(k) -> None:
+        if not isinstance(k, str):
+            raise InvalidTOAError(f"flag {k!r} must be a string")
+        if k.startswith("-"):
+            raise InvalidTOAError(
+                "flags should be stored without their leading -")
+        if not FlagDict._key_re.match(k):
+            raise InvalidTOAError(f"flag {k!r} is not a valid flag name")
+
+    @staticmethod
+    def check_allowed_value(k, v) -> None:
+        if not isinstance(v, str):
+            raise InvalidTOAError(f"value {v!r} for flag {k} must be a string")
+        if v and len(v.split()) != 1:
+            raise InvalidTOAError(
+                f"value {v!r} for flag {k} cannot contain whitespace")
+
+    def __setitem__(self, key, val):
+        self.check_allowed_key(key)
+        self.check_allowed_value(key, val)
+        if val:
+            self.store[key.lower()] = val
+        else:
+            self.store.pop(key.lower(), None)
+
+    def __delitem__(self, key):
+        del self.store[key.lower()]
+
+    def __getitem__(self, key):
+        return self.store[key.lower()]
+
+    def __iter__(self):
+        return iter(self.store)
+
+    def __len__(self):
+        return len(self.store)
+
+    def __repr__(self):
+        return f"FlagDict({self.store!r})"
+
+    def __str__(self):
+        return str(self.store)
+
+    def copy(self) -> "FlagDict":
+        return FlagDict.from_dict(self.store)
+
+
+class TOA:
+    """One time of arrival (reference ``toa.py:973``), the unit of
+    :func:`get_TOAs_list`: ``mjd`` a float MJD, an ``(int, frac)`` pair
+    of floats summed at full precision, or an MJD string; site UTC only."""
+
+    def __init__(self, mjd, error: float = 0.0, obs: str = "bary",
+                 freq: float = float("inf"), scale=None, flags=None,
+                 name: str = "unk", **kwargs):
+        self.mjd = mjd
+        self.error = float(error)
+        self.obs = obs
+        self.freq = float(freq)
+        if scale not in (None, "utc"):
+            raise NotImplementedError(
+                f"TOA scale={scale!r} is not supported: times are site-UTC "
+                "(the tim-file convention). Convert to UTC first.")
+        self.scale = scale
+        self.flags = dict(flags or {})
+        for k, v in kwargs.items():
+            self.flags.setdefault(k.lstrip("-"), str(v))
+        self.name = name
+
+    def __str__(self):
+        return (f"{self.mjd}: {self.error} us error at '{self.obs}' at "
+                f"{self.freq} MHz")
+
+    def as_line(self) -> str:
+        """This TOA as a tempo2 tim line."""
+        hi, lo = _split_mjd_value(self.mjd)
+        mjd_i, frac = _mjd_line_parts(hi, lo if lo else None)
+        return format_toa_line(mjd_i, frac, self.error, self.freq, self.obs,
+                               flags=self.flags, name=self.name)
+
+
+def _mjd_line_parts(mjd, lo=None):
+    """(longdouble, optional float64 low word) MJD -> (int day, fraction
+    digits) of a tim line: with a low word the exact (hi, lo) value to 25
+    digits, so a round trip through the parser is lossless; else the
+    longdouble fraction to 16 digits (reference ``toa.py:1013``)."""
+    ii = int(np.floor(mjd))
+    if lo:
+        fr = Fraction(float(mjd)) - ii + Fraction(float(lo))
+        if fr < 0:
+            ii -= 1
+            fr += 1
+        q = round(fr * 10**25)
+        frac = f"{q:025d}".rstrip("0")
+    else:
+        ff = np.format_float_positional(mjd - ii, precision=16, trim="-")
+        if ff.startswith("1"):  # the fraction rounded up to the next day
+            return ii + 1, "0"
+        frac = ff.split(".")[1] if "." in ff else "0"
+    return ii, frac or "0"
+
+
+def _split_mjd_value(mjd):
+    """float | (int, frac) pair | string -> (longdouble, float64 low
+    word)."""
+    if isinstance(mjd, (tuple, list)) and len(mjd) == 2:
+        hi, lo = _pair_split(mjd[0], mjd[1])
+        return np.longdouble(hi), float(lo)
+    if isinstance(mjd, str):
+        i, _, f = mjd.partition(".")
+        raw = RawTOA(mjd_int=int(i), mjd_frac_str=f or "0", error_us=0.0,
+                     freq_mhz=0.0, obs="bary")
+        utc, lo = TOAs._mjds_from_raw([raw])
+        return utc[0], float(lo[0]) if lo is not None else 0.0
+    return np.longdouble(mjd), 0.0
+
+
+def get_TOAs(timfile: str, ephem: Optional[str] = None, planets: bool = False,
+             include_gps: bool = True, include_bipm: Optional[bool] = None,
+             bipm_version: str = "BIPM2021", model=None, limits: str = "warn",
+             usepickle: bool = False, policy: Optional[str] = None,
+             validate: bool = True) -> TOAs:
+    """Read a tim file and run the host pipeline (reference
+    ``toa.py:918``): the parse and the structural :meth:`TOAs.validate`
+    under ``policy`` (default :func:`pint_torch.config.ingestion_policy`),
+    then the clock chain, TDB and posvels.  The parse's
+    :class:`~pint_torch.integrity.diagnostics.Diagnostics` rides on the
+    result as ``ingest_diagnostics``; ``usepickle`` serves and refreshes
+    a cache keyed on the tim files' hashes and these settings."""
+    from pint_torch.config import ingestion_policy
+    from pint_torch.integrity.diagnostics import Diagnostics
+    from pint_torch.logging import log
+
+    ephem, planets, include_bipm, bipm_version = _resolve_pipeline_options(
+        model, ephem, planets, include_bipm, bipm_version)
+    policy = policy or ingestion_policy()
+    pickle_key = (ephem, planets, include_gps, include_bipm, bipm_version,
+                  limits, policy, validate)
+    if usepickle:
+        t = _load_toa_pickle(timfile, pickle_key)
+        if t is not None:
+            log.info(f"Loaded {len(t)} TOAs from pickle cache for {timfile}")
+            return t
+    diags = Diagnostics(timfile)
+    raw, commands = read_tim_file(timfile, policy=policy, diagnostics=diags)
+    if not raw:
+        raise TimSyntaxError("no TOAs found in file", file=timfile)
+    t = TOAs.from_raw(raw, commands, filename=timfile)
+    t.ingest_diagnostics = diags
+    try:
+        t._hashes = _tim_hashes(timfile)
+    except OSError:
+        pass
+    if validate:
+        # structural checks only; coverage needs an explicit t.validate()
+        t.validate(policy=policy, check_coverage=False)
+    _finalize_toas(t, ephem, planets, include_gps, include_bipm,
+                   bipm_version, limits)
+    log.info(f"Loaded {len(t)} TOAs from {timfile} "
+             f"(ephem={t.ephem}, planets={planets}, bipm={include_bipm})")
+    if usepickle:
+        _save_toa_pickle(timfile, pickle_key, t)
+    return t
+
+
+def get_TOAs_list(toa_list, ephem: Optional[str] = None,
+                  planets: bool = False, include_gps: bool = True,
+                  include_bipm: Optional[bool] = None,
+                  bipm_version: str = "BIPM2021", model=None,
+                  limits: str = "warn", commands=None) -> TOAs:
+    """TOAs from :class:`TOA` objects through the host pipeline
+    (reference ``toa.py:1074``)."""
+    ephem, planets, include_bipm, bipm_version = _resolve_pipeline_options(
+        model, ephem, planets, include_bipm, bipm_version)
+    t = build_table(toa_list, commands=commands)
+    return _finalize_toas(t, ephem, planets, include_gps, include_bipm,
+                          bipm_version, limits)
+
+
+def build_table(toa_list, filename: Optional[str] = None,
+                commands=None) -> TOAs:
+    """The host table of :class:`TOA` objects, pipeline not run
+    (reference ``toa.py:1089``)."""
+    n = len(toa_list)
+    if n == 0:
+        raise InvalidTOAError("build_table: empty TOA list")
+    utc = np.empty(n, dtype=np.longdouble)
+    lo = np.zeros(n, dtype=np.float64)
+    err = np.empty(n, dtype=np.float64)
+    freq = np.empty(n, dtype=np.float64)
+    obs = np.empty(n, dtype=object)
+    flags = []
+    for i, tt in enumerate(toa_list):
+        utc[i], lo[i] = _split_mjd_value(tt.mjd)
+        err[i] = tt.error
+        freq[i] = tt.freq if tt.freq > 0 else np.inf
+        obs[i] = _observatory(tt.obs).name
+        fl = dict(tt.flags)
+        if tt.name and tt.name != "unk":
+            fl.setdefault("name", tt.name)
+        flags.append(fl)
+    t = TOAs(utc, err, freq, obs, flags, list(commands or []), filename)
+    if np.any(lo):
+        t.utc_mjd_lo = lo
+    return t
+
+
+def load_pickle(toafilename: str,
+                picklefilename: Optional[str] = None) -> TOAs:
+    """Pickled TOAs, gzipped or not: ``<name>.pickle.gz``,
+    ``<name>.pickle`` or the name itself unless a path is given
+    (reference ``toa.py:1166``)."""
+    import gzip
+
+    candidates = ([picklefilename] if picklefilename is not None else
+                  [toafilename + ".pickle.gz", toafilename + ".pickle",
+                   toafilename])
+    for cand in candidates:
+        if not os.path.exists(cand):
+            continue
+        try:
+            with open(cand, "rb") as f:
+                gzipped = f.read(2) == b"\x1f\x8b"
+            with (gzip.open if gzipped else open)(cand, "rb") as f:
+                return pickle.load(f)
+        except (OSError, EOFError, pickle.UnpicklingError, ValueError):
+            continue
+    raise PintPickleError(f"No readable pickle found for {toafilename}")
+
+
+def save_pickle(toas: TOAs, picklefilename: Optional[str] = None) -> None:
+    """Write TOAs to a ``.pickle.gz`` named after their tim file unless
+    a name is given (reference ``toa.py:1190``)."""
+    import gzip
+
+    if picklefilename is None:
+        if not toas.filename:
+            raise UsageError(
+                "TOAs have no (single) source filename; please provide "
+                "picklefilename")
+        picklefilename = str(toas.filename) + ".pickle.gz"
+    opener = gzip.open if str(picklefilename).endswith(".gz") else open
+    with opener(picklefilename, "wb") as f:
+        pickle.dump(toas, f)
+
+
+def read_toa_file(filename):
+    """(raw TOAs, commands) of a tim file (reference ``toa.py:1209``)."""
+    return read_tim_file(filename)
+
+
+#: the suffix of :func:`get_TOAs`' hash-keyed pickle cache
+PICKLE_SUFFIX = ".pint_torch_toas.pickle"
+
+
+def _file_hash(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        h.update(f.read())
+    return h.hexdigest()
+
+
+def _tim_file_set(timfile: str, _seen=None) -> List[str]:
+    """The tim file and every file it INCLUDEs, recursively."""
+    _seen = _seen if _seen is not None else []
+    if timfile in _seen or not os.path.exists(timfile):
+        return _seen
+    _seen.append(timfile)
+    with open(timfile) as f:
+        for ln in f:
+            fields = ln.split()
+            if len(fields) >= 2 and fields[0].upper() == "INCLUDE":
+                _tim_file_set(os.path.join(os.path.dirname(timfile),
+                                           fields[1]), _seen)
+    return _seen
+
+
+def _tim_hashes(timfile: str) -> Dict[str, str]:
+    return {p: _file_hash(p) for p in _tim_file_set(timfile)}
+
+
+def _load_toa_pickle(timfile: str, key) -> Optional[TOAs]:
+    """The cached TOAs where the SHA-256 of the tim file and of every
+    INCLUDEd file and the settings all match, else None."""
+    from pint_torch.logging import log
+
+    path = timfile + PICKLE_SUFFIX
+    if not os.path.exists(path):
+        return None
+    try:
+        with open(path, "rb") as f:
+            d = pickle.load(f)
+        if d.get("tim_sha") != _tim_hashes(timfile) or d.get("key") != key:
+            log.info(f"TOA pickle cache for {timfile} is stale; rebuilding")
+            return None
+        return d["toas"]
+    except Exception as e:
+        log.warning(f"Failed to read TOA pickle {path}: {e}")
+        return None
+
+
+def _save_toa_pickle(timfile: str, key, t: TOAs) -> None:
+    from pint_torch.logging import log
+
+    path = timfile + PICKLE_SUFFIX
+    try:
+        with open(path, "wb") as f:
+            pickle.dump({"tim_sha": _tim_hashes(timfile), "key": key,
+                         "toas": t}, f)
+    except OSError as e:  # a read-only data directory: best effort
+        log.warning(f"Could not write TOA pickle {path}: {e}")
+
+
+def _merge_time_pair(toas_list, hi_name, lo_name):
+    """Merged (hi, lo) columns, hi exactly a double wherever a low word is
+    carried: inputs without one contribute their longdouble's sub-double
+    part as the low word."""
+    new_hi, new_lo = [], []
+    for t in toas_list:
+        h, v = getattr(t, hi_name), getattr(t, lo_name)
+        if v is not None:
+            new_hi.append(h)
+            new_lo.append(v)
+        else:
+            h64 = np.asarray(h, np.float64)
+            new_hi.append(h64.astype(np.longdouble))
+            new_lo.append(np.asarray(h - h64.astype(np.longdouble),
+                                     dtype=np.float64))
+    return np.concatenate(new_hi), np.concatenate(new_lo)
+
+
+def _merge_host(toas_list: List[TOAs]) -> TOAs:
+    """Host TOAs concatenated (reference ``toa.py:1292``)."""
+    first = toas_list[0]
+    if any(t.utc_mjd_lo is not None for t in toas_list):
+        utc_hi, utc_lo = _merge_time_pair(toas_list, "utc_mjd", "utc_mjd_lo")
+    else:
+        utc_hi = np.concatenate([t.utc_mjd for t in toas_list])
+        utc_lo = None
+    out = replace(first, utc_mjd=utc_hi,
+                  error_us=np.concatenate([t.error_us for t in toas_list]),
+                  freq_mhz=np.concatenate([t.freq_mhz for t in toas_list]),
+                  obs=np.concatenate([t.obs for t in toas_list]),
+                  flags=[fl for t in toas_list for fl in t.flags])
+    out.utc_mjd_lo = utc_lo
+    tdb_pair = (any(t.tdb_lo is not None for t in toas_list)
+                and all(t.tdb is not None for t in toas_list))
+    if tdb_pair:
+        out.tdb, out.tdb_lo = _merge_time_pair(toas_list, "tdb", "tdb_lo")
+    else:
+        out.tdb_lo = None
+    for name in ("clock_corr_s", "ssb_obs_pos_km", "ssb_obs_vel_kms",
+                 "obs_sun_pos_km") + (() if tdb_pair else ("tdb",)):
+        vals = [getattr(t, name) for t in toas_list]
+        setattr(out, name, np.concatenate(vals)
+                if all(v is not None for v in vals) else None)
+    out.planet_pos_km = {}
+    if all(t.planet_pos_km.keys() == first.planet_pos_km.keys()
+           for t in toas_list):
+        for k in first.planet_pos_km:
+            out.planet_pos_km[k] = np.concatenate(
+                [t.planet_pos_km[k] for t in toas_list])
+    if any(t.quarantine_mask is not None for t in toas_list):
+        out.quarantine_mask = np.concatenate([
+            t.quarantine_mask if t.quarantine_mask is not None
+            else np.zeros(len(t), dtype=bool) for t in toas_list])
+        out.quarantine_reasons = [
+            list(r) for t in toas_list for r in (
+                t.quarantine_reasons if t.quarantine_reasons is not None
+                else [[] for _ in range(len(t))])]
+    else:
+        out.quarantine_mask = None
+        out.quarantine_reasons = None
+    if len(toas_list) > 1:
+        out.filename = None  # no single source file
+    return out

@@ -1401,6 +1401,81 @@ def export_wls_snapshot(model, toas, settings: dict, chunk: int = 16,
 
 
 # ---------------------------------------------------------------------------
+# the stand-ins as par and tim files (ref/files/)
+# ---------------------------------------------------------------------------
+def standin_par_text(s, full: bool) -> str:
+    """The par text a stand-in's model is read from."""
+    if _ngc(s):
+        return ngc_par(s)
+    if _j1909(s):
+        return j1909_par(s)
+    if s.get("pulsar") == "J0023+0923":
+        return bw_par(s)
+    if s.get("pulsar") == "J0835-4510":
+        return vela_par(s, full)
+    return standin_par(s, full)
+
+
+#: the host columns of the reference's TOAs read from the files, under
+#: ``ref/files/host/``: longdouble columns as (hi, lo) pairs
+HOST_COLUMNS = ("clock_corr_s", "error_us", "freq_mhz", "ssb_obs_pos_km",
+                "ssb_obs_vel_kms", "obs_sun_pos_km")
+
+
+def host_columns(toas) -> dict:
+    """{name: array} of a host TOAs' columns: the UTC MJDs and TDBs as
+    exact (hi, lo) pairs of their longdouble, the rest as they are."""
+    from pint_tpu.dd import dd_from_longdouble
+
+    out = {}
+    for name in ("utc_mjd", "tdb"):
+        d = dd_from_longdouble(getattr(toas, name))
+        out[f"{name}_hi"] = np.asarray(d.hi)
+        out[f"{name}_lo"] = np.asarray(d.lo)
+    for name in HOST_COLUMNS:
+        out[name] = np.asarray(getattr(toas, name))
+    out["obs"] = np.asarray(toas.obs).astype(str)
+    return out
+
+
+def export_files(s, full: bool, par_path: str, tim_path: str) -> tuple:
+    """Write a stand-in's par text and its simulated TOAs (the reference's
+    ``TOAs.write_TOA_file``) to ``par_path`` and ``tim_path``, then run
+    the reference on those files: ``(arrays, meta)`` to store under
+    ``ref/files/`` and ``meta["reference"]["files"]``.  The arrays are
+    the snapshot exporter's (:func:`export_snapshot` or
+    :func:`export_wls_snapshot`: the state, batch and contexts, the
+    residuals, design matrix, fits and grid) on the models and TOAs read
+    from the files, plus the host columns (:func:`host_columns`); the
+    meta records whether the reference's own round trip through the
+    written tim file is bitwise its in-memory TOAs and state."""
+    from pint_tpu.models import get_model_and_toas
+
+    model, toas = make_standin(s, full=full)
+    with open(par_path, "w") as fh:
+        fh.write(standin_par_text(s, full))
+    toas.write_TOA_file(tim_path)
+    fmodel, ftoas = get_model_and_toas(par_path, tim_path)
+    before, after = export_state(model, toas), export_state(fmodel, ftoas)
+    same = {k: bool(np.array_equal(before[k], after[k]))
+            for k in before if k != "meta"}
+    same["meta"] = bool(str(before["meta"]) == str(after["meta"]))
+    hb, ha = host_columns(toas), host_columns(ftoas)
+    same.update({f"host/{k}": bool(np.array_equal(hb[k], ha[k]))
+                 for k in hb})
+    same["flags"] = toas.flags == ftoas.flags
+    export = export_snapshot if fmodel.has_correlated_errors \
+        else export_wls_snapshot
+    arrays = export(fmodel, ftoas, s, chunk=16, grid=True)
+    meta = json.loads(str(arrays.pop("meta")))
+    arrays.update({f"host/{k}": v for k, v in ha.items()})
+    meta["flags"] = ftoas.flags
+    meta["roundtrip_bitwise"] = all(same.values())
+    meta["roundtrip_differs"] = sorted(k for k, v in same.items() if not v)
+    return arrays, meta
+
+
+# ---------------------------------------------------------------------------
 # component parity helpers of the CPU tests
 # ---------------------------------------------------------------------------
 def port_and_reference(settings, full: bool = False):

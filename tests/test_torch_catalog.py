@@ -241,8 +241,9 @@ def test_ingest_excludes_and_refuses():
         ingest_catalog([("only-one-element",)])
     with pytest.raises(UsageError):
         ingest_catalog([])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ingest_catalog([("J0000.par", "J0000.tim")])
+    # a (par, tim) pair is read from its files, absent ones refused
+    with pytest.raises(FileNotFoundError):
+        ingest_catalog([("J0000.par", "J0000.tim")], device="cpu")
 
 
 # ---------------------------------------------------------------------------

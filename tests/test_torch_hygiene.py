@@ -42,7 +42,8 @@ def _port_sources():
                     REPO / "tools" / "torch_chol_probe.py",
                     REPO / "tools" / "torch_k11_probe.py",
                     REPO / "tools" / "torch_amortized_probe.py",
-                    REPO / "tools" / "torch_predict_probe.py"]
+                    REPO / "tools" / "torch_predict_probe.py",
+                    REPO / "tools" / "torch_files_probe.py"]
 
 
 def test_import_and_load_pull_in_no_jax():
@@ -66,6 +67,18 @@ def test_import_and_load_pull_in_no_jax():
         "pint_torch.observatory, pint_torch.timescales, "
         "pint_torch.ephemeris, pint_torch.tdb_integrated, pint_torch.earth\n"
         "import pint_torch.integrity.robust, pint_torch.integrity.quarantine\n"
+        # the reading layer: its modules, then the committed ngc stand-in
+        # read from its par and tim files through the C++ parser
+        "import pint_torch.native, pint_torch.io.par, pint_torch.io.tim, "
+        "pint_torch.pulsar_mjd, pint_torch.toa_select, "
+        "pint_torch.models.parameter, pint_torch.models.model_builder, "
+        "pint_torch.models.tcb_conversion, "
+        "pint_torch.integrity.diagnostics\n"
+        "from pint_torch.bridge import NGC_PATH, standin_files\n"
+        "from pint_torch.models import get_model_and_toas\n"
+        "par, tim = standin_files(NGC_PATH)\n"
+        "m, t = get_model_and_toas(str(par), str(tim), device='cpu')\n"
+        "t.to_batch(device='cpu', model=m)\n"
         "from pint_torch.bridge import load_snapshot, STANDIN_PATH, "
         "ELL1_PATH, ELL1H_PATH, NGC_PHOFF_PATH, DDK_PATH, DDGR_PATH, "
         "BT_SMALL_PATH, DDS_SMALL_PATH, DDH_SMALL_PATH, BW_PATH, "
@@ -149,6 +162,19 @@ def test_entry_points_default_to_the_gpu():
                  WB_WHITE_SMALL_PATH, NOISE_PATH):
         with pytest.raises(NoGPUError):
             load_snapshot(path)
+    # a model read from par text, and a catalogue read from files, is made
+    # on the card unless the caller asks for the CPU
+    from pint_torch.bridge import standin_files
+    from pint_torch.catalog import ingest_catalog
+    from pint_torch.models import get_model, get_model_and_toas
+
+    par, tim = standin_files(NGC_PATH)
+    for call in (lambda: get_model(str(par)),
+                 lambda: get_model_and_toas(str(par), str(tim)),
+                 lambda: ingest_catalog([(str(par), str(tim))])):
+        with pytest.raises(NoGPUError):
+            call()
+    assert get_model(str(par), device="cpu").device.type == "cpu"
     # the Kepler cores take their elements on the host and run on the card
     from pint_torch.orbital import kepler as K
 

@@ -68,6 +68,31 @@ PAIRS = [
     ("utils", "weighted_mean"),
     ("utils", "normalize_designmatrix"),
     ("integrity.quarantine", "run_toa_checks"),
+    # the reading layer (ROADMAP A 10b)
+    ("toa", "get_TOAs"), ("toa", "get_TOAs_list"), ("toa", "build_table"),
+    ("toa", "read_toa_file"), ("toa", "load_pickle"), ("toa", "save_pickle"),
+    ("toa", "merge_TOAs"), ("toa", "TOA.__init__"), ("toa", "TOAs.validate"),
+    ("toa", "TOAs.get_clusters"), ("toa", "TOAs.adjust_TOAs"),
+    ("toa", "TOAs.select"), ("toa", "TOAs.get_flag_value"),
+    ("toa", "FlagDict.__init__"), ("io.par", "parse_parfile"),
+    ("io.par", "format_parfile"), ("io.par", "fortran_float"),
+    ("io.tim", "read_tim_file"), ("io.tim", "format_toa_line"),
+    ("models.model_builder", "get_model_and_toas"),
+    ("models.model_builder", "guess_binary_model"),
+    ("models.model_builder", "convert_binary_params_dict"),
+    ("models.model_builder", "ModelBuilder.choose_components"),
+    ("models.tcb_conversion", "convert_tcb_tdb"),
+    ("models.parameter", "parse_angle"), ("models.parameter", "format_angle"),
+    ("models.parameter", "split_prefixed_name"),
+    *[("models.parameter", f"{c}.__init__") for c in (
+        "Parameter", "floatParameter", "MJDParameter", "AngleParameter",
+        "prefixParameter", "maskParameter", "pairParameter",
+        "funcParameter")],
+    ("models.parameter", "maskParameter.select_toa_mask"),
+    ("pulsar_mjd", "str_to_mjds"), ("pulsar_mjd", "mjds_to_str"),
+    ("pulsar_mjd", "day_frac"), ("dd", "dd_from_string"),
+    ("dd", "dd_from_longdouble"), ("integrity.diagnostics", "Diagnostics.add"),
+    ("toa_select", "TOASelect.get_select_index"),
 ]
 
 #: every public function or method with one qualified name in both
@@ -118,17 +143,25 @@ ALLOWED = {
            "bt_delay", "dd_delay", "ddk_corrections", "ell1_delay",
            "ell1_eps", "ell1_inverse_delay", "ell1_roemer_terms",
            "ell1h_delay", "ell1k_delay")},
-    "models.timing_model:Component.__init__": "10b: components built from "
-                                              "par text",
-    "models.timing_model:TimingModel.__init__": "10b: the model built from "
-                                                "par text",
-    "models.timing_model:TimingModel.validate": "10b: validate(allow_tcb=)",
-    "toa:TOABatch.__init__": "10b: the host TOAs",
-    "toa:TOAs.to_batch": "10b: the host TOAs (the batch's device, contexts "
-                         "and TZR row)",
-    "toa:merge_TOAs": "10b: merge of host TOAs",
-    "toa:TOAs.__init__": "10c and 10b: pulse numbers; quarantine on host "
-                         "TOAs",
+    "models.model_builder:get_model": TRAILING_DEVICE,
+    "catalog.ingest:ingest_catalog": TRAILING_DEVICE,
+    # what stays of 10b: the port's structure, not a missing port
+    "models.timing_model:Component.__init__": "10b: a port component "
+        "holds the config its setup resolved and its per-TOA device "
+        "context; the builder (Component.template) and the bridge pass "
+        "them",
+    "models.timing_model:TimingModel.__init__": "10b: the port's model is "
+        "its parameter table and components on a device, built by "
+        "get_model or the bridge, not filled by add_component",
+    "toa:TOABatch.__init__": "10b: the port's batch is a dataclass of "
+        "device tensors with its contexts, quarantine holder and host "
+        "columns; the reference's pulse-number fields wait for 10c",
+    "toa:TOAs.to_batch": "10b: the batch's device, the model whose "
+        "contexts it carries and the TZR flag (the port builds the TZR row "
+        "on the host)",
+    "toa:TOAs.write_TOA_file": "10b: the default TOA name is the port's "
+        "package name",
+    "toa:TOAs.__init__": "10c: the pulse-number columns",
 }
 
 

@@ -61,6 +61,14 @@ under ``ref/sweep/`` the same way, to b1855 and dmx15::
     python tests/test_torch_snapshot.py --settings b1855 --sweep \
         --write pint_torch/data/b1855_standin.npz
 
+``--files`` writes the stand-in's par text and simulated TOAs (the
+reference's ``TOAs.write_TOA_file``) as ``pint_torch/data/<stand-in>.par``
+and ``.tim`` and adds the reference's run on those files under
+``ref/files/`` the same way (b1855, ell1 and ngc)::
+
+    python tests/test_torch_snapshot.py --settings b1855 --files \
+        --write pint_torch/data/b1855_standin.npz
+
 ``--precision`` adds the precision layer's reference outputs
 (``_torch_standin.PRECISION``: the forced reduced-precision fits and grid
 of b1855, the serve batcher's requests of j1909_stream, the catalogue fit
@@ -541,10 +549,12 @@ API_DIGESTS = {
 
 #: reference outputs added after every digest below was taken (the
 #: reduced-precision amortized run, the mixed photon template, the
-#: full-covariance GLS fits): every digest leaves them out, arrays and
+#: full-covariance GLS fits, the reference's run on the stand-in's par and
+#: tim files): every digest leaves them out, arrays and
 #: ``meta["reference"]`` key alike, so each pins what its file held before
 LATER = {"ref/amortized_reduced/": "amortized_reduced",
-         "ref/photon_mixed/": "photon_mixed", "ref/full_cov/": "full_cov"}
+         "ref/photon_mixed/": "photon_mixed", "ref/full_cov/": "full_cov",
+         "ref/files/": "files"}
 
 
 def _digest(path, skip=("ref/api/", "ref/bayes/", "ref/sweep/",
@@ -1065,6 +1075,36 @@ def _add_outputs(path: str, which: str, export, prefix: str) -> None:
     np.savez_compressed(path, **arrays)
 
 
+#: the stand-ins committed as par and tim files too (``--files``)
+FILES = ("b1855", "ell1", "ngc")
+
+
+def _add_files(path: str, which: str) -> None:
+    """Write the stand-in's par and tim files beside the committed
+    stand-in at ``path`` (:func:`pint_torch.bridge.standin_files`) and add
+    the reference's run on them under ``ref/files/``
+    (:func:`_torch_standin.export_files`); the model rebuilt from the
+    settings must export the committed state bitwise, and the arrays
+    already there but ``ref/files/`` stay as they are."""
+    from pint_torch.bridge import standin_files
+
+    if which not in FILES:
+        raise SystemExit(f"--files takes --settings {', '.join(FILES)}")
+    _, _, arrays, meta = _rebuilt(path, which)
+    par, tim = standin_files(path)
+    f_arrays, f_meta = standin.export_files(
+        SETTINGS[which], which not in SMALL_DEPTH, str(par), str(tim))
+    arrays = {k: v for k, v in arrays.items()
+              if not k.startswith("ref/files/")}
+    arrays.update({f"ref/files/{k}": v for k, v in f_arrays.items()})
+    meta["reference"]["files"] = f_meta
+    arrays["meta"] = np.asarray(json.dumps(meta))
+    np.savez_compressed(path, **arrays)
+    print(f"{which}: reference round trip through {tim} bitwise: "
+          f"{f_meta['roundtrip_bitwise']} (differs: "
+          f"{f_meta['roundtrip_differs']})")
+
+
 #: the committed stand-in of each P2 member
 PREDICT_FILES = {"b1855": "b1855_standin.npz", "ell1": "j1909_ell1_standin.npz",
                  "ddk": "j1713_ddk_standin.npz",
@@ -1227,6 +1267,10 @@ if __name__ == "__main__":
                          "PTA67_CATALOG_SETTINGS, SMALL_CATALOG_SETTINGS "
                          "(the PTA catalogue: ingest, buckets, fits, joint "
                          "likelihood, chain)")
+    ap.add_argument("--files", action="store_true",
+                    help="write the stand-in's par and tim files beside the "
+                         "committed file at --write and add the reference's "
+                         "run on them (ref/files/), keeping its arrays")
     ap.add_argument("--api", action="store_true",
                     help="add the API's reference outputs to the committed "
                          "file at --write, keeping its arrays")
@@ -1274,7 +1318,9 @@ if __name__ == "__main__":
                          "ddk and ddgr (and b1855's read path) to their "
                          "committed files in the directory --write")
     args = ap.parse_args()
-    if args.predict:
+    if args.files:
+        _add_files(args.write, args.settings)
+    elif args.predict:
         _add_predict(args.write, args.settings)
     elif args.amortized:
         _add_amortized(args.write, args.settings)

@@ -436,7 +436,10 @@ def test_auto_chunk_and_ncpu_warning(gls, monkeypatch):
     monkeypatch.setattr(pgrid, "_warned_executor", False)
     rec = _Records()
     log.addHandler(rec)
-    monkeypatch.setattr(log, "level", logging.INFO)
+    # setLevel, not the bare attribute: it also drops the logger's cache
+    # of isEnabledFor answers from earlier tests in the process
+    monkeypatch.setattr(log, "level", log.level)
+    log.setLevel(logging.INFO)
     try:
         axes = tuple(a[:3] for a in gls["axes"])
         f = GLSFitter(gls["b"], gls["m"])
@@ -446,6 +449,7 @@ def test_auto_chunk_and_ncpu_warning(gls, monkeypatch):
         w2, _ = pgrid.grid_chisq(f, GRID, axes, niter=1, ncpu=4)
     finally:
         log.removeHandler(rec)
+        log.manager._clear_cache()
     assert pgrid.default_gls_chunk("cpu") == 128
     assert np.array_equal(base, auto) and np.array_equal(base, w1)
     assert np.array_equal(base, w2)
