@@ -6523,6 +6523,472 @@ def _files_phase(label, path, kernels, tag, device="cuda", grid_every=1):
                                  noise_rounds=[]))
     return counts, cap
 
+TRACKING_RESID_BAR_S = 1e-10
+TRACKING_FT_BAR = 1e-6
+#: the chi2 an F-test's refit moves, port against reference, as a share of
+#: the reference's chi2 of the fit tested against: each package's fits
+#: agree to a few 1e-9 of chi2 (PERF.md section 6, PR 24)
+TRACKING_DCHI2_BAR = 2e-8
+
+
+def _tracking_fit_bars(label, f, ref, meta, prefix) -> dict:
+    """A fit at the fit bars against the stored one under ``prefix``:
+    chi2 1e-6 rel, each value within 1e-2 of the reference's uncertainty,
+    uncertainties 1e-6 rel, the converged flag the reference's."""
+    import numpy as np
+
+    want = meta[prefix.rstrip("/")]
+    names = want["params"]
+    if list(f.model.free_params) != names:
+        raise RuntimeError(f"tracking {label}: free parameters "
+                           f"{f.model.free_params} not {names}")
+    sig = ref[prefix + "uncertainties"]
+    vals = np.array([f.model.value(p) for p in names])
+    unc = np.array([f.model[p].uncertainty for p in names])
+    out = dict(chi2=abs(f.chi2 / want["chi2"] - 1),
+               values=float(np.max(np.abs(vals - ref[prefix + "values"])
+                                   / sig)),
+               unc=float(np.max(np.abs(unc / sig - 1))))
+    ok = (out["chi2"] <= 1e-6 and out["values"] <= 1e-2
+          and out["unc"] <= 1e-6
+          and bool(f.converged) == want["converged"])
+    if not ok:
+        raise RuntimeError(f"tracking {label}: fit bars failed {out}, "
+                           f"converged {f.converged} (reference "
+                           f"{want['converged']})")
+    return out
+
+
+def _tracking_ftest(label, got, want, base, rbase, remove=False) -> dict:
+    """``ftest`` (``base``, ``rbase``: the port's and the reference's
+    (chi2, dof) of the fit tested against): the refit's chi2 and rms 1e-6
+    rel and its dof exact; the port's p-value ``FTest`` of the port's own
+    two fits exactly, and ``FTest`` of the reference's two fits the
+    reference's p-value to 1e-6 rel; the chi2 the refit moves (the base's
+    less the refit's) within ``TRACKING_DCHI2_BAR`` x the reference's base
+    chi2 of the reference's.  That bar is below each case's |chi2 moved|,
+    so it holds the refit to moving as the reference's did where the move
+    is a small part of chi2 (b1855 adding F2: 4.0e-4 of 3860).  The two
+    p-values' gap is recorded: it carries the moved chi2's relative gap
+    times the p-value's sensitivity to it.  Returns the gaps."""
+    from pint_torch.utils import FTest
+
+    def ft(b, new):
+        return FTest(*new, *b) if remove else FTest(*b, *new)
+
+    moved, rmoved = base[0] - got["chi2_test"], rbase[0] - want["chi2_test"]
+    at_ref = ft(rbase, (want["chi2_test"], want["dof_test"]))
+    out = dict(chi2=abs(got["chi2_test"] / want["chi2_test"] - 1),
+               rms=abs(got["resid_rms_test"] / want["resid_rms_test"] - 1),
+               ft=abs(got["ft"] / want["ft"] - 1) if want["ft"] else 0.0)
+    out["ft of its own fits"] = abs(
+        got["ft"] - ft(base, (got["chi2_test"], got["dof_test"])))
+    out["ft at the reference's chi2s"] = abs(at_ref / want["ft"] - 1) \
+        if want["ft"] else abs(at_ref)
+    out["chi2 moved (of chi2)"] = abs(moved - rmoved) / rbase[0]
+    out["chi2 moved (rel)"] = abs(moved / rmoved - 1) if rmoved else 0.0
+    ok = (out["chi2"] <= TRACKING_FT_BAR and out["rms"] <= TRACKING_FT_BAR
+          and got["dof_test"] == want["dof_test"] and base[1] == rbase[1]
+          and out["ft of its own fits"] == 0.0
+          and out["ft at the reference's chi2s"] <= TRACKING_FT_BAR
+          and out["chi2 moved (of chi2)"] <= TRACKING_DCHI2_BAR)
+    if not ok:
+        raise RuntimeError(f"tracking {label}: ftest {got} against {want}: "
+                           f"{out}")
+    return out
+
+
+def _tracking_texts(label, m, t, batch, tmeta, ref_fit, ref) -> dict:
+    """The par text in each dialect and ``compare`` line by line the
+    reference's (but the creator line), and a model read back from the
+    port's text giving bitwise its residuals."""
+    import torch
+
+    from pint_torch.models import get_model
+    from pint_torch.residuals import Residuals
+
+    for fmt, text in tmeta["parfile"].items():
+        if m.as_parfile(format=fmt).splitlines()[1:] \
+                != text.splitlines()[1:]:
+            raise RuntimeError(f"tracking {label}: as_parfile({fmt}) is not "
+                               "the reference's")
+    m2 = get_model(m.as_parfile(), device=batch.device)
+    want = Residuals(batch, m).time_resids
+    got = Residuals(t.to_batch(device=batch.device, model=m2),
+                    m2).time_resids
+    if not torch.equal(got, want):
+        raise RuntimeError(f"tracking {label}: the par text read back "
+                           "moves the residuals")
+    fitted = m.copy()
+    for p, v, u in zip(ref_fit["params"], ref["base/values"],
+                       ref["base/uncertainties"]):
+        fitted[p].value, fitted[p].uncertainty = float(v), float(u)
+    for v, text in tmeta["compare"].items():
+        if m.compare(fitted, verbosity=v) != text:
+            raise RuntimeError(f"tracking {label}: compare({v}) is not the "
+                               "reference's")
+    return dict(dialects=len(tmeta["parfile"]), compare=len(tmeta["compare"]))
+
+
+def _tracking_doctor(label, f, tmeta) -> list:
+    """The doctor's TOA, compatibility and robust sections the reference's;
+    a degenerate pair whose |correlation| is within 1e-9 of the bar is the
+    one difference allowed, and returned."""
+    import re
+
+    from pint_torch.integrity.doctor import DEGENERATE_CORR
+
+    got = [ln for ln in f.doctor().splitlines()[2:]
+           if not ln.startswith("Last solve:")]
+    want = tmeta["doctor"]
+    if got == want:
+        return []
+    pat = re.compile(r"\(\|column corr\| = ([0-9.]+)\)")
+
+    def near(ln):
+        mt = pat.search(ln)
+        return mt and abs(float(mt.group(1)) - DEGENERATE_CORR) <= 1e-9
+
+    rest_g = [ln for ln in got if not near(ln)
+              and not ln.startswith("Model/TOA compatibility")]
+    rest_w = [ln for ln in want if not near(ln)
+              and not ln.startswith("Model/TOA compatibility")]
+    if rest_g != rest_w:
+        raise RuntimeError(f"tracking {label}: doctor {got} against {want}")
+    return sorted(set(got) ^ set(want))
+
+
+def _tracking_phase(kernels, tag, device="cuda",
+                    only=("ell1", "b1855")) -> tuple:
+    """The whole-TOA-set layer on the card from the committed par and tim
+    files of ngc, ell1 and b1855 (``get_model_and_toas``), the counts
+    zeroed just before and read just after, against the reference's run
+    on the same files (``ref/tracking/``): (a) ngc's pulse numbers
+    exactly, with F0 off by the stored offset the residuals in each
+    ``track_mode`` within 1e-10 s and ``WLSFitter``'s fit at the fit bars
+    (the nearest mode's wrapped fit too: values, chi2, converged), the
+    columns of ``phase_columns_from_flags`` bitwise; (b) ell1's
+    ``BayesianTiming(use_pulse_numbers=True)`` at 64 stored points within
+    5e-7 x chi2 and a 32 x 10 ``MCMCFitter`` chain at PR 12's chain bars;
+    (c) ``d_phase_d_toa`` on ngc, b1855 and ell1 within max(1e-11 |ref|,
+    8 q / (2 h)), q = ulp(F0 max|delay|); (d) ``ftest`` adding F2 (all
+    three) and removing FD3 (b1855); (e) the par text in three dialects,
+    ``compare`` and the read-back, b1855 with two DMX windows removed and
+    ell1 with three WaveX terms added fitted at the fit bars, the jump
+    editing's flags and jumps; (f) b1855's first half by MJD selected
+    from its batch: ECORR epochs exactly, the GLS fit at the fit bars;
+    (g) the preflight: platform, float64 health, the policies; (h) the
+    doctor's sections.  Each operation is timed after synchronize.
+    ``device`` and ``only`` (the stand-ins to run after ngc) let the CPU
+    tests rehearse it.  Returns (counts, capture, timings)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from pint_torch.bayesian import BayesianTiming
+    from pint_torch.bridge import (ELL1_PATH, NGC_PATH, STANDIN_PATH,
+                                   read_snapshot, standin_files)
+    from pint_torch.exceptions import DeviceMismatchError
+    from pint_torch.fitter import WLSFitter
+    from pint_torch.gls_fitter import GLSFitter
+    from pint_torch.mcmc_fitter import MCMCFitter
+    from pint_torch.models import get_model_and_toas
+    from pint_torch.models.parameter import prefixParameter
+    from pint_torch.models.wavex import WaveX
+    from pint_torch.residuals import Residuals
+    from pint_torch.runtime.preflight import check_device, device_profile
+    from pint_torch.sampler import EnsembleSampler
+
+    times = {}
+
+    def timed(name, fn):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    def stored(path):
+        meta, arrays = read_snapshot(path)
+        pre = "ref/tracking/"
+        return (meta["reference"]["tracking"],
+                {k[len(pre):]: v for k, v in arrays.items()
+                 if k.startswith(pre)})
+
+    def dphase_gap(label, m, t, want):
+        got = timed(f"{label} d_phase_d_toa",
+                    lambda: m.d_phase_d_toa(t)).cpu().numpy()
+        F0 = m.value("F0")
+        q = float(np.spacing(F0 * np.abs(m.delay(t).cpu().numpy()).max()))
+        h = 2.0 / F0
+        bar = np.maximum(1e-11 * np.abs(want), 8 * q / (2 * h))
+        gap = np.abs(got - want)
+        if not np.all(gap <= bar):
+            raise RuntimeError(f"tracking {label}: d_phase_d_toa gap "
+                               f"{gap.max():.3e} Hz over its bar")
+        return float((gap / (q / (2 * h))).max())
+
+    # ---- (g) the preflight on the card --------------------------------
+    prof = timed("device_profile", lambda: device_profile(refresh=True,
+                                                          device=device))
+    want_platform = "gpu" if device == "cuda" else "cpu"
+    if not (prof.platform == want_platform and prof.f64_native
+            and prof.mantissa_bits == 52 and prof.two_sum_error == 0.0):
+        raise RuntimeError(f"tracking preflight: {prof}")
+    import warnings as _w
+
+    with _w.catch_warnings():
+        _w.simplefilter("error")
+        check_device(want_platform, device=device)
+    try:
+        check_device("tpu", policy="strict", device=device)
+    except DeviceMismatchError:
+        strict = "raised DeviceMismatchError"
+    else:
+        raise RuntimeError("check_device('tpu', policy='strict') passed")
+    print(f"phase tracking preflight: platform {prof.platform}, kind "
+          f"{prof.device_kind}, f64_native {prof.f64_native}, mantissa_bits "
+          f"{prof.mantissa_bits}, two_sum_error {prof.two_sum_error}; "
+          f"check_device({want_platform!r}) silent, check_device('tpu', "
+          f"strict) {strict} {tag}", flush=True)
+
+    cap = Capture(kernels.modules())
+    cap.install()
+    kernels.reset_counts()
+    found = {}
+
+    # ---- (a) phase connection on ngc ------------------------------------
+    tmeta, ref = stored(NGC_PATH)
+    S = tmeta["settings"]
+    par, tim = standin_files(NGC_PATH)
+    m, t = timed("ngc get_model_and_toas", lambda: get_model_and_toas(
+        str(par), str(tim), device=device))
+    pn = timed("ngc compute_pulse_numbers",
+               lambda: t.compute_pulse_numbers(m))
+    near_half = []
+    if not np.array_equal(pn, ref["pn"]):
+        ph = m.phase(t, abs_phase=True)
+        frac = ph.frac.cpu().numpy()
+        bad = np.flatnonzero(pn != ref["pn"])
+        near_half = [(int(i), float(frac[i])) for i in bad
+                     if abs(abs(frac[i]) - 0.5) <= 1e-9]
+        if len(near_half) != len(bad):
+            raise RuntimeError("tracking ngc: pulse numbers differ from the "
+                               f"reference's at rows {bad.tolist()}")
+    mw = m.copy()
+    mw["F0"].value = mw.value("F0") + tmeta["df0"]
+    batch = t.to_batch(device=device, model=mw)
+    gaps = {}
+    for mode in ("use_pulse_numbers", "nearest"):
+        r = timed(f"ngc residuals {mode}", lambda: Residuals(
+            batch, mw, track_mode=mode).time_resids)
+        gaps[f"resid {mode}"] = float(np.abs(
+            r.cpu().numpy() - ref[f"resid/{mode}"]).max())
+        if gaps[f"resid {mode}"] > TRACKING_RESID_BAR_S:
+            raise RuntimeError(f"tracking ngc: residuals ({mode}) "
+                               f"{gaps[f'resid {mode}']:.3e} s off")
+        f = WLSFitter(batch, mw, track_mode=mode)
+        timed(f"ngc WLS fit {mode}",
+              lambda: f.fit_toas(maxiter=S["fit_maxiter"]))
+        found[f"ngc fit {mode}"] = _tracking_fit_bars(
+            f"ngc {mode}", f, ref, tmeta, f"fit_{mode}/")
+    tf = copy.deepcopy(t)
+    for i, fl in enumerate(tf.flags):
+        if i != S["pn_missing"]:
+            fl["pn"] = repr(float(ref["pn"][i] + (i % S["pn_offset_every"])))
+    for i, v in S["padd_rows"]:
+        tf.flags[i]["padd"] = v
+    tf.phase_columns_from_flags()
+    if not (np.array_equal(tf.pulse_number, ref["flags_pn"], equal_nan=True)
+            and np.array_equal(tf.delta_pulse_number, ref["flags_dpn"])):
+        raise RuntimeError("tracking ngc: phase_columns_from_flags")
+    b0 = t.to_batch(device=device, model=m)
+    f = WLSFitter(b0, m)
+    timed("ngc WLS fit", lambda: f.fit_toas(maxiter=S["fit_maxiter"]))
+    found["ngc fit"] = _tracking_fit_bars("ngc", f, ref, tmeta, "base/")
+    found["ngc dphase q"] = dphase_gap("ngc", m, t, ref["dphase"])
+    ft = timed("ngc ftest add F2", lambda: f.ftest(
+        prefixParameter("F2", value=0.0, units="Hz/s^2"), "Spindown",
+        full_output=True))
+    found["ngc ftest"] = _tracking_ftest(
+        "ngc add F2", ft, tmeta["ftest"]["add_F2"],
+        (f.resids.chi2, f.resids.dof),
+        tuple(tmeta["ftest"]["base"]))
+    _tracking_texts("ngc", m, t, b0, tmeta, tmeta["base"], ref)
+    found["ngc doctor near-bar lines"] = _tracking_doctor("ngc", f, tmeta)
+    print(f"phase tracking ngc: N={t.ntoas}; pulse numbers exact"
+          + (f" but {near_half} (|frac| within 1e-9 of 0.5)" if near_half
+             else "")
+          + f"; F0 + {tmeta['df0']:.6e} Hz ({S['wrap_cycles']} cycles over "
+          f"the span); " + ", ".join(f"{k} {v:.3e} s" for k, v in
+                                     gaps.items())
+          + "; " + "; ".join(f"{k} {v}" for k, v in found.items()
+                             if k.startswith("ngc"))
+          + f"; flags' columns bitwise {tag}", flush=True)
+
+    if "ell1" not in only:
+        return _tracking_done(kernels, cap, times, found, tag)
+    # ---- (b) walker rows with pulse numbers on ell1; ell1's edits -------
+    tmeta, ref = stored(ELL1_PATH)
+    S = tmeta["settings"]
+    bz = tmeta["bayes"]
+    par, tim = standin_files(ELL1_PATH)
+    m, t = timed("ell1 get_model_and_toas", lambda: get_model_and_toas(
+        str(par), str(tim), device=device))
+    batch = t.to_batch(device=device, model=m)
+    f = WLSFitter(batch, m)
+    timed("ell1 WLS fit", lambda: f.fit_toas(maxiter=S["fit_maxiter"]))
+    found["ell1 fit"] = _tracking_fit_bars("ell1", f, ref, tmeta, "base/")
+    info = {p: dict(distr="uniform", pmin=float(lo), pmax=float(hi))
+            for p, lo, hi in zip(bz["params"], ref["bayes/pmin"],
+                                 ref["bayes/pmax"])}
+    bb = copy.copy(batch)
+    bt = timed("ell1 BayesianTiming(use_pulse_numbers=True)",
+               lambda: BayesianTiming(m, bb, use_pulse_numbers=True,
+                                      prior_info=info))
+    if not np.array_equal(bb.pulse_number.cpu().numpy(), ref["bayes/pn"]):
+        raise RuntimeError("tracking ell1: pulse numbers")
+    pts = ref["bayes/points"]
+    lp = timed("ell1 lnposterior_batch 64",
+               lambda: bt.lnposterior_batch(pts))
+    want = ref["bayes/lnposterior"]
+    fin = np.isfinite(want)
+    if not np.array_equal(np.isfinite(lp), fin):
+        raise RuntimeError("tracking ell1: -inf where the reference's not")
+    d_lp = float(np.max(np.abs(lp[fin] - want[fin])
+                        / ref["bayes/chi2"][fin]))
+    if d_lp > LNPOST_BAR:
+        raise RuntimeError(f"tracking ell1: lnposterior {d_lp:.3e} of chi2")
+    s = EnsembleSampler(bz["nwalkers"], seed=bz["seeds"]["sampler"])
+    s.decision_log = []
+    fm = MCMCFitter(copy.copy(batch), m, use_pulse_numbers=True,
+                    prior_info=info, sampler=s)
+    for p, u in zip(bz["params"], ref["base/uncertainties"]):
+        fm.model[p].uncertainty = float(u)
+    pos = ref["bayes/pos"]
+    timed("ell1 MCMCFitter.fit_toas 32 x 10", lambda: fm.fit_toas(
+        maxiter=bz["nsteps"], pos=pos.copy()))
+    chain = {k[len("bayes/"):]: v for k, v in ref.items()
+             if k.startswith("bayes/")}
+    cb = _mcmc_chain_bars(chain, bz, fm, pos)
+    mx = m.copy()
+    mx.add_component(WaveX.template(), validate=False)
+    mx["WXEPOCH"].value = mx["PEPOCH"].value
+    mx.components["WaveX"].add_wavex_components(
+        list(S["wavex_freqs"]), indices=[1, 2, 3], frozens=False)
+    fw = WLSFitter(batch, mx)
+    timed("ell1 WLS fit after add_wavex_components",
+          lambda: fw.fit_toas(maxiter=S["fit_maxiter"]))
+    found["ell1 wavex fit"] = _tracking_fit_bars("ell1 wavex", fw, ref,
+                                                 tmeta, "wavex/")
+    found["ell1 dphase q"] = dphase_gap("ell1", m, t, ref["dphase"])
+    ft = timed("ell1 ftest add F2", lambda: f.ftest(
+        prefixParameter("F2", value=0.0, units="Hz/s^2"), "Spindown",
+        full_output=True))
+    found["ell1 ftest"] = _tracking_ftest(
+        "ell1 add F2", ft, tmeta["ftest"]["add_F2"],
+        (f.resids.chi2, f.resids.dof),
+        tuple(tmeta["ftest"]["base"]))
+    _tracking_texts("ell1", m, t, batch, tmeta, tmeta["base"], ref)
+    print(f"phase tracking ell1: N={t.ntoas}; lnposterior (pulse numbers) "
+          f"at {len(pts)} points max|d| {d_lp:.3e} of chi2 (<= "
+          f"{LNPOST_BAR:g}); chain {bz['nwalkers']} x {bz['nsteps']}: "
+          f"{cb['inside']} decision(s) inside the margin, first differing "
+          f"{cb['diverged']}, walkers bitwise over {cb['bitwise_steps']} "
+          f"steps; " + "; ".join(f"{k} {v}" for k, v in found.items()
+                                if k.startswith("ell1")) + f" {tag}",
+          flush=True)
+
+    if "b1855" not in only:
+        return _tracking_done(kernels, cap, times, found, tag)
+    # ---- b1855: ftest both forms, edits, the ECORR subset, the doctor ---
+    tmeta, ref = stored(STANDIN_PATH)
+    S = tmeta["settings"]
+    par, tim = standin_files(STANDIN_PATH)
+    m, t = timed("b1855 get_model_and_toas", lambda: get_model_and_toas(
+        str(par), str(tim), device=device))
+    batch = t.to_batch(device=device, model=m)
+    f = GLSFitter(batch, m)
+    timed("b1855 GLS fit", lambda: f.fit_toas(maxiter=S["gls_maxiter"]))
+    found["b1855 fit"] = _tracking_fit_bars("b1855", f, ref, tmeta, "base/")
+    found["b1855 dphase q"] = dphase_gap("b1855", m, t, ref["dphase"])
+    ft = timed("b1855 ftest add F2", lambda: f.ftest(
+        prefixParameter("F2", value=0.0, units="Hz/s^2"), "Spindown",
+        full_output=True))
+    base = (f.resids.chi2, f.resids.dof)
+    rbase = tuple(tmeta["ftest"]["base"])
+    found["b1855 ftest add"] = _tracking_ftest(
+        "b1855 add F2", ft, tmeta["ftest"]["add_F2"], base, rbase)
+    ft = timed("b1855 ftest remove", lambda: f.ftest(
+        f.model[S["ftest_removed"]], None, remove=True, full_output=True))
+    found["b1855 ftest remove"] = _tracking_ftest(
+        "b1855 remove", ft, tmeta["ftest"]["remove"], base, rbase,
+        remove=True)
+    md = m.copy()
+    md.components["DispersionDMX"].remove_DMX_range(list(S["dmx_removed"]))
+    fd = GLSFitter(batch, md)
+    timed("b1855 GLS fit after remove_DMX_range",
+          lambda: fd.fit_toas(maxiter=S["gls_maxiter"]))
+    found["b1855 dmx fit"] = _tracking_fit_bars("b1855 dmx", fd, ref, tmeta,
+                                                "dmx_removed/")
+    mj, tj = m.copy(), copy.deepcopy(t)
+
+    def jump_state(step):
+        want = tmeta["jumps"][step]
+        got = {p: [mj[p].key, list(mj[p].key_value), float(mj[p].value),
+                   bool(mj[p].frozen)]
+               for p in mj.params if p.startswith("JUMP")}
+        if [dict(fl) for fl in tj.flags] != want["flags"] \
+                or got != want["jumps"]:
+            raise RuntimeError(f"tracking b1855: {step} left other flags "
+                               "or jumps than the reference's")
+
+    mj.components["PhaseJump"].jump_params_to_flags(tj)
+    jump_state("jump_params_to_flags")
+    for i in S["gui_rows"]:
+        tj.flags[i]["gui_jump"] = "2"
+    mj.jump_flags_to_params(tj)
+    jump_state("jump_flags_to_params")
+    mj.delete_jump_and_flags(tj, 2)
+    jump_state("delete_jump_and_flags")
+    mjd = np.asarray(t.get_mjds(), dtype=np.float64)
+    keep = mjd < np.median(mjd)
+    sub = timed("b1855 select first half", lambda: batch.select(keep, m))
+    ecorr = m.components["EcorrNoise"]
+    U = np.asarray(ecorr.basis_weight_pair(m, sub)[0])
+    epoch = np.where(U.any(axis=1), np.argmax(U != 0, axis=1), -1)
+    if not np.array_equal(epoch, ref["subset/ecorr_epoch"]):
+        raise RuntimeError("tracking b1855: the subset's ECORR epochs")
+    fs = GLSFitter(sub, m)
+    timed("b1855 GLS fit of the subset",
+          lambda: fs.fit_toas(maxiter=S["gls_maxiter"]))
+    found["b1855 subset fit"] = _tracking_fit_bars("b1855 subset", fs, ref,
+                                                   tmeta, "subset/")
+    _tracking_texts("b1855", m, t, batch, tmeta, tmeta["base"], ref)
+    found["b1855 doctor near-bar lines"] = _tracking_doctor("b1855", f,
+                                                            tmeta)
+    print(f"phase tracking b1855: N={t.ntoas}; subset N={sub.ntoas}, "
+          f"{int(epoch.max()) + 1} ECORR epochs exact; jump editing's "
+          f"flags and jumps the reference's; "
+          + "; ".join(f"{k} {v}" for k, v in found.items()
+                      if k.startswith("b1855")) + f" {tag}", flush=True)
+    return _tracking_done(kernels, cap, times, found, tag)
+
+
+def _tracking_done(kernels, cap, times, found, tag) -> tuple:
+    """Read the tracking phase's counts, print its times."""
+    counts = kernels.launch_counts()
+    cap.remove()
+    print("phase tracking times: " + ", ".join(
+        f"{k} {v:.4f} s" for k, v in times.items()) + f"; launches "
+        f"(nonzero) {dict((k, v) for k, v in counts.items() if v)} {tag}",
+        flush=True)
+    return counts, cap, times
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -8051,6 +8517,24 @@ def main() -> int:
     _backward_kernels({k: v[1] for k, v in paths.items()}, dev, tag)
     records += _k13_k14_kernels(predict["predict_p1"],
                                 predict["predict_p2"], dev, tag)
+
+    # ---- the tracking phase: the whole-TOA-set layer, after every other
+    # phase, its counts zeroed just before it: pulse numbers feed the fits
+    # and walker rows through K1's integer output, DD fits after an edit
+    # and in ftest's refits run K2, ELL1 walker rows and the WaveX fit K4
+    t_track = time.perf_counter()
+    track_counts, _, _ = _tracking_phase(kernels, tag)
+    track_kernels = (K1.KERNELS[False], K1.KERNELS[True],
+                     *k2[K2.DD], K4.KERNELS[(K4.ELL1, False)],
+                     K4.KERNELS[(K4.ELL1, True)])
+    missing = [k for k in track_kernels if track_counts[k] == 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on the tracking phase: "
+                           f"{missing}")
+    print(f"phase tracking wall: {time.perf_counter() - t_track:.2f} s; "
+          f"launches " + ", ".join(f"{k} {v}" for k, v in
+                                   track_counts.items() if v) + f" {tag}",
+          flush=True)
 
     print(f"phase wall: {time.perf_counter() - t_start:.2f} s for the whole "
           f"run {tag}", flush=True)

@@ -12,9 +12,10 @@ takes and returns numpy, with one read from the device per call.
 
 The batched function is not differentiable in reverse mode: the kernels'
 ``autograd.Function``s define ``jvp`` and ``vmap`` but no ``backward``
-(ROADMAP queue B).  Pulse-number tracking waits for pulse numbers in the
-snapshot (ROADMAP queue A item 10), and device-resident walker batches (the
-reference's mesh path) for queue A item 9.
+(ROADMAP queue B).  With ``use_pulse_numbers`` the TOAs' pulse numbers
+are computed under the model and every residual is tracked by them (the
+phase's integer part enters).  Device-resident walker batches (the
+reference's mesh path) wait for queue A item 9.
 """
 
 from __future__ import annotations
@@ -73,13 +74,12 @@ class BayesianTiming:
 
     def __init__(self, model, batch, use_pulse_numbers: bool = False,
                  prior_info: Optional[Dict[str, dict]] = None):
-        if use_pulse_numbers:
-            raise NotImplementedError(
-                "use_pulse_numbers=True needs the TOAs' pulse numbers, which "
-                "the snapshot does not carry (ROADMAP queue A item 10)")
         self.model = model.copy()
-        self.batch = batch
-        self.track_mode = "nearest"
+        self.batch = batch = model.batch_for(batch)
+        if use_pulse_numbers:
+            batch.compute_pulse_numbers(self.model)
+        self.track_mode = "use_pulse_numbers" if use_pulse_numbers \
+            else "nearest"
         self.is_wideband = batch.wideband
         self.param_labels: List[str] = list(self.model.free_params)
         self.params = [self.model[p] for p in self.param_labels]
@@ -128,12 +128,15 @@ class BayesianTiming:
         if self.is_wideband:
             from pint_torch.wideband import WidebandTOAResiduals
 
-            r = WidebandTOAResiduals(self.batch, self.model)
+            r = WidebandTOAResiduals(
+                self.batch, self.model,
+                toa_resid_args={"track_mode": self.track_mode})
             chi2 = r.calc_chi2()
             sigmas = torch.cat([r.toa.get_data_error(),
                                 r.dm.get_data_error()])
         else:
-            r = Residuals(self.batch, self.model)
+            r = Residuals(self.batch, self.model,
+                          track_mode=self.track_mode)
             chi2 = r.calc_chi2()
             sigmas = r.get_data_error()
         return -0.5 * float(chi2) - float(torch.sum(torch.log(sigmas)))
@@ -176,9 +179,11 @@ class BayesianTiming:
         ``bayesian.py:166-232``).  The scaled sigmas, F0 and the values of
         the frozen parameters are read once, here; the mean subtracted
         from the phase residuals is weighted by the raw TOA errors, as the
-        scalar path's is, and skipped with a PhaseOffset.  The TOAs' delta
-        pulse numbers count as 0: no snapshot carries them (pulse numbers
-        are ROADMAP queue A item 10), as the port's residuals assume."""
+        scalar path's is, and skipped with a PhaseOffset.  Under
+        ``use_pulse_numbers`` a row's residual is its phase's integer part
+        (K1's ``k`` output) less the TOAs' pulse numbers plus their added
+        pulses, plus its fraction; otherwise the fraction plus the added
+        pulses."""
         model, batch = self.model, self.batch
         dev = batch.device
         free = tuple(self.param_labels)
@@ -192,6 +197,10 @@ class BayesianTiming:
         lognorm = float(np.sum(np.log(sigma_np)))
         F0 = model.value("F0")
         subtract_mean = "PhaseOffset" not in model.components
+        pn = batch.get_pulse_numbers()
+        use_pn = self.track_mode == "use_pulse_numbers" and pn is not None
+        dpn = batch.delta_pulse_number
+        dpn = 0.0 if dpn is None else dpn
         specs = [p.prior.jax_spec() for p in self.params]
         uni = torch.tensor([s[0] == "uniform" for s in specs], device=dev)
         a = torch.tensor([s[1] for s in specs], dtype=F64, device=dev)
@@ -216,7 +225,10 @@ class BayesianTiming:
                 norm - 0.5 * ((values - a) / b) ** 2)
             lnpr = torch.sum(terms, dim=1)
             ph, _ = model.evaluate(values, free, batch, const_pv)
-            resid = ph.frac
+            if use_pn:
+                resid = (ph.int_ - pn + dpn) + ph.frac
+            else:
+                resid = ph.frac + dpn
             if subtract_mean:
                 mean = torch.sum(w * resid, dim=1, keepdim=True) / wsum
                 resid = resid - mean

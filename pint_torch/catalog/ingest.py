@@ -143,7 +143,7 @@ def ingest_catalog(entries: Sequence, policy: str = "lenient",
                    or f"PSR{i:04d}")
         q = toas.validate(policy=policy, check_coverage=check_coverage)
         certified = toas.certified() if files \
-            else toas.certified(model, standalone=True)
+            else toas.certified(model)
         n_q = int(q.n_quarantined) if q else 0
         codes = tuple(q.codes()) if q else ()
         n_free = len(model.free_params)

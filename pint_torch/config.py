@@ -3,11 +3,11 @@ data directory, the ingestion policy, the GLS grid chunk override and the
 tuning-manifest directory, each read from a ``PINT_TORCH_*`` environment
 variable and settable for the process.
 
-The device-mismatch policy's reader (the preflight device probe),
-telemetry and the AOT-cache directory are what ROADMAP queue A item 8
-ports: the device policy is its default ``"warn"`` and the telemetry mode
-``"off"``, and asking for another policy or mode or setting the AOT-cache
-directory raises ``NotImplementedError``.
+The device-mismatch policy is read by the preflight device probe
+(:mod:`pint_torch.runtime.preflight`).  Telemetry and the AOT-cache
+directory are what ROADMAP queue A item 8 ports: the telemetry mode is
+``"off"``, and asking for another mode or setting the AOT-cache directory
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,37 +22,31 @@ __all__ = ["datadir",
            "grid_chunk", "set_grid_chunk",
            "tune_dir", "set_tune_dir"]
 
-_ITEM8 = ("is ROADMAP queue A item 8 (the preflight device probe, "
-          "telemetry and the AOT cache), not ported yet")
+_ITEM8 = ("is ROADMAP queue A item 8 (telemetry and the AOT cache), not "
+          "ported yet")
 
-#: the reference's device-mismatch policies (``PINT_TORCH_DEVICE_POLICY``),
-#: read by its preflight device probe, which the port does not have yet:
-#: the policy is the reference's default, ``warn``, and ``strict`` or
-#: ``allow`` raises ``NotImplementedError``
+#: the device-mismatch policies (``PINT_TORCH_DEVICE_POLICY``) that
+#: :func:`pint_torch.runtime.preflight.check_device` applies: ``strict``
+#: raises, ``warn`` logs once, ``allow`` is silent
 DEVICE_POLICIES = ("strict", "warn", "allow")
+
+_device_policy = os.environ.get("PINT_TORCH_DEVICE_POLICY", "warn")
+if _device_policy not in DEVICE_POLICIES:
+    _device_policy = "warn"
 
 
 def device_policy() -> str:
-    """Current device-mismatch policy: always ``"warn"``.
-    ``PINT_TORCH_DEVICE_POLICY`` set to ``strict`` or ``allow`` raises
-    ``NotImplementedError``; any other value means ``warn``, as in the
-    reference."""
-    env = os.environ.get("PINT_TORCH_DEVICE_POLICY", "warn")
-    if env in DEVICE_POLICIES and env != "warn":
-        raise NotImplementedError(f"PINT_TORCH_DEVICE_POLICY={env!r}: the "
-                                  "device probe that reads it " + _ITEM8)
-    return "warn"
+    """Current device-mismatch policy: strict | warn | allow."""
+    return _device_policy
 
 
 def set_device_policy(policy: str) -> None:
-    """Accepts ``"warn"``; the other policies raise
-    ``NotImplementedError``."""
+    """Set the device-mismatch policy for this process."""
+    global _device_policy
     if policy not in DEVICE_POLICIES:
         raise ValueError(
             f"device policy must be one of {DEVICE_POLICIES}, got {policy!r}")
-    if policy != "warn":
-        raise NotImplementedError(f"device policy {policy!r}: the device "
-                                  "probe that reads it " + _ITEM8)
+    _device_policy = policy
 
 
 #: what TOA validation does with suspect rows

@@ -84,16 +84,20 @@ class Fitter:
                  track_mode: Optional[str] = None):
         """``residuals`` (a :class:`~pint_torch.residuals.Residuals`) are
         the fitter's first residuals in place of a fresh computation, as
-        the reference's; ``track_mode`` other than None raises: pulse-number
-        tracking needs the whole TOA set (ROADMAP queue A item 10c)."""
-        if track_mode is not None:
-            raise NotImplementedError(
-                f"Fitter(track_mode={track_mode!r}): pulse-number tracking "
-                "is ROADMAP queue A item 10c")
-        self.batch = batch
+        the reference's; ``track_mode`` is the residuals' (None:
+        ``"use_pulse_numbers"`` where the TOAs carry pulse numbers).
+        ``batch`` may be host TOAs (the model's batch of them); a batch
+        frozen for the model before an edit is made again with its
+        contexts (:meth:`TimingModel.batch_for`).  ``device_profile`` is
+        the preflight's profile of the model's device
+        (:func:`pint_torch.runtime.preflight.check_device`)."""
+        from pint_torch.runtime.preflight import check_device
+
+        self.batch = model.batch_for(batch)
         self.model_init = model
         self.model = model.copy()
         self.track_mode = track_mode
+        self.device_profile = check_device(device=model.device)
         if residuals is not None:
             self.resids = residuals
         else:
@@ -111,7 +115,8 @@ class Fitter:
         self.chi2: Optional[float] = None
 
     def update_resids(self) -> Residuals:
-        self.resids = Residuals(self.batch, self.model)
+        self.resids = Residuals(self.batch, self.model,
+                                track_mode=self.track_mode)
         return self.resids
 
     def fit_toas(self, maxiter: int = 1, **kw) -> float:
@@ -213,8 +218,9 @@ class Fitter:
             self.model[p].uncertainty = float(v)
 
     def make_resids(self, model) -> Residuals:
-        """Residuals of this fitter's TOAs under any model."""
-        return Residuals(self.batch, model)
+        """Residuals of this fitter's TOAs under any model, in its
+        ``track_mode``."""
+        return Residuals(self.batch, model, track_mode=self.track_mode)
 
     def reset_model(self) -> None:
         """Forget the fit: the initial model and fresh residuals."""
@@ -227,10 +233,19 @@ class Fitter:
 
     def ftest(self, parameter, component=None, remove: bool = False,
               full_output: bool = False, maxiter: int = 1):
-        """The two-number form ``ftest(chi2_other, dof_other)``: the F-test
-        of another fit against this one (reference ``fitter.py:410-413``).
-        The forms that add or remove a parameter need the model editing
-        the port does not have yet."""
+        """The F-test of adding ``parameter`` (a
+        :mod:`pint_torch.models.parameter` object or a
+        :class:`~pint_torch.models.timing_model.Param`, or a list of them)
+        to the named ``component`` (one per parameter), or of removing it
+        (``remove``): a copy of the model edited, set up and refit by this
+        fitter's class in its ``track_mode`` for ``maxiter`` iterations,
+        against this fit (reference ``fitter.py:397-445``).  Returns
+        ``{"ft": p}``; with ``full_output`` also the refit's weighted rms
+        [us] (``resid_rms_test``), ``chi2_test`` and ``dof_test``.  The
+        two-number form ``ftest(chi2_other, dof_other)`` tests another fit
+        against this one."""
+        import copy
+
         from pint_torch.utils import FTest
 
         if isinstance(parameter, (int, float, np.integer, np.floating)) \
@@ -238,9 +253,51 @@ class Fitter:
                                (int, float, np.integer, np.floating)):
             return FTest(float(parameter), int(component),
                          self.resids.chi2, self.resids.dof)
-        raise NotImplementedError(
-            "ftest's add and remove forms need add_param/remove_param on "
-            "the model, which the port does not have yet")
+        params = parameter if isinstance(parameter, (list, tuple)) \
+            else [parameter]
+        comps = component if isinstance(component, (list, tuple)) \
+            else [component] * len(params)
+        if not remove and len(comps) != len(params):
+            raise UsageError("one component per parameter required")
+        m = self.model.copy()
+        if remove:
+            for p in params:
+                m.remove_param(p.name)
+        else:
+            for p, cname in zip(params, comps):
+                if cname not in m.components:
+                    raise UsageError(f"component {cname!r} not in model")
+                par = copy.deepcopy(p)
+                par.frozen = False
+                m.components[cname].add_param(par, setup=True)
+        m.setup()
+        f2 = type(self)(self.batch, m, track_mode=self.track_mode)
+        f2.fit_toas(maxiter=max(1, maxiter))
+        chi2_base, dof_base = self.resids.chi2, self.resids.dof
+        chi2_new, dof_new = f2.resids.chi2, f2.resids.dof
+        if remove:
+            ft = FTest(chi2_new, dof_new, chi2_base, dof_base)
+        else:
+            ft = FTest(chi2_base, dof_base, chi2_new, dof_new)
+        out = {"ft": ft}
+        if full_output:
+            rms = f2.resids.rms_weighted()
+            if isinstance(rms, dict):
+                rms = rms["toa"]
+            out["resid_rms_test"] = rms * 1e6
+            out["chi2_test"] = chi2_new
+            out["dof_test"] = dof_new
+        return out
+
+    def doctor(self, designmatrix: bool = True) -> str:
+        """A readable audit of this fit's inputs and state: the device
+        profile, the TOAs and their quarantine, the model/TOA
+        compatibility findings (mask parameters selecting nothing,
+        degenerate free-parameter pairs), the robust weights
+        (:mod:`pint_torch.integrity.doctor`)."""
+        from pint_torch.integrity.doctor import render_doctor_report
+
+        return render_doctor_report(self, designmatrix=designmatrix)
 
     # -- the report (reference ``fitter.py:450-494``) ------------------------
     def print_summary(self) -> None:
@@ -813,8 +870,9 @@ class ModelState:
 
     def _work(self):
         if "work" not in self._cache:
-            self._cache["work"] = self._fitter_cls()(self.fitter.batch,
-                                                     self.model)
+            self._cache["work"] = self._fitter_cls()(
+                self.fitter.batch, self.model,
+                track_mode=getattr(self.fitter, "track_mode", None))
         return self._cache["work"]
 
     @property

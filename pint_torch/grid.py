@@ -883,6 +883,9 @@ def grid_chisq(ftr, parnames: Sequence[str], parvalues: Sequence,
         _warned_executor = True
         log.warning("grid_chisq: executor/ncpu are no-ops here - grid "
                     "points are batched on the device")
+    from pint_torch.runtime.preflight import check_device
+
+    check_device(device=ftr.model.device)
     model, batch = ftr.model, ftr.batch
     parnames = tuple(parnames)
     grids = [np.asarray(v, dtype=np.float64) for v in parvalues]

@@ -43,6 +43,30 @@ def _rowsum(x):
     return (x[..., 0] + x[..., 1]) + x[..., 2]
 
 
+def _change_posepoch(comp, new_epoch, lat: str, lon: str, pmlat: str,
+                     pmlon: str) -> None:
+    """Move POSEPOCH to ``new_epoch``, advancing the latitude and longitude
+    along the proper-motion linearization the delay evaluates (reference
+    ``astrometry.py:205-225,280-293``)."""
+    from pint_torch.dd import dd_from_longdouble
+
+    table = comp._parent.params_table
+    pe = table["POSEPOCH"].value
+    if pe is None:
+        raise ValueError("POSEPOCH is not currently set")
+    dt_day = float(np.longdouble(new_epoch)
+                   - (np.longdouble(pe[0]) + np.longdouble(pe[1])))
+    lat0 = float(table[lat].value)
+    table[lat].value = lat0 + float(table[pmlat].value or 0.0) \
+        * _MASYR_TO_RADDAY * dt_day
+    table[lon].value = float(table[lon].value) \
+        + float(table[pmlon].value or 0.0) * _MASYR_TO_RADDAY * dt_day \
+        / np.cos(lat0)
+    d = dd_from_longdouble(np.longdouble(new_epoch))
+    table["POSEPOCH"].value = (float(d.hi), float(d.lo))
+    comp.finish_config()
+
+
 class Astrometry(DelayComponent):
     category = "astrometry"
 
@@ -143,6 +167,11 @@ class AstrometryEquatorial(Astrometry):
             raise MissingParameter("AstrometryEquatorial", "RAJ/DECJ")
         self._posepoch_from_pepoch(("PMRA", "PMDEC"))
 
+    def change_posepoch(self, new_epoch):
+        """Move POSEPOCH, advancing RAJ and DECJ along the proper motion
+        the delay evaluates."""
+        _change_posepoch(self, new_epoch, "DECJ", "RAJ", "PMDEC", "PMRA")
+
     def coords_as_ICRS(self):
         """(RA, Dec) [rad] at POSEPOCH (reference ``astrometry.py:202``)."""
         t = self._parent.params_table
@@ -191,6 +220,12 @@ class AstrometryEcliptic(Astrometry):
         if self.ELONG.value is None or self.ELAT.value is None:
             raise MissingParameter("AstrometryEcliptic", "ELONG/ELAT")
         self._posepoch_from_pepoch(("PMELONG", "PMELAT"))
+
+    def change_posepoch(self, new_epoch):
+        """Move POSEPOCH, advancing ELONG and ELAT along the proper motion
+        the delay evaluates."""
+        _change_posepoch(self, new_epoch, "ELAT", "ELONG", "PMELAT",
+                         "PMELONG")
 
     def coords_as_ICRS(self):
         """(RA, Dec) [rad] of the position rotated to equatorial, proper

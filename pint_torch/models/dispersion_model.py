@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from pint_torch.exceptions import MissingParameter
@@ -135,6 +136,22 @@ class DispersionDMX(Dispersion):
     def host_context(self, toas):
         return {"masks": self._range_masks(toas, self.config["dmx_indices"],
                                            "DMXR1_", "DMXR2_")}
+
+    def remove_DMX_range(self, index) -> None:
+        """Remove the DMX bin(s) ``index`` (an index or a list of them):
+        their DMX_, DMXR1_ and DMXR2_ parameters; ValueError for an index
+        not in the model."""
+        indices = [index] if isinstance(index, (int, np.integer)) \
+            else list(index)
+        for i in indices:
+            i = int(i)
+            if f"DMX_{i:04d}" not in self.params:
+                raise ValueError(f"Index {i} not in DMX model")
+            for pre in ("DMX_", "DMXR1_", "DMXR2_"):
+                self.remove_param(f"{pre}{i:04d}")
+        self.setup()
+        if self._parent is not None:
+            self._parent.setup()
 
     def dmx_dm(self, pv, batch, ctx):
         masks = ctx.get("masks")

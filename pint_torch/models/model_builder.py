@@ -167,7 +167,7 @@ def _record(par: Parameter, component: str) -> Param:
         continuous=bool(par.continuous), key=getattr(par, "key", None),
         key_value=[str(x) for x in (getattr(par, "key_value", None) or [])],
         aliases=list(par.aliases), ptype=type(par).__name__,
-        prefix=getattr(par, "prefix", None))
+        prefix=getattr(par, "prefix", None), _src=par)
 
 
 def _top_value(par: Parameter):

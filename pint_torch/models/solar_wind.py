@@ -168,6 +168,22 @@ class SolarWindDispersionX(_SolarWind):
         _check_ranges(self, "SolarWindDispersionX",
                       self.config["swx_indices"], ("SWXR1_", "SWXR2_"))
 
+    def remove_swx_range(self, index) -> None:
+        """Remove the SWX bin(s) ``index``: their SWXDM_, SWXP_, SWXR1_
+        and SWXR2_ parameters; ValueError for an index not in the
+        model."""
+        indices = [index] if isinstance(index, (int, np.integer)) \
+            else list(index)
+        for i in indices:
+            i = int(i)
+            if f"SWXDM_{i:04d}" not in self.params:
+                raise ValueError(f"Index {i} not in SWX model")
+            for pre in ("SWXDM_", "SWXP_", "SWXR1_", "SWXR2_"):
+                self.remove_param(f"{pre}{i:04d}")
+        self.setup()
+        if self._parent is not None:
+            self._parent.setup()
+
     def host_context(self, toas):
         return {"masks": self._range_masks(toas, self.config["swx_indices"],
                                            "SWXR1_", "SWXR2_"),

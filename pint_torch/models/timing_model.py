@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import weakref
+from collections.abc import Mapping
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -98,6 +99,9 @@ class Param:
     ptype: str = ""
     #: an indexed family's prefix (``DMX_`` of DMX_0003), or None
     prefix: Optional[str] = None
+    #: the :mod:`pint_torch.models.parameter` object the parameter was
+    #: read as (its par-file spelling), or None
+    _src: object = field(default=None, repr=False, compare=False)
 
     @property
     def prior(self):
@@ -165,24 +169,52 @@ class Component:
     def validate(self) -> None:
         """Raise where a required parameter is missing or invalid."""
 
+    def validate_toas(self, toas) -> None:
+        """Raise where the TOAs lack what the component needs."""
+
     def finish_config(self) -> None:
         """Record in ``config`` what the evaluation reads from the
         parameters' values at build time (epochs present, term counts);
         the builder calls it after :meth:`TimingModel.validate`."""
 
     def add_param(self, param, setup: bool = False):
-        self.__dict__.setdefault("_params_dict", {})[param.name] = param
-        param._component = self
-        if param.name not in self.params:
-            self.params.append(param.name)
+        """Add ``param`` (a :mod:`pint_torch.models.parameter` object, or
+        a :class:`Param`): to the template while the component is read
+        from par text, else to the model's table as a :class:`Param` of
+        this component (appended to :attr:`params`, as the reference's),
+        dropping the model's caches; ``setup`` resolves the component's
+        structure again."""
+        parent = self.__dict__.get("_parent")
+        if "_params_dict" in self.__dict__ or not isinstance(parent,
+                                                             TimingModel):
+            self.__dict__.setdefault("_params_dict", {})[param.name] = param
+            param._component = self
+            if param.name not in self.params:
+                self.params.append(param.name)
+            if setup:
+                self.setup()
+            return param
+        rec = _as_record(param, type(self).__name__)
+        parent.params_table[rec.name] = rec
+        if rec.name not in self.params:
+            self.params.append(rec.name)
+        parent._reorder()
         if setup:
             self.setup()
-        return param
+            self.finish_config()
+        return rec
 
     def remove_param(self, name: str) -> None:
+        """Drop the parameter from the template, or from the model's table
+        (dropping the model's caches)."""
         self.__dict__.get("_params_dict", {}).pop(name, None)
         if name in self.params:
             self.params.remove(name)
+        parent = self.__dict__.get("_parent")
+        if isinstance(parent, TimingModel) \
+                and "_params_dict" not in self.__dict__:
+            parent.params_table.pop(name, None)
+            parent._reorder()
 
     def __getattr__(self, name):
         """A parameter by name: the builder's parameter object while the
@@ -192,10 +224,22 @@ class Component:
         if pd is not None and name in pd:
             return pd[name]
         parent = d.get("_parent")
+        if name == "_params_dict" and isinstance(parent, TimingModel):
+            return _ParamView(self)
         if parent is not None and name in d.get("params", ()):
             return parent[name]
         raise AttributeError(
             f"{type(self).__name__} has no attribute {name!r}")
+
+    def _param_obj(self, name):
+        """Parameter ``name`` as a :mod:`pint_torch.models.parameter`
+        object: the template's own while the component is read from par
+        text, else one carrying the table's current state
+        (:func:`as_parameter`)."""
+        pd = self.__dict__.get("_params_dict")
+        if pd is not None:
+            return pd[name]
+        return as_parameter(self._parent, name)
 
     def _param_objs(self) -> Dict[str, object]:
         pd = self.__dict__.get("_params_dict")
@@ -262,9 +306,23 @@ class Component:
     def build_context(self, batch) -> dict:
         """The component's per-TOA context for ``batch``: its own, built
         for the model's TOAs, unless the batch carries its own (the TZR
-        row, a subset, TOAs made on the host)."""
+        row, a subset, TOAs made on the host).  One built for another
+        structure of the component than the model's now (a DMX window
+        removed, a JUMP added; :meth:`TimingModel._context_stale`) raises
+        :class:`~pint_torch.exceptions.UsageError`: evaluate the edited
+        model on a batch made again from host TOAs
+        (:meth:`TimingModel.batch_for`)."""
+        name = type(self).__name__
+        parent = self._parent
+        if parent is not None and parent._context_stale(name, batch):
+            from pint_torch.exceptions import UsageError
+
+            raise UsageError(
+                f"{name}'s context was built for other parameters than the "
+                "model's now; evaluate the edited model on a batch made "
+                "from host TOAs (TOAs.to_batch(model=))")
         if batch.contexts is not None:
-            return batch.contexts.get(type(self).__name__, {})
+            return batch.contexts.get(name, {})
         return self.context
 
     def host_context(self, toas) -> dict:
@@ -419,6 +477,95 @@ def validate_units(model, allow_tcb: bool) -> None:
             "TCB par files must be converted to TDB (use convert_tcb_tdb)")
 
 
+class _ParamView(Mapping):
+    """A built component's parameters as :mod:`pint_torch.models.parameter`
+    objects (:func:`as_parameter`), read-only: what a component's
+    ``setup`` reads as ``_params_dict`` once the model is built; its
+    ``add_param`` writes to the model's table."""
+
+    def __init__(self, comp):
+        self._comp = comp
+
+    def __getitem__(self, name):
+        if name not in self._comp.params:
+            raise KeyError(name)
+        return as_parameter(self._comp._parent, name)
+
+    def __iter__(self):
+        return iter(list(self._comp.params))
+
+    def __len__(self):
+        return len(self._comp.params)
+
+
+def _as_record(param, component: str) -> Param:
+    """A :class:`Param` of ``component`` from a parameter object (the
+    builder's conversion) or a copy of a :class:`Param`."""
+    if isinstance(param, Param):
+        return dataclasses.replace(param, component=component,
+                                   key_value=list(param.key_value))
+    from pint_torch.models.model_builder import _record
+
+    return _record(param, component)
+
+
+def _declared(model, name: str):
+    """A fresh parameter object of the class and spelling ``name`` is
+    declared with: the model's own parameter, a component's declared one,
+    or a new member of its declared family."""
+    p = model.params_table[name]
+    if p.component == "TimingModel":
+        from pint_torch.models.model_builder import _top_level_params
+
+        return next(q for q in _top_level_params() if q.name == name)
+    comp = model.components[p.component]
+    tmpl = type(comp).template()
+    pd = tmpl.__dict__["_params_dict"]
+    if name in pd:
+        return pd[name]
+    from pint_torch.models.parameter import (maskParameter, pairParameter,
+                                             prefixParameter,
+                                             split_prefixed_name)
+
+    for q in pd.values():
+        if isinstance(q, maskParameter) and name.startswith(q.origin_name) \
+                and name[len(q.origin_name):].isdigit():
+            return q.new_param(int(name[len(q.origin_name):]))
+    prefix, index = split_prefixed_name(name)
+    for q in pd.values():
+        if isinstance(q, (prefixParameter, pairParameter)) \
+                and q.prefix == prefix:
+            out = q.new_param(index)
+            out.name = name
+            return out
+    raise UnknownParameter(f"{name!r} is no parameter {p.component} "
+                           "declares")
+
+
+def as_parameter(model, name: str):
+    """The model's parameter ``name`` as a :mod:`pint_torch.models.parameter`
+    object with the table's value (an epoch as the longdouble of its
+    exact pair), frozen flag, uncertainty and mask selection: what the
+    par-file writer and the components' editing methods read."""
+    import copy
+
+    p = model.params_table[name]
+    obj = copy.copy(p._src if p._src is not None else _declared(model, name))
+    v = p.value
+    if p.kind == "mjd" and v is not None:
+        v = np.longdouble(v[0]) + np.longdouble(v[1])
+    elif p.kind == "pair" and v is not None:
+        v = tuple(v)
+    elif p.kind == "int" and v is not None:
+        v = int(v)
+    obj.value = v
+    obj.frozen = p.frozen
+    obj.uncertainty = p.uncertainty
+    if p.kind == "mask":
+        obj.key, obj.key_value = p.key, list(p.key_value)
+    return obj
+
+
 class TimingModel:
     """Components in the reference's dict order plus the parameter table
     (``params`` in the reference's parameter order: the model's own
@@ -449,6 +596,9 @@ class TimingModel:
             if comp is not None:
                 comp.params.append(p.name)
         self._cache: dict = {}
+        for name, c in self.components.items():
+            if c.context and "_ctx_for" not in c.__dict__:
+                c._ctx_for = self._component_signature(name)
 
     def epoch_value(self, name) -> float:
         """A parameter's value as one float64 (an epoch's hi + lo)."""
@@ -461,7 +611,11 @@ class TimingModel:
     def copy(self) -> "TimingModel":
         """An independent model: its own parameter table and component
         objects, sharing the read-only configs and contexts."""
-        comps = [type(c)(c.config, c.context) for c in self.components.values()]
+        comps = []
+        for c in self.components.values():
+            comps.append(type(c)(c.config, c.context))
+            if "_ctx_for" in c.__dict__:
+                comps[-1]._ctx_for = c._ctx_for
         params = {n: dataclasses.replace(p, key_value=list(p.key_value))
                   for n, p in self.params_table.items()}
         return TimingModel(self.name, comps, params, self.device)
@@ -601,7 +755,7 @@ class TimingModel:
         """Free exactly ``names`` and freeze every other parameter but the
         model's own (reference ``timing_model.py:427-437``); a name the
         model lacks raises :class:`UnknownParameter`.  Every cache keyed on
-        the free set (the compiled evaluations' host batches, the design
+        the free set (the token of the host TOAs' batches, the design
         matrix's linear columns, the noise bases, the grid's classified
         columns and bundles) lives in ``_cache`` and is dropped."""
         names = set(names)
@@ -686,20 +840,23 @@ class TimingModel:
     def batch_of(self, toas):
         """The device batch of ``toas``: a :class:`TOABatch` as it is, a
         host :class:`~pint_torch.toa.TOAs` frozen on the model's device
-        with this model's contexts, cached per TOAs object and its
-        ``_version`` (the reference's ``_get_compiled`` data cache)."""
+        with this model's contexts (the reference's ``_get_compiled`` data
+        cache).  The batch is kept on the TOAs object, per model (held
+        weakly), edit of the model and ``_version`` of the TOAs, so it
+        lives no longer than the TOAs it was frozen from."""
         from pint_torch.toa import TOAs
 
         if not isinstance(toas, TOAs):
             return toas
-        data = self._cache.setdefault("host_batches",
-                                      weakref.WeakKeyDictionary())
-        hit = data.get(toas)
-        if hit is None or hit[0] != toas._version:
-            hit = (toas._version, toas.to_batch(device=self.device,
-                                                model=self))
-            data[toas] = hit
-        return hit[1]
+        token = self._cache.setdefault("batch_token", object())
+        data = toas.__dict__.setdefault("_batches",
+                                        weakref.WeakKeyDictionary())
+        hit = data.get(self)
+        if hit is None or hit[0] is not token or hit[1] != toas._version:
+            hit = (token, toas._version,
+                   toas.to_batch(device=self.device, model=self))
+            data[self] = hit
+        return hit[2]
 
     def evaluate(self, values: torch.Tensor, free_names: Sequence[str],
                  batch, const_pv: Optional[dict] = None):
@@ -1205,3 +1362,413 @@ class TimingModel:
                 out["Mp (Msun)"] = (mp, 0.0)
                 s += f"Pulsar mass (Shapiro Delay) = {mp:.4f} Msun"
         return (s, out) if returndict else s
+
+    # -- editing (reference ``timing_model.py:329-380,1318-1520,1647-1688``)
+    def _edited(self) -> None:
+        """Drop what depends on the parameter set and the components: the
+        token of the host TOAs' batches, the contexts' signatures, the design
+        matrix's linear columns, the noise bases, the grid's bundles and
+        captured graphs (all in ``_cache``) and the TZR row with its
+        contexts."""
+        self._cache.clear()
+        tzr = self.components.get("AbsPhase")
+        if tzr is not None:
+            tzr.__dict__.pop("_host_tzr", None)
+            tzr.__dict__.pop("_tzr_toas", None)
+            if "tzr_batch" in tzr.context:
+                tzr.context = {k: v for k, v in tzr.context.items()
+                               if k != "tzr_batch"}
+
+    def _reorder(self) -> None:
+        """The table in the reference's parameter order after an edit: the
+        model's own parameters, then each component's in its order."""
+        table = self.params_table
+        names = [n for n, p in table.items() if p.component == "TimingModel"]
+        for comp in self.components.values():
+            names += [n for n in comp.params if n in table]
+        self.params_table = {n: table[n] for n in names}
+        self._edited()
+
+    def _context_signature(self) -> tuple:
+        """What the components' per-TOA contexts are built from: the
+        components, their parameters, each mask's selection and each
+        epoch (DMX and SWX windows), cached until an edit."""
+        sig = self._cache.get("context_signature")
+        if sig is None:
+            sig = tuple(
+                (name, tuple(
+                    (n, p.key, tuple(p.key_value)) if p.kind == "mask"
+                    else (n, p.value) if p.kind == "mjd" else n
+                    for n, p in ((n, self.params_table[n])
+                                 for n in c.params if n in self.params_table)))
+                for name, c in self.components.items())
+            self._cache["context_signature"] = sig
+        return sig
+
+    def _context_signatures(self) -> dict:
+        """{component name: its part of :meth:`_context_signature`}, what
+        a batch's contexts record as built for (``TOABatch._ctx_sig``)."""
+        by = self._cache.get("context_signature_by")
+        if by is None:
+            by = self._cache["context_signature_by"] = dict(
+                self._context_signature())
+        return by
+
+    def _component_signature(self, name: str) -> tuple:
+        """The part of :meth:`_context_signature` of component ``name``."""
+        return self._context_signatures().get(name)
+
+    def _context_current(self, name: str, built) -> bool:
+        """Whether ``built`` is component ``name``'s signature now (the
+        verdict cached per ``built`` until an edit: every evaluation
+        asks)."""
+        seen = self._cache.setdefault(("context_current", name), {})
+        hit = seen.get(id(built))
+        if hit is None or hit[0] is not built:
+            hit = seen[id(built)] = (
+                built, built == self._component_signature(name))
+        return hit[1]
+
+    def _context_stale(self, name: str, batch) -> bool:
+        """Whether component ``name``'s per-TOA context for ``batch`` was
+        built for another structure of it than the model's now: the
+        batch's own context against the signature the batch records for
+        it (``TOABatch._ctx_sig``; a component added since then is stale
+        where it derives a context, :meth:`Component.host_context`), else
+        the component's own against ``_ctx_for``.  A context of unknown
+        origin (a snapshot's: no signature) is taken as current."""
+        comp = self.components[name]
+        if batch.contexts is None:
+            built = comp.__dict__.get("_ctx_for")
+            return bool(comp.context) and built is not None \
+                and not self._context_current(name, built)
+        sig = batch._ctx_sig
+        if sig is None or type(comp).host_context is Component.host_context:
+            return False
+        if name not in sig:
+            return True
+        return sig[name] is not None \
+            and not self._context_current(name, sig[name])
+
+    def batch_for(self, toas):
+        """:meth:`batch_of`, and a batch whose contexts were built for
+        another structure of the model (before an edit) made again from
+        the host TOAs it was frozen from with this model's contexts; one
+        without host TOAs raises
+        :class:`~pint_torch.exceptions.UsageError`."""
+        batch = self.batch_of(toas)
+        if batch.tzr or not any(self._context_stale(n, batch)
+                                for n in self.components):
+            return batch
+        if batch.host is None:
+            from pint_torch.exceptions import UsageError
+
+            raise UsageError(
+                "the batch's contexts were built for other parameters than "
+                "the model's now and it carries no host TOAs to build them "
+                "again from; select the TOAs from a batch made by "
+                "TOAs.to_batch")
+        pn, dpn = batch.pulse_number, batch.delta_pulse_number
+        batch = self.batch_of(batch.host)
+        if pn is not None and batch.pulse_number is None:
+            object.__setattr__(batch, "pulse_number", pn)
+            object.__setattr__(batch, "delta_pulse_number", dpn)
+        return batch
+
+    def setup(self) -> None:
+        """Each component's structure resolved again from its parameters
+        (``setup`` and ``finish_config``) and every cache dropped."""
+        for c in self.components.values():
+            c.setup()
+            c.finish_config()
+        self._edited()
+
+    def validate_toas(self, toas) -> None:
+        """Each component's check that the TOAs carry what it needs."""
+        for c in self.components.values():
+            c.validate_toas(toas)
+
+    def add_component(self, comp, order=None, validate: bool = True):
+        """Add ``comp``: a component template (``Cls.template()``, its
+        parameters entering the table) or a component of another model
+        (its parameters copied); ``validate`` runs its ``setup`` and
+        ``validate`` (the model's :meth:`setup` resolves the rest)."""
+        name = type(comp).__name__
+        pd = comp.__dict__.pop("_params_dict", None)
+        old = comp.__dict__.get("_parent")
+        if pd is not None:
+            recs = [_as_record(pd[n], name) for n in comp.params]
+        elif isinstance(old, TimingModel) and old is not self:
+            recs = [_as_record(old.params_table[n], name)
+                    for n in comp.params]
+        else:
+            recs = []
+        self.components[name] = comp
+        comp._parent = self
+        self.params_table.update((r.name, r) for r in recs)
+        self._reorder()
+        if validate:
+            comp.setup()
+            comp.validate()
+            comp.finish_config()
+
+    def remove_component(self, name: str) -> None:
+        """Drop the component and its parameters."""
+        comp = self.components.pop(name)
+        for n in comp.params:
+            self.params_table.pop(n, None)
+        comp._parent = None
+        self._reorder()
+
+    def add_param_from_top(self, param, target_component: str,
+                           setup: bool = False):
+        """Add ``param`` to the component named ``target_component`` ('' is
+        the model's own parameters)."""
+        if target_component == "":
+            rec = _as_record(param, "TimingModel")
+            self.params_table[rec.name] = rec
+            self._reorder()
+            return rec
+        if target_component not in self.components:
+            raise AttributeError(
+                f"Cannot find component {target_component!r} in the model")
+        return self.components[target_component].add_param(param,
+                                                           setup=setup)
+
+    def remove_param(self, param: str) -> None:
+        """Remove ``param`` from whichever component holds it (or the
+        model's own parameters)."""
+        p = self.params_table.get(param)
+        if p is not None and p.component == "TimingModel":
+            del self.params_table[param]
+            self._reorder()
+            return
+        for c in self.components.values():
+            if param in c.params:
+                c.remove_param(param)
+                self._edited()
+                return
+        raise AttributeError(f"Parameter {param!r} is not in the model")
+
+    def find_empty_masks(self, toas, freeze: bool = False) -> List[str]:
+        """The free mask parameters that select no TOA of ``toas`` (host
+        TOAs, or a batch frozen from them); ``freeze`` freezes them."""
+        from pint_torch.logging import log
+        from pint_torch.toa import select_toa_mask
+
+        host = _host_of(toas)
+        out = []
+        for n, p in list(self.params_table.items()):
+            if p.kind == "mask" and not p.frozen \
+                    and len(select_toa_mask(p, host)) == 0:
+                out.append(n)
+                if freeze:
+                    log.info(f"'{n}' has no TOAs so freezing")
+                    p.frozen = True
+        if freeze and out:
+            self._cache.clear()
+        return out
+
+    def delete_jump_and_flags(self, toas, jump_num: int) -> None:
+        """Remove JUMP<jump_num> (and the PhaseJump component with its last
+        jump) and the TOAs' ``-gui_jump``/``-jump`` flags naming it;
+        ``toas`` host TOAs, a batch frozen from them, or None."""
+        comp = self.components.get("PhaseJump")
+        name = f"JUMP{jump_num}"
+        if comp is None or name not in comp.params:
+            raise ValueError(f"No {name} in the model")
+        comp.remove_param(name)
+        comp.setup()
+        if not comp.config["jumps"]:
+            self.remove_component("PhaseJump")
+        if toas is not None:
+            host = _host_of(toas)
+            for fl in host.flags:
+                if fl.get("gui_jump") == str(jump_num):
+                    del fl["gui_jump"]
+                if fl.get("jump") == str(jump_num):
+                    del fl["jump"]
+            host._version += 1
+        self._edited()
+
+    def add_tzr_toa(self, toas) -> None:
+        """An AbsPhase with the TZR on the first TOA where the model has
+        none."""
+        if "AbsPhase" in self.components:
+            return
+        from pint_torch.models.absolute_phase import AbsPhase
+
+        host = _host_of(toas)
+        self.add_component(AbsPhase.template(), validate=False)
+        mjd = float(np.asarray(host.get_mjds())[0])
+        self.params_table["TZRMJD"].value = (mjd, 0.0)
+        self.params_table["TZRSITE"].value = str(host.obs[0])
+        f = float(np.asarray(host.freq_mhz)[0])
+        self.params_table["TZRFRQ"].value = f if np.isfinite(f) else 0.0
+        self.setup()
+
+    def jump_flags_to_params(self, toas) -> None:
+        """JUMP parameters (free, 0) for the TOAs' ``-jump``/``-gui_jump``
+        flag values that no JUMP selects yet, each flag normalized to
+        ``-jump <i>``."""
+        from pint_torch.models.jump import PhaseJump
+        from pint_torch.models.parameter import maskParameter
+
+        host = _host_of(toas)
+        idxs = set()
+        for fl in host.flags:
+            for key in ("jump", "gui_jump"):
+                if key in fl:
+                    idxs.add(int(float(fl[key])))
+        if not idxs:
+            return
+        if "PhaseJump" not in self.components:
+            self.add_component(PhaseJump.template(), validate=False)
+        comp = self.components["PhaseJump"]
+        for i in sorted(idxs):
+            for fl in host.flags:
+                for key in ("jump", "gui_jump"):
+                    if key in fl and int(float(fl[key])) == i:
+                        fl["jump"] = str(i)
+            # a jump without a key (the component's declared JUMP1) raises
+            # AttributeError here, as in the reference
+            existing = any(
+                self.params_table[p].key.lstrip("-") == "jump"
+                and list(self.params_table[p].key_value) == [str(i)]
+                for p in self.params if p.startswith("JUMP"))
+            if existing:
+                continue
+            comp.add_param(maskParameter("JUMP", index=i, key="-jump",
+                                         key_value=[str(i)], units="s",
+                                         value=0.0, frozen=False),
+                           setup=True)
+        host._version += 1
+        self.setup()
+
+    def d_phase_d_toa(self, toas, sample_step: Optional[float] = None
+                      ) -> torch.Tensor:
+        """The topocentric spin frequency [Hz] at each TOA: the phase's
+        central difference in arrival time, half-step ``sample_step`` [s]
+        (two spin periods by default), on copies of the host TOAs shifted
+        by -h and +h with their observatory states derived again; the
+        integer and fractional phases are differenced apart."""
+        import copy
+
+        host = _host_of(toas)
+        h = 2.0 / self.value("F0") if sample_step is None \
+            else float(sample_step)
+        phases = []
+        for sgn in (-1.0, 1.0):
+            t = copy.deepcopy(host)
+            t.adjust_TOAs(np.full(t.ntoas, sgn * h))
+            if t.ssb_obs_pos_km is not None:
+                t.compute_posvels(ephem=t.ephem, planets=t.planets)
+            phases.append(self.phase(t, abs_phase=False))
+        dp_int = phases[1].int_ - phases[0].int_
+        dp_frac = phases[1].frac - phases[0].frac
+        return (dp_int + dp_frac) / (2.0 * h)
+
+    def as_parfile(self, comment: Optional[str] = None,
+                   format: str = "pint") -> str:
+        """Par-file text in the ``pint``, ``tempo`` or ``tempo2`` dialect:
+        each set parameter's line, the model's own first, as its
+        :mod:`pint_torch.models.parameter` object writes it
+        (:func:`as_parameter`)."""
+        lines = ["# Created by pint_torch\n" if comment is None
+                 else f"# {comment}\n"]
+        if format.lower() != "pint":
+            lines.append(f"# Format: {format.lower()}\n")
+        for n, p in self.params_table.items():
+            if p.component != "TimingModel":
+                continue
+            par = as_parameter(self, n)
+            if par.value is not None and par.value != "" \
+                    and par.value is not False:
+                lines.append(par.as_parfile_line(format))
+        for comp in self.components.values():
+            for n in comp.params:
+                ln = as_parameter(self, n).as_parfile_line(format)
+                if ln:
+                    lines.append(ln)
+        return "".join(lines)
+
+    def write_parfile(self, path: str, comment: Optional[str] = None,
+                      format: str = "pint"):
+        """Write :meth:`as_parfile` to ``path``."""
+        with open(path, "w") as f:
+            f.write(self.as_parfile(comment, format=format))
+
+    def compare(self, other: "TimingModel", nodmx: bool = False,
+                threshold_sigma: float = 3.0, verbosity: str = "max") -> str:
+        """A table of each parameter in both models (value and
+        uncertainty), its change in units of each model's uncertainty and
+        a mark where either reaches ``threshold_sigma``; ``verbosity``
+        ``max`` every parameter, ``med`` changed or significant ones,
+        ``min`` significant ones, ``check`` only their names."""
+        def _fmt(par):
+            if par is None or par.value is None:
+                return "--"
+            try:
+                v = float(par.value)
+            except (TypeError, ValueError):
+                return str(par.value)
+            u = par.uncertainty
+            return f"{v:.10g}" + (f" +/- {float(u):.2g}" if u else "")
+
+        rows = [f"{'PARAMETER':<15} {'SELF':>28} {'OTHER':>28} "
+                f"{'Diff_Sigma1':>12} {'Diff_Sigma2':>12}"]
+        flagged = []
+        for p in self.params:
+            if self.params_table[p].component == "TimingModel" \
+                    or nodmx and p.startswith("DMX"):
+                continue
+            par1 = as_parameter(self, p)
+            par2 = as_parameter(other, p) if p in other else None
+            v1, v2 = par1.value, par2.value if par2 is not None else None
+            if v1 is None and v2 is None:
+                continue
+            sig1 = sig2 = None
+            try:
+                d = float(v2) - float(v1)
+                if par1.uncertainty:
+                    sig1 = d / float(par1.uncertainty)
+                if par2 is not None and par2.uncertainty:
+                    sig2 = d / float(par2.uncertainty)
+            except (TypeError, ValueError):
+                pass
+            crossed = any(s is not None and abs(s) >= threshold_sigma
+                          for s in (sig1, sig2))
+            if crossed:
+                flagged.append(p)
+            if verbosity == "min" and not crossed:
+                continue
+            if verbosity == "med" and v1 == v2 and not crossed:
+                continue
+            if verbosity == "check":
+                continue
+            s1 = f"{sig1:12.3f}" if sig1 is not None else f"{'--':>12}"
+            s2 = f"{sig2:12.3f}" if sig2 is not None else f"{'--':>12}"
+            mark = " !" if crossed else ""
+            rows.append(f"{p:<15} {_fmt(par1):>28} {_fmt(par2):>28} "
+                        f"{s1} {s2}{mark}")
+        if verbosity == "check":
+            return "\n".join(flagged)
+        if flagged:
+            rows.append(f"# parameters changed by >= {threshold_sigma} "
+                        f"sigma: {', '.join(flagged)}")
+        return "\n".join(rows)
+
+
+def _host_of(toas):
+    """The host :class:`~pint_torch.toa.TOAs` of ``toas`` (host TOAs, or a
+    batch frozen from them)."""
+    from pint_torch.exceptions import UsageError
+    from pint_torch.toa import TOAs
+
+    if isinstance(toas, TOAs):
+        return toas
+    host = getattr(toas, "host", None)
+    if host is None:
+        raise UsageError("this needs the host TOAs (a batch made by "
+                         "TOAs.to_batch carries them; a snapshot's does not)")
+    return host

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from pint_torch.models.chromatic import chromatic_scale
@@ -53,10 +54,9 @@ class _WaveXBase(DelayComponent):
         # grow missing sine/cosine partners with zero amplitude
         for i in idx:
             for pre in self.prefixes[1:]:
-                if f"{pre}{i:04d}" not in self._params_dict:
-                    ex = next(self._params_dict[p] for p in self.params
-                              if p.startswith(pre))
-                    self.add_param(ex.new_param(i, value=0.0))
+                if f"{pre}{i:04d}" not in self.params:
+                    self.add_param(self._exemplar(pre).new_param(
+                        i, value=0.0))
 
     def validate(self):
         ep = getattr(self, self.epoch_name)
@@ -69,6 +69,72 @@ class _WaveXBase(DelayComponent):
         for i in self.config["indices"]:
             if self._value(f"{pf}{i:04d}") in (None, 0.0):
                 raise MissingParameter(type(self).__name__, f"{pf}{i:04d}")
+
+    # -- adding and removing terms (reference ``wavex.py:63-123``) -------
+    def get_indices(self) -> np.ndarray:
+        """The indices of the terms in use."""
+        return np.array(self.config["indices"])
+
+    def _exemplar(self, pre):
+        """A member of the ``pre`` family (any: index 1 may be gone)."""
+        for p in self.params:
+            if p.startswith(pre):
+                return self._param_obj(p)
+        raise KeyError(f"No {pre} parameter left to use as an exemplar")
+
+    def _add_component(self, freq, index=None, sin=0.0, cos=0.0,
+                       frozen=True):
+        fpre, spre, cpre = self.prefixes
+        if index is None:
+            index = max(self.config["indices"], default=0) + 1
+        index = int(index)
+        if f"{fpre}{index:04d}" in self.params \
+                and self._value(f"{fpre}{index:04d}") is not None:
+            raise ValueError(f"Index {index} already in use ({fpre})")
+        table = self._parent.params_table
+        for pre, val, fr in ((fpre, float(freq), True),
+                             (spre, float(sin), frozen),
+                             (cpre, float(cos), frozen)):
+            nm = f"{pre}{index:04d}"
+            if nm in self.params:
+                table[nm].value = val
+                if pre != fpre:
+                    table[nm].frozen = bool(fr)
+            else:
+                self.add_param(self._exemplar(pre).new_param(
+                    index, value=val, frozen=bool(fr)))
+        self.setup()
+        self._parent._edited()
+        return index
+
+    def _remove_component(self, index) -> None:
+        idxs = {int(i) for i in np.atleast_1d(index)}
+        if idxs >= set(self.config["indices"]):
+            raise ValueError(
+                "Removing the last component would leave the model unable "
+                "to evaluate; delete the component instead")
+        for idx in idxs:
+            for pre in self.prefixes:
+                self.remove_param(f"{pre}{idx:04d}")
+        self.setup()
+        self._parent._edited()
+
+    def _add_components(self, freqs, indices=None, sins=0.0, coses=0.0,
+                        frozens=True):
+        freqs = np.atleast_1d(freqs)
+        n = len(freqs)
+        if indices is None:
+            start = max(self.config["indices"], default=0)
+            indices = list(range(start + 1, start + 1 + n))
+        sins = np.broadcast_to(np.atleast_1d(sins), (n,))
+        coses = np.broadcast_to(np.atleast_1d(coses), (n,))
+        frozens = np.broadcast_to(np.atleast_1d(frozens), (n,))
+        if len(set(int(i) for i in indices)) != n:
+            raise ValueError("Duplicate indices in add_components")
+        return [self._add_component(f, index=int(i), sin=si, cos=c,
+                                    frozen=bool(fr))
+                for f, i, si, c, fr in zip(freqs, indices, sins, coses,
+                                           frozens)]
 
     def series(self, pv, batch, acc_delay):
         ep = pv[self.epoch_name]
@@ -92,6 +158,24 @@ class WaveX(_WaveXBase):
     def delay_func(self, pv, batch, ctx, acc_delay):
         return self.series(pv, batch, acc_delay)
 
+    def add_wavex_component(self, wxfreq, index=None, wxsin=0,
+                            wxcos=0, frozen=True):
+        """Add one term (frequency [1/d], sine and cosine amplitudes,
+        their ``frozen``); returns its index."""
+        return self._add_component(wxfreq, index=index, sin=wxsin,
+                                   cos=wxcos, frozen=frozen)
+
+    def add_wavex_components(self, wxfreqs, indices=None, wxsins=0,
+                             wxcoses=0, frozens=True):
+        """Add several terms; returns their indices."""
+        return self._add_components(wxfreqs, indices=indices,
+                                    sins=wxsins, coses=wxcoses,
+                                    frozens=frozens)
+
+    def remove_wavex_component(self, index):
+        """Remove the term(s) ``index``."""
+        self._remove_component(index)
+
 
 class DMWaveX(_WaveXBase):
     """Fourier DM (reference ``wavex.py:180``)."""
@@ -110,6 +194,24 @@ class DMWaveX(_WaveXBase):
         freq = self.barycentric_freq(pv, batch)
         return dm * DMconst / (freq * freq)
 
+    def add_dmwavex_component(self, dmwxfreq, index=None, dmwxsin=0,
+                              dmwxcos=0, frozen=True):
+        """Add one term (frequency [1/d], sine and cosine amplitudes,
+        their ``frozen``); returns its index."""
+        return self._add_component(dmwxfreq, index=index, sin=dmwxsin,
+                                   cos=dmwxcos, frozen=frozen)
+
+    def add_dmwavex_components(self, dmwxfreqs, indices=None, dmwxsins=0,
+                               dmwxcoses=0, frozens=True):
+        """Add several terms; returns their indices."""
+        return self._add_components(dmwxfreqs, indices=indices,
+                                    sins=dmwxsins, coses=dmwxcoses,
+                                    frozens=frozens)
+
+    def remove_dmwavex_component(self, index):
+        """Remove the term(s) ``index``."""
+        self._remove_component(index)
+
 
 class CMWaveX(_WaveXBase):
     """Fourier chromatic measure (reference ``wavex.py:225``)."""
@@ -125,3 +227,21 @@ class CMWaveX(_WaveXBase):
         freq = self.barycentric_freq(pv, batch)
         return cm * DMconst * chromatic_scale(freq,
                                               pv.get("TNCHROMIDX", 4.0))
+
+    def add_cmwavex_component(self, cmwxfreq, index=None, cmwxsin=0,
+                              cmwxcos=0, frozen=True):
+        """Add one term (frequency [1/d], sine and cosine amplitudes,
+        their ``frozen``); returns its index."""
+        return self._add_component(cmwxfreq, index=index, sin=cmwxsin,
+                                   cos=cmwxcos, frozen=frozen)
+
+    def add_cmwavex_components(self, cmwxfreqs, indices=None, cmwxsins=0,
+                               cmwxcoses=0, frozens=True):
+        """Add several terms; returns their indices."""
+        return self._add_components(cmwxfreqs, indices=indices,
+                                    sins=cmwxsins, coses=cmwxcoses,
+                                    frozens=frozens)
+
+    def remove_cmwavex_component(self, index):
+        """Remove the term(s) ``index``."""
+        self._remove_component(index)

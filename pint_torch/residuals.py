@@ -3,9 +3,10 @@ Gaussian log-likelihood and the residual statistics (port of
 ``pint_tpu/residuals.py:22-334``).
 
 Phase residuals are the model phase's fractional part ('nearest' pulse
-tracking) -- the absolute phase, TZR TOA subtracted, where the model has
-an AbsPhase -- minus their weighted mean unless a PhaseOffset fits the
-offset; time residuals divide by F0.  The chi2 is diagonal without
+tracking, plus the TOAs' added pulses) or, under 'use_pulse_numbers', its
+integer part less the TOAs' pulse numbers plus its fraction -- the
+absolute phase, TZR TOA subtracted, where the model has an AbsPhase --
+minus their weighted mean unless a PhaseOffset fits the offset; time residuals divide by F0.  The chi2 is diagonal without
 correlated noise; otherwise the Sherman-Morrison form for ECORR alone
 with an explicit PhaseOffset, else the scaled-basis Woodbury form with the
 overall offset marginalized.  The statistics (weighted rms, means, the
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from pint_torch import F64
+from pint_torch.exceptions import UsageError
 from pint_torch.utils import sherman_morrison_dot, weighted_mean, woodbury_dot
 
 __all__ = ["Residuals"]
@@ -40,15 +42,16 @@ class Residuals:
     def __init__(self, batch, model, subtract_mean: bool = True,
                  use_weighted_mean: bool = True,
                  track_mode: Optional[str] = None):
-        """``track_mode`` other than None raises: pulse-number tracking
-        needs the whole TOA set (ROADMAP queue A item 10c); without pulse
-        numbers the reference resolves None to ``"nearest"``, which is what
-        these residuals compute."""
-        if track_mode is not None:
-            raise NotImplementedError(
-                f"Residuals(track_mode={track_mode!r}): pulse-number "
-                "tracking is ROADMAP queue A item 10c")
-        self.track_mode = "nearest"
+        """``batch`` a :class:`~pint_torch.toa.TOABatch` or host TOAs (the
+        model's batch of them, :meth:`TimingModel.batch_for`);
+        ``track_mode`` None is ``"use_pulse_numbers"`` where the TOAs carry
+        pulse numbers, else ``"nearest"`` (reference
+        ``residuals.py:33-36``)."""
+        batch = model.batch_for(batch)
+        if track_mode is None:
+            track_mode = "use_pulse_numbers" \
+                if batch.get_pulse_numbers() is not None else "nearest"
+        self.track_mode = track_mode
         self.batch = batch
         self.model = model
         self.subtract_mean = subtract_mean \
@@ -60,8 +63,19 @@ class Residuals:
     def calc_phase_resids(self) -> torch.Tensor:
         """Residual phase in cycles."""
         abs_phase = "AbsPhase" in self.model.components
-        resids = self.model.phase(self.batch, abs_phase=abs_phase).frac \
-            .clone()
+        ph = self.model.phase(self.batch, abs_phase=abs_phase)
+        dpn = self.batch.delta_pulse_number
+        if self.track_mode == "use_pulse_numbers":
+            pn = self.batch.get_pulse_numbers()
+            if pn is None:
+                raise UsageError(
+                    "track_mode=use_pulse_numbers but no pulse numbers")
+            resids = (ph.int_ - pn + (0.0 if dpn is None else dpn)) \
+                + ph.frac
+        else:
+            resids = ph.frac.clone()
+            if dpn is not None:
+                resids = resids + dpn
         if self.subtract_mean:
             err = self.batch.error_us
             if self.use_weighted_mean and not bool((err == 0).any()):

@@ -177,6 +177,20 @@ class TOABatch:
     #: ``{"clock_end": {site: last corrected MJD or None}, "ephem_span":
     #: [lo, hi] or None}``, or None
     coverage: Optional[dict] = None
+    #: (N,) the TOAs' pulse numbers and the added pulses (the reference's
+    #: ``pulse_number`` / ``delta_pulse_number`` columns; ``-pn`` flags
+    #: where every TOA carries one), float64 on the device, or None
+    pulse_number: Optional[torch.Tensor] = None
+    delta_pulse_number: Optional[torch.Tensor] = None
+    #: the host :class:`TOAs` the batch was frozen from (a subset's
+    #: rows), which the contexts of an edited model and the doctor's
+    #: flag checks read; None for a batch made from a snapshot
+    host: Optional["TOAs"] = field(default=None, repr=False, compare=False)
+    #: what each component's context was built for: {component name: its
+    #: signature (:meth:`TimingModel._context_signatures`), None where
+    #: unknown}, or None (a snapshot's contexts)
+    _ctx_sig: Optional[dict] = field(default=None, repr=False,
+                                     compare=False)
     _q: _Quarantine = field(default_factory=_Quarantine, init=False,
                             repr=False, compare=False)
     #: the reference's edit counter of its TOA set (``TOAs._version``, a
@@ -206,54 +220,55 @@ class TOABatch:
         return self._map(lambda x: x.to(device=device, dtype=F64),
                          lambda v: v.to(device) if torch.is_tensor(v) else v)
 
-    def select(self, mask, model=None,
-               standalone: bool = False) -> "TOABatch":
+    def select(self, mask, model=None) -> "TOABatch":
         """The batch of the TOAs where ``mask`` (N,) is true (the
         reference's ``toas[mask]``): every per-TOA tensor and host array
-        sliced, each row-local context (:data:`ROW_LOCAL_CONTEXTS`) sliced
-        along the TOA axis, ``tdb0``/``tdb_s`` re-derived as the
-        reference's ``to_batch`` does, the quarantine mask carried.  A
-        batch without contexts of its own takes ``model``'s (which it
-        then needs); one that carries them (a subset or a merge) slices
-        its own.  Contexts
-        that depend on the whole set (ECORR epochs, a basis without
-        ``TNREDTSPAN``) or that no rule slices are refused with
-        ``NotImplementedError`` (ROADMAP queue A item 10) -- unless
-        ``standalone``: the subset is then a TOA set of its own, evaluated
-        by itself as the reference's ``toas[mask]`` handed to a fresh
-        fitter is, so its ECORR epochs and data span are its own (the
-        noise components derive both from the batch they are given) and
-        those components' per-TOA masks slice along the TOA axis."""
+        sliced, ``tdb0``/``tdb_s`` re-derived as the reference's
+        ``to_batch`` does, the pulse-number columns and the quarantine
+        mask carried.  The subset is a TOA set of its own, as the
+        reference's ``toas[mask]`` is.  Its contexts are the batch's own
+        (or, for a batch without them, ``model``'s components'), each
+        row-local one (:data:`ROW_LOCAL_CONTEXTS`) sliced along the TOA
+        axis, with what each was built for; the contexts that depend on
+        the whole set (ECORR epochs, a basis over the data span without
+        ``TN*TSPAN``) are the noise components' masks sliced, from which
+        they derive them for the subset; any other comes from ``model``'s
+        context of the host subset (:meth:`TimingModel.host_contexts`),
+        which only a batch frozen from host TOAs has."""
         keep = np.asarray(mask, dtype=bool)
         if keep.shape != (self.ntoas,):
             raise ValueError(f"select: mask of shape {keep.shape} for "
                              f"{self.ntoas} TOAs")
+        host = None if self.host is None else self.host[keep]
         if self.contexts is not None:
-            src = self.contexts
+            src, sig = self.contexts, self._ctx_sig
         elif model is None:
-            raise ValueError("select: a batch without contexts of its own "
-                             "takes its model's; pass the model")
+            raise ValueError("select: a batch without contexts of its "
+                             "own takes its model's; pass the model")
         else:
             src = {n: c.context for n, c in model.components.items()
                    if c.context and n not in _NOT_PER_TOA}
+            sig = {n: c.__dict__.get("_ctx_for")
+                   for n, c in model.components.items()}
         dep = {} if model is None else _set_dependent(model)
-        if dep and not standalone:
+        other = [n for n, v in src.items() if v and n not in dep
+                 and n not in ROW_LOCAL_CONTEXTS]
+        if other and (host is None or model is None):
             raise NotImplementedError(
-                f"selecting TOAs whose contexts depend on the whole set "
-                f"({', '.join(f'{n} ({r})' for n, r in dep.items())}) is "
-                "ROADMAP queue A item 10")
-        other = [n for n in src if n not in ROW_LOCAL_CONTEXTS
-                 and not (standalone and n in dep)]
+                f"selecting TOAs whose components hold per-TOA contexts "
+                f"no rule slices ({other}) needs the batch's host TOAs "
+                "(TOAs.to_batch) and the model")
+        contexts = {k: _slice_ctx(v, keep, self.ntoas)
+                    for k, v in src.items() if k not in other}
         if other:
-            raise NotImplementedError(
-                f"selecting TOAs whose components hold per-TOA contexts no "
-                f"rule slices ({other}) is ROADMAP queue A item 10")
-        n = self.ntoas
+            fresh = model.host_contexts(host, device=self.device)
+            contexts.update((n, fresh[n]) for n in other)
+            sig = dict(sig or {})
+            sig.update((n, model._component_signature(n)) for n in other)
         idx = torch.as_tensor(np.flatnonzero(keep), device=self.device)
         out = self._map(lambda x: x.index_select(0, idx), None,
                         lambda a: a[keep])
-        out = replace(out, contexts={k: _slice_ctx(v, keep, n)
-                                     for k, v in src.items()})
+        out = replace(out, contexts=contexts, host=host, _ctx_sig=sig)
         tdb0, tdb_s = _rebased(out.tdb)
         out = replace(out, tdb0=tdb0, tdb_s=tdb_s)
         q = self._q
@@ -262,6 +277,26 @@ class TOABatch:
             out._q.reasons = [list(q.reasons[i])
                               for i in np.flatnonzero(keep)]
         return out
+
+    # -- pulse numbers (reference ``toa.py:548-562,811-839``) --------------
+    def get_pulse_numbers(self) -> Optional[torch.Tensor]:
+        """The pulse numbers (float64 on the device), or None."""
+        return self.pulse_number
+
+    def compute_pulse_numbers(self, model) -> torch.Tensor:
+        """Each TOA's nearest integer pulse number under ``model``: the
+        absolute phase's integer part plus its rounded fraction (reference
+        ``toa.py:557``), kept as this batch's column (the host TOAs it was
+        frozen from keep theirs)."""
+        ph = model.phase(self, abs_phase=True)
+        pn = ph.int_ + torch.round(ph.frac)
+        object.__setattr__(self, "pulse_number", pn)
+        return pn
+
+    def remove_pulse_numbers(self) -> None:
+        """Drop both pulse-number columns."""
+        object.__setattr__(self, "pulse_number", None)
+        object.__setattr__(self, "delta_pulse_number", None)
 
     # -- validation and quarantine (reference ``toa.py:314-391``) ---------
     @property
@@ -330,14 +365,13 @@ class TOABatch:
         m = self._q.mask
         return int(np.sum(m)) if m is not None else 0
 
-    def certified(self, model=None, standalone: bool = False) -> "TOABatch":
+    def certified(self, model=None) -> "TOABatch":
         """The rows :meth:`validate` did not quarantine (``self`` when
-        there are none); ``standalone`` as :meth:`select`'s."""
+        there are none)."""
         m = self._q.mask
         if m is None or not np.any(m):
             return self
-        return self.select(~np.asarray(m, dtype=bool), model,
-                           standalone=standalone)
+        return self.select(~np.asarray(m, dtype=bool), model)
 
     def quarantined(self, model=None) -> "TOABatch":
         """The quarantined rows (for inspection and repair)."""
@@ -364,6 +398,11 @@ class TOABatch:
             dm=None if self.dm is None else mv(self.dm),
             dm_error=None if self.dm_error is None else mv(self.dm_error),
             weights=None if self.weights is None else mv(self.weights),
+            pulse_number=None if self.pulse_number is None
+            else mv(self.pulse_number),
+            delta_pulse_number=None if self.delta_pulse_number is None
+            else mv(self.delta_pulse_number), host=self.host,
+            _ctx_sig=self._ctx_sig,
             contexts=None if self.contexts is None or ctx is None
             else {n: {k: ctx(v) for k, v in c.items()}
                   for n, c in self.contexts.items()})
@@ -428,6 +467,9 @@ def _merge_batches(batches) -> TOABatch:
                          "model first")
     if any(b.device != first.device for b in batches):
         raise ValueError("merge_TOAs: batches on different devices")
+    if any(b._ctx_sig != first._ctx_sig for b in batches):
+        raise ValueError("merge_TOAs: the batches' contexts were built for "
+                         "different model structures")
 
     def cat(get):
         vals = [get(b) for b in batches]
@@ -454,7 +496,11 @@ def _merge_batches(batches) -> TOABatch:
         if all(has_ctx) else None,
         ephem=first.ephem, weights=cat(lambda b: b.weights),
         mjd_lo=cat(lambda b: b.mjd_lo), obs=cat(lambda b: b.obs),
-        coverage=first.coverage)
+        coverage=first.coverage, pulse_number=cat(lambda b: b.pulse_number),
+        delta_pulse_number=cat(lambda b: b.delta_pulse_number),
+        host=_merge_host([b.host for b in batches])
+        if all(b.host is not None for b in batches) else None,
+        _ctx_sig=first._ctx_sig)
     if any(b.quarantine_mask is not None for b in batches):
         out._q.mask = np.concatenate([
             b.quarantine_mask if b.quarantine_mask is not None
@@ -474,7 +520,7 @@ def _observatory(name):
     return get_observatory(name)
 
 
-@dataclass(eq=False)  # identity hash: TOAs key the model's batch cache
+@dataclass(eq=False)  # identity: each table holds its own batches
 class TOAs:
     """Host TOA table: numpy arrays (longdouble UTC MJDs, flags,
     observatory names) and the pipeline's products."""
@@ -503,11 +549,16 @@ class TOAs:
     include_gps: bool = True
     bipm_version: str = "BIPM2021"
     planets: bool = False
+    #: (N,) float64 pulse numbers (NaN where a TOA has none) and added
+    #: pulses, or None (reference ``toa.py:181-182``)
+    pulse_number: Optional[np.ndarray] = None
+    delta_pulse_number: Optional[np.ndarray] = None
     #: the quarantine of :meth:`validate` (True: quarantined) and each
     #: row's reasons; carried through slicing, merging and pickling
     quarantine_mask: Optional[np.ndarray] = None
     quarantine_reasons: Optional[List[List[str]]] = None
-    #: bumped on every in-place change; the model's batch cache keys on it
+    #: bumped on every in-place change; the models' batches of the table
+    #: (:meth:`TimingModel.batch_of`) key on it
     _version: int = 0
 
     def __len__(self) -> int:
@@ -554,6 +605,11 @@ class TOAs:
                           + lo.astype(np.longdouble)), None
         return hi.astype(np.longdouble), lo
 
+    def __getstate__(self):
+        """The table without its models' device batches (``_batches``,
+        :meth:`TimingModel.batch_of`): a pickle or a copy makes its own."""
+        return {k: v for k, v in self.__dict__.items() if k != "_batches"}
+
     def __setstate__(self, state):
         """Pickles written before a field was added load with its
         default."""
@@ -575,6 +631,7 @@ class TOAs:
                       flags=[dict(self.flags[i]) for i in idx])
         for name in ("clock_corr_s", "tdb", "utc_mjd_lo", "tdb_lo",
                      "ssb_obs_pos_km", "ssb_obs_vel_kms", "obs_sun_pos_km",
+                     "pulse_number", "delta_pulse_number",
                      "quarantine_mask"):
             v = getattr(self, name)
             if v is not None:
@@ -788,6 +845,62 @@ class TOAs:
             fl["pp_dm"] = repr(float(dms[i]))
             if errors is not None:
                 fl["pp_dme"] = repr(float(errors[i]))
+        self._version += 1
+
+    # -- pulse numbers (reference ``toa.py:548-562,811-839``) --------------
+    def get_pulse_numbers(self) -> Optional[np.ndarray]:
+        """The pulse-number column, else the ``-pn`` flags where every TOA
+        carries one, else None."""
+        if self.pulse_number is not None:
+            return self.pulse_number
+        vals, valid = self.get_flag_value("pn", as_type=float)
+        if len(valid) == len(self):
+            return np.asarray(vals, dtype=np.float64)
+        if valid:
+            from pint_torch.logging import log
+
+            log.warning("Some but not all TOAs have pulse-number flags; "
+                        "ignoring")
+        return None
+
+    def compute_pulse_numbers(self, model) -> np.ndarray:
+        """Each TOA's nearest integer pulse number under ``model``: the
+        absolute phase's integer part plus its rounded fraction, evaluated
+        on the model's device."""
+        ph = model.phase(self, abs_phase=True)
+        self.pulse_number = (ph.int_ + torch.round(ph.frac)) \
+            .detach().cpu().numpy()
+        # the model's batch of these TOAs carries the column
+        self._version += 1
+        return self.pulse_number
+
+    def phase_columns_from_flags(self) -> None:
+        """The pulse-number column from the ``-pn`` flags (NaN where a TOA
+        has none; the flags are dropped) and, where any TOA carries
+        ``-padd``, the added pulses (0 elsewhere); raises without a
+        ``-pn`` flag."""
+        pn, valid = self.get_flag_value("pn", as_type=float)
+        if not valid:
+            raise InvalidTOAError(
+                "No pulse number flags (-pn) found in the TOAs")
+        col = np.full(len(self), np.nan)
+        for i in valid:
+            col[i] = pn[i]
+        self.pulse_number = col
+        for fl in self.flags:
+            fl.pop("pn", None)
+        padd, pvalid = self.get_flag_value("padd", as_type=float)
+        if pvalid:
+            d = np.zeros(len(self))
+            for i in pvalid:
+                d[i] = padd[i]
+            self.delta_pulse_number = d
+        self._version += 1
+
+    def remove_pulse_numbers(self) -> None:
+        """Drop both pulse-number columns."""
+        self.pulse_number = None
+        self.delta_pulse_number = None
         self._version += 1
 
     def get_clusters(self, gap_limit_hr: float = 2.0,
@@ -1053,6 +1166,7 @@ class TOAs:
             return torch.tensor(np.asarray(a, dtype=np.float64), dtype=F64,
                                 device=dev)
 
+        pn = self.get_pulse_numbers()
         dm = dm_err = None
         if self.wideband:
             dm = t([float(fl["pp_dm"]) for fl in self.flags])
@@ -1072,7 +1186,11 @@ class TOAs:
             contexts=None if model is None
             else model.host_contexts(self, device=dev),
             ephem=self.ephem, mjd_lo=self._mjd_lo(),
-            obs=np.asarray(self.obs).astype(str))
+            obs=np.asarray(self.obs).astype(str),
+            pulse_number=None if pn is None else t(pn),
+            delta_pulse_number=None if self.delta_pulse_number is None
+            else t(self.delta_pulse_number), host=self,
+            _ctx_sig=None if model is None else model._context_signatures())
 
 
 def select_toa_mask(par, toas) -> np.ndarray:
@@ -1616,7 +1734,8 @@ def _merge_host(toas_list: List[TOAs]) -> TOAs:
     else:
         out.tdb_lo = None
     for name in ("clock_corr_s", "ssb_obs_pos_km", "ssb_obs_vel_kms",
-                 "obs_sun_pos_km") + (() if tdb_pair else ("tdb",)):
+                 "obs_sun_pos_km", "pulse_number", "delta_pulse_number") \
+            + (() if tdb_pair else ("tdb",)):
         vals = [getattr(t, name) for t in toas_list]
         setattr(out, name, np.concatenate(vals)
                 if all(v is not None for v in vals) else None)

@@ -179,6 +179,7 @@ class WidebandTOAResiduals(CombinedResiduals):
 
     def __init__(self, batch, model, toa_resid_args: Optional[dict] = None,
                  dm_resid_args: Optional[dict] = None):
+        batch = model.batch_for(batch)
         self.batch = batch
         self._model = model
         toa = Residuals(batch, model, **(toa_resid_args or {}))
@@ -243,8 +244,8 @@ class WidebandTOAFitter(Fitter):
                  additional_args: Optional[dict] = None):
         """``additional_args`` ``{"toa": {...}, "dm": {...}}`` are the
         keywords of the TOA and DM residuals (reference
-        ``wideband.py:250-259``); ``track_mode`` other than None raises, as
-        ``Fitter``'s does (ROADMAP queue A item 10c)."""
+        ``wideband.py:250-259``); ``track_mode``, where given, is the TOA
+        residuals' (``additional_args["toa"]["track_mode"]``)."""
         self.additional_args = additional_args or {}
         if track_mode is not None:
             self.additional_args.setdefault("toa", {})["track_mode"] = \

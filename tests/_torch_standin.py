@@ -31,6 +31,13 @@ import os
 import tempfile
 
 import numpy as np
+import torch
+
+#: one intra-op thread a test process: the tests run six workers on eight
+#: cores, and torch's default of a thread a core oversubscribes them (six
+#: of the heaviest port test files: 206 s of wall at the default, 64 s at
+#: one thread; CHANGES.md, PR 24)
+torch.set_num_threads(1)
 
 #: generator settings of the full-width stand-in (recorded in the file)
 FULL_SETTINGS = dict(
@@ -3618,3 +3625,259 @@ def export_predict_gen(models: dict, arrays_by: dict, meta_by: dict) -> None:
                       "segLength": S["segLength"], "ncoeff": S["ncoeff"],
                       "obsFreq": S["obsFreq"], "members": names,
                       "member": names.index(n), "warned": warned}
+
+
+def snapshot_noise_bars(path, expect_cls):
+    """``Fitter.auto``'s fit of a committed snapshot with its noise
+    parameters freed, against the stored reference outputs."""
+    from pint_torch.bridge import load_snapshot, read_snapshot
+    from pint_torch.fitter import Fitter
+
+    meta, ref = read_snapshot(path)
+    rr = meta["reference"]
+    m, b = load_snapshot(path, device="cpu")
+    for p in rr["auto_noise_params"]:
+        m[p].frozen = False
+    f = Fitter.auto(b, m)
+    assert type(f).__name__ == rr["auto_fitter"] == expect_cls
+    chi2 = f.fit_toas()
+    assert abs(chi2 / rr["auto_chi2"] - 1) <= 1e-6
+    assert (bool(f.converged), f.iterations) == (rr["auto_converged"],
+                                                 rr["auto_iterations"])
+    for i, (got, want) in enumerate(zip(f.noise_fit_results,
+                                        rr["auto_noise_rounds"])):
+        assert (got.nit, got.converged) == (want["nit"], want["converged"])
+        assert abs(got.lnlike / want["lnlike"] - 1) <= 1e-9
+    names = rr["auto_noise_names"]
+    err = ref["ref/auto_noise_uncertainties"]
+    vals = np.array([f.model.value(p) for p in names])
+    assert np.abs((vals - ref["ref/auto_noise_values"]) / err).max() <= 1e-2
+    design = rr["postfit_params"]
+    sig = ref["ref/auto_uncertainties"]
+    vals = np.array([f.model.value(p) for p in design])
+    unc = np.array([f.model[p].uncertainty for p in design])
+    assert np.abs((vals - ref["ref/auto_values"]) / sig).max() <= 1e-2
+    assert np.abs(unc / sig - 1).max() <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the tracking layer's reference outputs (``ref/tracking/``)
+# ---------------------------------------------------------------------------
+#: what the tracking phase runs on each committed par and tim pair: the
+#: F0 offset in cycles over the span that wraps ngc's nearest-pulse
+#: residuals, the fits' ``maxiter``, ell1's walkers and steps and its
+#: three added WaveX frequencies [1/d], b1855's removed DMX windows, its
+#: parameter left out by ``ftest``, the rows its jump flags are put on
+TRACKING = dict(wrap_cycles=3.0, fit_maxiter=3, gls_maxiter=2,
+                nwalkers=32, nsteps=10,
+                wavex_freqs=(1.0 / 400.0, 1.0 / 250.0, 1.0 / 150.0),
+                dmx_removed=(2, 3), ftest_removed="FD3",
+                gui_rows=tuple(range(10)), pn_offset_every=3,
+                pn_missing=5, padd_rows=((7, "2"), (9, "-1")))
+
+
+def tracking_flags(flags, pn) -> None:
+    """Stamp the tracking phase's ``-pn``/``-padd`` flags: each TOA's pulse
+    number plus (its row mod ``pn_offset_every``), none on row
+    ``pn_missing``, ``-padd`` on ``padd_rows``."""
+    S = TRACKING
+    for i, fl in enumerate(flags):
+        if i != S["pn_missing"]:
+            fl["pn"] = repr(float(pn[i] + (i % S["pn_offset_every"])))
+    for i, v in S["padd_rows"]:
+        flags[i]["padd"] = v
+
+
+def _fit_record(prefix, f, chi2, arrays, meta):
+    names = list(f.model.free_params)
+    arrays[prefix + "values"] = np.array(
+        [float(getattr(f.model, p).value) for p in names])
+    arrays[prefix + "uncertainties"] = np.array(
+        [float(getattr(f.model, p).uncertainty) for p in names])
+    meta[prefix.split("/")[-2]] = dict(params=names, chi2=float(chi2),
+                                       converged=bool(f.converged))
+
+
+def _doctor_sections(text):
+    return [ln for ln in text.splitlines()[2:]
+            if not ln.startswith("Last solve:")]
+
+
+def _jump_state(model, toas):
+    return dict(flags=[dict(fl) for fl in toas.flags],
+                jumps={p: [getattr(model, p).key,
+                           [str(v) for v in getattr(model, p).key_value],
+                           float(getattr(model, p).value),
+                           bool(getattr(model, p).frozen)]
+                       for p in model.params if p.startswith("JUMP")})
+
+
+def export_tracking(which: str, par: str, tim: str) -> tuple:
+    """The reference's run of the tracking phase on a committed par and
+    tim pair: ``(arrays, meta)`` to store under ``ref/tracking/`` and
+    ``meta["reference"]["tracking"]``.  Every stand-in: the file model's
+    par text in each dialect, its first fit (GLS with correlated noise,
+    else WLS; values, uncertainties, chi2), ``compare`` of the file model
+    against it, the doctor's sections of that fit, ``d_phase_d_toa`` and
+    ``ftest`` adding F2 to Spindown.  ngc: the pulse numbers, the
+    residuals and the WLS fit in each ``track_mode`` with F0 off by
+    ``wrap_cycles`` over the span, and the columns of
+    ``phase_columns_from_flags`` on :func:`tracking_flags`.  b1855:
+    ``ftest`` removing ``ftest_removed``, the GLS fit with two DMX windows
+    removed, the jump editing's flags and jumps after each step, and the
+    first half by MJD: its ECORR epoch of each TOA and its GLS fit.
+    ell1: the prior box, 64 points' lnposterior with
+    ``use_pulse_numbers`` (and each point's chi2), a seeded
+    ``nwalkers`` x ``nsteps`` ``MCMCFitter`` chain from a seeded ball, and
+    the WLS fit with three WaveX terms added."""
+    import copy
+
+    from pint_tpu.bayesian import BayesianTiming
+    from pint_tpu.fitter import WLSFitter
+    from pint_tpu.gls_fitter import GLSFitter
+    from pint_tpu.mcmc_fitter import MCMCFitter
+    from pint_tpu.models import get_model_and_toas
+    from pint_tpu.models.parameter import prefixParameter
+    from pint_tpu.sampler import EnsembleSampler
+
+    S = TRACKING
+    arrays, meta = {}, {"settings": {k: (list(v) if isinstance(v, tuple)
+                                         else v) for k, v in S.items()}}
+    model, toas = get_model_and_toas(par, tim)
+    meta["parfile"] = {fmt: model.as_parfile(format=fmt)
+                       for fmt in ("pint", "tempo", "tempo2")}
+    gls = model.has_correlated_errors
+    cls = GLSFitter if gls else WLSFitter
+    maxiter = S["gls_maxiter"] if gls else S["fit_maxiter"]
+    f = cls(toas, model)
+    chi2 = f.fit_toas(maxiter=maxiter)
+    _fit_record("base/", f, chi2, arrays, meta)
+    meta["compare"] = {v: model.compare(f.model, verbosity=v)
+                       for v in ("max", "med", "min", "check")}
+    meta["doctor"] = _doctor_sections(f.doctor())
+    arrays["dphase"] = np.asarray(model.d_phase_d_toa(toas))
+    meta["ftest"] = {"add_F2": f.ftest(
+        prefixParameter("F2", value=0.0, units="Hz/s^2"), "Spindown",
+        full_output=True),
+        "base": [float(f.resids.chi2), int(f.resids.dof)]}
+    if which == "ngc":
+        t = copy.deepcopy(toas)
+        arrays["pn"] = np.asarray(t.compute_pulse_numbers(model))
+        mjd = np.asarray(t.get_mjds(), dtype=np.float64)
+        df0 = S["wrap_cycles"] / ((mjd.max() - mjd.min()) * 86400.0)
+        meta["df0"] = float(df0)
+        for mode in ("use_pulse_numbers", "nearest"):
+            mw = copy.deepcopy(model)
+            mw.F0.value = float(mw.F0.value) + df0
+            fw = WLSFitter(t, mw, track_mode=mode)
+            arrays[f"resid/{mode}"] = np.asarray(fw.resids.time_resids)
+            _fit_record(f"fit_{mode}/", fw,
+                        fw.fit_toas(maxiter=S["fit_maxiter"]), arrays, meta)
+        tf = copy.deepcopy(toas)
+        tracking_flags(tf.flags, arrays["pn"])
+        tf.phase_columns_from_flags()
+        arrays["flags_pn"] = np.asarray(tf.pulse_number)
+        arrays["flags_dpn"] = np.asarray(tf.delta_pulse_number)
+    if which == "b1855":
+        meta["ftest"]["remove"] = f.ftest(
+            getattr(f.model, S["ftest_removed"]), None, remove=True,
+            full_output=True)
+        md = copy.deepcopy(model)
+        md.components["DispersionDMX"].remove_DMX_range(
+            list(S["dmx_removed"]))
+        fd = GLSFitter(toas, md)
+        _fit_record("dmx_removed/", fd, fd.fit_toas(maxiter=maxiter),
+                    arrays, meta)
+        mj, tj = copy.deepcopy(model), copy.deepcopy(toas)
+        steps = {}
+        mj.components["PhaseJump"].jump_params_to_flags(tj)
+        steps["jump_params_to_flags"] = _jump_state(mj, tj)
+        for i in S["gui_rows"]:
+            tj.flags[i]["gui_jump"] = "2"
+        mj.jump_flags_to_params(tj)
+        steps["jump_flags_to_params"] = _jump_state(mj, tj)
+        mj.delete_jump_and_flags(tj, 2)
+        steps["delete_jump_and_flags"] = _jump_state(mj, tj)
+        meta["jumps"] = steps
+        mjd = np.asarray(toas.get_mjds(), dtype=np.float64)
+        keep = mjd < np.median(mjd)
+        sub = toas[keep]
+        ecorr = next(c for c in model.noise_components
+                     if getattr(c, "is_ecorr", False)
+                     or type(c).__name__ == "EcorrNoise")
+        U, _ = ecorr.basis_weight_pair(model, sub) \
+            if hasattr(ecorr, "basis_weight_pair") \
+            else model.noise_basis_by_component(sub)[:2]
+        U = np.asarray(U)
+        arrays["subset/ecorr_epoch"] = np.where(
+            U.any(axis=1), np.argmax(U != 0, axis=1), -1)
+        fs = GLSFitter(sub, model)
+        _fit_record("subset/", fs, fs.fit_toas(maxiter=maxiter), arrays,
+                    meta)
+    if which == "ell1":
+        from pint_tpu.models.wavex import WaveX
+
+        names = list(model.free_params)
+        unc = [float(getattr(f.model, p).uncertainty) for p in names]
+        info = bayes_prior_info(model, toas, names, unc)
+        pmin = np.array([info[p]["pmin"] for p in names])
+        pmax = np.array([info[p]["pmax"] for p in names])
+        values = np.array([float(getattr(model, p).value) for p in names])
+        pts, _ = bayes_points(values, pmin, pmax, BAYES_SEEDS["points"])
+        P = "bayes/"
+        arrays[P + "pmin"], arrays[P + "pmax"] = pmin, pmax
+        arrays[P + "points"] = pts
+        t = copy.deepcopy(toas)
+        bt = BayesianTiming(model, t, use_pulse_numbers=True,
+                            prior_info=info)
+        arrays[P + "pn"] = np.asarray(t.pulse_number)
+        arrays[P + "lnposterior"] = np.asarray(bt.lnposterior_batch(pts))
+        half = 0.5 * (pmax - pmin)
+        wide = {p: dict(distr="uniform", pmin=v - 100.0 * h,
+                        pmax=v + 100.0 * h)
+                for p, v, h in zip(names, values, half)}
+        bw = BayesianTiming(model, copy.deepcopy(toas),
+                            use_pulse_numbers=True, prior_info=wide)
+        lp_wide = np.asarray(bw.lnposterior_batch(pts))
+        lognorm = float(np.sum(np.log(np.asarray(
+            model.scaled_toa_uncertainty(toas)))))
+        lnpr_wide = np.array([bw.lnprior(x) for x in pts])
+        arrays[P + "chi2"] = -2.0 * (lp_wide - lnpr_wide + lognorm)
+        fm = MCMCFitter(copy.deepcopy(toas), model, use_pulse_numbers=True,
+                        prior_info=info,
+                        sampler=EnsembleSampler(
+                            S["nwalkers"], seed=BAYES_SEEDS["sampler"]))
+        for p, u in zip(names, unc):
+            getattr(fm.model, p).uncertainty = u
+        pos = fm.sampler.get_initial_pos(fm.fitkeys, fm.get_fitvals(),
+                                         fm.get_fiterrs(), fm.errfact,
+                                         seed=BAYES_SEEDS["pos"])
+        bad = ~np.isfinite(fm.bt.lnposterior_batch(pos))
+        pos[bad] = fm.get_fitvals()
+        arrays[P + "pos"] = pos.copy()
+        mchi2 = fm.fit_toas(maxiter=S["nsteps"], pos=pos)
+        chain = fm.sampler.get_chain()
+        prev = np.concatenate([arrays[P + "pos"][None], chain[:-1]])
+        arrays[P + "walker_chain"] = np.ascontiguousarray(
+            chain.transpose(1, 2, 0))
+        arrays[P + "lnprob"] = fm.sampler.get_log_prob()
+        arrays[P + "accepted"] = np.any(chain != prev, axis=2)
+        lnp = fm.sampler.get_log_prob(
+            flat=True, discard=int(chain.shape[0] * 0.25))
+        arrays[P + "maxpost_fitvals"] = np.asarray(fm.maxpost_fitvals)
+        arrays[P + "stds"] = np.array([fm.errors[p] for p in fm.fitkeys])
+        meta["bayes"] = dict(
+            params=names, nwalkers=S["nwalkers"], nsteps=S["nsteps"],
+            seeds=dict(BAYES_SEEDS), burn_frac=0.25, lognorm=lognorm,
+            acceptance=float(fm.sampler.acceptance_fraction),
+            naccepted=int(fm.sampler.naccepted),
+            maxpost_index=int(np.argmax(lnp)), chi2=float(mchi2))
+        mw = copy.deepcopy(model)
+        mw.add_component(WaveX(), validate=False)
+        mw.WXEPOCH.value = mw.PEPOCH.value
+        mw.components["WaveX"].add_wavex_components(
+            list(S["wavex_freqs"]), indices=[1, 2, 3], frozens=False)
+        fw = WLSFitter(toas, mw)
+        _fit_record("wavex/", fw, fw.fit_toas(maxiter=S["fit_maxiter"]),
+                    arrays, meta)
+    return arrays, meta

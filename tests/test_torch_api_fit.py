@@ -145,8 +145,16 @@ def test_fitter_accessors_match_reference(fits, live):
     want = fr.ftest(chi2_r * 1.3, fr.resids.dof + 3)
     assert abs(fp.ftest(chi2_p * 1.3, fp.resids.dof + 3) - want) \
         <= 1e-12 * want
-    with pytest.raises(NotImplementedError):
-        fp.ftest(fp.model["F1"], "Spindown")
+    # its add form: F2 added to Spindown, refit as the reference's
+    from pint_torch.models.parameter import prefixParameter
+    from pint_tpu.models.parameter import prefixParameter as RPrefix
+
+    got = fp.ftest(prefixParameter("F2", value=0.0, units="Hz/s^2"),
+                   "Spindown", full_output=True)
+    want = fr.ftest(RPrefix("F2", value=0.0, units="Hz/s^2"), "Spindown",
+                    full_output=True)
+    assert got["dof_test"] == want["dof_test"]
+    assert abs(got["chi2_test"] / want["chi2_test"] - 1) <= 1e-6
     # minimize_func and make_resids run the residuals at given values
     _, _, m, b = live("gls")
     c2 = fp.minimize_func([fp.model.value("F0")], ["F0"])

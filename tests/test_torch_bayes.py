@@ -321,15 +321,39 @@ def test_correlated_noise_is_refused():
         BayesianTiming(m, b, prior_info=_box(m))
 
 
-def test_unbounded_prior_and_pulse_numbers_are_refused():
+def test_unbounded_prior_refused_and_pulse_numbers_tracked(ell1):
+    """An unbounded prior is refused as the reference's is;
+    ``use_pulse_numbers=True`` computes the TOAs' pulse numbers and tracks
+    the scalar and the batched lnposterior by them, as the reference's,
+    within the lnposterior bar."""
+    import dataclasses
+
     from pint_torch.bayesian import BayesianTiming
     from pint_torch.bridge import NGC_PHOFF_PATH, load_snapshot
+    from pint_tpu.bayesian import BayesianTiming as RBT
 
     m, b = load_snapshot(NGC_PHOFF_PATH, device="cpu")
     with pytest.raises(NotImplementedError, match="Unbounded"):
         BayesianTiming(m, b)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        BayesianTiming(m, b, use_pulse_numbers=True, prior_info=_box(m))
+    b = dataclasses.replace(ell1["b"])
+    pbt = BayesianTiming(ell1["m"], b, use_pulse_numbers=True,
+                         prior_info=ell1["info"])
+    toas = ell1["toas"]
+    try:
+        rbt = RBT(ell1["model"], toas, use_pulse_numbers=True,
+                  prior_info=ell1["info"])
+        assert pbt.track_mode == rbt.track_mode == "use_pulse_numbers"
+        assert np.array_equal(b.pulse_number.numpy(), toas.pulse_number)
+        pts = ell1["pts"]
+        want = np.asarray(rbt.lnposterior_batch(pts))
+        got = pbt.lnposterior_batch(pts)
+        chi2 = _reference_chi2(ell1["model"], toas, ell1["info"], pts)
+        _lnpost_bar(got, want, chi2)
+        for x, c2 in list(zip(pts, chi2))[:3]:
+            assert abs(pbt.lnposterior(x) - rbt.lnposterior(x)) \
+                <= LNPOST_BAR * c2
+    finally:
+        toas.pulse_number = None
 
 
 def test_free_noise_parameter_takes_the_host_loop():

@@ -56,27 +56,23 @@ def reload_both(monkeypatch):
                                    "collect", "bogus", ""])
 def test_policy_variables_parse_as_the_references(reload_both, var, getter,
                                                   value):
-    """As the reference's, but a device policy other than ``warn``, whose
-    reader is item 8, raises, naming it."""
+    """As the reference's, the device policies ``strict`` and ``allow``
+    (which the preflight's ``check_device`` reads) included."""
     r, p = reload_both({var: value})
-    if var == "DEVICE_POLICY" and value in ("strict", "allow"):
-        assert r.device_policy() == value
-        with pytest.raises(NotImplementedError, match="item 8"):
-            p.device_policy()
-        return
     assert getattr(p, getter)() == getattr(r, getter)()
 
 
 @pytest.mark.parametrize("name,good", [
     ("set_device_policy", "warn"), ("set_ingestion_policy", "collect")])
 def test_policy_setters_refuse_as_the_references(reload_both, name, good):
-    """An unknown policy raises the reference's ``ValueError``; the port's
-    device policy takes ``warn`` only, ``strict`` and ``allow`` raising
-    ``NotImplementedError`` naming item 8."""
+    """Each policy sets as the reference's, ``strict`` and ``allow`` of
+    the device policy too; an unknown one raises the reference's
+    ``ValueError``."""
     r, p = reload_both({})
-    for bad in ("strict", "allow"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            p.set_device_policy(bad)
+    for dev in ("strict", "allow", "warn"):
+        for mod in (r, p):
+            mod.set_device_policy(dev)
+        assert p.device_policy() == r.device_policy() == dev
     for mod in (r, p):
         getattr(mod, name)(good)
     assert p.device_policy() == r.device_policy()

@@ -43,7 +43,8 @@ def _port_sources():
                     REPO / "tools" / "torch_k11_probe.py",
                     REPO / "tools" / "torch_amortized_probe.py",
                     REPO / "tools" / "torch_predict_probe.py",
-                    REPO / "tools" / "torch_files_probe.py"]
+                    REPO / "tools" / "torch_files_probe.py",
+                    REPO / "tools" / "torch_tracking_probe.py"]
 
 
 def test_import_and_load_pull_in_no_jax():
@@ -211,14 +212,16 @@ def test_entry_points_default_to_the_gpu():
                                     "autotune.records", "autotune.manifest",
                                     "autotune.__init__",
                                     "observatory.__init__",
-                                    "predict.__init__"])
+                                    "predict.__init__", "runtime.preflight",
+                                    "integrity.doctor"])
 def test_api_modules_import_no_jax(module):
     """The API's modules, the Bayesian and MCMC ones, the photon
     domain's, the streaming engine's, the serve batcher's, the
     quarantine gate's, the catalogue's, K10's and K11's wrappers, the
     precision layer's, the autotuner's records', the host layer's
-    observatories (with the timescales, ephemeris and Earth they import)
-    and the predict package (with K13, K14 and the polycos) import neither
+    observatories (with the timescales, ephemeris and Earth they import),
+    the predict package (with K13, K14 and the polycos), the preflight
+    and the doctor import neither
     ``jax`` nor ``pint_tpu`` (by their source, and in a fresh
     interpreter)."""
     path = REPO / "pint_torch" / f"{module.replace('.', '/')}.py"
@@ -237,15 +240,17 @@ def test_api_modules_import_no_jax(module):
                                    "MCMCFitterBinnedTemplate",
                                    "StreamingGLS", "ShapeBatcher",
                                    "JointLikelihood",
-                                   "tune_precision_segments"])
+                                   "tune_precision_segments", "doctor",
+                                   "check_device"])
 def test_api_entry_points_default_to_the_gpu(entry):
     """A user's call of ``PowellFitter``, ``tuple_chisq``,
     ``d_delay_d_param``, ``MCMCFitter`` (with its ``BayesianTiming``
     and ``EnsembleSampler``), the streaming engine or the serve batcher
     starts from a snapshot loaded on the default device, the card (the
-    batcher and its requests take ``device=None`` for it): without one it
-    raises ``NoGPUError``; on the CPU, asked for, each computes on its
-    batch's device."""
+    batcher and its requests take ``device=None`` for it), ``Fitter.doctor``
+    or the preflight's ``check_device`` starts on the default device, the
+    card: without one it raises ``NoGPUError``; on the CPU, asked for, each
+    computes on its batch's device."""
     from pint_torch import NoGPUError
     from pint_torch.bridge import NGC_PATH, load_snapshot
     from pint_torch.fitter import PowellFitter, WLSFitter
@@ -324,6 +329,18 @@ def test_api_entry_points_default_to_the_gpu(entry):
             assert jl.G.device == pairs[0][1].device
             assert np.isfinite(jl.lnlike(-14.0, 13.0 / 3.0))
             return jl.cross_batch(np.array([[-14.0, 4.0]]))
+        if entry == "doctor":
+            f = WLSFitter(b, m)
+            f.fit_toas()
+            assert "Device: cpu" in f.doctor()
+            return f.resids.time_resids
+        if entry == "check_device":
+            from pint_torch.runtime.preflight import check_device
+
+            prof = check_device(device=device)
+            assert prof.platform == "cpu" and prof.mantissa_bits == 52
+            return torch.tensor([prof.two_sum_error], dtype=torch.float64,
+                                device=device)
         if entry == "tune_precision_segments":
             from pint_torch.precision import tune_precision_segments
 

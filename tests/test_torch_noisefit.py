@@ -14,8 +14,9 @@ the same L-BFGS-B iterations and converged flag, lnlike 1e-9 rel -- and
 values at 1e-2 sigma and uncertainties 1e-4 rel.  The joint wideband
 likelihood (DMEFAC/DMEQUAD) on the small wideband stand-in; the tempo1
 RNAMP/RNIDX branch; TNEQ's and narrowband DMEFAC's exclusions.  The
-committed b1855_noise and b1855_wb snapshots' ``Fitter.auto`` noise fits
-at the same bars against their stored reference outputs.
+committed b1855_wb snapshot's ``Fitter.auto`` noise fit at the same bars
+against its stored reference outputs (b1855_noise's in
+``tests/test_torch_noisefit_b1855.py``).
 """
 
 import os
@@ -278,52 +279,12 @@ def test_tneq_and_narrowband_dm_scaling_are_left_out(small):
     assert "DMEFAC1" in free_noise_params(m2, wideband=True)
 
 
-def _snapshot_noise_bars(path, expect_cls):
-    """``Fitter.auto``'s fit of a committed snapshot with its noise
-    parameters freed, against the stored reference outputs."""
-    from pint_torch.bridge import load_snapshot, read_snapshot
-    from pint_torch.fitter import Fitter
-
-    meta, ref = read_snapshot(path)
-    rr = meta["reference"]
-    m, b = load_snapshot(path, device="cpu")
-    for p in rr["auto_noise_params"]:
-        m[p].frozen = False
-    f = Fitter.auto(b, m)
-    assert type(f).__name__ == rr["auto_fitter"] == expect_cls
-    chi2 = f.fit_toas()
-    assert abs(chi2 / rr["auto_chi2"] - 1) <= 1e-6
-    assert (bool(f.converged), f.iterations) == (rr["auto_converged"],
-                                                 rr["auto_iterations"])
-    for i, (got, want) in enumerate(zip(f.noise_fit_results,
-                                        rr["auto_noise_rounds"])):
-        assert (got.nit, got.converged) == (want["nit"], want["converged"])
-        assert abs(got.lnlike / want["lnlike"] - 1) <= 1e-9
-    names = rr["auto_noise_names"]
-    err = ref["ref/auto_noise_uncertainties"]
-    vals = np.array([f.model.value(p) for p in names])
-    assert np.abs((vals - ref["ref/auto_noise_values"]) / err).max() <= 1e-2
-    design = rr["postfit_params"]
-    sig = ref["ref/auto_uncertainties"]
-    vals = np.array([f.model.value(p) for p in design])
-    unc = np.array([f.model[p].uncertainty for p in design])
-    assert np.abs((vals - ref["ref/auto_values"]) / sig).max() <= 1e-2
-    assert np.abs(unc / sig - 1).max() <= 1e-4
-
-
-def test_committed_b1855_noise_fit_matches_reference():
-    """The 4005-TOA noise fit (14 parameters, Sigma ~536 x 536)."""
-    from pint_torch.bridge import NOISE_PATH
-
-    _snapshot_noise_bars(NOISE_PATH, "DownhillGLSFitter")
-
-
 def test_committed_wideband_noise_fit_matches_reference():
     """The joint TOA+DM noise fit of the 890-TOA wideband stand-in
     (DMEFAC, DMEQUAD and EFAC per receiver)."""
     from pint_torch.bridge import WB_PATH
 
-    _snapshot_noise_bars(WB_PATH, "WidebandDownhillFitter")
+    standin.snapshot_noise_bars(WB_PATH, "WidebandDownhillFitter")
 
 
 def test_update_noise_params_takes_the_non_negative_branch(small):

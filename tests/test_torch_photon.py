@@ -324,16 +324,22 @@ def test_min_max_mjd_selection(small):
     assert np.allclose(got, want, rtol=1e-12, atol=0)
 
 
-def test_select_refuses_per_toa_contexts(small):
-    """A batch whose model holds per-TOA contexts (DMX windows) cannot be
-    sliced by the port (item 10), with or without a selection that keeps
-    every TOA; a model without them slices every per-TOA tensor."""
+def test_select_slices_per_toa_contexts(small):
+    """A batch whose model holds per-TOA contexts (DMX windows, JUMP and
+    noise masks, ECORR epochs and a basis over the data span) slices into
+    a TOA set of its own, its residuals those of its rows; a selection
+    that keeps every TOA gives the batch's own residuals; a model without
+    contexts slices every per-TOA tensor."""
     from pint_torch.bridge import STANDIN_PATH, load_snapshot
+    from pint_torch.residuals import Residuals
 
     m, b = load_snapshot(STANDIN_PATH, device="cpu")
+    full = Residuals(b, m, subtract_mean=False).time_resids
     for keep in (np.arange(b.ntoas) % 2 == 0, np.ones(b.ntoas, bool)):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            b.select(keep, m)
+        sub = b.select(keep, m)
+        assert sub.ntoas == int(keep.sum())
+        got = Residuals(sub, m, subtract_mean=False).time_resids
+        assert torch.equal(got, full[torch.tensor(keep)])
     m, b = small["m"], small["b"]
     keep = np.arange(b.ntoas) % 2 == 0
     half = b.select(keep, m)

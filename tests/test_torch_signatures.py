@@ -29,6 +29,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 if HERE not in sys.path:
@@ -154,14 +155,17 @@ ALLOWED = {
         "its parameter table and components on a device, built by "
         "get_model or the bridge, not filled by add_component",
     "toa:TOABatch.__init__": "10b: the port's batch is a dataclass of "
-        "device tensors with its contexts, quarantine holder and host "
-        "columns; the reference's pulse-number fields wait for 10c",
+        "device tensors with its contexts, quarantine holder, host columns "
+        "and host TOAs",
     "toa:TOAs.to_batch": "10b: the batch's device, the model whose "
         "contexts it carries and the TZR flag (the port builds the TZR row "
         "on the host)",
     "toa:TOAs.write_TOA_file": "10b: the default TOA name is the port's "
         "package name",
-    "toa:TOAs.__init__": "10c: the pulse-number columns",
+    "runtime.preflight:DeviceProfile.__init__": "B13: the profile records "
+        "torch's version where the reference's records jax's",
+    "runtime.preflight:device_profile": TRAILING_DEVICE,
+    "runtime.preflight:check_device": TRAILING_DEVICE,
 }
 
 
@@ -263,8 +267,9 @@ def test_every_shared_signature_is_the_references_or_allowed():
     """C12's guard: every public signature the two packages share is the
     reference's, or its difference is in :data:`ALLOWED` with its reason:
     a trailing ``device=None`` (then exactly the reference's parameters
-    and that one), or the ROADMAP queue A item that owns it (6f, 8, 10b,
-    10c).  A new difference fails, and so does an entry no longer needed."""
+    and that one), or the ROADMAP item that owns it (queue A 6f, 8, 10b,
+    queue B 13).  A new difference fails, and so does an entry no longer
+    needed."""
     import re
 
     diffs = _shared_differences()
@@ -278,7 +283,7 @@ def test_every_shared_signature_is_the_references_or_allowed():
             assert pa[:-1] == pb and pa[-1][0] == "device" \
                 and pa[-1][2] is None, key
         else:
-            assert re.match(r"(6f|8|10b|10c)\b", why), (key, why)
+            assert re.match(r"(6f|8|10b|B13)\b", why), (key, why)
 
 
 @pytest.fixture(scope="module")
@@ -376,23 +381,43 @@ def test_wideband_fit_toas_positional_debug():
     assert np.abs(unc / sig - 1).max() <= 1e-6
 
 
-def test_track_mode_is_refused_naming_item_10c(wb_pair):
+def test_track_mode_reaches_the_wideband_toa_residuals(wb_pair):
+    """``track_mode`` (positional or through ``additional_args`` and
+    ``toa_resid_args``) reaches the wideband fitters' TOA residuals: None
+    resolves to ``nearest`` without pulse numbers, and under
+    ``use_pulse_numbers`` with the TOAs' pulse numbers computed the
+    residuals are the reference's (the TOA bar, 1e-10 s)."""
+    from pint_torch.exceptions import UsageError
     from pint_torch.residuals import Residuals
     from pint_torch.wideband import (WidebandDownhillFitter,
                                      WidebandLMFitter, WidebandTOAFitter,
                                      WidebandTOAResiduals)
+    from pint_tpu.wideband import WidebandTOAFitter as RW
 
-    _, _, m, b = wb_pair
+    model, toas, m, b = wb_pair
     assert Residuals(b, m, track_mode=None).track_mode == "nearest"
-    with pytest.raises(NotImplementedError, match="item 10c"):
-        Residuals(b, m, True, True, "nearest")
-    for cls in (WidebandTOAFitter, WidebandDownhillFitter, WidebandLMFitter):
-        with pytest.raises(NotImplementedError, match="item 10c"):
-            cls(b, m, "use_pulse_numbers")
-        with pytest.raises(NotImplementedError, match="item 10c"):
-            cls(b, m, additional_args={"toa": {"track_mode": "nearest"}})
-    with pytest.raises(NotImplementedError, match="item 10c"):
-        WidebandTOAResiduals(b, m, toa_resid_args={"track_mode": "nearest"})
+    assert Residuals(b, m, True, True, "nearest").track_mode == "nearest"
+    with pytest.raises(UsageError):
+        Residuals(b, m, track_mode="use_pulse_numbers").calc_phase_resids()
+    try:
+        b.compute_pulse_numbers(m)
+        toas.compute_pulse_numbers(model)
+        want = np.asarray(RW(toas, model, "use_pulse_numbers")
+                          .resids.toa.time_resids)
+        for cls in (WidebandTOAFitter, WidebandDownhillFitter,
+                    WidebandLMFitter):
+            for f in (cls(b, m, "use_pulse_numbers"),
+                      cls(b, m, additional_args={
+                          "toa": {"track_mode": "use_pulse_numbers"}})):
+                assert f.resids.toa.track_mode == "use_pulse_numbers"
+                got = f.resids.toa.time_resids.numpy()
+                assert np.abs(got - want).max() <= 1e-10
+        r = WidebandTOAResiduals(b, m,
+                                 toa_resid_args={"track_mode": "nearest"})
+        assert r.toa.track_mode == "nearest"
+    finally:
+        b.remove_pulse_numbers()
+        toas.pulse_number = None
 
 
 def test_run_toa_checks_checks_the_named_ephemeris(wb_pair, monkeypatch):
@@ -492,7 +517,10 @@ def test_gls_fit_refuses_plan_naming_item_9(gls_pair):
         GLSFitter(b, m).fit_toas(plan="auto")
 
 
-def test_fitter_takes_residuals_and_refuses_track_mode(wls_pair):
+def test_fitter_takes_residuals_and_track_mode(wls_pair):
+    """``residuals=`` are the fitter's first residuals; ``track_mode``
+    reaches every fitter's residuals (``nearest`` equal to the default's
+    without pulse numbers)."""
     from pint_torch.fitter import DownhillWLSFitter, Fitter, WLSFitter
     from pint_torch.gls_fitter import GLSFitter
     from pint_torch.residuals import Residuals
@@ -503,8 +531,9 @@ def test_fitter_takes_residuals_and_refuses_track_mode(wls_pair):
     assert f.resids is r
     assert DownhillWLSFitter(b, m, residuals=None).resids is not r
     for cls in (Fitter, WLSFitter, DownhillWLSFitter, GLSFitter):
-        with pytest.raises(NotImplementedError, match="item 10c"):
-            cls(b, m, track_mode="nearest")
+        f = cls(b, m, track_mode="nearest")
+        assert f.track_mode == f.resids.track_mode == "nearest"
+        assert torch.equal(f.resids.time_resids, r.time_resids)
     assert type(Fitter.auto(b, m, residuals=r)) is DownhillWLSFitter
 
 

@@ -554,7 +554,7 @@ API_DIGESTS = {
 #: ``meta["reference"]`` key alike, so each pins what its file held before
 LATER = {"ref/amortized_reduced/": "amortized_reduced",
          "ref/photon_mixed/": "photon_mixed", "ref/full_cov/": "full_cov",
-         "ref/files/": "files"}
+         "ref/files/": "files", "ref/tracking/": "tracking"}
 
 
 def _digest(path, skip=("ref/api/", "ref/bayes/", "ref/sweep/",
@@ -1105,6 +1105,30 @@ def _add_files(path: str, which: str) -> None:
           f"{f_meta['roundtrip_differs']})")
 
 
+def _add_tracking(path: str, which: str) -> None:
+    """Add the reference's run of the tracking phase on the stand-in's
+    committed par and tim files (:func:`_torch_standin.export_tracking`)
+    under ``ref/tracking/`` of the committed stand-in at ``path``; every
+    other array and the rest of ``meta`` stay as they are."""
+    from pint_torch.bridge import standin_files
+
+    if which not in FILES:
+        raise SystemExit(f"--tracking takes --settings {', '.join(FILES)}")
+    with np.load(path, allow_pickle=False) as z:
+        arrays = {k: z[k] for k in z.files
+                  if not k.startswith("ref/tracking/")}
+    meta = json.loads(str(arrays["meta"]))
+    before = _digest(path)
+    par, tim = standin_files(path)
+    t_arrays, t_meta = standin.export_tracking(which, str(par), str(tim))
+    arrays.update({f"ref/tracking/{k}": v for k, v in t_arrays.items()})
+    meta["reference"]["tracking"] = t_meta
+    arrays["meta"] = np.asarray(json.dumps(meta))
+    np.savez_compressed(path, **arrays)
+    if _digest(path) != before:
+        raise SystemExit("adding ref/tracking/ changed an earlier array")
+
+
 #: the committed stand-in of each P2 member
 PREDICT_FILES = {"b1855": "b1855_standin.npz", "ell1": "j1909_ell1_standin.npz",
                  "ddk": "j1713_ddk_standin.npz",
@@ -1267,6 +1291,11 @@ if __name__ == "__main__":
                          "PTA67_CATALOG_SETTINGS, SMALL_CATALOG_SETTINGS "
                          "(the PTA catalogue: ingest, buckets, fits, joint "
                          "likelihood, chain)")
+    ap.add_argument("--tracking", action="store_true",
+                    help="with --settings b1855, ell1 or ngc: add the "
+                         "reference's run of the tracking phase on the "
+                         "committed par and tim files (ref/tracking/) to "
+                         "the committed file at --write")
     ap.add_argument("--files", action="store_true",
                     help="write the stand-in's par and tim files beside the "
                          "committed file at --write and add the reference's "
@@ -1318,7 +1347,9 @@ if __name__ == "__main__":
                          "ddk and ddgr (and b1855's read path) to their "
                          "committed files in the directory --write")
     args = ap.parse_args()
-    if args.files:
+    if args.tracking:
+        _add_tracking(args.write, args.settings)
+    elif args.files:
         _add_files(args.write, args.settings)
     elif args.predict:
         _add_predict(args.write, args.settings)

@@ -19,7 +19,7 @@ factor 1e-9 of its largest entry.  Quarantine, release,
 ``apply_validation`` and the pen; ``stream_updates`` cut and resumed
 bitwise; the update door's coalescing and refusals; each context a block
 slices bitwise the reference's evaluation of the block alone; contexts
-that depend on the whole set still refused.
+that depend on the whole set derived from the subset.
 """
 
 import os
@@ -498,18 +498,20 @@ def test_sliced_contexts_equal_the_references_block_evaluation(small):
     assert np.array_equal(np.concatenate(wp), np.concatenate(wr))
 
 
-def test_set_dependent_contexts_still_refused():
+def test_set_dependent_contexts_come_from_the_subset():
     """ECORR epochs and a red-noise basis over the data span depend on the
-    whole set: selecting from their models stays ROADMAP item 10."""
-    from pint_torch.bridge import STANDIN_PATH, load_snapshot
+    whole set: a selected subset derives both from its own rows, as the
+    reference's ``toas[mask]`` does (noise bases and weights bitwise)."""
+    from pint_torch.toa import _set_dependent
 
-    m, b = load_snapshot(STANDIN_PATH, device="cpu")
-    keep = np.arange(b.ntoas) < 100
-    with pytest.raises(NotImplementedError, match="ECORR epochs"):
-        b.select(keep, m)
-    m.components.pop("EcorrNoise")
-    with pytest.raises(NotImplementedError, match="data span"):
-        b.select(keep, m)
+    model, toas, m, b = standin.port_and_reference(standin.SMALL_SETTINGS)
+    assert sorted(_set_dependent(m).values()) \
+        == ["ECORR epochs", "a basis over the data span"]
+    keep = np.arange(b.ntoas) < 40
+    Ur, wr, _ = model.noise_basis_by_component(toas[keep])
+    Up, wp, _ = m.noise_basis_by_component(b.select(keep, m))
+    assert np.array_equal(np.hstack(Up), np.hstack(Ur))
+    assert np.array_equal(np.concatenate(wp), np.concatenate(wr))
 
 
 def test_validate_gate_and_row_delta(small):
